@@ -1,0 +1,29 @@
+# Copyright 2026.
+#
+# Licensed under the Apache License, Version 2.0 (the "License");
+# you may not use this file except in compliance with the License.
+# You may obtain a copy of the License at
+#
+#     http://www.apache.org/licenses/LICENSE-2.0
+#
+# Unless required by applicable law or agreed to in writing, software
+# distributed under the License is distributed on an "AS IS" BASIS,
+# WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+# See the License for the specific language governing permissions and
+# limitations under the License.
+
+"""last_torch_tpu_torch: the GNAT lattice framework on PyTorch and CUDA.
+
+A port of the JAX package ``last_torch_tpu`` to PyTorch, with the Pallas
+TPU kernels rewritten by hand for NVIDIA Hopper. The JAX package stays the
+reference each part is held against. Ported so far: the serving path,
+``models.gnat.GNATModel.decode``, whose Viterbi forward runs in
+``csrc/viterbi.cu`` on the card. See ROADMAP.md for what follows.
+"""
+
+from last_torch_tpu_torch import alignments
+from last_torch_tpu_torch import contexts
+from last_torch_tpu_torch import weight_fns
+from last_torch_tpu_torch.lattices import RecognitionLattice
+
+__version__ = '0.1.0'

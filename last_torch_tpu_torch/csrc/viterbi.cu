@@ -1,0 +1,586 @@
+// Copyright 2026.
+//
+// Licensed under the Apache License, Version 2.0 (the "License");
+// you may not use this file except in compliance with the License.
+// You may obtain a copy of the License at
+//
+//     http://www.apache.org/licenses/LICENSE-2.0
+//
+// Unless required by applicable law or agreed to in writing, software
+// distributed under the License is distributed on an "AS IS" BASIS,
+// WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+// See the License for the specific language governing permissions and
+// limitations under the License.
+
+// Tropical (Viterbi) forward of the GNAT recognition lattice on Hopper.
+//
+// Replaces the Pallas TPU kernel
+// last_torch_tpu/ops/viterbi.py::_viterbi_forward_kernel (pallas_call at
+// viterbi.py:282), normalize='none'. For every frame t and batch row b:
+//
+//   joint[s]   = compute_dtype(tanh(pc[s] + pf[t, b]))          (f32 tanh)
+//   lex[s, y]  = joint[s] . vocab_w[:, y] + vocab_b[y]          (f32 sum)
+//   blank[s]   = joint[s] . blank_w + blank_b                   (f32 sum)
+//   red[y], arg[y] = max / argmax_s (vec[s] + lex[s, y])        (lowest s
+//                                                                wins ties)
+//   expand(red) = [-inf, red[0], ..., red[V-1]]                 (S = V + 1)
+//
+// with vec = alpha for the first max-pass of a frame and vec = expand(red)
+// of the previous pass for the k - 1 further passes of FrameLabelDependent
+// (k), then the FrameDependent / FrameLabelDependent update with its
+// winning expansion count jstar and the padding hold (padded frames keep
+// alpha and write jstar = 0).
+//
+// What bounds it here. Per frame and pass the head is a [B*S, h] x [h, V]
+// product: 2*B*S*V*h = 8.6 GFLOP at B=8, S=1025, V=1024, h=512, against
+// 8.6 MB of bf16 joint and 1 MB of vocab_w, so the work is compute-bound;
+// the state that must cross frames (alpha, [B, S] f32) is tiny.
+//
+// What the design does about it (first, simple version):
+// * The TPU grid carried alpha across (t, b) grid steps in VMEM scratch.
+//   Hopper blocks run in no order and carry nothing, so the time loop runs
+//   on the host side of this file: per frame one joint launch, a max-pass
+//   launch and a merge launch per pass, and one update launch, all on the
+//   caller's stream.
+// * The TPU kept a [Bt*S_pad, V] f32 lexical cache (up to 80 MB) in VMEM so
+//   the second max-pass of an FLD(2) frame skipped the matmul. A Hopper
+//   block has 227 KB, so the first pass stages lex for the frame in device
+//   memory ([B, S, V] f32, 34 MB at B=8, inside the 50 MB L2) and later
+//   passes read it back instead of recomputing the product (kComputeStore /
+//   kLoad). Measured on the H100 at B=8, T=1600: 419 ms staged against
+//   691 ms recomputed for the whole forward (PERF.md).
+// * A block owns a 64-label column strip of one batch row and one split of
+//   the states, walked in 64-row tiles; its running (max, argmax) per
+//   column stays in registers. B * V / 64 strips alone would put one block
+//   on each SM at B=8, V=1024, so the states are split until the grid has
+//   about four blocks per SM, and a small merge launch combines the splits.
+//   Every merge uses the same (value, lowest state) order, so ties resolve
+//   to the lowest s whatever the order of the merges.
+// * bfloat16 inputs multiply on the tensor cores through WMMA (mma.sync,
+//   float32 accumulation); float32 inputs, kept for exact comparison with
+//   the plain version, use float32 FMAs on the CUDA cores. wgmma, TMA and a
+//   pipelined producer/consumer shape are later work.
+// * No padding of V to 128 lanes or of S to a tile: the ragged edges are
+//   masked in the loads and in the reduction. Padding frames skip all work
+//   but the alpha hold (their arg rows are written 0).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <mma.h>
+
+namespace {
+
+using namespace nvcuda;
+
+constexpr int kBM = 64;   // state rows per tile
+constexpr int kBN = 64;   // label columns per block
+constexpr int kBK = 16;   // hidden depth per shared-memory stage (float32)
+constexpr int kWK = 64;   // hidden depth per shared-memory stage (WMMA)
+constexpr int kTM = 4;    // state rows per thread
+constexpr int kTN = 4;    // label columns per thread
+constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
+constexpr int kJointThreads = 128;
+constexpr int kUpdateThreads = 256;
+
+enum LexMode { kCompute = 0, kComputeStore = 1, kLoad = 2 };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch's cast
+}
+
+// The (value, state) order of the reduction: larger value first, then the
+// lower state index. Matches jnp.argmax within a tile plus the strict '>'
+// across tiles of the TPU kernel (viterbi.py:155-157).
+__device__ __forceinline__ bool beats(float v, int s, float best_v,
+                                      int best_s) {
+  return v > best_v || (v == best_v && s < best_s);
+}
+
+// joint[b, s, :] = cast(tanh(pc[s] + pf_t[b])); blank[b, s] = joint . bw + bb.
+// Grid (S, B), kJointThreads threads.
+template <typename T>
+__global__ void __launch_bounds__(kJointThreads)
+    joint_blank_kernel(const float* __restrict__ pf_t,  // [B, h]
+                       const int* __restrict__ is_pad_t,  // [B]
+                       const float* __restrict__ pc,    // [S, h]
+                       const T* __restrict__ bw,        // [h]
+                       const float* __restrict__ bb,    // [1]
+                       T* __restrict__ joint,           // [B, S, h]
+                       float* __restrict__ blank,       // [B, S]
+                       int S, int h) {
+  const int s = blockIdx.x;
+  const int b = blockIdx.y;
+  if (is_pad_t[b]) return;  // a padding frame's joint and blank are unused
+  const float* pc_row = pc + static_cast<size_t>(s) * h;
+  const float* pf_row = pf_t + static_cast<size_t>(b) * h;
+  T* out = joint + (static_cast<size_t>(b) * S + s) * h;
+  float partial = 0.f;
+  for (int k = threadIdx.x; k < h; k += kJointThreads) {
+    const T j = from_float<T>(tanhf(pc_row[k] + pf_row[k]));
+    out[k] = j;
+    partial = fmaf(to_float(j), to_float(bw[k]), partial);
+  }
+  __shared__ float warp_sums[kJointThreads / 32];
+  for (int o = 16; o > 0; o >>= 1) {
+    partial += __shfl_down_sync(0xffffffffu, partial, o);
+  }
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = partial;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.f;
+    for (int w = 0; w < kJointThreads / 32; ++w) total += warp_sums[w];
+    blank[static_cast<size_t>(b) * S + s] = total + bb[0];
+  }
+}
+
+// acc[i][j] = joint[s0 + ty*kTM + i] . vw[:, y0 + tx*kTN + j] for one
+// 64 x 64 tile, float32 inputs: FMAs on the CUDA cores from shared-memory
+// tiles, a 4 x 4 register tile per thread.
+__device__ __forceinline__ void tile_product(const float* __restrict__ joint_b,
+                                             const float* __restrict__ vw,
+                                             int s0, int y0, int S, int h,
+                                             int V, float (&acc)[kTM][kTN]) {
+  __shared__ float a_tile[kBK][kBM + 4];  // joint, transposed: [k][s]
+  __shared__ float b_tile[kBK][kBN];      // vocab_w: [k][y]
+  const int tid = threadIdx.x;
+  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  }
+  for (int k0 = 0; k0 < h; k0 += kBK) {
+    for (int idx = tid; idx < kBM * kBK; idx += kThreads) {
+      const int r = idx / kBK, c = idx % kBK;
+      const int s = s0 + r, k = k0 + c;
+      a_tile[c][r] = (s < S && k < h) ? joint_b[static_cast<size_t>(s) * h + k]
+                                      : 0.f;
+    }
+    for (int idx = tid; idx < kBK * kBN; idx += kThreads) {
+      const int r = idx / kBN, c = idx % kBN;
+      const int k = k0 + r, y = y0 + c;
+      b_tile[r][c] = (k < h && y < V) ? vw[static_cast<size_t>(k) * V + y]
+                                      : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float a[kTM], w[kTN];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) a[i] = a_tile[kk][ty * kTM + i];
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) w[j] = b_tile[kk][tx * kTN + j];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The same tile with bfloat16 inputs on the tensor cores (WMMA, float32
+// accumulation). Each of the 8 warps owns a 16 x 32 piece; the float32
+// result goes through shared memory into the threads' 4 x 4 layout.
+__device__ __forceinline__ void tile_product(
+    const __nv_bfloat16* __restrict__ joint_b,
+    const __nv_bfloat16* __restrict__ vw, int s0, int y0, int S, int h, int V,
+    float (&acc)[kTM][kTN]) {
+  constexpr int kLdA = kWK + 8, kLdB = kBN + 8, kLdC = kBN + 4;
+  __shared__ __align__(32) __nv_bfloat16 a_tile[kBM][kLdA];  // [s][k]
+  __shared__ __align__(32) __nv_bfloat16 b_tile[kWK][kLdB];  // [k][y]
+  __shared__ __align__(32) float c_tile[kBM][kLdC];
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int wm = warp / 2, wn = warp % 2;  // 4 x 2 warps over 64 x 64
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c_frag[2];
+  wmma::fill_fragment(c_frag[0], 0.f);
+  wmma::fill_fragment(c_frag[1], 0.f);
+  // With h and V multiples of 8, rows are 16-byte aligned and every group
+  // of 8 is wholly inside or outside the ragged edge: 16-byte loads.
+  const bool by16 = h % 8 == 0 && V % 8 == 0;
+  for (int k0 = 0; k0 < h; k0 += kWK) {
+    if (by16) {
+      const uint4 none = make_uint4(0, 0, 0, 0);
+      for (int idx = tid; idx < kBM * kWK / 8; idx += kThreads) {
+        const int r = idx / (kWK / 8), c = idx % (kWK / 8) * 8;
+        const int s = s0 + r, k = k0 + c;
+        *reinterpret_cast<uint4*>(&a_tile[r][c]) =
+            (s < S && k < h) ? *reinterpret_cast<const uint4*>(
+                                   joint_b + static_cast<size_t>(s) * h + k)
+                             : none;
+      }
+      for (int idx = tid; idx < kWK * kBN / 8; idx += kThreads) {
+        const int r = idx / (kBN / 8), c = idx % (kBN / 8) * 8;
+        const int k = k0 + r, y = y0 + c;
+        *reinterpret_cast<uint4*>(&b_tile[r][c]) =
+            (k < h && y < V) ? *reinterpret_cast<const uint4*>(
+                                   vw + static_cast<size_t>(k) * V + y)
+                             : none;
+      }
+    } else {
+      for (int idx = tid; idx < kBM * kWK; idx += kThreads) {
+        const int r = idx / kWK, c = idx % kWK;
+        const int s = s0 + r, k = k0 + c;
+        a_tile[r][c] = (s < S && k < h)
+                           ? joint_b[static_cast<size_t>(s) * h + k]
+                           : zero;
+      }
+      for (int idx = tid; idx < kWK * kBN; idx += kThreads) {
+        const int r = idx / kBN, c = idx % kBN;
+        const int k = k0 + r, y = y0 + c;
+        b_tile[r][c] = (k < h && y < V) ? vw[static_cast<size_t>(k) * V + y]
+                                        : zero;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kWK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                     wmma::row_major> a_frag;
+      wmma::load_matrix_sync(a_frag, &a_tile[wm * 16][kk], kLdA);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> b_frag;
+        wmma::load_matrix_sync(b_frag, &b_tile[kk][wn * 32 + n * 16], kLdB);
+        wmma::mma_sync(c_frag[n], a_frag, b_frag, c_frag[n]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    wmma::store_matrix_sync(&c_tile[wm * 16][wn * 32 + n * 16], c_frag[n],
+                            kLdC, wmma::mem_row_major);
+  }
+  __syncthreads();
+  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      acc[i][j] = c_tile[ty * kTM + i][tx * kTN + j];
+    }
+  }
+  __syncthreads();
+}
+
+// One max-pass over one split of the states for a 64-label strip of batch
+// row b: the split's (max, argmax) over s of vec[b, s] + lex[b, s, y].
+// Grid (ceil(V / kBN), splits, B), kThreads threads. Splitting the states
+// puts several blocks on every SM; merge_kernel combines the splits.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads)
+    max_pass_kernel(const T* __restrict__ joint,      // [B, S, h]
+                    const T* __restrict__ vw,         // [h, V]
+                    const float* __restrict__ vb,     // [V]
+                    const float* __restrict__ vec,    // [B, S]
+                    float* __restrict__ lex,          // [B, S, V] or unused
+                    float* __restrict__ part_v,       // [splits, B, V]
+                    int* __restrict__ part_s,         // [splits, B, V]
+                    const int* __restrict__ is_pad_t,  // [B]
+                    int S, int h, int V, int tiles_per_split) {
+  __shared__ float cand_v[kBM / kTM][kBN];
+  __shared__ int cand_s[kBM / kTM][kBN];
+
+  const int b = blockIdx.z;
+  if (is_pad_t[b]) return;  // padding frame: nothing of it is used
+  const int y0 = blockIdx.x * kBN;
+  const int s_begin = blockIdx.y * tiles_per_split * kBM;
+  const int s_end = min(S, s_begin + tiles_per_split * kBM);
+  const int B = gridDim.z;
+  const int tid = threadIdx.x;
+  const int tx = tid % (kBN / kTN);  // column group
+  const int ty = tid / (kBN / kTN);  // row group
+  const T* joint_b = joint + static_cast<size_t>(b) * S * h;
+  const float* vec_b = vec + static_cast<size_t>(b) * S;
+  float* lex_b = lex + static_cast<size_t>(b) * S * V;
+
+  float bias[kTN];
+#pragma unroll
+  for (int j = 0; j < kTN; ++j) {
+    const int y = y0 + tx * kTN + j;
+    bias[j] = y < V ? vb[y] : 0.f;
+  }
+  // Running (max, argmax) of column y0 + tid, held by threads tid < kBN.
+  float run_v = -INFINITY;
+  int run_s = INT_MAX;
+
+  for (int s0 = s_begin; s0 < s_end; s0 += kBM) {
+    float val[kTM][kTN];
+    if (MODE == kLoad) {
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const int s = s0 + ty * kTM + i;
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) {
+          const int y = y0 + tx * kTN + j;
+          val[i][j] = (s < S && y < V)
+                          ? lex_b[static_cast<size_t>(s) * V + y]
+                          : -INFINITY;
+        }
+      }
+    } else {
+      float acc[kTM][kTN];
+      tile_product(joint_b, vw, s0, y0, S, h, V, acc);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const int s = s0 + ty * kTM + i;
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) {
+          val[i][j] = acc[i][j] + bias[j];
+          const int y = y0 + tx * kTN + j;
+          if (MODE == kComputeStore && s < S && y < V) {
+            lex_b[static_cast<size_t>(s) * V + y] = val[i][j];
+          }
+        }
+      }
+    }
+
+    // This thread's best row per column, then the 16 row groups per column
+    // merged into the running (max, argmax).
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      float best_v = -INFINITY;
+      int best_s = INT_MAX;
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const int s = s0 + ty * kTM + i;
+        if (s < S) {
+          const float v = vec_b[s] + val[i][j];
+          if (beats(v, s, best_v, best_s)) {
+            best_v = v;
+            best_s = s;
+          }
+        }
+      }
+      cand_v[ty][tx * kTN + j] = best_v;
+      cand_s[ty][tx * kTN + j] = best_s;
+    }
+    __syncthreads();
+    if (tid < kBN) {
+      for (int r = 0; r < kBM / kTM; ++r) {
+        if (beats(cand_v[r][tid], cand_s[r][tid], run_v, run_s)) {
+          run_v = cand_v[r][tid];
+          run_s = cand_s[r][tid];
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (tid < kBN && y0 + tid < V) {
+    const size_t out = (static_cast<size_t>(blockIdx.y) * B + b) * V + y0 + tid;
+    part_v[out] = run_v;
+    part_s[out] = run_s;
+  }
+}
+
+// Merges the splits of a max-pass, in any order under `beats`:
+//   red[b, 1 + y], arg[b, y] = max / argmax over all states.
+// Writes red in expanded form (column 0 = -inf), the next pass's vec.
+// One thread per (b, y).
+__global__ void __launch_bounds__(kUpdateThreads)
+    merge_kernel(const float* __restrict__ part_v,  // [splits, B, V]
+                 const int* __restrict__ part_s,    // [splits, B, V]
+                 const int* __restrict__ is_pad_t,  // [B]
+                 float* __restrict__ red,           // [B, S]
+                 int* __restrict__ arg,             // row b at b * arg_stride
+                 int arg_stride, int splits, int B, int S, int V) {
+  const int idx = blockIdx.x * kUpdateThreads + threadIdx.x;
+  if (idx >= B * V) return;
+  const int b = idx / V, y = idx % V;
+  int* arg_out = arg + static_cast<size_t>(b) * arg_stride + y;
+  if (is_pad_t[b]) {  // padding frame: alpha is held; its arg row is 0
+    *arg_out = 0;
+    return;
+  }
+  float best_v = -INFINITY;
+  int best_s = INT_MAX;
+  for (int z = 0; z < splits; ++z) {
+    const size_t at = (static_cast<size_t>(z) * B + b) * V + y;
+    if (beats(part_v[at], part_s[at], best_v, best_s)) {
+      best_v = part_v[at];
+      best_s = part_s[at];
+    }
+  }
+  red[static_cast<size_t>(b) * S + 1 + y] = best_v;
+  // Only all-NaN columns leave best_s unset; report state 0 for them.
+  *arg_out = best_s == INT_MAX ? 0 : best_s;
+  if (y == 0) red[static_cast<size_t>(b) * S] = -INFINITY;
+}
+
+// The frame's alpha update (viterbi.py:177-202). One thread per (b, s).
+__global__ void __launch_bounds__(kUpdateThreads)
+    update_kernel(const float* __restrict__ alpha,   // [B, S]
+                  const float* __restrict__ blank,   // [B, S]
+                  const float* __restrict__ last,    // [passes, B, S]
+                  const int* __restrict__ is_pad_t,  // [B]
+                  float* __restrict__ alpha_out,     // [B, S]
+                  int* __restrict__ jstar_t,         // [B, S]
+                  int B, int S, int max_expansions, int frame_dependent) {
+  const int idx = blockIdx.x * kUpdateThreads + threadIdx.x;
+  if (idx >= B * S) return;
+  const int b = idx / S;
+  const float a = alpha[idx];
+  const float bl = blank[idx];
+  float new_a;
+  int js;
+  if (frame_dependent) {
+    // One blank-or-lexical arc: jstar 0 = blank (stay), 1 = lexical move.
+    const float stay = a + bl;
+    const float move = last[idx];
+    js = move > stay ? 1 : 0;
+    new_a = fmaxf(stay, move);
+  } else {
+    // Up to k lexical arcs then a blank; strict '>' keeps the smallest j.
+    float acc = a + bl;
+    js = 0;
+    for (int j = 1; j <= max_expansions; ++j) {
+      const float cand = last[static_cast<size_t>(j - 1) * B * S + idx] + bl;
+      if (cand > acc) {
+        acc = cand;
+        js = j;
+      }
+    }
+    new_a = acc;
+  }
+  if (is_pad_t[b]) {
+    new_a = a;
+    js = 0;
+  }
+  alpha_out[idx] = new_a;
+  jstar_t[idx] = js;
+}
+
+#define RETURN_IF_LAUNCH_FAILED()              \
+  do {                                         \
+    const cudaError_t err = cudaGetLastError(); \
+    if (err != cudaSuccess) return static_cast<int>(err); \
+  } while (0)
+
+template <typename T>
+int run_forward(const float* pf, const float* pc, const T* vw, const float* vb,
+                const T* bw, const float* bb, const int* is_pad, T* joint,
+                float* blank, float* lex, float* part_v, int* part_s,
+                float* last, float* alpha, int* arg, int* jstar,
+                int num_frames, int B, int S, int h, int V,
+                int max_expansions, int frame_dependent, int max_splits,
+                cudaStream_t stream) {
+  const int passes =
+      frame_dependent ? 1 : (max_expansions > 1 ? max_expansions : 1);
+  const bool stage = passes >= 2;
+  const size_t bs = static_cast<size_t>(B) * S;
+  const int tiles = (S + kBM - 1) / kBM;
+  const int tiles_per_split =
+      (tiles + max_splits - 1) / (max_splits > 0 ? max_splits : 1);
+  const int splits = (tiles + tiles_per_split - 1) / tiles_per_split;
+  const dim3 joint_grid(S, B);
+  const dim3 pass_grid((V + kBN - 1) / kBN, splits, B);
+  const int update_blocks =
+      static_cast<int>((bs + kUpdateThreads - 1) / kUpdateThreads);
+  const int merge_blocks = (B * V + kUpdateThreads - 1) / kUpdateThreads;
+  for (int t = 0; t < num_frames; ++t) {
+    const float* alpha_cur = alpha + (t % 2) * bs;
+    float* alpha_next = alpha + ((t + 1) % 2) * bs;
+    const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
+    joint_blank_kernel<T><<<joint_grid, kJointThreads, 0, stream>>>(
+        pf + static_cast<size_t>(t) * B * h, is_pad_t, pc, bw, bb, joint,
+        blank, S, h);
+    RETURN_IF_LAUNCH_FAILED();
+    const float* vec = alpha_cur;
+    for (int j = 0; j < passes; ++j) {
+      if (!stage) {
+        max_pass_kernel<T, kCompute><<<pass_grid, kThreads, 0, stream>>>(
+            joint, vw, vb, vec, lex, part_v, part_s, is_pad_t, S, h, V,
+            tiles_per_split);
+      } else if (j == 0) {
+        max_pass_kernel<T, kComputeStore><<<pass_grid, kThreads, 0, stream>>>(
+            joint, vw, vb, vec, lex, part_v, part_s, is_pad_t, S, h, V,
+            tiles_per_split);
+      } else {
+        max_pass_kernel<T, kLoad><<<pass_grid, kThreads, 0, stream>>>(
+            joint, vw, vb, vec, lex, part_v, part_s, is_pad_t, S, h, V,
+            tiles_per_split);
+      }
+      RETURN_IF_LAUNCH_FAILED();
+      float* red = last + j * bs;
+      merge_kernel<<<merge_blocks, kUpdateThreads, 0, stream>>>(
+          part_v, part_s, is_pad_t, red,
+          arg + (static_cast<size_t>(t) * B * passes + j) * V, passes * V,
+          splits, B, S, V);
+      RETURN_IF_LAUNCH_FAILED();
+      vec = red;
+    }
+    update_kernel<<<update_blocks, kUpdateThreads, 0, stream>>>(
+        alpha_cur, blank, last, is_pad_t, alpha_next,
+        jstar + static_cast<size_t>(t) * bs, B, S, max_expansions,
+        frame_dependent);
+    RETURN_IF_LAUNCH_FAILED();
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Runs the whole forward on `stream` and returns the first launch error
+// (0 on success). The caller allocates everything; the final alpha is left
+// in slot num_frames % 2 of `alpha` ([2, B, S], slot 0 holds alpha0 on
+// entry). dtype 0 = float32, 1 = bfloat16 for vw, bw and joint. `lex`
+// ([B, S, V]) is used, and needed, only with two or more passes per frame,
+// where the first stages the frame's lexical scores for the others. part_v
+// / part_s hold
+// [max_splits, B, V] per-split maxima; the states split into at most
+// max_splits ranges of whole 64-state tiles.
+int viterbi_forward(int dtype, const float* pf, const float* pc,
+                    const void* vw, const float* vb, const void* bw,
+                    const float* bb, const int* is_pad, void* joint,
+                    float* blank, float* lex, float* part_v, int* part_s,
+                    float* last, float* alpha, int* arg, int* jstar,
+                    int num_frames, int B, int S, int h, int V,
+                    int max_expansions, int frame_dependent, int max_splits,
+                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return run_forward<float>(
+        pf, pc, static_cast<const float*>(vw), vb,
+        static_cast<const float*>(bw), bb, is_pad,
+        static_cast<float*>(joint), blank, lex, part_v, part_s, last, alpha,
+        arg, jstar, num_frames, B, S, h, V, max_expansions, frame_dependent,
+        max_splits, s);
+  }
+  if (dtype == 1) {
+    return run_forward<__nv_bfloat16>(
+        pf, pc, static_cast<const __nv_bfloat16*>(vw), vb,
+        static_cast<const __nv_bfloat16*>(bw), bb, is_pad,
+        static_cast<__nv_bfloat16*>(joint), blank, lex, part_v, part_s, last,
+        alpha, arg, jstar, num_frames, B, S, h, V, max_expansions,
+        frame_dependent, max_splits, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+const char* viterbi_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,0 +1,335 @@
+# Copyright 2026.
+#
+# Licensed under the Apache License, Version 2.0 (the "License");
+# you may not use this file except in compliance with the License.
+# You may obtain a copy of the License at
+#
+#     http://www.apache.org/licenses/LICENSE-2.0
+#
+# Unless required by applicable law or agreed to in writing, software
+# distributed under the License is distributed on an "AS IS" BASIS,
+# WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+# See the License for the specific language governing permissions and
+# limitations under the License.
+
+"""Viterbi forward kernel for Hopper, its plain version, and the backtrace.
+
+Counterpart of ``last_torch_tpu/ops/viterbi.py``. The tropical forward scan
+(``_viterbi_forward_kernel`` there, a Pallas TPU kernel) is
+``csrc/viterbi.cu`` here, reached through ``viterbi_forward``: on a CUDA
+tensor it launches the kernel, on a CPU tensor it runs
+``viterbi_forward_plain``, the same function in plain PyTorch. The
+backtrace is plain PyTorch on the device, a reverse loop of gathers, as the
+JAX package's is plain XLA.
+
+Scope matches the JAX package's decode gate (``supported``): MaxTropical
+over a bigram ``FullNGram`` with ``JointWeightFn`` and ``FrameDependent`` /
+``FrameLabelDependent``, one batch dimension, normalize='none'. The hat /
+log-softmax in-kernel normalization is still to port (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from collections.abc import Callable
+from typing import Any
+
+import torch
+
+from last_torch_tpu_torch import alignments, contexts, weight_fns
+
+# Forward calls that launched the CUDA kernel, for runs that must show the
+# decode went through it. Only ``viterbi_forward`` on a CUDA tensor counts.
+launches = 0
+
+_LIB = None
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel's tile sizes (csrc/viterbi.cu: kBM, kBN), and how many blocks
+# per SM the max-pass grid aims for by splitting the states across blocks.
+_STATES_PER_TILE = 64
+_LABELS_PER_BLOCK = 64
+_BLOCKS_PER_SM = 4
+
+
+def supported(lattice, frames: torch.Tensor) -> bool:
+  """Whether the Viterbi kernel (and its plain version) covers a decode.
+
+  The structural half of ``last_torch_tpu.ops.fused_scan.supported``; the
+  TPU's small-vocabulary and VMEM rules do not apply here.
+  """
+  return (type(lattice.weight_fn) is weight_fns.JointWeightFn and
+          isinstance(lattice.context, contexts.FullNGram) and
+          lattice.context.context_size == 1 and
+          isinstance(lattice.alignment, (alignments.FrameDependent,
+                                         alignments.FrameLabelDependent)) and
+          frames.ndim == 3)
+
+
+def num_tables(max_expansions: int, frame_dependent: bool) -> int:
+  """K, the max-passes per frame: one argmax table [V] per pass."""
+  return 1 if frame_dependent else max(max_expansions, 1)
+
+
+def _check_inputs(pf, pc, params, is_pad, compute_dtype):
+  device = pf.device
+  if pf.ndim != 3 or pc.ndim != 2 or is_pad.ndim != 2:
+    raise ValueError('expected pf [T, B, h], pc [S, h] and is_pad [T, B], '
+                     f'got {tuple(pf.shape)}, {tuple(pc.shape)} and '
+                     f'{tuple(is_pad.shape)}')
+  max_t, batch, hidden = pf.shape
+  num_states = pc.shape[0]
+  vocab = params['vocab_w'].shape[-1]
+  expected = {
+      'pf': (pf, (max_t, batch, hidden), torch.float32),
+      'pc': (pc, (num_states, hidden), torch.float32),
+      'is_pad': (is_pad, (max_t, batch), torch.bool),
+      'vocab_w': (params['vocab_w'], (hidden, vocab), torch.float32),
+      'vocab_b': (params['vocab_b'], (vocab,), torch.float32),
+      'blank_w': (params['blank_w'], (hidden,), torch.float32),
+      'blank_b': (params['blank_b'], (), torch.float32),
+  }
+  for name, (x, shape, dtype) in expected.items():
+    if tuple(x.shape) != shape or x.dtype != dtype:
+      raise ValueError(f'{name} should be {dtype} of shape {shape}, got '
+                       f'{x.dtype} of shape {tuple(x.shape)}')
+    if x.device != device:
+      raise ValueError(f'{name} is on {x.device}, pf on {device}')
+    if not x.is_contiguous():
+      raise ValueError(f'{name} must be contiguous')
+  if num_states != vocab + 1:
+    raise ValueError('the Viterbi kernel needs a bigram FullNGram '
+                     f'(S = V + 1), got S={num_states}, V={vocab}')
+  if compute_dtype not in _DTYPE_CODES:
+    raise ValueError(f'compute_dtype must be float32 or bfloat16, got '
+                     f'{compute_dtype}')
+
+
+def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
+                    is_pad: torch.Tensor, *, max_expansions: int,
+                    frame_dependent: bool, compute_dtype: torch.dtype):
+  """Tropical forward scan: the kernel on CUDA, the plain version on CPU.
+
+  Args:
+    pf: [T, B, h] float32 projected frames (``frames @ frame_proj``).
+    pc: [S, h] float32 projected context states (``cache @ context_proj``).
+    params: JointWeightFn parameters (``vocab_w``, ``vocab_b``,
+      ``blank_w``, ``blank_b``), float32.
+    is_pad: [T, B] bool, True on padding frames.
+    max_expansions: k of FrameLabelDependent (ignored for FrameDependent).
+    frame_dependent: FrameDependent (True) or FrameLabelDependent (False).
+    compute_dtype: torch.float32 or torch.bfloat16, the type the joint and
+      the head weights are rounded to before the float32 products.
+
+  Returns:
+    (arg [T, B, K, V] int32, jstar [T, B, S] int32, alpha [B, S] float32):
+    the best source state per (pass, label), the winning expansion count
+    per state, and the final forward weights. Padding frames hold alpha
+    and have jstar and arg 0 (the backtrace never reads their arg; the TPU
+    kernel computed it anyway, the kernel here skips their work).
+  """
+  global launches
+  _check_inputs(pf, pc, params, is_pad, compute_dtype)
+  if pf.device.type == 'cpu':
+    return viterbi_forward_plain(
+        pf, pc, params, is_pad, max_expansions=max_expansions,
+        frame_dependent=frame_dependent, compute_dtype=compute_dtype)
+  if pf.device.type != 'cuda':
+    raise ValueError(f'no Viterbi kernel for device {pf.device}')
+
+  lib = library()
+  max_t, batch, hidden = pf.shape
+  num_states = pc.shape[0]
+  vocab = params['vocab_w'].shape[-1]
+  k = num_tables(max_expansions, frame_dependent)
+  device = pf.device
+  vw = params['vocab_w'].to(compute_dtype).contiguous()
+  bw = params['blank_w'].to(compute_dtype).contiguous()
+  pad = is_pad.to(torch.int32)
+  joint = torch.empty((batch, num_states, hidden), dtype=compute_dtype,
+                      device=device)
+  blank = torch.empty((batch, num_states), device=device)
+  # With two or more max-passes per frame the first stages the frame's
+  # lexical scores here for the others (faster than recomputing them on the
+  # H100 at the serving shapes; PERF.md).
+  lex = (torch.empty((batch, num_states, vocab), device=device)
+         if k >= 2 else None)
+  strips = -(-vocab // _LABELS_PER_BLOCK)
+  tiles = -(-num_states // _STATES_PER_TILE)
+  sms = torch.cuda.get_device_properties(device).multi_processor_count
+  splits = max(1, min(tiles, -(-_BLOCKS_PER_SM * sms // (strips * batch))))
+  part_v = torch.empty((splits, batch, vocab), device=device)
+  part_s = torch.empty((splits, batch, vocab), dtype=torch.int32,
+                       device=device)
+  last = torch.empty((k, batch, num_states), device=device)
+  alpha = torch.full((2, batch, num_states), float('-inf'), device=device)
+  alpha[0, :, 0] = 0.0
+  arg = torch.empty((max_t, batch, k, vocab), dtype=torch.int32,
+                    device=device)
+  jstar = torch.empty((max_t, batch, num_states), dtype=torch.int32,
+                      device=device)
+  ptr = lambda x: None if x is None else x.data_ptr()
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = lib.viterbi_forward(
+        _DTYPE_CODES[compute_dtype], ptr(pf), ptr(pc), ptr(vw),
+        ptr(params['vocab_b']), ptr(bw), ptr(params['blank_b']), ptr(pad),
+        ptr(joint), ptr(blank), ptr(lex), ptr(part_v), ptr(part_s),
+        ptr(last), ptr(alpha), ptr(arg), ptr(jstar), max_t, batch,
+        num_states, hidden, vocab, max_expansions, int(frame_dependent),
+        splits, stream)
+  if status != 0:
+    raise RuntimeError('Viterbi kernel launch failed: '
+                       f'{lib.viterbi_error_string(status).decode()}')
+  launches += 1
+  return arg, jstar, alpha[max_t % 2]
+
+
+def library() -> ctypes.CDLL:
+  """The kernel library, built from csrc/viterbi.cu at first use."""
+  global _LIB
+  if _LIB is None:
+    from last_torch_tpu_torch.ops import build
+    lib = build.load('viterbi.cu')
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.viterbi_forward.argtypes = [i] + [p] * 16 + [i] * 8 + [p]
+    lib.viterbi_forward.restype = i
+    lib.viterbi_error_string.argtypes = [i]
+    lib.viterbi_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+  return _LIB
+
+
+def viterbi_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
+                          params: dict[str, Any], is_pad: torch.Tensor, *,
+                          max_expansions: int, frame_dependent: bool,
+                          compute_dtype: torch.dtype):
+  """The kernel's function in plain PyTorch (same arguments and outputs).
+
+  With compute_dtype bfloat16 the joint and the head weights are rounded to
+  bfloat16 and back, then multiplied in float32, so on the card this and
+  the kernel differ only in summation order, provided float32 matmuls do
+  not use TF32 (``torch.backends.cuda.matmul.allow_tf32 = False``, the
+  default).
+  """
+  max_t, batch, _ = pf.shape
+  num_states = pc.shape[0]
+  k = num_tables(max_expansions, frame_dependent)
+  rnd = lambda x: x.to(compute_dtype).float()
+  vw, vb = rnd(params['vocab_w']), params['vocab_b']
+  bw, bb = rnd(params['blank_w']), params['blank_b']
+  vocab = vw.shape[-1]
+  alpha = torch.full((batch, num_states), float('-inf'), device=pf.device)
+  alpha[:, 0] = 0.0
+  arg = torch.empty((max_t, batch, k, vocab), dtype=torch.int32,
+                    device=pf.device)
+  jstar = torch.empty((max_t, batch, num_states), dtype=torch.int32,
+                      device=pf.device)
+  start_col = torch.full((batch, 1), float('-inf'), device=pf.device)
+
+  for t in range(max_t):
+    joint = rnd(torch.tanh(pc[None] + pf[t][:, None]))  # [B, S, h]
+    lex = joint @ vw + vb  # [B, S, V]
+    blank = joint @ bw + bb  # [B, S]
+
+    def max_pass(vec):
+      # First index among equal maxima, as jnp.argmax; returned expanded.
+      red, best = torch.max(vec[:, :, None] + lex, dim=1)
+      return torch.cat([start_col, red], dim=1), best.to(torch.int32)
+
+    last, arg[t, :, 0] = max_pass(alpha)
+    if frame_dependent:
+      stay = alpha + blank
+      alpha_new = torch.maximum(stay, last)
+      js = (last > stay).to(torch.int32)
+    else:
+      acc = alpha + blank
+      js = torch.zeros_like(alpha, dtype=torch.int32)
+      for j in range(1, max_expansions + 1):
+        cand = last + blank
+        better = cand > acc
+        acc = torch.where(better, cand, acc)
+        js = torch.where(better, j, js)
+        if j < max_expansions:
+          last, arg[t, :, j] = max_pass(last)
+      alpha_new = acc
+    pad = is_pad[t][:, None]
+    alpha = torch.where(pad, alpha, alpha_new)
+    jstar[t] = torch.where(pad, 0, js)
+  arg.masked_fill_(is_pad[:, :, None, None], 0)
+  return arg, jstar, alpha
+
+
+def backtrace(arg: torch.Tensor, jstar: torch.Tensor, alpha: torch.Tensor,
+              is_pad: torch.Tensor, *, max_expansions: int,
+              frame_dependent: bool):
+  """Recovers the best alignment from the forward's argmax tables.
+
+  Plain PyTorch gathers on the tables' device. The frame-local part runs
+  for all frames and end states at once: walking a frame's expansion chain
+  backwards from each state q it may end in gives the state it started in
+  and its labels. What stays sequential is a reverse loop of one gather
+  per frame, from the final state back to the start.
+
+  Returns:
+    (alignment_labels [B, T * A] int32, path_weights [B] float32), with A
+    label slots per frame: expansions 1..k, then the trailing blank (FLD),
+    or the single slot (FD).
+  """
+  max_t, batch, num_states = jstar.shape
+  path_weights, q = torch.max(alpha, dim=-1)  # q: first argmax, as JAX
+  steps = 1 if frame_dependent else max_expansions
+  real = ~is_pad[:, :, None]
+  # start[t, b, q]: the state frame t began in, given it ended in q.
+  start = torch.arange(num_states, device=alpha.device).expand(
+      max_t, batch, num_states)
+  slots = []
+  for i in range(steps, 0, -1):
+    active = (jstar >= i) & real
+    # Bigram: the label that enters state q (q in 1..V) is q itself.
+    slots.append(torch.where(active, start, 0).to(torch.int32))
+    src = arg[:, :, i - 1].gather(2, (start - 1).clamp(min=0))
+    start = torch.where(active, src.long(), start)
+  slots.reverse()  # slot order: expansion 1..k, then the trailing blank
+  if not frame_dependent:
+    slots.append(torch.zeros_like(start, dtype=torch.int32))
+  table = torch.stack(slots, dim=-1)  # [T, B, S, A]
+
+  ends = []  # the state each frame ended in, last frame first
+  for t in range(max_t - 1, -1, -1):
+    ends.append(q)
+    q = start[t].gather(1, q[:, None])[:, 0]
+  ends = torch.stack(ends[::-1]) if ends else q.new_zeros((0, batch))
+  labels = table.gather(
+      2, ends[:, :, None, None].expand(-1, -1, 1, table.shape[-1]))[:, :, 0]
+  return labels.transpose(0, 1).reshape(batch, -1), path_weights
+
+
+def viterbi_decode(wf_params: dict[str, Any], cache: torch.Tensor,
+                   frames: torch.Tensor, num_frames: torch.Tensor, *,
+                   max_expansions: int, frame_dependent: bool,
+                   compute_dtype: torch.dtype,
+                   forward: Callable = viterbi_forward):
+  """Viterbi forward + backtrace: ``RecognitionLattice.shortest_path``.
+
+  ``forward`` is ``viterbi_forward`` (kernel on CUDA, plain on CPU) or
+  ``viterbi_forward_plain`` (to run the plain version on the card too).
+
+  Returns:
+    (alignment_labels [B, T * A] int32, num_alignment_labels [B] int32,
+    path_weights [B] float32).
+  """
+  max_t = frames.shape[1]
+  pf = torch.einsum('btf,fh->tbh', frames,
+                    wf_params['frame_proj']).contiguous()
+  pc = (cache @ wf_params['context_proj']).contiguous()
+  is_pad = (torch.arange(max_t, device=frames.device)[:, None] >=
+            num_frames[None, :])
+  arg, jstar, alpha = forward(
+      pf, pc, wf_params, is_pad, max_expansions=max_expansions,
+      frame_dependent=frame_dependent, compute_dtype=compute_dtype)
+  labels, path_weights = backtrace(
+      arg, jstar, alpha, is_pad, max_expansions=max_expansions,
+      frame_dependent=frame_dependent)
+  num_align = 1 if frame_dependent else max_expansions + 1
+  num_labels = (num_align * num_frames).to(torch.int32)
+  return labels, num_labels, path_weights

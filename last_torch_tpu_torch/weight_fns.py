@@ -1,0 +1,143 @@
+# Copyright 2026.
+#
+# Licensed under the Apache License, Version 2.0 (the "License");
+# you may not use this file except in compliance with the License.
+# You may obtain a copy of the License at
+#
+#     http://www.apache.org/licenses/LICENSE-2.0
+#
+# Unless required by applicable law or agreed to in writing, software
+# distributed under the License is distributed on an "AS IS" BASIS,
+# WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+# See the License for the specific language governing permissions and
+# limitations under the License.
+
+"""Weight functions (neural arc weights), PyTorch port.
+
+Counterpart of ``last_torch_tpu/weight_fns.py``: ``JointWeightFn`` and
+``SharedEmbCacher``, with parameters as plain dictionaries of tensors laid
+out exactly as the JAX pytrees (so ``convert.from_jax_params`` maps one onto
+the other). ``LocallyNormalizedWeightFn``, the normalizers,
+``SharedRNNCacher`` and the ``label_weights`` fast paths come with later
+slices (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from last_torch_tpu_torch import initializers
+
+Params = dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class JointWeightFn:
+  r"""Joint network over context embeddings and frames.
+
+  ``blank, lexical = heads(tanh(cache @ context_proj + frame @ frame_proj))``
+
+  Parameters:
+  - context_proj: [embedding_size, hidden_size] (no bias)
+  - frame_proj: [feature_size, hidden_size] (no bias)
+  - blank_w: [hidden_size], blank_b: [] — blank head
+  - vocab_w: [hidden_size, vocab_size], vocab_b: [vocab_size] — vocab head
+
+  Attributes:
+    vocab_size: Size of the lexical output vocabulary (excluding blank).
+    hidden_size: Hidden layer size of the joint network.
+    compute_dtype: Optional dtype the matmul inputs are rounded to (e.g.
+      torch.bfloat16); products are summed in float32 either way. None keeps
+      float32.
+  """
+
+  vocab_size: int
+  hidden_size: int
+  compute_dtype: Optional[torch.dtype] = None
+
+  def _mm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., i] @ [i, o] -> [..., o], float32 accumulation.
+
+    Rounding the inputs to ``compute_dtype`` and multiplying in float32 is
+    JAX's ``preferred_element_type=float32`` product: bf16 x bf16 products
+    are exact in float32.
+    """
+    if self.compute_dtype is not None:
+      a = a.to(self.compute_dtype).float()
+      b = b.to(self.compute_dtype).float()
+    return a @ b
+
+  def init(self, generator: torch.Generator, cache: torch.Tensor,
+           frame: torch.Tensor) -> Params:
+    """Creates parameters on ``cache``'s device, sized from the inputs."""
+    h = self.hidden_size
+    device = cache.device
+
+    def dense(shape):
+      return initializers.lecun_normal(shape, generator, device)
+
+    return {
+        'context_proj': dense((cache.shape[-1], h)),
+        'frame_proj': dense((frame.shape[-1], h)),
+        'blank_w': dense((h, 1))[:, 0],
+        'blank_b': torch.zeros((), device=device),
+        'vocab_w': dense((h, self.vocab_size)),
+        'vocab_b': torch.zeros((self.vocab_size,), device=device),
+    }
+
+  def apply(self, params: Params, cache: torch.Tensor, frame: torch.Tensor,
+            state: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Arc weights for one frame.
+
+    Args:
+      params: Parameters from ``init``.
+      cache: [num_context_states, embedding_size] context embeddings.
+      frame: [batch_dims..., feature_size] input frame.
+      state: None for all context states, or an int tensor broadcastable to
+        [batch_dims...] selecting one state per batch element.
+
+    Returns:
+      (blank, lexical): [batch_dims..., num_context_states] and
+      [batch_dims..., num_context_states, vocab_size] when state is None;
+      [batch_dims...] and [batch_dims..., vocab_size] otherwise.
+    """
+    if state is None:
+      projected_frame = self._mm(frame, params['frame_proj'])[..., None, :]
+      projected_context = self._mm(cache, params['context_proj'])
+    else:
+      state = torch.broadcast_to(state, frame.shape[:-1])
+      projected_frame = self._mm(frame, params['frame_proj'])
+      projected_context = self._mm(cache[state], params['context_proj'])
+    joint = torch.tanh(projected_context + projected_frame)
+    blank = self._mm(joint, params['blank_w'][:, None])[..., 0] + params[
+        'blank_b']
+    lexical = self._mm(joint, params['vocab_w']) + params['vocab_b']
+    return blank, lexical
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedEmbCacher:
+  """A learned, independent per-state context embedding table.
+
+  Attributes:
+    num_context_states: Number of context states.
+    embedding_size: Embedding dimension.
+  """
+
+  num_context_states: int
+  embedding_size: int
+
+  def init(self, generator: torch.Generator, device='cpu') -> Params:
+    return {
+        'embedding':
+            initializers.normal(
+                (self.num_context_states, self.embedding_size), generator,
+                device)
+    }
+
+  def apply(self, params: Params) -> torch.Tensor:
+    return params['embedding']

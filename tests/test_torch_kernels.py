@@ -1,0 +1,148 @@
+"""The port's Viterbi kernel and its plain version, without JAX.
+
+The plain version's tie-breaking is pinned on the CPU (lowest state wins an
+argmax tie; FrameLabelDependent keeps the fewest expansions on a tie), and
+the CUDA kernel is held to the plain version on the card: the tests marked
+``cuda`` skip without a GPU. This file imports no JAX, so it also runs on a
+machine that has only PyTorch:
+
+    python -m pytest tests/test_torch_kernels.py -q -m cuda --noconftest
+
+(``--noconftest`` skips ``tests/conftest.py``, which imports JAX.)
+"""
+
+import numpy as np
+import numpy.testing as npt
+import pytest
+import torch
+
+from last_torch_tpu_torch.ops import viterbi
+
+torch.set_num_threads(1)
+torch.set_float32_matmul_precision('highest')
+
+
+def random_inputs(seed, vocab, hidden, max_t, lengths, device='cpu'):
+  rng = np.random.default_rng(seed)
+  tensor = lambda shape, scale=1.0: torch.from_numpy(
+      (rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
+  params = {
+      'vocab_w': tensor((hidden, vocab), hidden**-0.5),
+      'vocab_b': tensor((vocab,), 0.1),
+      'blank_w': tensor((hidden,), hidden**-0.5),
+      'blank_b': torch.tensor(0.3, device=device),
+  }
+  pf = tensor((max_t, len(lengths), hidden))
+  pc = tensor((vocab + 1, hidden))
+  is_pad = (torch.arange(max_t)[:, None] >=
+            torch.tensor(lengths)[None, :]).to(device)
+  return pf, pc, params, is_pad
+
+
+def tied_inputs(vocab, hidden, max_t, batch, device='cpu'):
+  """Every state scores alike: all lexical weights 0, blank -1."""
+  params = {
+      'vocab_w': torch.zeros((hidden, vocab), device=device),
+      'vocab_b': torch.zeros((vocab,), device=device),
+      'blank_w': torch.zeros((hidden,), device=device),
+      'blank_b': torch.tensor(-1.0, device=device),
+  }
+  pf = torch.ones((max_t, batch, hidden), device=device)
+  pc = torch.ones((vocab + 1, hidden), device=device)
+  is_pad = torch.zeros((max_t, batch), dtype=torch.bool, device=device)
+  return pf, pc, params, is_pad
+
+
+def test_plain_argmax_ties_pick_the_lowest_state():
+  pf, pc, params, is_pad = tied_inputs(vocab=6, hidden=4, max_t=3, batch=2)
+  arg, jstar, alpha = viterbi.viterbi_forward_plain(
+      pf, pc, params, is_pad, max_expansions=0, frame_dependent=True,
+      compute_dtype=torch.float32)
+  # Frame 0: only the start state is reachable.
+  assert torch.all(arg[0] == 0)
+  # From frame 1 on, states 1..V tie at the top: the lowest, 1, wins.
+  assert torch.all(arg[1:] == 1)
+  assert torch.all(jstar[0, :, 1:] == 1) and torch.all(jstar[0, :, 0] == 0)
+  npt.assert_array_equal(alpha[:, 1:].numpy(), 0.0)
+
+
+def test_plain_fld_ties_keep_the_fewest_expansions():
+  pf, pc, params, is_pad = tied_inputs(vocab=5, hidden=4, max_t=2, batch=1)
+  params['blank_b'] = torch.tensor(0.0)
+  _, jstar, _ = viterbi.viterbi_forward_plain(
+      pf, pc, params, is_pad, max_expansions=2, frame_dependent=False,
+      compute_dtype=torch.float32)
+  # One and two expansions reach states 1..V with the same score 0: the
+  # strict '>' keeps j = 1.
+  assert torch.all(jstar[0, 0, 1:] == 1)
+  assert jstar[0, 0, 0] == 0
+
+
+def test_padding_frames_hold_alpha_and_write_zero_tables():
+  pf, pc, params, is_pad = random_inputs(0, vocab=7, hidden=5, max_t=6,
+                                         lengths=[6, 2, 0])
+  kwargs = dict(max_expansions=2, frame_dependent=False,
+                compute_dtype=torch.float32)
+  arg, jstar, alpha = viterbi.viterbi_forward_plain(pf, pc, params, is_pad,
+                                                    **kwargs)
+  _, _, alpha_2 = viterbi.viterbi_forward_plain(
+      pf[:2].contiguous(), pc, params, is_pad[:2].contiguous(), **kwargs)
+  assert torch.all(jstar[2:, 1] == 0) and torch.all(jstar[:, 2] == 0)
+  assert torch.all(arg[2:, 1] == 0) and torch.all(arg[:, 2] == 0)
+  npt.assert_array_equal(alpha[1].numpy(), alpha_2[1].numpy())
+  assert alpha[2, 0] == 0.0 and torch.all(alpha[2, 1:] == float('-inf'))
+
+
+CARD_CASES = {
+    # name: (vocab, hidden, max_expansions, frame_dependent)
+    'fd_ragged_v37': (37, 24, 0, True),
+    'fld1_v130': (130, 40, 1, False),
+    'fld2_ragged_v1000': (1000, 512, 2, False),
+    'fld2_v1024': (1024, 512, 2, False),
+}
+
+
+@pytest.fixture
+def card():
+  if not torch.cuda.is_available():
+    pytest.skip('needs an NVIDIA GPU: the CUDA kernel has no CPU mode')
+  torch.backends.cuda.matmul.allow_tf32 = False
+  return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', sorted(CARD_CASES))
+def test_kernel_matches_plain_on_card(card, case, compute_dtype):
+  vocab, hidden, k, fd = CARD_CASES[case]
+  pf, pc, params, is_pad = random_inputs(1, vocab, hidden, max_t=12,
+                                         lengths=[12, 7, 0], device=card)
+  kwargs = dict(max_expansions=k, frame_dependent=fd,
+                compute_dtype=compute_dtype)
+  before = viterbi.launches
+  arg_k, jstar_k, alpha_k = viterbi.viterbi_forward(
+      pf, pc, params, is_pad, **kwargs)
+  torch.cuda.synchronize()
+  assert viterbi.launches == before + 1
+  arg_p, jstar_p, alpha_p = viterbi.viterbi_forward_plain(
+      pf, pc, params, is_pad, **kwargs)
+  # Same rounded inputs, float32 sums in another order: the decisions agree
+  # at these sizes, and the scores to float32 summation error.
+  npt.assert_array_equal(arg_k.cpu().numpy(), arg_p.cpu().numpy())
+  npt.assert_array_equal(jstar_k.cpu().numpy(), jstar_p.cpu().numpy())
+  npt.assert_allclose(alpha_k.cpu().numpy(), alpha_p.cpu().numpy(),
+                      rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('frame_dependent', [True, False])
+def test_kernel_breaks_ties_as_plain_on_card(card, frame_dependent):
+  pf, pc, params, is_pad = tied_inputs(vocab=300, hidden=16, max_t=4,
+                                       batch=3, device=card)
+  kwargs = dict(max_expansions=2, frame_dependent=frame_dependent,
+                compute_dtype=torch.float32)
+  got = viterbi.viterbi_forward(pf, pc, params, is_pad, **kwargs)
+  want = viterbi.viterbi_forward_plain(pf, pc, params, is_pad, **kwargs)
+  for g, w in zip(got, want):
+    npt.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
