@@ -13,25 +13,36 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Smoke run of the PyTorch port's serving path on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving and training paths on one GPU.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 1. Device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for float32 matmuls and convolutions.
-2. Build: compiles ``last_torch_tpu_torch/csrc/viterbi.cu`` for sm_90a.
-3. Kernel against its plain PyTorch version on the card, T=64, B=4,
-   V in {1024, 1000}, FD / FLD(1) / FLD(2), float32 and bfloat16.
-4. Main path: ``GNATModel(presets.gnat_global_bigram(), device='cuda')``
-   with random weights from a seed decodes 8 requests at T_max=1600 through
-   the kernel, is checked, and is compared with the same decode through the
-   plain version; both are timed with CUDA events.
+2. Build: compiles ``last_torch_tpu_torch/csrc/viterbi.cu`` and
+   ``csrc/fused_scan.cu`` for sm_90a, one nvcc each, side by side.
+3. Viterbi kernel against its plain PyTorch version on the card, T=64,
+   B=4, V in {1024, 1000}, FD / FLD(1) / FLD(2), float32 and bfloat16.
+4. Serving main path: ``GNATModel(presets.gnat_global_bigram(),
+   device='cuda')`` with random weights from a seed decodes 8 requests at
+   T_max=1600 through the kernel, is checked, and is compared with the same
+   decode through the plain version; both are timed with CUDA events.
+5. Log-partition kernels (forward and backward) against their plain
+   versions, at the shapes of phase 3, with zero-cotangent and empty rows.
+6. Training main path: 3 ``train_step``s of the same model on 8 utterances
+   of up to 1600 frames through the log-partition kernels, timed with CUDA
+   events; step 1's loss and gradients against the same step through the
+   plain versions on the card; then each kernel alone against its plain
+   version at the step's shapes, and the step's other parts timed alone.
+7. The kernels alone at the JAX package's headline loss configuration
+   (``bench.py::bench_headline``: B=32, T=1600, FLD(2), bf16).
 
-Each phase prints one line; any failure exits non-zero before the last
-line, which is ``{"ok": true, "device": {...}}``. The line before it is the
-kernels' JSON record. Imports nothing of JAX.
+Each phase prints one line or more with its seconds; any failure exits
+non-zero before the last line, which is ``{"ok": true, "device": {...}}``.
+The line before it is the kernels' JSON record. Imports nothing of JAX.
 """
 
+import concurrent.futures
 import json
 import subprocess
 import sys
@@ -39,14 +50,40 @@ import time
 
 import numpy as np
 
-# Phase-4 request lengths (frames at 100 frames/s; 16 s at most).
+# Phase-4 and phase-6 utterance lengths (frames at 100 frames/s; 16 s at
+# most), and phase 6's label counts, one label per 16 frames.
 NUM_FRAMES = [1600, 1523, 1400, 1211, 1000, 804, 517, 230]
+NUM_LABELS = [n // 16 for n in NUM_FRAMES]
+TRAIN_STEPS = 3
+LEARNING_RATE = 1e-3
 # Tolerances, relative. float32: kernel and plain differ in summation order
 # only. bfloat16: both round the same inputs; the f32 sums still differ in
 # order, which can flip near-tied argmaxes (ROADMAP: bf16 decode near-ties).
 F32_RTOL = 1e-5
 BF16_RTOL = 1e-4
 BF16_MIN_SLOT_AGREEMENT = 0.999
+# Log-partition kernels against their plain versions. Log-space values
+# (alpha, log Z, beta) relative to max(|value|, 1); gradients as
+# |a - b|max / |b|max per output. A gradient is a sum of marginals, each the
+# exp of a sum of log-space terms as large as |log Z|, so float32 sums in
+# another order move it by ~|log Z| * 6e-8 relative: 1e-4 in float32, as
+# the JAX package's own kernel tests allow its gradients. bfloat16: a
+# float32 tanh on either side of a bfloat16 rounding boundary moves a joint
+# entry by one bfloat16 step.
+LP_RTOL = {'float32': (F32_RTOL, 1e-4), 'bfloat16': (BF16_RTOL, 1e-3)}
+# At full lengths the log-space values themselves reach |log Z| ~ 1e4, where
+# one float32 rounding is ~|log Z| * 2**-24 absolute (~6e-4), in either
+# version: the gradient tolerance is then 8 such roundings relative.
+LP_LONG_ROUNDINGS = 8
+# Training step 1, kernels against plain versions (bfloat16 heads): the
+# loss relative, and each parameter gradient as |a - b|max over the
+# largest gradient of the step, as the CPU parity tests judge GNAT
+# gradients. A leaf's own scale does not do: its gradient is the
+# denominator's minus the numerator's, which largely cancel (FLD's blank_b
+# wholly: every path takes one blank arc per frame), while the kernels'
+# bfloat16 residue scales with the denominator's part alone.
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_RTOL = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -255,13 +292,433 @@ def phase_kernel_vs_plain(torch, viterbi):
   return lines
 
 
+def phase_build(build, libraries):
+  """Phase 2: builds every kernel library at once, one nvcc per source.
+
+  ``libraries`` maps a csrc/ source to the module whose ``library()``
+  builds and loads it. A stale library of each source is removed first.
+  Returns one report line per source.
+  """
+  for source in libraries:
+    build.library_path(source).unlink(missing_ok=True)
+
+  def build_one(module):
+    t0 = time.perf_counter()
+    module.library()
+    return time.perf_counter() - t0
+
+  with concurrent.futures.ThreadPoolExecutor(len(libraries)) as pool:
+    seconds = list(pool.map(build_one, libraries.values()))
+  lines = []
+  for source, s in zip(libraries, seconds):
+    log = build.library_path(source).with_suffix('.log').read_text()
+    registers = [int(w.split()[0]) for w in log.split('Used ')[1:]]
+    spill_stores = sum(int(line.split('bytes spill stores')[0].split(',')[-1])
+                       for line in log.splitlines()
+                       if 'bytes spill stores' in line)
+    spill_loads = sum(int(line.split('bytes spill loads')[0].split(',')[-1])
+                      for line in log.splitlines()
+                      if 'bytes spill loads' in line)
+    lines.append(f'{source} for sm_90a in {s:.1f} s; ptxas: '
+                 f'{len(registers)} kernels, {min(registers)}-'
+                 f'{max(registers)} registers, spill stores {spill_stores} B, '
+                 f'spill loads {spill_loads} B')
+  return lines
+
+
+def max_errors(torch, got, want, names, rtols):
+  """Largest error of each output of a kernel against its plain version.
+
+  ``rtols`` is (value rtol, gradient rtol); names ending in '*' are
+  log-space values, compared as relative(); the others gradients, as
+  |a - b|max / |b|max. Infinities must match exactly. Returns
+  {name: (error, max abs error)}; raises on an error above its rtol.
+  """
+  errors = {}
+  for name, a, b in zip(names, got, want):
+    if b is None:
+      check(a is None, f'{name}: kernel wrote what plain did not')
+      continue
+    finite = torch.isfinite(b)
+    check(torch.equal(finite, torch.isfinite(a)) and
+          torch.equal(a[~finite], b[~finite]),
+          f'{name}: kernel and plain differ in their infinities')
+    a, b = a[finite].double(), b[finite].double()
+    abs_err = (a - b).abs().max().item() if a.numel() else 0.0
+    if name.endswith('*'):
+      err = relative(torch, a, b).max().item() if a.numel() else 0.0
+      rtol = rtols[0]
+    else:
+      scale = b.abs().max().item() if b.numel() else 0.0
+      err = abs_err / scale if scale else (0.0 if abs_err == 0 else np.inf)
+      rtol = rtols[1]
+    check(err <= rtol, f'{name}: kernel vs plain {err:.3g} > {rtol}')
+    errors[name.rstrip('*')] = (err, abs_err)
+  return errors
+
+
+FORWARD_NAMES = ('log_z*', 'alpha*', 'hist*', 'slabs*')
+BACKWARD_NAMES = ('dpf', 'dpc', 'd_vocab_w', 'd_vocab_b', 'd_blank_w',
+                  'd_blank_b', 'beta_out*')
+
+
+def phase_log_partition_vs_plain(torch, fused_scan):
+  """Phase 5: the log-partition kernels against their plain versions."""
+  rng = np.random.default_rng(2)
+  max_t, batch, hidden = 64, 4, 512
+  num_frames = torch.tensor([64, 50, 0, 17], device='cuda')
+  is_pad = (torch.arange(max_t, device='cuda')[:, None] >=
+            num_frames[None, :])
+  # Row 1 has a zero cotangent, row 2 no frames: both get exact zeros.
+  g = torch.tensor([1.0, 0.0, 0.7, 1.3], device='cuda')
+  lines = []
+  for vocab in (1024, 1000):
+    pf = torch.from_numpy(rand(rng, (max_t, batch, hidden))).cuda()
+    pc = torch.from_numpy(rand(rng, (vocab + 1, hidden))).cuda()
+    params = {
+        'vocab_w': torch.from_numpy(rand(rng, (hidden, vocab),
+                                         hidden**-0.5)).cuda(),
+        'vocab_b': torch.from_numpy(rand(rng, (vocab,), 0.1)).cuda(),
+        'blank_w': torch.from_numpy(rand(rng, (hidden,), hidden**-0.5)).cuda(),
+        'blank_b': torch.tensor(0.3, device='cuda'),
+    }
+    for name, k, fd in (('FD', 0, True), ('FLD(1)', 1, False),
+                        ('FLD(2)', 2, False)):
+      for dtype in (torch.float32, torch.bfloat16):
+        kw = dict(max_expansions=k, frame_dependent=fd, compute_dtype=dtype)
+        tag = f'V={vocab} {name} {str(dtype)[6:]}'
+        fwd_k = fused_scan.fused_forward(pf, pc, params, is_pad,
+                                         with_residuals=True, **kw)
+        fwd_p = fused_scan.fused_forward_plain(pf, pc, params, is_pad,
+                                               with_residuals=True, **kw)
+        bwd_k = fused_scan.fused_backward(pf, pc, params, is_pad, fwd_k[0], g,
+                                          fwd_k[2], fwd_k[3], **kw)
+        bwd_p = fused_scan.fused_backward_plain(pf, pc, params, is_pad,
+                                                fwd_p[0], g, fwd_p[2],
+                                                fwd_p[3], **kw)
+        torch.cuda.synchronize()
+        rtols = LP_RTOL[str(dtype)[6:]]
+        try:
+          errors = max_errors(torch, fwd_k, fwd_p, FORWARD_NAMES, rtols)
+          errors.update(max_errors(torch, bwd_k, bwd_p, BACKWARD_NAMES,
+                                   rtols))
+        except SmokeFailure as e:
+          raise SmokeFailure(f'{tag}: {e}') from None
+        dpf, beta_out = bwd_k[0], bwd_k[-1]
+        check(fwd_k[0][2].item() == 0.0 and bool((beta_out[2] == 0).all()),
+              f'{tag}: the empty row has log Z or beta_out != 0')
+        check(not bool(dpf[:, 1:3].any()),
+              f'{tag}: the g = 0 row or the empty row has nonzero d(pf)')
+        value = max(e for n, (e, _) in errors.items() if n in
+                    ('log_z', 'alpha', 'hist', 'slabs', 'beta_out'))
+        grad_name, (grad, _) = max(
+            ((n, e) for n, e in errors.items() if n.startswith('d')),
+            key=lambda item: item[1][0])
+        lines.append(f'{tag}: values max rel {value:.2e}, gradients max rel '
+                     f'{grad:.2e} ({grad_name}); g=0 and empty rows exactly 0')
+  return lines
+
+
+def plain_mean_loss(torch, model, fused_scan, semirings, params, frames,
+                    num_frames, labels, num_labels):
+  """``GNATModel.mean_loss`` with the log-partition's plain versions."""
+  lattice = model.lattice
+  lattice_params = params['lattice']
+  encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+  cache = lattice.build_cache(lattice_params)
+  denominator = fused_scan.log_partition(
+      lattice_params['weight_fn'], cache, encoded, num_frames,
+      max_expansions=lattice.alignment.max_expansions, frame_dependent=False,
+      compute_dtype=torch.bfloat16, forward=fused_scan.fused_forward_plain,
+      backward=fused_scan.fused_backward_plain)
+  numerator = lattice._string_forward(lattice_params, cache, encoded,
+                                      num_frames, labels, num_labels,
+                                      semirings.Log)
+  per_seq = denominator - numerator
+  finite = torch.isfinite(per_seq)
+  return torch.where(finite, per_seq, 0.0).sum() / finite.sum().clamp(min=1)
+
+
+def loss_and_grads(torch, leaves, loss_fn):
+  """(loss, [gradient of each leaf]) of one forward and backward."""
+  for leaf in leaves:
+    leaf.grad = None
+  loss = loss_fn()
+  loss.backward()
+  torch.cuda.synchronize()
+  return loss.item(), [leaf.grad.clone() for leaf in leaves]
+
+
+def say(phase, line):
+  print(f'[{phase}] {line}', flush=True)
+
+
+def phase_training(torch, gnat, presets, fused_scan, semirings, pytree):
+  """Phase 6: the training main path. Prints its lines; returns the
+  log-partition kernels' records for the JSON line."""
+  config = presets.gnat_global_bigram()
+  model = gnat.GNATModel(config, device='cuda')
+  optimizer = gnat.make_optimizer(LEARNING_RATE)
+  state = gnat.init_train_state(model, torch.Generator().manual_seed(0),
+                                optimizer)
+  rng = np.random.default_rng(0)
+  batch_size, max_t = len(NUM_FRAMES), max(NUM_FRAMES)
+  frames = torch.from_numpy(
+      rand(rng, (batch_size, max_t, config.feature_size))).cuda()
+  labels = torch.from_numpy(rng.integers(
+      1, config.vocab_size + 1, size=(batch_size, max(NUM_LABELS)))).cuda()
+  num_frames = torch.tensor(NUM_FRAMES, device='cuda')
+  num_labels = torch.tensor(NUM_LABELS, device='cuda')
+  batch = (frames, num_frames, labels, num_labels)
+  real_frames = sum(NUM_FRAMES)
+
+  # Step 1 through the kernels and through the plain versions.
+  leaves = pytree.tree_leaves(state.params)
+  t0 = time.perf_counter()
+  loss_k, grads_k = loss_and_grads(
+      torch, leaves, lambda: model.mean_loss(state.params, *batch))
+  check(model.lattice.last_path == 'kernel',
+        f'last_path is {model.lattice.last_path!r}, not kernel')
+  loss_p, grads_p = loss_and_grads(
+      torch, leaves, lambda: plain_mean_loss(torch, model, fused_scan,
+                                             semirings, state.params,
+                                             *batch))
+  loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+  check(np.isfinite(loss_k) and loss_rel <= STEP_LOSS_RTOL,
+        f'step-1 loss {loss_k} through the kernels, {loss_p} plain')
+  paths = [pytree.keystr(path) for path, _ in
+           pytree.tree_flatten_with_path(state.params)[0]]
+  largest = max(g.abs().max().item() for g in grads_p)
+  worst = own = (0.0, '')
+  for path, a, b in zip(paths, grads_k, grads_p):
+    check(bool(torch.isfinite(a).all()), f'{path}: gradient not finite')
+    diff = (a - b).abs().max().item()
+    worst = max(worst, (diff / largest, path))
+    own = max(own, (diff / max(b.abs().max().item(), 1e-30), path))
+  check(worst[0] <= STEP_GRAD_RTOL,
+        f'step-1 gradient of {worst[1]}: kernel vs plain {worst[0]:.3g} of '
+        f'the largest gradient')
+  say('train', f'step 1 through the kernels vs plain versions: loss '
+               f'{loss_k:.6g} vs {loss_p:.6g} (rel {loss_rel:.2e}); '
+               f'gradients, {len(leaves)} leaves, max |a-b| {worst[0]:.2e} '
+               f'of the largest gradient {largest:.3g} ({worst[1]}); of the '
+               f'leaf\'s own scale at most {own[0]:.2e} ({own[1]}) '
+               f'({time.perf_counter() - t0:.1f} s)')
+
+  # The main path: train steps through the kernels, counted and timed.
+  losses, step_ms, per_step = [], [], []
+  fused_scan.forward_launches = fused_scan.backward_launches = 0
+  for _ in range(TRAIN_STEPS):
+    counts = fused_scan.forward_launches, fused_scan.backward_launches
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, loss = gnat.train_step(model, optimizer, state, *batch)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms.append(start.elapsed_time(end))
+    losses.append(loss.item())
+    per_step.append((fused_scan.forward_launches - counts[0],
+                     fused_scan.backward_launches - counts[1]))
+  launches = fused_scan.forward_launches, fused_scan.backward_launches
+  check(model.lattice.last_path == 'kernel',
+        f'last_path is {model.lattice.last_path!r}, not kernel')
+  check(all(f >= 1 and b >= 1 for f, b in per_step),
+        f'a train step did not launch both kernels: {per_step}')
+  check(all(np.isfinite(losses)) and
+        all(b < a for a, b in zip(losses, losses[1:])),
+        f'losses not finite and decreasing: {losses}')
+  check(abs(losses[0] - loss_k) <= 1e-6 * abs(loss_k),
+        f'train step 1 loss {losses[0]} != mean_loss {loss_k}')
+  say('train',
+      f'gnat_global_bigram B={batch_size} T_max={max_t} U_max='
+      f'{max(NUM_LABELS)}, {TRAIN_STEPS} train steps: losses '
+      + ', '.join(f'{x:.6g}' for x in losses) + '; step ms '
+      + ', '.join(f'{x:.1f}' for x in step_ms) + ' ('
+      + ', '.join(f'{real_frames / x * 1e3:.0f}' for x in step_ms)
+      + f' real frames/s); kernel launches per step (forward, backward) '
+      f'{per_step}; last_path kernel')
+
+  # Each kernel alone against its plain version at the step's shapes, and
+  # the step's other parts alone (these launches are not counted).
+  params = state.params
+  lattice_params = params['lattice']
+  wf_params = lattice_params['weight_fn']
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+    cache = model.lattice.build_cache(lattice_params)
+    pf = torch.einsum('btf,fh->tbh', encoded, wf_params['frame_proj'])
+    pc = (cache @ wf_params['context_proj']).contiguous()
+    head = {n: wf_params[n].detach() for n in
+            ('vocab_w', 'vocab_b', 'blank_w', 'blank_b')}
+    pf = pf.contiguous()
+  is_pad = (torch.arange(max_t, device='cuda')[:, None] >=
+            num_frames[None, :])
+  g = torch.full((batch_size,), 1.0 / batch_size, device='cuda')
+  kw = dict(max_expansions=config.max_expansions, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  records = kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw,
+                          launches)
+  say('train', records.pop('line'))
+
+  # The step's other parts, each alone: encoder forward + backward,
+  # numerator (string DP over label_weights) forward + backward, the
+  # optimizer update.
+  def encoder_fwd_bwd():
+    out = model.encoder.apply(params['encoder'], frames, num_frames)
+    out.backward(torch.ones_like(out))
+
+  def numerator_fwd_bwd():
+    enc = encoded.detach().requires_grad_(True)
+    numerator = model.lattice._string_forward(
+        lattice_params, model.lattice.build_cache(lattice_params), enc,
+        num_frames, labels, num_labels, semirings.Log)
+    numerator.sum().backward()
+
+  _, encoder_ms = timed(torch, encoder_fwd_bwd)
+  _, numerator_ms = timed(torch, numerator_fwd_bwd)
+  _, optimizer_ms = timed(
+      torch, lambda: optimizer.apply_gradients(state.opt_state))
+  say('train', f'step parts alone: encoder forward+backward '
+               f'{encoder_ms:.1f} ms, numerator forward+backward '
+               f'{numerator_ms:.1f} ms, optimizer update {optimizer_ms:.1f} '
+               f'ms; log-partition kernels {records["forward"]["ms"]:.1f} + '
+               f'{records["backward"]["ms"]:.1f} ms')
+  return records
+
+
+def kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw, launches):
+  """The log-partition kernels alone against their plain versions, timed
+  once each with CUDA events, with the JSON records of both kernels."""
+  fwd_k, fwd_ms = timed(torch, lambda: fused_scan.fused_forward(
+      pf, pc, head, is_pad, with_residuals=True, **kw))
+  bwd_k, bwd_ms = timed(torch, lambda: fused_scan.fused_backward(
+      pf, pc, head, is_pad, fwd_k[0], g, fwd_k[2], fwd_k[3], **kw))
+  fwd_p, plain_fwd_ms = timed(torch, lambda: fused_scan.fused_forward_plain(
+      pf, pc, head, is_pad, with_residuals=True, **kw))
+  bwd_p, plain_bwd_ms = timed(torch, lambda: fused_scan.fused_backward_plain(
+      pf, pc, head, is_pad, fwd_p[0], g, fwd_p[2], fwd_p[3], **kw))
+  value_rtol, grad_rtol = LP_RTOL['bfloat16']
+  log_z_max = fwd_p[0].abs().max().item()
+  grad_rtol = max(grad_rtol, LP_LONG_ROUNDINGS * 2.0**-24 * log_z_max)
+  rtols = value_rtol, grad_rtol
+  fwd_err = max_errors(torch, fwd_k, fwd_p, FORWARD_NAMES, rtols)
+  bwd_err = max_errors(torch, bwd_k, bwd_p, BACKWARD_NAMES, rtols)
+  max_t, batch, hidden = pf.shape
+  line = (f'log-partition kernels alone, bf16 B={batch} T={max_t} '
+          f'S={pc.shape[0]} V={head["vocab_w"].shape[1]} h={hidden} '
+          f'FLD({kw["max_expansions"]}): forward kernel {fwd_ms:.1f} ms, '
+          f'plain {plain_fwd_ms:.1f} ms; backward kernel {bwd_ms:.1f} ms, '
+          f'plain {plain_bwd_ms:.1f} ms; vs plain (|log Z| up to '
+          f'{log_z_max:.4g}, gradient rtol {grad_rtol:.2e}): '
+          + ', '.join(f'{n} {e:.2e}' for n, (e, _) in
+                      {**fwd_err, **bwd_err}.items()))
+  record = lambda name, line_no, count, err, ms, plain_ms: {
+      'name': name, 'route': 'cuda',
+      'source': 'last_torch_tpu_torch/csrc/fused_scan.cu',
+      'replaces': f'last_torch_tpu/ops/fused_scan.py:{line_no}',
+      'launches': count, 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+  return {
+      'line': line,
+      'forward': record('fused_forward', 122, launches[0],
+                        fwd_err['log_z'][1], fwd_ms, plain_fwd_ms),
+      'backward': record('fused_backward', 255, launches[1],
+                         max(e[1] for n, e in bwd_err.items()
+                             if n != 'beta_out'), bwd_ms, plain_bwd_ms),
+  }
+
+
+def phase_headline(torch, lattices, contexts, alignments, weight_fns, gnat,
+                   presets, fused_scan, semirings, pytree):
+  """Phase 7: the lattice loss at bench.py::bench_headline's configuration
+  (no encoder: frames are 512-wide features), through the kernels, and
+  gnat_global_bigram's encoder alone at that batch; prints its lines."""
+  vocab, hidden, batch_size, max_t, max_u = 1024, 512, 32, 1600, 100
+  lattice = lattices.RecognitionLattice(
+      context=contexts.FullNGram(vocab_size=vocab, context_size=1),
+      alignment=alignments.FrameLabelDependent(max_expansions=2),
+      weight_fn_cacher_factory=lambda ctx: weight_fns.SharedEmbCacher(
+          num_context_states=ctx.shape()[0], embedding_size=hidden),
+      weight_fn_factory=lambda ctx: weight_fns.JointWeightFn(
+          vocab_size=vocab, hidden_size=hidden))
+  params = lattice.init(torch.Generator().manual_seed(0), feature_size=hidden,
+                        device='cuda')
+  leaves = pytree.tree_leaves(params)
+  for leaf in leaves:
+    leaf.requires_grad_(True)
+  rng = np.random.default_rng(0)
+  frames = torch.from_numpy(
+      rand(rng, (batch_size, max_t, hidden), 0.1)).cuda()
+  num_frames = torch.full((batch_size,), max_t, device='cuda')
+  labels = torch.from_numpy(
+      rng.integers(1, vocab + 1, size=(batch_size, max_u))).cuda()
+  num_labels = torch.full((batch_size,), max_u, device='cuda')
+
+  def loss_fwd_bwd():
+    loss = lattice.loss(params, frames, num_frames, labels, num_labels)
+    loss.sum().backward()
+
+  def numerator_fwd_bwd():
+    lattice._string_forward(params, lattice.build_cache(params), frames,
+                            num_frames, labels, num_labels,
+                            semirings.Log).sum().backward()
+
+  _, loss_ms = timed(torch, loss_fwd_bwd)
+  check(lattice.last_path == 'kernel',
+        'the headline loss did not take the kernels')
+  check(all(bool(torch.isfinite(leaf.grad).all()) for leaf in leaves),
+        'headline gradients not finite')
+  _, numerator_ms = timed(torch, numerator_fwd_bwd)
+  say('headline', f'lattice loss forward+backward (bench_headline config: '
+      f'B={batch_size} T={max_t} U={max_u} feature=emb=hidden={hidden} '
+      f'V={vocab} FLD(2), bf16 heads) {loss_ms:.1f} ms '
+      f'({batch_size * max_t / loss_ms * 1e3:.0f} frames/s); numerator '
+      f'forward+backward {numerator_ms:.1f} ms')
+  wf_params = params['weight_fn']
+  with torch.no_grad():
+    cache = lattice.build_cache(params)
+    pf = torch.einsum('btf,fh->tbh', frames,
+                      wf_params['frame_proj']).contiguous()
+    pc = (cache @ wf_params['context_proj']).contiguous()
+  head = {n: wf_params[n].detach() for n in
+          ('vocab_w', 'vocab_b', 'blank_w', 'blank_b')}
+  is_pad = torch.zeros((max_t, batch_size), dtype=torch.bool, device='cuda')
+  g = torch.ones((batch_size,), device='cuda')
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  records = kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw,
+                          (None, None))
+  say('headline', records['line'])
+  del pf, pc, records, cache, frames
+
+  config = presets.gnat_global_bigram()
+  model = gnat.GNATModel(config, device='cuda')
+  encoder_params = model.init(torch.Generator().manual_seed(0))['encoder']
+  for leaf in pytree.tree_leaves(encoder_params):
+    leaf.requires_grad_(True)
+  features = torch.from_numpy(
+      rand(rng, (batch_size, max_t, config.feature_size))).cuda()
+
+  def encoder_fwd_bwd():
+    out = model.encoder.apply(encoder_params, features, num_frames)
+    out.backward(torch.ones_like(out))
+
+  _, encoder_ms = timed(torch, encoder_fwd_bwd)
+  say('headline', f'gnat_global_bigram encoder forward+backward at B='
+      f'{batch_size} T={max_t}: {encoder_ms:.1f} ms')
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
     raise SmokeFailure('no CUDA device: torch.cuda.is_available() is False')
   try:
+    from torch.utils import _pytree as pytree
+
+    from last_torch_tpu_torch import (alignments, contexts, lattices,
+                                      semirings, weight_fns)
     from last_torch_tpu_torch.models import gnat, presets
-    from last_torch_tpu_torch.ops import build, viterbi
+    from last_torch_tpu_torch.ops import build, fused_scan, viterbi
   except ImportError as e:
     raise SmokeFailure(f'run from the root of a checkout ({e})') from None
 
@@ -273,23 +730,21 @@ def main():
         f'{torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}, '
         'TF32 off', flush=True)
 
-  # Phase 2: build from the checkout's sources (a stale build is removed).
-  library = build.library_path('viterbi.cu')
-  library.unlink(missing_ok=True)
+  # Phase 2: build from the checkout's sources.
   t0 = time.perf_counter()
-  viterbi.library()
-  build_s = time.perf_counter() - t0
-  ptxas = [line.strip() for line in
-           library.with_suffix('.log').read_text().splitlines()
-           if 'registers' in line or 'spill' in line]
-  print(f'[build] viterbi.cu for sm_90a in {build_s:.1f} s; ptxas: '
-        + ' | '.join(ptxas), flush=True)
+  for line in phase_build(build, {'viterbi.cu': viterbi,
+                                  'fused_scan.cu': fused_scan}):
+    print(f'[build] {line}', flush=True)
+  print(f'[build] {time.perf_counter() - t0:.1f} s', flush=True)
 
-  # Phase 3: kernel against plain.
+  # Phase 3: Viterbi kernel against plain.
+  t0 = time.perf_counter()
   for line in phase_kernel_vs_plain(torch, viterbi):
     print(f'[kernel-vs-plain] {line}', flush=True)
+  print(f'[kernel-vs-plain] {time.perf_counter() - t0:.1f} s', flush=True)
 
-  # Phase 4: the main path, gnat_global_bigram at full width.
+  # Phase 4: the serving main path, gnat_global_bigram at full width.
+  t0 = time.perf_counter()
   config = presets.gnat_global_bigram()
   model = gnat.GNATModel(config, device='cuda')
   params = model.init(torch.Generator().manual_seed(0))
@@ -376,8 +831,9 @@ def main():
         f'h=512: kernel {kernel_ms:.1f} ms, plain {plain_ms:.1f} ms; final '
         f'alpha max abs err {max_abs_err:.3g} of scale {scale:.4g}; encoder '
         f'{encoder_ms:.1f} ms, backtrace {backtrace_ms:.1f} ms', flush=True)
-
-  print(json.dumps({'kernels': [{
+  print(f'[main-path] serving phases {time.perf_counter() - t0:.1f} s',
+        flush=True)
+  viterbi_record = {
       'name': 'viterbi_forward',
       'route': 'cuda',
       'source': 'last_torch_tpu_torch/csrc/viterbi.cu',
@@ -386,7 +842,30 @@ def main():
       'max_abs_err': max_abs_err,
       'ms': kernel_ms,
       'plain_ms': plain_ms,
-  }]}))
+  }
+  del model, params, frames, encoded, cache, pf, pc, forward_out
+
+  # Phase 5: log-partition kernels against plain.
+  t0 = time.perf_counter()
+  for line in phase_log_partition_vs_plain(torch, fused_scan):
+    print(f'[lp-kernel-vs-plain] {line}', flush=True)
+  print(f'[lp-kernel-vs-plain] {time.perf_counter() - t0:.1f} s', flush=True)
+
+  # Phase 6: the training main path.
+  t0 = time.perf_counter()
+  records = phase_training(torch, gnat, presets, fused_scan, semirings,
+                           pytree)
+  print(f'[train] {time.perf_counter() - t0:.1f} s', flush=True)
+
+  # Phase 7: the kernels at the headline loss configuration.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  phase_headline(torch, lattices, contexts, alignments, weight_fns, gnat,
+                 presets, fused_scan, semirings, pytree)
+  print(f'[headline] {time.perf_counter() - t0:.1f} s', flush=True)
+
+  print(json.dumps({'kernels': [viterbi_record, records['forward'],
+                                records['backward']]}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu',
       'kind': torch.cuda.get_device_name(0),

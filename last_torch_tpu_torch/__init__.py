@@ -18,11 +18,15 @@ A port of the JAX package ``last_torch_tpu`` to PyTorch, with the Pallas
 TPU kernels rewritten by hand for NVIDIA Hopper. The JAX package stays the
 reference each part is held against. Ported so far: the serving path,
 ``models.gnat.GNATModel.decode``, whose Viterbi forward runs in
-``csrc/viterbi.cu`` on the card. See ROADMAP.md for what follows.
+``csrc/viterbi.cu`` on the card, and the training path,
+``GNATModel.mean_loss`` and ``models.gnat.train_step``, whose loss
+denominator runs in ``csrc/fused_scan.cu``. See ROADMAP.md for what
+follows.
 """
 
 from last_torch_tpu_torch import alignments
 from last_torch_tpu_torch import contexts
+from last_torch_tpu_torch import semirings
 from last_torch_tpu_torch import weight_fns
 from last_torch_tpu_torch.lattices import RecognitionLattice
 

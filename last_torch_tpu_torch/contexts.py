@@ -14,11 +14,11 @@
 
 """Context dependencies (label-history DFAs), PyTorch port.
 
-Counterpart of ``last_torch_tpu/contexts.py``. Only ``FullNGram``'s
-structure is ported so far: the decode slice needs its shape, start state
-and transitions. The semiring reductions (``forward_reduce``,
-``backward_broadcast``, ``walk_states``) and ``NextStateTable`` come with
-the loss slice (ROADMAP queue 1).
+Counterpart of ``last_torch_tpu/contexts.py``: ``FullNGram`` with its
+transitions, ``walk_states`` and the semiring reductions of the forward and
+backward algorithms (``forward_reduce``, ``backward_broadcast``).
+``NextStateTable`` is still to port (ROADMAP queue 1, "lattices.py, the
+rest").
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from last_torch_tpu_torch import semirings
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,3 +84,88 @@ class FullNGram:
     return self.next_state(
         torch.arange(num_states)[:, None],
         torch.arange(vocab_size)[None, :] + 1).to(torch.int32)
+
+  def walk_states(self, labels: torch.Tensor) -> torch.Tensor:
+    """States visited while consuming each label sequence.
+
+    Args:
+      labels: [batch_dims..., num_labels] int labels in [0, vocab_size].
+
+    Returns:
+      [batch_dims..., num_labels + 1] int32 states: position 0 holds the
+      start state, position i > 0 the state reached after
+      labels[..., i - 1].
+    """
+    labels = torch.as_tensor(labels).long()
+    state = torch.full(labels.shape[:-1], self.start(), dtype=torch.long,
+                       device=labels.device)
+    states = [state]
+    for i in range(labels.shape[-1]):
+      state = self.next_state(state, labels[..., i])
+      states.append(state)
+    return torch.stack(states, dim=-1).to(torch.int32)
+
+  def forward_reduce(self, weights, semiring: semirings.Semiring):
+    """The reduction of the forward algorithm.
+
+    For each state q, sums over all (source state p, label y) pairs with an
+    arc p --y--> q: ``result[..., q] = sum_{p-y->q} weights[..., p, y]``.
+    The arc grid is block-structured in the lexicographic state numbering,
+    so the reduction is a reshape and an axis sum.
+
+    Args:
+      weights: [batch_dims..., num_states, vocab_size] semiring value.
+      semiring: The semiring carrying out the summation.
+
+    Returns:
+      [batch_dims..., num_states] reduced semiring value.
+    """
+    shape = semirings.value_shape(weights)
+    if shape[-2:] != self.shape():
+      raise ValueError(f'weights.shape[-2:] should be {self.shape()} but got'
+                       f' {shape[-2:]}')
+    batch_dims = shape[:-2]
+    n, v = self.context_size, self.vocab_size
+    parts = []
+    if n > 0:
+      # The start state has no incoming arcs.
+      parts.append(semirings.zeros_like(semiring, weights,
+                                        batch_dims + (1,)))
+    num_into_ascending = sum(v**i for i in range(n - 1)) if n >= 1 else 0
+    # Arcs from states shorter than context_size - 1 each lead to a unique
+    # ascending destination, in lexicographic order.
+    parts.append(weights[..., :num_into_ascending, :].reshape(
+        batch_dims + (-1,)))
+    # The remaining arcs lead into the block of full-order states; each
+    # group of v**n consecutive (p, y) arcs covers those destinations.
+    full = weights[..., num_into_ascending:, :].reshape(
+        batch_dims + (-1, v**n))
+    parts.append(semiring.sum(full, axis=-2))
+    return torch.cat(parts, dim=-1)
+
+  def backward_broadcast(self, weights):
+    """The broadcast of the backward algorithm.
+
+    For each arc p --y--> q: ``result[..., p, y] = weights[..., q]``.
+
+    Args:
+      weights: [batch_dims..., num_states] semiring value.
+
+    Returns:
+      [batch_dims..., num_states, vocab_size] broadcasted value.
+    """
+    shape = semirings.value_shape(weights)
+    if shape[-1] != self.num_states():
+      raise ValueError(f'weights.shape[-1] should be {self.num_states()} but '
+                       f'got {shape[-1]}')
+    batch_dims = shape[:-1]
+    n, v = self.context_size, self.vocab_size
+    if n == 0:
+      return weights[..., None].expand(weights.shape + (v,))
+    num_ascending = sum(v**i for i in range(n))
+    # Non-start ascending states have a unique incoming arc.
+    part_a = weights[..., 1:num_ascending].reshape(batch_dims + (-1, v))
+    # States feeding the full-order block all see the same v**n weights.
+    part_b = weights[..., None, num_ascending:].expand(
+        batch_dims + (1 + v, v**n)).reshape(batch_dims + (-1, v))
+    return torch.cat([part_a, part_b], dim=-2)

@@ -1,0 +1,933 @@
+// Copyright 2026.
+//
+// Licensed under the Apache License, Version 2.0 (the "License");
+// you may not use this file except in compliance with the License.
+// You may obtain a copy of the License at
+//
+//     http://www.apache.org/licenses/LICENSE-2.0
+//
+// Unless required by applicable law or agreed to in writing, software
+// distributed under the License is distributed on an "AS IS" BASIS,
+// WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+// See the License for the specific language governing permissions and
+// limitations under the License.
+
+// Log-partition (GN loss denominator) forward and backward of the GNAT
+// recognition lattice on Hopper.
+//
+// Replaces the Pallas TPU kernels of last_torch_tpu/ops/fused_scan.py:
+// _fused_forward_kernel (pallas_call at fused_scan.py:1474, 'cache' mode with
+// the expansion slabs streamed) and _fused_backward_kernel (pallas_call at
+// :1709). Bigram FullNGram (S = V + 1), JointWeightFn, FrameDependent (FD)
+// or FrameLabelDependent(k) (FLD). Per frame t and batch row b:
+//
+//   joint[s]  = compute_dtype(tanh(pc[s] + pf[t, b]))            (f32 tanh)
+//   lex[s, y] = joint[s] . vocab_w[:, y] + vocab_b[y]            (f32 sums)
+//   blank[s]  = joint[s] . blank_w + blank_b
+//   red(vec)[y] = logsumexp_s(vec[s] + lex[s, y]);  expand(red) puts red in
+//                 states 1..V and -inf in state 0
+//
+// Forward: FD alpha' = logaddexp(alpha + blank, expand(red(alpha))); FLD:
+// acc = alpha + blank, then k times last = expand(red(last)) (from alpha),
+// acc = logaddexp(acc, last + blank). Padding frames hold alpha. Outputs:
+// the history of alpha before each frame and the k expansion slabs (only
+// when the backward will read them), and the final alpha.
+//
+// Backward, frames in reverse, beta from 0: nb recursion
+// nb_{k-1} = blank + beta, nb_{j-1} = logaddexp(blank + beta,
+// logsumexp_y(lex[s, y] + nb_j[1 + y])), the last one is the next beta (FD:
+// one step from beta). Marginals, with a_j the slabs (a_0 = alpha):
+//   d_blank = g * sum_j exp(a_j + blank + beta - log_z)
+//   d_lex   = compute_dtype(g * sum_j exp(a_j[s] + lex[s, y] + nb_j[1 + y]
+//                                         - log_z))
+// then the head and tanh gradients:
+//   dvw += joint^T d_lex, dvb += sum d_lex, dbw += sum joint32 * d_blank,
+//   dbb += sum d_blank, d_joint = d_lex vocab_w^T + d_blank blank_w,
+//   d_pre = d_joint (1 - joint32^2), dpf[t, b] = sum_s d_pre,
+//   dpc += sum_b d_pre.
+//
+// What bounds it here. Per frame the forward runs one head product
+// [B*S, h] x [h, V] (2*B*S*V*h = 8.6 GFLOP at B=8, S=1025, V=1024, h=512)
+// and the backward three of that size (lex, dvw, d_joint): compute-bound
+// products; the reductions around them read [B, S, V] float32 tensors
+// (34 MB at B=8) a few times per frame, memory-bound passes. Only
+// [B, S]-sized state crosses frames.
+//
+// What the design does about it (first, simple version):
+// * The TPU grid carried alpha / beta and the head-gradient sums across its
+//   sequential (t, b) grid in VMEM scratch. Hopper blocks run in no order
+//   and carry nothing, so the time loop runs on the host side of this file,
+//   a few launches per frame on the caller's stream, and every cross-frame
+//   sum is a device buffer in which each element belongs to one block per
+//   frame (no atomics): dpc per batch row, dvw per split of the (b, s)
+//   contraction, dvb / dbw per (b, state tile), dbb per (b, s); one reduce
+//   launch each at the end. Sums are therefore deterministic.
+// * The TPU cached E = exp(lex - rowmax) in 80 MB of VMEM and ran every
+//   in-frame reduction as a matvec against it. A block here has 227 KB, and
+//   one that owns a label strip never sees a whole row, so the logsumexps
+//   are online (max, sum) pairs over the states (forward, per label) or the
+//   labels (backward, per state) a block covers, merged across blocks with
+//   the same log-add. The forward's first reduction runs in the epilogue of
+//   the head product; with two or more per frame the product stores lex
+//   (float32, device memory) for the others: at B=32 (134 MB, beyond the
+//   50 MB L2) that still beats recomputing the product, 1.02 s against
+//   1.74 s for the T=1600 FLD(2) forward (H100 80GB HBM3, 700 W). The
+//   backward always stores lex: its k row reductions and the marginals
+//   read it.
+// * The marginals are formed directly, exp(a + lex + nb - log_z), each term
+//   at most about 1, so the TPU's factored form and its clip at 80
+//   (fused_scan.py:468-474) are not needed; padding rows and padded states
+//   never enter a sum (masked, and skipped per row), so all-padding rows and
+//   g = 0 rows give exact zeros.
+// * Products: tile_product.cuh (WMMA bfloat16 with float32 accumulation;
+//   float32 FMAs for the float32 comparison mode). joint^T d_lex contracts
+//   over B*S rows, split over blocks; d_lex vocab_w^T reads vocab_w
+//   transposed. wgmma, TMA, pipelining and a persistent kernel are later
+//   work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "tile_product.cuh"
+
+namespace {
+
+using namespace lattice_tiles;
+
+constexpr int kJointThreads = 128;
+constexpr int kPointThreads = 256;
+constexpr int kMaxAlphas = 9;  // a_0..a_k, k <= 8
+
+enum LexMode { kCompute = 0, kComputeStore = 1, kLoad = 2 };
+
+// Online log-sum-exp: a pair (m, l) stands for m + log(l); l = 0 is -inf.
+__device__ __forceinline__ float safe_shift(float m) {
+  return m == -INFINITY ? 0.f : m;
+}
+
+__device__ __forceinline__ void lse_merge(float& m, float& l, float m2,
+                                          float l2) {
+  const float mm = fmaxf(m, m2);
+  const float c = safe_shift(mm);
+  l = l * expf(m - c) + l2 * expf(m2 - c);
+  m = mm;
+}
+
+__device__ __forceinline__ float lse_value(float m, float l) {
+  return l > 0.f ? safe_shift(m) + logf(l) : -INFINITY;
+}
+
+__device__ __forceinline__ float log_add(float a, float b) {
+  const float m = fmaxf(a, b);
+  if (m == -INFINITY) return -INFINITY;
+  return m + log1pf(expf(fminf(a, b) - m));
+}
+
+// The frame's slabs: a_0 = alpha before the frame, a_j its j-th expansion.
+struct Alphas {
+  const float* a[kMaxAlphas];
+  int n;
+};
+
+// The (a_j, nb_j) pairs of the lexical marginals.
+struct Pairs {
+  const float* a[kMaxAlphas];
+  const float* nb[kMaxAlphas];
+  int n;
+};
+
+// joint[b, s, :] = cast(tanh(pc[s] + pf_t[b])); blank[b, s] = joint . bw +
+// bb; with nb_top, nb_top[b, s] = blank[b, s] + beta[b, s]. Padding rows
+// skip the work, writing a zero joint row when zero_pad is set (the
+// backward's contraction over rows reads it). Grid (S, B).
+template <typename T>
+__global__ void __launch_bounds__(kJointThreads)
+    joint_blank_kernel(const float* __restrict__ pf_t,    // [B, h]
+                       const int* __restrict__ is_pad_t,  // [B]
+                       const float* __restrict__ pc,      // [S, h]
+                       const T* __restrict__ bw,          // [h]
+                       const float* __restrict__ bb,      // [1]
+                       const float* __restrict__ beta,    // [B, S] or null
+                       float* __restrict__ nb_top,        // [B, S] or null
+                       T* __restrict__ joint,             // [B, S, h]
+                       float* __restrict__ blank,         // [B, S]
+                       int S, int h, int zero_pad) {
+  const int s = blockIdx.x;
+  const int b = blockIdx.y;
+  T* out = joint + (static_cast<size_t>(b) * S + s) * h;
+  if (is_pad_t[b]) {
+    if (zero_pad) {
+      for (int k = threadIdx.x; k < h; k += kJointThreads) {
+        out[k] = from_float<T>(0.f);
+      }
+    }
+    return;
+  }
+  const float* pc_row = pc + static_cast<size_t>(s) * h;
+  const float* pf_row = pf_t + static_cast<size_t>(b) * h;
+  float partial = 0.f;
+  for (int k = threadIdx.x; k < h; k += kJointThreads) {
+    const T j = from_float<T>(tanhf(pc_row[k] + pf_row[k]));
+    out[k] = j;
+    partial = fmaf(to_float(j), to_float(bw[k]), partial);
+  }
+  __shared__ float warp_sums[kJointThreads / 32];
+  for (int o = 16; o > 0; o >>= 1) {
+    partial += __shfl_down_sync(0xffffffffu, partial, o);
+  }
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = partial;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float total = 0.f;
+    for (int w = 0; w < kJointThreads / 32; ++w) total += warp_sums[w];
+    const size_t at = static_cast<size_t>(b) * S + s;
+    blank[at] = total + bb[0];
+    if (nb_top != nullptr) nb_top[at] = blank[at] + beta[at];
+  }
+}
+
+// The lexical tile [s0.., y0..] of batch row b, as val[i][j]: from the head
+// product (storing it to lex with kComputeStore) or from the staged lex.
+// Outside [S, V] the values are -inf (kLoad) or unspecified (otherwise).
+template <typename T, int MODE>
+__device__ __forceinline__ void lex_tile(const T* __restrict__ joint_b,
+                                         const T* __restrict__ vw,
+                                         const float* __restrict__ vb,
+                                         float* __restrict__ lex_b, int s0,
+                                         int y0, int S, int h, int V,
+                                         float (&val)[kTM][kTN]) {
+  const int tx = threadIdx.x % (kBN / kTN), ty = threadIdx.x / (kBN / kTN);
+  if (MODE == kLoad) {
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int s = s0 + ty * kTM + i;
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        const int y = y0 + tx * kTN + j;
+        val[i][j] = (s < S && y < V) ? lex_b[static_cast<size_t>(s) * V + y]
+                                     : -INFINITY;
+      }
+    }
+    return;
+  }
+  tile_product<false, false>(joint_b, h, vw, V, s0, y0, S, V, h, val);
+#pragma unroll
+  for (int j = 0; j < kTN; ++j) {
+    const int y = y0 + tx * kTN + j;
+    const float bias = y < V ? vb[y] : 0.f;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int s = s0 + ty * kTM + i;
+      val[i][j] += bias;
+      if (MODE == kComputeStore && s < S && y < V) {
+        lex_b[static_cast<size_t>(s) * V + y] = val[i][j];
+      }
+    }
+  }
+}
+
+// Forward reduction over one split of the states for a 64-label strip of
+// row b: the online (max, sum) of vec[b, s] + lex[b, s, y] over s, per y.
+// Grid (ceil(V / 64), splits, B); col_merge_kernel combines the splits.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads)
+    col_pass_kernel(const T* __restrict__ joint,        // [B, S, h]
+                    const T* __restrict__ vw,           // [h, V]
+                    const float* __restrict__ vb,       // [V]
+                    const float* __restrict__ vec,      // [B, S]
+                    float* __restrict__ lex,            // [B, S, V] or null
+                    float* __restrict__ part_m,         // [splits, B, V]
+                    float* __restrict__ part_l,         // [splits, B, V]
+                    const int* __restrict__ is_pad_t,   // [B]
+                    int S, int h, int V, int tiles_per_split) {
+  __shared__ float cand_m[kBM / kTM][kBN];
+  __shared__ float cand_l[kBM / kTM][kBN];
+  const int b = blockIdx.z;
+  if (is_pad_t[b]) return;  // a padding frame's reductions are unused
+  const int B = gridDim.z;
+  const int y0 = blockIdx.x * kBN;
+  const int s_begin = blockIdx.y * tiles_per_split * kBM;
+  const int s_end = min(S, s_begin + tiles_per_split * kBM);
+  const int tid = threadIdx.x;
+  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
+  const T* joint_b = joint + static_cast<size_t>(b) * S * h;
+  const float* vec_b = vec + static_cast<size_t>(b) * S;
+  float* lex_b =
+      lex == nullptr ? nullptr : lex + static_cast<size_t>(b) * S * V;
+  float run_m = -INFINITY, run_l = 0.f;  // column y0 + tid, tid < 64
+  for (int s0 = s_begin; s0 < s_end; s0 += kBM) {
+    float val[kTM][kTN];
+    lex_tile<T, MODE>(joint_b, vw, vb, lex_b, s0, y0, S, h, V, val);
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      float v[kTM];
+      float m = -INFINITY;
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const int s = s0 + ty * kTM + i;
+        v[i] = s < S ? vec_b[s] + val[i][j] : -INFINITY;
+        m = fmaxf(m, v[i]);
+      }
+      const float c = safe_shift(m);
+      float l = 0.f;
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) l += expf(v[i] - c);
+      cand_m[ty][tx * kTN + j] = m;
+      cand_l[ty][tx * kTN + j] = l;
+    }
+    __syncthreads();
+    if (tid < kBN) {
+      for (int r = 0; r < kBM / kTM; ++r) {
+        lse_merge(run_m, run_l, cand_m[r][tid], cand_l[r][tid]);
+      }
+    }
+    __syncthreads();
+  }
+  if (tid < kBN && y0 + tid < V) {
+    const size_t out = (static_cast<size_t>(blockIdx.y) * B + b) * V + y0 + tid;
+    part_m[out] = run_m;
+    part_l[out] = run_l;
+  }
+}
+
+// Merges the splits of a forward reduction: out[b] = expand(red) (state 0
+// -inf); padding rows get all -inf. One thread per (b, y).
+__global__ void __launch_bounds__(kPointThreads)
+    col_merge_kernel(const float* __restrict__ part_m,
+                     const float* __restrict__ part_l,
+                     const int* __restrict__ is_pad_t,
+                     float* __restrict__ out,  // [B, S]
+                     int splits, int B, int S, int V) {
+  const int idx = blockIdx.x * kPointThreads + threadIdx.x;
+  if (idx >= B * V) return;
+  const int b = idx / V, y = idx % V;
+  float* row = out + static_cast<size_t>(b) * S;
+  if (y == 0) row[0] = -INFINITY;
+  if (is_pad_t[b]) {
+    row[1 + y] = -INFINITY;
+    return;
+  }
+  float m = -INFINITY, l = 0.f;
+  for (int z = 0; z < splits; ++z) {
+    const size_t at = (static_cast<size_t>(z) * B + b) * V + y;
+    lse_merge(m, l, part_m[at], part_l[at]);
+  }
+  row[1 + y] = lse_value(m, l);
+}
+
+// The frame's alpha update; one thread per (b, s). last + j * last_stride
+// is the j-th expansion (FD: the one reduction).
+__global__ void __launch_bounds__(kPointThreads)
+    update_kernel(const float* __restrict__ alpha,   // [B, S]
+                  const float* __restrict__ blank,   // [B, S]
+                  const float* __restrict__ last, size_t last_stride,
+                  const int* __restrict__ is_pad_t,  // [B]
+                  float* __restrict__ alpha_out,     // [B, S]
+                  float* __restrict__ hist_t,        // [B, S] or null
+                  int B, int S, int passes, int frame_dependent) {
+  const int idx = blockIdx.x * kPointThreads + threadIdx.x;
+  if (idx >= B * S) return;
+  const float a = alpha[idx];
+  if (hist_t != nullptr) hist_t[idx] = a;
+  if (is_pad_t[idx / S]) {
+    alpha_out[idx] = a;
+    return;
+  }
+  const float bl = blank[idx];
+  float acc = a + bl;
+  if (frame_dependent) {
+    acc = log_add(acc, last[idx]);
+  } else {
+    for (int j = 0; j < passes; ++j) {
+      acc = log_add(acc, last[j * last_stride + idx] + bl);
+    }
+  }
+  alpha_out[idx] = acc;
+}
+
+// Backward reduction over one split of the labels for a 64-state tile of
+// row b: the online (max, sum) of lex[b, s, y] + nbv[b, 1 + y] over y, per
+// s. Grid (ceil(S / 64), splits, B); row_merge_kernel combines the splits.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads)
+    row_pass_kernel(const T* __restrict__ joint,       // [B, S, h]
+                    const T* __restrict__ vw,          // [h, V]
+                    const float* __restrict__ vb,      // [V]
+                    const float* __restrict__ nbv,     // [B, S]
+                    float* __restrict__ lex,           // [B, S, V]
+                    float* __restrict__ part_m,        // [splits, B, S]
+                    float* __restrict__ part_l,        // [splits, B, S]
+                    const int* __restrict__ is_pad_t,  // [B]
+                    int S, int h, int V, int strips_per_split) {
+  const int b = blockIdx.z;
+  if (is_pad_t[b]) return;
+  const int B = gridDim.z;
+  const int s0 = blockIdx.x * kBM;
+  const int y_begin = blockIdx.y * strips_per_split * kBN;
+  const int y_end = min(V, y_begin + strips_per_split * kBN);
+  const int tx = threadIdx.x % (kBN / kTN), ty = threadIdx.x / (kBN / kTN);
+  const T* joint_b = joint + static_cast<size_t>(b) * S * h;
+  float* lex_b = lex + static_cast<size_t>(b) * S * V;
+  const float* nbv_b = nbv + static_cast<size_t>(b) * S;
+  float run_m[kTM], run_l[kTM];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    run_m[i] = -INFINITY;
+    run_l[i] = 0.f;
+  }
+  for (int y0 = y_begin; y0 < y_end; y0 += kBN) {
+    float val[kTM][kTN];
+    lex_tile<T, MODE>(joint_b, vw, vb, lex_b, s0, y0, S, h, V, val);
+    float nb[kTN];
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int y = y0 + tx * kTN + j;
+      nb[j] = y < V ? nbv_b[1 + y] : -INFINITY;
+    }
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      float v[kTN];
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        v[j] = val[i][j] + nb[j];
+        m = fmaxf(m, v[j]);
+      }
+      // The 16 threads of a row group are lanes of one half-warp.
+      for (int o = 8; o > 0; o >>= 1) {
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      }
+      const float c = safe_shift(m);
+      float l = 0.f;
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) l += expf(v[j] - c);
+      for (int o = 8; o > 0; o >>= 1) {
+        l += __shfl_xor_sync(0xffffffffu, l, o);
+      }
+      lse_merge(run_m[i], run_l[i], m, l);
+    }
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int s = s0 + ty * kTM + i;
+      if (s < S) {
+        const size_t out = (static_cast<size_t>(blockIdx.y) * B + b) * S + s;
+        part_m[out] = run_m[i];
+        part_l[out] = run_l[i];
+      }
+    }
+  }
+}
+
+// Merges the splits of a backward reduction into the next nb:
+// out = logaddexp(blank + beta, lse). The final one writes the next beta
+// (held on padding rows), d_blank and its running sum. One thread per
+// (b, s).
+__global__ void __launch_bounds__(kPointThreads)
+    row_merge_kernel(const float* __restrict__ part_m,
+                     const float* __restrict__ part_l, int splits,
+                     const int* __restrict__ is_pad_t,
+                     const float* __restrict__ blank,  // [B, S]
+                     const float* __restrict__ beta,   // [B, S]
+                     float* __restrict__ out,          // [B, S]
+                     int final_stage, Alphas alphas,
+                     const float* __restrict__ log_z,  // [B]
+                     const float* __restrict__ g,      // [B]
+                     float* __restrict__ d_blank,      // [B, S]
+                     float* __restrict__ dbb_acc,      // [B, S]
+                     int B, int S) {
+  const int idx = blockIdx.x * kPointThreads + threadIdx.x;
+  if (idx >= B * S) return;
+  const int b = idx / S;
+  const float bt = beta[idx];
+  if (is_pad_t[b]) {
+    if (final_stage) {
+      out[idx] = bt;
+      d_blank[idx] = 0.f;
+    }
+    return;
+  }
+  float m = -INFINITY, l = 0.f;
+  for (int z = 0; z < splits; ++z) {
+    const size_t at = static_cast<size_t>(z) * B * S + idx;
+    lse_merge(m, l, part_m[at], part_l[at]);
+  }
+  const float bl = blank[idx];
+  out[idx] = log_add(bl + bt, lse_value(m, l));
+  if (final_stage) {
+    const float lz = log_z[b];
+    float total = 0.f;
+    for (int j = 0; j < alphas.n; ++j) {
+      total += expf(alphas.a[j][idx] + bl + bt - lz);
+    }
+    const float db = g[b] * total;
+    d_blank[idx] = db;
+    dbb_acc[idx] += db;
+  }
+}
+
+// d_lex tile = cast(g * sum_p exp(a_p[s] + lex[s, y] + nb_p[1 + y] -
+// log_z)) from the staged lex, and its column sums into dvb_acc. Padding
+// rows write zeros. Grid (ceil(V / 64), ceil(S / 64), B).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    marginal_kernel(const float* __restrict__ lex,      // [B, S, V]
+                    Pairs pairs,
+                    const float* __restrict__ log_z,    // [B]
+                    const float* __restrict__ g,        // [B]
+                    const int* __restrict__ is_pad_t,   // [B]
+                    T* __restrict__ d_lex,              // [B, S, V]
+                    float* __restrict__ dvb_acc,        // [B, tiles, V]
+                    int S, int V) {
+  __shared__ float cand[kBM / kTM][kBN];
+  const int b = blockIdx.z;
+  const int y0 = blockIdx.x * kBN;
+  const int s0 = blockIdx.y * kBM;
+  const int tid = threadIdx.x;
+  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
+  const size_t row0 = static_cast<size_t>(b) * S;
+  const bool pad = is_pad_t[b] != 0;
+  const float lz = log_z[b], gb = g[b];
+  float col[kTN];
+#pragma unroll
+  for (int j = 0; j < kTN; ++j) col[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int s = s0 + ty * kTM + i;
+    if (s >= S) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int y = y0 + tx * kTN + j;
+      if (y >= V) continue;
+      const size_t at = (row0 + s) * V + y;
+      float total = 0.f;
+      if (!pad) {
+        const float lx = lex[at];
+        for (int p = 0; p < pairs.n; ++p) {
+          total += expf(pairs.a[p][row0 + s] + lx + pairs.nb[p][row0 + 1 + y] -
+                        lz);
+        }
+      }
+      const T d = from_float<T>(gb * total);
+      d_lex[at] = pad ? from_float<T>(0.f) : d;
+      col[j] += pad ? 0.f : to_float(d);
+    }
+  }
+  if (pad) return;  // uniform per block
+#pragma unroll
+  for (int j = 0; j < kTN; ++j) cand[ty][tx * kTN + j] = col[j];
+  __syncthreads();
+  if (tid < kBN && y0 + tid < V) {
+    float total = 0.f;
+    for (int r = 0; r < kBM / kTM; ++r) total += cand[r][tid];
+    dvb_acc[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * V + y0 + tid] +=
+        total;
+  }
+}
+
+// dvw_acc[split] += joint^T d_lex over the split's range of the B*S rows.
+// Grid (ceil(V / 64), ceil(h / 64), splits).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    head_grad_kernel(const T* __restrict__ joint,   // [B*S, h]
+                     const T* __restrict__ d_lex,   // [B*S, V]
+                     float* __restrict__ dvw_acc,   // [splits, h, V]
+                     int rows, int h, int V, int rows_per_split) {
+  const int y0 = blockIdx.x * kBN;
+  const int h0 = blockIdx.y * kBM;
+  const int r0 = blockIdx.z * rows_per_split;
+  const int r1 = min(rows, r0 + rows_per_split);
+  if (r0 >= r1) return;
+  float acc[kTM][kTN];
+  tile_product<true, false>(joint + static_cast<size_t>(r0) * h, h,
+                            d_lex + static_cast<size_t>(r0) * V, V, h0, y0, h,
+                            V, r1 - r0, acc);
+  const int tx = threadIdx.x % (kBN / kTN), ty = threadIdx.x / (kBN / kTN);
+  float* out = dvw_acc + static_cast<size_t>(blockIdx.z) * h * V;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int hh = h0 + ty * kTM + i;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int y = y0 + tx * kTN + j;
+      if (hh < h && y < V) out[static_cast<size_t>(hh) * V + y] += acc[i][j];
+    }
+  }
+}
+
+// d_joint = d_lex vocab_w^T + d_blank blank_w for a (state tile, hidden
+// tile) of row b, then d_pre = d_joint (1 - joint32^2) into dpc_acc, its
+// state sums into dpf_part and the blank-head sums into dbw_acc. Grid
+// (ceil(h / 64), ceil(S / 64), B).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    joint_grad_kernel(const T* __restrict__ d_lex,      // [B, S, V]
+                      const T* __restrict__ vw,         // [h, V]
+                      const float* __restrict__ bw32,   // [h]
+                      const float* __restrict__ d_blank,  // [B, S]
+                      const float* __restrict__ pc,     // [S, h]
+                      const float* __restrict__ pf_t,   // [B, h]
+                      const int* __restrict__ is_pad_t,  // [B]
+                      float* __restrict__ dpc_acc,      // [B, S, h]
+                      float* __restrict__ dpf_part,     // [tiles, B, h]
+                      float* __restrict__ dbw_acc,      // [B, tiles, h]
+                      int S, int h, int V) {
+  __shared__ float cand_f[kBM / kTM][kBN];
+  __shared__ float cand_w[kBM / kTM][kBN];
+  const int b = blockIdx.z;
+  if (is_pad_t[b]) return;  // dpf_reduce_kernel writes the zero row
+  const int B = gridDim.z;
+  const int h0 = blockIdx.x * kBN;
+  const int s0 = blockIdx.y * kBM;
+  const int tid = threadIdx.x;
+  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
+  float acc[kTM][kTN];
+  tile_product<false, true>(d_lex + static_cast<size_t>(b) * S * V, V, vw, V,
+                            s0, h0, S, h, V, acc);
+  float col_f[kTN], col_w[kTN];
+#pragma unroll
+  for (int j = 0; j < kTN; ++j) col_f[j] = col_w[j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int s = s0 + ty * kTM + i;
+    if (s >= S) continue;
+    const float db = d_blank[static_cast<size_t>(b) * S + s];
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int hh = h0 + tx * kTN + j;
+      if (hh >= h) continue;
+      const float jt = tanhf(pc[static_cast<size_t>(s) * h + hh] +
+                             pf_t[static_cast<size_t>(b) * h + hh]);
+      const float dp = (acc[i][j] + db * bw32[hh]) * (1.f - jt * jt);
+      dpc_acc[(static_cast<size_t>(b) * S + s) * h + hh] += dp;
+      col_f[j] += dp;
+      col_w[j] += jt * db;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kTN; ++j) {
+    cand_f[ty][tx * kTN + j] = col_f[j];
+    cand_w[ty][tx * kTN + j] = col_w[j];
+  }
+  __syncthreads();
+  if (tid < kBN && h0 + tid < h) {
+    float sf = 0.f, sw = 0.f;
+    for (int r = 0; r < kBM / kTM; ++r) {
+      sf += cand_f[r][tid];
+      sw += cand_w[r][tid];
+    }
+    dpf_part[(static_cast<size_t>(blockIdx.y) * B + b) * h + h0 + tid] = sf;
+    dbw_acc[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * h + h0 + tid] +=
+        sw;
+  }
+}
+
+// dpf[t, b] = sum over state tiles of dpf_part; zero on padding rows.
+__global__ void __launch_bounds__(kPointThreads)
+    dpf_reduce_kernel(const float* __restrict__ dpf_part,
+                      const int* __restrict__ is_pad_t,
+                      float* __restrict__ dpf_t,  // [B, h]
+                      int B, int h, int tiles) {
+  const int idx = blockIdx.x * kPointThreads + threadIdx.x;
+  if (idx >= B * h) return;
+  float total = 0.f;
+  if (!is_pad_t[idx / h]) {
+    for (int st = 0; st < tiles; ++st) {
+      total += dpf_part[static_cast<size_t>(st) * B * h + idx];
+    }
+  }
+  dpf_t[idx] = total;
+}
+
+// out[i] = sum_r in[r * n + i].
+__global__ void __launch_bounds__(kPointThreads)
+    sum_rows_kernel(const float* __restrict__ in, int rows, int n,
+                    float* __restrict__ out) {
+  const int idx = blockIdx.x * kPointThreads + threadIdx.x;
+  if (idx >= n) return;
+  float total = 0.f;
+  for (int r = 0; r < rows; ++r) total += in[static_cast<size_t>(r) * n + idx];
+  out[idx] = total;
+}
+
+#define RETURN_IF_LAUNCH_FAILED()                          \
+  do {                                                     \
+    const cudaError_t err = cudaGetLastError();            \
+    if (err != cudaSuccess) return static_cast<int>(err);  \
+  } while (0)
+
+inline int blocks_for(size_t n) {
+  return static_cast<int>((n + kPointThreads - 1) / kPointThreads);
+}
+
+template <typename T>
+int run_forward(const float* pf, const float* pc, const T* vw,
+                const float* vb, const T* bw, const float* bb,
+                const int* is_pad, T* joint, float* blank, float* lex,
+                float* part_m, float* part_l, float* last, float* alpha,
+                float* hist, float* slabs, int num_frames, int B, int S,
+                int h, int V, int max_expansions, int frame_dependent,
+                int max_splits, cudaStream_t stream) {
+  const int passes = frame_dependent ? 1 : max_expansions;
+  const bool stage = passes >= 2;
+  const size_t bs = static_cast<size_t>(B) * S;
+  const int tiles = (S + kBM - 1) / kBM;
+  const int tiles_per_split =
+      (tiles + max_splits - 1) / (max_splits > 0 ? max_splits : 1);
+  const int splits = (tiles + tiles_per_split - 1) / tiles_per_split;
+  const dim3 joint_grid(S, B);
+  const dim3 pass_grid((V + kBN - 1) / kBN, splits, B);
+  for (int t = 0; t < num_frames; ++t) {
+    const float* alpha_cur = alpha + (t % 2) * bs;
+    float* alpha_next = alpha + ((t + 1) % 2) * bs;
+    const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
+    joint_blank_kernel<T><<<joint_grid, kJointThreads, 0, stream>>>(
+        pf + static_cast<size_t>(t) * B * h, is_pad_t, pc, bw, bb, nullptr,
+        nullptr, joint, blank, S, h, 0);
+    RETURN_IF_LAUNCH_FAILED();
+    // The j-th expansion of the frame: a slab, or a scratch row.
+    float* last_t = slabs != nullptr ? slabs + t * bs : last;
+    const size_t last_stride =
+        slabs != nullptr ? static_cast<size_t>(num_frames) * bs : bs;
+    const float* vec = alpha_cur;
+    for (int j = 0; j < passes; ++j) {
+      if (!stage) {
+        col_pass_kernel<T, kCompute><<<pass_grid, kThreads, 0, stream>>>(
+            joint, vw, vb, vec, nullptr, part_m, part_l, is_pad_t, S, h, V,
+            tiles_per_split);
+      } else if (j == 0) {
+        col_pass_kernel<T, kComputeStore><<<pass_grid, kThreads, 0, stream>>>(
+            joint, vw, vb, vec, lex, part_m, part_l, is_pad_t, S, h, V,
+            tiles_per_split);
+      } else {
+        col_pass_kernel<T, kLoad><<<pass_grid, kThreads, 0, stream>>>(
+            joint, vw, vb, vec, lex, part_m, part_l, is_pad_t, S, h, V,
+            tiles_per_split);
+      }
+      RETURN_IF_LAUNCH_FAILED();
+      float* red = last_t + j * last_stride;
+      col_merge_kernel<<<blocks_for(static_cast<size_t>(B) * V),
+                         kPointThreads, 0, stream>>>(part_m, part_l, is_pad_t,
+                                                     red, splits, B, S, V);
+      RETURN_IF_LAUNCH_FAILED();
+      vec = red;
+    }
+    update_kernel<<<blocks_for(bs), kPointThreads, 0, stream>>>(
+        alpha_cur, blank, last_t, last_stride, is_pad_t, alpha_next,
+        hist != nullptr ? hist + t * bs : nullptr, B, S, passes,
+        frame_dependent);
+    RETURN_IF_LAUNCH_FAILED();
+  }
+  return 0;
+}
+
+template <typename T>
+int run_backward(const float* pf, const float* pc, const T* vw,
+                 const float* vb, const T* bw, const float* bw32,
+                 const float* bb, const int* is_pad, const float* log_z,
+                 const float* g, const float* hist, const float* slabs,
+                 T* joint, float* blank, float* lex, T* d_lex, float* d_blank,
+                 float* part_m, float* part_l, float* nb, float* beta,
+                 float* dpf, float* dpf_part, float* dpc_acc, float* dvw_acc,
+                 float* dvb_acc, float* dbw_acc, float* dbb_acc, float* dpc,
+                 float* dvw, float* dvb, float* dbw, float* dbb,
+                 int num_frames, int B, int S, int h, int V,
+                 int max_expansions, int frame_dependent, int max_ysplits,
+                 int max_ksplits, cudaStream_t stream) {
+  const int k = frame_dependent ? 0 : max_expansions;
+  const int passes = frame_dependent ? 1 : max_expansions;
+  if (k + 1 > kMaxAlphas) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bs = static_cast<size_t>(B) * S;
+  const int tiles = (S + kBM - 1) / kBM;
+  const int strips = (V + kBN - 1) / kBN;
+  const int h_tiles = (h + kBM - 1) / kBM;
+  const int strips_per_split =
+      (strips + max_ysplits - 1) / (max_ysplits > 0 ? max_ysplits : 1);
+  const int ysplits = (strips + strips_per_split - 1) / strips_per_split;
+  const int rows = B * S;
+  int rows_per_split =
+      (rows + max_ksplits - 1) / (max_ksplits > 0 ? max_ksplits : 1);
+  rows_per_split = (rows_per_split + kWK - 1) / kWK * kWK;
+  const int ksplits = (rows + rows_per_split - 1) / rows_per_split;
+  const dim3 joint_grid(S, B);
+  const dim3 row_grid(tiles, ysplits, B);
+  const dim3 lex_grid(strips, tiles, B);
+  for (int n = 0; n < num_frames; ++n) {
+    const int t = num_frames - 1 - n;
+    const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
+    const float* pf_t = pf + static_cast<size_t>(t) * B * h;
+    const float* beta_cur = beta + (n % 2) * bs;
+    float* beta_next = beta + ((n + 1) % 2) * bs;
+    joint_blank_kernel<T><<<joint_grid, kJointThreads, 0, stream>>>(
+        pf_t, is_pad_t, pc, bw, bb, beta_cur,
+        k >= 1 ? nb + (k - 1) * bs : nullptr, joint, blank, S, h, 1);
+    RETURN_IF_LAUNCH_FAILED();
+    Alphas alphas;
+    alphas.n = 1 + k;
+    alphas.a[0] = hist + t * bs;
+    for (int j = 0; j < k; ++j) {
+      alphas.a[1 + j] = slabs + (static_cast<size_t>(j) * num_frames + t) * bs;
+    }
+    // Row reductions: FD once on beta; FLD on nb_{k-1}, ..., nb_0, each
+    // giving the nb below it and the last the next beta.
+    for (int p = 0; p < passes; ++p) {
+      const float* nbv = frame_dependent ? beta_cur : nb + (k - 1 - p) * bs;
+      if (p == 0) {
+        row_pass_kernel<T, kComputeStore><<<row_grid, kThreads, 0, stream>>>(
+            joint, vw, vb, nbv, lex, part_m, part_l, is_pad_t, S, h, V,
+            strips_per_split);
+      } else {
+        row_pass_kernel<T, kLoad><<<row_grid, kThreads, 0, stream>>>(
+            joint, vw, vb, nbv, lex, part_m, part_l, is_pad_t, S, h, V,
+            strips_per_split);
+      }
+      RETURN_IF_LAUNCH_FAILED();
+      const bool final_stage = p == passes - 1;
+      row_merge_kernel<<<blocks_for(bs), kPointThreads, 0, stream>>>(
+          part_m, part_l, ysplits, is_pad_t, blank, beta_cur,
+          final_stage ? beta_next : nb + (k - 2 - p) * bs, final_stage,
+          alphas, log_z, g, d_blank, dbb_acc, B, S);
+      RETURN_IF_LAUNCH_FAILED();
+    }
+    if (passes == 0) {  // FLD(0): the next beta is blank + beta
+      row_merge_kernel<<<blocks_for(bs), kPointThreads, 0, stream>>>(
+          part_m, part_l, 0, is_pad_t, blank, beta_cur, beta_next, 1, alphas,
+          log_z, g, d_blank, dbb_acc, B, S);
+      RETURN_IF_LAUNCH_FAILED();
+    }
+    Pairs pairs;
+    pairs.n = passes;
+    if (frame_dependent) {
+      pairs.a[0] = alphas.a[0];
+      pairs.nb[0] = beta_cur;
+    } else {
+      for (int j = 0; j < k; ++j) {
+        pairs.a[j] = alphas.a[j];
+        pairs.nb[j] = nb + j * bs;
+      }
+    }
+    marginal_kernel<T><<<lex_grid, kThreads, 0, stream>>>(
+        lex, pairs, log_z, g, is_pad_t, d_lex, dvb_acc, S, V);
+    RETURN_IF_LAUNCH_FAILED();
+    head_grad_kernel<T><<<dim3(strips, h_tiles, ksplits), kThreads, 0,
+                          stream>>>(joint, d_lex, dvw_acc, rows, h, V,
+                                    rows_per_split);
+    RETURN_IF_LAUNCH_FAILED();
+    joint_grad_kernel<T><<<dim3(h_tiles, tiles, B), kThreads, 0, stream>>>(
+        d_lex, vw, bw32, d_blank, pc, pf_t, is_pad_t, dpc_acc, dpf_part,
+        dbw_acc, S, h, V);
+    RETURN_IF_LAUNCH_FAILED();
+    dpf_reduce_kernel<<<blocks_for(static_cast<size_t>(B) * h), kPointThreads,
+                        0, stream>>>(dpf_part, is_pad_t,
+                                     dpf + static_cast<size_t>(t) * B * h, B,
+                                     h, tiles);
+    RETURN_IF_LAUNCH_FAILED();
+  }
+  const struct {
+    const float* in;
+    int rows, n;
+    float* out;
+  } sums[] = {{dpc_acc, B, S * h, dpc},
+              {dvw_acc, ksplits, h * V, dvw},
+              {dvb_acc, B * tiles, V, dvb},
+              {dbw_acc, B * tiles, h, dbw},
+              {dbb_acc, B * S, 1, dbb}};
+  for (const auto& sum : sums) {
+    sum_rows_kernel<<<blocks_for(sum.n), kPointThreads, 0, stream>>>(
+        sum.in, sum.rows, sum.n, sum.out);
+    RETURN_IF_LAUNCH_FAILED();
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Runs the whole forward on `stream` and returns the first launch error
+// (0 on success). The caller allocates everything. `alpha` is [2, B, S]
+// with alpha0 in slot 0 on entry; the final alpha is left in slot
+// num_frames % 2. dtype 0 = float32, 1 = bfloat16 for vw, bw and joint.
+// `lex` ([B, S, V]) is used only with two or more reductions per frame.
+// part_m / part_l hold [max_splits, B, V] per-split partials.
+// With `slabs` ([k, T, B, S]) the expansions are written there, else to
+// `last` ([max(k, 1), B, S]); `hist` ([T, B, S]) may be null.
+int fused_forward(int dtype, const float* pf, const float* pc, const void* vw,
+                  const float* vb, const void* bw, const float* bb,
+                  const int* is_pad, void* joint, float* blank, float* lex,
+                  float* part_m, float* part_l, float* last, float* alpha,
+                  float* hist, float* slabs, int num_frames, int B, int S,
+                  int h, int V, int max_expansions, int frame_dependent,
+                  int max_splits, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return run_forward<float>(
+        pf, pc, static_cast<const float*>(vw), vb,
+        static_cast<const float*>(bw), bb, is_pad, static_cast<float*>(joint),
+        blank, lex, part_m, part_l, last, alpha, hist, slabs, num_frames, B,
+        S, h, V, max_expansions, frame_dependent, max_splits, s);
+  }
+  if (dtype == 1) {
+    return run_forward<__nv_bfloat16>(
+        pf, pc, static_cast<const __nv_bfloat16*>(vw), vb,
+        static_cast<const __nv_bfloat16*>(bw), bb, is_pad,
+        static_cast<__nv_bfloat16*>(joint), blank, lex, part_m, part_l, last,
+        alpha, hist, slabs, num_frames, B, S, h, V, max_expansions,
+        frame_dependent, max_splits, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Runs the whole backward on `stream`; returns the first launch error. The
+// caller allocates everything: scratch joint / d_lex ([B, S, h] / [B, S, V]
+// in the compute type), blank / d_blank ([B, S]), lex ([B, S, V]),
+// part_m / part_l ([max_ysplits, B, S]), nb ([max(k, 1), B, S]), beta
+// ([2, B, S], zero in slot 0 on entry; the final beta is left in slot
+// num_frames % 2), dpf_part ([ceil(S/64), B, h]); zeroed accumulators
+// dpc_acc [B, S, h], dvw_acc [max_ksplits, h, V], dvb_acc [B, ceil(S/64),
+// V], dbw_acc [B, ceil(S/64), h], dbb_acc [B, S]; outputs dpf [T, B, h],
+// dpc [S, h], dvw [h, V], dvb [V], dbw [h], dbb [1].
+int fused_backward(int dtype, const float* pf, const float* pc,
+                   const void* vw, const float* vb, const void* bw,
+                   const float* bw32, const float* bb, const int* is_pad,
+                   const float* log_z, const float* g, const float* hist,
+                   const float* slabs, void* joint, float* blank, float* lex,
+                   void* d_lex, float* d_blank, float* part_m, float* part_l,
+                   float* nb, float* beta, float* dpf, float* dpf_part,
+                   float* dpc_acc, float* dvw_acc, float* dvb_acc,
+                   float* dbw_acc, float* dbb_acc, float* dpc, float* dvw,
+                   float* dvb, float* dbw, float* dbb, int num_frames, int B,
+                   int S, int h, int V, int max_expansions,
+                   int frame_dependent, int max_ysplits, int max_ksplits,
+                   void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return run_backward<float>(
+        pf, pc, static_cast<const float*>(vw), vb,
+        static_cast<const float*>(bw), bw32, bb, is_pad, log_z, g, hist,
+        slabs, static_cast<float*>(joint), blank, lex,
+        static_cast<float*>(d_lex), d_blank, part_m, part_l, nb, beta, dpf,
+        dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc, dvw, dvb,
+        dbw, dbb, num_frames, B, S, h, V, max_expansions, frame_dependent,
+        max_ysplits, max_ksplits, s);
+  }
+  if (dtype == 1) {
+    return run_backward<__nv_bfloat16>(
+        pf, pc, static_cast<const __nv_bfloat16*>(vw), vb,
+        static_cast<const __nv_bfloat16*>(bw), bw32, bb, is_pad, log_z, g,
+        hist, slabs, static_cast<__nv_bfloat16*>(joint), blank, lex,
+        static_cast<__nv_bfloat16*>(d_lex), d_blank, part_m, part_l, nb,
+        beta, dpf, dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc,
+        dvw, dvb, dbw, dbb, num_frames, B, S, h, V, max_expansions,
+        frame_dependent, max_ysplits, max_ksplits, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+const char* fused_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -58,7 +58,8 @@
 //   to the lowest s whatever the order of the merges.
 // * bfloat16 inputs multiply on the tensor cores through WMMA (mma.sync,
 //   float32 accumulation); float32 inputs, kept for exact comparison with
-//   the plain version, use float32 FMAs on the CUDA cores. wgmma, TMA and a
+//   the plain version, use float32 FMAs on the CUDA cores
+//   (tile_product.cuh, shared with fused_scan.cu). wgmma, TMA and a
 //   pipelined producer/consumer shape are later work.
 // * No padding of V to 128 lanes or of S to a tile: the ragged edges are
 //   masked in the loads and in the reduction. Padding frames skip all work
@@ -68,39 +69,17 @@
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
-#include <mma.h>
+
+#include "tile_product.cuh"
 
 namespace {
 
-using namespace nvcuda;
+using namespace lattice_tiles;
 
-constexpr int kBM = 64;   // state rows per tile
-constexpr int kBN = 64;   // label columns per block
-constexpr int kBK = 16;   // hidden depth per shared-memory stage (float32)
-constexpr int kWK = 64;   // hidden depth per shared-memory stage (WMMA)
-constexpr int kTM = 4;    // state rows per thread
-constexpr int kTN = 4;    // label columns per thread
-constexpr int kThreads = (kBM / kTM) * (kBN / kTN);  // 256
 constexpr int kJointThreads = 128;
 constexpr int kUpdateThreads = 256;
 
 enum LexMode { kCompute = 0, kComputeStore = 1, kLoad = 2 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 
 // The (value, state) order of the reduction: larger value first, then the
 // lower state index. Matches jnp.argmax within a tile plus the strict '>'
@@ -145,141 +124,6 @@ __global__ void __launch_bounds__(kJointThreads)
     for (int w = 0; w < kJointThreads / 32; ++w) total += warp_sums[w];
     blank[static_cast<size_t>(b) * S + s] = total + bb[0];
   }
-}
-
-// acc[i][j] = joint[s0 + ty*kTM + i] . vw[:, y0 + tx*kTN + j] for one
-// 64 x 64 tile, float32 inputs: FMAs on the CUDA cores from shared-memory
-// tiles, a 4 x 4 register tile per thread.
-__device__ __forceinline__ void tile_product(const float* __restrict__ joint_b,
-                                             const float* __restrict__ vw,
-                                             int s0, int y0, int S, int h,
-                                             int V, float (&acc)[kTM][kTN]) {
-  __shared__ float a_tile[kBK][kBM + 4];  // joint, transposed: [k][s]
-  __shared__ float b_tile[kBK][kBN];      // vocab_w: [k][y]
-  const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-  }
-  for (int k0 = 0; k0 < h; k0 += kBK) {
-    for (int idx = tid; idx < kBM * kBK; idx += kThreads) {
-      const int r = idx / kBK, c = idx % kBK;
-      const int s = s0 + r, k = k0 + c;
-      a_tile[c][r] = (s < S && k < h) ? joint_b[static_cast<size_t>(s) * h + k]
-                                      : 0.f;
-    }
-    for (int idx = tid; idx < kBK * kBN; idx += kThreads) {
-      const int r = idx / kBN, c = idx % kBN;
-      const int k = k0 + r, y = y0 + c;
-      b_tile[r][c] = (k < h && y < V) ? vw[static_cast<size_t>(k) * V + y]
-                                      : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kTM], w[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = a_tile[kk][ty * kTM + i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) w[j] = b_tile[kk][tx * kTN + j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-// The same tile with bfloat16 inputs on the tensor cores (WMMA, float32
-// accumulation). Each of the 8 warps owns a 16 x 32 piece; the float32
-// result goes through shared memory into the threads' 4 x 4 layout.
-__device__ __forceinline__ void tile_product(
-    const __nv_bfloat16* __restrict__ joint_b,
-    const __nv_bfloat16* __restrict__ vw, int s0, int y0, int S, int h, int V,
-    float (&acc)[kTM][kTN]) {
-  constexpr int kLdA = kWK + 8, kLdB = kBN + 8, kLdC = kBN + 4;
-  __shared__ __align__(32) __nv_bfloat16 a_tile[kBM][kLdA];  // [s][k]
-  __shared__ __align__(32) __nv_bfloat16 b_tile[kWK][kLdB];  // [k][y]
-  __shared__ __align__(32) float c_tile[kBM][kLdC];
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;  // 4 x 2 warps over 64 x 64
-  const __nv_bfloat16 zero = __float2bfloat16(0.f);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c_frag[2];
-  wmma::fill_fragment(c_frag[0], 0.f);
-  wmma::fill_fragment(c_frag[1], 0.f);
-  // With h and V multiples of 8, rows are 16-byte aligned and every group
-  // of 8 is wholly inside or outside the ragged edge: 16-byte loads.
-  const bool by16 = h % 8 == 0 && V % 8 == 0;
-  for (int k0 = 0; k0 < h; k0 += kWK) {
-    if (by16) {
-      const uint4 none = make_uint4(0, 0, 0, 0);
-      for (int idx = tid; idx < kBM * kWK / 8; idx += kThreads) {
-        const int r = idx / (kWK / 8), c = idx % (kWK / 8) * 8;
-        const int s = s0 + r, k = k0 + c;
-        *reinterpret_cast<uint4*>(&a_tile[r][c]) =
-            (s < S && k < h) ? *reinterpret_cast<const uint4*>(
-                                   joint_b + static_cast<size_t>(s) * h + k)
-                             : none;
-      }
-      for (int idx = tid; idx < kWK * kBN / 8; idx += kThreads) {
-        const int r = idx / (kBN / 8), c = idx % (kBN / 8) * 8;
-        const int k = k0 + r, y = y0 + c;
-        *reinterpret_cast<uint4*>(&b_tile[r][c]) =
-            (k < h && y < V) ? *reinterpret_cast<const uint4*>(
-                                   vw + static_cast<size_t>(k) * V + y)
-                             : none;
-      }
-    } else {
-      for (int idx = tid; idx < kBM * kWK; idx += kThreads) {
-        const int r = idx / kWK, c = idx % kWK;
-        const int s = s0 + r, k = k0 + c;
-        a_tile[r][c] = (s < S && k < h)
-                           ? joint_b[static_cast<size_t>(s) * h + k]
-                           : zero;
-      }
-      for (int idx = tid; idx < kWK * kBN; idx += kThreads) {
-        const int r = idx / kBN, c = idx % kBN;
-        const int k = k0 + r, y = y0 + c;
-        b_tile[r][c] = (k < h && y < V) ? vw[static_cast<size_t>(k) * V + y]
-                                        : zero;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kWK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a_frag;
-      wmma::load_matrix_sync(a_frag, &a_tile[wm * 16][kk], kLdA);
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> b_frag;
-        wmma::load_matrix_sync(b_frag, &b_tile[kk][wn * 32 + n * 16], kLdB);
-        wmma::mma_sync(c_frag[n], a_frag, b_frag, c_frag[n]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int n = 0; n < 2; ++n) {
-    wmma::store_matrix_sync(&c_tile[wm * 16][wn * 32 + n * 16], c_frag[n],
-                            kLdC, wmma::mem_row_major);
-  }
-  __syncthreads();
-  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      acc[i][j] = c_tile[ty * kTM + i][tx * kTN + j];
-    }
-  }
-  __syncthreads();
 }
 
 // One max-pass over one split of the states for a 64-label strip of batch
@@ -339,7 +183,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     } else {
       float acc[kTM][kTN];
-      tile_product(joint_b, vw, s0, y0, S, h, V, acc);
+      tile_product<false, false>(joint_b, h, vw, V, s0, y0, S, V, h, acc);
 #pragma unroll
       for (int i = 0; i < kTM; ++i) {
         const int s = s0 + ty * kTM + i;

@@ -12,36 +12,53 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Recognition lattice, PyTorch port: the decode slice.
+"""Recognition lattice, PyTorch port: decoding and the training loss.
 
-Counterpart of ``last_torch_tpu/lattices.py``. What is ported is what
-``GNATModel.decode`` runs: ``init``, ``build_cache`` and ``shortest_path``
-through the Viterbi kernel (``ops/viterbi.py``). The other operations, and
-decodes outside the kernel's gate, raise ``NotImplementedError`` naming the
-ROADMAP item that ports them; none of them falls back to another route.
+Counterpart of ``last_torch_tpu/lattices.py``. Ported: ``init``,
+``build_cache``, ``shortest_path`` through the Viterbi kernel
+(``ops/viterbi.py``), and ``loss`` / ``shortest_distance``. The loss is the
+globally normalized denominator minus the numerator: the numerator is the
+string DP over ``JointWeightFn.label_weights``; the denominator takes the
+log-partition kernels (``ops/fused_scan.py``) inside their gate and the
+generic forward-backward (a per-frame loop with a backward-algorithm
+gradient) outside it, where the JAX package runs XLA. The configurations
+the JAX package sends to routes that are not ported yet (the trigram
+kernels, the single-context-state route) and the remaining operations
+raise ``NotImplementedError`` naming the ROADMAP item that ports them; none
+of them falls back to another route.
 """
 
 from __future__ import annotations
 
-from collections.abc import Callable
+from collections.abc import Callable, Sequence
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
+from torch.utils import _pytree as pytree
 
 from last_torch_tpu_torch import alignments
+from last_torch_tpu_torch import contexts
+from last_torch_tpu_torch import semirings
+from last_torch_tpu_torch import weight_fns
+from last_torch_tpu_torch.ops import fused_scan
 from last_torch_tpu_torch.ops import viterbi
 
 Params = dict[str, Any]
 
+# ROADMAP.md items named by the routes that are not ported yet.
+_REST = 'queue 1, item 7 ("lattices.py, the rest")'
+_MARGINALS = 'queue 1, item 4 ("label_marginals and arc_marginals")'
+_TRIGRAM = 'queue 2, item 6 (ops/trigram_scan.py kernels)'
+
 
 def _not_ported(operation: str, roadmap_item: str):
   raise NotImplementedError(
-      f'{operation} is not ported to PyTorch yet: ROADMAP.md queue 1, '
-      f'"{roadmap_item}"')
+      f'{operation} is not ported to PyTorch yet: ROADMAP.md {roadmap_item}')
 
 
 class RecognitionLattice:
-  """Recognition lattice in GNAT-style formulation (decode slice).
+  """Recognition lattice in GNAT-style formulation.
 
   Three components define it, as in the JAX package: a context dependency
   (``contexts``), an alignment lattice (``alignments``) and a weight
@@ -66,11 +83,12 @@ class RecognitionLattice:
 
   @property
   def last_path(self) -> Optional[str]:
-    """Which path the last ``shortest_path`` took.
+    """Which path the last ``shortest_path`` or log-partition took.
 
-    'kernel' when it launched the CUDA Viterbi kernel (CUDA tensors),
-    'plain' when it ran the kernel's plain PyTorch version (CPU tensors),
-    None before any call.
+    'kernel' when it launched the CUDA kernels (CUDA tensors inside the
+    kernels' gate), 'plain' when it ran their plain PyTorch versions (CPU
+    tensors inside the gate), 'generic' for the per-frame loop outside the
+    gate, None before any call.
     """
     return self._last_path
 
@@ -87,7 +105,38 @@ class RecognitionLattice:
     """The frame-independent weight function cache."""
     return self.weight_fn_cacher.apply(params['cacher'])
 
-  def shortest_path(self, params: Params, frames: torch.Tensor,
+  def __call__(self, params, frames, num_frames, labels, num_labels,
+               cache=None):
+    return self.loss(params, frames, num_frames, labels, num_labels, cache)
+
+  def loss(self, params: Params, frames: torch.Tensor, num_frames, labels,
+           num_labels, cache=None) -> torch.Tensor:
+    """The negative sequence log-probability loss, -log P(labels | frames).
+
+    Globally normalized: log Z (all paths) minus the weight of the paths
+    that produce ``labels``. Infeasible label sequences give +inf.
+
+    Args:
+      params: Parameters from ``init``.
+      frames: [batch_dims..., max_num_frames, feature_size] padded frames.
+      num_frames: [batch_dims...] number of frames.
+      labels: [batch_dims..., max_num_labels] padded label sequences.
+      num_labels: [batch_dims...] number of labels.
+      cache: Optional weight function cache.
+
+    Returns:
+      [batch_dims...] loss.
+    """
+    num_frames, num_labels, labels = self._check_string_args(
+        frames, num_frames, labels, num_labels)
+    if cache is None:
+      cache = self.build_cache(params)
+    denominator = self._forward_backward(params, cache, frames, num_frames)
+    numerator = self._string_forward(params, cache, frames, num_frames,
+                                     labels, num_labels, semirings.Log)
+    return denominator - numerator
+
+  def shortest_path(self, params, frames: torch.Tensor,
                     num_frames: torch.Tensor, cache=None,
                     reference_compat: bool = False):
     """The highest scoring alignment path (Viterbi decode).
@@ -114,10 +163,10 @@ class RecognitionLattice:
       raise ValueError('frames and num_frames have different batch_dims: '
                        f'{tuple(frames.shape[:-2])} vs '
                        f'{tuple(num_frames.shape)}')
-    if not viterbi.supported(self, frames):
+    if not fused_scan.supported(self, frames):
       _not_ported('shortest_path outside the Viterbi kernel\'s gate '
                   '(bigram FullNGram, JointWeightFn, FD/FLD, one batch dim)',
-                  'lattices.py, the rest')
+                  _REST)
     if cache is None:
       cache = self.build_cache(params)
     frame_dependent = isinstance(self.alignment, alignments.FrameDependent)
@@ -133,22 +182,353 @@ class RecognitionLattice:
       labels = torch.where(labels == 0, 0, labels - 1)
     return labels, num_labels, weights
 
-  def loss(self, *args, **kwargs):
-    _not_ported('loss', 'GN loss forward and backward')
+  def shortest_distance(self, params: Params, frames: torch.Tensor,
+                        num_frames, semiring=None, cache=None,
+                        weight_lift=None) -> torch.Tensor:
+    """Shortest distance over all paths (the forward algorithm).
 
-  __call__ = loss
+    Under the Log semiring (the default) this is log Z through the
+    differentiable forward-backward route, the kernels inside their gate;
+    under MaxTropical the best path weight through the generic loop.
 
-  def shortest_distance(self, *args, **kwargs):
-    _not_ported('shortest_distance', 'GN loss forward and backward')
+    Args:
+      params: Parameters from ``init``.
+      frames: [batch_dims..., max_num_frames, feature_size] padded frames.
+      num_frames: [batch_dims...] number of frames.
+      semiring: ``semirings.Log`` (default) or ``semirings.MaxTropical``.
+      cache: Optional weight function cache.
+      weight_lift: Not ported yet (it needs the tuple-valued semirings).
+
+    Returns:
+      [batch_dims...] shortest distance.
+    """
+    if weight_lift is not None:
+      _not_ported('shortest_distance with weight_lift', _REST)
+    semiring = semiring if semiring is not None else semirings.Log
+    if cache is None:
+      cache = self.build_cache(params)
+    num_frames = torch.as_tensor(num_frames, device=frames.device)
+    if semiring is semirings.Log:
+      return self._forward_backward(params, cache, frames, num_frames)
+    distance, _ = self._forward(params, cache, frames, num_frames, semiring)
+    return distance
 
   def arc_marginals(self, *args, **kwargs):
-    _not_ported('arc_marginals', 'label_marginals and arc_marginals')
+    _not_ported('arc_marginals', _MARGINALS)
 
   def label_marginals(self, *args, **kwargs):
-    _not_ported('label_marginals', 'label_marginals and arc_marginals')
+    _not_ported('label_marginals', _MARGINALS)
 
   def align(self, *args, **kwargs):
-    _not_ported('align', 'lattices.py, the rest')
+    _not_ported('align', _REST)
 
   def sample_paths(self, *args, **kwargs):
-    _not_ported('sample_paths', 'lattices.py, the rest')
+    _not_ported('sample_paths', _REST)
+
+  # Private dynamic programs.
+
+  def _check_string_args(self, frames, num_frames, labels, num_labels):
+    """Shape validation shared by the loss and the string DP."""
+    device = frames.device
+    num_frames = torch.as_tensor(num_frames, device=device)
+    num_labels = torch.as_tensor(num_labels, device=device)
+    labels = torch.as_tensor(labels, device=device).long()
+    batch_dims = tuple(num_frames.shape)
+    for name, shape in (('frames', frames.shape[:-2]),
+                        ('labels', labels.shape[:-1]),
+                        ('num_labels', num_labels.shape)):
+      if tuple(shape) != batch_dims:
+        raise ValueError(f'{name} and num_frames have different batch_dims: '
+                         f'{tuple(shape)} vs {batch_dims}')
+    return num_frames, num_labels, labels
+
+  def _string_forward(self, params, cache, frames, num_frames, labels,
+                      num_labels, semiring):
+    """Shortest distance on the intersection with an output string.
+
+    The numerator: per-(frame, label-position) weights from the weight
+    function's ``label_weights`` fast path, then the string DP.
+
+    Returns:
+      [batch_dims...] shortest distance.
+    """
+    num_frames, num_labels, labels = self._check_string_args(
+        frames, num_frames, labels, num_labels)
+    blank_weight, lexical_weight = self._string_weights(
+        params, cache, frames, labels)
+    return self._string_dp(blank_weight, lexical_weight, num_frames,
+                           num_labels, semiring)
+
+  def _string_weights(self, params, cache, frames, labels):
+    """Per-(frame, label-position) blank and next-label weights.
+
+    Returns (blank_weight, lexical_weight), both time-major
+    [T, batch_dims..., U+1]: position u's weights come from the context
+    state after ``labels[..., :u]``; ``lexical_weight`` holds the weight of
+    the next needed label (position U uses a dummy label, never final).
+    """
+    if self.context.shape()[0] == 1:
+      _not_ported('the single-context-state (S = 1) string weights', _REST)
+    context_states = self.context.walk_states(labels)
+    next_labels = torch.cat([labels, torch.ones_like(labels[..., :1])],
+                            dim=-1)
+    blank, lexical = self.weight_fn.label_weights(
+        params['weight_fn'], cache, frames, context_states, next_labels)
+    # [batch_dims..., U+1, T] -> [T, batch_dims..., U+1].
+    return blank.movedim(-1, 0), lexical.movedim(-1, 0)
+
+  def _string_dp(self, blank_weight, lexical_weight, num_frames, num_labels,
+                 semiring):
+    """The (frame x label-position) recursion over precomputed weights.
+
+    The scan route of the JAX package (its closed-form cumulative route,
+    ``STRING_DP_CUMULATIVE``, is off there and is not ported).
+    """
+    batch_dims = tuple(num_frames.shape)
+    num_align_states = self.alignment.num_states()
+    num_positions = blank_weight.shape[-1]
+    alpha = _init_context_state_weights(
+        batch_dims, num_positions, 0, semiring, blank_weight.dtype,
+        blank_weight.device)
+    for t in range(blank_weight.shape[0]):
+      next_alpha = self.alignment.string_forward(
+          alpha=alpha, blank=[blank_weight[t]] * num_align_states,
+          lexical=[lexical_weight[t]] * num_align_states, semiring=semiring)
+      alpha = semirings.where((t >= num_frames)[..., None], alpha,
+                              next_alpha)
+    is_final = num_labels[..., None] == torch.arange(
+        num_positions, device=alpha.device)
+    zero = semirings.zeros_like(semiring, alpha, ())
+    return semiring.sum(semirings.where(is_final, alpha, zero), axis=-1)
+
+  def _s1_route(self, frames) -> bool:
+    """Whether the JAX package takes its single-context-state route."""
+    return (self.context.shape()[0] == 1 and frames.shape[-2] > 0 and
+            isinstance(self.alignment, (alignments.FrameDependent,
+                                        alignments.FrameLabelDependent)))
+
+  def _trigram_route(self, frames) -> bool:
+    """Whether the JAX package takes its trigram kernels (on its TPU and in
+    interpret mode): ``last_torch_tpu.ops.trigram_scan.supported``'s
+    structural half."""
+    return (type(self.weight_fn) is weight_fns.JointWeightFn and
+            type(self.context) is contexts.FullNGram and
+            self.context.context_size == 2 and
+            isinstance(self.alignment, (alignments.FrameDependent,
+                                        alignments.FrameLabelDependent)) and
+            frames.ndim == 3)
+
+  def _forward(self, params, cache, frames, num_frames, semiring,
+               blank_mask: Optional[Sequence[torch.Tensor]] = None,
+               lexical_mask: Optional[Sequence[torch.Tensor]] = None):
+    """Shortest distance by the generic forward algorithm.
+
+    A per-frame loop over ``weight_fn.apply`` and ``alignment.forward``.
+    When autograd records, each frame runs under ``torch.utils.checkpoint``
+    so that only the O(B * S) alpha carries are saved, never the
+    O(B * S * V) arc weights (the JAX package's remat policy).
+
+    Args:
+      params, cache, frames, num_frames: As ``shortest_distance``.
+      semiring: Semiring of the shortest distance.
+      blank_mask: Optional length num_alignment_states sequence of
+        [batch_dims..., max_num_frames, 1-or-num_context_states] tensors
+        added to the blank weights.
+      lexical_mask: Optional length num_alignment_states sequence of
+        [batch_dims..., max_num_frames, 1-or-num_context_states,
+        1-or-vocab_size] tensors added to the lexical weights.
+
+    Returns:
+      (shortest_distance [batch_dims...], alpha history [batch_dims...,
+      max_num_frames, num_context_states]: alpha before each frame).
+    """
+    num_frames = torch.as_tensor(num_frames, device=frames.device)
+    batch_dims = tuple(num_frames.shape)
+    if tuple(frames.shape[:-2]) != batch_dims:
+      raise ValueError('frames and num_frames have different batch_dims: '
+                       f'{tuple(frames.shape[:-2])} vs {batch_dims}')
+    num_align_states = self.alignment.num_states()
+    for name, mask in (('blank_mask', blank_mask),
+                       ('lexical_mask', lexical_mask)):
+      if mask is not None and len(mask) != num_align_states:
+        raise ValueError(
+            f'The length of {name} should be equal to {num_align_states} '
+            f'(the number of alignment states), but is {len(mask)}')
+    if self._s1_route(frames):
+      _not_ported('the single-context-state (S = 1) shortest distance',
+                  _REST)
+    self._last_path = 'generic'
+    wf_params = params['weight_fn']
+
+    def step(alpha, t):
+      blank, lexical = self.weight_fn.apply(wf_params, cache,
+                                            frames[..., t, :])
+      blank = [blank] * num_align_states
+      lexical = [lexical] * num_align_states
+      if blank_mask is not None:
+        blank = [b + m[..., t, :] for b, m in zip(blank, blank_mask)]
+      if lexical_mask is not None:
+        lexical = [l + m[..., t, :, :] for l, m in zip(lexical,
+                                                        lexical_mask)]
+      next_alpha = self.alignment.forward(
+          alpha=alpha, blank=blank, lexical=lexical, context=self.context,
+          semiring=semiring)
+      return semirings.where((t >= num_frames)[..., None], alpha,
+                             next_alpha)
+
+    if torch.is_grad_enabled():
+      step_fn = lambda alpha, t: torch.utils.checkpoint.checkpoint(
+          step, alpha, t, use_reentrant=False)
+    else:
+      step_fn = step
+    num_states = self.context.shape()[0]
+    alpha = _init_context_state_weights(batch_dims, num_states,
+                                        self.context.start(), semiring,
+                                        frames.dtype, frames.device)
+    history = []
+    for t in range(frames.shape[-2]):
+      history.append(alpha)
+      alpha = step_fn(alpha, t)
+    history = (torch.stack(history, dim=-2) if history else
+               alpha.new_empty(batch_dims + (0, num_states)))
+    return semiring.sum(alpha, axis=-1), history
+
+  def _forward_backward(self, params, cache, frames, num_frames):
+    """Log Z with backward-algorithm gradients: the loss denominator.
+
+    Inside the kernels' gate, ``fused_scan.log_partition`` (the CUDA
+    kernels on CUDA tensors with bfloat16 head inputs, as the TPU kernels;
+    their plain versions in float32 on CPU tensors, as the JAX package off
+    the TPU). Outside it, the generic route: the forward loop saving the
+    alpha history, and a backward that runs the backward algorithm in
+    reverse, recomputing each frame's weights and feeding the
+    cotangent-scaled arc marginals through the weight function's VJP.
+    """
+    num_frames = torch.as_tensor(num_frames, device=frames.device)
+    if fused_scan.supported(self, frames):
+      frame_dependent = isinstance(self.alignment, alignments.FrameDependent)
+      on_card = frames.device.type == 'cuda'
+      self._last_path = 'kernel' if on_card else 'plain'
+      return fused_scan.log_partition(
+          params['weight_fn'], cache, frames, num_frames,
+          max_expansions=(0 if frame_dependent else
+                          self.alignment.max_expansions),
+          frame_dependent=frame_dependent,
+          compute_dtype=torch.bfloat16 if on_card else torch.float32)
+    if self._trigram_route(frames):
+      _not_ported('the trigram FullNGram(context_size=2) log-partition',
+                  _TRIGRAM)
+    if self._s1_route(frames):
+      _not_ported('the single-context-state (S = 1) log-partition', _REST)
+    leaves, spec = pytree.tree_flatten(params['weight_fn'])
+    return _GenericLogPartition.apply(self, num_frames, spec, cache, frames,
+                                      *leaves)
+
+  def _backward(self, params, cache, frames, num_frames, log_z,
+                alpha_history, init_callback_carry, callback):
+    """Arc marginals under the Log semiring by the backward algorithm.
+
+    A reverse loop over frames. Each frame recomputes its weights with
+    autograd recording, forms the arc marginals with
+    ``alignment.backward``, and calls ``callback(weight_vjp_fn, carry,
+    blank_marginal, lexical_marginals)``, where ``weight_vjp_fn(d_blank,
+    d_lexical)`` returns the gradients of (params, cache, frame). Padding
+    frames carry beta through and get zero marginals.
+
+    Returns:
+      (final callback carry, callback outputs stacked along a batch-major
+      time axis, or None when there are no frames).
+    """
+    batch_dims = tuple(num_frames.shape)
+    for name, shape in (('frames', frames.shape[:-2]),
+                        ('log_z', log_z.shape),
+                        ('alpha_0_to_T_minus_1', alpha_history.shape[:-2])):
+      if tuple(shape) != batch_dims:
+        raise ValueError(f'{name} and num_frames have different batch_dims: '
+                         f'{tuple(shape)} vs {batch_dims}')
+    num_align_states = self.alignment.num_states()
+    leaves, spec = pytree.tree_flatten(params['weight_fn'])
+    beta = semirings.Log.ones(batch_dims + (self.context.shape()[0],),
+                              log_z.dtype, log_z.device)
+    carry, outputs = init_callback_carry, []
+    for t in range(frames.shape[-2] - 1, -1, -1):
+      with torch.enable_grad():
+        inputs = [x.detach().requires_grad_() for x in
+                  leaves + [cache, frames[..., t, :]]]
+        blank, lexical = self.weight_fn.apply(
+            pytree.tree_unflatten(inputs[:-2], spec), *inputs[-2:])
+
+      def weight_vjp_fn(d_blank, d_lexical, blank=blank, lexical=lexical,
+                        inputs=inputs):
+        grads = torch.autograd.grad((blank, lexical), inputs,
+                                    (d_blank, d_lexical), allow_unused=True)
+        grads = [torch.zeros_like(x) if d is None else d
+                 for d, x in zip(grads, inputs)]
+        return pytree.tree_unflatten(grads[:-2], spec), grads[-2], grads[-1]
+
+      blank, lexical = blank.detach(), lexical.detach()
+      next_beta, blank_marginals, lexical_marginals = self.alignment.backward(
+          alpha=alpha_history[..., t, :], blank=[blank] * num_align_states,
+          lexical=[lexical] * num_align_states, beta=beta, log_z=log_z,
+          context=self.context)
+      # Weight functions are alignment-state-invariant: the total marginal
+      # per (state, label) sums over alignment states.
+      is_padding = (t >= num_frames)[..., None]
+      blank_marginal = torch.where(is_padding, 0.0, sum(blank_marginals))
+      lexical_marginal = torch.where(is_padding[..., None], 0.0,
+                                     sum(lexical_marginals))
+      beta = torch.where(is_padding, beta, next_beta)
+      carry, out = callback(weight_vjp_fn=weight_vjp_fn, carry=carry,
+                            blank_marginal=blank_marginal,
+                            lexical_marginals=lexical_marginal)
+      outputs.append(out)
+    if not outputs:
+      return carry, None
+    outputs.reverse()
+    stacked = pytree.tree_map(
+        lambda *xs: torch.stack(xs, dim=len(batch_dims)), *outputs)
+    return carry, stacked
+
+
+class _GenericLogPartition(torch.autograd.Function):
+  """The generic route's log Z with its backward-algorithm gradient."""
+
+  @staticmethod
+  def forward(ctx, lattice, num_frames, spec, cache, frames, *leaves):
+    params = {'weight_fn': pytree.tree_unflatten(list(leaves), spec)}
+    log_z, alpha_history = lattice._forward(params, cache, frames,
+                                            num_frames, semirings.Log)
+    ctx.lattice, ctx.spec = lattice, spec
+    ctx.save_for_backward(num_frames, cache, frames, log_z, alpha_history,
+                          *leaves)
+    return log_z
+
+  @staticmethod
+  def backward(ctx, g):
+    num_frames, cache, frames, log_z, alpha_history, *leaves = (
+        ctx.saved_tensors)
+    wf_params = pytree.tree_unflatten(leaves, ctx.spec)
+
+    def accumulate(weight_vjp_fn, carry, blank_marginal, lexical_marginals):
+      d_params, d_cache, d_frame = weight_vjp_fn(
+          g[..., None] * blank_marginal,
+          g[..., None, None] * lexical_marginals)
+      return pytree.tree_map(torch.add, carry, (d_params, d_cache)), d_frame
+
+    init = pytree.tree_map(torch.zeros_like, (wf_params, cache))
+    (d_params, d_cache), d_frames = ctx.lattice._backward(
+        {'weight_fn': wf_params}, cache, frames, num_frames, log_z,
+        alpha_history, init, accumulate)
+    if d_frames is None:
+      d_frames = torch.zeros_like(frames)
+    return (None, None, None, d_cache, d_frames,
+            *pytree.tree_leaves(d_params))
+
+
+def _init_context_state_weights(batch_dims, num_states: int, start: int,
+                                semiring, dtype, device):
+  """One-hot start-state alpha_0 in any semiring."""
+  is_start = torch.arange(num_states, device=device) == start
+  weights = torch.where(is_start, semiring.ones((), dtype, device),
+                        semiring.zeros((), dtype, device))
+  return weights.expand(tuple(batch_dims) + (num_states,))

@@ -14,18 +14,22 @@
 
 """GNAT speech transducer: encoder + recognition lattice, PyTorch port.
 
-Counterpart of ``last_torch_tpu/models/gnat.py``: ``GNATConfig`` and the
-serving side of ``GNATModel`` (``init`` and ``decode``). The loss, the
-optimizer and the train steps come with the training slice (ROADMAP
-queue 1).
+Counterpart of ``last_torch_tpu/models/gnat.py``: ``GNATConfig``,
+``GNATModel`` (``init``, ``loss``, ``mean_loss``, ``decode``), the optimizer
+(``make_optimizer``: AdamW with global-norm clipping and the
+warmup/cosine schedule) and the training step (``GNATTrainState``,
+``init_train_state``, ``train_step``). ``accumulate_steps`` and
+``risk_train_step`` are still to port (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
+from torch.utils import _pytree as pytree
 
 from last_torch_tpu_torch import alignments
 from last_torch_tpu_torch import contexts
@@ -136,6 +140,39 @@ class GNATModel:
             device=self.device),
     }
 
+  def loss(self, params: Params, frames, num_frames, labels,
+           num_labels) -> torch.Tensor:
+    """Per-sequence negative log-probability loss.
+
+    Args:
+      params: Parameters from ``init`` (or ``convert.from_jax_params``).
+      frames: [batch, max_num_frames, feature_size] acoustic features.
+      num_frames: [batch] frame counts.
+      labels: [batch, max_num_labels] label sequences (1..vocab_size).
+      num_labels: [batch] label counts.
+
+    Returns:
+      [batch] loss values (+inf for infeasible label sequences).
+    """
+    frames = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
+    num_frames = torch.as_tensor(num_frames, device=self.device)
+    encoded = self.encoder.apply(params['encoder'], frames, num_frames)
+    return self.lattice(
+        params['lattice'], frames=encoded, num_frames=num_frames,
+        labels=torch.as_tensor(labels, device=self.device),
+        num_labels=torch.as_tensor(num_labels, device=self.device))
+
+  def mean_loss(self, params: Params, frames, num_frames, labels,
+                num_labels) -> torch.Tensor:
+    """Scalar mean loss over the feasible sequences of a batch.
+
+    Infeasible sequences (+inf loss) count as 0 and get a zero cotangent.
+    """
+    per_seq = self.loss(params, frames, num_frames, labels, num_labels)
+    finite = torch.isfinite(per_seq)
+    per_seq = torch.where(finite, per_seq, 0.0)
+    return per_seq.sum() / finite.sum().clamp(min=1)
+
   @torch.no_grad()
   def decode(self, params: Params, frames, num_frames):
     """Viterbi-decodes the highest scoring alignment.
@@ -154,3 +191,117 @@ class GNATModel:
     encoded = self.encoder.apply(params['encoder'], frames, num_frames)
     return self.lattice.shortest_path(
         params['lattice'], frames=encoded, num_frames=num_frames)
+
+
+@dataclasses.dataclass
+class OptState:
+  """The optimizer's state: torch's AdamW over the parameter leaves and the
+  learning-rate schedule that steps with it."""
+  adamw: torch.optim.AdamW
+  schedule: torch.optim.lr_scheduler.LambdaLR
+
+
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+  """AdamW with global-norm clipping (built by ``make_optimizer``).
+
+  The counterpart of the JAX package's optax chain
+  ``clip_by_global_norm(clip_norm)`` + ``adamw(schedule, weight_decay)``:
+  betas (0.9, 0.999), eps 1e-8, decoupled weight decay on every leaf.
+  torch's ``clip_grad_norm_`` divides by ``norm + 1e-6`` where optax
+  divides by ``norm``, so clipped updates differ by that relative 1e-6 /
+  norm.
+  """
+  learning_rate: float
+  weight_decay: float
+  clip_norm: float
+  warmup_steps: int
+  total_steps: int
+
+  def rate_factor(self, count: int) -> float:
+    """The learning rate before update ``count`` (0-based), relative to
+    ``learning_rate``: optax's linear warmup then cosine decay."""
+    if self.warmup_steps <= 0:
+      return 1.0
+    if count < self.warmup_steps or not self.total_steps:
+      return min(count, self.warmup_steps) / self.warmup_steps
+    decay_steps = self.total_steps - self.warmup_steps
+    done = min(count - self.warmup_steps, decay_steps)
+    return 0.5 * (1.0 + math.cos(math.pi * done / decay_steps))
+
+  def init(self, params: Params) -> OptState:
+    """The state for ``params``, whose leaves it updates in place."""
+    adamw = torch.optim.AdamW(
+        pytree.tree_leaves(params), lr=self.learning_rate,
+        betas=(0.9, 0.999), eps=1e-8, weight_decay=self.weight_decay)
+    schedule = torch.optim.lr_scheduler.LambdaLR(adamw, self.rate_factor)
+    return OptState(adamw, schedule)
+
+  def apply_gradients(self, opt_state: OptState) -> None:
+    """Clips the leaves' ``.grad`` to ``clip_norm`` in global norm and takes
+    one AdamW step on them; the schedule advances by one update."""
+    leaves = [p for group in opt_state.adamw.param_groups
+              for p in group['params']]
+    torch.nn.utils.clip_grad_norm_(leaves, self.clip_norm)
+    opt_state.adamw.step()
+    opt_state.schedule.step()
+
+
+def make_optimizer(learning_rate: float = 1e-3,
+                   weight_decay: float = 1e-4,
+                   clip_norm: float = 5.0,
+                   accumulate_steps: int = 1,
+                   warmup_steps: int = 0,
+                   total_steps: int = 0) -> Optimizer:
+  """AdamW with global-norm clipping; the standard transducer recipe.
+
+  ``warmup_steps > 0`` switches the constant learning rate to the standard
+  transducer schedule: linear warmup from 0 to ``learning_rate`` over
+  ``warmup_steps``, then cosine decay to zero at ``total_steps`` (constant
+  after warmup when ``total_steps`` is 0).
+  """
+  if accumulate_steps > 1:
+    raise NotImplementedError(
+        'accumulate_steps > 1 is not ported to PyTorch yet: ROADMAP.md '
+        'queue 1, item 9 ("models/ and support code")')
+  if warmup_steps > 0 and 0 < total_steps <= warmup_steps:
+    raise ValueError(
+        f'total_steps={total_steps} must exceed warmup_steps='
+        f'{warmup_steps} (or be 0 for constant-after-warmup)')
+  return Optimizer(learning_rate, weight_decay, clip_norm, warmup_steps,
+                   total_steps)
+
+
+@dataclasses.dataclass
+class GNATTrainState:
+  """Training state: parameters + optimizer state + step counter.
+
+  Unlike the JAX package's immutable state, ``train_step`` updates the
+  parameter tensors in place (the optimizer holds them).
+  """
+  params: Params
+  opt_state: OptState
+  step: int
+
+
+def init_train_state(model: GNATModel, generator: torch.Generator,
+                     optimizer: Optimizer) -> GNATTrainState:
+  """Random parameters from ``generator``, as leaves that record gradients,
+  with a fresh optimizer state."""
+  params = model.init(generator)
+  for leaf in pytree.tree_leaves(params):
+    leaf.requires_grad_(True)
+  return GNATTrainState(params=params, opt_state=optimizer.init(params),
+                        step=0)
+
+
+def train_step(model: GNATModel, optimizer: Optimizer,
+               state: GNATTrainState, frames, num_frames, labels,
+               num_labels) -> tuple[GNATTrainState, torch.Tensor]:
+  """One training step; returns (new_state, mean loss before the update)."""
+  state.opt_state.adamw.zero_grad(set_to_none=True)
+  loss = model.mean_loss(state.params, frames, num_frames, labels,
+                         num_labels)
+  loss.backward()
+  optimizer.apply_gradients(state.opt_state)
+  return dataclasses.replace(state, step=state.step + 1), loss.detach()

@@ -18,4 +18,5 @@ Kernels are built and loaded at first use on a CUDA tensor, never at
 import.
 """
 
+from last_torch_tpu_torch.ops import fused_scan
 from last_torch_tpu_torch.ops import viterbi

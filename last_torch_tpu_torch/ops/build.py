@@ -18,8 +18,8 @@ Each source under ``csrc/`` is compiled with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes`` (no
 PyTorch headers, so a build takes seconds). Builds happen at first use, into
 ``_build/`` beside this package (listed in ``.gitignore``), named by a hash
-of the source and the flags: an edited source rebuilds, an unchanged one
-loads the library already built.
+of the source, the ``csrc/`` headers it includes and the flags: an edited
+source or header rebuilds, an unchanged one loads the library already built.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import subprocess
 import tempfile
 
@@ -45,11 +46,28 @@ def _nvcc() -> str:
   return os.path.join(cpp_extension.CUDA_HOME, 'bin', 'nvcc')
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(source: str) -> list[str]:
+  """``source`` and the ``csrc/`` headers it includes, transitively."""
+  found, todo = [], [source]
+  while todo:
+    name = todo.pop()
+    if name not in found:
+      found.append(name)
+      todo.extend(m.decode() for m in
+                  _LOCAL_INCLUDE.findall((CSRC / name).read_bytes()))
+  return found
+
+
 def library_path(source: str) -> pathlib.Path:
   """Where the library built from ``csrc/<source>`` lives."""
-  digest = hashlib.sha256((CSRC / source).read_bytes() +
-                          ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-  return BUILD_DIR / f'{pathlib.Path(source).stem}-{digest}.so'
+  digest = hashlib.sha256()
+  for name in _sources(source):
+    digest.update(name.encode() + b'\0' + (CSRC / name).read_bytes())
+  digest.update(' '.join(NVCC_FLAGS).encode())
+  return BUILD_DIR / f'{pathlib.Path(source).stem}-{digest.hexdigest()[:16]}.so'
 
 
 def load(source: str) -> ctypes.CDLL:

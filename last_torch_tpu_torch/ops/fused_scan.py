@@ -1,0 +1,537 @@
+# Copyright 2026.
+#
+# Licensed under the Apache License, Version 2.0 (the "License");
+# you may not use this file except in compliance with the License.
+# You may obtain a copy of the License at
+#
+#     http://www.apache.org/licenses/LICENSE-2.0
+#
+# Unless required by applicable law or agreed to in writing, software
+# distributed under the License is distributed on an "AS IS" BASIS,
+# WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+# See the License for the specific language governing permissions and
+# limitations under the License.
+
+"""Log-partition (GN loss denominator) kernels for Hopper and their plain
+versions.
+
+Counterpart of ``last_torch_tpu/ops/fused_scan.py``. The per-frame forward
+scan (``_fused_forward_kernel`` there) and the reverse beta scan with the
+head and tanh gradients (``_fused_backward_kernel``) are the CUDA kernels of
+``csrc/fused_scan.cu``, reached through ``fused_forward`` and
+``fused_backward``: on a CUDA tensor they launch the kernels, on a CPU
+tensor they run ``fused_forward_plain`` / ``fused_backward_plain``, the same
+functions in plain PyTorch. ``log_partition`` joins the two in a
+``torch.autograd.Function``, as the JAX package's custom VJP does; the four
+frame-independent products around them (``frames @ frame_proj``,
+``cache @ context_proj`` and their gradients) stay ``torch.matmul``.
+
+Scope is the JAX package's gate (``supported``): Log semiring, bigram
+``FullNGram``, ``JointWeightFn``, ``FrameDependent`` /
+``FrameLabelDependent``, one batch dimension. The vocabulary-tiled
+('online') variants for large V are still to port (ROADMAP queue 2).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from collections.abc import Callable
+from typing import Any, Optional
+
+import torch
+
+from last_torch_tpu_torch import alignments, contexts, weight_fns
+
+# Calls that launched the CUDA forward / backward kernels, for runs that must
+# show the loss went through them. Only CUDA tensors count.
+forward_launches = 0
+backward_launches = 0
+
+_LIB = None
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernels' tile (csrc/tile_product.cuh: 64 states x 64 labels or hidden
+# units), and how many blocks per SM the reductions and the head-gradient
+# product aim for by splitting their work across blocks.
+_TILE = 64
+_BLOCKS_PER_SM = 4
+NEG_INF = float('-inf')
+
+
+def supported(lattice, frames: torch.Tensor) -> bool:
+  """Whether the kernels (and their plain versions) cover a lattice call.
+
+  The structural half of ``last_torch_tpu.ops.fused_scan.supported``; the
+  TPU's small-vocabulary and VMEM rules do not apply here. The Viterbi
+  kernel shares the gate.
+  """
+  return (type(lattice.weight_fn) is weight_fns.JointWeightFn and
+          isinstance(lattice.context, contexts.FullNGram) and
+          lattice.context.context_size == 1 and
+          isinstance(lattice.alignment, (alignments.FrameDependent,
+                                         alignments.FrameLabelDependent)) and
+          frames.ndim == 3)
+
+
+def num_passes(max_expansions: int, frame_dependent: bool) -> int:
+  """Label reductions per frame: 1 for FD, k for FLD(k)."""
+  return 1 if frame_dependent else max_expansions
+
+
+def check_inputs(pf, pc, params, is_pad, compute_dtype, kernel: str):
+  """Checks what the kernels take: types, shapes, devices, contiguity."""
+  device = pf.device
+  if pf.ndim != 3 or pc.ndim != 2 or is_pad.ndim != 2:
+    raise ValueError('expected pf [T, B, h], pc [S, h] and is_pad [T, B], '
+                     f'got {tuple(pf.shape)}, {tuple(pc.shape)} and '
+                     f'{tuple(is_pad.shape)}')
+  max_t, batch, hidden = pf.shape
+  num_states = pc.shape[0]
+  vocab = params['vocab_w'].shape[-1]
+  expected = {
+      'pf': (pf, (max_t, batch, hidden), torch.float32),
+      'pc': (pc, (num_states, hidden), torch.float32),
+      'is_pad': (is_pad, (max_t, batch), torch.bool),
+      'vocab_w': (params['vocab_w'], (hidden, vocab), torch.float32),
+      'vocab_b': (params['vocab_b'], (vocab,), torch.float32),
+      'blank_w': (params['blank_w'], (hidden,), torch.float32),
+      'blank_b': (params['blank_b'], (), torch.float32),
+  }
+  for name, (x, shape, dtype) in expected.items():
+    if tuple(x.shape) != shape or x.dtype != dtype:
+      raise ValueError(f'{name} should be {dtype} of shape {shape}, got '
+                       f'{x.dtype} of shape {tuple(x.shape)}')
+    if x.device != device:
+      raise ValueError(f'{name} is on {x.device}, pf on {device}')
+    if not x.is_contiguous():
+      raise ValueError(f'{name} must be contiguous')
+  if num_states != vocab + 1:
+    raise ValueError(f'the {kernel} kernel needs a bigram FullNGram '
+                     f'(S = V + 1), got S={num_states}, V={vocab}')
+  if compute_dtype not in _DTYPE_CODES:
+    raise ValueError(f'compute_dtype must be float32 or bfloat16, got '
+                     f'{compute_dtype}')
+
+
+def library() -> ctypes.CDLL:
+  """The kernel library, built from csrc/fused_scan.cu at first use."""
+  global _LIB
+  if _LIB is None:
+    from last_torch_tpu_torch.ops import build
+    lib = build.load('fused_scan.cu')
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.fused_forward.argtypes = [i] + [p] * 16 + [i] * 8 + [p]
+    lib.fused_forward.restype = i
+    lib.fused_backward.argtypes = [i] + [p] * 33 + [i] * 9 + [p]
+    lib.fused_backward.restype = i
+    lib.fused_error_string.argtypes = [i]
+    lib.fused_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+  return _LIB
+
+
+def _ptr(x: Optional[torch.Tensor]):
+  return None if x is None else x.data_ptr()
+
+
+def grid_splits(work_blocks: int, max_splits: int, device) -> int:
+  """How many ways (at most max_splits) to split the work of a grid of
+  work_blocks blocks so that it fills the card with ~4 blocks per SM."""
+  sms = torch.cuda.get_device_properties(device).multi_processor_count
+  return max(1, min(max_splits, -(-_BLOCKS_PER_SM * sms // work_blocks)))
+
+
+def _raise_on(status: int, what: str):
+  if status != 0:
+    raise RuntimeError(f'{what} kernel launch failed: '
+                       f'{library().fused_error_string(status).decode()}')
+
+
+def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
+                  is_pad: torch.Tensor, *, max_expansions: int,
+                  frame_dependent: bool, compute_dtype: torch.dtype,
+                  with_residuals: bool):
+  """Log-semiring forward scan: the kernel on CUDA, the plain version on CPU.
+
+  Args:
+    pf: [T, B, h] float32 projected frames (``frames @ frame_proj``).
+    pc: [S, h] float32 projected context states (``cache @ context_proj``).
+    params: JointWeightFn parameters (``vocab_w``, ``vocab_b``,
+      ``blank_w``, ``blank_b``), float32.
+    is_pad: [T, B] bool, True on padding frames.
+    max_expansions: k of FrameLabelDependent (ignored for FrameDependent).
+    frame_dependent: FrameDependent (True) or FrameLabelDependent (False).
+    compute_dtype: torch.float32 or torch.bfloat16, the type the joint and
+      the head weights are rounded to before the float32 products.
+    with_residuals: Also write what the backward reads: the alpha history
+      and, for FrameLabelDependent, the expansion slabs. A primal-only call
+      leaves both unwritten.
+
+  Returns:
+    (log_z [B], final alpha [B, S], history [T, B, S] or None, slabs
+    [k, T, B, S] or None). history[t] is alpha before frame t (held on
+    padding frames); slabs[j, t] is the (j+1)-th expansion alpha of frame
+    t, expand(reduce)^(j+1) of alpha, -inf on padding frames.
+  """
+  global forward_launches
+  check_inputs(pf, pc, params, is_pad, compute_dtype, 'log-partition')
+  kw = dict(max_expansions=max_expansions, frame_dependent=frame_dependent,
+            compute_dtype=compute_dtype, with_residuals=with_residuals)
+  if pf.device.type == 'cpu':
+    return fused_forward_plain(pf, pc, params, is_pad, **kw)
+  if pf.device.type != 'cuda':
+    raise ValueError(f'no log-partition kernel for device {pf.device}')
+
+  lib = library()
+  max_t, batch, hidden = pf.shape
+  num_states = pc.shape[0]
+  vocab = params['vocab_w'].shape[-1]
+  k = num_passes(max_expansions, frame_dependent)
+  device = pf.device
+  empty = lambda *shape, dtype=torch.float32: torch.empty(
+      shape, dtype=dtype, device=device)
+  vw = params['vocab_w'].to(compute_dtype).contiguous()
+  bw = params['blank_w'].to(compute_dtype).contiguous()
+  pad = is_pad.to(torch.int32)
+  joint = empty(batch, num_states, hidden, dtype=compute_dtype)
+  blank = empty(batch, num_states)
+  # With two or more reductions per frame the first stages the frame's
+  # lexical weights for the others (faster than recomputing the head
+  # product even at B=32, where they outgrow the L2 cache: PERF.md).
+  lex = empty(batch, num_states, vocab) if k >= 2 else None
+  strips = -(-vocab // _TILE)
+  tiles = -(-num_states // _TILE)
+  splits = grid_splits(strips * batch, tiles, device)
+  part_m = empty(splits, batch, vocab)
+  part_l = empty(splits, batch, vocab)
+  hist = empty(max_t, batch, num_states) if with_residuals else None
+  slabs = (empty(k, max_t, batch, num_states)
+           if with_residuals and not frame_dependent and k else None)
+  last = None if slabs is not None else empty(max(k, 1), batch, num_states)
+  alpha = torch.full((2, batch, num_states), NEG_INF, device=device)
+  alpha[0, :, 0] = 0.0
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = lib.fused_forward(
+        _DTYPE_CODES[compute_dtype], _ptr(pf), _ptr(pc), _ptr(vw),
+        _ptr(params['vocab_b']), _ptr(bw), _ptr(params['blank_b']),
+        _ptr(pad), _ptr(joint), _ptr(blank), _ptr(lex), _ptr(part_m),
+        _ptr(part_l), _ptr(last), _ptr(alpha), _ptr(hist), _ptr(slabs),
+        max_t, batch, num_states, hidden, vocab, max_expansions,
+        int(frame_dependent), splits, stream)
+  _raise_on(status, 'log-partition forward')
+  forward_launches += 1
+  final = alpha[max_t % 2]
+  return torch.logsumexp(final, dim=-1), final, hist, slabs
+
+
+def fused_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
+                        params: dict[str, Any], is_pad: torch.Tensor, *,
+                        max_expansions: int, frame_dependent: bool,
+                        compute_dtype: torch.dtype, with_residuals: bool):
+  """The forward kernel's function in plain PyTorch (same arguments and
+  outputs).
+
+  With compute_dtype bfloat16 the joint and the head weights are rounded to
+  bfloat16 and back, then multiplied in float32, so on the card this and
+  the kernel differ only in summation order (TF32 off).
+  """
+  max_t, batch, _ = pf.shape
+  num_states = pc.shape[0]
+  k = num_passes(max_expansions, frame_dependent)
+  rnd = lambda x: x.to(compute_dtype).float()
+  vw, vb = rnd(params['vocab_w']), params['vocab_b']
+  bw, bb = rnd(params['blank_w']), params['blank_b']
+  alpha = torch.full((batch, num_states), NEG_INF, device=pf.device)
+  alpha[:, 0] = 0.0
+  hist = slabs = None
+  if with_residuals:
+    hist = torch.empty((max_t, batch, num_states), device=pf.device)
+    if not frame_dependent and k:
+      slabs = torch.empty((k, max_t, batch, num_states), device=pf.device)
+  start_col = torch.full((batch, 1), NEG_INF, device=pf.device)
+
+  for t in range(max_t):
+    joint = rnd(torch.tanh(pc[None] + pf[t][:, None]))  # [B, S, h]
+    lex = joint @ vw + vb  # [B, S, V]
+    blank = joint @ bw + bb  # [B, S]
+
+    def expand_reduce(vec):
+      red = torch.logsumexp(vec[:, :, None] + lex, dim=1)
+      return torch.cat([start_col, red], dim=1)
+
+    if hist is not None:
+      hist[t] = alpha
+    pad = is_pad[t][:, None]
+    if frame_dependent:
+      alpha_new = torch.logaddexp(alpha + blank, expand_reduce(alpha))
+    else:
+      acc, last = alpha + blank, alpha
+      for j in range(k):
+        last = expand_reduce(last)
+        if slabs is not None:
+          slabs[j, t] = torch.where(pad, NEG_INF, last)
+        acc = torch.logaddexp(acc, last + blank)
+      alpha_new = acc
+    alpha = torch.where(pad, alpha, alpha_new)
+  return torch.logsumexp(alpha, dim=-1), alpha, hist, slabs
+
+
+def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
+                   is_pad: torch.Tensor, log_z: torch.Tensor, g: torch.Tensor,
+                   hist: torch.Tensor, slabs: Optional[torch.Tensor], *,
+                   max_expansions: int, frame_dependent: bool,
+                   compute_dtype: torch.dtype):
+  """Reverse beta scan with head and tanh gradients: the kernel on CUDA,
+  the plain version on CPU.
+
+  Args:
+    pf, pc, params, is_pad, max_expansions, frame_dependent, compute_dtype:
+      as ``fused_forward``.
+    log_z: [B] float32 from ``fused_forward``.
+    g: [B] float32 cotangent of log_z.
+    hist: [T, B, S] alpha history from ``fused_forward``.
+    slabs: [k, T, B, S] expansion slabs (FrameLabelDependent), else None.
+
+  Returns:
+    (dpf [T, B, h], dpc [S, h], d_vocab_w [h, V], d_vocab_b [V],
+    d_blank_w [h], d_blank_b [], beta_out [B, S]): the gradients of
+    sum(g * log_z) with respect to pf, pc and the head parameters, and
+    beta at frame 0. Padding frames get exactly zero gradient.
+  """
+  global backward_launches
+  check_inputs(pf, pc, params, is_pad, compute_dtype, 'log-partition')
+  max_t, batch, hidden = pf.shape
+  num_states = pc.shape[0]
+  vocab = params['vocab_w'].shape[-1]
+  k = num_passes(max_expansions, frame_dependent)
+  residuals = {'log_z': (log_z, (batch,)), 'g': (g, (batch,)),
+               'hist': (hist, (max_t, batch, num_states))}
+  if not frame_dependent and k:
+    residuals['slabs'] = (slabs, (k, max_t, batch, num_states))
+  for name, (x, shape) in residuals.items():
+    if x is None or tuple(x.shape) != shape or x.dtype != torch.float32:
+      raise ValueError(f'{name} should be float32 of shape {shape}')
+    if x.device != pf.device or not x.is_contiguous():
+      raise ValueError(f'{name} must be contiguous on {pf.device}')
+  kw = dict(max_expansions=max_expansions, frame_dependent=frame_dependent,
+            compute_dtype=compute_dtype)
+  if pf.device.type == 'cpu':
+    return fused_backward_plain(pf, pc, params, is_pad, log_z, g, hist,
+                                slabs, **kw)
+  if pf.device.type != 'cuda':
+    raise ValueError(f'no log-partition kernel for device {pf.device}')
+
+  lib = library()
+  device = pf.device
+  empty = lambda *shape, dtype=torch.float32: torch.empty(
+      shape, dtype=dtype, device=device)
+  zeros = lambda *shape: torch.zeros(shape, device=device)
+  vw = params['vocab_w'].to(compute_dtype).contiguous()
+  bw = params['blank_w'].to(compute_dtype).contiguous()
+  pad = is_pad.to(torch.int32)
+  tiles = -(-num_states // _TILE)
+  strips = -(-vocab // _TILE)
+  ysplits = grid_splits(tiles * batch, strips, device)
+  ksplits = grid_splits(strips * -(-hidden // _TILE),
+                        -(-batch * num_states // _TILE), device)
+  joint = empty(batch, num_states, hidden, dtype=compute_dtype)
+  blank = empty(batch, num_states)
+  lex = empty(batch, num_states, vocab)
+  d_lex = empty(batch, num_states, vocab, dtype=compute_dtype)
+  d_blank = empty(batch, num_states)
+  part_m = empty(ysplits, batch, num_states)
+  part_l = empty(ysplits, batch, num_states)
+  nb = empty(max(k, 1), batch, num_states)
+  beta = zeros(2, batch, num_states)  # slot 0: semiring ones
+  dpf = empty(max_t, batch, hidden)
+  dpf_part = empty(tiles, batch, hidden)
+  # Accumulators carried across frames, each element owned by one block
+  # per frame (no atomics), reduced to the outputs at the end.
+  dpc_acc = zeros(batch, num_states, hidden)
+  dvw_acc = zeros(ksplits, hidden, vocab)
+  dvb_acc = zeros(batch, tiles, vocab)
+  dbw_acc = zeros(batch, tiles, hidden)
+  dbb_acc = zeros(batch, num_states)
+  dpc, dvw = empty(num_states, hidden), empty(hidden, vocab)
+  dvb, dbw, dbb = empty(vocab), empty(hidden), empty(1)
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = lib.fused_backward(
+        _DTYPE_CODES[compute_dtype], _ptr(pf), _ptr(pc), _ptr(vw),
+        _ptr(params['vocab_b']), _ptr(bw), _ptr(params['blank_w']),
+        _ptr(params['blank_b']), _ptr(pad), _ptr(log_z), _ptr(g),
+        _ptr(hist), _ptr(slabs), _ptr(joint), _ptr(blank), _ptr(lex),
+        _ptr(d_lex), _ptr(d_blank), _ptr(part_m), _ptr(part_l), _ptr(nb),
+        _ptr(beta), _ptr(dpf), _ptr(dpf_part), _ptr(dpc_acc),
+        _ptr(dvw_acc), _ptr(dvb_acc), _ptr(dbw_acc), _ptr(dbb_acc),
+        _ptr(dpc), _ptr(dvw), _ptr(dvb), _ptr(dbw), _ptr(dbb),
+        max_t, batch, num_states, hidden, vocab, max_expansions,
+        int(frame_dependent), ysplits, ksplits, stream)
+  _raise_on(status, 'log-partition backward')
+  backward_launches += 1
+  return dpf, dpc, dvw, dvb, dbw, dbb[0], beta[max_t % 2]
+
+
+def fused_backward_plain(pf: torch.Tensor, pc: torch.Tensor,
+                         params: dict[str, Any], is_pad: torch.Tensor,
+                         log_z: torch.Tensor, g: torch.Tensor,
+                         hist: torch.Tensor, slabs: Optional[torch.Tensor],
+                         *, max_expansions: int, frame_dependent: bool,
+                         compute_dtype: torch.dtype):
+  """The backward kernel's function in plain PyTorch (same arguments and
+  outputs).
+
+  It rounds at the kernel's points: the joint and the head weights for the
+  products, and the lexical cotangent ``d_lex`` (as the TPU kernel did);
+  the tanh derivative, the blank-head gradient and the blank part of
+  d(joint) use the float32 joint and ``blank_w``.
+  """
+  max_t, batch, hidden = pf.shape
+  num_states = pc.shape[0]
+  k = num_passes(max_expansions, frame_dependent)
+  rnd = lambda x: x.to(compute_dtype).float()
+  vw, vb = rnd(params['vocab_w']), params['vocab_b']
+  bw, bb = rnd(params['blank_w']), params['blank_b']
+  bw32 = params['blank_w']
+  device = pf.device
+  beta = torch.zeros((batch, num_states), device=device)
+  dpf = torch.zeros((max_t, batch, hidden), device=device)
+  dpc = torch.zeros((num_states, hidden), device=device)
+  dvw = torch.zeros_like(params['vocab_w'])
+  dvb = torch.zeros_like(params['vocab_b'])
+  dbw = torch.zeros_like(params['blank_w'])
+  dbb = torch.zeros((), device=device)
+  lz = log_z[:, None]
+
+  for t in range(max_t - 1, -1, -1):
+    real = ~is_pad[t]
+    g_eff = torch.where(real, g, 0.0)
+    joint32 = torch.tanh(pc[None] + pf[t][:, None])  # [B, S, h]
+    joint = rnd(joint32)
+    lex = joint @ vw + vb  # [B, S, V]
+    blank = joint @ bw + bb  # [B, S]
+
+    def lse_y(nb):  # out[b, s] = logsumexp_y(lex[b, s, y] + nb[b, 1 + y])
+      return torch.logsumexp(lex + nb[:, None, 1:], dim=-1)
+
+    a_list = [hist[t]]
+    if frame_dependent:
+      pairs = [(hist[t], beta)]
+      final_nb = torch.logaddexp(blank + beta, lse_y(beta))
+    else:
+      a_list += [slabs[j, t] for j in range(k)]
+      pairs, nb = [], blank + beta
+      for j in range(k - 1, -1, -1):
+        pairs.append((a_list[j], nb))
+        nb = torch.logaddexp(blank + beta, lse_y(nb))
+      final_nb = nb
+    bm_total = sum(torch.exp(a + blank + beta - lz) for a in a_list)
+    d_blank = g_eff[:, None] * bm_total
+    lm = torch.zeros_like(lex)
+    for a, nb in pairs:
+      lm += torch.exp(a[:, :, None] + lex + (nb[:, None, 1:] - lz[:, None]))
+    d_lex = rnd(g_eff[:, None, None] * lm)
+
+    dvw += torch.einsum('bsh,bsv->hv', joint, d_lex)
+    dvb += d_lex.sum(dim=(0, 1))
+    dbw += (joint32 * d_blank[..., None]).sum(dim=(0, 1))
+    dbb += d_blank.sum()
+    d_joint = d_lex @ vw.t() + d_blank[..., None] * bw32
+    d_pre = d_joint * (1.0 - joint32 * joint32)
+    dpf[t] = d_pre.sum(dim=1)
+    dpc += d_pre.sum(dim=0)
+    beta = torch.where(real[:, None], final_nb, beta)
+  return dpf, dpc, dvw, dvb, dbw, dbb, beta
+
+
+@dataclasses.dataclass(frozen=True)
+class _Config:
+  max_expansions: int
+  frame_dependent: bool
+  compute_dtype: torch.dtype
+  forward: Callable
+  backward: Callable
+
+
+def _stage(cache, frames, num_frames, frame_proj, context_proj):
+  """pf [T, B, h], pc [S, h] and is_pad [T, B], as the kernels take them."""
+  pf = torch.einsum('btf,fh->tbh', frames, frame_proj).contiguous()
+  pc = (cache @ context_proj).contiguous()
+  is_pad = (torch.arange(frames.shape[1], device=frames.device)[:, None] >=
+            num_frames[None, :])
+  return pf, pc, is_pad
+
+
+class _LogPartition(torch.autograd.Function):
+  """log Z with the backward kernel as its gradient (the custom VJP)."""
+
+  @staticmethod
+  def forward(ctx, cache, frames, num_frames, frame_proj, context_proj,
+              vocab_w, vocab_b, blank_w, blank_b, config):
+    pf, pc, is_pad = _stage(cache, frames, num_frames, frame_proj,
+                            context_proj)
+    head = {'vocab_w': vocab_w, 'vocab_b': vocab_b, 'blank_w': blank_w,
+            'blank_b': blank_b}
+    log_z, _, hist, slabs = config.forward(
+        pf, pc, head, is_pad, max_expansions=config.max_expansions,
+        frame_dependent=config.frame_dependent,
+        compute_dtype=config.compute_dtype, with_residuals=True)
+    ctx.config = config
+    ctx.save_for_backward(cache, frames, frame_proj, context_proj, vocab_w,
+                          vocab_b, blank_w, blank_b, pf, pc, is_pad, log_z,
+                          hist, slabs)
+    return log_z
+
+  @staticmethod
+  def backward(ctx, g):
+    (cache, frames, frame_proj, context_proj, vocab_w, vocab_b, blank_w,
+     blank_b, pf, pc, is_pad, log_z, hist, slabs) = ctx.saved_tensors
+    config = ctx.config
+    head = {'vocab_w': vocab_w, 'vocab_b': vocab_b, 'blank_w': blank_w,
+            'blank_b': blank_b}
+    dpf, dpc, dvw, dvb, dbw, dbb, _ = config.backward(
+        pf, pc, head, is_pad, log_z, g.float().contiguous(), hist, slabs,
+        max_expansions=config.max_expansions,
+        frame_dependent=config.frame_dependent,
+        compute_dtype=config.compute_dtype)
+    d_frame_proj = torch.einsum('btf,tbh->fh', frames, dpf)
+    d_context_proj = cache.t() @ dpc
+    d_cache = dpc @ context_proj.t()
+    d_frames = torch.einsum('tbh,fh->btf', dpf, frame_proj)
+    return (d_cache, d_frames, None, d_frame_proj, d_context_proj, dvw, dvb,
+            dbw, dbb, None)
+
+
+def log_partition(wf_params: dict[str, Any], cache: torch.Tensor,
+                  frames: torch.Tensor, num_frames: torch.Tensor, *,
+                  max_expansions: int, frame_dependent: bool,
+                  compute_dtype: torch.dtype,
+                  forward: Callable = fused_forward,
+                  backward: Callable = fused_backward) -> torch.Tensor:
+  """Differentiable log-partition (GN loss denominator), [B] log Z.
+
+  The forward runs ``forward``; when autograd needs the result, it writes
+  the alpha history and expansion slabs, and ``backward`` turns them into
+  the gradients of ``wf_params``, ``cache`` and ``frames``. The defaults
+  launch the kernels on CUDA tensors and run the plain versions on CPU
+  tensors; ``fused_forward_plain`` / ``fused_backward_plain`` run the plain
+  versions on the card too.
+  """
+  config = _Config(max_expansions, frame_dependent, compute_dtype, forward,
+                   backward)
+  num_frames = torch.as_tensor(num_frames, device=frames.device)
+  names = ('frame_proj', 'context_proj', 'vocab_w', 'vocab_b', 'blank_w',
+           'blank_b')
+  tensors = (cache, frames) + tuple(wf_params[n] for n in names)
+  if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    return _LogPartition.apply(cache, frames, num_frames,
+                               *(wf_params[n] for n in names), config)
+  pf, pc, is_pad = _stage(cache, frames, num_frames, wf_params['frame_proj'],
+                          wf_params['context_proj'])
+  head = {n: wf_params[n] for n in names[2:]}
+  log_z, _, _, _ = forward(pf, pc, head, is_pad,
+                           max_expansions=max_expansions,
+                           frame_dependent=frame_dependent,
+                           compute_dtype=compute_dtype, with_residuals=False)
+  return log_z

@@ -22,9 +22,10 @@ tensor it launches the kernel, on a CPU tensor it runs
 backtrace is plain PyTorch on the device, a reverse loop of gathers, as the
 JAX package's is plain XLA.
 
-Scope matches the JAX package's decode gate (``supported``): MaxTropical
-over a bigram ``FullNGram`` with ``JointWeightFn`` and ``FrameDependent`` /
-``FrameLabelDependent``, one batch dimension, normalize='none'. The hat /
+Scope matches the JAX package's decode gate (``fused_scan.supported``):
+MaxTropical over a bigram ``FullNGram`` with ``JointWeightFn`` and
+``FrameDependent`` / ``FrameLabelDependent``, one batch dimension,
+normalize='none'. The hat /
 log-softmax in-kernel normalization is still to port (ROADMAP).
 """
 
@@ -36,7 +37,7 @@ from typing import Any
 
 import torch
 
-from last_torch_tpu_torch import alignments, contexts, weight_fns
+from last_torch_tpu_torch.ops import fused_scan
 
 # Forward calls that launched the CUDA kernel, for runs that must show the
 # decode went through it. Only ``viterbi_forward`` on a CUDA tensor counts.
@@ -44,64 +45,15 @@ launches = 0
 
 _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The kernel's tile sizes (csrc/viterbi.cu: kBM, kBN), and how many blocks
-# per SM the max-pass grid aims for by splitting the states across blocks.
+# The kernel's tile sizes (csrc/tile_product.cuh: kBM, kBN); the max-pass
+# grid splits the states across blocks to fill the card.
 _STATES_PER_TILE = 64
 _LABELS_PER_BLOCK = 64
-_BLOCKS_PER_SM = 4
-
-
-def supported(lattice, frames: torch.Tensor) -> bool:
-  """Whether the Viterbi kernel (and its plain version) covers a decode.
-
-  The structural half of ``last_torch_tpu.ops.fused_scan.supported``; the
-  TPU's small-vocabulary and VMEM rules do not apply here.
-  """
-  return (type(lattice.weight_fn) is weight_fns.JointWeightFn and
-          isinstance(lattice.context, contexts.FullNGram) and
-          lattice.context.context_size == 1 and
-          isinstance(lattice.alignment, (alignments.FrameDependent,
-                                         alignments.FrameLabelDependent)) and
-          frames.ndim == 3)
 
 
 def num_tables(max_expansions: int, frame_dependent: bool) -> int:
   """K, the max-passes per frame: one argmax table [V] per pass."""
   return 1 if frame_dependent else max(max_expansions, 1)
-
-
-def _check_inputs(pf, pc, params, is_pad, compute_dtype):
-  device = pf.device
-  if pf.ndim != 3 or pc.ndim != 2 or is_pad.ndim != 2:
-    raise ValueError('expected pf [T, B, h], pc [S, h] and is_pad [T, B], '
-                     f'got {tuple(pf.shape)}, {tuple(pc.shape)} and '
-                     f'{tuple(is_pad.shape)}')
-  max_t, batch, hidden = pf.shape
-  num_states = pc.shape[0]
-  vocab = params['vocab_w'].shape[-1]
-  expected = {
-      'pf': (pf, (max_t, batch, hidden), torch.float32),
-      'pc': (pc, (num_states, hidden), torch.float32),
-      'is_pad': (is_pad, (max_t, batch), torch.bool),
-      'vocab_w': (params['vocab_w'], (hidden, vocab), torch.float32),
-      'vocab_b': (params['vocab_b'], (vocab,), torch.float32),
-      'blank_w': (params['blank_w'], (hidden,), torch.float32),
-      'blank_b': (params['blank_b'], (), torch.float32),
-  }
-  for name, (x, shape, dtype) in expected.items():
-    if tuple(x.shape) != shape or x.dtype != dtype:
-      raise ValueError(f'{name} should be {dtype} of shape {shape}, got '
-                       f'{x.dtype} of shape {tuple(x.shape)}')
-    if x.device != device:
-      raise ValueError(f'{name} is on {x.device}, pf on {device}')
-    if not x.is_contiguous():
-      raise ValueError(f'{name} must be contiguous')
-  if num_states != vocab + 1:
-    raise ValueError('the Viterbi kernel needs a bigram FullNGram '
-                     f'(S = V + 1), got S={num_states}, V={vocab}')
-  if compute_dtype not in _DTYPE_CODES:
-    raise ValueError(f'compute_dtype must be float32 or bfloat16, got '
-                     f'{compute_dtype}')
 
 
 def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
@@ -128,7 +80,7 @@ def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
     kernel computed it anyway, the kernel here skips their work).
   """
   global launches
-  _check_inputs(pf, pc, params, is_pad, compute_dtype)
+  fused_scan.check_inputs(pf, pc, params, is_pad, compute_dtype, 'Viterbi')
   if pf.device.type == 'cpu':
     return viterbi_forward_plain(
         pf, pc, params, is_pad, max_expansions=max_expansions,
@@ -155,8 +107,7 @@ def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
          if k >= 2 else None)
   strips = -(-vocab // _LABELS_PER_BLOCK)
   tiles = -(-num_states // _STATES_PER_TILE)
-  sms = torch.cuda.get_device_properties(device).multi_processor_count
-  splits = max(1, min(tiles, -(-_BLOCKS_PER_SM * sms // (strips * batch))))
+  splits = fused_scan.grid_splits(strips * batch, tiles, device)
   part_v = torch.empty((splits, batch, vocab), device=device)
   part_s = torch.empty((splits, batch, vocab), dtype=torch.int32,
                        device=device)

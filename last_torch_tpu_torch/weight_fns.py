@@ -17,9 +17,9 @@
 Counterpart of ``last_torch_tpu/weight_fns.py``: ``JointWeightFn`` and
 ``SharedEmbCacher``, with parameters as plain dictionaries of tensors laid
 out exactly as the JAX pytrees (so ``convert.from_jax_params`` maps one onto
-the other). ``LocallyNormalizedWeightFn``, the normalizers,
-``SharedRNNCacher`` and the ``label_weights`` fast paths come with later
-slices (ROADMAP queue 1).
+the other), and ``JointWeightFn.label_weights``, the numerator's
+column-gather fast path. ``LocallyNormalizedWeightFn``, the normalizers and
+``SharedRNNCacher`` come with later slices (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from last_torch_tpu_torch import initializers
 
@@ -116,6 +117,55 @@ class JointWeightFn:
     blank = self._mm(joint, params['blank_w'][:, None])[..., 0] + params[
         'blank_b']
     lexical = self._mm(joint, params['vocab_w']) + params['vocab_b']
+    return blank, lexical
+
+  def label_weights(self, params: Params, cache: torch.Tensor,
+                    frames: torch.Tensor, states: torch.Tensor,
+                    next_labels: torch.Tensor):
+    """Blank and one-label lexical weights per (label position, frame).
+
+    The numerator's fast path: the lexical weight of one known label is
+    joint . vocab_w[:, y], so the vocab-head column is gathered first and
+    contracted, O(h) per (position, frame) instead of the O(h * V) head.
+    Each position's step is recomputed in the backward pass
+    (``torch.utils.checkpoint``), as the JAX package rematerializes it:
+    saving the [batch, T, h] joint of every position would cost
+    U+1 times its size.
+
+    Args:
+      params: Parameters from ``init``.
+      cache: [num_context_states, embedding_size] context embeddings.
+      frames: [batch_dims..., max_num_frames, feature_size] frames.
+      states: [batch_dims..., num_positions] int context states.
+      next_labels: [batch_dims..., num_positions] int labels in
+        [0, vocab_size] (weights for label 0 are arbitrary).
+
+    Returns:
+      (blank, lexical), each [batch_dims..., num_positions, max_num_frames].
+    """
+    y = next_labels.long().clamp(min=1) - 1
+    projected_frames = self._mm(frames, params['frame_proj'])
+    projected_context = self._mm(cache, params['context_proj'])[states.long()]
+    vocab_cols = params['vocab_w'].t()[y]  # [batch..., U1, h]
+    vocab_bias = params['vocab_b'][y]  # [batch..., U1]
+    blank_w, blank_b = params['blank_w'], params['blank_b']
+
+    def per_position(pc_u, w_u, b_u):
+      joint = torch.tanh(pc_u[..., None, :] + projected_frames)
+      blank = self._mm(joint, blank_w[:, None])[..., 0] + blank_b
+      lexical = torch.einsum('...th,...h->...t', joint, w_u) + b_u[..., None]
+      return blank, lexical
+
+    if torch.is_grad_enabled():
+      step = lambda *a: torch.utils.checkpoint.checkpoint(
+          per_position, *a, use_reentrant=False)
+    else:
+      step = per_position
+    outputs = [step(projected_context[..., u, :], vocab_cols[..., u, :],
+                    vocab_bias[..., u])
+               for u in range(y.shape[-1])]
+    blank = torch.stack([b for b, _ in outputs], dim=-2)
+    lexical = torch.stack([l for _, l in outputs], dim=-2)
     return blank, lexical
 
 

@@ -1,0 +1,148 @@
+"""The log-partition kernels' plain versions against the JAX kernel pair.
+
+The port's ``fused_forward_plain`` / ``fused_backward_plain`` (what the CUDA
+kernels compute, in plain PyTorch) are held to the JAX package's Pallas
+kernels run in interpret mode in float32 (``fused_shortest_distance_fwd``
+and ``run_fused_backward``), on the same numpy inputs: log Z, the alpha
+history, the expansion slabs, dpf, dpc, the head gradients and beta_out.
+To read dpf and dpc off the JAX wrapper, frames enter through an identity
+``frame_proj`` and the context embedding is the identity, so d(frames) is
+dpf and d(context_proj) is dpc. Tolerances as ``test_fused_scan.py``:
+rtol 1e-5 / atol 1e-6 on values, rtol 1e-4 / atol 1e-6 on gradients
+(float32 in both, sums in another order). The CUDA kernels are held to the
+plain versions on the card in ``test_torch_kernels.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import numpy.testing as npt
+import pytest
+import torch
+
+from last_torch_tpu.ops import fused_scan as jax_fused_scan
+from last_torch_tpu_torch.ops import fused_scan
+
+torch.set_num_threads(1)
+torch.set_float32_matmul_precision('highest')
+
+VOCAB, HIDDEN = 5, 8  # V = 5: ragged against every tile
+STATES = VOCAB + 1
+NUM_FRAMES = np.array([7, 4, 0], np.int32)  # full, padded, empty
+MAX_T = 7
+CASES = {'fd': (0, True), 'fld1': (1, False), 'fld2': (2, False)}
+
+
+def make_inputs(seed):
+  rng = np.random.default_rng(seed)
+  normal = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+  wf_params = {
+      'frame_proj': np.eye(HIDDEN, dtype=np.float32),
+      'context_proj': normal(STATES, HIDDEN) * 0.7,
+      'vocab_w': normal(HIDDEN, VOCAB) * 0.5,
+      'vocab_b': normal(VOCAB) * 0.1,
+      'blank_w': normal(HIDDEN) * 0.5,
+      'blank_b': np.float32(0.2),
+  }
+  cache = np.eye(STATES, dtype=np.float32)
+  frames = normal(len(NUM_FRAMES), MAX_T, HIDDEN)
+  g = np.array([1.0, 0.7, 1.3], np.float32)
+  return wf_params, cache, frames, g
+
+
+def port_inputs(wf_params, frames):
+  pf = torch.from_numpy(frames).transpose(0, 1).contiguous()  # [T, B, h]
+  pc = torch.from_numpy(wf_params['context_proj'])  # cache is the identity
+  head = {k: torch.tensor(wf_params[k])
+          for k in ('vocab_w', 'vocab_b', 'blank_w', 'blank_b')}
+  is_pad = torch.arange(MAX_T)[:, None] >= torch.from_numpy(NUM_FRAMES)[None]
+  return pf, pc, head, is_pad
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_plain_kernel_pair_matches_jax_interpret(case):
+  k, fd = CASES[case]
+  wf_params, cache, frames, g = make_inputs(seed=len(case))
+  kw = dict(max_expansions=k, frame_dependent=fd)
+  streamed = not fd and k >= 1
+  jax_wf = {n: jnp.asarray(x) for n, x in wf_params.items()}
+  outs = jax_fused_scan.fused_shortest_distance_fwd(
+      jax_wf, jnp.asarray(cache), jnp.asarray(frames), NUM_FRAMES,
+      num_context_states=STATES, compute_dtype=jnp.float32, interpret=True,
+      return_final_alpha=True, with_expansions=streamed, **kw)
+  log_z_j, hist_j, alpha_j = (np.asarray(x) for x in outs[:3])
+  d_wf_j, _, d_frames_j, beta_j = jax_fused_scan.run_fused_backward(
+      jax_wf, jnp.asarray(cache), jnp.asarray(frames), NUM_FRAMES,
+      outs[0], jnp.asarray(g), outs[1], num_context_states=STATES,
+      compute_dtype=jnp.float32, interpret=True,
+      expansion_history=outs[3] if streamed else None, **kw)
+
+  pf, pc, head, is_pad = port_inputs(wf_params, frames)
+  before = fused_scan.forward_launches, fused_scan.backward_launches
+  log_z, alpha, hist, slabs = fused_scan.fused_forward(
+      pf, pc, head, is_pad, compute_dtype=torch.float32, with_residuals=True,
+      **kw)
+  dpf, dpc, dvw, dvb, dbw, dbb, beta = fused_scan.fused_backward(
+      pf, pc, head, is_pad, log_z, torch.from_numpy(g), hist, slabs,
+      compute_dtype=torch.float32, **kw)
+  # CPU tensors run the plain versions and never launch a kernel.
+  assert (fused_scan.forward_launches,
+          fused_scan.backward_launches) == before
+
+  values = dict(rtol=1e-5, atol=1e-6)
+  npt.assert_allclose(log_z.numpy(), log_z_j, **values)
+  npt.assert_allclose(alpha.numpy(), alpha_j, **values)
+  npt.assert_allclose(hist.numpy(), hist_j.transpose(1, 0, 2), **values)
+  if streamed:
+    real = ~is_pad.numpy()  # the slabs are defined on real frames
+    for j in range(k):
+      want = np.asarray(outs[3][j])[:, :len(NUM_FRAMES), :STATES]
+      npt.assert_allclose(slabs[j].numpy()[real], want[real], **values)
+  else:
+    assert slabs is None
+  grads = dict(rtol=1e-4, atol=1e-6)
+  npt.assert_allclose(dpf.numpy(), np.asarray(d_frames_j).transpose(1, 0, 2),
+                      **grads)
+  npt.assert_allclose(dpc.numpy(), np.asarray(d_wf_j['context_proj']),
+                      **grads)
+  for name, got in (('vocab_w', dvw), ('vocab_b', dvb), ('blank_w', dbw),
+                    ('blank_b', dbb)):
+    npt.assert_allclose(got.numpy(), np.asarray(d_wf_j[name]), **grads,
+                        err_msg=name)
+  npt.assert_allclose(beta.numpy(), np.asarray(beta_j), **values)
+
+
+def test_primal_only_forward_writes_no_residuals():
+  wf_params, _, frames, _ = make_inputs(seed=0)
+  pf, pc, head, is_pad = port_inputs(wf_params, frames)
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.float32)
+  log_z, alpha, hist, slabs = fused_scan.fused_forward(
+      pf, pc, head, is_pad, with_residuals=False, **kw)
+  assert hist is None and slabs is None
+  with_res = fused_scan.fused_forward(pf, pc, head, is_pad,
+                                      with_residuals=True, **kw)
+  npt.assert_array_equal(log_z.numpy(), with_res[0].numpy())
+  npt.assert_array_equal(alpha.numpy(), with_res[1].numpy())
+
+
+def test_wrappers_reject_bad_inputs():
+  wf_params, _, frames, g = make_inputs(seed=1)
+  pf, pc, head, is_pad = port_inputs(wf_params, frames)
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.float32)
+  with pytest.raises(ValueError, match='pf should be'):
+    fused_scan.fused_forward(pf.double(), pc, head, is_pad,
+                             with_residuals=False, **kw)
+  with pytest.raises(ValueError, match='bigram'):
+    fused_scan.fused_forward(pf, pc[:-1].contiguous(), head, is_pad,
+                             with_residuals=False, **kw)
+  log_z, _, hist, slabs = fused_scan.fused_forward(
+      pf, pc, head, is_pad, with_residuals=True, **kw)
+  with pytest.raises(ValueError, match='slabs should be'):
+    fused_scan.fused_backward(pf, pc, head, is_pad, log_z,
+                              torch.from_numpy(g), hist, None, **kw)
+  with pytest.raises(ValueError, match='no log-partition kernel'):
+    meta = lambda x: x.to('meta')
+    fused_scan.fused_forward(meta(pf), meta(pc),
+                             {n: meta(x) for n, x in head.items()},
+                             meta(is_pad), with_residuals=False, **kw)

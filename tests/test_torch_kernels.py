@@ -1,10 +1,11 @@
-"""The port's Viterbi kernel and its plain version, without JAX.
+"""The port's CUDA kernels and their plain versions, without JAX.
 
-The plain version's tie-breaking is pinned on the CPU (lowest state wins an
-argmax tie; FrameLabelDependent keeps the fewest expansions on a tie), and
-the CUDA kernel is held to the plain version on the card: the tests marked
-``cuda`` skip without a GPU. This file imports no JAX, so it also runs on a
-machine that has only PyTorch:
+Viterbi: the plain version's tie-breaking is pinned on the CPU (lowest
+state wins an argmax tie; FrameLabelDependent keeps the fewest expansions
+on a tie). Log-partition: the plain versions' padding behaviour is pinned
+on the CPU. On the card each kernel is held to its plain version: the
+tests marked ``cuda`` skip without a GPU. This file imports no JAX, so it
+also runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda --noconftest
 
@@ -16,7 +17,7 @@ import numpy.testing as npt
 import pytest
 import torch
 
-from last_torch_tpu_torch.ops import viterbi
+from last_torch_tpu_torch.ops import fused_scan, viterbi
 
 torch.set_num_threads(1)
 torch.set_float32_matmul_precision('highest')
@@ -146,3 +147,150 @@ def test_kernel_breaks_ties_as_plain_on_card(card, frame_dependent):
   want = viterbi.viterbi_forward_plain(pf, pc, params, is_pad, **kwargs)
   for g, w in zip(got, want):
     npt.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+def fused_inputs(seed, vocab, hidden, max_t, lengths, device='cpu'):
+  pf, pc, params, is_pad = random_inputs(seed, vocab, hidden, max_t, lengths,
+                                         device)
+  return pf * 0.5, pc * 0.5, params, is_pad
+
+
+def test_plain_log_partition_padding():
+  lengths = [6, 2, 0]
+  pf, pc, params, is_pad = fused_inputs(0, vocab=7, hidden=5, max_t=6,
+                                        lengths=lengths)
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.float32)
+  log_z, alpha, hist, slabs = fused_scan.fused_forward_plain(
+      pf, pc, params, is_pad, with_residuals=True, **kw)
+  log_z_2, alpha_2, _, _ = fused_scan.fused_forward_plain(
+      pf[:2].contiguous(), pc, params, is_pad[:2].contiguous(),
+      with_residuals=False, **kw)
+  # Padding frames hold alpha; the empty row keeps the start state.
+  npt.assert_array_equal(alpha[1].numpy(), alpha_2[1].numpy())
+  assert log_z[1] == log_z_2[1] and log_z[2] == 0.0
+  for t in range(2, 6):
+    npt.assert_array_equal(hist[t, 1].numpy(), alpha_2[1].numpy())
+  assert torch.all(slabs[:, 2:, 1] == float('-inf'))
+  assert torch.all(slabs[:, :, 2] == float('-inf'))
+
+  g = torch.tensor([1.0, 0.5, 1.0])
+  dpf, dpc, dvw, dvb, dbw, dbb, beta = fused_scan.fused_backward_plain(
+      pf, pc, params, is_pad, log_z, g, hist, slabs, **kw)
+  # Padding frames and the empty row get exactly zero gradient.
+  assert torch.all(dpf[2:, 1] == 0) and torch.all(dpf[:, 2] == 0)
+  assert torch.all(dpf[:2, 1] != 0)
+  assert torch.all(beta[2] == 0)
+  for x in (dpc, dvw, dvb, dbw, dbb):
+    assert torch.isfinite(x).all()
+  # g = 0 everywhere: every gradient is exactly zero.
+  zero = fused_scan.fused_backward_plain(pf, pc, params, is_pad, log_z,
+                                         torch.zeros(3), hist, slabs, **kw)
+  for x in zero[:-1]:
+    assert torch.all(x == 0)
+
+
+FUSED_CARD_CASES = {
+    # name: (vocab, hidden, max_expansions, frame_dependent)
+    'fd_ragged_v37': (37, 24, 0, True),
+    'fld1_v130': (130, 40, 1, False),
+    'fld2_ragged_v1000': (1000, 512, 2, False),
+    'fld2_v1024': (1024, 512, 2, False),
+}
+
+
+def rel_err(a, b, per_output=False):
+  """max |a - b| / max(|b|, 1) elementwise, or with per_output
+  |a - b|max / |b|max; infinities must match exactly."""
+  a, b = a.double().cpu(), b.double().cpu()
+  finite = torch.isfinite(b)
+  assert torch.equal(finite, torch.isfinite(a))
+  assert torch.equal(a[~finite], b[~finite])
+  if not bool(finite.any()):
+    return 0.0
+  a, b = a[finite], b[finite]
+  if per_output:
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+  return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', sorted(FUSED_CARD_CASES))
+def test_log_partition_kernels_match_plain_on_card(card, case,
+                                                   compute_dtype):
+  vocab, hidden, k, fd = FUSED_CARD_CASES[case]
+  pf, pc, params, is_pad = fused_inputs(2, vocab, hidden, max_t=12,
+                                        lengths=[12, 7, 0], device=card)
+  kw = dict(max_expansions=k, frame_dependent=fd,
+            compute_dtype=compute_dtype)
+  before = fused_scan.forward_launches, fused_scan.backward_launches
+  fwd_k = fused_scan.fused_forward(pf, pc, params, is_pad,
+                                   with_residuals=True, **kw)
+  fwd_p = fused_scan.fused_forward_plain(pf, pc, params, is_pad,
+                                         with_residuals=True, **kw)
+  g = torch.tensor([1.0, 0.0, 1.0], device=card)  # row 1: zero cotangent
+  bwd_k = fused_scan.fused_backward(pf, pc, params, is_pad, fwd_k[0], g,
+                                    fwd_k[2], fwd_k[3], **kw)
+  bwd_p = fused_scan.fused_backward_plain(pf, pc, params, is_pad, fwd_p[0],
+                                          g, fwd_p[2], fwd_p[3], **kw)
+  torch.cuda.synchronize()
+  assert (fused_scan.forward_launches, fused_scan.backward_launches) == (
+      before[0] + 1, before[1] + 1)
+  # Same rounded inputs, float32 sums in another order. Log-space values
+  # (alpha, log Z, beta) to 1e-5 of max(|value|, 1) in float32. Gradients
+  # as |a - b|max / |b|max per output, 1e-4 in float32: a marginal is the
+  # exp of a sum of log-space terms as large as |log Z|, so a float32 sum
+  # taken in another order moves it by ~|log Z| * 6e-8 relative
+  # (test_fused_scan.py holds the JAX kernel's gradients to the same
+  # 1e-4). bfloat16 (rounding points shared, but a float32 tanh on either
+  # side of a bfloat16 rounding boundary moves a joint entry by one
+  # bfloat16 step): values to 1e-4, gradients to 1e-3.
+  bf16 = compute_dtype == torch.bfloat16
+  for name, got, want in zip(('log_z', 'alpha', 'hist', 'slabs'), fwd_k,
+                             fwd_p):
+    if want is not None:
+      assert rel_err(got, want) <= (1e-4 if bf16 else 1e-5), name
+  names = ('dpf', 'dpc', 'dvw', 'dvb', 'dbw', 'dbb', 'beta_out')
+  for name, got, want in zip(names, bwd_k, bwd_p):
+    if name == 'beta_out':
+      assert rel_err(got, want) <= (1e-4 if bf16 else 1e-5), name
+    else:
+      err = rel_err(got, want, per_output=True)
+      assert err <= (1e-3 if bf16 else 1e-4), name
+  dpf = bwd_k[0]  # the zero-cotangent row and the empty row
+  assert torch.all(dpf[:, 1] == 0) and torch.all(dpf[:, 2] == 0)
+
+
+@pytest.mark.cuda
+def test_log_partition_kernels_give_exact_zeros_on_card(card):
+  pf, pc, params, is_pad = fused_inputs(3, 130, 40, max_t=6,
+                                        lengths=[6, 3, 0], device=card)
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  log_z, _, hist, slabs = fused_scan.fused_forward(
+      pf, pc, params, is_pad, with_residuals=True, **kw)
+  assert log_z[2].item() == 0.0
+  grads = fused_scan.fused_backward(pf, pc, params, is_pad, log_z,
+                                    torch.zeros(3, device=card), hist, slabs,
+                                    **kw)
+  for x in grads[:-1]:
+    assert torch.all(x == 0)
+  # beta does not depend on g; the empty row's stays the semiring one.
+  assert torch.all(grads[-1][2] == 0)
+
+
+@pytest.mark.cuda
+def test_log_partition_primal_only_forward_on_card(card):
+  pf, pc, params, is_pad = fused_inputs(4, 1000, 512, max_t=5,
+                                        lengths=[5, 4], device=card)
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  with_res = fused_scan.fused_forward(pf, pc, params, is_pad,
+                                      with_residuals=True, **kw)
+  log_z, alpha, hist, slabs = fused_scan.fused_forward(
+      pf, pc, params, is_pad, with_residuals=False, **kw)
+  assert hist is None and slabs is None
+  npt.assert_array_equal(log_z.cpu().numpy(), with_res[0].cpu().numpy())
+  npt.assert_array_equal(alpha.cpu().numpy(), with_res[1].cpu().numpy())

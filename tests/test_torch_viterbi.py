@@ -147,12 +147,17 @@ def test_configs_outside_the_gate_raise():
                                 feature_size=FEATURES)
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     trigram.shortest_path(trigram_params, frames, num_frames)
+  labels = torch.ones((len(NUM_FRAMES), 2), dtype=torch.int32)
+  with pytest.raises(NotImplementedError,
+                     match='ROADMAP.md queue 2, item 6'):
+    trigram.loss(trigram_params, frames, num_frames, labels,
+                 torch.full((len(NUM_FRAMES),), 2))
   lattice = torch_lattice('fd')
   torch_params = convert.from_jax_params(params)
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     lattice.shortest_path(torch_params, frames[None], num_frames[None])
   with pytest.raises(NotImplementedError, match='ROADMAP'):
-    lattice.loss(torch_params, frames, num_frames, None, None)
+    lattice.label_marginals(torch_params, frames, num_frames)
 
   class MyJoint(weight_fns.JointWeightFn):
     pass
