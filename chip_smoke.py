@@ -19,27 +19,47 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 
 1. Device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for float32 matmuls and convolutions.
-2. Build: compiles ``last_torch_tpu_torch/csrc/viterbi.cu`` and
-   ``csrc/fused_scan.cu`` for sm_90a, one nvcc each, side by side.
+2. Build: compiles ``last_torch_tpu_torch/csrc/viterbi.cu``,
+   ``csrc/fused_scan.cu`` and ``csrc/numerator_scan.cu`` for sm_90a, one
+   nvcc each, side by side.
 3. Viterbi kernel against its plain PyTorch version on the card, T=64,
-   B=4, V in {1024, 1000}, FD / FLD(1) / FLD(2), float32 and bfloat16.
+   B=4, V in {1024, 1000}, FD / FLD(1) / FLD(2), float32 and bfloat16, and
+   with hat and log-softmax normalization (FD, FLD(2)).
 4. Serving main path: ``GNATModel(presets.gnat_global_bigram(),
    device='cuda')`` with random weights from a seed decodes 8 requests at
    T_max=1600 through the kernel, is checked, and is compared with the same
    decode through the plain version; both are timed with CUDA events.
+4b. HAT serving: ``GNATModel(presets.hat_bigram(vocab_size=1024))``
+   decodes the same requests through the kernel's in-kernel hat
+   normalization, checked and timed as phase 4.
 5. Log-partition kernels (forward and backward) against their plain
    versions, at the shapes of phase 3, with zero-cotangent and empty rows.
-6. Training main path: 3 ``train_step``s of the same model on 8 utterances
-   of up to 1600 frames through the log-partition kernels, timed with CUDA
-   events; step 1's loss and gradients against the same step through the
-   plain versions on the card; then each kernel alone against its plain
-   version at the step's shapes, and the step's other parts timed alone.
-7. The kernels alone at the JAX package's headline loss configuration
-   (``bench.py::bench_headline``: B=32, T=1600, FLD(2), bf16).
+5b. Numerator kernels against their plain versions: T=64, B=4, U+1=26,
+   V in {1024, 1000}, float32 and bfloat16, hat and log-softmax, with a
+   zero-cotangent row and padded frames and label positions.
+6. Training main path: 3 ``train_step``s of the phase-4 model on 8
+   utterances of up to 1600 frames through the log-partition kernels, timed
+   with CUDA events; step 1's loss and gradients against the same step
+   through the plain versions on the card; one more step under
+   ``torch.profiler`` (device busy time, idle share); then each kernel
+   alone against its plain version at the step's shapes, and the step's
+   other parts.
+6b. HAT training: 3 ``train_step``s of the phase-4b model on the same
+   utterances through the numerator kernels (float32), step 1 held against
+   the plain versions, one more step profiled; the numerator kernels alone
+   and the step's parts.
+7. The log-partition kernels alone at the JAX package's headline loss
+   configuration (``bench.py::bench_headline``: B=32, T=1600, FLD(2),
+   bf16).
+7b. The HAT loss and the numerator kernels alone at bench.py's config 7
+   (B=32, T=1600, U=100, bf16).
 
-Each phase prints one line or more with its seconds; any failure exits
-non-zero before the last line, which is ``{"ok": true, "device": {...}}``.
-The line before it is the kernels' JSON record. Imports nothing of JAX.
+Each phase prints one line or more with its seconds, and the run its total;
+any failure exits non-zero before the last line, which is ``{"ok": true,
+"device": {...}}``. The line before it is the kernels' JSON record: for each
+kernel its launches on the main paths, its time and its plain version's at
+the main path's shapes, and its bound on an H100 (published peaks). Imports
+nothing of JAX.
 """
 
 import concurrent.futures
@@ -84,6 +104,10 @@ LP_LONG_ROUNDINGS = 8
 # bfloat16 residue scales with the denominator's part alone.
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-3
+# HAT training step 1 (float32, no denominator to cancel against): each
+# parameter gradient as |a - b|max over its own |b|max. Two H100 runs read
+# at most 8.62e-06 (vocab_w), so 1e-4 leaves about ten times that.
+HAT_STEP_GRAD_RTOL = 1e-4
 
 
 class SmokeFailure(Exception):
@@ -119,16 +143,31 @@ def timed(torch, fn, repeats=1):
   return result, start.elapsed_time(end) / repeats
 
 
+def normalized(torch, lex, blank, normalize):
+  """(c, normalized blank) of the local normalization: each lexical weight
+  of a state loses c, as in the kernels; c is 0 for 'none'."""
+  if normalize == 'none':
+    return torch.zeros_like(blank), blank
+  lse = torch.logsumexp(lex, dim=-1)
+  zero = torch.zeros_like(blank)
+  if normalize == 'hat':
+    return (lse + torch.logaddexp(blank, zero),
+            -torch.logaddexp(-blank, zero))
+  c = torch.logaddexp(blank, lse)
+  return c, blank - c
+
+
 def rescore(torch, labels, num_frames, pf, pc, params, *, max_expansions,
-            frame_dependent, compute_dtype):
+            frame_dependent, compute_dtype, normalize='none'):
   """Scores of the given alignments under the plain arc weights (float64).
 
   Walks each alignment through the bigram context: a lexical slot y from
-  state q scores lex[q, y] and moves to state y; the frame's blank slot
-  scores blank[q].
+  state q scores lex[q, y] (less q's normalizer c[q]) and moves to state y;
+  the frame's blank slot scores blank[q] (normalized).
   """
   rnd = lambda x: x.to(compute_dtype).float()
-  vw_t = rnd(params['vocab_w']).t()
+  vw = rnd(params['vocab_w'])
+  vw_t = vw.t()
   bw = rnd(params['blank_w'])
   max_t, batch, _ = pf.shape
   num_align = 1 if frame_dependent else max_expansions + 1
@@ -143,6 +182,10 @@ def rescore(torch, labels, num_frames, pf, pc, params, *, max_expansions,
       lexical = ((joint * vw_t[(y - 1).clamp(min=0)]).sum(-1) +
                  params['vocab_b'][(y - 1).clamp(min=0)])
       blank = joint @ bw + params['blank_b']
+      if normalize != 'none':
+        lex = joint.double() @ vw.double() + params['vocab_b'].double()
+        c, blank = normalized(torch, lex, blank.double(), normalize)
+        lexical = lexical.double() - c
       is_blank_slot = frame_dependent or i == num_align - 1
       if is_blank_slot:
         weight = torch.where(y > 0, lexical, blank)
@@ -222,18 +265,18 @@ def tie_gaps(torch, viterbi, inputs, kw, got, want):
         **kw)[2][b].double()
     joint = rnd(torch.tanh(pc + pf[t, b]))  # [S, h]
     lex = joint @ vw + vb
+    c, blank = normalized(torch, lex, joint @ bw + bb, kw['normalize'])
     vecs = [alpha_t]  # each pass's input: alpha, then expand(red)
     for _ in range(arg_k.shape[2]):
-      red = (vecs[-1][:, None] + lex).max(dim=0).values
+      red = ((vecs[-1] - c)[:, None] + lex).max(dim=0).values
       vecs.append(torch.cat([red.new_full((1,), float('-inf')), red]))
     if kind == 'arg':
       j, y = where
-      score = lambda s: vecs[j][s] + lex[s, y]
+      score = lambda s: (vecs[j][s] - c[s]) + lex[s, y]
       mine, theirs = int(arg_k[t, b, j, y]), int(arg_p[t, b, j, y])
     else:
       (s,) = where
-      blank = joint[s] @ bw + bb
-      score = lambda jj: vecs[jj][s] + blank
+      score = lambda jj: vecs[jj][s] + blank[s]
       mine, theirs = int(jstar_k[t, b, s]), int(jstar_p[t, b, s])
     a, c = score(mine).item(), score(theirs).item()
     gaps.append(abs(a - c) / max(abs(c), 1.0))
@@ -241,7 +284,8 @@ def tie_gaps(torch, viterbi, inputs, kw, got, want):
 
 
 def phase_kernel_vs_plain(torch, viterbi):
-  """Phase 3: the kernel against its plain version on the card."""
+  """Phase 3: the kernel against its plain version on the card, without
+  and with local normalization."""
   rng = np.random.default_rng(1)
   max_t, batch, hidden = 64, 4, 512
   num_frames = torch.tensor([64, 50, 0, 17], device='cuda')
@@ -258,10 +302,15 @@ def phase_kernel_vs_plain(torch, viterbi):
         'blank_w': torch.from_numpy(rand(rng, (hidden,), hidden**-0.5)).cuda(),
         'blank_b': torch.tensor(0.3, device='cuda'),
     }
-    for name, k, fd in (('FD', 0, True), ('FLD(1)', 1, False),
-                        ('FLD(2)', 2, False)):
+    cases = [(name, k, fd, 'none') for name, k, fd in
+             (('FD', 0, True), ('FLD(1)', 1, False), ('FLD(2)', 2, False))]
+    cases += [(name, k, fd, normalize) for name, k, fd in
+              (('FD', 0, True), ('FLD(2)', 2, False))
+              for normalize in ('hat', 'log_softmax')]
+    for name, k, fd, normalize in cases:
       for dtype in (torch.float32, torch.bfloat16):
-        kw = dict(max_expansions=k, frame_dependent=fd, compute_dtype=dtype)
+        kw = dict(max_expansions=k, frame_dependent=fd, compute_dtype=dtype,
+                  normalize=normalize)
         fwd_k = viterbi.viterbi_forward(pf, pc, params, is_pad, **kw)
         fwd_p = viterbi.viterbi_forward_plain(pf, pc, params, is_pad, **kw)
         torch.cuda.synchronize()
@@ -269,7 +318,7 @@ def phase_kernel_vs_plain(torch, viterbi):
         labels_k, weights_k = viterbi.backtrace(*fwd_k, is_pad, **bt)
         labels_p, weights_p = viterbi.backtrace(*fwd_p, is_pad, **bt)
         num = (1 if fd else k + 1) * num_frames
-        tag = f'V={vocab} {name} {str(dtype)[6:]}'
+        tag = f'V={vocab} {name} {str(dtype)[6:]} normalize={normalize}'
         tables = ''
         if dtype == torch.float32:
           num_diffs, gap = tie_gaps(torch, viterbi, (pf, pc, params, is_pad),
@@ -539,6 +588,9 @@ def phase_training(torch, gnat, presets, fused_scan, semirings, pytree):
       + f' real frames/s); kernel launches per step (forward, backward) '
       f'{per_step}; last_path kernel')
 
+  say('train', 'one more step under the profiler: ' + device_profile(
+      torch, lambda: gnat.train_step(model, optimizer, state, *batch)))
+
   # Each kernel alone against its plain version at the step's shapes, and
   # the step's other parts alone (these launches are not counted).
   params = state.params
@@ -613,18 +665,26 @@ def kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw, launches):
           f'{log_z_max:.4g}, gradient rtol {grad_rtol:.2e}): '
           + ', '.join(f'{n} {e:.2e}' for n, (e, _) in
                       {**fwd_err, **bwd_err}.items()))
-  record = lambda name, line_no, count, err, ms, plain_ms: {
-      'name': name, 'route': 'cuda',
-      'source': 'last_torch_tpu_torch/csrc/fused_scan.cu',
-      'replaces': f'last_torch_tpu/ops/fused_scan.py:{line_no}',
-      'launches': count, 'max_abs_err': err, 'ms': ms, 'plain_ms': plain_ms}
+  # One head product per real frame-row (later reductions of a frame read
+  # the staged lex); the backward runs three.
+  flops = 2.0 * int((~is_pad).sum()) * pc.shape[0] * head['vocab_w'].numel()
+  inputs = nbytes(pf, pc, *head.values(), is_pad)
+  fwd_bytes = inputs + nbytes(*fwd_k)
+  bwd_bytes = inputs + nbytes(fwd_k[0], g, fwd_k[2], fwd_k[3], *bwd_k)
+  record = lambda name, line_no, count, err, ms, plain_ms, ops, traffic: (
+      kernel_record(name, 'fused_scan.cu', f'fused_scan.py:{line_no}', count,
+                    err, ms, plain_ms, ops, traffic, 'bfloat16'))
   return {
-      'line': line,
+      'line': line + (f'; bounds {bound(flops, fwd_bytes, "bfloat16")[0]:.1f}'
+                      f' / {bound(3 * flops, bwd_bytes, "bfloat16")[0]:.1f} '
+                      'ms'),
       'forward': record('fused_forward', 122, launches[0],
-                        fwd_err['log_z'][1], fwd_ms, plain_fwd_ms),
+                        fwd_err['log_z'][1], fwd_ms, plain_fwd_ms, flops,
+                        fwd_bytes),
       'backward': record('fused_backward', 255, launches[1],
                          max(e[1] for n, e in bwd_err.items()
-                             if n != 'beta_out'), bwd_ms, plain_bwd_ms),
+                             if n != 'beta_out'), bwd_ms, plain_bwd_ms,
+                         3 * flops, bwd_bytes),
   }
 
 
@@ -708,6 +768,538 @@ def phase_headline(torch, lattices, contexts, alignments, weight_fns, gnat,
       f'{batch_size} T={max_t}: {encoder_ms:.1f} ms')
 
 
+# Published dense peaks of one H100 SXM (NVIDIA's data sheet, at 700 W):
+# operations per second by input type, and device-memory bytes per second.
+PEAK_OPS = {'bfloat16': 989e12, 'float32': 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def bound(flops, nbytes, dtype):
+  """(bound_ms, bound_by): the least time the card could take for flops
+  operations in dtype and nbytes of device-memory traffic."""
+  ops_ms = flops / PEAK_OPS[dtype] * 1e3
+  bytes_ms = nbytes / PEAK_BYTES * 1e3
+  return (max(ops_ms, bytes_ms),
+          'operations' if ops_ms >= bytes_ms else 'bytes')
+
+
+def nbytes(*tensors):
+  """Bytes of the given tensors (each read or written once)."""
+  return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def kernel_record(name, source, replaces, launches, max_abs_err, ms,
+                  plain_ms, flops, traffic, dtype, **extra):
+  """One entry of the kernels JSON line. No single PyTorch call computes a
+  tropical or log-semiring lattice scan, or a head product fused with its
+  logsumexp and a label select, so library_ms is null for every kernel."""
+  bound_ms, bound_by = bound(flops, traffic, dtype)
+  return {'name': name, 'route': 'cuda',
+          'source': f'last_torch_tpu_torch/csrc/{source}',
+          'replaces': f'last_torch_tpu/ops/{replaces}',
+          'launches': launches, 'max_abs_err': max_abs_err, 'ms': ms,
+          'plain_ms': plain_ms, 'bound_ms': bound_ms, 'bound_by': bound_by,
+          'library_ms': None, **extra}
+
+
+def device_profile(torch, fn):
+  """Runs fn once under torch.profiler (CUDA activity only: host-side
+  tracing of a train step's ~100k small ops would take minutes to
+  process). Returns a report: kernels, device busy time (the union of the
+  kernels' intervals), the first-to-last-kernel window, the idle share of
+  that window, and the three kernels with the most device time."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+  check(bool(spans), 'the profiler recorded no device activity')
+  busy, end, by_name = 0.0, spans[0][0], {}
+  for start, stop, name in spans:
+    busy += max(0.0, stop - max(start, end))
+    end = max(end, stop)
+    by_name[name] = by_name.get(name, 0.0) + (stop - start)
+  window = end - spans[0][0]
+  top = sorted(by_name.items(), key=lambda item: -item[1])[:3]
+  return (f'{len(spans)} kernels, device busy {busy / 1e3:.1f} ms of a '
+          f'{window / 1e3:.1f} ms window (idle {1 - busy / window:.1%}); '
+          'most device time: ' + ', '.join(
+              f'{name[:48]} {t / 1e3:.1f} ms' for name, t in top))
+
+
+def phase_hat_serving(torch, gnat, presets, viterbi):
+  """Phase 4b: the HAT serving main path, hat_bigram(vocab_size=1024) at
+  full width, decoding phase 4's requests through the kernel's in-kernel
+  normalization. Prints its lines; returns (launches, kernel ms, plain ms,
+  max abs err of the final alpha)."""
+  config = presets.hat_bigram(vocab_size=1024)
+  model = gnat.GNATModel(config)  # the card is the default device
+  params = model.init(torch.Generator().manual_seed(0))
+  rng = np.random.default_rng(0)
+  frames = torch.from_numpy(
+      rand(rng, (len(NUM_FRAMES), max(NUM_FRAMES), config.feature_size))
+  ).cuda()
+  num_frames = torch.tensor(NUM_FRAMES, device='cuda')
+  decode = lambda: model.decode(params, frames, num_frames)
+  decode()  # warm-up
+  torch.cuda.synchronize()
+  viterbi.launches = 0
+  (labels, num_labels, weights), decode_ms = timed(torch, decode)
+  launches = viterbi.launches
+  check(launches >= 1, 'the HAT decode did not launch the Viterbi kernel')
+  check(model.lattice.last_path == 'kernel',
+        f'last_path is {model.lattice.last_path!r}, not kernel')
+  num_align = config.max_expansions + 1
+  check(torch.equal(num_labels, num_align * num_frames.int()),
+        'num_alignment_labels != 3 * num_frames')
+  check(int(labels.min()) >= 0 and int(labels.max()) <= config.vocab_size,
+        'labels outside [0, V]')
+  slot = torch.arange(labels.shape[1], device='cuda')[None]
+  check(not bool(labels[slot >= num_labels[:, None]].any()),
+        'padding slots are not blank')
+  check(bool(torch.isfinite(weights).all()) and bool((weights <= 0).all()),
+        'HAT path weights are not finite log-probabilities')
+
+  wf_params = params['lattice']['weight_fn']
+  fwd = dict(max_expansions=config.max_expansions, frame_dependent=False,
+             compute_dtype=torch.bfloat16, normalize='hat')
+  encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+  cache = model.lattice.build_cache(params['lattice'])
+  plain_decode = lambda: viterbi.viterbi_decode(
+      wf_params, cache, encoded, num_frames, **fwd,
+      forward=viterbi.viterbi_forward_plain)
+  plain_out, plain_decode_ms = timed(torch, plain_decode)
+  pf = torch.einsum('btf,fh->tbh', encoded,
+                    wf_params['frame_proj']).contiguous()
+  pc = (cache @ wf_params['context_proj']).contiguous()
+  rescored = rescore(torch, labels, num_frames, pf, pc, wf_params, **fwd)
+  report = compare_decodes(torch, (labels, num_labels, weights), plain_out,
+                           rescored, torch.bfloat16)
+  real_frames = sum(NUM_FRAMES)
+  say('hat-serving', f'hat_bigram B={len(NUM_FRAMES)} '
+      f'T_max={max(NUM_FRAMES)}: kernel decode {decode_ms:.1f} ms '
+      f'({real_frames / decode_ms * 1e3:.0f} frames/s), plain decode '
+      f'{plain_decode_ms:.1f} ms, launches {launches}; vs plain: {report}')
+
+  is_pad = (torch.arange(frames.shape[1], device='cuda')[:, None] >=
+            num_frames[None, :])
+  viterbi.viterbi_forward(pf, pc, wf_params, is_pad, **fwd)  # warm-up
+  (_, _, alpha_k), kernel_ms = timed(
+      torch, lambda: viterbi.viterbi_forward(pf, pc, wf_params, is_pad,
+                                             **fwd), repeats=3)
+  (_, _, alpha_p), plain_ms = timed(
+      torch, lambda: viterbi.viterbi_forward_plain(pf, pc, wf_params, is_pad,
+                                                   **fwd))
+  finite = torch.isfinite(alpha_p)
+  check(torch.equal(finite, torch.isfinite(alpha_k)),
+        'HAT final alpha: kernel and plain differ in reachable states')
+  max_abs_err = (alpha_k[finite] - alpha_p[finite]).abs().max().item()
+  scale = alpha_p[finite].abs().max().item()
+  check(max_abs_err <= BF16_RTOL * scale,
+        f'HAT final alpha differs by {max_abs_err} (scale {scale})')
+  say('hat-serving', f'viterbi_forward normalize=hat bf16 B=8 T=1600 '
+      f'S=1025 V=1024 h=512: kernel {kernel_ms:.1f} ms, plain '
+      f'{plain_ms:.1f} ms; final alpha max abs err {max_abs_err:.3g} of '
+      f'scale {scale:.4g}')
+  return launches, kernel_ms, plain_ms, max_abs_err
+
+
+NUMERATOR_FORWARD_NAMES = ('nb*', 'nl*', 'z*', 'blank*')
+NUMERATOR_BACKWARD_NAMES = ('d_pc', 'd_pf', 'd_vocab_w', 'd_vocab_b',
+                            'd_blank_w', 'd_blank_b', 'd_wy', 'd_by')
+# Numerator kernels against their plain versions: (value rtol, gradient
+# rtol). float32: summation order only. bfloat16: a float32 tanh on either
+# side of a rounding boundary moves a joint entry by one bfloat16 step, and
+# ds is rounded too. Each frame's weights stand alone (no recurrence), so
+# these hold at any length.
+NUM_RTOL = {'float32': (F32_RTOL, 1e-4), 'bfloat16': (BF16_RTOL, 2e-3)}
+
+
+def numerator_cotangents(torch, num_frames, num_labels, u1, max_t):
+  """Cotangents that vanish where the string DP's do: frames past
+  num_frames and label positions past num_labels; batch row 1 is zero
+  throughout. Returns (g_b, g_l), [T, B * U1]."""
+  rng = np.random.default_rng(3)
+  batch = len(num_frames)
+  t = torch.arange(max_t, device='cuda')[:, None, None]
+  u = torch.arange(u1, device='cuda')[None, None, :]
+  live = ((t < num_frames[None, :, None]) &
+          (u <= num_labels[None, :, None]))
+  live[:, 1] = False
+  g = [torch.from_numpy(rand(rng, (max_t, batch, u1))).cuda() * live
+       for _ in range(2)]
+  return [x.reshape(max_t, batch * u1).contiguous() for x in g]
+
+
+def phase_numerator_vs_plain(torch, numerator_scan):
+  """Phase 5b: the numerator kernels against their plain versions, with
+  zero-cotangent and padded rows."""
+  rng = np.random.default_rng(4)
+  max_t, batch, hidden, u1 = 64, 4, 512, 26
+  num_frames = torch.tensor([64, 50, 0, 17], device='cuda')
+  num_labels = torch.tensor([25, 10, 0, 3], device='cuda')
+  g_b, g_l = numerator_cotangents(torch, num_frames, num_labels, u1, max_t)
+  rows = batch * u1
+  lines = []
+  for vocab in (1024, 1000):
+    head = {
+        'vocab_w': torch.from_numpy(rand(rng, (hidden, vocab),
+                                         hidden**-0.5)).cuda(),
+        'vocab_b': torch.from_numpy(rand(rng, (vocab,), 0.1)).cuda(),
+        'blank_w': torch.from_numpy(rand(rng, (hidden,), hidden**-0.5)).cuda(),
+        'blank_b': torch.tensor(0.3, device='cuda'),
+    }
+    pc = torch.from_numpy(rand(rng, (rows, hidden), 0.5)).cuda()
+    pf = torch.from_numpy(rand(rng, (max_t, batch, hidden), 0.5)).cuda()
+    wy = torch.from_numpy(rand(rng, (rows, hidden), hidden**-0.5)).cuda()
+    by = torch.from_numpy(rand(rng, (rows,), 0.1)).cuda()
+    for hat in (True, False):
+      for dtype in (torch.float32, torch.bfloat16):
+        kw = dict(hat=hat, compute_dtype=dtype)
+        tag = (f'V={vocab} {"hat" if hat else "log_softmax"} '
+               f'{str(dtype)[6:]}')
+        fwd_k = numerator_scan.numerator_forward(pc, pf, head, wy, by, **kw)
+        fwd_p = numerator_scan.numerator_forward_plain(pc, pf, head, wy, by,
+                                                       **kw)
+        bwd_k = numerator_scan.numerator_backward(
+            pc, pf, head, wy, by, fwd_k[2], fwd_k[3], g_b, g_l, **kw)
+        bwd_p = numerator_scan.numerator_backward_plain(
+            pc, pf, head, wy, by, fwd_p[2], fwd_p[3], g_b, g_l, **kw)
+        torch.cuda.synchronize()
+        rtols = NUM_RTOL[str(dtype)[6:]]
+        try:
+          errors = max_errors(torch, fwd_k, fwd_p, NUMERATOR_FORWARD_NAMES,
+                              rtols)
+          errors.update(max_errors(torch, bwd_k, bwd_p,
+                                   NUMERATOR_BACKWARD_NAMES, rtols))
+        except SmokeFailure as e:
+          raise SmokeFailure(f'numerator {tag}: {e}') from None
+        d_pc, d_pf, d_wy = bwd_k[0], bwd_k[1], bwd_k[6]
+        dead = ~numerator_live_rows(torch, num_labels, u1)
+        check(not bool(d_pf[:, 1:3].any()) and
+              not bool(d_pf[17:, 3].any()) and not bool(d_pf[50:, 1].any()),
+              f'numerator {tag}: zero-cotangent frames have nonzero d(pf)')
+        check(not bool(d_pc[dead].any()) and not bool(d_wy[dead].any()),
+              f'numerator {tag}: padded rows have nonzero d(pc) or d(wy)')
+        value = max(e for n, (e, _) in errors.items() if not
+                    n.startswith('d'))
+        grad_name, (grad, _) = max(
+            ((n, e) for n, e in errors.items() if n.startswith('d')),
+            key=lambda item: item[1][0])
+        lines.append(f'{tag}: values max rel {value:.2e}, gradients max rel '
+                     f'{grad:.2e} ({grad_name}); zero-cotangent frames and '
+                     'padded rows exactly 0')
+  return lines
+
+
+def numerator_live_rows(torch, num_labels, u1):
+  """[B * U1] rows with a cotangent somewhere (numerator_cotangents)."""
+  u = torch.arange(u1, device='cuda')[None, :]
+  live = u <= num_labels[:, None]
+  live[1] = False
+  return live.reshape(-1)
+
+
+def string_cotangents(torch, lattice, semirings, nb, nl, num_frames,
+                      num_labels, batch, u1):
+  """The cotangents of (nb, nl) [T, B * U1] under the mean -numerator of
+  the string DP: what the train step's backward hands the numerator."""
+  max_t = nb.shape[0]
+  nb = nb.detach().view(max_t, batch, u1).requires_grad_(True)
+  nl = nl.detach().view(max_t, batch, u1).requires_grad_(True)
+  numerator = lattice._string_dp(nb, nl, num_frames, num_labels,
+                                 semirings.Log)
+  (-numerator.sum() / batch).backward()
+  return (nb.grad.reshape(max_t, -1).contiguous(),
+          nl.grad.reshape(max_t, -1).contiguous())
+
+
+def numerator_inputs(torch, lattice, lattice_params, labels):
+  """(cache, states, next_labels) of a HAT lattice's numerator: the
+  context cache, each label position's state, and its next label (1 after
+  the last, whose weight the string DP never reads)."""
+  cache = lattice.build_cache(lattice_params)
+  states = lattice.context.walk_states(labels)
+  next_labels = torch.cat([labels, torch.ones_like(labels[:, :1])], dim=1)
+  return cache, states, next_labels
+
+
+def staged_numerator(torch, lattice, numerator_scan, lattice_params, frames,
+                     labels):
+  """The numerator kernels' inputs (pc, pf, head, wy, by), detached, and
+  the number of label positions U+1."""
+  wf_params = {k: v.detach() for k, v in lattice_params['weight_fn'].items()}
+  with torch.no_grad():
+    cache, states, next_labels = numerator_inputs(torch, lattice,
+                                                  lattice_params, labels)
+    pc, pf, wy, by = numerator_scan.stage(lattice.weight_fn.weight_fn,
+                                          wf_params, cache, frames, states,
+                                          next_labels)
+  head = {n: wf_params[n] for n in numerator_scan._HEAD}
+  return (pc, pf, head, wy, by), states.shape[1]
+
+
+def numerator_alone(torch, numerator_scan, inputs, g, kw, num_frames,
+                    num_labels):
+  """The numerator kernels alone against their plain versions, timed once
+  each with CUDA events. The bounds count the head products of the live
+  (frame, label position) pairs, t < num_frames and u <= num_labels, alone:
+  the string DP masks the others and their cotangents are zero. Returns
+  (kernel ms, plain ms, errors, flops, bytes, dtype) per direction."""
+  pc, pf, head, wy, by = inputs
+  fwd_k, fwd_ms = timed(torch, lambda: numerator_scan.numerator_forward(
+      pc, pf, head, wy, by, **kw))
+  bwd_k, bwd_ms = timed(torch, lambda: numerator_scan.numerator_backward(
+      pc, pf, head, wy, by, fwd_k[2], fwd_k[3], *g, **kw))
+  fwd_p, plain_fwd_ms = timed(
+      torch, lambda: numerator_scan.numerator_forward_plain(
+          pc, pf, head, wy, by, **kw))
+  bwd_p, plain_bwd_ms = timed(
+      torch, lambda: numerator_scan.numerator_backward_plain(
+          pc, pf, head, wy, by, fwd_p[2], fwd_p[3], *g, **kw))
+  rtols = NUM_RTOL[str(kw['compute_dtype'])[6:]]
+  fwd_err = max_errors(torch, fwd_k, fwd_p, NUMERATOR_FORWARD_NAMES, rtols)
+  bwd_err = max_errors(torch, bwd_k, bwd_p, NUMERATOR_BACKWARD_NAMES, rtols)
+  max_t, batch, hidden = pf.shape
+  rows, vocab = pc.shape[0], head['vocab_w'].shape[1]
+  live_pairs = int((num_frames.clamp(max=max_t) * (num_labels + 1)).sum())
+  flops = 2.0 * live_pairs * hidden * vocab
+  dtype = str(kw['compute_dtype'])[6:]
+  fwd_bytes = (nbytes(pc, pf, wy, by, *head.values()) +
+               nbytes(*fwd_k))
+  bwd_bytes = (nbytes(pc, pf, wy, by, *head.values(), fwd_k[2], fwd_k[3],
+                      *g) + nbytes(*bwd_k))
+  return {
+      'forward': (fwd_ms, plain_fwd_ms, fwd_err, flops, fwd_bytes, dtype),
+      'backward': (bwd_ms, plain_bwd_ms, bwd_err, 3 * flops, bwd_bytes,
+                   dtype),
+      'line': (f'numerator kernels alone, {dtype} '
+               f'{"hat" if kw["hat"] else "log_softmax"} B={batch} '
+               f'T={max_t} R={rows} V={vocab} h={hidden}, {live_pairs} live '
+               f'(frame, position) pairs of {max_t * rows}: forward kernel '
+               f'{fwd_ms:.1f} ms (bound {bound(flops, fwd_bytes, dtype)[0]:.1f}'
+               f'), plain {plain_fwd_ms:.1f} ms; backward kernel '
+               f'{bwd_ms:.1f} ms (bound '
+               f'{bound(3 * flops, bwd_bytes, dtype)[0]:.1f}), plain '
+               f'{plain_bwd_ms:.1f} ms; vs plain: '
+               + ', '.join(f'{n} {e:.2e}' for n, (e, _) in
+                           {**fwd_err, **bwd_err}.items())),
+  }
+
+
+def plain_hat_mean_loss(torch, model, numerator_scan, semirings, params,
+                        frames, num_frames, labels, num_labels):
+  """``GNATModel.mean_loss`` of a HAT model with the numerator kernels'
+  plain versions."""
+  lattice = model.lattice
+  encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+  cache, states, next_labels = numerator_inputs(torch, lattice,
+                                                params['lattice'], labels)
+  blank, lexical = numerator_scan.label_weights(
+      lattice.weight_fn.weight_fn, params['lattice']['weight_fn'], cache,
+      encoded, states, next_labels, hat=True,
+      forward=numerator_scan.numerator_forward_plain,
+      backward=numerator_scan.numerator_backward_plain)
+  per_seq = -lattice._string_dp(blank.movedim(-1, 0), lexical.movedim(-1, 0),
+                                num_frames, num_labels, semirings.Log)
+  finite = torch.isfinite(per_seq)
+  return torch.where(finite, per_seq, 0.0).sum() / finite.sum().clamp(min=1)
+
+
+def phase_hat_training(torch, gnat, presets, numerator_scan, semirings,
+                       pytree):
+  """Phase 6b: the HAT training main path, hat_bigram(vocab_size=1024):
+  3 train steps through the numerator kernels (float32, as GNATModel
+  leaves compute_dtype None). Prints its lines; returns the numerator
+  kernels' records."""
+  config = presets.hat_bigram(vocab_size=1024)
+  model = gnat.GNATModel(config, device='cuda')
+  optimizer = gnat.make_optimizer(LEARNING_RATE)
+  state = gnat.init_train_state(model, torch.Generator().manual_seed(0),
+                                optimizer)
+  rng = np.random.default_rng(0)
+  batch_size, max_t = len(NUM_FRAMES), max(NUM_FRAMES)
+  frames = torch.from_numpy(
+      rand(rng, (batch_size, max_t, config.feature_size))).cuda()
+  labels = torch.from_numpy(rng.integers(
+      1, config.vocab_size + 1, size=(batch_size, max(NUM_LABELS)))).cuda()
+  num_frames = torch.tensor(NUM_FRAMES, device='cuda')
+  num_labels = torch.tensor(NUM_LABELS, device='cuda')
+  batch = (frames, num_frames, labels, num_labels)
+  real_frames = sum(NUM_FRAMES)
+
+  leaves = pytree.tree_leaves(state.params)
+  t0 = time.perf_counter()
+  loss_k, grads_k = loss_and_grads(
+      torch, leaves, lambda: model.mean_loss(state.params, *batch))
+  loss_p, grads_p = loss_and_grads(
+      torch, leaves, lambda: plain_hat_mean_loss(
+          torch, model, numerator_scan, semirings, state.params, *batch))
+  loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+  check(np.isfinite(loss_k) and loss_rel <= STEP_LOSS_RTOL,
+        f'HAT step-1 loss {loss_k} through the kernels, {loss_p} plain')
+  paths = [pytree.keystr(path) for path, _ in
+           pytree.tree_flatten_with_path(state.params)[0]]
+  largest = max(g.abs().max().item() for g in grads_p)
+  worst = own = (0.0, '')
+  for path, a, b in zip(paths, grads_k, grads_p):
+    check(bool(torch.isfinite(a).all()), f'{path}: gradient not finite')
+    diff = (a - b).abs().max().item()
+    worst = max(worst, (diff / largest, path))
+    own = max(own, (diff / max(b.abs().max().item(), 1e-30), path))
+  check(own[0] <= HAT_STEP_GRAD_RTOL,
+        f'HAT step-1 gradient of {own[1]}: kernel vs plain {own[0]:.3g} of '
+        'its own largest entry')
+  say('hat-train', f'step 1 through the kernels vs plain versions: loss '
+      f'{loss_k:.6g} vs {loss_p:.6g} (rel {loss_rel:.2e}); gradients, '
+      f'{len(leaves)} leaves, max |a-b| {worst[0]:.2e} of the largest '
+      f'gradient {largest:.3g} ({worst[1]}); of the leaf\'s own scale at '
+      f'most {own[0]:.2e} ({own[1]}) ({time.perf_counter() - t0:.1f} s)')
+
+  # The main path: train steps through the kernels, counted and timed.
+  losses, step_ms, per_step = [], [], []
+  numerator_scan.forward_launches = numerator_scan.backward_launches = 0
+  for _ in range(TRAIN_STEPS):
+    counts = numerator_scan.forward_launches, numerator_scan.backward_launches
+    (state, loss), ms = timed(torch, lambda: gnat.train_step(
+        model, optimizer, state, *batch))
+    step_ms.append(ms)
+    losses.append(loss.item())
+    per_step.append((numerator_scan.forward_launches - counts[0],
+                     numerator_scan.backward_launches - counts[1]))
+  launches = numerator_scan.forward_launches, numerator_scan.backward_launches
+  check(model.lattice.last_path is None,
+        'the HAT loss ran a log-partition route')
+  check(all(f >= 1 and b >= 1 for f, b in per_step),
+        f'a HAT train step did not launch both numerator kernels: {per_step}')
+  check(all(np.isfinite(losses)) and
+        all(b < a for a, b in zip(losses, losses[1:])),
+        f'HAT losses not finite and decreasing: {losses}')
+  check(abs(losses[0] - loss_k) <= 1e-6 * abs(loss_k),
+        f'HAT train step 1 loss {losses[0]} != mean_loss {loss_k}')
+  say('hat-train',
+      f'hat_bigram B={batch_size} T_max={max_t} U_max={max(NUM_LABELS)}, '
+      f'{TRAIN_STEPS} train steps: losses '
+      + ', '.join(f'{x:.6g}' for x in losses) + '; step ms '
+      + ', '.join(f'{x:.1f}' for x in step_ms) + ' ('
+      + ', '.join(f'{real_frames / x * 1e3:.0f}' for x in step_ms)
+      + f' real frames/s); numerator launches per step (forward, backward) '
+      f'{per_step}')
+  say('hat-train', 'one more step under the profiler: ' + device_profile(
+      torch, lambda: gnat.train_step(model, optimizer, state, *batch)))
+  return hat_step_parts(torch, model, optimizer, state, batch, launches,
+                        numerator_scan, semirings)
+
+
+def hat_step_parts(torch, model, optimizer, state, batch, launches,
+                   numerator_scan, semirings):
+  """The HAT step's parts, each alone: the numerator kernels against their
+  plain versions at the step's shapes and cotangents, the encoder, the
+  string DP and the optimizer. Returns the kernels' records."""
+  frames, num_frames, labels, num_labels = batch
+  params = state.params
+  lattice = model.lattice
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+  inputs, u1 = staged_numerator(torch, lattice, numerator_scan,
+                                params['lattice'], encoded, labels)
+  batch_size = len(labels)
+  kw = dict(hat=True, compute_dtype=torch.float32)
+  nb, nl, _, _ = numerator_scan.numerator_forward(*inputs, **kw)
+  g = string_cotangents(torch, lattice, semirings, nb, nl, num_frames,
+                        num_labels, batch_size, u1)
+  alone = numerator_alone(torch, numerator_scan, inputs, g, kw, num_frames,
+                          num_labels)
+  say('hat-train', alone['line'])
+
+  def encoder_fwd_bwd():
+    out = model.encoder.apply(params['encoder'], frames, num_frames)
+    out.backward(torch.ones_like(out))
+
+  def string_dp_fwd_bwd():
+    string_cotangents(torch, lattice, semirings, nb, nl, num_frames,
+                      num_labels, batch_size, u1)
+
+  _, encoder_ms = timed(torch, encoder_fwd_bwd)
+  _, dp_ms = timed(torch, string_dp_fwd_bwd)
+  _, optimizer_ms = timed(
+      torch, lambda: optimizer.apply_gradients(state.opt_state))
+  fwd, bwd = alone['forward'], alone['backward']
+  say('hat-train', f'step parts alone: encoder forward+backward '
+      f'{encoder_ms:.1f} ms, numerator kernels {fwd[0]:.1f} + {bwd[0]:.1f} '
+      f'ms, string DP forward+backward {dp_ms:.1f} ms, optimizer update '
+      f'{optimizer_ms:.1f} ms')
+  records = []
+  for name, line_no, (ms, plain_ms, err, flops, traffic, dtype), count in (
+      ('numerator_forward', 284, fwd, launches[0]),
+      ('numerator_backward', 376, bwd, launches[1])):
+    records.append(kernel_record(
+        name, 'numerator_scan.cu', f'numerator_scan.py:{line_no}', count,
+        max(e[1] for e in err.values()), ms, plain_ms, flops, traffic,
+        dtype))
+  return records
+
+
+def phase_hat_headline(torch, lattices, contexts, alignments, weight_fns,
+                       numerator_scan, semirings, pytree):
+  """Phase 7b: the HAT loss at bench.py's config 7 (hat training at
+  headline shapes: B=32, T=1600, U=100, feature=emb=hidden=512, V=1024,
+  FLD(2), bfloat16 heads, no encoder) through the numerator kernels, and
+  the kernels alone against their plain versions there."""
+  vocab, hidden, batch_size, max_t, max_u = 1024, 512, 32, 1600, 100
+  lattice = lattices.RecognitionLattice(
+      context=contexts.FullNGram(vocab_size=vocab, context_size=1),
+      alignment=alignments.FrameLabelDependent(max_expansions=2),
+      weight_fn_cacher_factory=lambda ctx: weight_fns.SharedEmbCacher(
+          num_context_states=ctx.shape()[0], embedding_size=hidden),
+      weight_fn_factory=lambda ctx: weight_fns.LocallyNormalizedWeightFn(
+          weight_fns.JointWeightFn(vocab_size=vocab, hidden_size=hidden,
+                                   compute_dtype=torch.bfloat16)))
+  params = lattice.init(torch.Generator().manual_seed(0), feature_size=hidden,
+                        device='cuda')
+  leaves = pytree.tree_leaves(params)
+  for leaf in leaves:
+    leaf.requires_grad_(True)
+  rng = np.random.default_rng(0)
+  frames = torch.from_numpy(
+      rand(rng, (batch_size, max_t, hidden), 0.1)).cuda()
+  num_frames = torch.full((batch_size,), max_t, device='cuda')
+  labels = torch.from_numpy(
+      rng.integers(1, vocab + 1, size=(batch_size, max_u))).cuda()
+  num_labels = torch.full((batch_size,), max_u, device='cuda')
+
+  def loss_fwd_bwd():
+    loss = lattice.loss(params, frames, num_frames, labels, num_labels)
+    loss.sum().backward()
+    return loss
+
+  counts = numerator_scan.forward_launches, numerator_scan.backward_launches
+  loss, loss_ms = timed(torch, loss_fwd_bwd)
+  check((numerator_scan.forward_launches, numerator_scan.backward_launches)
+        == (counts[0] + 1, counts[1] + 1),
+        'the config-7 HAT loss did not launch both numerator kernels once')
+  check(bool(torch.isfinite(loss).all()) and bool((loss > 0).all()),
+        'config-7 HAT losses not finite and positive')
+  check(all(bool(torch.isfinite(leaf.grad).all()) for leaf in leaves),
+        'config-7 HAT gradients not finite')
+  say('hat-headline', f'HAT lattice loss forward+backward (bench config 7: '
+      f'B={batch_size} T={max_t} U={max_u} feature=emb=hidden={hidden} '
+      f'V={vocab} FLD(2), bf16 heads) {loss_ms:.1f} ms '
+      f'({batch_size * max_t / loss_ms * 1e3:.0f} frames/s)')
+  inputs, u1 = staged_numerator(torch, lattice, numerator_scan, params,
+                                frames, labels)
+  kw = dict(hat=True, compute_dtype=torch.bfloat16)
+  nb, nl, _, _ = numerator_scan.numerator_forward(*inputs, **kw)
+  g = string_cotangents(torch, lattice, semirings, nb, nl, num_frames,
+                        num_labels, batch_size, u1)
+  del nb, nl
+  say('hat-headline', numerator_alone(torch, numerator_scan, inputs, g, kw,
+                                      num_frames, num_labels)['line'])
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -718,10 +1310,12 @@ def main():
     from last_torch_tpu_torch import (alignments, contexts, lattices,
                                       semirings, weight_fns)
     from last_torch_tpu_torch.models import gnat, presets
-    from last_torch_tpu_torch.ops import build, fused_scan, viterbi
+    from last_torch_tpu_torch.ops import (build, fused_scan, numerator_scan,
+                                          viterbi)
   except ImportError as e:
     raise SmokeFailure(f'run from the root of a checkout ({e})') from None
 
+  start = time.perf_counter()
   # Phase 1: device.
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
@@ -733,7 +1327,8 @@ def main():
   # Phase 2: build from the checkout's sources.
   t0 = time.perf_counter()
   for line in phase_build(build, {'viterbi.cu': viterbi,
-                                  'fused_scan.cu': fused_scan}):
+                                  'fused_scan.cu': fused_scan,
+                                  'numerator_scan.cu': numerator_scan}):
     print(f'[build] {line}', flush=True)
   print(f'[build] {time.perf_counter() - t0:.1f} s', flush=True)
 
@@ -833,17 +1428,25 @@ def main():
         f'{encoder_ms:.1f} ms, backtrace {backtrace_ms:.1f} ms', flush=True)
   print(f'[main-path] serving phases {time.perf_counter() - t0:.1f} s',
         flush=True)
-  viterbi_record = {
-      'name': 'viterbi_forward',
-      'route': 'cuda',
-      'source': 'last_torch_tpu_torch/csrc/viterbi.cu',
-      'replaces': 'last_torch_tpu/ops/viterbi.py:46',
-      'launches': launches,
-      'max_abs_err': max_abs_err,
-      'ms': kernel_ms,
-      'plain_ms': plain_ms,
-  }
+  # One head product per real frame-row: FLD(2)'s second pass reads the
+  # staged lex.
+  flops = 2.0 * real_frames * pc.shape[0] * wf_params['vocab_w'].numel()
+  traffic = (nbytes(pf, pc, is_pad, *(wf_params[n] for n in (
+      'vocab_w', 'vocab_b', 'blank_w', 'blank_b'))) + nbytes(*forward_out))
   del model, params, frames, encoded, cache, pf, pc, forward_out
+
+  # Phase 4b: the HAT serving main path.
+  t0 = time.perf_counter()
+  hat_launches, hat_ms, hat_plain_ms, hat_err = phase_hat_serving(
+      torch, gnat, presets, viterbi)
+  print(f'[hat-serving] {time.perf_counter() - t0:.1f} s', flush=True)
+  viterbi_record = kernel_record(
+      'viterbi_forward', 'viterbi.cu', 'viterbi.py:46',
+      launches + hat_launches, max(max_abs_err, hat_err), kernel_ms,
+      plain_ms, flops, traffic, 'bfloat16',
+      launches_by_path={'gnat_global_bigram decode': launches,
+                        'hat_bigram decode': hat_launches},
+      hat_ms=hat_ms, hat_plain_ms=hat_plain_ms)
 
   # Phase 5: log-partition kernels against plain.
   t0 = time.perf_counter()
@@ -851,11 +1454,25 @@ def main():
     print(f'[lp-kernel-vs-plain] {line}', flush=True)
   print(f'[lp-kernel-vs-plain] {time.perf_counter() - t0:.1f} s', flush=True)
 
+  # Phase 5b: numerator kernels against plain.
+  t0 = time.perf_counter()
+  for line in phase_numerator_vs_plain(torch, numerator_scan):
+    print(f'[num-kernel-vs-plain] {line}', flush=True)
+  print(f'[num-kernel-vs-plain] {time.perf_counter() - t0:.1f} s',
+        flush=True)
+
   # Phase 6: the training main path.
   t0 = time.perf_counter()
   records = phase_training(torch, gnat, presets, fused_scan, semirings,
                            pytree)
   print(f'[train] {time.perf_counter() - t0:.1f} s', flush=True)
+
+  # Phase 6b: the HAT training main path.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  numerator_records = phase_hat_training(torch, gnat, presets, numerator_scan,
+                                         semirings, pytree)
+  print(f'[hat-train] {time.perf_counter() - t0:.1f} s', flush=True)
 
   # Phase 7: the kernels at the headline loss configuration.
   t0 = time.perf_counter()
@@ -864,8 +1481,16 @@ def main():
                  presets, fused_scan, semirings, pytree)
   print(f'[headline] {time.perf_counter() - t0:.1f} s', flush=True)
 
+  # Phase 7b: the numerator kernels at bench config 7.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  phase_hat_headline(torch, lattices, contexts, alignments, weight_fns,
+                     numerator_scan, semirings, pytree)
+  print(f'[hat-headline] {time.perf_counter() - t0:.1f} s', flush=True)
+  print(f'[total] {time.perf_counter() - start:.1f} s', flush=True)
+
   print(json.dumps({'kernels': [viterbi_record, records['forward'],
-                                records['backward']]}))
+                                records['backward'], *numerator_records]}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu',
       'kind': torch.cuda.get_device_name(0),

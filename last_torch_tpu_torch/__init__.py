@@ -20,8 +20,10 @@ reference each part is held against. Ported so far: the serving path,
 ``models.gnat.GNATModel.decode``, whose Viterbi forward runs in
 ``csrc/viterbi.cu`` on the card, and the training path,
 ``GNATModel.mean_loss`` and ``models.gnat.train_step``, whose loss
-denominator runs in ``csrc/fused_scan.cu``. See ROADMAP.md for what
-follows.
+denominator runs in ``csrc/fused_scan.cu``, and both paths of the locally
+normalized (HAT) model, whose decode normalizes inside the Viterbi kernel
+and whose numerator runs in ``csrc/numerator_scan.cu``. See ROADMAP.md for
+what follows.
 """
 
 from last_torch_tpu_torch import alignments

@@ -27,11 +27,12 @@ import numpy as np
 import torch
 
 
-def from_jax_params(tree: Any, device='cpu') -> Any:
+def from_jax_params(tree: Any, device='cuda') -> Any:
   """Turns a tree of numpy arrays (dicts, lists, tuples) into tensors.
 
-  Float arrays become float32 tensors on ``device``; integer arrays keep
-  their type. Each leaf is copied, so the result owns its memory.
+  Float arrays become float32 tensors on ``device`` (the card unless the
+  caller asks for 'cpu'); integer arrays keep their type. Each leaf is
+  copied, so the result owns its memory.
   """
   if isinstance(tree, dict):
     return {k: from_jax_params(v, device) for k, v in tree.items()}

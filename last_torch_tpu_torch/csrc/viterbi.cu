@@ -16,13 +16,17 @@
 //
 // Replaces the Pallas TPU kernel
 // last_torch_tpu/ops/viterbi.py::_viterbi_forward_kernel (pallas_call at
-// viterbi.py:282), normalize='none'. For every frame t and batch row b:
+// viterbi.py:282), with normalize 'none', 'hat' or 'log_softmax'. For
+// every frame t and batch row b:
 //
 //   joint[s]   = compute_dtype(tanh(pc[s] + pf[t, b]))          (f32 tanh)
 //   lex[s, y]  = joint[s] . vocab_w[:, y] + vocab_b[y]          (f32 sum)
 //   blank[s]   = joint[s] . blank_w + blank_b                   (f32 sum)
-//   red[y], arg[y] = max / argmax_s (vec[s] + lex[s, y])        (lowest s
-//                                                                wins ties)
+//   c[s]       = 0 (none); lse_y lex[s, :] + softplus(blank[s]) (hat), and
+//                blank[s] becomes -softplus(-blank[s]); logaddexp(blank[s],
+//                lse_y lex[s, :]) (log_softmax), and blank[s] -= c[s]
+//   red[y], arg[y] = max / argmax_s ((vec[s] - c[s]) + lex[s, y])
+//                                                   (lowest s wins ties)
 //   expand(red) = [-inf, red[0], ..., red[V-1]]                 (S = V + 1)
 //
 // with vec = alpha for the first max-pass of a frame and vec = expand(red)
@@ -64,6 +68,16 @@
 // * No padding of V to 128 lanes or of S to a tile: the ragged edges are
 //   masked in the loads and in the reduction. Padding frames skip all work
 //   but the alpha hold (their arg rows are written 0).
+// * Local normalization. The TPU normalized each row inside its tile, since
+//   its vocab axis was not tiled; a block here owns a 64-label strip and
+//   never sees a whole row. Normalization subtracts one constant c[s] from
+//   every lexical score of state s, so the max-passes can run unchanged on
+//   vec - c once c is known. A normalized frame therefore starts with a
+//   product pass over (state tile, label split) blocks that stores the raw
+//   lex for the frame and the per-row (max, sum-exp) partials of its label
+//   strips; a merge forms c and the normalized blank; then every max-pass
+//   reads the staged lex (kLoad). (vec - c) + lex rounds differently from
+//   vec + (lex - c), as the TPU summed: argmaxes may differ only on ties.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -136,6 +150,7 @@ __global__ void __launch_bounds__(kThreads)
                     const T* __restrict__ vw,         // [h, V]
                     const float* __restrict__ vb,     // [V]
                     const float* __restrict__ vec,    // [B, S]
+                    const float* __restrict__ cnorm,  // [B, S] or null
                     float* __restrict__ lex,          // [B, S, V] or unused
                     float* __restrict__ part_v,       // [splits, B, V]
                     int* __restrict__ part_s,         // [splits, B, V]
@@ -155,6 +170,8 @@ __global__ void __launch_bounds__(kThreads)
   const int ty = tid / (kBN / kTN);  // row group
   const T* joint_b = joint + static_cast<size_t>(b) * S * h;
   const float* vec_b = vec + static_cast<size_t>(b) * S;
+  const float* c_b =
+      cnorm == nullptr ? nullptr : cnorm + static_cast<size_t>(b) * S;
   float* lex_b = lex + static_cast<size_t>(b) * S * V;
 
   float bias[kTN];
@@ -208,7 +225,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int i = 0; i < kTM; ++i) {
         const int s = s0 + ty * kTM + i;
         if (s < S) {
-          const float v = vec_b[s] + val[i][j];
+          const float v =
+              (c_b == nullptr ? vec_b[s] : vec_b[s] - c_b[s]) + val[i][j];
           if (beats(v, s, best_v, best_s)) {
             best_v = v;
             best_s = s;
@@ -234,6 +252,124 @@ __global__ void __launch_bounds__(kThreads)
     const size_t out = (static_cast<size_t>(blockIdx.y) * B + b) * V + y0 + tid;
     part_v[out] = run_v;
     part_s[out] = run_s;
+  }
+}
+
+// Online log-sum-exp: a pair (m, l) stands for m + log(l); l = 0 is -inf.
+__device__ __forceinline__ float safe_shift(float m) {
+  return m == -INFINITY ? 0.f : m;
+}
+
+__device__ __forceinline__ void lse_merge(float& m, float& l, float m2,
+                                          float l2) {
+  const float mm = fmaxf(m, m2);
+  const float c = safe_shift(mm);
+  l = l * expf(m - c) + l2 * expf(m2 - c);
+  m = mm;
+}
+
+__device__ __forceinline__ float softplus(float x) {
+  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+}
+
+// The normalizing pass of a frame over one split of the label strips for a
+// 64-state tile of batch row b: stores lex[b, s, y] and the online (max,
+// sum) of lex over y per state into part_m / part_l [splits, B, S].
+// Grid (ceil(S / 64), splits, B); norm_merge_kernel combines the splits.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    norm_pass_kernel(const T* __restrict__ joint,       // [B, S, h]
+                     const T* __restrict__ vw,          // [h, V]
+                     const float* __restrict__ vb,      // [V]
+                     float* __restrict__ lex,           // [B, S, V]
+                     float* __restrict__ part_m,        // [splits, B, S]
+                     float* __restrict__ part_l,        // [splits, B, S]
+                     const int* __restrict__ is_pad_t,  // [B]
+                     int S, int h, int V, int strips_per_split) {
+  const int b = blockIdx.z;
+  if (is_pad_t[b]) return;
+  const int B = gridDim.z;
+  const int s0 = blockIdx.x * kBM;
+  const int y_begin = blockIdx.y * strips_per_split * kBN;
+  const int y_end = min(V, y_begin + strips_per_split * kBN);
+  const int tx = threadIdx.x % (kBN / kTN), ty = threadIdx.x / (kBN / kTN);
+  const T* joint_b = joint + static_cast<size_t>(b) * S * h;
+  float* lex_b = lex + static_cast<size_t>(b) * S * V;
+  float run_m[kTM], run_l[kTM];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    run_m[i] = -INFINITY;
+    run_l[i] = 0.f;
+  }
+  for (int y0 = y_begin; y0 < y_end; y0 += kBN) {
+    float val[kTM][kTN];
+    tile_product<false, false>(joint_b, h, vw, V, s0, y0, S, V, h, val);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int s = s0 + ty * kTM + i;
+      float v[kTN];
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) {
+        const int y = y0 + tx * kTN + j;
+        v[j] = y < V ? val[i][j] + vb[y] : -INFINITY;
+        if (s < S && y < V) lex_b[static_cast<size_t>(s) * V + y] = v[j];
+        m = fmaxf(m, v[j]);
+      }
+      // The 16 threads of a row group are lanes of one half-warp.
+      for (int o = 8; o > 0; o >>= 1) {
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      }
+      const float c = safe_shift(m);
+      float l = 0.f;
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) l += expf(v[j] - c);
+      for (int o = 8; o > 0; o >>= 1) {
+        l += __shfl_xor_sync(0xffffffffu, l, o);
+      }
+      lse_merge(run_m[i], run_l[i], m, l);
+    }
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int s = s0 + ty * kTM + i;
+      if (s < S) {
+        const size_t out = (static_cast<size_t>(blockIdx.y) * B + b) * S + s;
+        part_m[out] = run_m[i];
+        part_l[out] = run_l[i];
+      }
+    }
+  }
+}
+
+// Merges the normalizing pass: c[b, s] and the normalized blank[b, s] (in
+// place). normalize 1 = hat, 2 = log_softmax. One thread per (b, s).
+__global__ void __launch_bounds__(kUpdateThreads)
+    norm_merge_kernel(const float* __restrict__ part_m,
+                      const float* __restrict__ part_l, int splits,
+                      const int* __restrict__ is_pad_t,  // [B]
+                      float* __restrict__ blank,         // [B, S]
+                      float* __restrict__ cnorm,         // [B, S]
+                      int B, int S, int normalize) {
+  const int idx = blockIdx.x * kUpdateThreads + threadIdx.x;
+  if (idx >= B * S || is_pad_t[idx / S]) return;
+  float m = -INFINITY, l = 0.f;
+  for (int z = 0; z < splits; ++z) {
+    const size_t at = static_cast<size_t>(z) * B * S + idx;
+    lse_merge(m, l, part_m[at], part_l[at]);
+  }
+  const float lse = l > 0.f ? safe_shift(m) + logf(l) : -INFINITY;
+  const float bl = blank[idx];
+  if (normalize == 1) {
+    cnorm[idx] = lse + softplus(bl);
+    blank[idx] = -softplus(-bl);
+  } else {
+    const float hi = fmaxf(bl, lse);
+    const float c =
+        hi == -INFINITY ? hi : hi + log1pf(expf(fminf(bl, lse) - hi));
+    cnorm[idx] = c;
+    blank[idx] = bl - c;
   }
 }
 
@@ -324,23 +460,33 @@ template <typename T>
 int run_forward(const float* pf, const float* pc, const T* vw, const float* vb,
                 const T* bw, const float* bb, const int* is_pad, T* joint,
                 float* blank, float* lex, float* part_v, int* part_s,
-                float* last, float* alpha, int* arg, int* jstar,
-                int num_frames, int B, int S, int h, int V,
-                int max_expansions, int frame_dependent, int max_splits,
+                float* part_m, float* part_l, float* cnorm, float* last,
+                float* alpha, int* arg, int* jstar, int num_frames, int B,
+                int S, int h, int V, int max_expansions, int frame_dependent,
+                int normalize, int max_splits, int max_ysplits,
                 cudaStream_t stream) {
   const int passes =
       frame_dependent ? 1 : (max_expansions > 1 ? max_expansions : 1);
-  const bool stage = passes >= 2;
+  // Staged lex: for the later passes of FLD(k >= 2), and for normalization,
+  // whose pass stores it for every max-pass (FD: 225.6-228.1 ms staged
+  // against 362.6-365.2 ms recomputing the product, PERF.md).
+  const bool stage = passes >= 2 || normalize != 0;
   const size_t bs = static_cast<size_t>(B) * S;
   const int tiles = (S + kBM - 1) / kBM;
   const int tiles_per_split =
       (tiles + max_splits - 1) / (max_splits > 0 ? max_splits : 1);
   const int splits = (tiles + tiles_per_split - 1) / tiles_per_split;
+  const int strips = (V + kBN - 1) / kBN;
+  const int strips_per_split =
+      (strips + max_ysplits - 1) / (max_ysplits > 0 ? max_ysplits : 1);
+  const int ysplits = (strips + strips_per_split - 1) / strips_per_split;
   const dim3 joint_grid(S, B);
-  const dim3 pass_grid((V + kBN - 1) / kBN, splits, B);
+  const dim3 pass_grid(strips, splits, B);
+  const dim3 norm_grid(tiles, ysplits, B);
   const int update_blocks =
       static_cast<int>((bs + kUpdateThreads - 1) / kUpdateThreads);
   const int merge_blocks = (B * V + kUpdateThreads - 1) / kUpdateThreads;
+  const float* c = normalize != 0 ? cnorm : nullptr;
   for (int t = 0; t < num_frames; ++t) {
     const float* alpha_cur = alpha + (t % 2) * bs;
     float* alpha_next = alpha + ((t + 1) % 2) * bs;
@@ -349,19 +495,28 @@ int run_forward(const float* pf, const float* pc, const T* vw, const float* vb,
         pf + static_cast<size_t>(t) * B * h, is_pad_t, pc, bw, bb, joint,
         blank, S, h);
     RETURN_IF_LAUNCH_FAILED();
+    if (normalize != 0) {
+      norm_pass_kernel<T><<<norm_grid, kThreads, 0, stream>>>(
+          joint, vw, vb, lex, part_m, part_l, is_pad_t, S, h, V,
+          strips_per_split);
+      RETURN_IF_LAUNCH_FAILED();
+      norm_merge_kernel<<<update_blocks, kUpdateThreads, 0, stream>>>(
+          part_m, part_l, ysplits, is_pad_t, blank, cnorm, B, S, normalize);
+      RETURN_IF_LAUNCH_FAILED();
+    }
     const float* vec = alpha_cur;
     for (int j = 0; j < passes; ++j) {
       if (!stage) {
         max_pass_kernel<T, kCompute><<<pass_grid, kThreads, 0, stream>>>(
-            joint, vw, vb, vec, lex, part_v, part_s, is_pad_t, S, h, V,
+            joint, vw, vb, vec, c, lex, part_v, part_s, is_pad_t, S, h, V,
             tiles_per_split);
-      } else if (j == 0) {
+      } else if (j == 0 && normalize == 0) {
         max_pass_kernel<T, kComputeStore><<<pass_grid, kThreads, 0, stream>>>(
-            joint, vw, vb, vec, lex, part_v, part_s, is_pad_t, S, h, V,
+            joint, vw, vb, vec, c, lex, part_v, part_s, is_pad_t, S, h, V,
             tiles_per_split);
       } else {
         max_pass_kernel<T, kLoad><<<pass_grid, kThreads, 0, stream>>>(
-            joint, vw, vb, vec, lex, part_v, part_s, is_pad_t, S, h, V,
+            joint, vw, vb, vec, c, lex, part_v, part_s, is_pad_t, S, h, V,
             tiles_per_split);
       }
       RETURN_IF_LAUNCH_FAILED();
@@ -389,36 +544,45 @@ extern "C" {
 // Runs the whole forward on `stream` and returns the first launch error
 // (0 on success). The caller allocates everything; the final alpha is left
 // in slot num_frames % 2 of `alpha` ([2, B, S], slot 0 holds alpha0 on
-// entry). dtype 0 = float32, 1 = bfloat16 for vw, bw and joint. `lex`
-// ([B, S, V]) is used, and needed, only with two or more passes per frame,
-// where the first stages the frame's lexical scores for the others. part_v
-// / part_s hold
-// [max_splits, B, V] per-split maxima; the states split into at most
-// max_splits ranges of whole 64-state tiles.
+// entry). dtype 0 = float32, 1 = bfloat16 for vw, bw and joint. normalize
+// 0 = none, 1 = hat, 2 = log_softmax. `lex` ([B, S, V]) is used, and
+// needed, with two or more passes per frame or with normalization: the
+// frame's lexical scores are staged there for the later passes. part_v /
+// part_s hold [max_splits, B, V] per-split maxima; the states split into at
+// most max_splits ranges of whole 64-state tiles. With normalization,
+// part_m / part_l hold [max_ysplits, B, S] per-split row partials (the
+// labels split into at most max_ysplits ranges of whole 64-label strips) and
+// cnorm [B, S] the per-state normalizers; all three are unused otherwise.
 int viterbi_forward(int dtype, const float* pf, const float* pc,
                     const void* vw, const float* vb, const void* bw,
                     const float* bb, const int* is_pad, void* joint,
                     float* blank, float* lex, float* part_v, int* part_s,
-                    float* last, float* alpha, int* arg, int* jstar,
-                    int num_frames, int B, int S, int h, int V,
-                    int max_expansions, int frame_dependent, int max_splits,
-                    void* stream) {
+                    float* part_m, float* part_l, float* cnorm, float* last,
+                    float* alpha, int* arg, int* jstar, int num_frames, int B,
+                    int S, int h, int V, int max_expansions,
+                    int frame_dependent, int normalize, int max_splits,
+                    int max_ysplits, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (normalize < 0 || normalize > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == 0) {
     return run_forward<float>(
         pf, pc, static_cast<const float*>(vw), vb,
         static_cast<const float*>(bw), bb, is_pad,
-        static_cast<float*>(joint), blank, lex, part_v, part_s, last, alpha,
-        arg, jstar, num_frames, B, S, h, V, max_expansions, frame_dependent,
-        max_splits, s);
+        static_cast<float*>(joint), blank, lex, part_v, part_s, part_m,
+        part_l, cnorm, last, alpha, arg, jstar, num_frames, B, S, h, V,
+        max_expansions, frame_dependent, normalize, max_splits, max_ysplits,
+        s);
   }
   if (dtype == 1) {
     return run_forward<__nv_bfloat16>(
         pf, pc, static_cast<const __nv_bfloat16*>(vw), vb,
         static_cast<const __nv_bfloat16*>(bw), bb, is_pad,
-        static_cast<__nv_bfloat16*>(joint), blank, lex, part_v, part_s, last,
-        alpha, arg, jstar, num_frames, B, S, h, V, max_expansions,
-        frame_dependent, max_splits, s);
+        static_cast<__nv_bfloat16*>(joint), blank, lex, part_v, part_s,
+        part_m, part_l, cnorm, last, alpha, arg, jstar, num_frames, B, S, h,
+        V, max_expansions, frame_dependent, normalize, max_splits,
+        max_ysplits, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

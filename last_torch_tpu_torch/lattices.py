@@ -16,11 +16,14 @@
 
 Counterpart of ``last_torch_tpu/lattices.py``. Ported: ``init``,
 ``build_cache``, ``shortest_path`` through the Viterbi kernel
-(``ops/viterbi.py``), and ``loss`` / ``shortest_distance``. The loss is the
-globally normalized denominator minus the numerator: the numerator is the
-string DP over ``JointWeightFn.label_weights``; the denominator takes the
-log-partition kernels (``ops/fused_scan.py``) inside their gate and the
-generic forward-backward (a per-frame loop with a backward-algorithm
+(``ops/viterbi.py``, which also normalizes a locally normalized
+``JointWeightFn``), and ``loss`` / ``shortest_distance``. The loss is the
+globally normalized denominator minus the numerator, or minus the numerator
+alone for a ``LocallyNormalizedWeightFn``: the numerator is the string DP
+over the weight function's ``label_weights`` (the numerator kernels of
+``ops/numerator_scan.py`` for a locally normalized one); the denominator
+takes the log-partition kernels (``ops/fused_scan.py``) inside their gate
+and the generic forward-backward (a per-frame loop with a backward-algorithm
 gradient) outside it, where the JAX package runs XLA. The configurations
 the JAX package sends to routes that are not ported yet (the trigram
 kernels, the single-context-state route) and the remaining operations
@@ -48,6 +51,7 @@ Params = dict[str, Any]
 
 # ROADMAP.md items named by the routes that are not ported yet.
 _REST = 'queue 1, item 7 ("lattices.py, the rest")'
+_WEIGHT_FNS = 'queue 1, item 6 ("weight_fns.py, the rest")'
 _MARGINALS = 'queue 1, item 4 ("label_marginals and arc_marginals")'
 _TRIGRAM = 'queue 2, item 6 (ops/trigram_scan.py kernels)'
 
@@ -93,8 +97,9 @@ class RecognitionLattice:
     return self._last_path
 
   def init(self, generator: torch.Generator, feature_size: int,
-           device='cpu') -> Params:
-    """Creates the parameters: ``{'cacher': ..., 'weight_fn': ...}``."""
+           device='cuda') -> Params:
+    """Creates the parameters, ``{'cacher': ..., 'weight_fn': ...}``, on
+    ``device``: the card unless the caller asks for 'cpu'."""
     cacher_params = self.weight_fn_cacher.init(generator, device)
     cache = self.weight_fn_cacher.apply(cacher_params)
     dummy_frame = torch.zeros((feature_size,), device=device)
@@ -114,7 +119,9 @@ class RecognitionLattice:
     """The negative sequence log-probability loss, -log P(labels | frames).
 
     Globally normalized: log Z (all paths) minus the weight of the paths
-    that produce ``labels``. Infeasible label sequences give +inf.
+    that produce ``labels``. Locally normalized (a
+    ``LocallyNormalizedWeightFn``): minus that weight alone, log Z being 0.
+    Infeasible label sequences give +inf.
 
     Args:
       params: Parameters from ``init``.
@@ -131,9 +138,11 @@ class RecognitionLattice:
         frames, num_frames, labels, num_labels)
     if cache is None:
       cache = self.build_cache(params)
-    denominator = self._forward_backward(params, cache, frames, num_frames)
     numerator = self._string_forward(params, cache, frames, num_frames,
                                      labels, num_labels, semirings.Log)
+    if isinstance(self.weight_fn, weight_fns.LocallyNormalizedWeightFn):
+      return -numerator
+    denominator = self._forward_backward(params, cache, frames, num_frames)
     return denominator - numerator
 
   def shortest_path(self, params, frames: torch.Tensor,
@@ -144,6 +153,9 @@ class RecognitionLattice:
     On CUDA tensors the forward runs the Hopper kernel with bfloat16 joint
     and head inputs, as the TPU kernel did; on CPU tensors its plain
     version in float32, which is what the JAX package computes off the TPU.
+    A ``LocallyNormalizedWeightFn`` over a ``JointWeightFn`` with
+    ``hat_normalize`` or ``log_softmax_normalize`` is normalized inside the
+    kernel.
 
     Args:
       params: Parameters from ``init``.
@@ -163,9 +175,16 @@ class RecognitionLattice:
       raise ValueError('frames and num_frames have different batch_dims: '
                        f'{tuple(frames.shape[:-2])} vs '
                        f'{tuple(num_frames.shape)}')
-    if not fused_scan.supported(self, frames):
+    inner_wf, normalize = self.weight_fn, 'none'
+    if isinstance(inner_wf, weight_fns.LocallyNormalizedWeightFn):
+      if inner_wf.normalize is weight_fns.hat_normalize:
+        inner_wf, normalize = inner_wf.weight_fn, 'hat'
+      elif inner_wf.normalize is weight_fns.log_softmax_normalize:
+        inner_wf, normalize = inner_wf.weight_fn, 'log_softmax'
+    if not fused_scan.supported(self, frames, weight_fn=inner_wf):
       _not_ported('shortest_path outside the Viterbi kernel\'s gate '
-                  '(bigram FullNGram, JointWeightFn, FD/FLD, one batch dim)',
+                  '(bigram FullNGram, JointWeightFn, optionally locally '
+                  'normalized by hat or log-softmax, FD/FLD, one batch dim)',
                   _REST)
     if cache is None:
       cache = self.build_cache(params)
@@ -177,7 +196,8 @@ class RecognitionLattice:
         max_expansions=(0 if frame_dependent else
                         self.alignment.max_expansions),
         frame_dependent=frame_dependent,
-        compute_dtype=torch.bfloat16 if on_card else torch.float32)
+        compute_dtype=torch.bfloat16 if on_card else torch.float32,
+        normalize=normalize)
     if reference_compat:
       labels = torch.where(labels == 0, 0, labels - 1)
     return labels, num_labels, weights
@@ -272,8 +292,13 @@ class RecognitionLattice:
     context_states = self.context.walk_states(labels)
     next_labels = torch.cat([labels, torch.ones_like(labels[..., :1])],
                             dim=-1)
-    blank, lexical = self.weight_fn.label_weights(
+    weights = self.weight_fn.label_weights(
         params['weight_fn'], cache, frames, context_states, next_labels)
+    if weights is None:
+      # The JAX package's generic per-position route.
+      _not_ported('string weights without a label_weights fast path',
+                  _WEIGHT_FNS)
+    blank, lexical = weights
     # [batch_dims..., U+1, T] -> [T, batch_dims..., U+1].
     return blank.movedim(-1, 0), lexical.movedim(-1, 0)
 
@@ -395,6 +420,9 @@ class RecognitionLattice:
 
   def _forward_backward(self, params, cache, frames, num_frames):
     """Log Z with backward-algorithm gradients: the loss denominator.
+
+    A locally normalized lattice takes the generic route, as its log Z runs
+    in XLA in the JAX package.
 
     Inside the kernels' gate, ``fused_scan.log_partition`` (the CUDA
     kernels on CUDA tensors with bfloat16 head inputs, as the TPU kernels;

@@ -86,20 +86,17 @@ class GNATModel:
 
   Attributes:
     config: GNATConfig.
-    device: Where ``init`` puts the parameters and ``decode`` runs.
+    device: Where ``init`` puts the parameters and ``decode`` / ``loss``
+      run: the card ('cuda', the default) unless the caller asks for 'cpu'.
     encoder: TransformerEncoder.
     lattice: RecognitionLattice over the encoder outputs.
   """
 
-  def __init__(self, config: GNATConfig, device='cpu'):
+  def __init__(self, config: GNATConfig, device='cuda'):
     self.device = torch.device(device)
     if self.device.type == 'cuda' and not torch.cuda.is_available():
       raise RuntimeError(f'GNATModel on {device}: no CUDA device is '
-                         'available')
-    if config.locally_normalized:
-      raise NotImplementedError(
-          'locally normalized GNAT (LocallyNormalizedWeightFn) is not ported '
-          'to PyTorch yet: ROADMAP.md queue 1, "hat/log-softmax decode"')
+                         'available (pass device=\'cpu\' to run on the CPU)')
     if config.use_rnn_cacher:
       raise NotImplementedError(
           'SharedRNNCacher is not ported to PyTorch yet: ROADMAP.md queue 1, '
@@ -122,14 +119,21 @@ class GNATModel:
           max_expansions=config.max_expansions)
     else:
       alignment = alignments.FrameDependent()
+
+    def weight_fn_factory(ctx):
+      joint = weight_fns.JointWeightFn(vocab_size=ctx.shape()[1],
+                                       hidden_size=config.hidden_size)
+      if config.locally_normalized:
+        return weight_fns.LocallyNormalizedWeightFn(joint)
+      return joint
+
     self.lattice = lattices.RecognitionLattice(
         context=context,
         alignment=alignment,
         weight_fn_cacher_factory=lambda ctx: weight_fns.SharedEmbCacher(
             num_context_states=ctx.shape()[0],
             embedding_size=config.embedding_size),
-        weight_fn_factory=lambda ctx: weight_fns.JointWeightFn(
-            vocab_size=ctx.shape()[1], hidden_size=config.hidden_size))
+        weight_fn_factory=weight_fn_factory)
 
   def init(self, generator: torch.Generator) -> Params:
     """Random parameters on ``self.device``, drawn from ``generator``."""

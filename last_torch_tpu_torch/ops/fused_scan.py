@@ -58,14 +58,18 @@ _BLOCKS_PER_SM = 4
 NEG_INF = float('-inf')
 
 
-def supported(lattice, frames: torch.Tensor) -> bool:
+def supported(lattice, frames: torch.Tensor, weight_fn=None) -> bool:
   """Whether the kernels (and their plain versions) cover a lattice call.
 
   The structural half of ``last_torch_tpu.ops.fused_scan.supported``; the
   TPU's small-vocabulary and VMEM rules do not apply here. The Viterbi
-  kernel shares the gate.
+  kernel shares the gate: ``weight_fn`` overrides ``lattice.weight_fn``
+  there with the ``JointWeightFn`` inside a ``LocallyNormalizedWeightFn``,
+  which it normalizes in the kernel.
   """
-  return (type(lattice.weight_fn) is weight_fns.JointWeightFn and
+  if weight_fn is None:
+    weight_fn = lattice.weight_fn
+  return (type(weight_fn) is weight_fns.JointWeightFn and
           isinstance(lattice.context, contexts.FullNGram) and
           lattice.context.context_size == 1 and
           isinstance(lattice.alignment, (alignments.FrameDependent,

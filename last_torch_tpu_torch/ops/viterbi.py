@@ -24,9 +24,10 @@ JAX package's is plain XLA.
 
 Scope matches the JAX package's decode gate (``fused_scan.supported``):
 MaxTropical over a bigram ``FullNGram`` with ``JointWeightFn`` and
-``FrameDependent`` / ``FrameLabelDependent``, one batch dimension,
-normalize='none'. The hat /
-log-softmax in-kernel normalization is still to port (ROADMAP).
+``FrameDependent`` / ``FrameLabelDependent``, one batch dimension, and
+``normalize`` 'none', 'hat' (``hat_normalize``) or 'log_softmax'
+(``log_softmax_normalize``), the local normalization of a
+``LocallyNormalizedWeightFn`` computed inside the kernel.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ launches = 0
 
 _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+NORMALIZE_CODES = {'none': 0, 'hat': 1, 'log_softmax': 2}
 # The kernel's tile sizes (csrc/tile_product.cuh: kBM, kBN); the max-pass
 # grid splits the states across blocks to fill the card.
 _STATES_PER_TILE = 64
@@ -58,7 +60,8 @@ def num_tables(max_expansions: int, frame_dependent: bool) -> int:
 
 def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
                     is_pad: torch.Tensor, *, max_expansions: int,
-                    frame_dependent: bool, compute_dtype: torch.dtype):
+                    frame_dependent: bool, compute_dtype: torch.dtype,
+                    normalize: str = 'none'):
   """Tropical forward scan: the kernel on CUDA, the plain version on CPU.
 
   Args:
@@ -71,6 +74,8 @@ def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
     frame_dependent: FrameDependent (True) or FrameLabelDependent (False).
     compute_dtype: torch.float32 or torch.bfloat16, the type the joint and
       the head weights are rounded to before the float32 products.
+    normalize: 'none', or the local normalization of the arc weights:
+      'hat' or 'log_softmax'.
 
   Returns:
     (arg [T, B, K, V] int32, jstar [T, B, S] int32, alpha [B, S] float32):
@@ -81,10 +86,14 @@ def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
   """
   global launches
   fused_scan.check_inputs(pf, pc, params, is_pad, compute_dtype, 'Viterbi')
+  if normalize not in NORMALIZE_CODES:
+    raise ValueError(f'normalize must be one of {tuple(NORMALIZE_CODES)}, '
+                     f'got {normalize!r}')
   if pf.device.type == 'cpu':
     return viterbi_forward_plain(
         pf, pc, params, is_pad, max_expansions=max_expansions,
-        frame_dependent=frame_dependent, compute_dtype=compute_dtype)
+        frame_dependent=frame_dependent, compute_dtype=compute_dtype,
+        normalize=normalize)
   if pf.device.type != 'cuda':
     raise ValueError(f'no Viterbi kernel for device {pf.device}')
 
@@ -102,15 +111,23 @@ def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
   blank = torch.empty((batch, num_states), device=device)
   # With two or more max-passes per frame the first stages the frame's
   # lexical scores here for the others (faster than recomputing them on the
-  # H100 at the serving shapes; PERF.md).
+  # H100 at the serving shapes; PERF.md); with normalization the normalizing
+  # pass stages them for every max-pass.
+  normalized = normalize != 'none'
   lex = (torch.empty((batch, num_states, vocab), device=device)
-         if k >= 2 else None)
+         if k >= 2 or normalized else None)
   strips = -(-vocab // _LABELS_PER_BLOCK)
   tiles = -(-num_states // _STATES_PER_TILE)
   splits = fused_scan.grid_splits(strips * batch, tiles, device)
+  ysplits = fused_scan.grid_splits(tiles * batch, strips, device)
   part_v = torch.empty((splits, batch, vocab), device=device)
   part_s = torch.empty((splits, batch, vocab), dtype=torch.int32,
                        device=device)
+  part_m = part_l = cnorm = None
+  if normalized:
+    part_m = torch.empty((ysplits, batch, num_states), device=device)
+    part_l = torch.empty((ysplits, batch, num_states), device=device)
+    cnorm = torch.empty((batch, num_states), device=device)
   last = torch.empty((k, batch, num_states), device=device)
   alpha = torch.full((2, batch, num_states), float('-inf'), device=device)
   alpha[0, :, 0] = 0.0
@@ -125,9 +142,10 @@ def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
         _DTYPE_CODES[compute_dtype], ptr(pf), ptr(pc), ptr(vw),
         ptr(params['vocab_b']), ptr(bw), ptr(params['blank_b']), ptr(pad),
         ptr(joint), ptr(blank), ptr(lex), ptr(part_v), ptr(part_s),
-        ptr(last), ptr(alpha), ptr(arg), ptr(jstar), max_t, batch,
-        num_states, hidden, vocab, max_expansions, int(frame_dependent),
-        splits, stream)
+        ptr(part_m), ptr(part_l), ptr(cnorm), ptr(last), ptr(alpha),
+        ptr(arg), ptr(jstar), max_t, batch, num_states, hidden, vocab,
+        max_expansions, int(frame_dependent), NORMALIZE_CODES[normalize],
+        splits, ysplits, stream)
   if status != 0:
     raise RuntimeError('Viterbi kernel launch failed: '
                        f'{lib.viterbi_error_string(status).decode()}')
@@ -142,7 +160,7 @@ def library() -> ctypes.CDLL:
     from last_torch_tpu_torch.ops import build
     lib = build.load('viterbi.cu')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.viterbi_forward.argtypes = [i] + [p] * 16 + [i] * 8 + [p]
+    lib.viterbi_forward.argtypes = [i] + [p] * 19 + [i] * 10 + [p]
     lib.viterbi_forward.restype = i
     lib.viterbi_error_string.argtypes = [i]
     lib.viterbi_error_string.restype = ctypes.c_char_p
@@ -153,14 +171,16 @@ def library() -> ctypes.CDLL:
 def viterbi_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
                           params: dict[str, Any], is_pad: torch.Tensor, *,
                           max_expansions: int, frame_dependent: bool,
-                          compute_dtype: torch.dtype):
+                          compute_dtype: torch.dtype,
+                          normalize: str = 'none'):
   """The kernel's function in plain PyTorch (same arguments and outputs).
 
   With compute_dtype bfloat16 the joint and the head weights are rounded to
   bfloat16 and back, then multiplied in float32, so on the card this and
   the kernel differ only in summation order, provided float32 matmuls do
   not use TF32 (``torch.backends.cuda.matmul.allow_tf32 = False``, the
-  default).
+  default). Normalization subtracts each state's normalizer from the
+  state's score before the lexical weights are added, as the kernel does.
   """
   max_t, batch, _ = pf.shape
   num_states = pc.shape[0]
@@ -181,9 +201,18 @@ def viterbi_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
     joint = rnd(torch.tanh(pc[None] + pf[t][:, None]))  # [B, S, h]
     lex = joint @ vw + vb  # [B, S, V]
     blank = joint @ bw + bb  # [B, S]
+    cnorm = None
+    if normalize == 'hat':
+      cnorm = torch.logsumexp(lex, dim=-1) + _softplus(blank)
+      blank = -_softplus(-blank)
+    elif normalize == 'log_softmax':
+      cnorm = torch.logaddexp(blank, torch.logsumexp(lex, dim=-1))
+      blank = blank - cnorm
 
     def max_pass(vec):
       # First index among equal maxima, as jnp.argmax; returned expanded.
+      if cnorm is not None:
+        vec = vec - cnorm
       red, best = torch.max(vec[:, :, None] + lex, dim=1)
       return torch.cat([start_col, red], dim=1), best.to(torch.int32)
 
@@ -208,6 +237,10 @@ def viterbi_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
     jstar[t] = torch.where(pad, 0, js)
   arg.masked_fill_(is_pad[:, :, None, None], 0)
   return arg, jstar, alpha
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+  return torch.logaddexp(x, torch.zeros_like(x))
 
 
 def backtrace(arg: torch.Tensor, jstar: torch.Tensor, alpha: torch.Tensor,
@@ -258,12 +291,13 @@ def backtrace(arg: torch.Tensor, jstar: torch.Tensor, alpha: torch.Tensor,
 def viterbi_decode(wf_params: dict[str, Any], cache: torch.Tensor,
                    frames: torch.Tensor, num_frames: torch.Tensor, *,
                    max_expansions: int, frame_dependent: bool,
-                   compute_dtype: torch.dtype,
+                   compute_dtype: torch.dtype, normalize: str = 'none',
                    forward: Callable = viterbi_forward):
   """Viterbi forward + backtrace: ``RecognitionLattice.shortest_path``.
 
   ``forward`` is ``viterbi_forward`` (kernel on CUDA, plain on CPU) or
-  ``viterbi_forward_plain`` (to run the plain version on the card too).
+  ``viterbi_forward_plain`` (to run the plain version on the card too);
+  ``normalize`` is the local normalization ('none', 'hat', 'log_softmax').
 
   Returns:
     (alignment_labels [B, T * A] int32, num_alignment_labels [B] int32,
@@ -277,7 +311,8 @@ def viterbi_decode(wf_params: dict[str, Any], cache: torch.Tensor,
             num_frames[None, :])
   arg, jstar, alpha = forward(
       pf, pc, wf_params, is_pad, max_expansions=max_expansions,
-      frame_dependent=frame_dependent, compute_dtype=compute_dtype)
+      frame_dependent=frame_dependent, compute_dtype=compute_dtype,
+      normalize=normalize)
   labels, path_weights = backtrace(
       arg, jstar, alpha, is_pad, max_expansions=max_expansions,
       frame_dependent=frame_dependent)

@@ -18,19 +18,25 @@ Counterpart of ``last_torch_tpu/weight_fns.py``: ``JointWeightFn`` and
 ``SharedEmbCacher``, with parameters as plain dictionaries of tensors laid
 out exactly as the JAX pytrees (so ``convert.from_jax_params`` maps one onto
 the other), and ``JointWeightFn.label_weights``, the numerator's
-column-gather fast path. ``LocallyNormalizedWeightFn``, the normalizers and
-``SharedRNNCacher`` come with later slices (ROADMAP queue 1).
+column-gather fast path; the local normalizers ``hat_normalize`` and
+``log_softmax_normalize`` and ``LocallyNormalizedWeightFn``, whose
+``label_weights`` runs the numerator kernels of ``ops/numerator_scan.py``.
+``SharedRNNCacher`` and the test fakes come with a later slice (ROADMAP
+queue 1, item 6).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Callable
 from typing import Any, Optional
 
 import torch
 import torch.utils.checkpoint
+from torch.nn.functional import logsigmoid
 
 from last_torch_tpu_torch import initializers
+from last_torch_tpu_torch.ops import numerator_scan
 
 Params = dict[str, Any]
 
@@ -167,6 +173,102 @@ class JointWeightFn:
     blank = torch.stack([b for b, _ in outputs], dim=-2)
     lexical = torch.stack([l for _, l in outputs], dim=-2)
     return blank, lexical
+
+
+def hat_normalize(blank: torch.Tensor, lexical: torch.Tensor
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+  """Local normalization of the Hybrid Autoregressive Transducer.
+
+  The sigmoid of the blank weight is the probability of blank; lexical
+  probabilities share the remaining mass through a log-softmax. Log-sigmoid
+  keeps it finite for large blank weights.
+
+  Args:
+    blank: [batch_dims...] blank weight.
+    lexical: [batch_dims..., vocab_size] lexical weights.
+
+  Returns:
+    Normalized (blank, lexical), with exp(blank) + sum(exp(lexical)) == 1.
+  """
+  normalized_blank = logsigmoid(blank)
+  normalized_lexical = (torch.log_softmax(lexical, dim=-1) +
+                        logsigmoid(-blank)[..., None])
+  return normalized_blank, normalized_lexical
+
+
+def log_softmax_normalize(blank: torch.Tensor, lexical: torch.Tensor
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+  """Joint log-softmax: one distribution over the 1 + vocab_size arcs.
+
+  Args:
+    blank: [batch_dims...] blank weight.
+    lexical: [batch_dims..., vocab_size] lexical weights.
+
+  Returns:
+    Normalized (blank, lexical) log-probabilities.
+  """
+  all_weights = torch.log_softmax(
+      torch.cat([blank[..., None], lexical], dim=-1), dim=-1)
+  return all_weights[..., 0], all_weights[..., 1:]
+
+
+class LocallyNormalizedWeightFn:
+  """Wraps a weight function into a locally normalized one.
+
+  The type is load-bearing: ``RecognitionLattice.loss`` skips the
+  denominator for it (the loss is -numerator), and ``shortest_path``
+  unwraps a ``JointWeightFn`` under ``hat_normalize`` or
+  ``log_softmax_normalize`` into the Viterbi kernel's in-kernel
+  normalization.
+
+  Attributes:
+    weight_fn: The underlying weight function.
+    normalize: Maps (blank, lexical) weights to normalized
+      log-probabilities, e.g. ``hat_normalize`` or ``log_softmax_normalize``.
+  """
+
+  def __init__(self, weight_fn, normalize: Callable[
+      [torch.Tensor, torch.Tensor], tuple[torch.Tensor, torch.Tensor]]
+               = hat_normalize):
+    self.weight_fn = weight_fn
+    self.normalize = normalize
+
+  def init(self, generator: torch.Generator, cache: torch.Tensor,
+           frame: torch.Tensor) -> Params:
+    return self.weight_fn.init(generator, cache, frame)
+
+  def apply(self, params: Params, cache: torch.Tensor, frame: torch.Tensor,
+            state: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    blank, lexical = self.weight_fn.apply(params, cache, frame, state)
+    return self.normalize(blank, lexical)
+
+  def label_weights(self, params: Params, cache: torch.Tensor,
+                    frames: torch.Tensor, states: torch.Tensor,
+                    next_labels: torch.Tensor):
+    """Normalized blank and one-label weights per (label position, frame).
+
+    The locally normalized numerator: the full vocabulary head runs for
+    every (position, frame) to give the local normalizer, and only the
+    normalized weights of blank and the next label are kept. It runs the
+    numerator kernels of ``ops/numerator_scan.py`` (their plain frame-major
+    versions on CPU tensors), which save no frame's [batch..., U+1, V]
+    logits for the backward pass; the compute type must be None, float32
+    or bfloat16.
+
+    Returns:
+      None when the inner weight function is not exactly ``JointWeightFn``
+      or the normalizer is neither of the two above; otherwise (blank,
+      lexical), each [batch_dims..., num_positions, max_num_frames].
+    """
+    wf = self.weight_fn
+    if type(wf) is not JointWeightFn:
+      return None
+    if self.normalize not in (hat_normalize, log_softmax_normalize):
+      return None
+    return numerator_scan.label_weights(
+        wf, params, cache, frames, states, next_labels,
+        hat=self.normalize is hat_normalize)
 
 
 @dataclasses.dataclass(frozen=True)

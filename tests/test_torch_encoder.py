@@ -44,7 +44,7 @@ def test_encoder_matches_jax(variant):
   if 'banded_attention' in kwargs:
     del kwargs['banded_attention']  # the port's auto setting is dense
   got = encoder.TransformerEncoder(**kwargs).apply(
-      convert.from_jax_params(params), torch.from_numpy(frames),
+      convert.from_jax_params(params, device='cpu'), torch.from_numpy(frames),
       torch.from_numpy(NUM_FRAMES))
 
   assert got.dtype == torch.float32

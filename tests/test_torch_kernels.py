@@ -3,9 +3,10 @@
 Viterbi: the plain version's tie-breaking is pinned on the CPU (lowest
 state wins an argmax tie; FrameLabelDependent keeps the fewest expansions
 on a tie). Log-partition: the plain versions' padding behaviour is pinned
-on the CPU. On the card each kernel is held to its plain version: the
-tests marked ``cuda`` skip without a GPU. This file imports no JAX, so it
-also runs on a machine that has only PyTorch:
+on the CPU. Numerator: the plain backward is held to autograd through the
+plain forward on the CPU. On the card each kernel is held to its plain
+version: the tests marked ``cuda`` skip without a GPU. This file imports
+no JAX, so it also runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda --noconftest
 
@@ -17,7 +18,7 @@ import numpy.testing as npt
 import pytest
 import torch
 
-from last_torch_tpu_torch.ops import fused_scan, viterbi
+from last_torch_tpu_torch.ops import fused_scan, numerator_scan, viterbi
 
 torch.set_num_threads(1)
 torch.set_float32_matmul_precision('highest')
@@ -134,6 +135,35 @@ def test_kernel_matches_plain_on_card(card, case, compute_dtype):
   npt.assert_array_equal(jstar_k.cpu().numpy(), jstar_p.cpu().numpy())
   npt.assert_allclose(alpha_k.cpu().numpy(), alpha_p.cpu().numpy(),
                       rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('normalize', ['hat', 'log_softmax'])
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', ['fd_ragged_v37', 'fld2_ragged_v1000'])
+def test_normalized_kernel_matches_plain_on_card(card, case, compute_dtype,
+                                                 normalize):
+  vocab, hidden, k, fd = CARD_CASES[case]
+  pf, pc, params, is_pad = random_inputs(1, vocab, hidden, max_t=12,
+                                         lengths=[12, 7, 0], device=card)
+  kwargs = dict(max_expansions=k, frame_dependent=fd,
+                compute_dtype=compute_dtype, normalize=normalize)
+  before = viterbi.launches
+  arg_k, jstar_k, alpha_k = viterbi.viterbi_forward(
+      pf, pc, params, is_pad, **kwargs)
+  torch.cuda.synchronize()
+  assert viterbi.launches == before + 1
+  arg_p, jstar_p, alpha_p = viterbi.viterbi_forward_plain(
+      pf, pc, params, is_pad, **kwargs)
+  # As the unnormalized kernel: the decisions agree at these sizes, the
+  # scores to float32 summation error (the normalizers are logsumexps of
+  # the same rounded products).
+  npt.assert_array_equal(arg_k.cpu().numpy(), arg_p.cpu().numpy())
+  npt.assert_array_equal(jstar_k.cpu().numpy(), jstar_p.cpu().numpy())
+  npt.assert_allclose(alpha_k.cpu().numpy(), alpha_p.cpu().numpy(),
+                      rtol=1e-5, atol=1e-5)
+  assert bool((alpha_k[:, 1:] <= 0).all())  # log-probabilities
 
 
 @pytest.mark.cuda
@@ -294,3 +324,138 @@ def test_log_partition_primal_only_forward_on_card(card):
   assert hist is None and slabs is None
   npt.assert_array_equal(log_z.cpu().numpy(), with_res[0].cpu().numpy())
   npt.assert_array_equal(alpha.cpu().numpy(), with_res[1].cpu().numpy())
+
+
+def numerator_inputs(seed, vocab, hidden, max_t, batch, u1, device='cpu'):
+  rng = np.random.default_rng(seed)
+  tensor = lambda shape, scale=1.0: torch.from_numpy(
+      (rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
+  head = {
+      'vocab_w': tensor((hidden, vocab), hidden**-0.5),
+      'vocab_b': tensor((vocab,), 0.1),
+      'blank_w': tensor((hidden,), hidden**-0.5),
+      'blank_b': torch.tensor(0.3, device=device),
+  }
+  rows = batch * u1
+  pc, pf = tensor((rows, hidden), 0.5), tensor((max_t, batch, hidden), 0.5)
+  wy, by = tensor((rows, hidden), hidden**-0.5), tensor((rows,), 0.1)
+  # Cotangents: batch row 1 zero throughout, frame 0 zero for every row.
+  g_b, g_l = tensor((max_t, rows)), tensor((max_t, rows))
+  for g in (g_b, g_l):
+    g.view(max_t, batch, u1)[:, 1] = 0.0
+    g[:1] = 0.0
+  return pc, pf, head, wy, by, g_b, g_l
+
+
+NUMERATOR_OUTPUTS = ('d_pc', 'd_pf', 'd_vocab_w', 'd_vocab_b', 'd_blank_w',
+                     'd_blank_b', 'd_wy', 'd_by')
+
+
+@pytest.mark.parametrize('hat', [True, False], ids=['hat', 'log_softmax'])
+def test_plain_numerator_backward_is_the_vjp_of_its_forward(hat):
+  pc, pf, head, wy, by, g_b, g_l = numerator_inputs(5, vocab=9, hidden=6,
+                                                    max_t=4, batch=3, u1=2)
+  kw = dict(hat=hat, compute_dtype=torch.float32)
+  inputs = [pc, pf, head['vocab_w'], head['vocab_b'], head['blank_w'],
+            head['blank_b'], wy, by]
+  leaves = [x.clone().requires_grad_(True) for x in inputs]
+  nb, nl, z, blank = numerator_scan.numerator_forward_plain(
+      leaves[0], leaves[1], dict(zip(numerator_scan._HEAD, leaves[2:6])),
+      leaves[6], leaves[7], **kw)
+  want = torch.autograd.grad((nb * g_b).sum() + (nl * g_l).sum(), leaves)
+  got = numerator_scan.numerator_backward_plain(
+      pc, pf, head, wy, by, z.detach(), blank.detach(), g_b, g_l, **kw)
+  # Both follow ``inputs``' order.
+  for name, g, w in zip(NUMERATOR_OUTPUTS, got, want):
+    npt.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-6,
+                        err_msg=name)
+  # Zero cotangents: batch row 1's frames and frame 0 get exactly zero.
+  d_pf = got[1]
+  assert torch.all(d_pf[:, 1] == 0) and torch.all(d_pf[0] == 0)
+  zero = numerator_scan.numerator_backward_plain(
+      pc, pf, head, wy, by, z.detach(), blank.detach(), torch.zeros_like(g_b),
+      torch.zeros_like(g_l), **kw)
+  for x in zero:
+    assert torch.all(x == 0)
+
+
+NUMERATOR_CARD_CASES = {
+    # name: (vocab, hidden, batch, u1)
+    'ragged_v70_h40': (70, 40, 3, 5),
+    'v1024_u101': (1024, 512, 2, 101),
+    'ragged_v1000_u37': (1000, 512, 3, 37),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hat', [True, False], ids=['hat', 'log_softmax'])
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', sorted(NUMERATOR_CARD_CASES))
+def test_numerator_kernels_match_plain_on_card(card, case, compute_dtype,
+                                               hat):
+  vocab, hidden, batch, u1 = NUMERATOR_CARD_CASES[case]
+  pc, pf, head, wy, by, g_b, g_l = numerator_inputs(
+      6, vocab, hidden, max_t=9, batch=batch, u1=u1, device=card)
+  kw = dict(hat=hat, compute_dtype=compute_dtype)
+  before = (numerator_scan.forward_launches,
+            numerator_scan.backward_launches)
+  fwd_k = numerator_scan.numerator_forward(pc, pf, head, wy, by, **kw)
+  fwd_p = numerator_scan.numerator_forward_plain(pc, pf, head, wy, by, **kw)
+  bwd_k = numerator_scan.numerator_backward(pc, pf, head, wy, by, fwd_k[2],
+                                            fwd_k[3], g_b, g_l, **kw)
+  bwd_p = numerator_scan.numerator_backward_plain(pc, pf, head, wy, by,
+                                                  fwd_p[2], fwd_p[3], g_b,
+                                                  g_l, **kw)
+  torch.cuda.synchronize()
+  assert (numerator_scan.forward_launches,
+          numerator_scan.backward_launches) == (before[0] + 1, before[1] + 1)
+  # Same rounded inputs, float32 sums in another order: values to 1e-5 of
+  # max(|value|, 1), gradients to 1e-4 of each output's largest entry in
+  # float32; bfloat16 (a float32 tanh on either side of a rounding
+  # boundary moves a joint entry by one bfloat16 step, ds is rounded too):
+  # 1e-4 and 2e-3.
+  bf16 = compute_dtype == torch.bfloat16
+  for name, got, want in zip(('nb', 'nl', 'z', 'blank'), fwd_k, fwd_p):
+    assert rel_err(got, want) <= (1e-4 if bf16 else 1e-5), name
+  for name, got, want in zip(NUMERATOR_OUTPUTS, bwd_k, bwd_p):
+    assert rel_err(got, want, per_output=True) <= (2e-3 if bf16 else 1e-4), (
+        name)
+  d_pf = bwd_k[1]
+  assert torch.all(d_pf[:, 1] == 0) and torch.all(d_pf[0] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hat', [True, False], ids=['hat', 'log_softmax'])
+def test_numerator_kernels_take_no_frames_on_card(card, hat):
+  pc, pf, head, wy, by, g_b, g_l = numerator_inputs(8, 70, 40, max_t=0,
+                                                    batch=3, u1=5,
+                                                    device=card)
+  kw = dict(hat=hat, compute_dtype=torch.float32)
+  fwd_k = numerator_scan.numerator_forward(pc, pf, head, wy, by, **kw)
+  fwd_p = numerator_scan.numerator_forward_plain(pc, pf, head, wy, by, **kw)
+  for got, want in zip(fwd_k, fwd_p):
+    assert got.shape == want.shape == (0, 15)
+  bwd_k = numerator_scan.numerator_backward(pc, pf, head, wy, by, fwd_k[2],
+                                            fwd_k[3], g_b, g_l, **kw)
+  bwd_p = numerator_scan.numerator_backward_plain(pc, pf, head, wy, by,
+                                                  fwd_p[2], fwd_p[3], g_b,
+                                                  g_l, **kw)
+  for name, got, want in zip(NUMERATOR_OUTPUTS, bwd_k, bwd_p):
+    assert got.shape == want.shape and torch.all(got == 0), name
+    assert torch.all(want == 0), name
+
+
+@pytest.mark.cuda
+def test_numerator_kernels_give_exact_zeros_on_card(card):
+  pc, pf, head, wy, by, g_b, g_l = numerator_inputs(7, 130, 64, max_t=5,
+                                                    batch=2, u1=3,
+                                                    device=card)
+  kw = dict(hat=False, compute_dtype=torch.bfloat16)
+  _, _, z, blank = numerator_scan.numerator_forward(pc, pf, head, wy, by,
+                                                    **kw)
+  grads = numerator_scan.numerator_backward(
+      pc, pf, head, wy, by, z, blank, torch.zeros_like(g_b),
+      torch.zeros_like(g_l), **kw)
+  for x in grads:
+    assert torch.all(x == 0)

@@ -90,7 +90,7 @@ def jax_loss_and_grads(lattice, params, frames, labels=LABELS,
 
 def torch_loss_and_grads(lattice, params, frames, labels=LABELS,
                          num_labels=NUM_LABELS):
-  params = convert.from_jax_params(params)
+  params = convert.from_jax_params(params, device='cpu')
   for leaf in pytree.tree_leaves(params):
     leaf.requires_grad_(True)
   frames = torch.from_numpy(frames).requires_grad_(True)
@@ -148,7 +148,7 @@ def test_generic_route_matches_plain_kernel_route(alignment):
 def test_shortest_distance_matches_jax(alignment):
   params, frames = make_inputs(seed=3)
   reference = jax_lattice(alignment, 'never')
-  torch_params = convert.from_jax_params(params)
+  torch_params = convert.from_jax_params(params, device='cpu')
   for semiring, jax_semiring in ((semirings.Log, jax_semirings.Log),
                                  (semirings.MaxTropical,
                                   jax_semirings.MaxTropical)):
@@ -164,7 +164,7 @@ def test_shortest_distance_matches_jax(alignment):
 
 def test_max_tropical_shortest_distance_gradient_is_one_path():
   params, frames = make_inputs(seed=4)
-  torch_params = convert.from_jax_params(params)
+  torch_params = convert.from_jax_params(params, device='cpu')
   lattice = torch_lattice('fd')
   mask = torch.zeros((len(NUM_FRAMES), 7, STATES := VOCAB + 1, VOCAB),
                      requires_grad=True)
@@ -189,7 +189,7 @@ def test_infeasible_labels_give_inf_loss_and_zero_cotangent_gradients():
                     np.int32)
   num_labels = np.array([2, 5, 0], np.int32)
   lattice = torch_lattice('fd')
-  torch_params = convert.from_jax_params(params)
+  torch_params = convert.from_jax_params(params, device='cpu')
   for leaf in pytree.tree_leaves(torch_params):
     leaf.requires_grad_(True)
   frames_t = torch.from_numpy(frames).requires_grad_(True)
@@ -215,7 +215,7 @@ def test_infeasible_labels_give_inf_loss_and_zero_cotangent_gradients():
 def test_shape_mismatches_name_the_pair():
   params, frames = make_inputs(seed=6)
   lattice = torch_lattice('fld2')
-  torch_params = convert.from_jax_params(params)
+  torch_params = convert.from_jax_params(params, device='cpu')
   frames = torch.from_numpy(frames)
   num_frames = torch.from_numpy(NUM_FRAMES)
   labels = torch.from_numpy(LABELS)
@@ -238,11 +238,11 @@ def test_unported_routes_raise():
   # S = 1 (context_size 0): the JAX package's scan-free route.
   ctc = torch_lattice('fd', context_size=0)
   with pytest.raises(NotImplementedError, match='queue 1, item 7'):
-    ctc.loss(ctc.init(generator, FEATURES), frames, num_frames, labels,
-             num_labels)
+    ctc.loss(ctc.init(generator, FEATURES, device='cpu'), frames, num_frames,
+             labels, num_labels)
   with pytest.raises(NotImplementedError, match='weight_lift'):
     torch_lattice('fd').shortest_distance(
-        convert.from_jax_params(params), frames, num_frames,
+        convert.from_jax_params(params, device='cpu'), frames, num_frames,
         weight_lift=lambda w: w)
 
 
@@ -271,7 +271,8 @@ def test_fuzz_plain_kernel_route_matches_generic_route(seed):
                                                 hidden_size=HIDDEN))
 
   plain, generic = make(weight_fns.JointWeightFn), make(SubclassedJoint)
-  params = plain.init(torch.Generator().manual_seed(seed), FEATURES)
+  params = plain.init(torch.Generator().manual_seed(seed), FEATURES,
+                      device='cpu')
   frames = rng.standard_normal((batch, max_t, FEATURES)).astype(np.float32)
   results = []
   for lattice in (plain, generic):

@@ -78,8 +78,8 @@ def test_mean_loss_and_gradients_match_jax(max_expansions):
       jax.tree.map(jnp.asarray, params), *batch)
   per_seq_j = np.asarray(jax_model.loss(params, *batch))
 
-  model = gnat.GNATModel(gnat.GNATConfig(**config))
-  torch_params = with_grad(convert.from_jax_params(params))
+  model = gnat.GNATModel(gnat.GNATConfig(**config), device='cpu')
+  torch_params = with_grad(convert.from_jax_params(params, device='cpu'))
   per_seq = model.loss(torch_params, *batch)
   npt.assert_allclose(per_seq.detach().numpy(), per_seq_j, rtol=1e-5,
                       atol=1e-6)
@@ -96,7 +96,8 @@ def test_mean_loss_and_gradients_match_jax(max_expansions):
 
 
 def test_infeasible_and_empty_rows_get_zero_cotangent():
-  model = gnat.GNATModel(gnat.GNATConfig(**SMALL, max_expansions=0))
+  model = gnat.GNATModel(gnat.GNATConfig(**SMALL, max_expansions=0),
+                         device='cpu')
   params = with_grad(model.init(torch.Generator().manual_seed(0)))
   frames, num_frames, labels, num_labels = make_batch(seed=4)
   frames = torch.from_numpy(frames).requires_grad_(True)
@@ -141,7 +142,7 @@ def test_optimizer_matches_optax(name):
   jax_params = jax.tree.map(jnp.asarray, params)
   opt_state = tx.init(jax_params)
   optimizer = gnat.make_optimizer(**kwargs)
-  torch_params = convert.from_jax_params(params)
+  torch_params = convert.from_jax_params(params, device='cpu')
   state = optimizer.init(torch_params)
   for step, g in enumerate(grads):
     updates, opt_state = tx.update(jax.tree.map(jnp.asarray, g), opt_state,
@@ -167,7 +168,7 @@ def test_optimizer_rejects_unported_and_bad_options():
 
 def test_train_steps_lower_the_loss():
   config = gnat.GNATConfig(**SMALL, max_expansions=2)
-  model = gnat.GNATModel(config)
+  model = gnat.GNATModel(config, device='cpu')
   optimizer = gnat.make_optimizer(learning_rate=1e-2)
   state = gnat.init_train_state(model, torch.Generator().manual_seed(1),
                                 optimizer)

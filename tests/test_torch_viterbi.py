@@ -80,7 +80,7 @@ def test_plain_shortest_path_matches_jax(alignment, fused, reference_compat):
   lattice = torch_lattice(alignment)
   before = viterbi.launches
   labels_t, num_t, weights_t = lattice.shortest_path(
-      convert.from_jax_params(params), torch.from_numpy(frames),
+      convert.from_jax_params(params, device='cpu'), torch.from_numpy(frames),
       torch.from_numpy(NUM_FRAMES), reference_compat=reference_compat)
 
   assert lattice.last_path == 'plain'
@@ -95,7 +95,7 @@ def test_plain_shortest_path_matches_jax(alignment, fused, reference_compat):
 def test_empty_utterance_decodes_to_blanks_with_weight_zero():
   params, frames = make_inputs(seed=4)
   labels, num, weights = torch_lattice('fld2').shortest_path(
-      convert.from_jax_params(params), torch.from_numpy(frames),
+      convert.from_jax_params(params, device='cpu'), torch.from_numpy(frames),
       torch.from_numpy(NUM_FRAMES))
   assert num[2] == 0 and weights[2] == 0.0
   assert torch.all(labels[2] == 0)
@@ -105,7 +105,7 @@ def test_empty_utterance_decodes_to_blanks_with_weight_zero():
 
 def test_forward_wrapper_rejects_bad_inputs():
   params, frames = make_inputs(seed=5)
-  wf = convert.from_jax_params(params)['weight_fn']
+  wf = convert.from_jax_params(params, device='cpu')['weight_fn']
   pf = torch.zeros((4, 2, HIDDEN))
   pc = torch.zeros((VOCAB + 1, HIDDEN))
   is_pad = torch.zeros((4, 2), dtype=torch.bool)
@@ -136,6 +136,9 @@ def test_cuda_model_without_gpu_raises():
     pytest.skip('a GPU is present; the no-GPU error cannot be observed')
   with pytest.raises(RuntimeError, match='no CUDA device'):
     gnat.GNATModel(gnat.GNATConfig(), device='cuda')
+  # The card is the default device: without one the model refuses too.
+  with pytest.raises(RuntimeError, match='no CUDA device'):
+    gnat.GNATModel(gnat.GNATConfig())
 
 
 def test_configs_outside_the_gate_raise():
@@ -144,7 +147,7 @@ def test_configs_outside_the_gate_raise():
   num_frames = torch.from_numpy(NUM_FRAMES)
   trigram = torch_lattice('fd', context_size=2, vocab=2)
   trigram_params = trigram.init(torch.Generator().manual_seed(0),
-                                feature_size=FEATURES)
+                                feature_size=FEATURES, device='cpu')
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     trigram.shortest_path(trigram_params, frames, num_frames)
   labels = torch.ones((len(NUM_FRAMES), 2), dtype=torch.int32)
@@ -153,7 +156,7 @@ def test_configs_outside_the_gate_raise():
     trigram.loss(trigram_params, frames, num_frames, labels,
                  torch.full((len(NUM_FRAMES),), 2))
   lattice = torch_lattice('fd')
-  torch_params = convert.from_jax_params(params)
+  torch_params = convert.from_jax_params(params, device='cpu')
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     lattice.shortest_path(torch_params, frames[None], num_frames[None])
   with pytest.raises(NotImplementedError, match='ROADMAP'):

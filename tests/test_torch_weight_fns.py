@@ -38,7 +38,7 @@ def test_shared_emb_cacher_matches_jax():
   cache_j = jax_weight_fns.SharedEmbCacher(NUM_STATES, EMBEDDING).apply(
       cacher_params)
   cache_t = weight_fns.SharedEmbCacher(NUM_STATES, EMBEDDING).apply(
-      convert.from_jax_params(cacher_params))
+      convert.from_jax_params(cacher_params, device='cpu'))
   npt.assert_array_equal(cache_t.numpy(), np.asarray(cache_j))
 
 
@@ -61,8 +61,8 @@ def test_joint_weight_fn_matches_jax(compute_dtype, with_state):
       vocab_size=VOCAB, hidden_size=HIDDEN,
       compute_dtype=compute_dtype and torch.bfloat16)
   blank_t, lexical_t = torch_fn.apply(
-      convert.from_jax_params(joint_params),
-      convert.from_jax_params(cacher_params)['embedding'],
+      convert.from_jax_params(joint_params, device='cpu'),
+      convert.from_jax_params(cacher_params, device='cpu')['embedding'],
       torch.from_numpy(frame),
       None if state is None else torch.from_numpy(state))
 
