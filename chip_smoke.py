@@ -37,6 +37,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 5b. Numerator kernels against their plain versions: T=64, B=4, U+1=26,
    V in {1024, 1000}, float32 and bfloat16, hat and log-softmax, with a
    zero-cotangent row and padded frames and label positions.
+5c. Marginals kernel against its plain version at phase 5's shapes, on the
+   same forward residuals; padding frames and the empty row exactly 0.
+5d. Online log-partition kernels against their plain versions and against
+   the cache kernels at phase 5's shapes and at a ragged V=520.
 6. Training main path: 3 ``train_step``s of the phase-4 model on 8
    utterances of up to 1600 frames through the log-partition kernels, timed
    with CUDA events; step 1's loss and gradients against the same step
@@ -53,6 +57,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    bf16).
 7b. The HAT loss and the numerator kernels alone at bench.py's config 7
    (B=32, T=1600, U=100, bf16).
+8. Confidence main path: phase 4's model, weights and requests through the
+   encoder and ``RecognitionLattice.label_marginals`` (forward and
+   marginals kernels), counted and timed, against the same call through
+   the plain versions; posterior structure checked; the kernels alone;
+   ``arc_marginals``' size guard, and its state sums at B=2, T=100 against
+   the float32 plain label_marginals.
+8b. label_marginals at bench.py's config 8 (the headline lattice, B=32,
+   T=1600, bf16) through the kernels, and the kernels alone.
+9. Large-vocabulary main path: 3 ``train_step``s of
+   ``gnat_global_bigram(vocab_size=4096)`` on 8 utterances of phase 6's
+   lengths / 8 (one label per 4 frames), in the mode ``log_partition``'s
+   'auto' plans, step 1 against the plain versions, one step profiled;
+   then a decode of the same utterances through the Viterbi kernel, checked
+   as phase 4's.
+9b. bench.py's config 9 (V=4096, B=8, T=200, FLD(2), bf16):
+   ``log_partition(mode='online')`` forward and backward, counted; each
+   mode's kernels alone against the plain versions, timed, with their peak
+   device memory.
 
 Each phase prints one line or more with its seconds, and the run its total;
 any failure exits non-zero before the last line, which is ``{"ok": true,
@@ -409,30 +431,45 @@ def max_errors(torch, got, want, names, rtols):
 FORWARD_NAMES = ('log_z*', 'alpha*', 'hist*', 'slabs*')
 BACKWARD_NAMES = ('dpf', 'dpc', 'd_vocab_w', 'd_vocab_b', 'd_blank_w',
                   'd_blank_b', 'beta_out*')
+MARGINALS_NAMES = ('bm', 'lp')
+ALIGNMENT_CASES = (('FD', 0, True), ('FLD(1)', 1, False),
+                   ('FLD(2)', 2, False))
+# Phases 5, 5c and 5d: T=64, B=4; row 1 has 50 frames, row 2 none, row 3
+# 17; in the backward row 1 has a zero cotangent.
+LP_NUM_FRAMES = [64, 50, 0, 17]
+LP_G = [1.0, 0.0, 0.7, 1.3]
+
+
+def lp_inputs(torch, rng, vocab, max_t=64, batch=4, hidden=512):
+  """Random kernel inputs (pf, pc, head) of the log-partition phases."""
+  pf = torch.from_numpy(rand(rng, (max_t, batch, hidden))).cuda()
+  pc = torch.from_numpy(rand(rng, (vocab + 1, hidden))).cuda()
+  params = {
+      'vocab_w': torch.from_numpy(rand(rng, (hidden, vocab),
+                                       hidden**-0.5)).cuda(),
+      'vocab_b': torch.from_numpy(rand(rng, (vocab,), 0.1)).cuda(),
+      'blank_w': torch.from_numpy(rand(rng, (hidden,), hidden**-0.5)).cuda(),
+      'blank_b': torch.tensor(0.3, device='cuda'),
+  }
+  return pf, pc, params
+
+
+def padding(torch, num_frames, max_t):
+  """[T, B] bool, True on padding frames."""
+  num_frames = torch.as_tensor(num_frames, device='cuda')
+  return torch.arange(max_t, device='cuda')[:, None] >= num_frames[None, :]
 
 
 def phase_log_partition_vs_plain(torch, fused_scan):
   """Phase 5: the log-partition kernels against their plain versions."""
   rng = np.random.default_rng(2)
-  max_t, batch, hidden = 64, 4, 512
-  num_frames = torch.tensor([64, 50, 0, 17], device='cuda')
-  is_pad = (torch.arange(max_t, device='cuda')[:, None] >=
-            num_frames[None, :])
+  is_pad = padding(torch, LP_NUM_FRAMES, 64)
   # Row 1 has a zero cotangent, row 2 no frames: both get exact zeros.
-  g = torch.tensor([1.0, 0.0, 0.7, 1.3], device='cuda')
+  g = torch.tensor(LP_G, device='cuda')
   lines = []
   for vocab in (1024, 1000):
-    pf = torch.from_numpy(rand(rng, (max_t, batch, hidden))).cuda()
-    pc = torch.from_numpy(rand(rng, (vocab + 1, hidden))).cuda()
-    params = {
-        'vocab_w': torch.from_numpy(rand(rng, (hidden, vocab),
-                                         hidden**-0.5)).cuda(),
-        'vocab_b': torch.from_numpy(rand(rng, (vocab,), 0.1)).cuda(),
-        'blank_w': torch.from_numpy(rand(rng, (hidden,), hidden**-0.5)).cuda(),
-        'blank_b': torch.tensor(0.3, device='cuda'),
-    }
-    for name, k, fd in (('FD', 0, True), ('FLD(1)', 1, False),
-                        ('FLD(2)', 2, False)):
+    pf, pc, params = lp_inputs(torch, rng, vocab)
+    for name, k, fd in ALIGNMENT_CASES:
       for dtype in (torch.float32, torch.bfloat16):
         kw = dict(max_expansions=k, frame_dependent=fd, compute_dtype=dtype)
         tag = f'V={vocab} {name} {str(dtype)[6:]}'
@@ -465,6 +502,92 @@ def phase_log_partition_vs_plain(torch, fused_scan):
             key=lambda item: item[1][0])
         lines.append(f'{tag}: values max rel {value:.2e}, gradients max rel '
                      f'{grad:.2e} ({grad_name}); g=0 and empty rows exactly 0')
+  return lines
+
+
+def phase_marginals_vs_plain(torch, fused_scan):
+  """Phase 5c: the marginals kernel against its plain version, both on the
+  same forward residuals (from the forward kernel)."""
+  rng = np.random.default_rng(7)
+  is_pad = padding(torch, LP_NUM_FRAMES, 64)
+  lines = []
+  for vocab in (1024, 1000):
+    pf, pc, params = lp_inputs(torch, rng, vocab)
+    for name, k, fd in ALIGNMENT_CASES:
+      for dtype in (torch.float32, torch.bfloat16):
+        kw = dict(max_expansions=k, frame_dependent=fd, compute_dtype=dtype)
+        tag = f'V={vocab} {name} {str(dtype)[6:]}'
+        log_z, _, hist, slabs = fused_scan.fused_forward(
+            pf, pc, params, is_pad, with_residuals=True, **kw)
+        residuals = (log_z, hist, slabs)
+        got = fused_scan.fused_marginals(pf, pc, params, is_pad, *residuals,
+                                         **kw)
+        want = fused_scan.fused_marginals_plain(pf, pc, params, is_pad,
+                                                *residuals, **kw)
+        torch.cuda.synchronize()
+        try:
+          errors = max_errors(torch, got, want, MARGINALS_NAMES,
+                              LP_RTOL[str(dtype)[6:]])
+        except SmokeFailure as e:
+          raise SmokeFailure(f'marginals {tag}: {e}') from None
+        for x in got:
+          check(not bool(x[is_pad].any()),
+                f'marginals {tag}: padding frames or the empty row not 0')
+        lines.append(f'{tag}: bm max rel {errors["bm"][0]:.2e}, lp max rel '
+                     f'{errors["lp"][0]:.2e}; padding and empty rows exactly '
+                     '0')
+  return lines
+
+
+def phase_online_vs_plain(torch, fused_scan):
+  """Phase 5d: the online kernels against their plain versions and against
+  the cache kernels on the same inputs; V=520 runs several label strips
+  with a ragged last one."""
+  rng = np.random.default_rng(8)
+  is_pad = padding(torch, LP_NUM_FRAMES, 64)
+  g = torch.tensor(LP_G, device='cuda')
+  lines = []
+  for vocab in (1024, 1000, 520):
+    pf, pc, params = lp_inputs(torch, rng, vocab)
+    for name, k, fd in ALIGNMENT_CASES:
+      for dtype in (torch.float32, torch.bfloat16):
+        kw = dict(max_expansions=k, frame_dependent=fd, compute_dtype=dtype)
+        tag = f'V={vocab} {name} {str(dtype)[6:]}'
+        runs = {}
+        for mode, forward, backward in (
+            ('online', fused_scan.fused_forward, fused_scan.fused_backward),
+            ('cache', fused_scan.fused_forward, fused_scan.fused_backward),
+            ('plain', fused_scan.fused_forward_plain,
+             fused_scan.fused_backward_plain)):
+          fwd_mode = 'cache' if mode == 'plain' else mode
+          fwd = forward(pf, pc, params, is_pad, with_residuals=True,
+                        mode=fwd_mode, **kw)
+          bwd = backward(pf, pc, params, is_pad, fwd[0], g, fwd[2], fwd[3],
+                         mode=fwd_mode, **kw)
+          runs[mode] = (fwd, bwd)
+        torch.cuda.synchronize()
+        rtols = LP_RTOL[str(dtype)[6:]]
+        worst = {}
+        for against in ('plain', 'cache'):
+          try:
+            errors = max_errors(torch, runs['online'][0], runs[against][0],
+                                FORWARD_NAMES, rtols)
+            errors.update(max_errors(torch, runs['online'][1],
+                                     runs[against][1], BACKWARD_NAMES, rtols))
+          except SmokeFailure as e:
+            raise SmokeFailure(f'online {tag} vs {against}: {e}') from None
+          worst[against] = max((e, n) for n, (e, _) in errors.items())
+        (log_z, *_), (dpf, *_, beta_out) = runs['online']
+        check(log_z[2].item() == 0.0 and bool((beta_out[2] == 0).all()),
+              f'online {tag}: the empty row has log Z or beta_out != 0')
+        check(not bool(dpf[:, 1:3].any()),
+              f'online {tag}: the g = 0 row or the empty row has nonzero '
+              'd(pf)')
+        lines.append(
+            f'{tag}: vs plain max rel {worst["plain"][0]:.2e} '
+            f'({worst["plain"][1]}), vs cache kernels '
+            f'{worst["cache"][0]:.2e} ({worst["cache"][1]}); g=0 and empty '
+            'rows exactly 0')
   return lines
 
 
@@ -502,24 +625,51 @@ def say(phase, line):
   print(f'[{phase}] {line}', flush=True)
 
 
-def phase_training(torch, gnat, presets, fused_scan, semirings, pytree):
-  """Phase 6: the training main path. Prints its lines; returns the
-  log-partition kernels' records for the JSON line."""
-  config = presets.gnat_global_bigram()
+LP_COUNTERS = {'cache': ('forward_launches', 'backward_launches'),
+               'online': ('online_forward_launches',
+                          'online_backward_launches')}
+
+
+def reset_counts(*modules):
+  """Sets every kernel launch count of the given wrapper modules to 0."""
+  for module in modules:
+    for name in dir(module):
+      if name.endswith('launches'):
+        setattr(module, name, 0)
+
+
+def counts(module):
+  """{name: count} of a wrapper module's kernel launch counts."""
+  return {name: getattr(module, name) for name in dir(module)
+          if name.endswith('launches')}
+
+
+def train_and_check(torch, gnat, fused_scan, semirings, pytree, config,
+                    num_frames_list, num_labels_list, phase):
+  """A GN training main path: step 1 through the kernels against the same
+  step through their plain versions, then TRAIN_STEPS counted and timed
+  train steps (their losses finite and falling), then one more step under
+  the profiler. Utterances: random features from numpy seed 0 at the given
+  lengths, random labels at the given counts. Prints its lines; returns
+  (model, optimizer, state, batch, mode, (forward, backward) launches of
+  the mode's kernels), mode being what ``log_partition``'s 'auto' chose."""
   model = gnat.GNATModel(config, device='cuda')
   optimizer = gnat.make_optimizer(LEARNING_RATE)
   state = gnat.init_train_state(model, torch.Generator().manual_seed(0),
                                 optimizer)
   rng = np.random.default_rng(0)
-  batch_size, max_t = len(NUM_FRAMES), max(NUM_FRAMES)
+  batch_size, max_t = len(num_frames_list), max(num_frames_list)
   frames = torch.from_numpy(
       rand(rng, (batch_size, max_t, config.feature_size))).cuda()
   labels = torch.from_numpy(rng.integers(
-      1, config.vocab_size + 1, size=(batch_size, max(NUM_LABELS)))).cuda()
-  num_frames = torch.tensor(NUM_FRAMES, device='cuda')
-  num_labels = torch.tensor(NUM_LABELS, device='cuda')
+      1, config.vocab_size + 1,
+      size=(batch_size, max(num_labels_list)))).cuda()
+  num_frames = torch.tensor(num_frames_list, device='cuda')
+  num_labels = torch.tensor(num_labels_list, device='cuda')
   batch = (frames, num_frames, labels, num_labels)
-  real_frames = sum(NUM_FRAMES)
+  real_frames = sum(num_frames_list)
+  mode = fused_scan.plan(batch_size, config.vocab_size + 1, config.vocab_size,
+                         torch.bfloat16)
 
   # Step 1 through the kernels and through the plain versions.
   leaves = pytree.tree_leaves(state.params)
@@ -547,18 +697,20 @@ def phase_training(torch, gnat, presets, fused_scan, semirings, pytree):
   check(worst[0] <= STEP_GRAD_RTOL,
         f'step-1 gradient of {worst[1]}: kernel vs plain {worst[0]:.3g} of '
         f'the largest gradient')
-  say('train', f'step 1 through the kernels vs plain versions: loss '
-               f'{loss_k:.6g} vs {loss_p:.6g} (rel {loss_rel:.2e}); '
-               f'gradients, {len(leaves)} leaves, max |a-b| {worst[0]:.2e} '
-               f'of the largest gradient {largest:.3g} ({worst[1]}); of the '
-               f'leaf\'s own scale at most {own[0]:.2e} ({own[1]}) '
-               f'({time.perf_counter() - t0:.1f} s)')
+  say(phase, f'step 1 through the kernels vs plain versions: loss '
+             f'{loss_k:.6g} vs {loss_p:.6g} (rel {loss_rel:.2e}); '
+             f'gradients, {len(leaves)} leaves, max |a-b| {worst[0]:.2e} '
+             f'of the largest gradient {largest:.3g} ({worst[1]}); of the '
+             f'leaf\'s own scale at most {own[0]:.2e} ({own[1]}) '
+             f'({time.perf_counter() - t0:.1f} s)')
 
   # The main path: train steps through the kernels, counted and timed.
   losses, step_ms, per_step = [], [], []
-  fused_scan.forward_launches = fused_scan.backward_launches = 0
+  names = LP_COUNTERS[mode]
+  other = LP_COUNTERS['online' if mode == 'cache' else 'cache']
+  reset_counts(fused_scan)
   for _ in range(TRAIN_STEPS):
-    counts = fused_scan.forward_launches, fused_scan.backward_launches
+    before = [getattr(fused_scan, n) for n in names]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -567,50 +719,61 @@ def phase_training(torch, gnat, presets, fused_scan, semirings, pytree):
     torch.cuda.synchronize()
     step_ms.append(start.elapsed_time(end))
     losses.append(loss.item())
-    per_step.append((fused_scan.forward_launches - counts[0],
-                     fused_scan.backward_launches - counts[1]))
-  launches = fused_scan.forward_launches, fused_scan.backward_launches
+    per_step.append(tuple(getattr(fused_scan, n) - c
+                          for n, c in zip(names, before)))
+  launches = tuple(getattr(fused_scan, n) for n in names)
   check(model.lattice.last_path == 'kernel',
         f'last_path is {model.lattice.last_path!r}, not kernel')
   check(all(f >= 1 and b >= 1 for f, b in per_step),
-        f'a train step did not launch both kernels: {per_step}')
+        f'a train step did not launch both {mode} kernels: {per_step}')
+  check(all(getattr(fused_scan, n) == 0 for n in other),
+        f'the train steps launched kernels of the mode not planned: '
+        f'{counts(fused_scan)}')
   check(all(np.isfinite(losses)) and
         all(b < a for a, b in zip(losses, losses[1:])),
         f'losses not finite and decreasing: {losses}')
   check(abs(losses[0] - loss_k) <= 1e-6 * abs(loss_k),
         f'train step 1 loss {losses[0]} != mean_loss {loss_k}')
-  say('train',
-      f'gnat_global_bigram B={batch_size} T_max={max_t} U_max='
-      f'{max(NUM_LABELS)}, {TRAIN_STEPS} train steps: losses '
-      + ', '.join(f'{x:.6g}' for x in losses) + '; step ms '
-      + ', '.join(f'{x:.1f}' for x in step_ms) + ' ('
+  say(phase,
+      f'gnat_global_bigram(vocab_size={config.vocab_size}) B={batch_size} '
+      f'T_max={max_t} U_max={max(num_labels_list)}, {TRAIN_STEPS} train '
+      f'steps: losses ' + ', '.join(f'{x:.6g}' for x in losses) +
+      '; step ms ' + ', '.join(f'{x:.1f}' for x in step_ms) + ' ('
       + ', '.join(f'{real_frames / x * 1e3:.0f}' for x in step_ms)
-      + f' real frames/s); kernel launches per step (forward, backward) '
-      f'{per_step}; last_path kernel')
+      + f' real frames/s); log-partition mode {mode!r} (plan for \'auto\'); '
+      f'kernel launches per step (forward, backward) {per_step}; last_path '
+      'kernel')
 
-  say('train', 'one more step under the profiler: ' + device_profile(
+  say(phase, 'one more step under the profiler: ' + device_profile(
       torch, lambda: gnat.train_step(model, optimizer, state, *batch)))
+  return model, optimizer, state, batch, mode, launches
 
+
+def phase_training(torch, gnat, presets, fused_scan, semirings, pytree):
+  """Phase 6: the training main path. Prints its lines; returns the
+  log-partition kernels' records for the JSON line."""
+  config = presets.gnat_global_bigram()
+  model, optimizer, state, batch, mode, launches = train_and_check(
+      torch, gnat, fused_scan, semirings, pytree, config, NUM_FRAMES,
+      NUM_LABELS, 'train')
+  check(mode == 'cache', f'the V=1024 step planned {mode!r}, not cache')
+  frames, num_frames, labels, num_labels = batch
+  batch_size, max_t = frames.shape[:2]
   # Each kernel alone against its plain version at the step's shapes, and
   # the step's other parts alone (these launches are not counted).
   params = state.params
   lattice_params = params['lattice']
-  wf_params = lattice_params['weight_fn']
   with torch.no_grad():
     encoded = model.encoder.apply(params['encoder'], frames, num_frames)
-    cache = model.lattice.build_cache(lattice_params)
-    pf = torch.einsum('btf,fh->tbh', encoded, wf_params['frame_proj'])
-    pc = (cache @ wf_params['context_proj']).contiguous()
-    head = {n: wf_params[n].detach() for n in
-            ('vocab_w', 'vocab_b', 'blank_w', 'blank_b')}
-    pf = pf.contiguous()
-  is_pad = (torch.arange(max_t, device='cuda')[:, None] >=
-            num_frames[None, :])
+  _, pf, pc, head = staged_lattice_inputs(torch, model.lattice,
+                                          lattice_params, encoded)
+  is_pad = padding(torch, num_frames, max_t)
   g = torch.full((batch_size,), 1.0 / batch_size, device='cuda')
   kw = dict(max_expansions=config.max_expansions, frame_dependent=False,
             compute_dtype=torch.bfloat16)
   records = kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw,
                           launches)
+  records.pop('plain')
   say('train', records.pop('line'))
 
   # The step's other parts, each alone: encoder forward + backward,
@@ -639,17 +802,37 @@ def phase_training(torch, gnat, presets, fused_scan, semirings, pytree):
   return records
 
 
-def kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw, launches):
-  """The log-partition kernels alone against their plain versions, timed
-  once each with CUDA events, with the JSON records of both kernels."""
+# The JSON names of the log-partition kernels by mode, and the lines of
+# the TPU kernels they replace in last_torch_tpu/ops/fused_scan.py.
+LP_KERNELS = {'cache': (('fused_forward', 122), ('fused_backward', 255)),
+              'online': (('online_forward', 712), ('online_backward', 867))}
+
+
+def kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw, launches,
+                  mode='cache', plain=None):
+  """The log-partition kernels of ``mode`` alone against their plain
+  versions, timed once each with CUDA events, with the JSON records of both
+  kernels and the peak device memory of the kernel pair (inputs included).
+  ``plain``: the plain versions' (outputs, ms) from an earlier call on the
+  same inputs, returned as 'plain'; timed anew when None."""
+  torch.cuda.synchronize()
+  resident = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
   fwd_k, fwd_ms = timed(torch, lambda: fused_scan.fused_forward(
-      pf, pc, head, is_pad, with_residuals=True, **kw))
+      pf, pc, head, is_pad, with_residuals=True, mode=mode, **kw))
   bwd_k, bwd_ms = timed(torch, lambda: fused_scan.fused_backward(
-      pf, pc, head, is_pad, fwd_k[0], g, fwd_k[2], fwd_k[3], **kw))
-  fwd_p, plain_fwd_ms = timed(torch, lambda: fused_scan.fused_forward_plain(
-      pf, pc, head, is_pad, with_residuals=True, **kw))
-  bwd_p, plain_bwd_ms = timed(torch, lambda: fused_scan.fused_backward_plain(
-      pf, pc, head, is_pad, fwd_p[0], g, fwd_p[2], fwd_p[3], **kw))
+      pf, pc, head, is_pad, fwd_k[0], g, fwd_k[2], fwd_k[3], mode=mode,
+      **kw))
+  peak = torch.cuda.max_memory_allocated()
+  if plain is None:
+    fwd_p, plain_fwd_ms = timed(
+        torch, lambda: fused_scan.fused_forward_plain(
+            pf, pc, head, is_pad, with_residuals=True, **kw))
+    bwd_p, plain_bwd_ms = timed(
+        torch, lambda: fused_scan.fused_backward_plain(
+            pf, pc, head, is_pad, fwd_p[0], g, fwd_p[2], fwd_p[3], **kw))
+    plain = (fwd_p, plain_fwd_ms, bwd_p, plain_bwd_ms)
+  fwd_p, plain_fwd_ms, bwd_p, plain_bwd_ms = plain
   value_rtol, grad_rtol = LP_RTOL['bfloat16']
   log_z_max = fwd_p[0].abs().max().item()
   grad_rtol = max(grad_rtol, LP_LONG_ROUNDINGS * 2.0**-24 * log_z_max)
@@ -657,20 +840,24 @@ def kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw, launches):
   fwd_err = max_errors(torch, fwd_k, fwd_p, FORWARD_NAMES, rtols)
   bwd_err = max_errors(torch, bwd_k, bwd_p, BACKWARD_NAMES, rtols)
   max_t, batch, hidden = pf.shape
-  line = (f'log-partition kernels alone, bf16 B={batch} T={max_t} '
-          f'S={pc.shape[0]} V={head["vocab_w"].shape[1]} h={hidden} '
-          f'FLD({kw["max_expansions"]}): forward kernel {fwd_ms:.1f} ms, '
-          f'plain {plain_fwd_ms:.1f} ms; backward kernel {bwd_ms:.1f} ms, '
-          f'plain {plain_bwd_ms:.1f} ms; vs plain (|log Z| up to '
-          f'{log_z_max:.4g}, gradient rtol {grad_rtol:.2e}): '
+  line = (f'log-partition kernels alone, {mode} mode, bf16 B={batch} '
+          f'T={max_t} S={pc.shape[0]} V={head["vocab_w"].shape[1]} '
+          f'h={hidden} FLD({kw["max_expansions"]}): forward kernel '
+          f'{fwd_ms:.1f} ms, plain {plain_fwd_ms:.1f} ms; backward kernel '
+          f'{bwd_ms:.1f} ms, plain {plain_bwd_ms:.1f} ms; peak device memory '
+          f'of the kernel pair {peak / 2**20:.0f} MiB ({resident / 2**20:.0f} '
+          f'MiB resident before); vs plain (|log Z| up to {log_z_max:.4g}, '
+          f'gradient rtol {grad_rtol:.2e}): '
           + ', '.join(f'{n} {e:.2e}' for n, (e, _) in
                       {**fwd_err, **bwd_err}.items()))
-  # One head product per real frame-row (later reductions of a frame read
-  # the staged lex); the backward runs three.
+  # The least work either mode could do: one head product per real
+  # frame-row (the cache mode's later reductions of a frame read the staged
+  # lex); the backward runs three.
   flops = 2.0 * int((~is_pad).sum()) * pc.shape[0] * head['vocab_w'].numel()
   inputs = nbytes(pf, pc, *head.values(), is_pad)
   fwd_bytes = inputs + nbytes(*fwd_k)
   bwd_bytes = inputs + nbytes(fwd_k[0], g, fwd_k[2], fwd_k[3], *bwd_k)
+  (fwd_name, fwd_line), (bwd_name, bwd_line) = LP_KERNELS[mode]
   record = lambda name, line_no, count, err, ms, plain_ms, ops, traffic: (
       kernel_record(name, 'fused_scan.cu', f'fused_scan.py:{line_no}', count,
                     err, ms, plain_ms, ops, traffic, 'bfloat16'))
@@ -678,22 +865,23 @@ def kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw, launches):
       'line': line + (f'; bounds {bound(flops, fwd_bytes, "bfloat16")[0]:.1f}'
                       f' / {bound(3 * flops, bwd_bytes, "bfloat16")[0]:.1f} '
                       'ms'),
-      'forward': record('fused_forward', 122, launches[0],
+      'forward': record(fwd_name, fwd_line, launches[0],
                         fwd_err['log_z'][1], fwd_ms, plain_fwd_ms, flops,
                         fwd_bytes),
-      'backward': record('fused_backward', 255, launches[1],
+      'backward': record(bwd_name, bwd_line, launches[1],
                          max(e[1] for n, e in bwd_err.items()
                              if n != 'beta_out'), bwd_ms, plain_bwd_ms,
                          3 * flops, bwd_bytes),
+      'plain': plain,
+      'peak': peak,
   }
 
 
-def phase_headline(torch, lattices, contexts, alignments, weight_fns, gnat,
-                   presets, fused_scan, semirings, pytree):
-  """Phase 7: the lattice loss at bench.py::bench_headline's configuration
-  (no encoder: frames are 512-wide features), through the kernels, and
-  gnat_global_bigram's encoder alone at that batch; prints its lines."""
-  vocab, hidden, batch_size, max_t, max_u = 1024, 512, 32, 1600, 100
+def bench_lattice(torch, lattices, contexts, alignments, weight_fns, vocab,
+                  hidden=512):
+  """bench.py::build_lattice's GN lattice (FLD(2), SharedEmbCacher and
+  joint hidden ``hidden``, bfloat16 heads on the card), with parameters from
+  seed 0."""
   lattice = lattices.RecognitionLattice(
       context=contexts.FullNGram(vocab_size=vocab, context_size=1),
       alignment=alignments.FrameLabelDependent(max_expansions=2),
@@ -703,6 +891,17 @@ def phase_headline(torch, lattices, contexts, alignments, weight_fns, gnat,
           vocab_size=vocab, hidden_size=hidden))
   params = lattice.init(torch.Generator().manual_seed(0), feature_size=hidden,
                         device='cuda')
+  return lattice, params
+
+
+def phase_headline(torch, lattices, contexts, alignments, weight_fns, gnat,
+                   presets, fused_scan, semirings, pytree):
+  """Phase 7: the lattice loss at bench.py::bench_headline's configuration
+  (no encoder: frames are 512-wide features), through the kernels, and
+  gnat_global_bigram's encoder alone at that batch; prints its lines."""
+  vocab, hidden, batch_size, max_t, max_u = 1024, 512, 32, 1600, 100
+  lattice, params = bench_lattice(torch, lattices, contexts, alignments,
+                                  weight_fns, vocab, hidden)
   leaves = pytree.tree_leaves(params)
   for leaf in leaves:
     leaf.requires_grad_(True)
@@ -732,16 +931,11 @@ def phase_headline(torch, lattices, contexts, alignments, weight_fns, gnat,
   say('headline', f'lattice loss forward+backward (bench_headline config: '
       f'B={batch_size} T={max_t} U={max_u} feature=emb=hidden={hidden} '
       f'V={vocab} FLD(2), bf16 heads) {loss_ms:.1f} ms '
-      f'({batch_size * max_t / loss_ms * 1e3:.0f} frames/s); numerator '
-      f'forward+backward {numerator_ms:.1f} ms')
-  wf_params = params['weight_fn']
-  with torch.no_grad():
-    cache = lattice.build_cache(params)
-    pf = torch.einsum('btf,fh->tbh', frames,
-                      wf_params['frame_proj']).contiguous()
-    pc = (cache @ wf_params['context_proj']).contiguous()
-  head = {n: wf_params[n].detach() for n in
-          ('vocab_w', 'vocab_b', 'blank_w', 'blank_b')}
+      f'({batch_size * max_t / loss_ms * 1e3:.0f} frames/s), log-partition '
+      f'mode {fused_scan.plan(batch_size, vocab + 1, vocab, torch.bfloat16)!r}'
+      f' (plan for \'auto\'); numerator forward+backward {numerator_ms:.1f} '
+      'ms')
+  cache, pf, pc, head = staged_lattice_inputs(torch, lattice, params, frames)
   is_pad = torch.zeros((max_t, batch_size), dtype=torch.bool, device='cuda')
   g = torch.ones((batch_size,), device='cuda')
   kw = dict(max_expansions=2, frame_dependent=False,
@@ -1300,6 +1494,375 @@ def phase_hat_headline(torch, lattices, contexts, alignments, weight_fns,
                                       num_frames, num_labels)['line'])
 
 
+def long_rtol(log_z):
+  """The tolerance of posteriors and gradients of a long utterance: 8
+  float32 roundings of the largest |log Z| (at least bfloat16's 1e-3)."""
+  return max(LP_RTOL['bfloat16'][1],
+             LP_LONG_ROUNDINGS * 2.0**-24 * log_z.abs().max().item())
+
+
+def blank_drift(torch, bm, num_frames):
+  """max over valid frames of |log(sum of the frame's blank posteriors)|:
+  0 in exact arithmetic for FLD, where every path takes one blank arc per
+  frame."""
+  valid = (torch.arange(bm.shape[1], device='cuda')[None, :] <
+           num_frames[:, None])
+  return bm.double().sum(-1)[valid].log().abs().max().item()
+
+
+def posterior_checks(torch, bm, lp, num_frames, k, drift, tol):
+  """Checks FLD(k) posteriors [B, T, S] / [B, T, V]: padding frames 0, all
+  >= 0, each valid frame's blank posteriors summing to 1 within a factor
+  exp(drift), and its label posteriors to at most k times its blank
+  posteriors' sum (up to k labels and one blank per path; the two sums
+  carry the frame's log-space rounding alike), within tol. Returns (blank
+  drift, largest label sum over blank sum)."""
+  valid = (torch.arange(bm.shape[1], device='cuda')[None, :] <
+           num_frames[:, None])
+  check(not bool(bm[~valid].any()) and not bool(lp[~valid].any()),
+        'padding frames have nonzero posteriors')
+  check(bool((bm >= 0).all()) and bool((lp >= 0).all()),
+        'negative posteriors')
+  measured = blank_drift(torch, bm, num_frames)
+  check(measured <= drift, f'a valid frame\'s blank posteriors sum to '
+        f'exp(+-{measured:.3g}) (> exp({drift:.3g}))')
+  ratio = (lp.double().sum(-1)[valid] /
+           bm.double().sum(-1)[valid]).max().item()
+  check(ratio <= k * (1 + tol),
+        f'a frame\'s label posteriors sum to {ratio} > {k} blank sums')
+  return measured, ratio
+
+
+def staged_lattice_inputs(torch, lattice, lattice_params, encoded):
+  """(cache, pf, pc, head) of a bigram lattice as the kernels take them."""
+  wf_params = lattice_params['weight_fn']
+  with torch.no_grad():
+    cache = lattice.build_cache(lattice_params)
+    pf = torch.einsum('btf,fh->tbh', encoded,
+                      wf_params['frame_proj']).contiguous()
+    pc = (cache @ wf_params['context_proj']).contiguous()
+  head = {n: wf_params[n].detach() for n in
+          ('vocab_w', 'vocab_b', 'blank_w', 'blank_b')}
+  return cache, pf, pc, head
+
+
+def phase_confidence(torch, gnat, presets, fused_scan, modules):
+  """Phase 8: the confidence main path. gnat_global_bigram at full width
+  with phase 4's weights and requests: encoder, then
+  ``RecognitionLattice.label_marginals`` through the forward and marginals
+  kernels, counted and timed; against the same call through the plain
+  versions on the card; the kernels alone; ``arc_marginals``' guard at this
+  size and its agreement with label_marginals at B=2, T=100. Prints its
+  lines; returns the marginals kernel's record."""
+  config = presets.gnat_global_bigram()
+  model = gnat.GNATModel(config, device='cuda')
+  params = model.init(torch.Generator().manual_seed(0))
+  rng = np.random.default_rng(0)
+  frames = torch.from_numpy(
+      rand(rng, (len(NUM_FRAMES), max(NUM_FRAMES), config.feature_size))
+  ).cuda()
+  num_frames = torch.tensor(NUM_FRAMES, device='cuda')
+  lattice, lattice_params = model.lattice, params['lattice']
+  k = config.max_expansions
+
+  @torch.no_grad()
+  def confidence():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+    return lattice.label_marginals(lattice_params, encoded, num_frames)
+
+  confidence()  # warm-up
+  torch.cuda.synchronize()
+  reset_counts(*modules)
+  (bm, lp), path_ms = timed(torch, confidence)
+  launches = counts(fused_scan)
+  check(launches['forward_launches'] >= 1 and
+        launches['marginals_launches'] >= 1,
+        f'the confidence path did not launch the forward and marginals '
+        f'kernels: {launches}')
+  check(lattice.last_path == 'kernel',
+        f'last_path is {lattice.last_path!r}, not kernel')
+  check(tuple(bm.shape) == (8, 1600, 1025) and
+        tuple(lp.shape) == (8, 1600, 1024), 'posteriors of the wrong shape')
+
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+  cache, pf, pc, head = staged_lattice_inputs(torch, lattice, lattice_params,
+                                              encoded)
+  is_pad = padding(torch, num_frames, frames.shape[1])
+  kw = dict(max_expansions=k, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  # The kernels alone, and the marginals' plain version on the same
+  # residuals (these launches are not counted).
+  fwd, fwd_ms = timed(torch, lambda: fused_scan.fused_forward(
+      pf, pc, head, is_pad, with_residuals=True, **kw))
+  residuals = (fwd[0], fwd[2], fwd[3])
+  got, marg_ms = timed(torch, lambda: fused_scan.fused_marginals(
+      pf, pc, head, is_pad, *residuals, **kw))
+  want, marg_plain_ms = timed(torch, lambda: fused_scan.fused_marginals_plain(
+      pf, pc, head, is_pad, *residuals, **kw))
+  tol = long_rtol(fwd[0])
+  errors = max_errors(torch, got, want, MARGINALS_NAMES, (BF16_RTOL, tol))
+  # The whole call through the plain versions on the card.
+  (bm_p, lp_p), plain_path_ms = timed(
+      torch, lambda: fused_scan.label_marginals(
+          lattice_params['weight_fn'], cache, encoded, num_frames, **kw,
+          forward=fused_scan.fused_forward_plain,
+          marginals=fused_scan.fused_marginals_plain))
+  path_err = max_errors(torch, (bm, lp), (bm_p, lp_p), MARGINALS_NAMES,
+                        (BF16_RTOL, tol))
+  # Structure. In float32 at |log Z| ~ 2e4 every frame's posteriors carry
+  # the log-space rounding accumulated over the frames before and after it
+  # (PERF.md), in the kernel and the plain version alike; a float64
+  # reference of the same rounded products (the plain versions in float64,
+  # on the two longest requests) has the exact structure. The kernel's
+  # blank sums may drift from 1 by at most twice the float32 plain
+  # version's drift.
+  plain_drift = blank_drift(torch, bm_p, num_frames)
+  drift, ratio = posterior_checks(torch, bm, lp, num_frames, k,
+                                  2 * plain_drift + tol, tol)
+  rows = slice(0, 2)
+  bm_64, lp_64 = fused_scan.label_marginals(
+      {n: x.double() for n, x in lattice_params['weight_fn'].items()},
+      cache.double(), encoded[rows].double(), num_frames[rows], **kw,
+      forward=fused_scan.fused_forward_plain,
+      marginals=fused_scan.fused_marginals_plain)
+  drift_64, ratio_64 = posterior_checks(torch, bm_64, lp_64, num_frames[rows],
+                                        k, 1e-6, 1e-6)
+  vs_64 = [((a[rows].double() - b).abs().max() / b.abs().max()).item()
+           for a, b in ((bm, bm_64), (lp, lp_64))]
+  real_rows = sum(NUM_FRAMES)
+  flops = 2.0 * real_rows * pc.shape[0] * head['vocab_w'].numel()
+  traffic = nbytes(pf, pc, *head.values(), is_pad, *residuals) + nbytes(*got)
+  say('confidence',
+      f'gnat_global_bigram B=8 T_max=1600 encoder + label_marginals through '
+      f'the kernels {path_ms:.1f} ms ({real_rows / path_ms * 1e3:.0f} real '
+      f'frames/s), launches {launches}; through the plain versions '
+      f'{plain_path_ms:.1f} ms; vs plain (|log Z| up to '
+      f'{fwd[0].abs().max().item():.4g}, rtol {tol:.2e}): bm '
+      f'{path_err["bm"][0]:.2e}, lp {path_err["lp"][0]:.2e}; padding 0; '
+      f'blank sums within exp(+-{drift:.3g}) of 1 (float32 plain '
+      f'{plain_drift:.3g}, float64 reference on rows 0-1 {drift_64:.2e}), '
+      f'label sums at most {ratio:.4f} blank sums (float64 '
+      f'{ratio_64:.4f}); kernel vs float64 reference on rows 0-1: bm '
+      f'{vs_64[0]:.2e}, lp {vs_64[1]:.2e}')
+  say('confidence',
+      f'kernels alone, bf16 B=8 T=1600 S=1025 V=1024 h=512 FLD(2): forward '
+      f'{fwd_ms:.1f} ms, marginals {marg_ms:.1f} ms (bound '
+      f'{bound(flops, traffic, "bfloat16")[0]:.1f} ms), marginals plain '
+      f'{marg_plain_ms:.1f} ms; marginals vs plain on the same residuals: '
+      f'bm {errors["bm"][0]:.2e}, lp {errors["lp"][0]:.2e}')
+
+  # arc_marginals: the dense output's guard at this size, and at B=2,
+  # T=100 its state sums against the float32 plain label_marginals.
+  try:
+    lattice.arc_marginals(lattice_params, encoded, num_frames)
+  except ValueError as e:
+    guard = str(e).split(' (>')[0]
+  else:
+    raise SmokeFailure('arc_marginals at B=8 T=1600 did not raise its guard')
+  small = encoded[:2, :100].contiguous()
+  small_frames = num_frames[:2].clamp(max=100)
+  (bm_a, lm_a), arc_ms = timed(torch, lambda: lattice.arc_marginals(
+      lattice_params, small, small_frames))
+  check(lattice.last_path == 'generic', 'arc_marginals left the generic '
+        'route')
+  f32 = dict(kw, compute_dtype=torch.float32)
+  plain = dict(forward=fused_scan.fused_forward_plain,
+               marginals=fused_scan.fused_marginals_plain)
+  bm_f, lp_f = fused_scan.label_marginals(
+      lattice_params['weight_fn'], cache, small, small_frames, **f32, **plain)
+  log_z_small = fused_scan.fused_forward_plain(
+      pf[:100, :2].contiguous(), pc, head, is_pad[:100, :2].contiguous(),
+      with_residuals=False, **f32)[0]
+  arc_rtol = max(1e-4, LP_LONG_ROUNDINGS * 2.0**-24 *
+                 log_z_small.abs().max().item())
+  arc_err = max_errors(torch, (bm_a, lm_a.sum(-2)), (bm_f, lp_f),
+                       MARGINALS_NAMES, (F32_RTOL, arc_rtol))
+  say('confidence',
+      f'arc_marginals: {guard}, raised; at B=2 T=100 (generic route, '
+      f'float32) {arc_ms:.1f} ms, its state sums vs the float32 plain '
+      f'label_marginals (|log Z| up to {log_z_small.abs().max().item():.4g}, '
+      f'rtol {arc_rtol:.1e}): bm {arc_err["bm"][0]:.2e}, lp '
+      f'{arc_err["lp"][0]:.2e}')
+  return kernel_record(
+      'fused_marginals', 'fused_scan.cu', 'fused_scan.py:527',
+      launches['marginals_launches'], max(e[1] for e in errors.values()),
+      marg_ms, marg_plain_ms, flops, traffic, 'bfloat16')
+
+
+def phase_confidence_headline(torch, lattices, contexts, alignments,
+                              weight_fns, fused_scan):
+  """Phase 8b: label_marginals at bench.py's config 8 (the headline lattice
+  of bench_headline: B=32, T=1600, FLD(2), feature 512, bf16) through the
+  kernels, and the kernels alone; the plain versions are skipped here."""
+  batch_size, max_t = 32, 1600
+  lattice, params = bench_lattice(torch, lattices, contexts, alignments,
+                                  weight_fns, 1024)
+  rng = np.random.default_rng(0)
+  frames = torch.from_numpy(rand(rng, (batch_size, max_t, 512), 0.1)).cuda()
+  num_frames = torch.full((batch_size,), max_t, device='cuda')
+  before = fused_scan.forward_launches, fused_scan.marginals_launches
+  (bm, lp), ms = timed(torch, lambda: lattice.label_marginals(
+      params, frames, num_frames))
+  check((fused_scan.forward_launches, fused_scan.marginals_launches) ==
+        (before[0] + 1, before[1] + 1),
+        'config 8 did not launch the forward and marginals kernels once')
+  check(lattice.last_path == 'kernel', 'config 8 left the kernels')
+  _, pf, pc, head = staged_lattice_inputs(torch, lattice, params, frames)
+  is_pad = padding(torch, num_frames, max_t)
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  fwd, fwd_ms = timed(torch, lambda: fused_scan.fused_forward(
+      pf, pc, head, is_pad, with_residuals=True, **kw))
+  got, marg_ms = timed(torch, lambda: fused_scan.fused_marginals(
+      pf, pc, head, is_pad, fwd[0], fwd[2], fwd[3], **kw))
+  tol = long_rtol(fwd[0])
+  # No plain run here: the blank sums' drift is held to its worst case, one
+  # float32 rounding of |log Z| per frame, accumulated over the frames.
+  worst = max_t * 2.0**-24 * fwd[0].abs().max().item()
+  drift, ratio = posterior_checks(torch, bm, lp, num_frames, 2, worst, tol)
+  flops = 2.0 * batch_size * max_t * pc.shape[0] * head['vocab_w'].numel()
+  traffic = (nbytes(pf, pc, *head.values(), is_pad, fwd[0], fwd[2], fwd[3])
+             + nbytes(*got))
+  say('confidence-headline',
+      f'label_marginals (bench config 8: B={batch_size} T={max_t} S=1025 '
+      f'V=1024 h=512 FLD(2), bf16) {ms:.1f} ms '
+      f'({batch_size * max_t / ms * 1e3:.0f} frames/s); kernels alone: '
+      f'forward {fwd_ms:.1f} ms, marginals {marg_ms:.1f} ms (bound '
+      f'{bound(flops, traffic, "bfloat16")[0]:.1f} ms); blank sums within '
+      f'exp(+-{drift:.3g}) of 1 (worst case exp(+-{worst:.3g})), label sums '
+      f'at most {ratio:.4f} blank sums')
+
+
+def phase_large_vocab(torch, gnat, presets, fused_scan, semirings, pytree,
+                      viterbi):
+  """Phase 9: the large-vocabulary main path,
+  gnat_global_bigram(vocab_size=4096) at full width: 3 train steps on 8
+  utterances of phase 6's lengths / 8 with one label per 4 frames (bench
+  config 9's rate), step 1 against the plain versions; then a decode of
+  the same utterances through the Viterbi kernel (bench config 10's
+  path), checked as phase 4's. Returns (mode, (forward, backward)
+  launches, Viterbi launches)."""
+  config = presets.gnat_global_bigram(vocab_size=4096)
+  num_frames_list = [n // 8 for n in NUM_FRAMES]
+  num_labels_list = [n // 4 for n in num_frames_list]
+  model, _, state, batch, mode, launches = train_and_check(
+      torch, gnat, fused_scan, semirings, pytree, config, num_frames_list,
+      num_labels_list, 'large-vocab')
+  frames, num_frames = batch[:2]
+  params = state.params
+  decode = lambda: model.decode(params, frames, num_frames)
+  decode()  # warm-up
+  torch.cuda.synchronize()
+  viterbi.launches = 0
+  (labels, num_labels, weights), decode_ms = timed(torch, decode)
+  viterbi_launches = viterbi.launches
+  check(viterbi_launches >= 1, 'the V=4096 decode did not launch the '
+        'Viterbi kernel')
+  check(model.lattice.last_path == 'kernel',
+        f'last_path is {model.lattice.last_path!r}, not kernel')
+  num_align = config.max_expansions + 1
+  check(torch.equal(num_labels, num_align * num_frames.int()),
+        'num_alignment_labels != 3 * num_frames')
+  check(int(labels.min()) >= 0 and int(labels.max()) <= config.vocab_size,
+        'labels outside [0, V]')
+  slot = torch.arange(labels.shape[1], device='cuda')[None]
+  check(not bool(labels[slot >= num_labels[:, None]].any()),
+        'padding slots are not blank')
+  check(bool(torch.isfinite(weights).all()), 'path weights not finite')
+  bigram = dict(max_expansions=config.max_expansions, frame_dependent=False)
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+    _, pf, pc, head = staged_lattice_inputs(torch, model.lattice,
+                                            params['lattice'], encoded)
+    wf_params = {n: x.detach() for n, x in
+                 params['lattice']['weight_fn'].items()}
+    cache = model.lattice.build_cache(params['lattice'])
+    plain_out, plain_ms = timed(torch, lambda: viterbi.viterbi_decode(
+        wf_params, cache, encoded, num_frames, **bigram,
+        compute_dtype=torch.bfloat16, forward=viterbi.viterbi_forward_plain))
+    rescored = rescore(torch, labels, num_frames, pf, pc, head, **bigram,
+                       compute_dtype=torch.bfloat16)
+  report = compare_decodes(torch, (labels, num_labels, weights), plain_out,
+                           rescored, torch.bfloat16)
+  real_frames = sum(num_frames_list)
+  say('large-vocab', f'decode of the same utterances through the Viterbi '
+      f'kernel (S=4097 V=4096): {decode_ms:.1f} ms '
+      f'({real_frames / decode_ms * 1e3:.0f} real frames/s), plain '
+      f'{plain_ms:.1f} ms, launches {viterbi_launches}; vs plain: {report}')
+  return mode, launches, viterbi_launches
+
+
+def phase_config9(torch, lattices, contexts, alignments, weight_fns,
+                  fused_scan, modules, large_vocab):
+  """Phase 9b: bench.py's config 9 alone (V=4096, B=8, T=200, FLD(2),
+  feature=emb=hidden=512, bf16): log Z and its gradients through
+  ``log_partition(mode='online')``, counted; then each mode's kernels
+  alone against the plain versions, timed, with their peak device memory.
+  ``large_vocab`` is phase 9's (mode, launches). Returns the online
+  kernels' records."""
+  vocab, batch_size, max_t = 4096, 8, 200
+  lattice, params = bench_lattice(torch, lattices, contexts, alignments,
+                                  weight_fns, vocab)
+  rng = np.random.default_rng(0)
+  frames = torch.from_numpy(rand(rng, (batch_size, max_t, 512), 0.1)).cuda()
+  num_frames = torch.full((batch_size,), max_t, device='cuda')
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  leaves = [x for group in params.values() for x in group.values()]
+  for leaf in leaves:
+    leaf.requires_grad_(True)
+
+  def online_path():
+    log_z = fused_scan.log_partition(
+        params['weight_fn'], lattice.build_cache(params), frames, num_frames,
+        mode='online', **kw)
+    log_z.sum().backward()
+    return log_z
+
+  reset_counts(*modules)
+  log_z, path_ms = timed(torch, online_path)
+  launches = counts(fused_scan)
+  check(launches['online_forward_launches'] == 1 and
+        launches['online_backward_launches'] == 1 and
+        launches['forward_launches'] == launches['backward_launches'] == 0,
+        f'log_partition(mode=\'online\') launched {launches}')
+  check(bool(torch.isfinite(log_z).all()) and
+        all(bool(torch.isfinite(x.grad).all()) for x in leaves),
+        'config 9: log Z or its gradients not finite')
+  auto = fused_scan.plan(batch_size, vocab + 1, vocab, torch.bfloat16)
+  say('config9', f'log_partition(mode=\'online\') forward+backward (bench '
+      f'config 9: B={batch_size} T={max_t} S=4097 V={vocab} h=512 FLD(2), '
+      f'bf16) {path_ms:.1f} ms ({batch_size * max_t / path_ms * 1e3:.0f} '
+      f'frames/s), launches {launches}; \'auto\' plans {auto!r} here')
+  _, pf, pc, head = staged_lattice_inputs(torch, lattice, params, frames)
+  is_pad = padding(torch, num_frames, max_t)
+  g = torch.ones((batch_size,), device='cuda')
+  del log_z
+  for leaf in leaves:
+    leaf.grad = None
+  # Online launches by path: this phase's, and phase 9's train steps when
+  # 'auto' planned the online mode there.
+  train_mode, train_launches = large_vocab
+  by_path = [{'config 9 log_partition(mode=\'online\')': launches[name],
+              'gnat_global_bigram(vocab_size=4096) train steps':
+                  count if train_mode == 'online' else 0}
+             for name, count in zip(LP_COUNTERS['online'], train_launches)]
+  cache_rec = kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw,
+                            (None, None), mode='cache')
+  say('config9', cache_rec['line'])
+  online_rec = kernels_alone(
+      torch, fused_scan, pf, pc, head, is_pad, g, kw,
+      tuple(sum(paths.values()) for paths in by_path), mode='online',
+      plain=cache_rec.pop('plain'))
+  say('config9', online_rec['line'])
+  peak_mib = {mode: rec['peak'] / 2**20 for mode, rec in
+              (('cache', cache_rec), ('online', online_rec))}
+  return [dict(online_rec[key], launches_by_path=paths,
+               cache_mode_ms=cache_rec[key]['ms'], peak_mib=peak_mib)
+          for key, paths in zip(('forward', 'backward'), by_path)]
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -1461,6 +2024,20 @@ def main():
   print(f'[num-kernel-vs-plain] {time.perf_counter() - t0:.1f} s',
         flush=True)
 
+  # Phase 5c: the marginals kernel against plain.
+  t0 = time.perf_counter()
+  for line in phase_marginals_vs_plain(torch, fused_scan):
+    print(f'[marg-kernel-vs-plain] {line}', flush=True)
+  print(f'[marg-kernel-vs-plain] {time.perf_counter() - t0:.1f} s',
+        flush=True)
+
+  # Phase 5d: the online kernels against plain and against the cache ones.
+  t0 = time.perf_counter()
+  for line in phase_online_vs_plain(torch, fused_scan):
+    print(f'[online-kernel-vs-plain] {line}', flush=True)
+  print(f'[online-kernel-vs-plain] {time.perf_counter() - t0:.1f} s',
+        flush=True)
+
   # Phase 6: the training main path.
   t0 = time.perf_counter()
   records = phase_training(torch, gnat, presets, fused_scan, semirings,
@@ -1487,10 +2064,52 @@ def main():
   phase_hat_headline(torch, lattices, contexts, alignments, weight_fns,
                      numerator_scan, semirings, pytree)
   print(f'[hat-headline] {time.perf_counter() - t0:.1f} s', flush=True)
+
+  modules = (viterbi, fused_scan, numerator_scan)
+  # Phase 8: the confidence main path.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  marginals_record = phase_confidence(torch, gnat, presets, fused_scan,
+                                      modules)
+  print(f'[confidence] {time.perf_counter() - t0:.1f} s', flush=True)
+
+  # Phase 8b: label_marginals at bench config 8.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  phase_confidence_headline(torch, lattices, contexts, alignments,
+                            weight_fns, fused_scan)
+  print(f'[confidence-headline] {time.perf_counter() - t0:.1f} s',
+        flush=True)
+
+  # Phase 9: the large-vocabulary main path (training, decode).
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  mode, large_launches, large_decodes = phase_large_vocab(
+      torch, gnat, presets, fused_scan, semirings, pytree, viterbi)
+  print(f'[large-vocab] {time.perf_counter() - t0:.1f} s', flush=True)
+  viterbi_record['launches'] += large_decodes
+  viterbi_record['launches_by_path'][
+      'gnat_global_bigram(vocab_size=4096) decode'] = large_decodes
+  if mode == 'cache':
+    for record, count in zip((records['forward'], records['backward']),
+                             large_launches):
+      record['launches'] += count
+      record['launches_by_path'] = {
+          'gnat_global_bigram train steps': record['launches'] - count,
+          'gnat_global_bigram(vocab_size=4096) train steps': count}
+
+  # Phase 9b: the online kernels at bench config 9.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  online_records = phase_config9(torch, lattices, contexts, alignments,
+                                 weight_fns, fused_scan, modules,
+                                 (mode, large_launches))
+  print(f'[config9] {time.perf_counter() - t0:.1f} s', flush=True)
   print(f'[total] {time.perf_counter() - start:.1f} s', flush=True)
 
   print(json.dumps({'kernels': [viterbi_record, records['forward'],
-                                records['backward'], *numerator_records]}))
+                                records['backward'], *numerator_records,
+                                marginals_record, *online_records]}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu',
       'kind': torch.cuda.get_device_name(0),

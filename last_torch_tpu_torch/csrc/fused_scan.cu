@@ -12,13 +12,16 @@
 // See the License for the specific language governing permissions and
 // limitations under the License.
 
-// Log-partition (GN loss denominator) forward and backward of the GNAT
-// recognition lattice on Hopper.
+// Log-partition (GN loss denominator) forward and backward, and the per-frame
+// posteriors, of the GNAT recognition lattice on Hopper.
 //
 // Replaces the Pallas TPU kernels of last_torch_tpu/ops/fused_scan.py:
 // _fused_forward_kernel (pallas_call at fused_scan.py:1474, 'cache' mode with
 // the expansion slabs streamed) and _fused_backward_kernel (pallas_call at
-// :1709). Bigram FullNGram (S = V + 1), JointWeightFn, FrameDependent (FD)
+// :1709); their vocabulary-tiled 'online' variants _online_forward_kernel
+// (:712, same pallas_call as the forward) and _online_backward_kernel (:867,
+// same as the backward); and _fused_marginals_kernel (pallas_call at
+// :2008). Bigram FullNGram (S = V + 1), JointWeightFn, FrameDependent (FD)
 // or FrameLabelDependent(k) (FLD). Per frame t and batch row b:
 //
 //   joint[s]  = compute_dtype(tanh(pc[s] + pf[t, b]))            (f32 tanh)
@@ -84,6 +87,31 @@
 //   over B*S rows, split over blocks; d_lex vocab_w^T reads vocab_w
 //   transposed. wgmma, TMA, pipelining and a persistent kernel are later
 //   work.
+//
+// 'online' mode (large V). The staged buffers above are [B, S, V]: 537 MB
+// of float32 lex per frame at B=8, V=4096, growing as V^2. The online mode
+// keeps no buffer of that size, as the TPU's online kernels kept no lexical
+// cache: every reduction recomputes the head product for its (state tile,
+// label strip) tiles (the same kCompute path the cache forward takes for a
+// frame's only reduction), so FLD(k) costs k products per frame in the
+// forward and k + 3 in the backward (k row reductions, the marginals, the
+// two gradient products) against 1 and 3. The backward forms d_lex for a
+// chunk of states at a time ([B, chunk, V] in the compute type, chunk a
+// fixed number of states) and runs both gradient products on it before the
+// next chunk. Per frame the online mode holds the joint [B, S, h] (in the
+// compute type, as the cache mode) and O(B S + B V) beside it. The forward's
+// expansion slabs are read by the backward in both modes, where the TPU's
+// online backward replayed them.
+//
+// Marginals (the confidence API). The backward's recurrence with g = 1 and
+// no gradient products: per frame the blank posteriors
+//   bm[b, s] = sum_j exp(a_j + blank + beta - log_z)
+// and the label posteriors summed over the states,
+//   lp[b, y] = sum_j sum_s exp(a_j[s] + lex[s, y] + nb_j[1 + y] - log_z),
+// a column sum that crosses the blocks splitting the states: each (row,
+// state tile) block writes its own partial, one reduce launch per frame adds
+// them (no atomics, deterministic). lex is staged for the frame, as the
+// cache backward stages it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -355,7 +383,7 @@ __global__ void __launch_bounds__(kThreads)
                     const T* __restrict__ vw,          // [h, V]
                     const float* __restrict__ vb,      // [V]
                     const float* __restrict__ nbv,     // [B, S]
-                    float* __restrict__ lex,           // [B, S, V]
+                    float* __restrict__ lex,           // [B, S, V] or null
                     float* __restrict__ part_m,        // [splits, B, S]
                     float* __restrict__ part_l,        // [splits, B, S]
                     const int* __restrict__ is_pad_t,  // [B]
@@ -368,7 +396,8 @@ __global__ void __launch_bounds__(kThreads)
   const int y_end = min(V, y_begin + strips_per_split * kBN);
   const int tx = threadIdx.x % (kBN / kTN), ty = threadIdx.x / (kBN / kTN);
   const T* joint_b = joint + static_cast<size_t>(b) * S * h;
-  float* lex_b = lex + static_cast<size_t>(b) * S * V;
+  float* lex_b =
+      lex == nullptr ? nullptr : lex + static_cast<size_t>(b) * S * V;
   const float* nbv_b = nbv + static_cast<size_t>(b) * S;
   float run_m[kTM], run_l[kTM];
 #pragma unroll
@@ -424,7 +453,8 @@ __global__ void __launch_bounds__(kThreads)
 // Merges the splits of a backward reduction into the next nb:
 // out = logaddexp(blank + beta, lse). The final one writes the next beta
 // (held on padding rows), d_blank and its running sum. One thread per
-// (b, s).
+// (b, s). Without g (the marginals) the cotangent is 1 and d_blank is the
+// blank posterior; without dbb_acc no sum is kept.
 __global__ void __launch_bounds__(kPointThreads)
     row_merge_kernel(const float* __restrict__ part_m,
                      const float* __restrict__ part_l, int splits,
@@ -434,9 +464,9 @@ __global__ void __launch_bounds__(kPointThreads)
                      float* __restrict__ out,          // [B, S]
                      int final_stage, Alphas alphas,
                      const float* __restrict__ log_z,  // [B]
-                     const float* __restrict__ g,      // [B]
+                     const float* __restrict__ g,      // [B] or null
                      float* __restrict__ d_blank,      // [B, S]
-                     float* __restrict__ dbb_acc,      // [B, S]
+                     float* __restrict__ dbb_acc,      // [B, S] or null
                      int B, int S) {
   const int idx = blockIdx.x * kPointThreads + threadIdx.x;
   if (idx >= B * S) return;
@@ -462,88 +492,166 @@ __global__ void __launch_bounds__(kPointThreads)
     for (int j = 0; j < alphas.n; ++j) {
       total += expf(alphas.a[j][idx] + bl + bt - lz);
     }
-    const float db = g[b] * total;
+    const float db = g == nullptr ? total : g[b] * total;
     d_blank[idx] = db;
-    dbb_acc[idx] += db;
+    if (dbb_acc != nullptr) dbb_acc[idx] += db;
   }
 }
 
-// d_lex tile = cast(g * sum_p exp(a_p[s] + lex[s, y] + nb_p[1 + y] -
-// log_z)) from the staged lex, and its column sums into dvb_acc. Padding
-// rows write zeros. Grid (ceil(V / 64), ceil(S / 64), B).
-template <typename T>
+// The lexical marginals of one (64-state tile, 64-label strip) of row b,
+//   m[s, y] = gb * sum_p exp(a_p[s] + lex[s, y] + nb_p[1 + y] - log_z)
+// with gb = g[b] (1 without g), lex staged (kLoad) or from the head product
+// (kCompute). The tiles run over the states [s_begin, s_begin + s_count).
+// With d_lex ([B, s_count, V], row s at s - s_begin) the tile is stored
+// there rounded to T, and the column sums are of the rounded values; without
+// it, of m. Column sums go to col[b, tile, y], added (accumulate) or
+// written. Padding rows write zero d_lex and no column sums. Grid
+// (ceil(V / 64), ceil(s_count / 64), B).
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
-    marginal_kernel(const float* __restrict__ lex,      // [B, S, V]
+    marginal_kernel(const T* __restrict__ joint,        // [B, S, h]
+                    const T* __restrict__ vw,           // [h, V]
+                    const float* __restrict__ vb,       // [V]
+                    float* __restrict__ lex,            // [B, S, V] or null
                     Pairs pairs,
                     const float* __restrict__ log_z,    // [B]
-                    const float* __restrict__ g,        // [B]
+                    const float* __restrict__ g,        // [B] or null
                     const int* __restrict__ is_pad_t,   // [B]
-                    T* __restrict__ d_lex,              // [B, S, V]
-                    float* __restrict__ dvb_acc,        // [B, tiles, V]
-                    int S, int V) {
+                    T* __restrict__ d_lex,              // or null
+                    float* __restrict__ col,            // [B, tiles, V]
+                    int accumulate, int S, int h, int V, int s_begin,
+                    int s_count, int tiles) {
   __shared__ float cand[kBM / kTM][kBN];
   const int b = blockIdx.z;
   const int y0 = blockIdx.x * kBN;
-  const int s0 = blockIdx.y * kBM;
+  const int tile = s_begin / kBM + blockIdx.y;
+  const int s0 = tile * kBM;
+  const int s_end = s_begin + s_count;
   const int tid = threadIdx.x;
   const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
   const size_t row0 = static_cast<size_t>(b) * S;
-  const bool pad = is_pad_t[b] != 0;
-  const float lz = log_z[b], gb = g[b];
-  float col[kTN];
+  T* d_lex_b = d_lex == nullptr
+                   ? nullptr
+                   : d_lex + static_cast<size_t>(b) * s_count * V;
+  if (is_pad_t[b]) {  // uniform per block
+    if (d_lex_b == nullptr) return;
+    for (int i = 0; i < kTM; ++i) {
+      const int s = s0 + ty * kTM + i;
+      for (int j = 0; j < kTN; ++j) {
+        const int y = y0 + tx * kTN + j;
+        if (s < s_end && y < V) {
+          d_lex_b[static_cast<size_t>(s - s_begin) * V + y] =
+              from_float<T>(0.f);
+        }
+      }
+    }
+    return;
+  }
+  float val[kTM][kTN];
+  lex_tile<T, MODE>(joint + row0 * h, vw, vb,
+                    lex == nullptr ? nullptr : lex + row0 * V, s0, y0, S, h,
+                    V, val);
+  const float lz = log_z[b], gb = g == nullptr ? 1.f : g[b];
+  float sums[kTN];
 #pragma unroll
-  for (int j = 0; j < kTN; ++j) col[j] = 0.f;
+  for (int j = 0; j < kTN; ++j) sums[j] = 0.f;
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int s = s0 + ty * kTM + i;
-    if (s >= S) continue;
+    if (s >= s_end) continue;
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       const int y = y0 + tx * kTN + j;
       if (y >= V) continue;
-      const size_t at = (row0 + s) * V + y;
       float total = 0.f;
-      if (!pad) {
-        const float lx = lex[at];
-        for (int p = 0; p < pairs.n; ++p) {
-          total += expf(pairs.a[p][row0 + s] + lx + pairs.nb[p][row0 + 1 + y] -
-                        lz);
-        }
+      for (int p = 0; p < pairs.n; ++p) {
+        total += expf(pairs.a[p][row0 + s] + val[i][j] +
+                      pairs.nb[p][row0 + 1 + y] - lz);
       }
-      const T d = from_float<T>(gb * total);
-      d_lex[at] = pad ? from_float<T>(0.f) : d;
-      col[j] += pad ? 0.f : to_float(d);
+      float m = gb * total;
+      if (d_lex_b != nullptr) {
+        const T d = from_float<T>(m);
+        d_lex_b[static_cast<size_t>(s - s_begin) * V + y] = d;
+        m = to_float(d);
+      }
+      sums[j] += m;
     }
   }
-  if (pad) return;  // uniform per block
 #pragma unroll
-  for (int j = 0; j < kTN; ++j) cand[ty][tx * kTN + j] = col[j];
+  for (int j = 0; j < kTN; ++j) cand[ty][tx * kTN + j] = sums[j];
   __syncthreads();
   if (tid < kBN && y0 + tid < V) {
     float total = 0.f;
     for (int r = 0; r < kBM / kTM; ++r) total += cand[r][tid];
-    dvb_acc[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * V + y0 + tid] +=
-        total;
+    float* out = col + (static_cast<size_t>(b) * tiles + tile) * V + y0 + tid;
+    *out = accumulate ? *out + total : total;
   }
 }
 
-// dvw_acc[split] += joint^T d_lex over the split's range of the B*S rows.
-// Grid (ceil(V / 64), ceil(h / 64), splits).
+// lp[b, y] = sum over state tiles of part[b, tile, y]; zero on padding rows.
+// One thread per (b, y).
+__global__ void __launch_bounds__(kPointThreads)
+    label_sum_kernel(const float* __restrict__ part,  // [B, tiles, V]
+                     const int* __restrict__ is_pad_t,
+                     float* __restrict__ lp,  // [B, V]
+                     int B, int tiles, int V) {
+  const int idx = blockIdx.x * kPointThreads + threadIdx.x;
+  if (idx >= B * V) return;
+  const int b = idx / V, y = idx % V;
+  float total = 0.f;
+  if (!is_pad_t[b]) {
+    for (int st = 0; st < tiles; ++st) {
+      total += part[(static_cast<size_t>(b) * tiles + st) * V + y];
+    }
+  }
+  lp[idx] = total;
+}
+
+// dvw_acc[split] += joint^T d_lex over the split's range of the chunk's
+// rows: (b, s) for every b and s in [s_begin, s_begin + s_count), b major;
+// d_lex holds the chunk ([B, s_count, V]). A chunk of all S states is one
+// run of B*S rows. Grid (ceil(V / 64), ceil(h / 64), splits).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    head_grad_kernel(const T* __restrict__ joint,   // [B*S, h]
-                     const T* __restrict__ d_lex,   // [B*S, V]
+    head_grad_kernel(const T* __restrict__ joint,   // [B, S, h]
+                     const T* __restrict__ d_lex,   // [B, s_count, V]
                      float* __restrict__ dvw_acc,   // [splits, h, V]
-                     int rows, int h, int V, int rows_per_split) {
+                     int B, int S, int s_begin, int s_count, int h, int V,
+                     int rows_per_split) {
   const int y0 = blockIdx.x * kBN;
   const int h0 = blockIdx.y * kBM;
+  const int rows = B * s_count;
   const int r0 = blockIdx.z * rows_per_split;
   const int r1 = min(rows, r0 + rows_per_split);
   if (r0 >= r1) return;
   float acc[kTM][kTN];
-  tile_product<true, false>(joint + static_cast<size_t>(r0) * h, h,
-                            d_lex + static_cast<size_t>(r0) * V, V, h0, y0, h,
-                            V, r1 - r0, acc);
+  if (s_count == S) {
+    tile_product<true, false>(joint + static_cast<size_t>(r0) * h, h,
+                              d_lex + static_cast<size_t>(r0) * V, V, h0, y0,
+                              h, V, r1 - r0, acc);
+  } else {
+    // One product per batch row in the range (the rows of the joint jump
+    // from one row's chunk to the next's).
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+    }
+    for (int r = r0; r < r1;) {
+      const int b = r / s_count, s = r % s_count;
+      const int n = min(r1 - r, s_count - s);
+      float part[kTM][kTN];
+      tile_product<true, false>(
+          joint + (static_cast<size_t>(b) * S + s_begin + s) * h, h,
+          d_lex + static_cast<size_t>(r) * V, V, h0, y0, h, V, n, part);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] += part[i][j];
+      }
+      r += n;
+    }
+  }
   const int tx = threadIdx.x % (kBN / kTN), ty = threadIdx.x / (kBN / kTN);
   float* out = dvw_acc + static_cast<size_t>(blockIdx.z) * h * V;
 #pragma unroll
@@ -559,11 +667,12 @@ __global__ void __launch_bounds__(kThreads)
 
 // d_joint = d_lex vocab_w^T + d_blank blank_w for a (state tile, hidden
 // tile) of row b, then d_pre = d_joint (1 - joint32^2) into dpc_acc, its
-// state sums into dpf_part and the blank-head sums into dbw_acc. Grid
-// (ceil(h / 64), ceil(S / 64), B).
+// state sums into dpf_part and the blank-head sums into dbw_acc. The tiles
+// run over the chunk's states [s_begin, s_begin + s_count), whose d_lex is
+// [B, s_count, V]. Grid (ceil(h / 64), ceil(s_count / 64), B).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    joint_grad_kernel(const T* __restrict__ d_lex,      // [B, S, V]
+    joint_grad_kernel(const T* __restrict__ d_lex,      // [B, s_count, V]
                       const T* __restrict__ vw,         // [h, V]
                       const float* __restrict__ bw32,   // [h]
                       const float* __restrict__ d_blank,  // [B, S]
@@ -573,26 +682,28 @@ __global__ void __launch_bounds__(kThreads)
                       float* __restrict__ dpc_acc,      // [B, S, h]
                       float* __restrict__ dpf_part,     // [tiles, B, h]
                       float* __restrict__ dbw_acc,      // [B, tiles, h]
-                      int S, int h, int V) {
+                      int S, int h, int V, int s_begin, int s_count,
+                      int tiles) {
   __shared__ float cand_f[kBM / kTM][kBN];
   __shared__ float cand_w[kBM / kTM][kBN];
   const int b = blockIdx.z;
   if (is_pad_t[b]) return;  // dpf_reduce_kernel writes the zero row
   const int B = gridDim.z;
   const int h0 = blockIdx.x * kBN;
-  const int s0 = blockIdx.y * kBM;
+  const int tile = s_begin / kBM + blockIdx.y;
+  const int s0 = tile * kBM;
   const int tid = threadIdx.x;
   const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
   float acc[kTM][kTN];
-  tile_product<false, true>(d_lex + static_cast<size_t>(b) * S * V, V, vw, V,
-                            s0, h0, S, h, V, acc);
+  tile_product<false, true>(d_lex + static_cast<size_t>(b) * s_count * V, V,
+                            vw, V, s0 - s_begin, h0, s_count, h, V, acc);
   float col_f[kTN], col_w[kTN];
 #pragma unroll
   for (int j = 0; j < kTN; ++j) col_f[j] = col_w[j] = 0.f;
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int s = s0 + ty * kTM + i;
-    if (s >= S) continue;
+    if (s >= s_begin + s_count) continue;
     const float db = d_blank[static_cast<size_t>(b) * S + s];
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
@@ -618,9 +729,8 @@ __global__ void __launch_bounds__(kThreads)
       sf += cand_f[r][tid];
       sw += cand_w[r][tid];
     }
-    dpf_part[(static_cast<size_t>(blockIdx.y) * B + b) * h + h0 + tid] = sf;
-    dbw_acc[(static_cast<size_t>(b) * gridDim.y + blockIdx.y) * h + h0 + tid] +=
-        sw;
+    dpf_part[(static_cast<size_t>(tile) * B + b) * h + h0 + tid] = sf;
+    dbw_acc[(static_cast<size_t>(b) * tiles + tile) * h + h0 + tid] += sw;
   }
 }
 
@@ -669,9 +779,10 @@ int run_forward(const float* pf, const float* pc, const T* vw,
                 float* part_m, float* part_l, float* last, float* alpha,
                 float* hist, float* slabs, int num_frames, int B, int S,
                 int h, int V, int max_expansions, int frame_dependent,
-                int max_splits, cudaStream_t stream) {
+                int online, int max_splits, cudaStream_t stream) {
   const int passes = frame_dependent ? 1 : max_expansions;
-  const bool stage = passes >= 2;
+  // Online: every reduction recomputes the product (no lex buffer).
+  const bool stage = !online && passes >= 2;
   const size_t bs = static_cast<size_t>(B) * S;
   const int tiles = (S + kBM - 1) / kBM;
   const int tiles_per_split =
@@ -723,58 +834,58 @@ int run_forward(const float* pf, const float* pc, const T* vw,
   return 0;
 }
 
-template <typename T>
-int run_backward(const float* pf, const float* pc, const T* vw,
-                 const float* vb, const T* bw, const float* bw32,
-                 const float* bb, const int* is_pad, const float* log_z,
-                 const float* g, const float* hist, const float* slabs,
-                 T* joint, float* blank, float* lex, T* d_lex, float* d_blank,
-                 float* part_m, float* part_l, float* nb, float* beta,
-                 float* dpf, float* dpf_part, float* dpc_acc, float* dvw_acc,
-                 float* dvb_acc, float* dbw_acc, float* dbb_acc, float* dpc,
-                 float* dvw, float* dvb, float* dbw, float* dbb,
-                 int num_frames, int B, int S, int h, int V,
-                 int max_expansions, int frame_dependent, int max_ysplits,
-                 int max_ksplits, cudaStream_t stream) {
-  const int k = frame_dependent ? 0 : max_expansions;
-  const int passes = frame_dependent ? 1 : max_expansions;
-  if (k + 1 > kMaxAlphas) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bs = static_cast<size_t>(B) * S;
-  const int tiles = (S + kBM - 1) / kBM;
-  const int strips = (V + kBN - 1) / kBN;
-  const int h_tiles = (h + kBM - 1) / kBM;
-  const int strips_per_split =
-      (strips + max_ysplits - 1) / (max_ysplits > 0 ? max_ysplits : 1);
-  const int ysplits = (strips + strips_per_split - 1) / strips_per_split;
-  const int rows = B * S;
-  int rows_per_split =
-      (rows + max_ksplits - 1) / (max_ksplits > 0 ? max_ksplits : 1);
-  rows_per_split = (rows_per_split + kWK - 1) / kWK * kWK;
-  const int ksplits = (rows + rows_per_split - 1) / rows_per_split;
-  const dim3 joint_grid(S, B);
-  const dim3 row_grid(tiles, ysplits, B);
-  const dim3 lex_grid(strips, tiles, B);
-  for (int n = 0; n < num_frames; ++n) {
-    const int t = num_frames - 1 - n;
+// What the reverse scans (backward and marginals) share: their sizes, and
+// one frame's beta step.
+struct ReverseScan {
+  int B, S, h, V, k, passes, frame_dependent, tiles, strips,
+      strips_per_split, ysplits;
+
+  ReverseScan(int B_, int S_, int h_, int V_, int max_expansions,
+              int frame_dependent_, int max_ysplits)
+      : B(B_), S(S_), h(h_), V(V_), frame_dependent(frame_dependent_) {
+    k = frame_dependent ? 0 : max_expansions;
+    passes = frame_dependent ? 1 : max_expansions;
+    tiles = (S + kBM - 1) / kBM;
+    strips = (V + kBN - 1) / kBN;
+    strips_per_split =
+        (strips + max_ysplits - 1) / (max_ysplits > 0 ? max_ysplits : 1);
+    ysplits = (strips + strips_per_split - 1) / strips_per_split;
+  }
+
+  // Frame t of T: joint and blank, then the row reductions (FD once on
+  // beta; FLD on nb_{k-1}, ..., nb_0, each giving the nb below it and the
+  // last the next beta, d_blank and its sum). With `lex` the first stores
+  // the frame's lex and the others read it; without, each recomputes the
+  // product (online). Fills the frame's slabs and (a_j, nb_j) pairs.
+  template <typename T>
+  int step(int t, int T_, const float* pf, const int* is_pad,
+           const float* pc, const T* vw, const float* vb, const T* bw,
+           const float* bb, const float* log_z, const float* g,
+           const float* hist, const float* slabs, T* joint, float* blank,
+           float* lex, float* part_m, float* part_l, float* nb,
+           const float* beta_cur, float* beta_next, float* d_blank,
+           float* dbb_acc, int zero_pad, Pairs& pairs,
+           cudaStream_t stream) const {
+    const size_t bs = static_cast<size_t>(B) * S;
     const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
-    const float* pf_t = pf + static_cast<size_t>(t) * B * h;
-    const float* beta_cur = beta + (n % 2) * bs;
-    float* beta_next = beta + ((n + 1) % 2) * bs;
-    joint_blank_kernel<T><<<joint_grid, kJointThreads, 0, stream>>>(
-        pf_t, is_pad_t, pc, bw, bb, beta_cur,
-        k >= 1 ? nb + (k - 1) * bs : nullptr, joint, blank, S, h, 1);
+    joint_blank_kernel<T><<<dim3(S, B), kJointThreads, 0, stream>>>(
+        pf + static_cast<size_t>(t) * B * h, is_pad_t, pc, bw, bb, beta_cur,
+        k >= 1 ? nb + (k - 1) * bs : nullptr, joint, blank, S, h, zero_pad);
     RETURN_IF_LAUNCH_FAILED();
     Alphas alphas;
     alphas.n = 1 + k;
     alphas.a[0] = hist + t * bs;
     for (int j = 0; j < k; ++j) {
-      alphas.a[1 + j] = slabs + (static_cast<size_t>(j) * num_frames + t) * bs;
+      alphas.a[1 + j] = slabs + (static_cast<size_t>(j) * T_ + t) * bs;
     }
-    // Row reductions: FD once on beta; FLD on nb_{k-1}, ..., nb_0, each
-    // giving the nb below it and the last the next beta.
+    const dim3 row_grid(tiles, ysplits, B);
     for (int p = 0; p < passes; ++p) {
       const float* nbv = frame_dependent ? beta_cur : nb + (k - 1 - p) * bs;
-      if (p == 0) {
+      if (lex == nullptr) {
+        row_pass_kernel<T, kCompute><<<row_grid, kThreads, 0, stream>>>(
+            joint, vw, vb, nbv, nullptr, part_m, part_l, is_pad_t, S, h, V,
+            strips_per_split);
+      } else if (p == 0) {
         row_pass_kernel<T, kComputeStore><<<row_grid, kThreads, 0, stream>>>(
             joint, vw, vb, nbv, lex, part_m, part_l, is_pad_t, S, h, V,
             strips_per_split);
@@ -797,7 +908,6 @@ int run_backward(const float* pf, const float* pc, const T* vw,
           log_z, g, d_blank, dbb_acc, B, S);
       RETURN_IF_LAUNCH_FAILED();
     }
-    Pairs pairs;
     pairs.n = passes;
     if (frame_dependent) {
       pairs.a[0] = alphas.a[0];
@@ -808,17 +918,77 @@ int run_backward(const float* pf, const float* pc, const T* vw,
         pairs.nb[j] = nb + j * bs;
       }
     }
-    marginal_kernel<T><<<lex_grid, kThreads, 0, stream>>>(
-        lex, pairs, log_z, g, is_pad_t, d_lex, dvb_acc, S, V);
-    RETURN_IF_LAUNCH_FAILED();
-    head_grad_kernel<T><<<dim3(strips, h_tiles, ksplits), kThreads, 0,
-                          stream>>>(joint, d_lex, dvw_acc, rows, h, V,
-                                    rows_per_split);
-    RETURN_IF_LAUNCH_FAILED();
-    joint_grad_kernel<T><<<dim3(h_tiles, tiles, B), kThreads, 0, stream>>>(
-        d_lex, vw, bw32, d_blank, pc, pf_t, is_pad_t, dpc_acc, dpf_part,
-        dbw_acc, S, h, V);
-    RETURN_IF_LAUNCH_FAILED();
+    return 0;
+  }
+};
+
+template <typename T>
+int run_backward(const float* pf, const float* pc, const T* vw,
+                 const float* vb, const T* bw, const float* bw32,
+                 const float* bb, const int* is_pad, const float* log_z,
+                 const float* g, const float* hist, const float* slabs,
+                 T* joint, float* blank, float* lex, T* d_lex, float* d_blank,
+                 float* part_m, float* part_l, float* nb, float* beta,
+                 float* dpf, float* dpf_part, float* dpc_acc, float* dvw_acc,
+                 float* dvb_acc, float* dbw_acc, float* dbb_acc, float* dpc,
+                 float* dvw, float* dvb, float* dbw, float* dbb,
+                 int num_frames, int B, int S, int h, int V,
+                 int max_expansions, int frame_dependent, int online,
+                 int chunk_states, int max_ysplits, int max_ksplits,
+                 cudaStream_t stream) {
+  const ReverseScan scan(B, S, h, V, max_expansions, frame_dependent,
+                         max_ysplits);
+  if (scan.k + 1 > kMaxAlphas) return static_cast<int>(cudaErrorInvalidValue);
+  // Cache: one chunk of all S states over the staged lex. Online: chunks of
+  // whole tiles, lex recomputed; d_lex holds one chunk.
+  const int chunk = online ? chunk_states : S;
+  if (chunk <= 0 || (chunk < S && chunk % kBM != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t bs = static_cast<size_t>(B) * S;
+  const int tiles = scan.tiles, strips = scan.strips;
+  const int h_tiles = (h + kBM - 1) / kBM;
+  const int max_rows = B * chunk;
+  int rows_per_split =
+      (max_rows + max_ksplits - 1) / (max_ksplits > 0 ? max_ksplits : 1);
+  rows_per_split = (rows_per_split + kWK - 1) / kWK * kWK;
+  const int ksplits = (max_rows + rows_per_split - 1) / rows_per_split;
+  for (int n = 0; n < num_frames; ++n) {
+    const int t = num_frames - 1 - n;
+    const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
+    const float* pf_t = pf + static_cast<size_t>(t) * B * h;
+    Pairs pairs;
+    const int status = scan.step<T>(
+        t, num_frames, pf, is_pad, pc, vw, vb, bw, bb, log_z, g, hist, slabs,
+        joint, blank, online ? nullptr : lex, part_m, part_l, nb,
+        beta + (n % 2) * bs, beta + ((n + 1) % 2) * bs, d_blank, dbb_acc, 1,
+        pairs, stream);
+    if (status != 0) return status;
+    for (int s_begin = 0; s_begin < S; s_begin += chunk) {
+      const int s_count = min(chunk, S - s_begin);
+      const int chunk_tiles = (s_count + kBM - 1) / kBM;
+      if (online) {
+        marginal_kernel<T, kCompute><<<dim3(strips, chunk_tiles, B), kThreads,
+                                       0, stream>>>(
+            joint, vw, vb, nullptr, pairs, log_z, g, is_pad_t, d_lex,
+            dvb_acc, 1, S, h, V, s_begin, s_count, tiles);
+      } else {
+        marginal_kernel<T, kLoad><<<dim3(strips, chunk_tiles, B), kThreads, 0,
+                                    stream>>>(
+            joint, vw, vb, lex, pairs, log_z, g, is_pad_t, d_lex, dvb_acc, 1,
+            S, h, V, s_begin, s_count, tiles);
+      }
+      RETURN_IF_LAUNCH_FAILED();
+      head_grad_kernel<T><<<dim3(strips, h_tiles, ksplits), kThreads, 0,
+                            stream>>>(joint, d_lex, dvw_acc, B, S, s_begin,
+                                      s_count, h, V, rows_per_split);
+      RETURN_IF_LAUNCH_FAILED();
+      joint_grad_kernel<T><<<dim3(h_tiles, chunk_tiles, B), kThreads, 0,
+                             stream>>>(d_lex, vw, bw32, d_blank, pc, pf_t,
+                                       is_pad_t, dpc_acc, dpf_part, dbw_acc,
+                                       S, h, V, s_begin, s_count, tiles);
+      RETURN_IF_LAUNCH_FAILED();
+    }
     dpf_reduce_kernel<<<blocks_for(static_cast<size_t>(B) * h), kPointThreads,
                         0, stream>>>(dpf_part, is_pad_t,
                                      dpf + static_cast<size_t>(t) * B * h, B,
@@ -842,6 +1012,43 @@ int run_backward(const float* pf, const float* pc, const T* vw,
   return 0;
 }
 
+template <typename T>
+int run_marginals(const float* pf, const float* pc, const T* vw,
+                  const float* vb, const T* bw, const float* bb,
+                  const int* is_pad, const float* log_z, const float* hist,
+                  const float* slabs, T* joint, float* blank, float* lex,
+                  float* part_m, float* part_l, float* nb, float* beta,
+                  float* lp_part, float* bm, float* lp, int num_frames, int B,
+                  int S, int h, int V, int max_expansions,
+                  int frame_dependent, int max_ysplits, cudaStream_t stream) {
+  const ReverseScan scan(B, S, h, V, max_expansions, frame_dependent,
+                         max_ysplits);
+  if (scan.k + 1 > kMaxAlphas) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bs = static_cast<size_t>(B) * S;
+  for (int n = 0; n < num_frames; ++n) {
+    const int t = num_frames - 1 - n;
+    const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
+    Pairs pairs;
+    // g = 1: d_blank is the frame's blank posterior, written in place.
+    const int status = scan.step<T>(
+        t, num_frames, pf, is_pad, pc, vw, vb, bw, bb, log_z, nullptr, hist,
+        slabs, joint, blank, lex, part_m, part_l, nb, beta + (n % 2) * bs,
+        beta + ((n + 1) % 2) * bs, bm + t * bs, nullptr, 0, pairs, stream);
+    if (status != 0) return status;
+    marginal_kernel<T, kLoad><<<dim3(scan.strips, scan.tiles, B), kThreads, 0,
+                                stream>>>(
+        joint, vw, vb, lex, pairs, log_z, nullptr, is_pad_t, nullptr, lp_part,
+        0, S, h, V, 0, S, scan.tiles);
+    RETURN_IF_LAUNCH_FAILED();
+    label_sum_kernel<<<blocks_for(static_cast<size_t>(B) * V), kPointThreads,
+                       0, stream>>>(lp_part, is_pad_t,
+                                    lp + static_cast<size_t>(t) * B * V, B,
+                                    scan.tiles, V);
+    RETURN_IF_LAUNCH_FAILED();
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -850,24 +1057,25 @@ extern "C" {
 // (0 on success). The caller allocates everything. `alpha` is [2, B, S]
 // with alpha0 in slot 0 on entry; the final alpha is left in slot
 // num_frames % 2. dtype 0 = float32, 1 = bfloat16 for vw, bw and joint.
-// `lex` ([B, S, V]) is used only with two or more reductions per frame.
-// part_m / part_l hold [max_splits, B, V] per-split partials.
-// With `slabs` ([k, T, B, S]) the expansions are written there, else to
-// `last` ([max(k, 1), B, S]); `hist` ([T, B, S]) may be null.
+// `lex` ([B, S, V]) is used only with two or more reductions per frame and
+// `online` 0; with `online` 1 every reduction recomputes the head product
+// and `lex` may be null. part_m / part_l hold [max_splits, B, V] per-split
+// partials. With `slabs` ([k, T, B, S]) the expansions are written there,
+// else to `last` ([max(k, 1), B, S]); `hist` ([T, B, S]) may be null.
 int fused_forward(int dtype, const float* pf, const float* pc, const void* vw,
                   const float* vb, const void* bw, const float* bb,
                   const int* is_pad, void* joint, float* blank, float* lex,
                   float* part_m, float* part_l, float* last, float* alpha,
                   float* hist, float* slabs, int num_frames, int B, int S,
                   int h, int V, int max_expansions, int frame_dependent,
-                  int max_splits, void* stream) {
+                  int online, int max_splits, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return run_forward<float>(
         pf, pc, static_cast<const float*>(vw), vb,
         static_cast<const float*>(bw), bb, is_pad, static_cast<float*>(joint),
         blank, lex, part_m, part_l, last, alpha, hist, slabs, num_frames, B,
-        S, h, V, max_expansions, frame_dependent, max_splits, s);
+        S, h, V, max_expansions, frame_dependent, online, max_splits, s);
   }
   if (dtype == 1) {
     return run_forward<__nv_bfloat16>(
@@ -875,20 +1083,22 @@ int fused_forward(int dtype, const float* pf, const float* pc, const void* vw,
         static_cast<const __nv_bfloat16*>(bw), bb, is_pad,
         static_cast<__nv_bfloat16*>(joint), blank, lex, part_m, part_l, last,
         alpha, hist, slabs, num_frames, B, S, h, V, max_expansions,
-        frame_dependent, max_splits, s);
+        frame_dependent, online, max_splits, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Runs the whole backward on `stream`; returns the first launch error. The
-// caller allocates everything: scratch joint / d_lex ([B, S, h] / [B, S, V]
-// in the compute type), blank / d_blank ([B, S]), lex ([B, S, V]),
-// part_m / part_l ([max_ysplits, B, S]), nb ([max(k, 1), B, S]), beta
-// ([2, B, S], zero in slot 0 on entry; the final beta is left in slot
-// num_frames % 2), dpf_part ([ceil(S/64), B, h]); zeroed accumulators
-// dpc_acc [B, S, h], dvw_acc [max_ksplits, h, V], dvb_acc [B, ceil(S/64),
-// V], dbw_acc [B, ceil(S/64), h], dbb_acc [B, S]; outputs dpf [T, B, h],
-// dpc [S, h], dvw [h, V], dvb [V], dbw [h], dbb [1].
+// caller allocates everything: scratch joint ([B, S, h] in the compute
+// type), blank / d_blank ([B, S]), lex ([B, S, V]; null with `online`),
+// d_lex in the compute type ([B, S, V]; with `online`, [B, chunk_states,
+// V], chunk_states a multiple of 64 or at least S), part_m / part_l
+// ([max_ysplits, B, S]), nb ([max(k, 1), B, S]), beta ([2, B, S], zero in
+// slot 0 on entry; the final beta is left in slot num_frames % 2), dpf_part
+// ([ceil(S/64), B, h]); zeroed accumulators dpc_acc [B, S, h], dvw_acc
+// [max_ksplits, h, V], dvb_acc [B, ceil(S/64), V], dbw_acc [B, ceil(S/64),
+// h], dbb_acc [B, S]; outputs dpf [T, B, h], dpc [S, h], dvw [h, V], dvb
+// [V], dbw [h], dbb [1].
 int fused_backward(int dtype, const float* pf, const float* pc,
                    const void* vw, const float* vb, const void* bw,
                    const float* bw32, const float* bb, const int* is_pad,
@@ -900,8 +1110,8 @@ int fused_backward(int dtype, const float* pf, const float* pc,
                    float* dbw_acc, float* dbb_acc, float* dpc, float* dvw,
                    float* dvb, float* dbw, float* dbb, int num_frames, int B,
                    int S, int h, int V, int max_expansions,
-                   int frame_dependent, int max_ysplits, int max_ksplits,
-                   void* stream) {
+                   int frame_dependent, int online, int chunk_states,
+                   int max_ysplits, int max_ksplits, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return run_backward<float>(
@@ -911,7 +1121,7 @@ int fused_backward(int dtype, const float* pf, const float* pc,
         static_cast<float*>(d_lex), d_blank, part_m, part_l, nb, beta, dpf,
         dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc, dvw, dvb,
         dbw, dbb, num_frames, B, S, h, V, max_expansions, frame_dependent,
-        max_ysplits, max_ksplits, s);
+        online, chunk_states, max_ysplits, max_ksplits, s);
   }
   if (dtype == 1) {
     return run_backward<__nv_bfloat16>(
@@ -921,7 +1131,43 @@ int fused_backward(int dtype, const float* pf, const float* pc,
         static_cast<__nv_bfloat16*>(d_lex), d_blank, part_m, part_l, nb,
         beta, dpf, dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc,
         dvw, dvb, dbw, dbb, num_frames, B, S, h, V, max_expansions,
-        frame_dependent, max_ysplits, max_ksplits, s);
+        frame_dependent, online, chunk_states, max_ysplits, max_ksplits, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Runs the marginals' reverse scan on `stream`; returns the first launch
+// error. Inputs as the backward's (log_z, hist, slabs from the forward);
+// scratch joint ([B, S, h] in the compute type), blank ([B, S]), lex ([B,
+// S, V]), part_m / part_l ([max_ysplits, B, S]), nb ([max(k, 1), B, S]),
+// beta ([2, B, S], zero in slot 0 on entry), lp_part ([B, ceil(S/64), V]);
+// outputs bm [T, B, S] (blank posteriors) and lp [T, B, V] (label
+// posteriors summed over the states), zero on padding frames.
+int fused_marginals(int dtype, const float* pf, const float* pc,
+                    const void* vw, const float* vb, const void* bw,
+                    const float* bb, const int* is_pad, const float* log_z,
+                    const float* hist, const float* slabs, void* joint,
+                    float* blank, float* lex, float* part_m, float* part_l,
+                    float* nb, float* beta, float* lp_part, float* bm,
+                    float* lp, int num_frames, int B, int S, int h, int V,
+                    int max_expansions, int frame_dependent, int max_ysplits,
+                    void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return run_marginals<float>(
+        pf, pc, static_cast<const float*>(vw), vb,
+        static_cast<const float*>(bw), bb, is_pad, log_z, hist, slabs,
+        static_cast<float*>(joint), blank, lex, part_m, part_l, nb, beta,
+        lp_part, bm, lp, num_frames, B, S, h, V, max_expansions,
+        frame_dependent, max_ysplits, s);
+  }
+  if (dtype == 1) {
+    return run_marginals<__nv_bfloat16>(
+        pf, pc, static_cast<const __nv_bfloat16*>(vw), vb,
+        static_cast<const __nv_bfloat16*>(bw), bb, is_pad, log_z, hist, slabs,
+        static_cast<__nv_bfloat16*>(joint), blank, lex, part_m, part_l, nb,
+        beta, lp_part, bm, lp, num_frames, B, S, h, V, max_expansions,
+        frame_dependent, max_ysplits, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -12,12 +12,16 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Recognition lattice, PyTorch port: decoding and the training loss.
+"""Recognition lattice, PyTorch port: decoding, the training loss and the
+per-frame posteriors.
 
 Counterpart of ``last_torch_tpu/lattices.py``. Ported: ``init``,
 ``build_cache``, ``shortest_path`` through the Viterbi kernel
 (``ops/viterbi.py``, which also normalizes a locally normalized
-``JointWeightFn``), and ``loss`` / ``shortest_distance``. The loss is the
+``JointWeightFn``), ``loss`` / ``shortest_distance``, ``label_marginals``
+(the marginals kernel of ``ops/fused_scan.py`` inside its gate, the generic
+backward algorithm outside it) and ``arc_marginals`` (always the generic
+route, as in the JAX package). The loss is the
 globally normalized denominator minus the numerator, or minus the numerator
 alone for a ``LocallyNormalizedWeightFn``: the numerator is the string DP
 over the weight function's ``label_weights`` (the numerator kernels of
@@ -33,6 +37,7 @@ of them falls back to another route.
 
 from __future__ import annotations
 
+import math
 from collections.abc import Callable, Sequence
 from typing import Any, Optional
 
@@ -52,7 +57,6 @@ Params = dict[str, Any]
 # ROADMAP.md items named by the routes that are not ported yet.
 _REST = 'queue 1, item 7 ("lattices.py, the rest")'
 _WEIGHT_FNS = 'queue 1, item 6 ("weight_fns.py, the rest")'
-_MARGINALS = 'queue 1, item 4 ("label_marginals and arc_marginals")'
 _TRIGRAM = 'queue 2, item 6 (ops/trigram_scan.py kernels)'
 
 
@@ -87,7 +91,8 @@ class RecognitionLattice:
 
   @property
   def last_path(self) -> Optional[str]:
-    """Which path the last ``shortest_path`` or log-partition took.
+    """Which path the last ``shortest_path``, log-partition or
+    ``label_marginals`` took.
 
     'kernel' when it launched the CUDA kernels (CUDA tensors inside the
     kernels' gate), 'plain' when it ran their plain PyTorch versions (CPU
@@ -233,11 +238,96 @@ class RecognitionLattice:
     distance, _ = self._forward(params, cache, frames, num_frames, semiring)
     return distance
 
-  def arc_marginals(self, *args, **kwargs):
-    _not_ported('arc_marginals', _MARGINALS)
+  def arc_marginals(self, params: Params, frames: torch.Tensor, num_frames,
+                    cache=None, max_output_bytes: int = 4 * 1024**3):
+    """Arc posteriors by the backward algorithm (the dense output).
 
-  def label_marginals(self, *args, **kwargs):
-    _not_ported('label_marginals', _MARGINALS)
+    The generic route, as in the JAX package, where this never takes a
+    kernel: the forward loop saving the alpha history, then the reverse
+    loop with an identity callback.
+
+    Args:
+      params: Parameters from ``init``.
+      frames: [batch_dims..., max_num_frames, feature_size] padded frames.
+      num_frames: [batch_dims...] number of frames.
+      cache: Optional weight function cache.
+      max_output_bytes: Largest dense output allowed (default 4 GiB); a
+        larger one raises ValueError instead of allocating.
+
+    Returns:
+      (blank_marginals [batch_dims..., max_num_frames, num_context_states],
+      lexical_marginals [batch_dims..., max_num_frames, num_context_states,
+      vocab_size]): the posterior of each blank and lexical arc at each
+      frame. Padding frames give zeros.
+    """
+    num_states, vocab_size = self.context.shape()
+    batch = math.prod(frames.shape[:-2])
+    out_bytes = 4 * batch * frames.shape[-2] * num_states * (vocab_size + 1)
+    if out_bytes > max_output_bytes:
+      raise ValueError(
+          'arc_marginals would materialize a dense '
+          f'[batch={batch}, T={frames.shape[-2]}, S={num_states}, '
+          f'1+V={vocab_size + 1}] output of ~{out_bytes / 1024**3:.1f} GiB '
+          f'(> max_output_bytes={max_output_bytes / 1024**3:.1f} GiB). Use '
+          'label_marginals (O(T * (S + V)) outputs, through the marginals '
+          'kernel on the card) for per-frame posteriors at production '
+          'shapes, or raise max_output_bytes explicitly.')
+    return self._generic_marginals(params, frames, num_frames, cache,
+                                   lambda lexical: lexical)
+
+  def label_marginals(self, params: Params, frames: torch.Tensor,
+                      num_frames, cache=None):
+    """Per-frame blank and label posteriors (the confidence API).
+
+    The state-summed projection of ``arc_marginals``, with outputs of
+    O(T * (S + V)). Inside the kernels' gate it runs
+    ``fused_scan.label_marginals``: on CUDA tensors the forward and
+    marginals kernels with bfloat16 joint and head inputs, as the TPU
+    kernels; on CPU tensors their plain versions in float32, as the JAX
+    package computes off the TPU. Outside the gate (a locally normalized
+    weight function among others), the generic route.
+
+    Args:
+      params: Parameters from ``init``.
+      frames: [batch_dims..., max_num_frames, feature_size] padded frames.
+      num_frames: [batch_dims...] number of frames.
+      cache: Optional weight function cache.
+
+    Returns:
+      (blank_marginals [batch_dims..., max_num_frames, num_context_states],
+      label_marginals [batch_dims..., max_num_frames, vocab_size]): the
+      posterior of the blank arc leaving each state, summed over the
+      alignment's expansions, and of emitting label y + 1, summed over
+      source states and expansions. Padding frames give zeros; at a valid
+      frame they sum to the expected number of arcs taken there (1 for
+      FrameDependent).
+    """
+    num_frames = torch.as_tensor(num_frames, device=frames.device)
+    if tuple(frames.shape[:-2]) != tuple(num_frames.shape):
+      raise ValueError('frames and num_frames have different batch_dims: '
+                       f'{tuple(frames.shape[:-2])} vs '
+                       f'{tuple(num_frames.shape)}')
+    if fused_scan.supported(self, frames):
+      if cache is None:
+        cache = self.build_cache(params)
+      frame_dependent = isinstance(self.alignment, alignments.FrameDependent)
+      on_card = frames.device.type == 'cuda'
+      self._last_path = 'kernel' if on_card else 'plain'
+      return fused_scan.label_marginals(
+          params['weight_fn'], cache, frames, num_frames,
+          max_expansions=(0 if frame_dependent else
+                          self.alignment.max_expansions),
+          frame_dependent=frame_dependent,
+          compute_dtype=torch.bfloat16 if on_card else torch.float32)
+    if self._trigram_route(frames):
+      _not_ported('label_marginals of the trigram FullNGram(context_size=2)',
+                  _TRIGRAM)
+    if self._s1_route(frames):
+      _not_ported('label_marginals of the single-context-state (S = 1) '
+                  'lattice', _REST)
+    return self._generic_marginals(
+        params, frames, num_frames, cache,
+        lambda lexical: lexical.sum(dim=-2))
 
   def align(self, *args, **kwargs):
     _not_ported('align', _REST)
@@ -451,6 +541,28 @@ class RecognitionLattice:
     leaves, spec = pytree.tree_flatten(params['weight_fn'])
     return _GenericLogPartition.apply(self, num_frames, spec, cache, frames,
                                       *leaves)
+
+  @torch.no_grad()
+  def _generic_marginals(self, params, frames, num_frames, cache, project):
+    """(blank, project(lexical)) arc posteriors of the generic route: the
+    forward loop, then the reverse loop with an identity callback; each
+    frame's lexical posteriors [batch_dims..., S, V] pass through
+    ``project``. With no frames, empty outputs."""
+    num_frames = torch.as_tensor(num_frames, device=frames.device)
+    if cache is None:
+      cache = self.build_cache(params)
+    log_z, alpha_history = self._forward(params, cache, frames, num_frames,
+                                         semirings.Log)
+    _, marginals = self._backward(
+        params, cache, frames, num_frames, log_z, alpha_history, None,
+        lambda weight_vjp_fn, carry, blank_marginal, lexical_marginals: (
+            carry, (blank_marginal, project(lexical_marginals))))
+    if marginals is None:
+      num_states, vocab = self.context.shape()
+      empty = frames.new_zeros(tuple(num_frames.shape) + (0, num_states,
+                                                          vocab))
+      return empty[..., 0], project(empty)
+    return marginals
 
   def _backward(self, params, cache, frames, num_frames, log_z,
                 alpha_history, init_callback_carry, callback):

@@ -12,24 +12,40 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Log-partition (GN loss denominator) kernels for Hopper and their plain
-versions.
+"""Log-partition (GN loss denominator) and per-frame posterior kernels for
+Hopper, and their plain versions.
 
 Counterpart of ``last_torch_tpu/ops/fused_scan.py``. The per-frame forward
-scan (``_fused_forward_kernel`` there) and the reverse beta scan with the
-head and tanh gradients (``_fused_backward_kernel``) are the CUDA kernels of
-``csrc/fused_scan.cu``, reached through ``fused_forward`` and
-``fused_backward``: on a CUDA tensor they launch the kernels, on a CPU
-tensor they run ``fused_forward_plain`` / ``fused_backward_plain``, the same
-functions in plain PyTorch. ``log_partition`` joins the two in a
-``torch.autograd.Function``, as the JAX package's custom VJP does; the four
+scan (``_fused_forward_kernel`` there, and its vocabulary-tiled variant
+``_online_forward_kernel``), the reverse beta scan with the head and tanh
+gradients (``_fused_backward_kernel``, ``_online_backward_kernel``) and the
+reverse scan that emits posteriors (``_fused_marginals_kernel``) are the
+CUDA kernels of ``csrc/fused_scan.cu``, reached through ``fused_forward``,
+``fused_backward`` and ``fused_marginals``: on a CUDA tensor they launch
+the kernels, on a CPU tensor they run ``fused_forward_plain`` /
+``fused_backward_plain`` / ``fused_marginals_plain``, the same functions in
+plain PyTorch. ``log_partition`` joins the first two in a
+``torch.autograd.Function``, as the JAX package's custom VJP does;
+``label_marginals`` runs the forward and the marginals scan. The four
 frame-independent products around them (``frames @ frame_proj``,
 ``cache @ context_proj`` and their gradients) stay ``torch.matmul``.
 
-Scope is the JAX package's gate (``supported``): Log semiring, bigram
-``FullNGram``, ``JointWeightFn``, ``FrameDependent`` /
-``FrameLabelDependent``, one batch dimension. The vocabulary-tiled
-('online') variants for large V are still to port (ROADMAP queue 2).
+Modes. 'cache' stages the frame's lexical weights ([B, S, V] float32, and
+the backward's d_lex in the compute type) in device memory for the
+reductions after the first; 'online' keeps no [B, S, V] buffer and
+recomputes the head product for every reduction, for vocabularies whose
+staged buffers grow too large (they grow as V^2). ``plan`` picks one for
+``mode='auto'`` from the staged bytes. Both modes compute the same function,
+so on CPU tensors both run the same plain versions. The marginals scan
+stages lex, as the JAX package's runs only in its 'cache' mode.
+
+Scope is the structural half of the JAX package's gate (``supported``): Log
+semiring, bigram ``FullNGram``, ``JointWeightFn``, ``FrameDependent`` /
+``FrameLabelDependent``, one batch dimension. Its TPU rules do not apply
+here: the small-vocabulary cut-off and the VMEM planner that sends V past
+~1500 to the online kernels and refuses ``label_marginals`` there
+(``_plan``, ``marginals_supported``). Every bigram vocabulary takes the
+kernels, in the mode ``plan`` picks.
 """
 
 from __future__ import annotations
@@ -43,10 +59,14 @@ import torch
 
 from last_torch_tpu_torch import alignments, contexts, weight_fns
 
-# Calls that launched the CUDA forward / backward kernels, for runs that must
-# show the loss went through them. Only CUDA tensors count.
+# Calls that launched the CUDA kernels, for runs that must show which
+# kernels they went through: the forward and backward in 'cache' and in
+# 'online' mode, and the marginals scan. Only CUDA tensors count.
 forward_launches = 0
 backward_launches = 0
+online_forward_launches = 0
+online_backward_launches = 0
+marginals_launches = 0
 
 _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,6 +76,31 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _TILE = 64
 _BLOCKS_PER_SM = 4
 NEG_INF = float('-inf')
+
+MODES = ('cache', 'online')
+# The online backward forms d_lex for this many states at a time ([B, 512,
+# V] in the compute type: 32 MB at B=8, V=4096 in bfloat16).
+ONLINE_CHUNK_STATES = 512
+# 'auto' picks 'cache' while the backward's staged lexical buffers (lex in
+# float32 and d_lex in the compute type, [B, S, V] each) fit this many
+# bytes, 'online' beyond. At V=4096, B=8 (805 MB staged) the cache kernels
+# took 1.6-1.7x less time than the online ones on an H100, for 994 against
+# 257 MiB of working memory (PERF.md): staging wins wherever the
+# memory is there, so the budget is a memory one, a tenth of the card's.
+LEX_STAGE_BUDGET = 8 * 1024**3
+
+
+def plan(batch: int, num_states: int, vocab: int,
+         compute_dtype: torch.dtype) -> str:
+  """The mode ``mode='auto'`` takes: 'cache' or 'online'."""
+  itemsize = torch.empty((), dtype=compute_dtype).element_size()
+  staged = batch * num_states * vocab * (4 + itemsize)
+  return 'cache' if staged <= LEX_STAGE_BUDGET else 'online'
+
+
+def _check_mode(mode: str, allowed=MODES):
+  if mode not in allowed:
+    raise ValueError(f'mode must be one of {allowed}, got {mode!r}')
 
 
 def supported(lattice, frames: torch.Tensor, weight_fn=None) -> bool:
@@ -124,10 +169,12 @@ def library() -> ctypes.CDLL:
     from last_torch_tpu_torch.ops import build
     lib = build.load('fused_scan.cu')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_forward.argtypes = [i] + [p] * 16 + [i] * 8 + [p]
+    lib.fused_forward.argtypes = [i] + [p] * 16 + [i] * 9 + [p]
     lib.fused_forward.restype = i
-    lib.fused_backward.argtypes = [i] + [p] * 33 + [i] * 9 + [p]
+    lib.fused_backward.argtypes = [i] + [p] * 33 + [i] * 11 + [p]
     lib.fused_backward.restype = i
+    lib.fused_marginals.argtypes = [i] + [p] * 20 + [i] * 8 + [p]
+    lib.fused_marginals.restype = i
     lib.fused_error_string.argtypes = [i]
     lib.fused_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -154,7 +201,7 @@ def _raise_on(status: int, what: str):
 def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
                   is_pad: torch.Tensor, *, max_expansions: int,
                   frame_dependent: bool, compute_dtype: torch.dtype,
-                  with_residuals: bool):
+                  with_residuals: bool, mode: str = 'cache'):
   """Log-semiring forward scan: the kernel on CUDA, the plain version on CPU.
 
   Args:
@@ -170,6 +217,8 @@ def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
     with_residuals: Also write what the backward reads: the alpha history
       and, for FrameLabelDependent, the expansion slabs. A primal-only call
       leaves both unwritten.
+    mode: 'cache' (a frame's later reductions read its staged lex) or
+      'online' (each recomputes the head product; no [B, S, V] buffer).
 
   Returns:
     (log_z [B], final alpha [B, S], history [T, B, S] or None, slabs
@@ -177,7 +226,8 @@ def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
     padding frames); slabs[j, t] is the (j+1)-th expansion alpha of frame
     t, expand(reduce)^(j+1) of alpha, -inf on padding frames.
   """
-  global forward_launches
+  global forward_launches, online_forward_launches
+  _check_mode(mode)
   check_inputs(pf, pc, params, is_pad, compute_dtype, 'log-partition')
   kw = dict(max_expansions=max_expansions, frame_dependent=frame_dependent,
             compute_dtype=compute_dtype, with_residuals=with_residuals)
@@ -199,10 +249,11 @@ def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
   pad = is_pad.to(torch.int32)
   joint = empty(batch, num_states, hidden, dtype=compute_dtype)
   blank = empty(batch, num_states)
-  # With two or more reductions per frame the first stages the frame's
-  # lexical weights for the others (faster than recomputing the head
-  # product even at B=32, where they outgrow the L2 cache: PERF.md).
-  lex = empty(batch, num_states, vocab) if k >= 2 else None
+  # In 'cache' mode, with two or more reductions per frame the first stages
+  # the frame's lexical weights for the others (faster than recomputing the
+  # head product even at B=32, where they outgrow the L2 cache: PERF.md).
+  online = mode == 'online'
+  lex = empty(batch, num_states, vocab) if k >= 2 and not online else None
   strips = -(-vocab // _TILE)
   tiles = -(-num_states // _TILE)
   splits = grid_splits(strips * batch, tiles, device)
@@ -222,9 +273,12 @@ def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
         _ptr(pad), _ptr(joint), _ptr(blank), _ptr(lex), _ptr(part_m),
         _ptr(part_l), _ptr(last), _ptr(alpha), _ptr(hist), _ptr(slabs),
         max_t, batch, num_states, hidden, vocab, max_expansions,
-        int(frame_dependent), splits, stream)
+        int(frame_dependent), int(online), splits, stream)
   _raise_on(status, 'log-partition forward')
-  forward_launches += 1
+  if online:
+    online_forward_launches += 1
+  else:
+    forward_launches += 1
   final = alpha[max_t % 2]
   return torch.logsumexp(final, dim=-1), final, hist, slabs
 
@@ -232,28 +286,33 @@ def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
 def fused_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
                         params: dict[str, Any], is_pad: torch.Tensor, *,
                         max_expansions: int, frame_dependent: bool,
-                        compute_dtype: torch.dtype, with_residuals: bool):
+                        compute_dtype: torch.dtype, with_residuals: bool,
+                        mode: str = 'cache'):
   """The forward kernel's function in plain PyTorch (same arguments and
-  outputs).
+  outputs), in either mode: both compute the same function.
 
   With compute_dtype bfloat16 the joint and the head weights are rounded to
   bfloat16 and back, then multiplied in float32, so on the card this and
-  the kernel differ only in summation order (TF32 off).
+  the kernel differ only in summation order (TF32 off). It computes in the
+  type of its inputs: given float64 ones, it is a float64 reference of the
+  same rounded products.
   """
+  _check_mode(mode)
   max_t, batch, _ = pf.shape
   num_states = pc.shape[0]
   k = num_passes(max_expansions, frame_dependent)
-  rnd = lambda x: x.to(compute_dtype).float()
+  rnd = lambda x: x.to(compute_dtype).to(pf.dtype)
   vw, vb = rnd(params['vocab_w']), params['vocab_b']
   bw, bb = rnd(params['blank_w']), params['blank_b']
-  alpha = torch.full((batch, num_states), NEG_INF, device=pf.device)
+  empty = lambda *shape: torch.empty(shape, dtype=pf.dtype, device=pf.device)
+  alpha = empty(batch, num_states).fill_(NEG_INF)
   alpha[:, 0] = 0.0
   hist = slabs = None
   if with_residuals:
-    hist = torch.empty((max_t, batch, num_states), device=pf.device)
+    hist = empty(max_t, batch, num_states)
     if not frame_dependent and k:
-      slabs = torch.empty((k, max_t, batch, num_states), device=pf.device)
-  start_col = torch.full((batch, 1), NEG_INF, device=pf.device)
+      slabs = empty(k, max_t, batch, num_states)
+  start_col = empty(batch, 1).fill_(NEG_INF)
 
   for t in range(max_t):
     joint = rnd(torch.tanh(pc[None] + pf[t][:, None]))  # [B, S, h]
@@ -281,17 +340,36 @@ def fused_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
   return torch.logsumexp(alpha, dim=-1), alpha, hist, slabs
 
 
+def _check_residuals(pf, pc, max_expansions, frame_dependent, **residuals):
+  """Checks the forward's outputs (and a cotangent) that a reverse scan
+  reads: log_z [B], g [B], hist [T, B, S], slabs [k, T, B, S] (FLD only)."""
+  max_t, batch, _ = pf.shape
+  num_states = pc.shape[0]
+  k = num_passes(max_expansions, frame_dependent)
+  shapes = {'log_z': (batch,), 'g': (batch,),
+            'hist': (max_t, batch, num_states),
+            'slabs': (k, max_t, batch, num_states)}
+  for name, x in residuals.items():
+    if name == 'slabs' and (frame_dependent or not k):
+      continue
+    if x is None or tuple(x.shape) != shapes[name] or x.dtype != torch.float32:
+      raise ValueError(f'{name} should be float32 of shape {shapes[name]}')
+    if x.device != pf.device or not x.is_contiguous():
+      raise ValueError(f'{name} must be contiguous on {pf.device}')
+
+
 def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
                    is_pad: torch.Tensor, log_z: torch.Tensor, g: torch.Tensor,
                    hist: torch.Tensor, slabs: Optional[torch.Tensor], *,
                    max_expansions: int, frame_dependent: bool,
-                   compute_dtype: torch.dtype):
+                   compute_dtype: torch.dtype, mode: str = 'cache'):
   """Reverse beta scan with head and tanh gradients: the kernel on CUDA,
   the plain version on CPU.
 
   Args:
-    pf, pc, params, is_pad, max_expansions, frame_dependent, compute_dtype:
-      as ``fused_forward``.
+    pf, pc, params, is_pad, max_expansions, frame_dependent, compute_dtype,
+      mode: as ``fused_forward``. 'online' recomputes lex for every
+      reduction and forms d_lex ``ONLINE_CHUNK_STATES`` states at a time.
     log_z: [B] float32 from ``fused_forward``.
     g: [B] float32 cotangent of log_z.
     hist: [T, B, S] alpha history from ``fused_forward``.
@@ -303,21 +381,15 @@ def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
     sum(g * log_z) with respect to pf, pc and the head parameters, and
     beta at frame 0. Padding frames get exactly zero gradient.
   """
-  global backward_launches
+  global backward_launches, online_backward_launches
+  _check_mode(mode)
   check_inputs(pf, pc, params, is_pad, compute_dtype, 'log-partition')
+  _check_residuals(pf, pc, max_expansions, frame_dependent, log_z=log_z, g=g,
+                   hist=hist, slabs=slabs)
   max_t, batch, hidden = pf.shape
   num_states = pc.shape[0]
   vocab = params['vocab_w'].shape[-1]
   k = num_passes(max_expansions, frame_dependent)
-  residuals = {'log_z': (log_z, (batch,)), 'g': (g, (batch,)),
-               'hist': (hist, (max_t, batch, num_states))}
-  if not frame_dependent and k:
-    residuals['slabs'] = (slabs, (k, max_t, batch, num_states))
-  for name, (x, shape) in residuals.items():
-    if x is None or tuple(x.shape) != shape or x.dtype != torch.float32:
-      raise ValueError(f'{name} should be float32 of shape {shape}')
-    if x.device != pf.device or not x.is_contiguous():
-      raise ValueError(f'{name} must be contiguous on {pf.device}')
   kw = dict(max_expansions=max_expansions, frame_dependent=frame_dependent,
             compute_dtype=compute_dtype)
   if pf.device.type == 'cpu':
@@ -334,15 +406,18 @@ def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
   vw = params['vocab_w'].to(compute_dtype).contiguous()
   bw = params['blank_w'].to(compute_dtype).contiguous()
   pad = is_pad.to(torch.int32)
+  online = mode == 'online'
+  # The states whose d_lex is formed at a time: all of them in 'cache' mode.
+  chunk = min(num_states, ONLINE_CHUNK_STATES) if online else num_states
   tiles = -(-num_states // _TILE)
   strips = -(-vocab // _TILE)
   ysplits = grid_splits(tiles * batch, strips, device)
   ksplits = grid_splits(strips * -(-hidden // _TILE),
-                        -(-batch * num_states // _TILE), device)
+                        -(-batch * chunk // _TILE), device)
   joint = empty(batch, num_states, hidden, dtype=compute_dtype)
   blank = empty(batch, num_states)
-  lex = empty(batch, num_states, vocab)
-  d_lex = empty(batch, num_states, vocab, dtype=compute_dtype)
+  lex = None if online else empty(batch, num_states, vocab)
+  d_lex = empty(batch, chunk, vocab, dtype=compute_dtype)
   d_blank = empty(batch, num_states)
   part_m = empty(ysplits, batch, num_states)
   part_l = empty(ysplits, batch, num_states)
@@ -371,10 +446,46 @@ def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
         _ptr(dvw_acc), _ptr(dvb_acc), _ptr(dbw_acc), _ptr(dbb_acc),
         _ptr(dpc), _ptr(dvw), _ptr(dvb), _ptr(dbw), _ptr(dbb),
         max_t, batch, num_states, hidden, vocab, max_expansions,
-        int(frame_dependent), ysplits, ksplits, stream)
+        int(frame_dependent), int(online), chunk, ysplits, ksplits, stream)
   _raise_on(status, 'log-partition backward')
-  backward_launches += 1
+  if online:
+    online_backward_launches += 1
+  else:
+    backward_launches += 1
   return dpf, dpc, dvw, dvb, dbw, dbb[0], beta[max_t % 2]
+
+
+def _reverse_frame(pc, pf_t, is_pad_t, hist_t, slabs_t, beta, rnd, head,
+                   frame_dependent, k):
+  """One frame of the plain reverse scans (backward and marginals).
+
+  Returns (joint32, joint, lex, blank, a_list, pairs, next beta): the
+  frame's unrounded and rounded joint, its lexical and blank weights, the
+  alphas a_0..a_k, the (a_j, nb_j) pairs of the lexical marginals, and the
+  beta that the frame before reads (held on padding rows).
+  """
+  vw, vb, bw, bb = head
+  joint32 = torch.tanh(pc[None] + pf_t[:, None])  # [B, S, h]
+  joint = rnd(joint32)
+  lex = joint @ vw + vb  # [B, S, V]
+  blank = joint @ bw + bb  # [B, S]
+
+  def lse_y(nb):  # out[b, s] = logsumexp_y(lex[b, s, y] + nb[b, 1 + y])
+    return torch.logsumexp(lex + nb[:, None, 1:], dim=-1)
+
+  a_list = [hist_t]
+  if frame_dependent:
+    pairs = [(hist_t, beta)]
+    final_nb = torch.logaddexp(blank + beta, lse_y(beta))
+  else:
+    a_list += [slabs_t[j] for j in range(k)]
+    pairs, nb = [], blank + beta
+    for j in range(k - 1, -1, -1):
+      pairs.append((a_list[j], nb))
+      nb = torch.logaddexp(blank + beta, lse_y(nb))
+    final_nb = nb
+  next_beta = torch.where(is_pad_t[:, None], beta, final_nb)
+  return joint32, joint, lex, blank, a_list, pairs, next_beta
 
 
 def fused_backward_plain(pf: torch.Tensor, pc: torch.Tensor,
@@ -382,15 +493,16 @@ def fused_backward_plain(pf: torch.Tensor, pc: torch.Tensor,
                          log_z: torch.Tensor, g: torch.Tensor,
                          hist: torch.Tensor, slabs: Optional[torch.Tensor],
                          *, max_expansions: int, frame_dependent: bool,
-                         compute_dtype: torch.dtype):
+                         compute_dtype: torch.dtype, mode: str = 'cache'):
   """The backward kernel's function in plain PyTorch (same arguments and
-  outputs).
+  outputs), in either mode.
 
   It rounds at the kernel's points: the joint and the head weights for the
   products, and the lexical cotangent ``d_lex`` (as the TPU kernel did);
   the tanh derivative, the blank-head gradient and the blank part of
   d(joint) use the float32 joint and ``blank_w``.
   """
+  _check_mode(mode)
   max_t, batch, hidden = pf.shape
   num_states = pc.shape[0]
   k = num_passes(max_expansions, frame_dependent)
@@ -409,27 +521,10 @@ def fused_backward_plain(pf: torch.Tensor, pc: torch.Tensor,
   lz = log_z[:, None]
 
   for t in range(max_t - 1, -1, -1):
-    real = ~is_pad[t]
-    g_eff = torch.where(real, g, 0.0)
-    joint32 = torch.tanh(pc[None] + pf[t][:, None])  # [B, S, h]
-    joint = rnd(joint32)
-    lex = joint @ vw + vb  # [B, S, V]
-    blank = joint @ bw + bb  # [B, S]
-
-    def lse_y(nb):  # out[b, s] = logsumexp_y(lex[b, s, y] + nb[b, 1 + y])
-      return torch.logsumexp(lex + nb[:, None, 1:], dim=-1)
-
-    a_list = [hist[t]]
-    if frame_dependent:
-      pairs = [(hist[t], beta)]
-      final_nb = torch.logaddexp(blank + beta, lse_y(beta))
-    else:
-      a_list += [slabs[j, t] for j in range(k)]
-      pairs, nb = [], blank + beta
-      for j in range(k - 1, -1, -1):
-        pairs.append((a_list[j], nb))
-        nb = torch.logaddexp(blank + beta, lse_y(nb))
-      final_nb = nb
+    g_eff = torch.where(is_pad[t], 0.0, g)
+    joint32, joint, lex, blank, a_list, pairs, next_beta = _reverse_frame(
+        pc, pf[t], is_pad[t], hist[t], None if slabs is None else slabs[:, t],
+        beta, rnd, (vw, vb, bw, bb), frame_dependent, k)
     bm_total = sum(torch.exp(a + blank + beta - lz) for a in a_list)
     d_blank = g_eff[:, None] * bm_total
     lm = torch.zeros_like(lex)
@@ -445,8 +540,115 @@ def fused_backward_plain(pf: torch.Tensor, pc: torch.Tensor,
     d_pre = d_joint * (1.0 - joint32 * joint32)
     dpf[t] = d_pre.sum(dim=1)
     dpc += d_pre.sum(dim=0)
-    beta = torch.where(real[:, None], final_nb, beta)
+    beta = next_beta
   return dpf, dpc, dvw, dvb, dbw, dbb, beta
+
+
+def fused_marginals(pf: torch.Tensor, pc: torch.Tensor,
+                    params: dict[str, Any], is_pad: torch.Tensor,
+                    log_z: torch.Tensor, hist: torch.Tensor,
+                    slabs: Optional[torch.Tensor], *, max_expansions: int,
+                    frame_dependent: bool, compute_dtype: torch.dtype):
+  """Reverse scan emitting per-frame posteriors: the kernel on CUDA, the
+  plain version on CPU.
+
+  Args:
+    pf, pc, params, is_pad, max_expansions, frame_dependent, compute_dtype:
+      as ``fused_forward``.
+    log_z, hist, slabs: from ``fused_forward(..., with_residuals=True)``.
+
+  Returns:
+    (bm [T, B, S], lp [T, B, V]) float32: the posterior of the blank arc
+    leaving each state, summed over the alignment's expansions, and the
+    posterior of emitting label y + 1, summed over source states and
+    expansions. Padding frames give exact zeros.
+  """
+  global marginals_launches
+  check_inputs(pf, pc, params, is_pad, compute_dtype, 'marginals')
+  _check_residuals(pf, pc, max_expansions, frame_dependent, log_z=log_z,
+                   hist=hist, slabs=slabs)
+  kw = dict(max_expansions=max_expansions, frame_dependent=frame_dependent,
+            compute_dtype=compute_dtype)
+  if pf.device.type == 'cpu':
+    return fused_marginals_plain(pf, pc, params, is_pad, log_z, hist, slabs,
+                                 **kw)
+  if pf.device.type != 'cuda':
+    raise ValueError(f'no marginals kernel for device {pf.device}')
+
+  lib = library()
+  max_t, batch, hidden = pf.shape
+  num_states = pc.shape[0]
+  vocab = params['vocab_w'].shape[-1]
+  k = num_passes(max_expansions, frame_dependent)
+  device = pf.device
+  empty = lambda *shape, dtype=torch.float32: torch.empty(
+      shape, dtype=dtype, device=device)
+  vw = params['vocab_w'].to(compute_dtype).contiguous()
+  bw = params['blank_w'].to(compute_dtype).contiguous()
+  pad = is_pad.to(torch.int32)
+  tiles = -(-num_states // _TILE)
+  strips = -(-vocab // _TILE)
+  ysplits = grid_splits(tiles * batch, strips, device)
+  # Scratch, held until the call has enqueued every launch (a buffer freed
+  # earlier could be handed to the next allocation).
+  joint = empty(batch, num_states, hidden, dtype=compute_dtype)
+  blank = empty(batch, num_states)
+  lex = empty(batch, num_states, vocab)
+  part_m = empty(ysplits, batch, num_states)
+  part_l = empty(ysplits, batch, num_states)
+  nb = empty(max(k, 1), batch, num_states)
+  beta = torch.zeros((2, batch, num_states), device=device)
+  lp_part = empty(batch, tiles, vocab)
+  bm = empty(max_t, batch, num_states)
+  lp = empty(max_t, batch, vocab)
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = lib.fused_marginals(
+        _DTYPE_CODES[compute_dtype], _ptr(pf), _ptr(pc), _ptr(vw),
+        _ptr(params['vocab_b']), _ptr(bw), _ptr(params['blank_b']),
+        _ptr(pad), _ptr(log_z), _ptr(hist), _ptr(slabs), _ptr(joint),
+        _ptr(blank), _ptr(lex), _ptr(part_m), _ptr(part_l), _ptr(nb),
+        _ptr(beta), _ptr(lp_part), _ptr(bm), _ptr(lp), max_t, batch,
+        num_states, hidden, vocab, max_expansions, int(frame_dependent),
+        ysplits, stream)
+  _raise_on(status, 'marginals')
+  marginals_launches += 1
+  return bm, lp
+
+
+def fused_marginals_plain(pf: torch.Tensor, pc: torch.Tensor,
+                          params: dict[str, Any], is_pad: torch.Tensor,
+                          log_z: torch.Tensor, hist: torch.Tensor,
+                          slabs: Optional[torch.Tensor], *,
+                          max_expansions: int, frame_dependent: bool,
+                          compute_dtype: torch.dtype):
+  """The marginals kernel's function in plain PyTorch (same arguments and
+  outputs): the backward's recurrence with a unit cotangent, no gradients.
+  Computes in the type of its inputs, as ``fused_forward_plain``.
+  """
+  max_t, batch, _ = pf.shape
+  k = num_passes(max_expansions, frame_dependent)
+  rnd = lambda x: x.to(compute_dtype).to(pf.dtype)
+  head = (rnd(params['vocab_w']), params['vocab_b'], rnd(params['blank_w']),
+          params['blank_b'])
+  zeros = lambda *shape: torch.zeros(shape, dtype=pf.dtype, device=pf.device)
+  beta = zeros(batch, pc.shape[0])
+  bm = zeros(max_t, batch, pc.shape[0])
+  lp = zeros(max_t, batch, head[0].shape[-1])
+  lz = log_z[:, None]
+  for t in range(max_t - 1, -1, -1):
+    _, _, lex, blank, a_list, pairs, next_beta = _reverse_frame(
+        pc, pf[t], is_pad[t], hist[t], None if slabs is None else slabs[:, t],
+        beta, rnd, head, frame_dependent, k)
+    real = ~is_pad[t][:, None]
+    bm_t = sum(torch.exp(a + blank + beta - lz) for a in a_list)
+    lp_t = sum(torch.exp(a[:, :, None] + lex + (nb[:, None, 1:] -
+                                                lz[:, None])).sum(dim=1)
+               for a, nb in pairs)
+    bm[t] = torch.where(real, bm_t, 0.0)
+    lp[t] = torch.where(real, lp_t, 0.0)
+    beta = next_beta
+  return bm, lp
 
 
 @dataclasses.dataclass(frozen=True)
@@ -454,6 +656,7 @@ class _Config:
   max_expansions: int
   frame_dependent: bool
   compute_dtype: torch.dtype
+  mode: str
   forward: Callable
   backward: Callable
 
@@ -480,7 +683,8 @@ class _LogPartition(torch.autograd.Function):
     log_z, _, hist, slabs = config.forward(
         pf, pc, head, is_pad, max_expansions=config.max_expansions,
         frame_dependent=config.frame_dependent,
-        compute_dtype=config.compute_dtype, with_residuals=True)
+        compute_dtype=config.compute_dtype, with_residuals=True,
+        mode=config.mode)
     ctx.config = config
     ctx.save_for_backward(cache, frames, frame_proj, context_proj, vocab_w,
                           vocab_b, blank_w, blank_b, pf, pc, is_pad, log_z,
@@ -498,7 +702,7 @@ class _LogPartition(torch.autograd.Function):
         pf, pc, head, is_pad, log_z, g.float().contiguous(), hist, slabs,
         max_expansions=config.max_expansions,
         frame_dependent=config.frame_dependent,
-        compute_dtype=config.compute_dtype)
+        compute_dtype=config.compute_dtype, mode=config.mode)
     d_frame_proj = torch.einsum('btf,tbh->fh', frames, dpf)
     d_context_proj = cache.t() @ dpc
     d_cache = dpc @ context_proj.t()
@@ -510,7 +714,7 @@ class _LogPartition(torch.autograd.Function):
 def log_partition(wf_params: dict[str, Any], cache: torch.Tensor,
                   frames: torch.Tensor, num_frames: torch.Tensor, *,
                   max_expansions: int, frame_dependent: bool,
-                  compute_dtype: torch.dtype,
+                  compute_dtype: torch.dtype, mode: str = 'auto',
                   forward: Callable = fused_forward,
                   backward: Callable = fused_backward) -> torch.Tensor:
   """Differentiable log-partition (GN loss denominator), [B] log Z.
@@ -520,10 +724,15 @@ def log_partition(wf_params: dict[str, Any], cache: torch.Tensor,
   the gradients of ``wf_params``, ``cache`` and ``frames``. The defaults
   launch the kernels on CUDA tensors and run the plain versions on CPU
   tensors; ``fused_forward_plain`` / ``fused_backward_plain`` run the plain
-  versions on the card too.
+  versions on the card too. ``mode`` is 'cache', 'online' or 'auto'
+  (``plan``'s choice for these shapes).
   """
-  config = _Config(max_expansions, frame_dependent, compute_dtype, forward,
-                   backward)
+  _check_mode(mode, MODES + ('auto',))
+  if mode == 'auto':
+    mode = plan(frames.shape[0], cache.shape[0],
+                wf_params['vocab_w'].shape[-1], compute_dtype)
+  config = _Config(max_expansions, frame_dependent, compute_dtype, mode,
+                   forward, backward)
   num_frames = torch.as_tensor(num_frames, device=frames.device)
   names = ('frame_proj', 'context_proj', 'vocab_w', 'vocab_b', 'blank_w',
            'blank_b')
@@ -537,5 +746,38 @@ def log_partition(wf_params: dict[str, Any], cache: torch.Tensor,
   log_z, _, _, _ = forward(pf, pc, head, is_pad,
                            max_expansions=max_expansions,
                            frame_dependent=frame_dependent,
-                           compute_dtype=compute_dtype, with_residuals=False)
+                           compute_dtype=compute_dtype, with_residuals=False,
+                           mode=mode)
   return log_z
+
+
+@torch.no_grad()
+def label_marginals(wf_params: dict[str, Any], cache: torch.Tensor,
+                    frames: torch.Tensor, num_frames: torch.Tensor, *,
+                    max_expansions: int, frame_dependent: bool,
+                    compute_dtype: torch.dtype,
+                    forward: Callable = fused_forward,
+                    marginals: Callable = fused_marginals):
+  """Per-frame posteriors (counterpart of the JAX package's
+  ``fused_label_marginals``): the forward with its residuals, then the
+  marginals scan. No gradient (the JAX function has none either).
+
+  The defaults launch the kernels on CUDA tensors and run the plain
+  versions on CPU tensors; ``fused_forward_plain`` /
+  ``fused_marginals_plain`` run the plain versions on the card too.
+
+  Returns:
+    (blank_marginals [B, T, S], label_marginals [B, T, V]) float32, zero on
+    padding frames.
+  """
+  num_frames = torch.as_tensor(num_frames, device=frames.device)
+  pf, pc, is_pad = _stage(cache, frames, num_frames, wf_params['frame_proj'],
+                          wf_params['context_proj'])
+  head = {n: wf_params[n] for n in ('vocab_w', 'vocab_b', 'blank_w',
+                                    'blank_b')}
+  kw = dict(max_expansions=max_expansions, frame_dependent=frame_dependent,
+            compute_dtype=compute_dtype)
+  log_z, _, hist, slabs = forward(pf, pc, head, is_pad, with_residuals=True,
+                                  **kw)
+  bm, lp = marginals(pf, pc, head, is_pad, log_z, hist, slabs, **kw)
+  return bm.transpose(0, 1).contiguous(), lp.transpose(0, 1).contiguous()

@@ -141,8 +141,17 @@ def test_wrappers_reject_bad_inputs():
   with pytest.raises(ValueError, match='slabs should be'):
     fused_scan.fused_backward(pf, pc, head, is_pad, log_z,
                               torch.from_numpy(g), hist, None, **kw)
+  with pytest.raises(ValueError, match='hist should be'):
+    fused_scan.fused_marginals(pf, pc, head, is_pad, log_z, hist[1:], slabs,
+                               **kw)
+  with pytest.raises(ValueError, match='bigram'):
+    fused_scan.fused_marginals(pf, pc[:-1].contiguous(), head, is_pad, log_z,
+                               hist, slabs, **kw)
+  meta = lambda x: x.to('meta')
+  meta_head = {n: meta(x) for n, x in head.items()}
   with pytest.raises(ValueError, match='no log-partition kernel'):
-    meta = lambda x: x.to('meta')
-    fused_scan.fused_forward(meta(pf), meta(pc),
-                             {n: meta(x) for n, x in head.items()},
-                             meta(is_pad), with_residuals=False, **kw)
+    fused_scan.fused_forward(meta(pf), meta(pc), meta_head, meta(is_pad),
+                             with_residuals=False, **kw)
+  with pytest.raises(ValueError, match='no marginals kernel'):
+    fused_scan.fused_marginals(meta(pf), meta(pc), meta_head, meta(is_pad),
+                               meta(log_z), meta(hist), meta(slabs), **kw)

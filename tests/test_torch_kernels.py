@@ -294,6 +294,108 @@ def test_log_partition_kernels_match_plain_on_card(card, case,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', sorted(FUSED_CARD_CASES))
+def test_online_kernels_match_plain_and_cache_on_card(card, case,
+                                                      compute_dtype):
+  vocab, hidden, k, fd = FUSED_CARD_CASES[case]
+  pf, pc, params, is_pad = fused_inputs(2, vocab, hidden, max_t=12,
+                                        lengths=[12, 7, 0], device=card)
+  kw = dict(max_expansions=k, frame_dependent=fd,
+            compute_dtype=compute_dtype)
+  g = torch.tensor([1.0, 0.0, 1.0], device=card)  # row 1: zero cotangent
+  before = (fused_scan.online_forward_launches,
+            fused_scan.online_backward_launches)
+  fwd_o = fused_scan.fused_forward(pf, pc, params, is_pad,
+                                   with_residuals=True, mode='online', **kw)
+  bwd_o = fused_scan.fused_backward(pf, pc, params, is_pad, fwd_o[0], g,
+                                    fwd_o[2], fwd_o[3], mode='online', **kw)
+  torch.cuda.synchronize()
+  assert (fused_scan.online_forward_launches,
+          fused_scan.online_backward_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+  fwd_c = fused_scan.fused_forward(pf, pc, params, is_pad,
+                                   with_residuals=True, **kw)
+  bwd_c = fused_scan.fused_backward(pf, pc, params, is_pad, fwd_c[0], g,
+                                    fwd_c[2], fwd_c[3], **kw)
+  fwd_p = fused_scan.fused_forward_plain(pf, pc, params, is_pad,
+                                         with_residuals=True, **kw)
+  bwd_p = fused_scan.fused_backward_plain(pf, pc, params, is_pad, fwd_p[0],
+                                          g, fwd_p[2], fwd_p[3], **kw)
+  # As the cache kernels against plain (test above); against the cache
+  # kernels the same bounds hold: the products are the same, only the
+  # order of the float32 sums differs (d_lex chunks, recomputed lex).
+  bf16 = compute_dtype == torch.bfloat16
+  for fwd, bwd in ((fwd_p, bwd_p), (fwd_c, bwd_c)):
+    for name, got, want in zip(('log_z', 'alpha', 'hist', 'slabs'), fwd_o,
+                               fwd):
+      if want is not None:
+        assert rel_err(got, want) <= (1e-4 if bf16 else 1e-5), name
+    names = ('dpf', 'dpc', 'dvw', 'dvb', 'dbw', 'dbb', 'beta_out')
+    for name, got, want in zip(names, bwd_o, bwd):
+      if name == 'beta_out':
+        assert rel_err(got, want) <= (1e-4 if bf16 else 1e-5), name
+      else:
+        assert rel_err(got, want, per_output=True) <= (
+            1e-3 if bf16 else 1e-4), name
+  dpf = bwd_o[0]
+  assert torch.all(dpf[:, 1] == 0) and torch.all(dpf[:, 2] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', sorted(FUSED_CARD_CASES))
+def test_marginals_kernel_matches_plain_on_card(card, case, compute_dtype):
+  vocab, hidden, k, fd = FUSED_CARD_CASES[case]
+  pf, pc, params, is_pad = fused_inputs(5, vocab, hidden, max_t=12,
+                                        lengths=[12, 7, 0], device=card)
+  kw = dict(max_expansions=k, frame_dependent=fd,
+            compute_dtype=compute_dtype)
+  log_z, _, hist, slabs = fused_scan.fused_forward_plain(
+      pf, pc, params, is_pad, with_residuals=True, **kw)
+  before = fused_scan.marginals_launches
+  bm, lp = fused_scan.fused_marginals(pf, pc, params, is_pad, log_z, hist,
+                                      slabs, **kw)
+  torch.cuda.synchronize()
+  assert fused_scan.marginals_launches == before + 1
+  bm_p, lp_p = fused_scan.fused_marginals_plain(pf, pc, params, is_pad,
+                                                log_z, hist, slabs, **kw)
+  # Posteriors as the backward's gradients (the same exps with g = 1).
+  bf16 = compute_dtype == torch.bfloat16
+  assert rel_err(bm, bm_p, per_output=True) <= (1e-3 if bf16 else 1e-4)
+  assert rel_err(lp, lp_p, per_output=True) <= (1e-3 if bf16 else 1e-4)
+  # Padding frames and the empty row: exact zeros.
+  assert torch.all(bm[7:, 1] == 0) and torch.all(lp[7:, 1] == 0)
+  assert torch.all(bm[:, 2] == 0) and torch.all(lp[:, 2] == 0)
+  if not fd:  # one blank arc per frame on every path
+    blank = bm[:7, :2].sum(-1)
+    assert torch.allclose(blank, torch.ones_like(blank), rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_kernels_take_no_frames_on_card(card):
+  pf, pc, params, is_pad = fused_inputs(6, 130, 40, max_t=0, lengths=[0, 0],
+                                        device=card)
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  g = torch.ones(2, device=card)
+  for mode in fused_scan.MODES:
+    log_z, alpha, hist, slabs = fused_scan.fused_forward(
+        pf, pc, params, is_pad, with_residuals=True, mode=mode, **kw)
+    assert torch.all(log_z == 0) and hist.shape == (0, 2, 131)
+    grads = fused_scan.fused_backward(pf, pc, params, is_pad, log_z, g, hist,
+                                      slabs, mode=mode, **kw)
+    assert grads[0].shape == (0, 2, 40)
+    for x in grads[1:-1]:
+      assert torch.all(x == 0)
+  bm, lp = fused_scan.fused_marginals(pf, pc, params, is_pad, log_z, hist,
+                                      slabs, **kw)
+  assert bm.shape == (0, 2, 131) and lp.shape == (0, 2, 130)
+
+
+@pytest.mark.cuda
 def test_log_partition_kernels_give_exact_zeros_on_card(card):
   pf, pc, params, is_pad = fused_inputs(3, 130, 40, max_t=6,
                                         lengths=[6, 3, 0], device=card)

@@ -160,7 +160,9 @@ def test_configs_outside_the_gate_raise():
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     lattice.shortest_path(torch_params, frames[None], num_frames[None])
   with pytest.raises(NotImplementedError, match='ROADMAP'):
-    lattice.label_marginals(torch_params, frames, num_frames)
+    lattice.align(torch_params, frames, num_frames,
+                  torch.ones((len(NUM_FRAMES), 2), dtype=torch.int32),
+                  torch.full((len(NUM_FRAMES),), 2))
 
   class MyJoint(weight_fns.JointWeightFn):
     pass
