@@ -20,8 +20,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 1. Device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for float32 matmuls and convolutions.
 2. Build: compiles ``last_torch_tpu_torch/csrc/viterbi.cu``,
-   ``csrc/fused_scan.cu`` and ``csrc/numerator_scan.cu`` for sm_90a, one
-   nvcc each, side by side.
+   ``csrc/fused_scan.cu`` (which also holds the trigram kernels) and
+   ``csrc/numerator_scan.cu`` for sm_90a, one nvcc each, side by side.
 3. Viterbi kernel against its plain PyTorch version on the card, T=64,
    B=4, V in {1024, 1000}, FD / FLD(1) / FLD(2), float32 and bfloat16, and
    with hat and log-softmax normalization (FD, FLD(2)).
@@ -41,6 +41,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    same forward residuals; padding frames and the empty row exactly 0.
 5d. Online log-partition kernels against their plain versions and against
    the cache kernels at phase 5's shapes and at a ragged V=520.
+5e. The trigram log-partition kernels (the trigram mode of
+   ``csrc/fused_scan.cu``) against their plain versions: T=64, B=4, V=64
+   (S=4161) and a ragged V=50, FD / FLD(1) / FLD(2), float32 and bfloat16,
+   with zero-cotangent and empty rows.
 6. Training main path: 3 ``train_step``s of the phase-4 model on 8
    utterances of up to 1600 frames through the log-partition kernels, timed
    with CUDA events; step 1's loss and gradients against the same step
@@ -75,6 +79,16 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``log_partition(mode='online')`` forward and backward, counted; each
    mode's kernels alone against the plain versions, timed, with their peak
    device memory.
+10. Trigram main path: 3 ``train_step``s of
+   ``gnat_global_bigram(vocab_size=64, context_size=2)`` at full width on 8
+   utterances of phase 9's lengths through the trigram kernels, step 1
+   against the plain versions, one step profiled, the kernels alone at the
+   step's shapes; a decode of the same utterances on the generic route
+   (no kernel), rescored in float64 along its trigram state walk and held
+   to the same route in float64; ``label_marginals`` (generic route),
+   their structure checked.
+10b. The trigram kernels alone at the JAX package's trigram probe shapes
+   (V=64, S=4161, B=8, T=200, FLD(2), bf16) against their plain versions.
 
 Each phase prints one line or more with its seconds, and the run its total;
 any failure exits non-zero before the last line, which is ``{"ok": true,
@@ -85,6 +99,7 @@ nothing of JAX.
 """
 
 import concurrent.futures
+import functools
 import json
 import subprocess
 import sys
@@ -180,12 +195,14 @@ def normalized(torch, lex, blank, normalize):
 
 
 def rescore(torch, labels, num_frames, pf, pc, params, *, max_expansions,
-            frame_dependent, compute_dtype, normalize='none'):
+            frame_dependent, compute_dtype, normalize='none', context=None):
   """Scores of the given alignments under the plain arc weights (float64).
 
-  Walks each alignment through the bigram context: a lexical slot y from
-  state q scores lex[q, y] (less q's normalizer c[q]) and moves to state y;
-  the frame's blank slot scores blank[q] (normalized).
+  Walks each alignment through the context (the bigram's unless a
+  ``context`` is given): a lexical slot y from state q scores lex[q, y]
+  (less q's normalizer c[q]) and moves to the state after q and y (y
+  itself in the bigram); the frame's blank slot scores blank[q]
+  (normalized).
   """
   rnd = lambda x: x.to(compute_dtype).float()
   vw = rnd(params['vocab_w'])
@@ -214,7 +231,8 @@ def rescore(torch, labels, num_frames, pf, pc, params, *, max_expansions,
       else:
         weight = torch.where(y > 0, lexical, torch.zeros_like(lexical))
       score += torch.where(real, weight, 0.0).double()
-      q = torch.where(real & (y > 0), y, q)
+      after = y if context is None else context.next_state(q, y)
+      q = torch.where(real & (y > 0), after, q)
   return score
 
 
@@ -440,10 +458,12 @@ LP_NUM_FRAMES = [64, 50, 0, 17]
 LP_G = [1.0, 0.0, 0.7, 1.3]
 
 
-def lp_inputs(torch, rng, vocab, max_t=64, batch=4, hidden=512):
-  """Random kernel inputs (pf, pc, head) of the log-partition phases."""
+def lp_inputs(torch, rng, vocab, max_t=64, batch=4, hidden=512, states=None):
+  """Random kernel inputs (pf, pc, head) of the log-partition phases, over
+  ``states`` context states (the bigram's V + 1 by default)."""
   pf = torch.from_numpy(rand(rng, (max_t, batch, hidden))).cuda()
-  pc = torch.from_numpy(rand(rng, (vocab + 1, hidden))).cuda()
+  pc = torch.from_numpy(rand(rng, (vocab + 1 if states is None else states,
+                                   hidden))).cuda()
   params = {
       'vocab_w': torch.from_numpy(rand(rng, (hidden, vocab),
                                        hidden**-0.5)).cuda(),
@@ -591,18 +611,18 @@ def phase_online_vs_plain(torch, fused_scan):
   return lines
 
 
-def plain_mean_loss(torch, model, fused_scan, semirings, params, frames,
-                    num_frames, labels, num_labels):
-  """``GNATModel.mean_loss`` with the log-partition's plain versions."""
+def plain_mean_loss(torch, model, plain_log_partition, semirings, params,
+                    frames, num_frames, labels, num_labels):
+  """``GNATModel.mean_loss`` with the log-partition's plain versions
+  (``plain_log_partition``, a route's 'plain')."""
   lattice = model.lattice
   lattice_params = params['lattice']
   encoded = model.encoder.apply(params['encoder'], frames, num_frames)
   cache = lattice.build_cache(lattice_params)
-  denominator = fused_scan.log_partition(
+  denominator = plain_log_partition(
       lattice_params['weight_fn'], cache, encoded, num_frames,
       max_expansions=lattice.alignment.max_expansions, frame_dependent=False,
-      compute_dtype=torch.bfloat16, forward=fused_scan.fused_forward_plain,
-      backward=fused_scan.fused_backward_plain)
+      compute_dtype=torch.bfloat16)
   numerator = lattice._string_forward(lattice_params, cache, encoded,
                                       num_frames, labels, num_labels,
                                       semirings.Log)
@@ -644,15 +664,45 @@ def counts(module):
           if name.endswith('launches')}
 
 
-def train_and_check(torch, gnat, fused_scan, semirings, pytree, config,
-                    num_frames_list, num_labels_list, phase):
+def bigram_route(torch, fused_scan, config, batch_size):
+  """The log-partition route of a bigram GN model for ``train_and_check``:
+  the mode 'auto' plans, its kernels' counters, the other mode's (which
+  must stay at 0) and the plain versions' log Z."""
+  mode = fused_scan.plan(batch_size, config.vocab_size + 1, config.vocab_size,
+                         torch.bfloat16)
+  other = 'online' if mode == 'cache' else 'cache'
+  return {'name': mode, 'module': fused_scan, 'counters': LP_COUNTERS[mode],
+          'idle': [(fused_scan, n) for n in LP_COUNTERS[other]],
+          'plain': functools.partial(
+              fused_scan.log_partition, mode=mode,
+              forward=fused_scan.fused_forward_plain,
+              backward=fused_scan.fused_backward_plain),
+          'report': f'log-partition mode {mode!r} (plan for \'auto\')'}
+
+
+def trigram_route(fused_scan, trigram_scan):
+  """The log-partition route of a trigram GN model for ``train_and_check``:
+  the trigram kernels, with every bigram log-partition counter idle."""
+  return {'name': 'trigram', 'module': trigram_scan,
+          'counters': ('forward_launches', 'backward_launches'),
+          'idle': [(fused_scan, n) for n in counts(fused_scan)],
+          'plain': functools.partial(
+              trigram_scan.log_partition,
+              forward=trigram_scan.trigram_forward_plain,
+              backward=trigram_scan.trigram_backward_plain),
+          'report': 'trigram log-partition kernels'}
+
+
+def train_and_check(torch, gnat, semirings, pytree, config, num_frames_list,
+                    num_labels_list, phase, route):
   """A GN training main path: step 1 through the kernels against the same
   step through their plain versions, then TRAIN_STEPS counted and timed
   train steps (their losses finite and falling), then one more step under
   the profiler. Utterances: random features from numpy seed 0 at the given
-  lengths, random labels at the given counts. Prints its lines; returns
-  (model, optimizer, state, batch, mode, (forward, backward) launches of
-  the mode's kernels), mode being what ``log_partition``'s 'auto' chose."""
+  lengths, random labels at the given counts. ``route`` names the
+  log-partition kernels the model must take (``bigram_route``,
+  ``trigram_route``). Prints its lines; returns (model, optimizer, state,
+  batch, (forward, backward) launches of the route's kernels)."""
   model = gnat.GNATModel(config, device='cuda')
   optimizer = gnat.make_optimizer(LEARNING_RATE)
   state = gnat.init_train_state(model, torch.Generator().manual_seed(0),
@@ -668,8 +718,7 @@ def train_and_check(torch, gnat, fused_scan, semirings, pytree, config,
   num_labels = torch.tensor(num_labels_list, device='cuda')
   batch = (frames, num_frames, labels, num_labels)
   real_frames = sum(num_frames_list)
-  mode = fused_scan.plan(batch_size, config.vocab_size + 1, config.vocab_size,
-                         torch.bfloat16)
+  module, names = route['module'], route['counters']
 
   # Step 1 through the kernels and through the plain versions.
   leaves = pytree.tree_leaves(state.params)
@@ -679,7 +728,7 @@ def train_and_check(torch, gnat, fused_scan, semirings, pytree, config,
   check(model.lattice.last_path == 'kernel',
         f'last_path is {model.lattice.last_path!r}, not kernel')
   loss_p, grads_p = loss_and_grads(
-      torch, leaves, lambda: plain_mean_loss(torch, model, fused_scan,
+      torch, leaves, lambda: plain_mean_loss(torch, model, route['plain'],
                                              semirings, state.params,
                                              *batch))
   loss_rel = abs(loss_k - loss_p) / abs(loss_p)
@@ -706,11 +755,9 @@ def train_and_check(torch, gnat, fused_scan, semirings, pytree, config,
 
   # The main path: train steps through the kernels, counted and timed.
   losses, step_ms, per_step = [], [], []
-  names = LP_COUNTERS[mode]
-  other = LP_COUNTERS['online' if mode == 'cache' else 'cache']
-  reset_counts(fused_scan)
+  reset_counts(module, *{m for m, _ in route['idle']})
   for _ in range(TRAIN_STEPS):
-    before = [getattr(fused_scan, n) for n in names]
+    before = [getattr(module, n) for n in names]
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -719,44 +766,47 @@ def train_and_check(torch, gnat, fused_scan, semirings, pytree, config,
     torch.cuda.synchronize()
     step_ms.append(start.elapsed_time(end))
     losses.append(loss.item())
-    per_step.append(tuple(getattr(fused_scan, n) - c
+    per_step.append(tuple(getattr(module, n) - c
                           for n, c in zip(names, before)))
-  launches = tuple(getattr(fused_scan, n) for n in names)
+  launches = tuple(getattr(module, n) for n in names)
   check(model.lattice.last_path == 'kernel',
         f'last_path is {model.lattice.last_path!r}, not kernel')
   check(all(f >= 1 and b >= 1 for f, b in per_step),
-        f'a train step did not launch both {mode} kernels: {per_step}')
-  check(all(getattr(fused_scan, n) == 0 for n in other),
-        f'the train steps launched kernels of the mode not planned: '
-        f'{counts(fused_scan)}')
+        f'a train step did not launch both {route["name"]} kernels: '
+        f'{per_step}')
+  check(all(getattr(m, n) == 0 for m, n in route['idle']),
+        f'the train steps launched kernels off their route: '
+        f'{[(m.__name__, n) for m, n in route["idle"] if getattr(m, n)]}')
   check(all(np.isfinite(losses)) and
         all(b < a for a, b in zip(losses, losses[1:])),
         f'losses not finite and decreasing: {losses}')
   check(abs(losses[0] - loss_k) <= 1e-6 * abs(loss_k),
         f'train step 1 loss {losses[0]} != mean_loss {loss_k}')
   say(phase,
-      f'gnat_global_bigram(vocab_size={config.vocab_size}) B={batch_size} '
-      f'T_max={max_t} U_max={max(num_labels_list)}, {TRAIN_STEPS} train '
-      f'steps: losses ' + ', '.join(f'{x:.6g}' for x in losses) +
+      f'gnat_global_bigram(vocab_size={config.vocab_size}, context_size='
+      f'{config.context_size}) B={batch_size} T_max={max_t} '
+      f'U_max={max(num_labels_list)}, {TRAIN_STEPS} train steps: losses '
+      + ', '.join(f'{x:.6g}' for x in losses) +
       '; step ms ' + ', '.join(f'{x:.1f}' for x in step_ms) + ' ('
       + ', '.join(f'{real_frames / x * 1e3:.0f}' for x in step_ms)
-      + f' real frames/s); log-partition mode {mode!r} (plan for \'auto\'); '
-      f'kernel launches per step (forward, backward) {per_step}; last_path '
-      'kernel')
+      + f' real frames/s); {route["report"]}; kernel launches per step '
+      f'(forward, backward) {per_step}; last_path kernel')
 
   say(phase, 'one more step under the profiler: ' + device_profile(
       torch, lambda: gnat.train_step(model, optimizer, state, *batch)))
-  return model, optimizer, state, batch, mode, launches
+  return model, optimizer, state, batch, launches
 
 
 def phase_training(torch, gnat, presets, fused_scan, semirings, pytree):
   """Phase 6: the training main path. Prints its lines; returns the
   log-partition kernels' records for the JSON line."""
   config = presets.gnat_global_bigram()
-  model, optimizer, state, batch, mode, launches = train_and_check(
-      torch, gnat, fused_scan, semirings, pytree, config, NUM_FRAMES,
-      NUM_LABELS, 'train')
-  check(mode == 'cache', f'the V=1024 step planned {mode!r}, not cache')
+  route = bigram_route(torch, fused_scan, config, len(NUM_FRAMES))
+  check(route['name'] == 'cache',
+        f'the V=1024 step planned {route["name"]!r}, not cache')
+  model, optimizer, state, batch, launches = train_and_check(
+      torch, gnat, semirings, pytree, config, NUM_FRAMES, NUM_LABELS, 'train',
+      route)
   frames, num_frames, labels, num_labels = batch
   batch_size, max_t = frames.shape[:2]
   # Each kernel alone against its plain version at the step's shapes, and
@@ -771,8 +821,8 @@ def phase_training(torch, gnat, presets, fused_scan, semirings, pytree):
   g = torch.full((batch_size,), 1.0 / batch_size, device='cuda')
   kw = dict(max_expansions=config.max_expansions, frame_dependent=False,
             compute_dtype=torch.bfloat16)
-  records = kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw,
-                          launches)
+  records = kernels_alone(torch, bigram_kernels(fused_scan, 'cache'), pf, pc,
+                          head, is_pad, g, kw, launches)
   records.pop('plain')
   say('train', records.pop('line'))
 
@@ -808,28 +858,83 @@ LP_KERNELS = {'cache': (('fused_forward', 122), ('fused_backward', 255)),
               'online': (('online_forward', 712), ('online_backward', 867))}
 
 
-def kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw, launches,
-                  mode='cache', plain=None):
-  """The log-partition kernels of ``mode`` alone against their plain
-  versions, timed once each with CUDA events, with the JSON records of both
-  kernels and the peak device memory of the kernel pair (inputs included).
-  ``plain``: the plain versions' (outputs, ms) from an earlier call on the
-  same inputs, returned as 'plain'; timed anew when None."""
+def judge_by_float64(torch, kernels, pf, pc, head, is_pad, g, kw, bwd_k,
+                     bwd_p, grad_rtol):
+  """Holds the kernel's gradients to the plain versions run in float64 (the
+  same bfloat16 roundings of the joint and head, float64 sums): each output
+  |kernel - ref|max / |ref|max within max(grad_rtol, twice the float32
+  plain version's). A gradient summed over thousands of states with
+  cancellation (d(pf)) carries float32's log-space rounding in either
+  version. Returns a report."""
+  head_64 = {n: x.double() for n, x in head.items()}
+  fwd_64 = kernels['forward_plain'](pf.double(), pc.double(), head_64, is_pad,
+                                    with_residuals=True, **kw)
+  bwd_64 = kernels['backward_plain'](pf.double(), pc.double(), head_64,
+                                     is_pad, fwd_64[0], g.double(), fwd_64[2],
+                                     fwd_64[3], **kw)
+  report = []
+  for name, k, p, ref in zip(BACKWARD_NAMES, bwd_k, bwd_p, bwd_64):
+    if name.endswith('*'):
+      continue
+    scale = ref.abs().max().item()
+    err_k = (k.double() - ref).abs().max().item() / scale
+    err_p = (p.double() - ref).abs().max().item() / scale
+    check(err_k <= max(grad_rtol, 2 * err_p),
+          f'{name}: kernel {err_k:.3g} from the float64 reference, float32 '
+          f'plain {err_p:.3g}')
+    report.append(f'{name} {err_k:.2e} (plain {err_p:.2e})')
+  return ('; gradients vs the float64 plain versions, kernel (float32 '
+          'plain): ' + ', '.join(report))
+
+
+def bigram_kernels(fused_scan, mode):
+  """The bigram log-partition kernels of ``mode`` for ``kernels_alone``."""
+  (fwd_name, fwd_line), (bwd_name, bwd_line) = LP_KERNELS[mode]
+  return {'forward': functools.partial(fused_scan.fused_forward, mode=mode),
+          'backward': functools.partial(fused_scan.fused_backward, mode=mode),
+          'forward_plain': fused_scan.fused_forward_plain,
+          'backward_plain': fused_scan.fused_backward_plain,
+          'records': ((fwd_name, f'fused_scan.py:{fwd_line}'),
+                      (bwd_name, f'fused_scan.py:{bwd_line}')),
+          'label': f'log-partition kernels alone, {mode} mode'}
+
+
+def trigram_kernels(trigram_scan):
+  """The trigram log-partition kernels for ``kernels_alone``."""
+  return {'forward': trigram_scan.trigram_forward,
+          'backward': trigram_scan.trigram_backward,
+          'forward_plain': trigram_scan.trigram_forward_plain,
+          'backward_plain': trigram_scan.trigram_backward_plain,
+          'records': (('trigram_forward', 'trigram_scan.py:380'),
+                      ('trigram_backward', 'trigram_scan.py:689')),
+          'label': 'trigram log-partition kernels alone'}
+
+
+def kernels_alone(torch, kernels, pf, pc, head, is_pad, g, kw, launches,
+                  plain=None, float64_reference=False):
+  """A log-partition kernel pair (``bigram_kernels``, ``trigram_kernels``)
+  alone against its plain versions, timed once each with CUDA events, with
+  the JSON records of both kernels and the peak device memory of the kernel
+  pair (inputs included). ``plain``: the plain versions' (outputs, ms) from
+  an earlier call on the same inputs, returned as 'plain'; timed anew when
+  None. With ``float64_reference`` the gradients are judged against the
+  plain versions run in float64 on the same bfloat16-rounded products: the
+  kernel must be within max(gradient rtol, twice the float32 plain
+  version's own error) of that reference (``judge_by_float64``)."""
   torch.cuda.synchronize()
   resident = torch.cuda.memory_allocated()
   torch.cuda.reset_peak_memory_stats()
-  fwd_k, fwd_ms = timed(torch, lambda: fused_scan.fused_forward(
-      pf, pc, head, is_pad, with_residuals=True, mode=mode, **kw))
-  bwd_k, bwd_ms = timed(torch, lambda: fused_scan.fused_backward(
-      pf, pc, head, is_pad, fwd_k[0], g, fwd_k[2], fwd_k[3], mode=mode,
-      **kw))
+  fwd_k, fwd_ms = timed(torch, lambda: kernels['forward'](
+      pf, pc, head, is_pad, with_residuals=True, **kw))
+  bwd_k, bwd_ms = timed(torch, lambda: kernels['backward'](
+      pf, pc, head, is_pad, fwd_k[0], g, fwd_k[2], fwd_k[3], **kw))
   peak = torch.cuda.max_memory_allocated()
   if plain is None:
     fwd_p, plain_fwd_ms = timed(
-        torch, lambda: fused_scan.fused_forward_plain(
+        torch, lambda: kernels['forward_plain'](
             pf, pc, head, is_pad, with_residuals=True, **kw))
     bwd_p, plain_bwd_ms = timed(
-        torch, lambda: fused_scan.fused_backward_plain(
+        torch, lambda: kernels['backward_plain'](
             pf, pc, head, is_pad, fwd_p[0], g, fwd_p[2], fwd_p[3], **kw))
     plain = (fwd_p, plain_fwd_ms, bwd_p, plain_bwd_ms)
   fwd_p, plain_fwd_ms, bwd_p, plain_bwd_ms = plain
@@ -838,9 +943,18 @@ def kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw, launches,
   grad_rtol = max(grad_rtol, LP_LONG_ROUNDINGS * 2.0**-24 * log_z_max)
   rtols = value_rtol, grad_rtol
   fwd_err = max_errors(torch, fwd_k, fwd_p, FORWARD_NAMES, rtols)
-  bwd_err = max_errors(torch, bwd_k, bwd_p, BACKWARD_NAMES, rtols)
+  judged = ''
+  if float64_reference:
+    # Gradients: kernel against plain unjudged here (abs errors only), both
+    # against float64.
+    bwd_err = max_errors(torch, bwd_k, bwd_p, BACKWARD_NAMES,
+                         (value_rtol, np.inf))
+    judged = judge_by_float64(torch, kernels, pf, pc, head, is_pad, g, kw,
+                              bwd_k, bwd_p, grad_rtol)
+  else:
+    bwd_err = max_errors(torch, bwd_k, bwd_p, BACKWARD_NAMES, rtols)
   max_t, batch, hidden = pf.shape
-  line = (f'log-partition kernels alone, {mode} mode, bf16 B={batch} '
+  line = (f'{kernels["label"]}, bf16 B={batch} '
           f'T={max_t} S={pc.shape[0]} V={head["vocab_w"].shape[1]} '
           f'h={hidden} FLD({kw["max_expansions"]}): forward kernel '
           f'{fwd_ms:.1f} ms, plain {plain_fwd_ms:.1f} ms; backward kernel '
@@ -849,7 +963,7 @@ def kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw, launches,
           f'MiB resident before); vs plain (|log Z| up to {log_z_max:.4g}, '
           f'gradient rtol {grad_rtol:.2e}): '
           + ', '.join(f'{n} {e:.2e}' for n, (e, _) in
-                      {**fwd_err, **bwd_err}.items()))
+                      {**fwd_err, **bwd_err}.items()) + judged)
   # The least work either mode could do: one head product per real
   # frame-row (the cache mode's later reductions of a frame read the staged
   # lex); the backward runs three.
@@ -857,18 +971,18 @@ def kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw, launches,
   inputs = nbytes(pf, pc, *head.values(), is_pad)
   fwd_bytes = inputs + nbytes(*fwd_k)
   bwd_bytes = inputs + nbytes(fwd_k[0], g, fwd_k[2], fwd_k[3], *bwd_k)
-  (fwd_name, fwd_line), (bwd_name, bwd_line) = LP_KERNELS[mode]
-  record = lambda name, line_no, count, err, ms, plain_ms, ops, traffic: (
-      kernel_record(name, 'fused_scan.cu', f'fused_scan.py:{line_no}', count,
-                    err, ms, plain_ms, ops, traffic, 'bfloat16'))
+  (fwd_name, fwd_replaces), (bwd_name, bwd_replaces) = kernels['records']
+  record = lambda name, replaces, count, err, ms, plain_ms, ops, traffic: (
+      kernel_record(name, 'fused_scan.cu', replaces, count, err, ms,
+                    plain_ms, ops, traffic, 'bfloat16'))
   return {
-      'line': line + (f'; bounds {bound(flops, fwd_bytes, "bfloat16")[0]:.1f}'
-                      f' / {bound(3 * flops, bwd_bytes, "bfloat16")[0]:.1f} '
+      'line': line + (f'; bounds {bound(flops, fwd_bytes, "bfloat16")[0]:.3g}'
+                      f' / {bound(3 * flops, bwd_bytes, "bfloat16")[0]:.3g} '
                       'ms'),
-      'forward': record(fwd_name, fwd_line, launches[0],
+      'forward': record(fwd_name, fwd_replaces, launches[0],
                         fwd_err['log_z'][1], fwd_ms, plain_fwd_ms, flops,
                         fwd_bytes),
-      'backward': record(bwd_name, bwd_line, launches[1],
+      'backward': record(bwd_name, bwd_replaces, launches[1],
                          max(e[1] for n, e in bwd_err.items()
                              if n != 'beta_out'), bwd_ms, plain_bwd_ms,
                          3 * flops, bwd_bytes),
@@ -878,12 +992,13 @@ def kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw, launches,
 
 
 def bench_lattice(torch, lattices, contexts, alignments, weight_fns, vocab,
-                  hidden=512):
+                  hidden=512, context_size=1):
   """bench.py::build_lattice's GN lattice (FLD(2), SharedEmbCacher and
   joint hidden ``hidden``, bfloat16 heads on the card), with parameters from
-  seed 0."""
+  seed 0; ``context_size=2`` gives the trigram lattice of the JAX package's
+  trigram probe (benchmarks/tpu_trigram_probe.py)."""
   lattice = lattices.RecognitionLattice(
-      context=contexts.FullNGram(vocab_size=vocab, context_size=1),
+      context=contexts.FullNGram(vocab_size=vocab, context_size=context_size),
       alignment=alignments.FrameLabelDependent(max_expansions=2),
       weight_fn_cacher_factory=lambda ctx: weight_fns.SharedEmbCacher(
           num_context_states=ctx.shape()[0], embedding_size=hidden),
@@ -940,8 +1055,8 @@ def phase_headline(torch, lattices, contexts, alignments, weight_fns, gnat,
   g = torch.ones((batch_size,), device='cuda')
   kw = dict(max_expansions=2, frame_dependent=False,
             compute_dtype=torch.bfloat16)
-  records = kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw,
-                          (None, None))
+  records = kernels_alone(torch, bigram_kernels(fused_scan, 'cache'), pf, pc,
+                          head, is_pad, g, kw, (None, None))
   say('headline', records['line'])
   del pf, pc, records, cache, frames
 
@@ -1746,9 +1861,11 @@ def phase_large_vocab(torch, gnat, presets, fused_scan, semirings, pytree,
   config = presets.gnat_global_bigram(vocab_size=4096)
   num_frames_list = [n // 8 for n in NUM_FRAMES]
   num_labels_list = [n // 4 for n in num_frames_list]
-  model, _, state, batch, mode, launches = train_and_check(
-      torch, gnat, fused_scan, semirings, pytree, config, num_frames_list,
-      num_labels_list, 'large-vocab')
+  route = bigram_route(torch, fused_scan, config, len(num_frames_list))
+  mode = route['name']
+  model, _, state, batch, launches = train_and_check(
+      torch, gnat, semirings, pytree, config, num_frames_list,
+      num_labels_list, 'large-vocab', route)
   frames, num_frames = batch[:2]
   params = state.params
   decode = lambda: model.decode(params, frames, num_frames)
@@ -1848,12 +1965,12 @@ def phase_config9(torch, lattices, contexts, alignments, weight_fns,
               'gnat_global_bigram(vocab_size=4096) train steps':
                   count if train_mode == 'online' else 0}
              for name, count in zip(LP_COUNTERS['online'], train_launches)]
-  cache_rec = kernels_alone(torch, fused_scan, pf, pc, head, is_pad, g, kw,
-                            (None, None), mode='cache')
+  cache_rec = kernels_alone(torch, bigram_kernels(fused_scan, 'cache'), pf, pc,
+                            head, is_pad, g, kw, (None, None))
   say('config9', cache_rec['line'])
   online_rec = kernels_alone(
-      torch, fused_scan, pf, pc, head, is_pad, g, kw,
-      tuple(sum(paths.values()) for paths in by_path), mode='online',
+      torch, bigram_kernels(fused_scan, 'online'), pf, pc, head, is_pad, g,
+      kw, tuple(sum(paths.values()) for paths in by_path),
       plain=cache_rec.pop('plain'))
   say('config9', online_rec['line'])
   peak_mib = {mode: rec['peak'] / 2**20 for mode, rec in
@@ -1861,6 +1978,204 @@ def phase_config9(torch, lattices, contexts, alignments, weight_fns,
   return [dict(online_rec[key], launches_by_path=paths,
                cache_mode_ms=cache_rec[key]['ms'], peak_mib=peak_mib)
           for key, paths in zip(('forward', 'backward'), by_path)]
+
+
+def phase_trigram_vs_plain(torch, contexts, trigram_scan):
+  """Phase 5e: the trigram log-partition kernels against their plain
+  versions: T=64, B=4, V=64 (S=4161) and a ragged V=50 (S=2551), FD /
+  FLD(1) / FLD(2), float32 and bfloat16, with phase 5's zero-cotangent and
+  empty rows."""
+  rng = np.random.default_rng(9)
+  is_pad = padding(torch, LP_NUM_FRAMES, 64)
+  g = torch.tensor(LP_G, device='cuda')
+  lines = []
+  for vocab in (64, 50):
+    pf, pc, params = lp_inputs(torch, rng, vocab,
+                               states=contexts.FullNGram(
+                                   vocab_size=vocab,
+                                   context_size=2).num_states())
+    for name, k, fd in ALIGNMENT_CASES:
+      for dtype in (torch.float32, torch.bfloat16):
+        kw = dict(max_expansions=k, frame_dependent=fd, compute_dtype=dtype)
+        tag = f'V={vocab} S={pc.shape[0]} {name} {str(dtype)[6:]}'
+        fwd_k = trigram_scan.trigram_forward(pf, pc, params, is_pad,
+                                             with_residuals=True, **kw)
+        fwd_p = trigram_scan.trigram_forward_plain(pf, pc, params, is_pad,
+                                                   with_residuals=True, **kw)
+        bwd_k = trigram_scan.trigram_backward(pf, pc, params, is_pad,
+                                              fwd_k[0], g, fwd_k[2],
+                                              fwd_k[3], **kw)
+        bwd_p = trigram_scan.trigram_backward_plain(pf, pc, params, is_pad,
+                                                    fwd_p[0], g, fwd_p[2],
+                                                    fwd_p[3], **kw)
+        torch.cuda.synchronize()
+        rtols = LP_RTOL[str(dtype)[6:]]
+        try:
+          errors = max_errors(torch, fwd_k, fwd_p, FORWARD_NAMES, rtols)
+          errors.update(max_errors(torch, bwd_k, bwd_p, BACKWARD_NAMES,
+                                   rtols))
+        except SmokeFailure as e:
+          raise SmokeFailure(f'trigram {tag}: {e}') from None
+        dpf, beta_out = bwd_k[0], bwd_k[-1]
+        check(fwd_k[0][2].item() == 0.0 and bool((beta_out[2] == 0).all()),
+              f'trigram {tag}: the empty row has log Z or beta_out != 0')
+        check(not bool(dpf[:, 1:3].any()),
+              f'trigram {tag}: the g = 0 row or the empty row has nonzero '
+              'd(pf)')
+        value = max(e for n, (e, _) in errors.items() if n in
+                    ('log_z', 'alpha', 'hist', 'slabs', 'beta_out'))
+        grad_name, (grad, _) = max(
+            ((n, e) for n, e in errors.items() if n.startswith('d')),
+            key=lambda item: item[1][0])
+        lines.append(f'{tag}: values max rel {value:.2e}, gradients max rel '
+                     f'{grad:.2e} ({grad_name}); g=0 and empty rows exactly 0')
+  return lines
+
+
+# Phase 10's utterances: phase 6's lengths / 8 (1033 real frames), one
+# label per 4 frames.
+TRIGRAM_NUM_FRAMES = [n // 8 for n in NUM_FRAMES]
+TRIGRAM_NUM_LABELS = [n // 4 for n in TRIGRAM_NUM_FRAMES]
+# Phase 10's float32 generic decode against the same route in float64.
+F64_DECODE_RTOL = 1e-5
+
+
+def phase_trigram(torch, gnat, presets, fused_scan, trigram_scan, semirings,
+                  pytree, modules):
+  """Phase 10: the trigram main path,
+  gnat_global_bigram(vocab_size=64, context_size=2) at full width (S=4161,
+  FLD(2)): 3 train steps through the trigram kernels, step 1 against the
+  plain versions, one step profiled; the kernels alone at the step's
+  shapes; a decode of the same utterances on the generic route, rescored in
+  float64 along its trigram state walk and held to the same route in
+  float64; label_marginals (generic route), their structure checked.
+  Returns the trigram kernels' records."""
+  config = presets.gnat_global_bigram(vocab_size=64, context_size=2)
+  model, _, state, batch, launches = train_and_check(
+      torch, gnat, semirings, pytree, config, TRIGRAM_NUM_FRAMES,
+      TRIGRAM_NUM_LABELS, 'trigram', trigram_route(fused_scan, trigram_scan))
+  frames, num_frames = batch[:2]
+  batch_size, max_t = frames.shape[:2]
+  params = state.params
+  lattice, lattice_params = model.lattice, params['lattice']
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+  cache, pf, pc, head = staged_lattice_inputs(torch, lattice, lattice_params,
+                                              encoded)
+  is_pad = padding(torch, num_frames, max_t)
+  g = torch.full((batch_size,), 1.0 / batch_size, device='cuda')
+  kw = dict(max_expansions=config.max_expansions, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  records = kernels_alone(torch, trigram_kernels(trigram_scan), pf, pc, head,
+                          is_pad, g, kw, launches, float64_reference=True)
+  records.pop('plain')
+  say('trigram', records.pop('line'))
+
+  # Serving: GNATModel.decode on the generic route, which launches no
+  # kernel; then the tropical forward alone, without the mask's gradient.
+  decode = lambda: model.decode(params, frames, num_frames)
+  decode()  # warm-up
+  torch.cuda.synchronize()
+  reset_counts(*modules)
+  (labels, num_labels, weights), decode_ms = timed(torch, decode)
+  check(lattice.last_path == 'generic',
+        f'the trigram decode took {lattice.last_path!r}, not generic')
+  check(not any(v for m in modules for v in counts(m).values()),
+        'the generic decode launched a kernel')
+  num_align = config.max_expansions + 1
+  check(torch.equal(num_labels, num_align * num_frames.int()),
+        'num_alignment_labels != 3 * num_frames')
+  check(int(labels.min()) >= 0 and int(labels.max()) <= config.vocab_size,
+        'labels outside [0, V]')
+  slot = torch.arange(labels.shape[1], device='cuda')[None]
+  check(not bool(labels[slot >= num_labels[:, None]].any()),
+        'padding slots are not blank')
+  check(bool(torch.isfinite(weights).all()), 'path weights not finite')
+  with torch.no_grad():
+    best, forward_ms = timed(torch, lambda: lattice.shortest_distance(
+        lattice_params, encoded, num_frames, semiring=semirings.MaxTropical,
+        cache=cache))
+  best_rel = relative(torch, weights, best).max().item()
+  check(best_rel <= F32_RTOL, f'decode path weights differ from the '
+        f'tropical shortest distance by {best_rel:.3g}')
+  # Each alignment rescored in float64 along its FullNGram(2) state walk.
+  with torch.no_grad():
+    rescored = rescore(torch, labels, num_frames, pf, pc, head,
+                       max_expansions=config.max_expansions,
+                       frame_dependent=False, compute_dtype=torch.float32,
+                       context=lattice.context)
+  rescored_rel = relative(torch, rescored, weights).max().item()
+  check(rescored_rel <= BF16_RTOL, f'a decoded alignment rescores '
+        f'{rescored_rel:.3g} relative from its path weight')
+  # The same route in float64.
+  params_64 = pytree.tree_map(lambda x: x.detach().double(), lattice_params)
+  with torch.no_grad():
+    (labels_64, num_64, weights_64), decode_64_ms = timed(
+        torch, lambda: lattice.shortest_path(params_64, encoded.double(),
+                                             num_frames))
+  rel_64 = relative(torch, weights, weights_64).max().item()
+  check(torch.equal(num_labels, num_64) and rel_64 <= F64_DECODE_RTOL,
+        f'float32 decode weights {rel_64:.3g} relative from float64')
+  real_slots = slot < num_labels[:, None]
+  agreement = 1.0 - int(((labels != labels_64) & real_slots).sum()) / int(
+      real_slots.sum())
+  check(agreement >= BF16_MIN_SLOT_AGREEMENT,
+        f'float32 and float64 decodes agree on {agreement:.5f} of the slots')
+  real_frames = sum(TRIGRAM_NUM_FRAMES)
+  say('trigram', f'decode (generic route, float32) B={batch_size} '
+      f'T_max={max_t} S={pc.shape[0]}: {decode_ms:.1f} ms '
+      f'({real_frames / decode_ms * 1e3:.0f} real frames/s, no kernel '
+      f'launched); the tropical forward alone (no mask gradient, no '
+      f'checkpoint recompute) {forward_ms:.1f} ms; vs it {best_rel:.2e}; '
+      f'rescored in float64 along the trigram state walk {rescored_rel:.2e}; '
+      f'float64 route {decode_64_ms:.1f} ms, weights {rel_64:.2e}, slot '
+      f'agreement {agreement:.5f} of {int(real_slots.sum())}')
+
+  # Label posteriors on the generic route.
+  with torch.no_grad():
+    (bm, lp), marg_ms = timed(torch, lambda: lattice.label_marginals(
+        lattice_params, encoded, num_frames, cache=cache))
+    check(lattice.last_path == 'generic',
+          'trigram label_marginals left the generic route')
+    log_z = lattice._forward(lattice_params, cache, encoded, num_frames,
+                             semirings.Log)[0]
+  check(tuple(bm.shape) == (batch_size, max_t, pc.shape[0]) and
+        tuple(lp.shape) == (batch_size, max_t, config.vocab_size),
+        'trigram posteriors of the wrong shape')
+  worst = max_t * 2.0**-24 * log_z.abs().max().item()
+  drift, ratio = posterior_checks(torch, bm, lp, num_frames,
+                                  config.max_expansions, worst,
+                                  long_rtol(log_z))
+  say('trigram', f'label_marginals (generic route, float32) {marg_ms:.1f} '
+      f'ms; blank sums within exp(+-{drift:.3g}) of 1 (worst case '
+      f'exp(+-{worst:.3g})), label sums at most {ratio:.4f} blank sums; '
+      'padding 0')
+  return records
+
+
+def phase_trigram_probe(torch, lattices, contexts, alignments, weight_fns,
+                        trigram_scan, records):
+  """Phase 10b: the trigram kernels alone at the JAX package's trigram probe
+  shapes (benchmarks/tpu_trigram_probe.py: V=64, S=4161, B=8, every row
+  T=200, h=emb=feature=512, FLD(2), bf16), against their plain versions.
+  Adds the times to phase 10's records."""
+  vocab, batch_size, max_t = 64, 8, 200
+  lattice, params = bench_lattice(torch, lattices, contexts, alignments,
+                                  weight_fns, vocab, context_size=2)
+  rng = np.random.default_rng(0)
+  frames = torch.from_numpy(rand(rng, (batch_size, max_t, 512), 0.5)).cuda()
+  _, pf, pc, head = staged_lattice_inputs(torch, lattice, params, frames)
+  is_pad = padding(torch, torch.full((batch_size,), max_t), max_t)
+  g = torch.ones((batch_size,), device='cuda')
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  probe = kernels_alone(torch, trigram_kernels(trigram_scan), pf, pc, head,
+                        is_pad, g, kw, (None, None), float64_reference=True)
+  say('trigram-probe', probe['line'])
+  for key in ('forward', 'backward'):
+    records[key].update(probe_ms=probe[key]['ms'],
+                        probe_plain_ms=probe[key]['plain_ms'],
+                        probe_bound_ms=probe[key]['bound_ms'])
 
 
 def main():
@@ -1874,7 +2189,7 @@ def main():
                                       semirings, weight_fns)
     from last_torch_tpu_torch.models import gnat, presets
     from last_torch_tpu_torch.ops import (build, fused_scan, numerator_scan,
-                                          viterbi)
+                                          trigram_scan, viterbi)
   except ImportError as e:
     raise SmokeFailure(f'run from the root of a checkout ({e})') from None
 
@@ -2038,6 +2353,13 @@ def main():
   print(f'[online-kernel-vs-plain] {time.perf_counter() - t0:.1f} s',
         flush=True)
 
+  # Phase 5e: the trigram kernels against plain.
+  t0 = time.perf_counter()
+  for line in phase_trigram_vs_plain(torch, contexts, trigram_scan):
+    print(f'[trigram-kernel-vs-plain] {line}', flush=True)
+  print(f'[trigram-kernel-vs-plain] {time.perf_counter() - t0:.1f} s',
+        flush=True)
+
   # Phase 6: the training main path.
   t0 = time.perf_counter()
   records = phase_training(torch, gnat, presets, fused_scan, semirings,
@@ -2065,7 +2387,7 @@ def main():
                      numerator_scan, semirings, pytree)
   print(f'[hat-headline] {time.perf_counter() - t0:.1f} s', flush=True)
 
-  modules = (viterbi, fused_scan, numerator_scan)
+  modules = (viterbi, fused_scan, numerator_scan, trigram_scan)
   # Phase 8: the confidence main path.
   t0 = time.perf_counter()
   torch.cuda.empty_cache()
@@ -2105,11 +2427,27 @@ def main():
                                  weight_fns, fused_scan, modules,
                                  (mode, large_launches))
   print(f'[config9] {time.perf_counter() - t0:.1f} s', flush=True)
+
+  # Phase 10: the trigram main path (training, decode, posteriors).
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  trigram_records = phase_trigram(torch, gnat, presets, fused_scan,
+                                  trigram_scan, semirings, pytree, modules)
+  print(f'[trigram] {time.perf_counter() - t0:.1f} s', flush=True)
+
+  # Phase 10b: the trigram kernels at the JAX package's trigram probe shapes.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  phase_trigram_probe(torch, lattices, contexts, alignments, weight_fns,
+                      trigram_scan, trigram_records)
+  print(f'[trigram-probe] {time.perf_counter() - t0:.1f} s', flush=True)
   print(f'[total] {time.perf_counter() - start:.1f} s', flush=True)
 
   print(json.dumps({'kernels': [viterbi_record, records['forward'],
                                 records['backward'], *numerator_records,
-                                marginals_record, *online_records]}))
+                                marginals_record, *online_records,
+                                trigram_records['forward'],
+                                trigram_records['backward']]}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu',
       'kind': torch.cuda.get_device_name(0),

@@ -112,6 +112,32 @@
 // state tile) block writes its own partial, one reduce launch per frame adds
 // them (no atomics, deterministic). lex is staged for the frame, as the
 // cache backward stages it.
+//
+// Trigram mode (trigram_forward / trigram_backward). Replaces the Pallas TPU
+// kernels of last_torch_tpu/ops/trigram_scan.py: _trigram_forward_kernel
+// (pallas_call at trigram_scan.py:627) and _trigram_backward_kernel
+// (pallas_call at :1088). FullNGram(context_size=2): S = 1 + V + V^2
+// states in the context's own order (0 the start, 1..V the unigrams,
+// 1 + V + (q - 1) V + (p - 1) the bigram (q, p)). The arc with label y + 1
+// out of a state whose last symbol is p reaches 1 + V + (p - 1) V + y
+// (dest_base), out of the start state the unigram 1 + y. So destination
+// (p, y) sums only over "segment p" (unigram p and the V bigrams (q, p)),
+// and segment p's V destinations are contiguous: a block that owns (row,
+// segment) writes its reduced row straight to them. The TPU kernels' layout
+// machinery (the segment-major b-major state layout, the identity-matrix
+// (p <-> y) transpose and the shift-matrix beta gather, the blank folded
+// into a spare lex lane) has no use here and is not ported.
+//   Forward, per frame: the joint and blank (joint_blank_kernel), lex staged
+// in float32 (lex_kernel: the head product of the bigram mode, stored), then
+// one segment sweep per FD frame or k for FLD(k) (segment_sweep_kernel: the
+// online (max, sum) over the segment's V + 1 strided source rows, pure
+// CUDA-core work), then the bigram mode's update_kernel. The backward is the
+// bigram cache backward (run_backward) with the row reductions and the
+// marginals reading nb at dest_base(s) + y in place of 1 + y. What bounds
+// it: the head products (2 S V h per frame-row, 0.27 GFLOP at V=64, h=512)
+// are small, and each frame runs 3 + k launches forward and ~10 backward,
+// so launch overhead and the per-frame passes over the staged [B, S, V] lex
+// set the time at V=64.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -150,6 +176,17 @@ __device__ __forceinline__ float log_add(float a, float b) {
   const float m = fmaxf(a, b);
   if (m == -INFINITY) return -INFINITY;
   return m + log1pf(expf(fminf(a, b) - m));
+}
+
+// The arc with label y + 1 out of state s reaches dest_base(s) + y. Bigram:
+// 1 + y from every state. Trigram: the start state reaches the unigram
+// 1 + y; a state whose last symbol is p (unigram p, bigram (q, p)) reaches
+// the bigram (p, y + 1). Every s >= 0 gives an index inside [0, S).
+template <bool TRI>
+__device__ __forceinline__ int dest_base(int s, int V) {
+  if (!TRI || s == 0) return 1;
+  const int p = s <= V ? s : (s - 1 - V) % V + 1;
+  return 1 + V + (p - 1) * V;
 }
 
 // The frame's slabs: a_0 = alpha before the frame, a_j its j-th expansion.
@@ -374,10 +411,84 @@ __global__ void __launch_bounds__(kPointThreads)
   alpha_out[idx] = acc;
 }
 
+// The trigram forward's staged lex: the head product of a (64-state tile,
+// 64-label strip) of row b, stored in float32. Padding rows skip (their
+// sweeps read no lex). Grid (ceil(V / 64), ceil(S / 64), B).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    lex_kernel(const T* __restrict__ joint,        // [B, S, h]
+               const T* __restrict__ vw,           // [h, V]
+               const float* __restrict__ vb,       // [V]
+               float* __restrict__ lex,            // [B, S, V]
+               const int* __restrict__ is_pad_t,   // [B]
+               int S, int h, int V) {
+  const int b = blockIdx.z;
+  if (is_pad_t[b]) return;  // uniform per block
+  float val[kTM][kTN];
+  lex_tile<T, kComputeStore>(joint + static_cast<size_t>(b) * S * h, vw, vb,
+                             lex + static_cast<size_t>(b) * S * V,
+                             blockIdx.y * kBM, blockIdx.x * kBN, S, h, V, val);
+}
+
+// One trigram expansion of row b into segment p's destinations:
+//   out[dest_base(p) + y] = logsumexp_s (vec[s] + lex[s, y])
+// over the states s of segment p (p = 0: the start state alone; p >= 1:
+// unigram p and the bigrams (q, p), rows V apart). The p = 0 block also
+// writes -inf to the start state, which no arc enters; padding rows get
+// -inf everywhere. The 256 threads are 4 groups of 64 labels; each group
+// keeps an online (max, sum) over every 4th source state, and the groups
+// merge through shared memory. Grid (V + 1, B).
+__global__ void __launch_bounds__(kThreads)
+    segment_sweep_kernel(const float* __restrict__ lex,     // [B, S, V]
+                         const float* __restrict__ vec,     // [B, S]
+                         const int* __restrict__ is_pad_t,  // [B]
+                         float* __restrict__ out,           // [B, S]
+                         int S, int V) {
+  constexpr int kGroups = kThreads / kBN;
+  __shared__ float cand_m[kGroups][kBN];
+  __shared__ float cand_l[kGroups][kBN];
+  const int p = blockIdx.x, b = blockIdx.y;
+  const int lane = threadIdx.x % kBN, group = threadIdx.x / kBN;
+  const bool pad = is_pad_t[b] != 0;
+  const int sources = p == 0 ? 1 : V + 1;
+  const float* vec_b = vec + static_cast<size_t>(b) * S;
+  const float* lex_b = lex + static_cast<size_t>(b) * S * V;
+  float* out_b = out + static_cast<size_t>(b) * S + dest_base<true>(p, V);
+  if (p == 0 && threadIdx.x == 0) out[static_cast<size_t>(b) * S] = -INFINITY;
+  for (int y0 = 0; y0 < V; y0 += kBN) {
+    const int y = y0 + lane;
+    float m = -INFINITY, l = 0.f;
+    if (!pad && y < V) {
+      for (int i = group; i < sources; i += kGroups) {
+        // i = 0: unigram p (the start state for p = 0); i = q: bigram (q, p).
+        const int s = i == 0 ? p : 1 + V + (i - 1) * V + (p - 1);
+        const float v = vec_b[s] + lex_b[static_cast<size_t>(s) * V + y];
+        if (v > m) {
+          l = l * expf(m - v) + 1.f;
+          m = v;
+        } else if (v > -INFINITY) {
+          l += expf(v - m);
+        }
+      }
+    }
+    cand_m[group][lane] = m;
+    cand_l[group][lane] = l;
+    __syncthreads();
+    if (group == 0 && y < V) {
+      for (int r = 1; r < kGroups; ++r) {
+        lse_merge(m, l, cand_m[r][lane], cand_l[r][lane]);
+      }
+      out_b[y] = lse_value(m, l);
+    }
+    __syncthreads();
+  }
+}
+
 // Backward reduction over one split of the labels for a 64-state tile of
-// row b: the online (max, sum) of lex[b, s, y] + nbv[b, 1 + y] over y, per
-// s. Grid (ceil(S / 64), splits, B); row_merge_kernel combines the splits.
-template <typename T, int MODE>
+// row b: the online (max, sum) of lex[b, s, y] + nbv[b, dest_base(s) + y]
+// over y, per s. Grid (ceil(S / 64), splits, B); row_merge_kernel combines
+// the splits.
+template <typename T, int MODE, bool TRI>
 __global__ void __launch_bounds__(kThreads)
     row_pass_kernel(const T* __restrict__ joint,       // [B, S, h]
                     const T* __restrict__ vw,          // [h, V]
@@ -400,19 +511,23 @@ __global__ void __launch_bounds__(kThreads)
       lex == nullptr ? nullptr : lex + static_cast<size_t>(b) * S * V;
   const float* nbv_b = nbv + static_cast<size_t>(b) * S;
   float run_m[kTM], run_l[kTM];
+  int base[kTM];  // trigram: each row's destinations
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     run_m[i] = -INFINITY;
     run_l[i] = 0.f;
+    base[i] = dest_base<TRI>(s0 + ty * kTM + i, V);
   }
   for (int y0 = y_begin; y0 < y_end; y0 += kBN) {
     float val[kTM][kTN];
     lex_tile<T, MODE>(joint_b, vw, vb, lex_b, s0, y0, S, h, V, val);
-    float nb[kTN];
+    float nb[kTN];  // bigram: every row's destinations are 1 + y
+    if (!TRI) {
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int y = y0 + tx * kTN + j;
-      nb[j] = y < V ? nbv_b[1 + y] : -INFINITY;
+      for (int j = 0; j < kTN; ++j) {
+        const int y = y0 + tx * kTN + j;
+        nb[j] = y < V ? nbv_b[1 + y] : -INFINITY;
+      }
     }
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
@@ -420,7 +535,10 @@ __global__ void __launch_bounds__(kThreads)
       float m = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kTN; ++j) {
-        v[j] = val[i][j] + nb[j];
+        const int y = y0 + tx * kTN + j;
+        const float n =
+            !TRI ? nb[j] : (y < V ? nbv_b[base[i] + y] : -INFINITY);
+        v[j] = val[i][j] + n;
         m = fmaxf(m, v[j]);
       }
       // The 16 threads of a row group are lanes of one half-warp.
@@ -499,7 +617,8 @@ __global__ void __launch_bounds__(kPointThreads)
 }
 
 // The lexical marginals of one (64-state tile, 64-label strip) of row b,
-//   m[s, y] = gb * sum_p exp(a_p[s] + lex[s, y] + nb_p[1 + y] - log_z)
+//   m[s, y] = gb * sum_p exp(a_p[s] + lex[s, y] + nb_p[dest_base(s) + y]
+//                            - log_z)
 // with gb = g[b] (1 without g), lex staged (kLoad) or from the head product
 // (kCompute). The tiles run over the states [s_begin, s_begin + s_count).
 // With d_lex ([B, s_count, V], row s at s - s_begin) the tile is stored
@@ -507,7 +626,7 @@ __global__ void __launch_bounds__(kPointThreads)
 // it, of m. Column sums go to col[b, tile, y], added (accumulate) or
 // written. Padding rows write zero d_lex and no column sums. Grid
 // (ceil(V / 64), ceil(s_count / 64), B).
-template <typename T, int MODE>
+template <typename T, int MODE, bool TRI>
 __global__ void __launch_bounds__(kThreads)
     marginal_kernel(const T* __restrict__ joint,        // [B, S, h]
                     const T* __restrict__ vw,           // [h, V]
@@ -559,6 +678,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < kTM; ++i) {
     const int s = s0 + ty * kTM + i;
     if (s >= s_end) continue;
+    const size_t dest0 = row0 + dest_base<TRI>(s, V);
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       const int y = y0 + tx * kTN + j;
@@ -566,7 +686,7 @@ __global__ void __launch_bounds__(kThreads)
       float total = 0.f;
       for (int p = 0; p < pairs.n; ++p) {
         total += expf(pairs.a[p][row0 + s] + val[i][j] +
-                      pairs.nb[p][row0 + 1 + y] - lz);
+                      pairs.nb[p][dest0 + y] - lz);
       }
       float m = gb * total;
       if (d_lex_b != nullptr) {
@@ -834,6 +954,54 @@ int run_forward(const float* pf, const float* pc, const T* vw,
   return 0;
 }
 
+// The trigram forward: per frame the joint and blank, lex staged (when a
+// sweep reads it), the segment sweeps, and the update of the bigram mode.
+template <typename T>
+int run_trigram_forward(const float* pf, const float* pc, const T* vw,
+                        const float* vb, const T* bw, const float* bb,
+                        const int* is_pad, T* joint, float* blank, float* lex,
+                        float* last, float* alpha, float* hist, float* slabs,
+                        int num_frames, int B, int S, int h, int V,
+                        int max_expansions, int frame_dependent,
+                        cudaStream_t stream) {
+  const int passes = frame_dependent ? 1 : max_expansions;
+  const size_t bs = static_cast<size_t>(B) * S;
+  const dim3 joint_grid(S, B);
+  const dim3 lex_grid((V + kBN - 1) / kBN, (S + kBM - 1) / kBM, B);
+  const dim3 sweep_grid(V + 1, B);
+  for (int t = 0; t < num_frames; ++t) {
+    const float* alpha_cur = alpha + (t % 2) * bs;
+    float* alpha_next = alpha + ((t + 1) % 2) * bs;
+    const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
+    joint_blank_kernel<T><<<joint_grid, kJointThreads, 0, stream>>>(
+        pf + static_cast<size_t>(t) * B * h, is_pad_t, pc, bw, bb, nullptr,
+        nullptr, joint, blank, S, h, 0);
+    RETURN_IF_LAUNCH_FAILED();
+    if (passes > 0) {
+      lex_kernel<T><<<lex_grid, kThreads, 0, stream>>>(joint, vw, vb, lex,
+                                                       is_pad_t, S, h, V);
+      RETURN_IF_LAUNCH_FAILED();
+    }
+    float* last_t = slabs != nullptr ? slabs + t * bs : last;
+    const size_t last_stride =
+        slabs != nullptr ? static_cast<size_t>(num_frames) * bs : bs;
+    const float* vec = alpha_cur;
+    for (int j = 0; j < passes; ++j) {
+      float* red = last_t + j * last_stride;
+      segment_sweep_kernel<<<sweep_grid, kThreads, 0, stream>>>(
+          lex, vec, is_pad_t, red, S, V);
+      RETURN_IF_LAUNCH_FAILED();
+      vec = red;
+    }
+    update_kernel<<<blocks_for(bs), kPointThreads, 0, stream>>>(
+        alpha_cur, blank, last_t, last_stride, is_pad_t, alpha_next,
+        hist != nullptr ? hist + t * bs : nullptr, B, S, passes,
+        frame_dependent);
+    RETURN_IF_LAUNCH_FAILED();
+  }
+  return 0;
+}
+
 // What the reverse scans (backward and marginals) share: their sizes, and
 // one frame's beta step.
 struct ReverseScan {
@@ -857,7 +1025,7 @@ struct ReverseScan {
   // last the next beta, d_blank and its sum). With `lex` the first stores
   // the frame's lex and the others read it; without, each recomputes the
   // product (online). Fills the frame's slabs and (a_j, nb_j) pairs.
-  template <typename T>
+  template <typename T, bool TRI>
   int step(int t, int T_, const float* pf, const int* is_pad,
            const float* pc, const T* vw, const float* vb, const T* bw,
            const float* bb, const float* log_z, const float* g,
@@ -882,15 +1050,16 @@ struct ReverseScan {
     for (int p = 0; p < passes; ++p) {
       const float* nbv = frame_dependent ? beta_cur : nb + (k - 1 - p) * bs;
       if (lex == nullptr) {
-        row_pass_kernel<T, kCompute><<<row_grid, kThreads, 0, stream>>>(
+        row_pass_kernel<T, kCompute, TRI><<<row_grid, kThreads, 0, stream>>>(
             joint, vw, vb, nbv, nullptr, part_m, part_l, is_pad_t, S, h, V,
             strips_per_split);
       } else if (p == 0) {
-        row_pass_kernel<T, kComputeStore><<<row_grid, kThreads, 0, stream>>>(
+        row_pass_kernel<T, kComputeStore, TRI>
+            <<<row_grid, kThreads, 0, stream>>>(
             joint, vw, vb, nbv, lex, part_m, part_l, is_pad_t, S, h, V,
             strips_per_split);
       } else {
-        row_pass_kernel<T, kLoad><<<row_grid, kThreads, 0, stream>>>(
+        row_pass_kernel<T, kLoad, TRI><<<row_grid, kThreads, 0, stream>>>(
             joint, vw, vb, nbv, lex, part_m, part_l, is_pad_t, S, h, V,
             strips_per_split);
       }
@@ -922,7 +1091,7 @@ struct ReverseScan {
   }
 };
 
-template <typename T>
+template <typename T, bool TRI>
 int run_backward(const float* pf, const float* pc, const T* vw,
                  const float* vb, const T* bw, const float* bw32,
                  const float* bb, const int* is_pad, const float* log_z,
@@ -958,7 +1127,7 @@ int run_backward(const float* pf, const float* pc, const T* vw,
     const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
     const float* pf_t = pf + static_cast<size_t>(t) * B * h;
     Pairs pairs;
-    const int status = scan.step<T>(
+    const int status = scan.step<T, TRI>(
         t, num_frames, pf, is_pad, pc, vw, vb, bw, bb, log_z, g, hist, slabs,
         joint, blank, online ? nullptr : lex, part_m, part_l, nb,
         beta + (n % 2) * bs, beta + ((n + 1) % 2) * bs, d_blank, dbb_acc, 1,
@@ -968,13 +1137,13 @@ int run_backward(const float* pf, const float* pc, const T* vw,
       const int s_count = min(chunk, S - s_begin);
       const int chunk_tiles = (s_count + kBM - 1) / kBM;
       if (online) {
-        marginal_kernel<T, kCompute><<<dim3(strips, chunk_tiles, B), kThreads,
-                                       0, stream>>>(
+        marginal_kernel<T, kCompute, TRI>
+            <<<dim3(strips, chunk_tiles, B), kThreads, 0, stream>>>(
             joint, vw, vb, nullptr, pairs, log_z, g, is_pad_t, d_lex,
             dvb_acc, 1, S, h, V, s_begin, s_count, tiles);
       } else {
-        marginal_kernel<T, kLoad><<<dim3(strips, chunk_tiles, B), kThreads, 0,
-                                    stream>>>(
+        marginal_kernel<T, kLoad, TRI>
+            <<<dim3(strips, chunk_tiles, B), kThreads, 0, stream>>>(
             joint, vw, vb, lex, pairs, log_z, g, is_pad_t, d_lex, dvb_acc, 1,
             S, h, V, s_begin, s_count, tiles);
       }
@@ -1030,13 +1199,13 @@ int run_marginals(const float* pf, const float* pc, const T* vw,
     const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
     Pairs pairs;
     // g = 1: d_blank is the frame's blank posterior, written in place.
-    const int status = scan.step<T>(
+    const int status = scan.step<T, false>(
         t, num_frames, pf, is_pad, pc, vw, vb, bw, bb, log_z, nullptr, hist,
         slabs, joint, blank, lex, part_m, part_l, nb, beta + (n % 2) * bs,
         beta + ((n + 1) % 2) * bs, bm + t * bs, nullptr, 0, pairs, stream);
     if (status != 0) return status;
-    marginal_kernel<T, kLoad><<<dim3(scan.strips, scan.tiles, B), kThreads, 0,
-                                stream>>>(
+    marginal_kernel<T, kLoad, false>
+        <<<dim3(scan.strips, scan.tiles, B), kThreads, 0, stream>>>(
         joint, vw, vb, lex, pairs, log_z, nullptr, is_pad_t, nullptr, lp_part,
         0, S, h, V, 0, S, scan.tiles);
     RETURN_IF_LAUNCH_FAILED();
@@ -1047,6 +1216,46 @@ int run_marginals(const float* pf, const float* pc, const T* vw,
     RETURN_IF_LAUNCH_FAILED();
   }
   return 0;
+}
+
+// The dtype dispatch of the backward's entry points (fused_backward,
+// trigram_backward).
+template <bool TRI>
+int backward_entry(int dtype, const float* pf, const float* pc,
+                   const void* vw, const float* vb, const void* bw,
+                   const float* bw32, const float* bb, const int* is_pad,
+                   const float* log_z, const float* g, const float* hist,
+                   const float* slabs, void* joint, float* blank, float* lex,
+                   void* d_lex, float* d_blank, float* part_m, float* part_l,
+                   float* nb, float* beta, float* dpf, float* dpf_part,
+                   float* dpc_acc, float* dvw_acc, float* dvb_acc,
+                   float* dbw_acc, float* dbb_acc, float* dpc, float* dvw,
+                   float* dvb, float* dbw, float* dbb, int num_frames, int B,
+                   int S, int h, int V, int max_expansions,
+                   int frame_dependent, int online, int chunk_states,
+                   int max_ysplits, int max_ksplits, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return run_backward<float, TRI>(
+        pf, pc, static_cast<const float*>(vw), vb,
+        static_cast<const float*>(bw), bw32, bb, is_pad, log_z, g, hist,
+        slabs, static_cast<float*>(joint), blank, lex,
+        static_cast<float*>(d_lex), d_blank, part_m, part_l, nb, beta, dpf,
+        dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc, dvw, dvb,
+        dbw, dbb, num_frames, B, S, h, V, max_expansions, frame_dependent,
+        online, chunk_states, max_ysplits, max_ksplits, s);
+  }
+  if (dtype == 1) {
+    return run_backward<__nv_bfloat16, TRI>(
+        pf, pc, static_cast<const __nv_bfloat16*>(vw), vb,
+        static_cast<const __nv_bfloat16*>(bw), bw32, bb, is_pad, log_z, g,
+        hist, slabs, static_cast<__nv_bfloat16*>(joint), blank, lex,
+        static_cast<__nv_bfloat16*>(d_lex), d_blank, part_m, part_l, nb,
+        beta, dpf, dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc,
+        dvw, dvb, dbw, dbb, num_frames, B, S, h, V, max_expansions,
+        frame_dependent, online, chunk_states, max_ysplits, max_ksplits, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -1112,28 +1321,65 @@ int fused_backward(int dtype, const float* pf, const float* pc,
                    int S, int h, int V, int max_expansions,
                    int frame_dependent, int online, int chunk_states,
                    int max_ysplits, int max_ksplits, void* stream) {
+  return backward_entry<false>(
+      dtype, pf, pc, vw, vb, bw, bw32, bb, is_pad, log_z, g, hist, slabs,
+      joint, blank, lex, d_lex, d_blank, part_m, part_l, nb, beta, dpf,
+      dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc, dvw, dvb,
+      dbw, dbb, num_frames, B, S, h, V, max_expansions, frame_dependent,
+      online, chunk_states, max_ysplits, max_ksplits, stream);
+}
+
+// The trigram forward (FullNGram(2), S = 1 + V + V^2) on `stream`; returns
+// the first launch error. Arguments as fused_forward's, without the
+// bigram's split partials and `online`: `lex` ([B, S, V]) is always staged
+// when a frame has a sweep.
+int trigram_forward(int dtype, const float* pf, const float* pc,
+                    const void* vw, const float* vb, const void* bw,
+                    const float* bb, const int* is_pad, void* joint,
+                    float* blank, float* lex, float* last, float* alpha,
+                    float* hist, float* slabs, int num_frames, int B, int S,
+                    int h, int V, int max_expansions, int frame_dependent,
+                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return run_backward<float>(
+    return run_trigram_forward<float>(
         pf, pc, static_cast<const float*>(vw), vb,
-        static_cast<const float*>(bw), bw32, bb, is_pad, log_z, g, hist,
-        slabs, static_cast<float*>(joint), blank, lex,
-        static_cast<float*>(d_lex), d_blank, part_m, part_l, nb, beta, dpf,
-        dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc, dvw, dvb,
-        dbw, dbb, num_frames, B, S, h, V, max_expansions, frame_dependent,
-        online, chunk_states, max_ysplits, max_ksplits, s);
+        static_cast<const float*>(bw), bb, is_pad, static_cast<float*>(joint),
+        blank, lex, last, alpha, hist, slabs, num_frames, B, S, h, V,
+        max_expansions, frame_dependent, s);
   }
   if (dtype == 1) {
-    return run_backward<__nv_bfloat16>(
+    return run_trigram_forward<__nv_bfloat16>(
         pf, pc, static_cast<const __nv_bfloat16*>(vw), vb,
-        static_cast<const __nv_bfloat16*>(bw), bw32, bb, is_pad, log_z, g,
-        hist, slabs, static_cast<__nv_bfloat16*>(joint), blank, lex,
-        static_cast<__nv_bfloat16*>(d_lex), d_blank, part_m, part_l, nb,
-        beta, dpf, dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc,
-        dvw, dvb, dbw, dbb, num_frames, B, S, h, V, max_expansions,
-        frame_dependent, online, chunk_states, max_ysplits, max_ksplits, s);
+        static_cast<const __nv_bfloat16*>(bw), bb, is_pad,
+        static_cast<__nv_bfloat16*>(joint), blank, lex, last, alpha, hist,
+        slabs, num_frames, B, S, h, V, max_expansions, frame_dependent, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The trigram backward on `stream`; returns the first launch error.
+// Arguments as fused_backward's in its cache mode (lex and d_lex [B, S, V]
+// staged), with the trigram's destinations.
+int trigram_backward(int dtype, const float* pf, const float* pc,
+                     const void* vw, const float* vb, const void* bw,
+                     const float* bw32, const float* bb, const int* is_pad,
+                     const float* log_z, const float* g, const float* hist,
+                     const float* slabs, void* joint, float* blank,
+                     float* lex, void* d_lex, float* d_blank, float* part_m,
+                     float* part_l, float* nb, float* beta, float* dpf,
+                     float* dpf_part, float* dpc_acc, float* dvw_acc,
+                     float* dvb_acc, float* dbw_acc, float* dbb_acc,
+                     float* dpc, float* dvw, float* dvb, float* dbw,
+                     float* dbb, int num_frames, int B, int S, int h, int V,
+                     int max_expansions, int frame_dependent,
+                     int max_ysplits, int max_ksplits, void* stream) {
+  return backward_entry<true>(
+      dtype, pf, pc, vw, vb, bw, bw32, bb, is_pad, log_z, g, hist, slabs,
+      joint, blank, lex, d_lex, d_blank, part_m, part_l, nb, beta, dpf,
+      dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc, dvw, dvb,
+      dbw, dbb, num_frames, B, S, h, V, max_expansions, frame_dependent, 0, S,
+      max_ysplits, max_ksplits, stream);
 }
 
 // Runs the marginals' reverse scan on `stream`; returns the first launch

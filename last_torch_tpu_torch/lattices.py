@@ -16,23 +16,25 @@
 per-frame posteriors.
 
 Counterpart of ``last_torch_tpu/lattices.py``. Ported: ``init``,
-``build_cache``, ``shortest_path`` through the Viterbi kernel
-(``ops/viterbi.py``, which also normalizes a locally normalized
-``JointWeightFn``), ``loss`` / ``shortest_distance``, ``label_marginals``
-(the marginals kernel of ``ops/fused_scan.py`` inside its gate, the generic
-backward algorithm outside it) and ``arc_marginals`` (always the generic
-route, as in the JAX package). The loss is the
+``build_cache``, ``shortest_path`` (through the Viterbi kernel,
+``ops/viterbi.py``, which also normalizes a locally normalized
+``JointWeightFn``, inside its gate; outside it the generic route, the
+gradient of the tropical shortest distance with respect to a zero lexical
+mask, as in the JAX package), ``loss`` / ``shortest_distance``,
+``label_marginals`` (the marginals kernel of ``ops/fused_scan.py`` inside
+its gate, the generic backward algorithm outside it) and ``arc_marginals``
+(always the generic route, as in the JAX package). The loss is the
 globally normalized denominator minus the numerator, or minus the numerator
 alone for a ``LocallyNormalizedWeightFn``: the numerator is the string DP
 over the weight function's ``label_weights`` (the numerator kernels of
 ``ops/numerator_scan.py`` for a locally normalized one); the denominator
-takes the log-partition kernels (``ops/fused_scan.py``) inside their gate
-and the generic forward-backward (a per-frame loop with a backward-algorithm
-gradient) outside it, where the JAX package runs XLA. The configurations
-the JAX package sends to routes that are not ported yet (the trigram
-kernels, the single-context-state route) and the remaining operations
-raise ``NotImplementedError`` naming the ROADMAP item that ports them; none
-of them falls back to another route.
+takes the log-partition kernels (``ops/fused_scan.py`` for the bigram,
+``ops/trigram_scan.py`` for the trigram) inside their gates and the generic
+forward-backward (a per-frame loop with a backward-algorithm gradient)
+outside them, where the JAX package runs XLA. The configurations the JAX
+package sends to routes that are not ported yet (the single-context-state
+route) and the remaining operations raise ``NotImplementedError`` naming
+the ROADMAP item that ports them; none of them falls back to another route.
 """
 
 from __future__ import annotations
@@ -46,10 +48,10 @@ import torch.utils.checkpoint
 from torch.utils import _pytree as pytree
 
 from last_torch_tpu_torch import alignments
-from last_torch_tpu_torch import contexts
 from last_torch_tpu_torch import semirings
 from last_torch_tpu_torch import weight_fns
 from last_torch_tpu_torch.ops import fused_scan
+from last_torch_tpu_torch.ops import trigram_scan
 from last_torch_tpu_torch.ops import viterbi
 
 Params = dict[str, Any]
@@ -57,7 +59,6 @@ Params = dict[str, Any]
 # ROADMAP.md items named by the routes that are not ported yet.
 _REST = 'queue 1, item 7 ("lattices.py, the rest")'
 _WEIGHT_FNS = 'queue 1, item 6 ("weight_fns.py, the rest")'
-_TRIGRAM = 'queue 2, item 6 (ops/trigram_scan.py kernels)'
 
 
 def _not_ported(operation: str, roadmap_item: str):
@@ -97,7 +98,7 @@ class RecognitionLattice:
     'kernel' when it launched the CUDA kernels (CUDA tensors inside the
     kernels' gate), 'plain' when it ran their plain PyTorch versions (CPU
     tensors inside the gate), 'generic' for the per-frame loop outside the
-    gate, None before any call.
+    gates, None before any call.
     """
     return self._last_path
 
@@ -155,25 +156,29 @@ class RecognitionLattice:
                     reference_compat: bool = False):
     """The highest scoring alignment path (Viterbi decode).
 
-    On CUDA tensors the forward runs the Hopper kernel with bfloat16 joint
-    and head inputs, as the TPU kernel did; on CPU tensors its plain
-    version in float32, which is what the JAX package computes off the TPU.
-    A ``LocallyNormalizedWeightFn`` over a ``JointWeightFn`` with
-    ``hat_normalize`` or ``log_softmax_normalize`` is normalized inside the
-    kernel.
+    Inside the Viterbi kernel's gate (bigram ``FullNGram``,
+    ``JointWeightFn``, one batch dimension), on CUDA tensors the forward
+    runs the Hopper kernel with bfloat16 joint and head inputs, as the TPU
+    kernel did; on CPU tensors its plain version in float32, which is what
+    the JAX package computes off the TPU. A ``LocallyNormalizedWeightFn``
+    over a ``JointWeightFn`` with ``hat_normalize`` or
+    ``log_softmax_normalize`` is normalized inside the kernel. Outside the
+    gate (the trigram among others) it takes the JAX package's generic
+    route (``_generic_shortest_path``).
 
     Args:
       params: Parameters from ``init``.
-      frames: [batch, max_num_frames, feature_size] padded frames.
-      num_frames: [batch] number of frames.
+      frames: [batch_dims..., max_num_frames, feature_size] padded frames.
+      num_frames: [batch_dims...] number of frames.
       cache: Optional weight function cache.
       reference_compat: Emit the reference's raw ``argmax`` label values
         (lexical label y becomes y - 1); see the JAX package's PARITY.md.
 
     Returns:
-      (alignment_labels [batch, max_num_frames * num_alignment_states]
-      int32, blank 0 or lexical 1..vocab_size; num_alignment_labels [batch]
-      int32; path_weights [batch] float32).
+      (alignment_labels [batch_dims..., max_num_frames *
+      num_alignment_states] int32, blank 0 or lexical 1..vocab_size;
+      num_alignment_labels [batch_dims...] int32; path_weights
+      [batch_dims...] in the frames' type).
     """
     num_frames = torch.as_tensor(num_frames, device=frames.device)
     if frames.shape[:-2] != num_frames.shape:
@@ -186,23 +191,23 @@ class RecognitionLattice:
         inner_wf, normalize = inner_wf.weight_fn, 'hat'
       elif inner_wf.normalize is weight_fns.log_softmax_normalize:
         inner_wf, normalize = inner_wf.weight_fn, 'log_softmax'
-    if not fused_scan.supported(self, frames, weight_fn=inner_wf):
-      _not_ported('shortest_path outside the Viterbi kernel\'s gate '
-                  '(bigram FullNGram, JointWeightFn, optionally locally '
-                  'normalized by hat or log-softmax, FD/FLD, one batch dim)',
-                  _REST)
     if cache is None:
       cache = self.build_cache(params)
-    frame_dependent = isinstance(self.alignment, alignments.FrameDependent)
-    on_card = frames.device.type == 'cuda'
-    self._last_path = 'kernel' if on_card else 'plain'
-    labels, num_labels, weights = viterbi.viterbi_decode(
-        params['weight_fn'], cache, frames, num_frames,
-        max_expansions=(0 if frame_dependent else
-                        self.alignment.max_expansions),
-        frame_dependent=frame_dependent,
-        compute_dtype=torch.bfloat16 if on_card else torch.float32,
-        normalize=normalize)
+    if fused_scan.supported(self, frames, weight_fn=inner_wf):
+      frame_dependent = isinstance(self.alignment,
+                                   alignments.FrameDependent)
+      on_card = frames.device.type == 'cuda'
+      self._last_path = 'kernel' if on_card else 'plain'
+      labels, num_labels, weights = viterbi.viterbi_decode(
+          params['weight_fn'], cache, frames, num_frames,
+          max_expansions=(0 if frame_dependent else
+                          self.alignment.max_expansions),
+          frame_dependent=frame_dependent,
+          compute_dtype=fused_scan.compute_dtype_for(frames.device),
+          normalize=normalize)
+    else:
+      labels, num_labels, weights = self._generic_shortest_path(
+          params, cache, frames, num_frames)
     if reference_compat:
       labels = torch.where(labels == 0, 0, labels - 1)
     return labels, num_labels, weights
@@ -285,7 +290,8 @@ class RecognitionLattice:
     marginals kernels with bfloat16 joint and head inputs, as the TPU
     kernels; on CPU tensors their plain versions in float32, as the JAX
     package computes off the TPU. Outside the gate (a locally normalized
-    weight function among others), the generic route.
+    weight function or the trigram among others), the generic route, as in
+    the JAX package.
 
     Args:
       params: Parameters from ``init``.
@@ -318,10 +324,7 @@ class RecognitionLattice:
           max_expansions=(0 if frame_dependent else
                           self.alignment.max_expansions),
           frame_dependent=frame_dependent,
-          compute_dtype=torch.bfloat16 if on_card else torch.float32)
-    if self._trigram_route(frames):
-      _not_ported('label_marginals of the trigram FullNGram(context_size=2)',
-                  _TRIGRAM)
+          compute_dtype=fused_scan.compute_dtype_for(frames.device))
     if self._s1_route(frames):
       _not_ported('label_marginals of the single-context-state (S = 1) '
                   'lattice', _REST)
@@ -422,16 +425,43 @@ class RecognitionLattice:
             isinstance(self.alignment, (alignments.FrameDependent,
                                         alignments.FrameLabelDependent)))
 
-  def _trigram_route(self, frames) -> bool:
-    """Whether the JAX package takes its trigram kernels (on its TPU and in
-    interpret mode): ``last_torch_tpu.ops.trigram_scan.supported``'s
-    structural half."""
-    return (type(self.weight_fn) is weight_fns.JointWeightFn and
-            type(self.context) is contexts.FullNGram and
-            self.context.context_size == 2 and
-            isinstance(self.alignment, (alignments.FrameDependent,
-                                        alignments.FrameLabelDependent)) and
-            frames.ndim == 3)
+  def _generic_shortest_path(self, params, cache, frames, num_frames):
+    """The JAX package's generic decode: the tropical shortest distance is
+    differentiated with respect to a zero lexical mask, whose one-hot,
+    tie-broken MaxTropical gradient marks the lexical arcs of one best path.
+
+    Runs with autograd on whatever the caller's mode (``GNATModel.decode``
+    runs under ``torch.no_grad``) and only the mask differentiated. Each
+    frame is checkpointed, so the backward recomputes every frame's weights
+    once more.
+
+    Returns:
+      (alignment_labels, num_alignment_labels, path_weights) as
+      ``shortest_path``.
+    """
+    batch_dims = tuple(num_frames.shape)
+    max_num_frames = frames.shape[-2]
+    num_alignment_states = self.alignment.num_states()
+    params = pytree.tree_map(torch.Tensor.detach, params)
+    cache, frames = cache.detach(), frames.detach()
+    mask = torch.zeros(batch_dims + (max_num_frames, num_alignment_states,
+                                     self.context.shape()[1]),
+                       dtype=frames.dtype, device=frames.device,
+                       requires_grad=True)
+    with torch.enable_grad():
+      path_weights, _ = self._forward(
+          params, cache, frames, num_frames, semirings.MaxTropical,
+          lexical_mask=[mask[..., i, None, :]
+                        for i in range(num_alignment_states)])
+      if path_weights.requires_grad:
+        (viterbi_mask,) = torch.autograd.grad(path_weights.sum(), mask)
+      else:  # no frames: no arc, all-blank labels
+        viterbi_mask = torch.zeros_like(mask)
+    is_blank = torch.all(viterbi_mask == 0, dim=-1)
+    labels = torch.where(is_blank, 0, 1 + torch.argmax(viterbi_mask, dim=-1))
+    labels = labels.reshape(batch_dims + (-1,)).to(torch.int32)
+    num_labels = (num_alignment_states * num_frames).to(torch.int32)
+    return labels, num_labels, path_weights.detach()
 
   def _forward(self, params, cache, frames, num_frames, semiring,
                blank_mask: Optional[Sequence[torch.Tensor]] = None,
@@ -514,28 +544,28 @@ class RecognitionLattice:
     A locally normalized lattice takes the generic route, as its log Z runs
     in XLA in the JAX package.
 
-    Inside the kernels' gate, ``fused_scan.log_partition`` (the CUDA
-    kernels on CUDA tensors with bfloat16 head inputs, as the TPU kernels;
-    their plain versions in float32 on CPU tensors, as the JAX package off
-    the TPU). Outside it, the generic route: the forward loop saving the
+    Inside the kernels' gates, ``fused_scan.log_partition`` (bigram) or
+    ``trigram_scan.log_partition`` (trigram): the CUDA kernels on CUDA
+    tensors with bfloat16 head inputs, as the TPU kernels; their plain
+    versions in float32 on CPU tensors, as the JAX package off the TPU.
+    Outside them, the generic route: the forward loop saving the
     alpha history, and a backward that runs the backward algorithm in
     reverse, recomputing each frame's weights and feeding the
     cotangent-scaled arc marginals through the weight function's VJP.
     """
     num_frames = torch.as_tensor(num_frames, device=frames.device)
-    if fused_scan.supported(self, frames):
-      frame_dependent = isinstance(self.alignment, alignments.FrameDependent)
-      on_card = frames.device.type == 'cuda'
-      self._last_path = 'kernel' if on_card else 'plain'
-      return fused_scan.log_partition(
-          params['weight_fn'], cache, frames, num_frames,
-          max_expansions=(0 if frame_dependent else
-                          self.alignment.max_expansions),
-          frame_dependent=frame_dependent,
-          compute_dtype=torch.bfloat16 if on_card else torch.float32)
-    if self._trigram_route(frames):
-      _not_ported('the trigram FullNGram(context_size=2) log-partition',
-                  _TRIGRAM)
+    for ops in (fused_scan, trigram_scan):
+      if ops.supported(self, frames):
+        frame_dependent = isinstance(self.alignment,
+                                     alignments.FrameDependent)
+        on_card = frames.device.type == 'cuda'
+        self._last_path = 'kernel' if on_card else 'plain'
+        return ops.log_partition(
+            params['weight_fn'], cache, frames, num_frames,
+            max_expansions=(0 if frame_dependent else
+                            self.alignment.max_expansions),
+            frame_dependent=frame_dependent,
+            compute_dtype=fused_scan.compute_dtype_for(frames.device))
     if self._s1_route(frames):
       _not_ported('the single-context-state (S = 1) log-partition', _REST)
     leaves, spec = pytree.tree_flatten(params['weight_fn'])

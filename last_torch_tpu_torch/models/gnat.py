@@ -48,7 +48,8 @@ class GNATConfig:
   Attributes:
     feature_size: Input acoustic feature dimension.
     vocab_size: Lexical output vocabulary size (excluding blank).
-    context_size: FullNGram context order (1 = bigram label history).
+    context_size: FullNGram context order (1 = bigram label history, 2 =
+      trigram).
     encoder_size: Transformer encoder width.
     encoder_layers: Number of encoder blocks.
     encoder_heads: Attention heads.
@@ -179,7 +180,10 @@ class GNATModel:
 
   @torch.no_grad()
   def decode(self, params: Params, frames, num_frames):
-    """Viterbi-decodes the highest scoring alignment.
+    """Viterbi-decodes the highest scoring alignment: through the Viterbi
+    kernel for a bigram context, through the lattice's generic route
+    (``RecognitionLattice.shortest_path``) for a trigram one, as in the JAX
+    package.
 
     Args:
       params: Parameters from ``init`` (or ``convert.from_jax_params``).

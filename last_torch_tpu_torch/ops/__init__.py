@@ -20,4 +20,5 @@ import.
 
 from last_torch_tpu_torch.ops import fused_scan
 from last_torch_tpu_torch.ops import numerator_scan
+from last_torch_tpu_torch.ops import trigram_scan
 from last_torch_tpu_torch.ops import viterbi

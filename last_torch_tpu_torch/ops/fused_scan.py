@@ -28,7 +28,11 @@ plain PyTorch. ``log_partition`` joins the first two in a
 ``torch.autograd.Function``, as the JAX package's custom VJP does;
 ``label_marginals`` runs the forward and the marginals scan. The four
 frame-independent products around them (``frames @ frame_proj``,
-``cache @ context_proj`` and their gradients) stay ``torch.matmul``.
+``cache @ context_proj`` and their gradients) stay ``torch.matmul``. The
+plain scans (``forward_scan_plain``, ``backward_scan_plain``) take the
+context's arc reduction and destinations, and the autograd wrapper
+(``scan_log_partition``) takes the kernel pair, so ``ops/trigram_scan.py``
+(whose kernels are the trigram mode of the same library) reuses both.
 
 Modes. 'cache' stages the frame's lexical weights ([B, S, V] float32, and
 the backward's d_lex in the compute type) in device memory for the
@@ -98,6 +102,14 @@ def plan(batch: int, num_states: int, vocab: int,
   return 'cache' if staged <= LEX_STAGE_BUDGET else 'online'
 
 
+def compute_dtype_for(device) -> torch.dtype:
+  """The type the lattice rounds the joint and head inputs to: bfloat16 on
+  the card, as the TPU kernels; float32 elsewhere, as the JAX package off
+  the TPU."""
+  return torch.bfloat16 if torch.device(device).type == 'cuda' else (
+      torch.float32)
+
+
 def _check_mode(mode: str, allowed=MODES):
   if mode not in allowed:
     raise ValueError(f'mode must be one of {allowed}, got {mode!r}')
@@ -127,8 +139,11 @@ def num_passes(max_expansions: int, frame_dependent: bool) -> int:
   return 1 if frame_dependent else max_expansions
 
 
-def check_inputs(pf, pc, params, is_pad, compute_dtype, kernel: str):
-  """Checks what the kernels take: types, shapes, devices, contiguity."""
+def check_inputs(pf, pc, params, is_pad, compute_dtype, kernel: str,
+                 context_size: int = 1):
+  """Checks what the kernels take: types, shapes, devices, contiguity, and
+  the state count of a FullNGram of ``context_size`` (1 bigram, 2 trigram).
+  """
   device = pf.device
   if pf.ndim != 3 or pc.ndim != 2 or is_pad.ndim != 2:
     raise ValueError('expected pf [T, B, h], pc [S, h] and is_pad [T, B], '
@@ -154,16 +169,20 @@ def check_inputs(pf, pc, params, is_pad, compute_dtype, kernel: str):
       raise ValueError(f'{name} is on {x.device}, pf on {device}')
     if not x.is_contiguous():
       raise ValueError(f'{name} must be contiguous')
-  if num_states != vocab + 1:
-    raise ValueError(f'the {kernel} kernel needs a bigram FullNGram '
-                     f'(S = V + 1), got S={num_states}, V={vocab}')
+  expected_states = sum(vocab**i for i in range(context_size + 1))
+  if num_states != expected_states:
+    name, formula = {1: ('bigram', 'V + 1'),
+                     2: ('trigram', '1 + V + V^2')}[context_size]
+    raise ValueError(f'the {kernel} kernel needs a {name} FullNGram '
+                     f'(S = {formula}), got S={num_states}, V={vocab}')
   if compute_dtype not in _DTYPE_CODES:
     raise ValueError(f'compute_dtype must be float32 or bfloat16, got '
                      f'{compute_dtype}')
 
 
 def library() -> ctypes.CDLL:
-  """The kernel library, built from csrc/fused_scan.cu at first use."""
+  """The kernel library, built from csrc/fused_scan.cu at first use (it
+  also holds the trigram kernels of ``ops/trigram_scan.py``)."""
   global _LIB
   if _LIB is None:
     from last_torch_tpu_torch.ops import build
@@ -175,6 +194,10 @@ def library() -> ctypes.CDLL:
     lib.fused_backward.restype = i
     lib.fused_marginals.argtypes = [i] + [p] * 20 + [i] * 8 + [p]
     lib.fused_marginals.restype = i
+    lib.trigram_forward.argtypes = [i] + [p] * 14 + [i] * 7 + [p]
+    lib.trigram_forward.restype = i
+    lib.trigram_backward.argtypes = [i] + [p] * 33 + [i] * 9 + [p]
+    lib.trigram_backward.restype = i
     lib.fused_error_string.argtypes = [i]
     lib.fused_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -298,6 +321,31 @@ def fused_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
   same rounded products.
   """
   _check_mode(mode)
+  return forward_scan_plain(
+      pf, pc, params, is_pad, max_expansions=max_expansions,
+      frame_dependent=frame_dependent, compute_dtype=compute_dtype,
+      with_residuals=with_residuals, reduce_arcs=_bigram_reduce_arcs)
+
+
+def _bigram_reduce_arcs(weights):
+  """[B, S, V] arc weights into their destinations, [B, S]: label y + 1
+  from every state reaches state y + 1; nothing reaches the start state."""
+  red = torch.logsumexp(weights, dim=1)
+  return torch.cat([torch.full_like(red[:, :1], NEG_INF), red], dim=1)
+
+
+def _bigram_dests(vec):
+  """[B, S] state values at each arc's destination, [B, 1, V] broadcast
+  over the source states (the destinations do not depend on them)."""
+  return vec[:, None, 1:]
+
+
+def forward_scan_plain(pf, pc, params, is_pad, *, max_expansions,
+                       frame_dependent, compute_dtype, with_residuals,
+                       reduce_arcs):
+  """The log-semiring forward scan in plain PyTorch, for any context whose
+  arcs ``reduce_arcs`` log-sums into their destinations ([B, S, V] -> [B,
+  S]); arguments and outputs as ``fused_forward``'s."""
   max_t, batch, _ = pf.shape
   num_states = pc.shape[0]
   k = num_passes(max_expansions, frame_dependent)
@@ -312,7 +360,6 @@ def fused_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
     hist = empty(max_t, batch, num_states)
     if not frame_dependent and k:
       slabs = empty(k, max_t, batch, num_states)
-  start_col = empty(batch, 1).fill_(NEG_INF)
 
   for t in range(max_t):
     joint = rnd(torch.tanh(pc[None] + pf[t][:, None]))  # [B, S, h]
@@ -320,8 +367,7 @@ def fused_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
     blank = joint @ bw + bb  # [B, S]
 
     def expand_reduce(vec):
-      red = torch.logsumexp(vec[:, :, None] + lex, dim=1)
-      return torch.cat([start_col, red], dim=1)
+      return reduce_arcs(vec[:, :, None] + lex)
 
     if hist is not None:
       hist[t] = alpha
@@ -386,10 +432,6 @@ def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
   check_inputs(pf, pc, params, is_pad, compute_dtype, 'log-partition')
   _check_residuals(pf, pc, max_expansions, frame_dependent, log_z=log_z, g=g,
                    hist=hist, slabs=slabs)
-  max_t, batch, hidden = pf.shape
-  num_states = pc.shape[0]
-  vocab = params['vocab_w'].shape[-1]
-  k = num_passes(max_expansions, frame_dependent)
   kw = dict(max_expansions=max_expansions, frame_dependent=frame_dependent,
             compute_dtype=compute_dtype)
   if pf.device.type == 'cpu':
@@ -398,7 +440,28 @@ def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
   if pf.device.type != 'cuda':
     raise ValueError(f'no log-partition kernel for device {pf.device}')
 
+  online = mode == 'online'
+  grads = launch_backward('fused_backward', pf, pc, params, is_pad, log_z, g,
+                          hist, slabs, online=online, **kw)
+  if online:
+    online_backward_launches += 1
+  else:
+    backward_launches += 1
+  return grads
+
+
+def launch_backward(entry: str, pf, pc, params, is_pad, log_z, g, hist,
+                    slabs, *, max_expansions, frame_dependent, compute_dtype,
+                    online=False):
+  """Allocates the reverse scan's scratch and outputs and launches the
+  library's ``entry``: 'fused_backward' (in either mode) or
+  'trigram_backward' (cache mode), which take the same buffers. Inputs as
+  checked by ``fused_backward``; returns its outputs."""
   lib = library()
+  max_t, batch, hidden = pf.shape
+  num_states = pc.shape[0]
+  vocab = params['vocab_w'].shape[-1]
+  k = num_passes(max_expansions, frame_dependent)
   device = pf.device
   empty = lambda *shape, dtype=torch.float32: torch.empty(
       shape, dtype=dtype, device=device)
@@ -406,7 +469,6 @@ def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
   vw = params['vocab_w'].to(compute_dtype).contiguous()
   bw = params['blank_w'].to(compute_dtype).contiguous()
   pad = is_pad.to(torch.int32)
-  online = mode == 'online'
   # The states whose d_lex is formed at a time: all of them in 'cache' mode.
   chunk = min(num_states, ONLINE_CHUNK_STATES) if online else num_states
   tiles = -(-num_states // _TILE)
@@ -434,9 +496,11 @@ def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
   dbb_acc = zeros(batch, num_states)
   dpc, dvw = empty(num_states, hidden), empty(hidden, vocab)
   dvb, dbw, dbb = empty(vocab), empty(hidden), empty(1)
+  # The bigram entry point also takes its mode and d_lex chunk.
+  mode_args = (int(online), chunk) if entry == 'fused_backward' else ()
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
-    status = lib.fused_backward(
+    status = getattr(lib, entry)(
         _DTYPE_CODES[compute_dtype], _ptr(pf), _ptr(pc), _ptr(vw),
         _ptr(params['vocab_b']), _ptr(bw), _ptr(params['blank_w']),
         _ptr(params['blank_b']), _ptr(pad), _ptr(log_z), _ptr(g),
@@ -446,18 +510,17 @@ def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
         _ptr(dvw_acc), _ptr(dvb_acc), _ptr(dbw_acc), _ptr(dbb_acc),
         _ptr(dpc), _ptr(dvw), _ptr(dvb), _ptr(dbw), _ptr(dbb),
         max_t, batch, num_states, hidden, vocab, max_expansions,
-        int(frame_dependent), int(online), chunk, ysplits, ksplits, stream)
-  _raise_on(status, 'log-partition backward')
-  if online:
-    online_backward_launches += 1
-  else:
-    backward_launches += 1
+        int(frame_dependent), *mode_args, ysplits, ksplits, stream)
+  _raise_on(status, f'{entry} (log-partition backward)')
   return dpf, dpc, dvw, dvb, dbw, dbb[0], beta[max_t % 2]
 
 
 def _reverse_frame(pc, pf_t, is_pad_t, hist_t, slabs_t, beta, rnd, head,
-                   frame_dependent, k):
+                   frame_dependent, k, dests=_bigram_dests):
   """One frame of the plain reverse scans (backward and marginals).
+
+  ``dests`` gives a [B, S] state value at each arc's destination, [B, S or
+  1, V] (the bigram's, or a context's ``backward_broadcast``).
 
   Returns (joint32, joint, lex, blank, a_list, pairs, next beta): the
   frame's unrounded and rounded joint, its lexical and blank weights, the
@@ -470,8 +533,8 @@ def _reverse_frame(pc, pf_t, is_pad_t, hist_t, slabs_t, beta, rnd, head,
   lex = joint @ vw + vb  # [B, S, V]
   blank = joint @ bw + bb  # [B, S]
 
-  def lse_y(nb):  # out[b, s] = logsumexp_y(lex[b, s, y] + nb[b, 1 + y])
-    return torch.logsumexp(lex + nb[:, None, 1:], dim=-1)
+  def lse_y(nb):  # out[b, s] = logsumexp_y(lex[b, s, y] + nb[b, dest])
+    return torch.logsumexp(lex + dests(nb), dim=-1)
 
   a_list = [hist_t]
   if frame_dependent:
@@ -503,33 +566,46 @@ def fused_backward_plain(pf: torch.Tensor, pc: torch.Tensor,
   d(joint) use the float32 joint and ``blank_w``.
   """
   _check_mode(mode)
+  return backward_scan_plain(
+      pf, pc, params, is_pad, log_z, g, hist, slabs,
+      max_expansions=max_expansions, frame_dependent=frame_dependent,
+      compute_dtype=compute_dtype, dests=_bigram_dests)
+
+
+def backward_scan_plain(pf, pc, params, is_pad, log_z, g, hist, slabs, *,
+                        max_expansions, frame_dependent, compute_dtype,
+                        dests):
+  """The reverse beta scan with head and tanh gradients in plain PyTorch,
+  for any context whose arc destinations ``dests`` gathers (as
+  ``_reverse_frame`` takes it); arguments and outputs as
+  ``fused_backward``'s. Computes in the type of its inputs."""
   max_t, batch, hidden = pf.shape
   num_states = pc.shape[0]
   k = num_passes(max_expansions, frame_dependent)
-  rnd = lambda x: x.to(compute_dtype).float()
+  rnd = lambda x: x.to(compute_dtype).to(pf.dtype)
   vw, vb = rnd(params['vocab_w']), params['vocab_b']
   bw, bb = rnd(params['blank_w']), params['blank_b']
   bw32 = params['blank_w']
-  device = pf.device
-  beta = torch.zeros((batch, num_states), device=device)
-  dpf = torch.zeros((max_t, batch, hidden), device=device)
-  dpc = torch.zeros((num_states, hidden), device=device)
+  zeros = lambda *shape: torch.zeros(shape, dtype=pf.dtype, device=pf.device)
+  beta = zeros(batch, num_states)
+  dpf = zeros(max_t, batch, hidden)
+  dpc = zeros(num_states, hidden)
   dvw = torch.zeros_like(params['vocab_w'])
   dvb = torch.zeros_like(params['vocab_b'])
   dbw = torch.zeros_like(params['blank_w'])
-  dbb = torch.zeros((), device=device)
+  dbb = zeros()
   lz = log_z[:, None]
 
   for t in range(max_t - 1, -1, -1):
     g_eff = torch.where(is_pad[t], 0.0, g)
     joint32, joint, lex, blank, a_list, pairs, next_beta = _reverse_frame(
         pc, pf[t], is_pad[t], hist[t], None if slabs is None else slabs[:, t],
-        beta, rnd, (vw, vb, bw, bb), frame_dependent, k)
+        beta, rnd, (vw, vb, bw, bb), frame_dependent, k, dests)
     bm_total = sum(torch.exp(a + blank + beta - lz) for a in a_list)
     d_blank = g_eff[:, None] * bm_total
     lm = torch.zeros_like(lex)
     for a, nb in pairs:
-      lm += torch.exp(a[:, :, None] + lex + (nb[:, None, 1:] - lz[:, None]))
+      lm += torch.exp(a[:, :, None] + lex + (dests(nb) - lz[:, None]))
     d_lex = rnd(g_eff[:, None, None] * lm)
 
     dvw += torch.einsum('bsh,bsv->hv', joint, d_lex)
@@ -653,12 +729,9 @@ def fused_marginals_plain(pf: torch.Tensor, pc: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class _Config:
-  max_expansions: int
-  frame_dependent: bool
-  compute_dtype: torch.dtype
-  mode: str
   forward: Callable
   backward: Callable
+  options: dict[str, Any]  # keyword arguments of both
 
 
 def _stage(cache, frames, num_frames, frame_proj, context_proj):
@@ -680,11 +753,9 @@ class _LogPartition(torch.autograd.Function):
                             context_proj)
     head = {'vocab_w': vocab_w, 'vocab_b': vocab_b, 'blank_w': blank_w,
             'blank_b': blank_b}
-    log_z, _, hist, slabs = config.forward(
-        pf, pc, head, is_pad, max_expansions=config.max_expansions,
-        frame_dependent=config.frame_dependent,
-        compute_dtype=config.compute_dtype, with_residuals=True,
-        mode=config.mode)
+    log_z, _, hist, slabs = config.forward(pf, pc, head, is_pad,
+                                           with_residuals=True,
+                                           **config.options)
     ctx.config = config
     ctx.save_for_backward(cache, frames, frame_proj, context_proj, vocab_w,
                           vocab_b, blank_w, blank_b, pf, pc, is_pad, log_z,
@@ -700,15 +771,37 @@ class _LogPartition(torch.autograd.Function):
             'blank_b': blank_b}
     dpf, dpc, dvw, dvb, dbw, dbb, _ = config.backward(
         pf, pc, head, is_pad, log_z, g.float().contiguous(), hist, slabs,
-        max_expansions=config.max_expansions,
-        frame_dependent=config.frame_dependent,
-        compute_dtype=config.compute_dtype, mode=config.mode)
+        **config.options)
     d_frame_proj = torch.einsum('btf,tbh->fh', frames, dpf)
     d_context_proj = cache.t() @ dpc
     d_cache = dpc @ context_proj.t()
     d_frames = torch.einsum('tbh,fh->btf', dpf, frame_proj)
     return (d_cache, d_frames, None, d_frame_proj, d_context_proj, dvw, dvb,
             dbw, dbb, None)
+
+
+def scan_log_partition(wf_params: dict[str, Any], cache: torch.Tensor,
+                       frames: torch.Tensor, num_frames, *,
+                       forward: Callable, backward: Callable,
+                       **options) -> torch.Tensor:
+  """[B] log Z of a forward scan ``forward`` whose gradient is the reverse
+  scan ``backward``, both called with ``options`` (the body of
+  ``log_partition`` and of ``trigram_scan.log_partition``). The forward
+  writes its residuals only when autograd needs them."""
+  config = _Config(forward, backward, options)
+  num_frames = torch.as_tensor(num_frames, device=frames.device)
+  names = ('frame_proj', 'context_proj', 'vocab_w', 'vocab_b', 'blank_w',
+           'blank_b')
+  tensors = (cache, frames) + tuple(wf_params[n] for n in names)
+  if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    return _LogPartition.apply(cache, frames, num_frames,
+                               *(wf_params[n] for n in names), config)
+  pf, pc, is_pad = _stage(cache, frames, num_frames, wf_params['frame_proj'],
+                          wf_params['context_proj'])
+  head = {n: wf_params[n] for n in names[2:]}
+  log_z, _, _, _ = forward(pf, pc, head, is_pad, with_residuals=False,
+                           **options)
+  return log_z
 
 
 def log_partition(wf_params: dict[str, Any], cache: torch.Tensor,
@@ -731,24 +824,11 @@ def log_partition(wf_params: dict[str, Any], cache: torch.Tensor,
   if mode == 'auto':
     mode = plan(frames.shape[0], cache.shape[0],
                 wf_params['vocab_w'].shape[-1], compute_dtype)
-  config = _Config(max_expansions, frame_dependent, compute_dtype, mode,
-                   forward, backward)
-  num_frames = torch.as_tensor(num_frames, device=frames.device)
-  names = ('frame_proj', 'context_proj', 'vocab_w', 'vocab_b', 'blank_w',
-           'blank_b')
-  tensors = (cache, frames) + tuple(wf_params[n] for n in names)
-  if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-    return _LogPartition.apply(cache, frames, num_frames,
-                               *(wf_params[n] for n in names), config)
-  pf, pc, is_pad = _stage(cache, frames, num_frames, wf_params['frame_proj'],
-                          wf_params['context_proj'])
-  head = {n: wf_params[n] for n in names[2:]}
-  log_z, _, _, _ = forward(pf, pc, head, is_pad,
-                           max_expansions=max_expansions,
-                           frame_dependent=frame_dependent,
-                           compute_dtype=compute_dtype, with_residuals=False,
-                           mode=mode)
-  return log_z
+  return scan_log_partition(
+      wf_params, cache, frames, num_frames, forward=forward,
+      backward=backward, max_expansions=max_expansions,
+      frame_dependent=frame_dependent, compute_dtype=compute_dtype,
+      mode=mode)
 
 
 @torch.no_grad()

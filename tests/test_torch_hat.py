@@ -51,15 +51,15 @@ NORMALIZERS = {
 }
 
 
-def jax_lattice(alignment, normalize, fused='never'):
+def jax_lattice(alignment, normalize, fused='never',
+                joint=jax_weight_fns.JointWeightFn):
   return last_torch_tpu.RecognitionLattice(
       context=jax_contexts.FullNGram(vocab_size=VOCAB, context_size=1),
       alignment=ALIGNMENTS[alignment][0](),
       weight_fn_cacher_factory=lambda ctx: jax_weight_fns.SharedEmbCacher(
           num_context_states=ctx.shape()[0], embedding_size=EMBEDDING),
       weight_fn_factory=lambda ctx: jax_weight_fns.LocallyNormalizedWeightFn(
-          jax_weight_fns.JointWeightFn(vocab_size=ctx.shape()[1],
-                                       hidden_size=HIDDEN),
+          joint(vocab_size=ctx.shape()[1], hidden_size=HIDDEN),
           normalize=NORMALIZERS[normalize][0]),
       fused=fused)
 
@@ -176,7 +176,13 @@ def test_locally_normalized_shortest_distance_matches_jax(normalize):
 
 
 def test_other_inner_weight_fns_raise_naming_the_roadmap():
+  """Over a JointWeightFn subclass the HAT loss still raises (its string
+  weights have no fast path); its decode takes the generic route, as in the
+  JAX package, and agrees with it."""
   class Joint(weight_fns.JointWeightFn):
+    pass
+
+  class JaxJoint(jax_weight_fns.JointWeightFn):
     pass
 
   params, frames = make_inputs(seed=4)
@@ -185,10 +191,18 @@ def test_other_inner_weight_fns_raise_naming_the_roadmap():
     lattice.loss(convert.from_jax_params(params, device='cpu'),
                  torch.from_numpy(frames), torch.from_numpy(NUM_FRAMES),
                  torch.from_numpy(LABELS), torch.from_numpy(NUM_LABELS))
-  with pytest.raises(NotImplementedError, match='queue 1, item 7'):
-    lattice.shortest_path(convert.from_jax_params(params, device='cpu'),
-                          torch.from_numpy(frames),
-                          torch.from_numpy(NUM_FRAMES))
+  labels, num_labels, weights = lattice.shortest_path(
+      convert.from_jax_params(params, device='cpu'), torch.from_numpy(frames),
+      torch.from_numpy(NUM_FRAMES))
+  assert lattice.last_path == 'generic'
+  labels_j, num_j, weights_j = jax_lattice(
+      'fld2', 'hat', 'interpret', joint=JaxJoint).shortest_path(
+          params, frames, NUM_FRAMES)
+  npt.assert_array_equal(labels.numpy(), np.asarray(labels_j))
+  npt.assert_array_equal(num_labels.numpy(), np.asarray(num_j))
+  npt.assert_allclose(weights.numpy(), np.asarray(weights_j), rtol=1e-5,
+                      atol=1e-5)
+  assert torch.all(weights <= 0)
 
 
 SMALL = dict(vocab_size=6, feature_size=5, encoder_size=16, encoder_layers=2,

@@ -4,7 +4,10 @@ Viterbi: the plain version's tie-breaking is pinned on the CPU (lowest
 state wins an argmax tie; FrameLabelDependent keeps the fewest expansions
 on a tie). Log-partition: the plain versions' padding behaviour is pinned
 on the CPU. Numerator: the plain backward is held to autograd through the
-plain forward on the CPU. On the card each kernel is held to its plain
+plain forward on the CPU. Trigram log-partition: the plain versions'
+padding behaviour is pinned, and ``log_partition`` through them is held to
+the lattice's generic forward-backward, on the CPU. On the card each kernel is held to
+its plain
 version: the tests marked ``cuda`` skip without a GPU. This file imports
 no JAX, so it also runs on a machine that has only PyTorch:
 
@@ -18,13 +21,18 @@ import numpy.testing as npt
 import pytest
 import torch
 
-from last_torch_tpu_torch.ops import fused_scan, numerator_scan, viterbi
+from last_torch_tpu_torch import alignments, contexts, lattices, weight_fns
+from last_torch_tpu_torch.ops import (fused_scan, numerator_scan,
+                                      trigram_scan, viterbi)
 
 torch.set_num_threads(1)
 torch.set_float32_matmul_precision('highest')
 
 
-def random_inputs(seed, vocab, hidden, max_t, lengths, device='cpu'):
+def random_inputs(seed, vocab, hidden, max_t, lengths, device='cpu',
+                  states=None):
+  """Kernel inputs over ``states`` context states (the bigram's V + 1 by
+  default)."""
   rng = np.random.default_rng(seed)
   tensor = lambda shape, scale=1.0: torch.from_numpy(
       (rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
@@ -35,7 +43,7 @@ def random_inputs(seed, vocab, hidden, max_t, lengths, device='cpu'):
       'blank_b': torch.tensor(0.3, device=device),
   }
   pf = tensor((max_t, len(lengths), hidden))
-  pc = tensor((vocab + 1, hidden))
+  pc = tensor((vocab + 1 if states is None else states, hidden))
   is_pad = (torch.arange(max_t)[:, None] >=
             torch.tensor(lengths)[None, :]).to(device)
   return pf, pc, params, is_pad
@@ -561,3 +569,154 @@ def test_numerator_kernels_give_exact_zeros_on_card(card):
       torch.zeros_like(g_l), **kw)
   for x in grads:
     assert torch.all(x == 0)
+
+
+TRIGRAM_CARD_CASES = {
+    # name: (vocab, hidden, max_expansions, frame_dependent); S = 1 + V + V^2
+    'fd_ragged_v5': (5, 24, 0, True),
+    'fld1_ragged_v50': (50, 64, 1, False),
+    'fld2_v64': (64, 512, 2, False),
+}
+
+
+def trigram_inputs(seed, vocab, hidden, max_t, lengths, device='cpu'):
+  states = contexts.FullNGram(vocab_size=vocab, context_size=2).num_states()
+  pf, pc, params, is_pad = random_inputs(seed, vocab, hidden, max_t, lengths,
+                                         device, states)
+  return pf * 0.5, pc * 0.5, params, is_pad
+
+
+@pytest.mark.parametrize('frame_dependent', [True, False], ids=['fd', 'fld2'])
+def test_plain_trigram_log_partition_padding(frame_dependent):
+  lengths = [5, 2, 0]
+  pf, pc, params, is_pad = trigram_inputs(7, vocab=3, hidden=5, max_t=5,
+                                          lengths=lengths)
+  kw = dict(max_expansions=2, frame_dependent=frame_dependent,
+            compute_dtype=torch.float32)
+  log_z, alpha, hist, slabs = trigram_scan.trigram_forward_plain(
+      pf, pc, params, is_pad, with_residuals=True, **kw)
+  _, alpha_2, _, _ = trigram_scan.trigram_forward_plain(
+      pf[:2].contiguous(), pc, params, is_pad[:2].contiguous(),
+      with_residuals=False, **kw)
+  # Padding frames hold alpha; the empty row keeps the start state.
+  npt.assert_array_equal(alpha[1].numpy(), alpha_2[1].numpy())
+  assert log_z[2] == 0.0
+  for t in range(2, 5):
+    npt.assert_array_equal(hist[t, 1].numpy(), alpha_2[1].numpy())
+  if not frame_dependent:
+    assert torch.all(slabs[:, 2:, 1] == float('-inf'))
+    # No lexical arc enters the start state.
+    assert torch.all(slabs[:, :, :, 0] == float('-inf'))
+
+  g = torch.tensor([1.0, 0.5, 1.0])
+  grads = trigram_scan.trigram_backward_plain(pf, pc, params, is_pad, log_z,
+                                              g, hist, slabs, **kw)
+  dpf = grads[0]
+  assert torch.all(dpf[2:, 1] == 0) and torch.all(dpf[:, 2] == 0)
+  assert torch.all(grads[-1][2] == 0)  # the empty row's beta: semiring one
+
+
+@pytest.mark.parametrize('frame_dependent', [True, False], ids=['fd', 'fld2'])
+def test_plain_trigram_log_partition_matches_generic_route(frame_dependent):
+  """The plain versions inside ``log_partition`` against the lattice's
+  generic forward-backward (a JointWeightFn subclass keeps it outside the
+  gate): log Z and the gradients of the parameters, cache and frames."""
+
+  class SubclassedJoint(weight_fns.JointWeightFn):
+    pass
+
+  def make(joint):
+    return lattices.RecognitionLattice(
+        context=contexts.FullNGram(vocab_size=3, context_size=2),
+        alignment=(alignments.FrameDependent() if frame_dependent else
+                   alignments.FrameLabelDependent(2)),
+        weight_fn_cacher_factory=lambda ctx: weight_fns.SharedEmbCacher(
+            num_context_states=ctx.shape()[0], embedding_size=6),
+        weight_fn_factory=lambda ctx: joint(vocab_size=3, hidden_size=5))
+
+  plain, generic = make(weight_fns.JointWeightFn), make(SubclassedJoint)
+  params = plain.init(torch.Generator().manual_seed(3), feature_size=4,
+                      device='cpu')
+  frames = torch.from_numpy(np.random.default_rng(3).standard_normal(
+      (3, 5, 4)).astype(np.float32))
+  num_frames = torch.tensor([5, 2, 0])
+  results = []
+  for lattice in (plain, generic):
+    leaves = [params['weight_fn'][n] for n in sorted(params['weight_fn'])]
+    leaves = [x.detach().requires_grad_(True) for x in leaves]
+    wf = dict(zip(sorted(params['weight_fn']), leaves))
+    cache = lattice.build_cache(params).detach().requires_grad_(True)
+    frames_g = frames.clone().requires_grad_(True)
+    log_z = lattice.shortest_distance({'cacher': params['cacher'],
+                                       'weight_fn': wf}, frames_g,
+                                      num_frames, cache=cache)
+    (log_z * torch.tensor([1.0, 0.5, 1.0])).sum().backward()
+    results.append([log_z] + [x.grad for x in leaves + [cache, frames_g]])
+  assert (plain.last_path, generic.last_path) == ('plain', 'generic')
+  for got, want in zip(*results):
+    npt.assert_allclose(got.detach().numpy(), want.detach().numpy(),
+                        rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', sorted(TRIGRAM_CARD_CASES))
+def test_trigram_kernels_match_plain_on_card(card, case, compute_dtype):
+  vocab, hidden, k, fd = TRIGRAM_CARD_CASES[case]
+  pf, pc, params, is_pad = trigram_inputs(8, vocab, hidden, max_t=12,
+                                          lengths=[12, 7, 0], device=card)
+  kw = dict(max_expansions=k, frame_dependent=fd,
+            compute_dtype=compute_dtype)
+  before = trigram_scan.forward_launches, trigram_scan.backward_launches
+  fwd_k = trigram_scan.trigram_forward(pf, pc, params, is_pad,
+                                       with_residuals=True, **kw)
+  fwd_p = trigram_scan.trigram_forward_plain(pf, pc, params, is_pad,
+                                             with_residuals=True, **kw)
+  g = torch.tensor([1.0, 0.0, 1.0], device=card)  # row 1: zero cotangent
+  bwd_k = trigram_scan.trigram_backward(pf, pc, params, is_pad, fwd_k[0], g,
+                                        fwd_k[2], fwd_k[3], **kw)
+  bwd_p = trigram_scan.trigram_backward_plain(pf, pc, params, is_pad,
+                                              fwd_p[0], g, fwd_p[2],
+                                              fwd_p[3], **kw)
+  torch.cuda.synchronize()
+  assert (trigram_scan.forward_launches, trigram_scan.backward_launches) == (
+      before[0] + 1, before[1] + 1)
+  # The bigram kernels' tolerances (test_log_partition_kernels_match_plain
+  # _on_card): same rounded inputs, float32 sums in another order.
+  bf16 = compute_dtype == torch.bfloat16
+  for name, got, want in zip(('log_z', 'alpha', 'hist', 'slabs'), fwd_k,
+                             fwd_p):
+    if want is not None:
+      assert rel_err(got, want) <= (1e-4 if bf16 else 1e-5), name
+  names = ('dpf', 'dpc', 'dvw', 'dvb', 'dbw', 'dbb', 'beta_out')
+  for name, got, want in zip(names, bwd_k, bwd_p):
+    if name == 'beta_out':
+      assert rel_err(got, want) <= (1e-4 if bf16 else 1e-5), name
+    else:
+      err = rel_err(got, want, per_output=True)
+      assert err <= (1e-3 if bf16 else 1e-4), name
+  assert fwd_k[0][2].item() == 0.0
+  dpf = bwd_k[0]  # the zero-cotangent row and the empty row
+  assert torch.all(dpf[:, 1] == 0) and torch.all(dpf[:, 2] == 0)
+
+
+@pytest.mark.cuda
+def test_trigram_kernels_give_exact_zeros_on_card(card):
+  pf, pc, params, is_pad = trigram_inputs(9, 50, 40, max_t=6,
+                                          lengths=[6, 3, 0], device=card)
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  log_z, _, hist, slabs = trigram_scan.trigram_forward(
+      pf, pc, params, is_pad, with_residuals=True, **kw)
+  grads = trigram_scan.trigram_backward(pf, pc, params, is_pad, log_z,
+                                        torch.zeros(3, device=card), hist,
+                                        slabs, **kw)
+  for x in grads[:-1]:
+    assert torch.all(x == 0)
+  assert torch.all(grads[-1][2] == 0)
+  # A primal-only forward gives the same log Z and alpha.
+  primal = trigram_scan.trigram_forward(pf, pc, params, is_pad,
+                                        with_residuals=False, **kw)
+  assert primal[2] is None and primal[3] is None
+  npt.assert_array_equal(primal[0].cpu().numpy(), log_z.cpu().numpy())

@@ -76,8 +76,8 @@ def torch_lattice(alignment, vocab=5, weight_fn=torch_joint, context_size=1):
       weight_fn_factory=lambda ctx: weight_fn(ctx.shape()[1]))
 
 
-def make_inputs(seed, vocab=5, weight_fn=jax_joint):
-  params = jax_lattice('fd', 'never', vocab, weight_fn).init(
+def make_inputs(seed, vocab=5, weight_fn=jax_joint, context_size=1):
+  params = jax_lattice('fd', 'never', vocab, weight_fn, context_size).init(
       jax.random.PRNGKey(seed), feature_size=FEATURES)
   frames = (np.random.default_rng(seed).standard_normal(
       (len(NUM_FRAMES), MAX_T, FEATURES)) * 1.5).astype(np.float32)
@@ -209,10 +209,16 @@ def test_unported_routes_raise():
   with pytest.raises(NotImplementedError, match='queue 1, item 7'):
     ctc.label_marginals(ctc.init(generator, FEATURES, device='cpu'), frames,
                         num_frames)
+  # The trigram now takes the generic route, as in the JAX package.
+  params, frames = make_inputs(seed=37, vocab=2, context_size=2)
   trigram = torch_lattice('fd', vocab=2, context_size=2)
-  with pytest.raises(NotImplementedError, match='queue 2, item 6'):
-    trigram.label_marginals(trigram.init(generator, FEATURES, device='cpu'),
-                            frames, num_frames)
+  got = port_call(trigram, 'label_marginals', params, frames)
+  assert trigram.last_path == 'generic'
+  want = jax_lattice('fd', 'interpret', vocab=2,
+                     context_size=2).label_marginals(params, frames,
+                                                     NUM_FRAMES)
+  for g, w in zip(got, want):
+    npt.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize('seed', range(4))

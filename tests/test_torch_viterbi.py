@@ -38,31 +38,34 @@ ALIGNMENTS = {
 }
 
 
-def jax_lattice(alignment, fused):
+def jax_lattice(alignment, fused, context_size=1, vocab=VOCAB,
+                joint=jax_weight_fns.JointWeightFn):
   return last_torch_tpu.RecognitionLattice(
-      context=jax_contexts.FullNGram(vocab_size=VOCAB, context_size=1),
+      context=jax_contexts.FullNGram(vocab_size=vocab,
+                                     context_size=context_size),
       alignment=ALIGNMENTS[alignment][0](),
       weight_fn_cacher_factory=lambda ctx: jax_weight_fns.SharedEmbCacher(
           num_context_states=ctx.shape()[0], embedding_size=EMBEDDING),
-      weight_fn_factory=lambda ctx: jax_weight_fns.JointWeightFn(
-          vocab_size=ctx.shape()[1], hidden_size=HIDDEN),
+      weight_fn_factory=lambda ctx: joint(vocab_size=ctx.shape()[1],
+                                          hidden_size=HIDDEN),
       fused=fused)
 
 
-def torch_lattice(alignment, context_size=1, vocab=VOCAB):
+def torch_lattice(alignment, context_size=1, vocab=VOCAB,
+                  joint=weight_fns.JointWeightFn):
   return last_torch_tpu_torch.RecognitionLattice(
       context=contexts.FullNGram(vocab_size=vocab, context_size=context_size),
       alignment=ALIGNMENTS[alignment][1](),
       weight_fn_cacher_factory=lambda ctx: weight_fns.SharedEmbCacher(
           num_context_states=ctx.shape()[0], embedding_size=EMBEDDING),
-      weight_fn_factory=lambda ctx: weight_fns.JointWeightFn(
-          vocab_size=ctx.shape()[1], hidden_size=HIDDEN))
+      weight_fn_factory=lambda ctx: joint(vocab_size=ctx.shape()[1],
+                                          hidden_size=HIDDEN))
 
 
-def make_inputs(seed):
+def make_inputs(seed, context_size=1, vocab=VOCAB):
   """JAX params (numpy) from init(PRNGKey), frames from numpy's rng."""
-  params = jax_lattice('fd', 'never').init(jax.random.PRNGKey(seed),
-                                           feature_size=FEATURES)
+  params = jax_lattice('fd', 'never', context_size, vocab).init(
+      jax.random.PRNGKey(seed), feature_size=FEATURES)
   rng = np.random.default_rng(seed)
   frames = rng.standard_normal(
       (len(NUM_FRAMES), 7, FEATURES)).astype(np.float32)
@@ -141,36 +144,66 @@ def test_cuda_model_without_gpu_raises():
     gnat.GNATModel(gnat.GNATConfig())
 
 
+def assert_decodes_equal(got, want):
+  labels, num_labels, weights = got
+  npt.assert_array_equal(labels.numpy(), np.asarray(want[0]))
+  npt.assert_array_equal(num_labels.numpy(), np.asarray(want[1]))
+  npt.assert_allclose(weights.numpy(), np.asarray(want[2]), rtol=1e-5,
+                      atol=1e-6)
+
+
 def test_configs_outside_the_gate_raise():
-  params, frames = make_inputs(seed=6)
-  frames = torch.from_numpy(frames)
+  """Outside the Viterbi kernel's gate the trigram decode and loss, a
+  decode with two batch dims and one over a JointWeightFn subclass take the
+  generic routes and agree with the JAX package (labels and counts equal,
+  path weights and losses to rtol 1e-5); ``align`` still raises."""
   num_frames = torch.from_numpy(NUM_FRAMES)
+  # The trigram (V=2): the generic decode, the trigram kernels' plain loss.
+  params, frames = make_inputs(seed=6, context_size=2, vocab=2)
   trigram = torch_lattice('fd', context_size=2, vocab=2)
-  trigram_params = trigram.init(torch.Generator().manual_seed(0),
-                                feature_size=FEATURES, device='cpu')
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    trigram.shortest_path(trigram_params, frames, num_frames)
-  labels = torch.ones((len(NUM_FRAMES), 2), dtype=torch.int32)
-  with pytest.raises(NotImplementedError,
-                     match='ROADMAP.md queue 2, item 6'):
-    trigram.loss(trigram_params, frames, num_frames, labels,
-                 torch.full((len(NUM_FRAMES),), 2))
+  trigram_params = convert.from_jax_params(params, device='cpu')
+  got = trigram.shortest_path(trigram_params, torch.from_numpy(frames),
+                              num_frames)
+  assert trigram.last_path == 'generic'
+  reference = jax_lattice('fd', 'interpret', context_size=2, vocab=2)
+  assert_decodes_equal(got, reference.shortest_path(params, frames,
+                                                    NUM_FRAMES))
+  labels = np.ones((len(NUM_FRAMES), 2), dtype=np.int32)
+  num_labels = np.full((len(NUM_FRAMES),), 2, dtype=np.int32)
+  loss = trigram.loss(trigram_params, torch.from_numpy(frames), num_frames,
+                      torch.from_numpy(labels), torch.from_numpy(num_labels))
+  assert trigram.last_path == 'plain'
+  # The empty row cannot emit its 2 labels: +inf in both packages.
+  npt.assert_allclose(loss.numpy(), np.asarray(reference(
+      params, frames, NUM_FRAMES, labels, num_labels)), rtol=1e-5)
+  assert loss[2].item() == float('inf')
+
+  params, frames = make_inputs(seed=6)
   lattice = torch_lattice('fd')
   torch_params = convert.from_jax_params(params, device='cpu')
+  got = lattice.shortest_path(torch_params, torch.from_numpy(frames)[None],
+                              num_frames[None])
+  assert lattice.last_path == 'generic'
+  assert_decodes_equal(got, jax_lattice('fd', 'interpret').shortest_path(
+      params, frames[None], NUM_FRAMES[None]))
   with pytest.raises(NotImplementedError, match='ROADMAP'):
-    lattice.shortest_path(torch_params, frames[None], num_frames[None])
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    lattice.align(torch_params, frames, num_frames,
+    lattice.align(torch_params, torch.from_numpy(frames), num_frames,
                   torch.ones((len(NUM_FRAMES), 2), dtype=torch.int32),
                   torch.full((len(NUM_FRAMES),), 2))
 
   class MyJoint(weight_fns.JointWeightFn):
     pass
 
-  lattice.weight_fn = MyJoint(vocab_size=VOCAB, hidden_size=HIDDEN)
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    lattice.shortest_path(torch_params, frames, num_frames)
-  assert lattice.last_path is None
+  class JaxMyJoint(jax_weight_fns.JointWeightFn):
+    pass
+
+  lattice = torch_lattice('fld2', joint=MyJoint)
+  got = lattice.shortest_path(torch_params, torch.from_numpy(frames),
+                              num_frames)
+  assert lattice.last_path == 'generic'
+  assert_decodes_equal(got, jax_lattice(
+      'fld2', 'interpret', joint=JaxMyJoint).shortest_path(
+          params, frames, NUM_FRAMES))
 
 
 @pytest.mark.parametrize('context_size', [0, 1, 2])
