@@ -20,11 +20,17 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 1. Device: requires CUDA, prints the card's name and power limit, turns
    TF32 off for float32 matmuls and convolutions.
 2. Build: compiles ``last_torch_tpu_torch/csrc/viterbi.cu``,
-   ``csrc/fused_scan.cu`` (which also holds the trigram kernels) and
-   ``csrc/numerator_scan.cu`` for sm_90a, one nvcc each, side by side.
+   ``csrc/fused_scan.cu`` (which also holds the trigram kernels),
+   ``csrc/numerator_scan.cu`` and ``csrc/joint_head.cu`` for sm_90a, one
+   nvcc each, side by side.
 3. Viterbi kernel against its plain PyTorch version on the card, T=64,
    B=4, V in {1024, 1000}, FD / FLD(1) / FLD(2), float32 and bfloat16, and
    with hat and log-softmax normalization (FD, FLD(2)).
+3c. The joint+head kernels (``csrc/joint_head.cu``, ``JointWeightFn.apply``
+   over every context state) against their plain versions: B in {1, 8},
+   S in {1025, 4161, 1100}, V in {1024, 64, 1000}, h=512, float32 and
+   bfloat16, values and gradients; and S=1100, V=1001 (bfloat16 staged
+   without 16-byte loads).
 4. Serving main path: ``GNATModel(presets.gnat_global_bigram(),
    device='cuda')`` with random weights from a seed decodes 8 requests at
    T_max=1600 through the kernel, is checked, and is compared with the same
@@ -36,7 +42,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    versions, at the shapes of phase 3, with zero-cotangent and empty rows.
 5b. Numerator kernels against their plain versions: T=64, B=4, U+1=26,
    V in {1024, 1000}, float32 and bfloat16, hat and log-softmax, with a
-   zero-cotangent row and padded frames and label positions.
+   zero-cotangent row and padded frames and label positions; and V=1000 at
+   hidden 1024 (float32) and 2048 (bfloat16), past the joint tile's chunk.
 5c. Marginals kernel against its plain version at phase 5's shapes, on the
    same forward residuals; padding frames and the empty row exactly 0.
 5d. Online log-partition kernels against their plain versions and against
@@ -65,8 +72,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    encoder and ``RecognitionLattice.label_marginals`` (forward and
    marginals kernels), counted and timed, against the same call through
    the plain versions; posterior structure checked; the kernels alone;
-   ``arc_marginals``' size guard, and its state sums at B=2, T=100 against
-   the float32 plain label_marginals.
+   ``arc_marginals``' size guard, and its state sums at B=2, T=100 (the
+   generic route, whose apply launches the joint+head forward kernel,
+   counted) against the float32 plain label_marginals.
 8b. label_marginals at bench.py's config 8 (the headline lattice, B=32,
    T=1600, bf16) through the kernels, and the kernels alone.
 9. Large-vocabulary main path: 3 ``train_step``s of
@@ -84,11 +92,32 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    utterances of phase 9's lengths through the trigram kernels, step 1
    against the plain versions, one step profiled, the kernels alone at the
    step's shapes; a decode of the same utterances on the generic route
-   (no kernel), rescored in float64 along its trigram state walk and held
+   (no lattice kernel), rescored in float64 along its trigram state walk and held
    to the same route in float64; ``label_marginals`` (generic route),
-   their structure checked.
+   their structure checked. The generic decode and posteriors launch the
+   joint+head forward kernel once per frame and once more per frame in
+   their backward loop or recompute: counted.
 10b. The trigram kernels alone at the JAX package's trigram probe shapes
    (V=64, S=4161, B=8, T=200, FLD(2), bf16) against their plain versions.
+11. NextStateTable main path: the densified headline lattice
+   (``bench.py::build_lattice(vocab=1024)`` with its context
+   ``NextStateTable(FullNGram(1024, 1).next_state_table())``: S=1025,
+   FLD(2), h=emb=feature=512, bf16 heads) at phase 6's utterances and label
+   counts, no encoder. After a 16-frame warm-up of each route, step 1
+   (loss mean and backward) through the joint+head plain versions, the
+   FullNGram lattice's bigram kernels and its generic route
+   (``fused='never'``, joint+head kernels), timed; 3 counted and timed
+   train steps (``make_optimizer`` AdamW) through the joint+head kernels,
+   losses falling, no lattice kernel launched, the first one's loss and
+   gradients held to the three (the same function), the last one
+   profiled; the generic decode against the Viterbi kernel's and
+   ``label_marginals`` against the bigram marginals kernel's, each counted
+   and timed.
+11b. The joint+head kernels alone against their plain versions and the
+   library compositions (tanh of the broadcast sum and addmm; the
+   backward's two mm) at the densified headline's per-frame shape (B=8,
+   S=1025, V=1024, bf16) and the trigram probe's (B=8, S=4161, V=64,
+   float32).
 
 Each phase prints one line or more with its seconds, and the run its total;
 any failure exits non-zero before the last line, which is ``{"ok": true,
@@ -793,7 +822,7 @@ def train_and_check(torch, gnat, semirings, pytree, config, num_frames_list,
       f'(forward, backward) {per_step}; last_path kernel')
 
   say(phase, 'one more step under the profiler: ' + device_profile(
-      torch, lambda: gnat.train_step(model, optimizer, state, *batch)))
+      torch, lambda: gnat.train_step(model, optimizer, state, *batch))[1])
   return model, optimizer, state, batch, launches
 
 
@@ -1101,7 +1130,8 @@ def kernel_record(name, source, replaces, launches, max_abs_err, ms,
                   plain_ms, flops, traffic, dtype, **extra):
   """One entry of the kernels JSON line. No single PyTorch call computes a
   tropical or log-semiring lattice scan, or a head product fused with its
-  logsumexp and a label select, so library_ms is null for every kernel."""
+  logsumexp and a label select, so library_ms is null here; the joint+head
+  records set it to their library composition's time."""
   bound_ms, bound_by = bound(flops, traffic, dtype)
   return {'name': name, 'route': 'cuda',
           'source': f'last_torch_tpu_torch/csrc/{source}',
@@ -1114,17 +1144,22 @@ def kernel_record(name, source, replaces, launches, max_abs_err, ms,
 def device_profile(torch, fn):
   """Runs fn once under torch.profiler (CUDA activity only: host-side
   tracing of a train step's ~100k small ops would take minutes to
-  process). Returns a report: kernels, device busy time (the union of the
-  kernels' intervals), the first-to-last-kernel window, the idle share of
-  that window, and the three kernels with the most device time."""
+  process). Returns (fn's result, report): kernels, device busy time (the
+  union of the kernels' intervals), the first-to-last-kernel window, the
+  idle share of that window, and the three kernels with the most device
+  time. The raw events are read where the profiler keeps them: building
+  its event tree for a step of ~400k kernels takes minutes."""
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
-    fn()
+    result = fn()
     torch.cuda.synchronize()
-  spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                 for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+  cuda = torch.autograd.DeviceType.CUDA
+  results = getattr(prof.profiler, 'kineto_results', None)
+  check(results is not None, 'torch.profiler keeps no kineto_results here: '
+        'the raw device events cannot be read')
+  spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+                 for e in results.events() if e.device_type() == cuda)
   check(bool(spans), 'the profiler recorded no device activity')
   busy, end, by_name = 0.0, spans[0][0], {}
   for start, stop, name in spans:
@@ -1133,10 +1168,11 @@ def device_profile(torch, fn):
     by_name[name] = by_name.get(name, 0.0) + (stop - start)
   window = end - spans[0][0]
   top = sorted(by_name.items(), key=lambda item: -item[1])[:3]
-  return (f'{len(spans)} kernels, device busy {busy / 1e3:.1f} ms of a '
-          f'{window / 1e3:.1f} ms window (idle {1 - busy / window:.1%}); '
-          'most device time: ' + ', '.join(
-              f'{name[:48]} {t / 1e3:.1f} ms' for name, t in top))
+  return result, (
+      f'{len(spans)} kernels, device busy {busy / 1e3:.1f} ms of a '
+      f'{window / 1e3:.1f} ms window (idle {1 - busy / window:.1%}); '
+      'most device time: ' + ', '.join(
+          f'{name[:48]} {t / 1e3:.1f} ms' for name, t in top))
 
 
 def phase_hat_serving(torch, gnat, presets, viterbi):
@@ -1247,13 +1283,18 @@ def phase_numerator_vs_plain(torch, numerator_scan):
   """Phase 5b: the numerator kernels against their plain versions, with
   zero-cotangent and padded rows."""
   rng = np.random.default_rng(4)
-  max_t, batch, hidden, u1 = 64, 4, 512, 26
+  max_t, batch, u1 = 64, 4, 26
   num_frames = torch.tensor([64, 50, 0, 17], device='cuda')
   num_labels = torch.tensor([25, 10, 0, 3], device='cuda')
   g_b, g_l = numerator_cotangents(torch, num_frames, num_labels, u1, max_t)
   rows = batch * u1
   lines = []
-  for vocab in (1024, 1000):
+  # (vocab, hidden, compute types): hidden 1024 (float32) and 2048
+  # (bfloat16) pass the joint tile's chunk, whose products are summed.
+  f32, bf16 = torch.float32, torch.bfloat16
+  for vocab, hidden, dtypes in ((1024, 512, (f32, bf16)),
+                                (1000, 512, (f32, bf16)),
+                                (1000, 1024, (f32,)), (1000, 2048, (bf16,))):
     head = {
         'vocab_w': torch.from_numpy(rand(rng, (hidden, vocab),
                                          hidden**-0.5)).cuda(),
@@ -1266,9 +1307,9 @@ def phase_numerator_vs_plain(torch, numerator_scan):
     wy = torch.from_numpy(rand(rng, (rows, hidden), hidden**-0.5)).cuda()
     by = torch.from_numpy(rand(rng, (rows,), 0.1)).cuda()
     for hat in (True, False):
-      for dtype in (torch.float32, torch.bfloat16):
+      for dtype in dtypes:
         kw = dict(hat=hat, compute_dtype=dtype)
-        tag = (f'V={vocab} {"hat" if hat else "log_softmax"} '
+        tag = (f'V={vocab} h={hidden} {"hat" if hat else "log_softmax"} '
                f'{str(dtype)[6:]}')
         fwd_k = numerator_scan.numerator_forward(pc, pf, head, wy, by, **kw)
         fwd_p = numerator_scan.numerator_forward_plain(pc, pf, head, wy, by,
@@ -1498,7 +1539,7 @@ def phase_hat_training(torch, gnat, presets, numerator_scan, semirings,
       + f' real frames/s); numerator launches per step (forward, backward) '
       f'{per_step}')
   say('hat-train', 'one more step under the profiler: ' + device_profile(
-      torch, lambda: gnat.train_step(model, optimizer, state, *batch)))
+      torch, lambda: gnat.train_step(model, optimizer, state, *batch))[1])
   return hat_step_parts(torch, model, optimizer, state, batch, launches,
                         numerator_scan, semirings)
 
@@ -1661,14 +1702,16 @@ def staged_lattice_inputs(torch, lattice, lattice_params, encoded):
   return cache, pf, pc, head
 
 
-def phase_confidence(torch, gnat, presets, fused_scan, modules):
+def phase_confidence(torch, gnat, presets, fused_scan, joint_head, modules):
   """Phase 8: the confidence main path. gnat_global_bigram at full width
   with phase 4's weights and requests: encoder, then
   ``RecognitionLattice.label_marginals`` through the forward and marginals
   kernels, counted and timed; against the same call through the plain
   versions on the card; the kernels alone; ``arc_marginals``' guard at this
-  size and its agreement with label_marginals at B=2, T=100. Prints its
-  lines; returns the marginals kernel's record."""
+  size and its agreement with label_marginals at B=2, T=100 (the generic
+  route, whose 1025-state apply launches the joint+head forward kernel).
+  Prints its lines; returns the marginals kernel's record and the
+  joint+head forward launches of arc_marginals."""
   config = presets.gnat_global_bigram()
   model = gnat.GNATModel(config, device='cuda')
   params = model.init(torch.Generator().manual_seed(0))
@@ -1777,10 +1820,17 @@ def phase_confidence(torch, gnat, presets, fused_scan, modules):
     raise SmokeFailure('arc_marginals at B=8 T=1600 did not raise its guard')
   small = encoded[:2, :100].contiguous()
   small_frames = num_frames[:2].clamp(max=100)
+  reset_counts(joint_head)
   (bm_a, lm_a), arc_ms = timed(torch, lambda: lattice.arc_marginals(
       lattice_params, small, small_frames))
   check(lattice.last_path == 'generic', 'arc_marginals left the generic '
         'route')
+  # The forward loop and the backward loop each run every frame's apply.
+  arc_launches = counts(joint_head)
+  check(arc_launches == {'forward_launches': 2 * small.shape[1],
+                         'backward_launches': 0},
+        f'arc_marginals launched the joint+head kernels {arc_launches}, not '
+        f'{2 * small.shape[1]} forwards')
   f32 = dict(kw, compute_dtype=torch.float32)
   plain = dict(forward=fused_scan.fused_forward_plain,
                marginals=fused_scan.fused_marginals_plain)
@@ -1795,14 +1845,16 @@ def phase_confidence(torch, gnat, presets, fused_scan, modules):
                        MARGINALS_NAMES, (F32_RTOL, arc_rtol))
   say('confidence',
       f'arc_marginals: {guard}, raised; at B=2 T=100 (generic route, '
-      f'float32) {arc_ms:.1f} ms, its state sums vs the float32 plain '
-      f'label_marginals (|log Z| up to {log_z_small.abs().max().item():.4g}, '
-      f'rtol {arc_rtol:.1e}): bm {arc_err["bm"][0]:.2e}, lp '
-      f'{arc_err["lp"][0]:.2e}')
+      f'float32) {arc_ms:.1f} ms, joint+head forward kernel launches '
+      f'{arc_launches["forward_launches"]}; its state sums vs the float32 '
+      f'plain label_marginals (|log Z| up to '
+      f'{log_z_small.abs().max().item():.4g}, rtol {arc_rtol:.1e}): bm '
+      f'{arc_err["bm"][0]:.2e}, lp {arc_err["lp"][0]:.2e}')
   return kernel_record(
       'fused_marginals', 'fused_scan.cu', 'fused_scan.py:527',
       launches['marginals_launches'], max(e[1] for e in errors.values()),
-      marg_ms, marg_plain_ms, flops, traffic, 'bfloat16')
+      marg_ms, marg_plain_ms, flops, traffic,
+      'bfloat16'), arc_launches['forward_launches']
 
 
 def phase_confidence_headline(torch, lattices, contexts, alignments,
@@ -2040,16 +2092,19 @@ TRIGRAM_NUM_LABELS = [n // 4 for n in TRIGRAM_NUM_FRAMES]
 F64_DECODE_RTOL = 1e-5
 
 
-def phase_trigram(torch, gnat, presets, fused_scan, trigram_scan, semirings,
-                  pytree, modules):
+def phase_trigram(torch, gnat, presets, fused_scan, trigram_scan, joint_head,
+                  semirings, pytree, modules):
   """Phase 10: the trigram main path,
   gnat_global_bigram(vocab_size=64, context_size=2) at full width (S=4161,
   FLD(2)): 3 train steps through the trigram kernels, step 1 against the
   plain versions, one step profiled; the kernels alone at the step's
   shapes; a decode of the same utterances on the generic route, rescored in
   float64 along its trigram state walk and held to the same route in
-  float64; label_marginals (generic route), their structure checked.
-  Returns the trigram kernels' records."""
+  float64; label_marginals (generic route), their structure checked. The
+  generic route's 4161-state apply launches the joint+head forward kernel
+  (float32: the preset's compute type), counted. Returns the trigram
+  kernels' records and the joint+head forward launches of the decode and
+  of label_marginals."""
   config = presets.gnat_global_bigram(vocab_size=64, context_size=2)
   model, _, state, batch, launches = train_and_check(
       torch, gnat, semirings, pytree, config, TRIGRAM_NUM_FRAMES,
@@ -2076,12 +2131,20 @@ def phase_trigram(torch, gnat, presets, fused_scan, trigram_scan, semirings,
   decode = lambda: model.decode(params, frames, num_frames)
   decode()  # warm-up
   torch.cuda.synchronize()
-  reset_counts(*modules)
+  reset_counts(*modules, joint_head)
   (labels, num_labels, weights), decode_ms = timed(torch, decode)
   check(lattice.last_path == 'generic',
         f'the trigram decode took {lattice.last_path!r}, not generic')
   check(not any(v for m in modules for v in counts(m).values()),
-        'the generic decode launched a kernel')
+        'the generic decode launched a lattice kernel')
+  # The tropical forward, then the checkpoint's recompute of every frame in
+  # the mask's gradient: 2 T_max forwards, no backward (the parameters are
+  # detached).
+  decode_launches = counts(joint_head)
+  check(decode_launches == {'forward_launches': 2 * max_t,
+                            'backward_launches': 0},
+        f'the generic decode launched the joint+head kernels '
+        f'{decode_launches}, not {2 * max_t} forwards')
   num_align = config.max_expansions + 1
   check(torch.equal(num_labels, num_align * num_frames.int()),
         'num_alignment_labels != 3 * num_frames')
@@ -2124,8 +2187,9 @@ def phase_trigram(torch, gnat, presets, fused_scan, trigram_scan, semirings,
   real_frames = sum(TRIGRAM_NUM_FRAMES)
   say('trigram', f'decode (generic route, float32) B={batch_size} '
       f'T_max={max_t} S={pc.shape[0]}: {decode_ms:.1f} ms '
-      f'({real_frames / decode_ms * 1e3:.0f} real frames/s, no kernel '
-      f'launched); the tropical forward alone (no mask gradient, no '
+      f'({real_frames / decode_ms * 1e3:.0f} real frames/s, no lattice kernel '
+      f'launched, joint+head forward kernel launches '
+      f'{decode_launches["forward_launches"]}); the tropical forward alone (no mask gradient, no '
       f'checkpoint recompute) {forward_ms:.1f} ms; vs it {best_rel:.2e}; '
       f'rescored in float64 along the trigram state walk {rescored_rel:.2e}; '
       f'float64 route {decode_64_ms:.1f} ms, weights {rel_64:.2e}, slot '
@@ -2133,10 +2197,16 @@ def phase_trigram(torch, gnat, presets, fused_scan, trigram_scan, semirings,
 
   # Label posteriors on the generic route.
   with torch.no_grad():
+    reset_counts(joint_head)
     (bm, lp), marg_ms = timed(torch, lambda: lattice.label_marginals(
         lattice_params, encoded, num_frames, cache=cache))
     check(lattice.last_path == 'generic',
           'trigram label_marginals left the generic route')
+    marg_launches = counts(joint_head)
+    check(marg_launches == {'forward_launches': 2 * max_t,
+                            'backward_launches': 0},
+          f'the generic label_marginals launched the joint+head kernels '
+          f'{marg_launches}, not {2 * max_t} forwards')
     log_z = lattice._forward(lattice_params, cache, encoded, num_frames,
                              semirings.Log)[0]
   check(tuple(bm.shape) == (batch_size, max_t, pc.shape[0]) and
@@ -2147,10 +2217,13 @@ def phase_trigram(torch, gnat, presets, fused_scan, trigram_scan, semirings,
                                   config.max_expansions, worst,
                                   long_rtol(log_z))
   say('trigram', f'label_marginals (generic route, float32) {marg_ms:.1f} '
-      f'ms; blank sums within exp(+-{drift:.3g}) of 1 (worst case '
-      f'exp(+-{worst:.3g})), label sums at most {ratio:.4f} blank sums; '
-      'padding 0')
-  return records
+      f'ms, joint+head forward kernel launches '
+      f'{marg_launches["forward_launches"]}; blank sums within '
+      f'exp(+-{drift:.3g}) of 1 (worst case exp(+-{worst:.3g})), label sums '
+      f'at most {ratio:.4f} blank sums; padding 0')
+  return records, {'trigram decode': decode_launches['forward_launches'],
+                   'trigram label_marginals':
+                       marg_launches['forward_launches']}
 
 
 def phase_trigram_probe(torch, lattices, contexts, alignments, weight_fns,
@@ -2178,6 +2251,458 @@ def phase_trigram_probe(torch, lattices, contexts, alignments, weight_fns,
                         probe_bound_ms=probe[key]['bound_ms'])
 
 
+# Joint+head kernels against their plain versions: the values (blank,
+# lexical) relative to max(|value|, 1), the gradients (d_pc, d_pf,
+# d_vocab_w, d_blank_w) as |a - b|max / |b|max. Both round the same float32
+# joint (the same tanh on the card) and cotangents; the float32 sums differ
+# in order only. The bias gradients are the cotangents' sums, one torch sum
+# shared by both.
+JH_VALUE_NAMES = ('blank*', 'lexical*')
+JH_GRAD_NAMES = ('d_pc', 'd_pf', 'd_vocab_w', 'd_blank_w')
+JH_RTOL = {'float32': (F32_RTOL, 1e-4), 'bfloat16': (BF16_RTOL, 1e-3)}
+
+
+def joint_head_inputs(torch, rng, batch, states, vocab, hidden=512):
+  """Random joint+head kernel inputs and cotangents of both outputs."""
+  t = lambda shape, scale=1.0: torch.from_numpy(rand(rng, shape,
+                                                     scale)).cuda()
+  inputs = {'pc': t((states, hidden), 0.5), 'pf': t((batch, hidden), 0.5),
+            'vocab_w': t((hidden, vocab), hidden**-0.5),
+            'blank_w': t((hidden,), hidden**-0.5),
+            'vocab_b': t((vocab,), 0.1),
+            'blank_b': torch.tensor(0.3, device='cuda')}
+  return inputs, t((batch, states)), t((batch, states, vocab))
+
+
+def joint_head_pair(torch, joint_head, inputs, g_blank, g_lexical, dtype,
+                    plain=False):
+  """(forward outputs, backward outputs) of the kernels or their plain
+  versions."""
+  forward, backward = ((joint_head.joint_head_forward_plain,
+                        joint_head.joint_head_backward_plain) if plain else
+                       (joint_head.joint_head_forward,
+                        joint_head.joint_head_backward))
+  head = [inputs[n] for n in ('pc', 'pf', 'vocab_w', 'blank_w')]
+  return (forward(**inputs, compute_dtype=dtype),
+          backward(*head, g_blank, g_lexical, compute_dtype=dtype))
+
+
+def phase_joint_head_vs_plain(torch, joint_head):
+  """Phase 3c: the joint+head kernels against their plain versions, B in
+  {1, 8}, S in {1025, 4161, 1100}, V in {1024, 64, 1000}, h=512, float32
+  and bfloat16; and S=1100, V=1001, where bfloat16 stages without 16-byte
+  loads (V not a multiple of 4)."""
+  rng = np.random.default_rng(11)
+  lines = []
+  for states, vocab in [(s, v) for s in (1025, 4161, 1100)
+                        for v in (1024, 64, 1000)] + [(1100, 1001)]:
+    worst = {}
+    for batch in (1, 8):
+      inputs, g_blank, g_lexical = joint_head_inputs(torch, rng, batch,
+                                                     states, vocab)
+      for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        fwd_k, bwd_k = joint_head_pair(torch, joint_head, inputs, g_blank,
+                                       g_lexical, dtype)
+        fwd_p, bwd_p = joint_head_pair(torch, joint_head, inputs, g_blank,
+                                       g_lexical, dtype, plain=True)
+        torch.cuda.synchronize()
+        try:
+          errors = max_errors(torch, fwd_k, fwd_p, JH_VALUE_NAMES,
+                              JH_RTOL[name])
+          errors.update(max_errors(torch, bwd_k, bwd_p, JH_GRAD_NAMES,
+                                   JH_RTOL[name]))
+        except SmokeFailure as e:
+          raise SmokeFailure(f'joint_head B={batch} S={states} V={vocab} '
+                             f'{name}: {e}') from None
+        for n, (e, _) in errors.items():
+          key = (name, 'values' if n in ('blank', 'lexical') else
+                 'gradients')
+          worst[key] = max(worst.get(key, (0.0, '')), (e, n))
+    lines.append(f'S={states} V={vocab} h=512 B in (1, 8): ' + '; '.join(
+        f'{dt} {kind} max rel {e:.2e} ({n})'
+        for (dt, kind), (e, n) in sorted(worst.items())))
+  return lines
+
+
+# Phase 11: the densified headline (bench.py::build_lattice(vocab=1024)
+# with its context a NextStateTable) at phase 6's utterances.
+NEXT_STATE_VOCAB, NEXT_STATE_HIDDEN = 1024, 512
+
+
+def next_state_lattices(torch, lattices, contexts, alignments, weight_fns):
+  """(densified NextStateTable lattice, FullNGram lattice, FullNGram lattice
+  with fused='never'): bench.py::build_lattice(vocab=1024)'s FLD(2),
+  SharedEmbCacher(1025, 512), JointWeightFn(1024, 512, bfloat16),
+  features 512."""
+  vocab, hidden = NEXT_STATE_VOCAB, NEXT_STATE_HIDDEN
+  ngram = contexts.FullNGram(vocab_size=vocab, context_size=1)
+
+  def make(context, fused='auto'):
+    return lattices.RecognitionLattice(
+        context=context,
+        alignment=alignments.FrameLabelDependent(max_expansions=2),
+        weight_fn_cacher_factory=lambda ctx: weight_fns.SharedEmbCacher(
+            num_context_states=ctx.shape()[0], embedding_size=hidden),
+        weight_fn_factory=lambda ctx: weight_fns.JointWeightFn(
+            vocab_size=vocab, hidden_size=hidden,
+            compute_dtype=torch.bfloat16),
+        fused=fused)
+
+  return (make(contexts.NextStateTable(ngram.next_state_table())),
+          make(ngram), make(ngram, 'never'))
+
+
+# The leaves whose gradients the generic route rounds to bfloat16: apply's
+# projections round their inputs to the compute type (as the JAX package's
+# XLA route does), and autograd rounds the inputs' cotangents with them.
+# The kernels' route keeps them in float32; a comparison allows one
+# bfloat16 step of each entry (at most 2**-7 of it) on top of the rule.
+ROUNDED_GRADIENTS = ("['cacher']['embedding']",
+                     "['weight_fn']['context_proj']",
+                     "['weight_fn']['frame_proj']")
+
+
+def compare_steps(torch, pytree, params, got, want, what):
+  """Holds (loss, gradients) to (loss, gradients) by phase 6's rules (loss
+  rtol 1e-4, each gradient within 1e-3 of the step's largest), with the
+  bfloat16 step of ROUNDED_GRADIENTS; returns a report."""
+  (loss_a, grads_a), (loss_b, grads_b) = got, want
+  loss_rel = abs(loss_a - loss_b) / abs(loss_b)
+  check(np.isfinite(loss_a) and loss_rel <= STEP_LOSS_RTOL,
+        f'step-1 loss {loss_a} vs {loss_b} ({what})')
+  paths = [pytree.keystr(path) for path, _ in
+           pytree.tree_flatten_with_path(params)[0]]
+  largest = max(g.abs().max().item() for g in grads_b)
+  worst = (0.0, '')
+  for path, a, b in zip(paths, grads_a, grads_b):
+    check(bool(torch.isfinite(a).all()), f'{path}: gradient not finite')
+    excess = (a - b).abs()
+    if path in ROUNDED_GRADIENTS:
+      excess = excess - 2.0**-7 * b.abs()
+    err = excess.max().item() / largest
+    worst = max(worst, (err, path))
+  check(worst[0] <= STEP_GRAD_RTOL,
+        f'step-1 gradient of {worst[1]}: {worst[0]:.3g} of the largest '
+        f'gradient ({what})')
+  return (f'loss {loss_a:.7g} vs {loss_b:.7g} (rel {loss_rel:.2e}); '
+          f'gradients within {worst[0]:.2e} of the largest {largest:.3g} '
+          f'({worst[1]})')
+
+
+def phase_next_state(torch, lattices, contexts, alignments, weight_fns, gnat,
+                     fused_scan, joint_head, semirings, pytree, modules):
+  """Phase 11: the NextStateTable main path, the densified headline lattice
+  at phase 6's 8 utterances and label counts. Step 1 (the loss, mean over
+  the batch, and its gradients) through the joint+head plain versions, the
+  FullNGram lattice's bigram kernels and its generic route
+  (fused='never'), then 3 counted and timed train steps (AdamW,
+  ``make_optimizer``) through the joint+head kernels, whose first gradients
+  are held to those three (the same function: the frames and the
+  projections' inputs lie on the bfloat16 grid, where the generic route's
+  rounding of them is exact), the last one profiled; the generic decode
+  against the Viterbi kernel's; label_marginals against the bigram
+  marginals kernel's. Prints its lines; returns the joint+head launches by
+  path."""
+  dense, ngram, never = next_state_lattices(torch, lattices, contexts,
+                                            alignments, weight_fns)
+  params = dense.init(torch.Generator().manual_seed(0),
+                      feature_size=NEXT_STATE_HIDDEN, device='cuda')
+  grid = lambda x: x.to(torch.bfloat16).float()
+  rounded = lambda p: (p['cacher']['embedding'],
+                       p['weight_fn']['context_proj'],
+                       p['weight_fn']['frame_proj'])
+  with torch.no_grad():
+    for leaf in rounded(params):
+      leaf.copy_(grid(leaf))
+  leaves = pytree.tree_leaves(params)
+  for leaf in leaves:
+    leaf.requires_grad_(True)
+  rng = np.random.default_rng(0)
+  batch_size, max_t = len(NUM_FRAMES), max(NUM_FRAMES)
+  frames = grid(torch.from_numpy(
+      rand(rng, (batch_size, max_t, NEXT_STATE_HIDDEN), 0.5)).cuda())
+  labels = torch.from_numpy(rng.integers(
+      1, NEXT_STATE_VOCAB + 1, size=(batch_size, max(NUM_LABELS)))).cuda()
+  num_frames = torch.tensor(NUM_FRAMES, device='cuda')
+  num_labels = torch.tensor(NUM_LABELS, device='cuda')
+  batch = (frames, num_frames, labels, num_labels)
+  real_frames = sum(NUM_FRAMES)
+  mean_loss = lambda lattice, b=batch: lambda: lattice.loss(params,
+                                                            *b).mean()
+  plain = (joint_head.joint_head_forward_plain,
+           joint_head.joint_head_backward_plain)
+  per_step = {'forward_launches': 2 * max_t, 'backward_launches': max_t}
+  idle = lambda: {m.__name__: v for m in modules
+                  for v in [sum(counts(m).values())] if v}
+
+  # Warm-up: 16 frames through each route timed below, so that no timed
+  # step pays the first calls' costs.
+  short = (frames[:, :16].contiguous(), num_frames.clamp(max=16),
+           labels[:, :1], num_labels.clamp(max=1))
+  for lattice in (dense, ngram, never):
+    loss_and_grads(torch, leaves, mean_loss(lattice, short))
+  with joint_head.using(*plain):
+    loss_and_grads(torch, leaves, mean_loss(dense, short))
+
+  # Step 1 through the joint+head plain versions, the bigram kernels and
+  # the FullNGram lattice's generic route.
+  reset_counts(joint_head, *modules)
+  with joint_head.using(*plain):
+    step_p, plain_ms = timed(torch, lambda: loss_and_grads(
+        torch, leaves, mean_loss(dense)))
+  check(dense.last_path == 'generic',
+        f'the NextStateTable loss took {dense.last_path!r}, not generic')
+  check(not idle() and not any(counts(joint_head).values()),
+        f'the plain versions\' step launched kernels: {idle()}, joint+head '
+        f'{counts(joint_head)}')
+  step_n, ngram_ms = timed(torch, lambda: loss_and_grads(
+      torch, leaves, mean_loss(ngram)))
+  check(ngram.last_path == 'kernel',
+        f'the FullNGram loss took {ngram.last_path!r}, not kernel')
+  reset_counts(joint_head, *modules)
+  step_v, never_ms = timed(torch, lambda: loss_and_grads(
+      torch, leaves, mean_loss(never)))
+  check(never.last_path == 'generic' and counts(joint_head) == per_step and
+        not idle(), f"fused='never' took {never.last_path!r} with joint+head "
+        f'launches {counts(joint_head)} and lattice kernels {idle()}')
+
+  # The main path: train steps through the joint+head kernels, counted and
+  # timed; step 1's gradients are kept before the optimizer clips them.
+  optimizer = gnat.make_optimizer(LEARNING_RATE)
+  opt_state = optimizer.init(params)
+  first_grads = []
+
+  def train_step():
+    opt_state.adamw.zero_grad(set_to_none=True)
+    loss = mean_loss(dense)()
+    loss.backward()
+    if not first_grads:
+      first_grads.extend(leaf.grad.clone() for leaf in leaves)
+    optimizer.apply_gradients(opt_state)
+    return loss.detach()
+
+  # The last step runs under the profiler, its time taken inside it.
+  losses, step_ms, launches = [], [], []
+  reset_counts(joint_head, *modules)
+  for i in range(TRAIN_STEPS):
+    before = counts(joint_head)
+    if i < TRAIN_STEPS - 1:
+      loss, ms = timed(torch, train_step)
+    else:
+      t0 = time.perf_counter()
+      (loss, ms), report = device_profile(
+          torch, lambda: timed(torch, train_step))
+      profiled_s = time.perf_counter() - t0
+    losses.append(loss.item())
+    step_ms.append(ms)
+    launches.append({n: v - before[n] for n, v in counts(joint_head).items()})
+  check(all(x == per_step for x in launches),
+        f'train steps launched the joint+head kernels {launches}, not '
+        f'{per_step} each')
+  check(not idle(), f'the train steps launched lattice kernels: {idle()}')
+  check(dense.last_path == 'generic', 'the train steps left the generic '
+        'route')
+  check(all(np.isfinite(losses)) and
+        all(b < a for a, b in zip(losses, losses[1:])),
+        f'losses not finite and decreasing: {losses}')
+  step_k = (losses[0], first_grads)
+  vs_plain = compare_steps(torch, pytree, params, step_k, step_p,
+                           'joint+head kernels vs plain versions')
+  vs_ngram = compare_steps(torch, pytree, params, step_k, step_n,
+                           'NextStateTable generic route vs FullNGram '
+                           'bigram kernels')
+  vs_never = compare_steps(torch, pytree, params, step_k, step_v,
+                           "NextStateTable vs FullNGram fused='never'")
+  train_launches = counts(joint_head)
+  say('next-state', f'densified headline (NextStateTable(FullNGram(1024, '
+      f'1)), S=1025, V=1024, FLD(2), h=emb=feature=512, bf16) B='
+      f'{batch_size} T_max={max_t} U_max={max(NUM_LABELS)}, step 1 (loss '
+      f'mean + backward) through the joint+head kernels vs their plain '
+      f'versions: {vs_plain}; vs the FullNGram lattice through the bigram '
+      f'kernels: {vs_ngram}; vs its generic route: {vs_never}')
+  say('next-state', f'{TRAIN_STEPS} train steps (joint+head kernels): '
+      'losses ' + ', '.join(f'{x:.7g}' for x in losses) + '; step ms '
+      + ', '.join(f'{x:.1f}' for x in step_ms) + ' (the last profiled; '
+      + ', '.join(f'{real_frames / x * 1e3:.0f}' for x in step_ms)
+      + f' real frames/s); joint+head launches {train_launches}, '
+      f'{per_step} per step; no lattice kernel launched. Loss forward+'
+      f'backward, step 1: joint+head plain versions {plain_ms:.1f} ms; '
+      f'FullNGram bigram kernels {ngram_ms:.1f} ms; FullNGram '
+      f"fused='never' (generic, joint+head kernels) {never_ms:.1f} ms")
+  say('next-state', f'step {TRAIN_STEPS} under the profiler: {report} '
+      f'(profiled in {profiled_s:.1f} s)')
+
+  # Decode (the generic route) against the Viterbi kernel's. The trained
+  # projections' inputs are put back on the bfloat16 grid, where the
+  # generic route's rounding of them is exact, so that both routes
+  # compute one function.
+  detached = pytree.tree_map(lambda x: x.detach().clone(), params)
+  for leaf in rounded(detached):
+    leaf.copy_(grid(leaf))
+  reset_counts(joint_head, *modules)
+  with torch.no_grad():
+    decoded, decode_ms = timed(torch, lambda: dense.shortest_path(
+        detached, frames, num_frames))
+  decode_launches = counts(joint_head)
+  check(dense.last_path == 'generic' and decode_launches == {
+      'forward_launches': 2 * max_t, 'backward_launches': 0} and not idle(),
+        f'the NextStateTable decode took {dense.last_path!r} with joint+head '
+        f'launches {decode_launches} and lattice kernels {idle()}')
+  with torch.no_grad():
+    viterbi_out, viterbi_ms = timed(torch, lambda: ngram.shortest_path(
+        detached, frames, num_frames))
+    check(ngram.last_path == 'kernel', 'the FullNGram decode left the '
+          'Viterbi kernel')
+    cache, pf, pc, head = staged_lattice_inputs(torch, ngram, detached,
+                                                frames)
+    rescored = rescore(torch, decoded[0], num_frames, pf, pc, head,
+                       max_expansions=2, frame_dependent=False,
+                       compute_dtype=torch.bfloat16)
+  decode_report = compare_decodes(torch, decoded, viterbi_out, rescored,
+                                  torch.bfloat16)
+  say('next-state', f'decode: NextStateTable generic route {decode_ms:.1f} '
+      f'ms ({real_frames / decode_ms * 1e3:.0f} real frames/s, joint+head '
+      f'forward launches {decode_launches["forward_launches"]}), FullNGram '
+      f'Viterbi kernel {viterbi_ms:.1f} ms; generic vs kernel: '
+      f'{decode_report}')
+
+  # Posteriors (the generic route) against the bigram marginals kernel's.
+  reset_counts(joint_head, *modules)
+  with torch.no_grad():
+    (bm, lp), marg_ms = timed(torch, lambda: dense.label_marginals(
+        detached, frames, num_frames))
+  marg_launches = counts(joint_head)
+  check(dense.last_path == 'generic' and marg_launches == {
+      'forward_launches': 2 * max_t, 'backward_launches': 0} and not idle(),
+        f'the NextStateTable label_marginals took {dense.last_path!r} with '
+        f'joint+head launches {marg_launches} and lattice kernels {idle()}')
+  with torch.no_grad():
+    (bm_k, lp_k), kernel_marg_ms = timed(torch, lambda: ngram.label_marginals(
+        detached, frames, num_frames))
+    check(ngram.last_path == 'kernel', 'the FullNGram label_marginals left '
+          'the kernels')
+    is_pad = padding(torch, num_frames, max_t)
+    log_z = fused_scan.fused_forward(
+        pf, pc, head, is_pad, with_residuals=False, max_expansions=2,
+        frame_dependent=False, compute_dtype=torch.bfloat16)[0]
+  tol = long_rtol(log_z)
+  errors = max_errors(torch, (bm, lp), (bm_k, lp_k), MARGINALS_NAMES,
+                      (BF16_RTOL, tol))
+  kernel_drift = blank_drift(torch, bm_k, num_frames)
+  drift, ratio = posterior_checks(torch, bm, lp, num_frames, 2,
+                                  2 * kernel_drift + tol, tol)
+  say('next-state', f'label_marginals: NextStateTable generic route '
+      f'{marg_ms:.1f} ms (joint+head forward launches '
+      f'{marg_launches["forward_launches"]}), FullNGram marginals kernels '
+      f'{kernel_marg_ms:.1f} ms; generic vs kernels (|log Z| up to '
+      f'{log_z.abs().max().item():.4g}, rtol {tol:.2e}): bm '
+      f'{errors["bm"][0]:.2e}, lp {errors["lp"][0]:.2e}; blank sums within '
+      f'exp(+-{drift:.3g}) of 1 (kernels {kernel_drift:.3g}), label sums at '
+      f'most {ratio:.4f} blank sums; padding 0')
+  return {'NextStateTable train steps': train_launches,
+          'NextStateTable decode': decode_launches,
+          'NextStateTable label_marginals': marg_launches}
+
+
+def joint_head_library(torch, inputs, g_blank, g_lexical, dtype):
+  """The library compositions of the same functions: tanh of the broadcast
+  sum, then one addmm over the combined head (forward); the two mm of the
+  backward with the tanh derivative between them. In ``dtype``."""
+  pc, pf = inputs['pc'], inputs['pf']
+  batch, states = g_blank.shape
+  w = torch.cat([inputs['vocab_w'], inputs['blank_w'][:, None]], 1).to(dtype)
+  b = torch.cat([inputs['vocab_b'], inputs['blank_b'][None]]).to(dtype)
+  g = torch.cat([g_lexical, g_blank[..., None]], -1).view(batch * states, -1)
+
+  def forward():
+    joint = torch.tanh(pc[None] + pf[:, None]).to(dtype)
+    return torch.addmm(b, joint.view(batch * states, -1), w)
+
+  def backward():
+    joint = torch.tanh(pc[None] + pf[:, None]).view(batch * states, -1)
+    gc = g.to(dtype)
+    du = (gc @ w.t()).float() * (1 - joint * joint)
+    du = du.view(batch, states, -1)
+    return (du.sum(0), du.sum(1), joint.to(dtype).t() @ gc)
+
+  return forward, backward
+
+
+def phase_joint_head_alone(torch, joint_head, launches):
+  """Phase 11b: the joint+head kernels alone, timed against their plain
+  versions and the library compositions, at the densified headline's
+  per-frame shape (B=8, S=1025, V=1024, bf16) and the trigram probe's
+  (B=8, S=4161, V=64, float32, as phase 10's generic decode runs it).
+  Returns the kernels' JSON records (the headline shape's numbers, the
+  probe's beside them)."""
+  rng = np.random.default_rng(12)
+  records = {}
+  for tag, (states, vocab, dtype) in (
+      ('headline', (1025, 1024, torch.bfloat16)),
+      ('probe', (4161, 64, torch.float32))):
+    batch, hidden = 8, 512
+    inputs, g_blank, g_lexical = joint_head_inputs(torch, rng, batch, states,
+                                                   vocab, hidden)
+    head = [inputs[n] for n in ('pc', 'pf', 'vocab_w', 'blank_w')]
+    fwd = lambda: joint_head.joint_head_forward(**inputs,
+                                                compute_dtype=dtype)
+    bwd = lambda: joint_head.joint_head_backward(*head, g_blank, g_lexical,
+                                                 compute_dtype=dtype)
+    fwd_plain = lambda: joint_head.joint_head_forward_plain(
+        **inputs, compute_dtype=dtype)
+    bwd_plain = lambda: joint_head.joint_head_backward_plain(
+        *head, g_blank, g_lexical, compute_dtype=dtype)
+    lib_fwd, lib_bwd = joint_head_library(torch, inputs, g_blank, g_lexical,
+                                          dtype)
+    times = {}
+    for name, fn in (('fwd', fwd), ('bwd', bwd), ('fwd_plain', fwd_plain),
+                     ('bwd_plain', bwd_plain), ('lib_fwd', lib_fwd),
+                     ('lib_bwd', lib_bwd)):
+      fn()  # warm-up
+      times[name] = timed(torch, fn, repeats=10)[1]
+    name = str(dtype)[6:]
+    errors = max_errors(torch, fwd(), fwd_plain(), JH_VALUE_NAMES,
+                        JH_RTOL[name])
+    errors.update(max_errors(torch, bwd(), bwd_plain(), JH_GRAD_NAMES,
+                             JH_RTOL[name]))
+    flops = 2.0 * batch * states * hidden * (vocab + 1)
+    fwd_bytes = nbytes(*inputs.values()) + nbytes(*fwd())
+    bwd_bytes = (nbytes(*head, g_blank, g_lexical) + nbytes(*bwd()))
+    say('joint-head-alone', f'{tag} shape B={batch} S={states} V={vocab} '
+        f'h={hidden} {name}: forward kernel {times["fwd"]:.3f} ms, plain '
+        f'{times["fwd_plain"]:.3f} ms, library (tanh + addmm) '
+        f'{times["lib_fwd"]:.3f} ms, bound '
+        f'{bound(flops, fwd_bytes, name)[0]:.3f} ms; backward kernel '
+        f'{times["bwd"]:.3f} ms, plain {times["bwd_plain"]:.3f} ms, library '
+        f'(mm, tanh derivative, mm) {times["lib_bwd"]:.3f} ms, bound '
+        f'{bound(2 * flops, bwd_bytes, name)[0]:.3f} ms; vs plain: '
+        + ', '.join(f'{n} {e:.2e}' for n, (e, _) in errors.items()))
+    value_err = max(errors[n][1] for n in ('blank', 'lexical'))
+    grad_err = max(errors[n][1] for n in ('d_pc', 'd_pf', 'd_vocab_w',
+                                          'd_blank_w'))
+    for key, (ms, plain_ms, lib_ms, ops, traffic, err) in {
+        'forward': (times['fwd'], times['fwd_plain'], times['lib_fwd'],
+                    flops, fwd_bytes, value_err),
+        'backward': (times['bwd'], times['bwd_plain'], times['lib_bwd'],
+                     2 * flops, bwd_bytes, grad_err)}.items():
+      if tag == 'headline':
+        record = kernel_record(
+            f'joint_head_{key}', 'joint_head.cu',
+            'joint_head.py:187' if key == 'forward' else 'joint_head.py:248',
+            sum(v[f'{key}_launches'] for v in launches.values()), err, ms,
+            plain_ms, ops, traffic, name,
+            launches_by_path={p: v[f'{key}_launches']
+                              for p, v in launches.items()})
+        record['library_ms'] = lib_ms
+        records[key] = record
+      else:
+        bound_ms = bound(ops, traffic, name)[0]
+        records[key].update(probe_ms=ms, probe_plain_ms=plain_ms,
+                            probe_library_ms=lib_ms, probe_bound_ms=bound_ms)
+  return records
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2188,8 +2713,9 @@ def main():
     from last_torch_tpu_torch import (alignments, contexts, lattices,
                                       semirings, weight_fns)
     from last_torch_tpu_torch.models import gnat, presets
-    from last_torch_tpu_torch.ops import (build, fused_scan, numerator_scan,
-                                          trigram_scan, viterbi)
+    from last_torch_tpu_torch.ops import (build, fused_scan, joint_head,
+                                          numerator_scan, trigram_scan,
+                                          viterbi)
   except ImportError as e:
     raise SmokeFailure(f'run from the root of a checkout ({e})') from None
 
@@ -2206,7 +2732,8 @@ def main():
   t0 = time.perf_counter()
   for line in phase_build(build, {'viterbi.cu': viterbi,
                                   'fused_scan.cu': fused_scan,
-                                  'numerator_scan.cu': numerator_scan}):
+                                  'numerator_scan.cu': numerator_scan,
+                                  'joint_head.cu': joint_head}):
     print(f'[build] {line}', flush=True)
   print(f'[build] {time.perf_counter() - t0:.1f} s', flush=True)
 
@@ -2215,6 +2742,12 @@ def main():
   for line in phase_kernel_vs_plain(torch, viterbi):
     print(f'[kernel-vs-plain] {line}', flush=True)
   print(f'[kernel-vs-plain] {time.perf_counter() - t0:.1f} s', flush=True)
+
+  # Phase 3c: the joint+head kernels against plain.
+  t0 = time.perf_counter()
+  for line in phase_joint_head_vs_plain(torch, joint_head):
+    print(f'[jh-kernel-vs-plain] {line}', flush=True)
+  print(f'[jh-kernel-vs-plain] {time.perf_counter() - t0:.1f} s', flush=True)
 
   # Phase 4: the serving main path, gnat_global_bigram at full width.
   t0 = time.perf_counter()
@@ -2391,8 +2924,8 @@ def main():
   # Phase 8: the confidence main path.
   t0 = time.perf_counter()
   torch.cuda.empty_cache()
-  marginals_record = phase_confidence(torch, gnat, presets, fused_scan,
-                                      modules)
+  marginals_record, arc_launches = phase_confidence(
+      torch, gnat, presets, fused_scan, joint_head, modules)
   print(f'[confidence] {time.perf_counter() - t0:.1f} s', flush=True)
 
   # Phase 8b: label_marginals at bench config 8.
@@ -2431,8 +2964,9 @@ def main():
   # Phase 10: the trigram main path (training, decode, posteriors).
   t0 = time.perf_counter()
   torch.cuda.empty_cache()
-  trigram_records = phase_trigram(torch, gnat, presets, fused_scan,
-                                  trigram_scan, semirings, pytree, modules)
+  trigram_records, trigram_jh_launches = phase_trigram(
+      torch, gnat, presets, fused_scan, trigram_scan, joint_head, semirings,
+      pytree, modules)
   print(f'[trigram] {time.perf_counter() - t0:.1f} s', flush=True)
 
   # Phase 10b: the trigram kernels at the JAX package's trigram probe shapes.
@@ -2441,13 +2975,33 @@ def main():
   phase_trigram_probe(torch, lattices, contexts, alignments, weight_fns,
                       trigram_scan, trigram_records)
   print(f'[trigram-probe] {time.perf_counter() - t0:.1f} s', flush=True)
+
+  # Phase 11: the NextStateTable main path (training, decode, posteriors).
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  jh_launches = phase_next_state(torch, lattices, contexts, alignments,
+                                 weight_fns, gnat, fused_scan, joint_head,
+                                 semirings, pytree, modules)
+  print(f'[next-state] {time.perf_counter() - t0:.1f} s', flush=True)
+  jh_launches['gnat_global_bigram arc_marginals (B=2, T=100)'] = {
+      'forward_launches': arc_launches, 'backward_launches': 0}
+  for path, count in trigram_jh_launches.items():
+    jh_launches[path] = {'forward_launches': count, 'backward_launches': 0}
+
+  # Phase 11b: the joint+head kernels alone.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  jh_records = phase_joint_head_alone(torch, joint_head, jh_launches)
+  print(f'[joint-head-alone] {time.perf_counter() - t0:.1f} s', flush=True)
   print(f'[total] {time.perf_counter() - start:.1f} s', flush=True)
 
   print(json.dumps({'kernels': [viterbi_record, records['forward'],
                                 records['backward'], *numerator_records,
                                 marginals_record, *online_records,
                                 trigram_records['forward'],
-                                trigram_records['backward']]}))
+                                trigram_records['backward'],
+                                jh_records['forward'],
+                                jh_records['backward']]}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu',
       'kind': torch.cuda.get_device_name(0),

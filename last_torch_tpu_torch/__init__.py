@@ -22,14 +22,19 @@ reference each part is held against. Ported so far: the serving path,
 ``GNATModel.mean_loss`` and ``models.gnat.train_step``, whose loss
 denominator runs in ``csrc/fused_scan.cu``, and both paths of the locally
 normalized (HAT) model, whose decode normalizes inside the Viterbi kernel
-and whose numerator runs in ``csrc/numerator_scan.cu``. See ROADMAP.md for
-what follows.
+and whose numerator runs in ``csrc/numerator_scan.cu``; the posteriors, the
+trigram GNAT and arbitrary context DFAs (``NextStateTable``), whose generic
+routes run the joint network and heads in ``csrc/joint_head.cu``. See
+ROADMAP.md for what follows.
 """
 
 from last_torch_tpu_torch import alignments
 from last_torch_tpu_torch import contexts
 from last_torch_tpu_torch import semirings
 from last_torch_tpu_torch import weight_fns
+from last_torch_tpu_torch.contexts import ContextDependency
+from last_torch_tpu_torch.contexts import FullNGram
+from last_torch_tpu_torch.contexts import NextStateTable
 from last_torch_tpu_torch.lattices import RecognitionLattice
 
 __version__ = '0.1.0'

@@ -51,12 +51,16 @@
 //   keep W and its gradient sums resident in VMEM. Here the forward is one
 //   launch over all frames, grid (row tiles, label splits, frames), and one
 //   small merge launch; no host time loop.
-// * A block stages the joint of its 64 rows once, in shared memory, formed
-//   from pc and pf as it loads (the [T, R, h] joint, 1.3 GB in float32 at
-//   B=8, is never stored), and walks its label strips against it: float32
-//   FMAs from a k-major tile, or WMMA bfloat16 products from a row-major
-//   one. The logsumexp over V is an online (max, sum) per row over the
-//   strips, merged across splits as fused_scan.cu does.
+// * A block stages the joint of its 64 rows in shared memory, formed from
+//   pc and pf as it loads (the [T, R, h] joint, 1.3 GB in float32 at B=8,
+//   is never stored), and walks its label strips against it: float32 FMAs
+//   from a k-major tile, or WMMA bfloat16 products from a row-major one.
+//   The tile holds at most kChunk hidden units (512 float32, 1024
+//   bfloat16), so its shared memory does not grow with h: up to kChunk the
+//   joint is staged once for all strips; past it, each strip re-stages the
+//   joint chunk by chunk and sums the chunks' products. The logsumexp over
+//   V is an online (max, sum) per row over the strips, merged across
+//   splits as fused_scan.cu does.
 // * The backward stages, per chunk of frames sized by the caller, the
 //   rounded joint and ds ([Tc, R, h] and [Tc, R, V] in the compute type), so
 //   that d_W = joint^T ds is one contraction over the chunk's rows. Every
@@ -118,26 +122,31 @@ __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
-// Shared-memory layout of the resident joint tile: float32 k-major
-// [round_up(h, kBK)][kLdT] plus a [kBK][kBN] W slice; bfloat16 row-major
-// [kRows][round_up(h, kWK) + 8] plus a [kWK][kLdW] W slice and a float32
-// [kBM][kLdC] accumulator tile. Both add [kBM / kTM][kBN] floats for
-// column sums.
+// Shared-memory layout of the joint tile, which holds hc = min(h, kChunk)
+// hidden units: float32 k-major [round_up(hc, kBK)][kLdT] plus a
+// [kBK][kBN] W slice; bfloat16 row-major [kRows][round_up(hc, kWK) + 8]
+// plus a [kWK][kLdW] W slice and a float32 [kBM][kLdC] accumulator tile.
+// Both add [kBM / kTM][kBN] floats for column sums.
 template <typename T>
 struct Resident;
 
 template <>
 struct Resident<float> {
+  static constexpr int kChunk = 512;
   static __host__ __device__ int ld(int) { return kLdT; }
   static __host__ __device__ size_t bytes(int h) {
-    return sizeof(float) * (static_cast<size_t>(round_up(h, kBK)) * kLdT +
+    const int hc = h < kChunk ? h : kChunk;
+    return sizeof(float) * (static_cast<size_t>(round_up(hc, kBK)) * kLdT +
                             kBK * kBN + (kBM / kTM) * kBN);
   }
 };
 
 template <>
 struct Resident<__nv_bfloat16> {
-  static __host__ __device__ int ld(int h) { return round_up(h, kWK) + 8; }
+  static constexpr int kChunk = 1024;
+  static __host__ __device__ int ld(int h) {
+    return round_up(h < kChunk ? h : kChunk, kWK) + 8;
+  }
   static __host__ __device__ size_t bytes(int h) {
     return sizeof(__nv_bfloat16) *
                (static_cast<size_t>(kRows) * ld(h) + kWK * kLdW) +
@@ -155,9 +164,12 @@ __device__ __forceinline__ void store_joint(__nv_bfloat16* js, int ldj,
   js[row * ldj + k] = __float2bfloat16(j);
 }
 
-// Stages rows r0.. of frame t into the joint tile, zero outside [R, h] (up to
-// the tile's padded depth). With blank_out, also writes the float32 blank
-// and label scores of each row (ly into ly_out).
+// Stages hidden units [c0, c0 + hc) of rows r0.. of frame t into the joint
+// tile, zero outside [R, h] (up to the tile's padded depth hc_pad). With
+// blank_out, also sums the float32 blank and label scores of each row over
+// the chunks into dots [2][kRows] (the chunk c0 = 0 starts them) and, at
+// the last chunk, writes them (ly into ly_out). Each row belongs to one
+// warp, whose lane 0 alone touches its sums.
 template <typename T>
 __device__ void stage_joint(T* js, int ldj, const float* __restrict__ pc,
                             const float* __restrict__ pf_t,
@@ -165,23 +177,25 @@ __device__ void stage_joint(T* js, int ldj, const float* __restrict__ pc,
                             const float* __restrict__ bb,
                             const float* __restrict__ wy,
                             const float* __restrict__ by, int r0, int R,
-                            int U1, int h, int h_pad,
+                            int U1, int h, int c0, int hc, int hc_pad,
+                            float (*dots)[kRows],
                             float* __restrict__ blank_out,
                             float* __restrict__ ly_out) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int row = warp; row < kRows; row += kThreads / 32) {
     const int r = r0 + row;
     const bool valid = r < R;
-    const float* pc_row = pc + static_cast<size_t>(r) * h;
-    const float* pf_row = pf_t + static_cast<size_t>(valid ? r / U1 : 0) * h;
-    const float* wy_row = wy + static_cast<size_t>(r) * h;
+    const float* pc_row = pc + static_cast<size_t>(r) * h + c0;
+    const float* pf_row =
+        pf_t + static_cast<size_t>(valid ? r / U1 : 0) * h + c0;
+    const float* wy_row = wy + static_cast<size_t>(r) * h + c0;
     float dot_b = 0.f, dot_y = 0.f;
-    for (int k = lane; k < h_pad; k += 32) {
+    for (int k = lane; k < hc_pad; k += 32) {
       float j = 0.f;
-      if (valid && k < h) {
+      if (valid && k < hc) {
         j = tanhf(pc_row[k] + pf_row[k]);
         if (blank_out != nullptr) {
-          dot_b = fmaf(j, bw[k], dot_b);
+          dot_b = fmaf(j, bw[c0 + k], dot_b);
           dot_y = fmaf(j, wy_row[k], dot_y);
         }
       }
@@ -193,8 +207,17 @@ __device__ void stage_joint(T* js, int ldj, const float* __restrict__ pc,
         dot_y += __shfl_xor_sync(0xffffffffu, dot_y, o);
       }
       if (lane == 0 && valid) {
-        blank_out[r] = dot_b + bb[0];
-        ly_out[r] = dot_y + by[r];
+        if (c0 > 0) {
+          dot_b += dots[0][row];
+          dot_y += dots[1][row];
+        }
+        if (c0 + hc < h) {
+          dots[0][row] = dot_b;
+          dots[1][row] = dot_y;
+        } else {
+          blank_out[r] = dot_b + bb[0];
+          ly_out[r] = dot_y + by[r];
+        }
       }
     }
   }
@@ -298,8 +321,9 @@ __device__ __forceinline__ void resident_product(
 // kGradient: ds = coef e^(logits - ref) into ds [frames, R, V] (compute
 // type) and its float32 column sums per (frame, row tile) into dvb_part
 // [frames, ceil(R / 64), V]; split 0 also writes the rounded joint into
-// jc [frames, R, h].
-template <typename T, int MODE>
+// jc [frames, R, h]. CHUNKED: h exceeds the joint tile's chunk (a launch
+// without it takes h <= Resident<T>::kChunk and compiles to one chunk).
+template <typename T, int MODE, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
     head_kernel(const float* __restrict__ pc,      // [R, h]
                 const float* __restrict__ pf,      // [T, B, h] from frame t0
@@ -323,10 +347,14 @@ __global__ void __launch_bounds__(kThreads)
                 int R, int B, int U1, int h, int V, int hat,
                 int strips_per_split) {
   extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float dots[2][kRows];
   const int ldj = Resident<T>::ld(h);
+  const int chunk = CHUNKED ? Resident<T>::kChunk : h;
+  const int num_chunks = CHUNKED ? (h + chunk - 1) / chunk : 1;
   // The tile's depth: the products read whole kBK (float32) or kWK
-  // (bfloat16) slices, zero past h.
-  const int h_pad = sizeof(T) == 4 ? round_up(h, kBK) : round_up(h, kWK);
+  // (bfloat16) slices, zero past the chunk.
+  const int h_pad = sizeof(T) == 4 ? round_up(min(h, chunk), kBK)
+                                   : round_up(min(h, chunk), kWK);
   T* js = reinterpret_cast<T*>(smem);
   T* w_tile;
   float* c_tile = nullptr;
@@ -349,20 +377,32 @@ __global__ void __launch_bounds__(kThreads)
   const int strip_end = min(strips, strip_begin + strips_per_split);
   const bool first_split = blockIdx.y == 0;
 
-  stage_joint<T>(js, ldj, pc, pf + static_cast<size_t>(f) * B * h, bw, bb,
-                 wy, by, r0, R, U1, h, h_pad,
-                 MODE == kForward && first_split ? blank_out + fr : nullptr,
-                 MODE == kForward && first_split ? ly_out + fr : nullptr);
-  __syncthreads();
-  if (MODE == kGradient && first_split) {
-    // The rounded joint, for the d_W contraction (row-major [R, h]).
-    for (int idx = tid; idx < kRows * h; idx += kThreads) {
-      const int row = idx / h, k = idx % h;
-      if (r0 + row < R) {
-        jc[(fr + r0 + row) * h + k] =
-            sizeof(T) == 4 ? js[k * kLdT + row] : js[row * ldj + k];
+  // Stages chunk c of the joint; `outputs`: also the per-row outputs of the
+  // first split (blank and ly in kForward, the rounded joint in kGradient),
+  // written once per row.
+  auto stage = [&](int c, bool outputs) {
+    const int c0 = CHUNKED ? c * chunk : 0;
+    const int hc = CHUNKED ? min(chunk, h - c0) : h;
+    const bool scores = MODE == kForward && first_split && outputs;
+    stage_joint<T>(js, ldj, pc, pf + static_cast<size_t>(f) * B * h, bw, bb,
+                   wy, by, r0, R, U1, h, c0, hc,
+                   sizeof(T) == 4 ? round_up(hc, kBK) : round_up(hc, kWK),
+                   dots, scores ? blank_out + fr : nullptr,
+                   scores ? ly_out + fr : nullptr);
+    __syncthreads();
+    if (MODE == kGradient && first_split && outputs) {
+      // The rounded joint, for the d_W contraction (row-major [R, h]).
+      for (int idx = tid; idx < kRows * hc; idx += kThreads) {
+        const int row = idx / hc, k = idx % hc;
+        if (r0 + row < R) {
+          jc[(fr + r0 + row) * h + c0 + k] =
+              sizeof(T) == 4 ? js[k * kLdT + row] : js[row * ldj + k];
+        }
       }
     }
+  };
+  if (num_chunks == 1 || strip_begin >= strip_end) {
+    for (int c = 0; c < num_chunks; ++c) stage(c, true);
   }
 
   // Per-row constants of this thread's rows.
@@ -390,7 +430,27 @@ __global__ void __launch_bounds__(kThreads)
   for (int strip = strip_begin; strip < strip_end; ++strip) {
     const int y0 = strip * kBN;
     float val[kTM][kTN];
-    resident_product(js, ldj, w_tile, c_tile, W, V, y0, h, val);
+    if (num_chunks == 1) {
+      resident_product(js, ldj, w_tile, c_tile, W, V, y0, h, val);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) val[i][j] = 0.f;
+      }
+      for (int c = 0; c < num_chunks; ++c) {
+        stage(c, strip == strip_begin);
+        float part[kTM][kTN];
+        resident_product(js, ldj, w_tile, c_tile,
+                         W + static_cast<size_t>(c) * chunk * V, V, y0,
+                         min(chunk, h - c * chunk), part);
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) {
+#pragma unroll
+          for (int j = 0; j < kTN; ++j) val[i][j] += part[i][j];
+        }
+      }
+    }
     float bias[kTN];
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
@@ -684,13 +744,17 @@ inline int blocks_for(size_t n) {
   return static_cast<int>((n + kPointThreads - 1) / kPointThreads);
 }
 
-// Lets the head kernel use Resident<T>::bytes(h) of dynamic shared memory
-// (over 48 KB); fails when the card has less.
+// The head kernel for hidden size h (chunked past Resident<T>::kChunk),
+// allowed Resident<T>::bytes(h) of dynamic shared memory (over 48 KB);
+// fails when the card has less.
 template <typename T, int MODE>
-int head_launch_setup(int h, size_t* bytes) {
+int head_launch_setup(int h, size_t* bytes,
+                      decltype(&head_kernel<T, MODE, false>)* kernel) {
+  *kernel = h > Resident<T>::kChunk ? head_kernel<T, MODE, true>
+                                    : head_kernel<T, MODE, false>;
   *bytes = Resident<T>::bytes(h);
   RETURN_IF_FAILED(cudaFuncSetAttribute(
-      head_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(*bytes)));
   return 0;
 }
@@ -709,10 +773,11 @@ int run_forward(const float* pc, const float* pf, const T* W,
   const int splits = (strips + per_split - 1) / per_split;
   if (num_frames == 0 || R == 0) return 0;
   size_t bytes = 0;
-  const int status = head_launch_setup<T, kForward>(h, &bytes);
+  decltype(&head_kernel<T, kForward, false>) kernel = nullptr;
+  const int status = head_launch_setup<T, kForward>(h, &bytes, &kernel);
   if (status != 0) return status;
   const dim3 grid((R + kRows - 1) / kRows, splits, num_frames);
-  head_kernel<T, kForward><<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, kThreads, bytes, stream>>>(
       pc, pf, W, vb, bw, bb, wy, by, part_m, part_l, blank, nl, nullptr,
       nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, R, B, U1, h, V,
       hat, per_split);
@@ -745,16 +810,16 @@ int run_backward(const float* pc, const float* pf, const T* W,
       (strips + max_splits - 1) / (max_splits > 0 ? max_splits : 1);
   const int splits = (strips + per_split - 1) / per_split;
   size_t bytes = 0;
+  decltype(&head_kernel<T, kGradient, false>) kernel = nullptr;
   if (num_frames > 0 && R > 0) {
-    const int status = head_launch_setup<T, kGradient>(h, &bytes);
+    const int status = head_launch_setup<T, kGradient>(h, &bytes, &kernel);
     if (status != 0) return status;
   }
   for (int t0 = 0; t0 < num_frames; t0 += chunk) {
     const int frames = min(chunk, num_frames - t0);
     const size_t fr = static_cast<size_t>(t0) * R;
     const float* pf_c = pf + static_cast<size_t>(t0) * B * h;
-    head_kernel<T, kGradient>
-        <<<dim3(row_tiles, splits, frames), kThreads, bytes, stream>>>(
+    kernel<<<dim3(row_tiles, splits, frames), kThreads, bytes, stream>>>(
             pc, pf_c, W, vb, bw, bb, wy, by, nullptr, nullptr, nullptr,
             nullptr, g_b + fr, g_l + fr, z + fr, blank + fr, ds, jc,
             dvb_part, R, B, U1, h, V, hat, per_split);
@@ -813,8 +878,9 @@ int run_backward(const float* pc, const float* pf, const T* W,
 
 extern "C" {
 
-// Shared memory one head block needs for hidden size h (dtype 0 = float32,
-// 1 = bfloat16), so the caller can refuse what does not fit.
+// Dynamic shared memory one head block requests for hidden size h (dtype 0 =
+// float32, 1 = bfloat16): it grows with h up to the joint tile's chunk
+// (512 float32, 1024 bfloat16 hidden units) and stays there.
 size_t numerator_head_smem_bytes(int dtype, int h) {
   return dtype == 0 ? Resident<float>::bytes(h)
                     : Resident<__nv_bfloat16>::bytes(h);

@@ -31,7 +31,12 @@ over the weight function's ``label_weights`` (the numerator kernels of
 takes the log-partition kernels (``ops/fused_scan.py`` for the bigram,
 ``ops/trigram_scan.py`` for the trigram) inside their gates and the generic
 forward-backward (a per-frame loop with a backward-algorithm gradient)
-outside them, where the JAX package runs XLA. The configurations the JAX
+outside them, where the JAX package runs XLA. A ``NextStateTable``
+context (any label-history DFA) never enters the bigram or trigram gates,
+which need a ``FullNGram``: its loss, decode and posteriors run the generic
+routes, whose per-frame ``JointWeightFn.apply`` runs the joint+head kernels
+of ``ops/joint_head.py`` at 1024 context states or more. ``fused='never'``
+sends every operation to the generic route. The configurations the JAX
 package sends to routes that are not ported yet (the single-context-state
 route) and the remaining operations raise ``NotImplementedError`` naming
 the ROADMAP item that ports them; none of them falls back to another route.
@@ -79,15 +84,31 @@ class RecognitionLattice:
     alignment: Alignment lattice.
     weight_fn_cacher: WeightFnCacher built by ``weight_fn_cacher_factory``.
     weight_fn: WeightFn built by ``weight_fn_factory``.
+    fused: 'auto' (default) takes the lattice kernels inside their gates,
+      'never' the generic route for every operation. (The joint+head
+      kernels of ``JointWeightFn.apply`` keep their own gate.)
   """
 
   def __init__(self, context, alignment,
                weight_fn_cacher_factory: Callable[[Any], Any],
-               weight_fn_factory: Callable[[Any], Any]):
+               weight_fn_factory: Callable[[Any], Any],
+               fused: str = 'auto'):
+    if fused == 'interpret':
+      raise ValueError(
+          "fused='interpret' runs the JAX package's Pallas kernels in "
+          'interpret mode and has no counterpart in the PyTorch port: the '
+          "plain versions run on CPU tensors under 'auto'")
+    if fused not in ('auto', 'never'):
+      raise ValueError(f"fused should be 'auto' or 'never', but got "
+                       f'{fused!r}')
     self.context = context
     self.alignment = alignment
     self.weight_fn_cacher = weight_fn_cacher_factory(context)
     self.weight_fn = weight_fn_factory(context)
+    # 'auto': the lattice kernels inside their gates (their plain versions
+    # on CPU tensors); 'never': every operation on the generic route, e.g.
+    # to A/B the kernels against it on one lattice.
+    self.fused = fused
     self._last_path = None
 
   @property
@@ -95,12 +116,35 @@ class RecognitionLattice:
     """Which path the last ``shortest_path``, log-partition or
     ``label_marginals`` took.
 
-    'kernel' when it launched the CUDA kernels (CUDA tensors inside the
-    kernels' gate), 'plain' when it ran their plain PyTorch versions (CPU
-    tensors inside the gate), 'generic' for the per-frame loop outside the
-    gates, None before any call.
+    'kernel' when it launched the lattice's CUDA kernels (CUDA tensors
+    inside the kernels' gate), 'plain' when it ran their plain PyTorch
+    versions (CPU tensors inside the gate), 'generic' for the per-frame loop
+    outside the gates or under ``fused='never'`` (whose weight function may
+    still launch the joint+head kernels, counted in
+    ``ops.joint_head.forward_launches`` / ``backward_launches``), None
+    before any call.
     """
     return self._last_path
+
+  def would_fuse(self, frames: torch.Tensor, semiring=semirings.Log) -> bool:
+    """Whether the loss / log-partition on ``frames`` takes the lattice
+    kernels (their plain versions on CPU tensors), from the configuration
+    and shapes alone.
+
+    Args:
+      frames: The [batch, T, feature] frames the call would take.
+      semiring: The semiring of the shortest distance; only Log has kernels.
+    """
+    if semiring is not semirings.Log:
+      return False
+    return any(self._kernels_take(ops, frames)
+               for ops in (fused_scan, trigram_scan))
+
+  def _kernels_take(self, ops, frames: torch.Tensor, **kw) -> bool:
+    """Whether the lattice kernels of ``ops`` (``fused_scan`` or
+    ``trigram_scan``) take an operation on ``frames``: ``fused`` allows them
+    and their gate covers the configuration."""
+    return self.fused != 'never' and ops.supported(self, frames, **kw)
 
   def init(self, generator: torch.Generator, feature_size: int,
            device='cuda') -> Params:
@@ -193,7 +237,7 @@ class RecognitionLattice:
         inner_wf, normalize = inner_wf.weight_fn, 'log_softmax'
     if cache is None:
       cache = self.build_cache(params)
-    if fused_scan.supported(self, frames, weight_fn=inner_wf):
+    if self._kernels_take(fused_scan, frames, weight_fn=inner_wf):
       frame_dependent = isinstance(self.alignment,
                                    alignments.FrameDependent)
       on_card = frames.device.type == 'cuda'
@@ -313,7 +357,7 @@ class RecognitionLattice:
       raise ValueError('frames and num_frames have different batch_dims: '
                        f'{tuple(frames.shape[:-2])} vs '
                        f'{tuple(num_frames.shape)}')
-    if fused_scan.supported(self, frames):
+    if self._kernels_take(fused_scan, frames):
       if cache is None:
         cache = self.build_cache(params)
       frame_dependent = isinstance(self.alignment, alignments.FrameDependent)
@@ -555,7 +599,7 @@ class RecognitionLattice:
     """
     num_frames = torch.as_tensor(num_frames, device=frames.device)
     for ops in (fused_scan, trigram_scan):
-      if ops.supported(self, frames):
+      if self._kernels_take(ops, frames):
         frame_dependent = isinstance(self.alignment,
                                      alignments.FrameDependent)
         on_card = frames.device.type == 'cuda'

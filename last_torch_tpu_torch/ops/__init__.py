@@ -19,6 +19,7 @@ import.
 """
 
 from last_torch_tpu_torch.ops import fused_scan
+from last_torch_tpu_torch.ops import joint_head
 from last_torch_tpu_torch.ops import numerator_scan
 from last_torch_tpu_torch.ops import trigram_scan
 from last_torch_tpu_torch.ops import viterbi

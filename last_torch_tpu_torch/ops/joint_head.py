@@ -1,0 +1,343 @@
+# Copyright 2026.
+#
+# Licensed under the Apache License, Version 2.0 (the "License");
+# you may not use this file except in compliance with the License.
+# You may obtain a copy of the License at
+#
+#     http://www.apache.org/licenses/LICENSE-2.0
+#
+# Unless required by applicable law or agreed to in writing, software
+# distributed under the License is distributed on an "AS IS" BASIS,
+# WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+# See the License for the specific language governing permissions and
+# limitations under the License.
+
+"""The joint network and its heads over every context state, for Hopper,
+and its plain versions.
+
+Counterpart of ``last_torch_tpu/ops/joint_head.py``: ``JointWeightFn.apply``
+with ``state=None`` computes ``tanh(pc[s] + pf[b])`` through the blank and
+vocabulary heads for every (batch row, context state) pair, once per frame
+on the lattice's generic routes (the forward algorithm, the backward
+algorithm's weight VJP, the generic decode and posteriors). The forward
+(``_fwd_kernel`` there) and its VJP (``_bwd_kernel``) are the CUDA kernels
+of ``csrc/joint_head.cu``, reached through ``joint_head_forward`` and
+``joint_head_backward``: on a CUDA tensor they launch the kernels, on a CPU
+tensor they run ``joint_head_forward_plain`` / ``joint_head_backward_plain``.
+``blank_lexical``, the drop-in for the ``state=None`` branch, joins them in
+a ``torch.autograd.Function``, as the JAX package's custom VJP does; the
+projections ``frame @ frame_proj`` and ``cache @ context_proj`` stay
+``torch.matmul`` through ``JointWeightFn._mm``, and autograd carries their
+gradients. The [B, S, h] joint never reaches device memory in the kernels.
+
+Rounding, as the TPU kernels: the joint is formed in float32 and rounded to
+the compute type for the head products, whose sums are float32; the
+backward rounds the cotangents to the compute type for both of its
+products (d_joint and the head gradient), and the bias gradients are plain
+float32 sums of the cotangents.
+
+The gate (``supported``) keeps the JAX package's structural conditions:
+``state is None``, a 2-D frame ([B, feature]) and a 2-D cache ([S,
+embedding]), compute type None, float32 or bfloat16, float32 frame and
+cache, and at least ``MIN_STATES`` (1024) context states, below which the
+per-frame einsums are cheap. The TPU's VMEM limits (B <= 64, hidden a
+multiple of 128 and <= 1024, V + 1 padded to 128 <= 2048) are not needed
+by the Hopper design: a block stages one slice of each operand (16 deep in
+float32 and bfloat16) in shared memory whatever B, S, h and V are, so
+it sets no limit of its own.
+Outside the gate, on any device, ``JointWeightFn.apply`` takes its einsum
+route, as the JAX package takes XLA.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+from typing import Any, Optional
+
+import torch
+
+# Calls that launched the CUDA forward / backward kernels, for runs that must
+# show which kernels they went through. Only CUDA tensors count.
+forward_launches = 0
+backward_launches = 0
+
+# The gate's least number of context states.
+MIN_STATES = 1024
+
+_LIB = None
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# By compute type: the kernels' tile (rows, labels or hidden units), the
+# depth slice the head-gradient contraction is split in, and the blocks an
+# SM holds at once, which that split fills.
+_GEOMETRY = {torch.float32: (64, 64, 4), torch.bfloat16: (128, 16, 2)}
+# bfloat16 sums d_pf over chunks of this many states.
+_STATE_CHUNK = 32
+# The (forward, backward) pair blank_lexical runs; None runs the kernel
+# wrappers below. ``using`` swaps in another pair.
+_PAIR = None
+
+
+def supported(weight_fn, cache: torch.Tensor, frame: torch.Tensor,
+              state: Optional[torch.Tensor]) -> bool:
+  """Whether ``blank_lexical`` covers a ``JointWeightFn.apply`` call (the
+  module docstring's gate), from shapes and types alone."""
+  if state is not None:
+    return False
+  if frame.ndim != 2 or cache.ndim != 2:
+    return False
+  if weight_fn.compute_dtype not in (None, torch.float32, torch.bfloat16):
+    return False
+  if frame.dtype != torch.float32 or cache.dtype != torch.float32:
+    return False
+  return cache.shape[0] >= MIN_STATES
+
+
+def blank_lexical(weight_fn, params: dict[str, Any], cache: torch.Tensor,
+                  frame: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+  """Drop-in for the ``state=None`` branch of ``JointWeightFn.apply``.
+
+  Returns (blank [B, S], lexical [B, S, V]), float32: the einsum route's
+  values up to the products' summation order.
+  """
+  compute_dtype = weight_fn.compute_dtype or torch.float32
+  pf = weight_fn._mm(frame, params['frame_proj'])
+  pc = weight_fn._mm(cache, params['context_proj'])
+  return _JointHead.apply(pc, pf, params['vocab_w'], params['blank_w'],
+                          params['vocab_b'], params['blank_b'], compute_dtype)
+
+
+@contextlib.contextmanager
+def using(forward, backward):
+  """Runs ``blank_lexical`` through the given (forward, backward) pair
+  inside the block, e.g. the plain versions on CUDA tensors for an A/B
+  against the kernels."""
+  global _PAIR
+  saved, _PAIR = _PAIR, (forward, backward)
+  try:
+    yield
+  finally:
+    _PAIR = saved
+
+
+class _JointHead(torch.autograd.Function):
+  """(blank, lexical) with the backward kernel as its VJP."""
+
+  @staticmethod
+  def forward(ctx, pc, pf, vocab_w, blank_w, vocab_b, blank_b,
+              compute_dtype):
+    forward, _ = _PAIR or (joint_head_forward, joint_head_backward)
+    blank, lexical = forward(pc, pf, vocab_w, blank_w, vocab_b, blank_b,
+                             compute_dtype=compute_dtype)
+    ctx.compute_dtype = compute_dtype
+    ctx.pair = _PAIR
+    ctx.save_for_backward(pc, pf, vocab_w, blank_w)
+    return blank, lexical
+
+  @staticmethod
+  def backward(ctx, g_blank, g_lexical):
+    pc, pf, vocab_w, blank_w = ctx.saved_tensors
+    _, backward = ctx.pair or (joint_head_forward, joint_head_backward)
+    shape = (pf.shape[0], pc.shape[0])
+    if g_blank is None:
+      g_blank = pc.new_zeros(shape)
+    if g_lexical is None:
+      g_lexical = pc.new_zeros(shape + (vocab_w.shape[1],))
+    d_pc, d_pf, d_vocab_w, d_blank_w = backward(
+        pc, pf, vocab_w, blank_w, g_blank.contiguous(),
+        g_lexical.contiguous(), compute_dtype=ctx.compute_dtype)
+    return (d_pc, d_pf, d_vocab_w, d_blank_w, g_lexical.sum(dim=(0, 1)),
+            g_blank.sum(), None)
+
+
+def _check_inputs(pc, pf, vocab_w, blank_w, compute_dtype, **others):
+  """Checks what the kernels take; returns (B, S, h, V)."""
+  if pc.ndim != 2 or pf.ndim != 2:
+    raise ValueError('expected pc [S, h] and pf [B, h], got '
+                     f'{tuple(pc.shape)} and {tuple(pf.shape)}')
+  (num_states, hidden), batch = pc.shape, pf.shape[0]
+  vocab = vocab_w.shape[-1]
+  expected = {
+      'pc': (pc, (num_states, hidden)),
+      'pf': (pf, (batch, hidden)),
+      'vocab_w': (vocab_w, (hidden, vocab)),
+      'blank_w': (blank_w, (hidden,)),
+      **others,
+  }
+  for name, (x, shape) in expected.items():
+    shape = tuple(shape)
+    if tuple(x.shape) != shape or x.dtype != torch.float32:
+      raise ValueError(f'{name} should be torch.float32 of shape {shape}, '
+                       f'got {x.dtype} of shape {tuple(x.shape)}')
+    if x.device != pc.device:
+      raise ValueError(f'{name} is on {x.device}, pc on {pc.device}')
+    if not x.is_contiguous():
+      raise ValueError(f'{name} must be contiguous')
+  if compute_dtype not in _DTYPE_CODES:
+    raise ValueError('compute_dtype must be float32 or bfloat16, got '
+                     f'{compute_dtype}')
+  return batch, num_states, hidden, vocab
+
+
+def library() -> ctypes.CDLL:
+  """The kernel library, built from csrc/joint_head.cu at first use."""
+  global _LIB
+  if _LIB is None:
+    from last_torch_tpu_torch.ops import build
+    lib = build.load('joint_head.cu')
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.joint_head_forward.argtypes = [i] + [p] * 8 + [i] * 4 + [p]
+    lib.joint_head_forward.restype = i
+    lib.joint_head_backward.argtypes = [i] + [p] * 14 + [i] * 5 + [p]
+    lib.joint_head_backward.restype = i
+    lib.joint_head_error_string.argtypes = [i]
+    lib.joint_head_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+  return _LIB
+
+
+def _launch(device, what, call):
+  """Runs ``call(lib, stream)`` on the current stream of ``device`` and
+  raises on a launch error."""
+  lib = library()
+  with torch.cuda.device(device):
+    status = call(lib, torch.cuda.current_stream(device).cuda_stream)
+  if status != 0:
+    raise RuntimeError(f'joint_head {what} kernel launch failed: '
+                       f'{lib.joint_head_error_string(status).decode()}')
+
+
+def joint_head_forward(pc: torch.Tensor, pf: torch.Tensor,
+                       vocab_w: torch.Tensor, blank_w: torch.Tensor,
+                       vocab_b: torch.Tensor, blank_b: torch.Tensor, *,
+                       compute_dtype: torch.dtype):
+  """The joint and heads for every (batch row, state): the kernel on CUDA,
+  the plain version on CPU.
+
+  Args:
+    pc: [S, h] float32 projected context states (``cache @ context_proj``).
+    pf: [B, h] float32 projected frame (``frame @ frame_proj``).
+    vocab_w, blank_w, vocab_b, blank_b: JointWeightFn head parameters,
+      float32 ([h, V], [h], [V], []).
+    compute_dtype: torch.float32 or torch.bfloat16, the type the joint and
+      the head weights are rounded to before the float32 products.
+
+  Returns:
+    (blank [B, S], lexical [B, S, V]), float32, each contiguous.
+  """
+  global forward_launches
+  batch, num_states, hidden, vocab = _check_inputs(
+      pc, pf, vocab_w, blank_w, compute_dtype,
+      vocab_b=(vocab_b, (vocab_w.shape[-1],)), blank_b=(blank_b, ()))
+  if pc.device.type == 'cpu':
+    return joint_head_forward_plain(pc, pf, vocab_w, blank_w, vocab_b,
+                                    blank_b, compute_dtype=compute_dtype)
+  if pc.device.type != 'cuda':
+    raise ValueError(f'no joint_head kernel for device {pc.device}')
+  blank = torch.empty((batch, num_states), device=pc.device)
+  lexical = torch.empty((batch, num_states, vocab), device=pc.device)
+  _launch(pc.device, 'forward', lambda lib, stream: lib.joint_head_forward(
+      _DTYPE_CODES[compute_dtype], pc.data_ptr(), pf.data_ptr(),
+      vocab_w.data_ptr(), blank_w.data_ptr(), vocab_b.data_ptr(),
+      blank_b.data_ptr(), blank.data_ptr(), lexical.data_ptr(), batch,
+      num_states, hidden, vocab, stream))
+  forward_launches += 1
+  return blank, lexical
+
+
+def _rounding(compute_dtype: torch.dtype):
+  """x rounded to the compute type in x's own type (the identity for
+  float32, so that float64 references stay float64)."""
+  if compute_dtype == torch.float32:
+    return lambda x: x
+  return lambda x: x.to(compute_dtype).to(x.dtype)
+
+
+def joint_head_forward_plain(pc: torch.Tensor, pf: torch.Tensor,
+                             vocab_w: torch.Tensor, blank_w: torch.Tensor,
+                             vocab_b: torch.Tensor, blank_b: torch.Tensor, *,
+                             compute_dtype: torch.dtype):
+  """``joint_head_forward`` in plain PyTorch, in the inputs' own type."""
+  rnd = _rounding(compute_dtype)
+  joint = rnd(torch.tanh(pc[None] + pf[:, None]))  # [B, S, h]
+  blank = joint @ rnd(blank_w) + blank_b
+  lexical = joint @ rnd(vocab_w) + vocab_b
+  return blank, lexical
+
+
+def joint_head_backward(pc: torch.Tensor, pf: torch.Tensor,
+                        vocab_w: torch.Tensor, blank_w: torch.Tensor,
+                        g_blank: torch.Tensor, g_lexical: torch.Tensor, *,
+                        compute_dtype: torch.dtype):
+  """The VJP of ``joint_head_forward`` with respect to pc, pf and the head
+  weights: the kernel on CUDA, the plain version on CPU.
+
+  Args:
+    pc, pf, vocab_w, blank_w: As ``joint_head_forward``.
+    g_blank: [B, S] float32 cotangent of blank.
+    g_lexical: [B, S, V] float32 cotangent of lexical.
+    compute_dtype: As ``joint_head_forward``.
+
+  Returns:
+    (d_pc [S, h], d_pf [B, h], d_vocab_w [h, V], d_blank_w [h]), float32.
+    The bias gradients are the cotangents' sums, left to the caller.
+  """
+  global backward_launches
+  batch, num_states, hidden, vocab = _check_inputs(
+      pc, pf, vocab_w, blank_w, compute_dtype,
+      g_blank=(g_blank, (pf.shape[0], pc.shape[0])),
+      g_lexical=(g_lexical, (pf.shape[0], pc.shape[0], vocab_w.shape[-1])))
+  if pc.device.type == 'cpu':
+    return joint_head_backward_plain(pc, pf, vocab_w, blank_w, g_blank,
+                                     g_lexical, compute_dtype=compute_dtype)
+  if pc.device.type != 'cuda':
+    raise ValueError(f'no joint_head kernel for device {pc.device}')
+  empty = lambda *shape: torch.empty(shape, device=pc.device)
+  tile, depth_slice, blocks_per_sm = _GEOMETRY[compute_dtype]
+  tiles = lambda n, size=tile: -(-n // size)
+  # Split the d_vocab_w contraction over its depth slices (float32: (batch
+  # row, state tile) pairs; bfloat16: 16-state stages of each batch row)
+  # into as many splits as one wave of blocks holds.
+  sms = torch.cuda.get_device_properties(pc.device).multi_processor_count
+  slices = max(1, batch * tiles(num_states, depth_slice))
+  splits = max(1, min(slices, blocks_per_sm * sms //
+                      max(1, tiles(hidden) * tiles(vocab))))
+  splits = -(-slices // -(-slices // splits))  # no empty split
+  if compute_dtype == torch.float32:
+    dpf_part = empty(tiles(num_states), batch, hidden)
+    dbw_part = empty(tiles(num_states), hidden)
+    dpc_part = empty(0)
+  else:
+    dpf_part = empty(tiles(num_states, _STATE_CHUNK), batch, hidden)
+    dbw_part = empty(tiles(batch * num_states), hidden)
+    dpc_part = empty(batch, num_states, hidden)  # du
+  dw_part = empty(splits, hidden, vocab)
+  d_pc, d_pf = empty(num_states, hidden), empty(batch, hidden)
+  d_vocab_w, d_blank_w = empty(hidden, vocab), empty(hidden)
+  _launch(pc.device, 'backward', lambda lib, stream: lib.joint_head_backward(
+      _DTYPE_CODES[compute_dtype], pc.data_ptr(), pf.data_ptr(),
+      vocab_w.data_ptr(), blank_w.data_ptr(), g_blank.data_ptr(),
+      g_lexical.data_ptr(), dpf_part.data_ptr(), dbw_part.data_ptr(),
+      dpc_part.data_ptr(), dw_part.data_ptr(), d_pc.data_ptr(),
+      d_pf.data_ptr(), d_vocab_w.data_ptr(), d_blank_w.data_ptr(), batch,
+      num_states, hidden, vocab, splits, stream))
+  backward_launches += 1
+  return d_pc, d_pf, d_vocab_w, d_blank_w
+
+
+def joint_head_backward_plain(pc: torch.Tensor, pf: torch.Tensor,
+                              vocab_w: torch.Tensor, blank_w: torch.Tensor,
+                              g_blank: torch.Tensor, g_lexical: torch.Tensor,
+                              *, compute_dtype: torch.dtype):
+  """``joint_head_backward`` in plain PyTorch, in the inputs' own type: the
+  joint recomputed, the cotangents rounded to the compute type for both
+  products, as the kernel."""
+  rnd = _rounding(compute_dtype)
+  joint = torch.tanh(pc[None] + pf[:, None])  # [B, S, h]
+  g_blank, g_lexical = rnd(g_blank), rnd(g_lexical)
+  d_joint = g_lexical @ rnd(vocab_w).t() + g_blank[..., None] * rnd(blank_w)
+  du = d_joint * (1 - joint * joint)
+  joint = rnd(joint)
+  d_vocab_w = torch.einsum('bsh,bsv->hv', joint, g_lexical)
+  d_blank_w = torch.einsum('bsh,bs->h', joint, g_blank)
+  return du.sum(dim=0), du.sum(dim=1), d_vocab_w, d_blank_w

@@ -32,11 +32,10 @@ its gradients into the parameters.
 Scope is the structural half of the JAX package's gate (``supported``
 there): ``label_weights`` flattens any leading batch dimensions into the
 kernels' one, and the compute type must be None, float32 or bfloat16 (else
-ValueError). The TPU's ``hidden % 128`` rule and VMEM plan do not apply.
-The kernels keep a block's
-64-row joint tile in shared memory, which on an H100 (227 KB a block) holds
-hidden sizes up to 816 in float32 and 1536 in bfloat16; a larger one on a
-CUDA tensor raises.
+ValueError). The TPU's ``hidden % 128`` rule and VMEM plan do not apply,
+and the hidden size has no limit: the kernels keep a block's 64-row joint
+tile in shared memory at most 512 (float32) or 1024 (bfloat16) hidden units
+wide, and sum the products of a wider joint chunk by chunk.
 """
 
 from __future__ import annotations
@@ -123,17 +122,10 @@ def _ptr(x: Optional[torch.Tensor]):
   return None if x is None else x.data_ptr()
 
 
-def _launch(device, compute_dtype, hidden, what, call):
-  """Checks the head kernel's shared memory, runs ``call(lib, stream)`` on
-  the current stream of ``device`` and raises on a launch error."""
+def _launch(device, what, call):
+  """Runs ``call(lib, stream)`` on the current stream of ``device`` and
+  raises on a launch error."""
   lib = library()
-  need = lib.numerator_head_smem_bytes(_DTYPE_CODES[compute_dtype], hidden)
-  limit = getattr(torch.cuda.get_device_properties(device),
-                  'shared_memory_per_block_optin', need)
-  if need > limit:
-    raise ValueError(f'hidden size {hidden} needs {need} bytes of shared '
-                     f'memory per block for the numerator {what} kernel in '
-                     f'{compute_dtype}; the card allows {limit}')
   with torch.cuda.device(device):
     status = call(lib, torch.cuda.current_stream(device).cuda_stream)
   if status != 0:
@@ -183,7 +175,7 @@ def numerator_forward(pc: torch.Tensor, pf: torch.Tensor,
                                                          num_rows)
   nb, nl, z, blank = (empty(max_t, num_rows) for _ in range(4))
   w = head['vocab_w'].to(compute_dtype).contiguous()
-  _launch(pc.device, compute_dtype, hidden, 'forward',
+  _launch(pc.device, 'forward',
           lambda lib, stream: lib.numerator_forward(
               _DTYPE_CODES[compute_dtype], _ptr(pc), _ptr(pf), _ptr(w),
               _ptr(head['vocab_b']), _ptr(head['blank_w']),
@@ -303,7 +295,7 @@ def numerator_backward(pc: torch.Tensor, pf: torch.Tensor,
   d_pc, d_wy = empty(num_rows, hidden), empty(num_rows, hidden)
   d_w, d_vb, d_bw = empty(hidden, vocab), empty(vocab), empty(hidden)
   d_by, d_bb = empty(num_rows), empty(1)
-  _launch(device, compute_dtype, hidden, 'backward',
+  _launch(device, 'backward',
           lambda lib, stream: lib.numerator_backward(
               _DTYPE_CODES[compute_dtype], _ptr(pc), _ptr(pf), _ptr(w),
               _ptr(head['vocab_b']), _ptr(head['blank_w']),

@@ -21,8 +21,9 @@ the other), and ``JointWeightFn.label_weights``, the numerator's
 column-gather fast path; the local normalizers ``hat_normalize`` and
 ``log_softmax_normalize`` and ``LocallyNormalizedWeightFn``, whose
 ``label_weights`` runs the numerator kernels of ``ops/numerator_scan.py``.
-``SharedRNNCacher`` and the test fakes come with a later slice (ROADMAP
-queue 1, item 6).
+``JointWeightFn.apply`` over every context state runs the joint+head
+kernels of ``ops/joint_head.py`` inside their gate. ``SharedRNNCacher`` and
+the test fakes come with a later slice (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ import torch.utils.checkpoint
 from torch.nn.functional import logsigmoid
 
 from last_torch_tpu_torch import initializers
-from last_torch_tpu_torch.ops import numerator_scan
+from last_torch_tpu_torch.ops import joint_head, numerator_scan
 
 Params = dict[str, Any]
 
@@ -111,7 +112,15 @@ class JointWeightFn:
       (blank, lexical): [batch_dims..., num_context_states] and
       [batch_dims..., num_context_states, vocab_size] when state is None;
       [batch_dims...] and [batch_dims..., vocab_size] otherwise.
+
+    Inside the gate of ``ops/joint_head.py`` (``state=None``, one batch
+    dimension, at least 1024 context states, float32 inputs), the joint and
+    both heads run in its kernels on CUDA tensors (the [batch, states,
+    hidden] joint is never stored) and in their plain versions on CPU
+    tensors; elsewhere the einsums below, as the JAX package takes XLA.
     """
+    if joint_head.supported(self, cache, frame, state):
+      return joint_head.blank_lexical(self, params, cache, frame)
     if state is None:
       projected_frame = self._mm(frame, params['frame_proj'])[..., None, :]
       projected_context = self._mm(cache, params['context_proj'])

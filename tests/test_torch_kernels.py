@@ -6,9 +6,10 @@ on a tie). Log-partition: the plain versions' padding behaviour is pinned
 on the CPU. Numerator: the plain backward is held to autograd through the
 plain forward on the CPU. Trigram log-partition: the plain versions'
 padding behaviour is pinned, and ``log_partition`` through them is held to
-the lattice's generic forward-backward, on the CPU. On the card each kernel is held to
-its plain
-version: the tests marked ``cuda`` skip without a GPU. This file imports
+the lattice's generic forward-backward, on the CPU. Joint+head: the plain
+backward is held to autograd through the plain forward on the CPU. On the
+card each kernel is held to its plain version: the tests marked ``cuda``
+skip without a GPU. This file imports
 no JAX, so it also runs on a machine that has only PyTorch:
 
     python -m pytest tests/test_torch_kernels.py -q -m cuda --noconftest
@@ -22,7 +23,7 @@ import pytest
 import torch
 
 from last_torch_tpu_torch import alignments, contexts, lattices, weight_fns
-from last_torch_tpu_torch.ops import (fused_scan, numerator_scan,
+from last_torch_tpu_torch.ops import (fused_scan, joint_head, numerator_scan,
                                       trigram_scan, viterbi)
 
 torch.set_num_threads(1)
@@ -537,6 +538,42 @@ def test_numerator_kernels_match_plain_on_card(card, case, compute_dtype,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('hat', [True, False], ids=['hat', 'log_softmax'])
+@pytest.mark.parametrize('hidden,compute_dtype',
+                         [(1024, torch.float32), (2048, torch.bfloat16)],
+                         ids=['h1024_f32', 'h2048_bf16'])
+def test_numerator_kernels_match_plain_at_large_hidden_on_card(
+    card, hidden, compute_dtype, hat):
+  # Past the joint tile's chunk (512 float32, 1024 bfloat16 hidden units)
+  # the head kernels sum the chunks' products; the shared memory they
+  # request stays that of one chunk.
+  lib = numerator_scan.library()
+  code = numerator_scan._DTYPE_CODES[compute_dtype]
+  assert lib.numerator_head_smem_bytes(code, hidden) == (
+      lib.numerator_head_smem_bytes(code, hidden // 2))
+  assert lib.numerator_head_smem_bytes(code, hidden) <= (
+      torch.cuda.get_device_properties(card).shared_memory_per_block_optin)
+  pc, pf, head, wy, by, g_b, g_l = numerator_inputs(
+      7, 1000, hidden, max_t=9, batch=3, u1=37, device=card)
+  kw = dict(hat=hat, compute_dtype=compute_dtype)
+  fwd_k = numerator_scan.numerator_forward(pc, pf, head, wy, by, **kw)
+  fwd_p = numerator_scan.numerator_forward_plain(pc, pf, head, wy, by, **kw)
+  bwd_k = numerator_scan.numerator_backward(pc, pf, head, wy, by, fwd_k[2],
+                                            fwd_k[3], g_b, g_l, **kw)
+  bwd_p = numerator_scan.numerator_backward_plain(pc, pf, head, wy, by,
+                                                  fwd_p[2], fwd_p[3], g_b,
+                                                  g_l, **kw)
+  torch.cuda.synchronize()
+  # The tolerances of test_numerator_kernels_match_plain_on_card.
+  bf16 = compute_dtype == torch.bfloat16
+  for name, got, want in zip(('nb', 'nl', 'z', 'blank'), fwd_k, fwd_p):
+    assert rel_err(got, want) <= (1e-4 if bf16 else 1e-5), name
+  for name, got, want in zip(NUMERATOR_OUTPUTS, bwd_k, bwd_p):
+    assert rel_err(got, want, per_output=True) <= (2e-3 if bf16 else 1e-4), (
+        name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hat', [True, False], ids=['hat', 'log_softmax'])
 def test_numerator_kernels_take_no_frames_on_card(card, hat):
   pc, pf, head, wy, by, g_b, g_l = numerator_inputs(8, 70, 40, max_t=0,
                                                     batch=3, u1=5,
@@ -720,3 +757,144 @@ def test_trigram_kernels_give_exact_zeros_on_card(card):
                                         with_residuals=False, **kw)
   assert primal[2] is None and primal[3] is None
   npt.assert_array_equal(primal[0].cpu().numpy(), log_z.cpu().numpy())
+
+
+def joint_head_inputs(seed, batch, states, hidden, vocab, device='cpu'):
+  """Kernel inputs of the joint+head kernels and cotangents of both
+  outputs; batch row 1's cotangents are zero."""
+  rng = np.random.default_rng(seed)
+  tensor = lambda shape, scale=1.0: torch.from_numpy(
+      (rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
+  inputs = {
+      'pc': tensor((states, hidden), 0.5),
+      'pf': tensor((batch, hidden), 0.5),
+      'vocab_w': tensor((hidden, vocab), hidden**-0.5),
+      'blank_w': tensor((hidden,), hidden**-0.5),
+      'vocab_b': tensor((vocab,), 0.1),
+      'blank_b': torch.tensor(0.3, device=device),
+  }
+  g_blank, g_lexical = tensor((batch, states)), tensor((batch, states, vocab))
+  if batch > 1:
+    g_blank[1], g_lexical[1] = 0.0, 0.0
+  return inputs, g_blank, g_lexical
+
+
+JOINT_HEAD_GRADS = ('d_pc', 'd_pf', 'd_vocab_w', 'd_blank_w')
+
+
+def test_plain_joint_head_backward_is_the_vjp_of_its_forward():
+  inputs, g_blank, g_lexical = joint_head_inputs(8, batch=3, states=11,
+                                                 hidden=6, vocab=5)
+  leaves = {n: x.clone().requires_grad_(True) for n, x in inputs.items()}
+  blank, lexical = joint_head.joint_head_forward_plain(
+      **leaves, compute_dtype=torch.float32)
+  want = torch.autograd.grad(
+      (blank * g_blank).sum() + (lexical * g_lexical).sum(),
+      [leaves[n] for n in ('pc', 'pf', 'vocab_w', 'blank_w')])
+  got = joint_head.joint_head_backward_plain(
+      inputs['pc'], inputs['pf'], inputs['vocab_w'], inputs['blank_w'],
+      g_blank, g_lexical, compute_dtype=torch.float32)
+  for name, g, w in zip(JOINT_HEAD_GRADS, got, want):
+    npt.assert_allclose(g.numpy(), w.numpy(), rtol=1e-5, atol=1e-6,
+                        err_msg=name)
+  assert torch.all(got[1][1] == 0)  # d_pf of the zero-cotangent row
+
+
+def test_joint_head_wrappers_check_their_inputs():
+  inputs, g_blank, g_lexical = joint_head_inputs(8, batch=2, states=4,
+                                                 hidden=6, vocab=5)
+  with pytest.raises(ValueError, match='compute_dtype'):
+    joint_head.joint_head_forward(**inputs, compute_dtype=torch.float16)
+  with pytest.raises(ValueError, match='vocab_b'):
+    joint_head.joint_head_forward(**dict(inputs, vocab_b=inputs['vocab_b'][1:]),
+                                  compute_dtype=torch.float32)
+  with pytest.raises(ValueError, match='g_lexical'):
+    joint_head.joint_head_backward(
+        inputs['pc'], inputs['pf'], inputs['vocab_w'], inputs['blank_w'],
+        g_blank, g_lexical.double(), compute_dtype=torch.float32)
+
+
+JOINT_HEAD_CARD_CASES = {
+    # name: (batch, states, vocab, hidden)
+    'b1_s1025_v1024': (1, 1025, 1024, 512),
+    'b8_s1025_v1024': (8, 1025, 1024, 512),
+    'b8_s4161_v64': (8, 4161, 64, 512),
+    'b8_s1100_v1000': (8, 1100, 1000, 512),
+    'ragged_b3_s77_v37_h40': (3, 77, 37, 40),
+    # One row tile over five batch rows (the bfloat16 d_joint product runs
+    # over the flattened B S rows).
+    'b5_s3_v64_h128': (5, 3, 64, 128),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', sorted(JOINT_HEAD_CARD_CASES))
+def test_joint_head_kernels_match_plain_on_card(card, case, compute_dtype):
+  batch, states, vocab, hidden = JOINT_HEAD_CARD_CASES[case]
+  inputs, g_blank, g_lexical = joint_head_inputs(9, batch, states, hidden,
+                                                 vocab, device=card)
+  before = (joint_head.forward_launches, joint_head.backward_launches)
+  fwd_k = joint_head.joint_head_forward(**inputs, compute_dtype=compute_dtype)
+  fwd_p = joint_head.joint_head_forward_plain(**inputs,
+                                              compute_dtype=compute_dtype)
+  args = [inputs[n] for n in ('pc', 'pf', 'vocab_w', 'blank_w')]
+  bwd_k = joint_head.joint_head_backward(*args, g_blank, g_lexical,
+                                         compute_dtype=compute_dtype)
+  bwd_p = joint_head.joint_head_backward_plain(*args, g_blank, g_lexical,
+                                               compute_dtype=compute_dtype)
+  torch.cuda.synchronize()
+  assert (joint_head.forward_launches, joint_head.backward_launches) == (
+      before[0] + 1, before[1] + 1)
+  # Same rounded inputs, float32 sums in another order: values to 1e-5
+  # (float32) or 1e-4 (bfloat16) of max(|value|, 1); gradients to 1e-4 or
+  # 1e-3 of each output's largest entry.
+  bf16 = compute_dtype == torch.bfloat16
+  for name, got, want in zip(('blank', 'lexical'), fwd_k, fwd_p):
+    assert got.is_contiguous() and got.shape == want.shape, name
+    assert rel_err(got, want) <= (1e-4 if bf16 else 1e-5), name
+  for name, got, want in zip(JOINT_HEAD_GRADS, bwd_k, bwd_p):
+    assert rel_err(got, want, per_output=True) <= (1e-3 if bf16 else 1e-4), (
+        name)
+  if batch > 1:
+    assert torch.all(bwd_k[1][1] == 0)  # d_pf of the zero-cotangent row
+
+
+@pytest.mark.cuda
+def test_joint_head_autograd_matches_plain_on_card(card):
+  """blank_lexical's Function through the kernels against the same
+  Function through the plain versions (``joint_head.using``)."""
+  inputs, g_blank, g_lexical = joint_head_inputs(10, batch=4, states=1025,
+                                                 hidden=64, vocab=100,
+                                                 device=card)
+  wf = weight_fns.JointWeightFn(vocab_size=100, hidden_size=64,
+                                compute_dtype=torch.bfloat16)
+  cache = inputs['pc']
+  params = wf.init(torch.Generator().manual_seed(0), cache, inputs['pf'])
+  assert joint_head.supported(wf, cache, inputs['pf'], None)
+
+  def run():
+    leaves = {n: x.detach().requires_grad_(True) for n, x in params.items()}
+    blank, lexical = wf.apply(leaves, cache, inputs['pf'])
+    ((blank * g_blank).sum() + (lexical * g_lexical).sum()).backward()
+    return (blank, lexical), {n: x.grad for n, x in leaves.items()}
+
+  before = (joint_head.forward_launches, joint_head.backward_launches)
+  got_values, got = run()
+  assert (joint_head.forward_launches, joint_head.backward_launches) == (
+      before[0] + 1, before[1] + 1)
+  with joint_head.using(joint_head.joint_head_forward_plain,
+                        joint_head.joint_head_backward_plain):
+    want_values, want = run()
+  assert (joint_head.forward_launches, joint_head.backward_launches) == (
+      before[0] + 1, before[1] + 1)
+  for got_x, want_x in zip(got_values, want_values):
+    assert rel_err(got_x, want_x) <= 1e-4
+  for name in want:
+    a, b = got[name].double(), want[name].double()
+    # The projections' gradients leave through _mm's bfloat16 rounding of
+    # their inputs, which rounds them too: one bfloat16 step of each entry
+    # (at most 2**-7 of it) on top.
+    step = 2.0**-7 * b.abs() if name.endswith('_proj') else 0.0
+    assert bool(((a - b).abs() <= 1e-3 * b.abs().max() + step).all()), name
