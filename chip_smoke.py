@@ -21,8 +21,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    TF32 off for float32 matmuls and convolutions.
 2. Build: compiles ``last_torch_tpu_torch/csrc/viterbi.cu``,
    ``csrc/fused_scan.cu`` (which also holds the trigram kernels),
-   ``csrc/numerator_scan.cu`` and ``csrc/joint_head.cu`` for sm_90a, one
-   nvcc each, side by side.
+   ``csrc/numerator_scan.cu``, ``csrc/joint_head.cu`` and
+   ``csrc/sharded_scan.cu`` for sm_90a, one nvcc each, side by side.
 3. Viterbi kernel against its plain PyTorch version on the card, T=64,
    B=4, V in {1024, 1000}, FD / FLD(1) / FLD(2), float32 and bfloat16, and
    with hat and log-softmax normalization (FD, FLD(2)).
@@ -118,6 +118,25 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    backward's two mm) at the densified headline's per-frame shape (B=8,
    S=1025, V=1024, bf16) and the trigram probe's (B=8, S=4161, V=64,
    float32).
+12. Tensor-parallel main path: a one-process NCCL group (the card machine
+   has one H100, and NCCL takes no two ranks on one GPU) and
+   ``parallel.sharding.make_mesh(model_parallel=1)``;
+   ``make_tp_train_step`` on ``gnat_global_bigram()`` at full width and
+   phase 6's utterances. Step 1 of the lattice loss through the
+   single-device bigram kernels, ``tp_lattice_loss`` (the same function)
+   and ``tp_lattice_loss`` in float64: losses to rtol 1e-4, the
+   tensor-parallel gradients within max(1e-3, twice the single-device
+   route's error) of the float64 ones; 3 counted and timed steps through
+   the ``frame_reduce`` kernels (``csrc/sharded_scan.cu``: 2 launches per
+   frame each way under FLD(2), 3200 + 3200 per step), losses falling; one
+   more step profiled. The process group is destroyed at the end of the
+   phase.
+12b. The ``frame_reduce`` kernels alone against their plain versions and
+   the library composition (tanh, addmm, logsumexp; its autograd) at the
+   headline per-frame shape (B=8, S=1025, h=512, Vl=1024, bf16) and at one
+   of D=4 shards (Vl=256); then the D=4 shards in one process: red
+   concatenated and the gradients combined, held to the D=1 kernels and
+   the plain versions.
 
 Each phase prints one line or more with its seconds, and the run its total;
 any failure exits non-zero before the last line, which is ``{"ok": true,
@@ -2703,6 +2722,360 @@ def phase_joint_head_alone(torch, joint_head, launches):
   return records
 
 
+def tp_batch(torch, config):
+  """Phase 6's utterances (features and labels from numpy seed 0), on the
+  card."""
+  rng = np.random.default_rng(0)
+  frames = torch.from_numpy(rand(
+      rng, (len(NUM_FRAMES), max(NUM_FRAMES), config.feature_size))).cuda()
+  labels = torch.from_numpy(rng.integers(
+      1, config.vocab_size + 1, size=(len(NUM_FRAMES), max(NUM_LABELS)))).cuda()
+  return (frames, torch.tensor(NUM_FRAMES, device='cuda'), labels,
+          torch.tensor(NUM_LABELS, device='cuda'))
+
+
+def float64_frame_reduce(torch, sharded_scan):
+  """A frame reduction through the plain version in float64 (the same
+  bfloat16 roundings of the joint and head, float64 sums), checkpointed
+  per call so that the backward recomputes each frame's [B, S, V] block:
+  the float64 reference of the tensor-parallel loss (``reduce=``)."""
+  import torch.utils.checkpoint
+  forward = functools.partial(sharded_scan.frame_reduce_plain,
+                              compute_dtype=torch.bfloat16)
+  return lambda *args: torch.utils.checkpoint.checkpoint(
+      forward, *args, use_reentrant=False)
+
+
+def lattice_step1(torch, pytree, lattice_params, encoded, dtype, loss_fn):
+  """(mean loss, {leaf path or 'encoded': float64 gradient}) of the lattice
+  loss ``loss_fn(params, encoded)`` in ``dtype`` on fixed encoder outputs."""
+  params = pytree.tree_map(
+      lambda x: x.detach().to(dtype).requires_grad_(True), lattice_params)
+  encoded = encoded.detach().to(dtype).requires_grad_(True)
+  per_seq = loss_fn(params, encoded)
+  finite = torch.isfinite(per_seq)
+  loss = torch.where(finite, per_seq, 0.0).sum() / finite.sum().clamp(min=1)
+  loss.backward()
+  torch.cuda.synchronize()
+  grads = {pytree.keystr(path): leaf.grad.double() for path, leaf in
+           pytree.tree_flatten_with_path(params)[0]}
+  grads['encoded'] = encoded.grad.double()
+  return loss.item(), grads
+
+
+def phase_tensor_parallel(torch, gnat, presets, fused_scan, sharded_scan,
+                          sharding, pytree):
+  """Phase 12: the tensor-parallel training main path on a one-process
+  NCCL group (one card: NCCL takes no two ranks on one GPU), a model axis
+  of 1. gnat_global_bigram() at full width on phase 6's utterances.
+
+  Step 1, the lattice loss on the encoder's outputs through three routes:
+  the single-device bigram kernels, ``tp_lattice_loss`` through the
+  frame_reduce kernels, and ``tp_lattice_loss`` in float64 (the plain
+  versions, the same function). The losses agree to rtol 1e-4; each
+  gradient (lattice parameters and the encoder outputs') of the
+  tensor-parallel route is within max(1e-3, twice the single-device
+  route's error) of the float64 one, both relative to the largest float64
+  gradient: at T=1600 float32's log-space rounding moves the single-device
+  route's blank-head gradients by more than 1e-3 (phases 10/10b judge the
+  trigram kernels so). Then 3 counted and timed ``make_tp_train_step``
+  steps through the frame_reduce kernels (2 launches per frame each way
+  under FLD(2), no bigram kernel), losses falling, the first one's loss
+  the tensor-parallel route's; one more step profiled. Returns the
+  frame_reduce (forward, backward) launches of the 3 steps."""
+  import torch.distributed as dist
+  dist.init_process_group('nccl', store=dist.HashStore(), rank=0,
+                          world_size=1)
+  try:
+    mesh = sharding.make_mesh(model_parallel=1)
+    config = presets.gnat_global_bigram()
+    model = gnat.GNATModel(config, device='cuda')
+    optimizer = gnat.make_optimizer(LEARNING_RATE)
+    full = gnat.init_train_state(model, torch.Generator().manual_seed(0),
+                                 optimizer)
+    batch = tp_batch(torch, config)
+    max_t = batch[0].shape[1]
+    step, shard_state = sharding.make_tp_train_step(model, optimizer, mesh)
+    state = shard_state(full)
+    local = sharding.shard_batch(batch, mesh)
+
+    # Step 1 of the lattice loss through the three routes.
+    t0 = time.perf_counter()
+    with torch.no_grad():
+      encoded = model.encoder.apply(full.params['encoder'], *batch[:2])
+    lattice, rest = model.lattice, batch[1:]
+    group = mesh.get_group('model')
+    routes = {
+        'single-device': (torch.float32,
+                          lambda p, e: lattice.loss(p, e, *rest)),
+        'tensor-parallel': (torch.float32,
+                            lambda p, e: sharded_scan.tp_lattice_loss(
+                                lattice, p, e, *rest, group=group)),
+        'float64': (torch.float64,
+                    lambda p, e: sharded_scan.tp_lattice_loss(
+                        lattice, p, e, *rest,
+                        reduce=float64_frame_reduce(torch, sharded_scan))),
+    }
+    reset_counts(sharded_scan)
+    results = {}
+    for name, (dtype, loss_fn) in routes.items():
+      results[name] = lattice_step1(torch, pytree, full.params['lattice'],
+                                    encoded, dtype, loss_fn)
+      if name == 'single-device':
+        check(lattice.last_path == 'kernel',
+              f'last_path is {lattice.last_path!r}, not kernel')
+    check((sharded_scan.forward_launches, sharded_scan.backward_launches) ==
+          (2 * max_t, 2 * max_t),
+          f'step 1 launched frame_reduce {counts(sharded_scan)}, not '
+          f'{2 * max_t} each way')
+    (loss_sd, sd), (loss_tp, tp), (loss_64, ref) = results.values()
+    for what, loss in (('single-device', loss_sd), ('float64', loss_64)):
+      rel = abs(loss_tp - loss) / abs(loss)
+      check(np.isfinite(loss_tp) and rel <= STEP_LOSS_RTOL,
+            f'step-1 loss {loss_tp} tensor-parallel vs {loss} {what}')
+    largest = max(g.abs().max().item() for g in ref.values())
+    errors = {name: tuple((g[name] - r).abs().max().item() / largest
+                          for g in (tp, sd))
+              for name, r in ref.items()}
+    for name, (err_tp, err_sd) in errors.items():
+      check(bool(torch.isfinite(tp[name]).all()), f'{name}: not finite')
+      check(err_tp <= max(STEP_GRAD_RTOL, 2 * err_sd),
+            f'step-1 gradient of {name}: tensor-parallel {err_tp:.3g} of '
+            f'the largest from float64, single-device {err_sd:.3g}')
+    worst = {route: max((e[i], name) for name, e in errors.items())
+             for i, route in enumerate(('tensor-parallel', 'single-device'))}
+    vs_sd = max(((tp[n] - sd[n]).abs().max().item() / largest, n)
+                for n in ref)
+    # FLD's blank_b gradient is a structural zero: its float32 residue.
+    blank_b = "['weight_fn']['blank_b']"
+    say('tensor-parallel', f'step 1 (lattice loss on the encoder outputs): '
+        f'loss tensor-parallel {loss_tp:.9g}, single-device {loss_sd:.9g}, '
+        f'float64 {loss_64:.9g}; gradients (lattice leaves and encoder '
+        f'outputs) vs float64, of the largest {largest:.4g}: '
+        f'tensor-parallel at most {worst["tensor-parallel"][0]:.2e} '
+        f'({worst["tensor-parallel"][1]}), single-device bigram kernels at '
+        f'most {worst["single-device"][0]:.2e} '
+        f'({worst["single-device"][1]}); tensor-parallel vs single-device '
+        f'{vs_sd[0]:.2e} ({vs_sd[1]}); per leaf (tensor-parallel, '
+        f'single-device) vs float64: ' + ', '.join(
+            f'{name} ({a:.2e}, {b:.2e})' for name, (a, b) in errors.items())
+        + f'; blank_b gradient tensor-parallel {tp[blank_b].item():.6g}, '
+        f'single-device {sd[blank_b].item():.6g}, float64 '
+        f'{ref[blank_b].item():.3g} ({time.perf_counter() - t0:.1f} s)')
+
+    # The main path: 3 train steps, counted and timed.
+    losses, step_ms, per_step = [], [], []
+    reset_counts(sharded_scan, fused_scan)
+    for _ in range(TRAIN_STEPS):
+      before = (sharded_scan.forward_launches, sharded_scan.backward_launches)
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      state, loss = step(state, *local)
+      end.record()
+      torch.cuda.synchronize()
+      step_ms.append(start.elapsed_time(end))
+      losses.append(loss.item())
+      per_step.append((sharded_scan.forward_launches - before[0],
+                       sharded_scan.backward_launches - before[1]))
+    launches = (sharded_scan.forward_launches, sharded_scan.backward_launches)
+    check(all(n == (2 * max_t, 2 * max_t) for n in per_step),
+          f'frame_reduce launches per step {per_step}, not {2 * max_t} each '
+          'way')
+    check(not any(counts(fused_scan).values()),
+          f'the tensor-parallel steps launched bigram kernels: '
+          f'{counts(fused_scan)}')
+    check(all(np.isfinite(losses)) and
+          all(b < a for a, b in zip(losses, losses[1:])),
+          f'losses not finite and decreasing: {losses}')
+    check(abs(losses[0] - loss_tp) <= 1e-6 * abs(loss_tp),
+          f'train step 1 loss {losses[0]} != the tensor-parallel route\'s '
+          f'{loss_tp}')
+    real_frames = sum(NUM_FRAMES)
+    say('tensor-parallel',
+        f'gnat_global_bigram B={len(NUM_FRAMES)} T_max={max_t} '
+        f'U_max={max(NUM_LABELS)}, {TRAIN_STEPS} make_tp_train_step steps: '
+        'losses ' + ', '.join(f'{x:.6g}' for x in losses) + '; step ms ' +
+        ', '.join(f'{x:.1f}' for x in step_ms) + ' (' +
+        ', '.join(f'{real_frames / x * 1e3:.0f}' for x in step_ms) +
+        f' real frames/s); frame_reduce launches per step (forward, '
+        f'backward) {per_step}; no bigram kernel launched')
+    say('tensor-parallel', 'one more step under the profiler: ' +
+        device_profile(torch, lambda: step(state, *local))[1])
+  finally:
+    dist.destroy_process_group()
+  return launches
+
+
+FR_VALUE_NAMES = ('red*', 'blank*')
+FR_GRAD_NAMES = ('d_vec', 'd_pf', 'd_pc', 'd_vw', 'd_vb', 'd_bw', 'd_bb')
+FR_RTOL = {'float32': (F32_RTOL, 1e-4), 'bfloat16': (BF16_RTOL, 1e-3)}
+
+
+def frame_reduce_inputs(torch, rng, batch, states, vocab, hidden=512):
+  """One frame's inputs at an FLD(2) alpha's pattern (a quarter of the
+  states dead), and cotangents of both outputs."""
+  vec = rand(rng, (batch, states), 3.0)
+  vec[:, rng.random(states) < 0.25] = -np.inf
+  vec[:, 0] = 0.0
+  inputs = {
+      'vec': torch.from_numpy(vec).cuda(),
+      'pf_t': torch.from_numpy(rand(rng, (batch, hidden), 0.5)).cuda(),
+      'pc': torch.from_numpy(rand(rng, (states, hidden), 0.5)).cuda(),
+      'vw': torch.from_numpy(rand(rng, (hidden, vocab), hidden**-0.5)).cuda(),
+      'vb': torch.from_numpy(rand(rng, (vocab,), 0.1)).cuda(),
+      'bw': torch.from_numpy(rand(rng, (hidden,), hidden**-0.5)).cuda(),
+      'bb': torch.tensor(0.3, device='cuda'),
+  }
+  d_red = torch.from_numpy(rand(rng, (batch, vocab))).cuda()
+  d_blank = torch.from_numpy(rand(rng, (batch, states))).cuda()
+  return inputs, d_red, d_blank
+
+
+def frame_reduce_library(torch, inputs, d_red, d_blank, dtype):
+  """The library composition of the same function: tanh of the broadcast
+  sum, one addmm over the combined head, then + vec and logsumexp over S
+  (forward); that composition's autograd (backward, timed alone)."""
+  vec, pc, pf = inputs['vec'], inputs['pc'], inputs['pf_t']
+  batch, states = vec.shape
+  leaves = [x.detach().requires_grad_(True) for x in
+            (vec, pc, pf, inputs['vw'], inputs['vb'], inputs['bw'],
+             inputs['bb'])]
+
+  def forward(vec, pc, pf, vw, vb, bw, bb):
+    w = torch.cat([vw, bw[:, None]], 1).to(dtype)
+    b = torch.cat([vb, bb[None]]).to(dtype)
+    joint = torch.tanh(pc[None] + pf[:, None]).to(dtype)
+    out = torch.addmm(b, joint.view(batch * states, -1), w).float()
+    out = out.view(batch, states, -1)
+    return torch.logsumexp(vec[:, :, None] + out[..., :-1], dim=1), out[..., -1]
+
+  red, blank = forward(*leaves)
+  return (lambda: forward(*(x.detach() for x in leaves)),
+          lambda: torch.autograd.grad((red, blank), leaves, (d_red, d_blank),
+                                      retain_graph=True))
+
+
+def phase_frame_reduce_alone(torch, sharded_scan, launches):
+  """Phase 12b: the frame_reduce kernels alone, timed against their plain
+  versions and the library composition at the headline per-frame shape
+  (B=8, S=1025, h=512, Vl=1024, bf16) and at one of D=4 shards (Vl=256);
+  then the D=4 shards in one process against D=1: red concatenated, the
+  blank cotangent given to one shard, the shared gradients summed and the
+  head's concatenated, held to the D=1 kernels' and the plain versions'.
+  Returns the kernels' JSON records."""
+  rng = np.random.default_rng(13)
+  dtype, name = torch.bfloat16, 'bfloat16'
+  batch, states, hidden, vocab = 8, 1025, 512, 1024
+  records, head_inputs = {}, None
+  for tag, shard in (('headline', vocab), ('shard', vocab // 4)):
+    inputs, d_red, d_blank = frame_reduce_inputs(torch, rng, batch, states,
+                                                 shard, hidden)
+    if tag == 'headline':
+      head_inputs = (inputs, d_red, d_blank)
+    args = [inputs[n] for n in ('vec', 'pf_t', 'pc', 'vw', 'vb', 'bw')]
+    red_k = sharded_scan.frame_reduce_forward(**inputs, compute_dtype=dtype)[0]
+    red_p = sharded_scan.frame_reduce_plain(**inputs, compute_dtype=dtype)[0]
+    fns = {
+        'fwd': lambda: sharded_scan.frame_reduce_forward(
+            **inputs, compute_dtype=dtype),
+        'bwd': lambda: sharded_scan.frame_reduce_backward(
+            *args, red_k, d_red, d_blank, compute_dtype=dtype),
+        'fwd_plain': lambda: sharded_scan.frame_reduce_plain(
+            **inputs, compute_dtype=dtype),
+        'bwd_plain': lambda: sharded_scan.frame_reduce_backward_plain(
+            *args, red_p, d_red, d_blank, compute_dtype=dtype),
+    }
+    fns['lib_fwd'], fns['lib_bwd'] = frame_reduce_library(
+        torch, inputs, d_red, d_blank, dtype)
+    times = {}
+    for key, fn in fns.items():
+      fn()  # warm-up
+      times[key] = timed(torch, fn, repeats=10)[1]
+    errors = max_errors(torch, fns['fwd'](), fns['fwd_plain'](),
+                        FR_VALUE_NAMES, FR_RTOL[name])
+    errors.update(max_errors(torch, fns['bwd'](), fns['bwd_plain'](),
+                             FR_GRAD_NAMES, FR_RTOL[name]))
+    flops = 2.0 * batch * states * hidden * (shard + 1)
+    fwd_bytes = nbytes(*inputs.values()) + nbytes(*fns['fwd']())
+    bwd_bytes = nbytes(*args, red_k, d_red, d_blank) + nbytes(*fns['bwd']())
+    say('frame-reduce-alone', f'{tag} shape B={batch} S={states} h={hidden} '
+        f'Vl={shard} {name}: forward kernel {times["fwd"]:.4f} ms, plain '
+        f'{times["fwd_plain"]:.4f} ms, library (tanh + addmm + logsumexp) '
+        f'{times["lib_fwd"]:.4f} ms, bound '
+        f'{bound(flops, fwd_bytes, name)[0]:.4f} ms; backward kernel '
+        f'{times["bwd"]:.4f} ms, plain {times["bwd_plain"]:.4f} ms, library '
+        f'(its autograd) {times["lib_bwd"]:.4f} ms, bound '
+        f'{bound(3 * flops, bwd_bytes, name)[0]:.4f} ms; vs plain: '
+        + ', '.join(f'{n} {e:.2e}' for n, (e, _) in errors.items()))
+    value_err = max(errors[n][1] for n in ('red', 'blank'))
+    grad_err = max(errors[n][1] for n in
+                   (n.rstrip('*') for n in FR_GRAD_NAMES))
+    for key, (ms, plain_ms, lib_ms, ops, traffic, err) in {
+        'forward': (times['fwd'], times['fwd_plain'], times['lib_fwd'],
+                    flops, fwd_bytes, value_err),
+        'backward': (times['bwd'], times['bwd_plain'], times['lib_bwd'],
+                     3 * flops, bwd_bytes, grad_err)}.items():
+      if tag == 'headline':
+        record = kernel_record(
+            f'frame_reduce_{key}', 'sharded_scan.cu',
+            'sharded_scan.py:68' if key == 'forward' else
+            'sharded_scan.py:154',
+            launches[0 if key == 'forward' else 1], err, ms, plain_ms, ops,
+            traffic, name,
+            launches_by_path={'gnat_global_bigram tensor-parallel train '
+                              'steps': launches[0 if key == 'forward'
+                                                else 1]})
+        record['library_ms'] = lib_ms
+        records[key] = record
+      else:
+        records[key].update(
+            shard_ms=ms, shard_plain_ms=plain_ms, shard_library_ms=lib_ms,
+            shard_bound_ms=bound(ops, traffic, name)[0])
+
+  # D=4 shards in one process against D=1.
+  inputs, d_red, d_blank = head_inputs
+  args = [inputs[n] for n in ('vec', 'pf_t', 'pc', 'vw', 'vb', 'bw')]
+  whole_red, whole_blank = sharded_scan.frame_reduce_forward(
+      **inputs, compute_dtype=dtype)
+  whole = sharded_scan.frame_reduce_backward(*args, whole_red, d_red, d_blank,
+                                             compute_dtype=dtype)
+  plain_red, plain_blank = sharded_scan.frame_reduce_plain(
+      **inputs, compute_dtype=dtype)
+  plain = sharded_scan.frame_reduce_backward_plain(
+      *args, plain_red, d_red, d_blank, compute_dtype=dtype)
+  reds, grads = [], []
+  for r in range(4):
+    cols = slice(r * vocab // 4, (r + 1) * vocab // 4)
+    shard = dict(inputs, vw=inputs['vw'][:, cols].contiguous(),
+                 vb=inputs['vb'][cols].contiguous())
+    red, _ = sharded_scan.frame_reduce_forward(**shard, compute_dtype=dtype)
+    reds.append(red)
+    grads.append(sharded_scan.frame_reduce_backward(
+        *(shard[n] for n in ('vec', 'pf_t', 'pc', 'vw', 'vb', 'bw')), red,
+        d_red[:, cols].contiguous(),
+        d_blank if r == 0 else torch.zeros_like(d_blank),
+        compute_dtype=dtype))
+  torch.cuda.synchronize()
+  shards = [torch.cat(reds, 1), whole_blank]
+  shard_grads = [sum(g[i] for g in grads) for i in (0, 1, 2)] + [
+      torch.cat([g[3] for g in grads], 1), torch.cat([g[4] for g in grads]),
+      sum(g[5] for g in grads), sum(g[6] for g in grads)]
+  vs_whole = max_errors(torch, shards, (whole_red, whole_blank),
+                        FR_VALUE_NAMES, FR_RTOL[name])
+  vs_whole.update(max_errors(torch, shard_grads, whole, FR_GRAD_NAMES,
+                             FR_RTOL[name]))
+  vs_plain = max_errors(torch, shards, (plain_red, plain_blank),
+                        FR_VALUE_NAMES, FR_RTOL[name])
+  vs_plain.update(max_errors(torch, shard_grads, plain, FR_GRAD_NAMES,
+                             FR_RTOL[name]))
+  say('frame-reduce-alone', 'D=4 shards of Vl=256 in one process vs D=1: '
+      + ', '.join(f'{n} {e:.2e}' for n, (e, _) in vs_whole.items())
+      + '; vs the D=1 plain versions: '
+      + ', '.join(f'{n} {e:.2e}' for n, (e, _) in vs_plain.items()))
+  return records
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2714,8 +3087,9 @@ def main():
                                       semirings, weight_fns)
     from last_torch_tpu_torch.models import gnat, presets
     from last_torch_tpu_torch.ops import (build, fused_scan, joint_head,
-                                          numerator_scan, trigram_scan,
-                                          viterbi)
+                                          numerator_scan, sharded_scan,
+                                          trigram_scan, viterbi)
+    from last_torch_tpu_torch.parallel import sharding
   except ImportError as e:
     raise SmokeFailure(f'run from the root of a checkout ({e})') from None
 
@@ -2733,7 +3107,8 @@ def main():
   for line in phase_build(build, {'viterbi.cu': viterbi,
                                   'fused_scan.cu': fused_scan,
                                   'numerator_scan.cu': numerator_scan,
-                                  'joint_head.cu': joint_head}):
+                                  'joint_head.cu': joint_head,
+                                  'sharded_scan.cu': sharded_scan}):
     print(f'[build] {line}', flush=True)
   print(f'[build] {time.perf_counter() - t0:.1f} s', flush=True)
 
@@ -2993,6 +3368,20 @@ def main():
   torch.cuda.empty_cache()
   jh_records = phase_joint_head_alone(torch, joint_head, jh_launches)
   print(f'[joint-head-alone] {time.perf_counter() - t0:.1f} s', flush=True)
+
+  # Phase 12: the tensor-parallel training main path.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  tp_launches = phase_tensor_parallel(torch, gnat, presets, fused_scan,
+                                      sharded_scan, sharding, pytree)
+  print(f'[tensor-parallel] {time.perf_counter() - t0:.1f} s', flush=True)
+
+  # Phase 12b: the frame_reduce kernels alone, and D=4 shards vs D=1.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  fr_records = phase_frame_reduce_alone(torch, sharded_scan, tp_launches)
+  print(f'[frame-reduce-alone] {time.perf_counter() - t0:.1f} s',
+        flush=True)
   print(f'[total] {time.perf_counter() - start:.1f} s', flush=True)
 
   print(json.dumps({'kernels': [viterbi_record, records['forward'],
@@ -3001,7 +3390,9 @@ def main():
                                 trigram_records['forward'],
                                 trigram_records['backward'],
                                 jh_records['forward'],
-                                jh_records['backward']]}))
+                                jh_records['backward'],
+                                fr_records['forward'],
+                                fr_records['backward']]}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu',
       'kind': torch.cuda.get_device_name(0),

@@ -24,8 +24,10 @@ denominator runs in ``csrc/fused_scan.cu``, and both paths of the locally
 normalized (HAT) model, whose decode normalizes inside the Viterbi kernel
 and whose numerator runs in ``csrc/numerator_scan.cu``; the posteriors, the
 trigram GNAT and arbitrary context DFAs (``NextStateTable``), whose generic
-routes run the joint network and heads in ``csrc/joint_head.cu``. See
-ROADMAP.md for what follows.
+routes run the joint network and heads in ``csrc/joint_head.cu``; and
+data- and tensor-parallel training (``parallel.sharding``), whose
+vocab-sharded loss reduces each frame over a rank's shard of the head in
+``csrc/sharded_scan.cu``. See ROADMAP.md for what follows.
 """
 
 from last_torch_tpu_torch import alignments

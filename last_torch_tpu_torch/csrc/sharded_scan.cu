@@ -1,0 +1,496 @@
+// Copyright 2026.
+//
+// Licensed under the Apache License, Version 2.0 (the "License");
+// you may not use this file except in compliance with the License.
+// You may obtain a copy of the License at
+//
+//     http://www.apache.org/licenses/LICENSE-2.0
+//
+// Unless required by applicable law or agreed to in writing, software
+// distributed under the License is distributed on an "AS IS" BASIS,
+// WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+// See the License for the specific language governing permissions and
+// limitations under the License.
+
+// One frame's vocab-shard reduction and blank head, and its VJP, on Hopper:
+// the per-frame kernel pair of the tensor-parallel (vocab-sharded) lattice
+// loss.
+//
+// Replaces the Pallas TPU kernels of last_torch_tpu/ops/sharded_scan.py:
+// _frame_reduce_fwd_kernel (pallas_call at sharded_scan.py:354) and
+// _frame_reduce_bwd_kernel (pallas_call at :427). For batch row b, context
+// state s and label y of the local vocab shard, with T the compute type
+// (float32 or bfloat16) and float32 sums:
+//
+//   joint32[b, s] = tanh(pc[s] + pf[b])                                 [h]
+//   lex[b, s, y]  = T(joint32[b, s]) . T(vw[:, y]) + vb[y]
+//   blank[b, s]   = T(joint32[b, s]) . T(bw) + bb
+//   red[b, y]     = logsumexp_s(vec[b, s] + lex[b, s, y])  (-inf if every
+//                   term is)
+//
+// and, from the cotangents d_red [B, Vl] and d_blank [B, S], as the TPU
+// kernel forms them:
+//
+//   p             = exp(min(vec[b, s] + lex[b, s, y] - safe_red[b, y], 60))
+//   d_lex         = T(d_red[b, y] p)    (0 where vec is -inf: never NaN)
+//   d_vec[b, s]   = sum_y d_lex,   d_vb = sum_{b, s} d_lex,
+//   d_bb          = sum_{b, s} d_blank,
+//   d_vw          = sum_{b, s} T(joint32)^T d_lex,
+//   du[b, s]      = (d_lex . T(vw)^T + d_blank bw) (1 - joint32^2),
+//   d_pc = sum_b du,   d_pf = sum_s du,   d_bw = sum_{b, s} joint32 d_blank,
+//
+// with safe_red = red where finite, else 0 (the blank terms stay float32).
+//
+// What bounds it here. The forward is one [B S, h] x [h, Vl + 1] product
+// (2 B S h (Vl + 1) = 8.6 GFLOP at B=8, S=1025, h=512, Vl=1024), the
+// backward three (lex again, d_joint, d_vw); the inputs and outputs are
+// O(B S + S h + h Vl), about 3 MB there, so the products bound both:
+// bfloat16 on the tensor cores (989 TFLOP/s peak), float32, kept for exact
+// comparison with the plain versions, on the CUDA cores (67 TFLOP/s).
+//
+// What the design does about it:
+// * The [B, S, h] joint and the [B, S, Vl] lex never reach device memory in
+//   the forward: joint_tiles.cuh's products form tanh(pc + pf) as they stage
+//   it, and each block folds its lex tile into an online (max, sum) per
+//   (b, y) at once.
+// * Blocks run over (batch row, state tile, label strip): a state tile (128
+//   states in bfloat16, 64 in float32) lies in one batch row, so its
+//   (max, sum) is a partial of red[b, y]. Splitting S over blocks fills the
+//   card where B and Vl alone do not (8 rows x 8 strips of 128 labels at the
+//   headline shape); a second launch merges the partials, with no atomics.
+//   The blocks of the first strip also write the blank head from the staged
+//   joint.
+// * The backward recomputes each lex tile and writes d_lex (float32 scratch
+//   holding compute-type values, [B, S, Vl]); d_vec, d_vb and d_bb are
+//   reductions of it and of d_blank, and the rest is joint_tiles.cuh's
+//   joint_backward over d_lex with the blank terms unrounded (the joint+head
+//   backward's design: the d_joint product over the flattened B S rows, one
+//   wave, and d_vw split over as many blocks as one wave holds).
+// * The TPU kernel's tile-major [NV, h, Vt] / [NS, Bt, s_tile] layouts, its
+//   fori_loop spill workarounds, the 128-lane alignment of S and Vl and its
+//   VMEM limit are not needed: the kernels take any B, S, h and Vl.
+// Keeping d_lex on chip (fusing the backward's three products), wgmma and
+// TMA are later work.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "joint_tiles.cuh"
+
+namespace {
+
+using namespace joint_tiles;
+
+// Rows of d_lex summed per partial of d_vb.
+constexpr int kColumnChunk = 64;
+
+// Folds x into the online (max m, sum s of exp(. - m)); -inf adds nothing.
+__device__ __forceinline__ void online_add(float& m, float& s, float x) {
+  if (x > m) {
+    s = s * expf(m - x) + 1.f;
+    m = x;
+  } else if (x > -INFINITY) {
+    s += expf(x - m);
+  }
+}
+
+// Merges the partial (m2, s2) into (m, s); an empty partial has s2 = 0.
+__device__ __forceinline__ void online_merge(float& m, float& s, float m2,
+                                             float s2) {
+  if (s2 == 0.f) return;
+  if (m2 > m) {
+    s = s * expf(m - m2) + s2;
+    m = m2;
+  } else {
+    s += s2 * expf(m2 - m);
+  }
+}
+
+// d_lex of one (b, s, y), rounded to the compute type.
+template <bool Bf16>
+__device__ __forceinline__ float lex_cotangent(float vec, float lex,
+                                               float red, float d_red) {
+  const float safe = isfinite(red) ? red : 0.f;
+  const float d = d_red * expf(fminf(vec + lex - safe, 60.f));
+  return Bf16 ? bf16_round(d) : d;
+}
+
+// ---------------------------------------------------------------------------
+// float32: 64 x 64 tiles through FMAs.
+
+// The lex tile of (batch row b, states s0.., labels n0..) into acc (vb not
+// added). Grid (B * ceil(S / 64), ceil(V / 64)): blockIdx.x = b * state
+// tiles + state tile.
+struct TileF32 {
+  int b, st, s0, n0, rows;
+  __device__ TileF32(int S) {
+    const int s_tiles = tiles(S, kBM);
+    b = blockIdx.x / s_tiles;
+    st = blockIdx.x % s_tiles;
+    s0 = st * kBM;
+    n0 = blockIdx.y * kBN;
+    rows = min(kBM, S - s0);
+  }
+};
+
+__device__ __forceinline__ void lex_tile_f32(
+    float (&acc)[kTM][kTN], const TileF32& t, const float* __restrict__ pc,
+    const float* __restrict__ pf, const float* __restrict__ vw, int h,
+    int V) {
+  const float* pf_b = pf + static_cast<size_t>(t.b) * h;
+  const float* pc_s = pc + static_cast<size_t>(t.s0) * h;
+  auto joint = [&](int r, int k) {
+    return r < t.rows ? tanhf(pc_s[static_cast<size_t>(r) * h + k] + pf_b[k])
+                      : 0.f;
+  };
+  auto head = [&](int k, int c) {
+    return t.n0 + c < V ? vw[static_cast<size_t>(k) * V + t.n0 + c] : 0.f;
+  };
+  zero(acc);
+  accumulate<false, false>(acc, joint, head, 0, h);
+}
+
+// The (max, sum) partials [state tiles, B, V] and, in the first strip, the
+// blank head.
+__global__ void __launch_bounds__(kThreads)
+    reduce_f32_kernel(const float* __restrict__ vec,  // [B, S]
+                      const float* __restrict__ pc,   // [S, h]
+                      const float* __restrict__ pf,   // [B, h]
+                      const float* __restrict__ vw,   // [h, V]
+                      const float* __restrict__ vb,   // [V]
+                      const float* __restrict__ bw,   // [h]
+                      const float* __restrict__ bb,   // [1]
+                      float* __restrict__ part_m, float* __restrict__ part_s,
+                      float* __restrict__ blank,      // [B, S]
+                      int B, int S, int h, int V) {
+  __shared__ float cand_m[kBM / kTM][kBN];
+  __shared__ float cand_s[kBM / kTM][kBN];
+  const TileF32 t(S);
+  const int tid = threadIdx.x;
+  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
+  float acc[kTM][kTN];
+  lex_tile_f32(acc, t, pc, pf, vw, h, V);
+  const float* vec_b = vec + static_cast<size_t>(t.b) * S + t.s0;
+#pragma unroll
+  for (int j = 0; j < kTN; ++j) {
+    const int y = t.n0 + tx * kTN + j;
+    float m = -INFINITY, s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kTM; ++i) {
+      const int r = ty * kTM + i;
+      if (r < t.rows && y < V) online_add(m, s, vec_b[r] + (acc[i][j] + vb[y]));
+    }
+    cand_m[ty][tx * kTN + j] = m;
+    cand_s[ty][tx * kTN + j] = s;
+  }
+  __syncthreads();
+  if (tid < kBN && t.n0 + tid < V) {
+    float m = -INFINITY, s = 0.f;
+    for (int g = 0; g < kBM / kTM; ++g) online_merge(m, s, cand_m[g][tid], cand_s[g][tid]);
+    const size_t at = (static_cast<size_t>(t.st) * B + t.b) * V + t.n0 + tid;
+    part_m[at] = m;
+    part_s[at] = s;
+  }
+  if (blockIdx.y == 0) {
+    const int warp = tid / 32, lane = tid % 32;
+    const float* pf_b = pf + static_cast<size_t>(t.b) * h;
+    for (int row = warp; row < t.rows; row += kThreads / 32) {
+      const float* pc_s = pc + static_cast<size_t>(t.s0 + row) * h;
+      float dot = 0.f;
+      for (int k = lane; k < h; k += 32) {
+        dot = fmaf(tanhf(pc_s[k] + pf_b[k]), bw[k], dot);
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        dot += __shfl_xor_sync(0xffffffffu, dot, o);
+      }
+      if (lane == 0) blank[static_cast<size_t>(t.b) * S + t.s0 + row] = dot + bb[0];
+    }
+  }
+}
+
+// d_lex [B, S, V] for the tile.
+__global__ void __launch_bounds__(kThreads)
+    lex_grad_f32_kernel(const float* __restrict__ vec, const float* __restrict__ pc,
+                        const float* __restrict__ pf, const float* __restrict__ vw,
+                        const float* __restrict__ vb, const float* __restrict__ red,
+                        const float* __restrict__ d_red,
+                        float* __restrict__ d_lex, int B, int S, int h, int V) {
+  const TileF32 t(S);
+  const int tx = threadIdx.x % (kBN / kTN), ty = threadIdx.x / (kBN / kTN);
+  float acc[kTM][kTN];
+  lex_tile_f32(acc, t, pc, pf, vw, h, V);
+  const size_t row0 = static_cast<size_t>(t.b) * S + t.s0;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = ty * kTM + i;
+    if (r >= t.rows) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int y = t.n0 + tx * kTN + j;
+      if (y >= V) continue;
+      const size_t by = static_cast<size_t>(t.b) * V + y;
+      d_lex[(row0 + r) * V + y] = lex_cotangent<false>(
+          vec[row0 + r], acc[i][j] + vb[y], red[by], d_red[by]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: 128 x 128 tiles through WMMA.
+
+// The block's (batch row, state tile, label strip) and the joint rows'
+// offsets. Grid (B * ceil(S / 128), ceil(V / 128)).
+struct TileBf16 {
+  int b, st, s0, n0, rows;
+  __device__ TileBf16(int S, int h, size_t* pc_off, size_t* pf_off) {
+    const int s_tiles = tiles(S, kHM);
+    b = blockIdx.x / s_tiles;
+    st = blockIdx.x % s_tiles;
+    s0 = st * kHM;
+    n0 = blockIdx.y * kHN;
+    rows = min(kHM, S - s0);
+    if (threadIdx.x < kHM) {
+      const int r = threadIdx.x < rows ? threadIdx.x : 0;
+      pc_off[threadIdx.x] = static_cast<size_t>(s0 + r) * h;
+      pf_off[threadIdx.x] = static_cast<size_t>(b) * h;
+    }
+    __syncthreads();
+  }
+};
+
+template <bool Vec>
+__global__ void __launch_bounds__(kThreads, 2)
+    reduce_bf16_kernel(const float* __restrict__ vec, const float* __restrict__ pc,
+                       const float* __restrict__ pf, const float* __restrict__ vw,
+                       const float* __restrict__ vb, const float* __restrict__ bw,
+                       const float* __restrict__ bb, float* __restrict__ part_m,
+                       float* __restrict__ part_s, float* __restrict__ blank,
+                       int B, int S, int h, int V) {
+  __shared__ __align__(128) __nv_bfloat16 smem[kSmemBytes / 2];
+  __shared__ size_t pc_off[kHM], pf_off[kHM];
+  __shared__ float cand_m[4][kHN], cand_s[4][kHN];
+  const TileBf16 t(S, h, pc_off, pf_off);
+  const int tid = threadIdx.x;
+  // The blank head, from the staged joint: thread pair (row, half) sums
+  // half of each stage of its row.
+  const bool blank_strip = blockIdx.y == 0;
+  const int row = tid / 2, part = tid % 2;
+  float dot = 0.f;
+  auto blank_hook = [&](int k0, const __nv_bfloat16* a_tile) {
+    if (!blank_strip) return;
+#pragma unroll
+    for (int j = 0; j < kHK / 2; ++j) {
+      const int d = part * (kHK / 2) + j;
+      if (k0 + d < h) {
+        dot = fmaf(__bfloat162float(a_tile[row * kLdDeep + d]),
+                   bf16_round(bw[k0 + d]), dot);
+      }
+    }
+  };
+  Tile128 acc;
+  zero(acc);
+  mainloop<false, false, Vec>(
+      acc, JointRows{{}, pc, pf, pc_off, pf_off, t.rows},
+      HeadCols{{}, vw, V, t.n0}, 0, h, smem, blank_hook);
+  dot += __shfl_xor_sync(0xffffffffu, dot, 1);
+  if (blank_strip && part == 0 && row < t.rows) {
+    blank[static_cast<size_t>(t.b) * S + t.s0 + row] = dot + bb[0];
+  }
+  // Each thread folds the 32 rows it drains of its two columns.
+  float m[2] = {-INFINITY, -INFINITY}, s[2] = {0.f, 0.f};
+  const float* vec_b = vec + static_cast<size_t>(t.b) * S + t.s0;
+  drain(acc, smem, [&](int r, int c, float v, int half) {
+    const int y = t.n0 + c;
+    if (r < t.rows && y < V) online_add(m[half], s[half], vec_b[r] + (v + vb[y]));
+  });
+  const int warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 2, wn = warp % 2;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    cand_m[wm][wn * 64 + half * 32 + lane] = m[half];
+    cand_s[wm][wn * 64 + half * 32 + lane] = s[half];
+  }
+  __syncthreads();
+  if (tid < kHN && t.n0 + tid < V) {
+    float mm = -INFINITY, ss = 0.f;
+#pragma unroll
+    for (int g = 0; g < 4; ++g) online_merge(mm, ss, cand_m[g][tid], cand_s[g][tid]);
+    const size_t at = (static_cast<size_t>(t.st) * B + t.b) * V + t.n0 + tid;
+    part_m[at] = mm;
+    part_s[at] = ss;
+  }
+}
+
+template <bool Vec>
+__global__ void __launch_bounds__(kThreads, 2)
+    lex_grad_bf16_kernel(const float* __restrict__ vec, const float* __restrict__ pc,
+                         const float* __restrict__ pf, const float* __restrict__ vw,
+                         const float* __restrict__ vb, const float* __restrict__ red,
+                         const float* __restrict__ d_red,
+                         float* __restrict__ d_lex, int B, int S, int h, int V) {
+  __shared__ __align__(128) __nv_bfloat16 smem[kSmemBytes / 2];
+  __shared__ size_t pc_off[kHM], pf_off[kHM];
+  const TileBf16 t(S, h, pc_off, pf_off);
+  Tile128 acc;
+  zero(acc);
+  mainloop<false, false, Vec>(
+      acc, JointRows{{}, pc, pf, pc_off, pf_off, t.rows},
+      HeadCols{{}, vw, V, t.n0}, 0, h, smem, NoHook{});
+  const size_t row0 = static_cast<size_t>(t.b) * S + t.s0;
+  drain(acc, smem, [&](int r, int c, float v, int) {
+    const int y = t.n0 + c;
+    if (r >= t.rows || y >= V) return;
+    const size_t by = static_cast<size_t>(t.b) * V + y;
+    d_lex[(row0 + r) * V + y] =
+        lex_cotangent<true>(vec[row0 + r], v + vb[y], red[by], d_red[by]);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// Merges and reductions.
+
+// red [B, V] from the partials [state tiles, B, V].
+__global__ void __launch_bounds__(kPointThreads)
+    merge_kernel(const float* __restrict__ part_m,
+                 const float* __restrict__ part_s, int s_tiles, size_t n,
+                 float* __restrict__ red) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kPointThreads +
+                   threadIdx.x;
+  if (i >= n) return;
+  float m = -INFINITY, s = 0.f;
+  for (int q = 0; q < s_tiles; ++q) {
+    online_merge(m, s, part_m[q * n + i], part_s[q * n + i]);
+  }
+  red[i] = s == 0.f ? -INFINITY : m + logf(s);
+}
+
+// out[r] = sum_c in[r * n + c], one warp per row.
+__global__ void __launch_bounds__(kPointThreads)
+    row_sum_kernel(const float* __restrict__ in, int rows, int n,
+                   float* __restrict__ out) {
+  const int r = blockIdx.x * (kPointThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (r >= rows) return;
+  const float* p = in + static_cast<size_t>(r) * n;
+  float total = 0.f;
+  for (int c = lane; c < n; c += 32) total += p[c];
+  for (int o = 16; o > 0; o >>= 1) {
+    total += __shfl_xor_sync(0xffffffffu, total, o);
+  }
+  if (lane == 0) out[r] = total;
+}
+
+// out[q, c] = sum of in[r, c] over the kColumnChunk rows r of chunk q.
+// Grid (ceil(n / 256), ceil(rows / kColumnChunk)).
+__global__ void __launch_bounds__(kPointThreads)
+    column_chunk_kernel(const float* __restrict__ in, int rows, int n,
+                        float* __restrict__ out) {
+  const int c = blockIdx.x * kPointThreads + threadIdx.x;
+  if (c >= n) return;
+  const int r0 = blockIdx.y * kColumnChunk, r1 = min(rows, r0 + kColumnChunk);
+  float total = 0.f;
+  for (int r = r0; r < r1; ++r) total += in[static_cast<size_t>(r) * n + c];
+  out[static_cast<size_t>(blockIdx.y) * n + c] = total;
+}
+
+inline int row_blocks(int rows) {
+  return (rows + kPointThreads / 32 - 1) / (kPointThreads / 32);
+}
+
+}  // namespace
+
+extern "C" {
+
+// The forward on `stream`; returns the first error (0 on success). dtype 0
+// = float32, 1 = bfloat16 (the compute type); every pointer is float32:
+// vec [B, S], pf [B, h], pc [S, h], vw [h, V], vb [V], bw [h], bb [1];
+// outputs red [B, V] and blank [B, S]; scratch part_m, part_s [state tiles,
+// B, V], state tiles = ceil(S / 64) (float32) or ceil(S / 128) (bfloat16).
+// V >= 1.
+int frame_reduce_forward(int dtype, const float* vec, const float* pf,
+                         const float* pc, const float* vw, const float* vb,
+                         const float* bw, const float* bb, float* part_m,
+                         float* part_s, float* red, float* blank, int B,
+                         int S, int h, int V, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((dtype != 0 && dtype != 1) || V < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0) return 0;
+  int s_tiles = 0;
+  if (dtype == 0) {
+    s_tiles = tiles(S, kBM);
+    reduce_f32_kernel<<<dim3(B * s_tiles, tiles(V, kBN)), kThreads, 0, s>>>(
+        vec, pc, pf, vw, vb, bw, bb, part_m, part_s, blank, B, S, h, V);
+  } else {
+    s_tiles = tiles(S, kHM);
+    const auto kernel = vector_path(h, V, {pc, pf, vw})
+                            ? reduce_bf16_kernel<true>
+                            : reduce_bf16_kernel<false>;
+    kernel<<<dim3(B * s_tiles, tiles(V, kHN)), kThreads, 0, s>>>(
+        vec, pc, pf, vw, vb, bw, bb, part_m, part_s, blank, B, S, h, V);
+  }
+  RETURN_IF_LAUNCH_FAILED();
+  const size_t n = static_cast<size_t>(B) * V;
+  merge_kernel<<<blocks_for(n), kPointThreads, 0, s>>>(part_m, part_s,
+                                                       s_tiles, n, red);
+  RETURN_IF_LAUNCH_FAILED();
+  return 0;
+}
+
+// The backward on `stream`; returns the first error. Inputs as the forward's
+// and red [B, V] (its output), d_red [B, V], d_blank [B, S]; outputs d_vec
+// [B, S], d_pf [B, h], d_pc [S, h], d_vw [h, V], d_vb [V], d_bw [h], d_bb
+// [1]. Scratch (float32): d_lex [B, S, V], dvb_part [ceil(B S / 64), V], and
+// joint_backward's (joint_tiles.cuh): dpf_part, dbw_part, dpc_part, dw_part
+// with `splits`. V >= 1.
+int frame_reduce_backward(int dtype, const float* vec, const float* pf,
+                          const float* pc, const float* vw, const float* vb,
+                          const float* bw, const float* red,
+                          const float* d_red, const float* d_blank,
+                          float* d_lex, float* dvb_part, float* dpf_part,
+                          float* dbw_part, float* dpc_part, float* dw_part,
+                          float* d_vec, float* d_pf, float* d_pc, float* d_vw,
+                          float* d_vb, float* d_bw, float* d_bb, int B, int S,
+                          int h, int V, int splits, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((dtype != 0 && dtype != 1) || V < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int M = B * S;
+  if (M > 0) {
+    if (dtype == 0) {
+      lex_grad_f32_kernel<<<dim3(B * tiles(S, kBM), tiles(V, kBN)), kThreads,
+                            0, s>>>(vec, pc, pf, vw, vb, red, d_red, d_lex, B,
+                                    S, h, V);
+    } else {
+      const auto kernel = vector_path(h, V, {pc, pf, vw})
+                              ? lex_grad_bf16_kernel<true>
+                              : lex_grad_bf16_kernel<false>;
+      kernel<<<dim3(B * tiles(S, kHM), tiles(V, kHN)), kThreads, 0, s>>>(
+          vec, pc, pf, vw, vb, red, d_red, d_lex, B, S, h, V);
+    }
+    RETURN_IF_LAUNCH_FAILED();
+    row_sum_kernel<<<row_blocks(M), kPointThreads, 0, s>>>(d_lex, M, V, d_vec);
+    RETURN_IF_LAUNCH_FAILED();
+    column_chunk_kernel<<<dim3(blocks_for(V), tiles(M, kColumnChunk)),
+                          kPointThreads, 0, s>>>(d_lex, M, V, dvb_part);
+    RETURN_IF_LAUNCH_FAILED();
+  }
+  row_sum_kernel<<<1, kPointThreads, 0, s>>>(d_blank, 1, M, d_bb);
+  RETURN_IF_LAUNCH_FAILED();
+  const Sum sums[] = {{dvb_part, tiles(M, kColumnChunk),
+                       static_cast<size_t>(V), d_vb}};
+  const int status = sum_all(sums, s);
+  if (status != 0) return status;
+  return joint_backward(dtype, /*round_blank=*/false, pc, pf, vw, bw, d_blank,
+                        d_lex, dpf_part, dbw_part, dpc_part, dw_part, d_pc,
+                        d_pf, d_vw, d_bw, B, S, h, V, splits, s);
+}
+
+const char* frame_reduce_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

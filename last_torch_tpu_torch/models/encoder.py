@@ -80,7 +80,9 @@ class TransformerEncoder:
   conv_kernel: int = 0
   banded_attention: Optional[bool] = None
 
-  def init(self, generator: torch.Generator, device='cpu') -> Params:
+  def init(self, generator: torch.Generator, device='cuda') -> Params:
+    """Random parameters on ``device``: the card unless the caller asks for
+    'cpu'."""
     d = self.model_size
 
     def dense(shape):

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch.utils import _pytree as pytree
@@ -245,12 +245,23 @@ class Optimizer:
     schedule = torch.optim.lr_scheduler.LambdaLR(adamw, self.rate_factor)
     return OptState(adamw, schedule)
 
-  def apply_gradients(self, opt_state: OptState) -> None:
+  def apply_gradients(self, opt_state: OptState,
+                      total_norm: Optional[torch.Tensor] = None) -> None:
     """Clips the leaves' ``.grad`` to ``clip_norm`` in global norm and takes
-    one AdamW step on them; the schedule advances by one update."""
+    one AdamW step on them; the schedule advances by one update.
+
+    ``total_norm``: the global norm when the leaves hold only part of the
+    gradients (a vocab shard of a tensor-parallel step); the leaves' own by
+    default. The clip is ``clip_grad_norm_``'s either way.
+    """
     leaves = [p for group in opt_state.adamw.param_groups
               for p in group['params']]
-    torch.nn.utils.clip_grad_norm_(leaves, self.clip_norm)
+    if total_norm is None:
+      torch.nn.utils.clip_grad_norm_(leaves, self.clip_norm)
+    else:
+      coef = torch.clamp(self.clip_norm / (total_norm + 1e-6), max=1.0)
+      for leaf in leaves:
+        leaf.grad.mul_(coef)
     opt_state.adamw.step()
     opt_state.schedule.step()
 

@@ -293,12 +293,35 @@ def joint_head_backward(pc: torch.Tensor, pf: torch.Tensor,
   if pc.device.type != 'cuda':
     raise ValueError(f'no joint_head kernel for device {pc.device}')
   empty = lambda *shape: torch.empty(shape, device=pc.device)
+  dpf_part, dbw_part, dpc_part, dw_part, splits = backward_scratch(
+      batch, num_states, hidden, vocab, compute_dtype, pc.device)
+  d_pc, d_pf = empty(num_states, hidden), empty(batch, hidden)
+  d_vocab_w, d_blank_w = empty(hidden, vocab), empty(hidden)
+  _launch(pc.device, 'backward', lambda lib, stream: lib.joint_head_backward(
+      _DTYPE_CODES[compute_dtype], pc.data_ptr(), pf.data_ptr(),
+      vocab_w.data_ptr(), blank_w.data_ptr(), g_blank.data_ptr(),
+      g_lexical.data_ptr(), dpf_part.data_ptr(), dbw_part.data_ptr(),
+      dpc_part.data_ptr(), dw_part.data_ptr(), d_pc.data_ptr(),
+      d_pf.data_ptr(), d_vocab_w.data_ptr(), d_blank_w.data_ptr(), batch,
+      num_states, hidden, vocab, splits, stream))
+  backward_launches += 1
+  return d_pc, d_pf, d_vocab_w, d_blank_w
+
+
+def backward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
+                     compute_dtype: torch.dtype, device):
+  """The scratch of the backward's products (``joint_backward`` in
+  ``csrc/joint_tiles.cuh``, which ``csrc/sharded_scan.cu`` shares):
+  (dpf_part, dbw_part, dpc_part, dw_part, splits), float32 on ``device``.
+
+  The d_vocab_w contraction is split over its depth slices (float32:
+  (batch row, state tile) pairs; bfloat16: 16-state stages of each batch
+  row) into as many splits as one wave of blocks holds.
+  """
+  empty = lambda *shape: torch.empty(shape, device=device)
   tile, depth_slice, blocks_per_sm = _GEOMETRY[compute_dtype]
   tiles = lambda n, size=tile: -(-n // size)
-  # Split the d_vocab_w contraction over its depth slices (float32: (batch
-  # row, state tile) pairs; bfloat16: 16-state stages of each batch row)
-  # into as many splits as one wave of blocks holds.
-  sms = torch.cuda.get_device_properties(pc.device).multi_processor_count
+  sms = torch.cuda.get_device_properties(device).multi_processor_count
   slices = max(1, batch * tiles(num_states, depth_slice))
   splits = max(1, min(slices, blocks_per_sm * sms //
                       max(1, tiles(hidden) * tiles(vocab))))
@@ -311,18 +334,7 @@ def joint_head_backward(pc: torch.Tensor, pf: torch.Tensor,
     dpf_part = empty(tiles(num_states, _STATE_CHUNK), batch, hidden)
     dbw_part = empty(tiles(batch * num_states), hidden)
     dpc_part = empty(batch, num_states, hidden)  # du
-  dw_part = empty(splits, hidden, vocab)
-  d_pc, d_pf = empty(num_states, hidden), empty(batch, hidden)
-  d_vocab_w, d_blank_w = empty(hidden, vocab), empty(hidden)
-  _launch(pc.device, 'backward', lambda lib, stream: lib.joint_head_backward(
-      _DTYPE_CODES[compute_dtype], pc.data_ptr(), pf.data_ptr(),
-      vocab_w.data_ptr(), blank_w.data_ptr(), g_blank.data_ptr(),
-      g_lexical.data_ptr(), dpf_part.data_ptr(), dbw_part.data_ptr(),
-      dpc_part.data_ptr(), dw_part.data_ptr(), d_pc.data_ptr(),
-      d_pf.data_ptr(), d_vocab_w.data_ptr(), d_blank_w.data_ptr(), batch,
-      num_states, hidden, vocab, splits, stream))
-  backward_launches += 1
-  return d_pc, d_pf, d_vocab_w, d_blank_w
+  return dpf_part, dbw_part, dpc_part, empty(splits, hidden, vocab), splits
 
 
 def joint_head_backward_plain(pc: torch.Tensor, pf: torch.Tensor,

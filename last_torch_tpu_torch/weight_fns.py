@@ -292,7 +292,9 @@ class SharedEmbCacher:
   num_context_states: int
   embedding_size: int
 
-  def init(self, generator: torch.Generator, device='cpu') -> Params:
+  def init(self, generator: torch.Generator, device='cuda') -> Params:
+    """The embedding table on ``device``: the card unless the caller asks
+    for 'cpu'."""
     return {
         'embedding':
             initializers.normal(

@@ -67,7 +67,7 @@ def test_init_matches_jax_layout():
       np.asarray,
       jax_encoder.TransformerEncoder(**kwargs).init(jax.random.PRNGKey(1)))
   ported = encoder.TransformerEncoder(**kwargs).init(
-      torch.Generator().manual_seed(1))
+      torch.Generator().manual_seed(1), device='cpu')
   flat_ref, _ = jax.tree_util.tree_flatten_with_path(reference)
   flat_port, _ = jax.tree_util.tree_flatten_with_path(
       jax.tree.map(lambda x: x.numpy(), ported))

@@ -6,8 +6,9 @@ on a tie). Log-partition: the plain versions' padding behaviour is pinned
 on the CPU. Numerator: the plain backward is held to autograd through the
 plain forward on the CPU. Trigram log-partition: the plain versions'
 padding behaviour is pinned, and ``log_partition`` through them is held to
-the lattice's generic forward-backward, on the CPU. Joint+head: the plain
-backward is held to autograd through the plain forward on the CPU. On the
+the lattice's generic forward-backward, on the CPU. Joint+head and frame
+reduce: the plain backward is held to autograd through the plain forward
+on the CPU. On the
 card each kernel is held to its plain version: the tests marked ``cuda``
 skip without a GPU. This file imports
 no JAX, so it also runs on a machine that has only PyTorch:
@@ -24,7 +25,7 @@ import torch
 
 from last_torch_tpu_torch import alignments, contexts, lattices, weight_fns
 from last_torch_tpu_torch.ops import (fused_scan, joint_head, numerator_scan,
-                                      trigram_scan, viterbi)
+                                      sharded_scan, trigram_scan, viterbi)
 
 torch.set_num_threads(1)
 torch.set_float32_matmul_precision('highest')
@@ -898,3 +899,162 @@ def test_joint_head_autograd_matches_plain_on_card(card):
     # (at most 2**-7 of it) on top.
     step = 2.0**-7 * b.abs() if name.endswith('_proj') else 0.0
     assert bool(((a - b).abs() <= 1e-3 * b.abs().max() + step).all()), name
+
+
+def frame_reduce_inputs(seed, batch, states, hidden, vocab, device='cpu'):
+  """Kernel inputs of one frame's reduction and cotangents of both outputs:
+  the last quarter of the states are dead (-inf in vec, as under
+  FrameLabelDependent) and batch row 1 is dead at every state, so its
+  reduction is -inf."""
+  rng = np.random.default_rng(seed)
+  tensor = lambda shape, scale=1.0: torch.from_numpy(
+      (rng.standard_normal(shape) * scale).astype(np.float32)).to(device)
+  vec = tensor((batch, states), 3.0)
+  vec[:, states - states // 4:] = float('-inf')
+  if batch > 1:
+    vec[1] = float('-inf')
+  inputs = {
+      'vec': vec,
+      'pf_t': tensor((batch, hidden), 0.5),
+      'pc': tensor((states, hidden), 0.5),
+      'vw': tensor((hidden, vocab), hidden**-0.5),
+      'vb': tensor((vocab,), 0.1),
+      'bw': tensor((hidden,), hidden**-0.5),
+      'bb': torch.tensor(0.3, device=device),
+  }
+  return inputs, tensor((batch, vocab)), tensor((batch, states))
+
+
+FRAME_REDUCE_GRADS = ('d_vec', 'd_pf', 'd_pc', 'd_vw', 'd_vb', 'd_bw', 'd_bb')
+
+
+def test_plain_frame_reduce_backward_is_the_vjp_of_its_forward():
+  inputs, d_red, d_blank = frame_reduce_inputs(11, batch=3, states=13,
+                                               hidden=6, vocab=5)
+  inputs['vec'][1, 0] = 0.0  # autograd's logsumexp is NaN on a dead row
+  leaves = {n: x.double().requires_grad_(True) for n, x in inputs.items()}
+  red, blank = sharded_scan.frame_reduce_plain(**leaves,
+                                               compute_dtype=torch.float32)
+  want = torch.autograd.grad(
+      (red * d_red).sum() + (blank * d_blank).sum(), list(leaves.values()))
+  args = [leaves[n].detach() for n in ('vec', 'pf_t', 'pc', 'vw', 'vb', 'bw')]
+  got = sharded_scan.frame_reduce_backward_plain(
+      *args, red.detach(), d_red.double(), d_blank.double(),
+      compute_dtype=torch.float32)
+  for name, g, w in zip(FRAME_REDUCE_GRADS, got, want):
+    npt.assert_allclose(g.numpy(), w.numpy(), rtol=1e-10, atol=1e-12,
+                        err_msg=name)
+  assert torch.all(got[0][:, 10:] == 0)  # d_vec at the dead states
+
+
+def test_frame_reduce_wrappers_check_their_inputs():
+  inputs, d_red, d_blank = frame_reduce_inputs(12, batch=2, states=4,
+                                               hidden=6, vocab=5)
+  with pytest.raises(ValueError, match='compute_dtype'):
+    sharded_scan.frame_reduce_forward(**inputs, compute_dtype=torch.float16)
+  with pytest.raises(ValueError, match='vb'):
+    sharded_scan.frame_reduce_forward(**dict(inputs, vb=inputs['vb'][1:]),
+                                      compute_dtype=torch.float32)
+  with pytest.raises(ValueError, match='contiguous'):
+    sharded_scan.frame_reduce_forward(
+        **dict(inputs, vw=inputs['vw'].t().contiguous().t()),
+        compute_dtype=torch.float32)
+  red, _ = sharded_scan.frame_reduce_forward(**inputs,
+                                             compute_dtype=torch.float32)
+  args = [inputs[n] for n in ('vec', 'pf_t', 'pc', 'vw', 'vb', 'bw')]
+  with pytest.raises(ValueError, match='d_blank'):
+    sharded_scan.frame_reduce_backward(*args, red, d_red, d_blank[:, 1:],
+                                       compute_dtype=torch.float32)
+
+
+FRAME_REDUCE_CARD_CASES = {
+    # name: (batch, states, vocab, hidden)
+    'b3_s1025_v96': (3, 1025, 96, 512),
+    'b3_s1025_v1024': (3, 1025, 1024, 512),
+    'b8_s1025_v256': (8, 1025, 256, 512),
+    # h and V not multiples of 4: bfloat16 staged without 16-byte loads.
+    'ragged_b5_s77_v37_h42': (5, 77, 37, 42),
+}
+
+
+def frame_reduce_pair(inputs, d_red, d_blank, compute_dtype, forward,
+                      backward):
+  """(red, blank) and the seven gradients through the given pair."""
+  red, blank = forward(**inputs, compute_dtype=compute_dtype)
+  args = [inputs[n] for n in ('vec', 'pf_t', 'pc', 'vw', 'vb', 'bw')]
+  grads = backward(*args, red, d_red, d_blank, compute_dtype=compute_dtype)
+  return (red, blank), grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('case', sorted(FRAME_REDUCE_CARD_CASES))
+def test_frame_reduce_kernels_match_plain_on_card(card, case, compute_dtype):
+  batch, states, vocab, hidden = FRAME_REDUCE_CARD_CASES[case]
+  inputs, d_red, d_blank = frame_reduce_inputs(13, batch, states, hidden,
+                                               vocab, device=card)
+  before = (sharded_scan.forward_launches, sharded_scan.backward_launches)
+  values_k, grads_k = frame_reduce_pair(
+      inputs, d_red, d_blank, compute_dtype,
+      sharded_scan.frame_reduce_forward, sharded_scan.frame_reduce_backward)
+  values_p, grads_p = frame_reduce_pair(
+      inputs, d_red, d_blank, compute_dtype,
+      sharded_scan.frame_reduce_plain,
+      sharded_scan.frame_reduce_backward_plain)
+  torch.cuda.synchronize()
+  assert (sharded_scan.forward_launches, sharded_scan.backward_launches) == (
+      before[0] + 1, before[1] + 1)
+  # Same rounded inputs, float32 sums in another order: values to 1e-5
+  # (float32) or 1e-4 (bfloat16) of max(|value|, 1); gradients to 1e-4 or
+  # 1e-3 of each output's largest entry.
+  bf16 = compute_dtype == torch.bfloat16
+  for name, got, want in zip(('red', 'blank'), values_k, values_p):
+    assert got.shape == want.shape, name
+    assert rel_err(got, want) <= (1e-4 if bf16 else 1e-5), name
+  assert bool(torch.isneginf(values_k[0][1]).all())  # the dead row
+  for name, got, want in zip(FRAME_REDUCE_GRADS, grads_k, grads_p):
+    assert got.shape == want.shape, name
+    assert rel_err(got, want, per_output=True) <= (1e-3 if bf16 else 1e-4), (
+        name)
+  dead = torch.isneginf(inputs['vec'])
+  assert bool((grads_k[0][dead] == 0).all())  # d_vec, never NaN
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_frame_reduce_shards_reproduce_the_whole_head_on_card(card,
+                                                              compute_dtype):
+  """Four vocab shards in one process: their reductions concatenated are
+  the whole head's, and their gradients (the blank cotangent given to one
+  shard, the shared gradients summed, the head's concatenated) the whole
+  head's."""
+  inputs, d_red, d_blank = frame_reduce_inputs(14, 8, 1025, 512, 1024,
+                                               device=card)
+  whole_values, whole_grads = frame_reduce_pair(
+      inputs, d_red, d_blank, compute_dtype,
+      sharded_scan.frame_reduce_forward, sharded_scan.frame_reduce_backward)
+  reds, grads = [], []
+  for r in range(4):
+    cols = slice(r * 256, (r + 1) * 256)
+    shard = dict(inputs, vw=inputs['vw'][:, cols].contiguous(),
+                 vb=inputs['vb'][cols].contiguous())
+    (red, _), g = frame_reduce_pair(
+        shard, d_red[:, cols].contiguous(),
+        d_blank if r == 0 else torch.zeros_like(d_blank), compute_dtype,
+        sharded_scan.frame_reduce_forward, sharded_scan.frame_reduce_backward)
+    reds.append(red)
+    grads.append(g)
+  torch.cuda.synchronize()
+  bf16 = compute_dtype == torch.bfloat16
+  assert rel_err(torch.cat(reds, 1), whole_values[0]) <= (
+      1e-4 if bf16 else 1e-5)
+  shared = [sum(g[i] for g in grads) for i in (0, 1, 2, 5, 6)]
+  sharded = [torch.cat([g[3] for g in grads], 1),
+             torch.cat([g[4] for g in grads], 0)]
+  got = dict(zip(('d_vec', 'd_pf', 'd_pc', 'd_bw', 'd_bb', 'd_vw', 'd_vb'),
+                 shared + sharded))
+  for name, want in zip(FRAME_REDUCE_GRADS, whole_grads):
+    assert rel_err(got[name], want, per_output=True) <= (
+        1e-3 if bf16 else 1e-4), name

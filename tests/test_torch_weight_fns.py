@@ -78,7 +78,7 @@ def test_init_shapes_and_distributions_match_jax():
   cacher_params_j, joint_params_j = jax_params(2)
   generator = torch.Generator().manual_seed(2)
   cacher = weight_fns.SharedEmbCacher(NUM_STATES, EMBEDDING)
-  cacher_params = cacher.init(generator)
+  cacher_params = cacher.init(generator, device='cpu')
   joint_params = weight_fns.JointWeightFn(
       vocab_size=VOCAB, hidden_size=HIDDEN).init(
           generator, cacher.apply(cacher_params), torch.zeros((FEATURES,)))
