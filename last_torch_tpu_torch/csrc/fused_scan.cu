@@ -52,42 +52,59 @@
 // What bounds it here. Per frame the forward runs one head product
 // [B*S, h] x [h, V] (2*B*S*V*h = 8.6 GFLOP at B=8, S=1025, V=1024, h=512)
 // and the backward three of that size (lex, dvw, d_joint): compute-bound
-// products; the reductions around them read [B, S, V] float32 tensors
-// (34 MB at B=8) a few times per frame, memory-bound passes. Only
-// [B, S]-sized state crosses frames.
+// products on the tensor cores (989 TFLOP/s bf16); around them sit
+// per-element exps, tanh derivatives and row and column sums, and a few
+// small launches per frame. Only [B, S]-sized state and the head-gradient
+// sums cross frames.
 //
-// What the design does about it (first, simple version):
+// What the design does about it:
 // * The TPU grid carried alpha / beta and the head-gradient sums across its
 //   sequential (t, b) grid in VMEM scratch. Hopper blocks run in no order
 //   and carry nothing, so the time loop runs on the host side of this file,
 //   a few launches per frame on the caller's stream, and every cross-frame
 //   sum is a device buffer in which each element belongs to one block per
-//   frame (no atomics): dpc per batch row, dvw per split of the (b, s)
-//   contraction, dvb / dbw per (b, state tile), dbb per (b, s); one reduce
-//   launch each at the end. Sums are therefore deterministic.
+//   frame (no atomics); one reduce launch each at the end. Sums are
+//   therefore deterministic.
 // * The TPU cached E = exp(lex - rowmax) in 80 MB of VMEM and ran every
 //   in-frame reduction as a matvec against it. A block here has 227 KB, and
 //   one that owns a label strip never sees a whole row, so the logsumexps
 //   are online (max, sum) pairs over the states (forward, per label) or the
 //   labels (backward, per state) a block covers, merged across blocks with
-//   the same log-add. The forward's first reduction runs in the epilogue of
-//   the head product; with two or more per frame the product stores lex
-//   (float32, device memory) for the others: at B=32 (134 MB, beyond the
-//   50 MB L2) that still beats recomputing the product, 1.02 s against
-//   1.74 s for the T=1600 FLD(2) forward (H100 80GB HBM3, 700 W). The
-//   backward always stores lex: its k row reductions and the marginals
-//   read it.
+//   the same log-add.
 // * The marginals are formed directly, exp(a + lex + nb - log_z), each term
 //   at most about 1, so the TPU's factored form and its clip at 80
 //   (fused_scan.py:468-474) are not needed; padding rows and padded states
-//   never enter a sum (masked, and skipped per row), so all-padding rows and
-//   g = 0 rows give exact zeros.
-// * Products: tile_product.cuh (WMMA bfloat16 with float32 accumulation;
-//   float32 FMAs for the float32 comparison mode). joint^T d_lex contracts
-//   over B*S rows, split over blocks; d_lex vocab_w^T reads vocab_w
-//   transposed. wgmma, TMA, pipelining and a persistent kernel are later
-//   work.
-//
+//   never enter a sum, so all-padding rows and g = 0 rows give exact zeros.
+// * Forward, the float32 comparison mode, 'online', the trigram and the
+//   marginals: tile_product.cuh's 64 x 64 tiles (WMMA in bfloat16, FMAs in
+//   float32). The forward's first reduction runs in the epilogue of the
+//   head product; with two or more per frame the product stores lex
+//   (float32) for the others: at B=32 (134 MB, beyond the 50 MB L2) that
+//   beat recomputing the WMMA product, 1.02 s against 1.74 s for the
+//   T=1600 FLD(2) forward (H100 80GB HBM3, 700 W).
+// * The bfloat16 'cache' backward (namespace hopper) runs its products on
+//   wgmma (wgmma_tiles.cuh: m64n128k16 from shared memory, operands brought
+//   by TMA through a 4-stage mbarrier ring, two blocks an SM), over each
+//   frame's live rows only: the host counts them once per call and lists
+//   them first, so padding rows launch nothing and the grids shrink with
+//   the batch as utterances end. Per frame: joint_blank_kernel writes the
+//   joint once in bfloat16 for the products (8.4 MB at B=8; forming it
+//   while staging would cost a tanh per entry and label strip, more than
+//   the product) and once in float32 for the tanh derivative, then
+//   the k row reductions (lex_pass_kernel: the product, + vb, the strip's
+//   (max, sum) per state; the last also the marginals d_lex, written once
+//   in bfloat16, and their column sums), and the two gradient products of
+//   head_grads.cuh: dvw over the live (row, state) depth split over blocks,
+//   and d_joint with the tanh derivative in its epilogue, one block running
+//   the rows of its split so that d_pc stays in registers ([splits, S, h]
+//   across frames, not [B, S, h]). lex is recomputed by every reduction:
+//   staging it (float32 [B, S, V]) for the later reductions measured slower
+//   at B=8, where it fits in the L2 cache, and at B=32 alike (PERF.md).
+//   d_joint does
+//   not share the d_lex block: holding a state tile's [64, h] d_joint
+//   beside its lex strip needs more registers than two blocks an SM
+//   leave.
+
 // 'online' mode (large V). The staged buffers above are [B, S, V]: 537 MB
 // of float32 lex per frame at B=8, V=4096, growing as V^2. The online mode
 // keeps no buffer of that size, as the TPU's online kernels kept no lexical
@@ -143,6 +160,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "head_grads.cuh"
 #include "tile_product.cuh"
 
 namespace {
@@ -202,10 +220,11 @@ struct Pairs {
   int n;
 };
 
-// joint[b, s, :] = cast(tanh(pc[s] + pf_t[b])); blank[b, s] = joint . bw +
-// bb; with nb_top, nb_top[b, s] = blank[b, s] + beta[b, s]. Padding rows
-// skip the work, writing a zero joint row when zero_pad is set (the
-// backward's contraction over rows reads it). Grid (S, B).
+// joint[b, s, :h] = cast(tanh(pc[s] + pf_t[b])) (rows ld apart, zero past
+// h; with joint32, also the float32 tanh); blank[b, s] = joint . bw + bb;
+// with nb_top, nb_top[b, s] = blank[b, s] + beta[b, s]. Padding rows skip
+// the work, writing a zero joint row when zero_pad is set (the backward's
+// contraction over rows reads it). Grid (S, B).
 template <typename T>
 __global__ void __launch_bounds__(kJointThreads)
     joint_blank_kernel(const float* __restrict__ pf_t,    // [B, h]
@@ -215,12 +234,13 @@ __global__ void __launch_bounds__(kJointThreads)
                        const float* __restrict__ bb,      // [1]
                        const float* __restrict__ beta,    // [B, S] or null
                        float* __restrict__ nb_top,        // [B, S] or null
-                       T* __restrict__ joint,             // [B, S, h]
+                       T* __restrict__ joint,             // [B, S, ld]
+                       float* __restrict__ joint32,       // [B, S, h] or null
                        float* __restrict__ blank,         // [B, S]
-                       int S, int h, int zero_pad) {
+                       int S, int h, int ld, int zero_pad) {
   const int s = blockIdx.x;
   const int b = blockIdx.y;
-  T* out = joint + (static_cast<size_t>(b) * S + s) * h;
+  T* out = joint + (static_cast<size_t>(b) * S + s) * ld;
   if (is_pad_t[b]) {
     if (zero_pad) {
       for (int k = threadIdx.x; k < h; k += kJointThreads) {
@@ -231,9 +251,17 @@ __global__ void __launch_bounds__(kJointThreads)
   }
   const float* pc_row = pc + static_cast<size_t>(s) * h;
   const float* pf_row = pf_t + static_cast<size_t>(b) * h;
+  for (int k = h + threadIdx.x; k < ld; k += kJointThreads) {
+    out[k] = from_float<T>(0.f);
+  }
+  float* out32 = joint32 == nullptr
+                     ? nullptr
+                     : joint32 + (static_cast<size_t>(b) * S + s) * h;
   float partial = 0.f;
   for (int k = threadIdx.x; k < h; k += kJointThreads) {
-    const T j = from_float<T>(tanhf(pc_row[k] + pf_row[k]));
+    const float j32 = tanhf(pc_row[k] + pf_row[k]);
+    if (out32 != nullptr) out32[k] = j32;
+    const T j = from_float<T>(j32);
     out[k] = j;
     partial = fmaf(to_float(j), to_float(bw[k]), partial);
   }
@@ -916,7 +944,7 @@ int run_forward(const float* pf, const float* pc, const T* vw,
     const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
     joint_blank_kernel<T><<<joint_grid, kJointThreads, 0, stream>>>(
         pf + static_cast<size_t>(t) * B * h, is_pad_t, pc, bw, bb, nullptr,
-        nullptr, joint, blank, S, h, 0);
+        nullptr, joint, nullptr, blank, S, h, h, 0);
     RETURN_IF_LAUNCH_FAILED();
     // The j-th expansion of the frame: a slab, or a scratch row.
     float* last_t = slabs != nullptr ? slabs + t * bs : last;
@@ -975,7 +1003,7 @@ int run_trigram_forward(const float* pf, const float* pc, const T* vw,
     const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
     joint_blank_kernel<T><<<joint_grid, kJointThreads, 0, stream>>>(
         pf + static_cast<size_t>(t) * B * h, is_pad_t, pc, bw, bb, nullptr,
-        nullptr, joint, blank, S, h, 0);
+        nullptr, joint, nullptr, blank, S, h, h, 0);
     RETURN_IF_LAUNCH_FAILED();
     if (passes > 0) {
       lex_kernel<T><<<lex_grid, kThreads, 0, stream>>>(joint, vw, vb, lex,
@@ -1038,7 +1066,8 @@ struct ReverseScan {
     const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
     joint_blank_kernel<T><<<dim3(S, B), kJointThreads, 0, stream>>>(
         pf + static_cast<size_t>(t) * B * h, is_pad_t, pc, bw, bb, beta_cur,
-        k >= 1 ? nb + (k - 1) * bs : nullptr, joint, blank, S, h, zero_pad);
+        k >= 1 ? nb + (k - 1) * bs : nullptr, joint, nullptr, blank, S, h, h,
+        zero_pad);
     RETURN_IF_LAUNCH_FAILED();
     Alphas alphas;
     alphas.n = 1 + k;
@@ -1090,6 +1119,389 @@ struct ReverseScan {
     return 0;
   }
 };
+
+// ---------------------------------------------------------------------------
+// The bfloat16 'cache' backward of the bigram on wgmma (FD and FLD(k >= 1)).
+namespace hopper {
+
+using namespace head_grads;
+using wgmma_tiles::kBK;
+using wgmma_tiles::kBN;
+
+// One row reduction of a frame over its live rows: the head product of a
+// (64-state tile, 128-label strip) on wgmma, A = joint [B, S, hp]
+// (K-major), B = vw [hp, Vp] (MN-major), then lex = product + vb and the
+// strip's online (max, sum) of lex + nbv[1 + y] per state into part_m /
+// part_l [strips, B, S]. The
+// last reduction of the frame (Last) also forms the lexical marginals
+//   d_lex[s, y] = bf16(g * sum_p exp(a_p[s] + lex[s, y] + nb_p[1 + y]
+//                                    - log_z))
+// into d_lex [B, S, Vp] (zero past V), and adds their column sums over the
+// tile to dvb [B, ceil(S / 64), V].
+struct LexPass {
+  const float* vb;       // [V]
+  const float* nbv;      // [B, S]
+  float* part_m;         // [strips, B, S]
+  float* part_l;
+  const int* rows;       // the frame's live rows first
+  Pairs pairs;
+  const float* log_z;    // [B]
+  const float* g;        // [B]
+  bf16* d_lex;
+  float* dvb;
+  int B, S, hp, V, Vp;
+};
+
+// Epilogue scratch: the strip's vb and nbv[1 + y] (and each pair's
+// nb_p[1 + y] when their count is known), and for the last reduction per
+// consumer warp a row of kBN column sums.
+template <int NPairs>
+constexpr int lex_pass_extra() {
+  return ((2 + (NPairs > 0 ? NPairs : 0)) * kBN +
+          (NPairs != 0 ? 4 * kBN : 0)) * 4;
+}
+
+// NPairs > 0: the last reduction with that many (a_p, nb_p) pairs, known
+// at compile time (FD, FLD(1): 1; FLD(2): 2); -1: the last reduction with
+// pairs.n of them; 0: an earlier reduction. Grid (live rows * ceil(S /
+// 64), ceil(Vp / 128)).
+template <int NPairs>
+__global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
+    lex_pass_kernel(const __grid_constant__ Maps maps, const LexPass p) {
+  constexpr bool Last = NPairs != 0;
+  extern __shared__ uint8_t raw[];
+  const Ring<4> ring(raw);
+  const int row_tiles = cdiv(p.S, 64);
+  const int b = p.rows[blockIdx.x / row_tiles];
+  const int s0 = blockIdx.x % row_tiles * 64, n0 = blockIdx.y * kBN;
+  const size_t row0 = static_cast<size_t>(b) * p.S;
+  if (ring.producer()) {
+    produce(ring, p.hp / kBK, [&](int q, uint8_t* a, uint8_t* bt,
+                                  uint64_t* bar) {
+      tma_load(a, maps.joint, q * kBK, s0, b, bar);
+      tma_load(bt, maps.vw, n0, q * kBK, bar);
+      tma_load(bt + wgmma_tiles::kBox, maps.vw, n0 + 64, q * kBK, bar);
+    });
+    return;
+  }
+  // The strip's per-label operands, staged under the first products.
+  constexpr int kP = NPairs > 0 ? NPairs : 1;
+  float* vb = reinterpret_cast<float*>(ring.extra);  // [kBN]
+  float* nbv = vb + kBN;                             // [kBN]
+  float* nbq = nbv + kBN;                            // [NPairs][kBN]
+  float* red = nbq + (NPairs > 0 ? NPairs : 0) * kBN;  // [warps][kBN]
+  {
+    const int t = threadIdx.x, y = n0 + t;
+    const bool in = y < p.V;
+    vb[t] = in ? p.vb[y] : 0.f;
+    nbv[t] = in ? p.nbv[row0 + 1 + y] : -INFINITY;
+    if constexpr (NPairs > 0) {
+#pragma unroll
+      for (int q = 0; q < kP; ++q) {
+        nbq[q * kBN + t] = in ? p.pairs.nb[q][row0 + 1 + y] : 0.f;
+      }
+    }
+  }
+  named_barrier(1, wgmma_tiles::kConsumers);
+  float d[64];
+  consume<false, true>(ring, 1, p.hp / kBK, d, [](int, float(&)[64]) {});
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int srow[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) srow[half] = s0 + acc_row(half * 2);
+  // d becomes lex (the entries past S or V are never read).
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float bias = vb[j * 8 + (lane % 4) * 2 + e];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) d[j * 4 + half * 2 + e] += bias;
+    }
+  }
+  // The strip's (max, sum) per state; the 4 lanes of a row share it.
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int y = n0 + j * 8 + (lane % 4) * 2 + e;
+      if (y < p.V) {
+        const float nb = nbv[y - n0];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          m[half] = fmaxf(m[half], d[j * 4 + half * 2 + e] + nb);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    for (int o = 1; o < 4; o <<= 1) {
+      m[half] = fmaxf(m[half], __shfl_xor_sync(0xffffffffu, m[half], o));
+    }
+  }
+  const float lz = Last ? p.log_z[b] : 0.f, gb = Last ? p.g[b] : 0.f;
+  // Stores the marginals dv of the thread's 2 x 2 entries of column group j
+  // (rounded) to d_lex and their column sums to red.
+  auto put_marginals = [&](int j, const float (&dv)[2][2]) {
+    const int y0 = n0 + j * 8 + (lane % 4) * 2;
+    float cs[2] = {dv[0][0] + dv[1][0], dv[0][1] + dv[1][1]};
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int s = srow[half];
+      if (s < p.S && y0 < p.Vp) {
+        *reinterpret_cast<__nv_bfloat162*>(p.d_lex + (row0 + s) * p.Vp + y0) =
+            __floats2bfloat162_rn(dv[half][0], dv[half][1]);
+      }
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], o);
+      }
+    }
+    if (lane < 4) {
+      red[warp * kBN + j * 8 + lane * 2] = cs[0];
+      red[warp * kBN + j * 8 + lane * 2 + 1] = cs[1];
+    }
+  };
+  if constexpr (NPairs > 0) {
+    // The row sums and the marginals in one pass. Pair 0's nb is nbv, so
+    // its term exp(a_0 + lex + nb_0 - log_z) is the row sum's exp(lex + nbv
+    // - m) times exp(a_0 - log_z + m), at most about 1 (an arc's
+    // posterior).
+    float arow[kP][2], f0[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+#pragma unroll
+      for (int q = 0; q < kP; ++q) {
+        arow[q][half] = srow[half] < p.S
+                            ? p.pairs.a[q][row0 + srow[half]] - lz
+                            : -INFINITY;
+      }
+      f0[half] = expf(arow[0][half] + safe_shift(m[half]));
+    }
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      float dv[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = j * 8 + (lane % 4) * 2 + e, y = n0 + c;
+        float nbq_y[kP];
+#pragma unroll
+        for (int q = 1; q < kP; ++q) nbq_y[q] = nbq[q * kBN + c];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float v = 0.f;
+          if (srow[half] < p.S && y < p.V) {
+            const float x = d[j * 4 + half * 2 + e];
+            const float row = expf(x + nbv[c] - safe_shift(m[half]));
+            l[half] += row;
+            float total = row * f0[half];
+#pragma unroll
+            for (int q = 1; q < kP; ++q) {
+              total += expf(arow[q][half] + x + nbq_y[q]);
+            }
+            v = __bfloat162float(__float2bfloat16(gb * total));
+          }
+          dv[half][e] = v;
+        }
+      }
+      put_marginals(j, dv);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int y = n0 + j * 8 + (lane % 4) * 2 + e;
+        if (y < p.V) {
+          const float nb = nbv[y - n0];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            l[half] += expf(d[j * 4 + half * 2 + e] + nb - safe_shift(m[half]));
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    for (int o = 1; o < 4; o <<= 1) {
+      l[half] += __shfl_xor_sync(0xffffffffu, l[half], o);
+    }
+    const int s = srow[half];
+    if (lane % 4 == 0 && s < p.S) {
+      const size_t at = (static_cast<size_t>(blockIdx.y) * p.B + b) * p.S + s;
+      p.part_m[at] = m[half];
+      p.part_l[at] = l[half];
+    }
+  }
+  if constexpr (NPairs < 0) {  // the marginals, any number of pairs
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      float dv[2][2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int y = n0 + j * 8 + (lane % 4) * 2 + e;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int s = srow[half];
+          float v = 0.f;
+          if (s < p.S && y < p.V) {
+            const float x = d[j * 4 + half * 2 + e] - lz;
+            float total = 0.f;
+            for (int q = 0; q < p.pairs.n; ++q) {
+              total += expf(p.pairs.a[q][row0 + s] + x +
+                            p.pairs.nb[q][row0 + 1 + y]);
+            }
+            v = __bfloat162float(__float2bfloat16(gb * total));
+          }
+          dv[half][e] = v;
+        }
+      }
+      put_marginals(j, dv);
+    }
+  }
+  if constexpr (Last) {
+    named_barrier(1, wgmma_tiles::kConsumers);
+    const int t = threadIdx.x, y = n0 + t;
+    if (y < p.V) {
+      float total = 0.f;
+#pragma unroll
+      for (int w = 0; w < 4; ++w) total += red[w * kBN + t];
+      p.dvb[(static_cast<size_t>(b) * row_tiles + s0 / 64) * p.V + y] +=
+          total;
+    }
+  }
+}
+
+template <int NPairs>
+cudaError_t launch_lex_pass(const Maps& maps, const LexPass& p, int live,
+                            cudaStream_t stream) {
+  constexpr int kSmem = smem_bytes(4, lex_pass_extra<NPairs>());
+  const cudaError_t err = allow_smem<lex_pass_kernel<NPairs>>(kSmem);
+  if (err != cudaSuccess) return err;
+  lex_pass_kernel<NPairs>
+      <<<dim3(live * cdiv(p.S, 64), cdiv(p.Vp, kBN)), wgmma_tiles::kThreads,
+         kSmem, stream>>>(maps, p);
+  return cudaGetLastError();
+}
+
+#define RETURN_IF_ERROR(expr)                               \
+  do {                                                      \
+    const cudaError_t err = (expr);                         \
+    if (err != cudaSuccess) return static_cast<int>(err);   \
+  } while (0)
+
+// The frame loop. Per frame t with live[t] > 0 rows (their indices first in
+// rows[t]): the joint and blank (joint_blank_kernel, rows hp apart), the k
+// row reductions (lex_pass_kernel, the last one with the marginals), each
+// merged by row_merge_kernel, then the two gradient products over the live
+// rows (head_grads.cuh) and the frame's d(pf). A frame with no live row
+// only holds beta. Then the sums of the cross-frame partials.
+int run_backward(const float* pf, const float* pc, const bf16* vw,
+                 const float* vb, const bf16* bw, const float* bw32,
+                 const float* bb, const int* is_pad, const float* log_z,
+                 const float* g, const float* hist, const float* slabs,
+                 bf16* joint, float* joint32, float* blank, bf16* d_lex,
+                 float* d_blank, float* part_m, float* part_l, float* nb,
+                 float* beta, float* dpf, float* dpf_part, float* dpc_acc,
+                 float* dvw_acc, float* dvb_acc, float* dbw_acc,
+                 float* dbb_acc, float* dpc, float* dvw, float* dvb,
+                 float* dbw, float* dbb, int T, int B, int S, int h, int V,
+                 int max_expansions, int frame_dependent, int ksplits,
+                 int dsplits, const int* live, const int* rows,
+                 cudaStream_t stream) {
+  const int k = frame_dependent ? 0 : max_expansions;
+  const int passes = frame_dependent ? 1 : max_expansions;
+  if (passes < 1 || k + 1 > kMaxAlphas || ksplits < 1 || dsplits < 1 ||
+      (T > 0 && live == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int hp = round_up(h, kBK), Vp = round_up(V, kBK);
+  const int strips = cdiv(Vp, kBN), t64 = cdiv(S, 64);
+  const size_t bs = static_cast<size_t>(B) * S;
+  Maps maps;
+  if (B > 0 && S > 0) {
+    RETURN_IF_ERROR(make_maps(&maps, joint, d_lex, vw, B, S, hp, Vp));
+  }
+  for (int n = 0; n < T; ++n) {
+    const int t = T - 1 - n, L = live[t];
+    const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
+    const int* rows_t = rows + static_cast<size_t>(t) * B;
+    const float* pf_t = pf + static_cast<size_t>(t) * B * h;
+    const float* beta_cur = beta + (n % 2) * bs;
+    float* beta_next = beta + ((n + 1) % 2) * bs;
+    if (L > 0) {
+      joint_blank_kernel<bf16><<<dim3(S, B), kJointThreads, 0, stream>>>(
+          pf_t, is_pad_t, pc, bw, bb, beta_cur,
+          k >= 1 ? nb + (k - 1) * bs : nullptr, joint, joint32, blank, S, h,
+          hp, 0);
+      RETURN_IF_ERROR(cudaGetLastError());
+    }
+    Alphas alphas;
+    alphas.n = 1 + k;
+    alphas.a[0] = hist + t * bs;
+    for (int j = 0; j < k; ++j) {
+      alphas.a[1 + j] = slabs + (static_cast<size_t>(j) * T + t) * bs;
+    }
+    Pairs pairs;
+    pairs.n = passes;
+    for (int j = 0; j < passes; ++j) {
+      pairs.a[j] = alphas.a[j];
+      pairs.nb[j] = frame_dependent ? beta_cur : nb + j * bs;
+    }
+    for (int p = 0; p < passes; ++p) {
+      const bool last = p == passes - 1;
+      if (L > 0) {
+        const LexPass lp{vb,
+                         frame_dependent ? beta_cur : nb + (k - 1 - p) * bs,
+                         part_m, part_l, rows_t, pairs, log_z, g, d_lex,
+                         dvb_acc, B, S, hp, V, Vp};
+        RETURN_IF_ERROR(
+            !last ? launch_lex_pass<0>(maps, lp, L, stream)
+            : passes == 1 ? launch_lex_pass<1>(maps, lp, L, stream)
+            : passes == 2 ? launch_lex_pass<2>(maps, lp, L, stream)
+                          : launch_lex_pass<-1>(maps, lp, L, stream));
+      }
+      row_merge_kernel<<<blocks_for(bs), kPointThreads, 0, stream>>>(
+          part_m, part_l, L > 0 ? strips : 0, is_pad_t, blank, beta_cur,
+          last ? beta_next : nb + (k - 2 - p) * bs, last, alphas, log_z, g,
+          d_blank, dbb_acc, B, S);
+      RETURN_IF_ERROR(cudaGetLastError());
+    }
+    if (L > 0) {
+      RETURN_IF_ERROR(launch_head_grad(
+          maps, HeadGrad{rows_t, dvw_acc, L, S, h, V, 1}, hp, Vp, ksplits,
+          stream));
+      RETURN_IF_ERROR(launch_joint_grad(
+          maps,
+          JointGrad{bw32, d_blank, joint32, rows_t, dpf_part, dbw_acc,
+                    dpc_acc, L, B, S, h, Vp, 1},
+          hp, std::min(dsplits, L), stream));
+    }
+    dpf_reduce_kernel<<<blocks_for(static_cast<size_t>(B) * h), kPointThreads,
+                        0, stream>>>(dpf_part, is_pad_t,
+                                     dpf + static_cast<size_t>(t) * B * h, B,
+                                     h, t64);
+    RETURN_IF_ERROR(cudaGetLastError());
+  }
+  const Sums sums{{{dpc_acc, dsplits, S * h, dpc},
+                   {dvw_acc, ksplits, h * V, dvw},
+                   {dvb_acc, B * t64, V, dvb},
+                   {dbw_acc, B * t64, h, dbw},
+                   {dbb_acc, B * S, 1, dbb}},
+                  5};
+  RETURN_IF_ERROR(launch_sums(sums, stream));
+  return 0;
+}
+
+#undef RETURN_IF_ERROR
+
+}  // namespace hopper
 
 template <typename T, bool TRI>
 int run_backward(const float* pf, const float* pc, const T* vw,
@@ -1233,8 +1645,22 @@ int backward_entry(int dtype, const float* pf, const float* pc,
                    float* dvb, float* dbw, float* dbb, int num_frames, int B,
                    int S, int h, int V, int max_expansions,
                    int frame_dependent, int online, int chunk_states,
-                   int max_ysplits, int max_ksplits, void* stream) {
+                   int max_ysplits, int max_ksplits, const int* live,
+                   const int* rows, int dsplits, float* joint32,
+                   void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int passes = frame_dependent ? 1 : max_expansions;
+  if (!TRI && dtype == 1 && !online && passes >= 1) {
+    using hopper::bf16;
+    return hopper::run_backward(
+        pf, pc, static_cast<const bf16*>(vw), vb,
+        static_cast<const bf16*>(bw), bw32, bb, is_pad, log_z, g, hist,
+        slabs, static_cast<bf16*>(joint), joint32, blank,
+        static_cast<bf16*>(d_lex), d_blank, part_m, part_l, nb, beta, dpf,
+        dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc, dvw, dvb,
+        dbw, dbb, num_frames, B, S, h, V, max_expansions, frame_dependent,
+        max_ksplits, dsplits, live, rows, s);
+  }
   if (dtype == 0) {
     return run_backward<float, TRI>(
         pf, pc, static_cast<const float*>(vw), vb,
@@ -1308,6 +1734,15 @@ int fused_forward(int dtype, const float* pf, const float* pc, const void* vw,
 // [max_ksplits, h, V], dvb_acc [B, ceil(S/64), V], dbw_acc [B, ceil(S/64),
 // h], dbb_acc [B, S]; outputs dpf [T, B, h], dpc [S, h], dvw [h, V], dvb
 // [V], dbw [h], dbb [1].
+// In bfloat16, 'cache' mode, FD or FLD(k >= 1), the frames run on the
+// wgmma kernels of `hopper` over their live rows: live [T] (host memory)
+// counts each frame's real rows and rows [T, B] (device) lists them first.
+// Then vw and joint are padded: vw [hp, Vp], joint [B, S, hp] (hp, Vp: h and
+// V rounded up to 64, vw's padding zero), with joint32 [B, S, h] (float32)
+// beside it; d_lex is [B, S, Vp]; part_m / part_l are [ceil(Vp / 128), B,
+// S]; dpc_acc is [dsplits, S, h] and dvw_acc [max_ksplits, h, V], every
+// split used; lex is not used (each row reduction recomputes the head
+// product) and may be null. Elsewhere live, rows and joint32 may be null.
 int fused_backward(int dtype, const float* pf, const float* pc,
                    const void* vw, const float* vb, const void* bw,
                    const float* bw32, const float* bb, const int* is_pad,
@@ -1320,13 +1755,16 @@ int fused_backward(int dtype, const float* pf, const float* pc,
                    float* dvb, float* dbw, float* dbb, int num_frames, int B,
                    int S, int h, int V, int max_expansions,
                    int frame_dependent, int online, int chunk_states,
-                   int max_ysplits, int max_ksplits, void* stream) {
+                   int max_ysplits, int max_ksplits, const int* live,
+                   const int* rows, int dsplits, float* joint32,
+                   void* stream) {
   return backward_entry<false>(
       dtype, pf, pc, vw, vb, bw, bw32, bb, is_pad, log_z, g, hist, slabs,
       joint, blank, lex, d_lex, d_blank, part_m, part_l, nb, beta, dpf,
       dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc, dvw, dvb,
       dbw, dbb, num_frames, B, S, h, V, max_expansions, frame_dependent,
-      online, chunk_states, max_ysplits, max_ksplits, stream);
+      online, chunk_states, max_ysplits, max_ksplits, live, rows, dsplits,
+      joint32, stream);
 }
 
 // The trigram forward (FullNGram(2), S = 1 + V + V^2) on `stream`; returns
@@ -1379,7 +1817,7 @@ int trigram_backward(int dtype, const float* pf, const float* pc,
       joint, blank, lex, d_lex, d_blank, part_m, part_l, nb, beta, dpf,
       dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc, dvw, dvb,
       dbw, dbb, num_frames, B, S, h, V, max_expansions, frame_dependent, 0, S,
-      max_ysplits, max_ksplits, stream);
+      max_ysplits, max_ksplits, nullptr, nullptr, 0, nullptr, stream);
 }
 
 // Runs the marginals' reverse scan on `stream`; returns the first launch

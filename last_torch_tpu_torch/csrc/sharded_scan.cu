@@ -46,36 +46,50 @@
 // backward three (lex again, d_joint, d_vw); the inputs and outputs are
 // O(B S + S h + h Vl), about 3 MB there, so the products bound both:
 // bfloat16 on the tensor cores (989 TFLOP/s peak), float32, kept for exact
-// comparison with the plain versions, on the CUDA cores (67 TFLOP/s).
+// comparison with the plain versions, on the CUDA cores (67 TFLOP/s). A
+// tensor-parallel step launches each 3200 times, so a call's few launches
+// and its host work count too.
 //
 // What the design does about it:
 // * The [B, S, h] joint and the [B, S, Vl] lex never reach device memory in
 //   the forward: joint_tiles.cuh's products form tanh(pc + pf) as they stage
 //   it, and each block folds its lex tile into an online (max, sum) per
 //   (b, y) at once.
-// * Blocks run over (batch row, state tile, label strip): a state tile (128
-//   states in bfloat16, 64 in float32) lies in one batch row, so its
-//   (max, sum) is a partial of red[b, y]. Splitting S over blocks fills the
-//   card where B and Vl alone do not (8 rows x 8 strips of 128 labels at the
-//   headline shape); a second launch merges the partials, with no atomics.
-//   The blocks of the first strip also write the blank head from the staged
-//   joint.
-// * The backward recomputes each lex tile and writes d_lex (float32 scratch
-//   holding compute-type values, [B, S, Vl]); d_vec, d_vb and d_bb are
-//   reductions of it and of d_blank, and the rest is joint_tiles.cuh's
-//   joint_backward over d_lex with the blank terms unrounded (the joint+head
-//   backward's design: the d_joint product over the flattened B S rows, one
-//   wave, and d_vw split over as many blocks as one wave holds).
+// * Forward blocks run over (batch row, state tile, label strip): a state
+//   tile (128 states in bfloat16, 64 in float32) lies in one batch row, so
+//   its (max, sum) is a partial of red[b, y]. Splitting S over blocks fills
+//   the card where B and Vl alone do not (8 rows x 8 strips of 128 labels
+//   at the headline shape); a second launch merges the partials, with no
+//   atomics. The blocks of the first strip also write the blank head from
+//   the staged joint.
+// * The bfloat16 backward (namespace hopper) runs its three products on
+//   wgmma (wgmma_tiles.cuh: TMA into a 4-stage mbarrier ring, two blocks an
+//   SM). stage_kernel writes the bfloat16 joint and head once (padded to
+//   multiples of 64) and the float32 joint; lex_grad_kernel recomputes lex
+//   per (row, 64-state tile, 128-label strip) and in its epilogue writes
+//   d_lex once, in bfloat16 (its values are rounded to bfloat16 anyway),
+//   with its row sums (d_vec) and column sums (d_vb) as one partial per
+//   block, and the d_blank sums (d_bb); head_grads.cuh's two products then
+//   read d_lex once each (d_joint with the tanh derivative and the unrounded
+//   float32 blank terms in its epilogue, d_pc kept in registers across the
+//   rows of a block; d_vw split over the (row, state) depth), and one launch
+//   sums every partial. Five launches, one workspace allocation. At Vl=256
+//   (one of 4 shards) the grid is 8 x 17 x 2 blocks of 64 x 128: still more
+//   than a block per SM. d_joint does not share the d_lex block: holding a
+//   state tile's [64, h] d_joint beside its lex strip needs more registers
+//   than two blocks an SM leave.
+// * The float32 backward recomputes each lex tile on the CUDA cores into a
+//   float32 d_lex, reduced by small launches and joint_tiles.cuh's
+//   joint_backward.
 // * The TPU kernel's tile-major [NV, h, Vt] / [NS, Bt, s_tile] layouts, its
 //   fori_loop spill workarounds, the 128-lane alignment of S and Vl and its
 //   VMEM limit are not needed: the kernels take any B, S, h and Vl.
-// Keeping d_lex on chip (fusing the backward's three products), wgmma and
-// TMA are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "head_grads.cuh"
 #include "joint_tiles.cuh"
 
 namespace {
@@ -322,31 +336,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <bool Vec>
-__global__ void __launch_bounds__(kThreads, 2)
-    lex_grad_bf16_kernel(const float* __restrict__ vec, const float* __restrict__ pc,
-                         const float* __restrict__ pf, const float* __restrict__ vw,
-                         const float* __restrict__ vb, const float* __restrict__ red,
-                         const float* __restrict__ d_red,
-                         float* __restrict__ d_lex, int B, int S, int h, int V) {
-  __shared__ __align__(128) __nv_bfloat16 smem[kSmemBytes / 2];
-  __shared__ size_t pc_off[kHM], pf_off[kHM];
-  const TileBf16 t(S, h, pc_off, pf_off);
-  Tile128 acc;
-  zero(acc);
-  mainloop<false, false, Vec>(
-      acc, JointRows{{}, pc, pf, pc_off, pf_off, t.rows},
-      HeadCols{{}, vw, V, t.n0}, 0, h, smem, NoHook{});
-  const size_t row0 = static_cast<size_t>(t.b) * S + t.s0;
-  drain(acc, smem, [&](int r, int c, float v, int) {
-    const int y = t.n0 + c;
-    if (r >= t.rows || y >= V) return;
-    const size_t by = static_cast<size_t>(t.b) * V + y;
-    d_lex[(row0 + r) * V + y] =
-        lex_cotangent<true>(vec[row0 + r], v + vb[y], red[by], d_red[by]);
-  });
-}
-
 // ---------------------------------------------------------------------------
 // Merges and reductions.
 
@@ -398,6 +387,257 @@ inline int row_blocks(int rows) {
   return (rows + kPointThreads / 32 - 1) / (kPointThreads / 32);
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 backward: wgmma products (wgmma_tiles.cuh, head_grads.cuh).
+
+namespace hopper {
+
+using namespace head_grads;
+using wgmma_tiles::kBK;
+using wgmma_tiles::kBN;
+
+// The products' operands in bfloat16, padded with zeros: joint [B, S, hp] =
+// tanh(pc[s] + pf[b]) and vw16 [hp, Vp]; and joint32 [B, S, h], the float32
+// tanh. Grid (ceil(max(hp, Vp) / 512), B S + hp): blockIdx.y is a joint
+// row (b S + s) or, past them, a row of the head; a thread writes one
+// bfloat16 pair.
+__global__ void __launch_bounds__(kSumThreads)
+    stage_kernel(const float* __restrict__ pc, const float* __restrict__ pf,
+                 const float* __restrict__ vw, bf16* __restrict__ joint,
+                 float* __restrict__ joint32, bf16* __restrict__ vw16, int B,
+                 int S, int h, int hp, int V, int Vp) {
+  const int row = blockIdx.y;
+  const int k = (blockIdx.x * kSumThreads + threadIdx.x) * 2;
+  float x[2];
+  if (row < B * S) {
+    if (k >= hp) return;
+    const float* pc_s = pc + static_cast<size_t>(row % S) * h;
+    const float* pf_b = pf + static_cast<size_t>(row / S) * h;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      x[e] = k + e < h ? tanhf(pc_s[k + e] + pf_b[k + e]) : 0.f;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(joint + static_cast<size_t>(row) * hp +
+                                       k) = __floats2bfloat162_rn(x[0], x[1]);
+    float* out32 = joint32 + static_cast<size_t>(row) * h + k;
+    if (k + 1 < h && h % 2 == 0) {
+      *reinterpret_cast<float2*>(out32) = make_float2(x[0], x[1]);
+    } else {
+      for (int e = 0; e < 2 && k + e < h; ++e) out32[e] = x[e];
+    }
+  } else {
+    const int hh = row - B * S;
+    if (k >= Vp) return;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      x[e] = hh < h && k + e < V ? vw[static_cast<size_t>(hh) * V + k + e]
+                                 : 0.f;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(vw16 + static_cast<size_t>(hh) * Vp +
+                                       k) = __floats2bfloat162_rn(x[0], x[1]);
+  }
+}
+
+// The lexical cotangent of a (batch row, 64-state tile, 128-label strip):
+// lex on wgmma (A = joint, K-major; B = vw16, MN-major) plus vb, then d_lex
+// = T(d_red exp(min(vec + lex - safe red, 60))) into d_lex [B, S, Vp] (zero
+// past V), its sums over the strip into dvec_part [strips, B, S] and over
+// the tile into dvb_part [B ceil(S / 64), V]; the first strip's blocks
+// also sum d_blank over their tile into dbb_part [B ceil(S / 64)].
+struct LexGrad {
+  const float* vb;       // [V]
+  const float* vec;      // [B, S]
+  const float* red;      // [B, V]
+  const float* d_red;    // [B, V]
+  const float* d_blank;  // [B, S]
+  bf16* d_lex;
+  float* dvec_part;
+  float* dvb_part;
+  float* dbb_part;
+  int B, S, hp, V, Vp;
+};
+
+// Epilogue scratch: the strip's vb, red and d_red, and per consumer warp a
+// row of kBN column sums.
+constexpr int kLexGradExtra = 7 * kBN * 4;
+
+// Grid (B * ceil(S / 64), ceil(Vp / 128)).
+__global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
+    lex_grad_kernel(const __grid_constant__ Maps maps, const LexGrad p) {
+  extern __shared__ uint8_t raw[];
+  const Ring<4> ring(raw);
+  const int row_tiles = cdiv(p.S, 64);
+  const int b = blockIdx.x / row_tiles, tile = blockIdx.x % row_tiles;
+  const int s0 = tile * 64, n0 = blockIdx.y * kBN;
+  const size_t row0 = static_cast<size_t>(b) * p.S;
+  if (ring.producer()) {
+    produce(ring, p.hp / kBK, [&](int q, uint8_t* a, uint8_t* bt,
+                                  uint64_t* bar) {
+      tma_load(a, maps.joint, q * kBK, s0, b, bar);
+      tma_load(bt, maps.vw, n0, q * kBK, bar);
+      tma_load(bt + wgmma_tiles::kBox, maps.vw, n0 + 64, q * kBK, bar);
+    });
+    return;
+  }
+  // The strip's per-label operands, staged under the first products.
+  float* vb = reinterpret_cast<float*>(ring.extra);  // [kBN]
+  float* rd = vb + kBN;                              // [kBN]
+  float* drd = rd + kBN;                             // [kBN]
+  float* red = drd + kBN;                            // [warps][kBN]
+  {
+    const int t = threadIdx.x, y = n0 + t;
+    const bool in = y < p.V;
+    const size_t by = static_cast<size_t>(b) * p.V + y;
+    vb[t] = in ? p.vb[y] : 0.f;
+    rd[t] = in ? p.red[by] : 0.f;
+    drd[t] = in ? p.d_red[by] : 0.f;
+  }
+  named_barrier(1, wgmma_tiles::kConsumers);
+  float d[64];
+  consume<false, true>(ring, 1, p.hp / kBK, d, [](int, float(&)[64]) {});
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  int srow[2];
+  float vec[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    srow[half] = s0 + acc_row(half * 2);
+    vec[half] = srow[half] < p.S ? p.vec[row0 + srow[half]] : -INFINITY;
+  }
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int y0 = n0 + j * 8 + (lane % 4) * 2;
+    float dv[2][2], cs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int y = y0 + e;
+      const bool in = y < p.V;
+      const float bias = vb[y - n0], r = rd[y - n0], dr = drd[y - n0];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const float v =
+            in && srow[half] < p.S
+                ? lex_cotangent<true>(vec[half], d[j * 4 + half * 2 + e] + bias,
+                                      r, dr)
+                : 0.f;
+        dv[half][e] = v;
+        cs[e] += v;
+        rs[half] += v;
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      if (srow[half] < p.S && y0 < p.Vp) {
+        *reinterpret_cast<__nv_bfloat162*>(p.d_lex + (row0 + srow[half]) *
+                                                         p.Vp + y0) =
+            __floats2bfloat162_rn(dv[half][0], dv[half][1]);
+      }
+    }
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], o);
+      }
+    }
+    if (lane < 4) {
+      red[warp * kBN + j * 8 + lane * 2] = cs[0];
+      red[warp * kBN + j * 8 + lane * 2 + 1] = cs[1];
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    for (int o = 1; o < 4; o <<= 1) {
+      rs[half] += __shfl_xor_sync(0xffffffffu, rs[half], o);
+    }
+    if (lane % 4 == 0 && srow[half] < p.S) {
+      p.dvec_part[(static_cast<size_t>(blockIdx.y) * p.B + b) * p.S +
+                  srow[half]] = rs[half];
+    }
+  }
+  named_barrier(1, wgmma_tiles::kConsumers);
+  const int t = threadIdx.x, y = n0 + t;
+  if (y < p.V) {
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) total += red[w * kBN + t];
+    p.dvb_part[(static_cast<size_t>(b) * row_tiles + tile) * p.V + y] = total;
+  }
+  if (blockIdx.y == 0 && t < 32) {
+    const int s = s0 + t;
+    float total = (s < p.S ? p.d_blank[row0 + s] : 0.f) +
+                  (s + 32 < p.S ? p.d_blank[row0 + s + 32] : 0.f);
+    for (int o = 16; o > 0; o >>= 1) {
+      total += __shfl_xor_sync(0xffffffffu, total, o);
+    }
+    if (t == 0) p.dbb_part[static_cast<size_t>(b) * row_tiles + tile] = total;
+  }
+}
+
+// The bfloat16 backward: the operands staged, the cotangent product, the
+// two gradient products of head_grads.cuh (rows 0..B-1 all live, partials
+// written, not added) and one launch of the sums. Sizes as
+// frame_reduce_backward's.
+int backward(const float* vec, const float* pf, const float* pc,
+             const float* vw, const float* vb, const float* bw,
+             const float* red, const float* d_red, const float* d_blank,
+             bf16* d_lex, float* dvb_part, float* dpf_part, float* dbw_part,
+             float* dpc_part, float* dw_part, float* d_vec, float* d_pf,
+             float* d_pc, float* d_vw, float* d_vb, float* d_bw, float* d_bb,
+             bf16* joint, float* joint32, bf16* vw16, float* dvec_part,
+             float* dbb_part, int B, int S, int h, int V, int splits,
+             int dsplits, cudaStream_t s) {
+  if (splits < 1 || dsplits < 1 || dsplits > std::max(B, 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (B == 0 || S == 0) {  // no rows: every gradient is zero
+    const struct {
+      float* out;
+      int n;
+    } outs[] = {{d_pf, B * h}, {d_pc, S * h}, {d_vw, h * V},
+                {d_vb, V},     {d_bw, h},     {d_bb, 1}};
+    for (const auto& out : outs) {
+      RETURN_IF_FAILED(cudaMemsetAsync(out.out, 0, out.n * sizeof(float), s));
+    }
+    return 0;
+  }
+  const int hp = round_up(h, kBK), Vp = round_up(V, kBK);
+  const int strips = cdiv(Vp, kBN), t64 = cdiv(S, 64);
+  stage_kernel<<<dim3(cdiv(std::max(hp, Vp), 2 * kSumThreads), B * S + hp),
+                 kSumThreads, 0, s>>>(pc, pf, vw, joint, joint32, vw16, B, S,
+                                      h, hp, V, Vp);
+  RETURN_IF_LAUNCH_FAILED();
+  Maps maps;
+  RETURN_IF_FAILED(make_maps(&maps, joint, d_lex, vw16, B, S, hp, Vp));
+  constexpr int kSmem = smem_bytes(4, kLexGradExtra);
+  RETURN_IF_FAILED(allow_smem<lex_grad_kernel>(kSmem));
+  lex_grad_kernel<<<dim3(B * t64, strips), wgmma_tiles::kThreads, kSmem, s>>>(
+      maps, LexGrad{vb, vec, red, d_red, d_blank, d_lex, dvec_part, dvb_part,
+                    dbb_part, B, S, hp, V, Vp});
+  RETURN_IF_LAUNCH_FAILED();
+  RETURN_IF_FAILED(launch_joint_grad(
+      maps,
+      JointGrad{bw, d_blank, joint32, nullptr, dpf_part, dbw_part, dpc_part,
+                B, B, S, h, Vp, 0},
+      hp, dsplits, s));
+  RETURN_IF_FAILED(launch_head_grad(
+      maps, HeadGrad{nullptr, dw_part, B, S, h, V, 0}, hp, Vp, splits, s));
+  Sums sums{};
+  const auto add = [&](const float* in, int rows, int n, float* out) {
+    sums.job[sums.count++] = {in, rows, n, out};
+  };
+  add(dvec_part, strips, B * S, d_vec);
+  add(dvb_part, B * t64, V, d_vb);
+  add(dbb_part, B * t64, 1, d_bb);
+  add(dpf_part, t64, B * h, d_pf);
+  add(dbw_part, B * t64, h, d_bw);
+  add(dpc_part, dsplits, S * h, d_pc);
+  add(dw_part, splits, h * V, d_vw);
+  RETURN_IF_FAILED(launch_sums(sums, s));
+  return 0;
+}
+
+}  // namespace hopper
+
 }  // namespace
 
 extern "C" {
@@ -442,40 +682,52 @@ int frame_reduce_forward(int dtype, const float* vec, const float* pf,
 // The backward on `stream`; returns the first error. Inputs as the forward's
 // and red [B, V] (its output), d_red [B, V], d_blank [B, S]; outputs d_vec
 // [B, S], d_pf [B, h], d_pc [S, h], d_vw [h, V], d_vb [V], d_bw [h], d_bb
-// [1]. Scratch (float32): d_lex [B, S, V], dvb_part [ceil(B S / 64), V], and
-// joint_backward's (joint_tiles.cuh): dpf_part, dbw_part, dpc_part, dw_part
-// with `splits`. V >= 1.
+// [1]. V >= 1. Scratch (hp, Vp: h and V rounded up to 64, t64 = ceil(S /
+// 64)):
+//   float32 (dtype 0): d_lex float32 [B, S, V], dvb_part [ceil(B S / 64),
+//     V], and joint_backward's (joint_tiles.cuh) dpf_part, dbw_part,
+//     dpc_part, dw_part with `splits`; the rest unused.
+//   bfloat16 (dtype 1): d_lex bfloat16 [B, S, Vp], joint bfloat16 [B, S,
+//     hp], joint32 float32 [B, S, h], vw16 bfloat16 [hp, Vp], dvec_part
+//     [ceil(Vp / 128), B, S], dvb_part [B t64, V], dbb_part [B t64],
+//     dpf_part [t64, B, h], dbw_part [B t64, h], dpc_part [dsplits, S, h]
+//     (1 <= dsplits <= B), dw_part [splits, h, V].
 int frame_reduce_backward(int dtype, const float* vec, const float* pf,
                           const float* pc, const float* vw, const float* vb,
                           const float* bw, const float* red,
                           const float* d_red, const float* d_blank,
-                          float* d_lex, float* dvb_part, float* dpf_part,
+                          void* d_lex, float* dvb_part, float* dpf_part,
                           float* dbw_part, float* dpc_part, float* dw_part,
                           float* d_vec, float* d_pf, float* d_pc, float* d_vw,
-                          float* d_vb, float* d_bw, float* d_bb, int B, int S,
-                          int h, int V, int splits, void* stream) {
+                          float* d_vb, float* d_bw, float* d_bb, void* joint,
+                          float* joint32, void* vw16, float* dvec_part,
+                          float* dbb_part, int B, int S, int h, int V,
+                          int splits, int dsplits, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((dtype != 0 && dtype != 1) || V < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (dtype == 1) {
+    using hopper::bf16;
+    return hopper::backward(
+        vec, pf, pc, vw, vb, bw, red, d_red, d_blank,
+        static_cast<bf16*>(d_lex), dvb_part, dpf_part, dbw_part, dpc_part,
+        dw_part, d_vec, d_pf, d_pc, d_vw, d_vb, d_bw, d_bb,
+        static_cast<bf16*>(joint), joint32, static_cast<bf16*>(vw16),
+        dvec_part, dbb_part, B, S, h, V, splits, dsplits, s);
+  }
+  float* d_lex32 = static_cast<float*>(d_lex);
   const int M = B * S;
   if (M > 0) {
-    if (dtype == 0) {
-      lex_grad_f32_kernel<<<dim3(B * tiles(S, kBM), tiles(V, kBN)), kThreads,
-                            0, s>>>(vec, pc, pf, vw, vb, red, d_red, d_lex, B,
-                                    S, h, V);
-    } else {
-      const auto kernel = vector_path(h, V, {pc, pf, vw})
-                              ? lex_grad_bf16_kernel<true>
-                              : lex_grad_bf16_kernel<false>;
-      kernel<<<dim3(B * tiles(S, kHM), tiles(V, kHN)), kThreads, 0, s>>>(
-          vec, pc, pf, vw, vb, red, d_red, d_lex, B, S, h, V);
-    }
+    lex_grad_f32_kernel<<<dim3(B * tiles(S, kBM), tiles(V, kBN)), kThreads,
+                          0, s>>>(vec, pc, pf, vw, vb, red, d_red, d_lex32,
+                                  B, S, h, V);
     RETURN_IF_LAUNCH_FAILED();
-    row_sum_kernel<<<row_blocks(M), kPointThreads, 0, s>>>(d_lex, M, V, d_vec);
+    row_sum_kernel<<<row_blocks(M), kPointThreads, 0, s>>>(d_lex32, M, V,
+                                                           d_vec);
     RETURN_IF_LAUNCH_FAILED();
     column_chunk_kernel<<<dim3(blocks_for(V), tiles(M, kColumnChunk)),
-                          kPointThreads, 0, s>>>(d_lex, M, V, dvb_part);
+                          kPointThreads, 0, s>>>(d_lex32, M, V, dvb_part);
     RETURN_IF_LAUNCH_FAILED();
   }
   row_sum_kernel<<<1, kPointThreads, 0, s>>>(d_blank, 1, M, d_bb);
@@ -484,8 +736,8 @@ int frame_reduce_backward(int dtype, const float* vec, const float* pf,
                        static_cast<size_t>(V), d_vb}};
   const int status = sum_all(sums, s);
   if (status != 0) return status;
-  return joint_backward(dtype, /*round_blank=*/false, pc, pf, vw, bw, d_blank,
-                        d_lex, dpf_part, dbw_part, dpc_part, dw_part, d_pc,
+  return joint_backward(0, /*round_blank=*/false, pc, pf, vw, bw, d_blank,
+                        d_lex32, dpf_part, dbw_part, dpc_part, dw_part, d_pc,
                         d_pf, d_vw, d_bw, B, S, h, V, splits, s);
 }
 

@@ -87,7 +87,8 @@ def load(source: str) -> ctypes.CDLL:
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     out.with_suffix('.log').write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
-      os.unlink(tmp)
+      if os.path.exists(tmp):  # nvcc removes its output when it fails
+        os.unlink(tmp)
       raise RuntimeError(f'nvcc failed ({proc.returncode}) building '
                          f'{source}:\n{proc.stderr[-4000:]}')
     os.replace(tmp, out)

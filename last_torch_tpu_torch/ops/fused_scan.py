@@ -34,9 +34,11 @@ context's arc reduction and destinations, and the autograd wrapper
 (``scan_log_partition``) takes the kernel pair, so ``ops/trigram_scan.py``
 (whose kernels are the trigram mode of the same library) reuses both.
 
-Modes. 'cache' stages the frame's lexical weights ([B, S, V] float32, and
-the backward's d_lex in the compute type) in device memory for the
-reductions after the first; 'online' keeps no [B, S, V] buffer and
+Modes. 'cache' stages [B, S, V] buffers of a frame in device memory: the
+forward's lexical weights (float32) for its reductions after the first, and
+the backward's d_lex in the compute type (in bfloat16 the backward runs on
+wgmma and recomputes the lexical weights for each reduction:
+``wgmma_grid``, ``backward_scratch``); 'online' keeps no [B, S, V] buffer and
 recomputes the head product for every reduction, for vocabularies whose
 staged buffers grow too large (they grow as V^2). ``plan`` picks one for
 ``mode='auto'`` from the staged bytes. Both modes compute the same function,
@@ -190,7 +192,8 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.fused_forward.argtypes = [i] + [p] * 16 + [i] * 9 + [p]
     lib.fused_forward.restype = i
-    lib.fused_backward.argtypes = [i] + [p] * 33 + [i] * 11 + [p]
+    lib.fused_backward.argtypes = [i] + [p] * 33 + [i] * 11 + [p] * 2 + [
+        i, p, p]
     lib.fused_backward.restype = i
     lib.fused_marginals.argtypes = [i] + [p] * 20 + [i] * 8 + [p]
     lib.fused_marginals.restype = i
@@ -206,6 +209,75 @@ def library() -> ctypes.CDLL:
 
 def _ptr(x: Optional[torch.Tensor]):
   return None if x is None else x.data_ptr()
+
+
+@dataclasses.dataclass(frozen=True)
+class WgmmaGrid:
+  """Tiles and splits of the wgmma kernels of a frame's backward
+  (``csrc/wgmma_tiles.cuh``, ``csrc/head_grads.cuh``): a pure function of
+  the shapes and the card's SM count (``wgmma_grid``).
+
+  Attributes:
+    hidden_pad, vocab_pad: h and V rounded up to the 64-deep stages; the
+      joint, the head and d_lex are padded to them with zeros.
+    strips: 128-label strips of the lexical products (the row partials).
+    ksplits: splits of d_vocab_w's (batch row, state) contraction.
+    dsplits: splits of the batch rows whose d_pc one block carries.
+    blocks: blocks of each product's launch on a frame with every row live:
+      'lexical', 'head_grad', 'joint_grad'.
+  """
+  hidden_pad: int
+  vocab_pad: int
+  strips: int
+  ksplits: int
+  dsplits: int
+  blocks: dict
+
+
+# The wgmma kernels' tiles (csrc/wgmma_tiles.cuh): 64 rows (one
+# warpgroup), 128 columns, 64-deep stages; two blocks fit on an SM.
+_WG_ROWS, _WG_COLS, _WG_DEPTH, _WG_BLOCKS_PER_SM = 64, 128, 64, 2
+
+
+def wgmma_grid(batch: int, num_states: int, hidden: int, vocab: int,
+               sms: int) -> WgmmaGrid:
+  """The ``WgmmaGrid`` of a frame of ``batch`` rows on ``sms`` SMs: each
+  gradient product split into as many parts as keep its blocks within one
+  wave (two per SM), at least one."""
+  cdiv = lambda n, m: -(-n // m)
+  hp = cdiv(hidden, _WG_DEPTH) * _WG_DEPTH
+  vp = cdiv(vocab, _WG_DEPTH) * _WG_DEPTH
+  strips = cdiv(vp, _WG_COLS)
+  row_tiles = cdiv(num_states, _WG_ROWS)
+  wave = _WG_BLOCKS_PER_SM * sms
+  head_tiles = hp // _WG_ROWS * strips
+  ksplits = max(1, min(batch * row_tiles, wave // head_tiles))
+  joint_tiles = row_tiles * cdiv(hp, _WG_COLS)
+  dsplits = max(1, min(batch, wave // joint_tiles))
+  return WgmmaGrid(hp, vp, strips, ksplits, dsplits, {
+      'lexical': batch * row_tiles * strips,
+      'head_grad': head_tiles * ksplits,
+      'joint_grad': joint_tiles * dsplits})
+
+
+def backward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
+                     grid: WgmmaGrid) -> dict:
+  """name -> (shape, dtype) of the buffers the bfloat16 'cache' backward on
+  wgmma allocates in place of the other routes' (``launch_backward``). No
+  float32 [B, S, V] lex: every row reduction recomputes the head product,
+  which measured faster than staging lex at B=8 and at B=32 (PERF.md)."""
+  hp, vp = grid.hidden_pad, grid.vocab_pad
+  part = ((grid.strips, batch, num_states), torch.float32)
+  return {
+      'vocab_w': ((hp, vp), torch.bfloat16),
+      'joint': ((batch, num_states, hp), torch.bfloat16),
+      'joint32': ((batch, num_states, hidden), torch.float32),
+      'd_lex': ((batch, num_states, vp), torch.bfloat16),
+      'part_m': part,
+      'part_l': part,
+      'dpc_acc': ((grid.dsplits, num_states, hidden), torch.float32),
+      'dvw_acc': ((grid.ksplits, hidden, vocab), torch.float32),
+  }
 
 
 def grid_splits(work_blocks: int, max_splits: int, device) -> int:
@@ -466,51 +538,77 @@ def launch_backward(entry: str, pf, pc, params, is_pad, log_z, g, hist,
   empty = lambda *shape, dtype=torch.float32: torch.empty(
       shape, dtype=dtype, device=device)
   zeros = lambda *shape: torch.zeros(shape, device=device)
-  vw = params['vocab_w'].to(compute_dtype).contiguous()
-  bw = params['blank_w'].to(compute_dtype).contiguous()
-  pad = is_pad.to(torch.int32)
+  tiles = -(-num_states // _TILE)
+  # The library runs the bigram's bfloat16 'cache' backward with at least
+  # one row reduction per frame on its wgmma kernels (the rule of
+  # csrc/fused_scan.cu's backward_entry), which take their own scratch.
+  wgmma = (entry == 'fused_backward' and not online and
+           compute_dtype == torch.bfloat16 and k >= 1)
   # The states whose d_lex is formed at a time: all of them in 'cache' mode.
   chunk = min(num_states, ONLINE_CHUNK_STATES) if online else num_states
-  tiles = -(-num_states // _TILE)
-  strips = -(-vocab // _TILE)
-  ysplits = grid_splits(tiles * batch, strips, device)
-  ksplits = grid_splits(strips * -(-hidden // _TILE),
-                        -(-batch * chunk // _TILE), device)
-  joint = empty(batch, num_states, hidden, dtype=compute_dtype)
-  blank = empty(batch, num_states)
-  lex = None if online else empty(batch, num_states, vocab)
-  d_lex = empty(batch, chunk, vocab, dtype=compute_dtype)
-  d_blank = empty(batch, num_states)
-  part_m = empty(ysplits, batch, num_states)
-  part_l = empty(ysplits, batch, num_states)
+  if wgmma:
+    grid = wgmma_grid(
+        batch, num_states, hidden, vocab,
+        torch.cuda.get_device_properties(device).multi_processor_count)
+    buf = {name: empty(*shape, dtype=dtype) for name, (shape, dtype) in
+           backward_scratch(batch, num_states, hidden, vocab, grid).items()}
+    buf['vocab_w'].zero_()[:hidden, :vocab] = params['vocab_w']
+    buf['dpc_acc'].zero_()
+    buf['dvw_acc'].zero_()
+    ysplits, ksplits = grid.strips, grid.ksplits
+    # Each frame's real rows, counted on the host (one synchronisation per
+    # call), and listed first on the device.
+    live = (~is_pad).sum(1, dtype=torch.int32).cpu()
+    rows = torch.argsort(is_pad.to(torch.uint8), dim=1,
+                         stable=True).to(torch.int32)
+    route_args = (_ptr(live), _ptr(rows), grid.dsplits,
+                  _ptr(buf['joint32']))
+  else:
+    strips = -(-vocab // _TILE)
+    ysplits = grid_splits(tiles * batch, strips, device)
+    ksplits = grid_splits(strips * -(-hidden // _TILE),
+                          -(-batch * chunk // _TILE), device)
+    buf = {'vocab_w': params['vocab_w'].to(compute_dtype).contiguous(),
+           'joint': empty(batch, num_states, hidden, dtype=compute_dtype),
+           'lex': None if online else empty(batch, num_states, vocab),
+           'd_lex': empty(batch, chunk, vocab, dtype=compute_dtype),
+           'part_m': empty(ysplits, batch, num_states),
+           'part_l': empty(ysplits, batch, num_states),
+           'dpc_acc': zeros(batch, num_states, hidden),
+           'dvw_acc': zeros(ksplits, hidden, vocab)}
+    route_args = (None, None, 0, None)
+  bw = params['blank_w'].to(compute_dtype).contiguous()
+  pad = is_pad.to(torch.int32)
+  blank, d_blank = empty(batch, num_states), empty(batch, num_states)
   nb = empty(max(k, 1), batch, num_states)
   beta = zeros(2, batch, num_states)  # slot 0: semiring ones
   dpf = empty(max_t, batch, hidden)
   dpf_part = empty(tiles, batch, hidden)
   # Accumulators carried across frames, each element owned by one block
   # per frame (no atomics), reduced to the outputs at the end.
-  dpc_acc = zeros(batch, num_states, hidden)
-  dvw_acc = zeros(ksplits, hidden, vocab)
   dvb_acc = zeros(batch, tiles, vocab)
   dbw_acc = zeros(batch, tiles, hidden)
   dbb_acc = zeros(batch, num_states)
   dpc, dvw = empty(num_states, hidden), empty(hidden, vocab)
   dvb, dbw, dbb = empty(vocab), empty(hidden), empty(1)
-  # The bigram entry point also takes its mode and d_lex chunk.
-  mode_args = (int(online), chunk) if entry == 'fused_backward' else ()
+  # The bigram entry point also takes its mode, d_lex chunk and the
+  # arguments of its wgmma route.
+  bigram_args = ((int(online), chunk) if entry == 'fused_backward' else ())
+  tail_args = route_args if entry == 'fused_backward' else ()
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
     status = getattr(lib, entry)(
-        _DTYPE_CODES[compute_dtype], _ptr(pf), _ptr(pc), _ptr(vw),
-        _ptr(params['vocab_b']), _ptr(bw), _ptr(params['blank_w']),
-        _ptr(params['blank_b']), _ptr(pad), _ptr(log_z), _ptr(g),
-        _ptr(hist), _ptr(slabs), _ptr(joint), _ptr(blank), _ptr(lex),
-        _ptr(d_lex), _ptr(d_blank), _ptr(part_m), _ptr(part_l), _ptr(nb),
-        _ptr(beta), _ptr(dpf), _ptr(dpf_part), _ptr(dpc_acc),
-        _ptr(dvw_acc), _ptr(dvb_acc), _ptr(dbw_acc), _ptr(dbb_acc),
-        _ptr(dpc), _ptr(dvw), _ptr(dvb), _ptr(dbw), _ptr(dbb),
-        max_t, batch, num_states, hidden, vocab, max_expansions,
-        int(frame_dependent), *mode_args, ysplits, ksplits, stream)
+        _DTYPE_CODES[compute_dtype], _ptr(pf), _ptr(pc),
+        _ptr(buf['vocab_w']), _ptr(params['vocab_b']), _ptr(bw),
+        _ptr(params['blank_w']), _ptr(params['blank_b']), _ptr(pad),
+        _ptr(log_z), _ptr(g), _ptr(hist), _ptr(slabs), _ptr(buf['joint']),
+        _ptr(blank), _ptr(buf.get('lex')), _ptr(buf['d_lex']), _ptr(d_blank),
+        _ptr(buf['part_m']), _ptr(buf['part_l']), _ptr(nb), _ptr(beta),
+        _ptr(dpf), _ptr(dpf_part), _ptr(buf['dpc_acc']),
+        _ptr(buf['dvw_acc']), _ptr(dvb_acc), _ptr(dbw_acc), _ptr(dbb_acc),
+        _ptr(dpc), _ptr(dvw), _ptr(dvb), _ptr(dbw), _ptr(dbb), max_t, batch,
+        num_states, hidden, vocab, max_expansions, int(frame_dependent),
+        *bigram_args, ysplits, ksplits, *tail_args, stream)
   _raise_on(status, f'{entry} (log-partition backward)')
   return dpf, dpc, dvw, dvb, dbw, dbb[0], beta[max_t % 2]
 

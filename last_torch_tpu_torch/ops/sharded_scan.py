@@ -54,6 +54,8 @@ not padded to 128: vectors and alphas are [B, S].
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Any, Optional
 
 import torch
@@ -117,7 +119,7 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.frame_reduce_forward.argtypes = [i] + [p] * 11 + [i] * 4 + [p]
     lib.frame_reduce_forward.restype = i
-    lib.frame_reduce_backward.argtypes = [i] + [p] * 22 + [i] * 5 + [p]
+    lib.frame_reduce_backward.argtypes = [i] + [p] * 27 + [i] * 6 + [p]
     lib.frame_reduce_backward.restype = i
     lib.frame_reduce_error_string.argtypes = [i]
     lib.frame_reduce_error_string.restype = ctypes.c_char_p
@@ -190,6 +192,46 @@ def frame_reduce_plain(vec: torch.Tensor, pf_t: torch.Tensor,
   return torch.logsumexp(vec[:, :, None] + lex, dim=1), blank
 
 
+def backward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
+                     grid: fused_scan.WgmmaGrid) -> dict:
+  """name -> (shape, dtype) of the scratch of the bfloat16 backward kernels
+  (``csrc/sharded_scan.cu``, namespace ``hopper``) on ``grid``
+  (``fused_scan.wgmma_grid``): d_lex reaches device memory once, in
+  bfloat16; the joint twice, in bfloat16 for the products and in float32
+  for the tanh derivative."""
+  hp, vp = grid.hidden_pad, grid.vocab_pad
+  t64 = -(-num_states // 64)
+  f32, bf16 = torch.float32, torch.bfloat16
+  return {
+      'd_lex': ((batch, num_states, vp), bf16),
+      'joint': ((batch, num_states, hp), bf16),
+      'joint32': ((batch, num_states, hidden), f32),
+      'vw16': ((hp, vp), bf16),
+      'dvec_part': ((grid.strips, batch, num_states), f32),
+      'dvb_part': ((batch * t64, vocab), f32),
+      'dbb_part': ((batch * t64,), f32),
+      'dpf_part': ((t64, batch, hidden), f32),
+      'dbw_part': ((batch * t64, hidden), f32),
+      'dpc_part': ((grid.dsplits, num_states, hidden), f32),
+      'dw_part': ((grid.ksplits, hidden, vocab), f32),
+  }
+
+
+@functools.lru_cache(maxsize=64)
+def _workspace(batch, num_states, hidden, vocab, sms):
+  """((splits, dsplits), byte offsets, total bytes) of the bfloat16
+  backward's scratch in one buffer (``backward_scratch``, each buffer
+  256-byte aligned)."""
+  grid = fused_scan.wgmma_grid(batch, num_states, hidden, vocab, sms)
+  offsets, size = {}, 0
+  for name, (shape, dtype) in backward_scratch(batch, num_states, hidden,
+                                               vocab, grid).items():
+    offsets[name] = size
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    size += -(-math.prod(shape) * itemsize // 256) * 256
+  return (grid.ksplits, grid.dsplits), offsets, size
+
+
 def frame_reduce_backward(vec: torch.Tensor, pf_t: torch.Tensor,
                           pc: torch.Tensor, vw: torch.Tensor,
                           vb: torch.Tensor, bw: torch.Tensor,
@@ -219,23 +261,41 @@ def frame_reduce_backward(vec: torch.Tensor, pf_t: torch.Tensor,
   if vec.device.type == 'cpu':
     return frame_reduce_backward_plain(vec, pf_t, pc, vw, vb, bw, red, d_red,
                                        d_blank, compute_dtype=compute_dtype)
-  empty = lambda *shape: torch.empty(shape, device=vec.device)
-  rows = batch * num_states
-  d_lex = empty(batch, num_states, vocab)
-  dvb_part = empty(-(-rows // _COLUMN_CHUNK), vocab)
-  dpf_part, dbw_part, dpc_part, dw_part, splits = joint_head.backward_scratch(
-      batch, num_states, hidden, vocab, compute_dtype, vec.device)
+  device = vec.device
+  empty = lambda *shape: torch.empty(shape, device=device)
   grads = (empty(batch, num_states), empty(batch, hidden),
            empty(num_states, hidden), empty(hidden, vocab), empty(vocab),
            empty(hidden), empty())
-  _launch(vec.device, 'backward', lambda lib, stream: lib.frame_reduce_backward(
+  if compute_dtype == torch.bfloat16:
+    # The scratch in one buffer: the call runs once per frame and
+    # expansion, where each allocation costs host time.
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    (splits, dsplits), offsets, size = _workspace(batch, num_states, hidden,
+                                                  vocab, sms)
+    workspace = torch.empty(size, dtype=torch.uint8, device=device)
+    ptr = lambda name: workspace.data_ptr() + offsets[name]
+  else:  # float32: the CUDA-core kernels, d_lex in float32
+    dpf_part, dbw_part, dpc_part, dw_part, splits = (
+        joint_head.backward_scratch(batch, num_states, hidden, vocab,
+                                    compute_dtype, device))
+    scratch = dict(
+        d_lex=empty(batch, num_states, vocab),
+        dvb_part=empty(-(-batch * num_states // _COLUMN_CHUNK), vocab),
+        dpf_part=dpf_part, dbw_part=dbw_part, dpc_part=dpc_part,
+        dw_part=dw_part)
+    dsplits = 0
+    ptr = lambda name: (scratch[name].data_ptr() if name in scratch else
+                        None)
+  _launch(device, 'backward', lambda lib, stream: lib.frame_reduce_backward(
       _DTYPE_CODES[compute_dtype], vec.data_ptr(), pf_t.data_ptr(),
       pc.data_ptr(), vw.data_ptr(), vb.data_ptr(), bw.data_ptr(),
-      red.data_ptr(), d_red.data_ptr(), d_blank.data_ptr(), d_lex.data_ptr(),
-      dvb_part.data_ptr(), dpf_part.data_ptr(), dbw_part.data_ptr(),
-      dpc_part.data_ptr(), dw_part.data_ptr(),
-      *(g.data_ptr() for g in grads), batch, num_states, hidden, vocab,
-      splits, stream))
+      red.data_ptr(), d_red.data_ptr(), d_blank.data_ptr(),
+      *(ptr(n) for n in ('d_lex', 'dvb_part', 'dpf_part', 'dbw_part',
+                         'dpc_part', 'dw_part')),
+      *(g.data_ptr() for g in grads),
+      *(ptr(n) for n in ('joint', 'joint32', 'vw16', 'dvec_part',
+                         'dbb_part')),
+      batch, num_states, hidden, vocab, splits, dsplits, stream))
   backward_launches += 1
   return grads
 

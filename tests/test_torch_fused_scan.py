@@ -155,3 +155,56 @@ def test_wrappers_reject_bad_inputs():
   with pytest.raises(ValueError, match='no marginals kernel'):
     fused_scan.fused_marginals(meta(pf), meta(pc), meta_head, meta(is_pad),
                                meta(log_z), meta(hist), meta(slabs), **kw)
+
+
+SMS = 132  # an H100's SMs
+
+
+@pytest.mark.parametrize('batch,states,hidden,vocab', [
+    (8, 1025, 512, 1024),  # the main path's frame
+    (32, 1025, 512, 1024),  # bench.py's headline batch
+    (8, 4097, 512, 4096),  # bench.py's config 9
+    (3, 521, 40, 520),  # V and h off the 64-deep stages
+    (1, 38, 24, 37),
+])
+def test_wgmma_grid_pads_and_splits_within_a_wave(batch, states, hidden,
+                                                   vocab):
+  grid = fused_scan.wgmma_grid(batch, states, hidden, vocab, SMS)
+  assert grid.hidden_pad % 64 == 0 and 0 <= grid.hidden_pad - hidden < 64
+  assert grid.vocab_pad % 64 == 0 and 0 <= grid.vocab_pad - vocab < 64
+  assert grid.strips == -(-grid.vocab_pad // 128)
+  assert 1 <= grid.dsplits <= batch
+  assert 1 <= grid.ksplits <= batch * -(-states // 64)
+  # Split products stay within one wave of two blocks an SM.
+  for name, splits in (('head_grad', grid.ksplits),
+                       ('joint_grad', grid.dsplits)):
+    assert splits == 1 or grid.blocks[name] <= 2 * SMS, name
+  if batch >= 8:  # a full frame of the main paths fills the card
+    for name, blocks in grid.blocks.items():
+      assert blocks >= SMS, name
+
+
+@pytest.mark.parametrize('batch,states,hidden,vocab', [
+    (8, 1025, 512, 1000),  # V off the 64-deep stages
+    (32, 1025, 512, 1024),  # bench.py's headline batch
+    (2, 9, 16, 8),
+])
+def test_backward_scratch_keeps_d_lex_in_bfloat16(batch, states, hidden,
+                                                  vocab):
+  grid = fused_scan.wgmma_grid(batch, states, hidden, vocab, SMS)
+  scratch = fused_scan.backward_scratch(batch, states, hidden, vocab, grid)
+  hp, vp = grid.hidden_pad, grid.vocab_pad
+  assert scratch['d_lex'] == ((batch, states, vp), torch.bfloat16)
+  assert scratch['joint'] == ((batch, states, hp), torch.bfloat16)
+  assert scratch['vocab_w'] == ((hp, vp), torch.bfloat16)
+  assert scratch['part_m'][0] == scratch['part_l'][0] == (
+      grid.strips, batch, states)
+  # d_pc carried over [splits, S, h], not [B, S, h].
+  assert scratch['dpc_acc'][0] == (grid.dsplits, states, hidden)
+  if batch >= 8:
+    assert grid.dsplits < batch
+  # lex is recomputed: no float32 [B, S, V] buffer.
+  assert 'lex' not in scratch
+  for name, (shape, dtype) in scratch.items():
+    if shape[:2] == (batch, states):
+      assert dtype == torch.bfloat16 or shape[2] == hidden, name

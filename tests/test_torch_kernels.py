@@ -231,12 +231,38 @@ def test_plain_log_partition_padding():
 
 
 FUSED_CARD_CASES = {
-    # name: (vocab, hidden, max_expansions, frame_dependent)
-    'fd_ragged_v37': (37, 24, 0, True),
-    'fld1_v130': (130, 40, 1, False),
-    'fld2_ragged_v1000': (1000, 512, 2, False),
-    'fld2_v1024': (1024, 512, 2, False),
+    # name: (vocab, hidden, max_expansions, frame_dependent, batch)
+    'fd_ragged_v37': (37, 24, 0, True, 3),
+    'fld1_v130': (130, 40, 1, False, 3),
+    'fld2_ragged_v1000': (1000, 512, 2, False, 3),
+    'fld2_v1024': (1024, 512, 2, False, 3),
+    # The bfloat16 backward's wgmma tiles: 128-label strips past a ragged
+    # V=520 (padded to 576), S=1025, one row and 32.
+    'fd_v1024': (1024, 512, 0, True, 3),
+    'fd_ragged_v520_b32': (520, 512, 0, True, 32),
+    'fld1_ragged_v520_b1': (520, 512, 1, False, 1),
+    'fld3_ragged_v520': (520, 512, 3, False, 3),
+    'fld2_v1024_b32': (1024, 512, 2, False, 32),
 }
+# T_max of the card cases: the last two frames are padding in every row.
+CARD_MAX_T = 14
+
+
+def card_rows(batch, device):
+  """(lengths, g) of a card case: row 0 has 12 frames, row 1 7 and a zero
+  cotangent, row 2 none; further rows 1 to 11 frames."""
+  lengths = ([12, 7, 0] + [1 + 5 * i % 11 for i in range(batch)])[:batch]
+  g = ([1.0, 0.0, 1.0] + [0.5 + 0.1 * (i % 7) for i in range(batch)])[:batch]
+  return lengths, torch.tensor(g, device=device)
+
+
+def assert_zero_rows(dpf, lengths, g):
+  """d(pf) is exactly zero on padding frames, on empty rows and on rows
+  with a zero cotangent."""
+  for b, (n, gb) in enumerate(zip(lengths, g.tolist())):
+    assert torch.all(dpf[n:, b] == 0), b
+    if gb == 0.0:
+      assert torch.all(dpf[:, b] == 0), b
 
 
 def rel_err(a, b, per_output=False):
@@ -260,9 +286,10 @@ def rel_err(a, b, per_output=False):
 @pytest.mark.parametrize('case', sorted(FUSED_CARD_CASES))
 def test_log_partition_kernels_match_plain_on_card(card, case,
                                                    compute_dtype):
-  vocab, hidden, k, fd = FUSED_CARD_CASES[case]
-  pf, pc, params, is_pad = fused_inputs(2, vocab, hidden, max_t=12,
-                                        lengths=[12, 7, 0], device=card)
+  vocab, hidden, k, fd, batch = FUSED_CARD_CASES[case]
+  lengths, g = card_rows(batch, card)
+  pf, pc, params, is_pad = fused_inputs(2, vocab, hidden, CARD_MAX_T,
+                                        lengths, device=card)
   kw = dict(max_expansions=k, frame_dependent=fd,
             compute_dtype=compute_dtype)
   before = fused_scan.forward_launches, fused_scan.backward_launches
@@ -270,7 +297,6 @@ def test_log_partition_kernels_match_plain_on_card(card, case,
                                    with_residuals=True, **kw)
   fwd_p = fused_scan.fused_forward_plain(pf, pc, params, is_pad,
                                          with_residuals=True, **kw)
-  g = torch.tensor([1.0, 0.0, 1.0], device=card)  # row 1: zero cotangent
   bwd_k = fused_scan.fused_backward(pf, pc, params, is_pad, fwd_k[0], g,
                                     fwd_k[2], fwd_k[3], **kw)
   bwd_p = fused_scan.fused_backward_plain(pf, pc, params, is_pad, fwd_p[0],
@@ -299,8 +325,7 @@ def test_log_partition_kernels_match_plain_on_card(card, case,
     else:
       err = rel_err(got, want, per_output=True)
       assert err <= (1e-3 if bf16 else 1e-4), name
-  dpf = bwd_k[0]  # the zero-cotangent row and the empty row
-  assert torch.all(dpf[:, 1] == 0) and torch.all(dpf[:, 2] == 0)
+  assert_zero_rows(bwd_k[0], lengths, g)
 
 
 @pytest.mark.cuda
@@ -309,12 +334,12 @@ def test_log_partition_kernels_match_plain_on_card(card, case,
 @pytest.mark.parametrize('case', sorted(FUSED_CARD_CASES))
 def test_online_kernels_match_plain_and_cache_on_card(card, case,
                                                       compute_dtype):
-  vocab, hidden, k, fd = FUSED_CARD_CASES[case]
-  pf, pc, params, is_pad = fused_inputs(2, vocab, hidden, max_t=12,
-                                        lengths=[12, 7, 0], device=card)
+  vocab, hidden, k, fd, batch = FUSED_CARD_CASES[case]
+  lengths, g = card_rows(batch, card)
+  pf, pc, params, is_pad = fused_inputs(2, vocab, hidden, CARD_MAX_T,
+                                        lengths, device=card)
   kw = dict(max_expansions=k, frame_dependent=fd,
             compute_dtype=compute_dtype)
-  g = torch.tensor([1.0, 0.0, 1.0], device=card)  # row 1: zero cotangent
   before = (fused_scan.online_forward_launches,
             fused_scan.online_backward_launches)
   fwd_o = fused_scan.fused_forward(pf, pc, params, is_pad,
@@ -349,8 +374,7 @@ def test_online_kernels_match_plain_and_cache_on_card(card, case,
       else:
         assert rel_err(got, want, per_output=True) <= (
             1e-3 if bf16 else 1e-4), name
-  dpf = bwd_o[0]
-  assert torch.all(dpf[:, 1] == 0) and torch.all(dpf[:, 2] == 0)
+  assert_zero_rows(bwd_o[0], lengths, g)
 
 
 @pytest.mark.cuda
@@ -358,9 +382,10 @@ def test_online_kernels_match_plain_and_cache_on_card(card, case,
                          ids=['f32', 'bf16'])
 @pytest.mark.parametrize('case', sorted(FUSED_CARD_CASES))
 def test_marginals_kernel_matches_plain_on_card(card, case, compute_dtype):
-  vocab, hidden, k, fd = FUSED_CARD_CASES[case]
-  pf, pc, params, is_pad = fused_inputs(5, vocab, hidden, max_t=12,
-                                        lengths=[12, 7, 0], device=card)
+  vocab, hidden, k, fd, batch = FUSED_CARD_CASES[case]
+  lengths, _ = card_rows(batch, card)
+  pf, pc, params, is_pad = fused_inputs(5, vocab, hidden, CARD_MAX_T,
+                                        lengths, device=card)
   kw = dict(max_expansions=k, frame_dependent=fd,
             compute_dtype=compute_dtype)
   log_z, _, hist, slabs = fused_scan.fused_forward_plain(
@@ -376,12 +401,12 @@ def test_marginals_kernel_matches_plain_on_card(card, case, compute_dtype):
   bf16 = compute_dtype == torch.bfloat16
   assert rel_err(bm, bm_p, per_output=True) <= (1e-3 if bf16 else 1e-4)
   assert rel_err(lp, lp_p, per_output=True) <= (1e-3 if bf16 else 1e-4)
-  # Padding frames and the empty row: exact zeros.
-  assert torch.all(bm[7:, 1] == 0) and torch.all(lp[7:, 1] == 0)
-  assert torch.all(bm[:, 2] == 0) and torch.all(lp[:, 2] == 0)
-  if not fd:  # one blank arc per frame on every path
-    blank = bm[:7, :2].sum(-1)
-    assert torch.allclose(blank, torch.ones_like(blank), rtol=1e-3)
+  # Padding frames and empty rows: exact zeros.
+  for b, n in enumerate(lengths):
+    assert torch.all(bm[n:, b] == 0) and torch.all(lp[n:, b] == 0)
+    if not fd:  # one blank arc per frame on every path
+      blank = bm[:n, b].sum(-1)
+      assert torch.allclose(blank, torch.ones_like(blank), rtol=1e-3)
 
 
 @pytest.mark.cuda
@@ -971,7 +996,11 @@ FRAME_REDUCE_CARD_CASES = {
     # name: (batch, states, vocab, hidden)
     'b3_s1025_v96': (3, 1025, 96, 512),
     'b3_s1025_v1024': (3, 1025, 1024, 512),
+    'b8_s1025_v1024': (8, 1025, 1024, 512),
     'b8_s1025_v256': (8, 1025, 256, 512),
+    # The bfloat16 backward's wgmma tiles past a ragged Vl (padded to 256)
+    # at h=384.
+    'b4_s1025_v200_h384': (4, 1025, 200, 384),
     # h and V not multiples of 4: bfloat16 staged without 16-byte loads.
     'ragged_b5_s77_v37_h42': (5, 77, 37, 42),
 }
@@ -1058,3 +1087,40 @@ def test_frame_reduce_shards_reproduce_the_whole_head_on_card(card,
   for name, want in zip(FRAME_REDUCE_GRADS, whole_grads):
     assert rel_err(got[name], want, per_output=True) <= (
         1e-3 if bf16 else 1e-4), name
+
+
+@pytest.mark.cuda
+def test_wgmma_backwards_launch_on_every_card(card):
+  """The wgmma kernels raise their shared-memory limit on each device (the
+  attribute holds only for the device that is current when it is set):
+  both bfloat16 backwards launch on two cards in one process, the second
+  after the first, and agree with their plain versions on each."""
+  if torch.cuda.device_count() < 2:
+    pytest.skip('needs two NVIDIA GPUs')
+  bf16 = torch.bfloat16
+  for index in (0, 1, 0):
+    device = torch.device('cuda', index)
+    lengths, g = card_rows(3, device)
+    pf, pc, params, is_pad = fused_inputs(2, 520, 512, CARD_MAX_T, lengths,
+                                          device=device)
+    kw = dict(max_expansions=2, frame_dependent=False, compute_dtype=bf16)
+    log_z, _, hist, slabs = fused_scan.fused_forward_plain(
+        pf, pc, params, is_pad, with_residuals=True, **kw)
+    got = fused_scan.fused_backward(pf, pc, params, is_pad, log_z, g, hist,
+                                    slabs, **kw)
+    want = fused_scan.fused_backward_plain(pf, pc, params, is_pad, log_z, g,
+                                           hist, slabs, **kw)
+    for name, a, b in zip(('dpf', 'dpc', 'dvw', 'dvb', 'dbw', 'dbb'), got,
+                          want):
+      assert a.device == device, name
+      assert rel_err(a, b, per_output=True) <= 1e-3, (index, name)
+    inputs, d_red, d_blank = frame_reduce_inputs(13, 3, 1025, 512, 200,
+                                                 device=device)
+    _, grads_k = frame_reduce_pair(
+        inputs, d_red, d_blank, bf16, sharded_scan.frame_reduce_forward,
+        sharded_scan.frame_reduce_backward)
+    _, grads_p = frame_reduce_pair(
+        inputs, d_red, d_blank, bf16, sharded_scan.frame_reduce_plain,
+        sharded_scan.frame_reduce_backward_plain)
+    for name, a, b in zip(FRAME_REDUCE_GRADS, grads_k, grads_p):
+      assert rel_err(a, b, per_output=True) <= 1e-3, (index, name)

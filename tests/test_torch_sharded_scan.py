@@ -29,7 +29,7 @@ from last_torch_tpu import weight_fns as jax_weight_fns
 from last_torch_tpu.ops import sharded_scan as jax_sharded_scan
 import last_torch_tpu_torch
 from last_torch_tpu_torch import alignments, contexts, convert, weight_fns
-from last_torch_tpu_torch.ops import sharded_scan
+from last_torch_tpu_torch.ops import fused_scan, sharded_scan
 
 torch.set_num_threads(1)
 torch.set_float32_matmul_precision('highest')
@@ -296,3 +296,41 @@ def test_tp_plan_drops_the_lane_and_backend_rules():
   # The JAX package's plan for the same configuration off the TPU: none.
   jax_lattice, _ = lattices('fld2', vocab=6)
   assert jax_sharded_scan.tp_plan(jax_lattice, 6, 2, 'cpu') is None
+
+
+SMS = 132  # an H100's SMs
+
+
+@pytest.mark.parametrize('vocab', [1024, 256, 200])
+def test_bfloat16_backward_fills_the_card_at_every_shard(vocab):
+  """The headline frame (B=8, S=1025, h=512) with the whole head (Vl=1024),
+  one of 4 shards (256) and a ragged shard: every product has a block per
+  SM, and d_lex reaches device memory only in bfloat16."""
+  batch, states, hidden = 8, 1025, 512
+  grid = fused_scan.wgmma_grid(batch, states, hidden, vocab, SMS)
+  for name, blocks in grid.blocks.items():
+    assert blocks >= SMS, name
+  scratch = sharded_scan.backward_scratch(batch, states, hidden, vocab, grid)
+  assert scratch['d_lex'] == ((batch, states, grid.vocab_pad),
+                              torch.bfloat16)
+  for name, (shape, dtype) in scratch.items():
+    if shape[:2] == (batch, states):  # only the float32 joint is float32
+      assert dtype == torch.bfloat16 or shape[2] == hidden, name
+  assert scratch['dpc_part'][0] == (grid.dsplits, states, hidden)
+
+
+def test_bfloat16_backward_workspace_is_aligned_and_disjoint():
+  args = (5, 77, 42, 37, SMS)  # h and Vl off the 64-deep stages
+  (splits, dsplits), offsets, size = sharded_scan._workspace(*args)
+  grid = fused_scan.wgmma_grid(*args)
+  assert (splits, dsplits) == (grid.ksplits, grid.dsplits)
+  assert (grid.hidden_pad, grid.vocab_pad) == (64, 64)
+  spans = []
+  for name, (shape, dtype) in sharded_scan.backward_scratch(
+      *args[:4], grid).items():
+    assert offsets[name] % 256 == 0, name
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    spans.append((offsets[name], offsets[name] + np.prod(shape) * itemsize))
+  spans.sort()
+  assert all(end <= start for (_, end), (start, _) in zip(spans, spans[1:]))
+  assert spans[-1][1] <= size

@@ -1,0 +1,182 @@
+#!/usr/bin/env python3
+# Copyright 2026.
+#
+# Licensed under the Apache License, Version 2.0 (the "License");
+# you may not use this file except in compliance with the License.
+# You may obtain a copy of the License at
+#
+#     http://www.apache.org/licenses/LICENSE-2.0
+#
+# Unless required by applicable law or agreed to in writing, software
+# distributed under the License is distributed on an "AS IS" BASIS,
+# WITHOUT WARRANTIES OR CONDITIONS OF ANY KIND, either express or implied.
+# See the License for the specific language governing permissions and
+# limitations under the License.
+
+"""The bfloat16 backward kernels of two trees, timed in turns on one GPU.
+
+Run from the root of a checkout, with an older tree unpacked beside it
+(``git archive <commit> | tar -x -C _archive/parent``)::
+
+  python3 tools/ab_backward.py --parent _archive/parent
+
+It runs, each in its own process and in this order, the plain versions of
+this checkout, then the kernels of the parent, this checkout, this checkout
+and the parent (each tree builds its own ``csrc/`` into its ``_build/``).
+Each run times, with CUDA events after a warm-up:
+
+* ``lp8``: ``fused_backward`` ('cache', bf16, FLD(2), S=1025, V=1024,
+  h=512) at ``chip_smoke.py`` phase 6's shape (B=8, T_max=1600, its
+  lengths), the mean of 2 calls;
+* ``lp32``: the same at bench.py's headline (B=32, T=1600, every row full),
+  one call;
+* ``fr1024`` / ``fr256``: ``frame_reduce_backward`` (bf16, B=8, S=1025,
+  h=512) at Vl=1024 and at one of 4 shards (Vl=256), phase 12b's inputs, the
+  mean of 10 calls.
+
+Prints the card's name and power limit, one line per run, and one JSON
+object of milliseconds by run and case. ``--tree DIR --cases ...`` runs
+one tree in this process (what the turns call).
+"""
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+
+NUM_FRAMES = [1600, 1523, 1400, 1211, 1000, 804, 517, 230]
+CASES = ('lp8', 'lp32', 'fr1024', 'fr256')
+
+
+def timed(torch, fn, repeats):
+  """(result of the last call, mean ms per call) with CUDA events."""
+  fn()
+  torch.cuda.synchronize()
+  start = torch.cuda.Event(enable_timing=True)
+  end = torch.cuda.Event(enable_timing=True)
+  start.record()
+  for _ in range(repeats):
+    out = fn()
+  end.record()
+  torch.cuda.synchronize()
+  return out, start.elapsed_time(end) / repeats
+
+
+def rand(rng, shape, scale=1.0):
+  return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats):
+  """ms of one bigram backward at (batch, lengths), T_max 1600."""
+  rng = np.random.default_rng(0)
+  max_t, vocab, hidden = 1600, 1024, 512
+  cuda = lambda x: torch.from_numpy(x).cuda()
+  pf = cuda(rand(rng, (max_t, batch, hidden)))
+  pc = cuda(rand(rng, (vocab + 1, hidden)))
+  head = {'vocab_w': cuda(rand(rng, (hidden, vocab), hidden**-0.5)),
+          'vocab_b': cuda(rand(rng, (vocab,), 0.1)),
+          'blank_w': cuda(rand(rng, (hidden,), hidden**-0.5)),
+          'blank_b': torch.tensor(0.3, device='cuda')}
+  is_pad = (torch.arange(max_t, device='cuda')[:, None] >=
+            torch.tensor(lengths, device='cuda')[None])
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  forward = fused_scan.fused_forward_plain if plain else (
+      fused_scan.fused_forward)
+  backward = fused_scan.fused_backward_plain if plain else (
+      fused_scan.fused_backward)
+  log_z, _, hist, slabs = forward(pf, pc, head, is_pad, with_residuals=True,
+                                  **kw)
+  g = torch.ones(batch, device='cuda')
+  return timed(torch, lambda: backward(pf, pc, head, is_pad, log_z, g, hist,
+                                       slabs, **kw), repeats)[1]
+
+
+def frame_reduce_ms(torch, sharded_scan, vocab, plain):
+  """ms of one frame_reduce backward at B=8, S=1025, h=512, Vl=vocab, on
+  inputs drawn as chip_smoke.py's phase 12b draws them."""
+  rng = np.random.default_rng(13)
+  batch, states, hidden = 8, 1025, 512
+  cuda = lambda x: torch.from_numpy(x).cuda()
+  vec = rand(rng, (batch, states), 3.0)
+  vec[:, rng.random(states) < 0.25] = -np.inf
+  vec[:, 0] = 0.0
+  inputs = {'vec': cuda(vec), 'pf_t': cuda(rand(rng, (batch, hidden), 0.5)),
+            'pc': cuda(rand(rng, (states, hidden), 0.5)),
+            'vw': cuda(rand(rng, (hidden, vocab), hidden**-0.5)),
+            'vb': cuda(rand(rng, (vocab,), 0.1)),
+            'bw': cuda(rand(rng, (hidden,), hidden**-0.5)),
+            'bb': torch.tensor(0.3, device='cuda')}
+  d_red = cuda(rand(rng, (batch, vocab)))
+  d_blank = cuda(rand(rng, (batch, states)))
+  dtype = torch.bfloat16
+  red = sharded_scan.frame_reduce_plain(**inputs, compute_dtype=dtype)[0]
+  backward = (sharded_scan.frame_reduce_backward_plain if plain else
+              sharded_scan.frame_reduce_backward)
+  args = [inputs[n] for n in ('vec', 'pf_t', 'pc', 'vw', 'vb', 'bw')]
+  return timed(torch, lambda: backward(*args, red, d_red, d_blank,
+                                       compute_dtype=dtype), 10)[1]
+
+
+def run_tree(tree, cases, plain):
+  """Times `cases` with the kernels of `tree` (or its plain versions);
+  returns {case: ms}."""
+  sys.path.insert(0, str(pathlib.Path(tree).resolve()))
+  import torch
+  from last_torch_tpu_torch.ops import fused_scan, sharded_scan
+  torch.backends.cuda.matmul.allow_tf32 = False
+  out = {}
+  for case in cases:
+    if case == 'lp8':
+      out[case] = log_partition_ms(torch, fused_scan, 8, NUM_FRAMES, plain, 2)
+    elif case == 'lp32':
+      out[case] = log_partition_ms(torch, fused_scan, 32, [1600] * 32, plain,
+                                   1)
+    else:
+      out[case] = frame_reduce_ms(torch, sharded_scan, int(case[2:]), plain)
+  return out
+
+
+def main():
+  parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+  parser.add_argument('--parent', help='the older tree (driver mode)')
+  parser.add_argument('--tree', help='time this tree in this process')
+  parser.add_argument('--cases', nargs='+', default=list(CASES),
+                      choices=CASES)
+  parser.add_argument('--plain', action='store_true',
+                      help='time the plain versions')
+  args = parser.parse_args()
+  if args.tree:
+    print(json.dumps(run_tree(args.tree, args.cases, args.plain)))
+    return
+  if not args.parent:
+    parser.error('give --parent (driver) or --tree (one run)')
+  card = subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit',
+       '--format=csv,noheader'], capture_output=True, text=True,
+      check=False).stdout.strip()
+  print(card, flush=True)
+  here = str(pathlib.Path(__file__).resolve().parent.parent)
+  turns = [('plain', here, ['--plain']), ('parent', args.parent, []),
+           ('change', here, []), ('change', here, []),
+           ('parent', args.parent, [])]
+  results = []
+  for name, tree, flags in turns:
+    proc = subprocess.run(
+        [sys.executable, __file__, '--tree', tree, '--cases', *args.cases,
+         *flags], capture_output=True, text=True, check=False)
+    if proc.returncode != 0:
+      print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
+      sys.exit(f'{name} run failed')
+    ms = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f'{name}: ' + ', '.join(f'{c} {t:.4f} ms' for c, t in ms.items()),
+          flush=True)
+    results.append({'run': name, 'ms': ms})
+  print(json.dumps({'card': card, 'turns': results}))
+
+
+if __name__ == '__main__':
+  main()
