@@ -29,8 +29,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 3c. The joint+head kernels (``csrc/joint_head.cu``, ``JointWeightFn.apply``
    over every context state) against their plain versions: B in {1, 8},
    S in {1025, 4161, 1100}, V in {1024, 64, 1000}, h=512, float32 and
-   bfloat16, values and gradients; and S=1100, V=1001 (bfloat16 staged
-   without 16-byte loads).
+   bfloat16, values and gradients; and S=1100, V=1001 (the bfloat16
+   forward's stores through shared memory, rows not 16-byte aligned).
 4. Serving main path: ``GNATModel(presets.gnat_global_bigram(),
    device='cuda')`` with random weights from a seed decodes 8 requests at
    T_max=1600 through the kernel, is checked, and is compared with the same
@@ -149,6 +149,7 @@ nothing of JAX.
 import concurrent.futures
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -429,12 +430,48 @@ def phase_kernel_vs_plain(torch, viterbi):
   return lines
 
 
+# The wgmma kernels whose registers and spills phase 2 reports one by one
+# (the rest only as each library's range).
+WGMMA_KERNELS = ('lex_pass_kernel', 'head_grad_kernel', 'joint_grad_kernel',
+                 'lex_grad_kernel', 'joint_pass_kernel',
+                 'head_product_kernel')
+
+
+def ptxas_kernels(log):
+  """(mangled name, registers, spill store bytes, spill load bytes) of each
+  kernel in an ``nvcc -Xptxas -v`` log."""
+  kernels, name, spills = [], None, (0, 0)
+  for line in log.splitlines():
+    found = re.search(r"Compiling entry function '([^']+)'", line)
+    if found:
+      name = found.group(1)
+    found = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+    if found:
+      spills = int(found.group(1)), int(found.group(2))
+    found = re.search(r'Used (\d+) registers', line)
+    if found and name is not None:
+      kernels.append((name, int(found.group(1)), *spills))
+      name, spills = None, (0, 0)
+  return kernels
+
+
+def kernel_label(mangled, name):
+  """``name`` with its integer or bool template argument, if any, from a
+  mangled kernel name (``lex_pass_kernel<2>``, ``..._kernel<1>``)."""
+  found = re.search(name + r'IL[ib](n?)(\d+)E', mangled)
+  if not found:
+    return name
+  return f'{name}<{"-" if found.group(1) else ""}{found.group(2)}>'
+
+
 def phase_build(build, libraries):
   """Phase 2: builds every kernel library at once, one nvcc per source.
 
   ``libraries`` maps a csrc/ source to the module whose ``library()``
   builds and loads it. A stale library of each source is removed first.
-  Returns one report line per source.
+  Returns one report line per source, and one per source that holds wgmma
+  kernels with each one's registers and spills.
   """
   for source in libraries:
     build.library_path(source).unlink(missing_ok=True)
@@ -460,6 +497,14 @@ def phase_build(build, libraries):
                  f'{len(registers)} kernels, {min(registers)}-'
                  f'{max(registers)} registers, spill stores {spill_stores} B, '
                  f'spill loads {spill_loads} B')
+    wgmma = [f'{kernel_label(mangled, name)} {regs} registers, spills '
+             f'{stores}/{loads} B' for mangled, regs, stores, loads in
+             ptxas_kernels(log) for name in WGMMA_KERNELS
+             if name in mangled and
+             ('hopper' in mangled or 'head_grads' in mangled)]
+    if wgmma:
+      lines.append(f'{source} wgmma kernels (stores/loads): ' +
+                   '; '.join(wgmma))
   return lines
 
 
@@ -974,9 +1019,12 @@ def kernels_alone(torch, kernels, pf, pc, head, is_pad, g, kw, launches,
   torch.cuda.reset_peak_memory_stats()
   fwd_k, fwd_ms = timed(torch, lambda: kernels['forward'](
       pf, pc, head, is_pad, with_residuals=True, **kw))
+  peak = torch.cuda.max_memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
   bwd_k, bwd_ms = timed(torch, lambda: kernels['backward'](
       pf, pc, head, is_pad, fwd_k[0], g, fwd_k[2], fwd_k[3], **kw))
-  peak = torch.cuda.max_memory_allocated()
+  backward_peak = torch.cuda.max_memory_allocated()
+  peak = max(peak, backward_peak)
   if plain is None:
     fwd_p, plain_fwd_ms = timed(
         torch, lambda: kernels['forward_plain'](
@@ -1007,7 +1055,8 @@ def kernels_alone(torch, kernels, pf, pc, head, is_pad, g, kw, launches,
           f'h={hidden} FLD({kw["max_expansions"]}): forward kernel '
           f'{fwd_ms:.1f} ms, plain {plain_fwd_ms:.1f} ms; backward kernel '
           f'{bwd_ms:.1f} ms, plain {plain_bwd_ms:.1f} ms; peak device memory '
-          f'of the kernel pair {peak / 2**20:.0f} MiB ({resident / 2**20:.0f} '
+          f'of the kernel pair {peak / 2**20:.0f} MiB, of the backward '
+          f'{backward_peak / 2**20:.0f} MiB ({resident / 2**20:.0f} '
           f'MiB resident before); vs plain (|log Z| up to {log_z_max:.4g}, '
           f'gradient rtol {grad_rtol:.2e}): '
           + ', '.join(f'{n} {e:.2e}' for n, (e, _) in
@@ -1036,6 +1085,7 @@ def kernels_alone(torch, kernels, pf, pc, head, is_pad, g, kw, launches,
                          3 * flops, bwd_bytes),
       'plain': plain,
       'peak': peak,
+      'backward_peak': backward_peak,
   }
 
 
@@ -1160,13 +1210,11 @@ def kernel_record(name, source, replaces, launches, max_abs_err, ms,
           'library_ms': None, **extra}
 
 
-def device_profile(torch, fn):
+def device_spans(torch, fn):
   """Runs fn once under torch.profiler (CUDA activity only: host-side
   tracing of a train step's ~100k small ops would take minutes to
-  process). Returns (fn's result, report): kernels, device busy time (the
-  union of the kernels' intervals), the first-to-last-kernel window, the
-  idle share of that window, and the three kernels with the most device
-  time. The raw events are read where the profiler keeps them: building
+  process). Returns (fn's result, the sorted (start us, end us, name) of
+  its device activities), read from the profiler's raw events: building
   its event tree for a step of ~400k kernels takes minutes."""
   from torch.profiler import ProfilerActivity, profile
   torch.cuda.synchronize()
@@ -1180,6 +1228,23 @@ def device_profile(torch, fn):
   spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
                  for e in results.events() if e.device_type() == cuda)
   check(bool(spans), 'the profiler recorded no device activity')
+  return result, spans
+
+
+def device_ms(torch, fn, repeats):
+  """The device time of one call of fn: the summed durations of its device
+  activities over ``repeats`` calls under the profiler, per call, apart
+  from the host time that can bound a short call timed back to back."""
+  _, spans = device_spans(torch, lambda: [fn() for _ in range(repeats)])
+  return sum(stop - start for start, stop, _ in spans) / repeats / 1e3
+
+
+def device_profile(torch, fn):
+  """Runs fn once under torch.profiler (``device_spans``). Returns (fn's
+  result, report): kernels, device busy time (the union of the kernels'
+  intervals), the first-to-last-kernel window, the idle share of that
+  window, and the three kernels with the most device time."""
+  result, spans = device_spans(torch, fn)
   busy, end, by_name = 0.0, spans[0][0], {}
   for start, stop, name in spans:
     busy += max(0.0, stop - max(start, end))
@@ -1986,9 +2051,10 @@ def phase_config9(torch, lattices, contexts, alignments, weight_fns,
   """Phase 9b: bench.py's config 9 alone (V=4096, B=8, T=200, FLD(2),
   feature=emb=hidden=512, bf16): log Z and its gradients through
   ``log_partition(mode='online')``, counted; then each mode's kernels
-  alone against the plain versions, timed, with their peak device memory.
-  ``large_vocab`` is phase 9's (mode, launches). Returns the online
-  kernels' records."""
+  alone against the plain versions, timed, with their peak device memory
+  (the pair's and the backward's; the online backward's must stay below
+  the cache one's). ``large_vocab`` is phase 9's (mode, launches). Returns
+  the online kernels' records."""
   vocab, batch_size, max_t = 4096, 8, 200
   lattice, params = bench_lattice(torch, lattices, contexts, alignments,
                                   weight_fns, vocab)
@@ -2046,8 +2112,19 @@ def phase_config9(torch, lattices, contexts, alignments, weight_fns,
   say('config9', online_rec['line'])
   peak_mib = {mode: rec['peak'] / 2**20 for mode, rec in
               (('cache', cache_rec), ('online', online_rec))}
+  backward_peak_mib = {mode: rec['backward_peak'] / 2**20 for mode, rec in
+                       (('cache', cache_rec), ('online', online_rec))}
+  check(backward_peak_mib['online'] < backward_peak_mib['cache'],
+        f'config 9: the online backward\'s peak memory '
+        f'{backward_peak_mib["online"]:.0f} MiB is not below the cache '
+        f'mode\'s {backward_peak_mib["cache"]:.0f} MiB')
+  say('config9', 'backward peak device memory: ' + ', '.join(
+      f'{mode} {mib:.0f} MiB' for mode, mib in backward_peak_mib.items()) +
+      f'; online / cache backward time '
+      f'{online_rec["backward"]["ms"] / cache_rec["backward"]["ms"]:.3f}')
   return [dict(online_rec[key], launches_by_path=paths,
-               cache_mode_ms=cache_rec[key]['ms'], peak_mib=peak_mib)
+               cache_mode_ms=cache_rec[key]['ms'], peak_mib=peak_mib,
+               backward_peak_mib=backward_peak_mib)
           for key, paths in zip(('forward', 'backward'), by_path)]
 
 
@@ -2309,8 +2386,9 @@ def joint_head_pair(torch, joint_head, inputs, g_blank, g_lexical, dtype,
 def phase_joint_head_vs_plain(torch, joint_head):
   """Phase 3c: the joint+head kernels against their plain versions, B in
   {1, 8}, S in {1025, 4161, 1100}, V in {1024, 64, 1000}, h=512, float32
-  and bfloat16; and S=1100, V=1001, where bfloat16 stages without 16-byte
-  loads (V not a multiple of 4)."""
+  and bfloat16; and S=1100, V=1001, where the bfloat16 forward stores
+  through shared memory and the backward stages without 16-byte loads (V
+  not a multiple of 4)."""
   rng = np.random.default_rng(11)
   lines = []
   for states, vocab in [(s, v) for s in (1025, 4161, 1100)
@@ -2652,9 +2730,11 @@ def phase_joint_head_alone(torch, joint_head, launches):
   """Phase 11b: the joint+head kernels alone, timed against their plain
   versions and the library compositions, at the densified headline's
   per-frame shape (B=8, S=1025, V=1024, bf16) and the trigram probe's
-  (B=8, S=4161, V=64, float32, as phase 10's generic decode runs it).
-  Returns the kernels' JSON records (the headline shape's numbers, the
-  probe's beside them)."""
+  (B=8, S=4161, V=64, float32, as phase 10's generic decode runs it): per
+  call over 100 calls back to back (CUDA events; a call this short can be
+  bound by its host work) and, for the kernels, their device time per
+  call (the profiler). Returns the kernels' JSON records (the headline
+  shape's numbers, the probe's beside them)."""
   rng = np.random.default_rng(12)
   records = {}
   for tag, (states, vocab, dtype) in (
@@ -2679,7 +2759,9 @@ def phase_joint_head_alone(torch, joint_head, launches):
                      ('bwd_plain', bwd_plain), ('lib_fwd', lib_fwd),
                      ('lib_bwd', lib_bwd)):
       fn()  # warm-up
-      times[name] = timed(torch, fn, repeats=10)[1]
+      times[name] = timed(torch, fn, repeats=100)[1]
+    device = {'fwd': device_ms(torch, fwd, 100),
+              'bwd': device_ms(torch, bwd, 100)}
     name = str(dtype)[6:]
     errors = max_errors(torch, fwd(), fwd_plain(), JH_VALUE_NAMES,
                         JH_RTOL[name])
@@ -2689,22 +2771,24 @@ def phase_joint_head_alone(torch, joint_head, launches):
     fwd_bytes = nbytes(*inputs.values()) + nbytes(*fwd())
     bwd_bytes = (nbytes(*head, g_blank, g_lexical) + nbytes(*bwd()))
     say('joint-head-alone', f'{tag} shape B={batch} S={states} V={vocab} '
-        f'h={hidden} {name}: forward kernel {times["fwd"]:.3f} ms, plain '
-        f'{times["fwd_plain"]:.3f} ms, library (tanh + addmm) '
-        f'{times["lib_fwd"]:.3f} ms, bound '
-        f'{bound(flops, fwd_bytes, name)[0]:.3f} ms; backward kernel '
-        f'{times["bwd"]:.3f} ms, plain {times["bwd_plain"]:.3f} ms, library '
-        f'(mm, tanh derivative, mm) {times["lib_bwd"]:.3f} ms, bound '
-        f'{bound(2 * flops, bwd_bytes, name)[0]:.3f} ms; vs plain: '
+        f'h={hidden} {name}: forward kernel {times["fwd"]:.4f} ms (device '
+        f'{device["fwd"]:.4f}), plain {times["fwd_plain"]:.3f} ms, library '
+        f'(tanh + addmm) {times["lib_fwd"]:.3f} ms, bound '
+        f'{bound(flops, fwd_bytes, name)[0]:.4f} ms; backward kernel '
+        f'{times["bwd"]:.4f} ms (device {device["bwd"]:.4f}), plain '
+        f'{times["bwd_plain"]:.3f} ms, library (mm, tanh derivative, mm) '
+        f'{times["lib_bwd"]:.3f} ms, bound '
+        f'{bound(2 * flops, bwd_bytes, name)[0]:.4f} ms; vs plain: '
         + ', '.join(f'{n} {e:.2e}' for n, (e, _) in errors.items()))
     value_err = max(errors[n][1] for n in ('blank', 'lexical'))
     grad_err = max(errors[n][1] for n in ('d_pc', 'd_pf', 'd_vocab_w',
                                           'd_blank_w'))
-    for key, (ms, plain_ms, lib_ms, ops, traffic, err) in {
-        'forward': (times['fwd'], times['fwd_plain'], times['lib_fwd'],
-                    flops, fwd_bytes, value_err),
-        'backward': (times['bwd'], times['bwd_plain'], times['lib_bwd'],
-                     2 * flops, bwd_bytes, grad_err)}.items():
+    for key, (ms, dev_ms, plain_ms, lib_ms, ops, traffic, err) in {
+        'forward': (times['fwd'], device['fwd'], times['fwd_plain'],
+                    times['lib_fwd'], flops, fwd_bytes, value_err),
+        'backward': (times['bwd'], device['bwd'], times['bwd_plain'],
+                     times['lib_bwd'], 2 * flops, bwd_bytes,
+                     grad_err)}.items():
       if tag == 'headline':
         record = kernel_record(
             f'joint_head_{key}', 'joint_head.cu',
@@ -2712,13 +2796,15 @@ def phase_joint_head_alone(torch, joint_head, launches):
             sum(v[f'{key}_launches'] for v in launches.values()), err, ms,
             plain_ms, ops, traffic, name,
             launches_by_path={p: v[f'{key}_launches']
-                              for p, v in launches.items()})
+                              for p, v in launches.items()},
+            device_ms=dev_ms)
         record['library_ms'] = lib_ms
         records[key] = record
       else:
         bound_ms = bound(ops, traffic, name)[0]
-        records[key].update(probe_ms=ms, probe_plain_ms=plain_ms,
-                            probe_library_ms=lib_ms, probe_bound_ms=bound_ms)
+        records[key].update(probe_ms=ms, probe_device_ms=dev_ms,
+                            probe_plain_ms=plain_ms, probe_library_ms=lib_ms,
+                            probe_bound_ms=bound_ms)
   return records
 
 

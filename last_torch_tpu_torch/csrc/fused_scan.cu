@@ -75,15 +75,15 @@
 //   at most about 1, so the TPU's factored form and its clip at 80
 //   (fused_scan.py:468-474) are not needed; padding rows and padded states
 //   never enter a sum, so all-padding rows and g = 0 rows give exact zeros.
-// * Forward, the float32 comparison mode, 'online', the trigram and the
-//   marginals: tile_product.cuh's 64 x 64 tiles (WMMA in bfloat16, FMAs in
-//   float32). The forward's first reduction runs in the epilogue of the
-//   head product; with two or more per frame the product stores lex
-//   (float32) for the others: at B=32 (134 MB, beyond the 50 MB L2) that
-//   beat recomputing the WMMA product, 1.02 s against 1.74 s for the
-//   T=1600 FLD(2) forward (H100 80GB HBM3, 700 W).
-// * The bfloat16 'cache' backward (namespace hopper) runs its products on
-//   wgmma (wgmma_tiles.cuh: m64n128k16 from shared memory, operands brought
+// * Forward, the float32 comparison mode, the trigram and the marginals:
+//   tile_product.cuh's 64 x 64 tiles (WMMA in bfloat16, FMAs in float32).
+//   The forward's first reduction runs in the epilogue of the head product;
+//   with two or more per frame the product stores lex (float32) for the
+//   others: at B=32 (134 MB, beyond the 50 MB L2) that beat recomputing the
+//   WMMA product, 1.02 s against 1.74 s for the T=1600 FLD(2) forward
+//   (H100 80GB HBM3, 700 W).
+// * The bfloat16 backward (namespace hopper, both modes) runs its products
+//   on wgmma (wgmma_tiles.cuh: m64n128k16 from shared memory, operands brought
 //   by TMA through a 4-stage mbarrier ring, two blocks an SM), over each
 //   frame's live rows only: the host counts them once per call and lists
 //   them first, so padding rows launch nothing and the grids shrink with
@@ -105,21 +105,30 @@
 //   beside its lex strip needs more registers than two blocks an SM
 //   leave.
 
-// 'online' mode (large V). The staged buffers above are [B, S, V]: 537 MB
-// of float32 lex per frame at B=8, V=4096, growing as V^2. The online mode
-// keeps no buffer of that size, as the TPU's online kernels kept no lexical
-// cache: every reduction recomputes the head product for its (state tile,
-// label strip) tiles (the same kCompute path the cache forward takes for a
-// frame's only reduction), so FLD(k) costs k products per frame in the
-// forward and k + 3 in the backward (k row reductions, the marginals, the
-// two gradient products) against 1 and 3. The backward forms d_lex for a
-// chunk of states at a time ([B, chunk, V] in the compute type, chunk a
-// fixed number of states) and runs both gradient products on it before the
-// next chunk. Per frame the online mode holds the joint [B, S, h] (in the
-// compute type, as the cache mode) and O(B S + B V) beside it. The forward's
-// expansion slabs are read by the backward in both modes, where the TPU's
-// online backward replayed them.
-//
+// 'online' mode (large V). The staged buffers of the cache mode are [B, S,
+// V]: the forward's float32 lex (537 MB per frame at B=8, V=4096) and the
+// backward's bfloat16 d_lex (268 MB there, 4.3 GB at V=16384), growing as
+// V^2. The online mode keeps no buffer of that size, as the TPU's online
+// kernels kept no lexical cache. Its forward recomputes the head product
+// for every reduction (the kCompute path the cache forward takes for a
+// frame's only reduction): FLD(k) costs k products per frame against 1.
+// Its bfloat16 backward is the cache mode's wgmma frame loop with the last
+// row reduction, its merge and both gradient products run per chunk of
+// states: the chunk's marginals go to a d_lex of [B, chunk, Vp] (chunk a
+// multiple of 64 states, 1024 from ops/fused_scan.py: 67 MB at B=8,
+// V=4096, against 268 MB for all S), its own TMA map so that no load reads
+// past it, and the two products read it before the next chunk overwrites
+// it. The products are the cache mode's, k + 2 per frame for FLD(k), and
+// so are the other buffers: the joint (bfloat16 and float32, [B, S, h])
+// and d_pc carried in registers over [dsplits, S, h]. Launches per frame:
+// the joint, 2 per earlier reduction, 4 per chunk (reduction, merge, two
+// products) and d(pf): 24 at B=8, V=4096, FLD(2) (5 chunks), against 8 in
+// 'cache'. The float32 online backward keeps its WMMA tiles: the last
+// reduction's marginals recomputed by marginal_kernel<kCompute> per chunk,
+// then head_grad_kernel and joint_grad_kernel on tile_product.cuh, d_pc in
+// a float32 [B, S, h] buffer. The forward's expansion slabs are read by the
+// backward in both modes, where the TPU's online backward replayed them.
+
 // Marginals (the confidence API). The backward's recurrence with g = 1 and
 // no gradient products: per frame the blank posteriors
 //   bm[b, s] = sum_j exp(a_j + blank + beta - log_z)
@@ -599,8 +608,9 @@ __global__ void __launch_bounds__(kThreads)
 // Merges the splits of a backward reduction into the next nb:
 // out = logaddexp(blank + beta, lse). The final one writes the next beta
 // (held on padding rows), d_blank and its running sum. One thread per
-// (b, s). Without g (the marginals) the cotangent is 1 and d_blank is the
-// blank posterior; without dbb_acc no sum is kept.
+// (b, s) for the states [s_begin, s_begin + s_count). Without g (the
+// marginals) the cotangent is 1 and d_blank is the blank posterior; without
+// dbb_acc no sum is kept.
 __global__ void __launch_bounds__(kPointThreads)
     row_merge_kernel(const float* __restrict__ part_m,
                      const float* __restrict__ part_l, int splits,
@@ -613,10 +623,11 @@ __global__ void __launch_bounds__(kPointThreads)
                      const float* __restrict__ g,      // [B] or null
                      float* __restrict__ d_blank,      // [B, S]
                      float* __restrict__ dbb_acc,      // [B, S] or null
-                     int B, int S) {
-  const int idx = blockIdx.x * kPointThreads + threadIdx.x;
-  if (idx >= B * S) return;
-  const int b = idx / S;
+                     int B, int S, int s_begin, int s_count) {
+  const int i = blockIdx.x * kPointThreads + threadIdx.x;
+  if (i >= B * s_count) return;
+  const int b = i / s_count;
+  const size_t idx = static_cast<size_t>(b) * S + s_begin + i % s_count;
   const float bt = beta[idx];
   if (is_pad_t[b]) {
     if (final_stage) {
@@ -626,6 +637,9 @@ __global__ void __launch_bounds__(kPointThreads)
     return;
   }
   float m = -INFINITY, l = 0.f;
+  // Unrolled so that the loads of several splits are in flight at once:
+  // with few rows (one chunk of states) the merge is latency-bound.
+#pragma unroll 8
   for (int z = 0; z < splits; ++z) {
     const size_t at = static_cast<size_t>(z) * B * S + idx;
     lse_merge(m, l, part_m[at], part_l[at]);
@@ -1097,13 +1111,13 @@ struct ReverseScan {
       row_merge_kernel<<<blocks_for(bs), kPointThreads, 0, stream>>>(
           part_m, part_l, ysplits, is_pad_t, blank, beta_cur,
           final_stage ? beta_next : nb + (k - 2 - p) * bs, final_stage,
-          alphas, log_z, g, d_blank, dbb_acc, B, S);
+          alphas, log_z, g, d_blank, dbb_acc, B, S, 0, S);
       RETURN_IF_LAUNCH_FAILED();
     }
     if (passes == 0) {  // FLD(0): the next beta is blank + beta
       row_merge_kernel<<<blocks_for(bs), kPointThreads, 0, stream>>>(
           part_m, part_l, 0, is_pad_t, blank, beta_cur, beta_next, 1, alphas,
-          log_z, g, d_blank, dbb_acc, B, S);
+          log_z, g, d_blank, dbb_acc, B, S, 0, S);
       RETURN_IF_LAUNCH_FAILED();
     }
     pairs.n = passes;
@@ -1121,23 +1135,26 @@ struct ReverseScan {
 };
 
 // ---------------------------------------------------------------------------
-// The bfloat16 'cache' backward of the bigram on wgmma (FD and FLD(k >= 1)).
+// The bfloat16 backward of the bigram on wgmma (FD and FLD(k >= 1)), in
+// either mode: 'cache' forms d_lex for all S states at once, 'online' for
+// a chunk of them at a time.
 namespace hopper {
 
 using namespace head_grads;
 using wgmma_tiles::kBK;
 using wgmma_tiles::kBN;
 
-// One row reduction of a frame over its live rows: the head product of a
-// (64-state tile, 128-label strip) on wgmma, A = joint [B, S, hp]
-// (K-major), B = vw [hp, Vp] (MN-major), then lex = product + vb and the
-// strip's online (max, sum) of lex + nbv[1 + y] per state into part_m /
-// part_l [strips, B, S]. The
-// last reduction of the frame (Last) also forms the lexical marginals
+// One row reduction of a frame over its live rows and the states
+// [s_begin, s_begin + s_count) (s_begin a multiple of 64): the head
+// product of a (64-state tile, 128-label strip) on wgmma, A = joint [B, S,
+// hp] (K-major), B = vw [hp, Vp] (MN-major), then lex = product + vb and
+// the strip's online (max, sum) of lex + nbv[1 + y] per state into part_m /
+// part_l [strips, B, S]. The last reduction of the frame (Last) also forms
+// the lexical marginals
 //   d_lex[s, y] = bf16(g * sum_p exp(a_p[s] + lex[s, y] + nb_p[1 + y]
 //                                    - log_z))
-// into d_lex [B, S, Vp] (zero past V), and adds their column sums over the
-// tile to dvb [B, ceil(S / 64), V].
+// into d_lex [B, s_count, Vp] (row s at s - s_begin, zero past V), and adds
+// their column sums over the tile to dvb [B, ceil(S / 64), V].
 struct LexPass {
   const float* vb;       // [V]
   const float* nbv;      // [B, S]
@@ -1150,6 +1167,7 @@ struct LexPass {
   bf16* d_lex;
   float* dvb;
   int B, S, hp, V, Vp;
+  int s_begin, s_count;  // the states of this launch
 };
 
 // Epilogue scratch: the strip's vb and nbv[1 + y] (and each pair's
@@ -1163,17 +1181,18 @@ constexpr int lex_pass_extra() {
 
 // NPairs > 0: the last reduction with that many (a_p, nb_p) pairs, known
 // at compile time (FD, FLD(1): 1; FLD(2): 2); -1: the last reduction with
-// pairs.n of them; 0: an earlier reduction. Grid (live rows * ceil(S /
-// 64), ceil(Vp / 128)).
+// pairs.n of them; 0: an earlier reduction. Grid (live rows * ceil(s_count
+// / 64), ceil(Vp / 128)).
 template <int NPairs>
 __global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
     lex_pass_kernel(const __grid_constant__ Maps maps, const LexPass p) {
   constexpr bool Last = NPairs != 0;
   extern __shared__ uint8_t raw[];
   const Ring<4> ring(raw);
-  const int row_tiles = cdiv(p.S, 64);
-  const int b = p.rows[blockIdx.x / row_tiles];
-  const int s0 = blockIdx.x % row_tiles * 64, n0 = blockIdx.y * kBN;
+  const int launch_tiles = cdiv(p.s_count, 64);
+  const int b = p.rows[blockIdx.x / launch_tiles];
+  const int s0 = p.s_begin + blockIdx.x % launch_tiles * 64;
+  const int n0 = blockIdx.y * kBN, s_end = p.s_begin + p.s_count;
   const size_t row0 = static_cast<size_t>(b) * p.S;
   if (ring.producer()) {
     produce(ring, p.hp / kBK, [&](int q, uint8_t* a, uint8_t* bt,
@@ -1250,8 +1269,10 @@ __global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int s = srow[half];
-      if (s < p.S && y0 < p.Vp) {
-        *reinterpret_cast<__nv_bfloat162*>(p.d_lex + (row0 + s) * p.Vp + y0) =
+      if (s < s_end && y0 < p.Vp) {
+        const size_t at =
+            static_cast<size_t>(b) * p.s_count + (s - p.s_begin);
+        *reinterpret_cast<__nv_bfloat162*>(p.d_lex + at * p.Vp + y0) =
             __floats2bfloat162_rn(dv[half][0], dv[half][1]);
       }
     }
@@ -1277,7 +1298,7 @@ __global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
     for (int half = 0; half < 2; ++half) {
 #pragma unroll
       for (int q = 0; q < kP; ++q) {
-        arow[q][half] = srow[half] < p.S
+        arow[q][half] = srow[half] < s_end
                             ? p.pairs.a[q][row0 + srow[half]] - lz
                             : -INFINITY;
       }
@@ -1295,7 +1316,7 @@ __global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           float v = 0.f;
-          if (srow[half] < p.S && y < p.V) {
+          if (srow[half] < s_end && y < p.V) {
             const float x = d[j * 4 + half * 2 + e];
             const float row = expf(x + nbv[c] - safe_shift(m[half]));
             l[half] += row;
@@ -1333,7 +1354,7 @@ __global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
       l[half] += __shfl_xor_sync(0xffffffffu, l[half], o);
     }
     const int s = srow[half];
-    if (lane % 4 == 0 && s < p.S) {
+    if (lane % 4 == 0 && s < s_end) {
       const size_t at = (static_cast<size_t>(blockIdx.y) * p.B + b) * p.S + s;
       p.part_m[at] = m[half];
       p.part_l[at] = l[half];
@@ -1350,7 +1371,7 @@ __global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
         for (int half = 0; half < 2; ++half) {
           const int s = srow[half];
           float v = 0.f;
-          if (s < p.S && y < p.V) {
+          if (s < s_end && y < p.V) {
             const float x = d[j * 4 + half * 2 + e] - lz;
             float total = 0.f;
             for (int q = 0; q < p.pairs.n; ++q) {
@@ -1372,7 +1393,7 @@ __global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
       float total = 0.f;
 #pragma unroll
       for (int w = 0; w < 4; ++w) total += red[w * kBN + t];
-      p.dvb[(static_cast<size_t>(b) * row_tiles + s0 / 64) * p.V + y] +=
+      p.dvb[(static_cast<size_t>(b) * cdiv(p.S, 64) + s0 / 64) * p.V + y] +=
           total;
     }
   }
@@ -1385,8 +1406,8 @@ cudaError_t launch_lex_pass(const Maps& maps, const LexPass& p, int live,
   const cudaError_t err = allow_smem<lex_pass_kernel<NPairs>>(kSmem);
   if (err != cudaSuccess) return err;
   lex_pass_kernel<NPairs>
-      <<<dim3(live * cdiv(p.S, 64), cdiv(p.Vp, kBN)), wgmma_tiles::kThreads,
-         kSmem, stream>>>(maps, p);
+      <<<dim3(live * cdiv(p.s_count, 64), cdiv(p.Vp, kBN)),
+         wgmma_tiles::kThreads, kSmem, stream>>>(maps, p);
   return cudaGetLastError();
 }
 
@@ -1397,11 +1418,15 @@ cudaError_t launch_lex_pass(const Maps& maps, const LexPass& p, int live,
   } while (0)
 
 // The frame loop. Per frame t with live[t] > 0 rows (their indices first in
-// rows[t]): the joint and blank (joint_blank_kernel, rows hp apart), the k
-// row reductions (lex_pass_kernel, the last one with the marginals), each
-// merged by row_merge_kernel, then the two gradient products over the live
-// rows (head_grads.cuh) and the frame's d(pf). A frame with no live row
-// only holds beta. Then the sums of the cross-frame partials.
+// rows[t]): the joint and blank (joint_blank_kernel, rows hp apart), the
+// k - 1 earlier row reductions over all states (lex_pass_kernel<0>, each
+// merged by row_merge_kernel), then per chunk of `chunk` states (all S of
+// them in 'cache' mode, a multiple of 64 in 'online' mode, the last chunk
+// ragged) the last row reduction with the marginals into d_lex [B, chunk,
+// Vp], its merge (the next beta and d_blank of the chunk's states) and the
+// two gradient products over the live rows (head_grads.cuh), and the
+// frame's d(pf). A frame with no live row only holds beta. Then the sums of
+// the cross-frame partials.
 int run_backward(const float* pf, const float* pc, const bf16* vw,
                  const float* vb, const bf16* bw, const float* bw32,
                  const float* bb, const int* is_pad, const float* log_z,
@@ -1413,20 +1438,28 @@ int run_backward(const float* pf, const float* pc, const bf16* vw,
                  float* dbb_acc, float* dpc, float* dvw, float* dvb,
                  float* dbw, float* dbb, int T, int B, int S, int h, int V,
                  int max_expansions, int frame_dependent, int ksplits,
-                 int dsplits, const int* live, const int* rows,
+                 int dsplits, const int* live, const int* rows, int chunk,
                  cudaStream_t stream) {
   const int k = frame_dependent ? 0 : max_expansions;
   const int passes = frame_dependent ? 1 : max_expansions;
   if (passes < 1 || k + 1 > kMaxAlphas || ksplits < 1 || dsplits < 1 ||
-      (T > 0 && live == nullptr)) {
+      (T > 0 && live == nullptr) || chunk < 1 ||
+      (chunk < S && chunk % 64 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  chunk = std::min(chunk, S);
   const int hp = round_up(h, kBK), Vp = round_up(V, kBK);
   const int strips = cdiv(Vp, kBN), t64 = cdiv(S, 64);
   const size_t bs = static_cast<size_t>(B) * S;
-  Maps maps;
+  // d_lex holds one chunk: a map of the whole chunk and one of the ragged
+  // last, so that TMA reads nothing past the buffer.
+  Maps maps, last_maps;
   if (B > 0 && S > 0) {
-    RETURN_IF_ERROR(make_maps(&maps, joint, d_lex, vw, B, S, hp, Vp));
+    RETURN_IF_ERROR(make_maps(&maps, joint, d_lex, vw, B, S, chunk, hp, Vp));
+    last_maps = maps;
+    if (S % chunk != 0) {
+      RETURN_IF_ERROR(lex_map(&last_maps.d_lex, d_lex, B, S % chunk, Vp));
+    }
   }
   for (int n = 0; n < T; ++n) {
     const int t = T - 1 - n, L = live[t];
@@ -1456,32 +1489,49 @@ int run_backward(const float* pf, const float* pc, const bf16* vw,
     }
     for (int p = 0; p < passes; ++p) {
       const bool last = p == passes - 1;
-      if (L > 0) {
-        const LexPass lp{vb,
-                         frame_dependent ? beta_cur : nb + (k - 1 - p) * bs,
-                         part_m, part_l, rows_t, pairs, log_z, g, d_lex,
-                         dvb_acc, B, S, hp, V, Vp};
-        RETURN_IF_ERROR(
-            !last ? launch_lex_pass<0>(maps, lp, L, stream)
-            : passes == 1 ? launch_lex_pass<1>(maps, lp, L, stream)
-            : passes == 2 ? launch_lex_pass<2>(maps, lp, L, stream)
-                          : launch_lex_pass<-1>(maps, lp, L, stream));
+      LexPass lp{vb, frame_dependent ? beta_cur : nb + (k - 1 - p) * bs,
+                 part_m, part_l, rows_t, pairs, log_z, g, d_lex, dvb_acc, B,
+                 S, hp, V, Vp, 0, S};
+      if (!last) {
+        if (L > 0) RETURN_IF_ERROR(launch_lex_pass<0>(maps, lp, L, stream));
+        row_merge_kernel<<<blocks_for(bs), kPointThreads, 0, stream>>>(
+            part_m, part_l, L > 0 ? strips : 0, is_pad_t, blank, beta_cur,
+            nb + (k - 2 - p) * bs, 0, alphas, log_z, g, d_blank, dbb_acc, B,
+            S, 0, S);
+        RETURN_IF_ERROR(cudaGetLastError());
+        continue;
       }
-      row_merge_kernel<<<blocks_for(bs), kPointThreads, 0, stream>>>(
-          part_m, part_l, L > 0 ? strips : 0, is_pad_t, blank, beta_cur,
-          last ? beta_next : nb + (k - 2 - p) * bs, last, alphas, log_z, g,
-          d_blank, dbb_acc, B, S);
-      RETURN_IF_ERROR(cudaGetLastError());
-    }
-    if (L > 0) {
-      RETURN_IF_ERROR(launch_head_grad(
-          maps, HeadGrad{rows_t, dvw_acc, L, S, h, V, 1}, hp, Vp, ksplits,
-          stream));
-      RETURN_IF_ERROR(launch_joint_grad(
-          maps,
-          JointGrad{bw32, d_blank, joint32, rows_t, dpf_part, dbw_acc,
-                    dpc_acc, L, B, S, h, Vp, 1},
-          hp, std::min(dsplits, L), stream));
+      // The last reduction, chunk by chunk (one chunk of S when no row is
+      // live: the merge alone holds beta).
+      const int step = L > 0 ? chunk : S;
+      for (int s_begin = 0; s_begin < S; s_begin += step) {
+        const int count = std::min(step, S - s_begin);
+        const Maps& m = count == chunk ? maps : last_maps;
+        lp.s_begin = s_begin;
+        lp.s_count = count;
+        if (L > 0) {
+          RETURN_IF_ERROR(
+              passes == 1   ? launch_lex_pass<1>(m, lp, L, stream)
+              : passes == 2 ? launch_lex_pass<2>(m, lp, L, stream)
+                            : launch_lex_pass<-1>(m, lp, L, stream));
+        }
+        row_merge_kernel<<<blocks_for(static_cast<size_t>(B) * count),
+                           kPointThreads, 0, stream>>>(
+            part_m, part_l, L > 0 ? strips : 0, is_pad_t, blank, beta_cur,
+            beta_next, 1, alphas, log_z, g, d_blank, dbb_acc, B, S, s_begin,
+            count);
+        RETURN_IF_ERROR(cudaGetLastError());
+        if (L > 0) {
+          RETURN_IF_ERROR(launch_head_grad(
+              m, HeadGrad{rows_t, dvw_acc, L, count, h, V, 1, s_begin}, hp,
+              Vp, ksplits, stream));
+          RETURN_IF_ERROR(launch_joint_grad(
+              m,
+              JointGrad{bw32, d_blank, joint32, rows_t, dpf_part, dbw_acc,
+                        dpc_acc, L, B, S, h, Vp, 1, s_begin, count},
+              hp, std::min(dsplits, L), stream));
+        }
+      }
     }
     dpf_reduce_kernel<<<blocks_for(static_cast<size_t>(B) * h), kPointThreads,
                         0, stream>>>(dpf_part, is_pad_t,
@@ -1520,8 +1570,9 @@ int run_backward(const float* pf, const float* pc, const T* vw,
   const ReverseScan scan(B, S, h, V, max_expansions, frame_dependent,
                          max_ysplits);
   if (scan.k + 1 > kMaxAlphas) return static_cast<int>(cudaErrorInvalidValue);
-  // Cache: one chunk of all S states over the staged lex. Online: chunks of
-  // whole tiles, lex recomputed; d_lex holds one chunk.
+  // Cache: one chunk of all S states over the staged lex. Online (float32
+  // here; bfloat16 runs in hopper::run_backward): chunks of whole tiles,
+  // lex recomputed; d_lex holds one chunk.
   const int chunk = online ? chunk_states : S;
   if (chunk <= 0 || (chunk < S && chunk % kBM != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1650,7 +1701,7 @@ int backward_entry(int dtype, const float* pf, const float* pc,
                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int passes = frame_dependent ? 1 : max_expansions;
-  if (!TRI && dtype == 1 && !online && passes >= 1) {
+  if (!TRI && dtype == 1 && passes >= 1) {  // either mode
     using hopper::bf16;
     return hopper::run_backward(
         pf, pc, static_cast<const bf16*>(vw), vb,
@@ -1659,7 +1710,7 @@ int backward_entry(int dtype, const float* pf, const float* pc,
         static_cast<bf16*>(d_lex), d_blank, part_m, part_l, nb, beta, dpf,
         dpf_part, dpc_acc, dvw_acc, dvb_acc, dbw_acc, dbb_acc, dpc, dvw, dvb,
         dbw, dbb, num_frames, B, S, h, V, max_expansions, frame_dependent,
-        max_ksplits, dsplits, live, rows, s);
+        max_ksplits, dsplits, live, rows, online ? chunk_states : S, s);
   }
   if (dtype == 0) {
     return run_backward<float, TRI>(
@@ -1734,15 +1785,16 @@ int fused_forward(int dtype, const float* pf, const float* pc, const void* vw,
 // [max_ksplits, h, V], dvb_acc [B, ceil(S/64), V], dbw_acc [B, ceil(S/64),
 // h], dbb_acc [B, S]; outputs dpf [T, B, h], dpc [S, h], dvw [h, V], dvb
 // [V], dbw [h], dbb [1].
-// In bfloat16, 'cache' mode, FD or FLD(k >= 1), the frames run on the
-// wgmma kernels of `hopper` over their live rows: live [T] (host memory)
-// counts each frame's real rows and rows [T, B] (device) lists them first.
-// Then vw and joint are padded: vw [hp, Vp], joint [B, S, hp] (hp, Vp: h and
-// V rounded up to 64, vw's padding zero), with joint32 [B, S, h] (float32)
-// beside it; d_lex is [B, S, Vp]; part_m / part_l are [ceil(Vp / 128), B,
-// S]; dpc_acc is [dsplits, S, h] and dvw_acc [max_ksplits, h, V], every
-// split used; lex is not used (each row reduction recomputes the head
-// product) and may be null. Elsewhere live, rows and joint32 may be null.
+// In bfloat16, FD or FLD(k >= 1), either mode, the frames run on the wgmma
+// kernels of `hopper` over their live rows: live [T] (host memory) counts
+// each frame's real rows and rows [T, B] (device) lists them first. Then vw
+// and joint are padded: vw [hp, Vp], joint [B, S, hp] (hp, Vp: h and V
+// rounded up to 64, vw's padding zero), with joint32 [B, S, h] (float32)
+// beside it; d_lex is [B, S, Vp] in 'cache' mode and [B, chunk_states, Vp]
+// in 'online' mode; part_m / part_l are [ceil(Vp / 128), B, S]; dpc_acc is
+// [dsplits, S, h] and dvw_acc [max_ksplits, h, V], every split used; lex is
+// not used (each row reduction recomputes the head product) and may be
+// null. Elsewhere live, rows and joint32 may be null.
 int fused_backward(int dtype, const float* pf, const float* pc,
                    const void* vw, const float* vb, const void* bw,
                    const float* bw32, const float* bb, const int* is_pad,

@@ -61,7 +61,8 @@ __device__ __forceinline__ void put(float* out, float v, int accumulate) {
 struct HeadGrad {
   const int* rows;  // the live rows (null: 0..live-1)
   float* out;       // [splits, h, V]
-  int live, S, h, V, accumulate;
+  int live, S, h, V, accumulate;  // S: the states of d_lex (the chunk's)
+  int s_begin;      // the chunk's first state in the joint
 };
 
 // Grid (hp / 64, ceil(Vp / 128), splits).
@@ -79,7 +80,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     produce(ring, tiles, [&](int q, uint8_t* a, uint8_t* b, uint64_t* bar) {
       const int kq = k_begin + q;
       const int row = live_row(p.rows, kq / t64), s0 = kq % t64 * 64;
-      tma_load(a, maps.joint, m0, s0, row, bar);
+      tma_load(a, maps.joint, m0, p.s_begin + s0, row, bar);
       tma_load(b, maps.d_lex, n0, s0, row, bar);
       tma_load(b + kBox, maps.d_lex, n0 + 64, s0, row, bar);
     });
@@ -111,17 +112,20 @@ struct JointGrad {
   float* dbw;             // [B, ceil(S / 64), h]
   float* dpc;             // [splits, S, h]
   int live, B, S, h, Vp, accumulate;
+  int s_begin, s_count;   // the chunk of states that d_lex holds
 };
 
 // Epilogue scratch: per consumer warp, two rows of kBN column sums.
 constexpr int kJointGradExtra = 4 * 2 * kBN * 4;
 
-// Grid (ceil(S / 64), ceil(hp / 128), splits), splits <= live.
+// Grid (ceil(s_count / 64), ceil(hp / 128), splits), splits <= live.
 __global__ void __launch_bounds__(kThreads, 2)
     joint_grad_kernel(const __grid_constant__ Maps maps, const JointGrad p) {
   extern __shared__ uint8_t raw[];
   const Ring<4> ring(raw);
-  const int s0 = blockIdx.x * kRows, n0 = blockIdx.y * kBN;
+  // s0 among the S states, c0 among the chunk's (d_lex's rows).
+  const int c0 = blockIdx.x * kRows, s0 = p.s_begin + c0, n0 = blockIdx.y * kBN;
+  const int s_end = p.s_begin + p.s_count;
   const int r_begin = p.live * blockIdx.z / gridDim.z;
   const int segments = p.live * (blockIdx.z + 1) / gridDim.z - r_begin;
   const int kts = p.Vp / kBK;
@@ -129,7 +133,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     produce(ring, segments * kts, [&](int q, uint8_t* a, uint8_t* b,
                                       uint64_t* bar) {
       const int row = live_row(p.rows, r_begin + q / kts), k0 = q % kts * kBK;
-      tma_load(a, maps.d_lex, k0, s0, row, bar);
+      tma_load(a, maps.d_lex, k0, c0, row, bar);
       tma_load(b, maps.vw, k0, n0, bar);
       tma_load(b + kBox, maps.vw, k0, n0 + 64, bar);
     });
@@ -152,7 +156,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const size_t row = static_cast<size_t>(b) * p.S + srow[half];
-      db[half] = srow[half] < p.S ? p.d_blank[row] : 0.f;
+      db[half] = srow[half] < s_end ? p.d_blank[row] : 0.f;
       jrow[half] = p.joint32 + row * p.h;
     }
 #pragma unroll
@@ -166,7 +170,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
             const int s = srow[half], i = j * 4 + half * 2 + e;
-            if (s < p.S) {
+            if (s < s_end) {
               const float jt = jrow[half][hh];
               const float dp = fmaf(db[half], bw, acc[i]) * (1.f - jt * jt);
               dpc[i] += dp;
@@ -214,7 +218,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
   for (int i = 0; i < 64; ++i) {
     const int s = srow[(i >> 1) & 1], hh = n0 + acc_col(i);
-    if (s < p.S && hh < p.h) {
+    if (s < s_end && hh < p.h) {
       put(out + static_cast<size_t>(s) * p.h + hh, dpc[i], p.accumulate);
     }
   }
@@ -268,7 +272,7 @@ cudaError_t launch_joint_grad(const Maps& maps, const JointGrad& p, int hp,
   constexpr int kSmem = smem_bytes(4, kJointGradExtra);
   const cudaError_t err = allow_smem<joint_grad_kernel>(kSmem);
   if (err != cudaSuccess) return err;
-  joint_grad_kernel<<<dim3(cdiv(p.S, kRows), cdiv(hp, kBN), splits),
+  joint_grad_kernel<<<dim3(cdiv(p.s_count, kRows), cdiv(hp, kBN), splits),
                       kThreads, kSmem, stream>>>(maps, p);
   return cudaGetLastError();
 }

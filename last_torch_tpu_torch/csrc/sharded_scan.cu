@@ -607,7 +607,7 @@ int backward(const float* vec, const float* pf, const float* pc,
                                       h, hp, V, Vp);
   RETURN_IF_LAUNCH_FAILED();
   Maps maps;
-  RETURN_IF_FAILED(make_maps(&maps, joint, d_lex, vw16, B, S, hp, Vp));
+  RETURN_IF_FAILED(make_maps(&maps, joint, d_lex, vw16, B, S, S, hp, Vp));
   constexpr int kSmem = smem_bytes(4, kLexGradExtra);
   RETURN_IF_FAILED(allow_smem<lex_grad_kernel>(kSmem));
   lex_grad_kernel<<<dim3(B * t64, strips), wgmma_tiles::kThreads, kSmem, s>>>(
@@ -617,7 +617,7 @@ int backward(const float* vec, const float* pf, const float* pc,
   RETURN_IF_FAILED(launch_joint_grad(
       maps,
       JointGrad{bw, d_blank, joint32, nullptr, dpf_part, dbw_part, dpc_part,
-                B, B, S, h, Vp, 0},
+                B, B, S, h, Vp, 0, 0, S},
       hp, dsplits, s));
   RETURN_IF_FAILED(launch_head_grad(
       maps, HeadGrad{nullptr, dw_part, B, S, h, V, 0}, hp, Vp, splits, s));

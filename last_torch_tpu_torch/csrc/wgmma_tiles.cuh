@@ -386,8 +386,32 @@ cudaError_t encoder(EncodeTiled* out) {
 // The map of a row-major bfloat16 tensor of `rank` (2 or 3) dimensions,
 // dims innermost first (the innermost a multiple of 8), in 64 x 64 (x 1)
 // boxes with the 128-byte swizzle; reads past the dims give zeros.
+//
+// A map is a function of (base, rank, dims) alone, and encoding one is a
+// driver call that costs the host more than launching a kernel. The
+// callers' scratch comes back at the same addresses from PyTorch's caching
+// allocator call after call, so each thread keeps its last kMapCache maps
+// and reuses one whose base, rank and dims match.
+constexpr int kMapCache = 16;
+
+struct CachedMap {
+  CUtensorMap map;
+  const void* base;
+  int rank;
+  cuuint64_t dims[3];
+};
+
 cudaError_t box_map(CUtensorMap* map, const bf16* base, int rank,
                     const cuuint64_t* dims) {
+  thread_local CachedMap cache[kMapCache] = {};
+  thread_local int next = 0;
+  for (const CachedMap& c : cache) {
+    if (c.base == base && c.rank == rank && c.dims[0] == dims[0] &&
+        c.dims[1] == dims[1] && (rank < 3 || c.dims[2] == dims[2])) {
+      *map = c.map;
+      return cudaSuccess;
+    }
+  }
   EncodeTiled encode = nullptr;
   const cudaError_t err = encoder(&encode);
   if (err != cudaSuccess) return err;
@@ -398,27 +422,41 @@ cudaError_t box_map(CUtensorMap* map, const bf16* base, int rank,
       dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  CachedMap& slot = cache[next];
+  next = (next + 1) % kMapCache;
+  slot.map = *map;
+  slot.base = base;
+  slot.rank = rank;
+  for (int i = 0; i < 3; ++i) slot.dims[i] = i < rank ? dims[i] : 0;
+  return cudaSuccess;
 }
 
 // The three operand maps of a frame's products: joint [B, S, hp], d_lex
-// [B, S, Vp] and the head vw [hp, Vp], bfloat16.
+// [B, lex_states, Vp] (lex_states = S, or a chunk of the states: d_lex
+// then holds only the chunk's) and the head vw [hp, Vp], bfloat16.
 struct Maps {
   CUtensorMap joint, d_lex, vw;
 };
 
+cudaError_t lex_map(CUtensorMap* map, const bf16* d_lex, int B,
+                    int lex_states, int Vp) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Vp),
+                              static_cast<cuuint64_t>(lex_states),
+                              static_cast<cuuint64_t>(B)};
+  return box_map(map, d_lex, 3, dims);
+}
+
 cudaError_t make_maps(Maps* maps, const bf16* joint, const bf16* d_lex,
-                      const bf16* vw, int B, int S, int hp, int Vp) {
+                      const bf16* vw, int B, int S, int lex_states, int hp,
+                      int Vp) {
   const cuuint64_t joint_dims[3] = {static_cast<cuuint64_t>(hp),
                                     static_cast<cuuint64_t>(S),
                                     static_cast<cuuint64_t>(B)};
-  const cuuint64_t lex_dims[3] = {static_cast<cuuint64_t>(Vp),
-                                  static_cast<cuuint64_t>(S),
-                                  static_cast<cuuint64_t>(B)};
   const cuuint64_t vw_dims[2] = {static_cast<cuuint64_t>(Vp),
                                  static_cast<cuuint64_t>(hp)};
   cudaError_t err = box_map(&maps->joint, joint, 3, joint_dims);
-  if (err == cudaSuccess) err = box_map(&maps->d_lex, d_lex, 3, lex_dims);
+  if (err == cudaSuccess) err = lex_map(&maps->d_lex, d_lex, B, lex_states, Vp);
   if (err == cudaSuccess) err = box_map(&maps->vw, vw, 2, vw_dims);
   return err;
 }

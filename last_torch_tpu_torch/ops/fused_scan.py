@@ -36,11 +36,12 @@ context's arc reduction and destinations, and the autograd wrapper
 
 Modes. 'cache' stages [B, S, V] buffers of a frame in device memory: the
 forward's lexical weights (float32) for its reductions after the first, and
-the backward's d_lex in the compute type (in bfloat16 the backward runs on
-wgmma and recomputes the lexical weights for each reduction:
-``wgmma_grid``, ``backward_scratch``); 'online' keeps no [B, S, V] buffer and
-recomputes the head product for every reduction, for vocabularies whose
-staged buffers grow too large (they grow as V^2). ``plan`` picks one for
+the backward's d_lex in the compute type; 'online' keeps no [B, S, V] buffer
+and recomputes the head product for every reduction, for vocabularies whose
+staged buffers grow too large (they grow as V^2): its backward forms d_lex
+for ``ONLINE_CHUNK_STATES`` states at a time. In bfloat16 the backward of
+either mode runs on wgmma and recomputes the lexical weights for each
+reduction (``wgmma_grid``, ``backward_scratch``). ``plan`` picks one for
 ``mode='auto'`` from the staged bytes. Both modes compute the same function,
 so on CPU tensors both run the same plain versions. The marginals scan
 stages lex, as the JAX package's runs only in its 'cache' mode.
@@ -84,15 +85,21 @@ _BLOCKS_PER_SM = 4
 NEG_INF = float('-inf')
 
 MODES = ('cache', 'online')
-# The online backward forms d_lex for this many states at a time ([B, 512,
-# V] in the compute type: 32 MB at B=8, V=4096 in bfloat16).
-ONLINE_CHUNK_STATES = 512
+# The online backward forms d_lex for this many states at a time, a multiple
+# of the wgmma kernels' 64-state tile: [B, 1024, V] in bfloat16 (67 MB at
+# B=8, V=4096) is as large as the backward's float32 joint [B, S, h] at
+# h=512, and it halves the gradient products' split d_pc buffer against 512
+# states, so the peak stays where 512 put it. 1024 states took 7.3-7.4%
+# less time than 512 at V=4096, B=8 (tools/ab_backward.py, lp9o against
+# lp9o512, H100 80GB HBM3 at 700 W; PERF.md).
+ONLINE_CHUNK_STATES = 1024
 # 'auto' picks 'cache' while the backward's staged lexical buffers (lex in
 # float32 and d_lex in the compute type, [B, S, V] each) fit this many
 # bytes, 'online' beyond. At V=4096, B=8 (805 MB staged) the cache kernels
-# took 1.6-1.7x less time than the online ones on an H100, for 994 against
-# 257 MiB of working memory (PERF.md): staging wins wherever the
-# memory is there, so the budget is a memory one, a tenth of the card's.
+# took 1.34-1.35x less time than the online ones (the forwards 1.6x, the
+# backwards 1.05x), for a peak of 727 against 516 MiB (chip_smoke.py phase
+# 9b, H100 80GB HBM3 at 700 W; PERF.md): staging wins wherever the memory
+# is there, so the budget is a memory one, a tenth of the card's.
 LEX_STAGE_BUDGET = 8 * 1024**3
 
 
@@ -221,14 +228,19 @@ class WgmmaGrid:
     hidden_pad, vocab_pad: h and V rounded up to the 64-deep stages; the
       joint, the head and d_lex are padded to them with zeros.
     strips: 128-label strips of the lexical products (the row partials).
+    chunk: states whose d_lex the last row reduction forms at a time, and
+      over which the two gradient products run: all S in 'cache' mode,
+      ``ONLINE_CHUNK_STATES`` (at most S) in 'online' mode.
     ksplits: splits of d_vocab_w's (batch row, state) contraction.
     dsplits: splits of the batch rows whose d_pc one block carries.
     blocks: blocks of each product's launch on a frame with every row live:
-      'lexical', 'head_grad', 'joint_grad'.
+      'lexical' (a reduction over all S states), 'head_grad' and
+      'joint_grad' (over one full chunk).
   """
   hidden_pad: int
   vocab_pad: int
   strips: int
+  chunk: int
   ksplits: int
   dsplits: int
   blocks: dict
@@ -240,39 +252,45 @@ _WG_ROWS, _WG_COLS, _WG_DEPTH, _WG_BLOCKS_PER_SM = 64, 128, 64, 2
 
 
 def wgmma_grid(batch: int, num_states: int, hidden: int, vocab: int,
-               sms: int) -> WgmmaGrid:
-  """The ``WgmmaGrid`` of a frame of ``batch`` rows on ``sms`` SMs: each
-  gradient product split into as many parts as keep its blocks within one
-  wave (two per SM), at least one."""
+               sms: int, mode: str = 'cache') -> WgmmaGrid:
+  """The ``WgmmaGrid`` of a frame of ``batch`` rows on ``sms`` SMs in
+  ``mode``: each gradient product split into as many parts as keep its
+  blocks (over one chunk of states) within one wave (two per SM), at least
+  one."""
+  _check_mode(mode)
   cdiv = lambda n, m: -(-n // m)
   hp = cdiv(hidden, _WG_DEPTH) * _WG_DEPTH
   vp = cdiv(vocab, _WG_DEPTH) * _WG_DEPTH
   strips = cdiv(vp, _WG_COLS)
-  row_tiles = cdiv(num_states, _WG_ROWS)
+  chunk = (num_states if mode == 'cache' else
+           min(num_states, ONLINE_CHUNK_STATES))
+  chunk_tiles = cdiv(chunk, _WG_ROWS)
   wave = _WG_BLOCKS_PER_SM * sms
   head_tiles = hp // _WG_ROWS * strips
-  ksplits = max(1, min(batch * row_tiles, wave // head_tiles))
-  joint_tiles = row_tiles * cdiv(hp, _WG_COLS)
+  ksplits = max(1, min(batch * chunk_tiles, wave // head_tiles))
+  joint_tiles = chunk_tiles * cdiv(hp, _WG_COLS)
   dsplits = max(1, min(batch, wave // joint_tiles))
-  return WgmmaGrid(hp, vp, strips, ksplits, dsplits, {
-      'lexical': batch * row_tiles * strips,
+  return WgmmaGrid(hp, vp, strips, chunk, ksplits, dsplits, {
+      'lexical': batch * cdiv(num_states, _WG_ROWS) * strips,
       'head_grad': head_tiles * ksplits,
       'joint_grad': joint_tiles * dsplits})
 
 
 def backward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
                      grid: WgmmaGrid) -> dict:
-  """name -> (shape, dtype) of the buffers the bfloat16 'cache' backward on
-  wgmma allocates in place of the other routes' (``launch_backward``). No
-  float32 [B, S, V] lex: every row reduction recomputes the head product,
-  which measured faster than staging lex at B=8 and at B=32 (PERF.md)."""
+  """name -> (shape, dtype) of the buffers the bfloat16 backward on wgmma
+  allocates in place of the other routes' (``launch_backward``), in the mode
+  ``grid`` was planned for. No float32 [B, S, V] lex: every row reduction
+  recomputes the head product, which measured faster than staging lex at
+  B=8 and at B=32 (PERF.md). d_lex holds one chunk of states, [B, chunk,
+  Vp]: in 'online' mode no buffer grows as B S V."""
   hp, vp = grid.hidden_pad, grid.vocab_pad
   part = ((grid.strips, batch, num_states), torch.float32)
   return {
       'vocab_w': ((hp, vp), torch.bfloat16),
       'joint': ((batch, num_states, hp), torch.bfloat16),
       'joint32': ((batch, num_states, hidden), torch.float32),
-      'd_lex': ((batch, num_states, vp), torch.bfloat16),
+      'd_lex': ((batch, grid.chunk, vp), torch.bfloat16),
       'part_m': part,
       'part_l': part,
       'dpc_acc': ((grid.dsplits, num_states, hidden), torch.float32),
@@ -539,17 +557,18 @@ def launch_backward(entry: str, pf, pc, params, is_pad, log_z, g, hist,
       shape, dtype=dtype, device=device)
   zeros = lambda *shape: torch.zeros(shape, device=device)
   tiles = -(-num_states // _TILE)
-  # The library runs the bigram's bfloat16 'cache' backward with at least
-  # one row reduction per frame on its wgmma kernels (the rule of
+  # The library runs the bigram's bfloat16 backward with at least one row
+  # reduction per frame, in either mode, on its wgmma kernels (the rule of
   # csrc/fused_scan.cu's backward_entry), which take their own scratch.
-  wgmma = (entry == 'fused_backward' and not online and
-           compute_dtype == torch.bfloat16 and k >= 1)
+  wgmma = (entry == 'fused_backward' and compute_dtype == torch.bfloat16 and
+           k >= 1)
   # The states whose d_lex is formed at a time: all of them in 'cache' mode.
   chunk = min(num_states, ONLINE_CHUNK_STATES) if online else num_states
   if wgmma:
     grid = wgmma_grid(
         batch, num_states, hidden, vocab,
-        torch.cuda.get_device_properties(device).multi_processor_count)
+        torch.cuda.get_device_properties(device).multi_processor_count,
+        'online' if online else 'cache')
     buf = {name: empty(*shape, dtype=dtype) for name, (shape, dtype) in
            backward_scratch(batch, num_states, hidden, vocab, grid).items()}
     buf['vocab_w'].zero_()[:hidden, :vocab] = params['vocab_w']

@@ -28,7 +28,10 @@ tensor they run ``joint_head_forward_plain`` / ``joint_head_backward_plain``.
 a ``torch.autograd.Function``, as the JAX package's custom VJP does; the
 projections ``frame @ frame_proj`` and ``cache @ context_proj`` stay
 ``torch.matmul`` through ``JointWeightFn._mm``, and autograd carries their
-gradients. The [B, S, h] joint never reaches device memory in the kernels.
+gradients. The bfloat16 forward forms the joint once per call into a
+bfloat16 scratch and runs the head product on wgmma over a persistent grid
+(``forward_plan``); elsewhere the [B, S, h] joint never reaches device
+memory.
 
 Rounding, as the TPU kernels: the joint is formed in float32 and rounded to
 the compute type for the head products, whose sums are float32; the
@@ -42,9 +45,9 @@ embedding]), compute type None, float32 or bfloat16, float32 frame and
 cache, and at least ``MIN_STATES`` (1024) context states, below which the
 per-frame einsums are cheap. The TPU's VMEM limits (B <= 64, hidden a
 multiple of 128 and <= 1024, V + 1 padded to 128 <= 2048) are not needed
-by the Hopper design: a block stages one slice of each operand (16 deep in
-float32 and bfloat16) in shared memory whatever B, S, h and V are, so
-it sets no limit of its own.
+by the Hopper design: a block stages one slice of each operand (16 or 64
+deep) in shared memory whatever B, S, h and V are, so it sets no limit of
+its own.
 Outside the gate, on any device, ``JointWeightFn.apply`` takes its einsum
 route, as the JAX package takes XLA.
 """
@@ -53,6 +56,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
@@ -73,6 +78,10 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _GEOMETRY = {torch.float32: (64, 64, 4), torch.bfloat16: (128, 16, 2)}
 # bfloat16 sums d_pf over chunks of this many states.
 _STATE_CHUNK = 32
+# The bfloat16 forward's wgmma product (csrc/joint_head.cu, namespace
+# hopper): 128-row, 128-label output tiles (two warpgroups of 64 rows),
+# 64-deep stages, two blocks an SM.
+_WG_ROWS, _WG_COLS, _WG_DEPTH, _WG_BLOCKS_PER_SM = 128, 128, 64, 2
 # The (forward, backward) pair blank_lexical runs; None runs the kernel
 # wrappers below. ``using`` swaps in another pair.
 _PAIR = None
@@ -179,6 +188,36 @@ def _check_inputs(pc, pf, vocab_w, blank_w, compute_dtype, **others):
   return batch, num_states, hidden, vocab
 
 
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+  """The bfloat16 forward's scratch and grid (``forward_plan``).
+
+  Attributes:
+    hidden_pad, vocab_pad: h and V rounded up to the 64-deep stages; the
+      joint scratch is [B S, hidden_pad], the head's bfloat16 copy
+      [hidden_pad, vocab_pad], both bfloat16 and zero past h and V.
+    tiles: the product's (128-row, 128-label) output tiles.
+    blocks: its persistent grid: each block walks over tiles blocks apart.
+  """
+  hidden_pad: int
+  vocab_pad: int
+  tiles: int
+  blocks: int
+
+
+@functools.lru_cache(maxsize=64)
+def forward_plan(batch: int, num_states: int, hidden: int, vocab: int,
+                 sms: int) -> ForwardPlan:
+  """The ``ForwardPlan`` of a bfloat16 forward on ``sms`` SMs: one block per
+  output tile up to two blocks an SM."""
+  cdiv = lambda n, m: -(-n // m)
+  hp = cdiv(hidden, _WG_DEPTH) * _WG_DEPTH
+  vp = cdiv(vocab, _WG_DEPTH) * _WG_DEPTH
+  tiles = cdiv(batch * num_states, _WG_ROWS) * cdiv(vp, _WG_COLS)
+  return ForwardPlan(hp, vp, tiles,
+                     max(1, min(tiles, _WG_BLOCKS_PER_SM * sms)))
+
+
 def library() -> ctypes.CDLL:
   """The kernel library, built from csrc/joint_head.cu at first use."""
   global _LIB
@@ -186,7 +225,7 @@ def library() -> ctypes.CDLL:
     from last_torch_tpu_torch.ops import build
     lib = build.load('joint_head.cu')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.joint_head_forward.argtypes = [i] + [p] * 8 + [i] * 4 + [p]
+    lib.joint_head_forward.argtypes = [i] + [p] * 8 + [i] * 4 + [p, p, i, p]
     lib.joint_head_forward.restype = i
     lib.joint_head_backward.argtypes = [i] + [p] * 14 + [i] * 5 + [p]
     lib.joint_head_backward.restype = i
@@ -194,6 +233,12 @@ def library() -> ctypes.CDLL:
     lib.joint_head_error_string.restype = ctypes.c_char_p
     _LIB = lib
   return _LIB
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+  """The SM count of a CUDA device."""
+  return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _launch(device, what, call):
@@ -236,11 +281,23 @@ def joint_head_forward(pc: torch.Tensor, pf: torch.Tensor,
     raise ValueError(f'no joint_head kernel for device {pc.device}')
   blank = torch.empty((batch, num_states), device=pc.device)
   lexical = torch.empty((batch, num_states, vocab), device=pc.device)
+  joint16 = vw16 = None
+  blocks = 0
+  if compute_dtype == torch.bfloat16:
+    plan = forward_plan(batch, num_states, hidden, vocab, _sms(pc.device))
+    # One allocation: the joint [B S, hp], then the head [hp, Vp] (2 bytes
+    # an entry).
+    rows = batch * num_states * plan.hidden_pad
+    scratch = torch.empty(rows + plan.hidden_pad * plan.vocab_pad,
+                          dtype=torch.bfloat16, device=pc.device)
+    joint16 = scratch.data_ptr()
+    vw16 = joint16 + 2 * rows
+    blocks = plan.blocks
   _launch(pc.device, 'forward', lambda lib, stream: lib.joint_head_forward(
       _DTYPE_CODES[compute_dtype], pc.data_ptr(), pf.data_ptr(),
       vocab_w.data_ptr(), blank_w.data_ptr(), vocab_b.data_ptr(),
       blank_b.data_ptr(), blank.data_ptr(), lexical.data_ptr(), batch,
-      num_states, hidden, vocab, stream))
+      num_states, hidden, vocab, joint16, vw16, blocks, stream))
   forward_launches += 1
   return blank, lexical
 

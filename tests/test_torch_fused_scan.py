@@ -208,3 +208,57 @@ def test_backward_scratch_keeps_d_lex_in_bfloat16(batch, states, hidden,
   for name, (shape, dtype) in scratch.items():
     if shape[:2] == (batch, states):
       assert dtype == torch.bfloat16 or shape[2] == hidden, name
+
+
+@pytest.mark.parametrize('batch,states,hidden,vocab', [
+    (8, 4097, 512, 4096),  # bench.py's config 9
+    (8, 16385, 512, 16384),  # 'auto' plans the online mode here
+    (32, 8193, 512, 8192),  # and here
+    (3, 1101, 40, 1100),  # a ragged last chunk, h off the stages
+])
+def test_online_wgmma_grid_runs_products_per_chunk(batch, states, hidden,
+                                                   vocab):
+  assert fused_scan.plan(batch, states, vocab, torch.bfloat16) == (
+      'online' if states > 8000 else 'cache')
+  grid = fused_scan.wgmma_grid(batch, states, hidden, vocab, SMS, 'online')
+  cache = fused_scan.wgmma_grid(batch, states, hidden, vocab, SMS)
+  chunk = fused_scan.ONLINE_CHUNK_STATES
+  assert chunk % 64 == 0 and grid.chunk == chunk < states
+  assert cache.chunk == states
+  # The row reductions over all S states plan as in 'cache'; the gradient
+  # products run per chunk, split to fill one wave.
+  assert (grid.hidden_pad, grid.vocab_pad, grid.strips) == (
+      cache.hidden_pad, cache.vocab_pad, cache.strips)
+  assert grid.blocks['lexical'] == cache.blocks['lexical']
+  assert 1 <= grid.dsplits <= batch
+  assert 1 <= grid.ksplits <= batch * chunk // 64
+  for name, splits in (('head_grad', grid.ksplits),
+                       ('joint_grad', grid.dsplits)):
+    assert splits == 1 or grid.blocks[name] <= 2 * SMS, name
+    if batch >= 8:
+      assert grid.blocks[name] >= SMS, name
+
+
+@pytest.mark.parametrize('batch,states,hidden,vocab', [
+    (8, 4097, 512, 4096),
+    (8, 16385, 512, 16384),
+    (32, 8193, 512, 8192),
+    (3, 1101, 40, 1100),
+])
+def test_online_backward_scratch_holds_no_batch_state_vocab_buffer(
+    batch, states, hidden, vocab):
+  """The bfloat16 online backward allocates no buffer of B S V elements:
+  d_lex holds one chunk of states, and the rest grows as B S h or S V."""
+  grid = fused_scan.wgmma_grid(batch, states, hidden, vocab, SMS, 'online')
+  scratch = fused_scan.backward_scratch(batch, states, hidden, vocab, grid)
+  assert scratch['d_lex'] == ((batch, fused_scan.ONLINE_CHUNK_STATES,
+                               grid.vocab_pad), torch.bfloat16)
+  assert 'lex' not in scratch
+  for name, (shape, _) in scratch.items():
+    assert np.prod(shape) < batch * states * vocab, name
+  # Doubling the vocabulary (S = V + 1) leaves d_lex's state count alone.
+  wide = fused_scan.backward_scratch(
+      batch, 2 * states - 1, hidden, 2 * vocab,
+      fused_scan.wgmma_grid(batch, 2 * states - 1, hidden, 2 * vocab, SMS,
+                            'online'))
+  assert wide['d_lex'][0][:2] == scratch['d_lex'][0][:2]

@@ -224,6 +224,37 @@ def test_blank_lexical_matches_jax(interpret_kernel, case, dtype):
                   flips.get(name, 0.0)), name
 
 
+SMS = 132  # an H100's SMs
+
+
+@pytest.mark.parametrize('batch,states,hidden,vocab', [
+    (8, 1025, 512, 1024),  # the densified headline's frame
+    (8, 4161, 512, 64),  # the trigram probe: one strip, half of it padding
+    (8, 1100, 512, 1001),  # V not a multiple of 4
+    (3, 77, 40, 37),
+    (5, 3, 128, 64),
+    (1, 3, 40, 1024),
+])
+def test_forward_plan_covers_every_tile_once(batch, states, hidden, vocab):
+  """The bfloat16 forward's persistent grid: block i computes the output
+  tiles i, i + blocks, ...; every tile once, the blocks' loads within one
+  tile of each other, at most two blocks an SM."""
+  plan = joint_head.forward_plan(batch, states, hidden, vocab, SMS)
+  assert plan.hidden_pad % 64 == 0 and 0 <= plan.hidden_pad - hidden < 64
+  assert plan.vocab_pad % 64 == 0 and 0 <= plan.vocab_pad - vocab < 64
+  assert plan.tiles == (-(-batch * states // 128) *
+                        -(-plan.vocab_pad // 128))
+  assert 1 <= plan.blocks <= min(plan.tiles, 2 * SMS)
+  walked = [list(range(i, plan.tiles, plan.blocks))
+            for i in range(plan.blocks)]
+  assert sorted(t for tiles in walked for t in tiles) == list(
+      range(plan.tiles))
+  loads = [len(tiles) for tiles in walked]
+  assert min(loads) >= 1 and max(loads) - min(loads) <= 1
+  if plan.tiles >= 2 * SMS:  # a frame of the main paths fills the card
+    assert plan.blocks == 2 * SMS
+
+
 def gate_inputs(num_states, batch=4, hidden=HIDDEN, frame_dims=1,
                 dtype=torch.float32):
   cache = torch.zeros((num_states, EMBEDDING), dtype=dtype)

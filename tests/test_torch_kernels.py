@@ -243,6 +243,11 @@ FUSED_CARD_CASES = {
     'fld1_ragged_v520_b1': (520, 512, 1, False, 1),
     'fld3_ragged_v520': (520, 512, 3, False, 3),
     'fld2_v1024_b32': (1024, 512, 2, False, 32),
+    # The bfloat16 online backward's chunks of 1024 states: S=1101 runs a
+    # full chunk and a ragged one, over FD, FLD(1) and FLD(3), with B=32.
+    'fd_ragged_v1100_b32': (1100, 512, 0, True, 32),
+    'fld1_ragged_v1100': (1100, 512, 1, False, 3),
+    'fld3_ragged_v1100_b32': (1100, 512, 3, False, 32),
 }
 # T_max of the card cases: the last two frames are padding in every row.
 CARD_MAX_T = 14
@@ -850,6 +855,11 @@ JOINT_HEAD_CARD_CASES = {
     # One row tile over five batch rows (the bfloat16 d_joint product runs
     # over the flattened B S rows).
     'b5_s3_v64_h128': (5, 3, 64, 128),
+    # The bfloat16 forward's wgmma product: one 128-label strip half past
+    # V=64 at S=4161, and h=40 padded to 64 with V=130 (two strips, scalar
+    # stores).
+    'b2_s4161_v64_h40': (2, 4161, 64, 40),
+    'b3_s1025_v130_h40': (3, 1025, 130, 40),
 }
 
 

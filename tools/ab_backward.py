@@ -13,7 +13,7 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""The bfloat16 backward kernels of two trees, timed in turns on one GPU.
+"""The redesigned bfloat16 kernels of two trees, timed in turns on one GPU.
 
 Run from the root of a checkout, with an older tree unpacked beside it
 (``git archive <commit> | tar -x -C _archive/parent``)::
@@ -30,12 +30,22 @@ Each run times, with CUDA events after a warm-up:
   lengths), the mean of 2 calls;
 * ``lp32``: the same at bench.py's headline (B=32, T=1600, every row full),
   one call;
+* ``lp9o``: ``fused_backward`` in 'online' mode at bench.py's config 9
+  (B=8, T=200, S=4097, V=4096, h=512, FLD(2), bf16), one call;
+  ``lp9o512``: the same with d_lex formed 512 states at a time
+  (``ONLINE_CHUNK_STATES``); ``lp9omem``: the device memory (MiB) that one
+  such backward allocates beyond what was allocated before it (its peak);
 * ``fr1024`` / ``fr256``: ``frame_reduce_backward`` (bf16, B=8, S=1025,
   h=512) at Vl=1024 and at one of 4 shards (Vl=256), phase 12b's inputs, the
-  mean of 10 calls.
+  mean of 10 calls;
+* ``jhf``: ``joint_head_forward`` (bf16, B=8, S=1025, V=1024, h=512),
+  ``chip_smoke.py`` phase 11b's headline inputs, the mean of 100 calls
+  back to back (a call this short can be bound by its host work);
+  ``jhfd``: its device time per call, the summed kernel durations of 100
+  calls under ``torch.profiler``.
 
 Prints the card's name and power limit, one line per run, and one JSON
-object of milliseconds by run and case. ``--tree DIR --cases ...`` runs
+object of milliseconds (MiB for ``lp9omem``) by run and case. ``--tree DIR --cases ...`` runs
 one tree in this process (what the turns call).
 """
 
@@ -48,7 +58,8 @@ import sys
 import numpy as np
 
 NUM_FRAMES = [1600, 1523, 1400, 1211, 1000, 804, 517, 230]
-CASES = ('lp8', 'lp32', 'fr1024', 'fr256')
+CASES = ('lp8', 'lp32', 'lp9o', 'lp9o512', 'lp9omem', 'fr1024', 'fr256',
+         'jhf', 'jhfd')
 
 
 def timed(torch, fn, repeats):
@@ -69,10 +80,13 @@ def rand(rng, shape, scale=1.0):
   return (rng.standard_normal(shape) * scale).astype(np.float32)
 
 
-def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats):
-  """ms of one bigram backward at (batch, lengths), T_max 1600."""
+def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats,
+                     max_t=1600, vocab=1024, mode='cache', memory=False):
+  """ms of one bigram backward in ``mode`` at (batch, lengths), or with
+  ``memory`` the MiB it allocates at its peak beyond what was allocated
+  before it."""
   rng = np.random.default_rng(0)
-  max_t, vocab, hidden = 1600, 1024, 512
+  hidden = 512
   cuda = lambda x: torch.from_numpy(x).cuda()
   pf = cuda(rand(rng, (max_t, batch, hidden)))
   pc = cuda(rand(rng, (vocab + 1, hidden)))
@@ -83,7 +97,7 @@ def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats):
   is_pad = (torch.arange(max_t, device='cuda')[:, None] >=
             torch.tensor(lengths, device='cuda')[None])
   kw = dict(max_expansions=2, frame_dependent=False,
-            compute_dtype=torch.bfloat16)
+            compute_dtype=torch.bfloat16, mode=mode)
   forward = fused_scan.fused_forward_plain if plain else (
       fused_scan.fused_forward)
   backward = fused_scan.fused_backward_plain if plain else (
@@ -91,8 +105,15 @@ def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats):
   log_z, _, hist, slabs = forward(pf, pc, head, is_pad, with_residuals=True,
                                   **kw)
   g = torch.ones(batch, device='cuda')
-  return timed(torch, lambda: backward(pf, pc, head, is_pad, log_z, g, hist,
-                                       slabs, **kw), repeats)[1]
+  call = lambda: backward(pf, pc, head, is_pad, log_z, g, hist, slabs, **kw)
+  if memory:
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    call()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 2**20
+  return timed(torch, call, repeats)[1]
 
 
 def frame_reduce_ms(torch, sharded_scan, vocab, plain):
@@ -121,12 +142,48 @@ def frame_reduce_ms(torch, sharded_scan, vocab, plain):
                                        compute_dtype=dtype), 10)[1]
 
 
+def device_time(torch, fn, repeats):
+  """ms of device activity per call of fn, under torch.profiler."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(repeats):
+      fn()
+    torch.cuda.synchronize()
+  cuda = torch.autograd.DeviceType.CUDA
+  total_ns = sum(e.end_ns() - e.start_ns()
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == cuda)
+  return total_ns / repeats / 1e6
+
+
+def joint_head_forward_ms(torch, joint_head, plain, device=False):
+  """ms of one joint+head forward at B=8, S=1025, V=1024, h=512, bf16, on
+  inputs drawn as chip_smoke.py's phase 11b draws them: per call back to
+  back, or with ``device`` its device time."""
+  rng = np.random.default_rng(12)
+  batch, states, vocab, hidden = 8, 1025, 1024, 512
+  cuda = lambda x: torch.from_numpy(x).cuda()
+  inputs = {'pc': cuda(rand(rng, (states, hidden), 0.5)),
+            'pf': cuda(rand(rng, (batch, hidden), 0.5)),
+            'vocab_w': cuda(rand(rng, (hidden, vocab), hidden**-0.5)),
+            'blank_w': cuda(rand(rng, (hidden,), hidden**-0.5)),
+            'vocab_b': cuda(rand(rng, (vocab,), 0.1)),
+            'blank_b': torch.tensor(0.3, device='cuda')}
+  forward = (joint_head.joint_head_forward_plain if plain else
+             joint_head.joint_head_forward)
+  call = lambda: forward(**inputs, compute_dtype=torch.bfloat16)
+  return device_time(torch, call, 100) if device else timed(torch, call,
+                                                            100)[1]
+
+
 def run_tree(tree, cases, plain):
   """Times `cases` with the kernels of `tree` (or its plain versions);
   returns {case: ms}."""
   sys.path.insert(0, str(pathlib.Path(tree).resolve()))
   import torch
-  from last_torch_tpu_torch.ops import fused_scan, sharded_scan
+  from last_torch_tpu_torch.ops import fused_scan, joint_head, sharded_scan
   torch.backends.cuda.matmul.allow_tf32 = False
   out = {}
   for case in cases:
@@ -135,6 +192,17 @@ def run_tree(tree, cases, plain):
     elif case == 'lp32':
       out[case] = log_partition_ms(torch, fused_scan, 32, [1600] * 32, plain,
                                    1)
+    elif case.startswith('lp9o'):
+      chunk = fused_scan.ONLINE_CHUNK_STATES
+      if case == 'lp9o512':
+        fused_scan.ONLINE_CHUNK_STATES = 512
+      out[case] = log_partition_ms(torch, fused_scan, 8, [200] * 8, plain, 1,
+                                   max_t=200, vocab=4096, mode='online',
+                                   memory=case == 'lp9omem')
+      fused_scan.ONLINE_CHUNK_STATES = chunk
+    elif case.startswith('jhf'):
+      out[case] = joint_head_forward_ms(torch, joint_head, plain,
+                                        device=case == 'jhfd')
     else:
       out[case] = frame_reduce_ms(torch, sharded_scan, int(case[2:]), plain)
   return out
@@ -172,8 +240,9 @@ def main():
       print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
       sys.exit(f'{name} run failed')
     ms = json.loads(proc.stdout.strip().splitlines()[-1])
-    print(f'{name}: ' + ', '.join(f'{c} {t:.4f} ms' for c, t in ms.items()),
-          flush=True)
+    print(f'{name}: ' + ', '.join(
+        f'{c} {t:.4f} {"MiB" if c.endswith("mem") else "ms"}'
+        for c, t in ms.items()), flush=True)
     results.append({'run': name, 'ms': ms})
   print(json.dumps({'card': card, 'turns': results}))
 
