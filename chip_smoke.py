@@ -22,7 +22,9 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 2. Build: compiles ``last_torch_tpu_torch/csrc/viterbi.cu``,
    ``csrc/fused_scan.cu`` (which also holds the trigram kernels),
    ``csrc/numerator_scan.cu``, ``csrc/joint_head.cu`` and
-   ``csrc/sharded_scan.cu`` for sm_90a, one nvcc each, side by side.
+   ``csrc/sharded_scan.cu`` for sm_90a, one nvcc each, side by side, and
+   reports the registers and spills of each wgmma kernel (the bfloat16
+   forwards' ``csrc/head_product.cuh`` among them).
 3. Viterbi kernel against its plain PyTorch version on the card, T=64,
    B=4, V in {1024, 1000}, FD / FLD(1) / FLD(2), float32 and bfloat16, and
    with hat and log-softmax normalization (FD, FLD(2)).
@@ -434,7 +436,9 @@ def phase_kernel_vs_plain(torch, viterbi):
 # (the rest only as each library's range).
 WGMMA_KERNELS = ('lex_pass_kernel', 'head_grad_kernel', 'joint_grad_kernel',
                  'lex_grad_kernel', 'joint_pass_kernel',
-                 'head_product_kernel')
+                 'head_product_kernel', 'column_reduce_kernel')
+# The namespaces of those kernels (others share some of their names).
+WGMMA_NAMESPACES = ('hopper', 'head_grads', 'head_product')
 
 
 def ptxas_kernels(log):
@@ -501,7 +505,7 @@ def phase_build(build, libraries):
              f'{stores}/{loads} B' for mangled, regs, stores, loads in
              ptxas_kernels(log) for name in WGMMA_KERNELS
              if name in mangled and
-             ('hopper' in mangled or 'head_grads' in mangled)]
+             any(space in mangled for space in WGMMA_NAMESPACES)]
     if wgmma:
       lines.append(f'{source} wgmma kernels (stores/loads): ' +
                    '; '.join(wgmma))
@@ -989,6 +993,10 @@ def bigram_kernels(fused_scan, mode):
           'backward_plain': fused_scan.fused_backward_plain,
           'records': ((fwd_name, f'fused_scan.py:{fwd_line}'),
                       (bwd_name, f'fused_scan.py:{bwd_line}')),
+          # The bfloat16 'cache' forward's kernels live in the header it
+          # shares with the frame reduction and the joint+head forward.
+          'sources': ('head_product.cuh' if mode == 'cache' else
+                      'fused_scan.cu', 'fused_scan.cu'),
           'label': f'log-partition kernels alone, {mode} mode'}
 
 
@@ -998,6 +1006,7 @@ def trigram_kernels(trigram_scan):
           'backward': trigram_scan.trigram_backward,
           'forward_plain': trigram_scan.trigram_forward_plain,
           'backward_plain': trigram_scan.trigram_backward_plain,
+          'sources': ('fused_scan.cu', 'fused_scan.cu'),
           'records': (('trigram_forward', 'trigram_scan.py:380'),
                       ('trigram_backward', 'trigram_scan.py:689')),
           'label': 'trigram log-partition kernels alone'}
@@ -1019,7 +1028,7 @@ def kernels_alone(torch, kernels, pf, pc, head, is_pad, g, kw, launches,
   torch.cuda.reset_peak_memory_stats()
   fwd_k, fwd_ms = timed(torch, lambda: kernels['forward'](
       pf, pc, head, is_pad, with_residuals=True, **kw))
-  peak = torch.cuda.max_memory_allocated()
+  forward_peak = peak = torch.cuda.max_memory_allocated()
   torch.cuda.reset_peak_memory_stats()
   bwd_k, bwd_ms = timed(torch, lambda: kernels['backward'](
       pf, pc, head, is_pad, fwd_k[0], g, fwd_k[2], fwd_k[3], **kw))
@@ -1055,7 +1064,8 @@ def kernels_alone(torch, kernels, pf, pc, head, is_pad, g, kw, launches,
           f'h={hidden} FLD({kw["max_expansions"]}): forward kernel '
           f'{fwd_ms:.1f} ms, plain {plain_fwd_ms:.1f} ms; backward kernel '
           f'{bwd_ms:.1f} ms, plain {plain_bwd_ms:.1f} ms; peak device memory '
-          f'of the kernel pair {peak / 2**20:.0f} MiB, of the backward '
+          f'of the kernel pair {peak / 2**20:.0f} MiB, of the forward '
+          f'{forward_peak / 2**20:.0f} MiB, of the backward '
           f'{backward_peak / 2**20:.0f} MiB ({resident / 2**20:.0f} '
           f'MiB resident before); vs plain (|log Z| up to {log_z_max:.4g}, '
           f'gradient rtol {grad_rtol:.2e}): '
@@ -1069,22 +1079,24 @@ def kernels_alone(torch, kernels, pf, pc, head, is_pad, g, kw, launches,
   fwd_bytes = inputs + nbytes(*fwd_k)
   bwd_bytes = inputs + nbytes(fwd_k[0], g, fwd_k[2], fwd_k[3], *bwd_k)
   (fwd_name, fwd_replaces), (bwd_name, bwd_replaces) = kernels['records']
-  record = lambda name, replaces, count, err, ms, plain_ms, ops, traffic: (
-      kernel_record(name, 'fused_scan.cu', replaces, count, err, ms,
-                    plain_ms, ops, traffic, 'bfloat16'))
+  fwd_source, bwd_source = kernels['sources']
+  record = lambda name, source, replaces, count, err, ms, plain_ms, ops, \
+      traffic: kernel_record(name, source, replaces, count, err, ms,
+                             plain_ms, ops, traffic, 'bfloat16')
   return {
       'line': line + (f'; bounds {bound(flops, fwd_bytes, "bfloat16")[0]:.3g}'
                       f' / {bound(3 * flops, bwd_bytes, "bfloat16")[0]:.3g} '
                       'ms'),
-      'forward': record(fwd_name, fwd_replaces, launches[0],
+      'forward': record(fwd_name, fwd_source, fwd_replaces, launches[0],
                         fwd_err['log_z'][1], fwd_ms, plain_fwd_ms, flops,
                         fwd_bytes),
-      'backward': record(bwd_name, bwd_replaces, launches[1],
+      'backward': record(bwd_name, bwd_source, bwd_replaces, launches[1],
                          max(e[1] for n, e in bwd_err.items()
                              if n != 'beta_out'), bwd_ms, plain_bwd_ms,
                          3 * flops, bwd_bytes),
       'plain': plain,
       'peak': peak,
+      'forward_peak': forward_peak,
       'backward_peak': backward_peak,
   }
 
@@ -2114,16 +2126,21 @@ def phase_config9(torch, lattices, contexts, alignments, weight_fns,
               (('cache', cache_rec), ('online', online_rec))}
   backward_peak_mib = {mode: rec['backward_peak'] / 2**20 for mode, rec in
                        (('cache', cache_rec), ('online', online_rec))}
+  forward_peak_mib = {mode: rec['forward_peak'] / 2**20 for mode, rec in
+                      (('cache', cache_rec), ('online', online_rec))}
   check(backward_peak_mib['online'] < backward_peak_mib['cache'],
         f'config 9: the online backward\'s peak memory '
         f'{backward_peak_mib["online"]:.0f} MiB is not below the cache '
         f'mode\'s {backward_peak_mib["cache"]:.0f} MiB')
-  say('config9', 'backward peak device memory: ' + ', '.join(
+  say('config9', 'forward peak device memory: ' + ', '.join(
+      f'{mode} {mib:.0f} MiB' for mode, mib in forward_peak_mib.items()) +
+      '; backward peak device memory: ' + ', '.join(
       f'{mode} {mib:.0f} MiB' for mode, mib in backward_peak_mib.items()) +
       f'; online / cache backward time '
       f'{online_rec["backward"]["ms"] / cache_rec["backward"]["ms"]:.3f}')
   return [dict(online_rec[key], launches_by_path=paths,
                cache_mode_ms=cache_rec[key]['ms'], peak_mib=peak_mib,
+               forward_peak_mib=forward_peak_mib,
                backward_peak_mib=backward_peak_mib)
           for key, paths in zip(('forward', 'backward'), by_path)]
 
@@ -2791,7 +2808,8 @@ def phase_joint_head_alone(torch, joint_head, launches):
                      grad_err)}.items():
       if tag == 'headline':
         record = kernel_record(
-            f'joint_head_{key}', 'joint_head.cu',
+            f'joint_head_{key}',
+            'head_product.cuh' if key == 'forward' else 'joint_head.cu',
             'joint_head.py:187' if key == 'forward' else 'joint_head.py:248',
             sum(v[f'{key}_launches'] for v in launches.values()), err, ms,
             plain_ms, ops, traffic, name,
@@ -3104,7 +3122,8 @@ def phase_frame_reduce_alone(torch, sharded_scan, launches):
                      3 * flops, bwd_bytes, grad_err)}.items():
       if tag == 'headline':
         record = kernel_record(
-            f'frame_reduce_{key}', 'sharded_scan.cu',
+            f'frame_reduce_{key}',
+            'head_product.cuh' if key == 'forward' else 'sharded_scan.cu',
             'sharded_scan.py:68' if key == 'forward' else
             'sharded_scan.py:154',
             launches[0 if key == 'forward' else 1], err, ms, plain_ms, ops,

@@ -75,13 +75,27 @@
 //   at most about 1, so the TPU's factored form and its clip at 80
 //   (fused_scan.py:468-474) are not needed; padding rows and padded states
 //   never enter a sum, so all-padding rows and g = 0 rows give exact zeros.
-// * Forward, the float32 comparison mode, the trigram and the marginals:
-//   tile_product.cuh's 64 x 64 tiles (WMMA in bfloat16, FMAs in float32).
-//   The forward's first reduction runs in the epilogue of the head product;
-//   with two or more per frame the product stores lex (float32) for the
-//   others: at B=32 (134 MB, beyond the 50 MB L2) that beat recomputing the
-//   WMMA product, 1.02 s against 1.74 s for the T=1600 FLD(2) forward
-//   (H100 80GB HBM3, 700 W).
+// * The bfloat16 forward in 'cache' mode (namespace hopper) runs on
+//   head_product.cuh, the machinery it shares with the joint+head forward
+//   and the frame reduction: per frame, over its live rows only (counted
+//   once per call on the host, listed first on the device), the joint pass
+//   writes the bfloat16 joint [B, S, hp] and the blank head once, then each
+//   reduction is the column-reduce product (wgmma on TMA operands, two
+//   consumer warpgroups, a persistent grid) with the (max, sum) over each
+//   64-state unit in its epilogue, merged by col_merge_kernel; the padded
+//   bfloat16 head is formed once per call. The first reduction of a frame
+//   also stores lex (float32 [B, S, V]) and the later ones read it back
+//   (col_pass_kernel<kLoad>), which measured 5-7% faster than recomputing
+//   the product at B=8, B=32 and V=4096 (PERF.md): the product is bound by
+//   the operands the L2 cache delivers, a lex read by the bytes alone. The
+//   last merge of a frame runs in its update.
+// * The float32 comparison mode, the 'online' forward, the trigram and the
+//   marginals: tile_product.cuh's 64 x 64 tiles (WMMA in bfloat16, FMAs in
+//   float32). The forward's first reduction runs in the epilogue of the
+//   head product; in 'cache' mode with two or more per frame the product
+//   stores lex (float32) for the others: at B=32 (134 MB, beyond the 50 MB
+//   L2) that beat recomputing the WMMA product, 1.02 s against 1.74 s for
+//   the T=1600 FLD(2) forward (H100 80GB HBM3, 700 W).
 // * The bfloat16 backward (namespace hopper, both modes) runs its products
 //   on wgmma (wgmma_tiles.cuh: m64n128k16 from shared memory, operands brought
 //   by TMA through a 4-stage mbarrier ring, two blocks an SM), over each
@@ -170,6 +184,7 @@
 #include <math.h>
 
 #include "head_grads.cuh"
+#include "head_product.cuh"
 #include "tile_product.cuh"
 
 namespace {
@@ -410,10 +425,20 @@ __global__ void __launch_bounds__(kPointThreads)
     row[1 + y] = -INFINITY;
     return;
   }
+  // Latency-bound: 8 splits' loads in flight before their merges.
   float m = -INFINITY, l = 0.f;
-  for (int z = 0; z < splits; ++z) {
-    const size_t at = (static_cast<size_t>(z) * B + b) * V + y;
-    lse_merge(m, l, part_m[at], part_l[at]);
+  for (int z0 = 0; z0 < splits; z0 += 8) {
+    float pm[8], pl[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const size_t at = (static_cast<size_t>(z0 + i) * B + b) * V + y;
+      pm[i] = z0 + i < splits ? part_m[at] : -INFINITY;
+      pl[i] = z0 + i < splits ? part_l[at] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      if (z0 + i < splits) lse_merge(m, l, pm[i], pl[i]);
+    }
   }
   row[1 + y] = lse_value(m, l);
 }
@@ -1549,6 +1574,144 @@ int run_backward(const float* pf, const float* pc, const bf16* vw,
   return 0;
 }
 
+// The frame's last merge folded into its update; one thread per (b, s).
+// The last expansion red[b, s] merges the partials of label s - 1 (-inf at
+// state 0 and on padding rows) and is written to last + (passes - 1) *
+// last_stride; then alpha as update_kernel updates it (passes >= 1).
+__global__ void __launch_bounds__(kPointThreads)
+    merge_update_kernel(const float* __restrict__ part_m,  // [splits, B, V]
+                        const float* __restrict__ part_l, int splits,
+                        const float* __restrict__ alpha,   // [B, S]
+                        const float* __restrict__ blank,   // [B, S]
+                        float* __restrict__ last, size_t last_stride,
+                        const int* __restrict__ is_pad_t,  // [B]
+                        float* __restrict__ alpha_out,     // [B, S]
+                        float* __restrict__ hist_t,        // [B, S] or null
+                        int B, int S, int V, int passes,
+                        int frame_dependent) {
+  const int idx = blockIdx.x * kPointThreads + threadIdx.x;
+  if (idx >= B * S) return;
+  const int b = idx / S, s = idx % S;
+  const bool pad = is_pad_t[b];
+  float m = -INFINITY, l = 0.f;
+  if (!pad && s >= 1) {
+    for (int z0 = 0; z0 < splits; z0 += 8) {  // 8 splits' loads in flight
+      float pm[8], pl[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const size_t at = (static_cast<size_t>(z0 + i) * B + b) * V + s - 1;
+        pm[i] = z0 + i < splits ? part_m[at] : -INFINITY;
+        pl[i] = z0 + i < splits ? part_l[at] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (z0 + i < splits) lse_merge(m, l, pm[i], pl[i]);
+      }
+    }
+  }
+  const float red = lse_value(m, l);
+  last[(passes - 1) * last_stride + idx] = red;
+  const float a = alpha[idx];
+  if (hist_t != nullptr) hist_t[idx] = a;
+  if (pad) {
+    alpha_out[idx] = a;
+    return;
+  }
+  const float bl = blank[idx];
+  float acc = a + bl;
+  if (frame_dependent) {
+    acc = log_add(acc, red);
+  } else {
+    for (int j = 0; j + 1 < passes; ++j) {
+      acc = log_add(acc, last[j * last_stride + idx] + bl);
+    }
+    acc = log_add(acc, red + bl);
+  }
+  alpha_out[idx] = acc;
+}
+
+// The bfloat16 'cache' forward (FD, FLD(k)) on head_product.cuh. Once per
+// call the padded head vw16 [hp, Vp]; per frame t with live[t] > 0 rows
+// (their indices first in rows[t]) the joint [B, S, hp] and blank of those
+// rows, then each reduction as the column-reduce product over vec (alpha,
+// then the last expansion), its partials [ceil(S / 64), B, V] merged into
+// the frame's expansion (-inf on padding rows): by col_merge_kernel, the
+// last by merge_update_kernel with the update. With two or more reductions
+// the first also stores lex ([B, S, V] float32, not null then) and the
+// later ones read it back (col_pass_kernel<kLoad>, 64-state tiles, one
+// partial each) in place of the product. A frame with no live row runs
+// only the merges and the update, which hold alpha.
+int run_forward(const float* pf, const float* pc, const float* vw,
+                const float* vb, const float* bw, const float* bb,
+                const int* is_pad, const int* live, const int* rows,
+                bf16* joint, bf16* vw16, float* blank, float* lex,
+                float* part_m, float* part_l, float* last, float* alpha,
+                float* hist, float* slabs, int T, int B, int S, int h, int V,
+                int max_expansions, int frame_dependent, int max_blocks,
+                cudaStream_t stream) {
+  const int passes = frame_dependent ? 1 : max_expansions;
+  if ((T > 0 && live == nullptr) || max_blocks < 1 ||
+      (passes >= 2 && lex == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int hp = round_up(h, kBK), Vp = round_up(V, kBK), t64 = cdiv(S, 64);
+  const size_t bs = static_cast<size_t>(B) * S;
+  RETURN_IF_ERROR(head_product::joint_pass(pc, pf, vw, bw, bb, nullptr,
+                                           joint, vw16, blank, 0, S, h, V,
+                                           /*head=*/true, stream));
+  for (int t = 0; t < T; ++t) {
+    const int L = live[t];
+    const float* alpha_cur = alpha + (t % 2) * bs;
+    float* alpha_next = alpha + ((t + 1) % 2) * bs;
+    const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
+    const int* rows_t = rows + static_cast<size_t>(t) * B;
+    float* hist_t = hist != nullptr ? hist + t * bs : nullptr;
+    if (L > 0) {
+      RETURN_IF_ERROR(head_product::joint_pass(
+          pc, pf + static_cast<size_t>(t) * B * h, vw, bw, bb, rows_t, joint,
+          vw16, blank, L, S, h, V, /*head=*/false, stream));
+    }
+    // The j-th expansion of the frame: a slab, or a scratch row.
+    float* last_t = slabs != nullptr ? slabs + t * bs : last;
+    const size_t last_stride =
+        slabs != nullptr ? static_cast<size_t>(T) * bs : bs;
+    const float* vec = alpha_cur;
+    for (int j = 0; j < passes; ++j) {
+      if (L > 0 && j > 0) {
+        col_pass_kernel<bf16, kLoad>
+            <<<dim3(cdiv(V, lattice_tiles::kBN), t64, B),
+               lattice_tiles::kThreads, 0, stream>>>(
+                nullptr, nullptr, vb, vec, lex, part_m, part_l, is_pad_t, S,
+                h, V, 1);
+        RETURN_IF_ERROR(cudaGetLastError());
+      } else if (L > 0) {
+        const head_product::ColumnReduce p{
+            vb, vec, rows_t, part_m, part_l, lex, B, S, V, hp, Vp, L};
+        RETURN_IF_ERROR(
+            head_product::reduce_product(joint, vw16, p, max_blocks, stream));
+      }
+      if (j + 1 == passes) break;  // merged with the update
+      float* red = last_t + j * last_stride;
+      col_merge_kernel<<<blocks_for(static_cast<size_t>(B) * V),
+                         kPointThreads, 0, stream>>>(part_m, part_l, is_pad_t,
+                                                     red, t64, B, S, V);
+      RETURN_IF_ERROR(cudaGetLastError());
+      vec = red;
+    }
+    if (passes == 0) {
+      update_kernel<<<blocks_for(bs), kPointThreads, 0, stream>>>(
+          alpha_cur, blank, last_t, last_stride, is_pad_t, alpha_next,
+          hist_t, B, S, passes, frame_dependent);
+    } else {
+      merge_update_kernel<<<blocks_for(bs), kPointThreads, 0, stream>>>(
+          part_m, part_l, t64, alpha_cur, blank, last_t, last_stride,
+          is_pad_t, alpha_next, hist_t, B, S, V, passes, frame_dependent);
+    }
+    RETURN_IF_ERROR(cudaGetLastError());
+  }
+  return 0;
+}
+
 #undef RETURN_IF_ERROR
 
 }  // namespace hopper
@@ -1742,20 +1905,41 @@ extern "C" {
 // Runs the whole forward on `stream` and returns the first launch error
 // (0 on success). The caller allocates everything. `alpha` is [2, B, S]
 // with alpha0 in slot 0 on entry; the final alpha is left in slot
-// num_frames % 2. dtype 0 = float32, 1 = bfloat16 for vw, bw and joint.
-// `lex` ([B, S, V]) is used only with two or more reductions per frame and
-// `online` 0; with `online` 1 every reduction recomputes the head product
-// and `lex` may be null. part_m / part_l hold [max_splits, B, V] per-split
-// partials. With `slabs` ([k, T, B, S]) the expansions are written there,
-// else to `last` ([max(k, 1), B, S]); `hist` ([T, B, S]) may be null.
+// num_frames % 2. With `slabs` ([k, T, B, S]) the expansions are written
+// there, else to `last` ([max(k, 1), B, S]); `hist` ([T, B, S]) may be
+// null. dtype 0 = float32, 1 = bfloat16 (the compute type).
+// In bfloat16 with `online` 0 the frames run on head_product.cuh's wgmma
+// column reduction over their live rows: live [T] (host memory) counts
+// each frame's real rows and rows [T, B] (device) lists them first; vw
+// ([h, V]) and bw ([h]) are then float32, joint is bfloat16 [B, S, hp] and
+// vw16 bfloat16 [hp, Vp] (hp, Vp: h and V rounded up to 64), part_m /
+// part_l are [ceil(S / 64), B, V], the product runs on at most max_blocks
+// persistent blocks, and `lex` ([B, S, V] float32) is staged by the first
+// reduction for the later ones: it is needed with two or more reductions
+// per frame, and not used with fewer.
+// Elsewhere vw, bw and joint ([B, S, h]) are in the compute type, live,
+// rows and vw16 are not used, part_m / part_l hold [max_splits, B, V]
+// per-split partials, and `lex` ([B, S, V]) is used only with two or more
+// reductions per frame and `online` 0; with `online` 1 every reduction
+// recomputes the head product and `lex` may be null.
 int fused_forward(int dtype, const float* pf, const float* pc, const void* vw,
                   const float* vb, const void* bw, const float* bb,
                   const int* is_pad, void* joint, float* blank, float* lex,
                   float* part_m, float* part_l, float* last, float* alpha,
                   float* hist, float* slabs, int num_frames, int B, int S,
                   int h, int V, int max_expansions, int frame_dependent,
-                  int online, int max_splits, void* stream) {
+                  int online, int max_splits, const int* live,
+                  const int* rows, void* vw16, int max_blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 && !online) {
+    using hopper::bf16;
+    return hopper::run_forward(
+        pf, pc, static_cast<const float*>(vw), vb,
+        static_cast<const float*>(bw), bb, is_pad, live, rows,
+        static_cast<bf16*>(joint), static_cast<bf16*>(vw16), blank, lex,
+        part_m, part_l, last, alpha, hist, slabs, num_frames, B, S, h, V,
+        max_expansions, frame_dependent, max_blocks, s);
+  }
   if (dtype == 0) {
     return run_forward<float>(
         pf, pc, static_cast<const float*>(vw), vb,

@@ -14,7 +14,7 @@
 
 // The joint network's tile products and backward, shared by joint_head.cu
 // (every context state's joint and heads) and sharded_scan.cu (one frame's
-// vocab-shard reduction). Rows m = b * S + s run over the (batch row,
+// vocab-shard reduction; its float32 forward and both backwards). Rows m = b * S + s run over the (batch row,
 // context state) pairs; joint32[m] = tanh(pc[s] + pf[b]) is formed as the
 // products stage their operands and never reaches device memory.
 //
@@ -22,7 +22,7 @@
 //   operands from producers).
 // * bfloat16: 128 x 128 tiles through WMMA (`mainloop`, `drain`), 16-deep
 //   stages read into registers under the previous stage's products; the
-//   producers (JointRows, HeadCols, ...) read one operand entry or four.
+//   producers (CotRows, HeadRowsT, ...) read one operand entry or four.
 // * `joint_backward`: from the cotangents g_lex [B, S, V] and g_blank
 //   [B, S], the gradients d_pc, d_pf, d_vocab_w and d_blank_w (the
 //   contract of joint_head_backward in joint_head.cu). With round_blank
@@ -302,41 +302,6 @@ struct Joint {
   using Raw = float2;
   __device__ __forceinline__ static float finish(Raw x) {
     return tanhf(x.x + x.y);
-  }
-};
-
-// The joint of a forward tile: A [r = row m = b S + s][d = hidden unit].
-struct JointRows : Joint {
-  const float* pc;
-  const float* pf;
-  const size_t* pc_off;  // [kHM] shared
-  const size_t* pf_off;
-  int rows;  // valid rows of the tile
-  __device__ __forceinline__ Raw load(int r, int k0, int d) const {
-    return r < rows ? make_float2(pc[pc_off[r] + k0 + d], pf[pf_off[r] + k0 + d])
-                    : Raw{};
-  }
-  __device__ __forceinline__ void load4(int r, int k0, int d, Raw* out) const {
-    if (r < rows) {
-      spread(load16(pc + pc_off[r] + k0 + d), load16(pf + pf_off[r] + k0 + d),
-             out);
-    } else {
-      out[0] = out[1] = out[2] = out[3] = Raw{};
-    }
-  }
-};
-
-// The head's weights, [h, V] read as B [d = hidden unit][c = label].
-struct HeadCols : Plain {
-  const float* vw;
-  int V, n0;
-  __device__ __forceinline__ Raw load(int k0, int d, int c) const {
-    return n0 + c < V ? vw[static_cast<size_t>(k0 + d) * V + n0 + c] : 0.f;
-  }
-  __device__ __forceinline__ void load4(int k0, int d, int c, Raw* out) const {
-    spread(n0 + c < V ? load16(vw + static_cast<size_t>(k0 + d) * V + n0 + c)
-                      : float4{},
-           out);
   }
 };
 

@@ -51,17 +51,23 @@
 // and its host work count too.
 //
 // What the design does about it:
-// * The [B, S, h] joint and the [B, S, Vl] lex never reach device memory in
-//   the forward: joint_tiles.cuh's products form tanh(pc + pf) as they stage
-//   it, and each block folds its lex tile into an online (max, sum) per
-//   (b, y) at once.
-// * Forward blocks run over (batch row, state tile, label strip): a state
-//   tile (128 states in bfloat16, 64 in float32) lies in one batch row, so
-//   its (max, sum) is a partial of red[b, y]. Splitting S over blocks fills
-//   the card where B and Vl alone do not (8 rows x 8 strips of 128 labels
-//   at the headline shape); a second launch merges the partials, with no
-//   atomics. The blocks of the first strip also write the blank head from
-//   the staged joint.
+// * The bfloat16 forward (namespace hopper) runs on head_product.cuh, the
+//   machinery it shares with the joint+head forward and the bigram
+//   log-partition forward, in three launches: the joint pass forms each
+//   joint entry's tanh once per call into a bfloat16 [B, S, hp] scratch
+//   (8.4 MB at the headline shape, resident in the L2 cache), with the
+//   blank head from the rounded row and the padded bfloat16 head [hp, Vp]
+//   from the float32 shard; the column-reduce product runs on wgmma with
+//   TMA operands (two consumer warpgroups sharing each head strip, a
+//   persistent grid of at most two blocks an SM) and folds lex into one
+//   online (max, sum) pair per (64-state unit, b, y) in its epilogue, so
+//   that the [B, S, Vl] lex never reaches device memory; merge_kernel
+//   combines the units' pairs, with no atomics.
+// * The float32 forward forms the joint as joint_tiles.cuh's FMA products
+//   stage it, over (batch row, 64-state tile, 64-label strip) blocks, each
+//   folding its tile into a (max, sum) partial per (b, y) at once, merged
+//   by the same second launch; the blocks of the first strip also write
+//   the blank head.
 // * The bfloat16 backward (namespace hopper) runs its three products on
 //   wgmma (wgmma_tiles.cuh: TMA into a 4-stage mbarrier ring, two blocks an
 //   SM). stage_kernel writes the bfloat16 joint and head once (padded to
@@ -90,6 +96,7 @@
 #include <math.h>
 
 #include "head_grads.cuh"
+#include "head_product.cuh"
 #include "joint_tiles.cuh"
 
 namespace {
@@ -251,92 +258,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: 128 x 128 tiles through WMMA.
-
-// The block's (batch row, state tile, label strip) and the joint rows'
-// offsets. Grid (B * ceil(S / 128), ceil(V / 128)).
-struct TileBf16 {
-  int b, st, s0, n0, rows;
-  __device__ TileBf16(int S, int h, size_t* pc_off, size_t* pf_off) {
-    const int s_tiles = tiles(S, kHM);
-    b = blockIdx.x / s_tiles;
-    st = blockIdx.x % s_tiles;
-    s0 = st * kHM;
-    n0 = blockIdx.y * kHN;
-    rows = min(kHM, S - s0);
-    if (threadIdx.x < kHM) {
-      const int r = threadIdx.x < rows ? threadIdx.x : 0;
-      pc_off[threadIdx.x] = static_cast<size_t>(s0 + r) * h;
-      pf_off[threadIdx.x] = static_cast<size_t>(b) * h;
-    }
-    __syncthreads();
-  }
-};
-
-template <bool Vec>
-__global__ void __launch_bounds__(kThreads, 2)
-    reduce_bf16_kernel(const float* __restrict__ vec, const float* __restrict__ pc,
-                       const float* __restrict__ pf, const float* __restrict__ vw,
-                       const float* __restrict__ vb, const float* __restrict__ bw,
-                       const float* __restrict__ bb, float* __restrict__ part_m,
-                       float* __restrict__ part_s, float* __restrict__ blank,
-                       int B, int S, int h, int V) {
-  __shared__ __align__(128) __nv_bfloat16 smem[kSmemBytes / 2];
-  __shared__ size_t pc_off[kHM], pf_off[kHM];
-  __shared__ float cand_m[4][kHN], cand_s[4][kHN];
-  const TileBf16 t(S, h, pc_off, pf_off);
-  const int tid = threadIdx.x;
-  // The blank head, from the staged joint: thread pair (row, half) sums
-  // half of each stage of its row.
-  const bool blank_strip = blockIdx.y == 0;
-  const int row = tid / 2, part = tid % 2;
-  float dot = 0.f;
-  auto blank_hook = [&](int k0, const __nv_bfloat16* a_tile) {
-    if (!blank_strip) return;
-#pragma unroll
-    for (int j = 0; j < kHK / 2; ++j) {
-      const int d = part * (kHK / 2) + j;
-      if (k0 + d < h) {
-        dot = fmaf(__bfloat162float(a_tile[row * kLdDeep + d]),
-                   bf16_round(bw[k0 + d]), dot);
-      }
-    }
-  };
-  Tile128 acc;
-  zero(acc);
-  mainloop<false, false, Vec>(
-      acc, JointRows{{}, pc, pf, pc_off, pf_off, t.rows},
-      HeadCols{{}, vw, V, t.n0}, 0, h, smem, blank_hook);
-  dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-  if (blank_strip && part == 0 && row < t.rows) {
-    blank[static_cast<size_t>(t.b) * S + t.s0 + row] = dot + bb[0];
-  }
-  // Each thread folds the 32 rows it drains of its two columns.
-  float m[2] = {-INFINITY, -INFINITY}, s[2] = {0.f, 0.f};
-  const float* vec_b = vec + static_cast<size_t>(t.b) * S + t.s0;
-  drain(acc, smem, [&](int r, int c, float v, int half) {
-    const int y = t.n0 + c;
-    if (r < t.rows && y < V) online_add(m[half], s[half], vec_b[r] + (v + vb[y]));
-  });
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 2, wn = warp % 2;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    cand_m[wm][wn * 64 + half * 32 + lane] = m[half];
-    cand_s[wm][wn * 64 + half * 32 + lane] = s[half];
-  }
-  __syncthreads();
-  if (tid < kHN && t.n0 + tid < V) {
-    float mm = -INFINITY, ss = 0.f;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) online_merge(mm, ss, cand_m[g][tid], cand_s[g][tid]);
-    const size_t at = (static_cast<size_t>(t.st) * B + t.b) * V + t.n0 + tid;
-    part_m[at] = mm;
-    part_s[at] = ss;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // Merges and reductions.
 
 // red [B, V] from the partials [state tiles, B, V].
@@ -347,9 +268,17 @@ __global__ void __launch_bounds__(kPointThreads)
   const size_t i = static_cast<size_t>(blockIdx.x) * kPointThreads +
                    threadIdx.x;
   if (i >= n) return;
+  // Latency-bound: 8 tiles' loads in flight before their merges.
   float m = -INFINITY, s = 0.f;
-  for (int q = 0; q < s_tiles; ++q) {
-    online_merge(m, s, part_m[q * n + i], part_s[q * n + i]);
+  for (int q0 = 0; q0 < s_tiles; q0 += 8) {
+    float pm[8], ps[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      pm[k] = q0 + k < s_tiles ? part_m[(q0 + k) * n + i] : -INFINITY;
+      ps[k] = q0 + k < s_tiles ? part_s[(q0 + k) * n + i] : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) online_merge(m, s, pm[k], ps[k]);
   }
   red[i] = s == 0.f ? -INFINITY : m + logf(s);
 }
@@ -636,6 +565,29 @@ int backward(const float* vec, const float* pf, const float* pc,
   return 0;
 }
 
+// The bfloat16 forward: the joint pass (joint [B, S, hp], blank and vw16
+// [hp, Vp]), the column-reduce product over vec on at most max_blocks
+// persistent blocks (head_product.cuh; partials [ceil(S / 64), B, V]), and
+// the merge. Sizes as frame_reduce_forward's.
+int forward(const float* vec, const float* pf, const float* pc,
+            const float* vw, const float* vb, const float* bw,
+            const float* bb, float* part_m, float* part_s, float* red,
+            float* blank, bf16* joint, bf16* vw16, int B, int S, int h,
+            int V, int max_blocks, cudaStream_t s) {
+  const int hp = round_up(h, kBK), Vp = round_up(V, kBK);
+  RETURN_IF_FAILED(head_product::joint_pass(pc, pf, vw, bw, bb, nullptr,
+                                            joint, vw16, blank, B, S, h, V,
+                                            /*head=*/true, s));
+  const head_product::ColumnReduce p{vb, vec, nullptr, part_m, part_s,
+                                     nullptr, B, S, V, hp, Vp, B};
+  RETURN_IF_FAILED(head_product::reduce_product(joint, vw16, p, max_blocks, s));
+  const size_t n = static_cast<size_t>(B) * V;
+  merge_kernel<<<blocks_for(n), kPointThreads, 0, s>>>(part_m, part_s,
+                                                       cdiv(S, 64), n, red);
+  RETURN_IF_LAUNCH_FAILED();
+  return 0;
+}
+
 }  // namespace hopper
 
 }  // namespace
@@ -645,32 +597,31 @@ extern "C" {
 // The forward on `stream`; returns the first error (0 on success). dtype 0
 // = float32, 1 = bfloat16 (the compute type); every pointer is float32:
 // vec [B, S], pf [B, h], pc [S, h], vw [h, V], vb [V], bw [h], bb [1];
-// outputs red [B, V] and blank [B, S]; scratch part_m, part_s [state tiles,
-// B, V], state tiles = ceil(S / 64) (float32) or ceil(S / 128) (bfloat16).
-// V >= 1.
+// outputs red [B, V] and blank [B, S]; scratch part_m, part_s [ceil(S /
+// 64), B, V]. bfloat16 also takes the scratch joint16 [B, S, hp] and vw16
+// [hp, Vp] (bfloat16; hp, Vp: h and V rounded up to 64) and the product's
+// largest persistent grid, max_blocks (>= 1); float32 ignores them. V >= 1.
 int frame_reduce_forward(int dtype, const float* vec, const float* pf,
                          const float* pc, const float* vw, const float* vb,
                          const float* bw, const float* bb, float* part_m,
                          float* part_s, float* red, float* blank, int B,
-                         int S, int h, int V, void* stream) {
+                         int S, int h, int V, void* joint16, void* vw16,
+                         int max_blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if ((dtype != 0 && dtype != 1) || V < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;
-  int s_tiles = 0;
-  if (dtype == 0) {
-    s_tiles = tiles(S, kBM);
-    reduce_f32_kernel<<<dim3(B * s_tiles, tiles(V, kBN)), kThreads, 0, s>>>(
-        vec, pc, pf, vw, vb, bw, bb, part_m, part_s, blank, B, S, h, V);
-  } else {
-    s_tiles = tiles(S, kHM);
-    const auto kernel = vector_path(h, V, {pc, pf, vw})
-                            ? reduce_bf16_kernel<true>
-                            : reduce_bf16_kernel<false>;
-    kernel<<<dim3(B * s_tiles, tiles(V, kHN)), kThreads, 0, s>>>(
-        vec, pc, pf, vw, vb, bw, bb, part_m, part_s, blank, B, S, h, V);
+  if (dtype == 1) {
+    using hopper::bf16;
+    return hopper::forward(vec, pf, pc, vw, vb, bw, bb, part_m, part_s, red,
+                           blank, static_cast<bf16*>(joint16),
+                           static_cast<bf16*>(vw16), B, S, h, V, max_blocks,
+                           s);
   }
+  const int s_tiles = tiles(S, kBM);
+  reduce_f32_kernel<<<dim3(B * s_tiles, tiles(V, kBN)), kThreads, 0, s>>>(
+      vec, pc, pf, vw, vb, bw, bb, part_m, part_s, blank, B, S, h, V);
   RETURN_IF_LAUNCH_FAILED();
   const size_t n = static_cast<size_t>(B) * V;
   merge_kernel<<<blocks_for(n), kPointThreads, 0, s>>>(part_m, part_s,

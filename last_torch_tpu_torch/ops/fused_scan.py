@@ -39,9 +39,12 @@ forward's lexical weights (float32) for its reductions after the first, and
 the backward's d_lex in the compute type; 'online' keeps no [B, S, V] buffer
 and recomputes the head product for every reduction, for vocabularies whose
 staged buffers grow too large (they grow as V^2): its backward forms d_lex
-for ``ONLINE_CHUNK_STATES`` states at a time. In bfloat16 the backward of
-either mode runs on wgmma and recomputes the lexical weights for each
-reduction (``wgmma_grid``, ``backward_scratch``). ``plan`` picks one for
+for ``ONLINE_CHUNK_STATES`` states at a time. In bfloat16 the 'cache'
+forward runs on wgmma over each frame's live rows (``csrc/head_product.cuh``:
+``joint_head.reduce_plan``, ``forward_scratch``), and the backward of
+either mode runs on wgmma and
+recomputes the lexical weights for each reduction (``wgmma_grid``,
+``backward_scratch``). ``plan`` picks one for
 ``mode='auto'`` from the staged bytes. Both modes compute the same function,
 so on CPU tensors both run the same plain versions. The marginals scan
 stages lex, as the JAX package's runs only in its 'cache' mode.
@@ -65,6 +68,7 @@ from typing import Any, Optional
 import torch
 
 from last_torch_tpu_torch import alignments, contexts, weight_fns
+from last_torch_tpu_torch.ops import joint_head
 
 # Calls that launched the CUDA kernels, for runs that must show which
 # kernels they went through: the forward and backward in 'cache' and in
@@ -90,16 +94,18 @@ MODES = ('cache', 'online')
 # B=8, V=4096) is as large as the backward's float32 joint [B, S, h] at
 # h=512, and it halves the gradient products' split d_pc buffer against 512
 # states, so the peak stays where 512 put it. 1024 states took 7.3-7.4%
-# less time than 512 at V=4096, B=8 (tools/ab_backward.py, lp9o against
+# less time than 512 at V=4096, B=8 (tools/ab_kernels.py, lp9o against
 # lp9o512, H100 80GB HBM3 at 700 W; PERF.md).
 ONLINE_CHUNK_STATES = 1024
-# 'auto' picks 'cache' while the backward's staged lexical buffers (lex in
-# float32 and d_lex in the compute type, [B, S, V] each) fit this many
-# bytes, 'online' beyond. At V=4096, B=8 (805 MB staged) the cache kernels
-# took 1.34-1.35x less time than the online ones (the forwards 1.6x, the
-# backwards 1.05x), for a peak of 727 against 516 MiB (chip_smoke.py phase
-# 9b, H100 80GB HBM3 at 700 W; PERF.md): staging wins wherever the memory
-# is there, so the budget is a memory one, a tenth of the card's.
+# 'auto' picks 'cache' while the [B, S, V] buffers that mode stages (the
+# forward's lex in float32 and the backward's d_lex in the compute type) fit
+# this many bytes, 'online' beyond. At V=4096, B=8 (805 MB staged) the
+# cache kernels took 1.34-1.35x less time than the online ones (the
+# forwards 1.6x, the backwards 1.05x), for a peak of 727 against 516 MiB
+# (chip_smoke.py phase 9b, H100 80GB HBM3 at 700 W, before the bfloat16
+# 'cache' forward moved to wgmma, which made its forward 4.7x faster than
+# the online one; PERF.md): staging wins wherever the memory is there, so
+# the budget is a memory one, a tenth of the card's.
 LEX_STAGE_BUDGET = 8 * 1024**3
 
 
@@ -197,7 +203,8 @@ def library() -> ctypes.CDLL:
     from last_torch_tpu_torch.ops import build
     lib = build.load('fused_scan.cu')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.fused_forward.argtypes = [i] + [p] * 16 + [i] * 9 + [p]
+    lib.fused_forward.argtypes = [i] + [p] * 16 + [i] * 9 + [p] * 3 + [
+        i, p]
     lib.fused_forward.restype = i
     lib.fused_backward.argtypes = [i] + [p] * 33 + [i] * 11 + [p] * 2 + [
         i, p, p]
@@ -298,6 +305,27 @@ def backward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
   }
 
 
+def forward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
+                    plan: joint_head.ReducePlan, reductions: int) -> dict:
+  """name -> (shape, dtype) of the buffers of the bfloat16 'cache' forward
+  on csrc/head_product.cuh's column reduction (``fused_forward``): the
+  padded bfloat16 joint and head, the (max, sum) partials per 64-state unit
+  and, with two or more ``reductions`` a frame, the float32 lex [B, S, V]
+  that the first of them stages for the others (faster than recomputing
+  the product at B=8, B=32 and V=4096: PERF.md)."""
+  hp, vp = plan.hidden_pad, plan.vocab_pad
+  part = ((plan.state_tiles, batch, vocab), torch.float32)
+  scratch = {
+      'joint': ((batch, num_states, hp), torch.bfloat16),
+      'vocab_w': ((hp, vp), torch.bfloat16),
+      'part_m': part,
+      'part_l': part,
+  }
+  if reductions >= 2:
+    scratch['lex'] = ((batch, num_states, vocab), torch.float32)
+  return scratch
+
+
 def grid_splits(work_blocks: int, max_splits: int, device) -> int:
   """How many ways (at most max_splits) to split the work of a grid of
   work_blocks blocks so that it fills the card with ~4 blocks per SM."""
@@ -357,21 +385,42 @@ def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
   device = pf.device
   empty = lambda *shape, dtype=torch.float32: torch.empty(
       shape, dtype=dtype, device=device)
-  vw = params['vocab_w'].to(compute_dtype).contiguous()
-  bw = params['blank_w'].to(compute_dtype).contiguous()
   pad = is_pad.to(torch.int32)
-  joint = empty(batch, num_states, hidden, dtype=compute_dtype)
-  blank = empty(batch, num_states)
-  # In 'cache' mode, with two or more reductions per frame the first stages
-  # the frame's lexical weights for the others (faster than recomputing the
-  # head product even at B=32, where they outgrow the L2 cache: PERF.md).
   online = mode == 'online'
-  lex = empty(batch, num_states, vocab) if k >= 2 and not online else None
-  strips = -(-vocab // _TILE)
-  tiles = -(-num_states // _TILE)
-  splits = grid_splits(strips * batch, tiles, device)
-  part_m = empty(splits, batch, vocab)
-  part_l = empty(splits, batch, vocab)
+  if compute_dtype == torch.bfloat16 and not online:
+    # The column-reduce product of csrc/head_product.cuh on wgmma, over each
+    # frame's live rows: counted on the host (one synchronisation per
+    # call) and listed first on the device.
+    rplan = joint_head.reduce_plan(batch, num_states, hidden, vocab,
+                                   joint_head.sm_count(device))
+    buf = {name: empty(*shape, dtype=dtype) for name, (shape, dtype) in
+           forward_scratch(batch, num_states, hidden, vocab, rplan,
+                           k).items()}
+    vw, bw = params['vocab_w'], params['blank_w']  # rounded by the kernels
+    joint, lex = buf['joint'], buf.get('lex')
+    part_m, part_l = buf['part_m'], buf['part_l']
+    splits = 0
+    live = (~is_pad).sum(1, dtype=torch.int32).cpu()
+    rows = torch.argsort(is_pad.to(torch.uint8), dim=1,
+                         stable=True).to(torch.int32)
+    route_args = (_ptr(live), _ptr(rows), _ptr(buf['vocab_w']),
+                  rplan.max_blocks)
+  else:
+    vw = params['vocab_w'].to(compute_dtype).contiguous()
+    bw = params['blank_w'].to(compute_dtype).contiguous()
+    joint = empty(batch, num_states, hidden, dtype=compute_dtype)
+    # In 'cache' mode, with two or more reductions per frame the first
+    # stages the frame's lexical weights for the others (faster than
+    # recomputing the WMMA head product even at B=32, where they outgrow
+    # the L2 cache: PERF.md).
+    lex = empty(batch, num_states, vocab) if k >= 2 and not online else None
+    strips = -(-vocab // _TILE)
+    tiles = -(-num_states // _TILE)
+    splits = grid_splits(strips * batch, tiles, device)
+    part_m = empty(splits, batch, vocab)
+    part_l = empty(splits, batch, vocab)
+    route_args = (None, None, None, 0)
+  blank = empty(batch, num_states)
   hist = empty(max_t, batch, num_states) if with_residuals else None
   slabs = (empty(k, max_t, batch, num_states)
            if with_residuals and not frame_dependent and k else None)
@@ -386,7 +435,7 @@ def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
         _ptr(pad), _ptr(joint), _ptr(blank), _ptr(lex), _ptr(part_m),
         _ptr(part_l), _ptr(last), _ptr(alpha), _ptr(hist), _ptr(slabs),
         max_t, batch, num_states, hidden, vocab, max_expansions,
-        int(frame_dependent), int(online), splits, stream)
+        int(frame_dependent), int(online), splits, *route_args, stream)
   _raise_on(status, 'log-partition forward')
   if online:
     online_forward_launches += 1

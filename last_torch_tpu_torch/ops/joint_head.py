@@ -218,6 +218,50 @@ def forward_plan(batch: int, num_states: int, hidden: int, vocab: int,
                      max(1, min(tiles, _WG_BLOCKS_PER_SM * sms)))
 
 
+@dataclasses.dataclass(frozen=True)
+class ReducePlan:
+  """The column-reduce product's scratch and grid (``reduce_plan``): the
+  bfloat16 head product of the log-partition forward ('cache' mode) and of
+  frame_reduce's forward, with lex reduced over each 64-state unit of a
+  batch row in its epilogue.
+
+  Attributes:
+    hidden_pad, vocab_pad: h and V rounded up to the 64-deep stages; the
+      joint scratch is [B, S, hidden_pad], the head's bfloat16 copy
+      [hidden_pad, vocab_pad], both bfloat16 and zero past h and V.
+    state_tiles: a row's 64-state units: its (max, sum) partials per label
+      ([state_tiles, B, V] each).
+    units: the 64-state units of every row, which the two warpgroups of a
+      block take in consecutive pairs (a pair may span two rows).
+    tiles: the product's output tiles (unit pairs by 128-label strips)
+      with every row live.
+    blocks: its persistent grid then, one block per tile up to two an SM.
+    max_blocks: two blocks an SM, the grid's bound with fewer live rows.
+  """
+  hidden_pad: int
+  vocab_pad: int
+  state_tiles: int
+  units: int
+  tiles: int
+  blocks: int
+  max_blocks: int
+
+
+@functools.lru_cache(maxsize=64)
+def reduce_plan(batch: int, num_states: int, hidden: int, vocab: int,
+                sms: int) -> ReducePlan:
+  """The ``ReducePlan`` of ``batch`` live rows on ``sms`` SMs."""
+  cdiv = lambda n, m: -(-n // m)
+  hp = cdiv(hidden, _WG_DEPTH) * _WG_DEPTH
+  vp = cdiv(vocab, _WG_DEPTH) * _WG_DEPTH
+  t64 = cdiv(num_states, _WG_ROWS // 2)  # a warpgroup's 64 rows a unit
+  units = batch * t64
+  tiles = cdiv(units, 2) * cdiv(vp, _WG_COLS)
+  max_blocks = _WG_BLOCKS_PER_SM * sms
+  return ReducePlan(hp, vp, t64, units, tiles,
+                    max(1, min(tiles, max_blocks)), max_blocks)
+
+
 def library() -> ctypes.CDLL:
   """The kernel library, built from csrc/joint_head.cu at first use."""
   global _LIB
@@ -236,7 +280,7 @@ def library() -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _sms(device) -> int:
+def sm_count(device) -> int:
   """The SM count of a CUDA device."""
   return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -284,7 +328,7 @@ def joint_head_forward(pc: torch.Tensor, pf: torch.Tensor,
   joint16 = vw16 = None
   blocks = 0
   if compute_dtype == torch.bfloat16:
-    plan = forward_plan(batch, num_states, hidden, vocab, _sms(pc.device))
+    plan = forward_plan(batch, num_states, hidden, vocab, sm_count(pc.device))
     # One allocation: the joint [B S, hp], then the head [hp, Vp] (2 bytes
     # an entry).
     rows = batch * num_states * plan.hidden_pad

@@ -73,7 +73,7 @@ _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The forward's state tile (its (max, sum) partials are per state tile) and
 # the rows of d_lex summed per partial of d_vb, as csrc/sharded_scan.cu.
-_STATE_TILE = {torch.float32: 64, torch.bfloat16: 128}
+_STATE_TILE = 64
 _COLUMN_CHUNK = 64
 
 
@@ -117,7 +117,8 @@ def library() -> ctypes.CDLL:
     from last_torch_tpu_torch.ops import build
     lib = build.load('sharded_scan.cu')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.frame_reduce_forward.argtypes = [i] + [p] * 11 + [i] * 4 + [p]
+    lib.frame_reduce_forward.argtypes = [i] + [p] * 11 + [i] * 4 + [
+        p, p, i, p]
     lib.frame_reduce_forward.restype = i
     lib.frame_reduce_backward.argtypes = [i] + [p] * 27 + [i] * 6 + [p]
     lib.frame_reduce_backward.restype = i
@@ -167,15 +168,25 @@ def frame_reduce_forward(vec: torch.Tensor, pf_t: torch.Tensor,
   if vec.device.type == 'cpu':
     return frame_reduce_plain(vec, pf_t, pc, vw, vb, bw, bb,
                               compute_dtype=compute_dtype)
-  empty = lambda *shape: torch.empty(shape, device=vec.device)
-  tiles = -(-num_states // _STATE_TILE[compute_dtype])
-  part_m, part_s = empty(tiles, batch, vocab), empty(tiles, batch, vocab)
-  red, blank = empty(batch, vocab), empty(batch, num_states)
-  _launch(vec.device, 'forward', lambda lib, stream: lib.frame_reduce_forward(
+  device = vec.device
+  if device.type != 'cuda':
+    raise ValueError(f'no frame_reduce kernel for device {device}')
+  red = torch.empty((batch, vocab), device=device)
+  blank = torch.empty((batch, num_states), device=device)
+  # The scratch in one buffer: the call runs once per frame and expansion,
+  # where each allocation costs host time.
+  max_blocks, offsets, size = _forward_workspace(
+      batch, num_states, pc.shape[1], vocab, compute_dtype,
+      joint_head.sm_count(device))
+  workspace = torch.empty(size, dtype=torch.uint8, device=device)
+  ptr = lambda name: (workspace.data_ptr() + offsets[name]
+                      if name in offsets else None)
+  _launch(device, 'forward', lambda lib, stream: lib.frame_reduce_forward(
       _DTYPE_CODES[compute_dtype], vec.data_ptr(), pf_t.data_ptr(),
       pc.data_ptr(), vw.data_ptr(), vb.data_ptr(), bw.data_ptr(),
-      bb.data_ptr(), part_m.data_ptr(), part_s.data_ptr(), red.data_ptr(),
-      blank.data_ptr(), batch, num_states, pc.shape[1], vocab, stream))
+      bb.data_ptr(), ptr('part_m'), ptr('part_s'), red.data_ptr(),
+      blank.data_ptr(), batch, num_states, pc.shape[1], vocab, ptr('joint'),
+      ptr('vw16'), max_blocks, stream))
   forward_launches += 1
   return red, blank
 
@@ -217,19 +228,51 @@ def backward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
   }
 
 
+def forward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
+                    compute_dtype: torch.dtype,
+                    plan: Optional[joint_head.ReducePlan] = None) -> dict:
+  """name -> (shape, dtype) of the forward's scratch: the (max, sum)
+  partials per 64-state tile and, in bfloat16 (on ``plan``,
+  ``joint_head.reduce_plan``), the padded bfloat16 joint and head of
+  csrc/head_product.cuh's column reduction."""
+  part = ((-(-num_states // _STATE_TILE), batch, vocab), torch.float32)
+  scratch = {'part_m': part, 'part_s': part}
+  if compute_dtype == torch.bfloat16:
+    scratch['joint'] = ((batch, num_states, plan.hidden_pad), torch.bfloat16)
+    scratch['vw16'] = ((plan.hidden_pad, plan.vocab_pad), torch.bfloat16)
+  return scratch
+
+
+def _layout(scratch: dict):
+  """(byte offsets, total bytes) of ``scratch``'s buffers in one buffer,
+  each 256-byte aligned."""
+  offsets, size = {}, 0
+  for name, (shape, dtype) in scratch.items():
+    offsets[name] = size
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    size += -(-math.prod(shape) * itemsize // 256) * 256
+  return offsets, size
+
+
+@functools.lru_cache(maxsize=64)
+def _forward_workspace(batch, num_states, hidden, vocab, compute_dtype, sms):
+  """(largest persistent grid, byte offsets, total bytes) of the forward's
+  scratch in one buffer (``forward_scratch``)."""
+  plan = (joint_head.reduce_plan(batch, num_states, hidden, vocab, sms)
+          if compute_dtype == torch.bfloat16 else None)
+  return ((plan.max_blocks if plan else 0),
+          *_layout(forward_scratch(batch, num_states, hidden, vocab,
+                                   compute_dtype, plan)))
+
+
 @functools.lru_cache(maxsize=64)
 def _workspace(batch, num_states, hidden, vocab, sms):
   """((splits, dsplits), byte offsets, total bytes) of the bfloat16
   backward's scratch in one buffer (``backward_scratch``, each buffer
   256-byte aligned)."""
   grid = fused_scan.wgmma_grid(batch, num_states, hidden, vocab, sms)
-  offsets, size = {}, 0
-  for name, (shape, dtype) in backward_scratch(batch, num_states, hidden,
-                                               vocab, grid).items():
-    offsets[name] = size
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    size += -(-math.prod(shape) * itemsize // 256) * 256
-  return (grid.ksplits, grid.dsplits), offsets, size
+  return ((grid.ksplits, grid.dsplits),
+          *_layout(backward_scratch(batch, num_states, hidden, vocab, grid)))
 
 
 def frame_reduce_backward(vec: torch.Tensor, pf_t: torch.Tensor,

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from last_torch_tpu.ops import fused_scan as jax_fused_scan
-from last_torch_tpu_torch.ops import fused_scan
+from last_torch_tpu_torch.ops import fused_scan, joint_head
 
 torch.set_num_threads(1)
 torch.set_float32_matmul_precision('highest')
@@ -262,3 +262,75 @@ def test_online_backward_scratch_holds_no_batch_state_vocab_buffer(
       fused_scan.wgmma_grid(batch, 2 * states - 1, hidden, 2 * vocab, SMS,
                             'online'))
   assert wide['d_lex'][0][:2] == scratch['d_lex'][0][:2]
+
+
+@pytest.mark.parametrize('batch,states,hidden,vocab', [
+    (8, 1025, 512, 1024),  # the main path's frame
+    (32, 1025, 512, 1024),  # bench.py's headline batch
+    (8, 4097, 512, 4096),  # bench.py's config 9
+    (8, 1025, 80, 520),  # h and V off the 64-deep stages
+    (3, 77, 512, 1021),  # a ragged unit, V not a multiple of 4
+    (1, 77, 80, 256),
+])
+def test_reduce_plan_walks_every_unit_once(batch, states, hidden, vocab):
+  """The column-reduce product's persistent grid (csrc/head_product.cuh):
+  the tiles' unit pairs, walked as the kernel walks them, cover every
+  (row, 64-state unit, 128-label strip) once; the first unit of a pair is
+  always a real one; at most two blocks an SM."""
+  plan = joint_head.reduce_plan(batch, states, hidden, vocab, SMS)
+  assert plan.hidden_pad % 64 == 0 and 0 <= plan.hidden_pad - hidden < 64
+  assert plan.vocab_pad % 64 == 0 and 0 <= plan.vocab_pad - vocab < 64
+  t64 = -(-states // 64)
+  assert plan.state_tiles == t64
+  assert plan.units == batch * t64
+  strips = -(-plan.vocab_pad // 128)
+  assert plan.tiles == -(-plan.units // 2) * strips
+  walked = []
+  for t in range(plan.tiles):
+    pair, strip = divmod(t, strips)
+    for u in (2 * pair, 2 * pair + 1):
+      row, unit = divmod(u, t64)
+      real = u < plan.units
+      assert real or u == 2 * pair + 1, t
+      if real:
+        walked.append((row, unit, strip))
+  assert sorted(walked) == [(b, u, n) for b in range(batch)
+                            for u in range(t64) for n in range(strips)]
+  assert plan.max_blocks == 2 * SMS
+  assert 1 <= plan.blocks <= min(plan.tiles, plan.max_blocks)
+  if plan.tiles >= 2 * SMS:
+    assert plan.blocks == 2 * SMS
+  # Each row is padded to 64 states, not to a pair of units.
+  assert plan.units * 64 - batch * states < batch * 64
+
+
+@pytest.mark.parametrize('batch,states,hidden,vocab', [
+    (8, 1025, 512, 1024),
+    (32, 1025, 512, 1024),
+    (8, 4097, 512, 4096),
+    (3, 77, 80, 1021),
+])
+def test_forward_scratch_stages_lex_by_the_rule(batch, states, hidden,
+                                                vocab):
+  """The bfloat16 'cache' forward's scratch: the padded bfloat16 joint and
+  head and a (max, sum) partial per 64-state unit; the float32 lex [B, S,
+  V] exactly where a frame has two or more reductions; and plan() counts
+  what that mode stages, lex and the backward's bfloat16 d_lex."""
+  plan = joint_head.reduce_plan(batch, states, hidden, vocab, SMS)
+  hp, vp = plan.hidden_pad, plan.vocab_pad
+  for reductions in (0, 1, 2, 3):
+    scratch = fused_scan.forward_scratch(batch, states, hidden, vocab, plan,
+                                         reductions)
+    assert scratch['joint'] == ((batch, states, hp), torch.bfloat16)
+    assert scratch['vocab_w'] == ((hp, vp), torch.bfloat16)
+    assert scratch['part_m'] == scratch['part_l'] == (
+        (-(-states // 64), batch, vocab), torch.float32)
+    big = [n for n, (shape, dtype) in scratch.items()
+           if dtype == torch.float32 and np.prod(shape) >=
+           batch * states * vocab]
+    assert big == (['lex'] if reductions >= 2 else []), big
+    if reductions >= 2:
+      assert scratch['lex'] == ((batch, states, vocab), torch.float32)
+  staged = batch * states * vocab * (4 + 2)
+  assert fused_scan.plan(batch, states, vocab, torch.bfloat16) == (
+      'cache' if staged <= fused_scan.LEX_STAGE_BUDGET else 'online')

@@ -248,6 +248,11 @@ FUSED_CARD_CASES = {
     'fd_ragged_v1100_b32': (1100, 512, 0, True, 32),
     'fld1_ragged_v1100': (1100, 512, 1, False, 3),
     'fld3_ragged_v1100_b32': (1100, 512, 3, False, 32),
+    # The bfloat16 forward's column reduction: V not a multiple of 4 (its
+    # padded labels must be masked, not reduced), S=77 (a ragged 64-state
+    # unit), h=80 (the joint zero past h in its 128-deep padding).
+    'fld2_ragged_v1021_h80': (1021, 80, 2, False, 3),
+    'fld2_ragged_v76_h80': (76, 80, 2, False, 5),
 }
 # T_max of the card cases: the last two frames are padding in every row.
 CARD_MAX_T = 14
@@ -1013,6 +1018,9 @@ FRAME_REDUCE_CARD_CASES = {
     'b4_s1025_v200_h384': (4, 1025, 200, 384),
     # h and V not multiples of 4: bfloat16 staged without 16-byte loads.
     'ragged_b5_s77_v37_h42': (5, 77, 37, 42),
+    # The bfloat16 forward's column reduction at ragged shapes.
+    'b3_s77_v520_h80': (3, 77, 520, 80),
+    'b4_s1025_v1021_h80': (4, 1025, 1021, 80),
 }
 
 

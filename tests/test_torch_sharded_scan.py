@@ -29,7 +29,7 @@ from last_torch_tpu import weight_fns as jax_weight_fns
 from last_torch_tpu.ops import sharded_scan as jax_sharded_scan
 import last_torch_tpu_torch
 from last_torch_tpu_torch import alignments, contexts, convert, weight_fns
-from last_torch_tpu_torch.ops import fused_scan, sharded_scan
+from last_torch_tpu_torch.ops import fused_scan, joint_head, sharded_scan
 
 torch.set_num_threads(1)
 torch.set_float32_matmul_precision('highest')
@@ -334,3 +334,44 @@ def test_bfloat16_backward_workspace_is_aligned_and_disjoint():
   spans.sort()
   assert all(end <= start for (_, end), (start, _) in zip(spans, spans[1:]))
   assert spans[-1][1] <= size
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('batch,states,hidden,vocab', [
+    (8, 1025, 512, 1024),  # the headline frame, the whole head
+    (8, 1025, 512, 256),  # one of 4 shards
+    (8, 1025, 80, 520),  # h and Vl off the 64-deep stages
+    (5, 77, 512, 1024),  # a ragged 64-state unit
+    (3, 77, 80, 520),
+])
+def test_forward_workspace_is_aligned_disjoint_and_sized(batch, states,
+                                                         hidden, vocab,
+                                                         dtype):
+  """The forward's one workspace: the (max, sum) partials per 64-state
+  unit and, in bfloat16, the padded joint and head of the column-reduce
+  product, each 256-byte aligned and disjoint; the product's persistent
+  grid is capped at two blocks an SM."""
+  max_blocks, offsets, size = sharded_scan._forward_workspace(
+      batch, states, hidden, vocab, dtype, SMS)
+  plan = joint_head.reduce_plan(batch, states, hidden, vocab, SMS)
+  scratch = sharded_scan.forward_scratch(
+      batch, states, hidden, vocab, dtype,
+      plan if dtype == torch.bfloat16 else None)
+  part = ((-(-states // 64), batch, vocab), torch.float32)
+  want = {'part_m': part, 'part_s': part}
+  if dtype == torch.bfloat16:
+    want['joint'] = ((batch, states, plan.hidden_pad), torch.bfloat16)
+    want['vw16'] = ((plan.hidden_pad, plan.vocab_pad), torch.bfloat16)
+    assert max_blocks == plan.max_blocks == 2 * SMS
+  else:
+    assert max_blocks == 0
+  assert scratch == want
+  spans = []
+  for name, (shape, item) in scratch.items():
+    assert offsets[name] % 256 == 0, name
+    spans.append((offsets[name], offsets[name] +
+                  np.prod(shape) * torch.empty((), dtype=item).element_size()))
+  spans.sort()
+  assert all(end <= start for (_, end), (start, _) in zip(spans, spans[1:]))
+  assert spans[-1][1] <= size < spans[-1][1] + 256

@@ -18,7 +18,7 @@
 Run from the root of a checkout, with an older tree unpacked beside it
 (``git archive <commit> | tar -x -C _archive/parent``)::
 
-  python3 tools/ab_backward.py --parent _archive/parent
+  python3 tools/ab_kernels.py --parent _archive/parent [--cases ...]
 
 It runs, each in its own process and in this order, the plain versions of
 this checkout, then the kernels of the parent, this checkout, this checkout
@@ -42,11 +42,26 @@ Each run times, with CUDA events after a warm-up:
   ``chip_smoke.py`` phase 11b's headline inputs, the mean of 100 calls
   back to back (a call this short can be bound by its host work);
   ``jhfd``: its device time per call, the summed kernel durations of 100
-  calls under ``torch.profiler``.
+  calls under ``torch.profiler``;
+* ``lp8f``, ``lp32f``, ``lp9f``: ``fused_forward`` ('cache', bf16, FLD(2),
+  with the residuals the backward reads) at the shapes of ``lp8``,
+  ``lp32`` and config 9 (B=8, T=200, S=4097, V=4096), one call each;
+  ``lp9of``: the 'online' forward at config 9 (a control);
+* ``fr1024f`` / ``fr256f``: ``frame_reduce_forward`` (bf16, B=8, S=1025,
+  h=512, phase 12b's inputs) at Vl=1024 and 256, the mean of 100 calls
+  back to back; ``fr1024fd`` / ``fr256fd``: its device time per call;
+* ``fr256fh`` / ``jhfh``: the host's time per call of ``fr256f`` /
+  ``jhf``: the wall time of 100 calls issued with no synchronisation,
+  divided by 100 (too few launches to fill the device's queue, so the host
+  never waits); ``fr256fa`` / ``jhfa``: of that, the time per call spent
+  in CUDA runtime and driver calls (launches, tensor maps, attributes),
+  under ``torch.profiler``.
 
 Prints the card's name and power limit, one line per run, and one JSON
-object of milliseconds (MiB for ``lp9omem``) by run and case. ``--tree DIR --cases ...`` runs
-one tree in this process (what the turns call).
+object of milliseconds (MiB for ``lp9omem``) by run and case. ``--rounds
+R`` repeats the parent, change, change, parent turns R times (the plain
+run stays one, and ``--no-plain`` drops it). ``--tree DIR --cases ...``
+runs one tree in this process (what the turns call).
 """
 
 import argparse
@@ -54,12 +69,28 @@ import json
 import pathlib
 import subprocess
 import sys
+import time
 
 import numpy as np
 
 NUM_FRAMES = [1600, 1523, 1400, 1211, 1000, 804, 517, 230]
 CASES = ('lp8', 'lp32', 'lp9o', 'lp9o512', 'lp9omem', 'fr1024', 'fr256',
-         'jhf', 'jhfd')
+         'jhf', 'jhfd', 'jhfh', 'jhfa', 'lp8f', 'lp32f', 'lp9f', 'lp9of',
+         'fr1024f', 'fr256f', 'fr1024fd', 'fr256fd', 'fr256fh', 'fr256fa')
+
+
+# The forward cases: (shape, mode).
+LP_SHAPES = {'lp8': (8, NUM_FRAMES, 1600, 1024),
+             'lp32': (32, [1600] * 32, 1600, 1024),
+             'lp9': (8, [200] * 8, 200, 4096)}
+FORWARD_CASES = {'lp8f': ('lp8', 'cache'), 'lp32f': ('lp32', 'cache'),
+                 'lp9f': ('lp9', 'cache'), 'lp9of': ('lp9', 'online')}
+# How a call is timed (``timed``, ``device_time``, ``host_time``,
+# ``api_time``), by the case's last letter.
+CLOCKS = {'d': 'device', 'h': 'host', 'a': 'api'}
+FRAME_REDUCE_FORWARD_CASES = {'fr1024f': 1024, 'fr256f': 256,
+                              'fr1024fd': 1024, 'fr256fd': 256,
+                              'fr256fh': 256, 'fr256fa': 256}
 
 
 def timed(torch, fn, repeats):
@@ -76,15 +107,57 @@ def timed(torch, fn, repeats):
   return out, start.elapsed_time(end) / repeats
 
 
+def host_time(torch, fn, repeats):
+  """ms of host time per call of fn: repeats calls issued back to back
+  with no synchronisation."""
+  fn()
+  torch.cuda.synchronize()
+  start = time.perf_counter()
+  for _ in range(repeats):
+    fn()
+  elapsed = time.perf_counter() - start
+  torch.cuda.synchronize()
+  return elapsed * 1e3 / repeats
+
+
+def api_time(torch, fn, repeats):
+  """ms per call of fn spent in CUDA runtime and driver calls, under
+  torch.profiler."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    for _ in range(repeats):
+      fn()
+    torch.cuda.synchronize()
+  cuda = torch.autograd.DeviceType.CUDA
+  total_ns = sum(e.end_ns() - e.start_ns()
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() != cuda and e.name().startswith('cu')
+                 and 'Synchronize' not in e.name())
+  return total_ns / repeats / 1e6
+
+
+def clocked(torch, fn, clock, repeats=100):
+  """ms per call of fn by ``clock`` (a value of CLOCKS, or None for the
+  mean of back-to-back calls with CUDA events)."""
+  if clock is None:
+    return timed(torch, fn, repeats)[1]
+  return {'device': device_time, 'host': host_time,
+          'api': api_time}[clock](torch, fn, repeats)
+
+
 def rand(rng, shape, scale=1.0):
   return (rng.standard_normal(shape) * scale).astype(np.float32)
 
 
 def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats,
-                     max_t=1600, vocab=1024, mode='cache', memory=False):
-  """ms of one bigram backward in ``mode`` at (batch, lengths), or with
-  ``memory`` the MiB it allocates at its peak beyond what was allocated
-  before it."""
+                     max_t=1600, vocab=1024, mode='cache', memory=False,
+                     forward_only=False):
+  """ms of one bigram backward (or with ``forward_only`` forward) in
+  ``mode`` at (batch, lengths), or with ``memory`` the MiB the backward
+  allocates at its peak beyond what was allocated before it."""
   rng = np.random.default_rng(0)
   hidden = 512
   cuda = lambda x: torch.from_numpy(x).cuda()
@@ -102,6 +175,10 @@ def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats,
       fused_scan.fused_forward)
   backward = fused_scan.fused_backward_plain if plain else (
       fused_scan.fused_backward)
+  if forward_only:
+    return timed(torch, lambda: forward(pf, pc, head, is_pad,
+                                        with_residuals=True, **kw),
+                 repeats)[1]
   log_z, _, hist, slabs = forward(pf, pc, head, is_pad, with_residuals=True,
                                   **kw)
   g = torch.ones(batch, device='cuda')
@@ -116,9 +193,11 @@ def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats,
   return timed(torch, call, repeats)[1]
 
 
-def frame_reduce_ms(torch, sharded_scan, vocab, plain):
+def frame_reduce_ms(torch, sharded_scan, vocab, direction, plain,
+                    clock=None):
   """ms of one frame_reduce backward at B=8, S=1025, h=512, Vl=vocab, on
-  inputs drawn as chip_smoke.py's phase 12b draws them."""
+  inputs drawn as chip_smoke.py's phase 12b draws them; with ``direction``
+  'forward' of one forward, by ``clock`` (``clocked``) over 100 calls."""
   rng = np.random.default_rng(13)
   batch, states, hidden = 8, 1025, 512
   cuda = lambda x: torch.from_numpy(x).cuda()
@@ -134,6 +213,11 @@ def frame_reduce_ms(torch, sharded_scan, vocab, plain):
   d_red = cuda(rand(rng, (batch, vocab)))
   d_blank = cuda(rand(rng, (batch, states)))
   dtype = torch.bfloat16
+  if direction != 'backward':
+    forward = (sharded_scan.frame_reduce_plain if plain else
+               sharded_scan.frame_reduce_forward)
+    call = lambda: forward(**inputs, compute_dtype=dtype)
+    return clocked(torch, call, clock)
   red = sharded_scan.frame_reduce_plain(**inputs, compute_dtype=dtype)[0]
   backward = (sharded_scan.frame_reduce_backward_plain if plain else
               sharded_scan.frame_reduce_backward)
@@ -158,10 +242,10 @@ def device_time(torch, fn, repeats):
   return total_ns / repeats / 1e6
 
 
-def joint_head_forward_ms(torch, joint_head, plain, device=False):
+def joint_head_forward_ms(torch, joint_head, plain, clock=None):
   """ms of one joint+head forward at B=8, S=1025, V=1024, h=512, bf16, on
-  inputs drawn as chip_smoke.py's phase 11b draws them: per call back to
-  back, or with ``device`` its device time."""
+  inputs drawn as chip_smoke.py's phase 11b draws them, by ``clock``
+  (``clocked``) over 100 calls."""
   rng = np.random.default_rng(12)
   batch, states, vocab, hidden = 8, 1025, 1024, 512
   cuda = lambda x: torch.from_numpy(x).cuda()
@@ -174,8 +258,7 @@ def joint_head_forward_ms(torch, joint_head, plain, device=False):
   forward = (joint_head.joint_head_forward_plain if plain else
              joint_head.joint_head_forward)
   call = lambda: forward(**inputs, compute_dtype=torch.bfloat16)
-  return device_time(torch, call, 100) if device else timed(torch, call,
-                                                            100)[1]
+  return clocked(torch, call, clock)
 
 
 def run_tree(tree, cases, plain):
@@ -187,7 +270,18 @@ def run_tree(tree, cases, plain):
   torch.backends.cuda.matmul.allow_tf32 = False
   out = {}
   for case in cases:
-    if case == 'lp8':
+    clock = CLOCKS.get(case[-1])
+    if case in FORWARD_CASES:
+      shape, mode = FORWARD_CASES[case]
+      batch, lengths, max_t, vocab = LP_SHAPES[shape]
+      out[case] = log_partition_ms(torch, fused_scan, batch, lengths, plain,
+                                   1, max_t=max_t, vocab=vocab, mode=mode,
+                                   forward_only=True)
+    elif case in FRAME_REDUCE_FORWARD_CASES:
+      out[case] = frame_reduce_ms(torch, sharded_scan,
+                                  FRAME_REDUCE_FORWARD_CASES[case],
+                                  'forward', plain, clock)
+    elif case == 'lp8':
       out[case] = log_partition_ms(torch, fused_scan, 8, NUM_FRAMES, plain, 2)
     elif case == 'lp32':
       out[case] = log_partition_ms(torch, fused_scan, 32, [1600] * 32, plain,
@@ -201,10 +295,10 @@ def run_tree(tree, cases, plain):
                                    memory=case == 'lp9omem')
       fused_scan.ONLINE_CHUNK_STATES = chunk
     elif case.startswith('jhf'):
-      out[case] = joint_head_forward_ms(torch, joint_head, plain,
-                                        device=case == 'jhfd')
+      out[case] = joint_head_forward_ms(torch, joint_head, plain, clock)
     else:
-      out[case] = frame_reduce_ms(torch, sharded_scan, int(case[2:]), plain)
+      out[case] = frame_reduce_ms(torch, sharded_scan, int(case[2:]),
+                                  'backward', plain)
   return out
 
 
@@ -216,6 +310,10 @@ def main():
                       choices=CASES)
   parser.add_argument('--plain', action='store_true',
                       help='time the plain versions')
+  parser.add_argument('--rounds', type=int, default=1,
+                      help='parent, change, change, parent turns, repeated')
+  parser.add_argument('--no-plain', action='store_true',
+                      help='leave out the plain versions\' run')
   args = parser.parse_args()
   if args.tree:
     print(json.dumps(run_tree(args.tree, args.cases, args.plain)))
@@ -228,9 +326,9 @@ def main():
       check=False).stdout.strip()
   print(card, flush=True)
   here = str(pathlib.Path(__file__).resolve().parent.parent)
-  turns = [('plain', here, ['--plain']), ('parent', args.parent, []),
-           ('change', here, []), ('change', here, []),
-           ('parent', args.parent, [])]
+  turns = [] if args.no_plain else [('plain', here, ['--plain'])]
+  turns += [('parent', args.parent, []), ('change', here, []),
+            ('change', here, []), ('parent', args.parent, [])] * args.rounds
   results = []
   for name, tree, flags in turns:
     proc = subprocess.run(
@@ -241,6 +339,7 @@ def main():
       sys.exit(f'{name} run failed')
     ms = json.loads(proc.stdout.strip().splitlines()[-1])
     print(f'{name}: ' + ', '.join(
+        f'{c} null' if t is None else
         f'{c} {t:.4f} {"MiB" if c.endswith("mem") else "ms"}'
         for c, t in ms.items()), flush=True)
     results.append({'run': name, 'ms': ms})
