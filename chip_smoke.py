@@ -435,10 +435,12 @@ def phase_kernel_vs_plain(torch, viterbi):
 # The wgmma kernels whose registers and spills phase 2 reports one by one
 # (the rest only as each library's range).
 WGMMA_KERNELS = ('lex_pass_kernel', 'head_grad_kernel', 'joint_grad_kernel',
-                 'lex_grad_kernel', 'joint_pass_kernel',
-                 'head_product_kernel', 'column_reduce_kernel')
-# The namespaces of those kernels (others share some of their names).
-WGMMA_NAMESPACES = ('hopper', 'head_grads', 'head_product')
+                 'num_joint_grad_kernel', 'lex_grad_kernel',
+                 'joint_pass_kernel', 'stage_kernel', 'head_product_kernel',
+                 'column_reduce_kernel')
+# The namespaces of those kernels (others share some of their names); simt:
+# the numerator backward's float32 register-blocked products.
+WGMMA_NAMESPACES = ('hopper', 'head_grads', 'head_product', 'simt')
 
 
 def ptxas_kernels(log):
@@ -501,10 +503,11 @@ def phase_build(build, libraries):
                  f'{len(registers)} kernels, {min(registers)}-'
                  f'{max(registers)} registers, spill stores {spill_stores} B, '
                  f'spill loads {spill_loads} B')
-    wgmma = [f'{kernel_label(mangled, name)} {regs} registers, spills '
+    wgmma = [f'{"simt::" if "4simt" in mangled else ""}'
+             f'{kernel_label(mangled, name)} {regs} registers, spills '
              f'{stores}/{loads} B' for mangled, regs, stores, loads in
              ptxas_kernels(log) for name in WGMMA_KERNELS
-             if name in mangled and
+             if f'{len(name)}{name}' in mangled and
              any(space in mangled for space in WGMMA_NAMESPACES)]
     if wgmma:
       lines.append(f'{source} wgmma kernels (stores/loads): ' +

@@ -41,43 +41,82 @@
 // What bounds it here. Per frame the forward runs one [R, h] x [h, V] head
 // product (2 T R h V = 1.36 TFLOP at B=8, U1=101, T=1600, h=512, V=1024)
 // and the backward three (the replayed logits, dj and d_W): compute-bound
-// products, since only the [T, R] scalars and [T, B, h] d_pf cross device
-// memory per frame. In float32 (the training default) they run on the CUDA
-// cores (67 TFLOP/s peak), in bfloat16 on the tensor cores.
+// products. The string DP masks every frame past a row's length and every
+// label position past its labels, so their cotangents are zero and they
+// contribute exactly zero: at bench shapes half of the (frame, row) pairs.
+// In float32 (the training default) the products run on the CUDA cores
+// (67 TFLOP/s peak), in bfloat16 on the tensor cores (989 TFLOP/s).
 //
-// What the design does about it (first, simple version):
-// * The weights have no recurrence over time: each frame's outputs depend
-//   on that frame alone. The TPU walked T as a sequential grid axis only to
-//   keep W and its gradient sums resident in VMEM. Here the forward is one
-//   launch over all frames, grid (row tiles, label splits, frames), and one
-//   small merge launch; no host time loop.
-// * A block stages the joint of its 64 rows in shared memory, formed from
-//   pc and pf as it loads (the [T, R, h] joint, 1.3 GB in float32 at B=8,
-//   is never stored), and walks its label strips against it: float32 FMAs
-//   from a k-major tile, or WMMA bfloat16 products from a row-major one.
-//   The tile holds at most kChunk hidden units (512 float32, 1024
-//   bfloat16), so its shared memory does not grow with h: up to kChunk the
-//   joint is staged once for all strips; past it, each strip re-stages the
-//   joint chunk by chunk and sums the chunks' products. The logsumexp over
-//   V is an online (max, sum) per row over the strips, merged across
-//   splits as fused_scan.cu does.
-// * The backward stages, per chunk of frames sized by the caller, the
-//   rounded joint and ds ([Tc, R, h] and [Tc, R, V] in the compute type), so
-//   that d_W = joint^T ds is one contraction over the chunk's rows. Every
-//   cross-frame sum is a buffer in which each element belongs to one block
-//   per launch (d_W per split of the contraction, d_pc / d_wy / d_bw per
-//   frame split, d_vb per (frame, row tile)), reduced by separate launches:
-//   no atomics, deterministic sums. g = 0 rows give exact zeros: every
-//   gradient term is a product with gb or gl, and e^(logits - z) <= 1.
-// * The [B, U1] rows are flattened with no padding to 8 or 128: ragged R,
-//   V and h are masked in the loads. wgmma, TMA and pipelining are later
-//   work.
+// What the design does about it:
+// * Forward. The weights have no recurrence over time: each frame's
+//   outputs depend on that frame alone. The TPU walked T as a sequential
+//   grid axis only to keep W and its gradient sums resident in VMEM. Here
+//   the forward is one launch over all frames, grid (row tiles, label
+//   splits, frames), and one small merge launch; no host time loop. A block
+//   stages the joint of its 64 rows in shared memory, formed from pc and pf
+//   as it loads (the [T, R, h] joint, 1.3 GB in float32 at B=8, is never
+//   stored), and walks its label strips against it: float32 FMAs from a
+//   k-major tile, or WMMA bfloat16 products from a row-major one. The tile
+//   holds at most kChunk hidden units (512 float32, 1024 bfloat16), so its
+//   shared memory does not grow with h: up to kChunk the joint is staged
+//   once for all strips; past it, each strip re-stages the joint chunk by
+//   chunk and sums the chunks' products. The logsumexp over V is an online
+//   (max, sum) per row over the strips, merged across splits as
+//   fused_scan.cu does.
+// * Backward: live tiles only. The [B, U1] rows are flattened (no padding
+//   to 8 or 128) into 64-row tiles, which may hold the end of one batch row
+//   and the start of the next. mark_kernel flags each (frame, row tile)
+//   whose rows hold a nonzero cotangent and list_kernel (one block, a
+//   prefix sum) compacts the flags into a list of items, by chunk of
+//   frames, tile and frame, with per (chunk, tile) offsets and per chunk
+//   counts in device memory. Every later launch reads its chunk's count
+//   from there: no host synchronisation. A chunk's items get consecutive
+//   slots of 64 rows in its staging buffers (sized by the caller for
+//   every tile of the chunk's frames live).
+// * Per chunk, five launches (six in float32). joint_pass_kernel forms the
+//   live items' joint in the compute type (and, in bfloat16, the float32
+//   joint32 for the tanh derivative), zero past R and h, with the sums
+//   that need no product (d_wy, and d_bw per tile). The ds product replays
+//   the logits per (item, label strip) and in its epilogue writes ds =
+//   coef e^(logits - ref) once, in the compute type (0 past V and on rows
+//   whose coef is 0), with its column sums (d_vb). The d_joint product (dj
+//   = ds . W^T, K = Vp) adds gl wy[r] + d_blank bw and takes the tanh
+//   derivative in its epilogue. In bfloat16 it runs per (row tile, hidden
+//   strip, split) over the tile's items, keeping d_pc = sum_t du in
+//   registers and summing du over each batch row's positions in the tile
+//   (d_pf partials, summed per frame by dpf_sum_kernel). In float32, where
+//   those 64 running sums a thread left one block an SM, it stores du per
+//   item (float32) from a persistent grid at two blocks an SM, and
+//   du_sum_kernel forms the d_pc and d_pf partials from it: on an H100,
+//   26.1 against 42.1 ms for the product at the HAT step's shape, plus 2.6
+//   ms for the sums (PERF.md; in bfloat16 storing du lost, 37.7 + 7.1
+//   against 32.3 ms). The d_W product (joint^T ds) splits the chunk's
+//   items over its blocks. Every cross-frame sum is a buffer in which each
+//   element belongs to one block (d_W, d_pc per split, d_vb per block of
+//   the ds product, d_bw per tile, d_wy per (tile, hidden strip)), zeroed
+//   once and reduced by one launch at the end: no atomics, deterministic
+//   sums for the same inputs.
+// * bfloat16 runs the three products on wgmma with TMA operands
+//   (wgmma_tiles.cuh: a 4-stage mbarrier ring, one consumer warpgroup, two
+//   blocks an SM): the ds product here (lex_grad_kernel, a persistent grid
+//   over the chunk's items by 128-label strip), the d_joint product
+//   (head_grads.cuh's num_joint_grad_kernel) and d_W (head_grads.cuh's
+//   head_grad_kernel, the item count read from device memory).
+// * float32 stays exact FP32 on the CUDA cores (no TF32), as the plain
+//   versions require: namespace simt, 64 x 256 block tiles, 8 x 8 entries a
+//   thread from 16-byte shared-memory broadcasts (64 FMAs per four loads),
+//   16-deep slices double-buffered through registers, the same live list
+//   and slots.
+// * g = 0 rows give exact zeros: every gradient term is a product with gb
+//   or gl, ds is written as 0 where its coefficient is 0, and e^(logits -
+//   z) <= 1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <mma.h>
 
+#include "head_grads.cuh"
 #include "tile_product.cuh"
 
 namespace {
@@ -89,8 +128,6 @@ constexpr int kLdT = kBM + 4;         // k-major float32 joint tile stride
 constexpr int kLdW = 64 + 8;          // bfloat16 W slice stride
 constexpr int kLdC = kBN + 4;         // float32 accumulator tile stride
 constexpr int kPointThreads = 256;
-
-enum Mode { kForward = 0, kGradient = 1 };
 
 __device__ __forceinline__ float safe_shift(float m) {
   return m == -INFINITY ? 0.f : m;
@@ -108,12 +145,6 @@ __device__ __forceinline__ float lse_value(float m, float l) {
   return l > 0.f ? safe_shift(m) + logf(l) : -INFINITY;
 }
 
-__device__ __forceinline__ float log_add(float a, float b) {
-  const float m = fmaxf(a, b);
-  if (m == -INFINITY) return -INFINITY;
-  return m + log1pf(expf(fminf(a, b) - m));
-}
-
 __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
@@ -126,7 +157,6 @@ __host__ __device__ inline int round_up(int x, int m) {
 // hidden units: float32 k-major [round_up(hc, kBK)][kLdT] plus a
 // [kBK][kBN] W slice; bfloat16 row-major [kRows][round_up(hc, kWK) + 8]
 // plus a [kWK][kLdW] W slice and a float32 [kBM][kLdC] accumulator tile.
-// Both add [kBM / kTM][kBN] floats for column sums.
 template <typename T>
 struct Resident;
 
@@ -137,7 +167,7 @@ struct Resident<float> {
   static __host__ __device__ size_t bytes(int h) {
     const int hc = h < kChunk ? h : kChunk;
     return sizeof(float) * (static_cast<size_t>(round_up(hc, kBK)) * kLdT +
-                            kBK * kBN + (kBM / kTM) * kBN);
+                            kBK * kBN);
   }
 };
 
@@ -150,7 +180,7 @@ struct Resident<__nv_bfloat16> {
   static __host__ __device__ size_t bytes(int h) {
     return sizeof(__nv_bfloat16) *
                (static_cast<size_t>(kRows) * ld(h) + kWK * kLdW) +
-           sizeof(float) * (kBM * kLdC + (kBM / kTM) * kBN);
+           sizeof(float) * kBM * kLdC;
   }
 };
 
@@ -314,16 +344,12 @@ __device__ __forceinline__ void resident_product(
 }
 
 // The head product over one split of the label strips for a 64-row tile of
-// frame t0 + blockIdx.z. Grid (ceil(R / 64), splits, frames).
-//
-// kForward: the online (max, sum) of the logits per row into part_m /
-// part_l [splits, frames, R]; split 0 also writes blank and ly [frames, R].
-// kGradient: ds = coef e^(logits - ref) into ds [frames, R, V] (compute
-// type) and its float32 column sums per (frame, row tile) into dvb_part
-// [frames, ceil(R / 64), V]; split 0 also writes the rounded joint into
-// jc [frames, R, h]. CHUNKED: h exceeds the joint tile's chunk (a launch
-// without it takes h <= Resident<T>::kChunk and compiles to one chunk).
-template <typename T, int MODE, bool CHUNKED>
+// frame blockIdx.z: the online (max, sum) of the logits per row into
+// part_m / part_l [splits, frames, R]; split 0 also writes blank and ly
+// [frames, R]. Grid (ceil(R / 64), splits, frames). CHUNKED: h exceeds the
+// joint tile's chunk (a launch without it takes h <= Resident<T>::kChunk
+// and compiles to one chunk).
+template <typename T, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
     head_kernel(const float* __restrict__ pc,      // [R, h]
                 const float* __restrict__ pf,      // [T, B, h] from frame t0
@@ -333,19 +359,11 @@ __global__ void __launch_bounds__(kThreads)
                 const float* __restrict__ bb,      // [1]
                 const float* __restrict__ wy,      // [R, h]
                 const float* __restrict__ by,      // [R]
-                float* __restrict__ part_m,        // kForward
-                float* __restrict__ part_l,        // kForward
-                float* __restrict__ blank_out,     // kForward, [frames, R]
-                float* __restrict__ ly_out,        // kForward, [frames, R]
-                const float* __restrict__ g_b,     // kGradient, [frames, R]
-                const float* __restrict__ g_l,     // kGradient, [frames, R]
-                const float* __restrict__ z,       // kGradient, [frames, R]
-                const float* __restrict__ blank,   // kGradient, [frames, R]
-                T* __restrict__ ds,                // kGradient
-                T* __restrict__ jc,                // kGradient
-                float* __restrict__ dvb_part,      // kGradient
-                int R, int B, int U1, int h, int V, int hat,
-                int strips_per_split) {
+                float* __restrict__ part_m,        // [splits, frames, R]
+                float* __restrict__ part_l,
+                float* __restrict__ blank_out,     // [frames, R]
+                float* __restrict__ ly_out,        // [frames, R]
+                int R, int B, int U1, int h, int V, int strips_per_split) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float dots[2][kRows];
   const int ldj = Resident<T>::ld(h);
@@ -358,14 +376,11 @@ __global__ void __launch_bounds__(kThreads)
   T* js = reinterpret_cast<T*>(smem);
   T* w_tile;
   float* c_tile = nullptr;
-  float* cand;
   if (sizeof(T) == 4) {
     w_tile = js + static_cast<size_t>(h_pad) * kLdT;
-    cand = reinterpret_cast<float*>(w_tile + kBK * kBN);
   } else {
     w_tile = js + static_cast<size_t>(kRows) * ldj;
     c_tile = reinterpret_cast<float*>(w_tile + kWK * kLdW);
-    cand = c_tile + kBM * kLdC;
   }
   const int tid = threadIdx.x;
   const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
@@ -377,54 +392,29 @@ __global__ void __launch_bounds__(kThreads)
   const int strip_end = min(strips, strip_begin + strips_per_split);
   const bool first_split = blockIdx.y == 0;
 
-  // Stages chunk c of the joint; `outputs`: also the per-row outputs of the
-  // first split (blank and ly in kForward, the rounded joint in kGradient),
-  // written once per row.
+  // Stages chunk c of the joint; `outputs`: also blank and ly, written by
+  // the first split once per row.
   auto stage = [&](int c, bool outputs) {
     const int c0 = CHUNKED ? c * chunk : 0;
     const int hc = CHUNKED ? min(chunk, h - c0) : h;
-    const bool scores = MODE == kForward && first_split && outputs;
+    const bool scores = first_split && outputs;
     stage_joint<T>(js, ldj, pc, pf + static_cast<size_t>(f) * B * h, bw, bb,
                    wy, by, r0, R, U1, h, c0, hc,
                    sizeof(T) == 4 ? round_up(hc, kBK) : round_up(hc, kWK),
                    dots, scores ? blank_out + fr : nullptr,
                    scores ? ly_out + fr : nullptr);
     __syncthreads();
-    if (MODE == kGradient && first_split && outputs) {
-      // The rounded joint, for the d_W contraction (row-major [R, h]).
-      for (int idx = tid; idx < kRows * hc; idx += kThreads) {
-        const int row = idx / hc, k = idx % hc;
-        if (r0 + row < R) {
-          jc[(fr + r0 + row) * h + c0 + k] =
-              sizeof(T) == 4 ? js[k * kLdT + row] : js[row * ldj + k];
-        }
-      }
-    }
   };
   if (num_chunks == 1 || strip_begin >= strip_end) {
     for (int c = 0; c < num_chunks; ++c) stage(c, true);
   }
 
-  // Per-row constants of this thread's rows.
-  float run_m[kTM], run_l[kTM], coef[kTM], ref[kTM];
+  // The running (max, sum) of this thread's rows.
+  float run_m[kTM], run_l[kTM];
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     run_m[i] = -INFINITY;
     run_l[i] = 0.f;
-    coef[i] = 0.f;
-    ref[i] = 0.f;
-    const int r = r0 + ty * kTM + i;
-    if (MODE == kGradient && r < R) {
-      const float gb = g_b[fr + r], gl = g_l[fr + r];
-      const float zz = z[fr + r];
-      if (hat) {
-        coef[i] = -gl;
-        ref[i] = zz;
-      } else {
-        coef[i] = -(gb + gl);
-        ref[i] = log_add(blank[fr + r], zz);
-      }
-    }
   }
 
   for (int strip = strip_begin; strip < strip_end; ++strip) {
@@ -457,61 +447,32 @@ __global__ void __launch_bounds__(kThreads)
       const int y = y0 + tx * kTN + j;
       bias[j] = y < V ? vb[y] : 0.f;
     }
-    if (MODE == kForward) {
 #pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        float v[kTN];
-        float m = -INFINITY;
+    for (int i = 0; i < kTM; ++i) {
+      float v[kTN];
+      float m = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          const int y = y0 + tx * kTN + j;
-          v[j] = y < V ? val[i][j] + bias[j] : -INFINITY;
-          m = fmaxf(m, v[j]);
-        }
-        // The 16 threads of a row group are lanes of one half-warp.
-        for (int o = 8; o > 0; o >>= 1) {
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-        }
-        const float c = safe_shift(m);
-        float l = 0.f;
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) l += expf(v[j] - c);
-        for (int o = 8; o > 0; o >>= 1) {
-          l += __shfl_xor_sync(0xffffffffu, l, o);
-        }
-        lse_merge(run_m[i], run_l[i], m, l);
+      for (int j = 0; j < kTN; ++j) {
+        const int y = y0 + tx * kTN + j;
+        v[j] = y < V ? val[i][j] + bias[j] : -INFINITY;
+        m = fmaxf(m, v[j]);
       }
-    } else {
-      float col[kTN];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) col[j] = 0.f;
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-        const int r = r0 + ty * kTM + i;
-        if (r >= R) continue;
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          const int y = y0 + tx * kTN + j;
-          if (y >= V) continue;
-          const float d = coef[i] * expf(val[i][j] + bias[j] - ref[i]);
-          ds[(fr + r) * V + y] = from_float<T>(d);
-          col[j] += d;
-        }
+      // The 16 threads of a row group are lanes of one half-warp.
+      for (int o = 8; o > 0; o >>= 1) {
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
       }
+      const float c = safe_shift(m);
+      float l = 0.f;
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) cand[ty * kBN + tx * kTN + j] = col[j];
-      __syncthreads();
-      if (tid < kBN && y0 + tid < V) {
-        float total = 0.f;
-        for (int g = 0; g < kBM / kTM; ++g) total += cand[g * kBN + tid];
-        dvb_part[(static_cast<size_t>(f) * gridDim.x + blockIdx.x) * V + y0 +
-                 tid] = total;
+      for (int j = 0; j < kTN; ++j) l += expf(v[j] - c);
+      for (int o = 8; o > 0; o >>= 1) {
+        l += __shfl_xor_sync(0xffffffffu, l, o);
       }
-      __syncthreads();
+      lse_merge(run_m[i], run_l[i], m, l);
     }
   }
 
-  if (MODE == kForward && tx == 0) {
+  if (tx == 0) {
 #pragma unroll
     for (int i = 0; i < kTM; ++i) {
       const int r = r0 + ty * kTM + i;
@@ -548,155 +509,9 @@ __global__ void __launch_bounds__(kPointThreads)
     nb[idx] = log_sigmoid(bl);
     nl[idx] = ly - zz + log_sigmoid(-bl);
   } else {
-    const float za = log_add(bl, zz);
+    const float za = head_grads::log_add_exp(bl, zz);
     nb[idx] = bl - za;
     nl[idx] = ly - za;
-  }
-}
-
-__device__ __forceinline__ float blank_cotangent(float gb, float gl, float zz,
-                                                 float bl, int hat) {
-  if (hat) {
-    const float sig = 1.f / (1.f + expf(-bl));
-    return gb * (1.f - sig) - gl * sig;
-  }
-  return gb - (gb + gl) * expf(bl - log_add(bl, zz));
-}
-
-// d_W partial: dw_acc[split] += jc^T ds over the split's range of the
-// chunk's rows. Grid (ceil(V / 64), ceil(h / 64), splits).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    head_grad_kernel(const T* __restrict__ jc,     // [rows, h]
-                     const T* __restrict__ ds,     // [rows, V]
-                     float* __restrict__ dw_acc,   // [splits, h, V]
-                     int rows, int h, int V, int rows_per_split) {
-  const int y0 = blockIdx.x * kBN;
-  const int h0 = blockIdx.y * kBM;
-  const int q0 = blockIdx.z * rows_per_split;
-  const int q1 = min(rows, q0 + rows_per_split);
-  if (q0 >= q1) return;
-  float acc[kTM][kTN];
-  tile_product<true, false>(jc + static_cast<size_t>(q0) * h, h,
-                            ds + static_cast<size_t>(q0) * V, V, h0, y0, h, V,
-                            q1 - q0, acc);
-  const int tx = threadIdx.x % (kBN / kTN), ty = threadIdx.x / (kBN / kTN);
-  float* out = dw_acc + static_cast<size_t>(blockIdx.z) * h * V;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int hh = h0 + ty * kTM + i;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int y = y0 + tx * kTN + j;
-      if (hh < h && y < V) out[static_cast<size_t>(hh) * V + y] += acc[i][j];
-    }
-  }
-}
-
-// dj = ds W^T + gl wy + d_blank bw and du = dj (1 - joint32^2) for a (hidden
-// tile, 64 label positions of batch row b) over the frames f = split,
-// split + splits, ... of the chunk: du and gl joint32 summed over those
-// frames into dpc_acc / dwy_acc [splits, R, h], d_blank joint32 into dbw_acc
-// [splits, B * utiles, h], and per frame the position sums of du into
-// dpf_part [utiles, frames, B, h]. Grid (ceil(h / 64), B * utiles, splits).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    joint_grad_kernel(const T* __restrict__ ds,       // [frames, R, V]
-                      const T* __restrict__ W,        // [h, V]
-                      const float* __restrict__ pc,   // [R, h]
-                      const float* __restrict__ pf,   // [T, B, h] at t0
-                      const float* __restrict__ wy,   // [R, h]
-                      const float* __restrict__ bw,   // [h]
-                      const float* __restrict__ g_b,  // [frames, R]
-                      const float* __restrict__ g_l,
-                      const float* __restrict__ z,
-                      const float* __restrict__ blank,
-                      float* __restrict__ dpc_acc, float* __restrict__ dwy_acc,
-                      float* __restrict__ dbw_acc,
-                      float* __restrict__ dpf_part, int frames, int R, int B,
-                      int U1, int h, int V, int hat) {
-  __shared__ float cand_f[kBM / kTM][kBN];
-  __shared__ float cand_w[kBM / kTM][kBN];
-  const int utiles = (U1 + kBM - 1) / kBM;
-  const int b = blockIdx.y / utiles, ut = blockIdx.y % utiles;
-  const int u0 = ut * kBM;
-  const int h0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
-  const int row0 = b * U1 + u0;  // first row of the tile
-  const int rows = min(kBM, U1 - u0);
-  float acc_pc[kTM][kTN], acc_wy[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc_pc[i][j] = acc_wy[i][j] = 0.f;
-  }
-  float run_bw = 0.f;  // column h0 + tid, tid < 64
-  for (int f = blockIdx.z; f < frames; f += gridDim.z) {
-    const size_t fr = static_cast<size_t>(f) * R;
-    float acc[kTM][kTN];
-    tile_product<false, true>(ds + (fr + row0) * V, V, W, V, 0, h0, rows, h,
-                              V, acc);
-    float col_f[kTN], col_w[kTN];
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) col_f[j] = col_w[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int u = ty * kTM + i;
-      if (u >= rows) continue;
-      const int r = row0 + u;
-      const float gb = g_b[fr + r], gl = g_l[fr + r];
-      const float db = blank_cotangent(gb, gl, z[fr + r], blank[fr + r], hat);
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int hh = h0 + tx * kTN + j;
-        if (hh >= h) continue;
-        const float jt = tanhf(pc[static_cast<size_t>(r) * h + hh] +
-                               pf[(static_cast<size_t>(f) * B + b) * h + hh]);
-        const float dj = acc[i][j] + gl * wy[static_cast<size_t>(r) * h + hh] +
-                         db * bw[hh];
-        const float du = dj * (1.f - jt * jt);
-        acc_pc[i][j] += du;
-        acc_wy[i][j] += gl * jt;
-        col_f[j] += du;
-        col_w[j] += db * jt;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      cand_f[ty][tx * kTN + j] = col_f[j];
-      cand_w[ty][tx * kTN + j] = col_w[j];
-    }
-    __syncthreads();
-    if (tid < kBN && h0 + tid < h) {
-      float sf = 0.f, sw = 0.f;
-      for (int g = 0; g < kBM / kTM; ++g) {
-        sf += cand_f[g][tid];
-        sw += cand_w[g][tid];
-      }
-      dpf_part[((static_cast<size_t>(ut) * frames + f) * B + b) * h + h0 +
-               tid] = sf;
-      run_bw += sw;
-    }
-    __syncthreads();
-  }
-  const size_t split_rows = static_cast<size_t>(blockIdx.z) * R;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int u = ty * kTM + i;
-    if (u >= rows) continue;
-    const size_t at = (split_rows + row0 + u) * h;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int hh = h0 + tx * kTN + j;
-      if (hh >= h) continue;
-      dpc_acc[at + hh] += acc_pc[i][j];
-      dwy_acc[at + hh] += acc_wy[i][j];
-    }
-  }
-  if (tid < kBN && h0 + tid < h) {
-    dbw_acc[(static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) * h +
-            h0 + tid] += run_bw;
   }
 }
 
@@ -715,22 +530,11 @@ __global__ void __launch_bounds__(kPointThreads)
   for (int t = 0; t < frames; ++t) {
     const size_t at = static_cast<size_t>(t) * R + r;
     sy += g_l[at];
-    sb += blank_cotangent(g_b[at], g_l[at], z[at], blank[at], hat);
+    sb += head_grads::row_cotangent(g_b[at], g_l[at], z[at], blank[at], hat)
+              .d_blank;
   }
   d_by[r] = sy;
   db_row[r] = sb;
-}
-
-// out[i] = (accumulate ? out[i] : 0) + sum_q in[q * n + i].
-__global__ void __launch_bounds__(kPointThreads)
-    sum_rows_kernel(const float* __restrict__ in, int rows, size_t n,
-                    float* __restrict__ out, int accumulate) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * kPointThreads +
-                     threadIdx.x;
-  if (idx >= n) return;
-  float total = accumulate ? out[idx] : 0.f;
-  for (int q = 0; q < rows; ++q) total += in[static_cast<size_t>(q) * n + idx];
-  out[idx] = total;
 }
 
 #define RETURN_IF_FAILED(expr)                              \
@@ -747,11 +551,11 @@ inline int blocks_for(size_t n) {
 // The head kernel for hidden size h (chunked past Resident<T>::kChunk),
 // allowed Resident<T>::bytes(h) of dynamic shared memory (over 48 KB);
 // fails when the card has less.
-template <typename T, int MODE>
+template <typename T>
 int head_launch_setup(int h, size_t* bytes,
-                      decltype(&head_kernel<T, MODE, false>)* kernel) {
-  *kernel = h > Resident<T>::kChunk ? head_kernel<T, MODE, true>
-                                    : head_kernel<T, MODE, false>;
+                      decltype(&head_kernel<T, false>)* kernel) {
+  *kernel = h > Resident<T>::kChunk ? head_kernel<T, true>
+                                    : head_kernel<T, false>;
   *bytes = Resident<T>::bytes(h);
   RETURN_IF_FAILED(cudaFuncSetAttribute(
       *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -773,14 +577,13 @@ int run_forward(const float* pc, const float* pf, const T* W,
   const int splits = (strips + per_split - 1) / per_split;
   if (num_frames == 0 || R == 0) return 0;
   size_t bytes = 0;
-  decltype(&head_kernel<T, kForward, false>) kernel = nullptr;
-  const int status = head_launch_setup<T, kForward>(h, &bytes, &kernel);
+  decltype(&head_kernel<T, false>) kernel = nullptr;
+  const int status = head_launch_setup<T>(h, &bytes, &kernel);
   if (status != 0) return status;
   const dim3 grid((R + kRows - 1) / kRows, splits, num_frames);
-  kernel<<<grid, kThreads, bytes, stream>>>(
-      pc, pf, W, vb, bw, bb, wy, by, part_m, part_l, blank, nl, nullptr,
-      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, R, B, U1, h, V,
-      hat, per_split);
+  kernel<<<grid, kThreads, bytes, stream>>>(pc, pf, W, vb, bw, bb, wy, by,
+                                            part_m, part_l, blank, nl, R, B,
+                                            U1, h, V, per_split);
   RETURN_IF_LAUNCH_FAILED();
   const size_t n = static_cast<size_t>(num_frames) * R;
   forward_merge_kernel<<<blocks_for(n), kPointThreads, 0, stream>>>(
@@ -789,91 +592,900 @@ int run_forward(const float* pc, const float* pf, const T* W,
   return 0;
 }
 
-template <typename T>
-int run_backward(const float* pc, const float* pf, const T* W,
-                 const float* vb, const float* bw, const float* bb,
-                 const float* wy, const float* by, const float* z,
-                 const float* blank, const float* g_b, const float* g_l,
-                 T* jc, T* ds, float* dvb_part, float* dw_acc,
-                 float* dpc_acc, float* dwy_acc, float* dbw_acc,
-                 float* dpf_part, float* db_row, float* d_pf, float* d_pc,
-                 float* d_wy, float* d_w, float* d_vb, float* d_bw,
-                 float* d_by, float* d_bb, int num_frames, int B, int U1,
-                 int h, int V, int hat, int chunk, int max_splits,
-                 int max_ksplits, int fsplits, cudaStream_t stream) {
-  const int R = B * U1;
-  const int row_tiles = (R + kRows - 1) / kRows;
-  const int strips = (V + kBN - 1) / kBN;
-  const int h_tiles = (h + kBN - 1) / kBN;
-  const int utiles = (U1 + kBM - 1) / kBM;
-  const int per_split =
-      (strips + max_splits - 1) / (max_splits > 0 ? max_splits : 1);
-  const int splits = (strips + per_split - 1) / per_split;
-  size_t bytes = 0;
-  decltype(&head_kernel<T, kGradient, false>) kernel = nullptr;
-  if (num_frames > 0 && R > 0) {
-    const int status = head_launch_setup<T, kGradient>(h, &bytes, &kernel);
-    if (status != 0) return status;
+// ---------------------------------------------------------------------------
+// The backward. Items are the (frame t, 64-row tile) pairs whose rows hold a
+// nonzero cotangent at t, found on the device (mark_kernel, list_kernel) and
+// walked by the products in chunks of frames; slot = an item's position
+// among its chunk's, the row block it owns in the chunk's staging buffers.
+
+constexpr int kListThreads = 1024;
+constexpr int kPassCols = 32;  // hidden units per joint-pass block
+
+// flags[t R64 + k] = 1 where a row of tile k holds a nonzero g_b or g_l at
+// frame t, else 0. A warp per (t, k). Grid ceil(T R64 / 8).
+__global__ void __launch_bounds__(kPointThreads)
+    mark_kernel(const float* __restrict__ g_b, const float* __restrict__ g_l,
+                int* __restrict__ flags, int T, int R, int R64) {
+  const long long w = static_cast<long long>(blockIdx.x) *
+                          (kPointThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (w >= static_cast<long long>(T) * R64) return;
+  const int t = static_cast<int>(w / R64), k = static_cast<int>(w % R64);
+  bool live = false;
+  for (int row = lane; row < kRows; row += 32) {
+    const int r = k * kRows + row;
+    if (r < R) {
+      const size_t at = static_cast<size_t>(t) * R + r;
+      live |= g_b[at] != 0.f || g_l[at] != 0.f;
+    }
   }
-  for (int t0 = 0; t0 < num_frames; t0 += chunk) {
-    const int frames = min(chunk, num_frames - t0);
-    const size_t fr = static_cast<size_t>(t0) * R;
-    const float* pf_c = pf + static_cast<size_t>(t0) * B * h;
-    kernel<<<dim3(row_tiles, splits, frames), kThreads, bytes, stream>>>(
-            pc, pf_c, W, vb, bw, bb, wy, by, nullptr, nullptr, nullptr,
-            nullptr, g_b + fr, g_l + fr, z + fr, blank + fr, ds, jc,
-            dvb_part, R, B, U1, h, V, hat, per_split);
-    RETURN_IF_LAUNCH_FAILED();
-    const int rows = frames * R;
-    int rows_per_split =
-        (rows + max_ksplits - 1) / (max_ksplits > 0 ? max_ksplits : 1);
-    rows_per_split = round_up(rows_per_split, kWK);
-    const int ksplits = (rows + rows_per_split - 1) / rows_per_split;
-    head_grad_kernel<T><<<dim3(strips, h_tiles, ksplits), kThreads, 0,
-                          stream>>>(jc, ds, dw_acc, rows, h, V,
-                                    rows_per_split);
-    RETURN_IF_LAUNCH_FAILED();
-    joint_grad_kernel<T><<<dim3(h_tiles, B * utiles, fsplits), kThreads, 0,
-                           stream>>>(
-        ds, W, pc, pf_c, wy, bw, g_b + fr, g_l + fr, z + fr, blank + fr,
-        dpc_acc, dwy_acc, dbw_acc, dpf_part, frames, R, B, U1, h, V, hat);
-    RETURN_IF_LAUNCH_FAILED();
-    sum_rows_kernel<<<blocks_for(V), kPointThreads, 0, stream>>>(
-        dvb_part, frames * row_tiles, V, d_vb, t0 > 0);
-    RETURN_IF_LAUNCH_FAILED();
-    const size_t n_pf = static_cast<size_t>(frames) * B * h;
-    sum_rows_kernel<<<blocks_for(n_pf), kPointThreads, 0, stream>>>(
-        dpf_part, utiles, n_pf, d_pf + static_cast<size_t>(t0) * B * h, 0);
-    RETURN_IF_LAUNCH_FAILED();
-  }
-  if (R > 0) {
-    bias_grad_kernel<<<blocks_for(R), kPointThreads, 0, stream>>>(
-        g_b, g_l, z, blank, num_frames, R, hat, d_by, db_row);
-    RETURN_IF_LAUNCH_FAILED();
-  }
-  const struct {
-    const float* in;
-    int rows;
-    size_t n;
-    float* out;
-  } sums[] = {{dpc_acc, fsplits, static_cast<size_t>(R) * h, d_pc},
-              {dwy_acc, fsplits, static_cast<size_t>(R) * h, d_wy},
-              {dw_acc, max_ksplits, static_cast<size_t>(h) * V, d_w},
-              {dbw_acc, fsplits * B * utiles, static_cast<size_t>(h), d_bw},
-              {db_row, R, 1, d_bb}};
-  for (const auto& sum : sums) {
-    sum_rows_kernel<<<blocks_for(sum.n), kPointThreads, 0, stream>>>(
-        sum.in, sum.rows, sum.n, sum.out, 0);
-    RETURN_IF_LAUNCH_FAILED();
-  }
-  if (num_frames == 0) {  // no chunk ran: d_vb is all zeros
-    sum_rows_kernel<<<blocks_for(V), kPointThreads, 0, stream>>>(
-        dvb_part, 0, V, d_vb, 0);
-    RETURN_IF_LAUNCH_FAILED();
-  }
-  return 0;
+  live = __any_sync(0xffffffffu, live);
+  if (lane == 0) flags[w] = live ? 1 : 0;
 }
 
+// The live list, one block: the (t, tile) flags in pos_of, in the order
+// (chunk of Tc frames, tile, frame), compacted by a prefix sum. Writes
+// items[pos] = t R64 + tile, pos_of[t R64 + tile] = pos (-1 where dead),
+// groups[c R64 + tile] = the first position of (chunk c, tile) and
+// groups[C R64] = the count, count[c] = chunk c's items.
+__global__ void __launch_bounds__(kListThreads)
+    list_kernel(int* __restrict__ pos_of, int* __restrict__ items,
+                int* __restrict__ groups, int* __restrict__ count, int T,
+                int R64, int Tc) {
+  __shared__ int warp_sums[kListThreads / 32];
+  __shared__ int carry;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int chunks = (T + Tc - 1) / Tc;
+  const int n = T * R64;
+  if (tid == 0) carry = 0;
+  __syncthreads();
+  for (int j0 = 0; j0 < n; j0 += kListThreads) {
+    const int j = j0 + tid;
+    int flag = 0, index = 0, group = -1;
+    if (j < n) {
+      const int c = min(j / (Tc * R64), chunks - 1);
+      const int local = j - c * Tc * R64;
+      const int len = min(Tc, T - c * Tc);
+      const int tile = local / len, tl = local % len;
+      index = (c * Tc + tl) * R64 + tile;
+      flag = pos_of[index];
+      if (tl == 0) group = c * R64 + tile;
+    }
+    int x = flag;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_sums[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int y = warp_sums[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, y, o);
+        if (lane >= o) y += v;
+      }
+      warp_sums[lane] = y;
+    }
+    __syncthreads();
+    const int pos = carry + (warp > 0 ? warp_sums[warp - 1] : 0) + x - flag;
+    if (j < n) {
+      if (group >= 0) groups[group] = pos;
+      pos_of[index] = flag ? pos : -1;
+      if (flag) items[pos] = index;
+    }
+    __syncthreads();
+    if (tid == 0) carry += warp_sums[kListThreads / 32 - 1];
+    __syncthreads();
+  }
+  if (tid == 0) groups[chunks * R64] = carry;
+  __syncthreads();
+  for (int c = tid; c < chunks; c += kListThreads) {
+    count[c] = groups[(c + 1) * R64] - groups[c * R64];
+  }
+}
+
+// The head in the compute type, padded with zeros: wp [hp, Vp] from W [h,
+// V]. Grid ceil(hp Vp / 256).
+template <typename T>
+__global__ void __launch_bounds__(kPointThreads)
+    pad_head_kernel(const float* __restrict__ W, T* __restrict__ wp, int h,
+                    int V, int hp, int Vp) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kPointThreads +
+                   threadIdx.x;
+  if (i >= static_cast<size_t>(hp) * Vp) return;
+  const int k = static_cast<int>(i / Vp), y = static_cast<int>(i % Vp);
+  wp[i] = from_float<T>(k < h && y < V ? W[static_cast<size_t>(k) * V + y]
+                                       : 0.f);
+}
+
+// The joint pass of a chunk: for each live item of row tile blockIdx.x,
+// joint[slot, row, hh] = T(tanh(pc[r] + pf[t, b(r)])) (zero past R and h)
+// and, where joint32 is set, the float32 tanh; and the cross-frame sums that
+// need no product, d_wy[r] += gl joint32 and dbw_part[tile] += sum_r
+// d_blank joint32, owned by this block. A thread takes one hidden unit of
+// the block's 32 and 8 rows. Grid (R64, hp / 32).
+template <typename T>
+__global__ void __launch_bounds__(kPointThreads)
+    joint_pass_kernel(const float* __restrict__ pc,     // [R, h]
+                      const float* __restrict__ pf,     // [T, B, h]
+                      const float* __restrict__ g_b,    // [T, R]
+                      const float* __restrict__ g_l,
+                      const float* __restrict__ z,
+                      const float* __restrict__ blank,
+                      const int* __restrict__ items,
+                      const int* __restrict__ groups,   // the chunk's
+                      T* __restrict__ joint,            // [slots, 64, hp]
+                      float* __restrict__ joint32,      // [slots, 64, h]
+                      float* __restrict__ d_wy,         // [R, h], added
+                      float* __restrict__ dbw_part,     // [R64, h], added
+                      int R, int B, int U1, int h, int hp, int R64,
+                      int hat) {
+  __shared__ float gl_s[kRows], db_s[kRows];
+  __shared__ float bw_s[kPointThreads / kPassCols][kPassCols];
+  const int tile = blockIdx.x, r0 = tile * kRows;
+  const int c = threadIdx.x % kPassCols, rg = threadIdx.x / kPassCols;
+  const int hh = blockIdx.y * kPassCols + c;
+  constexpr int kPer = kRows * kPassCols / kPointThreads;  // rows a thread
+  const int base = groups[0];
+  float wy_acc[kPer], bw_acc = 0.f;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) wy_acc[i] = 0.f;
+  for (int pos = groups[tile]; pos < groups[tile + 1]; ++pos) {
+    const int t = items[pos] / R64;
+    const size_t slot = pos - base;
+    if (threadIdx.x < kRows) {
+      const int r = r0 + threadIdx.x;
+      float gl = 0.f, db = 0.f;
+      if (r < R) {
+        const size_t at = static_cast<size_t>(t) * R + r;
+        const head_grads::RowCotangent rc = head_grads::row_cotangent(
+            g_b[at], g_l[at], z[at], blank[at], hat);
+        gl = rc.gl;
+        db = rc.d_blank;
+      }
+      gl_s[threadIdx.x] = gl;
+      db_s[threadIdx.x] = db;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int row = rg + i * (kPointThreads / kPassCols), r = r0 + row;
+      float jt = 0.f;
+      if (r < R && hh < h) {
+        jt = tanhf(pc[static_cast<size_t>(r) * h + hh] +
+                   pf[(static_cast<size_t>(t) * B + r / U1) * h + hh]);
+        wy_acc[i] = fmaf(gl_s[row], jt, wy_acc[i]);
+        bw_acc = fmaf(db_s[row], jt, bw_acc);
+        if (joint32 != nullptr) {
+          joint32[(slot * kRows + row) * h + hh] = jt;
+        }
+      }
+      joint[(slot * kRows + row) * hp + hh] = from_float<T>(jt);
+    }
+    __syncthreads();
+  }
+  bw_s[rg][c] = bw_acc;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = r0 + rg + i * (kPointThreads / kPassCols);
+    if (r < R && hh < h) d_wy[static_cast<size_t>(r) * h + hh] += wy_acc[i];
+  }
+  __syncthreads();
+  if (rg == 0 && hh < h) {
+    float total = 0.f;
+#pragma unroll
+    for (int g = 0; g < kPointThreads / kPassCols; ++g) total += bw_s[g][c];
+    dbw_part[static_cast<size_t>(tile) * h + hh] += total;
+  }
+}
+
+// float32: the sums of du over a chunk's items (grid (R64, ceil(h / 32))):
+// block (tile, 32 hidden units) walks the tile's items, adding du into d_pc
+// (owned by this block) and, per item, summing du over each batch row's
+// rows of the tile into dpf_part[slot, b - b_first(tile)]. A thread takes
+// one hidden unit and 8 rows.
+__global__ void __launch_bounds__(kPointThreads)
+    du_sum_kernel(const float* __restrict__ du,      // [slots, 64, h]
+                  const int* __restrict__ groups,    // the chunk's
+                  float* __restrict__ d_pc,          // [R, h], added
+                  float* __restrict__ dpf_part,      // [slots, J, h]
+                  int R, int U1, int h, int J) {
+  __shared__ float red[kPointThreads / kPassCols][kPassCols];
+  constexpr int kGroups = kPointThreads / kPassCols;
+  constexpr int kPer = kRows / kGroups;
+  const int tile = blockIdx.x, r0 = tile * kRows;
+  const int c = threadIdx.x % kPassCols, rg = threadIdx.x / kPassCols;
+  const int hh = blockIdx.y * kPassCols + c;
+  const int b_first = r0 / U1, b_last = (min(R, r0 + kRows) - 1) / U1;
+  const int base = groups[0];
+  float pc_acc[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) pc_acc[i] = 0.f;
+  for (int pos = groups[tile]; pos < groups[tile + 1]; ++pos) {
+    const size_t slot = pos - base;
+    float v[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int row = rg + i * kGroups;
+      v[i] = r0 + row < R && hh < h ? du[(slot * kRows + row) * h + hh] : 0.f;
+      pc_acc[i] += v[i];
+    }
+    for (int bb = b_first; bb <= b_last; ++bb) {
+      float total = 0.f;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        total += (r0 + rg + i * kGroups) / U1 == bb ? v[i] : 0.f;
+      }
+      red[rg][c] = total;
+      __syncthreads();
+      if (rg == 0 && hh < h) {
+        float sum = 0.f;
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) sum += red[g][c];
+        dpf_part[(slot * J + bb - b_first) * h + hh] = sum;
+      }
+      __syncthreads();
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = r0 + rg + i * kGroups;
+    if (r < R && hh < h) d_pc[static_cast<size_t>(r) * h + hh] += pc_acc[i];
+  }
+}
+
+// d_pf[t, b] for the chunk's frames [t0, t0 + frames): the sum, over the
+// row tiles k that hold batch row b, of dpf_part[slot(t, k), b - b_first(k)]
+// (nothing where (t, k) is dead). Grid ceil(frames B h / 256).
+__global__ void __launch_bounds__(kPointThreads)
+    dpf_sum_kernel(const float* __restrict__ dpf_part,  // [slots, J, h]
+                   const int* __restrict__ pos_of,
+                   const int* __restrict__ groups,      // the chunk's
+                   float* __restrict__ d_pf,            // [T, B, h]
+                   int t0, int frames, int B, int U1, int h, int R64, int J) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * kPointThreads +
+                   threadIdx.x;
+  if (i >= static_cast<size_t>(frames) * B * h) return;
+  const int hh = static_cast<int>(i % h);
+  const int b = static_cast<int>(i / h % B);
+  const int t = t0 + static_cast<int>(i / h / B);
+  const int base = groups[0];
+  float total = 0.f;
+  for (int k = b * U1 / kRows; k <= (b * U1 + U1 - 1) / kRows; ++k) {
+    const int pos = pos_of[t * R64 + k];
+    if (pos >= 0) {
+      total += dpf_part[(static_cast<size_t>(pos - base) * J + b -
+                         k * kRows / U1) * h + hh];
+    }
+  }
+  d_pf[(static_cast<size_t>(t) * B + b) * h + hh] = total;
+}
+
+// ---------------------------------------------------------------------------
+// float32 products: register-blocked FMAs on the CUDA cores. A block of 256
+// threads owns a 64 x 256 output tile, 8 x 8 entries a thread (rows ty * 8
+// + i, columns tx * 4 + j and 128 + tx * 4 + j), and walks the depth in
+// 16-deep slices double-buffered in shared memory: the next slice's loads
+// are in flight (in registers) under the current slice's 1024 FMAs a
+// thread, whose operands come from shared memory as 16-byte broadcasts.
+// Every operand is a padded buffer (rows of 64, hp or Vp columns, zeros
+// past R, h and V), so the loads take no masks along the depth.
+namespace simt {
+
+constexpr int kM = 64, kN = 256, kK = 16, kThreads = 256;
+
+struct Smem {
+  float a[2][kK][kM];
+  float b[2][kK][kN];
+};
+
+__device__ __forceinline__ int col(int j) {
+  return (j < 4 ? 0 : kN / 2 - 4) + threadIdx.x % 32 * 4 + j;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// A [64 rows][depth] with the depth contiguous: row m at p + m * ld.
+struct RowsA {
+  const float* p;
+  int ld;
+  __device__ void load(int step, float4& r) const {
+    const int m = threadIdx.x % kM, kq = threadIdx.x / kM;
+    r = ld4(p + static_cast<size_t>(m) * ld + step * kK + kq * 4);
+  }
+  __device__ void store(const float4& r, float (&s)[kK][kM]) const {
+    const int m = threadIdx.x % kM, kq = threadIdx.x / kM;
+    s[kq * 4][m] = r.x, s[kq * 4 + 1][m] = r.y;
+    s[kq * 4 + 2][m] = r.z, s[kq * 4 + 3][m] = r.w;
+  }
+};
+
+// A [64 rows][depth] with the rows contiguous: depth d at p + d * ld + m0
+// (the head gradient's joint^T, the depth walking the items' rows).
+struct ColsA {
+  const float* p;
+  int ld, m0;
+  __device__ void load(int step, float4& r) const {
+    const int k = threadIdx.x / 16, m = threadIdx.x % 16 * 4;
+    r = ld4(p + static_cast<size_t>(step * kK + k) * ld + m0 + m);
+  }
+  __device__ void store(const float4& r, float (&s)[kK][kM]) const {
+    const int k = threadIdx.x / 16, m = threadIdx.x % 16 * 4;
+    *reinterpret_cast<float4*>(&s[k][m]) = r;
+  }
+};
+
+// B [depth][256 columns] with the columns contiguous: depth d at p + d * ld
+// + n0, columns past `cols` zero.
+struct RowsB {
+  const float* p;
+  int ld, n0, cols;
+  __device__ void load(int step, float4 (&r)[4]) const {
+    const int k = threadIdx.x / 16, n = threadIdx.x % 16 * 4;
+    const float* q = p + static_cast<size_t>(step * kK + k) * ld + n0 + n;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      r[i] = n0 + i * 64 < cols ? ld4(q + i * 64) : float4{};
+    }
+  }
+  __device__ void store(const float4 (&r)[4], float (&s)[kK][kN]) const {
+    const int k = threadIdx.x / 16, n = threadIdx.x % 16 * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      *reinterpret_cast<float4*>(&s[k][n + i * 64]) = r[i];
+    }
+  }
+};
+
+// B [depth][256 columns] with the depth contiguous: column n at p + (n0 +
+// n) * ld, columns past `cols` zero (the head transposed).
+struct ColsB {
+  const float* p;
+  int ld, n0, cols;
+  __device__ void load(int step, float4 (&r)[4]) const {
+    const int n = n0 + threadIdx.x;
+    const float* q = p + static_cast<size_t>(n) * ld + step * kK;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) r[i] = n < cols ? ld4(q + i * 4) : float4{};
+  }
+  __device__ void store(const float4 (&r)[4], float (&s)[kK][kN]) const {
+    const int n = threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[i * 4][n] = r[i].x, s[i * 4 + 1][n] = r[i].y;
+      s[i * 4 + 2][n] = r[i].z, s[i * 4 + 3][n] = r[i].w;
+    }
+  }
+};
+
+// acc = A B over `steps` 16-deep slices. Every thread of the block calls
+// it; the shared memory is free again when it returns.
+template <class LA, class LB>
+__device__ __forceinline__ void product(float (&acc)[8][8], Smem& sm,
+                                        int steps, const LA& la,
+                                        const LB& lb) {
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  }
+  if (steps == 0) return;
+  float4 ra, rb[4];
+  la.load(0, ra);
+  lb.load(0, rb);
+  la.store(ra, sm.a[0]);
+  lb.store(rb, sm.b[0]);
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {
+    const int cur = s & 1;
+    if (s + 1 < steps) {
+      la.load(s + 1, ra);
+      lb.load(s + 1, rb);
+    }
+#pragma unroll
+    for (int k = 0; k < kK; ++k) {
+      const float4 a0 = ld4(&sm.a[cur][k][ty * 8]);
+      const float4 a1 = ld4(&sm.a[cur][k][ty * 8 + 4]);
+      const float4 b0 = ld4(&sm.b[cur][k][tx * 4]);
+      const float4 b1 = ld4(&sm.b[cur][k][kN / 2 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+    }
+    if (s + 1 < steps) {
+      la.store(ra, sm.a[cur ^ 1]);
+      lb.store(rb, sm.b[cur ^ 1]);
+    }
+    __syncthreads();
+  }
+}
+
+// Column sums of the block's 64 x 256 tile over the rows i of each thread
+// for which in(i): v[i][j] summed over those and over the 8 row groups,
+// through sm.b's space (free after a product), then out(c, total) for each
+// of the 256 columns by the thread c. Every thread calls it.
+template <class In, class Out>
+__device__ __forceinline__ void column_sums(const float (&v)[8][8], Smem& sm,
+                                            const In& in, const Out& out) {
+  float(*red)[kN] = reinterpret_cast<float(*)[kN]>(&sm.b[0][0][0]);
+  const int ty = threadIdx.x / 32;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float total = 0.f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) total += in(i) ? v[i][j] : 0.f;
+    red[ty][col(j)] = total;
+  }
+  __syncthreads();
+  float total = 0.f;
+#pragma unroll
+  for (int g = 0; g < kThreads / 32; ++g) total += red[g][threadIdx.x];
+  out(threadIdx.x, total);
+  __syncthreads();
+}
+
+struct Args {
+  const float* vb;       // [V]
+  const float* bw;       // [h]
+  const float* wy;       // [R, h]
+  const float* g_b;      // [T, R], and g_l, z, blank
+  const float* g_l;
+  const float* z;
+  const float* blank;
+  const float* wp;       // [hp, Vp], the padded head
+  const float* joint;    // [slots, 64, hp]
+  float* ds;             // [slots, 64, Vp]
+  const int* items;
+  const int* groups;     // the chunk's [R64 + 1]
+  const int* count;      // the chunk's item count
+  float* dvb_part;       // [P, V], added
+  float* du;             // [slots, 64, h], written
+  float* dw;             // [splits, h, V], added
+  int R, h, hp, V, Vp, R64, hat;
+};
+
+// ds of each item (grid (P, ceil(Vp / 256)): block p walks the chunk's
+// items p, p + P, ...): logits = joint . wp + vb, ds = coef e^(logits -
+// ref) (0 past V and where coef is 0), and its column sums, added into
+// dvb_part[p].
+__global__ void __launch_bounds__(kThreads, 2) lex_grad_kernel(const Args p) {
+  __shared__ Smem sm;
+  __shared__ float vb[kN], sums[kN];
+  const int n0 = blockIdx.y * kN, ty = threadIdx.x / 32;
+  {
+    const int y = n0 + threadIdx.x;
+    vb[threadIdx.x] = y < p.V ? p.vb[y] : 0.f;
+    sums[threadIdx.x] = 0.f;
+  }
+  __syncthreads();
+  const int base = p.groups[0], count = *p.count;
+  for (int slot = blockIdx.x; slot < count; slot += gridDim.x) {
+    const int v = p.items[base + slot], t = v / p.R64, r0 = v % p.R64 * kM;
+    float acc[8][8];
+    product(acc, sm, p.hp / kK,
+            RowsA{p.joint + static_cast<size_t>(slot) * kM * p.hp, p.hp},
+            RowsB{p.wp, p.Vp, n0, p.Vp});
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = ty * 8 + i, r = r0 + row;
+      head_grads::RowCotangent rc{0.f, 0.f, 0.f, 0.f};
+      if (r < p.R) {
+        const size_t at = static_cast<size_t>(t) * p.R + r;
+        rc = head_grads::row_cotangent(p.g_b[at], p.g_l[at], p.z[at],
+                                       p.blank[at], p.hat);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int y = n0 + col(j);
+        acc[i][j] = y < p.V && rc.coef != 0.f
+                        ? rc.coef * expf(acc[i][j] + vb[col(j)] - rc.ref)
+                        : 0.f;
+      }
+      float* out = p.ds + (static_cast<size_t>(slot) * kM + row) * p.Vp + n0;
+#pragma unroll
+      for (int h4 = 0; h4 < 2; ++h4) {
+        const int c = col(h4 * 4);
+        if (n0 + c < p.Vp) {
+          *reinterpret_cast<float4*>(out + c) =
+              make_float4(acc[i][h4 * 4], acc[i][h4 * 4 + 1],
+                          acc[i][h4 * 4 + 2], acc[i][h4 * 4 + 3]);
+        }
+      }
+    }
+    column_sums(acc, sm, [](int) { return true; },
+                [&](int c, float total) { sums[c] += total; });
+  }
+  const int y = n0 + threadIdx.x;
+  if (y < p.V) {
+    p.dvb_part[static_cast<size_t>(blockIdx.x) * p.V + y] += sums[threadIdx.x];
+  }
+}
+
+// dj = ds . wp^T + gl wy[r] + d_blank bw and du = dj (1 - joint^2) of each
+// item on 256 hidden units (grid (blocks, ceil(hp / 256)): block p walks
+// the chunk's items p, p + blocks, ...), stored into du[slot].
+__global__ void __launch_bounds__(kThreads, 2) joint_grad_kernel(const Args p) {
+  __shared__ Smem sm;
+  __shared__ float gl_s[kM], db_s[kM];
+  const int n0 = blockIdx.y * kN, ty = threadIdx.x / 32;
+  const int base = p.groups[0], count = *p.count;
+  for (int slot = blockIdx.x; slot < count; slot += gridDim.x) {
+    const int v = p.items[base + slot], t = v / p.R64, r0 = v % p.R64 * kM;
+    if (threadIdx.x < kM) {
+      const int r = r0 + threadIdx.x;
+      head_grads::RowCotangent rc{0.f, 0.f, 0.f, 0.f};
+      if (r < p.R) {
+        const size_t at = static_cast<size_t>(t) * p.R + r;
+        rc = head_grads::row_cotangent(p.g_b[at], p.g_l[at], p.z[at],
+                                       p.blank[at], p.hat);
+      }
+      gl_s[threadIdx.x] = rc.gl;
+      db_s[threadIdx.x] = rc.d_blank;
+    }
+    float acc[8][8];
+    product(acc, sm, p.Vp / kK,
+            RowsA{p.ds + static_cast<size_t>(slot) * kM * p.Vp, p.Vp},
+            ColsB{p.wp, p.Vp, n0, p.hp});
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = ty * 8 + i, r = r0 + row;
+      if (r >= p.R) continue;
+      const size_t at = (static_cast<size_t>(slot) * kM + row);
+      const float* jrow = p.joint + at * p.hp;
+      const float* wrow = p.wy + static_cast<size_t>(r) * p.h;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int hh = n0 + col(j);
+        if (hh < p.h) {
+          const float jt = jrow[hh];
+          p.du[at * p.h + hh] =
+              (acc[i][j] + gl_s[row] * wrow[hh] + db_s[row] * p.bw[hh]) *
+              (1.f - jt * jt);
+        }
+      }
+    }
+    __syncthreads();  // gl_s and db_s are the next item's
+  }
+}
+
+// d_W partial of a (64 hidden units, 256 labels) tile over the chunk's
+// items of one split (grid (hp / 64, ceil(Vp / 256), splits)): joint^T ds
+// over their rows, added into dw[split].
+__global__ void __launch_bounds__(kThreads, 2) head_grad_kernel(const Args p) {
+  __shared__ Smem sm;
+  const int m0 = blockIdx.x * kM, n0 = blockIdx.y * kN, ty = threadIdx.x / 32;
+  const int count = *p.count;
+  const int begin = count * static_cast<int>(blockIdx.z) / gridDim.z;
+  const int end = count * (static_cast<int>(blockIdx.z) + 1) / gridDim.z;
+  if (begin == end) return;
+  float acc[8][8];
+  product(acc, sm, (end - begin) * (kM / kK),
+          ColsA{p.joint + static_cast<size_t>(begin) * kM * p.hp, p.hp, m0},
+          RowsB{p.ds + static_cast<size_t>(begin) * kM * p.Vp, p.Vp, n0,
+                p.Vp});
+  float* out = p.dw + static_cast<size_t>(blockIdx.z) * p.h * p.V;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int hh = m0 + ty * 8 + i;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int y = n0 + col(j);
+      if (hh < p.h && y < p.V) {
+        out[static_cast<size_t>(hh) * p.V + y] += acc[i][j];
+      }
+    }
+  }
+}
+
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bfloat16 products on wgmma (wgmma_tiles.cuh, head_grads.cuh).
+namespace hopper {
+
+using namespace head_grads;
+using wgmma_tiles::kBK;
+using wgmma_tiles::kBN;
+using wgmma_tiles::kConsumers;
+using wgmma_tiles::kRows;
+using wgmma_tiles::kThreads;
+
+struct LexGrad {
+  const float* vb;     // [V]
+  const float* g_b;    // [T, R], and g_l, z, blank
+  const float* g_l;
+  const float* z;
+  const float* blank;
+  const int* items;
+  const int* groups;   // the chunk's [R64 + 1]
+  const int* count;    // the chunk's item count
+  bf16* ds;            // [slots, 64, Vp]
+  float* dvb_part;     // [P, V], added
+  int R, R64, hp, V, Vp, hat;
+};
+
+// Epilogue scratch: the strip's vb and per consumer warp a row of kBN
+// column sums.
+constexpr int kLexGradExtra = 5 * kBN * 4;
+
+// ds of each item on a 128-label strip (grid (P, ceil(Vp / 128)): block p
+// walks the chunk's items p, p + P, ...): logits on wgmma (A = joint,
+// K-major; B = the head, MN-major) plus vb, ds = coef e^(logits - ref) in
+// bfloat16 (0 past V and where coef is 0), its float32 column sums added
+// into dvb_part[p].
+__global__ void __launch_bounds__(kThreads, 2)
+    lex_grad_kernel(const __grid_constant__ Maps maps, const LexGrad p) {
+  extern __shared__ uint8_t raw[];
+  const Ring<4> ring(raw);
+  const int n0 = blockIdx.y * kBN, blocks = gridDim.x;
+  const int count = *p.count, base = p.groups[0];
+  const int first = blockIdx.x;
+  const int units = count > first ? (count - first + blocks - 1) / blocks : 0;
+  const int kts = p.hp / kBK;
+  if (ring.producer()) {
+    produce(ring, units * kts, [&](int q, uint8_t* a, uint8_t* b,
+                                   uint64_t* bar) {
+      const int slot = first + q / kts * blocks, k0 = q % kts * kBK;
+      tma_load(a, maps.joint, k0, 0, slot, bar);
+      tma_load(b, maps.vw, n0, k0, bar);
+      tma_load(b + kBox, maps.vw, n0 + 64, k0, bar);
+    });
+    return;
+  }
+  float* vb = reinterpret_cast<float*>(ring.extra);  // [kBN]
+  float* red = vb + kBN;                             // [warps][kBN]
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  vb[t] = n0 + t < p.V ? p.vb[n0 + t] : 0.f;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) red[w * kBN + t] = 0.f;
+  named_barrier(1, kConsumers);
+  float d[64];
+  consume<false, true>(ring, units, kts, d, [&](int unit, float(&acc)[64]) {
+    const int slot = first + unit * blocks;
+    const int v = p.items[base + slot], tt = v / p.R64;
+    const int r0 = v % p.R64 * kRows;
+    RowCotangent rc[2];
+    int row[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      row[half] = acc_row(half * 2);
+      const int r = r0 + row[half];
+      rc[half] = RowCotangent{0.f, 0.f, 0.f, 0.f};
+      if (r < p.R) {
+        const size_t at = static_cast<size_t>(tt) * p.R + r;
+        rc[half] = row_cotangent(p.g_b[at], p.g_l[at], p.z[at], p.blank[at],
+                                 p.hat);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int c0 = j * 8 + (lane % 4) * 2;
+      float dv[2][2], cs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = n0 + c0 + e < p.V;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const float x =
+              in && rc[half].coef != 0.f
+                  ? rc[half].coef * expf(acc[j * 4 + half * 2 + e] +
+                                         vb[c0 + e] - rc[half].ref)
+                  : 0.f;
+          dv[half][e] = x;
+          cs[e] += x;
+        }
+      }
+      if (n0 + c0 < p.Vp) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              p.ds + (static_cast<size_t>(slot) * kRows + row[half]) * p.Vp +
+              n0 + c0) = __floats2bfloat162_rn(dv[half][0], dv[half][1]);
+        }
+      }
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          cs[e] += __shfl_xor_sync(0xffffffffu, cs[e], o);
+        }
+      }
+      if (lane < 4) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) red[warp * kBN + c0 + e] += cs[e];
+      }
+    }
+  });
+  named_barrier(1, kConsumers);
+  if (n0 + t < p.V) {
+    float total = 0.f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) total += red[w * kBN + t];
+    p.dvb_part[static_cast<size_t>(blockIdx.x) * p.V + n0 + t] += total;
+  }
+}
+
+cudaError_t launch_lex_grad(const Maps& maps, const LexGrad& p, int blocks,
+                            cudaStream_t stream) {
+  constexpr int kSmem = smem_bytes(4, kLexGradExtra);
+  const cudaError_t err = allow_smem<lex_grad_kernel>(kSmem);
+  if (err != cudaSuccess) return err;
+  lex_grad_kernel<<<dim3(blocks, cdiv(p.Vp, kBN)), kThreads, kSmem,
+                    stream>>>(maps, p);
+  return cudaGetLastError();
+}
+
+}  // namespace hopper
+
+// Pointers into the caller's workspace (numerator_backward's scratch).
+struct Scratch {
+  int* pos_of;       // [T, R64]
+  int* items;        // [T R64]
+  int* groups;       // [chunks R64 + 1]
+  int* count;        // [chunks]
+  void* wp;          // [hp, Vp], compute type
+  void* joint;       // [cap, 64, hp], compute type
+  float* joint32;    // [cap, 64, h] (bfloat16 only)
+  void* ds;          // [cap, 64, Vp], compute type
+  float* du;         // [cap, 64, h] (float32 only)
+  float* dpf_part;   // [cap, J, h]
+  float* dvb_part;   // [blocks, V]
+  float* dbw_part;   // [R64, h]
+  float* dpc_part;   // [jgrid (bfloat16) or 1 (float32), R, h]
+  float* dw_part;    // [ksplits, h, V]
+  float* db_row;     // [R]
+};
+
+struct Grads {
+  float *d_pf, *d_pc, *d_wy, *d_w, *d_vb, *d_bw, *d_by, *d_bb;
+};
+
+// The backward (the file's top comment). Tc frames a chunk; `blocks` the
+// ds product's persistent blocks per label strip; `jgrid` the d_joint
+// product's splits of a row tile's items (bfloat16) or its persistent
+// blocks per hidden strip (float32); ksplits the d_W product's splits; J
+// the most batch rows a row tile holds.
+template <typename T>
+int run_backward(const float* pc, const float* pf, const float* W,
+                 const float* vb, const float* bw, const float* wy,
+                 const float* z, const float* blank, const float* g_b,
+                 const float* g_l, const Scratch& w, const Grads& g,
+                 int num_frames, int B, int U1, int h, int V, int hat, int Tc,
+                 int blocks, int jgrid, int ksplits, int J,
+                 cudaStream_t stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const int R = B * U1;
+  if (h == 0 || V == 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (num_frames == 0 || R == 0) {
+    const struct {
+      float* out;
+      size_t n;
+    } outs[] = {{g.d_pf, static_cast<size_t>(num_frames) * B * h},
+                {g.d_pc, static_cast<size_t>(R) * h},
+                {g.d_wy, static_cast<size_t>(R) * h},
+                {g.d_w, static_cast<size_t>(h) * V},
+                {g.d_vb, static_cast<size_t>(V)},
+                {g.d_bw, static_cast<size_t>(h)},
+                {g.d_by, static_cast<size_t>(R)},
+                {g.d_bb, 1}};
+    for (const auto& out : outs) {
+      RETURN_IF_FAILED(cudaMemsetAsync(out.out, 0, out.n * sizeof(float),
+                                       stream));
+    }
+    return 0;
+  }
+  if (Tc < 1 || blocks < 1 || jgrid < 1 || ksplits < 1 || J < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int R64 = (R + kRows - 1) / kRows;
+  const int hp = round_up(h, 64), Vp = round_up(V, 64);
+  const int chunks = (num_frames + Tc - 1) / Tc;
+  const struct {
+    float* out;
+    size_t n;
+  } zeros[] = {{g.d_wy, static_cast<size_t>(R) * h},
+               {w.dpc_part, static_cast<size_t>(kBf16 ? jgrid : 1) * R * h},
+               {w.dvb_part, static_cast<size_t>(blocks) * V},
+               {w.dbw_part, static_cast<size_t>(R64) * h},
+               {w.dw_part, static_cast<size_t>(ksplits) * h * V}};
+  for (const auto& out : zeros) {
+    RETURN_IF_FAILED(
+        cudaMemsetAsync(out.out, 0, out.n * sizeof(float), stream));
+  }
+  const size_t pairs = static_cast<size_t>(num_frames) * R64;
+  mark_kernel<<<blocks_for(pairs * 32), kPointThreads, 0, stream>>>(
+      g_b, g_l, w.pos_of, num_frames, R, R64);
+  RETURN_IF_LAUNCH_FAILED();
+  list_kernel<<<1, kListThreads, 0, stream>>>(w.pos_of, w.items, w.groups,
+                                             w.count, num_frames, R64, Tc);
+  RETURN_IF_LAUNCH_FAILED();
+  T* wp = static_cast<T*>(w.wp);
+  T* joint = static_cast<T*>(w.joint);
+  T* ds = static_cast<T*>(w.ds);
+  pad_head_kernel<T><<<blocks_for(static_cast<size_t>(hp) * Vp),
+                       kPointThreads, 0, stream>>>(W, wp, h, V, hp, Vp);
+  RETURN_IF_LAUNCH_FAILED();
+  wgmma_tiles::Maps maps;
+  if constexpr (kBf16) {
+    const int cap = Tc * R64;
+    RETURN_IF_FAILED(wgmma_tiles::make_maps(&maps, joint, ds, wp, cap, kRows,
+                                            kRows, hp, Vp));
+  }
+  for (int c = 0; c < chunks; ++c) {
+    const int t0 = c * Tc, frames = min(Tc, num_frames - t0);
+    const int* groups = w.groups + c * R64;
+    const int* count = w.count + c;
+    joint_pass_kernel<T><<<dim3(R64, hp / kPassCols), kPointThreads, 0,
+                           stream>>>(
+        pc, pf, g_b, g_l, z, blank, w.items, groups, joint,
+        kBf16 ? w.joint32 : nullptr, g.d_wy, w.dbw_part, R, B, U1, h, hp,
+        R64, hat);
+    RETURN_IF_LAUNCH_FAILED();
+    if constexpr (kBf16) {
+      using namespace head_grads;
+      RETURN_IF_FAILED(hopper::launch_lex_grad(
+          maps,
+          hopper::LexGrad{vb, g_b, g_l, z, blank, w.items, groups, count, ds,
+                          w.dvb_part, R, R64, hp, V, Vp, hat},
+          blocks, stream));
+      RETURN_IF_FAILED(launch_num_joint_grad(
+          maps,
+          NumJointGrad{bw, wy, g_b, g_l, z, blank, w.joint32, w.items, groups,
+                       w.dpf_part, w.dpc_part, R, U1, h, R64, J, Vp, hat},
+          hp, jgrid, stream));
+      RETURN_IF_FAILED(launch_head_grad(
+          maps, HeadGrad{nullptr, w.dw_part, 0, kRows, h, V, 1, 0, count},
+          hp, Vp, ksplits, stream));
+    } else {
+      const simt::Args a{vb,    bw,    wy,         g_b,  g_l,       z,
+                         blank, wp,    joint,      ds,   w.items,   groups,
+                         count, w.dvb_part, w.du, w.dw_part, R,    h,
+                         hp,    V,     Vp,         R64,  hat};
+      simt::lex_grad_kernel<<<dim3(blocks, (Vp + simt::kN - 1) / simt::kN),
+                              simt::kThreads, 0, stream>>>(a);
+      RETURN_IF_LAUNCH_FAILED();
+      simt::joint_grad_kernel<<<dim3(jgrid, (hp + simt::kN - 1) / simt::kN),
+                                simt::kThreads, 0, stream>>>(a);
+      RETURN_IF_LAUNCH_FAILED();
+      du_sum_kernel<<<dim3(R64, (h + kPassCols - 1) / kPassCols),
+                      kPointThreads, 0, stream>>>(w.du, groups, w.dpc_part,
+                                                  w.dpf_part, R, U1, h, J);
+      RETURN_IF_LAUNCH_FAILED();
+      simt::head_grad_kernel<<<dim3(hp / simt::kM,
+                                    (Vp + simt::kN - 1) / simt::kN, ksplits),
+                               simt::kThreads, 0, stream>>>(a);
+      RETURN_IF_LAUNCH_FAILED();
+    }
+    dpf_sum_kernel<<<blocks_for(static_cast<size_t>(frames) * B * h),
+                     kPointThreads, 0, stream>>>(w.dpf_part, w.pos_of, groups,
+                                                 g.d_pf, t0, frames, B, U1, h,
+                                                 R64, J);
+    RETURN_IF_LAUNCH_FAILED();
+  }
+  bias_grad_kernel<<<blocks_for(R), kPointThreads, 0, stream>>>(
+      g_b, g_l, z, blank, num_frames, R, hat, g.d_by, w.db_row);
+  RETURN_IF_LAUNCH_FAILED();
+  head_grads::Sums sums{};
+  const auto add = [&](const float* in, int rows, int n, float* out) {
+    sums.job[sums.count++] = {in, rows, n, out};
+  };
+  add(w.dpc_part, kBf16 ? jgrid : 1, R * h, g.d_pc);
+  add(w.dw_part, ksplits, h * V, g.d_w);
+  add(w.dvb_part, blocks, V, g.d_vb);
+  add(w.dbw_part, R64, h, g.d_bw);
+  add(w.db_row, R, 1, g.d_bb);
+  RETURN_IF_FAILED(head_grads::launch_sums(sums, stream));
+  return 0;
+}
 }  // namespace
 
 extern "C" {
@@ -911,44 +1523,71 @@ int numerator_forward(int dtype, const float* pc, const float* pf,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The backward on `stream`; returns the first error. Scratch, in the compute
-// type: jc [chunk, R, h], ds [chunk, R, V]; float32: dvb_part [chunk,
-// ceil(R / 64), V], dpf_part [ceil(U1 / 64), chunk, B, h], db_row [R];
-// zeroed accumulators dw_acc [max_ksplits, h, V], dpc_acc / dwy_acc
-// [fsplits, R, h], dbw_acc [fsplits, B * ceil(U1 / 64), h]. Outputs d_pf
-// [T, B, h], d_pc / d_wy [R, h], d_w [h, V], d_vb [V], d_bw [h], d_by [R],
-// d_bb [1].
+// The backward on `stream`; returns the first error. Every pointer is
+// float32 but the scratch's ints and compute-type buffers: pc [R, h], pf
+// [T, B, h], W [h, V], vb [V], bw [h], wy [R, h]; z, blank, g_b, g_l [T,
+// R]. Scratch (R64 = ceil(R / 64), hp / Vp: h / V rounded up to 64, cap =
+// chunk R64 item slots; int32: pos_of [T R64], items [T R64], groups
+// [ceil(T / chunk) R64 + 1], count [ceil(T / chunk)]; the compute type
+// (dtype 0 float32, 1 bfloat16): wp [hp, Vp], joint [cap, 64, hp], ds
+// [cap, 64, Vp]; float32: joint32 [cap, 64, h] (bfloat16 only), du [cap,
+// 64, h] (float32 only), dpf_part [cap, J, h], dvb_part [blocks, V],
+// dbw_part [R64, h], dpc_part [bfloat16 jgrid, float32 1, R, h], dw_part
+// [ksplits, h, V], db_row [R]). Outputs d_pf [T, B, h], d_pc / d_wy [R,
+// h], d_w [h, V], d_vb [V], d_bw [h], d_by [R], d_bb [1]. chunk: frames a
+// chunk; blocks: the ds product's blocks per label strip; jgrid: the
+// d_joint product's splits of a row tile's items (bfloat16) or its blocks
+// per hidden strip (float32); J: the most batch rows a 64-row tile holds.
 int numerator_backward(int dtype, const float* pc, const float* pf,
-                       const void* W, const float* vb, const float* bw,
-                       const float* bb, const float* wy, const float* by,
-                       const float* z, const float* blank, const float* g_b,
-                       const float* g_l, void* jc, void* ds, float* dvb_part,
-                       float* dw_acc, float* dpc_acc, float* dwy_acc,
-                       float* dbw_acc, float* dpf_part, float* db_row,
+                       const float* W, const float* vb, const float* bw,
+                       const float* wy, const float* z, const float* blank,
+                       const float* g_b, const float* g_l, int* pos_of,
+                       int* items, int* groups, int* count, void* wp,
+                       void* joint, float* joint32, void* ds, float* du,
+                       float* dpf_part, float* dvb_part, float* dbw_part,
+                       float* dpc_part, float* dw_part, float* db_row,
                        float* d_pf, float* d_pc, float* d_wy, float* d_w,
                        float* d_vb, float* d_bw, float* d_by, float* d_bb,
                        int num_frames, int B, int U1, int h, int V, int hat,
-                       int chunk, int max_splits, int max_ksplits,
-                       int fsplits, void* stream) {
+                       int chunk, int blocks, int jgrid, int ksplits,
+                       int J, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Scratch w{pos_of,   items,    groups,   count,    wp,
+                  joint,    joint32,  ds,       du,       dpf_part,
+                  dvb_part, dbw_part, dpc_part, dw_part,  db_row};
+  const Grads g{d_pf, d_pc, d_wy, d_w, d_vb, d_bw, d_by, d_bb};
   if (dtype == 0) {
-    return run_backward<float>(
-        pc, pf, static_cast<const float*>(W), vb, bw, bb, wy, by, z, blank,
-        g_b, g_l, static_cast<float*>(jc), static_cast<float*>(ds), dvb_part,
-        dw_acc, dpc_acc, dwy_acc, dbw_acc, dpf_part, db_row, d_pf, d_pc, d_wy,
-        d_w, d_vb, d_bw, d_by, d_bb, num_frames, B, U1, h, V, hat, chunk,
-        max_splits, max_ksplits, fsplits, s);
+    return run_backward<float>(pc, pf, W, vb, bw, wy, z, blank, g_b, g_l, w,
+                               g, num_frames, B, U1, h, V, hat, chunk, blocks,
+                               jgrid, ksplits, J, s);
   }
   if (dtype == 1) {
-    return run_backward<__nv_bfloat16>(
-        pc, pf, static_cast<const __nv_bfloat16*>(W), vb, bw, bb, wy, by, z,
-        blank, g_b, g_l, static_cast<__nv_bfloat16*>(jc),
-        static_cast<__nv_bfloat16*>(ds), dvb_part, dw_acc, dpc_acc, dwy_acc,
-        dbw_acc, dpf_part, db_row, d_pf, d_pc, d_wy, d_w, d_vb, d_bw, d_by,
-        d_bb, num_frames, B, U1, h, V, hat, chunk, max_splits, max_ksplits,
-        fsplits, s);
+    return run_backward<__nv_bfloat16>(pc, pf, W, vb, bw, wy, z, blank, g_b,
+                                       g_l, w, g, num_frames, B, U1, h, V,
+                                       hat, chunk, blocks, jgrid, ksplits,
+                                       J, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward's live list alone (mark_kernel, list_kernel) on `stream`:
+// pos_of [T, ceil(R / 64)], items [T ceil(R / 64)], groups [ceil(T /
+// chunk) ceil(R / 64) + 1], count [ceil(T / chunk)], int32, from g_b, g_l
+// [T, R] float32.
+int numerator_live_tiles(const float* g_b, const float* g_l, int* pos_of,
+                         int* items, int* groups, int* count, int T, int R,
+                         int chunk, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (T == 0 || R == 0) return 0;
+  if (chunk < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int R64 = (R + kRows - 1) / kRows;
+  mark_kernel<<<blocks_for(static_cast<size_t>(T) * R64 * 32), kPointThreads,
+                0, s>>>(g_b, g_l, pos_of, T, R, R64);
+  RETURN_IF_LAUNCH_FAILED();
+  list_kernel<<<1, kListThreads, 0, s>>>(pos_of, items, groups, count, T,
+                                        R64, chunk);
+  RETURN_IF_LAUNCH_FAILED();
+  return 0;
 }
 
 const char* numerator_error_string(int code) {

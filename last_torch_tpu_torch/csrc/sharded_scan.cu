@@ -637,7 +637,7 @@ int frame_reduce_forward(int dtype, const float* vec, const float* pf,
 // 64)):
 //   float32 (dtype 0): d_lex float32 [B, S, V], dvb_part [ceil(B S / 64),
 //     V], and joint_backward's (joint_tiles.cuh) dpf_part, dbw_part,
-//     dpc_part, dw_part with `splits`; the rest unused.
+//     dw_part with `splits`; the rest unused.
 //   bfloat16 (dtype 1): d_lex bfloat16 [B, S, Vp], joint bfloat16 [B, S,
 //     hp], joint32 float32 [B, S, h], vw16 bfloat16 [hp, Vp], dvec_part
 //     [ceil(Vp / 128), B, S], dvb_part [B t64, V], dbb_part [B t64],
@@ -687,9 +687,9 @@ int frame_reduce_backward(int dtype, const float* vec, const float* pf,
                        static_cast<size_t>(V), d_vb}};
   const int status = sum_all(sums, s);
   if (status != 0) return status;
-  return joint_backward(0, /*round_blank=*/false, pc, pf, vw, bw, d_blank,
-                        d_lex32, dpf_part, dbw_part, dpc_part, dw_part, d_pc,
-                        d_pf, d_vw, d_bw, B, S, h, V, splits, s);
+  return joint_backward(pc, pf, vw, bw, d_blank, d_lex32, dpf_part, dbw_part,
+                        dw_part, d_pc, d_pf, d_vw, d_bw, B, S, h, V, splits,
+                        s);
 }
 
 const char* frame_reduce_error_string(int code) {

@@ -13,8 +13,8 @@
 // limitations under the License.
 
 // Hopper warpgroup products for the bfloat16 backward kernels of
-// fused_scan.cu and sharded_scan.cu, and the two gradient products they
-// share (head_grads.cuh).
+// fused_scan.cu, sharded_scan.cu, joint_head.cu and numerator_scan.cu, and
+// the gradient products they share (head_grads.cuh).
 //
 // A block is one consumer warpgroup and one producer warp. Its tile is 64
 // rows by kBN = 128 columns, the float32 sum in the warpgroup's registers

@@ -30,8 +30,9 @@ projections ``frame @ frame_proj`` and ``cache @ context_proj`` stay
 ``torch.matmul`` through ``JointWeightFn._mm``, and autograd carries their
 gradients. The bfloat16 forward forms the joint once per call into a
 bfloat16 scratch and runs the head product on wgmma over a persistent grid
-(``forward_plan``); elsewhere the [B, S, h] joint never reaches device
-memory.
+(``forward_plan``); the bfloat16 backward stages the joint, the head and
+the cotangent in bfloat16 for its two wgmma products (``backward_plan``);
+in float32 the [B, S, h] joint never reaches device memory.
 
 Rounding, as the TPU kernels: the joint is formed in float32 and rounded to
 the compute type for the head products, whose sums are float32; the
@@ -58,6 +59,7 @@ import contextlib
 import ctypes
 import dataclasses
 import functools
+import math
 from typing import Any, Optional
 
 import torch
@@ -72,12 +74,10 @@ MIN_STATES = 1024
 
 _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# By compute type: the kernels' tile (rows, labels or hidden units), the
-# depth slice the head-gradient contraction is split in, and the blocks an
-# SM holds at once, which that split fills.
-_GEOMETRY = {torch.float32: (64, 64, 4), torch.bfloat16: (128, 16, 2)}
-# bfloat16 sums d_pf over chunks of this many states.
-_STATE_CHUNK = 32
+# The float32 backward's tile (rows, labels or hidden units; also the depth
+# slice its head-gradient contraction is split in) and the blocks an SM
+# holds at once, which that split fills.
+_F32_TILE, _F32_BLOCKS_PER_SM = 64, 4
 # The bfloat16 forward's wgmma product (csrc/joint_head.cu, namespace
 # hopper): 128-row, 128-label output tiles (two warpgroups of 64 rows),
 # 64-deep stages, two blocks an SM.
@@ -271,7 +271,8 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.joint_head_forward.argtypes = [i] + [p] * 8 + [i] * 4 + [p, p, i, p]
     lib.joint_head_forward.restype = i
-    lib.joint_head_backward.argtypes = [i] + [p] * 14 + [i] * 5 + [p]
+    lib.joint_head_backward.argtypes = ([i] + [p] * 14 + [i] * 5 + [p] * 4 +
+                                        [i, p])
     lib.joint_head_backward.restype = i
     lib.joint_head_error_string.argtypes = [i]
     lib.joint_head_error_string.restype = ctypes.c_char_p
@@ -393,49 +394,114 @@ def joint_head_backward(pc: torch.Tensor, pf: torch.Tensor,
                                      g_lexical, compute_dtype=compute_dtype)
   if pc.device.type != 'cuda':
     raise ValueError(f'no joint_head kernel for device {pc.device}')
+  if compute_dtype == torch.bfloat16 and (hidden == 0 or vocab == 0):
+    raise ValueError('the bfloat16 backward kernel needs hidden and vocab '
+                     f'sizes >= 1, got {hidden} and {vocab}')
   empty = lambda *shape: torch.empty(shape, device=pc.device)
-  dpf_part, dbw_part, dpc_part, dw_part, splits = backward_scratch(
-      batch, num_states, hidden, vocab, compute_dtype, pc.device)
+  plan = backward_plan(batch, num_states, hidden, vocab, compute_dtype,
+                       sm_count(pc.device))
+  # The scratch in one buffer: the generic routes call the backward once a
+  # frame, where each allocation costs host time.
+  workspace = torch.empty(plan.size, dtype=torch.uint8, device=pc.device)
+  ptr = lambda name: (workspace.data_ptr() + plan.offsets[name]
+                      if name in plan.offsets else None)
   d_pc, d_pf = empty(num_states, hidden), empty(batch, hidden)
   d_vocab_w, d_blank_w = empty(hidden, vocab), empty(hidden)
   _launch(pc.device, 'backward', lambda lib, stream: lib.joint_head_backward(
       _DTYPE_CODES[compute_dtype], pc.data_ptr(), pf.data_ptr(),
       vocab_w.data_ptr(), blank_w.data_ptr(), g_blank.data_ptr(),
-      g_lexical.data_ptr(), dpf_part.data_ptr(), dbw_part.data_ptr(),
-      dpc_part.data_ptr(), dw_part.data_ptr(), d_pc.data_ptr(),
-      d_pf.data_ptr(), d_vocab_w.data_ptr(), d_blank_w.data_ptr(), batch,
-      num_states, hidden, vocab, splits, stream))
+      g_lexical.data_ptr(), ptr('dpf_part'), ptr('dbw_part'),
+      ptr('dpc_part'), ptr('dw_part'), d_pc.data_ptr(), d_pf.data_ptr(),
+      d_vocab_w.data_ptr(), d_blank_w.data_ptr(), batch, num_states, hidden,
+      vocab, plan.splits, ptr('joint'), ptr('joint32'), ptr('d_lex'),
+      ptr('vw16'), plan.dsplits, stream))
   backward_launches += 1
   return d_pc, d_pf, d_vocab_w, d_blank_w
 
 
 def backward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
-                     compute_dtype: torch.dtype, device):
-  """The scratch of the backward's products (``joint_backward`` in
-  ``csrc/joint_tiles.cuh``, which ``csrc/sharded_scan.cu`` shares):
-  (dpf_part, dbw_part, dpc_part, dw_part, splits), float32 on ``device``.
+                     compute_dtype: torch.dtype, splits: int,
+                     dsplits: int) -> dict:
+  """name -> (shape, dtype) of the backward's scratch
+  (``joint_head_backward`` in ``csrc/joint_head.cu``).
 
-  The d_vocab_w contraction is split over its depth slices (float32:
-  (batch row, state tile) pairs; bfloat16: 16-state stages of each batch
-  row) into as many splits as one wave of blocks holds.
+  float32 (``joint_backward`` in ``csrc/joint_tiles.cuh``, which
+  ``csrc/sharded_scan.cu`` shares): per 64-state tile partials of d_pf and
+  d_blank_w, and ``splits`` partials of d_vocab_w. bfloat16 (the wgmma
+  route): the staged operands, padded to hidden_pad and vocab_pad (h and V
+  rounded up to 64, zero past them), the float32 joint for the tanh
+  derivative, the cotangent rounded to bfloat16, and the partials of the
+  two head_grads.cuh products (``dsplits`` of d_pc, ``splits`` of
+  d_vocab_w).
   """
-  empty = lambda *shape: torch.empty(shape, device=device)
-  tile, depth_slice, blocks_per_sm = _GEOMETRY[compute_dtype]
-  tiles = lambda n, size=tile: -(-n // size)
-  sms = torch.cuda.get_device_properties(device).multi_processor_count
-  slices = max(1, batch * tiles(num_states, depth_slice))
-  splits = max(1, min(slices, blocks_per_sm * sms //
-                      max(1, tiles(hidden) * tiles(vocab))))
-  splits = -(-slices // -(-slices // splits))  # no empty split
+  f32, bf16 = torch.float32, torch.bfloat16
+  t64 = -(-num_states // _F32_TILE)
   if compute_dtype == torch.float32:
-    dpf_part = empty(tiles(num_states), batch, hidden)
-    dbw_part = empty(tiles(num_states), hidden)
-    dpc_part = empty(0)
+    return {'dpf_part': ((t64, batch, hidden), f32),
+            'dbw_part': ((t64, hidden), f32),
+            'dw_part': ((splits, hidden, vocab), f32)}
+  hp = -(-hidden // _WG_DEPTH) * _WG_DEPTH
+  vp = -(-vocab // _WG_DEPTH) * _WG_DEPTH
+  rows = batch * num_states
+  return {'joint': ((rows, hp), bf16), 'joint32': ((rows, hidden), f32),
+          'd_lex': ((rows, vp), bf16), 'vw16': ((hp, vp), bf16),
+          'dpf_part': ((t64, batch, hidden), f32),
+          'dbw_part': ((batch * t64, hidden), f32),
+          'dpc_part': ((dsplits, num_states, hidden), f32),
+          'dw_part': ((splits, hidden, vocab), f32)}
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+  """The backward's grid and workspace (``backward_plan``).
+
+  Attributes:
+    splits: the d_vocab_w contraction's splits (float32: over (batch row,
+      64-state tile) pairs; bfloat16: over the (batch row, 64-state) depth
+      tiles of head_grads.cuh's product).
+    dsplits: bfloat16: the batch-row splits of the d_joint product, whose
+      blocks keep d_pc in registers (0 in float32).
+    offsets: name -> byte offset of each ``backward_scratch`` buffer in the
+      workspace, 256-byte aligned.
+    size: the workspace's bytes.
+  """
+  splits: int
+  dsplits: int
+  offsets: dict
+  size: int
+
+
+@functools.lru_cache(maxsize=64)
+def backward_plan(batch: int, num_states: int, hidden: int, vocab: int,
+                  compute_dtype: torch.dtype, sms: int) -> BackwardPlan:
+  """The ``BackwardPlan`` on ``sms`` SMs: each product split into as many
+  parts as one wave of blocks holds (float32: four blocks an SM, each split
+  a whole number of (batch row, state tile) pairs; bfloat16: two blocks an
+  SM, as ``fused_scan.wgmma_grid`` plans the other wgmma backwards)."""
+  if compute_dtype == torch.float32:
+    tiles = lambda n: -(-n // _F32_TILE)
+    slices = max(1, batch * tiles(num_states))
+    splits = max(1, min(slices, _F32_BLOCKS_PER_SM * sms //
+                        max(1, tiles(hidden) * tiles(vocab))))
+    splits = -(-slices // -(-slices // splits))  # no empty split
+    dsplits = 0
   else:
-    dpf_part = empty(tiles(num_states, _STATE_CHUNK), batch, hidden)
-    dbw_part = empty(tiles(batch * num_states), hidden)
-    dpc_part = empty(batch, num_states, hidden)  # du
-  return dpf_part, dbw_part, dpc_part, empty(splits, hidden, vocab), splits
+    from last_torch_tpu_torch.ops import fused_scan  # it imports this module
+    grid = fused_scan.wgmma_grid(batch, num_states, hidden, vocab, sms)
+    splits, dsplits = grid.ksplits, grid.dsplits
+  return BackwardPlan(splits, dsplits, *layout(backward_scratch(
+      batch, num_states, hidden, vocab, compute_dtype, splits, dsplits)))
+
+
+def layout(scratch: dict):
+  """(byte offsets, total bytes) of ``scratch``'s buffers (name ->
+  (shape, dtype)) in one buffer, each 256-byte aligned."""
+  offsets, size = {}, 0
+  for name, (shape, dtype) in scratch.items():
+    offsets[name] = size
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    size += -(-math.prod(shape) * itemsize // 256) * 256
+  return offsets, size
 
 
 def joint_head_backward_plain(pc: torch.Tensor, pf: torch.Tensor,

@@ -33,22 +33,32 @@ Scope is the structural half of the JAX package's gate (``supported``
 there): ``label_weights`` flattens any leading batch dimensions into the
 kernels' one, and the compute type must be None, float32 or bfloat16 (else
 ValueError). The TPU's ``hidden % 128`` rule and VMEM plan do not apply,
-and the hidden size has no limit: the kernels keep a block's 64-row joint
+and the hidden size has no limit: the forward keeps a block's 64-row joint
 tile in shared memory at most 512 (float32) or 1024 (bfloat16) hidden units
-wide, and sum the products of a wider joint chunk by chunk.
+wide, and sums the products of a wider joint chunk by chunk; the backward
+stages 64-deep slices of any width.
+
+The backward works on the live (frame, 64-row tile) pairs alone, those
+whose rows hold a nonzero cotangent (``live_tiles``), listed on the device
+so that the host never waits; it walks them in chunks of frames whose
+staging fits ``_CHUNK_BYTES`` (``backward_plan``), with its scratch in one
+workspace (``backward_scratch``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from collections.abc import Callable
+import math
 from typing import Any, Optional
 
 import torch
 from torch.nn.functional import logsigmoid
 
 from last_torch_tpu_torch.ops import fused_scan
+from last_torch_tpu_torch.ops import joint_head
 
 # Calls that launched the CUDA forward / backward kernels, for runs that must
 # show the numerator went through them. Only CUDA tensors count.
@@ -58,10 +68,15 @@ backward_launches = 0
 _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernels' tiles (csrc/numerator_scan.cu: 64 rows, 64 labels or hidden
-# units), and the device memory the backward may spend on the joint and ds
-# it stages for a chunk of frames.
+# units; the padding of the backward's operands), and the device memory the
+# backward may spend on what it stages for a chunk of frames.
 _TILE = 64
 _CHUNK_BYTES = 512 * 2**20
+# The backward's products (csrc/numerator_scan.cu): label strips of the ds
+# product and hidden strips of the d_joint product (wgmma 128, float32
+# 256), and the blocks an SM holds.
+_STRIPS = {torch.bfloat16: 128, torch.float32: 256}
+_BLOCKS_PER_SM = 2
 _HEAD = ('vocab_w', 'vocab_b', 'blank_w', 'blank_b')
 
 
@@ -108,8 +123,10 @@ def library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.numerator_forward.argtypes = [i] + [p] * 14 + [i] * 7 + [p]
     lib.numerator_forward.restype = i
-    lib.numerator_backward.argtypes = [i] + [p] * 29 + [i] * 10 + [p]
+    lib.numerator_backward.argtypes = [i] + [p] * 33 + [i] * 11 + [p]
     lib.numerator_backward.restype = i
+    lib.numerator_live_tiles.argtypes = [p] * 6 + [i] * 3 + [p]
+    lib.numerator_live_tiles.restype = i
     lib.numerator_head_smem_bytes.argtypes = [i, i]
     lib.numerator_head_smem_bytes.restype = ctypes.c_size_t
     lib.numerator_error_string.argtypes = [i]
@@ -225,12 +242,165 @@ def numerator_forward_plain(pc: torch.Tensor, pf: torch.Tensor,
   return tuple(torch.stack(x) for x in zip(*outputs))
 
 
-def _chunk_frames(max_t, num_rows, hidden, vocab, compute_dtype):
-  """Frames per chunk of the backward, so that the staged joint and ds
-  ([chunk, R, h] and [chunk, R, V] in the compute type) fit _CHUNK_BYTES."""
-  item = torch.finfo(compute_dtype).bits // 8
-  per_frame = max(num_rows * (hidden + vocab) * item, 1)
-  return max(1, min(max_t, _CHUNK_BYTES // per_frame))
+def rows_per_tile(batch: int, u1: int) -> int:
+  """J: the most batch rows that one 64-row tile of the flattened [B * U1]
+  rows holds (the backward's d_pf partials per tile)."""
+  rows = batch * u1
+  return max(((min(rows, k + _TILE) - 1) // u1 - k // u1 + 1
+              for k in range(0, rows, _TILE)), default=1)
+
+
+def backward_scratch(max_t: int, batch: int, u1: int, hidden: int,
+                     vocab: int, compute_dtype: torch.dtype, chunk: int,
+                     blocks: int, jgrid: int, ksplits: int) -> dict:
+  """name -> (shape, dtype) of the backward's scratch (``numerator_backward``
+  in ``csrc/numerator_scan.cu``): the live list (int32), the padded head and
+  a chunk's staged joint and ds in the compute type (every (frame, row tile)
+  of ``chunk`` frames live; bfloat16 adds the float32 joint for the tanh
+  derivative, float32 the du of the chunk's items), and the float32
+  partials of the cross-frame sums (``jgrid`` of d_pc in bfloat16, whose
+  d_joint blocks keep it in registers; one in float32)."""
+  rows = batch * u1
+  r64 = -(-rows // _TILE)
+  hp = -(-hidden // _TILE) * _TILE
+  vp = -(-vocab // _TILE) * _TILE
+  chunks = -(-max_t // chunk)
+  cap = chunk * r64
+  i32, f32 = torch.int32, torch.float32
+  scratch = {
+      'pos_of': ((max_t, r64), i32), 'items': ((max_t * r64,), i32),
+      'groups': ((chunks * r64 + 1,), i32), 'count': ((chunks,), i32),
+      'wp': ((hp, vp), compute_dtype),
+      'joint': ((cap, _TILE, hp), compute_dtype),
+      'joint32': ((cap, _TILE, hidden), f32),
+      'ds': ((cap, _TILE, vp), compute_dtype),
+      'du': ((cap, _TILE, hidden), f32),
+      'dpf_part': ((cap, rows_per_tile(batch, u1), hidden), f32),
+      'dvb_part': ((blocks, vocab), f32), 'dbw_part': ((r64, hidden), f32),
+      'dpc_part': ((jgrid if compute_dtype == torch.bfloat16 else 1, rows,
+                    hidden), f32),
+      'dw_part': ((ksplits, hidden, vocab), f32), 'db_row': ((rows,), f32),
+  }
+  # float32 stages du, and its staged joint is float32 already.
+  del scratch['joint32' if compute_dtype == torch.float32 else 'du']
+  return scratch
+
+
+@dataclasses.dataclass(frozen=True)
+class BackwardPlan:
+  """The backward's chunks, grids and workspace (``backward_plan``).
+
+  Attributes:
+    chunk: frames a chunk: its staging (``backward_scratch`` with every
+      (frame, row tile) live) fits _CHUNK_BYTES.
+    blocks: the ds product's blocks per label strip (a persistent grid
+      over the chunk's live items).
+    jgrid: bfloat16: the d_joint product's splits of each row tile's
+      items (its blocks keep d_pc in registers); float32: its persistent
+      blocks per hidden strip (each item's du is stored, then summed).
+    ksplits: the d_W product's splits of the chunk's items.
+    rows_per_tile: J, the most batch rows a 64-row tile holds.
+    offsets: name -> byte offset of each scratch buffer in the workspace.
+    size: the workspace's bytes.
+  """
+  chunk: int
+  blocks: int
+  jgrid: int
+  ksplits: int
+  rows_per_tile: int
+  offsets: dict
+  size: int
+
+
+@functools.lru_cache(maxsize=64)
+def backward_plan(max_t: int, batch: int, u1: int, hidden: int, vocab: int,
+                  compute_dtype: torch.dtype, sms: int) -> BackwardPlan:
+  """The ``BackwardPlan`` on ``sms`` SMs: each product's grid about one
+  wave of two blocks an SM."""
+  cdiv = lambda n, m: -(-n // m)
+  r64 = cdiv(batch * u1, _TILE)
+  hp, vp = cdiv(hidden, _TILE) * _TILE, cdiv(vocab, _TILE) * _TILE
+  strip = _STRIPS[compute_dtype]
+  wave = _BLOCKS_PER_SM * sms
+  per_frame = sum(
+      math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+      for name, (shape, dtype) in backward_scratch(
+          1, batch, u1, hidden, vocab, compute_dtype, 1, 1, 1, 1).items()
+      if name in ('joint', 'joint32', 'ds', 'du', 'dpf_part'))
+  chunk = max(1, min(max_t, _CHUNK_BYTES // per_frame))
+  blocks = max(1, wave // cdiv(vp, strip))
+  if compute_dtype == torch.bfloat16:
+    jgrid = max(1, min(chunk, cdiv(wave, r64 * cdiv(hp, strip))))
+  else:
+    jgrid = max(1, wave // cdiv(hp, strip))
+  ksplits = max(1, cdiv(wave, hp // _TILE * cdiv(vp, strip)))
+  scratch = backward_scratch(max_t, batch, u1, hidden, vocab, compute_dtype,
+                             chunk, blocks, jgrid, ksplits)
+  return BackwardPlan(chunk, blocks, jgrid, ksplits,
+                      rows_per_tile(batch, u1), *joint_head.layout(scratch))
+
+
+def live_tiles(g_b: torch.Tensor, g_l: torch.Tensor, chunk: int):
+  """The backward's live list: the (frame t, 64-row tile k) items whose
+  rows hold a nonzero g_b or g_l at t, on CUDA through the backward's own
+  kernels, on CPU in plain PyTorch.
+
+  Args:
+    g_b, g_l: [T, R] float32 cotangents.
+    chunk: frames a chunk.
+
+  Returns:
+    (items, groups, count, pos_of), int32: items [T * R64] (R64 = ceil(R /
+    64)) holds t * R64 + k of each item in the order (chunk of frames,
+    tile, frame), its first count.sum() entries meaningful; groups
+    [chunks * R64 + 1] the first position of each (chunk, tile) and the
+    total last; count [chunks] each chunk's items; pos_of [T, R64] each
+    pair's position, -1 where dead.
+  """
+  max_t, rows = g_b.shape
+  if g_b.device.type == 'cpu':
+    return live_tiles_plain(g_b, g_l, chunk)
+  r64 = -(-rows // _TILE)
+  chunks = -(-max_t // chunk)
+  empty = lambda *shape: torch.empty(shape, dtype=torch.int32,
+                                     device=g_b.device)
+  pos_of, items = empty(max_t, r64), empty(max_t * r64)
+  groups, count = empty(chunks * r64 + 1), empty(chunks)
+  _launch(g_b.device, 'live list', lambda lib, stream:
+          lib.numerator_live_tiles(_ptr(g_b), _ptr(g_l), _ptr(pos_of),
+                                   _ptr(items), _ptr(groups), _ptr(count),
+                                   max_t, rows, chunk, stream))
+  return items, groups, count, pos_of
+
+
+def live_tiles_plain(g_b: torch.Tensor, g_l: torch.Tensor, chunk: int):
+  """``live_tiles`` in plain PyTorch (items past the count are 0)."""
+  max_t, rows = g_b.shape
+  r64 = -(-rows // _TILE)
+  nonzero = torch.nn.functional.pad((g_b != 0) | (g_l != 0),
+                                    (0, r64 * _TILE - rows))
+  live = nonzero.view(max_t, r64, _TILE).any(-1)  # [T, R64]
+  t = torch.arange(max_t)[:, None].expand(max_t, r64)
+  k = torch.arange(r64)[None, :].expand(max_t, r64)
+  # The list's order: chunk of frames, tile, frame.
+  key = ((t // chunk) * r64 + k) * chunk + t % chunk
+  flat = key.reshape(-1).argsort()
+  live_flat = live.reshape(-1)[flat]
+  positions = torch.cumsum(live_flat.int(), 0) - live_flat.int()
+  pos_of = torch.full((max_t * r64,), -1, dtype=torch.int32)
+  pos_of[flat[live_flat]] = positions[live_flat].int()
+  items = torch.zeros(max_t * r64, dtype=torch.int32)
+  items[positions[live_flat]] = flat[live_flat].int()
+  # groups: the position of each (chunk, tile)'s first pair.
+  group_of = (t // chunk * r64 + k).reshape(-1)[flat]
+  chunks = -(-max_t // chunk)
+  starts = torch.zeros(chunks * r64 + 1, dtype=torch.int32)
+  first = torch.ones_like(group_of, dtype=torch.bool)
+  first[1:] = group_of[1:] != group_of[:-1]
+  starts[group_of[first]] = positions[first].int()
+  starts[-1] = int(live.sum())
+  count = starts[r64::r64] - starts[:-1:r64]
+  return items, starts, count, pos_of.view(max_t, r64)
 
 
 def numerator_backward(pc: torch.Tensor, pf: torch.Tensor,
@@ -267,47 +437,38 @@ def numerator_backward(pc: torch.Tensor, pf: torch.Tensor,
                                     **kw)
   if pc.device.type != 'cuda':
     raise ValueError(f'no numerator kernel for device {pc.device}')
+  if hidden == 0 or vocab == 0:
+    raise ValueError('the numerator backward kernel needs hidden and vocab '
+                     f'sizes >= 1, got {hidden} and {vocab}')
   device = pc.device
-  empty = lambda *shape, dtype=torch.float32: torch.empty(
-      shape, dtype=dtype, device=device)
-  zeros = lambda *shape: torch.zeros(shape, device=device)
-  strips = -(-vocab // _TILE)
-  row_tiles = -(-num_rows // _TILE)
-  h_tiles = -(-hidden // _TILE)
-  utiles = -(-u1 // _TILE)
-  chunk = _chunk_frames(max_t, num_rows, hidden, vocab, compute_dtype)
-  splits = fused_scan.grid_splits(chunk * row_tiles, strips, device)
-  ksplits = fused_scan.grid_splits(strips * h_tiles,
-                                   -(-chunk * num_rows // _TILE), device)
-  fsplits = fused_scan.grid_splits(h_tiles * batch * utiles, chunk, device)
-  w = head['vocab_w'].to(compute_dtype).contiguous()
-  jc = empty(chunk, num_rows, hidden, dtype=compute_dtype)
-  ds = empty(chunk, num_rows, vocab, dtype=compute_dtype)
-  dvb_part = empty(chunk, row_tiles, vocab)
-  dpf_part = empty(utiles, chunk, batch, hidden)
-  db_row = empty(num_rows)
-  # Accumulators, each element owned by one block per launch.
-  dw_acc = zeros(ksplits, hidden, vocab)
-  dpc_acc = zeros(fsplits, num_rows, hidden)
-  dwy_acc = zeros(fsplits, num_rows, hidden)
-  dbw_acc = zeros(fsplits, batch * utiles, hidden)
-  d_pf = empty(max_t, batch, hidden)
-  d_pc, d_wy = empty(num_rows, hidden), empty(num_rows, hidden)
-  d_w, d_vb, d_bw = empty(hidden, vocab), empty(vocab), empty(hidden)
-  d_by, d_bb = empty(num_rows), empty(1)
+  plan = backward_plan(max_t, batch, u1, hidden, vocab, compute_dtype,
+                       joint_head.sm_count(device))
+  # The scratch in one buffer (``backward_scratch``).
+  workspace = torch.empty(plan.size, dtype=torch.uint8, device=device)
+  scratch = [workspace.data_ptr() + plan.offsets[name]
+             if name in plan.offsets else None for name in _SCRATCH]
+  empty = lambda *shape: torch.empty(shape, device=device)
+  grads = (empty(max_t, batch, hidden), empty(num_rows, hidden),
+           empty(num_rows, hidden), empty(hidden, vocab), empty(vocab),
+           empty(hidden), empty(num_rows), empty(1))
   _launch(device, 'backward',
           lambda lib, stream: lib.numerator_backward(
-              _DTYPE_CODES[compute_dtype], _ptr(pc), _ptr(pf), _ptr(w),
-              _ptr(head['vocab_b']), _ptr(head['blank_w']),
-              _ptr(head['blank_b']), _ptr(wy), _ptr(by), _ptr(z),
-              _ptr(blank), _ptr(g_b), _ptr(g_l), _ptr(jc), _ptr(ds),
-              _ptr(dvb_part), _ptr(dw_acc), _ptr(dpc_acc), _ptr(dwy_acc),
-              _ptr(dbw_acc), _ptr(dpf_part), _ptr(db_row), _ptr(d_pf),
-              _ptr(d_pc), _ptr(d_wy), _ptr(d_w), _ptr(d_vb), _ptr(d_bw),
-              _ptr(d_by), _ptr(d_bb), max_t, batch, u1, hidden, vocab,
-              int(hat), chunk, splits, ksplits, fsplits, stream))
+              _DTYPE_CODES[compute_dtype], _ptr(pc), _ptr(pf),
+              _ptr(head['vocab_w']), _ptr(head['vocab_b']),
+              _ptr(head['blank_w']), _ptr(wy), _ptr(z), _ptr(blank),
+              _ptr(g_b), _ptr(g_l), *scratch, *(_ptr(g) for g in grads),
+              max_t, batch, u1, hidden, vocab, int(hat), plan.chunk,
+              plan.blocks, plan.jgrid, plan.ksplits, plan.rows_per_tile,
+              stream))
   backward_launches += 1
+  d_pf, d_pc, d_wy, d_w, d_vb, d_bw, d_by, d_bb = grads
   return d_pc, d_pf, d_w, d_vb, d_bw, d_bb[0], d_wy, d_by
+
+
+# The order of the scratch pointers numerator_backward takes.
+_SCRATCH = ('pos_of', 'items', 'groups', 'count', 'wp', 'joint', 'joint32',
+            'ds', 'du', 'dpf_part', 'dvb_part', 'dbw_part', 'dpc_part',
+            'dw_part', 'db_row')
 
 
 def numerator_backward_plain(pc: torch.Tensor, pf: torch.Tensor,

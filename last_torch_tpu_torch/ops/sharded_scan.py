@@ -55,7 +55,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import math
 from typing import Any, Optional
 
 import torch
@@ -243,17 +242,6 @@ def forward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
   return scratch
 
 
-def _layout(scratch: dict):
-  """(byte offsets, total bytes) of ``scratch``'s buffers in one buffer,
-  each 256-byte aligned."""
-  offsets, size = {}, 0
-  for name, (shape, dtype) in scratch.items():
-    offsets[name] = size
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    size += -(-math.prod(shape) * itemsize // 256) * 256
-  return offsets, size
-
-
 @functools.lru_cache(maxsize=64)
 def _forward_workspace(batch, num_states, hidden, vocab, compute_dtype, sms):
   """(largest persistent grid, byte offsets, total bytes) of the forward's
@@ -261,7 +249,7 @@ def _forward_workspace(batch, num_states, hidden, vocab, compute_dtype, sms):
   plan = (joint_head.reduce_plan(batch, num_states, hidden, vocab, sms)
           if compute_dtype == torch.bfloat16 else None)
   return ((plan.max_blocks if plan else 0),
-          *_layout(forward_scratch(batch, num_states, hidden, vocab,
+          *joint_head.layout(forward_scratch(batch, num_states, hidden, vocab,
                                    compute_dtype, plan)))
 
 
@@ -272,7 +260,8 @@ def _workspace(batch, num_states, hidden, vocab, sms):
   256-byte aligned)."""
   grid = fused_scan.wgmma_grid(batch, num_states, hidden, vocab, sms)
   return ((grid.ksplits, grid.dsplits),
-          *_layout(backward_scratch(batch, num_states, hidden, vocab, grid)))
+          *joint_head.layout(backward_scratch(batch, num_states, hidden,
+                                              vocab, grid)))
 
 
 def frame_reduce_backward(vec: torch.Tensor, pf_t: torch.Tensor,
@@ -318,14 +307,15 @@ def frame_reduce_backward(vec: torch.Tensor, pf_t: torch.Tensor,
     workspace = torch.empty(size, dtype=torch.uint8, device=device)
     ptr = lambda name: workspace.data_ptr() + offsets[name]
   else:  # float32: the CUDA-core kernels, d_lex in float32
-    dpf_part, dbw_part, dpc_part, dw_part, splits = (
-        joint_head.backward_scratch(batch, num_states, hidden, vocab,
-                                    compute_dtype, device))
+    splits = joint_head.backward_plan(batch, num_states, hidden, vocab,
+                                      compute_dtype,
+                                      joint_head.sm_count(device)).splits
     scratch = dict(
         d_lex=empty(batch, num_states, vocab),
         dvb_part=empty(-(-batch * num_states // _COLUMN_CHUNK), vocab),
-        dpf_part=dpf_part, dbw_part=dbw_part, dpc_part=dpc_part,
-        dw_part=dw_part)
+        **{name: empty(*shape) for name, (shape, _) in
+           joint_head.backward_scratch(batch, num_states, hidden, vocab,
+                                       compute_dtype, splits, 0).items()})
     dsplits = 0
     ptr = lambda name: (scratch[name].data_ptr() if name in scratch else
                         None)

@@ -28,7 +28,7 @@ from torch.utils import _pytree as pytree
 from last_torch_tpu import weight_fns as jax_weight_fns
 from last_torch_tpu.ops import joint_head as jax_joint_head
 from last_torch_tpu_torch import convert, weight_fns
-from last_torch_tpu_torch.ops import joint_head
+from last_torch_tpu_torch.ops import fused_scan, joint_head
 
 torch.set_num_threads(1)
 torch.set_float32_matmul_precision('highest')
@@ -253,6 +253,47 @@ def test_forward_plan_covers_every_tile_once(batch, states, hidden, vocab):
   assert min(loads) >= 1 and max(loads) - min(loads) <= 1
   if plan.tiles >= 2 * SMS:  # a frame of the main paths fills the card
     assert plan.blocks == 2 * SMS
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('batch,states,hidden,vocab', [
+    (8, 1025, 512, 1024),  # the densified headline's frame
+    (8, 4161, 512, 64),  # the trigram probe
+    (3, 77, 40, 37),  # h and V off the 64-deep stages, V % 4 != 0
+    (1, 3, 40, 1001),
+])
+def test_backward_workspace_is_aligned_and_disjoint(batch, states, hidden,
+                                                    vocab, dtype):
+  """The backward's scratch in one buffer: each buffer 256-byte aligned,
+  none overlapping; bfloat16 stages the cotangent in bfloat16 padded to the
+  64-deep stages and splits its products as the other wgmma backwards."""
+  plan = joint_head.backward_plan(batch, states, hidden, vocab, dtype, SMS)
+  scratch = joint_head.backward_scratch(batch, states, hidden, vocab, dtype,
+                                        plan.splits, plan.dsplits)
+  assert set(plan.offsets) == set(scratch)
+  spans = []
+  for name, (shape, item_dtype) in scratch.items():
+    assert plan.offsets[name] % 256 == 0, name
+    itemsize = torch.empty((), dtype=item_dtype).element_size()
+    spans.append((plan.offsets[name],
+                  plan.offsets[name] + np.prod(shape) * itemsize))
+  spans.sort()
+  assert all(end <= start for (_, end), (start, _) in zip(spans, spans[1:]))
+  assert spans[-1][1] <= plan.size
+  assert scratch['dw_part'][0] == (plan.splits, hidden, vocab)
+  if dtype == torch.float32:
+    assert plan.dsplits == 0 and 'd_lex' not in scratch
+    slices = batch * -(-states // 64)
+    assert 1 <= plan.splits <= slices
+  else:
+    grid = fused_scan.wgmma_grid(batch, states, hidden, vocab, SMS)
+    assert (plan.splits, plan.dsplits) == (grid.ksplits, grid.dsplits)
+    assert 1 <= plan.dsplits <= batch
+    vp = -(-vocab // 64) * 64
+    assert scratch['d_lex'] == ((batch * states, vp), torch.bfloat16)
+    assert scratch['joint32'] == ((batch * states, hidden), torch.float32)
+    assert scratch['dpc_part'][0] == (plan.dsplits, states, hidden)
 
 
 def gate_inputs(num_states, batch=4, hidden=HIDDEN, frame_dims=1,

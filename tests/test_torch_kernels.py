@@ -486,10 +486,12 @@ def numerator_inputs(seed, vocab, hidden, max_t, batch, u1, device='cpu'):
   rows = batch * u1
   pc, pf = tensor((rows, hidden), 0.5), tensor((max_t, batch, hidden), 0.5)
   wy, by = tensor((rows, hidden), hidden**-0.5), tensor((rows,), 0.1)
-  # Cotangents: batch row 1 zero throughout, frame 0 zero for every row.
+  # Cotangents: batch row 1 (where there is one) zero throughout, frame 0
+  # zero for every row.
   g_b, g_l = tensor((max_t, rows)), tensor((max_t, rows))
   for g in (g_b, g_l):
-    g.view(max_t, batch, u1)[:, 1] = 0.0
+    if batch > 1:
+      g.view(max_t, batch, u1)[:, 1] = 0.0
     g[:1] = 0.0
   return pc, pf, head, wy, by, g_b, g_l
 
@@ -528,9 +530,12 @@ def test_plain_numerator_backward_is_the_vjp_of_its_forward(hat):
 
 NUMERATOR_CARD_CASES = {
     # name: (vocab, hidden, batch, u1)
-    'ragged_v70_h40': (70, 40, 3, 5),
-    'v1024_u101': (1024, 512, 2, 101),
+    'ragged_v70_h40': (70, 40, 3, 5),  # 13 batch rows in a 64-row tile
+    'v1024_u101': (1024, 512, 2, 101),  # rows 64-127 hold two batch rows
     'ragged_v1000_u37': (1000, 512, 3, 37),
+    # B=1, one batch row over three tiles, h off the 64-deep stages and
+    # V % 4 != 0.
+    'b1_u130_v1001_h72': (1001, 72, 1, 130),
 }
 
 
@@ -569,7 +574,99 @@ def test_numerator_kernels_match_plain_on_card(card, case, compute_dtype,
     assert rel_err(got, want, per_output=True) <= (2e-3 if bf16 else 1e-4), (
         name)
   d_pf = bwd_k[1]
-  assert torch.all(d_pf[:, 1] == 0) and torch.all(d_pf[0] == 0)
+  assert torch.all(d_pf[0] == 0)
+  if batch > 1:  # batch row 1's rows have no cotangent: exact zeros
+    assert torch.all(d_pf[:, 1] == 0)
+    d_pc, d_wy, d_by = bwd_k[0], bwd_k[6], bwd_k[7]
+    for x in (d_pc, d_wy, d_by):
+      assert torch.all(x.view(batch, u1, -1)[1] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_numerator_kernels_match_plain_over_many_frames_on_card(
+    card, compute_dtype):
+  # chip_smoke.py phase 5b's widest shape (T=64, B=4, U+1=26, V=1000,
+  # h=1024): each block of the d_joint product walks many items in turn,
+  # as at the main paths' shapes.
+  vocab, hidden, batch, u1 = 1000, 1024, 4, 26
+  pc, pf, head, wy, by, g_b, g_l = numerator_inputs(
+      13, vocab, hidden, max_t=64, batch=batch, u1=u1, device=card)
+  kw = dict(hat=True, compute_dtype=compute_dtype)
+  fwd = numerator_scan.numerator_forward_plain(pc, pf, head, wy, by, **kw)
+  got = numerator_scan.numerator_backward(pc, pf, head, wy, by, fwd[2],
+                                          fwd[3], g_b, g_l, **kw)
+  want = numerator_scan.numerator_backward_plain(pc, pf, head, wy, by,
+                                                 fwd[2], fwd[3], g_b, g_l,
+                                                 **kw)
+  torch.cuda.synchronize()
+  bf16 = compute_dtype == torch.bfloat16
+  for name, a, b in zip(NUMERATOR_OUTPUTS, got, want):
+    assert rel_err(a, b, per_output=True) <= (2e-3 if bf16 else 1e-4), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_numerator_backward_in_several_chunks_on_card(card, compute_dtype,
+                                                      monkeypatch):
+  # A staging budget of a few frames: the backward walks its live list in
+  # chunks (the main paths' shapes take 16 to 62), each with its own items,
+  # slots and d_pf frames, and sums across them.
+  vocab, hidden, batch, u1 = 1000, 72, 3, 37
+  pc, pf, head, wy, by, g_b, g_l = numerator_inputs(
+      11, vocab, hidden, max_t=23, batch=batch, u1=u1, device=card)
+  kw = dict(hat=True, compute_dtype=compute_dtype)
+  fwd = numerator_scan.numerator_forward_plain(pc, pf, head, wy, by, **kw)
+  want = numerator_scan.numerator_backward_plain(pc, pf, head, wy, by,
+                                                 fwd[2], fwd[3], g_b, g_l,
+                                                 **kw)
+  numerator_scan.backward_plan.cache_clear()
+  item = torch.finfo(compute_dtype).bits // 8
+  per_frame = 2 * 64 * (128 * item + 1024 * item + 4 * hidden)
+  monkeypatch.setattr(numerator_scan, '_CHUNK_BYTES', 4 * per_frame)
+  try:
+    plan = numerator_scan.backward_plan(23, batch, u1, hidden, vocab,
+                                        compute_dtype,
+                                        joint_head.sm_count(card))
+    assert 1 < plan.chunk < 23
+    got = numerator_scan.numerator_backward(pc, pf, head, wy, by, fwd[2],
+                                            fwd[3], g_b, g_l, **kw)
+    torch.cuda.synchronize()
+  finally:
+    numerator_scan.backward_plan.cache_clear()
+  bf16 = compute_dtype == torch.bfloat16
+  for name, a, b in zip(NUMERATOR_OUTPUTS, got, want):
+    assert rel_err(a, b, per_output=True) <= (2e-3 if bf16 else 1e-4), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['dead', 'live', 'lengths'])
+@pytest.mark.parametrize('batch,u1,chunk', [(4, 101, 5), (30, 5, 3),
+                                            (1, 130, 17)])
+def test_numerator_live_tiles_match_plain_on_card(card, batch, u1, chunk,
+                                                  case):
+  # The backward's live list from its own kernels (mark, prefix sum)
+  # against the plain version: the same items in the same order.
+  rng = np.random.default_rng(12)
+  max_t = 40
+  g = rng.standard_normal((2, max_t, batch, u1)).astype(np.float32)
+  if case == 'dead':
+    g *= 0
+  elif case == 'lengths':
+    frames = rng.integers(0, max_t + 1, size=batch)
+    labels = rng.integers(0, u1, size=batch)
+    g *= ((np.arange(max_t)[:, None, None] < frames[None, :, None]) &
+          (np.arange(u1)[None, None, :] <= labels[None, :, None]))
+  g_b, g_l = (torch.from_numpy(x.reshape(max_t, batch * u1)) for x in g)
+  want = numerator_scan.live_tiles(g_b, g_l, chunk)
+  got = numerator_scan.live_tiles(g_b.to(card), g_l.to(card), chunk)
+  items, groups, count, pos_of = (x.cpu() for x in got)
+  n = int(want[2].sum())
+  assert torch.equal(items[:n], want[0][:n])
+  assert torch.equal(groups, want[1]) and torch.equal(count, want[2])
+  assert torch.equal(pos_of, want[3])
 
 
 @pytest.mark.cuda
@@ -865,6 +962,9 @@ JOINT_HEAD_CARD_CASES = {
     # stores).
     'b2_s4161_v64_h40': (2, 4161, 64, 40),
     'b3_s1025_v130_h40': (3, 1025, 130, 40),
+    # The bfloat16 backward's staging pass without 16-byte loads (V % 4 !=
+    # 0) and h off the 64-deep stages.
+    'b4_s1025_v1001_h200': (4, 1025, 1001, 200),
 }
 
 

@@ -269,3 +269,139 @@ def test_other_inner_weight_fns_or_normalizers_have_no_fast_path():
   assert weight_fns.LocallyNormalizedWeightFn(
       weight_fns.JointWeightFn(vocab_size=3, hidden_size=4),
       normalize=lambda b, l: (b, l)).label_weights(*args) is None
+
+
+def live_list_by_loops(g_b, g_l, chunk):
+  """The live list by explicit loops (``numerator_scan.live_tiles``'
+  contract): [(t, tile)] in the order (chunk, tile, frame), and per (chunk,
+  tile) the first position."""
+  max_t, rows = g_b.shape
+  r64 = -(-rows // 64)
+  items, groups = [], []
+  for t0 in range(0, max_t, chunk):
+    for k in range(r64):
+      groups.append(len(items))
+      for t in range(t0, min(max_t, t0 + chunk)):
+        rows_k = slice(k * 64, min(rows, k * 64 + 64))
+        if bool((g_b[t, rows_k] != 0).any() or (g_l[t, rows_k] != 0).any()):
+          items.append((t, k))
+  groups.append(len(items))
+  return items, groups
+
+
+LIVE_CASES = {
+    # name: (max_t, batch, u1, chunk, pattern)
+    'all_dead': (5, 3, 37, 2, 'dead'),
+    'all_live': (5, 3, 37, 2, 'live'),
+    'straddling_u101': (9, 4, 101, 4, 'lengths'),  # rows 64-127 span rows 0, 1
+    'u5_many_rows_a_tile': (6, 30, 5, 6, 'lengths'),
+    'b1_ragged': (7, 1, 130, 3, 'lengths'),
+    'one_frame_chunks': (4, 2, 70, 1, 'lengths'),
+}
+
+
+def live_cotangents(max_t, batch, u1, pattern, seed=0):
+  """g_b, g_l [T, B * U1]: all zero, all nonzero, or nonzero only for t <
+  T_b and u <= U_b (the string DP's mask) with a zero batch row."""
+  rng = np.random.default_rng(seed)
+  g = [rng.standard_normal((max_t, batch, u1)).astype(np.float32)
+       for _ in range(2)]
+  if pattern == 'dead':
+    g = [x * 0 for x in g]
+  elif pattern == 'lengths':
+    frames = rng.integers(0, max_t + 1, size=batch)
+    labels = rng.integers(0, u1, size=batch)
+    t = np.arange(max_t)[:, None, None]
+    u = np.arange(u1)[None, None, :]
+    mask = (t < frames[None, :, None]) & (u <= labels[None, :, None])
+    mask[:, batch // 2] = False
+    g = [x * mask for x in g]
+  return [torch.from_numpy(x.reshape(max_t, batch * u1)) for x in g]
+
+
+@pytest.mark.parametrize('case', sorted(LIVE_CASES))
+def test_live_tiles_plain_matches_loops(case):
+  """The backward's live (frame, 64-row tile) list: every pair with a
+  nonzero cotangent once, in (chunk, tile, frame) order, with the per
+  (chunk, tile) offsets, per chunk counts and each pair's position."""
+  max_t, batch, u1, chunk, pattern = LIVE_CASES[case]
+  g_b, g_l = live_cotangents(max_t, batch, u1, pattern)
+  items, groups, count, pos_of = numerator_scan.live_tiles(g_b, g_l, chunk)
+  want_items, want_groups = live_list_by_loops(g_b, g_l, chunk)
+  r64 = -(-batch * u1 // 64)
+  n = len(want_items)
+  assert [divmod(int(v), r64) for v in items[:n]] == want_items
+  assert groups.tolist() == want_groups
+  assert count.tolist() == [want_groups[(c + 1) * r64] -
+                            want_groups[c * r64]
+                            for c in range(-(-max_t // chunk))]
+  want_pos = torch.full((max_t, r64), -1, dtype=torch.int32)
+  for p, (t, k) in enumerate(want_items):
+    want_pos[t, k] = p
+  assert torch.equal(pos_of, want_pos)
+  if pattern == 'dead':
+    assert n == 0
+  if pattern == 'live':
+    assert n == max_t * r64
+
+
+@pytest.mark.parametrize('u1', [1, 5, 37, 64, 65, 101, 130])
+@pytest.mark.parametrize('batch', [1, 3, 8])
+def test_rows_per_tile_is_the_most_batch_rows_of_a_tile(batch, u1):
+  rows = batch * u1
+  want = max(len({r // u1 for r in range(k, min(rows, k + 64))})
+             for k in range(0, rows, 64))
+  assert numerator_scan.rows_per_tile(batch, u1) == want
+
+
+SMS = 132  # an H100's SMs
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('max_t,batch,u1,hidden,vocab', [
+    (1600, 8, 101, 512, 1024),  # the HAT training step (phase 6b)
+    (1600, 32, 101, 512, 1024),  # bench config 7
+    (9, 3, 5, 40, 70),  # ragged R, h and V
+    (9, 1, 37, 2048, 1001),
+])
+def test_backward_plan_fits_its_chunk_and_the_card(max_t, batch, u1, hidden,
+                                                   vocab, dtype):
+  """The backward's chunks stage at most _CHUNK_BYTES (or one frame), its
+  grids hold about a wave, and its scratch lies in one buffer, 256-byte
+  aligned and disjoint, the staging padded to 64-deep stages."""
+  plan = numerator_scan.backward_plan(max_t, batch, u1, hidden, vocab,
+                                      dtype, SMS)
+  scratch = numerator_scan.backward_scratch(
+      max_t, batch, u1, hidden, vocab, dtype, plan.chunk, plan.blocks,
+      plan.jgrid, plan.ksplits)
+  assert 1 <= plan.chunk <= max_t
+  staged = sum(np.prod(shape) * torch.empty((), dtype=d).element_size()
+               for name, (shape, d) in scratch.items()
+               if name in ('joint', 'joint32', 'ds', 'du', 'dpf_part'))
+  assert plan.chunk == 1 or staged <= numerator_scan._CHUNK_BYTES
+  r64 = -(-batch * u1 // 64)
+  hp, vp = -(-hidden // 64) * 64, -(-vocab // 64) * 64
+  assert scratch['joint'] == ((plan.chunk * r64, 64, hp), dtype)
+  assert scratch['ds'] == ((plan.chunk * r64, 64, vp), dtype)
+  assert ('joint32' in scratch) == (dtype == torch.bfloat16)
+  assert plan.rows_per_tile == numerator_scan.rows_per_tile(batch, u1)
+  if dtype == torch.float32:  # du staged, d_pc summed from it
+    assert scratch['du'] == ((plan.chunk * r64, 64, hidden), torch.float32)
+    assert 'joint32' not in scratch and scratch['dpc_part'][0][0] == 1
+  else:  # the float32 joint staged, d_pc in the d_joint blocks' registers
+    assert scratch['joint32'] == ((plan.chunk * r64, 64, hidden),
+                                  torch.float32)
+    assert 'du' not in scratch
+    assert 1 <= plan.jgrid <= plan.chunk
+    assert scratch['dpc_part'][0][0] == plan.jgrid
+  assert plan.blocks >= 1 and plan.jgrid >= 1 and plan.ksplits >= 1
+  spans = []
+  for name, (shape, d) in scratch.items():
+    assert plan.offsets[name] % 256 == 0, name
+    itemsize = torch.empty((), dtype=d).element_size()
+    spans.append((plan.offsets[name],
+                  plan.offsets[name] + np.prod(shape) * itemsize))
+  spans.sort()
+  assert all(end <= start for (_, end), (start, _) in zip(spans, spans[1:]))
+  assert spans[-1][1] <= plan.size

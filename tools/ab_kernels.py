@@ -55,7 +55,23 @@ Each run times, with CUDA events after a warm-up:
   divided by 100 (too few launches to fill the device's queue, so the host
   never waits); ``fr256fa`` / ``jhfa``: of that, the time per call spent
   in CUDA runtime and driver calls (launches, tensor maps, attributes),
-  under ``torch.profiler``.
+  under ``torch.profiler``;
+* ``jhfk``, ``jhfi``, ``jhfo``: a timeline of 32 back-to-back
+  ``jhf`` calls under ``torch.profiler`` (the device's kernels in start
+  order): the median per call of the kernels' summed durations, of the
+  gap between a call's two kernels (joint pass, product), and of the gap
+  from a call's product to the next call's joint pass;
+* ``jhb``, ``jhbd``, ``jhbh``: ``joint_head_backward`` (bf16, B=8,
+  S=1025, V=1024, h=512, phase 11b's inputs and cotangents) per call over
+  100 calls back to back, its device time and its host time per call;
+* ``numb8``: ``numerator_backward`` in float32 (hat) at ``chip_smoke.py``
+  phase 6b's HAT step shape (B=8, T_max=1600, U+1=101, h=512, V=1024,
+  the lengths of ``lp8``, U_b = T_b // 16 labels, cotangents zero past
+  them as the string DP's), one call; ``numb32``: in bfloat16 at bench.py's
+  config 7 (B=32, T=1600, U=100, every row full), one call; ``jhbp``,
+  ``numb8p``, ``numb32p``: one call of ``jhb`` (after a warm-up),
+  ``numb8`` or ``numb32`` under ``torch.profiler``, its device time by
+  kernel name (ms, summed over launches).
 
 Prints the card's name and power limit, one line per run, and one JSON
 object of milliseconds (MiB for ``lp9omem``) by run and case. ``--rounds
@@ -75,8 +91,10 @@ import numpy as np
 
 NUM_FRAMES = [1600, 1523, 1400, 1211, 1000, 804, 517, 230]
 CASES = ('lp8', 'lp32', 'lp9o', 'lp9o512', 'lp9omem', 'fr1024', 'fr256',
-         'jhf', 'jhfd', 'jhfh', 'jhfa', 'lp8f', 'lp32f', 'lp9f', 'lp9of',
-         'fr1024f', 'fr256f', 'fr1024fd', 'fr256fd', 'fr256fh', 'fr256fa')
+         'jhf', 'jhfd', 'jhfh', 'jhfa', 'jhfk', 'jhfi', 'jhfo', 'lp8f',
+         'lp32f', 'lp9f', 'lp9of', 'fr1024f', 'fr256f', 'fr1024fd',
+         'fr256fd', 'fr256fh', 'fr256fa', 'jhb', 'jhbd', 'jhbh', 'jhbp',
+         'numb8', 'numb32', 'numb8p', 'numb32p')
 
 
 # The forward cases: (shape, mode).
@@ -242,10 +260,62 @@ def device_time(torch, fn, repeats):
   return total_ns / repeats / 1e6
 
 
-def joint_head_forward_ms(torch, joint_head, plain, clock=None):
-  """ms of one joint+head forward at B=8, S=1025, V=1024, h=512, bf16, on
-  inputs drawn as chip_smoke.py's phase 11b draws them, by ``clock``
-  (``clocked``) over 100 calls."""
+def timeline(torch, fn, calls=32):
+  """{'k': kernel ms, 'i': the gap between a call's kernels, 'o': the gap
+  from a call's last kernel to the next call's first}, each the median per
+  call over ``calls`` back-to-back calls of fn, from torch.profiler's
+  device events in start order. A call starts at each event named as the
+  first one (fn's first kernel)."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(calls):
+      fn()
+    torch.cuda.synchronize()
+  cuda = torch.autograd.DeviceType.CUDA
+  events = sorted((e.start_ns(), e.end_ns(), e.name())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == cuda)
+  groups = []
+  for start, end, name in events:
+    if not groups or name == events[0][2]:
+      groups.append([])
+    groups[-1].append((start, end))
+  median = lambda xs: float(np.median(xs)) / 1e6 if xs else None
+  kernels, inner, outer = [], [], []
+  for mine, after in zip(groups, groups[1:] + [None]):
+    kernels.append(sum(end - start for start, end in mine))
+    inner += [b[0] - a[1] for a, b in zip(mine, mine[1:])]
+    if after:
+      outer.append(after[0][0] - mine[-1][1])
+  return {'k': median(kernels), 'i': median(inner), 'o': median(outer)}
+
+
+def by_kernel(torch, fn):
+  """{kernel name: ms} of one call of fn (after a warm-up) under
+  torch.profiler, each name's device time summed over its launches."""
+  from torch.profiler import ProfilerActivity, profile
+  fn()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  cuda = torch.autograd.DeviceType.CUDA
+  out = {}
+  for e in prof.profiler.kineto_results.events():
+    if e.device_type() == cuda:
+      name = e.name().replace('(anonymous namespace)::', '')
+      name = name.removeprefix('void ').split('(')[0].split('<')[0].strip()
+      out[name] = out.get(name, 0.0) + (e.end_ns() - e.start_ns()) / 1e6
+  return out
+
+
+def joint_head_ms(torch, joint_head, plain, clock=None, backward=False):
+  """ms of one joint+head forward (or, with ``backward``, backward) at
+  B=8, S=1025, V=1024, h=512, bf16, on inputs drawn as chip_smoke.py's
+  phase 11b draws them, by ``clock`` (``clocked``) over 100 calls, or with
+  a ``timeline`` key ('k', 'i', 'o') that number of the timeline."""
   rng = np.random.default_rng(12)
   batch, states, vocab, hidden = 8, 1025, 1024, 512
   cuda = lambda x: torch.from_numpy(x).cuda()
@@ -255,10 +325,55 @@ def joint_head_forward_ms(torch, joint_head, plain, clock=None):
             'blank_w': cuda(rand(rng, (hidden,), hidden**-0.5)),
             'vocab_b': cuda(rand(rng, (vocab,), 0.1)),
             'blank_b': torch.tensor(0.3, device='cuda')}
-  forward = (joint_head.joint_head_forward_plain if plain else
-             joint_head.joint_head_forward)
-  call = lambda: forward(**inputs, compute_dtype=torch.bfloat16)
+  dtype = torch.bfloat16
+  if backward:
+    g_blank = cuda(rand(rng, (batch, states)))
+    g_lexical = cuda(rand(rng, (batch, states, vocab)))
+    step = (joint_head.joint_head_backward_plain if plain else
+            joint_head.joint_head_backward)
+    args = [inputs[n] for n in ('pc', 'pf', 'vocab_w', 'blank_w')]
+    call = lambda: step(*args, g_blank, g_lexical, compute_dtype=dtype)
+  else:
+    forward = (joint_head.joint_head_forward_plain if plain else
+               joint_head.joint_head_forward)
+    call = lambda: forward(**inputs, compute_dtype=dtype)
+  if clock in ('k', 'i', 'o'):
+    return timeline(torch, call)[clock]
+  if clock == 'p':
+    return by_kernel(torch, call)
   return clocked(torch, call, clock)
+
+
+def numerator_backward_ms(torch, numerator_scan, batch, lengths, dtype,
+                          plain, profiled=False):
+  """ms of one numerator backward (hat) at (batch, lengths), T_max=1600,
+  U+1=101, h=512, V=1024: random inputs, cotangents zero at frames past a
+  row's length and label positions past its T_b // 16 labels (the string
+  DP's mask; 100 labels at full length)."""
+  rng = np.random.default_rng(14)
+  max_t, u1, hidden, vocab = 1600, 101, 512, 1024
+  rows = batch * u1
+  cuda = lambda x: torch.from_numpy(x).cuda()
+  head = {'vocab_w': cuda(rand(rng, (hidden, vocab), hidden**-0.5)),
+          'vocab_b': cuda(rand(rng, (vocab,), 0.1)),
+          'blank_w': cuda(rand(rng, (hidden,), hidden**-0.5)),
+          'blank_b': torch.tensor(0.3, device='cuda')}
+  pc, wy = (cuda(rand(rng, (rows, hidden), s)) for s in (0.5, hidden**-0.5))
+  pf = cuda(rand(rng, (max_t, batch, hidden), 0.5))
+  by = cuda(rand(rng, (rows,), 0.1))
+  frames = np.array(lengths)
+  labels = np.minimum(frames // 16, u1 - 1)
+  live = ((np.arange(max_t)[:, None, None] < frames[None, :, None]) &
+          (np.arange(u1)[None, None, :] <= labels[None, :, None]))
+  g_b, g_l = (cuda((rand(rng, (max_t, batch, u1)) * live).reshape(
+      max_t, rows)) for _ in range(2))
+  kw = dict(hat=True, compute_dtype=dtype)
+  _, _, z, blank = numerator_scan.numerator_forward_plain(pc, pf, head, wy,
+                                                          by, **kw)
+  backward = (numerator_scan.numerator_backward_plain if plain else
+              numerator_scan.numerator_backward)
+  call = lambda: backward(pc, pf, head, wy, by, z, blank, g_b, g_l, **kw)
+  return by_kernel(torch, call) if profiled else timed(torch, call, 1)[1]
 
 
 def run_tree(tree, cases, plain):
@@ -266,7 +381,8 @@ def run_tree(tree, cases, plain):
   returns {case: ms}."""
   sys.path.insert(0, str(pathlib.Path(tree).resolve()))
   import torch
-  from last_torch_tpu_torch.ops import fused_scan, joint_head, sharded_scan
+  from last_torch_tpu_torch.ops import (fused_scan, joint_head,
+                                        numerator_scan, sharded_scan)
   torch.backends.cuda.matmul.allow_tf32 = False
   out = {}
   for case in cases:
@@ -294,8 +410,19 @@ def run_tree(tree, cases, plain):
                                    max_t=200, vocab=4096, mode='online',
                                    memory=case == 'lp9omem')
       fused_scan.ONLINE_CHUNK_STATES = chunk
-    elif case.startswith('jhf'):
-      out[case] = joint_head_forward_ms(torch, joint_head, plain, clock)
+    elif case.startswith('jh'):
+      kind = case[3:] or None
+      out[case] = joint_head_ms(torch, joint_head, plain,
+                                CLOCKS.get(kind, kind),
+                                backward=case.startswith('jhb'))
+    elif case.startswith('numb8'):
+      out[case] = numerator_backward_ms(torch, numerator_scan, 8, NUM_FRAMES,
+                                        torch.float32, plain,
+                                        case.endswith('p'))
+    elif case.startswith('numb32'):
+      out[case] = numerator_backward_ms(torch, numerator_scan, 32,
+                                        [1600] * 32, torch.bfloat16, plain,
+                                        case.endswith('p'))
     else:
       out[case] = frame_reduce_ms(torch, sharded_scan, int(case[2:]),
                                   'backward', plain)
@@ -340,6 +467,8 @@ def main():
     ms = json.loads(proc.stdout.strip().splitlines()[-1])
     print(f'{name}: ' + ', '.join(
         f'{c} null' if t is None else
+        f'{c} {{' + ', '.join(f'{k} {v:.4f}' for k, v in t.items()) + '} ms'
+        if isinstance(t, dict) else
         f'{c} {t:.4f} {"MiB" if c.endswith("mem") else "ms"}'
         for c, t in ms.items()), flush=True)
     results.append({'run': name, 'ms': ms})
