@@ -437,7 +437,8 @@ def phase_kernel_vs_plain(torch, viterbi):
 WGMMA_KERNELS = ('lex_pass_kernel', 'head_grad_kernel', 'joint_grad_kernel',
                  'num_joint_grad_kernel', 'lex_grad_kernel',
                  'joint_pass_kernel', 'stage_kernel', 'head_product_kernel',
-                 'column_reduce_kernel')
+                 'column_reduce_kernel', 'column_max_kernel',
+                 'row_reduce_kernel')
 # The namespaces of those kernels (others share some of their names); simt:
 # the numerator backward's float32 register-blocked products.
 WGMMA_NAMESPACES = ('hopper', 'head_grads', 'head_product', 'simt')
@@ -996,10 +997,10 @@ def bigram_kernels(fused_scan, mode):
           'backward_plain': fused_scan.fused_backward_plain,
           'records': ((fwd_name, f'fused_scan.py:{fwd_line}'),
                       (bwd_name, f'fused_scan.py:{bwd_line}')),
-          # The bfloat16 'cache' forward's kernels live in the header it
-          # shares with the frame reduction and the joint+head forward.
-          'sources': ('head_product.cuh' if mode == 'cache' else
-                      'fused_scan.cu', 'fused_scan.cu'),
+          # The bfloat16 forward's kernels (both modes) live in the header
+          # it shares with the frame reduction, the joint+head forward and
+          # the Viterbi forward.
+          'sources': ('head_product.cuh', 'fused_scan.cu'),
           'label': f'log-partition kernels alone, {mode} mode'}
 
 
@@ -1274,6 +1275,17 @@ def device_profile(torch, fn):
           f'{name[:48]} {t / 1e3:.1f} ms' for name, t in top))
 
 
+def decode_split(decode_ms, forward_ms, backtrace_ms):
+  """The decode's time split into the Viterbi forward, the backtrace and
+  the rest (encoder, projections, glue: the decode's time less the two,
+  each timed alone on the same inputs)."""
+  rest = decode_ms - forward_ms - backtrace_ms
+  return (f'decode split: Viterbi forward {forward_ms:.1f} ms '
+          f'({forward_ms / decode_ms:.1%}), backtrace {backtrace_ms:.1f} ms '
+          f'({backtrace_ms / decode_ms:.1%}), the rest {rest:.1f} ms '
+          f'({rest / decode_ms:.1%}) of {decode_ms:.1f} ms')
+
+
 def phase_hat_serving(torch, gnat, presets, viterbi):
   """Phase 4b: the HAT serving main path, hat_bigram(vocab_size=1024) at
   full width, decoding phase 4's requests through the kernel's in-kernel
@@ -1337,6 +1349,12 @@ def phase_hat_serving(torch, gnat, presets, viterbi):
   (_, _, alpha_p), plain_ms = timed(
       torch, lambda: viterbi.viterbi_forward_plain(pf, pc, wf_params, is_pad,
                                                    **fwd))
+  forward_out = viterbi.viterbi_forward(pf, pc, wf_params, is_pad, **fwd)
+  _, backtrace_ms = timed(
+      torch, lambda: viterbi.backtrace(
+          *forward_out, is_pad, max_expansions=config.max_expansions,
+          frame_dependent=False), repeats=3)
+  say('hat-serving', decode_split(decode_ms, kernel_ms, backtrace_ms))
   finite = torch.isfinite(alpha_p)
   check(torch.equal(finite, torch.isfinite(alpha_k)),
         'HAT final alpha: kernel and plain differ in reachable states')
@@ -2007,8 +2025,9 @@ def phase_large_vocab(torch, gnat, presets, fused_scan, semirings, pytree,
   utterances of phase 6's lengths / 8 with one label per 4 frames (bench
   config 9's rate), step 1 against the plain versions; then a decode of
   the same utterances through the Viterbi kernel (bench config 10's
-  path), checked as phase 4's. Returns (mode, (forward, backward)
-  launches, Viterbi launches)."""
+  path), checked as phase 4's, and the Viterbi forward and backtrace alone
+  on its inputs. Returns (mode, (forward, backward) launches, Viterbi
+  launches, the Viterbi forward's ms alone)."""
   config = presets.gnat_global_bigram(vocab_size=4096)
   num_frames_list = [n // 8 for n in NUM_FRAMES]
   num_labels_list = [n // 4 for n in num_frames_list]
@@ -2058,7 +2077,21 @@ def phase_large_vocab(torch, gnat, presets, fused_scan, semirings, pytree,
       f'kernel (S=4097 V=4096): {decode_ms:.1f} ms '
       f'({real_frames / decode_ms * 1e3:.0f} real frames/s), plain '
       f'{plain_ms:.1f} ms, launches {viterbi_launches}; vs plain: {report}')
-  return mode, launches, viterbi_launches
+  # The Viterbi forward and the backtrace alone on the decode's inputs
+  # (outside the counted run).
+  is_pad = padding(torch, num_frames, frames.shape[1])
+  fwd = dict(**bigram, compute_dtype=torch.bfloat16)
+  viterbi.viterbi_forward(pf, pc, head, is_pad, **fwd)  # warm-up
+  forward_out, forward_ms = timed(
+      torch, lambda: viterbi.viterbi_forward(pf, pc, head, is_pad, **fwd),
+      repeats=3)
+  _, backtrace_ms = timed(
+      torch, lambda: viterbi.backtrace(*forward_out, is_pad, **bigram),
+      repeats=3)
+  say('large-vocab', f'viterbi_forward bf16 B=8 T_max={frames.shape[1]} '
+      f'S=4097 V=4096 h=512 alone: {forward_ms:.1f} ms; '
+      + decode_split(decode_ms, forward_ms, backtrace_ms))
+  return mode, launches, viterbi_launches, forward_ms
 
 
 def phase_config9(torch, lattices, contexts, alignments, weight_fns,
@@ -2135,6 +2168,10 @@ def phase_config9(torch, lattices, contexts, alignments, weight_fns,
         f'config 9: the online backward\'s peak memory '
         f'{backward_peak_mib["online"]:.0f} MiB is not below the cache '
         f'mode\'s {backward_peak_mib["cache"]:.0f} MiB')
+  check(forward_peak_mib['online'] < forward_peak_mib['cache'],
+        f'config 9: the online forward\'s peak memory '
+        f'{forward_peak_mib["online"]:.0f} MiB is not below the cache '
+        f'mode\'s {forward_peak_mib["cache"]:.0f} MiB')
   say('config9', 'forward peak device memory: ' + ', '.join(
       f'{mode} {mib:.0f} MiB' for mode, mib in forward_peak_mib.items()) +
       '; backward peak device memory: ' + ', '.join(
@@ -3320,6 +3357,8 @@ def main():
         f'h=512: kernel {kernel_ms:.1f} ms, plain {plain_ms:.1f} ms; final '
         f'alpha max abs err {max_abs_err:.3g} of scale {scale:.4g}; encoder '
         f'{encoder_ms:.1f} ms, backtrace {backtrace_ms:.1f} ms', flush=True)
+  print(f'[main-path] {decode_split(decode_ms, kernel_ms, backtrace_ms)}',
+        flush=True)
   print(f'[main-path] serving phases {time.perf_counter() - t0:.1f} s',
         flush=True)
   # One head product per real frame-row: FLD(2)'s second pass reads the
@@ -3334,8 +3373,10 @@ def main():
   hat_launches, hat_ms, hat_plain_ms, hat_err = phase_hat_serving(
       torch, gnat, presets, viterbi)
   print(f'[hat-serving] {time.perf_counter() - t0:.1f} s', flush=True)
+  # The bfloat16 forward's products live in csrc/head_product.cuh (its
+  # host loop and merges in csrc/viterbi.cu).
   viterbi_record = kernel_record(
-      'viterbi_forward', 'viterbi.cu', 'viterbi.py:46',
+      'viterbi_forward', 'head_product.cuh', 'viterbi.py:46',
       launches + hat_launches, max(max_abs_err, hat_err), kernel_ms,
       plain_ms, flops, traffic, 'bfloat16',
       launches_by_path={'gnat_global_bigram decode': launches,
@@ -3422,12 +3463,13 @@ def main():
   # Phase 9: the large-vocabulary main path (training, decode).
   t0 = time.perf_counter()
   torch.cuda.empty_cache()
-  mode, large_launches, large_decodes = phase_large_vocab(
+  mode, large_launches, large_decodes, large_viterbi_ms = phase_large_vocab(
       torch, gnat, presets, fused_scan, semirings, pytree, viterbi)
   print(f'[large-vocab] {time.perf_counter() - t0:.1f} s', flush=True)
   viterbi_record['launches'] += large_decodes
   viterbi_record['launches_by_path'][
       'gnat_global_bigram(vocab_size=4096) decode'] = large_decodes
+  viterbi_record['v4096_ms'] = large_viterbi_ms
   if mode == 'cache':
     for record, count in zip((records['forward'], records['backward']),
                              large_launches):

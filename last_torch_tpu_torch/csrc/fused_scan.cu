@@ -75,27 +75,27 @@
 //   at most about 1, so the TPU's factored form and its clip at 80
 //   (fused_scan.py:468-474) are not needed; padding rows and padded states
 //   never enter a sum, so all-padding rows and g = 0 rows give exact zeros.
-// * The bfloat16 forward in 'cache' mode (namespace hopper) runs on
-//   head_product.cuh, the machinery it shares with the joint+head forward
-//   and the frame reduction: per frame, over its live rows only (counted
-//   once per call on the host, listed first on the device), the joint pass
-//   writes the bfloat16 joint [B, S, hp] and the blank head once, then each
-//   reduction is the column-reduce product (wgmma on TMA operands, two
-//   consumer warpgroups, a persistent grid) with the (max, sum) over each
-//   64-state unit in its epilogue, merged by col_merge_kernel; the padded
-//   bfloat16 head is formed once per call. The first reduction of a frame
-//   also stores lex (float32 [B, S, V]) and the later ones read it back
-//   (col_pass_kernel<kLoad>), which measured 5-7% faster than recomputing
-//   the product at B=8, B=32 and V=4096 (PERF.md): the product is bound by
-//   the operands the L2 cache delivers, a lex read by the bytes alone. The
-//   last merge of a frame runs in its update.
-// * The float32 comparison mode, the 'online' forward, the trigram and the
-//   marginals: tile_product.cuh's 64 x 64 tiles (WMMA in bfloat16, FMAs in
-//   float32). The forward's first reduction runs in the epilogue of the
-//   head product; in 'cache' mode with two or more per frame the product
-//   stores lex (float32) for the others: at B=32 (134 MB, beyond the 50 MB
-//   L2) that beat recomputing the WMMA product, 1.02 s against 1.74 s for
-//   the T=1600 FLD(2) forward (H100 80GB HBM3, 700 W).
+// * The bfloat16 forward of both modes (namespace hopper) runs on
+//   head_product.cuh, the machinery it shares with the joint+head forward,
+//   the frame reduction and the Viterbi forward: per frame, over its live
+//   rows only (counted once per call on the host, listed first on the
+//   device), the joint pass writes the bfloat16 joint [B, S, hp] and the
+//   blank head once, then each reduction is the column-reduce product
+//   (wgmma on TMA operands, two consumer warpgroups, a persistent grid)
+//   with the (max, sum) over each 64-state unit in its epilogue, merged by
+//   col_merge_kernel; the padded bfloat16 head is formed once per call. In
+//   'cache' mode the first reduction of a frame also stores lex (float32
+//   [B, S, V]) and the later ones read it back (col_pass_kernel<kLoad>),
+//   which measured 5-7% faster than recomputing the product at B=8, B=32
+//   and V=4096 (PERF.md): the product is bound by the operands the L2
+//   cache delivers, a lex read by the bytes alone. In 'online' mode every
+//   reduction is the product. The last merge of a frame runs in its
+//   update.
+// * The float32 comparison mode, the trigram and the marginals:
+//   tile_product.cuh's 64 x 64 tiles (WMMA in bfloat16, FMAs in float32).
+//   The forward's first reduction runs in the epilogue of the head
+//   product; in 'cache' mode with two or more per frame the product stores
+//   lex (float32) for the others.
 // * The bfloat16 backward (namespace hopper, both modes) runs its products
 //   on wgmma (wgmma_tiles.cuh: m64n128k16 from shared memory, operands brought
 //   by TMA through a 4-stage mbarrier ring, two blocks an SM), over each
@@ -124,8 +124,9 @@
 // backward's bfloat16 d_lex (268 MB there, 4.3 GB at V=16384), growing as
 // V^2. The online mode keeps no buffer of that size, as the TPU's online
 // kernels kept no lexical cache. Its forward recomputes the head product
-// for every reduction (the kCompute path the cache forward takes for a
-// frame's only reduction): FLD(k) costs k products per frame against 1.
+// for every reduction (in bfloat16 the column-reduce product without its
+// lex store; in float32 col_pass_kernel's kCompute path): FLD(k) costs k
+// products per frame against 1.
 // Its bfloat16 backward is the cache mode's wgmma frame loop with the last
 // row reduction, its merge and both gradient products run per chunk of
 // states: the chunk's marginals go to a d_lex of [B, chunk, Vp] (chunk a
@@ -347,10 +348,10 @@ __device__ __forceinline__ void lex_tile(const T* __restrict__ joint_b,
 // Forward reduction over one split of the states for a 64-label strip of
 // row b: the online (max, sum) of vec[b, s] + lex[b, s, y] over s, per y.
 // Grid (ceil(V / 64), splits, B); col_merge_kernel combines the splits.
-template <typename T, int MODE>
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
-    col_pass_kernel(const T* __restrict__ joint,        // [B, S, h]
-                    const T* __restrict__ vw,           // [h, V]
+    col_pass_kernel(const float* __restrict__ joint,    // [B, S, h]
+                    const float* __restrict__ vw,       // [h, V]
                     const float* __restrict__ vb,       // [V]
                     const float* __restrict__ vec,      // [B, S]
                     float* __restrict__ lex,            // [B, S, V] or null
@@ -368,14 +369,14 @@ __global__ void __launch_bounds__(kThreads)
   const int s_end = min(S, s_begin + tiles_per_split * kBM);
   const int tid = threadIdx.x;
   const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
-  const T* joint_b = joint + static_cast<size_t>(b) * S * h;
+  const float* joint_b = joint + static_cast<size_t>(b) * S * h;
   const float* vec_b = vec + static_cast<size_t>(b) * S;
   float* lex_b =
       lex == nullptr ? nullptr : lex + static_cast<size_t>(b) * S * V;
   float run_m = -INFINITY, run_l = 0.f;  // column y0 + tid, tid < 64
   for (int s0 = s_begin; s0 < s_end; s0 += kBM) {
     float val[kTM][kTN];
-    lex_tile<T, MODE>(joint_b, vw, vb, lex_b, s0, y0, S, h, V, val);
+    lex_tile<float, MODE>(joint_b, vw, vb, lex_b, s0, y0, S, h, V, val);
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       float v[kTM];
@@ -959,10 +960,10 @@ inline int blocks_for(size_t n) {
   return static_cast<int>((n + kPointThreads - 1) / kPointThreads);
 }
 
-template <typename T>
-int run_forward(const float* pf, const float* pc, const T* vw,
-                const float* vb, const T* bw, const float* bb,
-                const int* is_pad, T* joint, float* blank, float* lex,
+// The float32 forward (both modes).
+int run_forward(const float* pf, const float* pc, const float* vw,
+                const float* vb, const float* bw, const float* bb,
+                const int* is_pad, float* joint, float* blank, float* lex,
                 float* part_m, float* part_l, float* last, float* alpha,
                 float* hist, float* slabs, int num_frames, int B, int S,
                 int h, int V, int max_expansions, int frame_dependent,
@@ -981,7 +982,7 @@ int run_forward(const float* pf, const float* pc, const T* vw,
     const float* alpha_cur = alpha + (t % 2) * bs;
     float* alpha_next = alpha + ((t + 1) % 2) * bs;
     const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
-    joint_blank_kernel<T><<<joint_grid, kJointThreads, 0, stream>>>(
+    joint_blank_kernel<float><<<joint_grid, kJointThreads, 0, stream>>>(
         pf + static_cast<size_t>(t) * B * h, is_pad_t, pc, bw, bb, nullptr,
         nullptr, joint, nullptr, blank, S, h, h, 0);
     RETURN_IF_LAUNCH_FAILED();
@@ -992,15 +993,15 @@ int run_forward(const float* pf, const float* pc, const T* vw,
     const float* vec = alpha_cur;
     for (int j = 0; j < passes; ++j) {
       if (!stage) {
-        col_pass_kernel<T, kCompute><<<pass_grid, kThreads, 0, stream>>>(
+        col_pass_kernel<kCompute><<<pass_grid, kThreads, 0, stream>>>(
             joint, vw, vb, vec, nullptr, part_m, part_l, is_pad_t, S, h, V,
             tiles_per_split);
       } else if (j == 0) {
-        col_pass_kernel<T, kComputeStore><<<pass_grid, kThreads, 0, stream>>>(
+        col_pass_kernel<kComputeStore><<<pass_grid, kThreads, 0, stream>>>(
             joint, vw, vb, vec, lex, part_m, part_l, is_pad_t, S, h, V,
             tiles_per_split);
       } else {
-        col_pass_kernel<T, kLoad><<<pass_grid, kThreads, 0, stream>>>(
+        col_pass_kernel<kLoad><<<pass_grid, kThreads, 0, stream>>>(
             joint, vw, vb, vec, lex, part_m, part_l, is_pad_t, S, h, V,
             tiles_per_split);
       }
@@ -1630,28 +1631,31 @@ __global__ void __launch_bounds__(kPointThreads)
   alpha_out[idx] = acc;
 }
 
-// The bfloat16 'cache' forward (FD, FLD(k)) on head_product.cuh. Once per
-// call the padded head vw16 [hp, Vp]; per frame t with live[t] > 0 rows
-// (their indices first in rows[t]) the joint [B, S, hp] and blank of those
-// rows, then each reduction as the column-reduce product over vec (alpha,
-// then the last expansion), its partials [ceil(S / 64), B, V] merged into
-// the frame's expansion (-inf on padding rows): by col_merge_kernel, the
-// last by merge_update_kernel with the update. With two or more reductions
-// the first also stores lex ([B, S, V] float32, not null then) and the
-// later ones read it back (col_pass_kernel<kLoad>, 64-state tiles, one
-// partial each) in place of the product. A frame with no live row runs
-// only the merges and the update, which hold alpha.
+// The bfloat16 forward (FD, FLD(k)), either mode, on head_product.cuh.
+// Once per call the padded head vw16 [hp, Vp]; per frame t with live[t] >
+// 0 rows (their indices first in rows[t]) the joint [B, S, hp] and blank of
+// those rows, then each reduction as the column-reduce product over vec
+// (alpha, then the last expansion), its partials [ceil(S / 64), B, V]
+// merged into the frame's expansion (-inf on padding rows): by
+// col_merge_kernel, the last by merge_update_kernel with the update. In
+// 'cache' mode with two or more reductions the first also stores lex ([B,
+// S, V] float32, not null then) and the later ones read it back
+// (col_pass_kernel<kLoad>, 64-state tiles, one partial each) in place of
+// the product; 'online' runs the product for every reduction and takes no
+// lex. A frame with no live row runs only the merges and the update, which
+// hold alpha.
 int run_forward(const float* pf, const float* pc, const float* vw,
                 const float* vb, const float* bw, const float* bb,
                 const int* is_pad, const int* live, const int* rows,
                 bf16* joint, bf16* vw16, float* blank, float* lex,
                 float* part_m, float* part_l, float* last, float* alpha,
                 float* hist, float* slabs, int T, int B, int S, int h, int V,
-                int max_expansions, int frame_dependent, int max_blocks,
-                cudaStream_t stream) {
+                int max_expansions, int frame_dependent, int online,
+                int max_blocks, cudaStream_t stream) {
   const int passes = frame_dependent ? 1 : max_expansions;
+  const bool stage = !online && passes >= 2;
   if ((T > 0 && live == nullptr) || max_blocks < 1 ||
-      (passes >= 2 && lex == nullptr)) {
+      (stage && lex == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int hp = round_up(h, kBK), Vp = round_up(V, kBK), t64 = cdiv(S, 64);
@@ -1677,16 +1681,18 @@ int run_forward(const float* pf, const float* pc, const float* vw,
         slabs != nullptr ? static_cast<size_t>(T) * bs : bs;
     const float* vec = alpha_cur;
     for (int j = 0; j < passes; ++j) {
-      if (L > 0 && j > 0) {
-        col_pass_kernel<bf16, kLoad>
+      if (L > 0 && j > 0 && stage) {
+        // kLoad reads no joint or head.
+        col_pass_kernel<kLoad>
             <<<dim3(cdiv(V, lattice_tiles::kBN), t64, B),
                lattice_tiles::kThreads, 0, stream>>>(
                 nullptr, nullptr, vb, vec, lex, part_m, part_l, is_pad_t, S,
                 h, V, 1);
         RETURN_IF_ERROR(cudaGetLastError());
       } else if (L > 0) {
+        float* store = stage && j == 0 ? lex : nullptr;
         const head_product::ColumnReduce p{
-            vb, vec, rows_t, part_m, part_l, lex, B, S, V, hp, Vp, L};
+            vb, vec, rows_t, part_m, part_l, store, B, S, V, hp, Vp, L};
         RETURN_IF_ERROR(
             head_product::reduce_product(joint, vw16, p, max_blocks, stream));
       }
@@ -1908,20 +1914,21 @@ extern "C" {
 // num_frames % 2. With `slabs` ([k, T, B, S]) the expansions are written
 // there, else to `last` ([max(k, 1), B, S]); `hist` ([T, B, S]) may be
 // null. dtype 0 = float32, 1 = bfloat16 (the compute type).
-// In bfloat16 with `online` 0 the frames run on head_product.cuh's wgmma
+// In bfloat16 (either mode) the frames run on head_product.cuh's wgmma
 // column reduction over their live rows: live [T] (host memory) counts
 // each frame's real rows and rows [T, B] (device) lists them first; vw
 // ([h, V]) and bw ([h]) are then float32, joint is bfloat16 [B, S, hp] and
 // vw16 bfloat16 [hp, Vp] (hp, Vp: h and V rounded up to 64), part_m /
 // part_l are [ceil(S / 64), B, V], the product runs on at most max_blocks
-// persistent blocks, and `lex` ([B, S, V] float32) is staged by the first
-// reduction for the later ones: it is needed with two or more reductions
-// per frame, and not used with fewer.
-// Elsewhere vw, bw and joint ([B, S, h]) are in the compute type, live,
-// rows and vw16 are not used, part_m / part_l hold [max_splits, B, V]
-// per-split partials, and `lex` ([B, S, V]) is used only with two or more
-// reductions per frame and `online` 0; with `online` 1 every reduction
-// recomputes the head product and `lex` may be null.
+// persistent blocks, and with `online` 0 `lex` ([B, S, V] float32) is
+// staged by the first reduction for the later ones: it is needed with two
+// or more reductions per frame, and not used with fewer, nor with
+// `online` 1, where every reduction runs the product.
+// In float32 vw, bw and joint ([B, S, h]) are float32, live, rows and vw16
+// are not used, part_m / part_l hold [max_splits, B, V] per-split
+// partials, and `lex` ([B, S, V]) is used only with two or more reductions
+// per frame and `online` 0; with `online` 1 every reduction recomputes the
+// head product and `lex` may be null.
 int fused_forward(int dtype, const float* pf, const float* pc, const void* vw,
                   const float* vb, const void* bw, const float* bb,
                   const int* is_pad, void* joint, float* blank, float* lex,
@@ -1931,29 +1938,21 @@ int fused_forward(int dtype, const float* pf, const float* pc, const void* vw,
                   int online, int max_splits, const int* live,
                   const int* rows, void* vw16, int max_blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && !online) {
+  if (dtype == 1) {
     using hopper::bf16;
     return hopper::run_forward(
         pf, pc, static_cast<const float*>(vw), vb,
         static_cast<const float*>(bw), bb, is_pad, live, rows,
         static_cast<bf16*>(joint), static_cast<bf16*>(vw16), blank, lex,
         part_m, part_l, last, alpha, hist, slabs, num_frames, B, S, h, V,
-        max_expansions, frame_dependent, max_blocks, s);
+        max_expansions, frame_dependent, online, max_blocks, s);
   }
   if (dtype == 0) {
-    return run_forward<float>(
+    return run_forward(
         pf, pc, static_cast<const float*>(vw), vb,
         static_cast<const float*>(bw), bb, is_pad, static_cast<float*>(joint),
         blank, lex, part_m, part_l, last, alpha, hist, slabs, num_frames, B,
         S, h, V, max_expansions, frame_dependent, online, max_splits, s);
-  }
-  if (dtype == 1) {
-    return run_forward<__nv_bfloat16>(
-        pf, pc, static_cast<const __nv_bfloat16*>(vw), vb,
-        static_cast<const __nv_bfloat16*>(bw), bb, is_pad,
-        static_cast<__nv_bfloat16*>(joint), blank, lex, part_m, part_l, last,
-        alpha, hist, slabs, num_frames, B, S, h, V, max_expansions,
-        frame_dependent, online, max_splits, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -14,16 +14,16 @@
 
 // The bfloat16 head product of the forwards on Hopper, shared by
 // joint_head.cu (the joint+head forward), fused_scan.cu (the bigram
-// log-partition forward, 'cache' mode) and sharded_scan.cu (the frame
-// reduction): lex = joint vw16 + vb over the (batch row, state) rows, with
-// one of two epilogues.
+// log-partition forward, both modes), sharded_scan.cu (the frame
+// reduction) and viterbi.cu (the Viterbi forward): lex = joint vw16 + vb
+// over the (batch row, state) rows, with one of five epilogues.
 //
 // * joint_pass_kernel forms each joint entry once, tanh(pc[s] + pf[b])
 //   rounded to bfloat16 into a [B, S, hp] scratch (hp: h rounded up to 64,
 //   zero past h), with the blank head as a warp's dot over the rounded row,
 //   over a list of live batch rows; and the padded bfloat16 head vw16 [hp,
 //   Vp] (zero past h and V) from the float32 head.
-// * Both products run on wgmma_tiles.cuh's machinery (m64n128k16 from
+// * The products run on wgmma_tiles.cuh's machinery (m64n128k16 from
 //   128-byte-swizzled shared memory, one producer thread streaming 64-deep
 //   stages through a 3-stage mbarrier ring) with two consumer warpgroups
 //   that share each stage's head boxes: a block's tile is two 64-row units
@@ -35,23 +35,31 @@
 // * head_product_kernel (the joint+head forward) stores lex [B S, V] in
 //   float32: 16 bytes a thread from registers where V is a multiple of 4,
 //   else through a per-warp shared-memory scratch, with the streaming hint.
-// * column_reduce_kernel (the two lattice forwards) stores no lex (but
-//   where a caller stages it for later reductions). Its units are 64 consecutive states of one batch row (a 3-d TMA map [B, S,
-//   hp] zero-fills past S, so no unit straddles two rows); in its epilogue
-//   each warpgroup adds vb[y] and vec[b, s] to its unit and reduces every
-//   column over the unit's states to one online (max, sum) pair: over the
-//   thread's two rows in registers, over the 8 lanes that hold a column by
-//   a reduce-scatter of __shfl_xor, over the 4 warps through shared
-//   memory. One pair per
-//   (unit, b, y) goes to part_m / part_l [ceil(S / 64), B, V], owned by one
-//   block (no atomics, deterministic); a merge launch of the caller
-//   combines them. Rows past S and states whose vec is -inf add nothing;
-//   labels past V are never written. The two units of a block are
-//   consecutive units of the live rows' list (a block may span the end of
-//   one row and the start of the next): at S=1025 a row has 17 units of 64
-//   states (1088 rows, 6.1% padding) where 128-state tiles would give 9
-//   (1152, 12.4%), and pairing the halves of one row's 128-state tile
-//   measured 0.8-1.8% slower (PERF.md).
+// * The unit products walk 64 consecutive states of one live batch row at
+//   a time (a 3-d TMA map [B, S, hp] zero-fills past S, so no unit
+//   straddles two rows); the two units of a block are consecutive units of
+//   the live rows' list (a block may span the end of one row and the start
+//   of the next): at S=1025 a row has 17 units of 64 states (1088 rows,
+//   6.1% padding) where 128-state tiles would give 9 (1152, 12.4%), and
+//   pairing the halves of one row's 128-state tile measured 0.8-1.8% slower
+//   (PERF.md). Each may also store lex (float32 [B, S, V]) for a caller's
+//   later passes. Their epilogues:
+//   - column_reduce_kernel (the two lattice forwards): each warpgroup adds
+//     vb[y] and vec[b, s] to its unit and reduces every column over the
+//     unit's states to one online (max, sum) pair: over the thread's two
+//     rows in registers, over the 8 lanes that hold a column by a
+//     reduce-scatter of __shfl_xor, over the 4 warps through shared memory.
+//     One pair per (unit, b, y) goes to part_m / part_l [ceil(S / 64), B,
+//     V], owned by one block (no atomics, deterministic); a merge launch of
+//     the caller combines them. Rows past S and states whose vec is -inf
+//     add nothing; labels past V are never written.
+//   - column_max_kernel (the Viterbi forward's max-pass): the same path
+//     with (max, lowest argmax) pairs in the Viterbi order, into part_v /
+//     part_s.
+//   - row_reduce_kernel (the Viterbi forward's local normalization): lex
+//     stored, and each row reduced over the strip's labels to one (max,
+//     sum) pair, in registers and over the 4 lanes that share the row, into
+//     part_m / part_l [ceil(Vp / 128), B, S].
 //
 // Everything here has internal linkage, as in wgmma_tiles.cuh: the
 // libraries that include it share no state.
@@ -410,7 +418,107 @@ cudaError_t store_product(const bf16* joint, const bf16* vw16,
 }
 
 // ---------------------------------------------------------------------------
-// lex reduced over the states: the lattice forwards.
+// Products over the live rows' 64-state units: the lattice forwards and the
+// Viterbi forward.
+
+// Epilogue scratch: per warpgroup and warp a row of kBN pairs (float32
+// and float32, or float32 and int).
+constexpr int kReduceScratch = kGroups * 4 * 2 * kBN * 4;
+constexpr int kReduceSmem = kRingBytes + kReduceScratch;
+
+// Output tiles: pairs of 64-state units by 128-label strips.
+__host__ __device__ __forceinline__ int reduce_tiles(int live, int S,
+                                                     int Vp) {
+  return cdiv(live * cdiv(S, kRows), kGroups) * cdiv(Vp, kBN);
+}
+
+// The tiles of a unit product. Unit u is the states [u % t64 * 64, + 64)
+// of batch row rows[u / t64] (rows null: u / t64); tile t is the unit pair
+// t / strips (units 2 (t / strips) and the next) by strip t % strips, and
+// block i computes the tiles i, i + gridDim.x, ... The first unit of a pair
+// is always a real one; the second may not be (the pair past the last
+// unit), and its warpgroup then multiplies the first unit's rows again and
+// writes nothing. Each kernel computes its grid's sizes up front and finds
+// a unit through its own `unit` lambda: a shared struct of them kept more
+// registers live through the epilogue (336 B of spills against 100 in the
+// column reduction's Store instantiation, 5-7% slower; PERF.md).
+//
+// The producer thread of a unit product: each of the block's mine tiles,
+// kts stages of the two units' row boxes and the strip's two head boxes.
+template <class Unit>
+__device__ __forceinline__ void produce_units(const ProductRing& ring,
+                                              const ProductMaps& maps,
+                                              const Unit& unit, int strips,
+                                              int kts, int mine) {
+  if (threadIdx.x != kGroups * kConsumers) return;
+  for (int i = 0, q = 0; i < mine; ++i) {
+    const int t = blockIdx.x + i * gridDim.x;
+    const int pair = t / strips, n0 = t % strips * kBN;
+    int b[2], s0[2];
+    unit(kGroups * pair, b[0], s0[0]);
+    if (!unit(kGroups * pair + 1, b[1], s0[1])) b[1] = b[0], s0[1] = s0[0];
+    for (int kt = 0; kt < kts; ++kt, ++q) {
+      const int s = q % kProductStages;
+      mbar_wait(ring.empty + s, ((q / kProductStages) & 1) ^ 1);
+      mbar_expect(ring.full + s, kProductStageBytes);
+      const int k0 = kt * kBK;
+      uint8_t* boxes = ring.row_boxes(s);
+      tma_load(boxes, maps.joint, k0, s0[0], b[0], ring.full + s);
+      tma_load(boxes + kBox, maps.joint, k0, s0[1], b[1], ring.full + s);
+      tma_load(ring.b(s), maps.vw, n0, k0, ring.full + s);
+      tma_load(ring.b(s) + kBox, maps.vw, n0 + 64, k0, ring.full + s);
+    }
+  }
+}
+
+// The thread's two states of its warpgroup's unit from s0 (acc_row spans
+// the 128 rows of both warpgroups); they may lie past S.
+__device__ __forceinline__ void unit_states(int s0, int (&s)[2]) {
+  const int group = threadIdx.x / kConsumers;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    s[half] = s0 + acc_row(half * 2) - group * kRows;
+  }
+}
+
+// Stores the thread's lex entries of the labels y0, y0 + 1 of its two
+// states x[half][e] into lex [B, S, V] at row0 (float2 where V is even).
+__device__ __forceinline__ void store_lex(float* lex, size_t row0,
+                                          const int (&s)[2], int y0, int S,
+                                          int V, const float (&x)[2][2]) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float* out = lex + (row0 + s[half]) * V + y0;
+    if (s[half] >= S || y0 >= V) continue;
+    if (V % 2 == 0) {
+      *reinterpret_cast<float2*>(out) = make_float2(x[half][0], x[half][1]);
+    } else {
+      out[0] = x[half][0];
+      if (y0 + 1 < V) out[1] = x[half][1];
+    }
+  }
+}
+
+// The launch of a unit product on at most max_blocks persistent blocks (no
+// launch without live rows). joint is [B, S, hp], vw16 [hp, Vp].
+template <auto Kernel, class P>
+cudaError_t launch_units(const bf16* joint, const bf16* vw16, const P& p,
+                         int smem, int max_blocks, cudaStream_t stream) {
+  if (p.live == 0 || p.S == 0) return cudaSuccess;
+  if (p.hp == 0 || p.hp % kBK != 0 || p.Vp % kBK != 0 || max_blocks < 1) {
+    return cudaErrorInvalidValue;
+  }
+  ProductMaps maps;
+  cudaError_t err = product_maps(&maps, joint, vw16, 3, p.B, p.S, p.hp, p.Vp);
+  if (err == cudaSuccess) err = allow_smem<Kernel>(smem);
+  if (err != cudaSuccess) return err;
+  const int blocks = std::min(max_blocks, reduce_tiles(p.live, p.S, p.Vp));
+  Kernel<<<blocks, kProductThreads, smem, stream>>>(maps, p);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// lex reduced over the states, (max, sum): the lattice forwards.
 
 // (m, l) merged with the online pair (m2, l2): m the larger, one exp. An
 // empty pair has m = -inf and l = 0. The exps take non-positive arguments
@@ -442,6 +550,16 @@ __device__ __forceinline__ void scatter_level(float (&pm)[8], float (&pl)[8]) {
   }
 }
 
+// The lane's column of quarter q after the reduce-scatter (of the 8 lanes
+// lane % 4 + 4 i, lane bit 4 kept the upper 4 pairs, bit 8 the upper 2,
+// bit 16 the upper one): its index c in the strip's kBN.
+__device__ __forceinline__ int scattered_column(int q) {
+  const int lane = threadIdx.x % 32;
+  const int k = q * 8 + (lane & 4 ? 4 : 0) + (lane & 8 ? 2 : 0) +
+                (lane & 16 ? 1 : 0);
+  return (k >> 1) * 8 + (lane % 4) * 2 + (k & 1);
+}
+
 // For each 64-state unit (b, s0) of a live row and each label y < V:
 //   (m, l) = online logsumexp over s in [s0, s0 + 64) of vec[b, s] +
 //            lex[b, s, y],   lex = joint[b, s] . vw16[:, y] + vb[y],
@@ -460,21 +578,6 @@ struct ColumnReduce {
   int live;          // the rows reduced
 };
 
-// Output tiles: pairs of 64-state units by 128-label strips.
-__host__ __device__ __forceinline__ int reduce_tiles(int live, int S,
-                                                     int Vp) {
-  return cdiv(live * cdiv(S, kRows), kGroups) * cdiv(Vp, kBN);
-}
-
-// Epilogue scratch: per warpgroup and warp a row of kBN (m, l) pairs.
-constexpr int kReduceScratch = kGroups * 4 * 2 * kBN * 4;
-constexpr int kReduceSmem = kRingBytes + kReduceScratch;
-
-// Tile t: unit pair t / strips (units 2 (t / strips) and the next), strip
-// t % strips; block i computes the tiles i, i + gridDim.x, ... The first
-// unit of a pair is always a real one; the second may not be (the pair
-// past the last unit), and its warpgroup then multiplies the first unit's
-// rows again and writes nothing.
 template <bool Store>
 __global__ void __launch_bounds__(kProductThreads, 2)
     column_reduce_kernel(const __grid_constant__ ProductMaps maps,
@@ -495,25 +598,7 @@ __global__ void __launch_bounds__(kProductThreads, 2)
     return true;
   };
   if (ProductRing::producer()) {
-    if (threadIdx.x != kGroups * kConsumers) return;
-    for (int i = 0, q = 0; i < mine; ++i) {
-      const int t = blockIdx.x + i * gridDim.x;
-      const int pair = t / strips, n0 = t % strips * kBN;
-      int b[2], s0[2];
-      unit(kGroups * pair, b[0], s0[0]);
-      if (!unit(kGroups * pair + 1, b[1], s0[1])) b[1] = b[0], s0[1] = s0[0];
-      for (int kt = 0; kt < kts; ++kt, ++q) {
-        const int s = q % kProductStages;
-        mbar_wait(ring.empty + s, ((q / kProductStages) & 1) ^ 1);
-        mbar_expect(ring.full + s, kProductStageBytes);
-        const int k0 = kt * kBK;
-        uint8_t* rows = ring.row_boxes(s);
-        tma_load(rows, maps.joint, k0, s0[0], b[0], ring.full + s);
-        tma_load(rows + kBox, maps.joint, k0, s0[1], b[1], ring.full + s);
-        tma_load(ring.b(s), maps.vw, n0, k0, ring.full + s);
-        tma_load(ring.b(s) + kBox, maps.vw, n0 + 64, k0, ring.full + s);
-      }
-    }
+    produce_units(ring, maps, unit, strips, kts, mine);
     return;
   }
   const int group = threadIdx.x / kConsumers, lane = threadIdx.x % 32;
@@ -614,22 +699,284 @@ __global__ void __launch_bounds__(kProductThreads, 2)
 cudaError_t reduce_product(const bf16* joint, const bf16* vw16,
                            const ColumnReduce& p, int max_blocks,
                            cudaStream_t stream) {
-  if (p.live == 0 || p.S == 0) return cudaSuccess;
-  if (p.hp == 0 || p.hp % kBK != 0 || p.Vp % kBK != 0 || max_blocks < 1) {
-    return cudaErrorInvalidValue;
+  return p.lex != nullptr
+             ? launch_units<column_reduce_kernel<true>>(
+                   joint, vw16, p, kReduceSmem, max_blocks, stream)
+             : launch_units<column_reduce_kernel<false>>(
+                   joint, vw16, p, kReduceSmem, max_blocks, stream);
+}
+
+// ---------------------------------------------------------------------------
+// lex reduced over the states, (max, argmax): the Viterbi forward.
+
+// A state index that no state has: an empty (max, argmax) pair is (-inf,
+// kNoState).
+constexpr int kNoState = 0x7fffffff;
+
+// (v, s) takes (v2, s2) where that beats it in the Viterbi order: the
+// larger value, then the lower state. A NaN value never wins, so a pair
+// never holds one, and the order is total: any order of merges gives the
+// lowest state of the largest value.
+__device__ __forceinline__ void pick(float& v, int& s, float v2, int s2) {
+  if (v2 > v || (v2 == v && s2 < s)) {
+    v = v2;
+    s = s2;
   }
-  ProductMaps maps;
-  cudaError_t err = product_maps(&maps, joint, vw16, 3, p.B, p.S, p.hp, p.Vp);
-  if (err != cudaSuccess) return err;
-  const auto kernel = p.lex != nullptr ? column_reduce_kernel<true>
-                                       : column_reduce_kernel<false>;
-  err = p.lex != nullptr ? allow_smem<column_reduce_kernel<true>>(kReduceSmem)
-                         : allow_smem<column_reduce_kernel<false>>(kReduceSmem);
-  if (err != cudaSuccess) return err;
-  const int blocks =
-      std::min(max_blocks, reduce_tiles(p.live, p.S, p.Vp));
-  kernel<<<blocks, kProductThreads, kReduceSmem, stream>>>(maps, p);
-  return cudaGetLastError();
+}
+
+// scatter_level for (max, argmax) pairs.
+template <int H, int Bit>
+__device__ __forceinline__ void argmax_level(float (&pv)[8], int (&ps)[8]) {
+  const bool upper = threadIdx.x & Bit;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float sv = upper ? pv[i] : pv[i + H];
+    const int ss = upper ? ps[i] : ps[i + H];
+    pv[i] = upper ? pv[i + H] : pv[i];
+    ps[i] = upper ? ps[i + H] : ps[i];
+    pick(pv[i], ps[i], __shfl_xor_sync(0xffffffffu, sv, Bit),
+         __shfl_xor_sync(0xffffffffu, ss, Bit));
+  }
+}
+
+// For each 64-state unit (b, s0) of a live row and each label y < V:
+//   (v, s) = max and lowest argmax over s in [s0, s0 + 64) of vec[b, s] +
+//            lex[b, s, y],   lex = joint[b, s] . vw16[:, y] + vb[y],
+// into part_v / part_s at ((s0 / 64) B + b) V + y ((-inf, kNoState) where
+// every term is NaN). With lex non-null, lex[b, s, y] is also stored
+// (float32, [B, S, V]; the Store instantiation).
+struct ColumnMax {
+  const float* vb;   // [V]
+  const float* vec;  // [B, S]
+  const int* rows;   // the live rows first (null: 0..live-1)
+  float* part_v;     // [ceil(S / 64), B, V]
+  int* part_s;
+  float* lex;        // [B, S, V] or null
+  int B, S, V, hp, Vp;
+  int live;
+};
+
+// column_reduce_kernel's product and reduction path with (max, argmax)
+// pairs: over the thread's two rows in registers, the 8 lanes of a column,
+// the 4 warps through shared memory. One writer per (unit, b, y), no
+// atomics.
+template <bool Store>
+__global__ void __launch_bounds__(kProductThreads, 2)
+    column_max_kernel(const __grid_constant__ ProductMaps maps,
+                      const ColumnMax p) {
+  extern __shared__ uint8_t raw[];
+  const ProductRing ring(raw);
+  const int strips = cdiv(p.Vp, kBN), kts = p.hp / kBK;
+  const int t64 = cdiv(p.S, kRows);
+  const int units = p.live * t64;
+  const int total = cdiv(units, kGroups) * strips;
+  const int mine = cdiv(total - static_cast<int>(blockIdx.x), gridDim.x);
+  // Unit u's batch row and first state; false where u is no unit.
+  const auto unit = [&](int u, int& b, int& s0) {
+    if (u >= units) return false;
+    const int slot = u / t64;
+    b = p.rows == nullptr ? slot : p.rows[slot];
+    s0 = u % t64 * kRows;
+    return true;
+  };
+  if (ProductRing::producer()) {
+    produce_units(ring, maps, unit, strips, kts, mine);
+    return;
+  }
+  const int group = threadIdx.x / kConsumers, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32 % 4;  // in the warpgroup
+  float* red_v = ring.scratch + group * 2 * 4 * kBN;     // [4][kBN]
+  int* red_s = reinterpret_cast<int*>(red_v + 4 * kBN);  // [4][kBN]
+  float d[64];
+  consume<false, true>(ring, mine, kts, d, [&](int i, float(&acc)[64]) {
+    const int t = blockIdx.x + i * gridDim.x;
+    const int pair = t / strips, n0 = t % strips * kBN;
+    int b = 0, s0 = 0;
+    const bool real = unit(kGroups * pair + group, b, s0);
+    const size_t row0 = static_cast<size_t>(b) * p.S;
+    int s[2], state[2];
+    unit_states(s0, s);
+    float vec[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const bool in = real && s[half] < p.S;
+      vec[half] = in ? p.vec[row0 + s[half]] : -INFINITY;
+      state[half] = in ? s[half] : kNoState;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float pv[8];
+      int ps[8];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = q * 4 + jj;
+        const int y0 = n0 + j * 8 + (lane % 4) * 2;  // 2 labels
+        float x[2][2];  // lex of [half][e]
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float bias = y0 + e < p.V ? p.vb[y0 + e] : 0.f;
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            x[half][e] = acc[j * 4 + half * 2 + e] + bias;
+          }
+        }
+        if (Store && real) store_lex(p.lex, row0, s, y0, p.S, p.V, x);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float v = -INFINITY;
+          int at = kNoState;
+          pick(v, at, vec[0] + x[0][e], state[0]);
+          pick(v, at, vec[1] + x[1][e], state[1]);
+          pv[jj * 2 + e] = v;
+          ps[jj * 2 + e] = at;
+        }
+      }
+      argmax_level<4, 4>(pv, ps);
+      argmax_level<2, 8>(pv, ps);
+      argmax_level<1, 16>(pv, ps);
+      const int c = scattered_column(q);
+      red_v[warp * kBN + c] = pv[0];
+      red_s[warp * kBN + c] = ps[0];
+    }
+    named_barrier(1 + group, kConsumers);
+    const int c = threadIdx.x % kConsumers, y = n0 + c;
+    if (real && y < p.V) {
+      float v = red_v[c];
+      int at = red_s[c];
+#pragma unroll
+      for (int w = 1; w < 4; ++w) {
+        pick(v, at, red_v[w * kBN + c], red_s[w * kBN + c]);
+      }
+      const size_t out =
+          (static_cast<size_t>(s0 / kRows) * p.B + b) * p.V + y;
+      p.part_v[out] = v;
+      p.part_s[out] = at;
+    }
+    named_barrier(1 + group, kConsumers);  // the scratch is free again
+  });
+}
+
+// The (max, argmax) column reduction of p.live rows, as reduce_product.
+cudaError_t max_product(const bf16* joint, const bf16* vw16,
+                        const ColumnMax& p, int max_blocks,
+                        cudaStream_t stream) {
+  return p.lex != nullptr
+             ? launch_units<column_max_kernel<true>>(
+                   joint, vw16, p, kReduceSmem, max_blocks, stream)
+             : launch_units<column_max_kernel<false>>(
+                   joint, vw16, p, kReduceSmem, max_blocks, stream);
+}
+
+// ---------------------------------------------------------------------------
+// lex stored and reduced over the labels: the Viterbi forward's local
+// normalization.
+
+// For each state s of a live row b's units and each 128-label strip n:
+// lex[b, s, y] = joint[b, s] . vw16[:, y] + vb[y] stored (float32, [B, S,
+// V]) and (m, l) = logsumexp of lex[b, s, y] over the strip's labels y < V
+// into part_m / part_l at (n B + b) S + s: m the strip's largest, l = sum
+// exp(lex - m).
+struct RowReduce {
+  const float* vb;  // [V]
+  const int* rows;  // the live rows first (null: 0..live-1)
+  float* lex;       // [B, S, V]
+  float* part_m;    // [ceil(Vp / 128), B, S]
+  float* part_l;
+  int B, S, V, hp, Vp;
+  int live;
+};
+
+// The unit product with a row epilogue: a thread's two rows over its 32
+// labels of the strip in registers, then the 4 lanes that share the rows
+// (lane % 4) by __shfl_xor. One writer per (strip, b, s), no atomics, no
+// epilogue scratch. The exps are expf's: the normalizer enters every path
+// weight once a frame.
+__global__ void __launch_bounds__(kProductThreads, 2)
+    row_reduce_kernel(const __grid_constant__ ProductMaps maps,
+                      const RowReduce p) {
+  extern __shared__ uint8_t raw[];
+  const ProductRing ring(raw);
+  const int strips = cdiv(p.Vp, kBN), kts = p.hp / kBK;
+  const int t64 = cdiv(p.S, kRows);
+  const int units = p.live * t64;
+  const int total = cdiv(units, kGroups) * strips;
+  const int mine = cdiv(total - static_cast<int>(blockIdx.x), gridDim.x);
+  // Unit u's batch row and first state; false where u is no unit.
+  const auto unit = [&](int u, int& b, int& s0) {
+    if (u >= units) return false;
+    const int slot = u / t64;
+    b = p.rows == nullptr ? slot : p.rows[slot];
+    s0 = u % t64 * kRows;
+    return true;
+  };
+  if (ProductRing::producer()) {
+    produce_units(ring, maps, unit, strips, kts, mine);
+    return;
+  }
+  const int group = threadIdx.x / kConsumers, lane = threadIdx.x % 32;
+  float d[64];
+  consume<false, true>(ring, mine, kts, d, [&](int i, float(&acc)[64]) {
+    const int t = blockIdx.x + i * gridDim.x;
+    const int pair = t / strips, n0 = t % strips * kBN;
+    int b = 0, s0 = 0;
+    if (!unit(kGroups * pair + group, b, s0)) return;
+    const size_t row0 = static_cast<size_t>(b) * p.S;
+    int s[2];
+    unit_states(s0, s);
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int y0 = n0 + j * 8 + (lane % 4) * 2;  // 2 labels
+      float x[2][2];  // lex of [half][e]
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = y0 + e < p.V;
+        const float bias = in ? p.vb[y0 + e] : 0.f;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          x[half][e] = acc[j * 4 + half * 2 + e] + bias;
+          acc[j * 4 + half * 2 + e] = in ? x[half][e] : -INFINITY;
+          m[half] = fmaxf(m[half], acc[j * 4 + half * 2 + e]);
+        }
+      }
+      store_lex(p.lex, row0, s, y0, p.S, p.V, x);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      m[half] = fmaxf(m[half], __shfl_xor_sync(0xffffffffu, m[half], 1));
+      m[half] = fmaxf(m[half], __shfl_xor_sync(0xffffffffu, m[half], 2));
+      const float shift = m[half] == -INFINITY ? 0.f : m[half];
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          l[half] += expf(acc[j * 4 + half * 2 + e] - shift);
+        }
+      }
+      l[half] += __shfl_xor_sync(0xffffffffu, l[half], 1);
+      l[half] += __shfl_xor_sync(0xffffffffu, l[half], 2);
+    }
+    if (lane % 4 == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        if (s[half] >= p.S) continue;
+        const size_t at =
+            (static_cast<size_t>(n0 / kBN) * p.B + b) * p.S + s[half];
+        p.part_m[at] = m[half];
+        p.part_l[at] = l[half];
+      }
+    }
+  });
+}
+
+// The row reduction of p.live rows, as reduce_product (no scratch beyond
+// the ring).
+cudaError_t row_product(const bf16* joint, const bf16* vw16,
+                        const RowReduce& p, int max_blocks,
+                        cudaStream_t stream) {
+  if (p.lex == nullptr) return cudaErrorInvalidValue;
+  return launch_units<row_reduce_kernel>(joint, vw16, p, kRingBytes,
+                                         max_blocks, stream);
 }
 
 }  // namespace

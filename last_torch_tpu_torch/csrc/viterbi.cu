@@ -40,50 +40,54 @@
 // 8.6 MB of bf16 joint and 1 MB of vocab_w, so the work is compute-bound;
 // the state that must cross frames (alpha, [B, S] f32) is tiny.
 //
-// What the design does about it (first, simple version):
+// What the design does about it:
 // * The TPU grid carried alpha across (t, b) grid steps in VMEM scratch.
 //   Hopper blocks run in no order and carry nothing, so the time loop runs
-//   on the host side of this file: per frame one joint launch, a max-pass
-//   launch and a merge launch per pass, and one update launch, all on the
+//   on the host side of this file, a few launches per frame on the
 //   caller's stream.
-// * The TPU kept a [Bt*S_pad, V] f32 lexical cache (up to 80 MB) in VMEM so
-//   the second max-pass of an FLD(2) frame skipped the matmul. A Hopper
-//   block has 227 KB, so the first pass stages lex for the frame in device
-//   memory ([B, S, V] f32, 34 MB at B=8, inside the 50 MB L2) and later
-//   passes read it back instead of recomputing the product (kComputeStore /
-//   kLoad). Measured on the H100 at B=8, T=1600: 419 ms staged against
-//   691 ms recomputed for the whole forward (PERF.md).
-// * A block owns a 64-label column strip of one batch row and one split of
-//   the states, walked in 64-row tiles; its running (max, argmax) per
-//   column stays in registers. B * V / 64 strips alone would put one block
-//   on each SM at B=8, V=1024, so the states are split until the grid has
-//   about four blocks per SM, and a small merge launch combines the splits.
-//   Every merge uses the same (value, lowest state) order, so ties resolve
-//   to the lowest s whatever the order of the merges.
-// * bfloat16 inputs multiply on the tensor cores through WMMA (mma.sync,
-//   float32 accumulation); float32 inputs, kept for exact comparison with
-//   the plain version, use float32 FMAs on the CUDA cores
-//   (tile_product.cuh, shared with fused_scan.cu). wgmma, TMA and a
-//   pipelined producer/consumer shape are later work.
+// * bfloat16 (namespace hopper) runs on head_product.cuh, the machinery of
+//   the lattice forwards: once per call the padded bfloat16 head vw16; per
+//   frame, over its live rows only (counted once per call on the host,
+//   listed first on the device; padding rows launch nothing), the joint
+//   pass writes the bfloat16 joint [B, S, hp] and the blank (bfloat16
+//   joint . bfloat16 blank_w + blank_b, summed in float32), then the first
+//   max-pass is the unit product (wgmma on TMA operands, two consumer
+//   warpgroups, a persistent grid) with a (max, argmax) epilogue per
+//   64-state unit and label (column_max_kernel), merged by merge_kernel.
+//   With two or more passes a frame (FLD(k >= 2)) that product also stores
+//   lex ([B, S, V] float32, 34 MB at B=8, inside the 50 MB L2) and the
+//   later passes read it back (max_pass_kernel<kLoad>, one partial per
+//   64-state tile), as the 'cache' log-partition forward does.
+// * Local normalization. The TPU normalized each row inside its tile, since
+//   its vocab axis was not tiled; a block here owns a 128-label strip and
+//   never sees a whole row. Normalization subtracts one constant c[s] from
+//   every lexical score of state s, so the max-passes can run unchanged on
+//   vec - c once c is known. A normalized frame therefore starts with the
+//   unit product whose epilogue stores lex and reduces each row over its
+//   strip to one (max, sum) pair (row_reduce_kernel, partials [strips, B,
+//   S]); norm_merge_kernel forms c and the normalized blank; then every
+//   max-pass reads the staged lex (kLoad). (vec - c) + lex rounds
+//   differently from vec + (lex - c), as the TPU summed: argmaxes may
+//   differ only on ties.
+// * Ties: every merge (within a thread, across lanes and warps, across
+//   units and in merge_kernel) keeps the larger value, then the lower
+//   state (beats, head_product::pick), so the lowest state wins whatever
+//   the order of the merges. An all-NaN column reports state 0.
+// * float32, kept for exact comparison with the plain version: FMAs on the
+//   CUDA cores in 64 x 64 tiles (tile_product.cuh, shared with
+//   fused_scan.cu), a block per 64-label strip of a batch row and split of
+//   the states, its running (max, argmax) per column in registers, the
+//   splits merged by merge_kernel; lex staged as above.
 // * No padding of V to 128 lanes or of S to a tile: the ragged edges are
 //   masked in the loads and in the reduction. Padding frames skip all work
 //   but the alpha hold (their arg rows are written 0).
-// * Local normalization. The TPU normalized each row inside its tile, since
-//   its vocab axis was not tiled; a block here owns a 64-label strip and
-//   never sees a whole row. Normalization subtracts one constant c[s] from
-//   every lexical score of state s, so the max-passes can run unchanged on
-//   vec - c once c is known. A normalized frame therefore starts with a
-//   product pass over (state tile, label split) blocks that stores the raw
-//   lex for the frame and the per-row (max, sum-exp) partials of its label
-//   strips; a merge forms c and the normalized blank; then every max-pass
-//   reads the staged lex (kLoad). (vec - c) + lex rounds differently from
-//   vec + (lex - c), as the TPU summed: argmaxes may differ only on ties.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 
+#include "head_product.cuh"
 #include "tile_product.cuh"
 
 namespace {
@@ -103,16 +107,15 @@ __device__ __forceinline__ bool beats(float v, int s, float best_v,
   return v > best_v || (v == best_v && s < best_s);
 }
 
-// joint[b, s, :] = cast(tanh(pc[s] + pf_t[b])); blank[b, s] = joint . bw + bb.
-// Grid (S, B), kJointThreads threads.
-template <typename T>
+// joint[b, s, :] = tanh(pc[s] + pf_t[b]); blank[b, s] = joint . bw + bb
+// (float32). Grid (S, B), kJointThreads threads.
 __global__ void __launch_bounds__(kJointThreads)
     joint_blank_kernel(const float* __restrict__ pf_t,  // [B, h]
                        const int* __restrict__ is_pad_t,  // [B]
                        const float* __restrict__ pc,    // [S, h]
-                       const T* __restrict__ bw,        // [h]
+                       const float* __restrict__ bw,    // [h]
                        const float* __restrict__ bb,    // [1]
-                       T* __restrict__ joint,           // [B, S, h]
+                       float* __restrict__ joint,       // [B, S, h]
                        float* __restrict__ blank,       // [B, S]
                        int S, int h) {
   const int s = blockIdx.x;
@@ -120,12 +123,12 @@ __global__ void __launch_bounds__(kJointThreads)
   if (is_pad_t[b]) return;  // a padding frame's joint and blank are unused
   const float* pc_row = pc + static_cast<size_t>(s) * h;
   const float* pf_row = pf_t + static_cast<size_t>(b) * h;
-  T* out = joint + (static_cast<size_t>(b) * S + s) * h;
+  float* out = joint + (static_cast<size_t>(b) * S + s) * h;
   float partial = 0.f;
   for (int k = threadIdx.x; k < h; k += kJointThreads) {
-    const T j = from_float<T>(tanhf(pc_row[k] + pf_row[k]));
+    const float j = tanhf(pc_row[k] + pf_row[k]);
     out[k] = j;
-    partial = fmaf(to_float(j), to_float(bw[k]), partial);
+    partial = fmaf(j, bw[k], partial);
   }
   __shared__ float warp_sums[kJointThreads / 32];
   for (int o = 16; o > 0; o >>= 1) {
@@ -144,10 +147,10 @@ __global__ void __launch_bounds__(kJointThreads)
 // row b: the split's (max, argmax) over s of vec[b, s] + lex[b, s, y].
 // Grid (ceil(V / kBN), splits, B), kThreads threads. Splitting the states
 // puts several blocks on every SM; merge_kernel combines the splits.
-template <typename T, int MODE>
+template <int MODE>
 __global__ void __launch_bounds__(kThreads)
-    max_pass_kernel(const T* __restrict__ joint,      // [B, S, h]
-                    const T* __restrict__ vw,         // [h, V]
+    max_pass_kernel(const float* __restrict__ joint,  // [B, S, h]
+                    const float* __restrict__ vw,     // [h, V]
                     const float* __restrict__ vb,     // [V]
                     const float* __restrict__ vec,    // [B, S]
                     const float* __restrict__ cnorm,  // [B, S] or null
@@ -168,7 +171,7 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int tx = tid % (kBN / kTN);  // column group
   const int ty = tid / (kBN / kTN);  // row group
-  const T* joint_b = joint + static_cast<size_t>(b) * S * h;
+  const float* joint_b = joint + static_cast<size_t>(b) * S * h;
   const float* vec_b = vec + static_cast<size_t>(b) * S;
   const float* c_b =
       cnorm == nullptr ? nullptr : cnorm + static_cast<size_t>(b) * S;
@@ -276,10 +279,9 @@ __device__ __forceinline__ float softplus(float x) {
 // 64-state tile of batch row b: stores lex[b, s, y] and the online (max,
 // sum) of lex over y per state into part_m / part_l [splits, B, S].
 // Grid (ceil(S / 64), splits, B); norm_merge_kernel combines the splits.
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    norm_pass_kernel(const T* __restrict__ joint,       // [B, S, h]
-                     const T* __restrict__ vw,          // [h, V]
+    norm_pass_kernel(const float* __restrict__ joint,   // [B, S, h]
+                     const float* __restrict__ vw,      // [h, V]
                      const float* __restrict__ vb,      // [V]
                      float* __restrict__ lex,           // [B, S, V]
                      float* __restrict__ part_m,        // [splits, B, S]
@@ -293,7 +295,7 @@ __global__ void __launch_bounds__(kThreads)
   const int y_begin = blockIdx.y * strips_per_split * kBN;
   const int y_end = min(V, y_begin + strips_per_split * kBN);
   const int tx = threadIdx.x % (kBN / kTN), ty = threadIdx.x / (kBN / kTN);
-  const T* joint_b = joint + static_cast<size_t>(b) * S * h;
+  const float* joint_b = joint + static_cast<size_t>(b) * S * h;
   float* lex_b = lex + static_cast<size_t>(b) * S * V;
   float run_m[kTM], run_l[kTM];
 #pragma unroll
@@ -450,15 +452,94 @@ __global__ void __launch_bounds__(kUpdateThreads)
   jstar_t[idx] = js;
 }
 
+// The bfloat16 route's last merge of a frame folded into its update; one
+// thread per (b, s). The last pass's red[b, s] merges the partials of
+// label s - 1 under `beats` (-inf at state 0 and on padding rows), written
+// to last + (passes - 1) B S, and its argmax to the pass's arg row (0 on
+// padding rows, and for all-NaN columns); then alpha as update_kernel
+// updates it.
+__global__ void __launch_bounds__(kUpdateThreads)
+    merge_update_kernel(const float* __restrict__ part_v,  // [splits, B, V]
+                        const int* __restrict__ part_s, int splits,
+                        const float* __restrict__ alpha,   // [B, S]
+                        const float* __restrict__ blank,   // [B, S]
+                        float* __restrict__ last,          // [passes, B, S]
+                        const int* __restrict__ is_pad_t,  // [B]
+                        float* __restrict__ alpha_out,     // [B, S]
+                        int* __restrict__ jstar_t,         // [B, S]
+                        int* __restrict__ arg,  // row b at b * arg_stride
+                        int arg_stride, int B, int S, int V, int passes,
+                        int max_expansions, int frame_dependent) {
+  const int idx = blockIdx.x * kUpdateThreads + threadIdx.x;
+  if (idx >= B * S) return;
+  const int b = idx / S, s = idx % S;
+  const bool pad = is_pad_t[b];
+  float best_v = -INFINITY;
+  int best_s = INT_MAX;
+  if (!pad && s >= 1) {
+    for (int z0 = 0; z0 < splits; z0 += 8) {  // 8 splits' loads in flight
+      float pv[8];
+      int ps[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const size_t at = (static_cast<size_t>(z0 + i) * B + b) * V + s - 1;
+        pv[i] = z0 + i < splits ? part_v[at] : -INFINITY;
+        ps[i] = z0 + i < splits ? part_s[at] : INT_MAX;
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if (beats(pv[i], ps[i], best_v, best_s)) {
+          best_v = pv[i];
+          best_s = ps[i];
+        }
+      }
+    }
+  }
+  const size_t bs = static_cast<size_t>(B) * S;
+  last[(passes - 1) * bs + idx] = best_v;
+  if (s >= 1) {
+    arg[static_cast<size_t>(b) * arg_stride + s - 1] =
+        best_s == INT_MAX ? 0 : best_s;
+  }
+  const float a = alpha[idx];
+  if (pad) {
+    alpha_out[idx] = a;
+    jstar_t[idx] = 0;
+    return;
+  }
+  const float bl = blank[idx];
+  float acc = a + bl;
+  int js = 0;
+  if (frame_dependent) {
+    js = best_v > acc ? 1 : 0;
+    acc = fmaxf(acc, best_v);
+  } else {
+    // Up to k lexical arcs then a blank; strict '>' keeps the smallest j.
+    for (int j = 1; j <= max_expansions; ++j) {
+      const float cand =
+          (j == passes ? best_v : last[(j - 1) * bs + idx]) + bl;
+      if (cand > acc) {
+        acc = cand;
+        js = j;
+      }
+    }
+  }
+  alpha_out[idx] = acc;
+  jstar_t[idx] = js;
+}
+
 #define RETURN_IF_LAUNCH_FAILED()              \
   do {                                         \
     const cudaError_t err = cudaGetLastError(); \
     if (err != cudaSuccess) return static_cast<int>(err); \
   } while (0)
 
-template <typename T>
-int run_forward(const float* pf, const float* pc, const T* vw, const float* vb,
-                const T* bw, const float* bb, const int* is_pad, T* joint,
+// The float32 forward: per frame the joint and blank of every row, with
+// normalization the normalizing pass and its merge, then each max-pass (a
+// split of the states per block) and its merge, then the update.
+int run_forward(const float* pf, const float* pc, const float* vw,
+                const float* vb, const float* bw, const float* bb,
+                const int* is_pad, float* joint,
                 float* blank, float* lex, float* part_v, int* part_s,
                 float* part_m, float* part_l, float* cnorm, float* last,
                 float* alpha, int* arg, int* jstar, int num_frames, int B,
@@ -491,12 +572,12 @@ int run_forward(const float* pf, const float* pc, const T* vw, const float* vb,
     const float* alpha_cur = alpha + (t % 2) * bs;
     float* alpha_next = alpha + ((t + 1) % 2) * bs;
     const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
-    joint_blank_kernel<T><<<joint_grid, kJointThreads, 0, stream>>>(
+    joint_blank_kernel<<<joint_grid, kJointThreads, 0, stream>>>(
         pf + static_cast<size_t>(t) * B * h, is_pad_t, pc, bw, bb, joint,
         blank, S, h);
     RETURN_IF_LAUNCH_FAILED();
     if (normalize != 0) {
-      norm_pass_kernel<T><<<norm_grid, kThreads, 0, stream>>>(
+      norm_pass_kernel<<<norm_grid, kThreads, 0, stream>>>(
           joint, vw, vb, lex, part_m, part_l, is_pad_t, S, h, V,
           strips_per_split);
       RETURN_IF_LAUNCH_FAILED();
@@ -507,15 +588,15 @@ int run_forward(const float* pf, const float* pc, const T* vw, const float* vb,
     const float* vec = alpha_cur;
     for (int j = 0; j < passes; ++j) {
       if (!stage) {
-        max_pass_kernel<T, kCompute><<<pass_grid, kThreads, 0, stream>>>(
+        max_pass_kernel<kCompute><<<pass_grid, kThreads, 0, stream>>>(
             joint, vw, vb, vec, c, lex, part_v, part_s, is_pad_t, S, h, V,
             tiles_per_split);
       } else if (j == 0 && normalize == 0) {
-        max_pass_kernel<T, kComputeStore><<<pass_grid, kThreads, 0, stream>>>(
+        max_pass_kernel<kComputeStore><<<pass_grid, kThreads, 0, stream>>>(
             joint, vw, vb, vec, c, lex, part_v, part_s, is_pad_t, S, h, V,
             tiles_per_split);
       } else {
-        max_pass_kernel<T, kLoad><<<pass_grid, kThreads, 0, stream>>>(
+        max_pass_kernel<kLoad><<<pass_grid, kThreads, 0, stream>>>(
             joint, vw, vb, vec, c, lex, part_v, part_s, is_pad_t, S, h, V,
             tiles_per_split);
       }
@@ -537,6 +618,118 @@ int run_forward(const float* pf, const float* pc, const T* vw, const float* vb,
   return 0;
 }
 
+// ---------------------------------------------------------------------------
+// The bfloat16 forward on head_product.cuh's wgmma products.
+namespace hopper {
+
+using bf16 = __nv_bfloat16;
+
+#define RETURN_IF_ERROR(expr)                                 \
+  do {                                                        \
+    const cudaError_t err = (expr);                           \
+    if (err != cudaSuccess) return static_cast<int>(err);     \
+  } while (0)
+
+// Once per call the padded head vw16 [hp, Vp]; per frame t with live[t] >
+// 0 rows (their indices first in rows[t]) the joint [B, S, hp] and blank of
+// those rows; with normalization row_reduce_kernel (lex stored, strip
+// partials) and norm_merge_kernel; then each max-pass: the first without
+// normalization as column_max_kernel over alpha (storing lex with two or
+// more passes), the others as max_pass_kernel<kLoad> over the staged lex
+// (64-state tiles, one partial each), each merged by merge_kernel into the
+// pass's expansion and arg table, the last one by merge_update_kernel with
+// the frame's update. Padding rows launch no product: the merges write
+// their arg rows 0 and the update holds their alpha. A frame with no live
+// row runs only the merges and the update.
+int run_forward(const float* pf, const float* pc, const float* vw,
+                const float* vb, const float* bw, const float* bb,
+                const int* is_pad, const int* live, const int* rows,
+                bf16* joint, bf16* vw16, float* blank, float* lex,
+                float* part_v, int* part_s, float* part_m, float* part_l,
+                float* cnorm, float* last, float* alpha, int* arg,
+                int* jstar, int T, int B, int S, int h, int V,
+                int max_expansions, int frame_dependent, int normalize,
+                int max_blocks, cudaStream_t stream) {
+  const int passes =
+      frame_dependent ? 1 : (max_expansions > 1 ? max_expansions : 1);
+  const bool stage = passes >= 2 || normalize != 0;
+  if ((T > 0 && live == nullptr) || max_blocks < 1 ||
+      (stage && lex == nullptr) ||
+      (normalize != 0 &&
+       (part_m == nullptr || part_l == nullptr || cnorm == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int hp = wgmma_tiles::round_up(h, wgmma_tiles::kBK);
+  const int Vp = wgmma_tiles::round_up(V, wgmma_tiles::kBK);
+  const int t64 = wgmma_tiles::cdiv(S, 64);
+  const int strips = wgmma_tiles::cdiv(Vp, wgmma_tiles::kBN);
+  const size_t bs = static_cast<size_t>(B) * S;
+  const int update_blocks =
+      static_cast<int>((bs + kUpdateThreads - 1) / kUpdateThreads);
+  const int merge_blocks = (B * V + kUpdateThreads - 1) / kUpdateThreads;
+  const float* c = normalize != 0 ? cnorm : nullptr;
+  RETURN_IF_ERROR(head_product::joint_pass(pc, pf, vw, bw, bb, nullptr,
+                                           joint, vw16, blank, 0, S, h, V,
+                                           /*head=*/true, stream));
+  for (int t = 0; t < T; ++t) {
+    const int L = live[t];
+    const float* alpha_cur = alpha + (t % 2) * bs;
+    float* alpha_next = alpha + ((t + 1) % 2) * bs;
+    const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
+    const int* rows_t = rows + static_cast<size_t>(t) * B;
+    if (L > 0) {
+      RETURN_IF_ERROR(head_product::joint_pass(
+          pc, pf + static_cast<size_t>(t) * B * h, vw, bw, bb, rows_t, joint,
+          vw16, blank, L, S, h, V, /*head=*/false, stream));
+      if (normalize != 0) {
+        const head_product::RowReduce p{vb, rows_t, lex, part_m, part_l, B,
+                                        S,  V,      hp,  Vp,     L};
+        RETURN_IF_ERROR(
+            head_product::row_product(joint, vw16, p, max_blocks, stream));
+        norm_merge_kernel<<<update_blocks, kUpdateThreads, 0, stream>>>(
+            part_m, part_l, strips, is_pad_t, blank, cnorm, B, S, normalize);
+        RETURN_IF_LAUNCH_FAILED();
+      }
+    }
+    const float* vec = alpha_cur;
+    for (int j = 0; j < passes; ++j) {
+      if (L > 0 && j == 0 && normalize == 0) {
+        const head_product::ColumnMax p{
+            vb, vec, rows_t, part_v, part_s, passes >= 2 ? lex : nullptr,
+            B,  S,   V,      hp,     Vp,     L};
+        RETURN_IF_ERROR(
+            head_product::max_product(joint, vw16, p, max_blocks, stream));
+      } else if (L > 0) {
+        // kLoad reads no joint or head.
+        max_pass_kernel<kLoad>
+            <<<dim3((V + kBN - 1) / kBN, t64, B), kThreads, 0, stream>>>(
+                nullptr, nullptr, vb, vec, c, lex, part_v, part_s, is_pad_t,
+                S, h, V, 1);
+        RETURN_IF_LAUNCH_FAILED();
+      }
+      int* arg_j = arg + (static_cast<size_t>(t) * B * passes + j) * V;
+      if (j + 1 == passes) {  // merged with the update
+        merge_update_kernel<<<update_blocks, kUpdateThreads, 0, stream>>>(
+            part_v, part_s, t64, alpha_cur, blank, last, is_pad_t,
+            alpha_next, jstar + static_cast<size_t>(t) * bs, arg_j,
+            passes * V, B, S, V, passes, max_expansions, frame_dependent);
+        RETURN_IF_LAUNCH_FAILED();
+        break;
+      }
+      float* red = last + j * bs;
+      merge_kernel<<<merge_blocks, kUpdateThreads, 0, stream>>>(
+          part_v, part_s, is_pad_t, red, arg_j, passes * V, t64, B, S, V);
+      RETURN_IF_LAUNCH_FAILED();
+      vec = red;
+    }
+  }
+  return 0;
+}
+
+#undef RETURN_IF_ERROR
+
+}  // namespace hopper
+
 }  // namespace
 
 extern "C" {
@@ -544,15 +737,25 @@ extern "C" {
 // Runs the whole forward on `stream` and returns the first launch error
 // (0 on success). The caller allocates everything; the final alpha is left
 // in slot num_frames % 2 of `alpha` ([2, B, S], slot 0 holds alpha0 on
-// entry). dtype 0 = float32, 1 = bfloat16 for vw, bw and joint. normalize
-// 0 = none, 1 = hat, 2 = log_softmax. `lex` ([B, S, V]) is used, and
+// entry). dtype 0 = float32, 1 = bfloat16 (the compute type). normalize 0
+// = none, 1 = hat, 2 = log_softmax. `lex` ([B, S, V] float32) is used, and
 // needed, with two or more passes per frame or with normalization: the
-// frame's lexical scores are staged there for the later passes. part_v /
-// part_s hold [max_splits, B, V] per-split maxima; the states split into at
-// most max_splits ranges of whole 64-state tiles. With normalization,
-// part_m / part_l hold [max_ysplits, B, S] per-split row partials (the
-// labels split into at most max_ysplits ranges of whole 64-label strips) and
-// cnorm [B, S] the per-state normalizers; all three are unused otherwise.
+// frame's lexical scores are staged there for the later passes; cnorm [B,
+// S] holds the per-state normalizers with normalization.
+// In bfloat16 the frames run on head_product.cuh's wgmma products over
+// their live rows: live [T] (host memory) counts each frame's real rows and
+// rows [T, B] (device) lists them first; vw ([h, V]) and bw ([h]) are
+// float32 (the kernels round them), joint is bfloat16 [B, S, hp] and vw16
+// bfloat16 [hp, Vp] (hp, Vp: h and V rounded up to 64), part_v / part_s
+// are [ceil(S / 64), B, V], part_m / part_l [ceil(Vp / 128), B, S] (with
+// normalization), the products run on at most max_blocks persistent
+// blocks, and max_splits / max_ysplits are not used.
+// In float32 vw, bw and joint ([B, S, h]) are float32, live, rows and vw16
+// are not used, part_v / part_s hold [max_splits, B, V] per-split maxima
+// (the states split into at most max_splits ranges of whole 64-state
+// tiles) and part_m / part_l [max_ysplits, B, S] per-split row partials
+// (the labels split into at most max_ysplits ranges of whole 64-label
+// strips).
 int viterbi_forward(int dtype, const float* pf, const float* pc,
                     const void* vw, const float* vb, const void* bw,
                     const float* bb, const int* is_pad, void* joint,
@@ -561,13 +764,14 @@ int viterbi_forward(int dtype, const float* pf, const float* pc,
                     float* alpha, int* arg, int* jstar, int num_frames, int B,
                     int S, int h, int V, int max_expansions,
                     int frame_dependent, int normalize, int max_splits,
-                    int max_ysplits, void* stream) {
+                    int max_ysplits, const int* live, const int* rows,
+                    void* vw16, int max_blocks, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (normalize < 0 || normalize > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 0) {
-    return run_forward<float>(
+    return run_forward(
         pf, pc, static_cast<const float*>(vw), vb,
         static_cast<const float*>(bw), bb, is_pad,
         static_cast<float*>(joint), blank, lex, part_v, part_s, part_m,
@@ -576,13 +780,14 @@ int viterbi_forward(int dtype, const float* pf, const float* pc,
         s);
   }
   if (dtype == 1) {
-    return run_forward<__nv_bfloat16>(
-        pf, pc, static_cast<const __nv_bfloat16*>(vw), vb,
-        static_cast<const __nv_bfloat16*>(bw), bb, is_pad,
-        static_cast<__nv_bfloat16*>(joint), blank, lex, part_v, part_s,
-        part_m, part_l, cnorm, last, alpha, arg, jstar, num_frames, B, S, h,
-        V, max_expansions, frame_dependent, normalize, max_splits,
-        max_ysplits, s);
+    using hopper::bf16;
+    return hopper::run_forward(
+        pf, pc, static_cast<const float*>(vw), vb,
+        static_cast<const float*>(bw), bb, is_pad, live, rows,
+        static_cast<bf16*>(joint), static_cast<bf16*>(vw16), blank, lex,
+        part_v, part_s, part_m, part_l, cnorm, last, alpha, arg, jstar,
+        num_frames, B, S, h, V, max_expansions, frame_dependent, normalize,
+        max_blocks, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -39,10 +39,10 @@ forward's lexical weights (float32) for its reductions after the first, and
 the backward's d_lex in the compute type; 'online' keeps no [B, S, V] buffer
 and recomputes the head product for every reduction, for vocabularies whose
 staged buffers grow too large (they grow as V^2): its backward forms d_lex
-for ``ONLINE_CHUNK_STATES`` states at a time. In bfloat16 the 'cache'
-forward runs on wgmma over each frame's live rows (``csrc/head_product.cuh``:
-``joint_head.reduce_plan``, ``forward_scratch``), and the backward of
-either mode runs on wgmma and
+for ``ONLINE_CHUNK_STATES`` states at a time. In bfloat16 the forward of
+either mode runs on wgmma over each frame's live rows
+(``csrc/head_product.cuh``: ``joint_head.reduce_plan``,
+``forward_scratch``), and so does the backward of either mode, which
 recomputes the lexical weights for each reduction (``wgmma_grid``,
 ``backward_scratch``). ``plan`` picks one for
 ``mode='auto'`` from the staged bytes. Both modes compute the same function,
@@ -306,13 +306,16 @@ def backward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
 
 
 def forward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
-                    plan: joint_head.ReducePlan, reductions: int) -> dict:
-  """name -> (shape, dtype) of the buffers of the bfloat16 'cache' forward
-  on csrc/head_product.cuh's column reduction (``fused_forward``): the
-  padded bfloat16 joint and head, the (max, sum) partials per 64-state unit
-  and, with two or more ``reductions`` a frame, the float32 lex [B, S, V]
-  that the first of them stages for the others (faster than recomputing
-  the product at B=8, B=32 and V=4096: PERF.md)."""
+                    plan: joint_head.ReducePlan, reductions: int,
+                    mode: str = 'cache') -> dict:
+  """name -> (shape, dtype) of the buffers of the bfloat16 forward on
+  csrc/head_product.cuh's column reduction (``fused_forward``) in ``mode``:
+  the padded bfloat16 joint and head, the (max, sum) partials per 64-state
+  unit and, in 'cache' mode with two or more ``reductions`` a frame, the
+  float32 lex [B, S, V] that the first of them stages for the others
+  (faster than recomputing the product at B=8, B=32 and V=4096: PERF.md).
+  'online' holds no [B, S, V] buffer: every reduction runs the product."""
+  _check_mode(mode)
   hp, vp = plan.hidden_pad, plan.vocab_pad
   part = ((plan.state_tiles, batch, vocab), torch.float32)
   scratch = {
@@ -321,9 +324,20 @@ def forward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
       'part_m': part,
       'part_l': part,
   }
-  if reductions >= 2:
+  if reductions >= 2 and mode == 'cache':
     scratch['lex'] = ((batch, num_states, vocab), torch.float32)
   return scratch
+
+
+def live_rows(is_pad: torch.Tensor):
+  """(live [T] int32 on the host, rows [T, B] int32 on is_pad's device):
+  each frame's real rows, counted on the host (one synchronisation per
+  call), and their batch indices listed first, in order, then the padding
+  rows'; what the wgmma routes walk instead of every row."""
+  live = (~is_pad).sum(1, dtype=torch.int32).cpu()
+  rows = torch.argsort(is_pad.to(torch.uint8), dim=1,
+                       stable=True).to(torch.int32)
+  return live, rows
 
 
 def grid_splits(work_blocks: int, max_splits: int, device) -> int:
@@ -387,32 +401,26 @@ def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
       shape, dtype=dtype, device=device)
   pad = is_pad.to(torch.int32)
   online = mode == 'online'
-  if compute_dtype == torch.bfloat16 and not online:
+  vw, bw = params['vocab_w'], params['blank_w']  # float32 on both routes
+  if compute_dtype == torch.bfloat16:
     # The column-reduce product of csrc/head_product.cuh on wgmma, over each
     # frame's live rows: counted on the host (one synchronisation per
     # call) and listed first on the device.
     rplan = joint_head.reduce_plan(batch, num_states, hidden, vocab,
                                    joint_head.sm_count(device))
     buf = {name: empty(*shape, dtype=dtype) for name, (shape, dtype) in
-           forward_scratch(batch, num_states, hidden, vocab, rplan,
-                           k).items()}
-    vw, bw = params['vocab_w'], params['blank_w']  # rounded by the kernels
+           forward_scratch(batch, num_states, hidden, vocab, rplan, k,
+                           mode).items()}
     joint, lex = buf['joint'], buf.get('lex')
     part_m, part_l = buf['part_m'], buf['part_l']
     splits = 0
-    live = (~is_pad).sum(1, dtype=torch.int32).cpu()
-    rows = torch.argsort(is_pad.to(torch.uint8), dim=1,
-                         stable=True).to(torch.int32)
+    live, rows = live_rows(is_pad)
     route_args = (_ptr(live), _ptr(rows), _ptr(buf['vocab_w']),
                   rplan.max_blocks)
   else:
-    vw = params['vocab_w'].to(compute_dtype).contiguous()
-    bw = params['blank_w'].to(compute_dtype).contiguous()
-    joint = empty(batch, num_states, hidden, dtype=compute_dtype)
-    # In 'cache' mode, with two or more reductions per frame the first
-    # stages the frame's lexical weights for the others (faster than
-    # recomputing the WMMA head product even at B=32, where they outgrow
-    # the L2 cache: PERF.md).
+    joint = empty(batch, num_states, hidden)
+    # In 'cache' mode, with two or more reductions per frame the
+    # first stages the frame's lexical weights for the others.
     lex = empty(batch, num_states, vocab) if k >= 2 and not online else None
     strips = -(-vocab // _TILE)
     tiles = -(-num_states // _TILE)
@@ -624,11 +632,7 @@ def launch_backward(entry: str, pf, pc, params, is_pad, log_z, g, hist,
     buf['dpc_acc'].zero_()
     buf['dvw_acc'].zero_()
     ysplits, ksplits = grid.strips, grid.ksplits
-    # Each frame's real rows, counted on the host (one synchronisation per
-    # call), and listed first on the device.
-    live = (~is_pad).sum(1, dtype=torch.int32).cpu()
-    rows = torch.argsort(is_pad.to(torch.uint8), dim=1,
-                         stable=True).to(torch.int32)
+    live, rows = live_rows(is_pad)
     route_args = (_ptr(live), _ptr(rows), grid.dsplits,
                   _ptr(buf['joint32']))
   else:

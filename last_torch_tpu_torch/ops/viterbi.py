@@ -18,9 +18,12 @@ Counterpart of ``last_torch_tpu/ops/viterbi.py``. The tropical forward scan
 (``_viterbi_forward_kernel`` there, a Pallas TPU kernel) is
 ``csrc/viterbi.cu`` here, reached through ``viterbi_forward``: on a CUDA
 tensor it launches the kernel, on a CPU tensor it runs
-``viterbi_forward_plain``, the same function in plain PyTorch. The
-backtrace is plain PyTorch on the device, a reverse loop of gathers, as the
-JAX package's is plain XLA.
+``viterbi_forward_plain``, the same function in plain PyTorch. In bfloat16
+the kernel runs on ``csrc/head_product.cuh``'s wgmma products over each
+frame's live rows (``forward_scratch``, ``joint_head.reduce_plan``); in
+float32 on CUDA-core tiles, for exact comparison with the plain version.
+The backtrace is plain PyTorch on the device, a reverse loop of gathers, as
+the JAX package's is plain XLA.
 
 Scope matches the JAX package's decode gate (``fused_scan.supported``):
 MaxTropical over a bigram ``FullNGram`` with ``JointWeightFn`` and
@@ -34,11 +37,11 @@ from __future__ import annotations
 
 import ctypes
 from collections.abc import Callable
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
-from last_torch_tpu_torch.ops import fused_scan
+from last_torch_tpu_torch.ops import fused_scan, joint_head
 
 # Forward calls that launched the CUDA kernel, for runs that must show the
 # decode went through it. Only ``viterbi_forward`` on a CUDA tensor counts.
@@ -47,15 +50,48 @@ launches = 0
 _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 NORMALIZE_CODES = {'none': 0, 'hat': 1, 'log_softmax': 2}
-# The kernel's tile sizes (csrc/tile_product.cuh: kBM, kBN); the max-pass
-# grid splits the states across blocks to fill the card.
+# The float32 kernel's tile sizes (csrc/tile_product.cuh: kBM, kBN); its
+# max-pass grid splits the states across blocks to fill the card.
 _STATES_PER_TILE = 64
 _LABELS_PER_BLOCK = 64
+# The bfloat16 products' label strips (csrc/head_product.cuh: kBN).
+_STRIP_LABELS = 128
 
 
 def num_tables(max_expansions: int, frame_dependent: bool) -> int:
   """K, the max-passes per frame: one argmax table [V] per pass."""
   return 1 if frame_dependent else max(max_expansions, 1)
+
+
+def _ptr(x: Optional[torch.Tensor]):
+  return None if x is None else x.data_ptr()
+
+
+def forward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
+                    plan: joint_head.ReducePlan, passes: int,
+                    normalize: str) -> dict:
+  """name -> (shape, dtype) of the buffers of the bfloat16 forward on
+  csrc/head_product.cuh (``viterbi_forward``), with ``passes`` max-passes a
+  frame: the padded bfloat16 joint and head; a (max, argmax) partial per
+  64-state unit; the float32 lex [B, S, V] staged for the max-passes that
+  read it (the second and later ones, and every one under normalization);
+  with normalization a (max, sum) row partial per 128-label strip and the
+  per-state normalizers."""
+  hp, vp = plan.hidden_pad, plan.vocab_pad
+  units = (plan.state_tiles, batch, vocab)
+  scratch = {
+      'joint': ((batch, num_states, hp), torch.bfloat16),
+      'vocab_w': ((hp, vp), torch.bfloat16),
+      'part_v': (units, torch.float32),
+      'part_s': (units, torch.int32),
+  }
+  if passes >= 2 or normalize != 'none':
+    scratch['lex'] = ((batch, num_states, vocab), torch.float32)
+  if normalize != 'none':
+    strips = (-(-vp // _STRIP_LABELS), batch, num_states)
+    scratch['part_m'] = scratch['part_l'] = (strips, torch.float32)
+    scratch['cnorm'] = ((batch, num_states), torch.float32)
+  return scratch
 
 
 def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
@@ -103,31 +139,43 @@ def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
   vocab = params['vocab_w'].shape[-1]
   k = num_tables(max_expansions, frame_dependent)
   device = pf.device
-  vw = params['vocab_w'].to(compute_dtype).contiguous()
-  bw = params['blank_w'].to(compute_dtype).contiguous()
   pad = is_pad.to(torch.int32)
-  joint = torch.empty((batch, num_states, hidden), dtype=compute_dtype,
-                      device=device)
+  vw, bw = params['vocab_w'], params['blank_w']  # float32 on both routes
+  if compute_dtype == torch.bfloat16:
+    # The products of csrc/head_product.cuh on wgmma over each frame's live
+    # rows: counted on the host (one synchronisation per call) and listed
+    # first on the device.
+    rplan = joint_head.reduce_plan(batch, num_states, hidden, vocab,
+                                   joint_head.sm_count(device))
+    buf = {name: torch.empty(shape, dtype=dtype, device=device)
+           for name, (shape, dtype) in forward_scratch(
+               batch, num_states, hidden, vocab, rplan, k, normalize).items()}
+    joint = buf['joint']
+    splits = ysplits = 0
+    live, rows = fused_scan.live_rows(is_pad)
+    route_args = (_ptr(live), _ptr(rows), _ptr(buf['vocab_w']),
+                  rplan.max_blocks)
+  else:
+    joint = torch.empty((batch, num_states, hidden), device=device)
+    # With two or more max-passes per frame the first stages the frame's
+    # lexical scores for the others; with normalization the normalizing
+    # pass stages them for every max-pass.
+    buf = {}
+    if k >= 2 or normalize != 'none':
+      buf['lex'] = torch.empty((batch, num_states, vocab), device=device)
+    strips = -(-vocab // _LABELS_PER_BLOCK)
+    tiles = -(-num_states // _STATES_PER_TILE)
+    splits = fused_scan.grid_splits(strips * batch, tiles, device)
+    ysplits = fused_scan.grid_splits(tiles * batch, strips, device)
+    buf['part_v'] = torch.empty((splits, batch, vocab), device=device)
+    buf['part_s'] = torch.empty((splits, batch, vocab), dtype=torch.int32,
+                                device=device)
+    if normalize != 'none':
+      for name in ('part_m', 'part_l'):
+        buf[name] = torch.empty((ysplits, batch, num_states), device=device)
+      buf['cnorm'] = torch.empty((batch, num_states), device=device)
+    route_args = (None, None, None, 0)
   blank = torch.empty((batch, num_states), device=device)
-  # With two or more max-passes per frame the first stages the frame's
-  # lexical scores here for the others (faster than recomputing them on the
-  # H100 at the serving shapes; PERF.md); with normalization the normalizing
-  # pass stages them for every max-pass.
-  normalized = normalize != 'none'
-  lex = (torch.empty((batch, num_states, vocab), device=device)
-         if k >= 2 or normalized else None)
-  strips = -(-vocab // _LABELS_PER_BLOCK)
-  tiles = -(-num_states // _STATES_PER_TILE)
-  splits = fused_scan.grid_splits(strips * batch, tiles, device)
-  ysplits = fused_scan.grid_splits(tiles * batch, strips, device)
-  part_v = torch.empty((splits, batch, vocab), device=device)
-  part_s = torch.empty((splits, batch, vocab), dtype=torch.int32,
-                       device=device)
-  part_m = part_l = cnorm = None
-  if normalized:
-    part_m = torch.empty((ysplits, batch, num_states), device=device)
-    part_l = torch.empty((ysplits, batch, num_states), device=device)
-    cnorm = torch.empty((batch, num_states), device=device)
   last = torch.empty((k, batch, num_states), device=device)
   alpha = torch.full((2, batch, num_states), float('-inf'), device=device)
   alpha[0, :, 0] = 0.0
@@ -135,17 +183,16 @@ def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
                     device=device)
   jstar = torch.empty((max_t, batch, num_states), dtype=torch.int32,
                       device=device)
-  ptr = lambda x: None if x is None else x.data_ptr()
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
     status = lib.viterbi_forward(
-        _DTYPE_CODES[compute_dtype], ptr(pf), ptr(pc), ptr(vw),
-        ptr(params['vocab_b']), ptr(bw), ptr(params['blank_b']), ptr(pad),
-        ptr(joint), ptr(blank), ptr(lex), ptr(part_v), ptr(part_s),
-        ptr(part_m), ptr(part_l), ptr(cnorm), ptr(last), ptr(alpha),
-        ptr(arg), ptr(jstar), max_t, batch, num_states, hidden, vocab,
-        max_expansions, int(frame_dependent), NORMALIZE_CODES[normalize],
-        splits, ysplits, stream)
+        _DTYPE_CODES[compute_dtype], _ptr(pf), _ptr(pc), _ptr(vw),
+        _ptr(params['vocab_b']), _ptr(bw), _ptr(params['blank_b']),
+        _ptr(pad), _ptr(joint), _ptr(blank), *(_ptr(buf.get(name)) for name in (
+            'lex', 'part_v', 'part_s', 'part_m', 'part_l', 'cnorm')),
+        _ptr(last), _ptr(alpha), _ptr(arg), _ptr(jstar), max_t, batch,
+        num_states, hidden, vocab, max_expansions, int(frame_dependent),
+        NORMALIZE_CODES[normalize], splits, ysplits, *route_args, stream)
   if status != 0:
     raise RuntimeError('Viterbi kernel launch failed: '
                        f'{lib.viterbi_error_string(status).decode()}')
@@ -160,7 +207,8 @@ def library() -> ctypes.CDLL:
     from last_torch_tpu_torch.ops import build
     lib = build.load('viterbi.cu')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.viterbi_forward.argtypes = [i] + [p] * 19 + [i] * 10 + [p]
+    lib.viterbi_forward.argtypes = ([i] + [p] * 19 + [i] * 10 + [p] * 3 +
+                                    [i, p])
     lib.viterbi_forward.restype = i
     lib.viterbi_error_string.argtypes = [i]
     lib.viterbi_error_string.restype = ctypes.c_char_p

@@ -334,3 +334,50 @@ def test_forward_scratch_stages_lex_by_the_rule(batch, states, hidden,
   staged = batch * states * vocab * (4 + 2)
   assert fused_scan.plan(batch, states, vocab, torch.bfloat16) == (
       'cache' if staged <= fused_scan.LEX_STAGE_BUDGET else 'online')
+
+
+@pytest.mark.parametrize('batch,states,hidden,vocab', [
+    (8, 4097, 512, 4096),  # bench.py's config 9
+    (8, 16385, 512, 16384),  # 'auto' plans the online mode here
+    (8, 1025, 512, 1024),
+    (3, 77, 80, 1021),
+])
+def test_online_forward_scratch_holds_no_batch_state_vocab_buffer(
+    batch, states, hidden, vocab):
+  """The bfloat16 'online' forward runs the column-reduce product for every
+  reduction: the 'cache' forward's buffers without the staged lex, none of
+  B S V elements, whatever the reductions a frame; and plan() still picks
+  the mode by what 'cache' stages."""
+  plan = joint_head.reduce_plan(batch, states, hidden, vocab, SMS)
+  for reductions in (1, 2, 3):
+    online = fused_scan.forward_scratch(batch, states, hidden, vocab, plan,
+                                        reductions, 'online')
+    cache = fused_scan.forward_scratch(batch, states, hidden, vocab, plan,
+                                       reductions)
+    assert 'lex' not in online
+    assert online == {n: v for n, v in cache.items() if n != 'lex'}
+    for name, (shape, _) in online.items():
+      assert np.prod(shape) < batch * states * vocab, name
+  with pytest.raises(ValueError, match='mode'):
+    fused_scan.forward_scratch(batch, states, hidden, vocab, plan, 2, 'auto')
+  staged = batch * states * vocab * (4 + 2)
+  assert fused_scan.plan(batch, states, vocab, torch.bfloat16) == (
+      'cache' if staged <= fused_scan.LEX_STAGE_BUDGET else 'online')
+
+
+@pytest.mark.parametrize('lengths', [[5, 2, 0, 5], [0, 0], [3], [1, 4, 4]])
+def test_live_rows_lists_each_frames_real_rows_first(lengths):
+  """What the wgmma routes walk: per frame the count of real rows, on the
+  host, and the batch indices, real rows first in batch order, then the
+  padding rows."""
+  max_t = 6
+  is_pad = (torch.arange(max_t)[:, None] >=
+            torch.tensor(lengths)[None, :])
+  live, rows = fused_scan.live_rows(is_pad)
+  assert live.device.type == 'cpu' and live.dtype == torch.int32
+  assert rows.dtype == torch.int32 and rows.shape == (max_t, len(lengths))
+  for t in range(max_t):
+    real = [b for b, n in enumerate(lengths) if t < n]
+    padding = [b for b, n in enumerate(lengths) if t >= n]
+    assert int(live[t]) == len(real)
+    assert rows[t].tolist() == real + padding

@@ -111,6 +111,9 @@ CARD_CASES = {
     'fld1_v130': (130, 40, 1, False),
     'fld2_ragged_v1000': (1000, 512, 2, False),
     'fld2_v1024': (1024, 512, 2, False),
+    # S=70: a full 64-state unit and a ragged one, so a block's second
+    # warpgroup takes the ragged unit or the next row's first.
+    'fld2_ragged_v69': (69, 64, 2, False),
 }
 
 
@@ -151,7 +154,8 @@ def test_kernel_matches_plain_on_card(card, case, compute_dtype):
 @pytest.mark.parametrize('normalize', ['hat', 'log_softmax'])
 @pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
-@pytest.mark.parametrize('case', ['fd_ragged_v37', 'fld2_ragged_v1000'])
+@pytest.mark.parametrize('case', ['fd_ragged_v37', 'fld2_ragged_v1000',
+                                  'fld2_ragged_v69'])
 def test_normalized_kernel_matches_plain_on_card(card, case, compute_dtype,
                                                  normalize):
   vocab, hidden, k, fd = CARD_CASES[case]
@@ -177,16 +181,74 @@ def test_normalized_kernel_matches_plain_on_card(card, case, compute_dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
 @pytest.mark.parametrize('frame_dependent', [True, False])
-def test_kernel_breaks_ties_as_plain_on_card(card, frame_dependent):
+def test_kernel_breaks_ties_as_plain_on_card(card, frame_dependent,
+                                             compute_dtype):
+  # Every state ties: across the 64-state units (S=301: 5), the 128-label
+  # strips (3) and the two warpgroups of a block.
   pf, pc, params, is_pad = tied_inputs(vocab=300, hidden=16, max_t=4,
                                        batch=3, device=card)
   kwargs = dict(max_expansions=2, frame_dependent=frame_dependent,
-                compute_dtype=torch.float32)
+                compute_dtype=compute_dtype)
   got = viterbi.viterbi_forward(pf, pc, params, is_pad, **kwargs)
   want = viterbi.viterbi_forward_plain(pf, pc, params, is_pad, **kwargs)
   for g, w in zip(got, want):
     npt.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
+
+
+# Labels whose lexical weight ties at the top: from the second frame on, the
+# states 1 + y lead alpha together. They tie within a thread's two rows (2
+# and 10), across lanes (12) and warps (30) of a unit, across the two
+# warpgroups of a block (70), across blocks (200, 701) and label strips
+# (labels 1 to 700 lie in 6 of the 8 strips of V=1000).
+TIED_LABELS = (1, 9, 11, 29, 69, 199, 700)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('normalize', ['none', 'hat'])
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('frame_dependent', [True, False])
+def test_kernel_breaks_placed_ties_as_plain_on_card(card, frame_dependent,
+                                                    compute_dtype,
+                                                    normalize):
+  """The lowest of the tied states wins every argmax, in rows that end at
+  different frames (one all padding). The lexical weights are vocab_b alone
+  (exact in both versions); normalization subtracts one constant from every
+  state, so the ties stay exact."""
+  vocab, hidden, lengths = 1000, 64, [6, 5, 0, 2]
+  rng = np.random.default_rng(11)
+  vocab_b = rng.uniform(-2.0, -1.0, vocab).astype(np.float32)
+  vocab_b[list(TIED_LABELS)] = 0.5  # above the start state's blank path
+  params = {
+      'vocab_w': torch.zeros((hidden, vocab), device=card),
+      'vocab_b': torch.from_numpy(vocab_b).to(card),
+      'blank_w': torch.zeros((hidden,), device=card),
+      'blank_b': torch.tensor(-5.0, device=card),
+  }
+  pf, pc, _, is_pad = random_inputs(3, vocab, hidden, max_t=6,
+                                    lengths=lengths, device=card)
+  kwargs = dict(max_expansions=2, frame_dependent=frame_dependent,
+                compute_dtype=compute_dtype, normalize=normalize)
+  arg_k, jstar_k, alpha_k = viterbi.viterbi_forward(pf, pc, params, is_pad,
+                                                    **kwargs)
+  arg_p, jstar_p, alpha_p = viterbi.viterbi_forward_plain(
+      pf, pc, params, is_pad, **kwargs)
+  torch.cuda.synchronize()
+  # From the second frame on, every live argmax is the lowest tied state,
+  # or the start state where it leads alone (FLD's first pass under hat).
+  live = ~is_pad
+  live[0] = False
+  chosen = set(arg_k[live].unique().tolist())
+  assert 1 + min(TIED_LABELS) in chosen and chosen <= {0, 1 + min(TIED_LABELS)}
+  npt.assert_array_equal(arg_k.cpu().numpy(), arg_p.cpu().numpy())
+  npt.assert_array_equal(jstar_k.cpu().numpy(), jstar_p.cpu().numpy())
+  # Unnormalized the scores are exact; the normalizers are logsumexps
+  # taken in another order.
+  npt.assert_allclose(alpha_k.cpu().numpy(), alpha_p.cpu().numpy(),
+                      rtol=0 if normalize == 'none' else 1e-6, atol=0)
 
 
 def fused_inputs(seed, vocab, hidden, max_t, lengths, device='cpu'):
@@ -253,6 +315,9 @@ FUSED_CARD_CASES = {
     # unit), h=80 (the joint zero past h in its 128-deep padding).
     'fld2_ragged_v1021_h80': (1021, 80, 2, False, 3),
     'fld2_ragged_v76_h80': (76, 80, 2, False, 5),
+    # Rows that end at different frames (one empty) on the bfloat16 'online'
+    # forward's column reduction, FLD(2): the same log Z as 'cache'.
+    'fld2_ragged_v1000_b8': (1000, 512, 2, False, 8),
 }
 # T_max of the card cases: the last two frames are padding in every row.
 CARD_MAX_T = 14

@@ -21,7 +21,7 @@ from last_torch_tpu import weight_fns as jax_weight_fns
 import last_torch_tpu_torch
 from last_torch_tpu_torch import alignments, contexts, convert, weight_fns
 from last_torch_tpu_torch.models import gnat
-from last_torch_tpu_torch.ops import viterbi
+from last_torch_tpu_torch.ops import joint_head, viterbi
 
 torch.set_num_threads(1)
 torch.set_float32_matmul_precision('highest')
@@ -132,6 +132,55 @@ def test_forward_wrapper_rejects_bad_inputs():
         pf.to('meta'), pc.to('meta'),
         {k: v.to('meta') for k, v in wf.items()}, is_pad.to('meta'),
         **kwargs)
+
+
+SMS = 132  # an H100's SMs
+
+
+@pytest.mark.parametrize('batch,hidden,vocab', [
+    (8, 512, 1024),  # the serving main path (S=1025)
+    (8, 512, 4096),  # the V=4096 decode
+    (3, 64, 69),  # S=70: a ragged unit, h and V off the stages
+    (1, 24, 37),  # V not a multiple of 4
+])
+@pytest.mark.parametrize('passes', [1, 2, 3])
+@pytest.mark.parametrize('normalize', ['none', 'hat', 'log_softmax'])
+def test_forward_scratch_plans_the_bf16_route(batch, hidden, vocab, passes,
+                                              normalize):
+  """The bfloat16 forward's buffers (csrc/head_product.cuh): the padded
+  bfloat16 joint and head; a (max, argmax) pair per 64-state unit, [ceil(S
+  / 64), B, V]; the float32 lex [B, S, V] only where a max-pass reads it
+  back (two or more passes, or normalization); the row partials per
+  128-label strip and the normalizers only with normalization."""
+  states = vocab + 1
+  plan = joint_head.reduce_plan(batch, states, hidden, vocab, SMS)
+  hp, vp = plan.hidden_pad, plan.vocab_pad
+  scratch = viterbi.forward_scratch(batch, states, hidden, vocab, plan,
+                                    passes, normalize)
+  units = (-(-states // 64), batch, vocab)
+  assert scratch['joint'] == ((batch, states, hp), torch.bfloat16)
+  assert scratch['vocab_w'] == ((hp, vp), torch.bfloat16)
+  assert scratch['part_v'] == (units, torch.float32)
+  assert scratch['part_s'] == (units, torch.int32)
+  normalized = normalize != 'none'
+  staged = passes >= 2 or normalized
+  assert ('lex' in scratch) == staged
+  if staged:
+    assert scratch['lex'] == ((batch, states, vocab), torch.float32)
+  if hp < vocab:  # else the joint [B, S, hp] outgrows B S V
+    big = [n for n, (shape, _) in scratch.items()
+           if np.prod(shape) >= batch * states * vocab]
+    assert big == (['lex'] if staged else []), big
+  if normalized:
+    strips = (-(-vp // 128), batch, states)
+    assert scratch['part_m'] == scratch['part_l'] == (strips, torch.float32)
+    assert scratch['cnorm'] == ((batch, states), torch.float32)
+  else:
+    assert not {'part_m', 'part_l', 'cnorm'} & set(scratch)
+  # The products' persistent grid: one block per output tile, up to two an
+  # SM; the units cover every row's states once.
+  assert plan.units == batch * units[0]
+  assert 1 <= plan.blocks <= min(plan.tiles, 2 * SMS)
 
 
 def test_cuda_model_without_gpu_raises():

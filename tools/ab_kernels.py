@@ -46,7 +46,9 @@ Each run times, with CUDA events after a warm-up:
 * ``lp8f``, ``lp32f``, ``lp9f``: ``fused_forward`` ('cache', bf16, FLD(2),
   with the residuals the backward reads) at the shapes of ``lp8``,
   ``lp32`` and config 9 (B=8, T=200, S=4097, V=4096), one call each;
-  ``lp9of``: the 'online' forward at config 9 (a control);
+  ``lp9of``: the 'online' forward at config 9; ``lp8fp``: one ``lp8f``
+  call (after a warm-up) under ``torch.profiler``, its device time by
+  kernel name;
 * ``fr1024f`` / ``fr256f``: ``frame_reduce_forward`` (bf16, B=8, S=1025,
   h=512, phase 12b's inputs) at Vl=1024 and 256, the mean of 100 calls
   back to back; ``fr1024fd`` / ``fr256fd``: its device time per call;
@@ -71,7 +73,13 @@ Each run times, with CUDA events after a warm-up:
   config 7 (B=32, T=1600, U=100, every row full), one call; ``jhbp``,
   ``numb8p``, ``numb32p``: one call of ``jhb`` (after a warm-up),
   ``numb8`` or ``numb32`` under ``torch.profiler``, its device time by
-  kernel name (ms, summed over launches).
+  kernel name (ms, summed over launches);
+* ``vit8``: ``viterbi_forward`` (bf16, normalize 'none', FLD(2), S=1025,
+  V=1024, h=512) at ``chip_smoke.py`` phase 4's shape (B=8, T_max=1600,
+  its lengths), one call; ``vit8h``: the same with normalize 'hat' (phase
+  4b); ``vit10``: at V=4096 (S=4097) and the lengths / 8 (phase 9's
+  decode, bench config 10); ``vit8p``: one ``vit8`` call under
+  ``torch.profiler``, its device time by kernel name.
 
 Prints the card's name and power limit, one line per run, and one JSON
 object of milliseconds (MiB for ``lp9omem``) by run and case. ``--rounds
@@ -94,7 +102,8 @@ CASES = ('lp8', 'lp32', 'lp9o', 'lp9o512', 'lp9omem', 'fr1024', 'fr256',
          'jhf', 'jhfd', 'jhfh', 'jhfa', 'jhfk', 'jhfi', 'jhfo', 'lp8f',
          'lp32f', 'lp9f', 'lp9of', 'fr1024f', 'fr256f', 'fr1024fd',
          'fr256fd', 'fr256fh', 'fr256fa', 'jhb', 'jhbd', 'jhbh', 'jhbp',
-         'numb8', 'numb32', 'numb8p', 'numb32p')
+         'numb8', 'numb32', 'numb8p', 'numb32p', 'vit8', 'vit8h', 'vit10',
+         'vit8p', 'lp8fp')
 
 
 # The forward cases: (shape, mode).
@@ -102,7 +111,8 @@ LP_SHAPES = {'lp8': (8, NUM_FRAMES, 1600, 1024),
              'lp32': (32, [1600] * 32, 1600, 1024),
              'lp9': (8, [200] * 8, 200, 4096)}
 FORWARD_CASES = {'lp8f': ('lp8', 'cache'), 'lp32f': ('lp32', 'cache'),
-                 'lp9f': ('lp9', 'cache'), 'lp9of': ('lp9', 'online')}
+                 'lp9f': ('lp9', 'cache'), 'lp9of': ('lp9', 'online'),
+                 'lp8fp': ('lp8', 'cache')}
 # How a call is timed (``timed``, ``device_time``, ``host_time``,
 # ``api_time``), by the case's last letter.
 CLOCKS = {'d': 'device', 'h': 'host', 'a': 'api'}
@@ -172,10 +182,11 @@ def rand(rng, shape, scale=1.0):
 
 def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats,
                      max_t=1600, vocab=1024, mode='cache', memory=False,
-                     forward_only=False):
-  """ms of one bigram backward (or with ``forward_only`` forward) in
-  ``mode`` at (batch, lengths), or with ``memory`` the MiB the backward
-  allocates at its peak beyond what was allocated before it."""
+                     forward_only=False, profiled=False):
+  """ms of one bigram backward (or with ``forward_only`` forward, by kernel
+  name with ``profiled``) in ``mode`` at (batch, lengths), or with
+  ``memory`` the MiB the backward allocates at its peak beyond what was
+  allocated before it."""
   rng = np.random.default_rng(0)
   hidden = 512
   cuda = lambda x: torch.from_numpy(x).cuda()
@@ -194,9 +205,9 @@ def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats,
   backward = fused_scan.fused_backward_plain if plain else (
       fused_scan.fused_backward)
   if forward_only:
-    return timed(torch, lambda: forward(pf, pc, head, is_pad,
-                                        with_residuals=True, **kw),
-                 repeats)[1]
+    call = lambda: forward(pf, pc, head, is_pad, with_residuals=True, **kw)
+    return by_kernel(torch, call) if profiled else timed(torch, call,
+                                                         repeats)[1]
   log_z, _, hist, slabs = forward(pf, pc, head, is_pad, with_residuals=True,
                                   **kw)
   g = torch.ones(batch, device='cuda')
@@ -376,13 +387,46 @@ def numerator_backward_ms(torch, numerator_scan, batch, lengths, dtype,
   return by_kernel(torch, call) if profiled else timed(torch, call, 1)[1]
 
 
+# The Viterbi cases: (batch, lengths, T_max, V, normalize).
+VITERBI_CASES = {'vit8': (8, NUM_FRAMES, 1600, 1024, 'none'),
+                 'vit8h': (8, NUM_FRAMES, 1600, 1024, 'hat'),
+                 'vit10': (8, [n // 8 for n in NUM_FRAMES], 200, 4096, 'none'),
+                 'vit8p': (8, NUM_FRAMES, 1600, 1024, 'none')}
+
+
+def viterbi_ms(torch, viterbi, case, plain):
+  """ms of one Viterbi forward (bf16, FLD(2), h=512) of ``case``
+  (``VITERBI_CASES``) on random inputs, or for 'vit8p' its device time by
+  kernel name."""
+  batch, lengths, max_t, vocab, normalize = VITERBI_CASES[case]
+  rng = np.random.default_rng(15)
+  hidden = 512
+  cuda = lambda x: torch.from_numpy(x).cuda()
+  pf = cuda(rand(rng, (max_t, batch, hidden), 0.5))
+  pc = cuda(rand(rng, (vocab + 1, hidden), 0.5))
+  head = {'vocab_w': cuda(rand(rng, (hidden, vocab), hidden**-0.5)),
+          'vocab_b': cuda(rand(rng, (vocab,), 0.1)),
+          'blank_w': cuda(rand(rng, (hidden,), hidden**-0.5)),
+          'blank_b': torch.tensor(0.3, device='cuda')}
+  is_pad = (torch.arange(max_t, device='cuda')[:, None] >=
+            torch.tensor(lengths, device='cuda')[None])
+  forward = (viterbi.viterbi_forward_plain if plain else
+             viterbi.viterbi_forward)
+  call = lambda: forward(pf, pc, head, is_pad, max_expansions=2,
+                         frame_dependent=False, compute_dtype=torch.bfloat16,
+                         normalize=normalize)
+  return by_kernel(torch, call) if case == 'vit8p' else timed(torch, call,
+                                                                1)[1]
+
+
 def run_tree(tree, cases, plain):
   """Times `cases` with the kernels of `tree` (or its plain versions);
   returns {case: ms}."""
   sys.path.insert(0, str(pathlib.Path(tree).resolve()))
   import torch
   from last_torch_tpu_torch.ops import (fused_scan, joint_head,
-                                        numerator_scan, sharded_scan)
+                                        numerator_scan, sharded_scan,
+                                        viterbi)
   torch.backends.cuda.matmul.allow_tf32 = False
   out = {}
   for case in cases:
@@ -392,7 +436,8 @@ def run_tree(tree, cases, plain):
       batch, lengths, max_t, vocab = LP_SHAPES[shape]
       out[case] = log_partition_ms(torch, fused_scan, batch, lengths, plain,
                                    1, max_t=max_t, vocab=vocab, mode=mode,
-                                   forward_only=True)
+                                   forward_only=True,
+                                   profiled=case.endswith('p'))
     elif case in FRAME_REDUCE_FORWARD_CASES:
       out[case] = frame_reduce_ms(torch, sharded_scan,
                                   FRAME_REDUCE_FORWARD_CASES[case],
@@ -419,6 +464,8 @@ def run_tree(tree, cases, plain):
       out[case] = numerator_backward_ms(torch, numerator_scan, 8, NUM_FRAMES,
                                         torch.float32, plain,
                                         case.endswith('p'))
+    elif case in VITERBI_CASES:
+      out[case] = viterbi_ms(torch, viterbi, case, plain)
     elif case.startswith('numb32'):
       out[case] = numerator_backward_ms(torch, numerator_scan, 32,
                                         [1600] * 32, torch.bfloat16, plain,
