@@ -45,9 +45,11 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 5b. Numerator kernels against their plain versions: T=64, B=4, U+1=26,
    V in {1024, 1000}, float32 and bfloat16, hat and log-softmax, with a
    zero-cotangent row and padded frames and label positions; and V=1000 at
-   hidden 1024 (float32) and 2048 (bfloat16), past the joint tile's chunk.
-5c. Marginals kernel against its plain version at phase 5's shapes, on the
-   same forward residuals; padding frames and the empty row exactly 0.
+   hidden 1024 (float32) and 2048 (bfloat16), wide joints.
+5c. Marginals kernel against its plain version at phase 5's shapes (and
+   FLD(3), the bfloat16 route's last reduction with any number of pairs),
+   on the same forward residuals; padding frames and the empty row exactly
+   0.
 5d. Online log-partition kernels against their plain versions and against
    the cache kernels at phase 5's shapes and at a ragged V=520.
 5e. The trigram log-partition kernels (the trigram mode of
@@ -64,7 +66,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 6b. HAT training: 3 ``train_step``s of the phase-4b model on the same
    utterances through the numerator kernels (float32), step 1 held against
    the plain versions, one more step profiled; the numerator kernels alone
-   and the step's parts.
+   (the forward's route checked under the profiler) and the step's parts.
 7. The log-partition kernels alone at the JAX package's headline loss
    configuration (``bench.py::bench_headline``: B=32, T=1600, FLD(2),
    bf16).
@@ -73,7 +75,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 8. Confidence main path: phase 4's model, weights and requests through the
    encoder and ``RecognitionLattice.label_marginals`` (forward and
    marginals kernels), counted and timed, against the same call through
-   the plain versions; posterior structure checked; the kernels alone;
+   the plain versions; posterior structure checked; the kernels alone
+   (the bfloat16 marginals' route checked under the profiler);
    ``arc_marginals``' size guard, and its state sums at B=2, T=100 (the
    generic route, whose apply launches the joint+head forward kernel,
    counted) against the float32 plain label_marginals.
@@ -438,7 +441,7 @@ WGMMA_KERNELS = ('lex_pass_kernel', 'head_grad_kernel', 'joint_grad_kernel',
                  'num_joint_grad_kernel', 'lex_grad_kernel',
                  'joint_pass_kernel', 'stage_kernel', 'head_product_kernel',
                  'column_reduce_kernel', 'column_max_kernel',
-                 'row_reduce_kernel')
+                 'row_reduce_kernel', 'row_lse_kernel')
 # The namespaces of those kernels (others share some of their names); simt:
 # the numerator backward's float32 register-blocked products.
 WGMMA_NAMESPACES = ('hopper', 'head_grads', 'head_product', 'simt')
@@ -464,12 +467,16 @@ def ptxas_kernels(log):
 
 
 def kernel_label(mangled, name):
-  """``name`` with its integer or bool template argument, if any, from a
-  mangled kernel name (``lex_pass_kernel<2>``, ``..._kernel<1>``)."""
-  found = re.search(name + r'IL[ib](n?)(\d+)E', mangled)
+  """``name`` with its integer and bool template arguments, if any, from a
+  mangled kernel name (``column_reduce_kernel<1>``, ``lex_pass_kernel<2,
+  true>``: the marginals scan's last reduction)."""
+  found = re.search(name + r'I((?:L[ib]n?\d+E)+)E', mangled)
   if not found:
     return name
-  return f'{name}<{"-" if found.group(1) else ""}{found.group(2)}>'
+  args = [('true' if value == '1' else 'false') if kind == 'b' else
+          f'{"-" if minus else ""}{value}' for kind, minus, value in
+          re.findall(r'L([ib])(n?)(\d+)E', found.group(1))]
+  return f'{name}<{", ".join(args)}>'
 
 
 def phase_build(build, libraries):
@@ -634,7 +641,8 @@ def phase_marginals_vs_plain(torch, fused_scan):
   lines = []
   for vocab in (1024, 1000):
     pf, pc, params = lp_inputs(torch, rng, vocab)
-    for name, k, fd in ALIGNMENT_CASES:
+    # FLD(3): the bfloat16 route's last reduction with any number of pairs.
+    for name, k, fd in ALIGNMENT_CASES + (('FLD(3)', 3, False),):
       for dtype in (torch.float32, torch.bfloat16):
         kw = dict(max_expansions=k, frame_dependent=fd, compute_dtype=dtype)
         tag = f'V={vocab} {name} {str(dtype)[6:]}'
@@ -1406,8 +1414,8 @@ def phase_numerator_vs_plain(torch, numerator_scan):
   g_b, g_l = numerator_cotangents(torch, num_frames, num_labels, u1, max_t)
   rows = batch * u1
   lines = []
-  # (vocab, hidden, compute types): hidden 1024 (float32) and 2048
-  # (bfloat16) pass the joint tile's chunk, whose products are summed.
+  # (vocab, hidden, compute types): wide joints at hidden 1024 (float32)
+  # and 2048 (bfloat16).
   f32, bf16 = torch.float32, torch.bfloat16
   for vocab, hidden, dtypes in ((1024, 512, (f32, bf16)),
                                 (1000, 512, (f32, bf16)),
@@ -1509,16 +1517,32 @@ def staged_numerator(torch, lattice, numerator_scan, lattice_params, frames,
   return (pc, pf, head, wy, by), states.shape[1]
 
 
+def launched_kernels(torch, fn):
+  """The names of the device kernels that one call of fn launches, under
+  the profiler (``device_spans``)."""
+  _, spans = device_spans(torch, fn)
+  return {name for _, _, name in spans}
+
+
 def numerator_alone(torch, numerator_scan, inputs, g, kw, num_frames,
                     num_labels):
   """The numerator kernels alone against their plain versions, timed once
-  each with CUDA events. The bounds count the head products of the live
-  (frame, label position) pairs, t < num_frames and u <= num_labels, alone:
-  the string DP masks the others and their cotangents are zero. Returns
-  (kernel ms, plain ms, errors, flops, bytes, dtype) per direction."""
+  each with CUDA events. The forward's bound counts the head products of
+  every (frame, label position) pair: it has no lengths, and defines every
+  output, as JAX's does. The backward's counts those of the live pairs, t
+  < num_frames and u <= num_labels, alone: the string DP masks the others,
+  their cotangents are zero and the kernel skips them. Checks under the
+  profiler that the forward runs its row-reduce product and no head_kernel
+  (the design before). Returns (kernel ms, plain ms, errors, flops, bytes,
+  dtype) per direction."""
   pc, pf, head, wy, by = inputs
-  fwd_k, fwd_ms = timed(torch, lambda: numerator_scan.numerator_forward(
-      pc, pf, head, wy, by, **kw))
+  forward = lambda: numerator_scan.numerator_forward(pc, pf, head, wy, by,
+                                                     **kw)
+  names = launched_kernels(torch, forward)
+  check(any('row_lse_kernel' in n for n in names) and
+        not any(re.search(r'(?<!\w)head_kernel', n) for n in names),
+        f'the numerator forward launched {sorted(names)}')
+  fwd_k, fwd_ms = timed(torch, forward)
   bwd_k, bwd_ms = timed(torch, lambda: numerator_scan.numerator_backward(
       pc, pf, head, wy, by, fwd_k[2], fwd_k[3], *g, **kw))
   fwd_p, plain_fwd_ms = timed(
@@ -1533,25 +1557,28 @@ def numerator_alone(torch, numerator_scan, inputs, g, kw, num_frames,
   max_t, batch, hidden = pf.shape
   rows, vocab = pc.shape[0], head['vocab_w'].shape[1]
   live_pairs = int((num_frames.clamp(max=max_t) * (num_labels + 1)).sum())
-  flops = 2.0 * live_pairs * hidden * vocab
+  all_pairs = max_t * rows
+  fwd_flops = 2.0 * all_pairs * hidden * vocab
+  bwd_flops = 3 * 2.0 * live_pairs * hidden * vocab
   dtype = str(kw['compute_dtype'])[6:]
   fwd_bytes = (nbytes(pc, pf, wy, by, *head.values()) +
                nbytes(*fwd_k))
   bwd_bytes = (nbytes(pc, pf, wy, by, *head.values(), fwd_k[2], fwd_k[3],
                       *g) + nbytes(*bwd_k))
   return {
-      'forward': (fwd_ms, plain_fwd_ms, fwd_err, flops, fwd_bytes, dtype),
-      'backward': (bwd_ms, plain_bwd_ms, bwd_err, 3 * flops, bwd_bytes,
+      'forward': (fwd_ms, plain_fwd_ms, fwd_err, fwd_flops, fwd_bytes,
+                  dtype),
+      'backward': (bwd_ms, plain_bwd_ms, bwd_err, bwd_flops, bwd_bytes,
                    dtype),
       'line': (f'numerator kernels alone, {dtype} '
                f'{"hat" if kw["hat"] else "log_softmax"} B={batch} '
-               f'T={max_t} R={rows} V={vocab} h={hidden}, {live_pairs} live '
-               f'(frame, position) pairs of {max_t * rows}: forward kernel '
-               f'{fwd_ms:.1f} ms (bound {bound(flops, fwd_bytes, dtype)[0]:.1f}'
-               f'), plain {plain_fwd_ms:.1f} ms; backward kernel '
-               f'{bwd_ms:.1f} ms (bound '
-               f'{bound(3 * flops, bwd_bytes, dtype)[0]:.1f}), plain '
-               f'{plain_bwd_ms:.1f} ms; vs plain: '
+               f'T={max_t} R={rows} V={vocab} h={hidden}: forward kernel '
+               f'{fwd_ms:.1f} ms (bound '
+               f'{bound(fwd_flops, fwd_bytes, dtype)[0]:.1f}, all {all_pairs} '
+               f'(frame, position) pairs), plain {plain_fwd_ms:.1f} ms; '
+               f'backward kernel {bwd_ms:.1f} ms (bound '
+               f'{bound(bwd_flops, bwd_bytes, dtype)[0]:.1f}, {live_pairs} '
+               f'live pairs), plain {plain_bwd_ms:.1f} ms; vs plain: '
                + ', '.join(f'{n} {e:.2e}' for n, (e, _) in
                            {**fwd_err, **bwd_err}.items())),
   }
@@ -1871,8 +1898,15 @@ def phase_confidence(torch, gnat, presets, fused_scan, joint_head, modules):
   fwd, fwd_ms = timed(torch, lambda: fused_scan.fused_forward(
       pf, pc, head, is_pad, with_residuals=True, **kw))
   residuals = (fwd[0], fwd[2], fwd[3])
-  got, marg_ms = timed(torch, lambda: fused_scan.fused_marginals(
-      pf, pc, head, is_pad, *residuals, **kw))
+  marginals = lambda: fused_scan.fused_marginals(pf, pc, head, is_pad,
+                                                 *residuals, **kw)
+  got, marg_ms = timed(torch, marginals)
+  # The bfloat16 route: the backward's row reductions, the last in its
+  # marginals mode, and no marginal_kernel (the design before).
+  names = launched_kernels(torch, marginals)
+  check(any('lex_pass_kernel' in n and 'true' in n for n in names) and
+        not any('marginal_kernel' in n for n in names),
+        f'the bfloat16 marginals launched {sorted(names)}')
   want, marg_plain_ms = timed(torch, lambda: fused_scan.fused_marginals_plain(
       pf, pc, head, is_pad, *residuals, **kw))
   tol = long_rtol(fwd[0])
@@ -1923,7 +1957,9 @@ def phase_confidence(torch, gnat, presets, fused_scan, joint_head, modules):
   say('confidence',
       f'kernels alone, bf16 B=8 T=1600 S=1025 V=1024 h=512 FLD(2): forward '
       f'{fwd_ms:.1f} ms, marginals {marg_ms:.1f} ms (bound '
-      f'{bound(flops, traffic, "bfloat16")[0]:.1f} ms), marginals plain '
+      f'{bound(flops, traffic, "bfloat16")[0]:.1f} ms, one product a '
+      f'frame-row; {bound(k * flops, traffic, "bfloat16")[0]:.1f} ms for the '
+      f'{k} products a frame-row that recomputing lex runs), marginals plain '
       f'{marg_plain_ms:.1f} ms; marginals vs plain on the same residuals: '
       f'bm {errors["bm"][0]:.2e}, lp {errors["lp"][0]:.2e}')
 
@@ -2013,7 +2049,9 @@ def phase_confidence_headline(torch, lattices, contexts, alignments,
       f'V=1024 h=512 FLD(2), bf16) {ms:.1f} ms '
       f'({batch_size * max_t / ms * 1e3:.0f} frames/s); kernels alone: '
       f'forward {fwd_ms:.1f} ms, marginals {marg_ms:.1f} ms (bound '
-      f'{bound(flops, traffic, "bfloat16")[0]:.1f} ms); blank sums within '
+      f'{bound(flops, traffic, "bfloat16")[0]:.1f} ms, one product a '
+      f'frame-row; {bound(2 * flops, traffic, "bfloat16")[0]:.1f} ms for '
+      f'two); blank sums within '
       f'exp(+-{drift:.3g}) of 1 (worst case exp(+-{worst:.3g})), label sums '
       f'at most {ratio:.4f} blank sums')
 
@@ -2088,8 +2126,12 @@ def phase_large_vocab(torch, gnat, presets, fused_scan, semirings, pytree,
   _, backtrace_ms = timed(
       torch, lambda: viterbi.backtrace(*forward_out, is_pad, **bigram),
       repeats=3)
+  # Its bound: one [S, h] x [h, V] product per real frame-row.
+  flops = 2.0 * real_frames * pc.shape[0] * head['vocab_w'].numel()
+  traffic = nbytes(pf, pc, *head.values(), is_pad, *forward_out)
   say('large-vocab', f'viterbi_forward bf16 B=8 T_max={frames.shape[1]} '
-      f'S=4097 V=4096 h=512 alone: {forward_ms:.1f} ms; '
+      f'S=4097 V=4096 h=512 alone: {forward_ms:.1f} ms (bound '
+      f'{bound(flops, traffic, "bfloat16")[0]:.1f} ms); '
       + decode_split(decode_ms, forward_ms, backtrace_ms))
   return mode, launches, viterbi_launches, forward_ms
 

@@ -91,7 +91,7 @@
 //   cache delivers, a lex read by the bytes alone. In 'online' mode every
 //   reduction is the product. The last merge of a frame runs in its
 //   update.
-// * The float32 comparison mode, the trigram and the marginals:
+// * The float32 comparison mode, the trigram and the float32 marginals:
 //   tile_product.cuh's 64 x 64 tiles (WMMA in bfloat16, FMAs in float32).
 //   The forward's first reduction runs in the epilogue of the head
 //   product; in 'cache' mode with two or more per frame the product stores
@@ -151,8 +151,16 @@
 //   lp[b, y] = sum_j sum_s exp(a_j[s] + lex[s, y] + nb_j[1 + y] - log_z),
 // a column sum that crosses the blocks splitting the states: each (row,
 // state tile) block writes its own partial, one reduce launch per frame adds
-// them (no atomics, deterministic). lex is staged for the frame, as the
-// cache backward stages it.
+// them (no atomics, deterministic). In float32 lex is staged for the frame
+// ([B, S, V]) and read back by marginal_kernel. In bfloat16 (FD, FLD(k >=
+// 1); hopper::run_marginals) the frames run the bfloat16 backward's wgmma
+// row reductions over their live rows, the last one in its marginals mode:
+// the posteriors and their column sums in its epilogue, in float32, unrounded
+// (the backward rounds its d_lex to bfloat16); every reduction recomputes the
+// head product, so nothing of [B, S, V] is held (134 MB of float32 lex at
+// B=32, V=1024 before), and no gradient product runs. What bounds it: the
+// k head products a frame-row (2 S h V each) on the tensor cores; under
+// FLD(2) twice the one-product bound that the forward meets by staging lex.
 //
 // Trigram mode (trigram_forward / trigram_backward). Replaces the Pallas TPU
 // kernels of last_torch_tpu/ops/trigram_scan.py: _trigram_forward_kernel
@@ -1207,12 +1215,16 @@ constexpr int lex_pass_extra() {
 
 // NPairs > 0: the last reduction with that many (a_p, nb_p) pairs, known
 // at compile time (FD, FLD(1): 1; FLD(2): 2); -1: the last reduction with
-// pairs.n of them; 0: an earlier reduction. Grid (live rows * ceil(s_count
-// / 64), ceil(Vp / 128)).
-template <int NPairs>
+// pairs.n of them; 0: an earlier reduction. Marginals (a last reduction of
+// the marginals scan, run_marginals): g = 1 (p.g is not read), no d_lex,
+// the marginals summed unrounded and their column sums written, not added,
+// to dvb (the frame's lp_part). Grid (live rows * ceil(s_count / 64),
+// ceil(Vp / 128)).
+template <int NPairs, bool Marginals = false>
 __global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
     lex_pass_kernel(const __grid_constant__ Maps maps, const LexPass p) {
   constexpr bool Last = NPairs != 0;
+  static_assert(Last || !Marginals, "the marginals are a last reduction");
   extern __shared__ uint8_t raw[];
   const Ring<4> ring(raw);
   const int launch_tiles = cdiv(p.s_count, 64);
@@ -1286,16 +1298,26 @@ __global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
       m[half] = fmaxf(m[half], __shfl_xor_sync(0xffffffffu, m[half], o));
     }
   }
-  const float lz = Last ? p.log_z[b] : 0.f, gb = Last ? p.g[b] : 0.f;
+  const float lz = Last ? p.log_z[b] : 0.f;
+  const float gb = Last && !Marginals ? p.g[b] : 0.f;
+  // The marginal of a total over the pairs: rounded to bfloat16 with the
+  // cotangent for d_lex, or the posterior itself.
+  auto marginal = [&](float total) {
+    if constexpr (Marginals) {
+      return total;
+    } else {
+      return __bfloat162float(__float2bfloat16(gb * total));
+    }
+  };
   // Stores the marginals dv of the thread's 2 x 2 entries of column group j
-  // (rounded) to d_lex and their column sums to red.
+  // to d_lex (not in the marginals scan) and their column sums to red.
   auto put_marginals = [&](int j, const float (&dv)[2][2]) {
     const int y0 = n0 + j * 8 + (lane % 4) * 2;
     float cs[2] = {dv[0][0] + dv[1][0], dv[0][1] + dv[1][1]};
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int s = srow[half];
-      if (s < s_end && y0 < p.Vp) {
+      if (!Marginals && s < s_end && y0 < p.Vp) {
         const size_t at =
             static_cast<size_t>(b) * p.s_count + (s - p.s_begin);
         *reinterpret_cast<__nv_bfloat162*>(p.d_lex + at * p.Vp + y0) =
@@ -1351,7 +1373,7 @@ __global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
             for (int q = 1; q < kP; ++q) {
               total += expf(arow[q][half] + x + nbq_y[q]);
             }
-            v = __bfloat162float(__float2bfloat16(gb * total));
+            v = marginal(total);
           }
           dv[half][e] = v;
         }
@@ -1404,7 +1426,7 @@ __global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
               total += expf(p.pairs.a[q][row0 + s] + x +
                             p.pairs.nb[q][row0 + 1 + y]);
             }
-            v = __bfloat162float(__float2bfloat16(gb * total));
+            v = marginal(total);
           }
           dv[half][e] = v;
         }
@@ -1419,19 +1441,25 @@ __global__ void __launch_bounds__(wgmma_tiles::kThreads, 2)
       float total = 0.f;
 #pragma unroll
       for (int w = 0; w < 4; ++w) total += red[w * kBN + t];
-      p.dvb[(static_cast<size_t>(b) * cdiv(p.S, 64) + s0 / 64) * p.V + y] +=
-          total;
+      float* out =
+          p.dvb + (static_cast<size_t>(b) * cdiv(p.S, 64) + s0 / 64) * p.V + y;
+      if constexpr (Marginals) {
+        *out = total;
+      } else {
+        *out += total;
+      }
     }
   }
 }
 
-template <int NPairs>
+template <int NPairs, bool Marginals = false>
 cudaError_t launch_lex_pass(const Maps& maps, const LexPass& p, int live,
                             cudaStream_t stream) {
   constexpr int kSmem = smem_bytes(4, lex_pass_extra<NPairs>());
-  const cudaError_t err = allow_smem<lex_pass_kernel<NPairs>>(kSmem);
+  const cudaError_t err =
+      allow_smem<lex_pass_kernel<NPairs, Marginals>>(kSmem);
   if (err != cudaSuccess) return err;
-  lex_pass_kernel<NPairs>
+  lex_pass_kernel<NPairs, Marginals>
       <<<dim3(live * cdiv(p.s_count, 64), cdiv(p.Vp, kBN)),
          wgmma_tiles::kThreads, kSmem, stream>>>(maps, p);
   return cudaGetLastError();
@@ -1572,6 +1600,97 @@ int run_backward(const float* pf, const float* pc, const bf16* vw,
                    {dbb_acc, B * S, 1, dbb}},
                   5};
   RETURN_IF_ERROR(launch_sums(sums, stream));
+  return 0;
+}
+
+// The bfloat16 marginals scan (FD, FLD(k >= 1)): run_backward's frame loop
+// without its gradient work. Per frame t with live[t] > 0 rows (their
+// indices first in rows[t]) the bfloat16 joint and the blank of those rows
+// (no float32 joint: no tanh derivative is taken), the k - 1 earlier row
+// reductions (lex_pass_kernel<0>, each merged by row_merge_kernel), the
+// last with the marginals epilogue (lex_pass_kernel<NPairs, true>: the
+// frame's label posteriors per (row, 64-state tile) into lp_part [B,
+// ceil(S / 64), V]), its merge with g = 1 (the next beta and the blank
+// posteriors bm[t]), and label_sum_kernel (lp[t], zero on padding rows).
+// Every reduction recomputes the head product: no [B, S, V] buffer. A frame
+// with no live row only holds beta and writes zeros. vw is the padded head
+// [hp, Vp], joint [B, S, hp]; part_m / part_l are [ceil(Vp / 128), B, S].
+int run_marginals(const float* pf, const float* pc, const bf16* vw,
+                  const float* vb, const bf16* bw, const float* bb,
+                  const int* is_pad, const float* log_z, const float* hist,
+                  const float* slabs, bf16* joint, float* blank,
+                  float* part_m, float* part_l, float* nb, float* beta,
+                  float* lp_part, float* bm, float* lp, int T, int B, int S,
+                  int h, int V, int max_expansions, int frame_dependent,
+                  const int* live, const int* rows, cudaStream_t stream) {
+  const int k = frame_dependent ? 0 : max_expansions;
+  const int passes = frame_dependent ? 1 : max_expansions;
+  if (passes < 1 || k + 1 > kMaxAlphas || (T > 0 && live == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int hp = round_up(h, kBK), Vp = round_up(V, kBK);
+  const int strips = cdiv(Vp, kBN), t64 = cdiv(S, 64);
+  const size_t bs = static_cast<size_t>(B) * S;
+  // The products read the joint and the head; there is no d_lex.
+  Maps maps{};
+  if (B > 0 && S > 0) {
+    const cuuint64_t joint_dims[3] = {static_cast<cuuint64_t>(hp),
+                                      static_cast<cuuint64_t>(S),
+                                      static_cast<cuuint64_t>(B)};
+    const cuuint64_t vw_dims[2] = {static_cast<cuuint64_t>(Vp),
+                                   static_cast<cuuint64_t>(hp)};
+    RETURN_IF_ERROR(box_map(&maps.joint, joint, 3, joint_dims));
+    RETURN_IF_ERROR(box_map(&maps.vw, vw, 2, vw_dims));
+  }
+  for (int n = 0; n < T; ++n) {
+    const int t = T - 1 - n, L = live[t];
+    const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
+    const int* rows_t = rows + static_cast<size_t>(t) * B;
+    const float* beta_cur = beta + (n % 2) * bs;
+    float* beta_next = beta + ((n + 1) % 2) * bs;
+    if (L > 0) {
+      joint_blank_kernel<bf16><<<dim3(S, B), kJointThreads, 0, stream>>>(
+          pf + static_cast<size_t>(t) * B * h, is_pad_t, pc, bw, bb,
+          beta_cur, k >= 1 ? nb + (k - 1) * bs : nullptr, joint, nullptr,
+          blank, S, h, hp, 0);
+      RETURN_IF_ERROR(cudaGetLastError());
+    }
+    Alphas alphas;
+    alphas.n = 1 + k;
+    alphas.a[0] = hist + t * bs;
+    for (int j = 0; j < k; ++j) {
+      alphas.a[1 + j] = slabs + (static_cast<size_t>(j) * T + t) * bs;
+    }
+    Pairs pairs;
+    pairs.n = passes;
+    for (int j = 0; j < passes; ++j) {
+      pairs.a[j] = alphas.a[j];
+      pairs.nb[j] = frame_dependent ? beta_cur : nb + j * bs;
+    }
+    for (int p = 0; p < passes; ++p) {
+      const bool last = p == passes - 1;
+      const LexPass lp{vb, frame_dependent ? beta_cur : nb + (k - 1 - p) * bs,
+                       part_m, part_l, rows_t, pairs, log_z, nullptr,
+                       nullptr, lp_part, B, S, hp, V, Vp, 0, S};
+      if (L > 0) {
+        RETURN_IF_ERROR((
+            !last         ? launch_lex_pass<0>(maps, lp, L, stream)
+            : passes == 1 ? launch_lex_pass<1, true>(maps, lp, L, stream)
+            : passes == 2 ? launch_lex_pass<2, true>(maps, lp, L, stream)
+                          : launch_lex_pass<-1, true>(maps, lp, L, stream)));
+      }
+      row_merge_kernel<<<blocks_for(bs), kPointThreads, 0, stream>>>(
+          part_m, part_l, L > 0 ? strips : 0, is_pad_t, blank, beta_cur,
+          last ? beta_next : nb + (k - 2 - p) * bs, last, alphas, log_z,
+          nullptr, bm + t * bs, nullptr, B, S, 0, S);
+      RETURN_IF_ERROR(cudaGetLastError());
+    }
+    label_sum_kernel<<<blocks_for(static_cast<size_t>(B) * V), kPointThreads,
+                       0, stream>>>(lp_part, is_pad_t,
+                                    lp + static_cast<size_t>(t) * B * V, B,
+                                    t64, V);
+    RETURN_IF_ERROR(cudaGetLastError());
+  }
   return 0;
 }
 
@@ -2062,6 +2181,14 @@ int trigram_backward(int dtype, const float* pf, const float* pc,
 // beta ([2, B, S], zero in slot 0 on entry), lp_part ([B, ceil(S/64), V]);
 // outputs bm [T, B, S] (blank posteriors) and lp [T, B, V] (label
 // posteriors summed over the states), zero on padding frames.
+// In bfloat16, FD or FLD(k >= 1), the frames run on the backward's wgmma
+// row reductions over their live rows (hopper::run_marginals): live [T]
+// (host memory) counts each frame's real rows and rows [T, B] (device)
+// lists them first; vw is then the padded head [hp, Vp] and joint [B, S,
+// hp] (hp, Vp: h and V rounded up to 64, vw's padding zero), part_m /
+// part_l are [ceil(Vp / 128), B, S], and lex is not used (each reduction
+// recomputes the head product) and may be null. Elsewhere live and rows
+// may be null.
 int fused_marginals(int dtype, const float* pf, const float* pc,
                     const void* vw, const float* vb, const void* bw,
                     const float* bb, const int* is_pad, const float* log_z,
@@ -2070,8 +2197,18 @@ int fused_marginals(int dtype, const float* pf, const float* pc,
                     float* nb, float* beta, float* lp_part, float* bm,
                     float* lp, int num_frames, int B, int S, int h, int V,
                     int max_expansions, int frame_dependent, int max_ysplits,
-                    void* stream) {
+                    const int* live, const int* rows, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int passes = frame_dependent ? 1 : max_expansions;
+  if (dtype == 1 && passes >= 1) {
+    using hopper::bf16;
+    return hopper::run_marginals(
+        pf, pc, static_cast<const bf16*>(vw), vb,
+        static_cast<const bf16*>(bw), bb, is_pad, log_z, hist, slabs,
+        static_cast<bf16*>(joint), blank, part_m, part_l, nb, beta, lp_part,
+        bm, lp, num_frames, B, S, h, V, max_expansions, frame_dependent,
+        live, rows, s);
+  }
   if (dtype == 0) {
     return run_marginals<float>(
         pf, pc, static_cast<const float*>(vw), vb,

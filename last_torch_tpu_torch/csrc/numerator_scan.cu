@@ -39,30 +39,33 @@
 // d_bw = sum d_blank joint32, d_by[r] = sum_t gl, d_bb = sum d_blank.
 //
 // What bounds it here. Per frame the forward runs one [R, h] x [h, V] head
-// product (2 T R h V = 1.36 TFLOP at B=8, U1=101, T=1600, h=512, V=1024)
-// and the backward three (the replayed logits, dj and d_W): compute-bound
-// products. The string DP masks every frame past a row's length and every
-// label position past its labels, so their cotangents are zero and they
-// contribute exactly zero: at bench shapes half of the (frame, row) pairs.
+// product over every (frame, row) pair (2 T R h V = 1.36 TFLOP at B=8,
+// U1=101, T=1600, h=512, V=1024) and the backward three (the replayed
+// logits, dj and d_W): compute-bound products. The string DP masks every
+// frame past a row's length and every label position past its labels, so
+// their cotangents are zero and they contribute exactly zero to the
+// backward, which skips them: at bench shapes half of the pairs.
 // In float32 (the training default) the products run on the CUDA cores
 // (67 TFLOP/s peak), in bfloat16 on the tensor cores (989 TFLOP/s).
 //
 // What the design does about it:
 // * Forward. The weights have no recurrence over time: each frame's
 //   outputs depend on that frame alone. The TPU walked T as a sequential
-//   grid axis only to keep W and its gradient sums resident in VMEM. Here
-//   the forward is one launch over all frames, grid (row tiles, label
-//   splits, frames), and one small merge launch; no host time loop. A block
-//   stages the joint of its 64 rows in shared memory, formed from pc and pf
-//   as it loads (the [T, R, h] joint, 1.3 GB in float32 at B=8, is never
-//   stored), and walks its label strips against it: float32 FMAs from a
-//   k-major tile, or WMMA bfloat16 products from a row-major one. The tile
-//   holds at most kChunk hidden units (512 float32, 1024 bfloat16), so its
-//   shared memory does not grow with h: up to kChunk the joint is staged
-//   once for all strips; past it, each strip re-stages the joint chunk by
-//   chunk and sums the chunks' products. The logsumexp over V is an online
-//   (max, sum) per row over the strips, merged across splits as
-//   fused_scan.cu does.
+//   grid axis only to keep W resident in VMEM. Here the forward walks the
+//   (frame, 64-row tile) items of all T frames in chunks of frames (the
+//   backward's items and slots, every item live: the forward has no
+//   lengths, and JAX's defines every (t, r) output), three launches a
+//   chunk. forward_joint_kernel writes the chunk's joint in the compute
+//   type ([slots, 64, hp], zero past R and h) and, from the float32 joint,
+//   the float32 scores blank and ly. The head product then reduces each
+//   row over a label strip to one online (max, sum) pair in its epilogue,
+//   no logits stored: bfloat16 on wgmma (hopper::row_lse_kernel, 128-label
+//   strips), float32 exact on the FMA tiles (simt::row_lse_kernel,
+//   256-label strips); both persistent grids walk the chunk's items.
+//   forward_merge_kernel merges the strips into z, nb and nl. The joint is
+//   formed once per item, not once per label strip, and the head's tiles
+//   come from the L2 cache; any h works (the depth is walked in 64-deep
+//   stages).
 // * Backward: live tiles only. The [B, U1] rows are flattened (no padding
 //   to 8 or 128) into 64-row tiles, which may hold the end of one batch row
 //   and the start of the next. mark_kernel flags each (frame, row tile)
@@ -96,7 +99,7 @@
 //   the ds product, d_bw per tile, d_wy per (tile, hidden strip)), zeroed
 //   once and reduced by one launch at the end: no atomics, deterministic
 //   sums for the same inputs.
-// * bfloat16 runs the three products on wgmma with TMA operands
+// * bfloat16 runs the backward's three products on wgmma with TMA operands
 //   (wgmma_tiles.cuh: a 4-stage mbarrier ring, one consumer warpgroup, two
 //   blocks an SM): the ds product here (lex_grad_kernel, a persistent grid
 //   over the chunk's items by 128-label strip), the d_joint product
@@ -114,7 +117,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 
 #include "head_grads.cuh"
 #include "tile_product.cuh"
@@ -124,9 +126,6 @@ namespace {
 using namespace lattice_tiles;
 
 constexpr int kRows = 64;             // rows per block tile
-constexpr int kLdT = kBM + 4;         // k-major float32 joint tile stride
-constexpr int kLdW = 64 + 8;          // bfloat16 W slice stride
-constexpr int kLdC = kBN + 4;         // float32 accumulator tile stride
 constexpr int kPointThreads = 256;
 
 __device__ __forceinline__ float safe_shift(float m) {
@@ -151,339 +150,6 @@ __device__ __forceinline__ float log_sigmoid(float x) {
 
 __host__ __device__ inline int round_up(int x, int m) {
   return (x + m - 1) / m * m;
-}
-
-// Shared-memory layout of the joint tile, which holds hc = min(h, kChunk)
-// hidden units: float32 k-major [round_up(hc, kBK)][kLdT] plus a
-// [kBK][kBN] W slice; bfloat16 row-major [kRows][round_up(hc, kWK) + 8]
-// plus a [kWK][kLdW] W slice and a float32 [kBM][kLdC] accumulator tile.
-template <typename T>
-struct Resident;
-
-template <>
-struct Resident<float> {
-  static constexpr int kChunk = 512;
-  static __host__ __device__ int ld(int) { return kLdT; }
-  static __host__ __device__ size_t bytes(int h) {
-    const int hc = h < kChunk ? h : kChunk;
-    return sizeof(float) * (static_cast<size_t>(round_up(hc, kBK)) * kLdT +
-                            kBK * kBN);
-  }
-};
-
-template <>
-struct Resident<__nv_bfloat16> {
-  static constexpr int kChunk = 1024;
-  static __host__ __device__ int ld(int h) {
-    return round_up(h < kChunk ? h : kChunk, kWK) + 8;
-  }
-  static __host__ __device__ size_t bytes(int h) {
-    return sizeof(__nv_bfloat16) *
-               (static_cast<size_t>(kRows) * ld(h) + kWK * kLdW) +
-           sizeof(float) * kBM * kLdC;
-  }
-};
-
-__device__ __forceinline__ void store_joint(float* js, int ldj, int row,
-                                            int k, float j) {
-  js[k * kLdT + row] = j;
-}
-
-__device__ __forceinline__ void store_joint(__nv_bfloat16* js, int ldj,
-                                            int row, int k, float j) {
-  js[row * ldj + k] = __float2bfloat16(j);
-}
-
-// Stages hidden units [c0, c0 + hc) of rows r0.. of frame t into the joint
-// tile, zero outside [R, h] (up to the tile's padded depth hc_pad). With
-// blank_out, also sums the float32 blank and label scores of each row over
-// the chunks into dots [2][kRows] (the chunk c0 = 0 starts them) and, at
-// the last chunk, writes them (ly into ly_out). Each row belongs to one
-// warp, whose lane 0 alone touches its sums.
-template <typename T>
-__device__ void stage_joint(T* js, int ldj, const float* __restrict__ pc,
-                            const float* __restrict__ pf_t,
-                            const float* __restrict__ bw,
-                            const float* __restrict__ bb,
-                            const float* __restrict__ wy,
-                            const float* __restrict__ by, int r0, int R,
-                            int U1, int h, int c0, int hc, int hc_pad,
-                            float (*dots)[kRows],
-                            float* __restrict__ blank_out,
-                            float* __restrict__ ly_out) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int row = warp; row < kRows; row += kThreads / 32) {
-    const int r = r0 + row;
-    const bool valid = r < R;
-    const float* pc_row = pc + static_cast<size_t>(r) * h + c0;
-    const float* pf_row =
-        pf_t + static_cast<size_t>(valid ? r / U1 : 0) * h + c0;
-    const float* wy_row = wy + static_cast<size_t>(r) * h + c0;
-    float dot_b = 0.f, dot_y = 0.f;
-    for (int k = lane; k < hc_pad; k += 32) {
-      float j = 0.f;
-      if (valid && k < hc) {
-        j = tanhf(pc_row[k] + pf_row[k]);
-        if (blank_out != nullptr) {
-          dot_b = fmaf(j, bw[c0 + k], dot_b);
-          dot_y = fmaf(j, wy_row[k], dot_y);
-        }
-      }
-      store_joint(js, ldj, row, k, j);
-    }
-    if (blank_out != nullptr) {
-      for (int o = 16; o > 0; o >>= 1) {
-        dot_b += __shfl_xor_sync(0xffffffffu, dot_b, o);
-        dot_y += __shfl_xor_sync(0xffffffffu, dot_y, o);
-      }
-      if (lane == 0 && valid) {
-        if (c0 > 0) {
-          dot_b += dots[0][row];
-          dot_y += dots[1][row];
-        }
-        if (c0 + hc < h) {
-          dots[0][row] = dot_b;
-          dots[1][row] = dot_y;
-        } else {
-          blank_out[r] = dot_b + bb[0];
-          ly_out[r] = dot_y + by[r];
-        }
-      }
-    }
-  }
-}
-
-// acc[i][j] = sum_k joint(ty*kTM + i, k) W[k, y0 + tx*kTN + j] from the
-// resident tile, k < h; columns >= V read W as 0.
-__device__ __forceinline__ void resident_product(
-    const float* __restrict__ js, int ldj, float* __restrict__ w_tile,
-    float* __restrict__ c_tile, const float* __restrict__ W, int V, int y0,
-    int h, float (&acc)[kTM][kTN]) {
-  const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-  }
-  for (int k0 = 0; k0 < h; k0 += kBK) {
-    for (int idx = tid; idx < kBK * kBN; idx += kThreads) {
-      const int r = idx / kBN, c = idx % kBN;
-      const int k = k0 + r, y = y0 + c;
-      w_tile[r * kBN + c] =
-          (k < h && y < V) ? W[static_cast<size_t>(k) * V + y] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[kTM], w[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) a[i] = js[(k0 + kk) * kLdT + ty * kTM + i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) w[j] = w_tile[kk * kBN + tx * kTN + j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__device__ __forceinline__ void resident_product(
-    const __nv_bfloat16* __restrict__ js, int ldj,
-    __nv_bfloat16* __restrict__ w_tile, float* __restrict__ c_tile,
-    const __nv_bfloat16* __restrict__ W, int V, int y0, int h,
-    float (&acc)[kTM][kTN]) {
-  using namespace nvcuda;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;  // 4 x 2 warps over 64 x 64
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c_frag[2];
-  wmma::fill_fragment(c_frag[0], 0.f);
-  wmma::fill_fragment(c_frag[1], 0.f);
-  const bool w_vec = V % 8 == 0 && aligned16(W);
-  for (int k0 = 0; k0 < h; k0 += kWK) {
-    stage_slice(w_tile, kLdW, W + static_cast<size_t>(k0) * V + y0, V, h - k0,
-                V - y0, w_vec);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kWK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major>
-          a_frag;
-      wmma::load_matrix_sync(a_frag, &js[wm * 16 * ldj + k0 + kk], ldj);
-#pragma unroll
-      for (int n = 0; n < 2; ++n) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            b_frag;
-        wmma::load_matrix_sync(b_frag, &w_tile[kk * kLdW + wn * 32 + n * 16],
-                               kLdW);
-        wmma::mma_sync(c_frag[n], a_frag, b_frag, c_frag[n]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int n = 0; n < 2; ++n) {
-    wmma::store_matrix_sync(&c_tile[wm * 16 * kLdC + wn * 32 + n * 16],
-                            c_frag[n], kLdC, wmma::mem_row_major);
-  }
-  __syncthreads();
-  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      acc[i][j] = c_tile[(ty * kTM + i) * kLdC + tx * kTN + j];
-    }
-  }
-  __syncthreads();
-}
-
-// The head product over one split of the label strips for a 64-row tile of
-// frame blockIdx.z: the online (max, sum) of the logits per row into
-// part_m / part_l [splits, frames, R]; split 0 also writes blank and ly
-// [frames, R]. Grid (ceil(R / 64), splits, frames). CHUNKED: h exceeds the
-// joint tile's chunk (a launch without it takes h <= Resident<T>::kChunk
-// and compiles to one chunk).
-template <typename T, bool CHUNKED>
-__global__ void __launch_bounds__(kThreads)
-    head_kernel(const float* __restrict__ pc,      // [R, h]
-                const float* __restrict__ pf,      // [T, B, h] from frame t0
-                const T* __restrict__ W,           // [h, V]
-                const float* __restrict__ vb,      // [V]
-                const float* __restrict__ bw,      // [h]
-                const float* __restrict__ bb,      // [1]
-                const float* __restrict__ wy,      // [R, h]
-                const float* __restrict__ by,      // [R]
-                float* __restrict__ part_m,        // [splits, frames, R]
-                float* __restrict__ part_l,
-                float* __restrict__ blank_out,     // [frames, R]
-                float* __restrict__ ly_out,        // [frames, R]
-                int R, int B, int U1, int h, int V, int strips_per_split) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float dots[2][kRows];
-  const int ldj = Resident<T>::ld(h);
-  const int chunk = CHUNKED ? Resident<T>::kChunk : h;
-  const int num_chunks = CHUNKED ? (h + chunk - 1) / chunk : 1;
-  // The tile's depth: the products read whole kBK (float32) or kWK
-  // (bfloat16) slices, zero past the chunk.
-  const int h_pad = sizeof(T) == 4 ? round_up(min(h, chunk), kBK)
-                                   : round_up(min(h, chunk), kWK);
-  T* js = reinterpret_cast<T*>(smem);
-  T* w_tile;
-  float* c_tile = nullptr;
-  if (sizeof(T) == 4) {
-    w_tile = js + static_cast<size_t>(h_pad) * kLdT;
-  } else {
-    w_tile = js + static_cast<size_t>(kRows) * ldj;
-    c_tile = reinterpret_cast<float*>(w_tile + kWK * kLdW);
-  }
-  const int tid = threadIdx.x;
-  const int tx = tid % (kBN / kTN), ty = tid / (kBN / kTN);
-  const int r0 = blockIdx.x * kRows;
-  const int f = blockIdx.z;  // frame within the launch
-  const size_t fr = static_cast<size_t>(f) * R;
-  const int strips = (V + kBN - 1) / kBN;
-  const int strip_begin = blockIdx.y * strips_per_split;
-  const int strip_end = min(strips, strip_begin + strips_per_split);
-  const bool first_split = blockIdx.y == 0;
-
-  // Stages chunk c of the joint; `outputs`: also blank and ly, written by
-  // the first split once per row.
-  auto stage = [&](int c, bool outputs) {
-    const int c0 = CHUNKED ? c * chunk : 0;
-    const int hc = CHUNKED ? min(chunk, h - c0) : h;
-    const bool scores = first_split && outputs;
-    stage_joint<T>(js, ldj, pc, pf + static_cast<size_t>(f) * B * h, bw, bb,
-                   wy, by, r0, R, U1, h, c0, hc,
-                   sizeof(T) == 4 ? round_up(hc, kBK) : round_up(hc, kWK),
-                   dots, scores ? blank_out + fr : nullptr,
-                   scores ? ly_out + fr : nullptr);
-    __syncthreads();
-  };
-  if (num_chunks == 1 || strip_begin >= strip_end) {
-    for (int c = 0; c < num_chunks; ++c) stage(c, true);
-  }
-
-  // The running (max, sum) of this thread's rows.
-  float run_m[kTM], run_l[kTM];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    run_m[i] = -INFINITY;
-    run_l[i] = 0.f;
-  }
-
-  for (int strip = strip_begin; strip < strip_end; ++strip) {
-    const int y0 = strip * kBN;
-    float val[kTM][kTN];
-    if (num_chunks == 1) {
-      resident_product(js, ldj, w_tile, c_tile, W, V, y0, h, val);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) val[i][j] = 0.f;
-      }
-      for (int c = 0; c < num_chunks; ++c) {
-        stage(c, strip == strip_begin);
-        float part[kTM][kTN];
-        resident_product(js, ldj, w_tile, c_tile,
-                         W + static_cast<size_t>(c) * chunk * V, V, y0,
-                         min(chunk, h - c * chunk), part);
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-          for (int j = 0; j < kTN; ++j) val[i][j] += part[i][j];
-        }
-      }
-    }
-    float bias[kTN];
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int y = y0 + tx * kTN + j;
-      bias[j] = y < V ? vb[y] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      float v[kTN];
-      float m = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int y = y0 + tx * kTN + j;
-        v[j] = y < V ? val[i][j] + bias[j] : -INFINITY;
-        m = fmaxf(m, v[j]);
-      }
-      // The 16 threads of a row group are lanes of one half-warp.
-      for (int o = 8; o > 0; o >>= 1) {
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      }
-      const float c = safe_shift(m);
-      float l = 0.f;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) l += expf(v[j] - c);
-      for (int o = 8; o > 0; o >>= 1) {
-        l += __shfl_xor_sync(0xffffffffu, l, o);
-      }
-      lse_merge(run_m[i], run_l[i], m, l);
-    }
-  }
-
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int r = r0 + ty * kTM + i;
-      if (r < R) {
-        const size_t at =
-            (static_cast<size_t>(blockIdx.y) * gridDim.z + f) * R + r;
-        part_m[at] = run_m[i];
-        part_l[at] = run_l[i];
-      }
-    }
-  }
 }
 
 // z = merged logsumexp; nb, nl from it, blank and ly (held in nl on entry).
@@ -546,50 +212,6 @@ __global__ void __launch_bounds__(kPointThreads)
 
 inline int blocks_for(size_t n) {
   return static_cast<int>((n + kPointThreads - 1) / kPointThreads);
-}
-
-// The head kernel for hidden size h (chunked past Resident<T>::kChunk),
-// allowed Resident<T>::bytes(h) of dynamic shared memory (over 48 KB);
-// fails when the card has less.
-template <typename T>
-int head_launch_setup(int h, size_t* bytes,
-                      decltype(&head_kernel<T, false>)* kernel) {
-  *kernel = h > Resident<T>::kChunk ? head_kernel<T, true>
-                                    : head_kernel<T, false>;
-  *bytes = Resident<T>::bytes(h);
-  RETURN_IF_FAILED(cudaFuncSetAttribute(
-      *kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(*bytes)));
-  return 0;
-}
-
-template <typename T>
-int run_forward(const float* pc, const float* pf, const T* W,
-                const float* vb, const float* bw, const float* bb,
-                const float* wy, const float* by, float* part_m,
-                float* part_l, float* nb, float* nl, float* z, float* blank,
-                int num_frames, int B, int U1, int h, int V, int hat,
-                int max_splits, cudaStream_t stream) {
-  const int R = B * U1;
-  const int strips = (V + kBN - 1) / kBN;
-  const int per_split =
-      (strips + max_splits - 1) / (max_splits > 0 ? max_splits : 1);
-  const int splits = (strips + per_split - 1) / per_split;
-  if (num_frames == 0 || R == 0) return 0;
-  size_t bytes = 0;
-  decltype(&head_kernel<T, false>) kernel = nullptr;
-  const int status = head_launch_setup<T>(h, &bytes, &kernel);
-  if (status != 0) return status;
-  const dim3 grid((R + kRows - 1) / kRows, splits, num_frames);
-  kernel<<<grid, kThreads, bytes, stream>>>(pc, pf, W, vb, bw, bb, wy, by,
-                                            part_m, part_l, blank, nl, R, B,
-                                            U1, h, V, per_split);
-  RETURN_IF_LAUNCH_FAILED();
-  const size_t n = static_cast<size_t>(num_frames) * R;
-  forward_merge_kernel<<<blocks_for(n), kPointThreads, 0, stream>>>(
-      part_m, part_l, splits, blank, nb, nl, z, n, hat);
-  RETURN_IF_LAUNCH_FAILED();
-  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -683,6 +305,97 @@ __global__ void __launch_bounds__(kListThreads)
   __syncthreads();
   for (int c = tid; c < chunks; c += kListThreads) {
     count[c] = groups[(c + 1) * R64] - groups[c * R64];
+  }
+}
+
+// Four joint entries (from float32 values) into the joint row: 8 or 16
+// bytes, hh a multiple of 4.
+__device__ __forceinline__ void store4(float* out, const float (&j)[4]) {
+  *reinterpret_cast<float4*>(out) = make_float4(j[0], j[1], j[2], j[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* out,
+                                       const float (&j)[4]) {
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(out);
+  o[0] = __floats2bfloat162_rn(j[0], j[1]);
+  o[1] = __floats2bfloat162_rn(j[2], j[3]);
+}
+
+// The forward's joint pass of a chunk of frames from t0: item slot = (t -
+// t0) R64 + k (every (frame, 64-row tile) of the chunk), joint[slot, row,
+// hh] = T(tanh(pc[r] + pf[t, b(r)])) for r = 64 k + row (zero past R and h,
+// up to hp), and each row's float32 scores from the float32 joint, blank[t,
+// r] = joint32 . bw + bb and ly[t, r] = joint32 . wy[r] + by[r] (JAX's
+// float32 dots). A warp per row, each lane 4 consecutive hidden units at a
+// time (16-byte loads, one 8- or 16-byte store) where h % 4 == 0 and the
+// inputs are 16-byte aligned, else one. Grid (frames R64).
+template <typename T>
+__global__ void __launch_bounds__(kPointThreads)
+    forward_joint_kernel(const float* __restrict__ pc,  // [R, h]
+                         const float* __restrict__ pf,  // [T, B, h]
+                         const float* __restrict__ bw,  // [h]
+                         const float* __restrict__ bb,  // [1]
+                         const float* __restrict__ wy,  // [R, h]
+                         const float* __restrict__ by,  // [R]
+                         T* __restrict__ joint,         // [slots, 64, hp]
+                         float* __restrict__ blank,     // [T, R]
+                         float* __restrict__ ly,        // [T, R]
+                         int t0, int R, int B, int U1, int h, int hp,
+                         int R64) {
+  const int slot = blockIdx.x;
+  const int t = t0 + slot / R64, k = slot % R64;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool vec = h % 4 == 0 && aligned16(pc) && aligned16(pf) &&
+                   aligned16(bw) && aligned16(wy);
+  for (int row = warp; row < kRows; row += kPointThreads / 32) {
+    const int r = k * kRows + row;
+    const bool valid = r < R;
+    const size_t rr = valid ? r : 0;
+    const float* pc_row = pc + rr * h;
+    const float* pf_row =
+        pf + (static_cast<size_t>(t) * B + (valid ? r / U1 : 0)) * h;
+    const float* wy_row = wy + rr * h;
+    T* out = joint + (static_cast<size_t>(slot) * kRows + row) * hp;
+    float dot_b = 0.f, dot_y = 0.f;
+    if (vec) {
+      for (int hh = lane * 4; hh < hp; hh += 128) {
+        float j[4] = {0.f, 0.f, 0.f, 0.f};
+        if (valid && hh < h) {
+          const float4 c = *reinterpret_cast<const float4*>(pc_row + hh);
+          const float4 f = *reinterpret_cast<const float4*>(pf_row + hh);
+          const float4 w = *reinterpret_cast<const float4*>(bw + hh);
+          const float4 y = *reinterpret_cast<const float4*>(wy_row + hh);
+          j[0] = tanhf(c.x + f.x);
+          j[1] = tanhf(c.y + f.y);
+          j[2] = tanhf(c.z + f.z);
+          j[3] = tanhf(c.w + f.w);
+          dot_b = fmaf(j[0], w.x, fmaf(j[1], w.y, fmaf(j[2], w.z,
+                       fmaf(j[3], w.w, dot_b))));
+          dot_y = fmaf(j[0], y.x, fmaf(j[1], y.y, fmaf(j[2], y.z,
+                       fmaf(j[3], y.w, dot_y))));
+        }
+        store4(out + hh, j);
+      }
+    } else {
+      for (int hh = lane; hh < hp; hh += 32) {
+        float j = 0.f;
+        if (valid && hh < h) {
+          j = tanhf(pc_row[hh] + pf_row[hh]);
+          dot_b = fmaf(j, bw[hh], dot_b);
+          dot_y = fmaf(j, wy_row[hh], dot_y);
+        }
+        out[hh] = from_float<T>(j);
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      dot_b += __shfl_xor_sync(0xffffffffu, dot_b, o);
+      dot_y += __shfl_xor_sync(0xffffffffu, dot_y, o);
+    }
+    if (lane == 0 && valid) {
+      const size_t at = static_cast<size_t>(t) * R + r;
+      blank[at] = dot_b + bb[0];
+      ly[at] = dot_y + by[r];
+    }
   }
 }
 
@@ -1186,6 +899,61 @@ __global__ void __launch_bounds__(kThreads, 2) head_grad_kernel(const Args p) {
   }
 }
 
+// The forward's logits of each item on 256 labels (grid (P, ceil(Vp /
+// 256)): block p walks the chunk's items p, p + P, ...): joint . wp + vb in
+// exact float32, reduced per row over the 256 labels to one online (max,
+// sum) pair (a warp holds 8 whole rows: a shuffle over its lanes), written
+// to part_m / part_l [strips, frames R] at f R + r.
+__global__ void __launch_bounds__(kThreads, 2)
+    row_lse_kernel(const float* __restrict__ joint,  // [slots, 64, hp]
+                   const float* __restrict__ wp,     // [hp, Vp]
+                   const float* __restrict__ vb_in,  // [V]
+                   float* __restrict__ part_m, float* __restrict__ part_l,
+                   int count, int R, int R64, int hp, int V, int Vp) {
+  __shared__ Smem sm;
+  __shared__ float vb[kN];  // -inf past V
+  const int n0 = blockIdx.y * kN, ty = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  vb[threadIdx.x] = n0 + threadIdx.x < V ? vb_in[n0 + threadIdx.x]
+                                         : -INFINITY;
+  const size_t n = static_cast<size_t>(count / R64) * R;
+  float* out_m = part_m + blockIdx.y * n;
+  float* out_l = part_l + blockIdx.y * n;
+  for (int slot = blockIdx.x; slot < count; slot += gridDim.x) {
+    const int f = slot / R64, r0 = slot % R64 * kM;
+    float acc[8][8];
+    // product() synchronises the block before it reads shared memory, so
+    // vb is in place.
+    product(acc, sm, hp / kK,
+            RowsA{joint + static_cast<size_t>(slot) * kM * hp, hp},
+            RowsB{wp, Vp, n0, Vp});
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        acc[i][j] += vb[col(j)];
+        m = fmaxf(m, acc[i][j]);
+      }
+      for (int o = 16; o > 0; o >>= 1) {
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      }
+      const float c = safe_shift(m);
+      float l = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) l += expf(acc[i][j] - c);
+      for (int o = 16; o > 0; o >>= 1) {
+        l += __shfl_xor_sync(0xffffffffu, l, o);
+      }
+      const int r = r0 + ty * 8 + i;
+      if (lane == 0 && r < R) {
+        out_m[static_cast<size_t>(f) * R + r] = m;
+        out_l[static_cast<size_t>(f) * R + r] = l;
+      }
+    }
+  }
+}
+
 }  // namespace simt
 
 // ---------------------------------------------------------------------------
@@ -1324,7 +1092,170 @@ cudaError_t launch_lex_grad(const Maps& maps, const LexGrad& p, int blocks,
   return cudaGetLastError();
 }
 
+struct RowLse {
+  const float* vb;  // [V]
+  float* part_m;    // [strips, frames R]
+  float* part_l;
+  int count;        // the chunk's items, frames R64
+  int R, R64, hp, V;
+};
+
+// Epilogue scratch: the strip's vb (-inf past V).
+constexpr int kRowLseExtra = kBN * 4;
+
+// The forward's logits of each item on a 128-label strip (grid (P,
+// ceil(Vp / 128)): block p walks the chunk's items p, p + P, ...): on
+// wgmma (A = joint, K-major; B = the head, MN-major), plus vb, reduced per
+// row over the strip to one online (max, sum) pair, in registers and over
+// the 4 lanes that share the row, written to part_m / part_l [strips,
+// frames R] at f R + r.
+__global__ void __launch_bounds__(kThreads, 2)
+    row_lse_kernel(const __grid_constant__ Maps maps, const RowLse p) {
+  extern __shared__ uint8_t raw[];
+  const Ring<4> ring(raw);
+  const int n0 = blockIdx.y * kBN, blocks = gridDim.x;
+  const int first = blockIdx.x;
+  const int units =
+      p.count > first ? (p.count - first + blocks - 1) / blocks : 0;
+  const int kts = p.hp / kBK;
+  if (ring.producer()) {
+    produce(ring, units * kts, [&](int q, uint8_t* a, uint8_t* b,
+                                   uint64_t* bar) {
+      const int slot = first + q / kts * blocks, k0 = q % kts * kBK;
+      tma_load(a, maps.joint, k0, 0, slot, bar);
+      tma_load(b, maps.vw, n0, k0, bar);
+      tma_load(b + kBox, maps.vw, n0 + 64, k0, bar);
+    });
+    return;
+  }
+  float* vb = reinterpret_cast<float*>(ring.extra);  // [kBN]
+  const int t = threadIdx.x, lane = t % 32;
+  vb[t] = n0 + t < p.V ? p.vb[n0 + t] : -INFINITY;
+  named_barrier(1, kConsumers);
+  const size_t n = static_cast<size_t>(p.count / p.R64) * p.R;
+  float* out_m = p.part_m + blockIdx.y * n;
+  float* out_l = p.part_l + blockIdx.y * n;
+  float d[64];
+  consume<false, true>(ring, units, kts, d, [&](int unit, float(&acc)[64]) {
+    const int slot = first + unit * blocks;
+    const int f = slot / p.R64, r0 = slot % p.R64 * kRows;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float bias = vb[j * 8 + (lane % 4) * 2 + e];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float& x = acc[j * 4 + half * 2 + e];
+          x += bias;
+          m[half] = fmaxf(m[half], x);
+        }
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      for (int o = 1; o < 4; o <<= 1) {
+        m[half] = fmaxf(m[half], __shfl_xor_sync(0xffffffffu, m[half], o));
+      }
+    }
+    const float c[2] = {safe_shift(m[0]), safe_shift(m[1])};
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          l[half] += expf(acc[j * 4 + half * 2 + e] - c[half]);
+        }
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      for (int o = 1; o < 4; o <<= 1) {
+        l[half] += __shfl_xor_sync(0xffffffffu, l[half], o);
+      }
+      const int r = r0 + acc_row(half * 2);
+      if (lane % 4 == 0 && r < p.R) {
+        out_m[static_cast<size_t>(f) * p.R + r] = m[half];
+        out_l[static_cast<size_t>(f) * p.R + r] = l[half];
+      }
+    }
+  });
+}
+
+cudaError_t launch_row_lse(const Maps& maps, const RowLse& p, int blocks,
+                           int Vp, cudaStream_t stream) {
+  constexpr int kSmem = smem_bytes(4, kRowLseExtra);
+  const cudaError_t err = allow_smem<row_lse_kernel>(kSmem);
+  if (err != cudaSuccess) return err;
+  row_lse_kernel<<<dim3(blocks, cdiv(Vp, kBN)), kThreads, kSmem, stream>>>(
+      maps, p);
+  return cudaGetLastError();
+}
+
 }  // namespace hopper
+
+// The forward (the file's top comment). Every (frame, 64-row tile) item is
+// live: the forward has no lengths, and every (t, r) output is defined. Per
+// chunk of Tc frames: the joint pass (the joint of the chunk's items in the
+// compute type, blank and ly in float32), the head product with the row
+// (max, sum) over each label strip in its epilogue (bfloat16 on wgmma,
+// float32 on the FMA tiles; `blocks` persistent blocks per strip), and the
+// merge of the strips into z, nb and nl.
+template <typename T>
+int run_forward(const float* pc, const float* pf, const float* W,
+                const float* vb, const float* bw, const float* bb,
+                const float* wy, const float* by, T* wp, T* joint,
+                float* part_m, float* part_l, float* nb, float* nl,
+                float* z, float* blank, int num_frames, int B, int U1,
+                int h, int V, int hat, int Tc, int blocks,
+                cudaStream_t stream) {
+  constexpr bool kBf16 = sizeof(T) == 2;
+  const int R = B * U1;
+  if (num_frames == 0 || R == 0) return 0;
+  if (h == 0 || V == 0 || Tc < 1 || blocks < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int R64 = (R + kRows - 1) / kRows;
+  const int hp = round_up(h, 64), Vp = round_up(V, 64);
+  const int strips = kBf16 ? (Vp + wgmma_tiles::kBN - 1) / wgmma_tiles::kBN
+                           : (Vp + simt::kN - 1) / simt::kN;
+  pad_head_kernel<T><<<blocks_for(static_cast<size_t>(hp) * Vp),
+                       kPointThreads, 0, stream>>>(W, wp, h, V, hp, Vp);
+  RETURN_IF_LAUNCH_FAILED();
+  wgmma_tiles::Maps maps{};
+  if constexpr (kBf16) {  // the product reads the joint and the head
+    const cuuint64_t joint_dims[3] = {static_cast<cuuint64_t>(hp), kRows,
+                                      static_cast<cuuint64_t>(Tc) * R64};
+    const cuuint64_t vw_dims[2] = {static_cast<cuuint64_t>(Vp),
+                                   static_cast<cuuint64_t>(hp)};
+    RETURN_IF_FAILED(wgmma_tiles::box_map(&maps.joint, joint, 3, joint_dims));
+    RETURN_IF_FAILED(wgmma_tiles::box_map(&maps.vw, wp, 2, vw_dims));
+  }
+  for (int t0 = 0; t0 < num_frames; t0 += Tc) {
+    const int frames = min(Tc, num_frames - t0), count = frames * R64;
+    forward_joint_kernel<T><<<count, kPointThreads, 0, stream>>>(
+        pc, pf, bw, bb, wy, by, joint, blank, nl, t0, R, B, U1, h, hp, R64);
+    RETURN_IF_LAUNCH_FAILED();
+    if constexpr (kBf16) {
+      RETURN_IF_FAILED(hopper::launch_row_lse(
+          maps, hopper::RowLse{vb, part_m, part_l, count, R, R64, hp, V},
+          blocks, Vp, stream));
+    } else {
+      simt::row_lse_kernel<<<dim3(blocks, strips), simt::kThreads, 0,
+                             stream>>>(joint, wp, vb, part_m, part_l, count,
+                                       R, R64, hp, V, Vp);
+      RETURN_IF_LAUNCH_FAILED();
+    }
+    const size_t n = static_cast<size_t>(frames) * R;
+    const size_t at = static_cast<size_t>(t0) * R;
+    forward_merge_kernel<<<blocks_for(n), kPointThreads, 0, stream>>>(
+        part_m, part_l, strips, blank + at, nb + at, nl + at, z + at, n, hat);
+    RETURN_IF_LAUNCH_FAILED();
+  }
+  return 0;
+}
 
 // Pointers into the caller's workspace (numerator_backward's scratch).
 struct Scratch {
@@ -1490,35 +1421,34 @@ int run_backward(const float* pc, const float* pf, const float* W,
 
 extern "C" {
 
-// Dynamic shared memory one head block requests for hidden size h (dtype 0 =
-// float32, 1 = bfloat16): it grows with h up to the joint tile's chunk
-// (512 float32, 1024 bfloat16 hidden units) and stays there.
-size_t numerator_head_smem_bytes(int dtype, int h) {
-  return dtype == 0 ? Resident<float>::bytes(h)
-                    : Resident<__nv_bfloat16>::bytes(h);
-}
-
 // The forward on `stream`; returns the first error (0 on success). The
-// caller allocates everything: part_m / part_l [max_splits, T, R] scratch,
-// outputs nb, nl, z, blank [T, R]. W is [h, V] in the compute type (dtype 0 =
-// float32, 1 = bfloat16); everything else is float32; R = B * U1.
+// caller allocates everything: outputs nb, nl, z, blank [T, R]; scratch (R64
+// = ceil(R / 64), hp / Vp: h / V rounded up to 64) wp [hp, Vp] and joint
+// [chunk R64, 64, hp] in the compute type (dtype 0 float32, 1 bfloat16),
+// part_m / part_l [strips, chunk R] float32 (strips: ceil(Vp / 128) in
+// bfloat16, ceil(Vp / 256) in float32); every other pointer is float32 (W
+// [h, V], rounded to the compute type here); R = B * U1. chunk: frames a
+// chunk; blocks: the head product's persistent blocks per label strip.
 int numerator_forward(int dtype, const float* pc, const float* pf,
-                      const void* W, const float* vb, const float* bw,
+                      const float* W, const float* vb, const float* bw,
                       const float* bb, const float* wy, const float* by,
                       float* part_m, float* part_l, float* nb, float* nl,
                       float* z, float* blank, int num_frames, int B, int U1,
-                      int h, int V, int hat, int max_splits, void* stream) {
+                      int h, int V, int hat, int chunk, int blocks, void* wp,
+                      void* joint, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return run_forward<float>(pc, pf, static_cast<const float*>(W), vb, bw,
-                              bb, wy, by, part_m, part_l, nb, nl, z, blank,
-                              num_frames, B, U1, h, V, hat, max_splits, s);
+    return run_forward<float>(pc, pf, W, vb, bw, bb, wy, by,
+                              static_cast<float*>(wp),
+                              static_cast<float*>(joint), part_m, part_l, nb,
+                              nl, z, blank, num_frames, B, U1, h, V, hat,
+                              chunk, blocks, s);
   }
   if (dtype == 1) {
     return run_forward<__nv_bfloat16>(
-        pc, pf, static_cast<const __nv_bfloat16*>(W), vb, bw, bb, wy, by,
-        part_m, part_l, nb, nl, z, blank, num_frames, B, U1, h, V, hat,
-        max_splits, s);
+        pc, pf, W, vb, bw, bb, wy, by, static_cast<__nv_bfloat16*>(wp),
+        static_cast<__nv_bfloat16*>(joint), part_m, part_l, nb, nl, z, blank,
+        num_frames, B, U1, h, V, hat, chunk, blocks, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

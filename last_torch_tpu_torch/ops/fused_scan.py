@@ -47,7 +47,9 @@ recomputes the lexical weights for each reduction (``wgmma_grid``,
 ``backward_scratch``). ``plan`` picks one for
 ``mode='auto'`` from the staged bytes. Both modes compute the same function,
 so on CPU tensors both run the same plain versions. The marginals scan
-stages lex, as the JAX package's runs only in its 'cache' mode.
+has no mode: in bfloat16 it runs the backward's wgmma row reductions, lex
+recomputed by each (``marginals_scratch``: no [B, S, V] buffer); in float32
+it stages lex, as the JAX package's runs only in its 'cache' mode.
 
 Scope is the structural half of the JAX package's gate (``supported``): Log
 semiring, bigram ``FullNGram``, ``JointWeightFn``, ``FrameDependent`` /
@@ -209,7 +211,7 @@ def library() -> ctypes.CDLL:
     lib.fused_backward.argtypes = [i] + [p] * 33 + [i] * 11 + [p] * 2 + [
         i, p, p]
     lib.fused_backward.restype = i
-    lib.fused_marginals.argtypes = [i] + [p] * 20 + [i] * 8 + [p]
+    lib.fused_marginals.argtypes = [i] + [p] * 20 + [i] * 8 + [p] * 3
     lib.fused_marginals.restype = i
     lib.trigram_forward.argtypes = [i] + [p] * 14 + [i] * 7 + [p]
     lib.trigram_forward.restype = i
@@ -327,6 +329,38 @@ def forward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
   if reductions >= 2 and mode == 'cache':
     scratch['lex'] = ((batch, num_states, vocab), torch.float32)
   return scratch
+
+
+def marginals_scratch(batch: int, num_states: int, hidden: int, vocab: int,
+                      compute_dtype: torch.dtype, reductions: int,
+                      ysplits: int = 1) -> dict:
+  """name -> (shape, dtype) of the marginals scan's scratch
+  (``fused_marginals``) with ``reductions`` row reductions a frame. In
+  bfloat16 with at least one, the frames run the bfloat16 backward's wgmma
+  row reductions (``hopper::run_marginals`` in csrc/fused_scan.cu): the
+  padded bfloat16 joint and head and a (max, sum) partial per 128-label
+  strip, and no float32 lex [B, S, V] (every reduction recomputes the head
+  product). Otherwise (float32, FLD(0)) tile_product.cuh's route: the joint
+  in the compute type, lex [B, S, V] float32 staged for the frame and
+  partials per one of ``ysplits`` label splits."""
+  hp = -(-hidden // _WG_DEPTH) * _WG_DEPTH
+  vp = -(-vocab // _WG_DEPTH) * _WG_DEPTH
+  f32, bs = torch.float32, (batch, num_states)
+  common = {
+      'blank': (bs, f32),
+      'nb': ((max(reductions, 1),) + bs, f32),
+      'beta': ((2,) + bs, f32),
+      'lp_part': ((batch, -(-num_states // _TILE), vocab), f32),
+  }
+  if compute_dtype == torch.bfloat16 and reductions >= 1:
+    part = ((-(-vp // _WG_COLS),) + bs, f32)
+    return {'vocab_w': ((hp, vp), torch.bfloat16),
+            'joint': (bs + (hp,), torch.bfloat16),
+            'part_m': part, 'part_l': part, **common}
+  part = ((ysplits,) + bs, f32)
+  return {'joint': (bs + (hidden,), compute_dtype),
+          'lex': (bs + (vocab,), f32), 'part_m': part, 'part_l': part,
+          **common}
 
 
 def live_rows(is_pad: torch.Tensor):
@@ -827,36 +861,36 @@ def fused_marginals(pf: torch.Tensor, pc: torch.Tensor,
   vocab = params['vocab_w'].shape[-1]
   k = num_passes(max_expansions, frame_dependent)
   device = pf.device
-  empty = lambda *shape, dtype=torch.float32: torch.empty(
-      shape, dtype=dtype, device=device)
-  vw = params['vocab_w'].to(compute_dtype).contiguous()
-  bw = params['blank_w'].to(compute_dtype).contiguous()
-  pad = is_pad.to(torch.int32)
-  tiles = -(-num_states // _TILE)
-  strips = -(-vocab // _TILE)
-  ysplits = grid_splits(tiles * batch, strips, device)
+  ysplits = grid_splits(-(-num_states // _TILE) * batch, -(-vocab // _TILE),
+                        device)
   # Scratch, held until the call has enqueued every launch (a buffer freed
   # earlier could be handed to the next allocation).
-  joint = empty(batch, num_states, hidden, dtype=compute_dtype)
-  blank = empty(batch, num_states)
-  lex = empty(batch, num_states, vocab)
-  part_m = empty(ysplits, batch, num_states)
-  part_l = empty(ysplits, batch, num_states)
-  nb = empty(max(k, 1), batch, num_states)
-  beta = torch.zeros((2, batch, num_states), device=device)
-  lp_part = empty(batch, tiles, vocab)
-  bm = empty(max_t, batch, num_states)
-  lp = empty(max_t, batch, vocab)
+  buf = {name: torch.empty(shape, dtype=dtype, device=device)
+         for name, (shape, dtype) in marginals_scratch(
+             batch, num_states, hidden, vocab, compute_dtype, k,
+             ysplits).items()}
+  buf['beta'].zero_()  # slot 0: semiring ones
+  if 'vocab_w' in buf:  # the wgmma route: the padded bfloat16 head
+    buf['vocab_w'].zero_()[:hidden, :vocab] = params['vocab_w']
+    live, rows = live_rows(is_pad)
+  else:
+    buf['vocab_w'] = params['vocab_w'].to(compute_dtype).contiguous()
+    live = rows = None
+  bw = params['blank_w'].to(compute_dtype).contiguous()
+  pad = is_pad.to(torch.int32)
+  bm = torch.empty((max_t, batch, num_states), device=device)
+  lp = torch.empty((max_t, batch, vocab), device=device)
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
     status = lib.fused_marginals(
-        _DTYPE_CODES[compute_dtype], _ptr(pf), _ptr(pc), _ptr(vw),
-        _ptr(params['vocab_b']), _ptr(bw), _ptr(params['blank_b']),
-        _ptr(pad), _ptr(log_z), _ptr(hist), _ptr(slabs), _ptr(joint),
-        _ptr(blank), _ptr(lex), _ptr(part_m), _ptr(part_l), _ptr(nb),
-        _ptr(beta), _ptr(lp_part), _ptr(bm), _ptr(lp), max_t, batch,
-        num_states, hidden, vocab, max_expansions, int(frame_dependent),
-        ysplits, stream)
+        _DTYPE_CODES[compute_dtype], _ptr(pf), _ptr(pc),
+        _ptr(buf['vocab_w']), _ptr(params['vocab_b']), _ptr(bw),
+        _ptr(params['blank_b']), _ptr(pad), _ptr(log_z), _ptr(hist),
+        _ptr(slabs), _ptr(buf['joint']), _ptr(buf['blank']),
+        _ptr(buf.get('lex')), _ptr(buf['part_m']), _ptr(buf['part_l']),
+        _ptr(buf['nb']), _ptr(buf['beta']), _ptr(buf['lp_part']), _ptr(bm),
+        _ptr(lp), max_t, batch, num_states, hidden, vocab, max_expansions,
+        int(frame_dependent), ysplits, _ptr(live), _ptr(rows), stream)
   _raise_on(status, 'marginals')
   marginals_launches += 1
   return bm, lp

@@ -33,16 +33,15 @@ Scope is the structural half of the JAX package's gate (``supported``
 there): ``label_weights`` flattens any leading batch dimensions into the
 kernels' one, and the compute type must be None, float32 or bfloat16 (else
 ValueError). The TPU's ``hidden % 128`` rule and VMEM plan do not apply,
-and the hidden size has no limit: the forward keeps a block's 64-row joint
-tile in shared memory at most 512 (float32) or 1024 (bfloat16) hidden units
-wide, and sums the products of a wider joint chunk by chunk; the backward
-stages 64-deep slices of any width.
+and the hidden size has no limit: both directions stage 64-deep slices of
+a joint of any width.
 
-The backward works on the live (frame, 64-row tile) pairs alone, those
-whose rows hold a nonzero cotangent (``live_tiles``), listed on the device
-so that the host never waits; it walks them in chunks of frames whose
-staging fits ``_CHUNK_BYTES`` (``backward_plan``), with its scratch in one
-workspace (``backward_scratch``).
+Both walk (frame, 64-row tile) items in chunks of frames whose staging
+fits ``_CHUNK_BYTES``, with their scratch in one workspace: the forward
+every item (it has no lengths; ``forward_plan``, ``forward_scratch``), the
+backward the live ones alone, those whose rows hold a nonzero cotangent
+(``live_tiles``), listed on the device so that the host never waits
+(``backward_plan``, ``backward_scratch``).
 """
 
 from __future__ import annotations
@@ -57,7 +56,6 @@ from typing import Any, Optional
 import torch
 from torch.nn.functional import logsigmoid
 
-from last_torch_tpu_torch.ops import fused_scan
 from last_torch_tpu_torch.ops import joint_head
 
 # Calls that launched the CUDA forward / backward kernels, for runs that must
@@ -68,13 +66,13 @@ backward_launches = 0
 _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernels' tiles (csrc/numerator_scan.cu: 64 rows, 64 labels or hidden
-# units; the padding of the backward's operands), and the device memory the
-# backward may spend on what it stages for a chunk of frames.
+# units; the padding of the operands), and the device memory either
+# direction may spend on what it stages for a chunk of frames.
 _TILE = 64
 _CHUNK_BYTES = 512 * 2**20
-# The backward's products (csrc/numerator_scan.cu): label strips of the ds
-# product and hidden strips of the d_joint product (wgmma 128, float32
-# 256), and the blocks an SM holds.
+# The products (csrc/numerator_scan.cu): label strips of the forward's
+# product and of the backward's ds product, hidden strips of its d_joint
+# product (wgmma 128, float32 256), and the blocks an SM holds.
 _STRIPS = {torch.bfloat16: 128, torch.float32: 256}
 _BLOCKS_PER_SM = 2
 _HEAD = ('vocab_w', 'vocab_b', 'blank_w', 'blank_b')
@@ -121,14 +119,12 @@ def library() -> ctypes.CDLL:
     from last_torch_tpu_torch.ops import build
     lib = build.load('numerator_scan.cu')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.numerator_forward.argtypes = [i] + [p] * 14 + [i] * 7 + [p]
+    lib.numerator_forward.argtypes = [i] + [p] * 14 + [i] * 8 + [p] * 3
     lib.numerator_forward.restype = i
     lib.numerator_backward.argtypes = [i] + [p] * 33 + [i] * 11 + [p]
     lib.numerator_backward.restype = i
     lib.numerator_live_tiles.argtypes = [p] * 6 + [i] * 3 + [p]
     lib.numerator_live_tiles.restype = i
-    lib.numerator_head_smem_bytes.argtypes = [i, i]
-    lib.numerator_head_smem_bytes.restype = ctypes.c_size_t
     lib.numerator_error_string.argtypes = [i]
     lib.numerator_error_string.restype = ctypes.c_char_p
     _LIB = lib
@@ -182,23 +178,28 @@ def numerator_forward(pc: torch.Tensor, pf: torch.Tensor,
   if pc.device.type != 'cuda':
     raise ValueError(f'no numerator kernel for device {pc.device}')
   num_rows = batch * u1
-  empty = lambda *shape: torch.empty(shape, device=pc.device)
+  device = pc.device
+  empty = lambda *shape: torch.empty(shape, device=device)
   if max_t == 0:  # no frames: nothing to launch
     return tuple(empty(0, num_rows) for _ in range(4))
-  strips = -(-vocab // _TILE)
-  splits = fused_scan.grid_splits(max_t * -(-num_rows // _TILE), strips,
-                                  pc.device)
-  part_m, part_l = empty(splits, max_t, num_rows), empty(splits, max_t,
-                                                         num_rows)
+  if hidden == 0 or vocab == 0:
+    raise ValueError('the numerator forward kernel needs hidden and vocab '
+                     f'sizes >= 1, got {hidden} and {vocab}')
+  plan = forward_plan(max_t, batch, u1, hidden, vocab, compute_dtype,
+                      joint_head.sm_count(device))
+  # The scratch in one buffer (``forward_scratch``).
+  workspace = torch.empty(plan.size, dtype=torch.uint8, device=device)
+  at = lambda name: workspace.data_ptr() + plan.offsets[name]
   nb, nl, z, blank = (empty(max_t, num_rows) for _ in range(4))
-  w = head['vocab_w'].to(compute_dtype).contiguous()
-  _launch(pc.device, 'forward',
+  _launch(device, 'forward',
           lambda lib, stream: lib.numerator_forward(
-              _DTYPE_CODES[compute_dtype], _ptr(pc), _ptr(pf), _ptr(w),
-              _ptr(head['vocab_b']), _ptr(head['blank_w']),
-              _ptr(head['blank_b']), _ptr(wy), _ptr(by), _ptr(part_m),
-              _ptr(part_l), _ptr(nb), _ptr(nl), _ptr(z), _ptr(blank), max_t,
-              batch, u1, hidden, vocab, int(hat), splits, stream))
+              _DTYPE_CODES[compute_dtype], _ptr(pc), _ptr(pf),
+              _ptr(head['vocab_w']), _ptr(head['vocab_b']),
+              _ptr(head['blank_w']), _ptr(head['blank_b']), _ptr(wy),
+              _ptr(by), at('part_m'), at('part_l'), _ptr(nb), _ptr(nl),
+              _ptr(z), _ptr(blank), max_t, batch, u1, hidden, vocab,
+              int(hat), plan.chunk, plan.blocks, at('wp'), at('joint'),
+              stream))
   forward_launches += 1
   return nb, nl, z, blank
 
@@ -248,6 +249,57 @@ def rows_per_tile(batch: int, u1: int) -> int:
   rows = batch * u1
   return max(((min(rows, k + _TILE) - 1) // u1 - k // u1 + 1
               for k in range(0, rows, _TILE)), default=1)
+
+
+def forward_scratch(batch: int, u1: int, hidden: int, vocab: int,
+                    compute_dtype: torch.dtype, chunk: int) -> dict:
+  """name -> (shape, dtype) of the forward's scratch (``numerator_forward``
+  in ``csrc/numerator_scan.cu``): the padded head and a chunk's joint in the
+  compute type (every (frame, row tile) of ``chunk`` frames), and the
+  float32 (max, sum) partials of each row per label strip (128 labels in
+  bfloat16, 256 in float32). No logits [T, R, V] are held."""
+  rows = batch * u1
+  r64 = -(-rows // _TILE)
+  hp = -(-hidden // _TILE) * _TILE
+  vp = -(-vocab // _TILE) * _TILE
+  part = ((-(-vp // _STRIPS[compute_dtype]), chunk * rows), torch.float32)
+  return {'wp': ((hp, vp), compute_dtype),
+          'joint': ((chunk * r64, _TILE, hp), compute_dtype),
+          'part_m': part, 'part_l': part}
+
+
+@dataclasses.dataclass(frozen=True)
+class ForwardPlan:
+  """The forward's chunks, grid and workspace (``forward_plan``).
+
+  Attributes:
+    chunk: frames a chunk: its joint and partials (``forward_scratch``)
+      fit _CHUNK_BYTES.
+    blocks: the head product's persistent blocks per label strip.
+    offsets: name -> byte offset of each scratch buffer in the workspace.
+    size: the workspace's bytes.
+  """
+  chunk: int
+  blocks: int
+  offsets: dict
+  size: int
+
+
+@functools.lru_cache(maxsize=64)
+def forward_plan(max_t: int, batch: int, u1: int, hidden: int, vocab: int,
+                 compute_dtype: torch.dtype, sms: int) -> ForwardPlan:
+  """The ``ForwardPlan`` on ``sms`` SMs: the product's grid one wave of two
+  blocks an SM."""
+  per_frame = sum(
+      math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+      for name, (shape, dtype) in forward_scratch(
+          batch, u1, hidden, vocab, compute_dtype, 1).items()
+      if name != 'wp')
+  chunk = max(1, min(max_t, _CHUNK_BYTES // per_frame))
+  vp = -(-vocab // _TILE) * _TILE
+  blocks = max(1, _BLOCKS_PER_SM * sms // -(-vp // _STRIPS[compute_dtype]))
+  scratch = forward_scratch(batch, u1, hidden, vocab, compute_dtype, chunk)
+  return ForwardPlan(chunk, blocks, *joint_head.layout(scratch))
 
 
 def backward_scratch(max_t: int, batch: int, u1: int, hidden: int,

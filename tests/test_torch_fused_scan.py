@@ -365,6 +365,45 @@ def test_online_forward_scratch_holds_no_batch_state_vocab_buffer(
       'cache' if staged <= fused_scan.LEX_STAGE_BUDGET else 'online')
 
 
+@pytest.mark.parametrize('reductions', [0, 1, 2, 3])
+@pytest.mark.parametrize('batch,states,hidden,vocab', [
+    (8, 1025, 512, 1024),  # the confidence main path's frame
+    (32, 1025, 512, 1024),  # bench.py's config 8
+    (8, 4097, 512, 4096),
+    (3, 521, 40, 520),  # V and h off the 64-deep stages
+])
+def test_marginals_scratch_stages_lex_only_in_float32(batch, states, hidden,
+                                                      vocab, reductions):
+  """The bfloat16 marginals scan with a row reduction a frame runs the
+  backward's wgmma reductions, lex recomputed by each: no float32 [B, S, V]
+  buffer, the padded bfloat16 joint and head and a partial per 128-label
+  strip, as the backward plans them. The float32 route (and FLD(0)) keeps
+  its staged lex."""
+  grid = fused_scan.wgmma_grid(batch, states, hidden, vocab, SMS)
+  bsv = batch * states * vocab
+  bf16 = fused_scan.marginals_scratch(batch, states, hidden, vocab,
+                                      torch.bfloat16, reductions)
+  f32 = fused_scan.marginals_scratch(batch, states, hidden, vocab,
+                                     torch.float32, reductions, ysplits=5)
+  assert f32['lex'] == ((batch, states, vocab), torch.float32)
+  assert f32['part_m'] == f32['part_l'] == ((5, batch, states),
+                                            torch.float32)
+  assert f32['joint'] == ((batch, states, hidden), torch.float32)
+  shared = ('blank', 'nb', 'beta', 'lp_part')
+  assert {n: bf16[n] for n in shared} == {n: f32[n] for n in shared}
+  assert bf16['lp_part'] == ((batch, -(-states // 64), vocab), torch.float32)
+  assert bf16['nb'][0] == (max(reductions, 1), batch, states)
+  if reductions == 0:  # FLD(0): no reduction, tile_product.cuh's route
+    assert bf16['lex'] == ((batch, states, vocab), torch.float32)
+    return
+  assert 'lex' not in bf16
+  backward = fused_scan.backward_scratch(batch, states, hidden, vocab, grid)
+  for name in ('vocab_w', 'joint', 'part_m', 'part_l'):
+    assert bf16[name] == backward[name], name
+  for name, (shape, _) in bf16.items():
+    assert np.prod(shape) < bsv, name
+
+
 @pytest.mark.parametrize('lengths', [[5, 2, 0, 5], [0, 0], [3], [1, 4, 4]])
 def test_live_rows_lists_each_frames_real_rows_first(lengths):
   """What the wgmma routes walk: per frame the count of real rows, on the

@@ -365,6 +365,54 @@ SMS = 132  # an H100's SMs
     (9, 3, 5, 40, 70),  # ragged R, h and V
     (9, 1, 37, 2048, 1001),
 ])
+def test_forward_plan_fits_its_chunk_and_covers_every_frame(
+    max_t, batch, u1, hidden, vocab, dtype):
+  """The forward's chunks stage at most _CHUNK_BYTES (or one frame) and,
+  walked as the kernel walks them, hold every (frame, 64-row tile) item
+  once; its product's grid is about one wave; its scratch lies in one
+  buffer, 256-byte aligned and disjoint: the partials hold a (max, sum)
+  pair per row and label strip, no logits."""
+  plan = numerator_scan.forward_plan(max_t, batch, u1, hidden, vocab, dtype,
+                                     SMS)
+  scratch = numerator_scan.forward_scratch(batch, u1, hidden, vocab, dtype,
+                                           plan.chunk)
+  assert 1 <= plan.chunk <= max_t
+  staged = sum(np.prod(shape) * torch.empty((), dtype=d).element_size()
+               for name, (shape, d) in scratch.items() if name != 'wp')
+  assert plan.chunk == 1 or staged <= numerator_scan._CHUNK_BYTES
+  rows = batch * u1
+  r64 = -(-rows // 64)
+  hp, vp = -(-hidden // 64) * 64, -(-vocab // 64) * 64
+  strip = 128 if dtype == torch.bfloat16 else 256
+  assert scratch['wp'] == ((hp, vp), dtype)
+  assert scratch['joint'] == ((plan.chunk * r64, 64, hp), dtype)
+  assert scratch['part_m'] == scratch['part_l'] == (
+      (-(-vp // strip), plan.chunk * rows), torch.float32)
+  # The chunks, as run_forward walks them: every (frame, tile) once.
+  walked = []
+  for t0 in range(0, max_t, plan.chunk):
+    frames = min(plan.chunk, max_t - t0)
+    walked += [(t0 + slot // r64, slot % r64) for slot in range(frames * r64)]
+  assert walked == [(t, k) for t in range(max_t) for k in range(r64)]
+  strips = -(-vp // strip)
+  assert plan.blocks >= 1 and plan.blocks * strips <= 2 * SMS
+  assert plan.blocks * strips > 2 * SMS - strips
+  spans = sorted((plan.offsets[name], plan.offsets[name] + np.prod(shape) *
+                  torch.empty((), dtype=d).element_size())
+                 for name, (shape, d) in scratch.items())
+  assert all(start % 256 == 0 for start, _ in spans)
+  assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+  assert spans[-1][1] <= plan.size
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+@pytest.mark.parametrize('max_t,batch,u1,hidden,vocab', [
+    (1600, 8, 101, 512, 1024),  # the HAT training step (phase 6b)
+    (1600, 32, 101, 512, 1024),  # bench config 7
+    (9, 3, 5, 40, 70),  # ragged R, h and V
+    (9, 1, 37, 2048, 1001),
+])
 def test_backward_plan_fits_its_chunk_and_the_card(max_t, batch, u1, hidden,
                                                    vocab, dtype):
   """The backward's chunks stage at most _CHUNK_BYTES (or one frame), its

@@ -79,13 +79,23 @@ Each run times, with CUDA events after a warm-up:
   its lengths), one call; ``vit8h``: the same with normalize 'hat' (phase
   4b); ``vit10``: at V=4096 (S=4097) and the lengths / 8 (phase 9's
   decode, bench config 10); ``vit8p``: one ``vit8`` call under
-  ``torch.profiler``, its device time by kernel name.
+  ``torch.profiler``, its device time by kernel name;
+* ``marg8``: ``fused_marginals`` (bf16, FLD(2), S=1025, V=1024, h=512) at
+  ``lp8``'s shape, on forward residuals made once, one call; ``marg32``:
+  the same at bench.py's config 8 (B=32, T=1600, every row full);
+  ``margmem``: the device memory (MiB) one ``marg32`` call allocates beyond
+  what was allocated before it (its peak); ``marg8p``: one ``marg8`` call
+  under ``torch.profiler``, its device time by kernel name;
+* ``numf8``: ``numerator_forward`` in float32 (hat) at ``numb8``'s shape
+  and inputs, one call; ``numf32``: in bfloat16 at ``numb32``'s (config
+  7); ``numf8p``, ``numf32p``: one call of each under ``torch.profiler``,
+  its device time by kernel name.
 
 Prints the card's name and power limit, one line per run, and one JSON
-object of milliseconds (MiB for ``lp9omem``) by run and case. ``--rounds
-R`` repeats the parent, change, change, parent turns R times (the plain
-run stays one, and ``--no-plain`` drops it). ``--tree DIR --cases ...``
-runs one tree in this process (what the turns call).
+object of milliseconds (MiB for ``lp9omem`` and ``margmem``) by run and
+case. ``--rounds R`` repeats the parent, change, change, parent turns R
+times (the plain run stays one, and ``--no-plain`` drops it). ``--tree DIR
+--cases ...`` runs one tree in this process (what the turns call).
 """
 
 import argparse
@@ -103,7 +113,8 @@ CASES = ('lp8', 'lp32', 'lp9o', 'lp9o512', 'lp9omem', 'fr1024', 'fr256',
          'lp32f', 'lp9f', 'lp9of', 'fr1024f', 'fr256f', 'fr1024fd',
          'fr256fd', 'fr256fh', 'fr256fa', 'jhb', 'jhbd', 'jhbh', 'jhbp',
          'numb8', 'numb32', 'numb8p', 'numb32p', 'vit8', 'vit8h', 'vit10',
-         'vit8p', 'lp8fp')
+         'vit8p', 'lp8fp', 'marg8', 'marg32', 'margmem', 'marg8p', 'numf8',
+         'numf32', 'numf8p', 'numf32p')
 
 
 # The forward cases: (shape, mode).
@@ -180,13 +191,19 @@ def rand(rng, shape, scale=1.0):
   return (rng.standard_normal(shape) * scale).astype(np.float32)
 
 
-def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats,
-                     max_t=1600, vocab=1024, mode='cache', memory=False,
-                     forward_only=False, profiled=False):
-  """ms of one bigram backward (or with ``forward_only`` forward, by kernel
-  name with ``profiled``) in ``mode`` at (batch, lengths), or with
-  ``memory`` the MiB the backward allocates at its peak beyond what was
-  allocated before it."""
+def peak_mib(torch, call):
+  """The MiB one call allocates at its peak beyond what was allocated
+  before it."""
+  torch.cuda.synchronize()
+  before = torch.cuda.memory_allocated()
+  torch.cuda.reset_peak_memory_stats()
+  call()
+  torch.cuda.synchronize()
+  return (torch.cuda.max_memory_allocated() - before) / 2**20
+
+
+def lattice_inputs(torch, batch, lengths, max_t, vocab):
+  """(pf, pc, head, is_pad) of the bigram cases (h=512), from seed 0."""
   rng = np.random.default_rng(0)
   hidden = 512
   cuda = lambda x: torch.from_numpy(x).cuda()
@@ -198,6 +215,35 @@ def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats,
           'blank_b': torch.tensor(0.3, device='cuda')}
   is_pad = (torch.arange(max_t, device='cuda')[:, None] >=
             torch.tensor(lengths, device='cuda')[None])
+  return pf, pc, head, is_pad
+
+
+def marginals_ms(torch, fused_scan, batch, lengths, plain, clock=None):
+  """ms of one ``fused_marginals`` (bf16, FLD(2), T=1600, V=1024) at
+  (batch, lengths) on the forward kernel's residuals, made once; with
+  ``clock`` 'mem' the MiB it allocates at its peak, with 'p' its device
+  time by kernel name."""
+  pf, pc, head, is_pad = lattice_inputs(torch, batch, lengths, 1600, 1024)
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  log_z, _, hist, slabs = fused_scan.fused_forward(
+      pf, pc, head, is_pad, with_residuals=True, **kw)
+  marginals = (fused_scan.fused_marginals_plain if plain else
+               fused_scan.fused_marginals)
+  call = lambda: marginals(pf, pc, head, is_pad, log_z, hist, slabs, **kw)
+  if clock == 'mem':
+    return peak_mib(torch, call)
+  return by_kernel(torch, call) if clock == 'p' else timed(torch, call, 1)[1]
+
+
+def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats,
+                     max_t=1600, vocab=1024, mode='cache', memory=False,
+                     forward_only=False, profiled=False):
+  """ms of one bigram backward (or with ``forward_only`` forward, by kernel
+  name with ``profiled``) in ``mode`` at (batch, lengths), or with
+  ``memory`` the MiB the backward allocates at its peak beyond what was
+  allocated before it."""
+  pf, pc, head, is_pad = lattice_inputs(torch, batch, lengths, max_t, vocab)
   kw = dict(max_expansions=2, frame_dependent=False,
             compute_dtype=torch.bfloat16, mode=mode)
   forward = fused_scan.fused_forward_plain if plain else (
@@ -213,12 +259,7 @@ def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats,
   g = torch.ones(batch, device='cuda')
   call = lambda: backward(pf, pc, head, is_pad, log_z, g, hist, slabs, **kw)
   if memory:
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    call()
-    torch.cuda.synchronize()
-    return (torch.cuda.max_memory_allocated() - before) / 2**20
+    return peak_mib(torch, call)
   return timed(torch, call, repeats)[1]
 
 
@@ -356,11 +397,13 @@ def joint_head_ms(torch, joint_head, plain, clock=None, backward=False):
 
 
 def numerator_backward_ms(torch, numerator_scan, batch, lengths, dtype,
-                          plain, profiled=False):
+                          plain, profiled=False, forward=False):
   """ms of one numerator backward (hat) at (batch, lengths), T_max=1600,
   U+1=101, h=512, V=1024: random inputs, cotangents zero at frames past a
   row's length and label positions past its T_b // 16 labels (the string
-  DP's mask; 100 labels at full length)."""
+  DP's mask; 100 labels at full length); with ``forward`` of one forward
+  on the same inputs (every (frame, position) pair: it has no lengths).
+  With ``profiled`` the call's device time by kernel name."""
   rng = np.random.default_rng(14)
   max_t, u1, hidden, vocab = 1600, 101, 512, 1024
   rows = batch * u1
@@ -379,6 +422,11 @@ def numerator_backward_ms(torch, numerator_scan, batch, lengths, dtype,
   g_b, g_l = (cuda((rand(rng, (max_t, batch, u1)) * live).reshape(
       max_t, rows)) for _ in range(2))
   kw = dict(hat=True, compute_dtype=dtype)
+  if forward:
+    step = (numerator_scan.numerator_forward_plain if plain else
+            numerator_scan.numerator_forward)
+    call = lambda: step(pc, pf, head, wy, by, **kw)
+    return by_kernel(torch, call) if profiled else timed(torch, call, 1)[1]
   _, _, z, blank = numerator_scan.numerator_forward_plain(pc, pf, head, wy,
                                                           by, **kw)
   backward = (numerator_scan.numerator_backward_plain if plain else
@@ -470,6 +518,19 @@ def run_tree(tree, cases, plain):
       out[case] = numerator_backward_ms(torch, numerator_scan, 32,
                                         [1600] * 32, torch.bfloat16, plain,
                                         case.endswith('p'))
+    elif case.startswith('numf'):
+      full = case.startswith('numf32')
+      out[case] = numerator_backward_ms(
+          torch, numerator_scan, 32 if full else 8,
+          [1600] * 32 if full else NUM_FRAMES,
+          torch.bfloat16 if full else torch.float32, plain,
+          case.endswith('p'), forward=True)
+    elif case.startswith('marg'):
+      full = case in ('marg32', 'margmem')
+      out[case] = marginals_ms(
+          torch, fused_scan, 32 if full else 8,
+          [1600] * 32 if full else NUM_FRAMES, plain,
+          {'margmem': 'mem', 'marg8p': 'p'}.get(case))
     else:
       out[case] = frame_reduce_ms(torch, sharded_scan, int(case[2:]),
                                   'backward', plain)
