@@ -55,7 +55,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
 5e. The trigram log-partition kernels (the trigram mode of
    ``csrc/fused_scan.cu``) against their plain versions: T=64, B=4, V=64
    (S=4161) and a ragged V=50, FD / FLD(1) / FLD(2), float32 and bfloat16,
-   with zero-cotangent and empty rows.
+   and the bfloat16 tile route (FLD(0), V=130), with zero-cotangent and
+   empty rows.
 6. Training main path: 3 ``train_step``s of the phase-4 model on 8
    utterances of up to 1600 frames through the log-partition kernels, timed
    with CUDA events; step 1's loss and gradients against the same step
@@ -96,14 +97,19 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ``gnat_global_bigram(vocab_size=64, context_size=2)`` at full width on 8
    utterances of phase 9's lengths through the trigram kernels, step 1
    against the plain versions, one step profiled, the kernels alone at the
-   step's shapes; a decode of the same utterances on the generic route
+   step's shapes (the segment kernels, checked under the profiler); a
+   decode of the same utterances on the generic route
    (no lattice kernel), rescored in float64 along its trigram state walk and held
    to the same route in float64; ``label_marginals`` (generic route),
    their structure checked. The generic decode and posteriors launch the
    joint+head forward kernel once per frame and once more per frame in
    their backward loop or recompute: counted.
 10b. The trigram kernels alone at the JAX package's trigram probe shapes
-   (V=64, S=4161, B=8, T=200, FLD(2), bf16) against their plain versions.
+   (V=64, S=4161, B=8, T=200, FLD(2), bf16) against their plain versions,
+   their bounds with the joint's tanhf on the MUFU pipes (``bound``, at
+   the SM clock nvidia-smi reports), and one forward and one backward by
+   kernel (the segment kernels, and none of the first design's: checked):
+   device ms a call, launches a frame, the pair's peak memory.
 11. NextStateTable main path: the densified headline lattice
    (``bench.py::build_lattice(vocab=1024)`` with its context
    ``NextStateTable(FullNGram(1024, 1).next_state_table())``: S=1025,
@@ -441,10 +447,13 @@ WGMMA_KERNELS = ('lex_pass_kernel', 'head_grad_kernel', 'joint_grad_kernel',
                  'num_joint_grad_kernel', 'lex_grad_kernel',
                  'joint_pass_kernel', 'stage_kernel', 'head_product_kernel',
                  'column_reduce_kernel', 'column_max_kernel',
-                 'row_reduce_kernel', 'row_lse_kernel')
+                 'row_reduce_kernel', 'row_lse_kernel', 'head_kernel',
+                 'grad_kernel')
 # The namespaces of those kernels (others share some of their names); simt:
-# the numerator backward's float32 register-blocked products.
-WGMMA_NAMESPACES = ('hopper', 'head_grads', 'head_product', 'simt')
+# the numerator backward's float32 register-blocked products; segments: the
+# bfloat16 trigram's.
+WGMMA_NAMESPACES = ('hopper', 'head_grads', 'head_product', 'simt',
+                    'segments')
 
 
 def ptxas_kernels(log):
@@ -512,6 +521,7 @@ def phase_build(build, libraries):
                  f'{max(registers)} registers, spill stores {spill_stores} B, '
                  f'spill loads {spill_loads} B')
     wgmma = [f'{"simt::" if "4simt" in mangled else ""}'
+             f'{"segments::" if "8segments" in mangled else ""}'
              f'{kernel_label(mangled, name)} {regs} registers, spills '
              f'{stores}/{loads} B' for mangled, regs, stores, loads in
              ptxas_kernels(log) for name in WGMMA_KERNELS
@@ -1021,6 +1031,12 @@ def trigram_kernels(trigram_scan):
           'sources': ('fused_scan.cu', 'fused_scan.cu'),
           'records': (('trigram_forward', 'trigram_scan.py:380'),
                       ('trigram_backward', 'trigram_scan.py:689')),
+          # The function needs the joint once a frame-row each way (the
+          # backward's tanh derivative and d_vw read the same joint); the
+          # segment kernels form it twice backward (head_kernel and
+          # grad_kernel), a cost of the design stated beside the bound.
+          'tanh_joints': (1, 1),
+          'design_joints': (1, 2),
           'label': 'trigram log-partition kernels alone'}
 
 
@@ -1086,26 +1102,46 @@ def kernels_alone(torch, kernels, pf, pc, head, is_pad, g, kw, launches,
   # The least work either mode could do: one head product per real
   # frame-row (the cache mode's later reductions of a frame read the staged
   # lex); the backward runs three.
-  flops = 2.0 * int((~is_pad).sum()) * pc.shape[0] * head['vocab_w'].numel()
+  rows = int((~is_pad).sum())
+  flops = 2.0 * rows * pc.shape[0] * head['vocab_w'].numel()
   inputs = nbytes(pf, pc, *head.values(), is_pad)
   fwd_bytes = inputs + nbytes(*fwd_k)
   bwd_bytes = inputs + nbytes(fwd_k[0], g, fwd_k[2], fwd_k[3], *bwd_k)
   (fwd_name, fwd_replaces), (bwd_name, bwd_replaces) = kernels['records']
   fwd_source, bwd_source = kernels['sources']
+  # The joint's tanhf a frame-row, once per joint the function needs (the
+  # trigram pair's 'tanh_joints'; the bigram kernels' bound omits it: there
+  # the product binds).
+  fwd_joints, bwd_joints = kernels.get('tanh_joints', (0, 0))
+  tanh = rows * pc.numel()
   record = lambda name, source, replaces, count, err, ms, plain_ms, ops, \
-      traffic: kernel_record(name, source, replaces, count, err, ms,
-                             plain_ms, ops, traffic, 'bfloat16')
+      traffic, joints: kernel_record(name, source, replaces, count, err, ms,
+                                     plain_ms, ops, traffic, 'bfloat16',
+                                     tanh=joints * tanh)
+  fwd_bound = bound(flops, fwd_bytes, 'bfloat16', fwd_joints * tanh)[0]
+  bwd_bound = bound(3 * flops, bwd_bytes, 'bfloat16', bwd_joints * tanh)[0]
+  terms = ''
+  if fwd_joints:
+    design = kernels['design_joints']
+    terms = (f' (products {flops / PEAK_OPS["bfloat16"] * 1e3:.3g} / '
+             f'{3 * flops / PEAK_OPS["bfloat16"] * 1e3:.3g} ms, tanhf '
+             f'{tanh_ms(fwd_joints * tanh):.3g} / '
+             f'{tanh_ms(bwd_joints * tanh):.3g} ms: {fwd_joints} / '
+             f'{bwd_joints} joints a frame-row, {MUFU_PER_TANH} MUFU '
+             f'operations each at {MUFU_PER_SM_CLOCK} a clock on '
+             f'{CARD["sms"]} SMs at {CARD["clock_mhz"]} MHz; the kernels '
+             f'form {design[0]} / {design[1]} joints a frame-row, tanhf '
+             f'{tanh_ms(design[0] * tanh):.3g} / '
+             f'{tanh_ms(design[1] * tanh):.3g} ms)')
   return {
-      'line': line + (f'; bounds {bound(flops, fwd_bytes, "bfloat16")[0]:.3g}'
-                      f' / {bound(3 * flops, bwd_bytes, "bfloat16")[0]:.3g} '
-                      'ms'),
+      'line': line + f'; bounds {fwd_bound:.3g} / {bwd_bound:.3g} ms' + terms,
       'forward': record(fwd_name, fwd_source, fwd_replaces, launches[0],
                         fwd_err['log_z'][1], fwd_ms, plain_fwd_ms, flops,
-                        fwd_bytes),
+                        fwd_bytes, fwd_joints),
       'backward': record(bwd_name, bwd_source, bwd_replaces, launches[1],
                          max(e[1] for n, e in bwd_err.items()
                              if n != 'beta_out'), bwd_ms, plain_bwd_ms,
-                         3 * flops, bwd_bytes),
+                         3 * flops, bwd_bytes, bwd_joints),
       'plain': plain,
       'peak': peak,
       'forward_peak': forward_peak,
@@ -1203,15 +1239,41 @@ def phase_headline(torch, lattices, contexts, alignments, weight_fns, gnat,
 # operations per second by input type, and device-memory bytes per second.
 PEAK_OPS = {'bfloat16': 989e12, 'float32': 67e12}
 PEAK_BYTES = 3.35e12
+# A tanhf is 2 MUFU operations (ex2, rcp: tools/tanh_sass.py counts them in
+# the SASS), and an SM's special-function units take 16 a clock. main()
+# fills CARD with the SM count and the SM clock nvidia-smi reports
+# (clocks.max.sm).
+MUFU_PER_TANH = 2
+MUFU_PER_SM_CLOCK = 16
+CARD = {}
 
 
-def bound(flops, nbytes, dtype):
+def tanh_ms(tanh):
+  """The least time the card's MUFU pipes take for ``tanh`` tanhf."""
+  rate = CARD['sms'] * MUFU_PER_SM_CLOCK * CARD['clock_mhz'] * 1e6
+  return tanh * MUFU_PER_TANH / rate * 1e3
+
+
+def bound(flops, nbytes, dtype, tanh=0):
   """(bound_ms, bound_by): the least time the card could take for flops
-  operations in dtype and nbytes of device-memory traffic."""
-  ops_ms = flops / PEAK_OPS[dtype] * 1e3
+  operations in dtype, ``tanh`` tanhf on the MUFU pipes and nbytes of
+  device-memory traffic."""
+  ops_ms = max(flops / PEAK_OPS[dtype] * 1e3, tanh_ms(tanh) if tanh else 0.0)
   bytes_ms = nbytes / PEAK_BYTES * 1e3
   return (max(ops_ms, bytes_ms),
           'operations' if ops_ms >= bytes_ms else 'bytes')
+
+
+def card_clock():
+  """(SMs, max SM clock MHz) of card 0, the clock as nvidia-smi reports it
+  (clocks.max.sm)."""
+  import torch
+  out = subprocess.run(
+      ['nvidia-smi', '--query-gpu=clocks.max.sm', '--format=csv,noheader,'
+       'nounits', '--id=0'], capture_output=True, text=True, timeout=60,
+      check=False).stdout.strip()
+  check(out.isdigit(), f'nvidia-smi gave no SM clock ({out!r})')
+  return torch.cuda.get_device_properties(0).multi_processor_count, int(out)
 
 
 def nbytes(*tensors):
@@ -1220,12 +1282,13 @@ def nbytes(*tensors):
 
 
 def kernel_record(name, source, replaces, launches, max_abs_err, ms,
-                  plain_ms, flops, traffic, dtype, **extra):
+                  plain_ms, flops, traffic, dtype, tanh=0, **extra):
   """One entry of the kernels JSON line. No single PyTorch call computes a
   tropical or log-semiring lattice scan, or a head product fused with its
   logsumexp and a label select, so library_ms is null here; the joint+head
-  records set it to their library composition's time."""
-  bound_ms, bound_by = bound(flops, traffic, dtype)
+  records set it to their library composition's time. ``tanh``: the
+  joint's tanhf the kernel must take (the trigram pair), in the bound."""
+  bound_ms, bound_by = bound(flops, traffic, dtype, tanh)
   return {'name': name, 'route': 'cuda',
           'source': f'last_torch_tpu_torch/csrc/{source}',
           'replaces': f'last_torch_tpu/ops/{replaces}',
@@ -2230,52 +2293,67 @@ def phase_config9(torch, lattices, contexts, alignments, weight_fns,
 def phase_trigram_vs_plain(torch, contexts, trigram_scan):
   """Phase 5e: the trigram log-partition kernels against their plain
   versions: T=64, B=4, V=64 (S=4161) and a ragged V=50 (S=2551), FD /
-  FLD(1) / FLD(2), float32 and bfloat16, with phase 5's zero-cotangent and
-  empty rows."""
+  FLD(1) / FLD(2), float32 and bfloat16, and in bfloat16 FLD(0) at V=64
+  and FLD(2) at V=130 (S=17031), which the tile kernels run (the segment
+  kernels run the other bfloat16 cases: checked), with phase 5's
+  zero-cotangent and empty rows."""
   rng = np.random.default_rng(9)
   is_pad = padding(torch, LP_NUM_FRAMES, 64)
   g = torch.tensor(LP_G, device='cuda')
   lines = []
-  for vocab in (64, 50):
-    pf, pc, params = lp_inputs(torch, rng, vocab,
-                               states=contexts.FullNGram(
-                                   vocab_size=vocab,
-                                   context_size=2).num_states())
-    for name, k, fd in ALIGNMENT_CASES:
-      for dtype in (torch.float32, torch.bfloat16):
-        kw = dict(max_expansions=k, frame_dependent=fd, compute_dtype=dtype)
-        tag = f'V={vocab} S={pc.shape[0]} {name} {str(dtype)[6:]}'
-        fwd_k = trigram_scan.trigram_forward(pf, pc, params, is_pad,
-                                             with_residuals=True, **kw)
-        fwd_p = trigram_scan.trigram_forward_plain(pf, pc, params, is_pad,
-                                                   with_residuals=True, **kw)
-        bwd_k = trigram_scan.trigram_backward(pf, pc, params, is_pad,
-                                              fwd_k[0], g, fwd_k[2],
-                                              fwd_k[3], **kw)
-        bwd_p = trigram_scan.trigram_backward_plain(pf, pc, params, is_pad,
-                                                    fwd_p[0], g, fwd_p[2],
-                                                    fwd_p[3], **kw)
-        torch.cuda.synchronize()
-        rtols = LP_RTOL[str(dtype)[6:]]
-        try:
-          errors = max_errors(torch, fwd_k, fwd_p, FORWARD_NAMES, rtols)
-          errors.update(max_errors(torch, bwd_k, bwd_p, BACKWARD_NAMES,
-                                   rtols))
-        except SmokeFailure as e:
-          raise SmokeFailure(f'trigram {tag}: {e}') from None
-        dpf, beta_out = bwd_k[0], bwd_k[-1]
-        check(fwd_k[0][2].item() == 0.0 and bool((beta_out[2] == 0).all()),
-              f'trigram {tag}: the empty row has log Z or beta_out != 0')
-        check(not bool(dpf[:, 1:3].any()),
-              f'trigram {tag}: the g = 0 row or the empty row has nonzero '
-              'd(pf)')
-        value = max(e for n, (e, _) in errors.items() if n in
-                    ('log_z', 'alpha', 'hist', 'slabs', 'beta_out'))
-        grad_name, (grad, _) = max(
-            ((n, e) for n, e in errors.items() if n.startswith('d')),
-            key=lambda item: item[1][0])
-        lines.append(f'{tag}: values max rel {value:.2e}, gradients max rel '
-                     f'{grad:.2e} ({grad_name}); g=0 and empty rows exactly 0')
+  # Both types of every alignment at V=64 and 50, then two bfloat16 cases
+  # that the segment kernels leave to the first design's tile kernels:
+  # FLD(0) and V=130.
+  cases = [(vocab, *alignment, dtype) for vocab in (64, 50)
+           for alignment in ALIGNMENT_CASES
+           for dtype in (torch.float32, torch.bfloat16)]
+  tile_cases = [(64, 'FLD(0)', 0, False, torch.bfloat16),
+                (130, 'FLD(2)', 2, False, torch.bfloat16)]
+  inputs = {}
+  for case in cases + tile_cases:
+    vocab, name, k, fd, dtype = case
+    if vocab not in inputs:
+      inputs[vocab] = lp_inputs(torch, rng, vocab, states=contexts.FullNGram(
+          vocab_size=vocab, context_size=2).num_states())
+    pf, pc, params = inputs[vocab]
+    segments = trigram_scan.segment_route(
+        pf.shape[1], vocab, pf.shape[2], dtype, 1 if fd else k) is not None
+    check(segments == (dtype == torch.bfloat16 and case not in tile_cases),
+          f'trigram V={vocab} {name} {dtype}: segment route {segments}')
+    kw = dict(max_expansions=k, frame_dependent=fd, compute_dtype=dtype)
+    tag = (f'V={vocab} S={pc.shape[0]} {name} {str(dtype)[6:]} '
+           f'({"segments" if segments else "tiles"})')
+    fwd_k = trigram_scan.trigram_forward(pf, pc, params, is_pad,
+                                         with_residuals=True, **kw)
+    fwd_p = trigram_scan.trigram_forward_plain(pf, pc, params, is_pad,
+                                               with_residuals=True, **kw)
+    bwd_k = trigram_scan.trigram_backward(pf, pc, params, is_pad,
+                                          fwd_k[0], g, fwd_k[2],
+                                          fwd_k[3], **kw)
+    bwd_p = trigram_scan.trigram_backward_plain(pf, pc, params, is_pad,
+                                                fwd_p[0], g, fwd_p[2],
+                                                fwd_p[3], **kw)
+    torch.cuda.synchronize()
+    rtols = LP_RTOL[str(dtype)[6:]]
+    try:
+      errors = max_errors(torch, fwd_k, fwd_p, FORWARD_NAMES, rtols)
+      errors.update(max_errors(torch, bwd_k, bwd_p, BACKWARD_NAMES,
+                               rtols))
+    except SmokeFailure as e:
+      raise SmokeFailure(f'trigram {tag}: {e}') from None
+    dpf, beta_out = bwd_k[0], bwd_k[-1]
+    check(fwd_k[0][2].item() == 0.0 and bool((beta_out[2] == 0).all()),
+          f'trigram {tag}: the empty row has log Z or beta_out != 0')
+    check(not bool(dpf[:, 1:3].any()),
+          f'trigram {tag}: the g = 0 row or the empty row has nonzero '
+          'd(pf)')
+    value = max(e for n, (e, _) in errors.items() if n in
+                ('log_z', 'alpha', 'hist', 'slabs', 'beta_out'))
+    grad_name, (grad, _) = max(
+        ((n, e) for n, e in errors.items() if n.startswith('d')),
+        key=lambda item: item[1][0])
+    lines.append(f'{tag}: values max rel {value:.2e}, gradients max rel '
+                 f'{grad:.2e} ({grad_name}); g=0 and empty rows exactly 0')
   return lines
 
 
@@ -2320,6 +2398,10 @@ def phase_trigram(torch, gnat, presets, fused_scan, trigram_scan, joint_head,
                           is_pad, g, kw, launches, float64_reference=True)
   records.pop('plain')
   say('trigram', records.pop('line'))
+  for key, call in trigram_calls(trigram_scan, pf, pc, head, is_pad, g,
+                                 kw).items():
+    check_segment_route(launched_kernels(torch, call), key,
+                        "phase 10's shapes")
 
   # Serving: GNATModel.decode on the generic route, which launches no
   # kernel; then the tropical forward alone, without the mask's gradient.
@@ -2421,6 +2503,39 @@ def phase_trigram(torch, gnat, presets, fused_scan, trigram_scan, joint_head,
                        marg_launches['forward_launches']}
 
 
+# The bfloat16 trigram route by segment, per direction, and the first
+# design's kernels, which must not run beside it.
+SEGMENT_KERNELS = {'forward': ('segments::head_kernel',),
+                   'backward': ('segments::head_kernel',
+                                'segments::grad_kernel')}
+TILE_TRIGRAM_KERNELS = ('joint_blank_kernel', 'lex_kernel',
+                        'joint_grad_kernel')
+
+
+def trigram_calls(trigram_scan, pf, pc, head, is_pad, g, kw):
+  """{'forward': fn, 'backward': fn}: one trigram forward with residuals,
+  and one backward on the residuals of a forward run here."""
+  log_z, _, hist, slabs = trigram_scan.trigram_forward(
+      pf, pc, head, is_pad, with_residuals=True, **kw)
+  return {'forward': lambda: trigram_scan.trigram_forward(
+              pf, pc, head, is_pad, with_residuals=True, **kw),
+          'backward': lambda: trigram_scan.trigram_backward(
+              pf, pc, head, is_pad, log_z, g, hist, slabs, **kw)}
+
+
+def check_segment_route(names, key, where):
+  """Checks that the device kernels ``names`` of one bfloat16 trigram
+  ``key`` ('forward' or 'backward') call are the segment kernels, and none
+  of the first design's."""
+  missing = [k for k in SEGMENT_KERNELS[key]
+             if not any(k in n for n in names)]
+  tiles = sorted(n for n in names
+                 if any(k in n for k in TILE_TRIGRAM_KERNELS))
+  check(not missing and not tiles,
+        f'the bfloat16 trigram {key} at {where} launched {sorted(names)}: '
+        f'missing {missing}, first-design kernels {tiles}')
+
+
 def phase_trigram_probe(torch, lattices, contexts, alignments, weight_fns,
                         trigram_scan, records):
   """Phase 10b: the trigram kernels alone at the JAX package's trigram probe
@@ -2444,6 +2559,36 @@ def phase_trigram_probe(torch, lattices, contexts, alignments, weight_fns,
     records[key].update(probe_ms=probe[key]['ms'],
                         probe_plain_ms=probe[key]['plain_ms'],
                         probe_bound_ms=probe[key]['bound_ms'])
+  # By kernel: one forward and one backward under the profiler, through
+  # the segment kernels.
+  parts = []
+  for key, call in trigram_calls(trigram_scan, pf, pc, head, is_pad, g,
+                                 kw).items():
+    call()  # warm-up
+    _, spans = device_spans(torch, call)
+    check_segment_route({name for _, _, name in spans}, key,
+                        'the probe shapes')
+    names = {}
+    for start, stop, name in spans:
+      name = name.replace('(anonymous namespace)::', '').removeprefix('void ')
+      name = name.split('(')[0].split('<')[0].strip()
+      ms, count = names.get(name, (0.0, 0))
+      names[name] = (ms + (stop - start) / 1e3, count + 1)
+    parts.append(f'{key}: ' + ', '.join(
+        f'{name} {ms:.3f} ms ({count / max_t:.3g} a frame)'
+        for name, (ms, count) in sorted(names.items(),
+                                        key=lambda item: -item[1][0])))
+  # The tanh term binds the trigram, and no bigram row: a V=1024 frame-row
+  # (S=1025, h=512) against its product.
+  bigram_tanh = tanh_ms(1025 * 512) * 1e3
+  bigram_product = 2 * 1025 * 1024 * 512 / PEAK_OPS['bfloat16'] * 1e6
+  say('trigram-probe', 'by kernel (device ms a call, launches a frame) '
+      + '; '.join(parts) + f'; peak device memory of the pair '
+      f'{probe["peak"] / 2**20:.0f} MiB (forward '
+      f'{probe["forward_peak"] / 2**20:.0f}, backward '
+      f'{probe["backward_peak"] / 2**20:.0f}); a bigram V=1024 frame-row: '
+      f'tanhf {bigram_tanh:.3g} us against the product {bigram_product:.3g} '
+      'us')
 
 
 # Joint+head kernels against their plain versions: the values (blank,
@@ -3285,9 +3430,11 @@ def main():
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   print(card_line(), flush=True)  # name, power.limit as nvidia-smi gives
+  CARD['sms'], CARD['clock_mhz'] = card_clock()
   print(f'[device] torch {torch.__version__}, CUDA {torch.version.cuda}, '
         f'{torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}, '
-        'TF32 off', flush=True)
+        f'{CARD["sms"]} SMs, max SM clock {CARD["clock_mhz"]} MHz, TF32 off',
+        flush=True)
 
   # Phase 2: build from the checkout's sources.
   t0 = time.perf_counter()

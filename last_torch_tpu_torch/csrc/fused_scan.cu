@@ -176,17 +176,20 @@
 // machinery (the segment-major b-major state layout, the identity-matrix
 // (p <-> y) transpose and the shift-matrix beta gather, the blank folded
 // into a spare lex lane) has no use here and is not ported.
-//   Forward, per frame: the joint and blank (joint_blank_kernel), lex staged
+//   bfloat16, FD and FLD(k >= 1), V <= 128: namespace segments below (a
+// block per segment and group of rows, the joint formed in the wgmma
+// operand; 1 + (k - 1) launches a frame forward, k + 2 backward). The
+// float32 comparison mode, FLD(0) and larger V or h keep the first design:
+// forward, per frame: the joint and blank (joint_blank_kernel), lex staged
 // in float32 (lex_kernel: the head product of the bigram mode, stored), then
 // one segment sweep per FD frame or k for FLD(k) (segment_sweep_kernel: the
 // online (max, sum) over the segment's V + 1 strided source rows, pure
-// CUDA-core work), then the bigram mode's update_kernel. The backward is the
+// CUDA-core work), then the bigram mode's update_kernel. Its backward is the
 // bigram cache backward (run_backward) with the row reductions and the
 // marginals reading nb at dest_base(s) + y in place of 1 + y. What bounds
 // it: the head products (2 S V h per frame-row, 0.27 GFLOP at V=64, h=512)
-// are small, and each frame runs 3 + k launches forward and ~10 backward,
-// so launch overhead and the per-frame passes over the staged [B, S, V] lex
-// set the time at V=64.
+// are small beside the joint's S h tanhf and its [B, S, h] round trips
+// through memory.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1841,6 +1844,1377 @@ int run_forward(const float* pf, const float* pc, const float* vw,
 
 }  // namespace hopper
 
+// ---------------------------------------------------------------------------
+// The bfloat16 trigram on wgmma, by segment (FD and FLD(k >= 1), V <= 128).
+// A block owns segment p (the source states whose last symbol is p: unigram
+// p and the bigrams (q, p); for p = 0 the start state) and a group of G
+// batch rows, one warpgroup a row: grid (V + 1, ceil(B / G)). The bigrams
+// (q, p), rows V apart, are product tiles of 64 rows (one at V <= 64); the
+// unigram (the start state for p = 0) is an extra row taken on the CUDA
+// cores beside them. The segment's destinations (p, 1..V) are contiguous,
+// so the block reduces over its sources in registers and writes the
+// reduced row in place. The joint is formed in the product's operand,
+// never in memory: per 64-deep chunk each thread takes tanhf of pc + pf for
+// its entries and rounds them to bfloat16 into the swizzled A tile of wgmma
+// (the blank head's dot product taken from the same values), the whole
+// padded head resident in shared memory (one TMA batch a block); A is
+// double-buffered, so one chunk's products run under the next chunk's tanh.
+// At V=64 each joint entry feeds one 64-label strip, so forming it once per
+// use costs no extra tanh; the [B, S, h] joint of the first design (34 MB a
+// frame at B=8) is gone, and so is the backward's float32 [B, S, h] d_pc
+// accumulator.
+//
+// Forward, per frame: head_kernel<.., true> (alpha's update of the frame
+// before at the block's own sources, deferred to here so that it reads
+// only values of earlier launches; the history; the product; blank; lex
+// staged in float32 when a later expansion reads it; the first expansion),
+// then segment_sweep_kernel for each later expansion: FD and FLD(1) one
+// launch a frame, FLD(2) two, and one update_kernel after the last frame.
+// Backward, per frame: head_kernel<.., false> (the joint and the product
+// again; blank and float32 lex staged), one row_kernel per earlier row
+// reduction (FLD(k): k - 1; they need blank at destinations of other
+// blocks, hence the launch boundary), grad_kernel (the last row reduction,
+// the next beta, d_blank, the marginals d_lex rounded to bfloat16 into
+// shared memory, never to device memory; then per 64-wide chunk of h, the
+// chunks split over the warpgroups, the joint recomputed in the
+// accumulator layout, d_joint = d_lex vw^T and d_vw += joint^T d_lex on
+// wgmma, the tanh derivative, d_pc summed over the block's rows into
+// [groups, S, h], d_pf and d_bw column sums) and dpf_reduce_kernel: FLD(2)
+// four launches a frame, FD and FLD(1) three.
+// What bounds it: the joint's tanhf (S h per frame-row forward, twice that
+// backward), above the products at V=64: 2 MUFU operations each (ex2,
+// rcp) but about 40 FP32-pipe instructions, whose issue rate binds first.
+namespace segments {
+
+using wgmma_tiles::allow_smem;
+using wgmma_tiles::bf16;
+using wgmma_tiles::box_map;
+using wgmma_tiles::cdiv;
+using wgmma_tiles::descriptor;
+using wgmma_tiles::kAtom;
+using wgmma_tiles::kBox;
+using wgmma_tiles::mbar_expect;
+using wgmma_tiles::mbar_init;
+using wgmma_tiles::mbar_wait;
+using wgmma_tiles::named_barrier;
+using wgmma_tiles::round_up;
+using wgmma_tiles::tma_load;
+using wgmma_tiles::wgmma_commit;
+using wgmma_tiles::wgmma_fence;
+using wgmma_tiles::wgmma_wait;
+
+constexpr int kThreads = 128;  // one warpgroup
+constexpr int kRows = 64;      // source rows per product tile
+constexpr int kMaxSmem = 232448;
+
+// Makes the threads' shared-memory stores visible to wgmma's reads.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (+)= A B for a 64 x 64 x 16 piece from shared memory; TransA / TransB 1
+// for MN-major.
+template <int TransA, int TransB>
+__device__ __forceinline__ void wgmma64(float (&d)[32], uint64_t desc_a,
+                                        uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TransA), "n"(TransB));
+}
+
+// The descriptors of k16 step j of a swizzled [64][64] bfloat16 box: its
+// 64 depths contiguous (K-major) or its 64 rows or columns (MN-major).
+__device__ __forceinline__ uint64_t kmajor(const uint8_t* box, int j) {
+  return descriptor(box + j * 32, 16, kAtom);
+}
+
+__device__ __forceinline__ uint64_t mnmajor(const uint8_t* box, int j) {
+  return descriptor(box + j * 2 * kAtom, kBox, kAtom);
+}
+
+// Byte offset of (row, col) in a [64][64] bfloat16 box with the 128-byte
+// swizzle (TMA's and wgmma's layout).
+__device__ __forceinline__ int swizzled(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// Row and column (of 64) of accumulator entry e of thread lt of a
+// warpgroup (wgmma's m64nN float32 layout).
+__device__ __forceinline__ int acc_r(int e, int lt) {
+  return lt / 32 * 16 + (lt % 32) / 4 + ((e >> 1) & 1) * 8;
+}
+
+__device__ __forceinline__ int acc_c(int e, int lt) {
+  return (e >> 2) * 8 + (lt % 4) * 2 + (e & 1);
+}
+
+__device__ __forceinline__ uint32_t pack(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Segment p's sources: the bigrams (q, p), q = 1..V, rows V apart, in
+// product tiles of 64 (none for p = 0; one for V <= 64), and one extra row
+// taken on the CUDA cores: unigram p, or for p = 0 the start state. Its
+// destinations start at seg_dest(p).
+__device__ __forceinline__ int seg_tiles(int p, int V) {
+  return p == 0 ? 0 : cdiv(V, kRows);
+}
+
+// The state of row r of bigram tile `tile` of segment p, or -1 past V.
+__device__ __forceinline__ int seg_bigram(int p, int tile, int r, int V) {
+  const int q = tile * kRows + r + 1;
+  return q <= V ? 1 + V + (q - 1) * V + (p - 1) : -1;
+}
+
+__device__ __forceinline__ int seg_dest(int p, int V) {
+  return p == 0 ? 1 : 1 + V + (p - 1) * V;
+}
+
+// v[e] = row[k + e] for the 8 depths at k, zero past h.
+__device__ __forceinline__ void load8(const float* row, int k, int h,
+                                      float (&v)[8]) {
+  if ((h & 3) == 0 && k + 8 <= h) {
+    const float4 a = *reinterpret_cast<const float4*>(row + k);
+    const float4 b = *reinterpret_cast<const float4*>(row + k + 4);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = k + e < h ? row[k + e] : 0.f;
+  }
+}
+
+__device__ __forceinline__ uint8_t* aligned(uint8_t* raw) {
+  return reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t{1023});
+}
+
+// The rows of block group `group` (G of them, b >= B absent) and the mask
+// of those that are live this frame.
+template <int G>
+__device__ __forceinline__ unsigned group_rows(int group, int B,
+                                               const int* is_pad_t,
+                                               int (&rows)[G]) {
+  unsigned live = 0;
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    rows[g] = group * G + g;
+    if (rows[g] < B && !is_pad_t[rows[g]]) live |= 1u << g;
+  }
+  return live;
+}
+
+struct Head {
+  const float* pc;        // [S, h]
+  const float* pf_t;      // [B, h]
+  const int* is_pad_t;    // [B]
+  const float* vb;        // [V]
+  const float* bw;        // [h] float32, rounded to bfloat16 here
+  const float* bb;        // [1]
+  float* blank;           // [B, S]: the frame's, at the block's sources
+  float* lex;             // [B, S, V] float32 (+ vb), or null
+  // Forward only.
+  const float* alpha_prev;  // [B, S] alpha before frame t - 1; null at t = 0
+  float* alpha;             // [B, S] alpha before frame t (read at t = 0)
+  const int* is_pad_prev;   // [B] or null
+  Alphas prev;              // frame t - 1's expansions
+  float* hist_t;            // [B, S] or null
+  float* red;               // [B, S]: the frame's first expansion
+  int frame_dependent;
+  int B, S, h, hp, V;
+};
+
+// head_kernel's shared memory: A [2 stages][G] boxes (one per warpgroup),
+// the whole padded head [hp / 64][NS] boxes, an mbarrier, then floats per
+// warpgroup: alpha at the sources [NS * 64 + 4] (the extra row's at NS *
+// 64), the running column (max, sum) [NS * 64] each, a warp exchange
+// [4][64] each (at the end, the extra row's lex quarters [2][NS * 64] in
+// each), the extra row's joint chunk [2 stages][64] and blank partials [4];
+// then the rounded blank head [hp] and the live rows' pf [G][hp].
+template <int G, int NS>
+struct HeadSmem {
+  static constexpr int kA = 0;
+  static constexpr int kW = kA + 2 * G * kBox;
+  __host__ __device__ static constexpr int bar(int hp) {
+    return kW + hp / 64 * NS * kBox;
+  }
+  __host__ __device__ static constexpr int floats(int hp) {
+    return bar(hp) + 16;
+  }
+  static constexpr int kVec = 0;
+  static constexpr int kRunM = kVec + G * (NS * 64 + 4);
+  static constexpr int kRunL = kRunM + G * NS * 64;
+  static constexpr int kWm = kRunL + G * NS * 64;
+  static constexpr int kWl = kWm + G * 4 * 64;
+  static constexpr int kJx = kWl + G * 4 * 64;
+  static constexpr int kBx = kJx + G * 2 * 64;
+  static constexpr int kBw = kBx + G * 4;
+  __host__ __device__ static constexpr int bytes(int hp) {
+    return 1024 + floats(hp) + (kBw + (G + 1) * hp) * 4;
+  }
+};
+
+// The product of a frame: per live row the lexical weights (+ vb) of
+// segment blockIdx.x's sources, blank at the sources, lex stored when p.lex
+// is set. Warpgroup w owns row w of the group: the bigram tile on wgmma with
+// the joint formed in its A operand (the whole head resident, brought by TMA
+// once), and the extra row on the CUDA cores beside it. Forward: first alpha
+// at the sources (frame t - 1's update, deferred here), then the column
+// (max, sum) over the sources of alpha + lex per label, written as the first
+// expansion at the destinations (-inf on padding rows, and at the start
+// state). Grid (V + 1, ceil(B / G)), G warpgroups.
+template <int G, int NS, bool Forward>
+__global__ void __launch_bounds__(G * kThreads, 1)
+    head_kernel(const __grid_constant__ CUtensorMap vw_map, const Head p) {
+  using L = HeadSmem<G, NS>;
+  constexpr int kExtra = NS * 64;  // the extra row's slot in vec
+  extern __shared__ uint8_t raw[];
+  uint8_t* sm = aligned(raw);
+  const int tid = threadIdx.x, wg = tid / kThreads, lt = tid % kThreads;
+  const int seg = blockIdx.x, V = p.V, h = p.h, hp = p.hp, nk = hp / 64;
+  const int tiles = seg_tiles(seg, V), sx = seg;  // sx: the extra row
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::bar(hp));
+  float* fl = reinterpret_cast<float*>(sm + L::floats(hp));
+  int rows[G];
+  const unsigned live = group_rows<G>(blockIdx.y, p.B, p.is_pad_t, rows);
+  const bool mine = (live >> wg) & 1;  // this warpgroup's row is live
+  const int b = rows[wg];
+  float* vec = fl + L::kVec + wg * (NS * 64 + 4);
+  float* run_m = fl + L::kRunM + wg * NS * 64;
+  float* run_l = fl + L::kRunL + wg * NS * 64;
+  float* wm = fl + L::kWm + wg * 4 * 64;
+  float* wl = fl + L::kWl + wg * 4 * 64;
+  float* jxs = fl + L::kJx + wg * 2 * 64;
+  float* lx = wm;  // the exchange is free once the tiles are done
+  float* bx = fl + L::kBx + wg * 4;
+  float* bwr = fl + L::kBw;
+  float* pfs = bwr + hp + wg * hp;
+  if (tid == 0) {
+    mbar_init(full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int k = tid; k < hp; k += G * kThreads) {
+    bwr[k] = k < h ? round_bf16(p.bw[k]) : 0.f;
+  }
+  for (int k = lt; k < hp; k += kThreads) {
+    pfs[k] = mine && k < h ? p.pf_t[static_cast<size_t>(b) * h + k] : 0.f;
+  }
+  const size_t row0 = static_cast<size_t>(b) * p.S;
+  if constexpr (Forward) {
+    // alpha at the sources: frame t - 1's update (it reads that frame's
+    // blank, written by this block, and expansions, written by the
+    // launches of that frame), or the initial alpha at t = 0.
+    for (int i = lt; i <= kExtra && b < p.B; i += kThreads) {
+      const int s = i == kExtra      ? sx
+                    : i / 64 < tiles ? seg_bigram(seg, i / 64, i % 64, V)
+                                     : -1;
+      if (s < 0) continue;
+      const size_t at = row0 + s;
+      float a;
+      if (p.alpha_prev == nullptr) {
+        a = p.alpha[at];
+      } else {
+        a = p.alpha_prev[at];
+        if (!p.is_pad_prev[b]) {
+          const float bl = p.blank[at];
+          float acc = a + bl;
+          if (p.frame_dependent) {
+            acc = log_add(acc, p.prev.a[0][at]);
+          } else {
+            for (int j = 0; j < p.prev.n; ++j) {
+              acc = log_add(acc, p.prev.a[j][at] + bl);
+            }
+          }
+          a = acc;
+        }
+        p.alpha[at] = a;
+      }
+      if (p.hist_t != nullptr) p.hist_t[at] = a;
+      vec[i] = a;
+    }
+    for (int i = lt; i < NS * 64; i += kThreads) {
+      run_m[i] = -INFINITY;
+      run_l[i] = 0.f;
+    }
+  }
+  __syncthreads();
+  const int warp = lt / 32, lane = lt % 32;
+  const int c8 = lt & 7, rsub = lt >> 3;
+  auto a_box = [&](int st) { return sm + L::kA + (st * G + wg) * kBox; };
+  auto w_box = [&](int c, int n) { return sm + L::kW + (c * NS + n) * kBox; };
+  if (live != 0) {
+    if (tid == 0) {  // the whole head, once
+      mbar_expect(full, nk * NS * kBox);
+      for (int c = 0; c < nk; ++c) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          tma_load(w_box(c, n), vw_map, n * 64, c * 64, full);
+        }
+      }
+    }
+    float acc[NS][32];
+    // The extra row's lex: labels yp, yp + 1 of each strip over the depths
+    // of quarter kq of each chunk; its blank: depth lt of each chunk.
+    const int yp = lane * 2, kq = warp;
+    float lxa[NS][2];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) lxa[n][0] = lxa[n][1] = 0.f;
+    float bxa = 0.f;
+    int q = 0;  // chunks so far
+    for (int tile = 0; tile < (tiles > 0 ? tiles : 1); ++tile) {
+      const bool product = tile < tiles;
+      float bpart[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int c = 0; c < nk; ++c, ++q) {
+        if (!mine) continue;
+        const int st = q & 1;
+        if (product) {
+          // The joint of the tile's rows over the chunk's depths, each
+          // thread 8 depths of 4 rows; their pc first (one round trip).
+          const int k0 = c * 64 + c8 * 8;
+          float pcv[4][8];
+          int state[4];
+#pragma unroll
+          for (int pass = 0; pass < 4; ++pass) {
+            state[pass] = seg_bigram(seg, tile, rsub + 16 * pass, V);
+            if (state[pass] >= 0) {
+              load8(p.pc + static_cast<size_t>(state[pass]) * h, k0, h,
+                    pcv[pass]);
+            }
+          }
+          float bwv[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) bwv[e] = bwr[k0 + e];
+#pragma unroll
+          for (int pass = 0; pass < 4; ++pass) {
+            const int r = rsub + 16 * pass;
+            uint32_t packed[4] = {0u, 0u, 0u, 0u};
+            if (state[pass] >= 0) {
+#pragma unroll
+              for (int e = 0; e < 8; e += 2) {
+                float j[2];
+#pragma unroll
+                for (int u = 0; u < 2; ++u) {
+                  const int k = k0 + e + u;
+                  j[u] = k < h ? tanhf(pcv[pass][e + u] + pfs[k]) : 0.f;
+                }
+                packed[e / 2] = pack(j[0], j[1]);
+                bpart[pass] =
+                    fmaf(round_bf16(j[0]), bwv[e],
+                         fmaf(round_bf16(j[1]), bwv[e + 1], bpart[pass]));
+              }
+            }
+            *reinterpret_cast<uint4*>(a_box(st) + r * 128 +
+                                      ((c8 ^ (r & 7)) << 4)) =
+                make_uint4(packed[0], packed[1], packed[2], packed[3]);
+          }
+        }
+        float* jx = jxs + st * 64;
+        if (tile == 0 && lt < 64) {  // the extra row's joint chunk
+          const int k = c * 64 + lt;
+          const float j =
+              k < h ? round_bf16(tanhf(p.pc[static_cast<size_t>(sx) * h + k] +
+                                       pfs[k]))
+                    : 0.f;
+          jx[lt] = j;
+          bxa = fmaf(j, bwr[k], bxa);
+        }
+        fence_proxy_async();
+        named_barrier(1 + wg, kThreads);
+        if (q == 0) mbar_wait(full, 0);
+        if (product) {
+          wgmma_fence();
+#pragma unroll
+          for (int n = 0; n < NS; ++n) {
+            fence_acc(acc[n]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              wgmma64<0, 1>(acc[n], kmajor(a_box(st), j),
+                            mnmajor(w_box(c, n), j), c > 0 || j > 0);
+            }
+          }
+          wgmma_commit();
+        }
+        if (tile == 0) {  // the extra row's lex, under the products
+          float jk[16];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4 v = reinterpret_cast<const float4*>(jx + kq * 16)[i];
+            jk[4 * i] = v.x, jk[4 * i + 1] = v.y;
+            jk[4 * i + 2] = v.z, jk[4 * i + 3] = v.w;
+          }
+#pragma unroll
+          for (int n = 0; n < NS; ++n) {
+            const uint8_t* w = w_box(c, n);
+            float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};  // two chains each
+#pragma unroll
+            for (int i = 0; i < 16; ++i) {
+              const float2 wv = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(
+                      w + swizzled(kq * 16 + i, yp)));
+              sum[i & 1][0] = fmaf(jk[i], wv.x, sum[i & 1][0]);
+              sum[i & 1][1] = fmaf(jk[i], wv.y, sum[i & 1][1]);
+            }
+            lxa[n][0] += sum[0][0] + sum[1][0];
+            lxa[n][1] += sum[0][1] + sum[1][1];
+          }
+        }
+        // The chunk before is done, in every warp's view (a warpgroup's
+        // product completes as one): its A stage can be formed again.
+        if (product) wgmma_wait<1>();
+      }
+      if (!mine || !product) continue;
+      wgmma_wait<0>();
+#pragma unroll
+      for (int n = 0; n < NS; ++n) fence_acc(acc[n]);
+      // blank of the tile's rows: the 8 threads of a row hold its partials.
+#pragma unroll
+      for (int pass = 0; pass < 4; ++pass) {
+        float v = bpart[pass];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        const int s = seg_bigram(seg, tile, rsub + 16 * pass, V);
+        if (c8 == 0 && s >= 0) p.blank[row0 + s] = v + p.bb[0];
+      }
+      // lex = product + vb; stored; the column (max, sum) of alpha + lex.
+      float vr[2];
+      size_t lex_row[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = acc_r(half * 2, lt);
+        const int s = seg_bigram(seg, tile, r, V);
+        vr[half] = -INFINITY;
+        lex_row[half] = SIZE_MAX;
+        if (s >= 0) {
+          lex_row[half] = (row0 + s) * V;
+          if constexpr (Forward) vr[half] = vec[tile * 64 + r];
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        float(&d)[32] = acc[n];
+#pragma unroll
+        for (int e = 0; e < 32; e += 2) {
+          const int y = n * 64 + acc_c(e, lt);  // even: y, y + 1 adjacent
+          d[e] += y < V ? p.vb[y] : 0.f;
+          d[e + 1] += y + 1 < V ? p.vb[y + 1] : 0.f;
+          const size_t lr = lex_row[(e >> 1) & 1];
+          if (p.lex == nullptr || lr == SIZE_MAX || y >= V) continue;
+          if (y + 1 < V && V % 2 == 0) {
+            *reinterpret_cast<float2*>(p.lex + lr + y) =
+                make_float2(d[e], d[e + 1]);
+          } else {
+            p.lex[lr + y] = d[e];
+            if (y + 1 < V) p.lex[lr + y + 1] = d[e + 1];
+          }
+        }
+        if constexpr (Forward) {
+          // Per column: the max over the thread's 2 rows, then over the
+          // 8 lanes of its column group, then the sum of exp.
+          float cm[16], cl[16];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int y = n * 64 + j * 8 + (lane % 4) * 2 + e;
+              float m = -INFINITY;
+              if (y < V) {
+                m = fmaxf(vr[0] + d[j * 4 + e], vr[1] + d[j * 4 + 2 + e]);
+              }
+              for (int o = 4; o < 32; o <<= 1) {
+                m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+              }
+              cm[j * 2 + e] = m;
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int y = n * 64 + j * 8 + (lane % 4) * 2 + e;
+              const float c = safe_shift(cm[j * 2 + e]);
+              float l = 0.f;
+              if (y < V) {
+                l = expf(vr[0] + d[j * 4 + e] - c) +
+                    expf(vr[1] + d[j * 4 + 2 + e] - c);
+              }
+              for (int o = 4; o < 32; o <<= 1) {
+                l += __shfl_xor_sync(0xffffffffu, l, o);
+              }
+              cl[j * 2 + e] = l;
+            }
+          }
+          if (lane < 4) {
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int col = j * 8 + lane * 2 + e;
+                wm[warp * 64 + col] = cm[j * 2 + e];
+                wl[warp * 64 + col] = cl[j * 2 + e];
+              }
+            }
+          }
+          named_barrier(1 + wg, kThreads);
+          if (lt < 64) {
+            const int at = n * 64 + lt;
+            float m = run_m[at], l = run_l[at];
+#pragma unroll
+            for (int w = 0; w < 4; ++w) {
+              lse_merge(m, l, wm[w * 64 + lt], wl[w * 64 + lt]);
+            }
+            run_m[at] = m;
+            run_l[at] = l;
+          }
+          named_barrier(1 + wg, kThreads);
+        }
+      }
+    }
+    if (mine) {
+      // The extra row: its lex (four quarters of the depths), blank, and
+      // its term in the column (max, sum).
+      float* lxq = (kq < 2 ? lx : wl) + kq % 2 * NS * 64;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        lxq[n * 64 + yp] = lxa[n][0];
+        lxq[n * 64 + yp + 1] = lxa[n][1];
+      }
+      float v = bxa;
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      if (lane == 0) bx[warp] = v;  // warps 2, 3 add zero
+      named_barrier(1 + wg, kThreads);
+      for (int y = lt; y < V; y += kThreads) {
+        const float lex = (lx[y] + lx[NS * 64 + y]) +
+                          (wl[y] + wl[NS * 64 + y]) + p.vb[y];
+        if (p.lex != nullptr) p.lex[(row0 + sx) * V + y] = lex;
+        if constexpr (Forward) {
+          lse_merge(run_m[y], run_l[y], vec[kExtra] + lex, 1.f);
+        }
+      }
+      if (lt == 0) p.blank[row0 + sx] = bx[0] + bx[1] + bx[2] + bx[3] + p.bb[0];
+      named_barrier(1 + wg, kThreads);
+    }
+  }
+  if constexpr (Forward) {
+    if (b < p.B) {
+      float* out = p.red + row0;
+      const int dest0 = seg_dest(seg, V);
+      for (int y = lt; y < V; y += kThreads) {
+        out[dest0 + y] = mine ? lse_value(run_m[y], run_l[y]) : -INFINITY;
+      }
+      if (seg == 0 && lt == 0) out[0] = -INFINITY;  // no arc enters it
+    }
+  }
+}
+
+// The earlier row reductions of the backward:
+//   out[b, s] = log_add(blank + beta, logsumexp_y(lex[b, s, y] + x[dest]))
+// with dest = dest_base(s) + y and x = x1 (+ x2 when given); -inf on
+// padding rows (never read). One warp per (b, s), V <= 128: the max, then
+// the sum of exp.
+__global__ void __launch_bounds__(256)
+    row_kernel(const float* __restrict__ lex,     // [B, S, V]
+               const float* __restrict__ blank,   // [B, S]
+               const float* __restrict__ beta,    // [B, S]
+               const float* __restrict__ x1,      // [B, S]
+               const float* __restrict__ x2,      // [B, S] or null
+               const int* __restrict__ is_pad_t,  // [B]
+               float* __restrict__ out,           // [B, S]
+               int B, int S, int V) {
+  const int idx = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (idx >= B * S) return;
+  const int b = idx / S, s = idx % S;
+  if (is_pad_t[b]) {
+    if (lane == 0) out[idx] = -INFINITY;
+    return;
+  }
+  const size_t d0 = static_cast<size_t>(b) * S + dest_base<true>(s, V);
+  const float* lx = lex + static_cast<size_t>(idx) * V;
+  float v[4];
+  float m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int y = lane + 32 * i;
+    v[i] = y < V ? lx[y] + x1[d0 + y] + (x2 != nullptr ? x2[d0 + y] : 0.f)
+                 : -INFINITY;
+    m = fmaxf(m, v[i]);
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  }
+  const float c = safe_shift(m);
+  float l = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) l += expf(v[i] - c);
+  for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+  if (lane == 0) out[idx] = log_add(blank[idx] + beta[idx], lse_value(m, l));
+}
+
+struct Grad {
+  const float* pc;        // [S, h]
+  const float* pf_t;      // [B, h]
+  const int* is_pad_t;    // [B]
+  const float* lex;       // [B, S, V] (+ vb), from head_kernel
+  const float* blank;     // [B, S]
+  const float* beta;      // [B, S]: beta after the frame
+  const float* x;         // the last reduction's nb, or null: blank + beta
+  Pairs pairs;            // (a_j, nb_{j + 1}); nb null: blank + beta
+  Alphas alphas;          // a_0..a_k of d_blank
+  const float* log_z;     // [B]
+  const float* g;         // [B]
+  const float* bw32;      // [h]
+  float* beta_next;       // [B, S]
+  float* dpc_acc;         // [groups, S, h]
+  float* dvw_acc;         // [blocks, h, V]
+  float* dvb_acc;         // [blocks, V]
+  float* dbw_acc;         // [blocks, h]
+  float* dbb_acc;         // [blocks]
+  float* dpf_part;        // [V + 1, B, h]
+  int B, S, h, hp, V, Vp;
+};
+
+// grad_kernel's shared memory: d_lex of the bigram tiles [NS][G][NS] boxes,
+// per warpgroup a joint box, a float32 joint [64 * 64] in the accumulator
+// layout (phase 1: the nb vectors [1 + kMaxAlphas][128]) and a head chunk
+// [NS] boxes, an mbarrier each, then floats: d_blank of the tile rows
+// [NS][G][64] and of the extra rows [4], the extra rows' d_lex [G][128], per
+// warpgroup a warp exchange [2][4][64], d_pf sums [G][64], d_bw sums [64],
+// the extra rows' joint chunks [G][64], d_joint [G][64], d_pre sum [64] and
+// pc chunk [64], the d_vb sums [G][128], a block sum [G][4], the float32
+// blank head [hp] and the live rows' pf [G][hp].
+template <int G, int NS>
+struct GradSmem {
+  static constexpr int kD = 0;
+  static constexpr int kJ = kD + NS * G * NS * kBox;
+  static constexpr int kF = kJ + G * kBox;
+  static constexpr int kBc = kF + G * 64 * 64 * 4;
+  static constexpr int kBar = kBc + G * NS * kBox;
+  static constexpr int kFloats = kBar + 32;
+  static constexpr int kDbl = 0;
+  static constexpr int kDbx = kDbl + NS * G * 64;
+  static constexpr int kDlx = kDbx + 4;
+  static constexpr int kWs = kDlx + G * 128;
+  static constexpr int kDpf = kWs + G * 512;
+  static constexpr int kDbw = kDpf + G * G * 64;
+  static constexpr int kJx = kDbw + G * 64;
+  static constexpr int kDjx = kJx + G * G * 64;
+  static constexpr int kDpx = kDjx + G * G * 64;
+  static constexpr int kPcx = kDpx + G * 64;
+  static constexpr int kDvb = kPcx + G * 64;
+  static constexpr int kSum = kDvb + G * 128;
+  static constexpr int kBw = kSum + G * 4;
+  __host__ __device__ static constexpr int bytes(int hp) {
+    return 1024 + kFloats + (kBw + (G + 1) * hp) * 4;
+  }
+};
+
+// The last row reduction and the gradients of a frame for segment
+// blockIdx.x and the rows of group blockIdx.y. Phase 1, warpgroup w for row
+// w: the next beta at the sources (held on padding rows), d_blank, the
+// marginals
+//   d_lex[s, y] = bf16(g * sum_j exp(a_j[s] + lex[s, y] + nb_j[dest] - lz))
+// of the bigram tiles into shared memory and of the extra row beside them,
+// their column sums into dvb_acc. Phase 2, warpgroup w for the chunks c = w,
+// w + G, ... of h and every row: the joint recomputed, d_joint = d_lex vw^T
+// and d_vw += joint^T d_lex on wgmma (the extra row on the CUDA cores), d_pre
+// = (d_joint + d_blank bw) (1 - joint^2), its sums over the rows into
+// dpc_acc and over the sources into dpf_part, and sum joint d_blank into
+// dbw_acc: every sum of a chunk lives in one warpgroup. NP: the (a_j, nb_j)
+// pairs, 0 for any count. Grid (V + 1, ceil(B / G)), G warpgroups.
+template <int G, int NS, int NP>
+__global__ void __launch_bounds__(G * kThreads, 1)
+    grad_kernel(const __grid_constant__ CUtensorMap vw_map, const Grad p) {
+  using L = GradSmem<G, NS>;
+  extern __shared__ uint8_t raw[];
+  uint8_t* sm = aligned(raw);
+  float* fl = reinterpret_cast<float*>(sm + L::kFloats);
+  const int tid = threadIdx.x, wg = tid / kThreads, lt = tid % kThreads;
+  const int warp = lt / 32, lane = lt % 32;
+  const int seg = blockIdx.x, V = p.V, Vp = p.Vp;
+  const int h = p.h, hp = p.hp, nk = hp / 64;
+  const int block = blockIdx.y * gridDim.x + seg;
+  const int tiles = seg_tiles(seg, V), sx = seg;  // sx: the extra row
+  const int dest0 = seg_dest(seg, V);
+  int rows[G];
+  const unsigned live = group_rows<G>(blockIdx.y, p.B, p.is_pad_t, rows);
+  const bool mine = (live >> wg) & 1;
+  const int b = rows[wg];
+  auto d_box = [&](int tile, int g) {
+    return sm + L::kD + ((tile * G + g) * NS) * kBox;
+  };
+  uint8_t* jbox = sm + L::kJ + wg * kBox;
+  float* jf = reinterpret_cast<float*>(sm + L::kF) + wg * 4096;
+  uint8_t* bc = sm + L::kBc + wg * NS * kBox;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L::kBar) + wg;
+  float* dbl = fl + L::kDbl;
+  float* dbx = fl + L::kDbx;
+  float* dlx = fl + L::kDlx;
+  float* wsum = fl + L::kWs + wg * 512;
+  float* dpf_s = fl + L::kDpf + wg * G * 64;
+  float* dbw_s = fl + L::kDbw + wg * 64;
+  float* jxg = fl + L::kJx + wg * G * 64;
+  float* djxg = fl + L::kDjx + wg * G * 64;
+  float* dpx = fl + L::kDpx + wg * 64;
+  float* pcx = fl + L::kPcx + wg * 64;
+  float* dvb_s = fl + L::kDvb;
+  float* bsum = fl + L::kSum;
+  float* bws = fl + L::kBw;
+  float* pfs_all = bws + hp;
+  for (int k = tid; k < hp; k += G * kThreads) bws[k] = k < h ? p.bw32[k] : 0.f;
+  for (int k = lt; k < hp; k += kThreads) {
+    pfs_all[wg * hp + k] =
+        mine && k < h ? p.pf_t[static_cast<size_t>(b) * h + k] : 0.f;
+  }
+  for (int i = lt; i < G * 64; i += kThreads) dpf_s[i] = 0.f;
+  if (lt < 64) dbw_s[lt] = dpx[lt] = 0.f;
+  if (lt == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // Each warpgroup's first chunk of the head, under phase 1.
+  auto load_chunk = [&](int c) {
+    mbar_expect(bar, NS * kBox);
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      tma_load(bc + n * kBox, vw_map, n * 64, c * 64, bar);
+    }
+  };
+  if (live != 0 && lt == 0 && wg < nk) load_chunk(wg);
+
+  // Phase 1 (CUDA cores), warpgroup wg for its row.
+  constexpr int kP = NP > 0 ? NP : 1;
+  float dbb_reg = 0.f;
+  const int npairs = p.pairs.n;
+  const size_t row0 = static_cast<size_t>(b) * p.S;
+  auto pair_sum = [&](const float (&ar)[kP], size_t at, float lz, float xv,
+                      int y, const float* nbq) {
+    float total = 0.f;
+    if constexpr (NP > 0) {
+#pragma unroll
+      for (int j = 0; j < NP; ++j) total += expf(ar[j] + xv + nbq[j * 128 + y]);
+    } else {
+      for (int j = 0; j < npairs; ++j) {
+        total += expf(p.pairs.a[j][at] - lz + xv + nbq[j * 128 + y]);
+      }
+    }
+    return total;
+  };
+  auto d_blank = [&](size_t at, float bl, float bt, float lz, float gb) {
+    float total = 0.f;
+    for (int j = 0; j < p.alphas.n; ++j) {
+      total += expf(p.alphas.a[j][at] + bl + bt - lz);
+    }
+    return gb * total;
+  };
+  if (b < p.B && !mine) {  // a padding row holds beta
+    for (int i = lt; i <= tiles * kRows; i += kThreads) {
+      const int s =
+          i == tiles * kRows ? sx : seg_bigram(seg, i / 64, i % 64, V);
+      if (s >= 0) p.beta_next[row0 + s] = p.beta[row0 + s];
+    }
+  }
+  if (mine) {
+    float* xs = jf;  // [1 + kMaxAlphas][128] in phase 1
+    float* nbq = xs + 128;
+    const float lz = p.log_z[b], gb = p.g[b];
+    for (int y = lt; y < 128; y += kThreads) {
+      const size_t d = row0 + dest0 + y;
+      const bool in = y < V;
+      const float bb = in ? p.blank[d] + p.beta[d] : -INFINITY;
+      xs[y] = !in ? -INFINITY : p.x != nullptr ? p.x[d] : bb;
+      for (int j = 0; j < npairs; ++j) {
+        nbq[j * 128 + y] =
+            !in ? -INFINITY : p.pairs.nb[j] != nullptr ? p.pairs.nb[j][d] : bb;
+      }
+    }
+    named_barrier(1 + wg, kThreads);
+    const int r = lt >> 1, half = lt & 1, cols = Vp / 2;
+    for (int tile = 0; tile < tiles; ++tile) {
+      const int s = seg_bigram(seg, tile, r, V);
+      const bool ok = s >= 0;
+      const size_t at = row0 + (ok ? s : 0);
+      float ar[kP];
+      float bl = 0.f, bt = 0.f;
+      if (ok) {
+        bl = p.blank[at];
+        bt = p.beta[at];
+#pragma unroll
+        for (int j = 0; j < kP; ++j) {
+          ar[j] = NP > 0 ? p.pairs.a[j][at] - lz : 0.f;
+        }
+      }
+      if (half == 0) {
+        const float db = ok ? d_blank(at, bl, bt, lz, gb) : 0.f;
+        dbl[(tile * G + wg) * 64 + r] = db;
+        dbb_reg += db;
+      }
+      float m = -INFINITY, l = 0.f;
+      const float* lxp = p.lex + at * V;
+      for (int y0 = half * cols; y0 < (half + 1) * cols; y0 += 8) {
+        float lxv[8];  // the 8 loads first
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          lxv[e] = ok && y0 + e < V ? lxp[y0 + e] : 0.f;
+        }
+        uint32_t packed[4];
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          float dv[2];
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int y = y0 + e + u;
+            dv[u] = 0.f;
+            if (ok && y < V) {
+              const float xv = lxv[e + u];
+              const float v = xv + xs[y];
+              if (v > m) {
+                l = l * expf(m - v) + 1.f;
+                m = v;
+              } else if (v > -INFINITY) {
+                l += expf(v - m);
+              }
+              dv[u] = gb * pair_sum(ar, at, lz, xv, y, nbq);
+            }
+          }
+          packed[e / 2] = pack(dv[0], dv[1]);
+        }
+        *reinterpret_cast<uint4*>(d_box(tile, wg) + (y0 / 64) * kBox +
+                                  swizzled(r, y0 % 64)) =
+            make_uint4(packed[0], packed[1], packed[2], packed[3]);
+      }
+      lse_merge(m, l, __shfl_xor_sync(0xffffffffu, m, 1),
+                __shfl_xor_sync(0xffffffffu, l, 1));
+      if (ok && half == 0) {
+        p.beta_next[at] = log_add(bl + bt, lse_value(m, l));
+      }
+    }
+    // The extra row: label lt per thread, its reduction over the labels
+    // through the warp exchange.
+    {
+      const size_t at = row0 + sx;
+      const float bl = p.blank[at], bt = p.beta[at];
+      float ar[kP];
+#pragma unroll
+      for (int j = 0; j < kP; ++j) ar[j] = NP > 0 ? p.pairs.a[j][at] - lz : 0.f;
+      const int y = lt;
+      float v = -INFINITY, dv = 0.f;
+      if (y < V) {
+        const float xv = p.lex[at * V + y];
+        v = xv + xs[y];
+        dv = round_bf16(gb * pair_sum(ar, at, lz, xv, y, nbq));
+      }
+      dlx[wg * 128 + y] = dv;
+      float m = v;
+      for (int o = 16; o > 0; o >>= 1) {
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      }
+      if (lane == 0) wsum[warp] = m;
+      named_barrier(1 + wg, kThreads);
+      m = fmaxf(fmaxf(wsum[0], wsum[1]), fmaxf(wsum[2], wsum[3]));
+      float l = v > -INFINITY ? expf(v - m) : 0.f;
+      for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+      if (lane == 0) wsum[4 + warp] = l;
+      named_barrier(1 + wg, kThreads);
+      if (lt == 0) {
+        l = wsum[4] + wsum[5] + wsum[6] + wsum[7];
+        p.beta_next[at] = log_add(bl + bt, lse_value(m, l));
+        const float db = d_blank(at, bl, bt, lz, gb);
+        dbx[wg] = db;
+        dbb_reg += db;
+      }
+    }
+    named_barrier(1 + wg, kThreads);
+    // dvb: the column sums of the row's rounded d_lex.
+    if (lt < V) {
+      float total = dlx[wg * 128 + lt];
+      for (int tile = 0; tile < tiles; ++tile) {
+        const uint8_t* d = d_box(tile, wg) + (lt / 64) * kBox;
+        for (int rr = 0; rr < kRows; ++rr) {
+          total += __bfloat162float(
+              *reinterpret_cast<const bf16*>(d + swizzled(rr, lt % 64)));
+        }
+      }
+      dvb_s[wg * 128 + lt] = total;
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+
+  // Phase 2: warpgroup wg takes the chunks c = wg, wg + G, ... of h.
+  if (live != 0) {
+    for (int c = wg, kc = 0; c < nk; c += G, ++kc) {
+      float dvw[NS][32];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dvw[n][e] = 0.f;
+      }
+      bool waited = false;
+      // The extra row's pc of the chunk, read under the tiles.
+      if (lt < 64) {
+        pcx[lt] = c * 64 + lt < h
+                      ? p.pc[static_cast<size_t>(sx) * h + c * 64 + lt]
+                      : 0.f;
+      }
+      float* out = p.dpc_acc + static_cast<size_t>(blockIdx.y) * p.S * h;
+      for (int tile = 0; tile < tiles; ++tile) {
+        int src[2];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          src[half] = seg_bigram(seg, tile, acc_r(half * 2, lt), V);
+        }
+        float dpc[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) dpc[e] = 0.f;
+        for (int g = 0; g < G; ++g) {
+          if (!((live >> g) & 1)) continue;
+          const float* pfs = pfs_all + g * hp;
+          // The joint of the tile's rows over the chunk in the accumulator
+          // layout: float32 into jf for the tanh derivative, bfloat16 into
+          // the joint box for d_vw. Half the entries at a time (their pc
+          // loads first): the registers also hold d_vw and d_pc.
+#pragma unroll 1
+          for (int e0 = 0; e0 < 32; e0 += 16) {
+            float pcv[16];
+#pragma unroll
+            for (int e = 0; e < 16; e += 2) {
+              const int s = src[((e0 + e) >> 1) & 1];
+              const int hh = c * 64 + acc_c(e0 + e, lt);
+              const float* row = p.pc + static_cast<size_t>(s) * h + hh;
+              if (s >= 0 && (h & 1) == 0 && hh + 1 < h) {
+                const float2 v = *reinterpret_cast<const float2*>(row);
+                pcv[e] = v.x, pcv[e + 1] = v.y;
+              } else {
+                pcv[e] = s >= 0 && hh < h ? row[0] : 0.f;
+                pcv[e + 1] = s >= 0 && hh + 1 < h ? row[1] : 0.f;
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 16; e += 2) {
+              const int s = src[((e0 + e) >> 1) & 1];
+              const int col = acc_c(e0 + e, lt), hh = c * 64 + col;
+              float jt[2];
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                jt[u] = s >= 0 && hh + u < h
+                            ? tanhf(pcv[e + u] + pfs[hh + u])
+                            : 0.f;
+                jf[(e0 + e + u) * kThreads + lt] = jt[u];
+              }
+              *reinterpret_cast<uint32_t*>(
+                  jbox + swizzled(acc_r(e0 + e, lt), col)) =
+                  pack(jt[0], jt[1]);
+            }
+          }
+          fence_proxy_async();
+          named_barrier(1 + wg, kThreads);
+          if (!waited) {
+            mbar_wait(bar, kc & 1);
+            waited = true;
+          }
+          float dj[32];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < NS * 4; ++kk) {
+            wgmma64<0, 0>(dj, kmajor(d_box(tile, g) + (kk / 4) * kBox, kk % 4),
+                          kmajor(bc + (kk / 4) * kBox, kk % 4), kk > 0);
+          }
+#pragma unroll
+          for (int n = 0; n < NS; ++n) {
+            fence_acc(dvw[n]);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              wgmma64<1, 1>(dvw[n], mnmajor(jbox, j),
+                            mnmajor(d_box(tile, g) + n * kBox, j), 1);
+            }
+          }
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_acc(dj);
+#pragma unroll
+          for (int n = 0; n < NS; ++n) fence_acc(dvw[n]);
+          // The tanh derivative, and the column sums of d_pre (d_pf) and
+          // joint * d_blank (d_bw).
+          float db[2];
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            db[half] = dbl[(tile * G + g) * 64 + acc_r(half * 2, lt)];
+          }
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = j * 8 + (lane % 4) * 2 + e;
+              const float bw = bws[c * 64 + col];
+              float cf = 0.f, cw = 0.f;
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int idx = j * 4 + half * 2 + e;
+                const float jt = jf[idx * kThreads + lt];
+                const float dp = (dj[idx] + db[half] * bw) * (1.f - jt * jt);
+                dpc[idx] += dp;
+                cf += dp;
+                cw += jt * db[half];
+              }
+              for (int o = 4; o < 32; o <<= 1) {
+                cf += __shfl_xor_sync(0xffffffffu, cf, o);
+                cw += __shfl_xor_sync(0xffffffffu, cw, o);
+              }
+              if (lane < 4) {
+                wsum[warp * 64 + col] = cf;
+                wsum[256 + warp * 64 + col] = cw;
+              }
+            }
+          }
+          named_barrier(1 + wg, kThreads);
+          if (lt < 64) {
+            float sf = 0.f, sw = 0.f;
+#pragma unroll
+            for (int w = 0; w < 4; ++w) {
+              sf += wsum[w * 64 + lt];
+              sw += wsum[256 + w * 64 + lt];
+            }
+            dpf_s[g * 64 + lt] += sf;
+            dbw_s[lt] += sw;
+          }
+        }
+        // The tile's d_pc, summed over the group's rows: this block owns
+        // (group, s) for its sources and this warpgroup the chunk.
+#pragma unroll
+        for (int e0 = 0; e0 < 32; e0 += 8) {
+          float* dst[8];
+          float old[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            const int e = e0 + u, s = src[(e >> 1) & 1];
+            const int hh = c * 64 + acc_c(e, lt);
+            dst[u] = s >= 0 && hh < h ? out + static_cast<size_t>(s) * h + hh
+                                      : nullptr;
+            old[u] = dst[u] != nullptr ? *dst[u] : 0.f;
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            if (dst[u] != nullptr) *dst[u] = old[u] + dpc[e0 + u];
+          }
+        }
+      }
+      if (!waited) mbar_wait(bar, kc & 1);  // no tile: the extra rows read it
+      named_barrier(1 + wg, kThreads);  // pcx is written
+      // The extra rows on the CUDA cores, every live row at once: the
+      // joint chunks, d_joint = d_lex vw^T, d_pre and its sums, d_vw.
+      for (int i = lt; i < G * 64; i += kThreads) {
+        const int g = i / 64, k = i % 64, hh = c * 64 + k;
+        const bool in = ((live >> g) & 1) && hh < h;
+        jxg[i] = in ? tanhf(pcx[k] + pfs_all[g * hp + hh]) : 0.f;
+        float sum[4] = {0.f, 0.f, 0.f, 0.f};  // four chains
+        if ((live >> g) & 1) {
+#pragma unroll 4
+          for (int y = 0; y < Vp; ++y) {
+            sum[y & 3] = fmaf(dlx[g * 128 + y],
+                              __bfloat162float(*reinterpret_cast<const bf16*>(
+                                  bc + (y / 64) * kBox + swizzled(k, y % 64))),
+                              sum[y & 3]);
+          }
+        }
+        djxg[i] = (sum[0] + sum[1]) + (sum[2] + sum[3]);
+      }
+      named_barrier(1 + wg, kThreads);
+      if (lt < 64) {
+        const int hh = c * 64 + lt;
+        float dp_sum = 0.f, dw_sum = 0.f;
+        for (int g = 0; g < G; ++g) {
+          if (!((live >> g) & 1)) continue;
+          const float jt = jxg[g * 64 + lt], db = dbx[g];
+          const float dp = (djxg[g * 64 + lt] + db * bws[hh]) * (1.f - jt * jt);
+          dpf_s[g * 64 + lt] += dp;
+          dp_sum += dp;
+          dw_sum += jt * db;
+        }
+        dpx[lt] += dp_sum;
+        dbw_s[lt] += dw_sum;
+      }
+      for (int g = 0; g < G; ++g) {
+        if (!((live >> g) & 1)) continue;
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+#pragma unroll
+          for (int e = 0; e < 32; ++e) {
+            dvw[n][e] = fmaf(round_bf16(jxg[g * 64 + acc_r(e, lt)]),
+                             dlx[g * 128 + n * 64 + acc_c(e, lt)], dvw[n][e]);
+          }
+        }
+      }
+      named_barrier(1 + wg, kThreads);
+      // Every read of the chunk's head is done: the next one.
+      if (lt == 0 && c + G < nk) load_chunk(c + G);
+      // The chunk's sums: d_pc of the extra row, d_vw, d_pf, d_bw.
+      const int hh = c * 64 + lt % 64;
+      float* dvw_out = p.dvw_acc + static_cast<size_t>(block) * h * V;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {  // all 32 loads in flight, then stores
+        float old[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int hr = c * 64 + acc_r(e, lt), y = n * 64 + acc_c(e, lt);
+          old[e] = hr < h && y < V ? dvw_out[static_cast<size_t>(hr) * V + y]
+                                   : 0.f;
+        }
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int hr = c * 64 + acc_r(e, lt), y = n * 64 + acc_c(e, lt);
+          if (hr < h && y < V) {
+            dvw_out[static_cast<size_t>(hr) * V + y] = old[e] + dvw[n][e];
+          }
+        }
+      }
+      if (lt < 64 && hh < h) {
+        p.dpc_acc[(static_cast<size_t>(blockIdx.y) * p.S + sx) * h + hh] +=
+            dpx[lt];
+        for (int g = 0; g < G; ++g) {
+          if ((live >> g) & 1) {
+            p.dpf_part[(static_cast<size_t>(seg) * p.B + rows[g]) * h + hh] =
+                dpf_s[g * 64 + lt];
+          }
+        }
+        p.dbw_acc[static_cast<size_t>(block) * h + hh] += dbw_s[lt];
+      }
+      if (lt < 64) {
+        for (int g = 0; g < G; ++g) dpf_s[g * 64 + lt] = 0.f;
+        dbw_s[lt] = dpx[lt] = 0.f;
+      }
+    }
+  }
+  // Phase 3: the block's d_vb and d_bb.
+  __syncthreads();
+  if (tid < V) {
+    float total = 0.f;
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      if ((live >> g) & 1) total += dvb_s[g * 128 + tid];
+    }
+    p.dvb_acc[static_cast<size_t>(block) * V + tid] += total;
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    dbb_reg += __shfl_xor_sync(0xffffffffu, dbb_reg, o);
+  }
+  if (lane == 0) bsum[wg * 4 + warp] = dbb_reg;
+  __syncthreads();
+  if (tid == 0) {
+    float total = 0.f;
+    for (int w = 0; w < G * 4; ++w) total += bsum[w];
+    p.dbb_acc[block] += total;
+  }
+}
+
+#define RETURN_IF_ERROR(expr)                               \
+  do {                                                      \
+    const cudaError_t err = (expr);                         \
+    if (err != cudaSuccess) return static_cast<int>(err);   \
+  } while (0)
+
+// Dynamic shared memory of the route for a call of hidden size h, V labels
+// and `passes` reductions a frame: the larger of head_kernel's and
+// grad_kernel's, so that forward and backward take one route; 0 where the
+// route does not run the call (FLD(0), more than kMaxAlphas - 1 reductions,
+// V > 128, or buffers past a block's shared memory).
+inline int route_smem(int h, int V, int passes) {
+  const int hp = round_up(h, 64), Vp = round_up(V, 64);
+  if (passes < 1 || passes + 1 > kMaxAlphas || Vp > 128) return 0;
+  const int head = Vp <= 64 ? HeadSmem<4, 1>::bytes(hp)
+                            : HeadSmem<2, 2>::bytes(hp);
+  const int grad = Vp <= 64 ? GradSmem<4, 1>::bytes(hp)
+                            : GradSmem<2, 2>::bytes(hp);
+  const int bytes = head > grad ? head : grad;
+  return bytes <= kMaxSmem ? bytes : 0;
+}
+
+cudaError_t head_map(CUtensorMap* map, const bf16* vw16, int hp, int Vp) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(Vp),
+                              static_cast<cuuint64_t>(hp)};
+  return box_map(map, vw16, 2, dims);
+}
+
+// The forward's frames (module comment above): head_kernel, the later
+// expansions' segment sweeps, and the last frame's update. Expansion j of
+// frame t lives at cur(t, j): the slabs, or `last` [2, k, B, S] by frame
+// parity (frame t + 1's update reads frame t's while writing its own).
+// The entry point runs it where route_smem is not 0.
+template <int G, int NS>
+int forward_frames(const float* pf, const float* pc, const bf16* vw16,
+                   const float* vb, const float* bw, const float* bb,
+                   const int* is_pad, float* blank, float* lex, float* last,
+                   float* alpha, float* hist, float* slabs, int T, int B,
+                   int S, int h, int V, int passes, int frame_dependent,
+                   cudaStream_t stream) {
+  const int hp = round_up(h, 64), Vp = round_up(V, 64);
+  const size_t bs = static_cast<size_t>(B) * S;
+  constexpr auto kernel = head_kernel<G, NS, true>;
+  const int smem = HeadSmem<G, NS>::bytes(hp);
+  if (passes >= 2 && lex == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (T == 0 || B == 0) return 0;
+  RETURN_IF_ERROR(allow_smem<kernel>(smem));
+  CUtensorMap map;
+  RETURN_IF_ERROR(head_map(&map, vw16, hp, Vp));
+  const size_t stride = slabs != nullptr ? static_cast<size_t>(T) * bs : bs;
+  auto cur = [&](int t, int j) {
+    return slabs != nullptr ? slabs + t * bs + j * stride
+                            : last + ((t % 2) * passes + j) * bs;
+  };
+  const dim3 grid(V + 1, cdiv(B, G));
+  for (int t = 0; t < T; ++t) {
+    const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
+    Head p{pc, pf + static_cast<size_t>(t) * B * h, is_pad_t, vb, bw, bb,
+           blank, passes >= 2 ? lex : nullptr};
+    p.alpha_prev = t > 0 ? alpha + ((t - 1) % 2) * bs : nullptr;
+    p.alpha = alpha + (t % 2) * bs;
+    p.is_pad_prev = t > 0 ? is_pad_t - B : nullptr;
+    p.prev.n = t > 0 ? passes : 0;
+    for (int j = 0; j < p.prev.n; ++j) p.prev.a[j] = cur(t - 1, j);
+    p.hist_t = hist != nullptr ? hist + t * bs : nullptr;
+    p.red = cur(t, 0);
+    p.frame_dependent = frame_dependent;
+    p.B = B, p.S = S, p.h = h, p.hp = hp, p.V = V;
+    kernel<<<grid, G * kThreads, smem, stream>>>(map, p);
+    RETURN_IF_ERROR(cudaGetLastError());
+    for (int j = 1; j < passes; ++j) {
+      segment_sweep_kernel<<<dim3(V + 1, B), lattice_tiles::kThreads, 0,
+                             stream>>>(lex, cur(t, j - 1), is_pad_t,
+                                       cur(t, j), S, V);
+      RETURN_IF_ERROR(cudaGetLastError());
+    }
+  }
+  update_kernel<<<blocks_for(bs), kPointThreads, 0, stream>>>(
+      alpha + ((T - 1) % 2) * bs, blank, cur(T - 1, 0), stride,
+      is_pad + static_cast<size_t>(T - 1) * B, alpha + (T % 2) * bs, nullptr,
+      B, S, passes, frame_dependent);
+  RETURN_IF_ERROR(cudaGetLastError());
+  return 0;
+}
+
+// The backward's frames (module comment above), then the sums of the
+// cross-frame partials. nb holds nb_1..nb_{k-1} ([max(k - 1, 1), B, S]);
+// nb_k = blank + beta is formed where it is read. The entry point runs it
+// where route_smem is not 0.
+template <int G, int NS>
+int backward_frames(const float* pf, const float* pc, const bf16* vw16,
+                    const float* vb, const float* bw32, const float* bb,
+                    const int* is_pad, const float* log_z, const float* g,
+                    const float* hist, const float* slabs, float* blank,
+                    float* lex, float* nb, float* beta, float* dpf,
+                    float* dpf_part, float* dpc_acc, float* dvw_acc,
+                    float* dvb_acc, float* dbw_acc, float* dbb_acc,
+                    float* dpc, float* dvw, float* dvb, float* dbw,
+                    float* dbb, int T, int B, int S, int h, int V,
+                    int max_expansions, int frame_dependent,
+                    cudaStream_t stream) {
+  const int k = frame_dependent ? 0 : max_expansions;
+  const int passes = frame_dependent ? 1 : max_expansions;
+  const int hp = round_up(h, 64), Vp = round_up(V, 64);
+  const int groups = cdiv(B, G), blocks = (V + 1) * groups;
+  const size_t bs = static_cast<size_t>(B) * S;
+  constexpr auto head = head_kernel<G, NS, false>;
+  // grad_kernel knows the pair count of FD, FLD(1) and FLD(2).
+  const auto grad = passes == 1   ? grad_kernel<G, NS, 1>
+                    : passes == 2 ? grad_kernel<G, NS, 2>
+                                  : grad_kernel<G, NS, 0>;
+  const int head_smem = HeadSmem<G, NS>::bytes(hp);
+  const int grad_smem = GradSmem<G, NS>::bytes(hp);
+  CUtensorMap map;
+  if (T > 0 && B > 0) {
+    RETURN_IF_ERROR(allow_smem<head>(head_smem));
+    RETURN_IF_ERROR((passes == 1 ? allow_smem<grad_kernel<G, NS, 1>>(grad_smem)
+                     : passes == 2
+                         ? allow_smem<grad_kernel<G, NS, 2>>(grad_smem)
+                         : allow_smem<grad_kernel<G, NS, 0>>(grad_smem)));
+    RETURN_IF_ERROR(head_map(&map, vw16, hp, Vp));
+  }
+  const dim3 grid(V + 1, groups);
+  auto nb_at = [&](int j) { return nb + (j - 1) * bs; };  // nb_j, 1 <= j < k
+  for (int n = 0; n < T; ++n) {
+    const int t = T - 1 - n;
+    const int* is_pad_t = is_pad + static_cast<size_t>(t) * B;
+    const float* pf_t = pf + static_cast<size_t>(t) * B * h;
+    const float* beta_cur = beta + (n % 2) * bs;
+    float* beta_next = beta + ((n + 1) % 2) * bs;
+    Head hd{pc, pf_t, is_pad_t, vb, bw32, bb, blank, lex};
+    hd.B = B, hd.S = S, hd.h = h, hd.hp = hp, hd.V = V;
+    head<<<grid, G * kThreads, head_smem, stream>>>(map, hd);
+    RETURN_IF_ERROR(cudaGetLastError());
+    for (int j = k - 1; j >= 1; --j) {  // nb_j from nb_{j+1}
+      const bool top = j + 1 == k;
+      row_kernel<<<cdiv(static_cast<int>(bs), 8), 256, 0, stream>>>(
+          lex, blank, beta_cur, top ? blank : nb_at(j + 1),
+          top ? beta_cur : nullptr, is_pad_t, nb_at(j), B, S, V);
+      RETURN_IF_ERROR(cudaGetLastError());
+    }
+    Grad p{pc, pf_t, is_pad_t, lex, blank, beta_cur};
+    p.x = frame_dependent ? beta_cur : k == 1 ? nullptr : nb_at(1);
+    p.alphas.n = 1 + k;
+    p.alphas.a[0] = hist + t * bs;
+    for (int j = 0; j < k; ++j) {
+      p.alphas.a[1 + j] = slabs + (static_cast<size_t>(j) * T + t) * bs;
+    }
+    p.pairs.n = passes;
+    for (int j = 0; j < passes; ++j) {
+      p.pairs.a[j] = p.alphas.a[j];
+      p.pairs.nb[j] = frame_dependent ? beta_cur
+                      : j + 1 == k    ? nullptr
+                                      : nb_at(j + 1);
+    }
+    p.log_z = log_z, p.g = g, p.bw32 = bw32, p.beta_next = beta_next;
+    p.dpc_acc = dpc_acc, p.dvw_acc = dvw_acc, p.dvb_acc = dvb_acc;
+    p.dbw_acc = dbw_acc, p.dbb_acc = dbb_acc, p.dpf_part = dpf_part;
+    p.B = B, p.S = S, p.h = h, p.hp = hp, p.V = V, p.Vp = Vp;
+    grad<<<grid, G * kThreads, grad_smem, stream>>>(map, p);
+    RETURN_IF_ERROR(cudaGetLastError());
+    dpf_reduce_kernel<<<blocks_for(static_cast<size_t>(B) * h),
+                        kPointThreads, 0, stream>>>(
+        dpf_part, is_pad_t, dpf + static_cast<size_t>(t) * B * h, B, h,
+        V + 1);
+    RETURN_IF_ERROR(cudaGetLastError());
+  }
+  using head_grads::Sums;
+  const Sums sums{{{dpc_acc, groups, S * h, dpc},
+                   {dvw_acc, blocks, h * V, dvw},
+                   {dvb_acc, blocks, V, dvb},
+                   {dbw_acc, blocks, h, dbw},
+                   {dbb_acc, blocks, 1, dbb}},
+                  5};
+  RETURN_IF_ERROR(head_grads::launch_sums(sums, stream));
+  return 0;
+}
+
+#undef RETURN_IF_ERROR
+
+}  // namespace segments
+
 template <typename T, bool TRI>
 int run_backward(const float* pf, const float* pc, const T* vw,
                  const float* vb, const T* bw, const float* bw32,
@@ -2226,6 +3600,84 @@ int fused_marginals(int dtype, const float* pf, const float* pc,
         frame_dependent, max_ysplits, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Bytes of dynamic shared memory the bfloat16 trigram by segment takes for
+// a call of hidden size h, V labels and `passes` reductions a frame (1 for
+// FD, k for FLD(k)), or 0 where trigram_segment_forward and
+// trigram_segment_backward do not run it and the caller takes
+// trigram_forward / trigram_backward.
+int trigram_segment_smem(int h, int V, int passes) {
+  return segments::route_smem(h, V, passes);
+}
+
+// The bfloat16 trigram by segment (namespace segments), FD or FLD(k >= 1)
+// where trigram_segment_smem is not 0, on `stream`; returns the first
+// launch error. vw16 is the padded bfloat16 head [hp, Vp] (hp, Vp: h and V
+// rounded up to 64, zeros past h and V), bw the float32 blank head [h],
+// blank [B, S] scratch, lex [B, S, V] float32 scratch (may be null with one
+// reduction a frame), last [2, k, B, S] the expansions when slabs is null;
+// alpha, hist and slabs as trigram_forward's.
+int trigram_segment_forward(const float* pf, const float* pc,
+                            const void* vw16, const float* vb,
+                            const float* bw, const float* bb,
+                            const int* is_pad, float* blank, float* lex,
+                            float* last, float* alpha, float* hist,
+                            float* slabs, int num_frames, int B, int S,
+                            int h, int V, int max_expansions,
+                            int frame_dependent, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int passes = frame_dependent ? 1 : max_expansions;
+  const int Vp = wgmma_tiles::round_up(V, 64);
+  const auto* head = static_cast<const segments::bf16*>(vw16);
+  if (segments::route_smem(h, V, passes) == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return Vp <= 64 ? segments::forward_frames<4, 1>(
+                        pf, pc, head, vb, bw, bb, is_pad, blank, lex, last,
+                        alpha, hist, slabs, num_frames, B, S, h, V, passes,
+                        frame_dependent, s)
+                  : segments::forward_frames<2, 2>(
+                        pf, pc, head, vb, bw, bb, is_pad, blank, lex, last,
+                        alpha, hist, slabs, num_frames, B, S, h, V, passes,
+                        frame_dependent, s);
+}
+
+// Its backward on `stream`; returns the first launch error. vw16, bw32 and
+// blank as the forward's; lex [B, S, V] float32 scratch; nb [max(k - 1, 1),
+// B, S]; beta [2, B, S] zero in slot 0 on entry (the final beta is left in
+// slot num_frames % 2); dpf_part [V + 1, B, h]; zeroed accumulators
+// dpc_acc [ceil(B / G), S, h], dvw_acc [blocks, h, V], dvb_acc [blocks, V],
+// dbw_acc [blocks, h], dbb_acc [blocks] (G = 4 for V <= 64, else 2; blocks
+// = (V + 1) ceil(B / G)); outputs as trigram_backward's.
+int trigram_segment_backward(
+    const float* pf, const float* pc, const void* vw16, const float* vb,
+    const float* bw32, const float* bb, const int* is_pad,
+    const float* log_z, const float* g, const float* hist,
+    const float* slabs, float* blank, float* lex, float* nb, float* beta,
+    float* dpf, float* dpf_part, float* dpc_acc, float* dvw_acc,
+    float* dvb_acc, float* dbw_acc, float* dbb_acc, float* dpc, float* dvw,
+    float* dvb, float* dbw, float* dbb, int num_frames, int B, int S, int h,
+    int V, int max_expansions, int frame_dependent, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int Vp = wgmma_tiles::round_up(V, 64);
+  const auto* head = static_cast<const segments::bf16*>(vw16);
+  if (segments::route_smem(h, V, frame_dependent ? 1 : max_expansions) ==
+      0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return Vp <= 64
+             ? segments::backward_frames<4, 1>(
+                   pf, pc, head, vb, bw32, bb, is_pad, log_z, g, hist, slabs,
+                   blank, lex, nb, beta, dpf, dpf_part, dpc_acc, dvw_acc,
+                   dvb_acc, dbw_acc, dbb_acc, dpc, dvw, dvb, dbw, dbb,
+                   num_frames, B, S, h, V, max_expansions, frame_dependent, s)
+             : segments::backward_frames<2, 2>(
+                   pf, pc, head, vb, bw32, bb, is_pad, log_z, g, hist, slabs,
+                   blank, lex, nb, beta, dpf, dpf_part, dpc_acc, dvw_acc,
+                   dvb_acc, dbw_acc, dbb_acc, dpc, dvw, dvb, dbw, dbb,
+                   num_frames, B, S, h, V, max_expansions, frame_dependent,
+                   s);
 }
 
 const char* fused_error_string(int code) {

@@ -217,6 +217,12 @@ def library() -> ctypes.CDLL:
     lib.trigram_forward.restype = i
     lib.trigram_backward.argtypes = [i] + [p] * 33 + [i] * 9 + [p]
     lib.trigram_backward.restype = i
+    lib.trigram_segment_smem.argtypes = [i] * 3
+    lib.trigram_segment_smem.restype = i
+    lib.trigram_segment_forward.argtypes = [p] * 13 + [i] * 7 + [p]
+    lib.trigram_segment_forward.restype = i
+    lib.trigram_segment_backward.argtypes = [p] * 27 + [i] * 7 + [p]
+    lib.trigram_segment_backward.restype = i
     lib.fused_error_string.argtypes = [i]
     lib.fused_error_string.restype = ctypes.c_char_p
     _LIB = lib

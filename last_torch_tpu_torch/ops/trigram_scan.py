@@ -32,6 +32,16 @@ destination sums over one segment of V + 1 source states and each segment's
 destinations are contiguous; the kernels need none of the TPU kernels'
 segment-major layout, transposes or blank folding.
 
+In bfloat16 with FD or FLD(k >= 1) and V <= 128 (``segment_route``) the
+kernels run by segment on wgmma (``trigram_segment_forward`` /
+``trigram_segment_backward`` of ``csrc/fused_scan.cu``): a block owns
+segment p and a group of batch rows, forms the joint in the product's
+operand (never in memory: no [B, S, h] buffer in either direction, and no
+[B, S, V] d_lex), and reduces over its sources in registers. The float32
+comparison mode, FLD(0), V > 128 and hidden sizes whose buffers pass a
+block's shared memory keep the first design's kernels on
+``tile_product.cuh``'s tiles.
+
 Scope is the structural half of the JAX package's gate (``supported``): a
 ``JointWeightFn`` (exactly), ``FullNGram(context_size=2)``,
 ``FrameDependent`` / ``FrameLabelDependent``, one batch dimension. The TPU's
@@ -52,6 +62,7 @@ chaining of the JAX kernels (``parallel/sequence.py``'s) is not ported
 
 from __future__ import annotations
 
+import dataclasses
 from collections.abc import Callable
 from typing import Any, Optional
 
@@ -75,6 +86,96 @@ def staged_bytes(batch: int, vocab: int, compute_dtype: torch.dtype) -> int:
   compute type, [B, S, V] each."""
   itemsize = torch.empty((), dtype=compute_dtype).element_size()
   return batch * _context(vocab).num_states() * vocab * (4 + itemsize)
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentPlan:
+  """Grid of the segment kernels (``segment_plan``).
+
+  Attributes:
+    hidden_pad, vocab_pad: h and V rounded up to 64; the bfloat16 head is
+      padded to [hidden_pad, vocab_pad] with zeros.
+    strips: 64-label strips of the product (1 for V <= 64, else 2).
+    group: batch rows a block owns, one warpgroup each (4 with one strip,
+      2 with two: a warpgroup's float32 sums, strips tiles of 64 x 64, and
+      the block's registers fit).
+    groups: blocks along the batch, ceil(B / group).
+    blocks: blocks of a launch, (V + 1) segments x groups.
+  """
+  hidden_pad: int
+  vocab_pad: int
+  strips: int
+  group: int
+  groups: int
+  blocks: int
+
+
+def segment_plan(batch: int, vocab: int, hidden: int) -> SegmentPlan:
+  """The ``SegmentPlan`` of a call that the segment kernels run (V <= 128:
+  ``segment_route`` says which calls they run)."""
+  cdiv = lambda n, m: -(-n // m)
+  vp, hp = cdiv(vocab, 64) * 64, cdiv(hidden, 64) * 64
+  if vp > 128:
+    raise ValueError(f'the segment kernels take V <= 128, not {vocab}')
+  strips = vp // 64
+  group = 4 // strips
+  groups = cdiv(batch, group)
+  return SegmentPlan(hp, vp, strips, group, groups, (vocab + 1) * groups)
+
+
+def segment_route(batch: int, vocab: int, hidden: int,
+                  compute_dtype: torch.dtype,
+                  passes: int) -> Optional[SegmentPlan]:
+  """The ``SegmentPlan`` of a call on the card, or None where the segment
+  kernels do not run it and the first design's on ``tile_product.cuh`` do:
+  float32, and what the library's ``trigram_segment_smem`` refuses (FLD(0)
+  with ``passes`` 0, more than 8 reductions a frame, V > 128, or a hidden
+  size whose buffers pass a block's shared memory: h > 1024 at V <= 64, h >
+  704 at V <= 128)."""
+  if compute_dtype != torch.bfloat16:
+    return None
+  if not fused_scan.library().trigram_segment_smem(hidden, vocab, passes):
+    return None
+  return segment_plan(batch, vocab, hidden)
+
+
+def segment_forward_scratch(plan: SegmentPlan, batch: int, vocab: int,
+                            passes: int, with_slabs: bool) -> dict:
+  """name -> (shape, dtype) of the segment forward's buffers: the padded
+  head, blank, the float32 lex [B, S, V] that later expansions read (two
+  or more reductions a frame; within ``staged_bytes``) and, without the
+  slabs, the expansions of two frames."""
+  states = _context(vocab).num_states()
+  scratch = {'vocab_w': ((plan.hidden_pad, plan.vocab_pad), torch.bfloat16),
+             'blank': ((batch, states), torch.float32)}
+  if passes >= 2:
+    scratch['lex'] = ((batch, states, vocab), torch.float32)
+  if not with_slabs:
+    scratch['last'] = ((2, passes, batch, states), torch.float32)
+  return scratch
+
+
+def segment_backward_scratch(plan: SegmentPlan, batch: int, vocab: int,
+                             hidden: int, passes: int) -> dict:
+  """name -> (shape, dtype) of the segment backward's buffers: the padded
+  head, blank and the float32 lex [B, S, V] of a frame, the earlier
+  reductions' nb, d(pf)'s per-segment partials and the cross-frame
+  accumulators (d_pc per group of rows, the head's per block). No [B, S,
+  h] buffer and no d_lex in device memory."""
+  states = _context(vocab).num_states()
+  f32 = torch.float32
+  return {
+      'vocab_w': ((plan.hidden_pad, plan.vocab_pad), torch.bfloat16),
+      'blank': ((batch, states), f32),
+      'lex': ((batch, states, vocab), f32),
+      'nb': ((max(passes - 1, 1), batch, states), f32),
+      'dpf_part': ((vocab + 1, batch, hidden), f32),
+      'dpc_acc': ((plan.groups, states, hidden), f32),
+      'dvw_acc': ((plan.blocks, hidden, vocab), f32),
+      'dvb_acc': ((plan.blocks, vocab), f32),
+      'dbw_acc': ((plan.blocks, hidden), f32),
+      'dbb_acc': ((plan.blocks,), f32),
+  }
 
 
 def supported(lattice, frames: torch.Tensor) -> bool:
@@ -138,6 +239,34 @@ def trigram_forward(pf: torch.Tensor, pc: torch.Tensor,
   device = pf.device
   empty = lambda *shape, dtype=torch.float32: torch.empty(
       shape, dtype=dtype, device=device)
+  ptr = fused_scan._ptr
+  hist = empty(max_t, batch, states) if with_residuals else None
+  slabs = (empty(k, max_t, batch, states)
+           if with_residuals and not frame_dependent and k else None)
+  alpha = torch.full((2, batch, states), fused_scan.NEG_INF, device=device)
+  alpha[0, :, 0] = 0.0
+  plan = segment_route(batch, vocab, hidden, compute_dtype, k)
+  if plan is not None:
+    # Scratch, held until the call has enqueued every launch.
+    buf = {name: empty(*shape, dtype=dtype) for name, (shape, dtype) in
+           segment_forward_scratch(plan, batch, vocab, k,
+                                   slabs is not None).items()}
+    buf['vocab_w'].zero_()[:hidden, :vocab] = params['vocab_w']
+    buf['is_pad'] = is_pad.to(torch.int32)
+    with torch.cuda.device(device):
+      stream = torch.cuda.current_stream(device).cuda_stream
+      status = lib.trigram_segment_forward(
+          ptr(pf), ptr(pc), ptr(buf['vocab_w']), ptr(params['vocab_b']),
+          ptr(params['blank_w']), ptr(params['blank_b']),
+          ptr(buf['is_pad']), ptr(buf['blank']),
+          ptr(buf.get('lex')), ptr(buf.get('last')), ptr(alpha), ptr(hist),
+          ptr(slabs), max_t, batch, states, hidden, vocab, max_expansions,
+          int(frame_dependent), stream)
+    fused_scan._raise_on(status, 'trigram log-partition forward')
+    forward_launches += 1
+    final = alpha[max_t % 2]
+    return torch.logsumexp(final, dim=-1), final, hist, slabs
+
   # Scratch, held until the call has enqueued every launch.
   vw = params['vocab_w'].to(compute_dtype).contiguous()
   bw = params['blank_w'].to(compute_dtype).contiguous()
@@ -145,13 +274,7 @@ def trigram_forward(pf: torch.Tensor, pc: torch.Tensor,
   joint = empty(batch, states, hidden, dtype=compute_dtype)
   blank = empty(batch, states)
   lex = empty(batch, states, vocab) if k else None
-  hist = empty(max_t, batch, states) if with_residuals else None
-  slabs = (empty(k, max_t, batch, states)
-           if with_residuals and not frame_dependent and k else None)
   last = None if slabs is not None else empty(max(k, 1), batch, states)
-  alpha = torch.full((2, batch, states), fused_scan.NEG_INF, device=device)
-  alpha[0, :, 0] = 0.0
-  ptr = fused_scan._ptr
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
     status = lib.trigram_forward(
@@ -219,10 +342,60 @@ def trigram_backward(pf: torch.Tensor, pc: torch.Tensor,
     raise ValueError(f'no trigram log-partition kernel for device '
                      f'{pf.device}')
 
-  grads = fused_scan.launch_backward('trigram_backward', pf, pc, params,
-                                     is_pad, log_z, g, hist, slabs, **kw)
+  max_t, batch, hidden = pf.shape
+  vocab = params['vocab_w'].shape[-1]
+  plan = segment_route(batch, vocab, hidden, compute_dtype,
+                       fused_scan.num_passes(max_expansions, frame_dependent))
+  if plan is None:
+    grads = fused_scan.launch_backward('trigram_backward', pf, pc, params,
+                                       is_pad, log_z, g, hist, slabs, **kw)
+  else:
+    grads = _segment_backward(plan, pf, pc, params, is_pad, log_z, g, hist,
+                              slabs, max_expansions, frame_dependent)
   backward_launches += 1
   return grads
+
+
+def _segment_backward(plan, pf, pc, params, is_pad, log_z, g, hist, slabs,
+                      max_expansions, frame_dependent):
+  """Launches ``trigram_segment_backward``; arguments and outputs as
+  ``trigram_backward``'s."""
+  lib = fused_scan.library()
+  max_t, batch, hidden = pf.shape
+  states = pc.shape[0]
+  vocab = params['vocab_w'].shape[-1]
+  passes = fused_scan.num_passes(max_expansions, frame_dependent)
+  device = pf.device
+  empty = lambda *shape, dtype=torch.float32: torch.empty(
+      shape, dtype=dtype, device=device)
+  # Scratch, held until the call has enqueued every launch; the
+  # accumulators start at zero.
+  buf = {name: empty(*shape, dtype=dtype) for name, (shape, dtype) in
+         segment_backward_scratch(plan, batch, vocab, hidden,
+                                  passes).items()}
+  buf['vocab_w'].zero_()[:hidden, :vocab] = params['vocab_w']
+  for name in ('dpc_acc', 'dvw_acc', 'dvb_acc', 'dbw_acc', 'dbb_acc'):
+    buf[name].zero_()
+  buf['is_pad'] = is_pad.to(torch.int32)
+  beta = torch.zeros((2, batch, states), device=device)  # slot 0: ones
+  dpf = empty(max_t, batch, hidden)
+  dpc, dvw = empty(states, hidden), empty(hidden, vocab)
+  dvb, dbw, dbb = empty(vocab), empty(hidden), empty(1)
+  ptr = fused_scan._ptr
+  with torch.cuda.device(device):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = lib.trigram_segment_backward(
+        ptr(pf), ptr(pc), ptr(buf['vocab_w']), ptr(params['vocab_b']),
+        ptr(params['blank_w']), ptr(params['blank_b']),
+        ptr(buf['is_pad']), ptr(log_z), ptr(g), ptr(hist),
+        ptr(slabs), ptr(buf['blank']), ptr(buf['lex']), ptr(buf['nb']),
+        ptr(beta), ptr(dpf), ptr(buf['dpf_part']), ptr(buf['dpc_acc']),
+        ptr(buf['dvw_acc']), ptr(buf['dvb_acc']), ptr(buf['dbw_acc']),
+        ptr(buf['dbb_acc']), ptr(dpc), ptr(dvw), ptr(dvb), ptr(dbw),
+        ptr(dbb), max_t, batch, states, hidden, vocab, max_expansions,
+        int(frame_dependent), stream)
+  fused_scan._raise_on(status, 'trigram log-partition backward')
+  return dpf, dpc, dvw, dvb, dbw, dbb[0], beta[max_t % 2]
 
 
 def trigram_backward_plain(pf: torch.Tensor, pc: torch.Tensor,

@@ -837,11 +837,36 @@ def test_numerator_kernels_give_exact_zeros_on_card(card):
 
 
 TRIGRAM_CARD_CASES = {
-    # name: (vocab, hidden, max_expansions, frame_dependent); S = 1 + V + V^2
-    'fd_ragged_v5': (5, 24, 0, True),
-    'fld1_ragged_v50': (50, 64, 1, False),
-    'fld2_v64': (64, 512, 2, False),
+    # name: (vocab, hidden, max_expansions, frame_dependent, batch);
+    # S = 1 + V + V^2. In bfloat16 the segment kernels run all but
+    # TRIGRAM_TILE_CASES: a block owns a segment and 4 batch rows (V <= 64)
+    # or 2 (V <= 128, two label strips), so B = 3 and 5 leave groups part
+    # empty, V = 5 and 50 pad the labels, h = 24 and 40 the hidden chunk,
+    # and V = 80 at B = 5 launches 81 x 3 = 243 blocks, past the card's 132
+    # SMs.
+    'fd_ragged_v5': (5, 24, 0, True, 3),
+    'fld1_ragged_v50': (50, 64, 1, False, 3),
+    'fld2_v64': (64, 512, 2, False, 3),
+    'fld2_v5_h24_b5': (5, 24, 2, False, 5),
+    'fld2_ragged_v50_h40_b5': (50, 40, 2, False, 5),
+    'fd_v64_b5': (64, 128, 0, True, 5),
+    'fld1_v80_b5': (80, 64, 1, False, 5),
+    'fd_v80_h40': (80, 40, 0, True, 3),
+    'fld2_v80_b5': (80, 64, 2, False, 5),
+    # Three reductions a frame: grad_kernel's generic pair count.
+    'fld3_v64_h128_b5': (64, 128, 3, False, 5),
+    # Outside the segment route, on the first design's tile kernels in
+    # bfloat16 too: FLD(0), V > 128, a hidden size past a block's shared
+    # memory.
+    'fld0_v64_b5': (64, 128, 0, False, 5),
+    'fld2_v130_h24': (130, 24, 2, False, 3),
+    'fld2_v64_h1088': (64, 1088, 2, False, 3),
 }
+TRIGRAM_TILE_CASES = ('fld0_v64_b5', 'fld2_v130_h24', 'fld2_v64_h1088')
+# Rows of the card cases: full, zero cotangent, empty, then (B = 5) a
+# padded row with a cotangent and a full one.
+TRIGRAM_CARD_LENGTHS = [12, 7, 0, 3, 12]
+TRIGRAM_CARD_G = [1.0, 0.0, 1.0, 0.5, 1.0]
 
 
 def trigram_inputs(seed, vocab, hidden, max_t, lengths, device='cpu'):
@@ -928,17 +953,23 @@ def test_plain_trigram_log_partition_matches_generic_route(frame_dependent):
                          ids=['f32', 'bf16'])
 @pytest.mark.parametrize('case', sorted(TRIGRAM_CARD_CASES))
 def test_trigram_kernels_match_plain_on_card(card, case, compute_dtype):
-  vocab, hidden, k, fd = TRIGRAM_CARD_CASES[case]
-  pf, pc, params, is_pad = trigram_inputs(8, vocab, hidden, max_t=12,
-                                          lengths=[12, 7, 0], device=card)
+  vocab, hidden, k, fd, batch = TRIGRAM_CARD_CASES[case]
+  pf, pc, params, is_pad = trigram_inputs(
+      8, vocab, hidden, max_t=12, lengths=TRIGRAM_CARD_LENGTHS[:batch],
+      device=card)
   kw = dict(max_expansions=k, frame_dependent=fd,
             compute_dtype=compute_dtype)
+  route = trigram_scan.segment_route(
+      batch, vocab, hidden, compute_dtype,
+      fused_scan.num_passes(k, fd))
+  assert (route is not None) == (compute_dtype == torch.bfloat16 and
+                                 case not in TRIGRAM_TILE_CASES)
   before = trigram_scan.forward_launches, trigram_scan.backward_launches
   fwd_k = trigram_scan.trigram_forward(pf, pc, params, is_pad,
                                        with_residuals=True, **kw)
   fwd_p = trigram_scan.trigram_forward_plain(pf, pc, params, is_pad,
                                              with_residuals=True, **kw)
-  g = torch.tensor([1.0, 0.0, 1.0], device=card)  # row 1: zero cotangent
+  g = torch.tensor(TRIGRAM_CARD_G[:batch], device=card)  # row 1: zero
   bwd_k = trigram_scan.trigram_backward(pf, pc, params, is_pad, fwd_k[0], g,
                                         fwd_k[2], fwd_k[3], **kw)
   bwd_p = trigram_scan.trigram_backward_plain(pf, pc, params, is_pad,
@@ -964,6 +995,36 @@ def test_trigram_kernels_match_plain_on_card(card, case, compute_dtype):
   assert fwd_k[0][2].item() == 0.0
   dpf = bwd_k[0]  # the zero-cotangent row and the empty row
   assert torch.all(dpf[:, 1] == 0) and torch.all(dpf[:, 2] == 0)
+  if batch > 3:  # the padding frames of a row with a cotangent
+    assert torch.all(dpf[3:, 3] == 0) and torch.any(dpf[:3, 3] != 0)
+
+
+# (vocab, hidden, passes) -> whether the bfloat16 segment kernels run the
+# call (the library's trigram_segment_smem): FD and FLD(1..8), V <= 128, and
+# h up to 1024 with one label strip, 704 with two.
+TRIGRAM_SEGMENT_ROUTES = {
+    'probe': ((64, 512, 2), True),
+    'fd_v5_h24': ((5, 24, 1), True),
+    'eight_passes_v128': ((128, 512, 8), True),
+    'nine_passes': ((64, 512, 9), False),
+    'fld0': ((64, 512, 0), False),
+    'v129': ((129, 512, 2), False),
+    'h1024': ((64, 1024, 2), True),
+    'h1088': ((64, 1088, 2), False),
+    'v128_h704': ((128, 704, 2), True),
+    'v128_h768': ((128, 768, 2), False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', sorted(TRIGRAM_SEGMENT_ROUTES))
+def test_trigram_segment_route_on_card(card, case):
+  (vocab, hidden, passes), taken = TRIGRAM_SEGMENT_ROUTES[case]
+  smem = fused_scan.library().trigram_segment_smem(hidden, vocab, passes)
+  assert (smem > 0) == taken and smem <= 232448
+  route = trigram_scan.segment_route(8, vocab, hidden, torch.bfloat16,
+                                     passes)
+  assert (route is not None) == taken
 
 
 @pytest.mark.cuda

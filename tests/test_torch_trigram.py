@@ -359,6 +359,93 @@ def test_gate():
   assert not trigram_scan.supported(torch_lattice('fd', vocab=1024), batch8)
 
 
+# (batch, vocab, hidden) -> (group, strips, groups, blocks) of the segment
+# kernels, or None where they take no such V.
+SEGMENT_PLANS = {
+    'probe': ((8, 64, 512), (4, 1, 2, 130)),
+    'b3': ((3, 64, 512), (4, 1, 1, 65)),
+    'b5_v5_h24': ((5, 5, 24), (4, 1, 2, 12)),
+    'v80_two_strips': ((5, 80, 64), (2, 2, 3, 243)),
+    'v128': ((8, 128, 512), (2, 2, 4, 516)),
+    'v129': ((8, 129, 512), None),
+}
+
+
+@pytest.mark.parametrize('case', sorted(SEGMENT_PLANS))
+def test_segment_plan(case):
+  args, want = SEGMENT_PLANS[case]
+  if want is None:
+    with pytest.raises(ValueError, match='V <= 128'):
+      trigram_scan.segment_plan(*args)
+    return
+  plan = trigram_scan.segment_plan(*args)
+  assert (plan.group, plan.strips, plan.groups, plan.blocks) == want
+  batch, vocab, hidden = args
+  assert plan.vocab_pad == 64 * plan.strips >= vocab
+  assert plan.hidden_pad % 64 == 0 and 0 <= plan.hidden_pad - hidden < 64
+  assert plan.group * plan.groups >= batch > plan.group * (plan.groups - 1)
+
+
+class _Library:
+  """Stands in for the kernel library: answers ``trigram_segment_smem``
+  with a fixed byte count and records its arguments."""
+
+  def __init__(self, smem):
+    self.smem, self.calls = smem, []
+
+  def trigram_segment_smem(self, *args):
+    self.calls.append(args)
+    return self.smem
+
+
+@pytest.mark.parametrize('case', ['float32', 'refused', 'taken'])
+def test_segment_route_follows_the_library(case, monkeypatch):
+  """The segment kernels run a bfloat16 call where the library's
+  ``trigram_segment_smem`` gives it bytes, and no float32 call (the
+  library is not asked); the card test holds the library's rule."""
+  library = _Library(0 if case == 'refused' else 200000)
+  monkeypatch.setattr(fused_scan, 'library', lambda: library)
+  dtype = torch.float32 if case == 'float32' else torch.bfloat16
+  plan = trigram_scan.segment_route(8, 64, 512, dtype, 2)
+  if case == 'taken':
+    assert plan == trigram_scan.segment_plan(8, 64, 512)
+    assert library.calls == [(512, 64, 2)]
+  else:
+    assert plan is None
+    assert library.calls == ([] if case == 'float32' else [(512, 64, 2)])
+
+
+@pytest.mark.parametrize('passes', [1, 2, 3])
+def test_segment_scratch_holds_no_joint_and_no_d_lex(passes):
+  """No [B, S, h] buffer (the joint, d_pc's accumulator) and no [B, S, V]
+  d_lex; what is staged per frame (float32 lex) is within the gate's
+  ``staged_bytes``."""
+  batch, vocab, hidden = 8, 64, 512
+  states = 1 + vocab + vocab**2
+  plan = trigram_scan.segment_plan(batch, vocab, hidden)
+  forward = trigram_scan.segment_forward_scratch(plan, batch, vocab, passes,
+                                                 with_slabs=True)
+  backward = trigram_scan.segment_backward_scratch(plan, batch, vocab,
+                                                   hidden, passes)
+  for scratch in (forward, backward):
+    for name, (shape, dtype) in scratch.items():
+      assert tuple(shape[:2]) != (batch, states) or len(shape) == 2 or (
+          name == 'lex' and shape[2] == vocab and dtype == torch.float32), name
+      assert dtype != torch.bfloat16 or name == 'vocab_w', name
+  staged = lambda scratch: sum(
+      int(np.prod(shape)) * 4 for name, (shape, _) in scratch.items()
+      if name == 'lex')
+  limit = trigram_scan.staged_bytes(batch, vocab, torch.bfloat16)
+  assert staged(backward) <= limit and staged(forward) <= limit
+  assert ('lex' in forward) == (passes >= 2)
+  # d_pc's accumulator is per group of rows, not per row.
+  assert backward['dpc_acc'][0] == (plan.groups, states, hidden)
+  # Without slabs the forward keeps two frames of expansions.
+  assert trigram_scan.segment_forward_scratch(
+      plan, batch, vocab, passes, with_slabs=False)['last'][0] == (
+          2, passes, batch, states)
+
+
 def test_past_the_budget_the_lattice_takes_the_generic_route(monkeypatch):
   """With the staging budget below this lattice's bytes, log Z and its
   gradients take the generic route and still match JAX; under MaxTropical

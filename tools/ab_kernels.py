@@ -89,7 +89,16 @@ Each run times, with CUDA events after a warm-up:
 * ``numf8``: ``numerator_forward`` in float32 (hat) at ``numb8``'s shape
   and inputs, one call; ``numf32``: in bfloat16 at ``numb32``'s (config
   7); ``numf8p``, ``numf32p``: one call of each under ``torch.profiler``,
-  its device time by kernel name.
+  its device time by kernel name;
+* ``tri10f`` / ``tri10b``: ``trigram_forward`` / ``trigram_backward``
+  (bf16, FLD(2), V=64, S=4161, h=512) at ``chip_smoke.py`` phase 10's
+  shape (B=8, T_max=200, the lengths of ``lp8`` / 8: 1033 real frames),
+  the backward on forward residuals made once, the mean of 3 calls;
+  ``tri8f`` / ``tri8b``: the same at the JAX package's trigram probe
+  shape (B=8, every row T=200); ``tri8fp`` / ``tri8bp``: one probe call
+  under ``torch.profiler``, its device time by kernel name;
+  ``trifmem`` / ``tribmem``: the MiB one probe forward / backward
+  allocates beyond what was allocated before it (its peak).
 
 Prints the card's name and power limit, one line per run, and one JSON
 object of milliseconds (MiB for ``lp9omem`` and ``margmem``) by run and
@@ -114,7 +123,10 @@ CASES = ('lp8', 'lp32', 'lp9o', 'lp9o512', 'lp9omem', 'fr1024', 'fr256',
          'fr256fd', 'fr256fh', 'fr256fa', 'jhb', 'jhbd', 'jhbh', 'jhbp',
          'numb8', 'numb32', 'numb8p', 'numb32p', 'vit8', 'vit8h', 'vit10',
          'vit8p', 'lp8fp', 'marg8', 'marg32', 'margmem', 'marg8p', 'numf8',
-         'numf32', 'numf8p', 'numf32p')
+         'numf32', 'numf8p', 'numf32p', 'tri10f', 'tri10b', 'tri8f',
+         'tri8b', 'tri8fp', 'tri8bp', 'trifmem', 'tribmem')
+# The trigram cases' lengths (B=8, T_max=200): phase 10's, the probe's.
+TRIGRAM_LENGTHS = {'tri10': [n // 8 for n in NUM_FRAMES], 'tri8': [200] * 8}
 
 
 # The forward cases: (shape, mode).
@@ -261,6 +273,40 @@ def log_partition_ms(torch, fused_scan, batch, lengths, plain, repeats,
   if memory:
     return peak_mib(torch, call)
   return timed(torch, call, repeats)[1]
+
+
+def trigram_ms(torch, trigram_scan, case, plain):
+  """ms of one trigram forward or backward (bf16, FLD(2), V=64, S=4161,
+  h=512) at the case's lengths (``TRIGRAM_LENGTHS``), the mean of 3 calls;
+  by kernel name for the 'p' cases, the peak MiB for the 'mem' ones."""
+  lengths = TRIGRAM_LENGTHS['tri10' if case.startswith('tri10') else 'tri8']
+  vocab, hidden, max_t, batch = 64, 512, 200, len(lengths)
+  rng = np.random.default_rng(0)
+  cuda = lambda x: torch.from_numpy(x).cuda()
+  pf = cuda(rand(rng, (max_t, batch, hidden), 0.5))
+  pc = cuda(rand(rng, (1 + vocab + vocab**2, hidden), 0.5))
+  head = {'vocab_w': cuda(rand(rng, (hidden, vocab), hidden**-0.5)),
+          'vocab_b': cuda(rand(rng, (vocab,), 0.1)),
+          'blank_w': cuda(rand(rng, (hidden,), hidden**-0.5)),
+          'blank_b': torch.tensor(0.3, device='cuda')}
+  is_pad = (torch.arange(max_t, device='cuda')[:, None] >=
+            torch.tensor(lengths, device='cuda')[None])
+  kw = dict(max_expansions=2, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  forward = (trigram_scan.trigram_forward_plain if plain else
+             trigram_scan.trigram_forward)
+  backward = (trigram_scan.trigram_backward_plain if plain else
+              trigram_scan.trigram_backward)
+  call = lambda: forward(pf, pc, head, is_pad, with_residuals=True, **kw)
+  if case in ('tri10b', 'tri8b', 'tri8bp', 'tribmem'):
+    log_z, _, hist, slabs = call()
+    g = torch.ones(batch, device='cuda')
+    call = lambda: backward(pf, pc, head, is_pad, log_z, g, hist, slabs,
+                            **kw)
+  if case.endswith('mem'):
+    return peak_mib(torch, call)
+  return by_kernel(torch, call) if case.endswith('p') else timed(
+      torch, call, 3)[1]
 
 
 def frame_reduce_ms(torch, sharded_scan, vocab, direction, plain,
@@ -474,7 +520,7 @@ def run_tree(tree, cases, plain):
   import torch
   from last_torch_tpu_torch.ops import (fused_scan, joint_head,
                                         numerator_scan, sharded_scan,
-                                        viterbi)
+                                        trigram_scan, viterbi)
   torch.backends.cuda.matmul.allow_tf32 = False
   out = {}
   for case in cases:
@@ -525,6 +571,8 @@ def run_tree(tree, cases, plain):
           [1600] * 32 if full else NUM_FRAMES,
           torch.bfloat16 if full else torch.float32, plain,
           case.endswith('p'), forward=True)
+    elif case.startswith('tri'):
+      out[case] = trigram_ms(torch, trigram_scan, case, plain)
     elif case.startswith('marg'):
       full = case in ('marg32', 'margmem')
       out[case] = marginals_ms(
