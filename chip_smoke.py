@@ -140,14 +140,48 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    route's error) of the float64 ones; 3 counted and timed steps through
    the ``frame_reduce`` kernels (``csrc/sharded_scan.cu``: 2 launches per
    frame each way under FLD(2), 3200 + 3200 per step), losses falling; one
-   more step profiled. The process group is destroyed at the end of the
-   phase.
+   more step profiled. Then the data-parallel expected-risk (MWER) step
+   (``make_shard_map_risk_train_step``, phase 13's settings) on the same
+   group against the single-device ``risk_train_step(...,
+   per_example_keys=True)`` from one seed: the same sampled paths, the
+   metrics to rtol 1e-5, the gradients within 1e-5 of the largest. The
+   process group is destroyed at the end of the phase.
 12b. The ``frame_reduce`` kernels alone against their plain versions and
    the library composition (tanh, addmm, logsumexp; its autograd) at the
    headline per-frame shape (B=8, S=1025, h=512, Vl=1024, bf16) and at one
    of D=4 shards (Vl=256); then the D=4 shards in one process: red
    concatenated and the gradients combined, held to the D=1 kernels and
    the plain versions.
+13. Expected-risk (MWER) main path: ``gnat_global_bigram()`` at full
+   width on phase 6's utterances and labels, 4 posterior samples a row,
+   estimator 'mwer', NLL weight 0.1. Step 1's objective through the kernels
+   (the sampler's beta pass runs the float32 joint+head forward every
+   frame, without autograd: both estimators' gradient through log Z is
+   zero; the NLL term the bigram 'cache' pair) against the same objective
+   through the plain versions on the paths the kernels' run drew, at two
+   seeds: the sampler's log Z and log_prob within ``long_rtol`` nats (8
+   float32 roundings of the largest |log Z|), log_prob at most that, the
+   objective to rtol 1e-4, gradients within 1e-3 of the largest; labels in [0, V], padding slots 0. At the first seed the same step with
+   the beta pass differentiated (the joint+head forward, its recompute and
+   backward a frame) gives the same gradients. The share of equal slots
+   when both routes draw from one seed (not judged). 3
+   ``risk_train_step`` steps, each under the profiler (loss, mean_risk,
+   nll, wall and device-busy ms, idle share, peak memory, the launches of
+   each kernel, checked: 1600 joint+head forwards, one log-partition pair,
+   nothing else), and a 4th without it; the step's parts alone (beta
+   pass, draw, scoring, NLL term; the slot states' closed-form walk
+   against the generic loop); the float32 joint+head pair at the beta
+   pass's shape against its plain versions and library compositions; sum
+   exp(log_prob) over the distinct samples of a peaked
+   lattice, float32 and bfloat16 weight functions, kernel and plain.
+13b. Forced alignment: ``align`` of phase 6's utterances and label
+   sequences under ``gnat_global_bigram()`` (no lattice kernel: the GN
+   string weights are ``JointWeightFn.label_weights``) and
+   ``hat_bigram(vocab_size=1024)`` (the numerator forward kernel), timed:
+   emit frames inside [0, num_frames), non-decreasing, -1 past num_labels;
+   the scores equal the MaxTropical string DP's and a float64 rescoring of
+   the returned alignment; the HAT run against the numerator's plain
+   versions (scores to rtol 1e-5, differing rows must tie).
 
 Each phase prints one line or more with its seconds, and the run its total;
 any failure exits non-zero before the last line, which is ``{"ok": true,
@@ -158,6 +192,8 @@ nothing of JAX.
 """
 
 import concurrent.futures
+import contextlib
+import dataclasses
 import functools
 import json
 import re
@@ -198,7 +234,11 @@ LP_LONG_ROUNDINGS = 8
 # gradients. A leaf's own scale does not do: its gradient is the
 # denominator's minus the numerator's, which largely cancel (FLD's blank_b
 # wholly: every path takes one blank arc per frame), while the kernels'
-# bfloat16 residue scales with the denominator's part alone.
+# bfloat16 residue scales with the denominator's part alone. On an H100 the
+# GN step reads 9.18e-4 (blank_b), the MWER step 9.10e-4 to 9.11e-4
+# (blank_b) and 7.67e-4 to 7.68e-4 (blank_w) at two sampling seeds alike:
+# the gap is the 'cache' pair's in the NLL term, fixed by the weights and
+# the batch, which the sampled paths do not reach.
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_RTOL = 1e-3
 # HAT training step 1 (float32, no denominator to cancel against): each
@@ -3233,9 +3273,57 @@ def phase_tensor_parallel(torch, gnat, presets, fused_scan, sharded_scan,
         f'backward) {per_step}; no bigram kernel launched')
     say('tensor-parallel', 'one more step under the profiler: ' +
         device_profile(torch, lambda: step(state, *local))[1])
+    risk_data_parallel(torch, gnat, sharding, pytree, model, mesh,
+                       full.params, batch, local)
   finally:
     dist.destroy_process_group()
   return launches
+
+
+def risk_data_parallel(torch, gnat, sharding, pytree, model, mesh, params,
+                       batch, local):
+  """The data-parallel expected-risk step (``make_shard_map_risk_train_step``,
+  phase 13's estimator, samples and NLL weight) on phase 12's group,
+  against the single-device ``risk_train_step(..., per_example_keys=True)``
+  from one seed: the same samples, metrics to rtol 1e-5, gradients (before
+  the clip, which is set out of reach) within 1e-5 of the largest."""
+  t0 = time.perf_counter()
+  optimizer = gnat.make_optimizer(LEARNING_RATE, clip_norm=1e9)
+  state = gnat.GNATTrainState(params, optimizer.init(params), 0)
+  leaves = pytree.tree_leaves(params)
+  seed = lambda: torch.Generator(device='cuda').manual_seed(MWER_SEED)
+  step = sharding.make_shard_map_risk_train_step(
+      model, optimizer, mesh, num_samples=MWER_SAMPLES, estimator='mwer',
+      nll_weight=MWER_NLL_WEIGHT)
+  dp, sd = {}, {}
+  with sampler_tap(torch, model.lattice, dp):
+    (dp_metrics, dp_ms) = timed(
+        torch, lambda: step.loss_and_grads(state, *local, seed()))
+  dp_grads = [leaf.grad.clone() for leaf in leaves]
+  with sampler_tap(torch, model.lattice, sd):
+    (_, sd_metrics), sd_ms = timed(torch, lambda: gnat.risk_train_step(
+        model, optimizer, state, *batch, seed(), num_samples=MWER_SAMPLES,
+        estimator='mwer', nll_weight=MWER_NLL_WEIGHT, per_example_keys=True))
+  check(torch.equal(dp['labels'], sd['labels']),
+        'the data-parallel risk step drew other paths than the '
+        'single-device step')
+  rel = {k: abs(dp_metrics[k].item() - v.item()) / abs(v.item())
+         for k, v in sd_metrics.items()}
+  check(set(rel) == {'loss', 'mean_risk', 'nll'} and
+        max(rel.values()) <= 1e-5,
+        f'data-parallel risk metrics vs single-device: {rel}')
+  largest = max(leaf.grad.abs().max().item() for leaf in leaves)
+  worst = max((a - leaf.grad).abs().max().item() / largest
+              for a, leaf in zip(dp_grads, leaves))
+  check(worst <= 1e-5, f'data-parallel risk gradients differ by {worst:.3g} '
+        'of the largest')
+  say('tensor-parallel', f'data-parallel risk step (world 1) vs '
+      f'risk_train_step(per_example_keys=True): same {MWER_SAMPLES} paths a '
+      f'row; loss {dp_metrics["loss"].item():.9g} vs '
+      f'{sd_metrics["loss"].item():.9g}, metrics within '
+      f'{max(rel.values()):.2e}, gradients within {worst:.2e} of the '
+      f'largest; {dp_ms:.1f} ms (loss and gradients) and {sd_ms:.1f} ms '
+      f'(the step) ({time.perf_counter() - t0:.1f} s)')
 
 
 FR_VALUE_NAMES = ('red*', 'blank*')
@@ -3408,6 +3496,612 @@ def phase_frame_reduce_alone(torch, sharded_scan, launches):
   return records
 
 
+# Phase 13: expected-risk (MWER) fine-tuning; 13b: forced alignment.
+MWER_SAMPLES = 4
+MWER_NLL_WEIGHT = 0.1
+MWER_SEED = 21
+# Step 1 kernel vs plain is judged at these seeds (the steps draw from
+# MWER_SEED + step).
+MWER_CHECK_SEEDS = (MWER_SEED, MWER_SEED + 100)
+
+
+def step_grad_errors(paths, got, want):
+  """(the largest |want|, [(|got - want|max, |want|max, |got|max, path)]
+  per leaf, each over that largest)."""
+  largest = max(w.abs().max().item() for w in want)
+  return largest, [((a - b).abs().max().item() / largest,
+                    b.abs().max().item() / largest,
+                    a.abs().max().item() / largest, path)
+                   for path, a, b in zip(paths, got, want)]
+
+
+def judge_step_grads(rows, what):
+  """``step_grad_errors``' rows: each leaf within STEP_GRAD_RTOL of the
+  largest gradient."""
+  for diff, _, _, path in rows:
+    check(diff <= STEP_GRAD_RTOL,
+          f'{what}: gradient of {path} {diff:.3g} of the largest')
+
+
+def mwer_objective(torch, risk, model, params, batch, generator):
+  """``gnat.risk_train_step``'s objective before its update: estimator
+  'mwer' over MWER_SAMPLES posterior samples a row, plus MWER_NLL_WEIGHT
+  times the mean NLL of the feasible rows; the encoder runs once and the
+  cache is shared. Returns (total, the sampler's aux, nll)."""
+  frames, num_frames, labels, num_labels = batch
+  lattice = model.lattice
+  encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+  cache = lattice.build_cache(params['lattice'])
+  er, aux = risk.sampled_risk_loss(
+      lattice, params['lattice'], encoded, num_frames, labels, num_labels,
+      generator, num_samples=MWER_SAMPLES, estimator='mwer', cache=cache)
+  per_seq = lattice(params['lattice'], frames=encoded, num_frames=num_frames,
+                    labels=labels, num_labels=num_labels, cache=cache)
+  finite = torch.isfinite(per_seq)
+  nll = torch.where(finite, per_seq, 0.0).sum() / finite.sum().clamp(min=1)
+  return er.mean() + MWER_NLL_WEIGHT * nll, aux, nll
+
+
+@contextlib.contextmanager
+def sampler_tap(torch, lattice, record, replay=None, log_partition=None,
+                force_log_z_grad=None):
+  """Instance patches of a lattice inside the block. Records the labels and
+  log_prob that the sampler (``_sample_paths``, which the risk loss calls)
+  returns and the log Z of its beta pass into ``record``; with ``replay``
+  (labels), it returns those paths instead of drawing, scored by the beta
+  pass and ``_score_paths`` (whatever joint+head pair is in use); with
+  ``force_log_z_grad`` set, the beta pass records autograd or not as it
+  says, whatever the caller asks; with ``log_partition``, the loss's log Z runs it
+  in place of the kernels."""
+  sample_paths, betas = lattice._sample_paths, lattice._sample_betas
+
+  def betas_tap(*args):
+    out = betas(*args)
+    record['log_z'] = out[0].detach()
+    return out
+
+  def sample_tap(params, frames, num_frames, generator, num_samples, cache,
+                 log_z_grad=True):
+    if force_log_z_grad is not None:
+      log_z_grad = force_log_z_grad
+    if replay is None:
+      labels, num, log_prob = sample_paths(params, frames, num_frames,
+                                           generator, num_samples, cache,
+                                           log_z_grad=log_z_grad)
+    else:
+      labels = replay
+      with torch.set_grad_enabled(torch.is_grad_enabled() and log_z_grad):
+        log_z, _, _ = lattice._sample_betas(params, cache, frames,
+                                            num_frames)
+      log_prob = lattice._score_paths(params, cache, frames, num_frames,
+                                      labels) - log_z[:, None]
+      num = (lattice.alignment.num_states() * num_frames.int())[:, None]
+    record['labels'], record['log_prob'] = labels, log_prob.detach()
+    return labels, num, log_prob
+
+  lattice._sample_betas, lattice._sample_paths = betas_tap, sample_tap
+  if log_partition is not None:
+    lattice._forward_backward = lambda params, cache, frames, num_frames: (
+        log_partition(params['weight_fn'], cache, frames, num_frames,
+                      max_expansions=lattice.alignment.max_expansions,
+                      frame_dependent=False, compute_dtype=torch.bfloat16))
+  try:
+    yield record
+  finally:
+    for name in ('_sample_betas', '_sample_paths', '_forward_backward'):
+      lattice.__dict__.pop(name, None)
+
+
+def busy_idle(spans):
+  """(device busy ms, idle share of the first-to-last-kernel window,
+  kernels) of ``device_spans``' spans."""
+  busy, end = 0.0, spans[0][0]
+  for start, stop, _ in spans:
+    busy += max(0.0, stop - max(start, end))
+    end = max(end, stop)
+  return busy / 1e3, 1 - busy / (end - spans[0][0]), len(spans)
+
+
+def slot_checks(torch, labels, num_frames, vocab, num_align):
+  """Sampled labels inside [0, V], zero past each row's frames."""
+  check(int(labels.min()) >= 0 and int(labels.max()) <= vocab,
+        'sampled labels outside [0, V]')
+  slot = torch.arange(labels.shape[-1], device=labels.device)
+  padding = slot[None, None, :] >= num_align * num_frames[:, None, None]
+  check(not bool(labels[padding.expand_as(labels)].any()),
+        'sampled padding slots are not 0')
+
+
+def peaked_drift(torch, lattice, params, frames, num_frames, scale):
+  """sum exp(log_prob) over the distinct paths of 256 samples of a lattice
+  whose heads are scaled by ``scale`` (peaked: the samples cover the
+  posterior's mass), per row: 1 when the beta pass and the scoring
+  normalize alike. Returns (the sums, the distinct paths' counts, the
+  largest |log Z|, whose float32 rounding bounds what the sums resolve)."""
+  wf = dict(params['weight_fn'])
+  for name in ('vocab_w', 'vocab_b', 'blank_w', 'blank_b'):
+    wf[name] = wf[name] * scale
+  peaked = dict(params, weight_fn=wf)
+  with torch.no_grad():
+    labels, _, log_prob = lattice.sample_paths(
+        peaked, frames, num_frames,
+        torch.Generator(device='cuda').manual_seed(5), num_samples=256)
+    log_z = lattice._sample_betas(peaked, lattice.build_cache(peaked),
+                                  frames, num_frames)[0]
+  sums, distinct = [], []
+  for row in range(labels.shape[0]):
+    paths, index = torch.unique(labels[row], dim=0, return_inverse=True)
+    first = torch.full((len(paths),), -1, dtype=torch.long, device='cuda')
+    first.scatter_reduce_(0, index, torch.arange(len(index), device='cuda'),
+                          'amax', include_self=True)
+    sums.append(log_prob[row, first].double().exp().sum().item())
+    distinct.append(len(paths))
+  return sums, distinct, log_z.abs().max().item()
+
+
+def phase_mwer(torch, gnat, presets, risk, lattices, fused_scan, joint_head,
+               numerator_scan, viterbi, trigram_scan, sharded_scan, pytree):
+  """Phase 13: the expected-risk (MWER) main path. gnat_global_bigram() at
+  full width, phase 6's utterances, MWER_SAMPLES samples a row, estimator
+  'mwer', NLL weight MWER_NLL_WEIGHT. Step 1's objective through the
+  kernels (the sampler's beta pass runs the float32 joint+head forward each
+  frame, without autograd: the loss's gradient through log Z is zero; the
+  NLL term the bigram 'cache' pair) against the same objective through the
+  plain versions on the same drawn paths, at MWER_CHECK_SEEDS; at the first
+  also with the beta pass differentiated (forward, its recompute and
+  backward a frame); then 3 ``risk_train_step`` steps, each counted and
+  profiled, and one more without the profiler; the sampler's pieces alone;
+  the share of equal slots when both routes draw from one seed; the drift
+  of sum exp(log_prob) on a peaked lattice. Returns ({kernel: launches of
+  the 3 steps}, the joint+head records' float32 numbers)."""
+  config = presets.gnat_global_bigram()
+  model = gnat.GNATModel(config, device='cuda')
+  optimizer = gnat.make_optimizer(LEARNING_RATE)
+  state = gnat.init_train_state(model, torch.Generator().manual_seed(0),
+                                optimizer)
+  batch = tp_batch(torch, config)
+  frames, num_frames, labels, num_labels = batch
+  max_t, num_align, vocab = frames.shape[1], config.max_expansions + 1, (
+      config.vocab_size)
+  lattice = model.lattice
+  params = state.params
+  leaves = pytree.tree_leaves(params)
+  generator = lambda seed: torch.Generator(device='cuda').manual_seed(seed)
+  modules = (joint_head, fused_scan, numerator_scan, viterbi, trigram_scan,
+             sharded_scan)
+
+  # Step 1's objective through the kernels and through the plain versions
+  # on the paths the kernels' run drew, at each of MWER_CHECK_SEEDS; at the
+  # first, also through the kernels with the beta pass differentiated (the
+  # JAX package's route: the gradient it adds is an exact zero).
+  plain_lp = bigram_route(torch, fused_scan, config, len(NUM_FRAMES))['plain']
+  paths = [pytree.keystr(path) for path, _ in
+           pytree.tree_flatten_with_path(params)[0]]
+  for seed in MWER_CHECK_SEEDS:
+    t0 = time.perf_counter()
+    reset_counts(*modules)
+    torch.cuda.reset_peak_memory_stats()
+    record = {}
+    objective = lambda: mwer_objective(torch, risk, model, params, batch,
+                                       generator(seed))[0]
+    with sampler_tap(torch, lattice, record):
+      loss_k, grads_k = loss_and_grads(torch, leaves, objective)
+    peak_k = torch.cuda.max_memory_allocated() / 2**30
+    launched = counts(joint_head), counts(fused_scan)
+    check(lattice.last_path == 'kernel',
+          f'the NLL term took {lattice.last_path!r}, not the kernels')
+    check((joint_head.forward_launches, joint_head.backward_launches) ==
+          (max_t, 0),
+          f'step 1 launched the joint+head kernels {counts(joint_head)}, '
+          f'not ({max_t}, 0)')
+    check(fused_scan.forward_launches >= 1 and
+          fused_scan.backward_launches >= 1,
+          f'step 1 did not launch the log-partition pair: '
+          f'{counts(fused_scan)}')
+    plain = {}
+    reset_counts(*modules)
+    with joint_head.using(joint_head.joint_head_forward_plain,
+                          joint_head.joint_head_backward_plain), sampler_tap(
+                              torch, lattice, plain, replay=record['labels'],
+                              log_partition=plain_lp):
+      loss_p, grads_p = loss_and_grads(torch, leaves, objective)
+    check(not any(v for m in modules for v in counts(m).values()),
+          f'the plain route launched kernels: '
+          f'{[counts(m) for m in modules]}')
+    # Absolute, in nats: 8 float32 roundings of the largest |log Z|.
+    tol = long_rtol(plain['log_z'])
+    scale = plain['log_z'].abs().max().item()
+    z_err = (record['log_z'] - plain['log_z']).abs().max().item()
+    lp_err = (record['log_prob'] - plain['log_prob']).abs().max().item()
+    lp_max = record['log_prob'].max().item()
+    check(bool(torch.isfinite(record['log_z']).all()) and z_err <= tol,
+          f'sampler log Z: kernel vs plain {z_err:.3g} nats (> {tol:.3g})')
+    check(bool(torch.isfinite(record['log_prob']).all()) and lp_err <= tol,
+          f'log_prob: kernel vs plain {lp_err:.3g} nats (> {tol:.3g})')
+    check(lp_max <= tol, f'log_prob above 0: {lp_max}')
+    slot_checks(torch, record['labels'], num_frames, vocab, num_align)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(np.isfinite(loss_k) and loss_rel <= STEP_LOSS_RTOL,
+          f'MWER step-1 objective {loss_k} through the kernels, {loss_p} '
+          'plain')
+    check(all(bool(torch.isfinite(g).all()) for g in grads_k),
+          'a step-1 gradient is not finite')
+    largest, rows = step_grad_errors(paths, grads_k, grads_p)
+    say('mwer', f'seed {seed}: step 1 through the kernels vs plain versions '
+        f'on the same {MWER_SAMPLES} paths a row: objective {loss_k:.6g} vs '
+        f'{loss_p:.6g} (rel {loss_rel:.2e}); sampler log Z max |a-b| '
+        f'{z_err:.3e} and log_prob {lp_err:.3e} nats, |log Z| up to '
+        f'{scale:.5g} (tolerance {tol:.3e} nats); log_prob in '
+        f'[{record["log_prob"].min().item():.6g}, {lp_max:.4g}]; gradients '
+        f'of {len(leaves)} leaves against the largest {largest:.4g}, the '
+        'worst four as |a-b|, |plain|, |kernel|: ' + '; '.join(
+            f'{path} {d:.2e}, {ref:.2e}, {got:.2e}'
+            for d, ref, got, path in sorted(rows, reverse=True)[:4]) +
+        f'; kernel launches (joint+head, log-partition) {launched}; peak '
+        f'memory {peak_k:.2f} GiB ({time.perf_counter() - t0:.1f} s)')
+    judge_step_grads(rows, f'MWER step-1 (seed {seed}) kernel vs plain')
+    if seed != MWER_SEED:
+      continue
+    kernel, loss_1 = record, loss_k
+    attached = {}
+    reset_counts(*modules)
+    with sampler_tap(torch, lattice, attached, force_log_z_grad=True):
+      loss_a, grads_a = loss_and_grads(torch, leaves, objective)
+    check(torch.equal(attached['labels'], record['labels']) and
+          abs(loss_a - loss_k) <= 1e-6 * abs(loss_k), f'the differentiated beta pass changed the '
+          f'paths or the objective ({loss_a} vs {loss_k})')
+    check((joint_head.forward_launches, joint_head.backward_launches) ==
+          (2 * max_t, max_t),
+          f'the differentiated beta pass launched the joint+head kernels '
+          f'{counts(joint_head)}, not ({2 * max_t}, {max_t})')
+    _, rows = step_grad_errors(paths, grads_k, grads_a)
+    say('mwer', 'the same step with the beta pass differentiated (2 x '
+        f'{max_t} joint+head forwards, {max_t} backwards): gradients vs '
+        'the step\'s, the worst four as |a-b|, |differentiated|, |step|: '
+        + '; '.join(f'{path} {d:.2e}, {ref:.2e}, {got:.2e}'
+                    for d, ref, got, path in sorted(rows, reverse=True)[:4]))
+    judge_step_grads(rows, 'MWER step 1 without vs with the beta pass '
+                     'differentiated')
+
+  # Both routes drawing from one seed: the share of equal slots.
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+    drawn_k = lattice.sample_paths(params['lattice'], encoded, num_frames,
+                                   generator(MWER_SEED),
+                                   num_samples=MWER_SAMPLES)[0]
+    with joint_head.using(joint_head.joint_head_forward_plain,
+                          joint_head.joint_head_backward_plain):
+      drawn_p = lattice.sample_paths(params['lattice'], encoded, num_frames,
+                                     generator(MWER_SEED),
+                                     num_samples=MWER_SAMPLES)[0]
+  valid = (torch.arange(drawn_k.shape[-1], device='cuda')[None, None, :] <
+           num_align * num_frames[:, None, None]).expand_as(drawn_k)
+  same = (drawn_k == drawn_p)[valid].float().mean().item()
+  paths_same = (drawn_k == drawn_p).all(-1).float().mean().item()
+  check(torch.equal(drawn_k, kernel['labels']),
+        'the no-grad draw differs from the step\'s draw on one seed')
+  emitted = (drawn_k > 0).sum(-1).float()
+  say('mwer', f'one seed, both routes drawing: {same:.6%} of the valid '
+      f'slots and {paths_same:.1%} of the paths equal (not judged); labels '
+      f'a sampled path {emitted.mean().item():.1f} on average (reference '
+      f'{num_labels.float().mean().item():.1f})')
+
+  # The main path: 3 risk_train_steps, counted, each profiled; one more
+  # without the profiler.
+  metrics_list, per_step, lines = [], [], []
+  total = {}
+  for step in range(TRAIN_STEPS + 1):
+    reset_counts(*modules)
+    torch.cuda.reset_peak_memory_stats()
+    record = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def one():
+      start.record()
+      out = gnat.risk_train_step(
+          model, optimizer, state, *batch, generator(MWER_SEED + step),
+          num_samples=MWER_SAMPLES, estimator='mwer',
+          nll_weight=MWER_NLL_WEIGHT)
+      end.record()
+      return out
+
+    with sampler_tap(torch, lattice, record):
+      if step < TRAIN_STEPS:
+        (state, metrics), spans = device_spans(torch, one)
+        busy, idle, kernels = busy_idle(spans)
+      else:
+        state, metrics = one()
+        torch.cuda.synchronize()
+    wall = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = {f'{m.__name__.split(".")[-1]}.{n}': v
+                for m in modules for n, v in counts(m).items() if v}
+    metrics = {k: v.item() for k, v in metrics.items()}
+    check(all(np.isfinite(v) for v in metrics.values()),
+          f'MWER step {step + 1} metrics not finite: {metrics}')
+    check(lattice.last_path == 'kernel',
+          f'MWER step {step + 1}: last_path {lattice.last_path!r}')
+    check((joint_head.forward_launches, joint_head.backward_launches) ==
+          (max_t, 0) and fused_scan.forward_launches >= 1 and
+          fused_scan.backward_launches >= 1,
+          f'MWER step {step + 1} launches {launches}')
+    check(set(launches) <= {'joint_head.forward_launches',
+                            'fused_scan.forward_launches',
+                            'fused_scan.backward_launches'},
+          f'MWER step {step + 1} launched kernels off its path: {launches}')
+    slot_checks(torch, record['labels'], num_frames, vocab, num_align)
+    if step == 0:
+      check(torch.equal(record['labels'], kernel['labels']) and
+            abs(metrics['loss'] - loss_1) <= 1e-6 * abs(loss_1),
+            f'risk_train_step 1: loss {metrics["loss"]} vs the objective\'s '
+            f'{loss_1} (paths equal: '
+            f'{torch.equal(record["labels"], kernel["labels"])})')
+    if step < TRAIN_STEPS:
+      for name, v in launches.items():
+        total[name] = total.get(name, 0) + v
+      per_step.append(launches)
+      metrics_list.append(metrics)
+      lines.append(f'step {step + 1}: loss {metrics["loss"]:.6g}, mean_risk '
+                   f'{metrics["mean_risk"]:.4g}, nll {metrics["nll"]:.6g}; '
+                   f'wall {wall:.1f} ms (profiler on), device busy '
+                   f'{busy:.1f} ms, idle {idle:.1%}, {kernels} kernels; peak '
+                   f'{peak:.2f} GiB; launches {launches}')
+    else:
+      lines.append(f'step {step + 1} without the profiler: loss '
+                   f'{metrics["loss"]:.6g}, wall {wall:.1f} ms, peak '
+                   f'{peak:.2f} GiB')
+  for line in lines:
+    say('mwer', line)
+
+  # The sampler's pieces alone on the step's encoded frames.
+  lattice_params = params['lattice']
+  encoded = model.encoder.apply(params['encoder'], frames, num_frames).detach()
+  cache = lattice.build_cache(lattice_params)
+
+  with torch.no_grad():
+    beta_pass = lambda: lattice._sample_betas(lattice_params, cache, encoded,
+                                              num_frames)
+    _, betas_next, conts = beta_pass()
+  noise = lattices._gumbel_source(generator(7), (len(NUM_FRAMES),), 'cuda')
+  draw = lambda: lattice._draw_paths(lattice_params, cache, encoded,
+                                     num_frames, betas_next, conts,
+                                     MWER_SAMPLES, noise)
+  drawn = draw()
+
+  def scoring():
+    lattice._score_paths(lattice_params, cache, encoded, num_frames,
+                         drawn).sum().backward()
+
+  def nll_term():
+    lattice(lattice_params, encoded, num_frames, labels, num_labels,
+            cache.detach()).sum().backward()
+
+  parts = {}
+  for name, fn in (('beta pass (no autograd)', torch.no_grad()(beta_pass)),
+                   ('draw', draw), ('scoring forward+backward', scoring),
+                   ('NLL term forward+backward', nll_term)):
+    t = time.perf_counter()
+    _, parts[name] = timed(torch, fn)
+    parts[name] = (parts[name], (time.perf_counter() - t) * 1e3)
+  for leaf in leaves:
+    leaf.grad = None
+  # The scoring's slot states: FullNGram's closed-form walk against the
+  # generic per-slot loop it overrides, on the drawn paths.
+  ctx = lattice.context
+  closed, closed_ms = timed(torch, lambda: ctx.walk_states(drawn))
+  looped, loop_ms = timed(torch,
+                          lambda: super(type(ctx), ctx).walk_states(drawn))
+  check(torch.equal(closed, looped),
+        'FullNGram.walk_states differs from the generic walk')
+  say('mwer', 'the step\'s parts alone (CUDA events; host clock): ' + ', '.join(
+      f'{n} {ms:.1f} ms ({host:.1f})' for n, (ms, host) in parts.items()) +
+      f'; the scoring\'s slot states of {tuple(drawn.shape)} paths: '
+      f'closed-form walk {closed_ms:.2f} ms, generic loop {loop_ms:.1f} ms')
+
+  # The float32 joint+head pair at the beta pass's per-frame shape.
+  rng = np.random.default_rng(13)
+  inputs, g_blank, g_lexical = joint_head_inputs(torch, rng, len(NUM_FRAMES),
+                                                 config.vocab_size + 1,
+                                                 config.vocab_size,
+                                                 config.hidden_size)
+  head = [inputs[n] for n in ('pc', 'pf', 'vocab_w', 'blank_w')]
+  f32 = torch.float32
+  calls = {
+      'fwd': lambda: joint_head.joint_head_forward(**inputs,
+                                                   compute_dtype=f32),
+      'bwd': lambda: joint_head.joint_head_backward(*head, g_blank, g_lexical,
+                                                    compute_dtype=f32),
+      'fwd_plain': lambda: joint_head.joint_head_forward_plain(
+          **inputs, compute_dtype=f32),
+      'bwd_plain': lambda: joint_head.joint_head_backward_plain(
+          *head, g_blank, g_lexical, compute_dtype=f32)}
+  calls['fwd_library'], calls['bwd_library'] = joint_head_library(
+      torch, inputs, g_blank, g_lexical, f32)
+  times = {}
+  for name, fn in calls.items():
+    fn()
+    times[name] = timed(torch, fn, repeats=20)[1]
+  errors = max_errors(torch, calls['fwd'](), calls['fwd_plain'](),
+                      JH_VALUE_NAMES, JH_RTOL['float32'])
+  errors.update(max_errors(torch, calls['bwd'](), calls['bwd_plain'](),
+                           JH_GRAD_NAMES, JH_RTOL['float32']))
+  flops = 2.0 * len(NUM_FRAMES) * (config.vocab_size + 1) * (
+      config.hidden_size) * (config.vocab_size + 1)
+  fwd_bytes = nbytes(*inputs.values()) + nbytes(*calls['fwd']())
+  bwd_bytes = nbytes(*head, g_blank, g_lexical) + nbytes(*calls['bwd']())
+  f32_numbers = {
+      'forward': {'mwer_f32_ms': times['fwd'],
+                  'mwer_f32_plain_ms': times['fwd_plain'],
+                  'mwer_f32_library_ms': times['fwd_library'],
+                  'mwer_f32_bound_ms': bound(flops, fwd_bytes, 'float32')[0]},
+      'backward': {'mwer_f32_ms': times['bwd'],
+                   'mwer_f32_plain_ms': times['bwd_plain'],
+                   'mwer_f32_library_ms': times['bwd_library'],
+                   'mwer_f32_bound_ms': bound(2 * flops, bwd_bytes,
+                                              'float32')[0]}}
+  say('mwer', f'float32 joint+head at the beta pass\'s shape B=8 S=1025 '
+      f'V=1024 h=512 (the step runs the forward; the backward runs on the '
+      f'differentiated route above): forward kernel {times["fwd"]:.3f} ms, '
+      f'plain {times["fwd_plain"]:.3f} ms, library (tanh + addmm) '
+      f'{times["fwd_library"]:.3f} ms, bound '
+      f'{f32_numbers["forward"]["mwer_f32_bound_ms"]:.3f} ms; backward '
+      f'kernel {times["bwd"]:.3f} ms, plain {times["bwd_plain"]:.3f} ms, '
+      f'library (mm, tanh derivative, mm) {times["bwd_library"]:.3f} ms, '
+      f'bound {f32_numbers["backward"]["mwer_f32_bound_ms"]:.3f} ms; vs '
+      'plain: ' + ', '.join(f'{n} {e:.2e}' for n, (e, _) in errors.items()))
+
+  # The drift of sum exp(log_prob) on a peaked lattice (2 rows of 6
+  # frames), the model's float32 weight function and a bfloat16 one (the
+  # beta pass's kernel rounds its joint and head where the scoring's
+  # einsums round theirs).
+  short = encoded[:2, :6].contiguous()
+  short_frames = torch.tensor([6, 6], device='cuda')
+  bf16_lattice = type(lattice)(
+      lattice.context, lattice.alignment, lambda ctx: lattice.weight_fn_cacher,
+      lambda ctx: dataclasses.replace(lattice.weight_fn,
+                                      compute_dtype=torch.bfloat16))
+  drift = []
+  for name, lat in (('float32', lattice), ('bfloat16', bf16_lattice)):
+    for route, pair in (('kernel', None),
+                        ('plain', (joint_head.joint_head_forward_plain,
+                                   joint_head.joint_head_backward_plain))):
+      with (contextlib.nullcontext() if pair is None else
+            joint_head.using(*pair)):
+        sums, distinct, log_z = peaked_drift(torch, lat, lattice_params,
+                                             short, short_frames, 150.0)
+      drift.append(f'{name} {route}: ' + ', '.join(
+          f'{x - 1:+.3e} ({d} paths)' for x, d in zip(sums, distinct)) +
+          f', |log Z| {log_z:.5g} (float32 resolves {log_z * 2**-24:.1e})')
+  say('mwer', 'peaked lattice (heads x150, 2 rows of 6 frames, 256 samples): '
+      'sum exp(log_prob) over the distinct paths, minus 1: ' +
+      '; '.join(drift))
+  return total, f32_numbers
+
+
+def align_rescore(torch, blank_w, lex_w, emit, num_frames, num_labels):
+  """The float64 weight of the FrameLabelDependent alignment that emits
+  label u at frame emit[u], from the string weights [T, B, U+1]: at each
+  frame its labels in order, then the blank at the position reached."""
+  blank_w, lex_w = blank_w.double(), lex_w.double()
+  max_t, batch = blank_w.shape[:2]
+  u = emit.shape[1]
+  live = torch.arange(u, device='cuda')[None, :] < num_labels[:, None]
+  rows = torch.arange(batch, device='cuda')[:, None]
+  lex = lex_w[emit.long().clamp(min=0), rows, torch.arange(u, device='cuda')]
+  t = torch.arange(max_t, device='cuda')
+  reached = ((emit[:, None, :] <= t[None, :, None]) & live[:, None, :]).sum(-1)
+  blank = blank_w[t[None, :], rows, reached]  # [B, T]
+  valid = t[None, :] < num_frames[:, None]
+  return (torch.where(live, lex, 0.0).sum(-1) +
+          torch.where(valid, blank, 0.0).sum(-1))
+
+
+def align_checks(torch, lattice, semirings, lattice_params, cache, encoded,
+                 num_frames, labels, num_labels, emit, scores, what):
+  """emit frames inside [0, num_frames), non-decreasing, -1 past
+  num_labels; the score the MaxTropical string DP's value and the float64
+  rescoring of the returned alignment. Returns (the rescoring's max
+  relative difference, the string weights)."""
+  u = labels.shape[1]
+  live = torch.arange(u, device='cuda')[None, :] < num_labels[:, None]
+  check(emit.dtype == torch.int32 and tuple(emit.shape) == tuple(labels.shape),
+        f'{what}: emit_frames {emit.dtype} {tuple(emit.shape)}')
+  check(bool((emit[~live] == -1).all()), f'{what}: emit past num_labels')
+  check(bool(((emit >= 0) & (emit < num_frames[:, None]))[live].all()),
+        f'{what}: emit frames outside [0, num_frames)')
+  check(bool((emit[:, 1:] >= emit[:, :-1])[live[:, 1:]].all()),
+        f'{what}: emit frames decreasing')
+  check(bool(torch.isfinite(scores).all()), f'{what}: infeasible scores')
+  with torch.no_grad():
+    blank_w, lex_w = lattice._string_weights(lattice_params, cache, encoded,
+                                             labels)
+    dp = lattice._string_dp(blank_w, lex_w, num_frames, num_labels,
+                            semirings.MaxTropical)
+  scale = scores.abs().clamp(min=1.0)
+  dp_rel = ((scores - dp).abs() / scale).max().item()
+  check(dp_rel <= F32_RTOL, f'{what}: score vs the string DP {dp_rel:.3g}')
+  rescored = align_rescore(torch, blank_w, lex_w, emit, num_frames,
+                           num_labels)
+  rel = ((scores.double() - rescored).abs() / scale.double()).max().item()
+  check(rel <= F32_RTOL, f'{what}: score vs the float64 rescoring of its '
+        f'alignment {rel:.3g}')
+  return rel, (blank_w, lex_w)
+
+
+def phase_align(torch, gnat, presets, numerator_scan, semirings, modules):
+  """Phase 13b: forced alignment of phase 6's utterances and label
+  sequences, gnat_global_bigram() (string weights from
+  ``JointWeightFn.label_weights``, no lattice kernel) and
+  hat_bigram(vocab_size=1024) (the numerator forward kernel, float32),
+  both at full width with random weights from seed 0. Checked:
+  ``align_checks``; the HAT run against the same call through the
+  numerator's plain versions (scores to F32_RTOL; rows whose emit frames
+  differ must tie in the float64 rescoring). Returns the numerator forward
+  launches of the HAT align."""
+  results = {}
+  for name, config in (('gnat_global_bigram', presets.gnat_global_bigram()),
+                       ('hat_bigram', presets.hat_bigram(vocab_size=1024))):
+    model = gnat.GNATModel(config, device='cuda')
+    params = model.init(torch.Generator().manual_seed(0))
+    frames, num_frames, labels, num_labels = tp_batch(torch, config)
+    lattice, lattice_params = model.lattice, params['lattice']
+    with torch.no_grad():
+      encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+      cache = lattice.build_cache(lattice_params)
+    align = lambda: lattice.align(lattice_params, encoded, num_frames, labels,
+                                  num_labels, cache=cache)
+    align()  # warm-up
+    reset_counts(*modules)
+    (emit, scores), ms = timed(torch, align)
+    launched = {f'{m.__name__.split(".")[-1]}.{n}': v
+                for m in modules for n, v in counts(m).items() if v}
+    rel, weights = align_checks(torch, lattice, semirings, lattice_params,
+                                cache, encoded, num_frames, labels,
+                                num_labels, emit, scores, name)
+    line = (f'{name} B={len(NUM_FRAMES)} T_max={max(NUM_FRAMES)} '
+            f'U_max={max(NUM_LABELS)}: align {ms:.1f} ms, launches '
+            f'{launched or "none"}; scores in [{scores.min().item():.6g}, '
+            f'{scores.max().item():.6g}], float64 rescoring within '
+            f'{rel:.2e}')
+    if name == 'hat_bigram':
+      check(set(launched) == {'numerator_scan.forward_launches'},
+            f'the HAT align launched {launched}, not the numerator forward '
+            'kernel alone')
+      # The timed call's launches (align_checks recomputes the weights).
+      results['launches'] = launched['numerator_scan.forward_launches']
+      wf = lattice.weight_fn
+      wf.label_weights = lambda p, c, f, s, n: numerator_scan.label_weights(
+          wf.weight_fn, p, c, f, s, n, hat=True,
+          forward=numerator_scan.numerator_forward_plain,
+          backward=numerator_scan.numerator_backward_plain)
+      try:
+        align()
+        (emit_p, scores_p), ms_p = timed(torch, align)
+      finally:
+        del wf.label_weights
+      scale = scores_p.abs().clamp(min=1.0)
+      score_rel = ((scores - scores_p).abs() / scale).max().item()
+      check(score_rel <= F32_RTOL,
+            f'HAT align scores: kernel vs plain {score_rel:.3g}')
+      differ = (emit != emit_p).any(-1)
+      if bool(differ.any()):
+        a = align_rescore(torch, *weights, emit, num_frames, num_labels)
+        b = align_rescore(torch, *weights, emit_p, num_frames, num_labels)
+        tie = ((a - b).abs() / scale.double())[differ].max().item()
+        check(tie <= F32_RTOL, f'HAT align: emit frames differ from plain '
+              f'in rows {differ.nonzero()[:, 0].tolist()} and do not tie '
+              f'({tie:.3g})')
+      line += (f'; plain versions {ms_p:.1f} ms, scores within '
+               f'{score_rel:.2e}, emit frames equal in '
+               f'{int((~differ).sum())} of {len(differ)} rows')
+    else:
+      check(not launched, f'the GN align launched {launched}')
+    say('align', line)
+    del model, params, encoded, cache
+  return results['launches']
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -3415,7 +4109,7 @@ def main():
   try:
     from torch.utils import _pytree as pytree
 
-    from last_torch_tpu_torch import (alignments, contexts, lattices,
+    from last_torch_tpu_torch import (alignments, contexts, lattices, risk,
                                       semirings, weight_fns)
     from last_torch_tpu_torch.models import gnat, presets
     from last_torch_tpu_torch.ops import (build, fused_scan, joint_head,
@@ -3721,6 +4415,37 @@ def main():
   fr_records = phase_frame_reduce_alone(torch, sharded_scan, tp_launches)
   print(f'[frame-reduce-alone] {time.perf_counter() - t0:.1f} s',
         flush=True)
+  # Phase 13: the expected-risk (MWER) main path.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  mwer_launches, f32_numbers = phase_mwer(
+      torch, gnat, presets, risk, lattices, fused_scan, joint_head,
+      numerator_scan, viterbi, trigram_scan, sharded_scan, pytree)
+  print(f'[mwer] {time.perf_counter() - t0:.1f} s', flush=True)
+  mwer_path = f'gnat_global_bigram MWER steps ({TRAIN_STEPS})'
+  for record, key in ((jh_records['forward'], 'joint_head.forward_launches'),
+                      (jh_records['backward'],
+                       'joint_head.backward_launches'),
+                      (records['forward'], 'fused_scan.forward_launches'),
+                      (records['backward'], 'fused_scan.backward_launches')):
+    record['launches'] += mwer_launches.get(key, 0)
+    record.setdefault('launches_by_path', {})[mwer_path] = mwer_launches.get(
+        key, 0)
+  for key in ('forward', 'backward'):
+    jh_records[key].update(f32_numbers[key])
+
+  # Phase 13b: forced alignment.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  align_launches = phase_align(torch, gnat, presets, numerator_scan,
+                               semirings, modules + (joint_head,
+                                                     sharded_scan))
+  print(f'[align] {time.perf_counter() - t0:.1f} s', flush=True)
+  numerator_forward = numerator_records[0]
+  numerator_forward['launches_by_path'] = {
+      'hat_bigram train steps': numerator_forward['launches'],
+      'hat_bigram align': align_launches}
+  numerator_forward['launches'] += align_launches
   print(f'[total] {time.perf_counter() - start:.1f} s', flush=True)
 
   print(json.dumps({'kernels': [viterbi_record, records['forward'],

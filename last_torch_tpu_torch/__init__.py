@@ -27,11 +27,15 @@ trigram GNAT and arbitrary context DFAs (``NextStateTable``), whose generic
 routes run the joint network and heads in ``csrc/joint_head.cu``; and
 data- and tensor-parallel training (``parallel.sharding``), whose
 vocab-sharded loss reduces each frame over a rank's shard of the head in
-``csrc/sharded_scan.cu``. See ROADMAP.md for what follows.
+``csrc/sharded_scan.cu``; forced alignment, exact posterior path samples
+and expected-risk (MWER) fine-tuning (``risk``, ``models.metrics``,
+``models.gnat.risk_train_step``), whose sampler's beta pass runs the
+joint+head kernels. See ROADMAP.md for what follows.
 """
 
 from last_torch_tpu_torch import alignments
 from last_torch_tpu_torch import contexts
+from last_torch_tpu_torch import risk
 from last_torch_tpu_torch import semirings
 from last_torch_tpu_torch import weight_fns
 from last_torch_tpu_torch.contexts import ContextDependency

@@ -174,6 +174,24 @@ class FullNGram(ContextDependency):
     next_state = torch.where(state < num_ascending, ascend_next, full_next)
     return torch.where(label == 0, state, next_state)
 
+  def walk_states(self, labels: torch.Tensor) -> torch.Tensor:
+    """``ContextDependency.walk_states`` without a loop over the labels
+    when context_size <= 1: the state after a prefix is its last
+    lexical label (state 0 before the first, and always when
+    context_size is 0)."""
+    if self.context_size > 1:
+      return super().walk_states(labels)
+    labels = torch.as_tensor(labels).long()
+    start = labels.new_zeros(labels.shape[:-1] + (1,))
+    if self.context_size == 0:
+      return torch.cat([start, torch.zeros_like(labels)],
+                       dim=-1).to(torch.int32)
+    position = torch.arange(labels.shape[-1], device=labels.device)
+    last = torch.where(labels > 0, position, -1).cummax(dim=-1).values
+    state = torch.gather(labels, -1, last.clamp(min=0))
+    state = torch.where(last >= 0, state, 0)
+    return torch.cat([start, state], dim=-1).to(torch.int32)
+
   def next_state_table(self) -> torch.Tensor:
     """Densifies next_state into a [num_states, vocab_size] int32 table."""
     num_states, vocab_size = self.shape()
@@ -230,6 +248,9 @@ class FullNGram(ContextDependency):
     n, v = self.context_size, self.vocab_size
     if n == 0:
       return weights[..., None].expand(weights.shape + (v,))
+    if n == 1:
+      # Label y leads to state y from every state: a broadcast row.
+      return weights[..., None, 1:].expand(batch_dims + (1 + v, v))
     num_ascending = sum(v**i for i in range(n))
     # Non-start ascending states have a unique incoming arc.
     part_a = weights[..., 1:num_ascending].reshape(batch_dims + (-1, v))

@@ -23,7 +23,12 @@ gradient of the tropical shortest distance with respect to a zero lexical
 mask, as in the JAX package), ``loss`` / ``shortest_distance``,
 ``label_marginals`` (the marginals kernel of ``ops/fused_scan.py`` inside
 its gate, the generic backward algorithm outside it) and ``arc_marginals``
-(always the generic route, as in the JAX package). The loss is the
+(always the generic route, as in the JAX package), ``align`` (the string DP
+under MaxTropical over the numerator's string weights, read off a mask's
+gradient) and ``sample_paths`` (exact FFBS: a beta pass whose per-frame
+``JointWeightFn.apply`` runs the joint+head kernels at 1024 context states
+or more, a Gumbel-max draw at the sampled rows, and a differentiable
+scoring of the drawn paths). The loss is the
 globally normalized denominator minus the numerator, or minus the numerator
 alone for a ``LocallyNormalizedWeightFn``: the numerator is the string DP
 over the weight function's ``label_weights`` (the numerator kernels of
@@ -64,6 +69,12 @@ Params = dict[str, Any]
 # ROADMAP.md items named by the routes that are not ported yet.
 _REST = 'queue 1, item 7 ("lattices.py, the rest")'
 _WEIGHT_FNS = 'queue 1, item 6 ("weight_fns.py, the rest")'
+
+
+# The sampler draws its Gumbel noise for this many frames at a time, and its
+# scoring evaluates at most about this many arc weights at once.
+_NOISE_FRAMES = 64
+_SCORE_ENTRIES = 1 << 24
 
 
 def _not_ported(operation: str, roadmap_item: str):
@@ -376,13 +387,317 @@ class RecognitionLattice:
         params, frames, num_frames, cache,
         lambda lexical: lexical.sum(dim=-2))
 
-  def align(self, *args, **kwargs):
-    _not_ported('align', _REST)
+  def align(self, params: Params, frames: torch.Tensor, num_frames, labels,
+            num_labels, cache=None):
+    """Forced alignment: the frame at which each reference label is emitted.
 
-  def sample_paths(self, *args, **kwargs):
-    _not_ported('sample_paths', _REST)
+    Runs the string DP under MaxTropical over the string weights plus a
+    zero lexical mask, and reads the winning path off the mask's one-hot
+    gradient, as ``shortest_path``'s generic route does, restricted to the
+    paths that emit exactly the reference transcript. The string weights
+    are computed without autograd (only the mask is differentiated): a
+    ``JointWeightFn``'s ``label_weights``, or a locally normalized one's,
+    which is the numerator forward kernel on CUDA tensors.
+
+    Args:
+      params: Parameters from ``init``.
+      frames: [batch_dims..., max_num_frames, feature_size] padded frames.
+      num_frames: [batch_dims...] number of frames.
+      labels: [batch_dims..., max_num_labels] reference labels (1-based,
+        0-padded).
+      num_labels: [batch_dims...] number of reference labels.
+      cache: Optional weight function cache.
+
+    Returns:
+      (emit_frames, path_weights):
+      - emit_frames: [batch_dims..., max_num_labels] int32; entry u is the
+        frame at which reference label u is emitted on the highest-scoring
+        alignment, -1 beyond ``num_labels``.
+      - path_weights: [batch_dims...] tropical score of that alignment,
+        -inf when the transcript is infeasible (the emit_frames row is
+        meaningless then).
+    """
+    if cache is None:
+      cache = self.build_cache(params)
+    num_frames, num_labels, labels = self._check_string_args(
+        frames, num_frames, labels, num_labels)
+    with torch.no_grad():
+      blank_weight, lexical_weight = self._string_weights(
+          params, cache, frames, labels)
+    lexical_mask = torch.zeros_like(lexical_weight, requires_grad=True)
+    with torch.enable_grad():
+      scores = self._string_dp(blank_weight, lexical_weight + lexical_mask,
+                               num_frames, num_labels, semirings.MaxTropical)
+      if scores.requires_grad:
+        (marks,) = torch.autograd.grad(scores.sum(), lexical_mask)
+      else:  # no frames
+        marks = torch.zeros_like(lexical_mask)
+    # [T, batch..., U+1] -> [batch..., U+1, T]; exactly one winning frame
+    # per position u < num_labels (each position advances once per path).
+    marks = marks.movedim(0, -1)[..., :labels.shape[-1], :]
+    if marks.shape[-1] == 0:
+      emit = torch.full(marks.shape[:-1], -1, dtype=torch.int32,
+                        device=marks.device)
+    else:
+      emit = torch.argmax(marks, dim=-1).to(torch.int32)
+      emit = torch.where(marks.amax(dim=-1) > 0, emit, -1)
+    return emit, scores.detach()
+
+  def sample_paths(self, params: Params, frames: torch.Tensor, num_frames,
+                   generator, num_samples: int = 1, cache=None):
+    """Exact posterior samples of alignment paths (FFBS).
+
+    Draws i.i.d. alignment paths from the lattice's posterior
+    ``p(path) = exp(w(path)) / Z`` by backward filtering / forward
+    sampling, as the JAX package:
+
+    1. The beta pass (``_sample_betas``): a reverse loop over frames gives
+       beta at every frame and, for FrameLabelDependent, the continuation
+       values of each expansion; its start-state entry at frame 0 is
+       log Z. ``weight_fn.apply`` over every context state runs once a
+       frame (the joint+head kernels at 1024 states or more); each frame
+       is checkpointed, so the backward recomputes it and saves only the
+       [batch..., S] carries.
+    2. The draw (``_draw_paths``, no autograd): a forward loop that
+       evaluates the weight function only at the sampled context rows
+       (one ``apply`` per expansion slot, the state [batch..., M] against
+       the frame expanded to [batch..., M, F]) and draws each expansion
+       slot from its exact conditional by Gumbel-max.
+    3. The scoring (``_score_paths``): the weight of the drawn paths,
+       differentiable, through the weight function at each slot's state.
+
+    ``log_prob`` carries gradients through the scoring and through the beta
+    pass (``log_z``), as in the JAX package; the draw has none.
+    ``risk.sampled_risk_loss`` takes log Z without autograd
+    (``_sample_paths``): its estimators' gradient through it is zero.
+
+    Args:
+      params: Parameters from ``init``.
+      frames: [batch_dims..., max_num_frames, feature_size] padded frames.
+      num_frames: [batch_dims...] number of frames.
+      generator: The source of randomness, in place of the JAX package's
+        key: a ``torch.Generator`` on the frames' device, or a sequence of
+        one generator per batch row (one batch dimension), each row's
+        Gumbel noise drawn from its own (see ``risk.per_example_keys``).
+        The global RNG is never used.
+      num_samples: Number of independent path samples per utterance.
+      cache: Optional weight function cache.
+
+    Returns:
+      (alignment_labels, num_alignment_labels, log_prob):
+      - alignment_labels: [batch_dims..., num_samples,
+        max_num_frames * num_alignment_states] int32 in the packed slot
+        format of ``shortest_path``: blank / unused 0, lexical 1..V.
+      - num_alignment_labels: [batch_dims..., num_samples] int32,
+        ``num_alignment_states * num_frames``.
+      - log_prob: [batch_dims..., num_samples] exact posterior
+        log-probability ``w(path) - log Z`` of each sampled path.
+    """
+    return self._sample_paths(params, frames, num_frames, generator,
+                              num_samples, cache)
+
+  def _sample_paths(self, params, frames, num_frames, generator,
+                    num_samples, cache, log_z_grad=True):
+    """``sample_paths``; with ``log_z_grad`` False the beta pass records no
+    autograd (no checkpoints, no backward through it), and ``log_prob``
+    carries gradients through the scoring alone, log Z a constant."""
+    if not isinstance(self.alignment, (alignments.FrameDependent,
+                                       alignments.FrameLabelDependent)):
+      raise NotImplementedError(
+          'sample_paths supports FrameDependent and FrameLabelDependent '
+          f'alignment lattices, got {type(self.alignment).__name__}')
+    num_frames = torch.as_tensor(num_frames, device=frames.device)
+    batch_dims = tuple(num_frames.shape)
+    if tuple(frames.shape[:-2]) != batch_dims:
+      raise ValueError('frames and num_frames have different batch_dims: '
+                       f'{tuple(frames.shape[:-2])} vs {batch_dims}')
+    noise = _gumbel_source(generator, batch_dims, frames.device)
+    if cache is None:
+      cache = self.build_cache(params)
+    with torch.set_grad_enabled(torch.is_grad_enabled() and log_z_grad):
+      log_z, beta_next, conts = self._sample_betas(params, cache, frames,
+                                                   num_frames)
+    labels = self._draw_paths(params, cache, frames, num_frames, beta_next,
+                              conts, num_samples, noise)
+    logw = self._score_paths(params, cache, frames, num_frames, labels)
+    num_labels = (self.alignment.num_states() * num_frames.to(torch.int32))
+    num_labels = num_labels[..., None].expand(batch_dims + (num_samples,))
+    return labels, num_labels, logw - log_z[..., None]
 
   # Private dynamic programs.
+
+  def _sample_betas(self, params, cache, frames, num_frames):
+    """The sampler's beta pass (phase 1): a reverse loop over frames.
+
+    Returns:
+      (log_z [batch_dims...], beta_next, conts): ``beta_next[t]`` is beta
+      after frame t (the backward weight of frame t + 1, [batch_dims...,
+      S]); ``conts[e][t]`` is the continuation value the draw conditions
+      expansion e of frame t on: v[e + 1] for FrameLabelDependent (the
+      weight of completing the utterance having taken e + 1 lexical arcs in
+      frame t), beta_next[t] for FrameDependent, whose lexical arc ends the
+      frame. Only log_z records autograd; the histories are detached.
+    """
+    fld = isinstance(self.alignment, alignments.FrameLabelDependent)
+    k = self.alignment.max_expansions if fld else 0
+    wf_params = params['weight_fn']
+
+    def cont_values(blank, lexical, beta_next):
+      # v[e]: the weight of completing the utterance from each state having
+      # taken e lexical arcs in this frame; v[0] is beta. Only the
+      # logsumexp's operand is ever [batch..., S, V].
+      blank_term = blank + beta_next
+      v = [None] * (k + 1) if fld else [None, beta_next]
+      v[-1] = blank_term if fld else beta_next
+      for e in range(len(v) - 2, -1, -1):
+        s_e = semirings.Log.sum(
+            lexical + self.context.backward_broadcast(v[e + 1]), axis=-1)
+        v[e] = semirings.Log.plus(blank_term, s_e)
+      return tuple(v) if fld else (v[0],)
+
+    def step(beta, t):
+      blank, lexical = self.weight_fn.apply(wf_params, cache,
+                                            frames[..., t, :])
+      return cont_values(blank, lexical, beta)
+
+    if torch.is_grad_enabled():
+      step_fn = lambda beta, t: torch.utils.checkpoint.checkpoint(
+          step, beta, t, use_reentrant=False)
+    else:
+      step_fn = step
+    batch_dims = tuple(num_frames.shape)
+    max_t = frames.shape[-2]
+    beta = semirings.Log.ones(batch_dims + (self.context.shape()[0],),
+                              frames.dtype, frames.device)
+    beta_next = [None] * max_t
+    conts = [[None] * max_t for _ in range(k)]
+    for t in range(max_t - 1, -1, -1):
+      v = step_fn(beta, t)
+      beta_next[t] = beta.detach()
+      for e in range(k):
+        conts[e][t] = v[e + 1].detach()
+      beta = torch.where((t >= num_frames)[..., None], beta, v[0])
+    return beta[..., self.context.start()], beta_next, conts or [beta_next]
+
+  def _conts_at_next_states(self, cont, c):
+    """cont [batch..., S], c [batch..., M] -> ``cont[next_state(c_m, y)]``
+    for every lexical y, [batch..., M, V], without the [batch..., S, V]
+    broadcast."""
+    vocab_size = self.context.shape()[1]
+    y_all = torch.arange(1, vocab_size + 1, device=c.device)
+    ns = self.context.next_state(c[..., None], y_all).long()
+    out = torch.gather(cont, -1, ns.reshape(ns.shape[:-2] + (-1,)))
+    return out.reshape(tuple(c.shape) + (vocab_size,))
+
+  @torch.no_grad()
+  def _draw_paths(self, params, cache, frames, num_frames, beta_next, conts,
+                  num_samples, noise):
+    """The sampler's draw (phase 2): a forward loop drawing each expansion
+    slot by Gumbel-max from its exact conditional, with arc weights
+    evaluated only at the M sampled rows. ``noise(frames, draws, m, n)``
+    returns uniform noise [frames, draws, batch..., m, n].
+
+    Returns:
+      [batch_dims..., M, max_num_frames * num_alignment_states] int32
+      labels in ``shortest_path``'s slot format.
+    """
+    batch_dims = tuple(num_frames.shape)
+    max_t, feature_size = frames.shape[-2:]
+    num_align = self.alignment.num_states()
+    vocab_size = self.context.shape()[1]
+    draws = len(conts)
+    wf_params = params['weight_fn']
+    m = num_samples
+    c = torch.full(batch_dims + (m,), self.context.start(), dtype=torch.long,
+                   device=frames.device)
+    tiny = torch.finfo(torch.float32).tiny
+    slots = []
+    for t in range(max_t):
+      if t % _NOISE_FRAMES == 0:
+        uniform = noise(min(_NOISE_FRAMES, max_t - t), draws, m,
+                        1 + vocab_size)
+        gumbel = -torch.log(-torch.log(uniform.clamp_(min=tiny)))
+      is_padding = (t >= num_frames)[..., None]
+      frame = frames[..., t, None, :].expand(batch_dims + (m, feature_size))
+      done = torch.zeros_like(is_padding.expand(c.shape))
+      for e in range(num_align):
+        if e < draws:
+          blank_w, lex_rows = self.weight_fn.apply(wf_params, cache, frame,
+                                                   c)
+          logits = torch.cat([
+              (blank_w + torch.gather(beta_next[t], -1, c))[..., None],
+              lex_rows + self._conts_at_next_states(conts[e][t], c)], dim=-1)
+          choice = torch.argmax(logits + gumbel[t % _NOISE_FRAMES, e],
+                                dim=-1)
+          choice = torch.where(done | is_padding, 0, choice)
+        else:
+          # The last FLD expansion state has no lexical arc.
+          choice = torch.zeros_like(c)
+        done = done | ((choice == 0) & ~is_padding)
+        c = self.context.next_state(c, choice)
+        slots.append(choice)
+    if not slots:
+      return torch.zeros(batch_dims + (m, 0), dtype=torch.int32,
+                         device=frames.device)
+    return torch.stack(slots, dim=-1).to(torch.int32)
+
+  @torch.no_grad()
+  def _slot_states(self, slots):
+    """The context state before each slot of [batch..., T * A] labels."""
+    return self.context.walk_states(slots)[..., :-1].long()
+
+  def _score_paths(self, params, cache, frames, num_frames, labels):
+    """The weight of given alignment paths (the sampler's phase 3).
+
+    Args:
+      labels: [batch_dims..., M, max_num_frames * num_alignment_states]
+        paths in ``shortest_path``'s slot format.
+
+    Returns:
+      [batch_dims..., M] path weights, recording autograd through the
+      weight function at each slot's state (checkpointed by chunks of
+      frames).
+    """
+    batch_dims = tuple(num_frames.shape)
+    max_t, feature_size = frames.shape[-2:]
+    num_align = self.alignment.num_states()
+    m = labels.shape[-2]
+    states = self._slot_states(labels).reshape(batch_dims +
+                                               (m, max_t, num_align))
+    slots = labels.long().reshape(batch_dims + (m, max_t, num_align))
+    # A slot takes an arc until the frame's blank: after an unused (0) slot
+    # of FrameLabelDependent nothing more is taken; padding frames take
+    # none.
+    emitted = slots > 0
+    active = torch.cat([torch.ones_like(emitted[..., :1]),
+                        emitted[..., :-1].cumprod(dim=-1).bool()], dim=-1)
+    valid = torch.arange(max_t, device=frames.device) < num_frames[
+        ..., None]
+    active = active & valid[..., None, :, None]
+    wf_params = params['weight_fn']
+
+    def chunk_weight(frame, state, slot, on):
+      blank, lexical = self.weight_fn.apply(wf_params, cache, frame, state)
+      label_w = torch.gather(lexical, -1, (slot - 1).clamp(min=0)[..., None])
+      w = torch.where(slot > 0, label_w[..., 0], blank)
+      return torch.where(on, w, 0.0).sum(dim=(-2, -1))
+
+    if torch.is_grad_enabled():
+      weigh = lambda *a: torch.utils.checkpoint.checkpoint(
+          chunk_weight, *a, use_reentrant=False)
+    else:
+      weigh = chunk_weight
+    rows = math.prod(batch_dims) * m * num_align * (
+        self.context.shape()[1] + 1)
+    step = max(1, _SCORE_ENTRIES // max(rows, 1))
+    logw = frames.new_zeros(batch_dims + (m,))
+    for t0 in range(0, max_t, step):
+      t1 = min(max_t, t0 + step)
+      frame = frames[..., None, t0:t1, None, :].expand(
+          batch_dims + (m, t1 - t0, num_align, feature_size))
+      logw = logw + weigh(frame, states[..., t0:t1, :], slots[..., t0:t1, :],
+                          active[..., t0:t1, :])
+    return logw
 
   def _check_string_args(self, frames, num_frames, labels, num_labels):
     """Shape validation shared by the loss and the string DP."""
@@ -487,7 +802,8 @@ class RecognitionLattice:
     max_num_frames = frames.shape[-2]
     num_alignment_states = self.alignment.num_states()
     params = pytree.tree_map(torch.Tensor.detach, params)
-    cache, frames = cache.detach(), frames.detach()
+    cache = None if cache is None else cache.detach()
+    frames = frames.detach()
     mask = torch.zeros(batch_dims + (max_num_frames, num_alignment_states,
                                      self.context.shape()[1]),
                        dtype=frames.dtype, device=frames.device,
@@ -667,16 +983,23 @@ class RecognitionLattice:
     carry, outputs = init_callback_carry, []
     for t in range(frames.shape[-2] - 1, -1, -1):
       with torch.enable_grad():
-        inputs = [x.detach().requires_grad_() for x in
+        # A None cache (``NullCacher``) has no gradient.
+        inputs = [x if x is None else x.detach().requires_grad_() for x in
                   leaves + [cache, frames[..., t, :]]]
         blank, lexical = self.weight_fn.apply(
             pytree.tree_unflatten(inputs[:-2], spec), *inputs[-2:])
 
       def weight_vjp_fn(d_blank, d_lexical, blank=blank, lexical=lexical,
                         inputs=inputs):
-        grads = torch.autograd.grad((blank, lexical), inputs,
-                                    (d_blank, d_lexical), allow_unused=True)
-        grads = [torch.zeros_like(x) if d is None else d
+        wrt = [x for x in inputs if x is not None]
+        if blank.requires_grad or lexical.requires_grad:
+          grads = iter(torch.autograd.grad(
+              (blank, lexical), wrt, (d_blank, d_lexical),
+              allow_unused=True))
+        else:  # a weight function with no differentiable input
+          grads = iter([None] * len(wrt))
+        grads = [None if x is None else next(grads) for x in inputs]
+        grads = [d if x is None or d is not None else torch.zeros_like(x)
                  for d, x in zip(grads, inputs)]
         return pytree.tree_unflatten(grads[:-2], spec), grads[-2], grads[-1]
 
@@ -727,9 +1050,12 @@ class _GenericLogPartition(torch.autograd.Function):
       d_params, d_cache, d_frame = weight_vjp_fn(
           g[..., None] * blank_marginal,
           g[..., None, None] * lexical_marginals)
-      return pytree.tree_map(torch.add, carry, (d_params, d_cache)), d_frame
+      add = lambda a, b: None if a is None else a + b
+      return pytree.tree_map(add, carry, (d_params, d_cache)), d_frame
 
-    init = pytree.tree_map(torch.zeros_like, (wf_params, cache))
+    init = pytree.tree_map(
+        lambda x: None if x is None else torch.zeros_like(x),
+        (wf_params, cache))
     (d_params, d_cache), d_frames = ctx.lattice._backward(
         {'weight_fn': wf_params}, cache, frames, num_frames, log_z,
         alpha_history, init, accumulate)
@@ -746,3 +1072,41 @@ def _init_context_state_weights(batch_dims, num_states: int, start: int,
   weights = torch.where(is_start, semiring.ones((), dtype, device),
                         semiring.zeros((), dtype, device))
   return weights.expand(tuple(batch_dims) + (num_states,))
+
+
+def _gumbel_source(generator, batch_dims, device):
+  """The sampler's uniform noise from an explicit generator, or from one
+  generator per batch row.
+
+  Returns ``noise(frames, draws, m, n)`` -> [frames, draws, batch_dims...,
+  m, n] uniform noise in [0, 1). With one generator per row, row i's noise
+  is drawn from generator i alone, chunk by chunk in frame order, so it
+  depends on that generator and the shapes only (not on the other rows).
+  """
+  device = torch.device(device)
+  if isinstance(generator, torch.Generator):
+    generators = None
+    if generator.device.type != device.type:
+      raise ValueError(f'the generator is on {generator.device}, the frames '
+                       f'on {device}')
+  else:
+    generators = list(generator)
+    if len(batch_dims) != 1 or len(generators) != batch_dims[0]:
+      raise ValueError(
+          f'{len(generators)} per-row generators for batch_dims '
+          f'{batch_dims}: one generator per row needs one batch dimension')
+    for g in generators:
+      if g.device.type != device.type:
+        raise ValueError(f'a row generator is on {g.device}, the frames on '
+                         f'{device}')
+
+  def noise(frames, draws, m, n):
+    if generators is None:
+      return torch.rand((frames, draws) + tuple(batch_dims) + (m, n),
+                        generator=generator, device=device)
+    if not generators:
+      return torch.rand((frames, draws, 0, m, n), device=device)
+    return torch.stack([torch.rand((frames, draws, m, n), generator=g,
+                                   device=device) for g in generators], dim=2)
+
+  return noise

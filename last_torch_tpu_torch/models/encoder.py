@@ -19,7 +19,7 @@ Counterpart of ``last_torch_tpu/models/encoder.py``: the pre-LN Transformer
 dictionary laid out as the JAX pytree. Attention is plain matmul + softmax
 over dense [T, T] logits, as the JAX package writes it. The banded
 causal-window attention and ``StreamingEncoder`` are still to port
-(ROADMAP queue 1).
+(ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -154,7 +154,7 @@ class TransformerEncoder:
     if self.banded_attention:
       raise NotImplementedError(
           'banded attention is not ported to PyTorch yet: ROADMAP.md '
-          'queue 1, "models/ and support code"')
+          'queue 1, item 9 ("models/ and support code")')
     max_t = mask.shape[-1]
     zero = torch.zeros((), dtype=self.dtype, device=mask.device)
     masked = torch.full((), _MASKED, dtype=self.dtype, device=mask.device)

@@ -17,9 +17,10 @@
 Counterpart of ``last_torch_tpu/models/gnat.py``: ``GNATConfig``,
 ``GNATModel`` (``init``, ``loss``, ``mean_loss``, ``decode``), the optimizer
 (``make_optimizer``: AdamW with global-norm clipping and the
-warmup/cosine schedule) and the training step (``GNATTrainState``,
-``init_train_state``, ``train_step``). ``accumulate_steps`` and
-``risk_train_step`` are still to port (ROADMAP queue 1).
+warmup/cosine schedule), the training step (``GNATTrainState``,
+``init_train_state``, ``train_step``) and the expected-risk (MWER)
+fine-tuning step (``risk_train_step``). ``accumulate_steps`` is still to
+port (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -101,7 +102,7 @@ class GNATModel:
     if config.use_rnn_cacher:
       raise NotImplementedError(
           'SharedRNNCacher is not ported to PyTorch yet: ROADMAP.md queue 1, '
-          '"weight_fns.py, the rest"')
+          'item 6 ("weight_fns.py, the rest")')
     self.config = config
     self.encoder = encoder_lib.TransformerEncoder(
         feature_size=config.feature_size,
@@ -324,3 +325,80 @@ def train_step(model: GNATModel, optimizer: Optimizer,
   loss.backward()
   optimizer.apply_gradients(state.opt_state)
   return dataclasses.replace(state, step=state.step + 1), loss.detach()
+
+
+def risk_train_step(model: GNATModel, optimizer: Optimizer,
+                    state: GNATTrainState, frames, num_frames, labels,
+                    num_labels, generator,
+                    num_samples: int = 4,
+                    estimator: str = 'mwer',
+                    nll_weight: float = 0.0,
+                    per_example_keys: bool = False
+                    ) -> tuple[GNATTrainState, dict]:
+  """One expected-risk (MWER) fine-tuning step.
+
+  Minimizes the expected edit distance over exact posterior path samples
+  (``risk.sampled_risk_loss``), optionally plus ``nll_weight`` times the
+  mean likelihood loss over the feasible sequences (the usual MWER recipe
+  keeps a small NLL term). The encoder runs once, and the weight function
+  cache is built once and shared by both terms. Then the AdamW update.
+
+  Args:
+    model: The GNAT model.
+    optimizer: ``make_optimizer``'s AdamW.
+    state: Current train state (its parameters update in place).
+    frames, num_frames, labels, num_labels: The batch.
+    generator: The sampler's randomness, in place of the JAX package's key:
+      a ``torch.Generator`` on the model's device (draw from a fresh one,
+      or one that has moved on, each step).
+    num_samples: Posterior samples per utterance.
+    estimator: ``'mwer'`` or ``'reinforce'`` (see ``risk``).
+    nll_weight: Weight of the added mean likelihood loss (0 disables it).
+    per_example_keys: One generator per batch row
+      (``risk.per_example_keys``), so that the samples do not depend on how
+      the batch is split: the single-device reference of
+      ``parallel.sharding.make_shard_map_risk_train_step``.
+
+  Returns:
+    (new_state, metrics): ``loss`` (the optimized scalar), ``mean_risk``
+    (the Monte Carlo expected edit distance) and, when ``nll_weight`` is
+    set, ``nll``, each a detached scalar tensor from before the update.
+  """
+  # Imported here: ``risk`` imports ``models.metrics``, so a top-level
+  # import would run during this package's own initialization.
+  from last_torch_tpu_torch import risk as risk_lib
+
+  device = model.device
+  frames = torch.as_tensor(frames, dtype=torch.float32, device=device)
+  num_frames = torch.as_tensor(num_frames, device=device)
+  labels = torch.as_tensor(labels, device=device)
+  num_labels = torch.as_tensor(num_labels, device=device)
+  params = state.params
+  state.opt_state.adamw.zero_grad(set_to_none=True)
+  encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+  cache = model.lattice.build_cache(params['lattice'])
+  kw = dict(num_samples=num_samples, estimator=estimator, cache=cache)
+  if per_example_keys:
+    row_keys = risk_lib.per_example_keys(generator, num_frames.shape[0])
+    er, aux = risk_lib.sampled_risk_loss_per_example(
+        model.lattice, params['lattice'], encoded, num_frames, labels,
+        num_labels, row_keys, **kw)
+  else:
+    er, aux = risk_lib.sampled_risk_loss(
+        model.lattice, params['lattice'], encoded, num_frames, labels,
+        num_labels, generator, **kw)
+  metrics = {'mean_risk': aux['mean_risk'].mean().detach()}
+  total = er.mean()
+  if nll_weight:
+    per_seq = model.lattice(params['lattice'], frames=encoded,
+                            num_frames=num_frames, labels=labels,
+                            num_labels=num_labels, cache=cache)
+    finite = torch.isfinite(per_seq)
+    nll = (torch.where(finite, per_seq, 0.0).sum() /
+           finite.sum().clamp(min=1))
+    metrics['nll'] = nll.detach()
+    total = total + nll_weight * nll
+  total.backward()
+  optimizer.apply_gradients(state.opt_state)
+  return (dataclasses.replace(state, step=state.step + 1),
+          dict(metrics, loss=total.detach()))

@@ -15,8 +15,8 @@
 """Data- and tensor-parallel GNAT training over ``torch.distributed``.
 
 Counterpart of ``last_torch_tpu/parallel/``. Ported: ``sharding.py``'s mesh,
-parameter rules and the data-parallel and tensor-parallel (vocab-sharded)
-train steps. ``sequence.py`` (the time-sharded relay), ``pipeline.py``
+parameter rules, the data-parallel and tensor-parallel (vocab-sharded)
+train steps and the data-parallel expected-risk (MWER) step. ``sequence.py`` (the time-sharded relay), ``pipeline.py``
 (GPipe) and the encoder's Megatron sharding come later (ROADMAP queue 1,
 item 10).
 """

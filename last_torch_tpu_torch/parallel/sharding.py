@@ -20,7 +20,9 @@ default process group (``init_process_group`` with its address, world size
 and rank), and ``make_mesh`` lays the world out as a ``DeviceMesh``.
 
 * data axis: each data rank trains on its own rows of the batch
-  (``shard_batch``); gradients are summed over it explicitly.
+  (``shard_batch``); gradients are summed over it explicitly. The
+  expected-risk step (``make_shard_map_risk_train_step``) is data parallel
+  alone.
 * model axis: tensor parallelism over the vocabulary. The joint network's
   vocab head ``[h, V]`` (and its bias) is sharded (``GNAT_PARAM_RULES``,
   ``shard_params``), and the lattice loss runs
@@ -54,6 +56,7 @@ import torch
 import torch.distributed as dist
 from torch.utils import _pytree as pytree
 
+from last_torch_tpu_torch import risk as risk_lib
 from last_torch_tpu_torch.models import gnat
 from last_torch_tpu_torch.ops import sharded_scan
 
@@ -292,3 +295,99 @@ def make_shard_map_train_step(model, optimizer, mesh) -> TrainStep:
   axis. Parameters and optimizer state are replicated: every rank starts
   from the same state."""
   return TrainStep(model, optimizer, mesh, tensor_parallel=False)
+
+
+class RiskTrainStep:
+  """The data-parallel expected-risk (MWER) step
+  (``make_shard_map_risk_train_step``): ``step(state, frames, num_frames,
+  labels, num_labels, generator) -> (state, metrics)`` with this rank's
+  batch rows, metrics as ``gnat.risk_train_step``'s."""
+
+  def __init__(self, model, optimizer, mesh, num_samples: int,
+               estimator: str, nll_weight: float):
+    self.model = model
+    self.optimizer = optimizer
+    self.data_group = mesh.get_group('data')
+    self.data_rank = mesh.get_local_rank('data')
+    self.data_size = _axis_size(mesh, 'data')
+    self.num_samples = num_samples
+    self.estimator = estimator
+    self.nll_weight = nll_weight
+
+  def loss_and_grads(self, state: gnat.GNATTrainState, frames, num_frames,
+                     labels, num_labels, generator) -> dict:
+    """The global batch's metrics; leaves this rank's gradients, summed
+    over the data axis and not yet clipped, in the parameters' ``.grad``."""
+    model, device = self.model, self.model.device
+    frames = torch.as_tensor(frames, dtype=torch.float32, device=device)
+    num_frames = torch.as_tensor(num_frames, device=device)
+    labels = torch.as_tensor(labels, device=device)
+    num_labels = torch.as_tensor(num_labels, device=device)
+    params = state.params
+    state.opt_state.adamw.zero_grad(set_to_none=True)
+    local_batch = num_frames.shape[0]
+    global_batch = local_batch * self.data_size
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+    cache = model.lattice.build_cache(params['lattice'])
+    # The rows' generators from their global indices: the samples are the
+    # single-device step's.
+    row_keys = risk_lib.per_example_keys(generator, local_batch,
+                                         offset=self.data_rank * local_batch)
+    er, aux = risk_lib.sampled_risk_loss_per_example(
+        model.lattice, params['lattice'], encoded, num_frames, labels,
+        num_labels, row_keys, num_samples=self.num_samples,
+        estimator=self.estimator, cache=cache)
+    sums = [aux['mean_risk'].sum().detach()]
+    local = er.sum() / global_batch
+    if self.nll_weight:
+      per_seq = model.lattice(params['lattice'], frames=encoded,
+                              num_frames=num_frames, labels=labels,
+                              num_labels=num_labels, cache=cache)
+      finite = torch.isfinite(per_seq)
+      count = finite.sum()
+      dist.all_reduce(count, group=self.data_group)
+      nll_local = torch.where(finite, per_seq, 0.0).sum() / count.clamp(min=1)
+      sums.append(nll_local.detach())
+      local = local + self.nll_weight * nll_local
+    local.backward()
+    for leaf in pytree.tree_leaves(params):
+      if leaf.grad is None:
+        leaf.grad = torch.zeros_like(leaf)
+      dist.all_reduce(leaf.grad, group=self.data_group)
+    sums = torch.stack(sums + [local.detach()])
+    dist.all_reduce(sums, group=self.data_group)
+    metrics = {'mean_risk': sums[0] / global_batch, 'loss': sums[-1]}
+    if self.nll_weight:
+      metrics['nll'] = sums[1]
+    return metrics
+
+  def __call__(self, state: gnat.GNATTrainState, frames, num_frames, labels,
+               num_labels, generator) -> tuple[gnat.GNATTrainState, dict]:
+    metrics = self.loss_and_grads(state, frames, num_frames, labels,
+                                  num_labels, generator)
+    self.optimizer.apply_gradients(state.opt_state)
+    return dataclasses.replace(state, step=state.step + 1), metrics
+
+
+def make_shard_map_risk_train_step(model, optimizer, mesh,
+                                   num_samples: int = 4,
+                                   estimator: str = 'mwer',
+                                   nll_weight: float = 0.0) -> RiskTrainStep:
+  """Data-parallel expected-risk (MWER) train step.
+
+  Each rank encodes its rows of the batch, draws exact posterior path
+  samples with one generator per global batch row
+  (``risk.per_example_keys`` with ``offset = data rank * local batch``,
+  every rank's ``generator`` in the same state), and computes its share of
+  the expected risk (and of the NLL term, over the feasible count summed
+  over the data axis). The gradients and the metrics are summed over the
+  data axis, so the step equals the single-device
+  ``gnat.risk_train_step(..., per_example_keys=True)`` up to the order of
+  the float sums. Parameters and optimizer state are replicated.
+
+  Returns:
+    A ``RiskTrainStep``: ``step(state, frames, num_frames, labels,
+    num_labels, generator) -> (state, metrics)``.
+  """
+  return RiskTrainStep(model, optimizer, mesh, num_samples, estimator,
+                       nll_weight)

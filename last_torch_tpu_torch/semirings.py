@@ -18,7 +18,7 @@ Counterpart of ``last_torch_tpu/semirings.py``: the value helpers,
 ``Semiring``, ``Real``, ``Log`` and ``MaxTropical``. A semiring value is a
 pytree of identically shaped tensors (one tensor for these three; tuples
 for the Expectation / Cartesian semirings, which come with ``weight_lift``,
-ROADMAP queue 1).
+ROADMAP queue 1, item 7).
 
 Gradient contracts (the JAX package's, there as ``jax.custom_vjp``, here as
 ``torch.autograd.Function``):

@@ -22,8 +22,10 @@ column-gather fast path; the local normalizers ``hat_normalize`` and
 ``log_softmax_normalize`` and ``LocallyNormalizedWeightFn``, whose
 ``label_weights`` runs the numerator kernels of ``ops/numerator_scan.py``.
 ``JointWeightFn.apply`` over every context state runs the joint+head
-kernels of ``ops/joint_head.py`` inside their gate. ``SharedRNNCacher`` and
-the test fakes come with a later slice (ROADMAP queue 1, item 6).
+kernels of ``ops/joint_head.py`` inside their gate. ``NullCacher`` and
+``TableWeightFn`` are the fixed-table fakes of the JAX package's tests (the
+enumeration oracles of the sampler and the risk). ``SharedRNNCacher`` comes
+with a later slice (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -304,3 +306,93 @@ class SharedEmbCacher:
 
   def apply(self, params: Params) -> torch.Tensor:
     return params['embedding']
+
+
+class NullCacher:
+  """A cacher that returns None: the cache of ``TableWeightFn``."""
+
+  def init(self, generator: torch.Generator, device='cuda') -> Params:
+    del generator, device
+    return {}
+
+  def apply(self, params: Params) -> None:
+    del params
+    return None
+
+
+class TableWeightFn:
+  """Weight function that looks up a fixed table; for tests.
+
+  Attributes:
+    table: [batch_dims..., input_vocab_size, num_context_states,
+      1 + vocab_size] arc weight table. For each input frame, element 0 of
+      the feature vector is cast to an integer "input label" that picks the
+      weights: blank arc weights at ``table[..., 0]``, lexical arcs at
+      ``table[..., 1:]``. A table that requires grad passes its gradient
+      through the lookups.
+  """
+
+  def __init__(self, table):
+    self.table = torch.as_tensor(table)
+
+  def init(self, generator: torch.Generator, cache, frame) -> Params:
+    del generator, cache, frame
+    return {}
+
+  def apply(self, params: Params, cache, frame: torch.Tensor,
+            state: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Arc weights for one frame, by exact gathers.
+
+    ``frame`` is [batch_dims..., extra..., feature_size]: its leading dims
+    are the table's batch_dims, and any dims after them (the sampler's
+    sample axis, its frames and expansions) index the same table row.
+    ``state`` is None for every context state, or an int tensor
+    broadcastable to ``frame.shape[:-1]``.
+    """
+    del params, cache
+    *batch_dims, _, num_context_states, _ = self.table.shape
+    batch_dims = tuple(batch_dims)
+    nb = len(batch_dims)
+    if tuple(frame.shape[:nb]) != batch_dims or frame.ndim < nb + 1:
+      raise ValueError(f'frame should have batch_dims={batch_dims} but '
+                       f'got ({tuple(frame.shape[:-1])})')
+    extra = tuple(frame.shape[nb:-1])
+    table = self.table.to(frame.device)
+    # [batch..., 1..., input_vocab, S, 1+V] against [batch..., extra...].
+    table = table.reshape(batch_dims + (1,) * len(extra) + table.shape[nb:])
+    input_label = frame[..., 0].long()
+    index = input_label[..., None, None, None].expand(
+        frame.shape[:-1] + (1,) + table.shape[-2:])
+    weights = torch.gather(table.expand(frame.shape[:-1] + table.shape[-3:]),
+                           -3, index)[..., 0, :, :]  # [batch..., S, 1+V]
+    if state is not None:
+      state = torch.broadcast_to(torch.as_tensor(state, device=frame.device),
+                                 frame.shape[:-1]).long()
+      weights = torch.gather(
+          weights, -2, state[..., None, None].expand(
+              state.shape + (1, weights.shape[-1])))[..., 0, :]
+    return weights[..., 0], weights[..., 1:]
+
+  def label_weights(self, params: Params, cache, frames: torch.Tensor,
+                    states: torch.Tensor, next_labels: torch.Tensor):
+    """Blank and one-label lexical weights per (label position, frame): the
+    lookups of the JAX package's generic per-position route, exact.
+
+    Args:
+      frames: [batch_dims..., max_num_frames, feature_size] frames.
+      states: [batch_dims..., num_positions] int context states.
+      next_labels: [batch_dims..., num_positions] int labels in
+        [0, vocab_size] (weights for label 0 are arbitrary).
+
+    Returns:
+      (blank, lexical), each [batch_dims..., num_positions, max_num_frames].
+    """
+    u1, max_t = states.shape[-1], frames.shape[-2]
+    frame = frames[..., None, :, :].expand(
+        frames.shape[:-2] + (u1,) + frames.shape[-2:])
+    state = states[..., None].expand(states.shape + (max_t,))
+    blank, lexical = self.apply(params, cache, frame, state)
+    y = (next_labels.long().clamp(min=1) - 1)[..., None, None].expand(
+        state.shape + (1,))
+    return blank, torch.gather(lexical, -1, y)[..., 0]

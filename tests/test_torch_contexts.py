@@ -186,3 +186,24 @@ def test_densified_bigram_matches_full_ngram():
   labels = torch.tensor([[1, 0, 5, 2, 0]])
   npt.assert_array_equal(table.walk_states(labels).numpy(),
                          ngram.walk_states(labels).numpy())
+
+
+@pytest.mark.parametrize('context_size', [0, 1, 2])
+def test_full_ngram_walk_states_and_backward_broadcast_match_jax(
+    context_size):
+  """FullNGram's closed forms (a cummax walk and an expanded broadcast row
+  at context_size <= 1) equal the JAX package's exactly."""
+  port = contexts.FullNGram(vocab_size=4, context_size=context_size)
+  ref = jax_contexts.FullNGram(vocab_size=4, context_size=context_size)
+  rng = np.random.default_rng(7)
+  labels = rng.integers(0, 5, size=(3, 2, 9)).astype(np.int32)
+  labels[0, 0] = 0  # no lexical label at all
+  walked = port.walk_states(torch.from_numpy(labels))
+  assert walked.dtype == torch.int32
+  npt.assert_array_equal(walked.numpy(), np.asarray(
+      ref.walk_states(jnp.asarray(labels))))
+  weights = rng.standard_normal((3, 2, port.num_states())).astype(np.float32)
+  got = port.backward_broadcast(torch.from_numpy(weights))
+  assert tuple(got.shape) == (3, 2) + port.shape()
+  npt.assert_array_equal(got.numpy(), np.asarray(
+      ref.backward_broadcast(jnp.asarray(weights))))

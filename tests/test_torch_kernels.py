@@ -8,7 +8,9 @@ plain forward on the CPU. Trigram log-partition: the plain versions'
 padding behaviour is pinned, and ``log_partition`` through them is held to
 the lattice's generic forward-backward, on the CPU. Joint+head and frame
 reduce: the plain backward is held to autograd through the plain forward
-on the CPU. On the
+on the CPU. The posterior sampler's beta pass (the joint+head kernels) is
+held on the card to its run through the plain versions on the paths it
+drew. On the
 card each kernel is held to its plain version: the tests marked ``cuda``
 skip without a GPU. This file imports
 no JAX, so it also runs on a machine that has only PyTorch:
@@ -23,7 +25,8 @@ import numpy.testing as npt
 import pytest
 import torch
 
-from last_torch_tpu_torch import alignments, contexts, lattices, weight_fns
+from last_torch_tpu_torch import (alignments, contexts, lattices, risk,
+                                  weight_fns)
 from last_torch_tpu_torch.ops import (fused_scan, joint_head, numerator_scan,
                                       sharded_scan, trigram_scan, viterbi)
 
@@ -1398,3 +1401,113 @@ def test_wgmma_backwards_launch_on_every_card(card):
         sharded_scan.frame_reduce_backward_plain)
     for name, a, b in zip(FRAME_REDUCE_GRADS, grads_k, grads_p):
       assert rel_err(a, b, per_output=True) <= 1e-3, (index, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('compute_dtype', [None, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_sampler_kernel_route_matches_plain_on_card(card, compute_dtype):
+  """``sample_paths`` at 1025 states on the card: its beta pass runs the
+  joint+head kernels (forward, its recompute and backward, counted); on
+  the paths it drew, the beta pass and the scoring through the joint+head
+  plain versions give the same log_prob and gradients."""
+  lattice = lattices.RecognitionLattice(
+      context=contexts.FullNGram(vocab_size=1024, context_size=1),
+      alignment=alignments.FrameLabelDependent(2),
+      weight_fn_cacher_factory=lambda ctx: weight_fns.SharedEmbCacher(
+          num_context_states=ctx.shape()[0], embedding_size=64),
+      weight_fn_factory=lambda ctx: weight_fns.JointWeightFn(
+          vocab_size=ctx.shape()[1], hidden_size=128,
+          compute_dtype=compute_dtype))
+  params = lattice.init(torch.Generator().manual_seed(0), feature_size=32,
+                        device=card)
+  leaves = [params['cacher']['embedding']] + list(
+      params['weight_fn'].values())
+  for leaf in leaves:
+    leaf.requires_grad_(True)
+  frames = torch.randn((3, 12, 32), generator=torch.Generator().manual_seed(
+      1)).to(card)
+  num_frames = torch.tensor([12, 7, 0], device=card)
+  before = joint_head.forward_launches, joint_head.backward_launches
+  labels, _, log_prob = lattice.sample_paths(
+      params, frames, num_frames,
+      torch.Generator(device=card).manual_seed(2), num_samples=3)
+  log_prob.sum().backward()
+  assert joint_head.forward_launches - before[0] == 2 * 12
+  assert joint_head.backward_launches - before[1] == 12
+  assert int(labels.min()) >= 0 and int(labels.max()) <= 1024
+  grads = [leaf.grad.clone() for leaf in leaves]
+  for leaf in leaves:
+    leaf.grad = None
+  with joint_head.using(joint_head.joint_head_forward_plain,
+                        joint_head.joint_head_backward_plain):
+    cache = lattice.build_cache(params)
+    log_z, _, _ = lattice._sample_betas(params, cache, frames, num_frames)
+    plain = lattice._score_paths(params, cache, frames, num_frames,
+                                 labels) - log_z[:, None]
+    plain.sum().backward()
+  assert joint_head.forward_launches - before[0] == 2 * 12
+  bf16 = compute_dtype == torch.bfloat16
+  assert rel_err(log_prob.detach(), plain.detach()) <= (1e-4 if bf16 else
+                                                        1e-5)
+  assert bool((log_prob <= 1e-3).all())
+  # blank_b's gradient is a structural zero under FrameLabelDependent
+  # (one blank arc a frame on every path): judge each gradient against the
+  # largest one.
+  largest = max(leaf.grad.abs().max().item() for leaf in leaves)
+  for leaf, got in zip(leaves, grads):
+    assert (got - leaf.grad).abs().max().item() <= largest * (
+        1e-3 if bf16 else 1e-4)
+
+
+@pytest.mark.cuda
+def test_risk_loss_beta_pass_runs_forward_only_on_card(card):
+  """``sampled_risk_loss`` at 1025 states on the card: its beta pass runs
+  the joint+head forward once a frame and no backward (log Z's gradient is
+  zero under both estimators); its gradients equal those of the same loss
+  with the beta pass differentiated (forward, recompute and backward)."""
+  lattice = lattices.RecognitionLattice(
+      context=contexts.FullNGram(vocab_size=1024, context_size=1),
+      alignment=alignments.FrameLabelDependent(2),
+      weight_fn_cacher_factory=lambda ctx: weight_fns.SharedEmbCacher(
+          num_context_states=ctx.shape()[0], embedding_size=64),
+      weight_fn_factory=lambda ctx: weight_fns.JointWeightFn(
+          vocab_size=ctx.shape()[1], hidden_size=128))
+  params = lattice.init(torch.Generator().manual_seed(0), feature_size=32,
+                        device=card)
+  leaves = [params['cacher']['embedding']] + list(
+      params['weight_fn'].values())
+  for leaf in leaves:
+    leaf.requires_grad_(True)
+  frames = torch.randn((3, 12, 32), generator=torch.Generator().manual_seed(
+      1)).to(card)
+  num_frames = torch.tensor([12, 7, 0], device=card)
+  labels = torch.tensor([[1, 2, 3], [4, 5, 0], [6, 0, 0]], device=card)
+  num_labels = torch.tensor([3, 2, 1], device=card)
+
+  # Random weights emit a label nearly every slot, so every sample's edit
+  # distance is alike, and their log-probabilities lie far apart, which
+  # saturates the 'mwer' softmax: 'reinforce' with a risk of the labels
+  # themselves gives a gradient to compare.
+  label_sum = lambda hyp, num_hyp, ref, num_ref: hyp.float().sum(-1) / 1024
+
+  def gradients():
+    before = joint_head.forward_launches, joint_head.backward_launches
+    loss, _ = risk.sampled_risk_loss(
+        lattice, params, frames, num_frames, labels, num_labels,
+        torch.Generator(device=card).manual_seed(2), num_samples=3,
+        estimator='reinforce', risk_fn=label_sum)
+    grads = torch.autograd.grad(loss.sum(), leaves)
+    return grads, (joint_head.forward_launches - before[0],
+                   joint_head.backward_launches - before[1])
+
+  got, launched = gradients()
+  assert launched == (12, 0)
+  sample_paths = lattice._sample_paths
+  lattice._sample_paths = lambda *args, log_z_grad: sample_paths(*args)
+  want, launched = gradients()
+  assert launched == (24, 12)
+  largest = max(w.abs().max().item() for w in want)
+  assert largest > 1e-3
+  for g, w in zip(got, want):
+    assert (g - w).abs().max().item() <= 1e-5 * largest

@@ -13,6 +13,12 @@ this file, whose top level imports no JAX; the JAX references are computed
 in the test process and the ranks read the parameters from and write their
 results to files.
 
+The 2 ranks also take the data-parallel expected-risk step
+(``make_shard_map_risk_train_step``) on a globally and a locally normalized
+case; it must draw the single-device ``risk_train_step(...,
+per_example_keys=True)``'s samples exactly and match its metrics and
+gradients to 1e-5.
+
 Held, as ``tests/test_torch_train.py`` holds the single-device step: the
 loss to rtol 1e-5, every gradient (each vocab shard's among them, which
 catches a D-fold scaling) to 1e-4 of the global gradient scale, the
@@ -53,12 +59,19 @@ SPAWN_SECONDS = 300
 LEARNING_RATE = 1e-2
 CLIP_NORM = 0.5  # below every case's gradient norm: the clip engages
 # The runs of each spawn: (name, step, model_parallel, case).
+# The data-parallel expected-risk step: case -> (estimator, nll_weight).
+RISK_CASES = {'fld1': ('mwer', 0.1), 'fld1_hat': ('reinforce', 0.1)}
+RISK_SAMPLES = 3
+RISK_SEED = 11
 SPAWNS = {
     2: [(f'tp2_{c}', 'tp', 2, c) for c in CASES] +
-       [(f'dp2_{c}', 'dp', 1, c) for c in CASES],
+       [(f'dp2_{c}', 'dp', 1, c) for c in CASES] +
+       [(f'risk2_{c}', 'risk', 1, c) for c in RISK_CASES],
     4: [(f'tp2x2_{c}', 'tp', 2, c) for c in CASES],
 }
-RUNS = [run[0] for runs in SPAWNS.values() for run in runs]
+ALL_RUNS = [run[0] for runs in SPAWNS.values() for run in runs]
+RUNS = [run for run in ALL_RUNS if not run.startswith('risk')]
+RISK_RUNS = [run for run in ALL_RUNS if run.startswith('risk')]
 
 
 def batch():
@@ -76,6 +89,55 @@ def _named(params):
 
 def _numpy(tensors):
   return {name: x.detach().numpy().copy() for name, x in tensors.items()}
+
+
+def _spy_on_sampler(lattice, seen):
+  """Records the alignment labels of every draw of the sampler (the
+  losses call ``_sample_paths``)."""
+  sample_paths = lattice._sample_paths
+
+  def spy(*args, **kwargs):
+    out = sample_paths(*args, **kwargs)
+    seen.append(out[0].detach().numpy().copy())
+    return out
+
+  lattice._sample_paths = spy
+
+
+def _risk_model(case, params):
+  """The ``case`` model, its state from numpy ``params`` (gradients
+  recorded) and an optimizer whose clip never engages, for the risk runs."""
+  max_expansions, locally_normalized = CASES[case]
+  model = gnat.GNATModel(gnat.GNATConfig(
+      **CONFIG, max_expansions=max_expansions,
+      locally_normalized=locally_normalized), device='cpu')
+  optimizer = gnat.make_optimizer(LEARNING_RATE, clip_norm=1e9)
+  params = convert.from_jax_params(params, device='cpu')
+  for leaf in pytree.tree_leaves(params):
+    leaf.requires_grad_(True)
+  return model, optimizer, gnat.GNATTrainState(params,
+                                               optimizer.init(params), 0)
+
+
+def _risk_run(mesh, case, params):
+  """One rank's data-parallel risk step: its samples, metrics and summed
+  gradients."""
+  model, optimizer, state = _risk_model(case, params)
+  estimator, nll_weight = RISK_CASES[case]
+  step = sharding.make_shard_map_risk_train_step(
+      model, optimizer, mesh, num_samples=RISK_SAMPLES, estimator=estimator,
+      nll_weight=nll_weight)
+  seen = []
+  _spy_on_sampler(model.lattice, seen)
+  metrics = step.loss_and_grads(state, *sharding.shard_batch(batch(), mesh),
+                                torch.Generator().manual_seed(RISK_SEED))
+  return {
+      'data': mesh.get_local_rank('data'),
+      'model': mesh.get_local_rank('model'),
+      'samples': seen[0],
+      'metrics': {k: float(v) for k, v in metrics.items()},
+      'grads': _numpy({n: x.grad for n, x in _named(state.params).items()}),
+  }
 
 
 def _rank_main(rank, world, workdir):
@@ -96,6 +158,10 @@ def _rank_main(rank, world, workdir):
           locally_normalized=locally_normalized), device='cpu')
       optimizer = gnat.make_optimizer(LEARNING_RATE, clip_norm=CLIP_NORM)
       params = pickle.loads((workdir / f'{case}.params.pkl').read_bytes())
+      if kind == 'risk':
+        (workdir / f'{name}.{rank}.pkl').write_bytes(pickle.dumps(
+            _risk_run(mesh, case, params)))
+        continue
       params = convert.from_jax_params(params, device='cpu')
       for leaf in pytree.tree_leaves(params):
         leaf.requires_grad_(True)
@@ -159,7 +225,7 @@ def reference(tmp_path_factory):
   results = {run: sorted((pickle.loads(p.read_bytes())
                           for p in workdir.glob(f'{run}.*.pkl')),
                          key=lambda r: (r['data'], r['model']))
-             for run in RUNS}
+             for run in ALL_RUNS}
   return refs, results
 
 
@@ -232,6 +298,38 @@ def test_train_step_matches_jax_single_device(reference, run):
   got = assemble(ranks, 'params', params)
   for name, w in updated.items():
     npt.assert_allclose(got[name], w, rtol=0, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize('run', RISK_RUNS)
+def test_risk_step_matches_the_single_device_step(reference, run):
+  """The data-parallel risk step on 2 ranks against the port's
+  single-device ``risk_train_step(..., per_example_keys=True)``: the same
+  samples exactly, the metrics to rtol 1e-5 and the gradients to 1e-5 of
+  the largest."""
+  refs, results = reference
+  case = case_of(run)
+  model, optimizer, state = _risk_model(case, refs[case][0])
+  estimator, nll_weight = RISK_CASES[case]
+  seen = []
+  _spy_on_sampler(model.lattice, seen)
+  _, want = gnat.risk_train_step(
+      model, optimizer, state, *batch(),
+      torch.Generator().manual_seed(RISK_SEED), num_samples=RISK_SAMPLES,
+      estimator=estimator, nll_weight=nll_weight, per_example_keys=True)
+  ranks = results[run]
+  assert len(ranks) == 2
+  npt.assert_array_equal(
+      np.concatenate([r['samples'] for r in ranks]), seen[0])
+  want_grads = _numpy({n: x.grad for n, x in _named(state.params).items()})
+  scale = max(float(np.abs(w).max()) for w in want_grads.values())
+  for r in ranks:
+    assert set(r['metrics']) == set(want) == {'loss', 'mean_risk', 'nll'}
+    for key, value in want.items():
+      npt.assert_allclose(r['metrics'][key], float(value), rtol=1e-5,
+                          err_msg=key)
+    for name, w in want_grads.items():
+      npt.assert_allclose(r['grads'][name], w, rtol=0, atol=1e-5 * scale,
+                          err_msg=name)
 
 
 def test_shard_params_slices_the_vocab_head(reference):

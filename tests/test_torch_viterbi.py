@@ -205,7 +205,7 @@ def test_configs_outside_the_gate_raise():
   """Outside the Viterbi kernel's gate the trigram decode and loss, a
   decode with two batch dims and one over a JointWeightFn subclass take the
   generic routes and agree with the JAX package (labels and counts equal,
-  path weights and losses to rtol 1e-5); ``align`` still raises."""
+  path weights and losses to rtol 1e-5), and so does ``align``."""
   num_frames = torch.from_numpy(NUM_FRAMES)
   # The trigram (V=2): the generic decode, the trigram kernels' plain loss.
   params, frames = make_inputs(seed=6, context_size=2, vocab=2)
@@ -235,10 +235,18 @@ def test_configs_outside_the_gate_raise():
   assert lattice.last_path == 'generic'
   assert_decodes_equal(got, jax_lattice('fd', 'interpret').shortest_path(
       params, frames[None], NUM_FRAMES[None]))
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    lattice.align(torch_params, torch.from_numpy(frames), num_frames,
-                  torch.ones((len(NUM_FRAMES), 2), dtype=torch.int32),
-                  torch.full((len(NUM_FRAMES),), 2))
+  # align is ported: it agrees with the JAX package's (the empty row
+  # cannot emit its 2 labels and scores -inf in both).
+  align_labels = np.ones((len(NUM_FRAMES), 2), dtype=np.int32)
+  align_num = np.full((len(NUM_FRAMES),), 2, dtype=np.int32)
+  emit, scores = lattice.align(torch_params, torch.from_numpy(frames),
+                               num_frames, torch.from_numpy(align_labels),
+                               torch.from_numpy(align_num))
+  emit_j, scores_j = jax_lattice('fd', 'interpret').align(
+      params, frames, NUM_FRAMES, align_labels, align_num)
+  npt.assert_array_equal(emit.numpy()[:2], np.asarray(emit_j)[:2])
+  npt.assert_allclose(scores.numpy(), np.asarray(scores_j), rtol=1e-5)
+  assert scores[2].item() == float('-inf')
 
   class MyJoint(weight_fns.JointWeightFn):
     pass
