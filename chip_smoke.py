@@ -182,6 +182,23 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    the scores equal the MaxTropical string DP's and a float64 rescoring of
    the returned alignment; the HAT run against the numerator's plain
    versions (scores to rtol 1e-5, differing rows must tie).
+14. The CTC topology (S = 1, the factorized route: no lattice kernel) and
+   path entropy. ``ctc_like(vocab_size=1024)`` at full width on phase 6's
+   utterances: step 1 on the factorized route against the generic frame
+   loop (phase 6's step rules), 3 AdamW train steps (CUDA events, each
+   profiled: device busy time, idle share; nothing launched), a decode on
+   both routes (float32, differing rows must tie in a float64 rescoring).
+   Bench config 11's lattice (``gnat_global_bigram(context_size=0)``): the
+   mean loss forward and backward at B=32 x 1600, U=100 (with and without
+   the encoder, peak memory), against the generic route at B=8, and
+   ``label_marginals`` at B=8 (posterior sums; against the generic route).
+   Path entropy (``shortest_distance`` under ``LogLogExpectation`` with
+   the entropy lift): ``hat_bigram(vocab_size=1024)`` at full width, B=8,
+   T <= 400, through the float32 joint+head forward kernel once a frame
+   (counted) and its plain version (``joint_head.using``); bench config
+   4's shape (B=16, T=400, V=64, h=128, no kernel); the model of (a),
+   factorized against generic. Every time beside the card's name and power
+   limit.
 
 Each phase prints one line or more with its seconds, and the run its total;
 any failure exits non-zero before the last line, which is ``{"ok": true,
@@ -196,6 +213,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -4102,6 +4120,495 @@ def phase_align(torch, gnat, presets, numerator_scan, semirings, modules):
   return results['launches']
 
 
+# Phase 14: the CTC topology (S = 1) and path entropy.
+# Bench config 11's batch (bench.py:357-365): 32 utterances of 1600 frames
+# and 100 labels.
+CTC_GN_BATCH, CTC_GN_FRAMES, CTC_GN_LABELS = 32, 1600, 100
+# Path entropy at hat_bigram(vocab_size=1024): phase 6's utterances cut to a
+# quarter of their length (depth cut, width not), 400 frames at most.
+ENTROPY_NUM_FRAMES = [n // 4 for n in NUM_FRAMES]
+# Bench config 4 (bench.py:296-307): B=16, T=400, V=64, h=emb=feature=128,
+# FrameDependent, locally normalized bigram, bfloat16 head inputs.
+CONFIG4 = dict(batch=16, frames=400, vocab=64, hidden=128)
+# The CTC decode's second run lowers the trained blank bias by this much.
+BLANK_SHIFT = 5.0
+# Entropy, kernel against plain (float32, T <= 400) and the factorized
+# route against the frame loop: log Z and log cost relative to
+# max(|value|, 1), as LP_RTOL's float32 gradients.
+ENTROPY_RTOL = 1e-4
+
+
+def entropy_lift(torch, semirings):
+  """The entropy lift of the JAX package (lattices.py:844, bench.py:302-305):
+  w -> weighted(w, log max(-w, 1e-30)) in LogLogExpectation."""
+  sr = semirings.LogLogExpectation
+  return sr, lambda w: sr.weighted(w, torch.log(torch.clamp(-w, min=1e-30)))
+
+
+def entropy_checks(torch, log_z, log_cost, num_frames, what, deficient):
+  """A locally normalized lattice's (log Z, log cost): log Z within
+  long_rtol of 0, or at most that above it where the lattice is
+  ``deficient`` (FrameLabelDependent: the last expansion state has no
+  lexical arc, so a frame's arcs sum to less than 1); the entropy exp(log
+  cost - log Z) finite and positive on rows with frames. Returns the
+  entropy."""
+  check(bool(torch.isfinite(log_z).all()), f'{what}: log Z not finite')
+  tol = long_rtol(log_cost)
+  largest = log_z.max().item() if deficient else log_z.abs().max().item()
+  check(largest <= tol, f'{what}: a locally normalized log Z reaches '
+        f'{largest} (> {tol:.3g})')
+  entropy = torch.exp(log_cost - log_z)
+  real = num_frames > 0
+  check(bool(torch.isfinite(entropy).all()) and
+        bool((entropy[real] > 0).all()), f'{what}: entropy {entropy}')
+  return entropy
+
+
+def launched_by(modules):
+  """{'module.counter': launches} of the counters that are not 0."""
+  return {f'{m.__name__.split(".")[-1]}.{n}': v
+          for m in modules for n, v in counts(m).items() if v}
+
+
+def value_rel(torch, got, want):
+  """max |got - want| / max(|want|, 1) over the leaves of two values."""
+  return max(relative(torch, a, b).max().item() for a, b in zip(got, want))
+
+
+def ctc_rescore(torch, lattice, lattice_params, cache, encoded, num_frames,
+                labels):
+  """Float64 weights of FrameDependent S = 1 alignments (slot format) under
+  the lattice's float32 weights: blank or the label's lexical weight at
+  each real frame."""
+  with torch.no_grad():
+    blank, lexical = lattice._s1_weights(lattice_params['weight_fn'], cache,
+                                         encoded, tuple(num_frames.shape))
+  labels = labels.long()
+  lex = torch.gather(lexical.double(), -1,
+                     (labels - 1).clamp(min=0)[..., None])[..., 0]
+  w = torch.where(labels > 0, lex, blank.double())
+  real = (torch.arange(labels.shape[1], device=labels.device)[None] <
+          num_frames[:, None])
+  return torch.where(real, w, 0.0).sum(-1)
+
+
+def route(lattice, factorized, fn):
+  """fn() with the lattice's S = 1 route on (the factorized one) or off
+  (the generic frame loop); returns (fn(), last_path)."""
+  lattice._factorize_s1 = factorized
+  try:
+    return fn(), lattice.last_path
+  finally:
+    lattice._factorize_s1 = True
+
+
+def ctc_training(torch, gnat, presets, pytree, modules, card):
+  """(a) CTC training and decode at full width; returns (model, params,
+  batch)."""
+  config = presets.ctc_like(vocab_size=1024)
+  model = gnat.GNATModel(config, device='cuda')
+  optimizer = gnat.make_optimizer(LEARNING_RATE)
+  state = gnat.init_train_state(model, torch.Generator().manual_seed(0),
+                                optimizer)
+  batch = tp_batch(torch, config)
+  frames, num_frames, labels, num_labels = batch
+  lattice, params = model.lattice, state.params
+  leaves = pytree.tree_leaves(params)
+  objective = lambda: model.mean_loss(params, *batch)
+
+  # Step 1 on both routes; the factorized one launches no kernel.
+  route(lattice, True, lambda: loss_and_grads(torch, leaves, objective))
+  reset_counts(*modules)
+  (got, _), s1_ms = timed(torch, lambda: route(
+      lattice, True, lambda: loss_and_grads(torch, leaves, objective)))
+  launched = launched_by(modules)
+  check(not launched, f'the factorized CTC step launched {launched}')
+  (want, _), generic_ms = timed(torch, lambda: route(
+      lattice, False, lambda: loss_and_grads(torch, leaves, objective)))
+  say('ctc', 'ctc_like(1024) step 1, factorized route vs the generic '
+      'frame loop: ' + compare_steps(torch, pytree, params, got, want,
+                                     'ctc_like, factorized vs generic') +
+      f'; loss+grad {s1_ms:.1f} ms vs {generic_ms:.1f} ms ({card})')
+
+  # 3 AdamW steps, each timed with CUDA events and profiled.
+  losses = []
+  for step in range(TRAIN_STEPS):
+    reset_counts(*modules)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def one():
+      start.record()
+      out = gnat.train_step(model, optimizer, state, *batch)
+      end.record()
+      return out
+
+    (state, loss), spans = device_spans(torch, one)
+    busy, idle, kernels = busy_idle(spans)
+    wall = start.elapsed_time(end)
+    launched = launched_by(modules)
+    check(np.isfinite(loss.item()) and not launched,
+          f'CTC step {step + 1}: loss {loss.item()}, launched {launched}')
+    losses.append(loss.item())
+    say('ctc', f'ctc_like(1024) train step {step + 1}: loss '
+        f'{loss.item():.6g}, wall {wall:.1f} ms (profiler on), device busy '
+        f'{busy:.1f} ms, idle {idle:.1%}, {kernels} kernels, peak '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({card})')
+  check(losses[-1] < losses[0], f'CTC losses do not fall: {losses}')
+
+  # The decode on both routes, float32; rows whose labels differ must tie.
+  # The model after 3 steps emits blank everywhere; a copy with its blank
+  # bias lowered by BLANK_SHIFT emits labels too.
+  report_decode(torch, lattice, 'ctc_like(1024) decode',
+                lambda: model.decode(state.params, frames, num_frames),
+                state.params, frames, num_frames, model, card, None)
+  shifted = {**state.params, 'lattice': pytree.tree_map(
+      lambda x: x.detach(), state.params['lattice'])}
+  shifted['lattice']['weight_fn']['blank_b'] = (
+      shifted['lattice']['weight_fn']['blank_b'] - BLANK_SHIFT)
+  report_decode(torch, lattice, f'ctc_like(1024) decode, blank bias -'
+                f'{BLANK_SHIFT}',
+                lambda: model.decode(shifted, frames, num_frames), shifted,
+                frames, num_frames, model, card, 1)
+  return model, state.params, batch
+
+
+def report_decode(torch, lattice, what, decode, params, frames, num_frames,
+                  model, card, least_labels):
+  """Times ``decode`` on both S = 1 routes and holds them together: path
+  weights to F32_RTOL, the factorized alignment rescored in float64 to its
+  weight, rows whose labels differ tied in the rescoring; at least
+  ``least_labels`` labels emitted (None: any number)."""
+  decode()  # warm-up
+  (out_s1, path), s1_ms = timed(torch, lambda: route(lattice, True, decode))
+  check(path == 's1', f'the CTC decode took {path!r}')
+  (out_g, _), generic_ms = timed(torch, lambda: route(lattice, False,
+                                                      decode))
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+    lattice_params = params['lattice']
+    cache = lattice.build_cache(lattice_params)
+  rescored = [ctc_rescore(torch, lattice, lattice_params, cache, encoded,
+                          num_frames, out[0]) for out in (out_s1, out_g)]
+  check(torch.equal(out_s1[1], out_g[1]), 'num_alignment_labels differ')
+  rel = relative(torch, out_s1[2], out_g[2])
+  check(rel.max().item() <= F32_RTOL,
+        f'CTC path weights differ by {rel.max().item():.3g} relative')
+  own = relative(torch, rescored[0], out_s1[2])
+  check(own.max().item() <= F32_RTOL,
+        f'the factorized decode rescores {own.max().item():.3g} from its '
+        'path weight')
+  tied = [b for b in range(len(NUM_FRAMES))
+          if not torch.equal(out_s1[0][b], out_g[0][b])]
+  tie_rel = relative(torch, rescored[0], rescored[1])
+  for b in tied:
+    check(tie_rel[b].item() <= F32_RTOL,
+          f'CTC decode row {b}: labels differ and the paths score apart')
+  emitted = (out_s1[0] > 0).sum().item()
+  check(least_labels is None or emitted >= least_labels,
+        f'{what}: {emitted} labels emitted')
+  differ = int(((out_s1[0] != out_g[0]) & (out_s1[0] + out_g[0] > 0)).sum())
+  say('ctc', f'{what} B={len(NUM_FRAMES)} T_max={max(NUM_FRAMES)}: '
+      f'factorized {s1_ms:.1f} ms, generic {generic_ms:.1f} ms ({card}); '
+      f'weights max rel {rel.max().item():.2e}, rescored max rel '
+      f'{own.max().item():.2e}, '
+      + ('labels equal' if not tied else
+         f'{differ} slots differ, on rows {tied}, whose two alignments '
+         f'rescore within {max(tie_rel[b].item() for b in tied):.2e} '
+         'relative') + f', {emitted} labels emitted')
+
+
+def ctc_global(torch, gnat, presets, pytree, modules, card):
+  """(b) Bench config 11's lattice through gnat_global_bigram(
+  context_size=0): the loss at B=32 x 1600, against the generic route at
+  B=8, label_marginals at B=8."""
+  config = presets.gnat_global_bigram(context_size=0)
+  model = gnat.GNATModel(config, device='cuda')
+  params = model.init(torch.Generator().manual_seed(0))
+  leaves = pytree.tree_leaves(params)
+  for leaf in leaves:
+    leaf.requires_grad_(True)
+  lattice = model.lattice
+  rng = np.random.default_rng(11)
+  big = (torch.from_numpy(rand(rng, (CTC_GN_BATCH, CTC_GN_FRAMES,
+                                     config.feature_size))).cuda(),
+         torch.full((CTC_GN_BATCH,), CTC_GN_FRAMES, device='cuda'),
+         torch.from_numpy(rng.integers(
+             1, config.vocab_size + 1,
+             size=(CTC_GN_BATCH, CTC_GN_LABELS))).cuda(),
+         torch.full((CTC_GN_BATCH,), CTC_GN_LABELS, device='cuda'))
+  model_loss = lambda: loss_and_grads(
+      torch, leaves, lambda: model.mean_loss(params, *big))
+  model_loss()  # warm-up
+  reset_counts(*modules)
+  torch.cuda.reset_peak_memory_stats()
+  (loss, _), model_ms = timed(torch, model_loss)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  launched = launched_by(modules)
+  check(lattice.last_path == 's1' and not launched and np.isfinite(loss),
+        f'config 11 loss: path {lattice.last_path!r}, launched {launched}, '
+        f'loss {loss}')
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], big[0], big[1])
+  lattice_leaves = pytree.tree_leaves(params['lattice'])
+  lattice_loss = lambda: loss_and_grads(
+      torch, lattice_leaves, lambda: lattice(params['lattice'], encoded,
+                                             *big[1:]).mean())
+  lattice_loss()  # warm-up
+  torch.cuda.reset_peak_memory_stats()
+  _, lattice_ms = timed(torch, lattice_loss)
+  lattice_peak = torch.cuda.max_memory_allocated() / 2**30
+  real = CTC_GN_BATCH * CTC_GN_FRAMES
+  say('ctc', f'gnat_global_bigram(context_size=0) (config 11) B='
+      f'{CTC_GN_BATCH} T={CTC_GN_FRAMES} U={CTC_GN_LABELS}: mean loss '
+      f'{loss:.6g}; model loss+grad {model_ms:.1f} ms '
+      f'({real / model_ms * 1e3:.0f} frames/s, peak {peak:.2f} GiB), '
+      f'lattice loss+grad alone {lattice_ms:.1f} ms '
+      f'({real / lattice_ms * 1e3:.0f} frames/s, peak {lattice_peak:.2f} '
+      f'GiB) ({card})')
+  del big, encoded
+
+  # B=8, the lattice loss on the encoder's output: the factorized route
+  # against the generic one in float32 and in float64. At T=1600 the
+  # float32 frame loop's backward algorithm drifts on the blank head, whose
+  # gradient is a structural zero here (every path takes each frame's one
+  # blank weight once): the gradients are judged against float64.
+  batch = tp_batch(torch, config)
+  frames, num_frames = batch[:2]
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+  lattice_params = params['lattice']
+  params64 = pytree.tree_map(lambda x: x.detach().double().requires_grad_(),
+                             lattice_params)
+  leaves64 = pytree.tree_leaves(params64)
+
+  def lattice_step(p, leaves_, x, factorized):
+    objective = lambda: lattice(p, x, *batch[1:]).mean()
+    run = lambda: route(lattice, factorized,
+                        lambda: loss_and_grads(torch, leaves_, objective))
+    if factorized:
+      run()  # warm-up (the generic routes' frame loops time their first call)
+    return timed(torch, run)
+
+  ((got, path), s1_ms) = lattice_step(lattice_params, lattice_leaves,
+                                      encoded, True)
+  check(path == 's1', f'the config 11 loss took {path!r}')
+  ((generic, path), generic_ms) = lattice_step(lattice_params,
+                                               lattice_leaves, encoded, False)
+  check(path == 'generic', f'the generic config 11 loss took {path!r}')
+  ((want, _), _) = lattice_step(params64, leaves64, encoded.double(), False)
+  loss_rel = abs(got[0] - generic[0]) / abs(generic[0])
+  check(loss_rel <= STEP_LOSS_RTOL,
+        f'config 11 loss, factorized {got[0]} vs generic {generic[0]}')
+  paths = [pytree.keystr(path) for path, _ in
+           pytree.tree_flatten_with_path(lattice_params)[0]]
+  _, rows = step_grad_errors(paths, got[1], [g.float() for g in want[1]])
+  judge_step_grads(rows, 'config 11, factorized vs float64')
+  _, generic_rows = step_grad_errors(paths, generic[1],
+                                     [g.float() for g in want[1]])
+  worst, worst_generic = max(rows), max(generic_rows)
+  say('ctc', f'gnat_global_bigram(context_size=0) lattice B='
+      f'{len(NUM_FRAMES)} T_max={max(NUM_FRAMES)}: loss factorized '
+      f'{got[0]:.7g}, generic {generic[0]:.7g} (rel {loss_rel:.2e}), '
+      f'float64 {want[0]:.7g}; gradients against float64: factorized '
+      f'within {worst[0]:.2e} of the largest ({worst[3]}), the generic '
+      f'float32 route {worst_generic[0]:.2e} ({worst_generic[3]}); '
+      f'loss+grad {s1_ms:.1f} ms vs {generic_ms:.1f} ms ({card})')
+
+  # label_marginals at B=8 on both routes; FLD(2): one blank per frame.
+  marginals = lambda: lattice.label_marginals(params['lattice'], encoded,
+                                              num_frames)
+  marginals()  # warm-up
+  ((bm, lp), path), s1_ms = timed(torch, lambda: route(lattice, True,
+                                                      marginals))
+  check(path == 's1', f'config 11 label_marginals took {path!r}')
+  ((bm_g, lp_g), _), generic_ms = timed(torch, lambda: route(
+      lattice, False, marginals))
+  # Float32 log-space rounding over the frames before and after each one,
+  # as phase 10 bounds its generic posteriors: at most exp(+-worst).
+  with torch.no_grad():
+    log_z = lattice.shortest_distance(lattice_params, encoded, num_frames)
+  worst = max(NUM_FRAMES) * 2.0**-24 * log_z.abs().max().item()
+  drift, ratio = posterior_checks(torch, bm, lp, num_frames,
+                                  config.max_expansions, worst,
+                                  long_rtol(log_z))
+  generic_drift = blank_drift(torch, bm_g, num_frames)
+  diff = max((bm - bm_g).abs().max().item(), (lp - lp_g).abs().max().item())
+  check(diff <= math.expm1(2 * worst),
+        f'config 11 posteriors: factorized vs generic {diff}')
+  say('ctc', f'gnat_global_bigram(context_size=0) label_marginals B='
+      f'{len(NUM_FRAMES)} T_max={max(NUM_FRAMES)}: factorized {s1_ms:.1f} ms, '
+      f'generic {generic_ms:.1f} ms ({card}); blank sums within '
+      f'exp(+-{drift:.2e}) of 1 (generic {generic_drift:.2e}, worst case '
+      f'{worst:.3g}), label sums at most {ratio:.4f} blank sums, factorized '
+      f'vs generic max abs diff {diff:.2e}')
+
+
+def ctc_entropy(torch, gnat, presets, lattices, contexts, alignments,
+                weight_fns, semirings, joint_head, modules, card, ctc):
+  """(c) Path entropy: hat_bigram(vocab_size=1024) at full width (the
+  joint+head forward kernel once a frame, counted, against its plain
+  version), bench config 4's shape, and the CTC model of (a) at S = 1
+  against its generic route. Returns the joint+head forward launches."""
+  sr, lift = entropy_lift(torch, semirings)
+
+  # hat_bigram(1024), float32: S=1025 >= 1024 states, the kernel's gate.
+  config = presets.hat_bigram(vocab_size=1024)
+  model = gnat.GNATModel(config, device='cuda')
+  params = model.init(torch.Generator().manual_seed(0))
+  rng = np.random.default_rng(14)
+  num_frames = torch.tensor(ENTROPY_NUM_FRAMES, device='cuda')
+  frames = torch.from_numpy(rand(rng, (len(ENTROPY_NUM_FRAMES),
+                                       max(ENTROPY_NUM_FRAMES),
+                                       config.feature_size))).cuda()
+  lattice = model.lattice
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+    cache = lattice.build_cache(params['lattice'])
+
+  def entropy():
+    with torch.no_grad():
+      return lattice.shortest_distance(params['lattice'], encoded,
+                                       num_frames, semiring=sr, cache=cache,
+                                       weight_lift=lift)
+
+  entropy()  # warm-up
+  reset_counts(*modules)
+  torch.cuda.reset_peak_memory_stats()
+  (log_z, log_cost), ms = timed(torch, entropy)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  launches = joint_head.forward_launches
+  launched = launched_by(modules)
+  _, spans = device_spans(torch, entropy)
+  busy, idle, kernels = busy_idle(spans)
+  check(launches == max(ENTROPY_NUM_FRAMES) and
+        set(launched) == {'joint_head.forward_launches'},
+        f'hat_bigram entropy launched {launched}, not '
+        f'{max(ENTROPY_NUM_FRAMES)} joint+head forwards')
+  check(lattice.last_path == 'generic',
+        f'hat_bigram entropy took {lattice.last_path!r}')
+  ent = entropy_checks(torch, log_z, log_cost, num_frames, 'hat_bigram',
+                       deficient=True)
+  with joint_head.using(joint_head.joint_head_forward_plain,
+                        joint_head.joint_head_backward_plain):
+    entropy()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (log_z_p, log_cost_p), plain_ms = timed(torch, entropy)
+    plain_peak = torch.cuda.max_memory_allocated() / 2**30
+  rel = value_rel(torch, (log_z, log_cost), (log_z_p, log_cost_p))
+  check(rel <= ENTROPY_RTOL,
+        f'hat_bigram entropy, kernel vs plain: {rel:.3g} relative')
+  real = sum(ENTROPY_NUM_FRAMES)
+  say('ctc', f'path entropy hat_bigram(1024) B={len(ENTROPY_NUM_FRAMES)} '
+      f'T_max={max(ENTROPY_NUM_FRAMES)}: joint+head kernel {ms:.1f} ms '
+      f'({real / ms * 1e3:.0f} frames/s, peak {peak:.2f} GiB, {launches} '
+      f'forward launches; profiled: device busy {busy:.1f} ms, idle '
+      f'{idle:.1%}, {kernels} kernels), plain {plain_ms:.1f} ms (peak '
+      f'{plain_peak:.2f} GiB) ({card}); entropy {ent.min().item():.4g}-'
+      f'{ent.max().item():.4g} nats, log Z {log_z.min().item():.4g} to '
+      f'{log_z.max().item():.4g} (FLD(2): deficient); kernel vs plain max '
+      f'rel {rel:.2e}')
+  del model, params, encoded, cache
+
+  # Bench config 4's shape: a locally normalized bigram, 65 states (the
+  # einsum route, no kernel).
+  c4 = CONFIG4
+  context = contexts.FullNGram(vocab_size=c4['vocab'], context_size=1)
+  lattice4 = lattices.RecognitionLattice(
+      context=context, alignment=alignments.FrameDependent(),
+      weight_fn_cacher_factory=lambda ctx: weight_fns.SharedEmbCacher(
+          num_context_states=ctx.shape()[0], embedding_size=c4['hidden']),
+      weight_fn_factory=lambda ctx: weight_fns.LocallyNormalizedWeightFn(
+          weight_fns.JointWeightFn(vocab_size=c4['vocab'],
+                                   hidden_size=c4['hidden'],
+                                   compute_dtype=torch.bfloat16)))
+  params4 = lattice4.init(torch.Generator().manual_seed(4), c4['hidden'],
+                          device='cuda')
+  frames4 = torch.from_numpy(rand(rng, (c4['batch'], c4['frames'],
+                                        c4['hidden']), 0.1)).cuda()
+  num_frames4 = torch.full((c4['batch'],), c4['frames'], device='cuda')
+
+  def entropy4():
+    with torch.no_grad():
+      return lattice4.shortest_distance(params4, frames4, num_frames4,
+                                        semiring=sr, weight_lift=lift)
+
+  entropy4()  # warm-up
+  reset_counts(*modules)
+  torch.cuda.reset_peak_memory_stats()
+  (log_z4, log_cost4), ms4 = timed(torch, entropy4)
+  peak4 = torch.cuda.max_memory_allocated() / 2**30
+  launched = launched_by(modules)
+  _, spans = device_spans(torch, entropy4)
+  busy4, idle4, kernels4 = busy_idle(spans)
+  check(not launched and lattice4.last_path == 'generic',
+        f'config 4 entropy: {lattice4.last_path!r}, launched {launched}')
+  ent4 = entropy_checks(torch, log_z4, log_cost4, num_frames4, 'config 4',
+                        deficient=False)
+  say('ctc', f'path entropy at config 4 (B={c4["batch"]} T={c4["frames"]} '
+      f'V={c4["vocab"]} h={c4["hidden"]}, FD bigram, bf16 heads): '
+      f'{ms4:.1f} ms ({c4["batch"] * c4["frames"] / ms4 * 1e3:.0f} '
+      f'frames/s, peak {peak4:.2f} GiB; profiled: device busy {busy4:.1f} '
+      f'ms, idle {idle4:.1%}, {kernels4} kernels) ({card}); entropy '
+      f'{ent4.min().item():.4g}-{ent4.max().item():.4g} nats')
+
+  # The CTC model of (a) at S = 1, factorized against the frame loop.
+  model, params, (frames, num_frames, _, _) = ctc
+  lattice = model.lattice
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+  entropy1 = lambda: lattice.shortest_distance(
+      params['lattice'], encoded, num_frames, semiring=sr, weight_lift=lift)
+  with torch.no_grad():
+    route(lattice, True, entropy1)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    ((log_z1, log_cost1), path), s1_ms = timed(
+        torch, lambda: route(lattice, True, entropy1))
+    s1_peak = torch.cuda.max_memory_allocated() / 2**30
+    check(path == 's1', f'the CTC entropy took {path!r}')
+    ((log_z0, log_cost0), path), generic_ms = timed(
+        torch, lambda: route(lattice, False, entropy1))
+  ent1 = entropy_checks(torch, log_z1, log_cost1, num_frames, 'ctc_like',
+                        deficient=False)
+  rel = value_rel(torch, (log_z1, log_cost1), (log_z0, log_cost0))
+  check(rel <= ENTROPY_RTOL,
+        f'CTC entropy, factorized vs generic: {rel:.3g} relative')
+  say('ctc', f'path entropy ctc_like(1024) B={len(NUM_FRAMES)} '
+      f'T_max={max(NUM_FRAMES)}: factorized {s1_ms:.1f} ms (peak '
+      f'{s1_peak:.2f} GiB), generic {generic_ms:.1f} ms ({card}); entropy '
+      f'{ent1.min().item():.4g}-{ent1.max().item():.4g} nats; factorized '
+      f'vs generic max rel {rel:.2e}')
+  return launches
+
+
+def phase_ctc(torch, gnat, presets, lattices, contexts, alignments,
+              weight_fns, semirings, joint_head, pytree, modules):
+  """Phase 14: the CTC topology (a single context state, S = 1) and path
+  entropy. (a) ``ctc_like(vocab_size=1024)`` at full width on phase 6's
+  utterances: step 1's loss and gradients on the factorized route against
+  the generic frame loop, 3 AdamW train steps (CUDA events, profiled:
+  device busy time, idle share; no kernel launched), a decode on both
+  routes (float32; rows whose labels differ must tie in a float64
+  rescoring). (b) Bench config 11's lattice, gnat_global_bigram(
+  context_size=0): the mean loss and its gradients at B=32 x 1600, U=100,
+  timed with and without the encoder; at B=8 against the generic route;
+  label_marginals at B=8 (posterior sums; against the generic route).
+  (c) Path entropy (LogLogExpectation, the entropy lift): hat_bigram(1024)
+  at full width, B=8, T <= 400, through the joint+head forward kernel
+  once a frame (counted) and through its plain version; bench config 4's
+  shape (no kernel); the model of (a), factorized against generic. Every
+  time is printed beside the card's name and power limit. Returns the
+  joint+head forward launches of the entropy path."""
+  card = card_line()
+  ctc = ctc_training(torch, gnat, presets, pytree, modules, card)
+  torch.cuda.empty_cache()
+  ctc_global(torch, gnat, presets, pytree, modules, card)
+  torch.cuda.empty_cache()
+  return ctc_entropy(torch, gnat, presets, lattices, contexts, alignments,
+                     weight_fns, semirings, joint_head, modules, card, ctc)
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -4446,6 +4953,19 @@ def main():
       'hat_bigram train steps': numerator_forward['launches'],
       'hat_bigram align': align_launches}
   numerator_forward['launches'] += align_launches
+
+  # Phase 14: the CTC topology (S = 1) and path entropy.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  entropy_launches = phase_ctc(torch, gnat, presets, lattices, contexts,
+                               alignments, weight_fns, semirings, joint_head,
+                               pytree, modules + (joint_head, sharded_scan))
+  print(f'[ctc] {time.perf_counter() - t0:.1f} s', flush=True)
+  entropy_path = (f'hat_bigram(vocab_size=1024) path entropy '
+                  f'(B={len(ENTROPY_NUM_FRAMES)}, '
+                  f'T={max(ENTROPY_NUM_FRAMES)})')
+  jh_records['forward']['launches'] += entropy_launches
+  jh_records['forward']['launches_by_path'][entropy_path] = entropy_launches
   print(f'[total] {time.perf_counter() - start:.1f} s', flush=True)
 
   print(json.dumps({'kernels': [viterbi_record, records['forward'],

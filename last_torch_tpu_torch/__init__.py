@@ -30,7 +30,11 @@ vocab-sharded loss reduces each frame over a rank's shard of the head in
 ``csrc/sharded_scan.cu``; forced alignment, exact posterior path samples
 and expected-risk (MWER) fine-tuning (``risk``, ``models.metrics``,
 ``models.gnat.risk_train_step``), whose sampler's beta pass runs the
-joint+head kernels. See ROADMAP.md for what follows.
+joint+head kernels; the CTC topology (a single context state,
+``models.presets.ctc_like``), on the factorized S = 1 route of
+``lattices``, and the tuple semirings (``semirings.LogLogExpectation``,
+``Cartesian``) with ``shortest_distance``'s ``weight_lift``, e.g. path
+entropy. See ROADMAP.md for what follows.
 """
 
 from last_torch_tpu_torch import alignments

@@ -16,9 +16,10 @@
 
 Counterpart of ``last_torch_tpu/alignments.py``: the frame-local structure
 of ``FrameDependent`` and ``FrameLabelDependent`` and their per-frame DP
-steps, ``forward`` and ``string_forward`` in any semiring and ``backward``
-(arc marginals) in the Log semiring. ``blank`` and ``lexical`` are sequences
-with one weight tensor per alignment state, as in the JAX package.
+steps, ``forward`` and ``string_forward`` in any semiring (their values
+may be tuples, as the Expectation semiring's are) and ``backward`` (arc
+marginals) in the Log semiring, on tensors. ``blank`` and ``lexical`` are
+sequences with one weight value per alignment state, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ from collections.abc import Sequence
 from typing import Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
 from last_torch_tpu_torch import semirings
 
@@ -37,8 +39,15 @@ def shift_down(x, semiring: semirings.Semiring):
   Returns [batch_dims..., N] with output[..., i + 1] = x[..., i] and
   output[..., 0] = semiring zero.
   """
-  zero = semirings.zeros_like(semiring, x, x.shape[:-1] + (1,))
-  return torch.cat([zero, x[..., :-1]], dim=-1)
+  zero = semirings.zeros_like(semiring, x,
+                              semirings.value_shape(x)[:-1] + (1,))
+  return pytree.tree_map(lambda z, leaf: torch.cat([z, leaf[..., :-1]],
+                                                   dim=-1), zero, x)
+
+
+def _expand(x):
+  """``x[..., None]`` on every leaf of a semiring value."""
+  return pytree.tree_map(lambda leaf: leaf[..., None], x)
 
 
 def check_num_weights(alignment, blank: Sequence, lexical: Sequence):
@@ -85,7 +94,7 @@ class FrameDependent:
     return semiring.plus(
         semiring.times(alpha, blank[0]),
         context.forward_reduce(
-            semiring.times(alpha[..., None], lexical[0]), semiring))
+            semiring.times(_expand(alpha), lexical[0]), semiring))
 
   def backward(self, alpha, blank, lexical, beta, log_z, context):
     """One frame of the backward algorithm (Log semiring).
@@ -149,7 +158,7 @@ class FrameLabelDependent:
     last = alpha
     for i in range(self.max_expansions):
       last = context.forward_reduce(
-          semiring.times(last[..., None], lexical[i]), semiring)
+          semiring.times(_expand(last), lexical[i]), semiring)
       terminated.append(semiring.times(last, blank[i + 1]))
     return semiring.sum(semirings.stack(terminated), axis=0)
 

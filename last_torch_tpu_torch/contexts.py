@@ -21,7 +21,9 @@ and backward algorithms (``forward_reduce``, ``backward_broadcast``); and
 ``NextStateTable``, any deterministic label-history automaton given as a
 dense transition table, with a semiring-correct sorted segment reduction.
 A ``NextStateTable`` lattice runs on the lattice's generic routes (the
-bigram and trigram kernels take ``FullNGram`` alone).
+bigram and trigram kernels take ``FullNGram`` alone). ``forward_reduce`` and
+``backward_broadcast`` take any semiring value, tuples (the Expectation
+semiring's) too, leaf by leaf.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import dataclasses
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from last_torch_tpu_torch import semirings
 
@@ -224,14 +227,16 @@ class FullNGram(ContextDependency):
     num_into_ascending = sum(v**i for i in range(n - 1)) if n >= 1 else 0
     # Arcs from states shorter than context_size - 1 each lead to a unique
     # ascending destination, in lexicographic order.
-    parts.append(weights[..., :num_into_ascending, :].reshape(
-        batch_dims + (-1,)))
+    parts.append(pytree.tree_map(
+        lambda w: w[..., :num_into_ascending, :].reshape(batch_dims + (-1,)),
+        weights))
     # The remaining arcs lead into the block of full-order states; each
     # group of v**n consecutive (p, y) arcs covers those destinations.
-    full = weights[..., num_into_ascending:, :].reshape(
-        batch_dims + (-1, v**n))
+    full = pytree.tree_map(
+        lambda w: w[..., num_into_ascending:, :].reshape(
+            batch_dims + (-1, v**n)), weights)
     parts.append(semiring.sum(full, axis=-2))
-    return torch.cat(parts, dim=-1)
+    return pytree.tree_map(lambda *xs: torch.cat(xs, dim=-1), *parts)
 
   def backward_broadcast(self, weights):
     """The broadcast of the backward algorithm.
@@ -246,18 +251,22 @@ class FullNGram(ContextDependency):
     """
     batch_dims = _check_broadcast_shape(self.num_states(), weights)
     n, v = self.context_size, self.vocab_size
-    if n == 0:
-      return weights[..., None].expand(weights.shape + (v,))
-    if n == 1:
-      # Label y leads to state y from every state: a broadcast row.
-      return weights[..., None, 1:].expand(batch_dims + (1 + v, v))
     num_ascending = sum(v**i for i in range(n))
-    # Non-start ascending states have a unique incoming arc.
-    part_a = weights[..., 1:num_ascending].reshape(batch_dims + (-1, v))
-    # States feeding the full-order block all see the same v**n weights.
-    part_b = weights[..., None, num_ascending:].expand(
-        batch_dims + (1 + v, v**n)).reshape(batch_dims + (-1, v))
-    return torch.cat([part_a, part_b], dim=-2)
+
+    def broadcast_leaf(w):
+      if n == 0:
+        return w[..., None].expand(w.shape + (v,))
+      if n == 1:
+        # Label y leads to state y from every state: a broadcast row.
+        return w[..., None, 1:].expand(batch_dims + (1 + v, v))
+      # Non-start ascending states have a unique incoming arc.
+      part_a = w[..., 1:num_ascending].reshape(batch_dims + (-1, v))
+      # States feeding the full-order block all see the same v**n weights.
+      part_b = w[..., None, num_ascending:].expand(
+          batch_dims + (1 + v, v**n)).reshape(batch_dims + (-1, v))
+      return torch.cat([part_a, part_b], dim=-2)
+
+    return pytree.tree_map(broadcast_leaf, weights)
 
 
 def _as_table(table) -> torch.Tensor:
@@ -370,18 +379,26 @@ class NextStateTable(ContextDependency):
     batch_dims = _check_reduce_shape(self.shape(), weights)
     num_states, vocab_size = self.shape()
     num_arcs = num_states * vocab_size
-    flat = weights.reshape(batch_dims + (num_arcs,))
-    zero = semiring.zeros((), weights.dtype, weights.device)
+    device = pytree.tree_leaves(weights)[0].device
+    flat = pytree.tree_map(lambda w: w.reshape(batch_dims + (num_arcs,)),
+                           weights)
+    zero = semiring.zeros((), semirings.value_dtype(weights), device)
     if num_arcs * num_states <= 1 << 16:
-      onehot = self._table_on(weights.device).reshape(num_arcs, 1) == (
-          torch.arange(num_states, device=weights.device))
-      masked = torch.where(onehot, flat[..., None], zero)
+      onehot = self._table_on(device).reshape(num_arcs, 1) == (
+          torch.arange(num_states, device=device))
+      masked = pytree.tree_map(
+          lambda w, z: torch.where(onehot, w[..., None], z), flat, zero)
       return semiring.sum(masked, axis=-2)
-    padded = torch.cat([flat, zero.expand(batch_dims + (1,))], dim=-1)
-    return semiring.sum(padded[..., self._plan_on(weights.device)], axis=-1)
+    padded = pytree.tree_map(
+        lambda w, z: torch.cat([w, z.expand(batch_dims + (1,))], dim=-1),
+        flat, zero)
+    plan = self._plan_on(device)
+    return semiring.sum(pytree.tree_map(lambda w: w[..., plan], padded),
+                        axis=-1)
 
   def backward_broadcast(self, weights):
     """The broadcast of the backward algorithm: each arc p --y--> q reads
     ``weights[..., q]``."""
     _check_broadcast_shape(self.shape()[0], weights)
-    return weights[..., self._table_on(weights.device)]
+    return pytree.tree_map(lambda w: w[..., self._table_on(w.device)],
+                           weights)

@@ -41,10 +41,17 @@ context (any label-history DFA) never enters the bigram or trigram gates,
 which need a ``FullNGram``: its loss, decode and posteriors run the generic
 routes, whose per-frame ``JointWeightFn.apply`` runs the joint+head kernels
 of ``ops/joint_head.py`` at 1024 context states or more. ``fused='never'``
-sends every operation to the generic route. The configurations the JAX
-package sends to routes that are not ported yet (the single-context-state
-route) and the remaining operations raise ``NotImplementedError`` naming
-the ROADMAP item that ports them; none of them falls back to another route.
+sends every operation to the generic route.
+
+A single-context-state lattice (S = 1: ``FullNGram(context_size=0)``, the
+CTC topology) takes the factorized route of the JAX package
+(``_forward_s1``): one weight-function application over every frame, the
+per-frame factors of the alignment's algebra, and a log-depth cumulative
+product over time (``semirings.cumulative_times``) in place of the frame
+loop; the string weights are column gathers of the same application, and a
+globally normalized loss shares it between numerator and denominator
+(``_loss_s1``). ``shortest_distance`` takes any semiring with a
+``weight_lift`` (the Expectation semiring's path entropy).
 """
 
 from __future__ import annotations
@@ -65,21 +72,14 @@ from last_torch_tpu_torch.ops import trigram_scan
 from last_torch_tpu_torch.ops import viterbi
 
 Params = dict[str, Any]
-
-# ROADMAP.md items named by the routes that are not ported yet.
-_REST = 'queue 1, item 7 ("lattices.py, the rest")'
-_WEIGHT_FNS = 'queue 1, item 6 ("weight_fns.py, the rest")'
-
+# Lifts plain arc weight tensors into semiring values (tuple-valued ones, e.g.
+# the Expectation semiring's, for path entropy). None means the identity.
+WeightLift = Optional[Callable[[torch.Tensor], Any]]
 
 # The sampler draws its Gumbel noise for this many frames at a time, and its
 # scoring evaluates at most about this many arc weights at once.
 _NOISE_FRAMES = 64
 _SCORE_ENTRIES = 1 << 24
-
-
-def _not_ported(operation: str, roadmap_item: str):
-  raise NotImplementedError(
-      f'{operation} is not ported to PyTorch yet: ROADMAP.md {roadmap_item}')
 
 
 class RecognitionLattice:
@@ -121,6 +121,9 @@ class RecognitionLattice:
     # to A/B the kernels against it on one lattice.
     self.fused = fused
     self._last_path = None
+    # Single-context-state (S == 1) lattices take the factorized route
+    # (``_forward_s1``); tests turn it off to hold it to the generic loop.
+    self._factorize_s1 = True
 
   @property
   def last_path(self) -> Optional[str]:
@@ -132,8 +135,9 @@ class RecognitionLattice:
     versions (CPU tensors inside the gate), 'generic' for the per-frame loop
     outside the gates or under ``fused='never'`` (whose weight function may
     still launch the joint+head kernels, counted in
-    ``ops.joint_head.forward_launches`` / ``backward_launches``), None
-    before any call.
+    ``ops.joint_head.forward_launches`` / ``backward_launches``), 's1' for
+    the factorized single-context-state route (also a globally normalized
+    S = 1 loss), None before any call.
     """
     return self._last_path
 
@@ -199,9 +203,16 @@ class RecognitionLattice:
         frames, num_frames, labels, num_labels)
     if cache is None:
       cache = self.build_cache(params)
+    locally_normalized = isinstance(self.weight_fn,
+                                    weight_fns.LocallyNormalizedWeightFn)
+    if not locally_normalized and self._s1_route(frames):
+      # Numerator and denominator share one weight application (the lattice
+      # kernels need context_size >= 1 and never take S = 1).
+      return self._loss_s1(params, cache, frames, num_frames, labels,
+                           num_labels)
     numerator = self._string_forward(params, cache, frames, num_frames,
                                      labels, num_labels, semirings.Log)
-    if isinstance(self.weight_fn, weight_fns.LocallyNormalizedWeightFn):
+    if locally_normalized:
       return -numerator
     denominator = self._forward_backward(params, cache, frames, num_frames)
     return denominator - numerator
@@ -269,33 +280,42 @@ class RecognitionLattice:
 
   def shortest_distance(self, params: Params, frames: torch.Tensor,
                         num_frames, semiring=None, cache=None,
-                        weight_lift=None) -> torch.Tensor:
+                        weight_lift: WeightLift = None):
     """Shortest distance over all paths (the forward algorithm).
 
-    Under the Log semiring (the default) this is log Z through the
-    differentiable forward-backward route, the kernels inside their gate;
-    under MaxTropical the best path weight through the generic loop.
+    Under the Log semiring with no lift (the default) this is log Z through
+    the differentiable forward-backward route, the kernels inside their
+    gate; any other semiring or a ``weight_lift`` takes the forward loop
+    (the factorized route at S = 1). With the Expectation semiring and a
+    lift, one pass gives e.g. the entropy of the path distribution of a
+    locally normalized lattice::
+
+      sr = semirings.LogLogExpectation
+      lift = lambda w: sr.weighted(w, torch.log(torch.clamp(-w, min=1e-30)))
+      log_z, log_cost = lattice.shortest_distance(
+          params, frames, num_frames, semiring=sr, weight_lift=lift)
+      entropy = torch.exp(log_cost - log_z)
 
     Args:
       params: Parameters from ``init``.
       frames: [batch_dims..., max_num_frames, feature_size] padded frames.
       num_frames: [batch_dims...] number of frames.
-      semiring: ``semirings.Log`` (default) or ``semirings.MaxTropical``.
+      semiring: Semiring (default ``semirings.Log``).
       cache: Optional weight function cache.
-      weight_lift: Not ported yet (it needs the tuple-valued semirings).
+      weight_lift: Optional lifting of plain arc weight tensors into
+        semiring values (required for the tuple-valued semirings).
 
     Returns:
-      [batch_dims...] shortest distance.
+      [batch_dims...] shortest distance (a semiring value).
     """
-    if weight_lift is not None:
-      _not_ported('shortest_distance with weight_lift', _REST)
     semiring = semiring if semiring is not None else semirings.Log
     if cache is None:
       cache = self.build_cache(params)
     num_frames = torch.as_tensor(num_frames, device=frames.device)
-    if semiring is semirings.Log:
+    if semiring is semirings.Log and weight_lift is None:
       return self._forward_backward(params, cache, frames, num_frames)
-    distance, _ = self._forward(params, cache, frames, num_frames, semiring)
+    distance, _ = self._forward(params, cache, frames, num_frames, semiring,
+                                weight_lift=weight_lift)
     return distance
 
   def arc_marginals(self, params: Params, frames: torch.Tensor, num_frames,
@@ -345,8 +365,9 @@ class RecognitionLattice:
     marginals kernels with bfloat16 joint and head inputs, as the TPU
     kernels; on CPU tensors their plain versions in float32, as the JAX
     package computes off the TPU. Outside the gate (a locally normalized
-    weight function or the trigram among others), the generic route, as in
-    the JAX package.
+    weight function, the trigram or S = 1 among others), the generic
+    backward algorithm, as in the JAX package: at S = 1 over the alpha
+    history of the factorized forward.
 
     Args:
       params: Parameters from ``init``.
@@ -380,9 +401,6 @@ class RecognitionLattice:
                           self.alignment.max_expansions),
           frame_dependent=frame_dependent,
           compute_dtype=fused_scan.compute_dtype_for(frames.device))
-    if self._s1_route(frames):
-      _not_ported('label_marginals of the single-context-state (S = 1) '
-                  'lattice', _REST)
     return self._generic_marginals(
         params, frames, num_frames, cache,
         lambda lexical: lexical.sum(dim=-2))
@@ -715,11 +733,11 @@ class RecognitionLattice:
     return num_frames, num_labels, labels
 
   def _string_forward(self, params, cache, frames, num_frames, labels,
-                      num_labels, semiring):
+                      num_labels, semiring, weight_lift: WeightLift = None):
     """Shortest distance on the intersection with an output string.
 
-    The numerator: per-(frame, label-position) weights from the weight
-    function's ``label_weights`` fast path, then the string DP.
+    The numerator: per-(frame, label-position) weights (``_string_weights``)
+    then the string DP.
 
     Returns:
       [batch_dims...] shortest distance.
@@ -729,7 +747,7 @@ class RecognitionLattice:
     blank_weight, lexical_weight = self._string_weights(
         params, cache, frames, labels)
     return self._string_dp(blank_weight, lexical_weight, num_frames,
-                           num_labels, semiring)
+                           num_labels, semiring, weight_lift)
 
   def _string_weights(self, params, cache, frames, labels):
     """Per-(frame, label-position) blank and next-label weights.
@@ -738,49 +756,94 @@ class RecognitionLattice:
     [T, batch_dims..., U+1]: position u's weights come from the context
     state after ``labels[..., :u]``; ``lexical_weight`` holds the weight of
     the next needed label (position U uses a dummy label, never final).
+
+    At S = 1 every position shares the one context state, so one weight
+    application over all frames gives every weight (column gathers of it).
+    Otherwise the weight function's ``label_weights`` fast path, or, where
+    it has none (None), one checkpointed step per label position that
+    applies the weight function over all frames at that position's state
+    and gathers the next label's column.
     """
-    if self.context.shape()[0] == 1:
-      _not_ported('the single-context-state (S = 1) string weights', _REST)
-    context_states = self.context.walk_states(labels)
+    wf_params = params['weight_fn']
     next_labels = torch.cat([labels, torch.ones_like(labels[..., :1])],
                             dim=-1)
-    weights = self.weight_fn.label_weights(
-        params['weight_fn'], cache, frames, context_states, next_labels)
+    if self._factorize_s1 and self.context.shape()[0] == 1:
+      blank, lexical = self._s1_weights(wf_params, cache, frames,
+                                        tuple(labels.shape[:-1]))
+      return self._s1_string_weights_from(blank, lexical, next_labels)
+    context_states = self.context.walk_states(labels)
+    weights = self.weight_fn.label_weights(wf_params, cache, frames,
+                                           context_states, next_labels)
     if weights is None:
-      # The JAX package's generic per-position route.
-      _not_ported('string weights without a label_weights fast path',
-                  _WEIGHT_FNS)
+      weights = self._position_weights(wf_params, cache, frames,
+                                       context_states, next_labels)
     blank, lexical = weights
     # [batch_dims..., U+1, T] -> [T, batch_dims..., U+1].
     return blank.movedim(-1, 0), lexical.movedim(-1, 0)
 
+  def _position_weights(self, wf_params, cache, frames, context_states,
+                        next_labels):
+    """The generic per-position string weights: ``label_weights``'s
+    contract for any weight function, one ``apply`` over all frames per
+    label position (checkpointed when autograd records, as the JAX package
+    rematerializes it).
+
+    Returns:
+      (blank, lexical), each [batch_dims..., U+1, max_num_frames].
+    """
+    max_t = frames.shape[-2]
+
+    def position(state, next_label):
+      state = state.long()[..., None].expand(state.shape + (max_t,))
+      blank, lexical = self.weight_fn.apply(wf_params, cache, frames, state)
+      # Label 0 (padding) is clamped to 1: never selected as final.
+      y = (next_label.long().clamp(min=1) - 1)[..., None, None]
+      lexical_y = torch.gather(lexical, -1, y.expand(state.shape + (1,)))
+      return blank, lexical_y[..., 0]
+
+    if torch.is_grad_enabled():
+      step = lambda *a: torch.utils.checkpoint.checkpoint(
+          position, *a, use_reentrant=False)
+    else:
+      step = position
+    outputs = [step(context_states[..., u], next_labels[..., u])
+               for u in range(next_labels.shape[-1])]
+    return (torch.stack([b for b, _ in outputs], dim=-2),
+            torch.stack([l for _, l in outputs], dim=-2))
+
   def _string_dp(self, blank_weight, lexical_weight, num_frames, num_labels,
-                 semiring):
+                 semiring, weight_lift: WeightLift = None):
     """The (frame x label-position) recursion over precomputed weights.
 
     The scan route of the JAX package (its closed-form cumulative route,
-    ``STRING_DP_CUMULATIVE``, is off there and is not ported).
+    ``STRING_DP_CUMULATIVE``, is off there and is not ported), one step a
+    frame; ``weight_lift`` lifts each frame's weights into the semiring.
     """
     batch_dims = tuple(num_frames.shape)
     num_align_states = self.alignment.num_states()
     num_positions = blank_weight.shape[-1]
+    lift = weight_lift if weight_lift is not None else _identity
     alpha = _init_context_state_weights(
-        batch_dims, num_positions, 0, semiring, blank_weight.dtype,
-        blank_weight.device)
+        batch_dims, num_positions, 0, semiring,
+        _lifted_dtype(lift, blank_weight), blank_weight.device)
     for t in range(blank_weight.shape[0]):
       next_alpha = self.alignment.string_forward(
-          alpha=alpha, blank=[blank_weight[t]] * num_align_states,
-          lexical=[lexical_weight[t]] * num_align_states, semiring=semiring)
+          alpha=alpha, blank=[lift(blank_weight[t])] * num_align_states,
+          lexical=[lift(lexical_weight[t])] * num_align_states,
+          semiring=semiring)
       alpha = semirings.where((t >= num_frames)[..., None], alpha,
                               next_alpha)
     is_final = num_labels[..., None] == torch.arange(
-        num_positions, device=alpha.device)
+        num_positions, device=blank_weight.device)
     zero = semirings.zeros_like(semiring, alpha, ())
     return semiring.sum(semirings.where(is_final, alpha, zero), axis=-1)
 
   def _s1_route(self, frames) -> bool:
-    """Whether the JAX package takes its single-context-state route."""
-    return (self.context.shape()[0] == 1 and frames.shape[-2] > 0 and
+    """Whether the factorized single-context-state route applies: S == 1,
+    at least one frame, and an alignment whose per-frame factor
+    ``_forward_s1_from_weights`` spells out."""
+    return (self._factorize_s1 and self.context.shape()[0] == 1 and
+            frames.shape[-2] > 0 and
             isinstance(self.alignment, (alignments.FrameDependent,
                                         alignments.FrameLabelDependent)))
 
@@ -825,13 +888,15 @@ class RecognitionLattice:
 
   def _forward(self, params, cache, frames, num_frames, semiring,
                blank_mask: Optional[Sequence[torch.Tensor]] = None,
-               lexical_mask: Optional[Sequence[torch.Tensor]] = None):
-    """Shortest distance by the generic forward algorithm.
+               lexical_mask: Optional[Sequence[torch.Tensor]] = None,
+               weight_lift: WeightLift = None):
+    """Shortest distance by the forward algorithm, in any semiring.
 
     A per-frame loop over ``weight_fn.apply`` and ``alignment.forward``.
     When autograd records, each frame runs under ``torch.utils.checkpoint``
     so that only the O(B * S) alpha carries are saved, never the
-    O(B * S * V) arc weights (the JAX package's remat policy).
+    O(B * S * V) arc weights (the JAX package's remat policy). At S = 1 the
+    factorized route (``_forward_s1``) instead.
 
     Args:
       params, cache, frames, num_frames: As ``shortest_distance``.
@@ -842,10 +907,13 @@ class RecognitionLattice:
       lexical_mask: Optional length num_alignment_states sequence of
         [batch_dims..., max_num_frames, 1-or-num_context_states,
         1-or-vocab_size] tensors added to the lexical weights.
+      weight_lift: Optional lifting of the (masked) weights into semiring
+        values, for tuple-valued semirings.
 
     Returns:
       (shortest_distance [batch_dims...], alpha history [batch_dims...,
-      max_num_frames, num_context_states]: alpha before each frame).
+      max_num_frames, num_context_states]: alpha before each frame), both
+      semiring values.
     """
     num_frames = torch.as_tensor(num_frames, device=frames.device)
     batch_dims = tuple(num_frames.shape)
@@ -859,25 +927,24 @@ class RecognitionLattice:
         raise ValueError(
             f'The length of {name} should be equal to {num_align_states} '
             f'(the number of alignment states), but is {len(mask)}')
-    if self._s1_route(frames):
-      _not_ported('the single-context-state (S = 1) shortest distance',
-                  _REST)
-    self._last_path = 'generic'
     wf_params = params['weight_fn']
+    lift = weight_lift if weight_lift is not None else _identity
+    if self._s1_route(frames):
+      self._last_path = 's1'
+      return self._forward_s1(wf_params, cache, frames, num_frames, semiring,
+                              blank_mask, lexical_mask, lift)
+    self._last_path = 'generic'
 
     def step(alpha, t):
       blank, lexical = self.weight_fn.apply(wf_params, cache,
                                             frames[..., t, :])
-      blank = [blank] * num_align_states
-      lexical = [lexical] * num_align_states
-      if blank_mask is not None:
-        blank = [b + m[..., t, :] for b, m in zip(blank, blank_mask)]
-      if lexical_mask is not None:
-        lexical = [l + m[..., t, :, :] for l, m in zip(lexical,
-                                                        lexical_mask)]
       next_alpha = self.alignment.forward(
-          alpha=alpha, blank=blank, lexical=lexical, context=self.context,
-          semiring=semiring)
+          alpha=alpha,
+          blank=_lift_masked(lift, blank, blank_mask, num_align_states,
+                             lambda m: m[..., t, :]),
+          lexical=_lift_masked(lift, lexical, lexical_mask,
+                               num_align_states, lambda m: m[..., t, :, :]),
+          context=self.context, semiring=semiring)
       return semirings.where((t >= num_frames)[..., None], alpha,
                              next_alpha)
 
@@ -887,16 +954,153 @@ class RecognitionLattice:
     else:
       step_fn = step
     num_states = self.context.shape()[0]
-    alpha = _init_context_state_weights(batch_dims, num_states,
-                                        self.context.start(), semiring,
-                                        frames.dtype, frames.device)
+    alpha = _init_context_state_weights(
+        batch_dims, num_states, self.context.start(), semiring,
+        _lifted_dtype(lift, frames), frames.device)
     history = []
     for t in range(frames.shape[-2]):
       history.append(alpha)
       alpha = step_fn(alpha, t)
-    history = (torch.stack(history, dim=-2) if history else
-               alpha.new_empty(batch_dims + (0, num_states)))
+    if history:
+      history = semirings.stack(history, axis=-2)
+    else:
+      history = pytree.tree_map(
+          lambda a: a.new_empty(batch_dims + (0, num_states)), alpha)
     return semiring.sum(alpha, axis=-1), history
+
+  def _forward_s1(self, wf_params, cache, frames, num_frames, semiring,
+                  blank_mask, lexical_mask, lift):
+    """Shortest distance of a single-context-state lattice, no frame loop.
+
+    With one context state the alpha carry is one semiring scalar per batch
+    element and the alignment's forward step is linear in it, so the
+    recursion factorizes:
+
+      alpha_{t+1} = alpha_t (x) f_t,   f_t = forward(one, blank_t, lex_t)
+
+    The forward is then one weight-function application over every frame
+    (``_s1_weights``), elementwise semiring algebra for the factors f_t,
+    and an inclusive cumulative (x)-product over time for the alpha
+    history (``semirings.cumulative_times``, log depth). Under MaxTropical
+    the per-frame tie-breaking is the frame loop's: alpha is a common
+    factor of every term a frame's ``plus`` compares. Values match the
+    frame loop up to float reassociation.
+
+    Args and returns: as ``_forward``, whose S == 1 specialization this is
+    (masks and ``lift`` fully supported).
+    """
+    blank, lexical = self._s1_weights(wf_params, cache, frames,
+                                      tuple(num_frames.shape))
+    return self._forward_s1_from_weights(blank, lexical, num_frames,
+                                         semiring, blank_mask, lexical_mask,
+                                         lift)
+
+  def _s1_weights(self, wf_params, cache, frames, batch_dims):
+    """One weight-function application over every frame, at state 0.
+
+    The time axis rides as one more batch dimension after ``batch_dims``
+    (a ``TableWeightFn`` reads its table's batch dimensions first and
+    takes any after them), the state pinned to 0, so the outputs come back
+    without a state axis.
+
+    Returns:
+      (blank [batch_dims..., T], lexical [batch_dims..., T, vocab_size]).
+    """
+    state0 = torch.zeros(tuple(batch_dims) + (frames.shape[-2],),
+                         dtype=torch.long, device=frames.device)
+    return self.weight_fn.apply(wf_params, cache, frames, state0)
+
+  @staticmethod
+  def _s1_string_weights_from(blank, lexical, next_labels):
+    """String-DP weights as column gathers of the shared S == 1 weights.
+
+    Args:
+      blank: [batch_dims..., T] blank weights from ``_s1_weights``.
+      lexical: [batch_dims..., T, vocab_size] lexical weights.
+      next_labels: [batch_dims..., U+1] next-label ids.
+
+    Returns:
+      (blank_weight, lexical_weight), both time-major
+      [T, batch_dims..., U+1] (the ``_string_dp`` contract).
+    """
+    # Label 0 (padding) is clamped to 1: those positions are never final.
+    y = next_labels.long().clamp(min=1) - 1  # [batch_dims..., U+1]
+    index = y[..., None, :].expand(lexical.shape[:-1] + y.shape[-1:])
+    lexical_y = torch.gather(lexical, -1, index)  # [batch..., T, U+1]
+    blank_w = blank[..., None].expand(lexical_y.shape)
+    return blank_w.movedim(-2, 0), lexical_y.movedim(-2, 0)
+
+  def _forward_s1_from_weights(self, blank, lexical, num_frames, semiring,
+                               blank_mask, lexical_mask, lift):
+    """The factor algebra and cumulative product of ``_forward_s1`` on
+    precomputed per-frame weights (shared with ``_loss_s1``)."""
+    num_align_states = self.alignment.num_states()
+    batch_dims = tuple(num_frames.shape)
+    max_num_frames = blank.shape[-1]
+    # Masks are [batch..., T, 1-or-S] and [batch..., T, 1-or-S, 1-or-V]
+    # with S == 1: the state axis is dropped.
+    blanks = _lift_masked(lift, blank, blank_mask, num_align_states,
+                          lambda m: m[..., 0])
+    lexicals = _lift_masked(lift, lexical, lexical_mask, num_align_states,
+                            lambda m: m[..., 0, :])
+    # The total lexical weight out of the one state (FullNGram's
+    # forward_reduce at S == 1), once per distinct lifted weight.
+    sums = {id(l): semiring.sum(l, axis=-1) for l in lexicals}
+    lexical_sums = [sums[id(l)] for l in lexicals]
+
+    # Per-frame total arc weight from a unit alpha: the alignment's forward
+    # step at S == 1 on [batch..., T] values.
+    if isinstance(self.alignment, alignments.FrameDependent):
+      factor = semiring.plus(blanks[0], lexical_sums[0])
+    else:  # FrameLabelDependent (``_s1_route`` checks the type).
+      terminated = [blanks[0]]
+      last = None
+      for i in range(self.alignment.max_expansions):
+        last = (lexical_sums[i] if last is None else
+                semiring.times(last, lexical_sums[i]))
+        terminated.append(semiring.times(last, blanks[i + 1]))
+      factor = semiring.sum(semirings.stack(terminated), axis=0)
+
+    # Padded frames multiply by the one (the frame loop carries alpha
+    # through them unchanged).
+    device = blank.device
+    dtypes = semirings.value_dtype(factor)
+    one = semiring.ones(batch_dims + (max_num_frames,), dtypes, device)
+    is_padding = (torch.arange(max_num_frames, device=device) >=
+                  num_frames[..., None])
+    factor = semirings.where(is_padding, one, factor)
+
+    # Its last entry is alpha_T; shifted right by one frame it is the alpha
+    # history ([batch..., T, 1]: the state axis reappears only here).
+    cum = semirings.cumulative_times(semiring, factor, len(batch_dims))
+    distance = pytree.tree_map(lambda x: x[..., -1], cum)
+    init = semiring.ones(batch_dims + (1,), dtypes, device)
+    history = pytree.tree_map(
+        lambda o, c: torch.cat([o, c[..., :-1]], dim=-1)[..., None], init,
+        cum)
+    return distance, history
+
+  def _loss_s1(self, params, cache, frames, num_frames, labels, num_labels):
+    """The globally normalized S == 1 loss on one weight application.
+
+    The numerator's string weights and the denominator's per-frame factors
+    are both functions of the same [batch..., T] blank and [batch..., T, V]
+    lexical weights: the weight function runs once, the denominator takes
+    the factor algebra of ``_forward_s1`` and the numerator gathers its
+    label columns from the same tensors. Autograd differentiates both.
+    """
+    self._last_path = 's1'
+    next_labels = torch.cat([labels, torch.ones_like(labels[..., :1])],
+                            dim=-1)
+    blank, lexical = self._s1_weights(params['weight_fn'], cache, frames,
+                                      tuple(num_frames.shape))
+    denominator, _ = self._forward_s1_from_weights(
+        blank, lexical, num_frames, semirings.Log, None, None, _identity)
+    blank_w, lexical_w = self._s1_string_weights_from(blank, lexical,
+                                                      next_labels)
+    numerator = self._string_dp(blank_w, lexical_w, num_frames, num_labels,
+                                semirings.Log)
+    return denominator - numerator
 
   def _forward_backward(self, params, cache, frames, num_frames):
     """Log Z with backward-algorithm gradients: the loss denominator.
@@ -927,7 +1131,11 @@ class RecognitionLattice:
             frame_dependent=frame_dependent,
             compute_dtype=fused_scan.compute_dtype_for(frames.device))
     if self._s1_route(frames):
-      _not_ported('the single-context-state (S = 1) log-partition', _REST)
+      # The factorized forward has no frame loop: plain autograd through
+      # its elementwise algebra is what the backward algorithm would do.
+      log_z, _ = self._forward(params, cache, frames, num_frames,
+                               semirings.Log)
+      return log_z
     leaves, spec = pytree.tree_flatten(params['weight_fn'])
     return _GenericLogPartition.apply(self, num_frames, spec, cache, frames,
                                       *leaves)
@@ -1065,13 +1273,35 @@ class _GenericLogPartition(torch.autograd.Function):
             *pytree.tree_leaves(d_params))
 
 
+def _identity(w):
+  return w
+
+
+def _lift_masked(lift, weights, masks, num_align_states, frame_of):
+  """Each alignment state's lifted weights: ``lift(weights +
+  frame_of(mask))`` per mask, or with no masks one ``lift(weights)``
+  shared by every state (weight functions are alignment-state-invariant)."""
+  if masks is None:
+    return [lift(weights)] * num_align_states
+  return [lift(weights + frame_of(m)) for m in masks]
+
+
+def _lifted_dtype(lift, weights: torch.Tensor):
+  """The dtypes of semiring values that ``lift`` makes of weights like
+  ``weights`` (a pytree for a tuple-valued semiring)."""
+  return semirings.value_dtype(
+      lift(torch.zeros((), dtype=weights.dtype, device=weights.device)))
+
+
 def _init_context_state_weights(batch_dims, num_states: int, start: int,
                                 semiring, dtype, device):
-  """One-hot start-state alpha_0 in any semiring."""
+  """One-hot start-state alpha_0 in any semiring (``dtype`` a pytree of
+  dtypes for a tuple-valued one)."""
   is_start = torch.arange(num_states, device=device) == start
-  weights = torch.where(is_start, semiring.ones((), dtype, device),
-                        semiring.zeros((), dtype, device))
-  return weights.expand(tuple(batch_dims) + (num_states,))
+  weights = semirings.where(is_start, semiring.ones((), dtype, device),
+                            semiring.zeros((), dtype, device))
+  return pytree.tree_map(
+      lambda w: w.expand(tuple(batch_dims) + (num_states,)), weights)
 
 
 def _gumbel_source(generator, batch_dims, device):

@@ -15,10 +15,11 @@
 """Semirings over tensor values, PyTorch port.
 
 Counterpart of ``last_torch_tpu/semirings.py``: the value helpers,
-``Semiring``, ``Real``, ``Log`` and ``MaxTropical``. A semiring value is a
-pytree of identically shaped tensors (one tensor for these three; tuples
-for the Expectation / Cartesian semirings, which come with ``weight_lift``,
-ROADMAP queue 1, item 7).
+``Semiring``, ``Real``, ``Log`` and ``MaxTropical``, and the tuple-valued
+``Expectation`` (with ``LogLogExpectation``) and ``Cartesian``. A semiring
+value is a pytree of identically shaped tensors: one tensor for the first
+three, a pair for the tuple semirings, whose ``zeros`` / ``ones`` take a
+pair of dtypes and one device.
 
 Gradient contracts (the JAX package's, there as ``jax.custom_vjp``, here as
 ``torch.autograd.Function``):
@@ -33,7 +34,8 @@ Gradient contracts (the JAX package's, there as ``jax.custom_vjp``, here as
 
 from __future__ import annotations
 
-from collections.abc import Sequence
+import dataclasses
+from collections.abc import Callable, Sequence
 from typing import Any, Generic, Optional, TypeVar
 
 import torch
@@ -41,6 +43,7 @@ from torch.utils import _pytree as pytree
 
 PyTree = Any
 T = TypeVar('T')
+S = TypeVar('S')
 
 
 def value_shape(x: PyTree) -> tuple[int, ...]:
@@ -292,8 +295,150 @@ class _MaxTropical(Semiring[torch.Tensor]):
 MaxTropical = _MaxTropical()
 
 
-def zeros_like(semiring: Semiring, x: torch.Tensor,
+def zeros_like(semiring: Semiring, x: PyTree,
                shape: Optional[Sequence[int]] = None):
-  """Semiring zeros with ``x``'s dtype and device (and shape by default)."""
-  return semiring.zeros(x.shape if shape is None else shape, x.dtype,
-                        x.device)
+  """Semiring zeros with ``x``'s dtypes and device (and shape by default);
+  ``x`` may be any semiring value, a tuple one too."""
+  leaves = pytree.tree_leaves(x)
+  shape = value_shape(x) if shape is None else tuple(shape)
+  return semiring.zeros(shape, value_dtype(x), leaves[0].device)
+
+
+def _split_dtype(dtype):
+  return (None, None) if dtype is None else tuple(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class Expectation(Generic[T, S], Semiring[tuple[T, S]]):
+  """Eisner's expectation semiring over (weight, weighted-sum) pairs.
+
+  Values are tuples ``(w, x)``: ``w`` carries path weight in the ``self.w``
+  semiring and ``x`` accumulates the weight-scaled quantity of interest in
+  ``self.x``, so that one shortest-distance pass computes a normalizer and
+  an expectation together (path entropy, for one). Build values with
+  ``weighted``; ``LogLogExpectation`` is the log / log instance.
+
+  Attributes:
+    w: Semiring of the weight component.
+    x: Semiring of the weighted-sum component.
+    w_to_x: Conversion of ``w``-semiring values into ``x``-semiring ones.
+  """
+  w: Semiring[T]
+  x: Semiring[S]
+  w_to_x: Callable[[T], S]
+
+  def weighted(self, w: T, v: S) -> tuple[T, S]:
+    # Where w is the w-semiring zero, w_to_x(w) is the x-semiring zero, and
+    # the weighted value is the x-semiring zero too: v is replaced by zero
+    # first, so that under Log a -inf w with a +inf v (0 * log 0) gives no
+    # NaN.
+    w_is_zero = w == self.w.zeros((), value_dtype(w), w.device)
+    safe_v = torch.where(w_is_zero, torch.zeros_like(v), v)
+    return w, self.x.times(self.w_to_x(w), safe_v)
+
+  def zeros(self, shape, dtype=None, device=None):
+    dtype_w, dtype_x = _split_dtype(dtype)
+    return (self.w.zeros(shape, dtype_w, device),
+            self.x.zeros(shape, dtype_x, device))
+
+  def ones(self, shape, dtype=None, device=None):
+    dtype_w, dtype_x = _split_dtype(dtype)
+    return (self.w.ones(shape, dtype_w, device),
+            self.x.zeros(shape, dtype_x, device))
+
+  def times(self, a, b):
+    w_a, x_a = a
+    w_b, x_b = b
+    w = self.w.times(w_a, w_b)
+    x = self.x.plus(self.x.times(self.w_to_x(w_a), x_b),
+                    self.x.times(self.w_to_x(w_b), x_a))
+    return w, x
+
+  def plus(self, a, b):
+    w_a, x_a = a
+    w_b, x_b = b
+    return self.w.plus(w_a, w_b), self.x.plus(x_a, x_b)
+
+  def sum(self, a, axis):
+    w, x = a
+    return self.w.sum(w, axis), self.x.sum(x, axis)
+
+
+# Weight and weighted sum both in the Log semiring: only sums of
+# non-negative values are representable.
+LogLogExpectation = Expectation(w=Log, x=Log, w_to_x=lambda x: x)
+
+
+@dataclasses.dataclass(frozen=True)
+class Cartesian(Generic[T, S], Semiring[tuple[T, S]]):
+  """Cartesian product of two semirings.
+
+  Attributes:
+    x: The first semiring.
+    y: The second semiring.
+  """
+  x: Semiring[T]
+  y: Semiring[S]
+
+  def zeros(self, shape, dtype=None, device=None):
+    dtype_x, dtype_y = _split_dtype(dtype)
+    return (self.x.zeros(shape, dtype_x, device),
+            self.y.zeros(shape, dtype_y, device))
+
+  def ones(self, shape, dtype=None, device=None):
+    dtype_x, dtype_y = _split_dtype(dtype)
+    return (self.x.ones(shape, dtype_x, device),
+            self.y.ones(shape, dtype_y, device))
+
+  def times(self, a, b):
+    a_x, a_y = a
+    b_x, b_y = b
+    return self.x.times(a_x, b_x), self.y.times(a_y, b_y)
+
+  def plus(self, a, b):
+    a_x, a_y = a
+    b_x, b_y = b
+    return self.x.plus(a_x, b_x), self.y.plus(a_y, b_y)
+
+  def sum(self, a, axis):
+    a_x, a_y = a
+    return self.x.sum(a_x, axis), self.y.sum(a_y, axis)
+
+  def prod(self, a, axis):
+    a_x, a_y = a
+    return self.x.prod(a_x, axis), self.y.prod(a_y, axis)
+
+
+def cumulative_times(semiring: Semiring, x: PyTree, axis: int) -> PyTree:
+  """Inclusive cumulative ``semiring.times`` along ``axis``.
+
+  Hillis-Steele doubling: ceil(log2 n) steps, each one elementwise
+  ``times`` of the value with itself shifted by 1, 2, 4, ... positions,
+  the vacated positions filled with the semiring one. Every semiring goes
+  this one way (Log and MaxTropical too), in log depth, and autograd
+  differentiates it; results match a sequential product up to float
+  reassociation (the JAX package's ``lax.associative_scan``).
+
+  Args:
+    semiring: The semiring, any ``times`` that is associative.
+    x: A semiring value.
+    axis: The axis to accumulate along.
+
+  Returns:
+    A value of ``x``'s shape whose entry i is x[0] (x) ... (x) x[i].
+  """
+  shape = value_shape(x)
+  axis = _check_axis(shape, axis)
+  n = shape[axis]
+  dtypes = value_dtype(x)
+  device = pytree.tree_leaves(x)[0].device
+  shift = 1
+  while shift < n:
+    fill = semiring.ones(shape[:axis] + (shift,) + shape[axis + 1:], dtypes,
+                         device)
+    shifted = pytree.tree_map(
+        lambda one, leaf: torch.cat([one, leaf.narrow(axis, 0, n - shift)],
+                                    dim=axis), fill, x)
+    x = semiring.times(shifted, x)
+    shift *= 2
+  return x

@@ -24,8 +24,11 @@ column-gather fast path; the local normalizers ``hat_normalize`` and
 ``JointWeightFn.apply`` over every context state runs the joint+head
 kernels of ``ops/joint_head.py`` inside their gate. ``NullCacher`` and
 ``TableWeightFn`` are the fixed-table fakes of the JAX package's tests (the
-enumeration oracles of the sampler and the risk). ``SharedRNNCacher`` comes
-with a later slice (ROADMAP queue 1, item 6).
+enumeration oracles of the sampler and the risk). A weight function whose
+``label_weights`` returns None (a ``LocallyNormalizedWeightFn`` over a
+``JointWeightFn`` subclass or with another normalizer) gets its string
+weights from the lattice's generic per-position route. ``SharedRNNCacher``
+comes with a later slice (ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations

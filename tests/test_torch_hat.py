@@ -176,9 +176,11 @@ def test_locally_normalized_shortest_distance_matches_jax(normalize):
 
 
 def test_other_inner_weight_fns_raise_naming_the_roadmap():
-  """Over a JointWeightFn subclass the HAT loss still raises (its string
-  weights have no fast path); its decode takes the generic route, as in the
-  JAX package, and agrees with it."""
+  """Over a JointWeightFn subclass the HAT loss's string weights have no
+  fast path: they take the generic per-position route (one weight
+  application over all frames per label position), held to JAX's, values
+  and gradients; its decode takes the generic route, as in the JAX
+  package, and agrees with it."""
   class Joint(weight_fns.JointWeightFn):
     pass
 
@@ -187,10 +189,33 @@ def test_other_inner_weight_fns_raise_naming_the_roadmap():
 
   params, frames = make_inputs(seed=4)
   lattice = torch_lattice('fld2', 'hat', joint=Joint)
-  with pytest.raises(NotImplementedError, match='queue 1, item 6'):
-    lattice.loss(convert.from_jax_params(params, device='cpu'),
-                 torch.from_numpy(frames), torch.from_numpy(NUM_FRAMES),
-                 torch.from_numpy(LABELS), torch.from_numpy(NUM_LABELS))
+
+  def jax_total(p, f):
+    return jnp.sum(jax_lattice('fld2', 'hat', joint=JaxJoint)(
+        p, f, NUM_FRAMES, LABELS, NUM_LABELS))
+
+  value_j, (d_params_j, d_frames_j) = jax.value_and_grad(
+      jax_total, argnums=(0, 1))(jax.tree.map(jnp.asarray, params),
+                                 jnp.asarray(frames))
+  torch_params = convert.from_jax_params(params, device='cpu')
+  for leaf in pytree.tree_leaves(torch_params):
+    leaf.requires_grad_(True)
+  frames_t = torch.from_numpy(frames).requires_grad_(True)
+  before = numerator_scan.forward_launches, numerator_scan.backward_launches
+  loss = lattice.loss(torch_params, frames_t, torch.from_numpy(NUM_FRAMES),
+                      torch.from_numpy(LABELS), torch.from_numpy(NUM_LABELS))
+  loss.sum().backward()
+  assert (numerator_scan.forward_launches,
+          numerator_scan.backward_launches) == before
+  npt.assert_allclose(float(loss.detach().sum()), float(value_j), rtol=1e-5,
+                      atol=1e-6)
+  scale = max(float(np.abs(g).max()) for g in jax.tree.leaves(d_params_j))
+  for path, want in jax.tree_util.tree_flatten_with_path(d_params_j)[0]:
+    npt.assert_allclose(leaf_at(torch_params, path).grad.numpy(),
+                        np.asarray(want), rtol=0, atol=1e-4 * scale,
+                        err_msg=str(path))
+  npt.assert_allclose(frames_t.grad.numpy(), np.asarray(d_frames_j),
+                      rtol=1e-4, atol=1e-6)
   labels, num_labels, weights = lattice.shortest_path(
       convert.from_jax_params(params, device='cpu'), torch.from_numpy(frames),
       torch.from_numpy(NUM_FRAMES))

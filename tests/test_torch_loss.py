@@ -229,21 +229,44 @@ def test_shape_mismatches_name_the_pair():
 
 
 def test_unported_routes_raise():
+  """The routes this test once found unported, now held to JAX: the
+  globally normalized S = 1 (context_size 0) loss through the factorized
+  route, values and gradients, and ``shortest_distance`` with a
+  ``weight_lift`` (the LogLogExpectation path entropy) on the bigram."""
+  for alignment in ('fd', 'fld2'):
+    params = jax.tree.map(np.asarray, jax_lattice(
+        alignment, 'never', context_size=0).init(jax.random.PRNGKey(7),
+                                                 feature_size=FEATURES))
+    frames = np.random.default_rng(7).standard_normal(
+        (len(NUM_FRAMES), 7, FEATURES)).astype(np.float32)
+    value_j, d_params_j, d_frames_j = jax_loss_and_grads(
+        jax_lattice(alignment, 'never', context_size=0), params, frames)
+    ctc = torch_lattice(alignment, context_size=0)
+    loss, d_params, d_frames = torch_loss_and_grads(ctc, params, frames)
+    assert ctc.last_path == 's1'
+    npt.assert_allclose(float(loss.sum()), value_j, rtol=1e-5, atol=1e-6)
+    assert loss[2] == 0.0
+    assert_grads_close(d_params, d_params_j)
+    npt.assert_allclose(d_frames, d_frames_j, rtol=1e-4, atol=1e-6)
+
   params, frames = make_inputs(seed=7)
-  frames = torch.from_numpy(frames)
-  num_frames = torch.from_numpy(NUM_FRAMES)
-  labels = torch.from_numpy(LABELS)
-  num_labels = torch.from_numpy(NUM_LABELS)
-  generator = torch.Generator().manual_seed(0)
-  # S = 1 (context_size 0): the JAX package's scan-free route.
-  ctc = torch_lattice('fd', context_size=0)
-  with pytest.raises(NotImplementedError, match='queue 1, item 7'):
-    ctc.loss(ctc.init(generator, FEATURES, device='cpu'), frames, num_frames,
-             labels, num_labels)
-  with pytest.raises(NotImplementedError, match='weight_lift'):
-    torch_lattice('fd').shortest_distance(
-        convert.from_jax_params(params, device='cpu'), frames, num_frames,
-        weight_lift=lambda w: w)
+  jax_sr = jax_semirings.LogLogExpectation
+  want = jax_lattice('fld2', 'never').shortest_distance(
+      params, frames, NUM_FRAMES, semiring=jax_sr,
+      weight_lift=lambda w: jax_sr.weighted(
+          w, jnp.log(jnp.maximum(-w, 1e-30))))
+  sr = semirings.LogLogExpectation
+  lattice = torch_lattice('fld2')
+  got = lattice.shortest_distance(
+      convert.from_jax_params(params, device='cpu'), torch.from_numpy(frames),
+      torch.from_numpy(NUM_FRAMES), semiring=sr,
+      weight_lift=lambda w: sr.weighted(w, torch.log(torch.clamp(-w,
+                                                                 min=1e-30))))
+  assert lattice.last_path == 'generic'
+  assert isinstance(got, tuple) and len(got) == 2
+  for g, w in zip(got, want):
+    npt.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=1e-5,
+                        atol=1e-6)
 
 
 @pytest.mark.parametrize('seed', range(6))

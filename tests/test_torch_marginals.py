@@ -201,14 +201,20 @@ def test_no_frames_give_empty_posteriors():
 
 
 def test_unported_routes_raise():
-  frames = torch.zeros((3, MAX_T, FEATURES))
-  num_frames = torch.from_numpy(NUM_FRAMES)
-  generator = torch.Generator().manual_seed(0)
-  # S = 1 (context_size 0): the JAX package's single-context-state route.
-  ctc = torch_lattice('fd', context_size=0)
-  with pytest.raises(NotImplementedError, match='queue 1, item 7'):
-    ctc.label_marginals(ctc.init(generator, FEATURES, device='cpu'), frames,
-                        num_frames)
+  """Routes once unported, now held to JAX's."""
+  # S = 1 (context_size 0): the backward algorithm over the factorized
+  # route's alpha history, against JAX's single-context-state route.
+  for alignment in sorted(ALIGNMENTS):
+    params, frames = make_inputs(seed=36, context_size=0)
+    ctc = torch_lattice(alignment, context_size=0)
+    got = port_call(ctc, 'label_marginals', params, frames)
+    assert ctc.last_path == 's1'
+    assert got[0].shape == (3, MAX_T, 1) and got[1].shape == (3, MAX_T, 5)
+    want = jax_lattice(alignment, 'never',
+                       context_size=0).label_marginals(params, frames,
+                                                       NUM_FRAMES)
+    for g, w in zip(got, want):
+      npt.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-6)
   # The trigram now takes the generic route, as in the JAX package.
   params, frames = make_inputs(seed=37, vocab=2, context_size=2)
   trigram = torch_lattice('fd', vocab=2, context_size=2)
