@@ -199,6 +199,31 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    4's shape (B=16, T=400, V=64, h=128, no kernel); the model of (a),
    factorized against generic. Every time beside the card's name and power
    limit.
+15. Streaming serving and the trainer (``[stream-*]``, ``[rnn-cacher]``).
+   (a) ``models.train.train`` of ``streaming_conformer_gnat()`` at full
+   width (4 x 256 causal Conformer, window 64, conv 8, auto-banded) on
+   synthetic B=8 x 1600 batches (U_max 100): step 1 against the plain
+   versions, 3 steps with checkpoints at 2 and 3 and an evaluation through
+   the Viterbi kernel, each step's ``StepTimer`` record, the restored state
+   bit-equal to the saved one, a resumed run to step 4 (its 'restored'
+   event), and the prefetch thread's batches on the card against their
+   host arrays. (b) ``make_optimizer(accumulate_steps=2)``: no parameter
+   moves after micro-step 1, the parameters move after micro-step 2. (c)
+   ``gnat_global_bigram(use_rnn_cacher=True)`` on phase 6's batch: step 1
+   against the plain versions in float32 and float64, 3 steps through the
+   'cache' pair, a decode through the Viterbi kernel. (d) ``StreamingEncoder``
+   in chunks of 16 and 64 frames against the offline (banded) encode
+   within 1e-4, and banded against dense attention at B=8 x 1600 (outputs,
+   gradients, peak memory). (e) The greedy and beam (4, max_labels 512)
+   decoders on one offline encode, in chunks of 16 and in one chunk:
+   identical; ``nbest_offline``; the serving loop (chunked encoder, then
+   chunked decoders) against the offline path (>= 99.9% of label slots
+   equal, a differing best hypothesis a tie when rescored), its per-chunk
+   latency (CUDA events), device activities a chunk and real-time factor at
+   an assumed 10 ms frame shift. (f) One ``train_step`` at B=8 x 6400 with
+   the production encoder (512 x 4, 8 heads, bfloat16, banded): time, peak
+   memory, log-partition mode. Their launches of the 'cache' pair and the
+   Viterbi forward join the kernels line (``launches_by_path``).
 
 Each phase prints one line or more with its seconds, and the run its total;
 any failure exits non-zero before the last line, which is ``{"ok": true,
@@ -217,7 +242,9 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -870,16 +897,58 @@ def trigram_route(fused_scan, trigram_scan):
           'report': 'trigram log-partition kernels'}
 
 
+def step1_vs_plain(torch, pytree, semirings, model, params, batch, route,
+                   phase):
+  """Step 1 of a GN model: its mean loss and gradients through the lattice
+  kernels against the same through their plain versions (``route``'s
+  'plain'), loss to STEP_LOSS_RTOL, gradients to STEP_GRAD_RTOL of the
+  largest. Prints its line; returns the kernels' loss."""
+  leaves = pytree.tree_leaves(params)
+  t0 = time.perf_counter()
+  loss_k, grads_k = loss_and_grads(
+      torch, leaves, lambda: model.mean_loss(params, *batch))
+  check(model.lattice.last_path == 'kernel',
+        f'last_path is {model.lattice.last_path!r}, not kernel')
+  loss_p, grads_p = loss_and_grads(
+      torch, leaves, lambda: plain_mean_loss(torch, model, route['plain'],
+                                             semirings, params, *batch))
+  loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+  check(np.isfinite(loss_k) and loss_rel <= STEP_LOSS_RTOL,
+        f'step-1 loss {loss_k} through the kernels, {loss_p} plain')
+  paths = [pytree.keystr(path) for path, _ in
+           pytree.tree_flatten_with_path(params)[0]]
+  largest = max(g.abs().max().item() for g in grads_p)
+  worst = own = (0.0, '')
+  for path, a, b in zip(paths, grads_k, grads_p):
+    check(bool(torch.isfinite(a).all()), f'{path}: gradient not finite')
+    diff = (a - b).abs().max().item()
+    worst = max(worst, (diff / largest, path))
+    own = max(own, (diff / max(b.abs().max().item(), 1e-30), path))
+  check(worst[0] <= STEP_GRAD_RTOL,
+        f'step-1 gradient of {worst[1]}: kernel vs plain {worst[0]:.3g} of '
+        f'the largest gradient')
+  for leaf in leaves:
+    leaf.grad = None
+  say(phase, f'step 1 through the kernels vs plain versions: loss '
+             f'{loss_k:.6g} vs {loss_p:.6g} (rel {loss_rel:.2e}); '
+             f'gradients, {len(leaves)} leaves, max |a-b| {worst[0]:.2e} '
+             f'of the largest gradient {largest:.3g} ({worst[1]}); of the '
+             f'leaf\'s own scale at most {own[0]:.2e} ({own[1]}) '
+             f'({time.perf_counter() - t0:.1f} s)')
+  return loss_k
+
+
 def train_and_check(torch, gnat, semirings, pytree, config, num_frames_list,
-                    num_labels_list, phase, route):
+                    num_labels_list, phase, route, step1=step1_vs_plain):
   """A GN training main path: step 1 through the kernels against the same
   step through their plain versions, then TRAIN_STEPS counted and timed
   train steps (their losses finite and falling), then one more step under
   the profiler. Utterances: random features from numpy seed 0 at the given
   lengths, random labels at the given counts. ``route`` names the
   log-partition kernels the model must take (``bigram_route``,
-  ``trigram_route``). Prints its lines; returns (model, optimizer, state,
-  batch, (forward, backward) launches of the route's kernels)."""
+  ``trigram_route``); ``step1`` judges step 1 (``step1_vs_plain``). Prints
+  its lines; returns (model, optimizer, state, batch, (forward, backward)
+  launches of the route's kernels)."""
   model = gnat.GNATModel(config, device='cuda')
   optimizer = gnat.make_optimizer(LEARNING_RATE)
   state = gnat.init_train_state(model, torch.Generator().manual_seed(0),
@@ -897,38 +966,8 @@ def train_and_check(torch, gnat, semirings, pytree, config, num_frames_list,
   real_frames = sum(num_frames_list)
   module, names = route['module'], route['counters']
 
-  # Step 1 through the kernels and through the plain versions.
-  leaves = pytree.tree_leaves(state.params)
-  t0 = time.perf_counter()
-  loss_k, grads_k = loss_and_grads(
-      torch, leaves, lambda: model.mean_loss(state.params, *batch))
-  check(model.lattice.last_path == 'kernel',
-        f'last_path is {model.lattice.last_path!r}, not kernel')
-  loss_p, grads_p = loss_and_grads(
-      torch, leaves, lambda: plain_mean_loss(torch, model, route['plain'],
-                                             semirings, state.params,
-                                             *batch))
-  loss_rel = abs(loss_k - loss_p) / abs(loss_p)
-  check(np.isfinite(loss_k) and loss_rel <= STEP_LOSS_RTOL,
-        f'step-1 loss {loss_k} through the kernels, {loss_p} plain')
-  paths = [pytree.keystr(path) for path, _ in
-           pytree.tree_flatten_with_path(state.params)[0]]
-  largest = max(g.abs().max().item() for g in grads_p)
-  worst = own = (0.0, '')
-  for path, a, b in zip(paths, grads_k, grads_p):
-    check(bool(torch.isfinite(a).all()), f'{path}: gradient not finite')
-    diff = (a - b).abs().max().item()
-    worst = max(worst, (diff / largest, path))
-    own = max(own, (diff / max(b.abs().max().item(), 1e-30), path))
-  check(worst[0] <= STEP_GRAD_RTOL,
-        f'step-1 gradient of {worst[1]}: kernel vs plain {worst[0]:.3g} of '
-        f'the largest gradient')
-  say(phase, f'step 1 through the kernels vs plain versions: loss '
-             f'{loss_k:.6g} vs {loss_p:.6g} (rel {loss_rel:.2e}); '
-             f'gradients, {len(leaves)} leaves, max |a-b| {worst[0]:.2e} '
-             f'of the largest gradient {largest:.3g} ({worst[1]}); of the '
-             f'leaf\'s own scale at most {own[0]:.2e} ({own[1]}) '
-             f'({time.perf_counter() - t0:.1f} s)')
+  loss_k = step1(torch, pytree, semirings, model, state.params, batch, route,
+                 phase)
 
   # The main path: train steps through the kernels, counted and timed.
   losses, step_ms, per_step = [], [], []
@@ -4609,6 +4648,695 @@ def phase_ctc(torch, gnat, presets, lattices, contexts, alignments,
                      weight_fns, semirings, joint_head, modules, card, ctc)
 
 
+# Phase 15: streaming serving and the trainer.
+STREAM_DATA = dict(batch_size=8, max_num_frames=1600, max_num_labels=100,
+                   feature_size=80, vocab_size=1024)
+# The streaming encoder against the offline one: JAX's own limit
+# (tests/test_models.py:185-186).
+STREAM_ATOL = 1e-4
+STREAM_CHUNKS = (16, 64)
+SERVE_CHUNK = 16
+BEAM_SIZE, BEAM_MAX_LABELS = 4, 512
+# Chunked beams against whole-utterance beams on the same frames: the carried
+# state is exact, so only the order of float sums may differ.
+BEAM_SCORE_RTOL = 1e-6
+# The serving loop (chunked encoder) against the offline encode: the share of
+# equal label slots, and a differing best hypothesis must tie (rescored).
+EQUAL_SLOT_SHARE = 0.999
+TIE_RTOL = 1e-4
+FRAME_SHIFT_MS = 10.0  # assumed for the real-time factor
+LONG_BATCH, LONG_FRAMES, LONG_LABELS = 8, 6400, 100
+
+
+def cuda_batch(torch, batch):
+  """(frames, num_frames, labels, num_labels) of a numpy batch, on the
+  card."""
+  return tuple(torch.from_numpy(batch[k]).cuda() for k in (
+      'frames', 'num_frames', 'labels', 'num_labels'))
+
+
+def assert_bit_equal(torch, pytree, got, want, what):
+  """The parameters, AdamW moments and step counts of two train states
+  equal bit for bit."""
+  got_leaves = pytree.tree_leaves(got.params)
+  want_leaves = pytree.tree_leaves(want.params)
+  check(len(got_leaves) == len(want_leaves), f'{what}: tree differs')
+  for a, b in zip(got_leaves, want_leaves):
+    check(torch.equal(a, b), f'{what}: parameters differ')
+    for field in ('exp_avg', 'exp_avg_sq', 'step'):
+      check(torch.equal(got.opt_state.adamw.state[a][field],
+                        want.opt_state.adamw.state[b][field]),
+            f'{what}: AdamW {field} differs')
+  check(got.step == want.step and got.opt_state.schedule.last_epoch ==
+        want.opt_state.schedule.last_epoch, f'{what}: step counts differ')
+  return len(got_leaves)
+
+
+def streaming_trainer(torch, gnat, presets, train_lib, data_lib,
+                      checkpoint_lib, fused_scan, viterbi, semirings, pytree):
+  """Phase 15(a): ``train()`` of streaming_conformer_gnat() at full width
+  on synthetic B=8 x 1600 batches: step 1 against the plain versions, 3
+  steps with a checkpoint at 2 and 3 and an evaluation at 3, the restored
+  state bit-equal to the saved one, a resumed run to step 4; and the
+  prefetch thread's batches on the card against their host arrays. Returns
+  (the trained state, the launches of the run's kernels by name)."""
+  config = presets.streaming_conformer_gnat()
+  data_config = train_lib.DataConfig(**STREAM_DATA)
+  model = gnat.GNATModel(config, device='cuda')
+  optimizer = gnat.make_optimizer(LEARNING_RATE)
+  state = gnat.init_train_state(model, torch.Generator().manual_seed(0),
+                                optimizer)
+  batches = train_lib.synthetic_batches(data_config)
+  next(batches)  # train() holds the first batch out for evaluation
+  route = bigram_route(torch, fused_scan, config, STREAM_DATA['batch_size'])
+  check(route['name'] == 'cache', f'planned {route["name"]!r}, not cache')
+  loss_1 = step1_vs_plain(torch, pytree, semirings, model, state.params,
+                          cuda_batch(torch, next(batches)), route,
+                          'stream-train')
+  del model, state
+
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_train_') as workdir:
+    records = []
+    reset_counts(fused_scan, viterbi)
+    t0 = time.perf_counter()
+    trained = train_lib.train(config, data_config, num_steps=3,
+                              workdir=workdir, checkpoint_every=2,
+                              eval_every=3, log_every=1, prefetch=2,
+                              log_fn=records.append)
+    seconds = time.perf_counter() - t0
+    events = [json.loads(r) for r in records]
+    for event in events:
+      say('stream-train', f'train() step record {json.dumps(event)}')
+    losses = [e['loss'] for e in events]
+    check(len(events) == 3 and all(np.isfinite(losses)),
+          f'train() records: {events}')
+    check(abs(losses[0] - loss_1) <= 1e-4 * abs(loss_1) + 5e-5,
+          f'train() step 1 loss {losses[0]} != the checked step 1 '
+          f'{loss_1}')
+    check('eval_label_accuracy' in events[-1], 'no evaluation at step 3')
+    manager = checkpoint_lib.CheckpointManager(workdir)
+    check(manager.all_steps() == [2, 3],
+          f'checkpoints {manager.all_steps()}, not [2, 3]')
+    fresh_model = gnat.GNATModel(config, device='cuda')
+    template = gnat.init_train_state(fresh_model,
+                                     torch.Generator().manual_seed(1),
+                                     optimizer)
+    restored = manager.restore(template=template)
+    leaves = assert_bit_equal(torch, pytree, restored, trained,
+                              'restored vs saved')
+    del fresh_model, template, restored
+    resumed = []
+    train_lib.train(config, data_config, num_steps=4, workdir=workdir,
+                    checkpoint_every=2, eval_every=3, log_every=1,
+                    prefetch=2, log_fn=resumed.append)
+    resumed = [json.loads(r) for r in resumed]
+    check(resumed[0] == {'event': 'restored', 'step': 3},
+          f'the resumed run printed {resumed[0]}, not the restored event')
+    check(len(resumed) == 2 and resumed[1]['step'] == 4 and
+          np.isfinite(resumed[1]['loss']), f'resumed records {resumed}')
+    for event in resumed:
+      say('stream-train', f'resumed train() record {json.dumps(event)}')
+  launches = {'steps': (fused_scan.forward_launches,
+                        fused_scan.backward_launches),
+              'decode': viterbi.launches}
+  check(all(count >= 4 for count in launches['steps']) and
+        launches['decode'] >= 1, f'train() launches: {launches}')
+  say('stream-train',
+      f'streaming_conformer_gnat() B=8 T_max=1600 U_max=100: 3 train() '
+      f'steps in {seconds:.1f} s (first call, with its checkpoints and '
+      f'evaluation); restored step 3 bit-equal to the saved state '
+      f'({leaves} leaves: parameters, AdamW moments and counts); resumed '
+      f'to step 4, loss {resumed[1]["loss"]}; launches of the 4 steps '
+      f'(forward, backward) {launches["steps"]}, of the evaluation\'s '
+      f'decode {launches["decode"]}')
+
+  # The prefetch thread's batches, staged on a side stream, against the
+  # host arrays they came from; the consumer's stream works in between.
+  host = train_lib.synthetic_batches(data_config)
+  staged = data_lib.prefetch_to_device(train_lib.synthetic_batches(
+      data_config), size=2, device='cuda')
+  weight = torch.randn((STREAM_DATA['feature_size'], 4096), device='cuda')
+  for _ in range(4):
+    batch = next(staged)
+    (batch['frames'] @ weight).sum().item()
+    for key, value in next(host).items():
+      check(batch[key].device.type == 'cuda' and
+            np.array_equal(batch[key].cpu().numpy(), value),
+            f'prefetched {key} differs from its host array')
+  staged.close()
+  say('stream-train', 'prefetch_to_device: 4 batches staged from the side '
+                      'stream equal their host arrays')
+  return trained, launches
+
+
+def accumulate_check(torch, gnat, presets, train_lib, fused_scan, pytree):
+  """Phase 15(b): make_optimizer(accumulate_steps=2) over two micro-batches
+  of phase (a)'s data: no parameter moves after micro-step 1, the
+  parameters move after micro-step 2, AdamW and the schedule count one
+  update. Returns the micro-steps' log-partition launches."""
+  config = presets.streaming_conformer_gnat()
+  model = gnat.GNATModel(config, device='cuda')
+  optimizer = gnat.make_optimizer(LEARNING_RATE, accumulate_steps=2)
+  state = gnat.init_train_state(model, torch.Generator().manual_seed(0),
+                                optimizer)
+  batches = train_lib.synthetic_batches(train_lib.DataConfig(**STREAM_DATA))
+  leaves = pytree.tree_leaves(state.params)
+  before = [leaf.detach().clone() for leaf in leaves]
+  reset_counts(fused_scan)
+  state, loss_1 = gnat.train_step(model, optimizer, state,
+                                  *cuda_batch(torch, next(batches)))
+  check(all(torch.equal(a, b) for a, b in zip(leaves, before)),
+        'a parameter moved after micro-step 1 of 2')
+  state, loss_2 = gnat.train_step(model, optimizer, state,
+                                  *cuda_batch(torch, next(batches)))
+  moved = sum(not torch.equal(a, b) for a, b in zip(leaves, before))
+  check(moved > 0, 'no parameter moved after micro-step 2 of 2')
+  steps = {int(s['step']) for s in state.opt_state.adamw.state.values()}
+  check(steps == {1} and state.opt_state.schedule.last_epoch == 1 and
+        state.opt_state.mini_step == 0,
+        f'AdamW steps {steps}, schedule at '
+        f'{state.opt_state.schedule.last_epoch}: not one update')
+  launches = (fused_scan.forward_launches, fused_scan.backward_launches)
+  check(all(n >= 2 for n in launches), f'micro-step launches {launches}')
+  say('stream-accumulate',
+      f'accumulate_steps=2 on streaming_conformer_gnat(), B=8 x 1600 '
+      f'micro-batches: losses {loss_1.item():.6g}, {loss_2.item():.6g}; no '
+      f'parameter moved after micro-step 1; {moved} of {len(leaves)} leaves '
+      f'moved after micro-step 2; one AdamW update; log-partition launches '
+      f'(forward, backward) {launches}')
+  return launches
+
+
+def step1_vs_float64(torch, pytree, semirings, model, params, batch, route,
+                     phase, sharded_scan):
+  """Step 1 of a bigram GN model judged as phase 12 judges its step 1: the
+  lattice loss on the encoder outputs through the kernels, through their
+  float32 plain versions (``route``'s 'plain') and through the plain
+  versions in float64 (``tp_lattice_loss`` on one shard with the float64
+  frame reduction: the same bfloat16 roundings, float64 sums). Losses to
+  STEP_LOSS_RTOL; each gradient (lattice leaves, encoder outputs) of the
+  kernels within max(STEP_GRAD_RTOL, twice the float32 plain versions'
+  error) of the float64 one, of the largest float64 gradient. Prints its
+  line; returns the whole model's mean loss through the kernels."""
+  frames, num_frames, labels, num_labels = batch
+  lattice = model.lattice
+  t0 = time.perf_counter()
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+    loss_model = model.mean_loss(params, *batch).item()
+  rest = (num_frames, labels, num_labels)
+
+  def plain(p, e):
+    cache = lattice.build_cache(p)
+    log_z = route['plain'](
+        p['weight_fn'], cache, e, num_frames,
+        max_expansions=lattice.alignment.max_expansions,
+        frame_dependent=False, compute_dtype=torch.bfloat16)
+    return log_z - lattice._string_forward(p, cache, e, num_frames, labels,
+                                           num_labels, semirings.Log)
+
+  routes = {
+      'kernels': (torch.float32, lambda p, e: lattice.loss(p, e, *rest)),
+      'plain': (torch.float32, plain),
+      'float64': (torch.float64, lambda p, e: sharded_scan.tp_lattice_loss(
+          lattice, p, e, *rest,
+          reduce=float64_frame_reduce(torch, sharded_scan))),
+  }
+  results = {}
+  for name, (dtype, loss_fn) in routes.items():
+    results[name] = lattice_step1(torch, pytree, params['lattice'], encoded,
+                                  dtype, loss_fn)
+    if name == 'kernels':
+      check(lattice.last_path == 'kernel',
+            f'last_path is {lattice.last_path!r}, not kernel')
+  (loss_k, got), (loss_p, plain_grads), (loss_64, ref) = results.values()
+  for what, loss in (('plain', loss_p), ('float64', loss_64)):
+    rel = abs(loss_k - loss) / abs(loss)
+    check(np.isfinite(loss_k) and rel <= STEP_LOSS_RTOL,
+          f'step-1 loss {loss_k} through the kernels vs {loss} {what}')
+  largest = max(g.abs().max().item() for g in ref.values())
+  errors = {name: tuple((g[name] - r).abs().max().item() / largest
+                        for g in (got, plain_grads))
+            for name, r in ref.items()}
+  for name, (err_k, err_p) in errors.items():
+    check(bool(torch.isfinite(got[name]).all()), f'{name}: not finite')
+    check(err_k <= max(STEP_GRAD_RTOL, 2 * err_p),
+          f'step-1 gradient of {name}: kernels {err_k:.3g} of the largest '
+          f'from float64, float32 plain {err_p:.3g}')
+  vs_plain = max(((got[n] - plain_grads[n]).abs().max().item() / largest, n)
+                 for n in ref)
+  blank_b = "['weight_fn']['blank_b']"
+  say(phase, f'step 1 (lattice loss on the encoder outputs): loss kernels '
+             f'{loss_k:.9g}, float32 plain {loss_p:.9g}, float64 '
+             f'{loss_64:.9g}; gradients vs float64, of the largest '
+             f'{largest:.4g}, per leaf (kernels, float32 plain): ' +
+             ', '.join(f'{n} ({a:.2e}, {b:.2e})'
+                       for n, (a, b) in errors.items()) +
+             f'; kernels vs float32 plain at most {vs_plain[0]:.2e} '
+             f'({vs_plain[1]}); blank_b gradient kernels '
+             f'{got[blank_b].item():.6g}, plain '
+             f'{plain_grads[blank_b].item():.6g}, float64 '
+             f'{ref[blank_b].item():.3g} ({time.perf_counter() - t0:.1f} s)')
+  return loss_model
+
+
+def rnn_cacher_check(torch, gnat, presets, fused_scan, viterbi, semirings,
+                     pytree, sharded_scan):
+  """Phase 15(c): gnat_global_bigram(use_rnn_cacher=True) at full width on
+  phase 6's batch: step 1 against the plain versions in float32 and float64
+  (``step1_vs_float64``: kernels against plain read 2.77e-3 of the largest
+  gradient on FLD's structurally zero blank_b, PR 17), 3 train steps through
+  the 'cache' pair (losses falling), one profiled; a decode through the
+  Viterbi kernel. Returns ((forward, backward) launches, decode
+  launches)."""
+  config = presets.gnat_global_bigram(use_rnn_cacher=True)
+  route = bigram_route(torch, fused_scan, config, len(NUM_FRAMES))
+  check(route['name'] == 'cache', f'planned {route["name"]!r}, not cache')
+  model, _, state, batch, launches = train_and_check(
+      torch, gnat, semirings, pytree, config, NUM_FRAMES, NUM_LABELS,
+      'rnn-cacher', route, step1=functools.partial(
+          step1_vs_float64, sharded_scan=sharded_scan))
+  reset_counts(viterbi)
+  (labels, num_labels, weights), decode_ms = timed(
+      torch, lambda: model.decode(state.params, batch[0], batch[1]))
+  check(model.lattice.last_path == 'kernel' and viterbi.launches >= 1,
+        f'the RNN-cacher decode took {model.lattice.last_path!r}')
+  check(bool(torch.isfinite(weights).all()) and
+        torch.equal(num_labels, 3 * batch[1].int()) and
+        int(labels.max()) <= config.vocab_size, 'RNN-cacher decode output')
+  say('rnn-cacher', f'SharedRNNCacher (LSTM {config.embedding_size} over '
+                    f'{config.vocab_size + 1} bigram states) decode B='
+                    f'{len(NUM_FRAMES)} T_max={max(NUM_FRAMES)} through the '
+                    f'Viterbi kernel: '
+                    f'{decode_ms:.1f} ms (first call), {viterbi.launches} '
+                    f'launches')
+  return launches, viterbi.launches
+
+
+def latency_line(times):
+  return (f'p50 {np.percentile(times, 50):.2f} ms, p90 '
+          f'{np.percentile(times, 90):.2f} ms')
+
+
+def streaming_encoder_check(torch, encoder_lib, trained, encoder, card):
+  """Phase 15(d): StreamingEncoder on phase 6's lengths with the
+  parameters trained in (a), in chunks of 16 and 64 frames against the
+  offline (auto: banded) encode; banded against dense attention at B=8 x
+  1600, outputs and gradients, each route's peak memory. Returns (frames,
+  num_frames, the offline encodings)."""
+  params = pytree_detach(torch, trained.params['encoder'])
+  rng = np.random.default_rng(15)
+  frames = torch.from_numpy(rand(rng, (len(NUM_FRAMES), max(NUM_FRAMES),
+                                       encoder.feature_size))).cuda()
+  num_frames = torch.tensor(NUM_FRAMES, device='cuda')
+  mask = (torch.arange(frames.shape[1], device='cuda')[None] <
+          num_frames[:, None])
+  check(encoder.attention_inputs(mask)[0], 'the offline encode is not banded')
+  with torch.no_grad():
+    offline = encoder.apply(params, frames, num_frames)
+    stream = encoder_lib.StreamingEncoder(encoder)
+    for chunk in STREAM_CHUNKS:
+      state = stream.init_state(len(NUM_FRAMES))
+      outs = []
+      for start in range(0, frames.shape[1], chunk):
+        state, out = stream.step(params, state,
+                                 frames[:, start:start + chunk])
+        outs.append(out)
+      err = (torch.cat(outs, dim=1) - offline).abs()[mask].max().item()
+      check(err <= STREAM_ATOL, f'chunks of {chunk}: the streaming encoder '
+            f'differs from the offline one by {err:.3g}')
+      say('stream-encoder', f'StreamingEncoder chunks of {chunk} frames vs '
+                            f'the offline (banded) encode, B=8 T_max=1600: '
+                            f'max |a-b| {err:.3g} over valid frames '
+                            f'(limit {STREAM_ATOL})')
+
+  results = {}
+  weights = torch.linspace(-1.0, 1.0, encoder.model_size, device='cuda')
+  for banded in (True, False):
+    routed = dataclasses.replace(encoder, banded_attention=banded)
+    leaves = pytree_detach(torch, params)
+    for leaf in torch.utils._pytree.tree_leaves(leaves):
+      leaf.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = routed.apply(leaves, frames, num_frames)
+    (out * weights).sum().backward()
+    end.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    grads = [leaf.grad for leaf in torch.utils._pytree.tree_leaves(leaves)]
+    results[banded] = (out.detach(), grads, peak, start.elapsed_time(end))
+    del out
+  out_err = (results[True][0] - results[False][0]).abs().max().item()
+  largest = max(g.abs().max().item() for g in results[False][1])
+  grad_err = max((a - b).abs().max().item()
+                 for a, b in zip(results[True][1], results[False][1]))
+  check(out_err <= STREAM_ATOL, f'banded vs dense outputs {out_err:.3g}')
+  check(grad_err <= STREAM_ATOL * largest,
+        f'banded vs dense gradients {grad_err:.3g} of largest {largest:.3g}')
+  say('stream-encoder',
+      f'banded vs dense attention, encoder 4 x 256 (4 heads, window 64, '
+      f'conv 8) B=8 T=1600 forward+backward: outputs max |a-b| '
+      f'{out_err:.3g}, gradients max |a-b| {grad_err / largest:.3g} of the '
+      f'largest {largest:.3g}; peak memory above the inputs banded '
+      f'{results[True][2] / 2**20:.1f} MiB vs dense '
+      f'{results[False][2] / 2**20:.1f} MiB; time (first call) banded '
+      f'{results[True][3]:.1f} ms, dense {results[False][3]:.1f} ms; {card}')
+  return frames, num_frames, offline
+
+
+def pytree_detach(torch, tree):
+  return torch.utils._pytree.tree_map(lambda x: x.detach().clone(), tree)
+
+
+def run_greedy(torch, greedy, lattice_params, cache, encoded, num_frames,
+               chunk):
+  """The greedy decoder over ``encoded`` in chunks: (final states, labels,
+  counts)."""
+  q = greedy.init_state(encoded.shape[0])
+  labels, counts = [], 0
+  for start in range(0, encoded.shape[1], chunk):
+    valid = torch.clamp(num_frames - start, 0, chunk)
+    q, out, n = greedy.step(lattice_params, q,
+                            encoded[:, start:start + chunk], valid, cache)
+    labels.append(out)
+    counts = counts + n
+  return q, torch.cat(labels, dim=1), counts
+
+
+def run_beam(torch, beam, lattice_params, cache, encoded, num_frames, chunk):
+  """The beam decoder's final state over ``encoded`` in chunks."""
+  state = beam.init_state(encoded.shape[0])
+  for start in range(0, encoded.shape[1], chunk):
+    valid = torch.clamp(num_frames - start, 0, chunk)
+    state = beam.step(lattice_params, state,
+                      encoded[:, start:start + chunk], valid, cache)
+  return state
+
+
+def check_beams_equal(torch, got, want, what):
+  for field in ('context', 'labels', 'num_labels', 'hash'):
+    check(torch.equal(got[field], want[field]), f'{what}: beam {field}')
+  finite = torch.isfinite(want['score'])
+  check(torch.equal(finite, torch.isfinite(got['score'])) and
+        torch.equal(got['score'][~finite], want['score'][~finite]),
+        f'{what}: beam scores differ in their -inf slots')
+  rel = ((got['score'][finite] - want['score'][finite]).abs() /
+         want['score'][finite].abs().clamp(min=1e-30)).max().item()
+  check(rel <= BEAM_SCORE_RTOL, f'{what}: beam scores rel {rel:.3g}')
+  return rel
+
+
+def serving_loop(torch, encoder_lib, streaming, encoder, enc_params,
+                 lattice, lattice_params, cache, frames, num_frames):
+  """The serving loop: each chunk of SERVE_CHUNK frames through the
+  streaming encoder, then the greedy and the beam decoders, timed per step
+  with CUDA events and synchronised per chunk as a server reading its
+  results would be. Returns (greedy output, beam state, {step: [ms per
+  chunk]})."""
+  stream = encoder_lib.StreamingEncoder(encoder)
+  greedy = streaming.StreamingGreedyDecoder(lattice)
+  beam = streaming.StreamingBeamDecoder(lattice, BEAM_SIZE, BEAM_MAX_LABELS)
+  batch = frames.shape[0]
+  es = stream.init_state(batch)
+  q, beams = greedy.init_state(batch), beam.init_state(batch)
+  labels, counts, times = [], 0, {'encoder': [], 'greedy': [], 'beam': []}
+  events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+  with torch.no_grad():
+    for start in range(0, frames.shape[1], SERVE_CHUNK):
+      valid = torch.clamp(num_frames - start, 0, SERVE_CHUNK)
+      events[0].record()
+      es, encoded = stream.step(enc_params, es,
+                                frames[:, start:start + SERVE_CHUNK])
+      events[1].record()
+      q, out, n = greedy.step(lattice_params, q, encoded, valid, cache)
+      events[2].record()
+      beams = beam.step(lattice_params, beams, encoded, valid, cache)
+      events[3].record()
+      torch.cuda.synchronize()
+      for key, (a, b) in zip(times, zip(events, events[1:])):
+        times[key].append(a.elapsed_time(b))
+      labels.append(out)
+      counts = counts + n
+  return (q, torch.cat(labels, dim=1), counts), beams, times
+
+
+def decoders_check(torch, encoder_lib, streaming, encoder, lattice, trained,
+                   frames, num_frames, offline, card):
+  """Phase 15(e): the greedy and beam (4, max_labels 512, 'max') decoders
+  (the trained model with its blank bias lowered by BLANK_SHIFT) on one
+  offline encode, in chunks of 16 and in one chunk: identical;
+  nbest_offline's best equals the one-chunk beam's; the serving loop
+  (chunked encoder -> chunked decoders) against the offline encode ->
+  one-chunk decoders: equal label slots >= 99.9%, a differing best
+  hypothesis a tie when rescored; per-chunk latency, launches per chunk
+  and the real-time factor."""
+  lattice_params = pytree_detach(torch, trained.params['lattice'])
+  # Three steps leave the model emitting no label: lower the blank bias, as
+  # phase 14 does, so that the decoders emit (and recombine) labels.
+  lattice_params['weight_fn']['blank_b'] -= BLANK_SHIFT
+  enc_params = pytree_detach(torch, trained.params['encoder'])
+  cache = lattice.build_cache(lattice_params)
+  greedy = streaming.StreamingGreedyDecoder(lattice)
+  beam = streaming.StreamingBeamDecoder(lattice, BEAM_SIZE, BEAM_MAX_LABELS)
+  max_t = offline.shape[1]
+  t0 = time.perf_counter()
+  g_whole = run_greedy(torch, greedy, lattice_params, cache, offline,
+                       num_frames, max_t)
+  b_whole = run_beam(torch, beam, lattice_params, cache, offline, num_frames,
+                     max_t)
+  torch.cuda.synchronize()
+  whole_s = time.perf_counter() - t0
+  g_chunks = run_greedy(torch, greedy, lattice_params, cache, offline,
+                        num_frames, SERVE_CHUNK)
+  b_chunks = run_beam(torch, beam, lattice_params, cache, offline,
+                      num_frames, SERVE_CHUNK)
+  for got, want, name in zip(g_chunks, g_whole,
+                             ('states', 'labels', 'counts')):
+    check(torch.equal(got, want), f'greedy chunks of {SERVE_CHUNK} vs one '
+          f'chunk: {name} differ')
+  rel = check_beams_equal(torch, b_chunks, b_whole,
+                          f'beam chunks of {SERVE_CHUNK} vs one chunk')
+  lexical = int((g_whole[1] > 0).sum())
+  best_labels, best_n, best_score = beam.best(b_whole)
+  check(lexical > 0, 'the greedy decode emitted no label')
+  say('stream-decode', f'one offline encode (B=8 T_max=1600), greedy and '
+                       f'beam {BEAM_SIZE} (max_labels {BEAM_MAX_LABELS}, '
+                       f"merge 'max'): chunks of {SERVE_CHUNK} vs one chunk "
+                       f'identical (greedy labels, counts, states; beam '
+                       f'labels, counts, states, hashes; scores rel '
+                       f'{rel:.2g}); greedy emitted {lexical} labels, beam '
+                       f'best {best_n.tolist()} labels; one-chunk pair '
+                       f'{whole_s:.1f} s')
+
+  with warnings_caught() as caught:
+    n_labels, n_num, n_scores = streaming.nbest_offline(
+        lattice, lattice_params, offline, num_frames, beam_size=BEAM_SIZE,
+        cache=cache)
+  check(any('capped at 512' in str(w.message) for w in caught),
+        'nbest_offline did not warn of its 512-label cap')
+  check(torch.equal(n_labels[:, 0], best_labels) and
+        torch.equal(n_num[:, 0], best_n) and
+        torch.equal(n_scores[:, 0], best_score),
+        "nbest_offline's best differs from the one-chunk beam's")
+  finite = torch.isfinite(n_scores)
+  check(bool((n_scores[:, :-1] >= n_scores[:, 1:])[finite[:, 1:]].all()),
+        'nbest_offline scores not sorted')
+  say('stream-decode', f'nbest_offline (beam {BEAM_SIZE}, default labels '
+                       f'capped at 512 with its warning): best equals the '
+                       f'one-chunk beam, scores sorted')
+
+  # The serving loop, timed per chunk, against the offline path.
+  serve_greedy, serve_beam, times = serving_loop(
+      torch, encoder_lib, streaming, encoder, enc_params, lattice,
+      lattice_params, cache, frames, num_frames)
+  slots = 3 * num_frames
+  valid = (torch.arange(g_whole[1].shape[1], device='cuda')[None] <
+           slots[:, None])
+  share = (serve_greedy[1] == g_whole[1])[valid].float().mean().item()
+  check(share >= EQUAL_SLOT_SHARE, f'serving loop vs offline: greedy slots '
+        f'equal {share:.4%}')
+  s_labels, s_n, s_score = beam.best(serve_beam)
+  width = torch.maximum(s_n, best_n)
+  used = (torch.arange(BEAM_MAX_LABELS, device='cuda')[None] <
+          width[:, None])
+  beam_share = ((s_labels == best_labels) | ~used).all(dim=1)
+  slot_share = ((s_labels == best_labels)[used].float().mean().item()
+                if bool(used.any()) else 1.0)
+  ties = []
+  for b in (~beam_share).nonzero()[:, 0].tolist():
+    # Rescore both best hypotheses on the offline encode: their best
+    # alignments' weights (forced alignment, MaxTropical).
+    hyps = torch.stack([s_labels[b], best_labels[b]])
+    counts = torch.stack([s_n[b], best_n[b]])
+    _, rescored = lattice.align(lattice_params, offline[b:b + 1].expand(
+        2, -1, -1), num_frames[b:b + 1].expand(2), hyps, counts, cache=cache)
+    gap = abs(rescored[0].item() - rescored[1].item())
+    ties.append((b, gap / abs(rescored[1].item())))
+    check(gap <= TIE_RTOL * abs(rescored[1].item()),
+          f'serving loop vs offline: stream {b} best hypothesis differs and '
+          f'its rescoring {rescored.tolist()} is no tie')
+  check(slot_share >= EQUAL_SLOT_SHARE,
+        f'serving loop vs offline: beam best slots equal {slot_share:.4%}')
+  say('stream-decode', f'serving loop (chunked encoder -> chunked decoders) '
+                       f'vs offline encode -> one-chunk decoders: greedy '
+                       f'label slots equal {share:.4%}, beam best slots '
+                       f'equal {slot_share:.4%} ({int(beam_share.sum())} of '
+                       f'{len(beam_share)} streams identical; differing '
+                       f'streams rescored as ties: {ties})')
+
+  # Per-chunk latency and launches: one chunk of each step under the
+  # profiler.
+  stream = encoder_lib.StreamingEncoder(encoder)
+  chunk_frames = offline[:, :SERVE_CHUNK]
+  valid = torch.clamp(num_frames, 0, SERVE_CHUNK)
+  with torch.no_grad():
+    es = stream.init_state(frames.shape[0])
+    per_chunk = {
+        'encoder': launch_count(torch, lambda: stream.step(
+            enc_params, es, frames[:, :SERVE_CHUNK])),
+        'greedy': launch_count(torch, lambda: greedy.step(
+            lattice_params, greedy.init_state(frames.shape[0]),
+            chunk_frames, valid, cache)),
+        'beam': launch_count(torch, lambda: beam.step(
+            lattice_params, beam.init_state(frames.shape[0]), chunk_frames,
+            valid, cache)),
+    }
+  audio_ms = SERVE_CHUNK * FRAME_SHIFT_MS
+  p50 = {k: float(np.percentile(v, 50)) for k, v in times.items()}
+  say('stream-latency',
+      f'per chunk of {SERVE_CHUNK} frames, B=8, {len(times["encoder"])} '
+      f'chunks (CUDA events, synchronised per chunk): encoder step '
+      f'{latency_line(times["encoder"])}, greedy step '
+      f'{latency_line(times["greedy"])}, beam {BEAM_SIZE} step '
+      f'{latency_line(times["beam"])}; device activities per chunk '
+      f'{json.dumps(per_chunk)}; real-time factor, assuming a '
+      f'{FRAME_SHIFT_MS:.0f} ms frame shift ({audio_ms:.0f} ms of audio a '
+      f'chunk), at the p50s: encoder+greedy '
+      f'{(p50["encoder"] + p50["greedy"]) / audio_ms:.3f}, encoder+beam '
+      f'{(p50["encoder"] + p50["beam"]) / audio_ms:.3f}; {card}')
+
+
+@contextlib.contextmanager
+def warnings_caught():
+  with warnings.catch_warnings(record=True) as caught:
+    warnings.simplefilter('always')
+    yield caught
+
+
+def launch_count(torch, fn):
+  """The device activities (kernels, copies, sets) of one call of fn."""
+  _, spans = device_spans(torch, fn)
+  return len(spans)
+
+
+def long_step(torch, gnat, presets, fused_scan, card):
+  """Phase 15(f): one train_step at B=8 x T=6400 (U=100) with the JAX
+  package's production encoder (benchmarks/tpu_production_step.py:39-48:
+  512 x 4, 8 heads, ffn 2048, bfloat16) through the banded route: its
+  time, peak memory and log-partition mode. Returns (mode, (forward,
+  backward) launches)."""
+  config = presets.streaming_conformer_gnat(
+      encoder_size=512, encoder_layers=4, encoder_heads=8,
+      encoder_ffn_size=2048, hidden_size=512, embedding_size=512)
+  model = gnat.GNATModel(config, device='cuda')
+  model.encoder = dataclasses.replace(
+      model.encoder, banded_attention=True, dtype=torch.bfloat16)
+  optimizer = gnat.make_optimizer()
+  state = gnat.init_train_state(model, torch.Generator().manual_seed(0),
+                                optimizer)
+  rng = np.random.default_rng(1)
+  frames = torch.from_numpy(rand(rng, (LONG_BATCH, LONG_FRAMES, 80),
+                                 0.5)).cuda()
+  num_frames = torch.full((LONG_BATCH,), LONG_FRAMES, device='cuda')
+  labels = torch.from_numpy(rng.integers(
+      1, config.vocab_size + 1, size=(LONG_BATCH, LONG_LABELS))).cuda()
+  num_labels = torch.full((LONG_BATCH,), LONG_LABELS, device='cuda')
+  mode = fused_scan.plan(LONG_BATCH, config.vocab_size + 1,
+                         config.vocab_size, torch.bfloat16)
+  reset_counts(fused_scan)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  (state, loss), step_ms = timed(torch, lambda: gnat.train_step(
+      model, optimizer, state, frames, num_frames, labels, num_labels))
+  peak = torch.cuda.max_memory_allocated()
+  names = LP_COUNTERS[mode]
+  launches = tuple(getattr(fused_scan, n) for n in names)
+  check(np.isfinite(loss.item()) and model.lattice.last_path == 'kernel' and
+        all(n >= 1 for n in launches),
+        f'long step: loss {loss.item()}, path {model.lattice.last_path}, '
+        f'launches {launches}')
+  say('stream-long', f'train_step B={LONG_BATCH} T={LONG_FRAMES} '
+                     f'U={LONG_LABELS}, streaming Conformer 512 x 4 (8 '
+                     f'heads, ffn 2048, bfloat16, banded attention, window '
+                     f'64): {step_ms:.1f} ms (first call), peak memory '
+                     f'{peak / 2**30:.2f} GiB, loss {loss.item():.6g}; '
+                     f"log-partition mode {mode!r} (plan for 'auto'), "
+                     f'launches (forward, backward) {launches}; {card}')
+  return mode, launches
+
+
+def phase_streaming(torch, gnat, presets, encoder_lib, streaming, train_lib,
+                    data_lib, checkpoint_lib, fused_scan, viterbi,
+                    sharded_scan, semirings, pytree):
+  """Phase 15: streaming serving and the trainer, (a)-(f) above. Returns
+  {kernel counter: {path: launches}} of the new paths."""
+  card = card_line()
+  t0 = time.perf_counter()
+  trained, train_launches = streaming_trainer(
+      torch, gnat, presets, train_lib, data_lib, checkpoint_lib, fused_scan,
+      viterbi, semirings, pytree)
+  say('stream-train', f'{time.perf_counter() - t0:.1f} s')
+  torch.cuda.empty_cache()
+  accumulate = accumulate_check(torch, gnat, presets, train_lib, fused_scan,
+                                pytree)
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  rnn_launches, rnn_decodes = rnn_cacher_check(
+      torch, gnat, presets, fused_scan, viterbi, semirings, pytree,
+      sharded_scan)
+  say('rnn-cacher', f'{time.perf_counter() - t0:.1f} s')
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  model = gnat.GNATModel(presets.streaming_conformer_gnat(), device='cuda')
+  frames, num_frames, offline = streaming_encoder_check(
+      torch, encoder_lib, trained, model.encoder, card)
+  say('stream-encoder', f'{time.perf_counter() - t0:.1f} s')
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  decoders_check(torch, encoder_lib, streaming, model.encoder, model.lattice,
+                 trained, frames, num_frames, offline, card)
+  say('stream-decode', f'{time.perf_counter() - t0:.1f} s')
+  del trained, frames, offline
+  torch.cuda.empty_cache()
+  t0 = time.perf_counter()
+  mode, long_launches = long_step(torch, gnat, presets, fused_scan, card)
+  say('stream-long', f'{time.perf_counter() - t0:.1f} s')
+  train_path = 'streaming_conformer_gnat train() steps (3, resumed to 4)'
+  accumulate_path = ('streaming_conformer_gnat accumulate_steps=2 (2 '
+                     'micro-steps)')
+  rnn_path = 'gnat_global_bigram(use_rnn_cacher=True) train steps'
+  long_path = f'B={LONG_BATCH} x {LONG_FRAMES} banded train_step'
+  forward, backward = LP_COUNTERS[mode]
+  by_counter = {'forward_launches': {}, 'backward_launches': {},
+                forward: {}, backward: {}}
+  for i, counter in enumerate(('forward_launches', 'backward_launches')):
+    by_counter[counter].update({
+        train_path: train_launches['steps'][i],
+        accumulate_path: accumulate[i], rnn_path: rnn_launches[i]})
+  by_counter[forward][long_path] = long_launches[0]
+  by_counter[backward][long_path] = long_launches[1]
+  by_counter['viterbi'] = {
+      'streaming_conformer_gnat train() eval decode':
+          train_launches['decode'],
+      'gnat_global_bigram(use_rnn_cacher=True) decode': rnn_decodes}
+  return by_counter
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -4617,8 +5345,12 @@ def main():
     from torch.utils import _pytree as pytree
 
     from last_torch_tpu_torch import (alignments, contexts, lattices, risk,
-                                      semirings, weight_fns)
+                                      semirings, streaming, weight_fns)
+    from last_torch_tpu_torch import data as data_lib
+    from last_torch_tpu_torch.models import encoder as encoder_lib
     from last_torch_tpu_torch.models import gnat, presets
+    from last_torch_tpu_torch.models import train as train_lib
+    from last_torch_tpu_torch.utils import checkpoint as checkpoint_lib
     from last_torch_tpu_torch.ops import (build, fused_scan, joint_head,
                                           numerator_scan, sharded_scan,
                                           trigram_scan, viterbi)
@@ -4966,6 +5698,24 @@ def main():
                   f'T={max(ENTROPY_NUM_FRAMES)})')
   jh_records['forward']['launches'] += entropy_launches
   jh_records['forward']['launches_by_path'][entropy_path] = entropy_launches
+
+  # Phase 15: streaming serving and the trainer.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  stream_launches = phase_streaming(
+      torch, gnat, presets, encoder_lib, streaming, train_lib, data_lib,
+      checkpoint_lib, fused_scan, viterbi, sharded_scan, semirings, pytree)
+  print(f'[streaming] {time.perf_counter() - t0:.1f} s', flush=True)
+  by_counter = {'forward_launches': records['forward'],
+                'backward_launches': records['backward'],
+                'online_forward_launches': online_records[0],
+                'online_backward_launches': online_records[1],
+                'viterbi': viterbi_record}
+  for counter, paths in stream_launches.items():
+    record = by_counter[counter]
+    for path, count in paths.items():
+      record['launches'] += count
+      record.setdefault('launches_by_path', {})[path] = count
   print(f'[total] {time.perf_counter() - start:.1f} s', flush=True)
 
   print(json.dumps({'kernels': [viterbi_record, records['forward'],

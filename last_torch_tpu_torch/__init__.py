@@ -34,13 +34,19 @@ joint+head kernels; the CTC topology (a single context state,
 ``models.presets.ctc_like``), on the factorized S = 1 route of
 ``lattices``, and the tuple semirings (``semirings.LogLogExpectation``,
 ``Cartesian``) with ``shortest_distance``'s ``weight_lift``, e.g. path
-entropy. See ROADMAP.md for what follows.
+entropy; online serving of a causal windowed encoder chunk by chunk
+(``models.encoder.StreamingEncoder``, banded offline attention) with the
+greedy and beam decoders of ``streaming``, and the trainer that feeds it
+(``models.train``, ``data``, ``utils``: checkpoints, prefetch, timers;
+gradient accumulation, the RNN context cacher). See ROADMAP.md for what
+follows.
 """
 
 from last_torch_tpu_torch import alignments
 from last_torch_tpu_torch import contexts
 from last_torch_tpu_torch import risk
 from last_torch_tpu_torch import semirings
+from last_torch_tpu_torch import streaming
 from last_torch_tpu_torch import weight_fns
 from last_torch_tpu_torch.contexts import ContextDependency
 from last_torch_tpu_torch.contexts import FullNGram

@@ -45,3 +45,11 @@ def normal(shape: tuple[int, ...], generator: torch.Generator,
   """``jax.random.normal``: standard normal float32 samples."""
   return torch.randn(shape, generator=generator,
                      dtype=torch.float32).to(device)
+
+
+def uniform(shape: tuple[int, ...], generator: torch.Generator, low: float,
+            high: float, device='cpu') -> torch.Tensor:
+  """``jax.random.uniform(minval=low, maxval=high)``: float32 samples."""
+  out = torch.empty(shape, dtype=torch.float32)
+  out.uniform_(low, high, generator=generator)
+  return out.to(device)

@@ -19,8 +19,9 @@ Counterpart of ``last_torch_tpu/models/gnat.py``: ``GNATConfig``,
 (``make_optimizer``: AdamW with global-norm clipping and the
 warmup/cosine schedule), the training step (``GNATTrainState``,
 ``init_train_state``, ``train_step``) and the expected-risk (MWER)
-fine-tuning step (``risk_train_step``). ``accumulate_steps`` is still to
-port (ROADMAP queue 1, item 9).
+fine-tuning step (``risk_train_step``). ``make_optimizer(accumulate_steps=k)``
+averages gradients over k micro-steps before one update, as
+``optax.MultiSteps`` does in the JAX package.
 """
 
 from __future__ import annotations
@@ -99,10 +100,6 @@ class GNATModel:
     if self.device.type == 'cuda' and not torch.cuda.is_available():
       raise RuntimeError(f'GNATModel on {device}: no CUDA device is '
                          'available (pass device=\'cpu\' to run on the CPU)')
-    if config.use_rnn_cacher:
-      raise NotImplementedError(
-          'SharedRNNCacher is not ported to PyTorch yet: ROADMAP.md queue 1, '
-          'item 6 ("weight_fns.py, the rest")')
     self.config = config
     self.encoder = encoder_lib.TransformerEncoder(
         feature_size=config.feature_size,
@@ -122,6 +119,15 @@ class GNATModel:
     else:
       alignment = alignments.FrameDependent()
 
+    def cacher_factory(ctx):
+      if config.use_rnn_cacher:
+        return weight_fns.SharedRNNCacher(
+            vocab_size=ctx.vocab_size, context_size=ctx.context_size,
+            rnn_size=config.embedding_size,
+            rnn_embedding_size=config.embedding_size)
+      return weight_fns.SharedEmbCacher(num_context_states=ctx.shape()[0],
+                                        embedding_size=config.embedding_size)
+
     def weight_fn_factory(ctx):
       joint = weight_fns.JointWeightFn(vocab_size=ctx.shape()[1],
                                        hidden_size=config.hidden_size)
@@ -132,9 +138,7 @@ class GNATModel:
     self.lattice = lattices.RecognitionLattice(
         context=context,
         alignment=alignment,
-        weight_fn_cacher_factory=lambda ctx: weight_fns.SharedEmbCacher(
-            num_context_states=ctx.shape()[0],
-            embedding_size=config.embedding_size),
+        weight_fn_cacher_factory=cacher_factory,
         weight_fn_factory=weight_fn_factory)
 
   def init(self, generator: torch.Generator) -> Params:
@@ -204,10 +208,15 @@ class GNATModel:
 
 @dataclasses.dataclass
 class OptState:
-  """The optimizer's state: torch's AdamW over the parameter leaves and the
-  learning-rate schedule that steps with it."""
+  """The optimizer's state: torch's AdamW over the parameter leaves, the
+  learning-rate schedule that steps with it (its ``last_epoch`` counts the
+  updates), and, when gradients accumulate, their running mean over the
+  micro-steps since the last update (``acc``, one tensor a leaf) and the
+  count of those micro-steps."""
   adamw: torch.optim.AdamW
   schedule: torch.optim.lr_scheduler.LambdaLR
+  acc: Optional[list[torch.Tensor]] = None
+  mini_step: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,13 +228,18 @@ class Optimizer:
   betas (0.9, 0.999), eps 1e-8, decoupled weight decay on every leaf.
   torch's ``clip_grad_norm_`` divides by ``norm + 1e-6`` where optax
   divides by ``norm``, so clipped updates differ by that relative 1e-6 /
-  norm.
+  norm. With ``accumulate_steps`` k > 1 it is ``optax.MultiSteps`` over that
+  chain: each micro-step's gradients join a running mean (optax's
+  ``acc + (g - acc) / (n + 1)``), and every k-th micro-step the chain runs
+  once on the mean; the parameters stay put in between, and the schedule
+  and AdamW's step count advance per update.
   """
   learning_rate: float
   weight_decay: float
   clip_norm: float
   warmup_steps: int
   total_steps: int
+  accumulate_steps: int = 1
 
   def rate_factor(self, count: int) -> float:
     """The learning rate before update ``count`` (0-based), relative to
@@ -240,31 +254,58 @@ class Optimizer:
 
   def init(self, params: Params) -> OptState:
     """The state for ``params``, whose leaves it updates in place."""
+    leaves = pytree.tree_leaves(params)
     adamw = torch.optim.AdamW(
-        pytree.tree_leaves(params), lr=self.learning_rate,
-        betas=(0.9, 0.999), eps=1e-8, weight_decay=self.weight_decay)
+        leaves, lr=self.learning_rate, betas=(0.9, 0.999), eps=1e-8,
+        weight_decay=self.weight_decay)
     schedule = torch.optim.lr_scheduler.LambdaLR(adamw, self.rate_factor)
-    return OptState(adamw, schedule)
+    acc = None
+    if self.accumulate_steps > 1:
+      acc = [torch.zeros_like(leaf, requires_grad=False) for leaf in leaves]
+    return OptState(adamw, schedule, acc)
 
   def apply_gradients(self, opt_state: OptState,
-                      total_norm: Optional[torch.Tensor] = None) -> None:
+                      total_norm=None) -> bool:
     """Clips the leaves' ``.grad`` to ``clip_norm`` in global norm and takes
-    one AdamW step on them; the schedule advances by one update.
+    one AdamW step on them; the schedule advances by one update. With
+    accumulation, the gradients join the running mean first, and the update
+    runs on the mean at every ``accumulate_steps``-th call only.
 
-    ``total_norm``: the global norm when the leaves hold only part of the
-    gradients (a vocab shard of a tensor-parallel step); the leaves' own by
-    default. The clip is ``clip_grad_norm_``'s either way.
+    ``total_norm``: when the leaves hold only part of the gradients (a
+    vocab shard of a tensor-parallel step), a function of no arguments that
+    computes the global norm from the leaves' ``.grad`` (the mean, once
+    accumulated); the leaves' own norm by default. The clip is
+    ``clip_grad_norm_``'s either way.
+
+    Returns:
+      Whether the parameters were updated.
     """
     leaves = [p for group in opt_state.adamw.param_groups
               for p in group['params']]
+    if opt_state.acc is not None:
+      n = opt_state.mini_step
+      with torch.no_grad():
+        for acc, leaf in zip(opt_state.acc, leaves):
+          if leaf.grad is not None:
+            acc.add_((leaf.grad - acc) / (n + 1))
+          else:
+            acc.sub_(acc / (n + 1))
+      opt_state.mini_step = n + 1
+      if opt_state.mini_step < self.accumulate_steps:
+        return False
+      for acc, leaf in zip(opt_state.acc, leaves):
+        leaf.grad = acc.clone()
+        acc.zero_()
+      opt_state.mini_step = 0
     if total_norm is None:
       torch.nn.utils.clip_grad_norm_(leaves, self.clip_norm)
     else:
-      coef = torch.clamp(self.clip_norm / (total_norm + 1e-6), max=1.0)
+      coef = torch.clamp(self.clip_norm / (total_norm() + 1e-6), max=1.0)
       for leaf in leaves:
         leaf.grad.mul_(coef)
     opt_state.adamw.step()
     opt_state.schedule.step()
+    return True
 
 
 def make_optimizer(learning_rate: float = 1e-3,
@@ -279,17 +320,18 @@ def make_optimizer(learning_rate: float = 1e-3,
   transducer schedule: linear warmup from 0 to ``learning_rate`` over
   ``warmup_steps``, then cosine decay to zero at ``total_steps`` (constant
   after warmup when ``total_steps`` is 0).
+
+  ``accumulate_steps > 1`` averages the gradients of that many micro-batches
+  before one parameter update (``optax.MultiSteps`` semantics): the way to
+  train at effective batch sizes whose lattice activations do not fit one
+  card. The schedule advances per update, not per micro-batch.
   """
-  if accumulate_steps > 1:
-    raise NotImplementedError(
-        'accumulate_steps > 1 is not ported to PyTorch yet: ROADMAP.md '
-        'queue 1, item 9 ("models/ and support code")')
   if warmup_steps > 0 and 0 < total_steps <= warmup_steps:
     raise ValueError(
         f'total_steps={total_steps} must exceed warmup_steps='
         f'{warmup_steps} (or be 0 for constant-after-warmup)')
   return Optimizer(learning_rate, weight_decay, clip_norm, warmup_steps,
-                   total_steps)
+                   total_steps, max(accumulate_steps, 1))
 
 
 @dataclasses.dataclass
@@ -297,11 +339,14 @@ class GNATTrainState:
   """Training state: parameters + optimizer state + step counter.
 
   Unlike the JAX package's immutable state, ``train_step`` updates the
-  parameter tensors in place (the optimizer holds them).
+  parameter tensors in place (the optimizer holds them). ``shard`` is
+  (index, count) of this rank's vocab shard in a tensor-parallel state
+  (``parallel.sharding.make_tp_train_step``), None for a whole one.
   """
   params: Params
   opt_state: OptState
   step: int
+  shard: Optional[tuple[int, int]] = None
 
 
 def init_train_state(model: GNATModel, generator: torch.Generator,

@@ -80,7 +80,7 @@ def streaming_conformer_gnat(vocab_size: int = 1024,
 
   Causal left-windowed attention + Conformer blocks (causal conv), so
   offline training and chunked serving through
-  ``models.encoder.StreamingEncoder`` + ``streaming`` (still to port)
+  ``models.encoder.StreamingEncoder`` + ``streaming``
   produce identical encodings.
   """
   defaults = dict(

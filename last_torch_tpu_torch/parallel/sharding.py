@@ -157,6 +157,25 @@ def shard_params(params: Params, mesh) -> Params:
   return pytree.tree_unflatten(out, spec)
 
 
+def gather_params(params: Params, mesh) -> Params:
+  """The whole parameters from this rank's ``shard_params`` shards: each
+  sharded leaf gathered over the mesh's model axis (a collective: every
+  rank calls it), the others as they are; detached."""
+  group = mesh.get_group('model')
+  shards = _axis_size(mesh, 'model')
+  flat, spec = pytree.tree_flatten_with_path(params)
+  out = []
+  for path, leaf in flat:
+    leaf = leaf.detach()
+    dim = _sharded_dim(_path_str(path), leaf)
+    if dim is not None and shards > 1:
+      parts = [torch.empty_like(leaf) for _ in range(shards)]
+      dist.all_gather(parts, leaf.contiguous(), group=group)
+      leaf = torch.cat(parts, dim=dim)
+    out.append(leaf)
+  return pytree.tree_unflatten(out, spec)
+
+
 def shard_batch(batch: Params, mesh) -> Params:
   """This rank's rows of each batch-leading array (tensors or numpy),
   split over the data axis."""
@@ -241,12 +260,17 @@ class TrainStep:
     loss = self.loss_and_grads(state, frames, num_frames, labels, num_labels)
     total_norm = None
     if self.model_group is not None:
-      squares = {True: 0.0, False: 0.0}
-      for leaf, sharded in self._leaves(state.params):
-        squares[sharded] = squares[sharded] + leaf.grad.square().sum()
-      shard_squares = torch.as_tensor(squares[True], device=loss.device)
-      dist.all_reduce(shard_squares, group=self.model_group)
-      total_norm = (squares[False] + shard_squares).sqrt()
+
+      def total_norm():
+        """The global norm of the gradients the update runs on (the mean
+        over the micro-steps when they accumulate): each shard once."""
+        squares = {True: 0.0, False: 0.0}
+        for leaf, sharded in self._leaves(state.params):
+          squares[sharded] = squares[sharded] + leaf.grad.square().sum()
+        shard_squares = torch.as_tensor(squares[True], device=loss.device)
+        dist.all_reduce(shard_squares, group=self.model_group)
+        return (squares[False] + shard_squares).sqrt()
+
     self.optimizer.apply_gradients(state.opt_state, total_norm)
     return dataclasses.replace(state, step=state.step + 1), loss
 
@@ -282,8 +306,9 @@ def make_tp_train_step(model, optimizer, mesh):
     params = shard_params(state.params, mesh)
     for leaf in pytree.tree_leaves(params):
       leaf.requires_grad_(True)
-    return gnat.GNATTrainState(params=params,
-                               opt_state=optimizer.init(params), step=0)
+    return gnat.GNATTrainState(
+        params=params, opt_state=optimizer.init(params), step=0,
+        shard=(mesh.get_local_rank('model'), _axis_size(mesh, 'model')))
 
   return TrainStep(model, optimizer, mesh, tensor_parallel=True), shard_state
 

@@ -28,7 +28,9 @@ enumeration oracles of the sampler and the risk). A weight function whose
 ``label_weights`` returns None (a ``LocallyNormalizedWeightFn`` over a
 ``JointWeightFn`` subclass or with another normalizer) gets its string
 weights from the lattice's generic per-position route. ``SharedRNNCacher``
-comes with a later slice (ROADMAP queue 1, item 6).
+builds the context embedding table by running the n-gram label histories
+through an LSTM (``utils.rnn``); the lattice kernels take its table as they
+take ``SharedEmbCacher``'s.
 """
 
 from __future__ import annotations
@@ -40,9 +42,11 @@ from typing import Any, Optional
 import torch
 import torch.utils.checkpoint
 from torch.nn.functional import logsigmoid
+from torch.utils import _pytree as pytree
 
 from last_torch_tpu_torch import initializers
 from last_torch_tpu_torch.ops import joint_head, numerator_scan
+from last_torch_tpu_torch.utils import rnn
 
 Params = dict[str, Any]
 
@@ -309,6 +313,63 @@ class SharedEmbCacher:
 
   def apply(self, params: Params) -> torch.Tensor:
     return params['embedding']
+
+
+class SharedRNNCacher:
+  """Builds a context embedding table by running n-gram labels through an RNN.
+
+  For a ``FullNGram`` context, whose ``num_context_states = sum(vocab_size**i
+  for i in range(context_size + 1))``. Rows follow FullNGram's
+  lexicographic state ids: the start token's output first, then each n-gram
+  level, from the previous level's RNN state repeated vocab_size times and
+  fed the label embeddings. The rows are the cell *outputs*, level by level,
+  as in the JAX package.
+
+  Attributes:
+    vocab_size: Lexical vocabulary size.
+    context_size: Maximum n-gram order.
+    rnn_size: RNN hidden size (the embedding table width).
+    rnn_embedding_size: Label embedding size fed to the RNN.
+    rnn_cell: Optional custom RNN cell; defaults to ``utils.rnn.LSTMCell``.
+  """
+
+  def __init__(self, vocab_size: int, context_size: int, rnn_size: int,
+               rnn_embedding_size: int,
+               rnn_cell: Optional[rnn.RNNCellBase] = None):
+    self.vocab_size = vocab_size
+    self.context_size = context_size
+    self.rnn_size = rnn_size
+    self.rnn_embedding_size = rnn_embedding_size
+    self.rnn_cell = rnn_cell or rnn.LSTMCell(
+        input_size=rnn_embedding_size, hidden_size=rnn_size)
+
+  def init(self, generator: torch.Generator, device='cuda') -> Params:
+    """Label embeddings and the cell's parameters on ``device``: the card
+    unless the caller asks for 'cpu'."""
+    return {
+        'embedding': initializers.normal(
+            (self.vocab_size + 1, self.rnn_embedding_size), generator,
+            device),
+        'cell': self.rnn_cell.init(generator, device),
+    }
+
+  def apply(self, params: Params) -> torch.Tensor:
+    embedding, cell_params = params['embedding'], params['cell']
+    cell, v = self.rnn_cell, self.vocab_size
+    device = embedding.device
+    # Start (empty n-gram) state: the start token 0 from the zero state.
+    state = cell.initial_state(1, embedding.dtype, device)
+    out, state = cell.apply(cell_params, embedding[:1], state)
+    parts = [out]
+    labels = torch.arange(1, v + 1, device=device)
+    for i in range(self.context_size):
+      # Level i+1 lists the (i+1)-grams in lexicographic order: parent
+      # state k // v with label k % v + 1.
+      inputs = embedding[labels.repeat(v**i)]
+      tiled = pytree.tree_map(lambda s: s.repeat_interleave(v, dim=0), state)
+      out, state = cell.apply(cell_params, inputs, tiled)
+      parts.append(out)
+    return torch.cat(parts, dim=0)
 
 
 class NullCacher:

@@ -24,8 +24,7 @@ NUM_FRAMES = np.array([12, 7, 1], np.int32)
 VARIANTS = {
     'non_causal': dict(),
     'causal_window': dict(causal=True, window=4, banded_attention=False),
-    # JAX takes its banded route here (T > 2 * window); the port computes
-    # the same masks densely.
+    # Both packages take their banded route here (auto: T > 2 * window).
     'conformer': dict(causal=True, window=4, conv_kernel=3),
 }
 
@@ -41,8 +40,6 @@ def test_encoder_matches_jax(variant):
       (len(NUM_FRAMES), 12, FEATURES)).astype(np.float32)
 
   expected = np.asarray(jax_enc.apply(params, frames, NUM_FRAMES))
-  if 'banded_attention' in kwargs:
-    del kwargs['banded_attention']  # the port's auto setting is dense
   got = encoder.TransformerEncoder(**kwargs).apply(
       convert.from_jax_params(params, device='cpu'), torch.from_numpy(frames),
       torch.from_numpy(NUM_FRAMES))
@@ -75,10 +72,3 @@ def test_init_matches_jax_layout():
   for (path, a), (_, b) in zip(flat_port, flat_ref):
     assert a.shape == b.shape, path
 
-
-def test_banded_attention_is_not_ported():
-  enc = encoder.TransformerEncoder(feature_size=FEATURES, model_size=WIDTH,
-                                   num_heads=HEADS, causal=True, window=4,
-                                   banded_attention=True)
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    enc.attention_inputs(torch.ones((1, 12), dtype=torch.bool))

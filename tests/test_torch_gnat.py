@@ -85,6 +85,12 @@ def test_init_from_generator_is_seeded_and_decodes():
 
 
 def test_unported_configs_raise():
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    gnat.GNATModel(presets.gnat_global_bigram(use_rnn_cacher=True),
-                   device='cpu')
+  # The RNN-cacher model, once unported, builds and decodes on the CPU.
+  model = gnat.GNATModel(gnat.GNATConfig(**SMALL, use_rnn_cacher=True),
+                         device='cpu')
+  params = model.init(torch.Generator().manual_seed(2))
+  assert set(params['lattice']['cacher']) == {'embedding', 'cell'}
+  labels, num, weights = model.decode(params, np.zeros((1, 4, 6), np.float32),
+                                      np.array([4]))
+  assert model.lattice.last_path == 'plain'
+  assert torch.isfinite(weights).all() and num.tolist() == [12]

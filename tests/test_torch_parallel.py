@@ -19,6 +19,12 @@ case; it must draw the single-device ``risk_train_step(...,
 per_example_keys=True)``'s samples exactly and match its metrics and
 gradients to 1e-5.
 
+The 2 ranks also run the trainer, ``models.train.train``, tensor parallel
+(``model_parallel=2``) and data parallel: 2 steps with a checkpoint (of the
+vocab-sharded state under tensor parallelism), then a resumed run to 4
+steps, whose losses must match 4 single-device ``train`` steps to rtol
+1e-5.
+
 Held, as ``tests/test_torch_train.py`` holds the single-device step: the
 loss to rtol 1e-5, every gradient (each vocab shard's among them, which
 catches a D-fold scaling) to 1e-4 of the global gradient scale, the
@@ -28,6 +34,7 @@ the optax chain fed the same gradients, to 1e-6.
 """
 
 import datetime
+import json
 import pathlib
 import pickle
 import time
@@ -66,12 +73,19 @@ RISK_SEED = 11
 SPAWNS = {
     2: [(f'tp2_{c}', 'tp', 2, c) for c in CASES] +
        [(f'dp2_{c}', 'dp', 1, c) for c in CASES] +
-       [(f'risk2_{c}', 'risk', 1, c) for c in RISK_CASES],
+       [(f'risk2_{c}', 'risk', 1, c) for c in RISK_CASES] +
+       [('train_tp2_fld1', 'train', 2, 'fld1'),
+        ('train_dp2_fld1', 'train', 1, 'fld1')],
     4: [(f'tp2x2_{c}', 'tp', 2, c) for c in CASES],
 }
 ALL_RUNS = [run[0] for runs in SPAWNS.values() for run in runs]
-RUNS = [run for run in ALL_RUNS if not run.startswith('risk')]
+RUNS = [run for run in ALL_RUNS if run.startswith(('tp', 'dp'))]
 RISK_RUNS = [run for run in ALL_RUNS if run.startswith('risk')]
+TRAIN_RUNS = [run for run in ALL_RUNS if run.startswith('train')]
+# The trainer's runs: synthetic batches of CONFIG's shapes.
+TRAIN_DATA = dict(batch_size=4, max_num_frames=8, max_num_labels=3,
+                  feature_size=CONFIG['feature_size'],
+                  vocab_size=CONFIG['vocab_size'])
 
 
 def batch():
@@ -140,6 +154,32 @@ def _risk_run(mesh, case, params):
   }
 
 
+def _train(case, **kwargs):
+  """``models.train.train`` of the ``case`` model on TRAIN_DATA; returns
+  its log records."""
+  from last_torch_tpu_torch.models import train as train_lib
+  max_expansions, locally_normalized = CASES[case]
+  records = []
+  train_lib.train(
+      gnat.GNATConfig(**CONFIG, max_expansions=max_expansions,
+                      locally_normalized=locally_normalized),
+      train_lib.DataConfig(**TRAIN_DATA), log_every=1, eval_every=4,
+      device='cpu', log_fn=records.append, **kwargs)
+  return records
+
+
+def _train_run(case, rank, workdir, model_parallel):
+  """One rank's training (tensor parallel with model_parallel=2, data
+  parallel with 1): 2 steps with a checkpoint, then a resumed run to 4
+  steps from it."""
+  records = []
+  for steps in (2, 4):
+    records += _train(case, num_steps=steps, workdir=str(workdir),
+                      checkpoint_every=2, model_parallel=model_parallel)
+  return {'data': rank // 2, 'model': rank % 2, 'case': case,
+          'records': records}
+
+
 def _rank_main(rank, world, workdir):
   """One rank: every run of its spawn, results to ``<run>.<rank>.pkl``."""
   torch.set_num_threads(1)
@@ -157,6 +197,10 @@ def _rank_main(rank, world, workdir):
           **CONFIG, max_expansions=max_expansions,
           locally_normalized=locally_normalized), device='cpu')
       optimizer = gnat.make_optimizer(LEARNING_RATE, clip_norm=CLIP_NORM)
+      if kind == 'train':
+        (workdir / f'{name}.{rank}.pkl').write_bytes(pickle.dumps(
+            _train_run(case, rank, workdir / name, model_parallel)))
+        continue
       params = pickle.loads((workdir / f'{case}.params.pkl').read_bytes())
       if kind == 'risk':
         (workdir / f'{name}.{rank}.pkl').write_bytes(pickle.dumps(
@@ -330,6 +374,29 @@ def test_risk_step_matches_the_single_device_step(reference, run):
     for name, w in want_grads.items():
       npt.assert_allclose(r['grads'][name], w, rtol=0, atol=1e-5 * scale,
                           err_msg=name)
+
+
+@pytest.mark.parametrize('run', TRAIN_RUNS)
+def test_parallel_train_matches_single_device_train(reference, run):
+  """``train(model_parallel=2)`` (tensor parallel) or ``train()`` in the
+  2-rank group (data parallel) on 2 ranks, resumed from its checkpoint
+  (vocab-sharded under tensor parallelism) after 2 steps, against 4
+  single-device ``train`` steps: the losses to rtol 1e-5, the evaluation
+  (on the gathered parameters) equal."""
+  _, results = reference
+  ranks = results[run]
+  want = [json.loads(r) for r in _train(ranks[0]['case'], num_steps=4)]
+  assert len(ranks) == 2
+  for r in ranks:
+    got = [json.loads(x) for x in r['records']]
+    assert got[2] == {'event': 'restored', 'step': 2}
+    got = got[:2] + got[3:]
+    assert [g['step'] for g in got] == [w['step'] for w in want] == [1, 2, 3,
+                                                                      4]
+    npt.assert_allclose([g['loss'] for g in got], [w['loss'] for w in want],
+                        rtol=1e-5)
+    for key in ('eval_label_accuracy', 'eval_label_error_rate'):
+      assert got[-1][key] == want[-1][key], key
 
 
 def test_shard_params_slices_the_vocab_head(reference):

@@ -160,8 +160,6 @@ def test_optimizer_matches_optax(name):
 
 
 def test_optimizer_rejects_unported_and_bad_options():
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    gnat.make_optimizer(accumulate_steps=2)
   with pytest.raises(ValueError, match='must exceed warmup_steps'):
     gnat.make_optimizer(warmup_steps=5, total_steps=5)
 
