@@ -533,11 +533,12 @@ WGMMA_KERNELS = ('lex_pass_kernel', 'head_grad_kernel', 'joint_grad_kernel',
                  'joint_pass_kernel', 'stage_kernel', 'head_product_kernel',
                  'column_reduce_kernel', 'column_max_kernel',
                  'row_reduce_kernel', 'row_lse_kernel', 'head_kernel',
-                 'grad_kernel')
+                 'grad_kernel', 'lex_rows_kernel', 'lex_labels_kernel',
+                 'head_grad_rows_kernel', 'head_grad_labels_kernel')
 # The namespaces of those kernels (others share some of their names); simt:
-# the numerator backward's float32 register-blocked products; segments: the
-# bfloat16 trigram's.
-WGMMA_NAMESPACES = ('hopper', 'head_grads', 'head_product', 'simt',
+# the numerator's float32 register-blocked products; fp32: the joint+head's
+# (both on csrc/simt_tiles.cuh); segments: the bfloat16 trigram's.
+WGMMA_NAMESPACES = ('hopper', 'head_grads', 'head_product', 'simt', 'fp32',
                     'segments')
 
 
@@ -606,6 +607,7 @@ def phase_build(build, libraries):
                  f'{max(registers)} registers, spill stores {spill_stores} B, '
                  f'spill loads {spill_loads} B')
     wgmma = [f'{"simt::" if "4simt" in mangled else ""}'
+             f'{"fp32::" if "4fp32" in mangled else ""}'
              f'{"segments::" if "8segments" in mangled else ""}'
              f'{kernel_label(mangled, name)} {regs} registers, spills '
              f'{stores}/{loads} B' for mangled, regs, stores, loads in
@@ -3070,17 +3072,20 @@ def joint_head_library(torch, inputs, g_blank, g_lexical, dtype):
 def phase_joint_head_alone(torch, joint_head, launches):
   """Phase 11b: the joint+head kernels alone, timed against their plain
   versions and the library compositions, at the densified headline's
-  per-frame shape (B=8, S=1025, V=1024, bf16) and the trigram probe's
-  (B=8, S=4161, V=64, float32, as phase 10's generic decode runs it): per
-  call over 100 calls back to back (CUDA events; a call this short can be
-  bound by its host work) and, for the kernels, their device time per
-  call (the profiler). Returns the kernels' JSON records (the headline
-  shape's numbers, the probe's beside them)."""
+  per-frame shape (B=8, S=1025, V=1024, bf16), the trigram probe's (B=8,
+  S=4161, V=64, float32, as phase 10's generic decode runs it; the
+  labels-major float32 tiles) and the MWER step's beta pass (B=8, S=1025,
+  V=1024, float32; the rows-major float32 tiles): per call over 100 calls
+  back to back (CUDA events; a call this short can be bound by its host
+  work) and, for the kernels, their device time per call (the profiler).
+  Returns the kernels' JSON records (the headline shape's numbers, the
+  probe's and the MWER shape's beside them)."""
   rng = np.random.default_rng(12)
   records = {}
   for tag, (states, vocab, dtype) in (
       ('headline', (1025, 1024, torch.bfloat16)),
-      ('probe', (4161, 64, torch.float32))):
+      ('probe', (4161, 64, torch.float32)),
+      ('mwer', (1025, 1024, torch.float32))):
     batch, hidden = 8, 512
     inputs, g_blank, g_lexical = joint_head_inputs(torch, rng, batch, states,
                                                    vocab, hidden)
@@ -3143,10 +3148,11 @@ def phase_joint_head_alone(torch, joint_head, launches):
         record['library_ms'] = lib_ms
         records[key] = record
       else:
-        bound_ms = bound(ops, traffic, name)[0]
-        records[key].update(probe_ms=ms, probe_device_ms=dev_ms,
-                            probe_plain_ms=plain_ms, probe_library_ms=lib_ms,
-                            probe_bound_ms=bound_ms)
+        records[key].update({
+            f'{tag}_ms': ms, f'{tag}_device_ms': dev_ms,
+            f'{tag}_plain_ms': plain_ms, f'{tag}_library_ms': lib_ms,
+            f'{tag}_bound_ms': bound(ops, traffic, name)[0],
+            f'{tag}_max_abs_err': err})
   return records
 
 

@@ -12,8 +12,7 @@
 // See the License for the specific language governing permissions and
 // limitations under the License.
 
-// The joint network's float32 tile products and backward, shared by
-// joint_head.cu (every context state's joint and heads) and
+// The joint network's float32 tile products and backward, for
 // sharded_scan.cu (one frame's vocab-shard reduction; its float32 forward
 // and backward). Rows m = b * S + s run over the (batch row, context state)
 // pairs; joint32[m] = tanh(pc[s] + pf[b]) is formed as the products stage
@@ -23,8 +22,9 @@
 //   from producers).
 // * `joint_backward`: from the cotangents g_lex [B, S, V] and g_blank
 //   [B, S], the gradients d_pc, d_pf, d_vocab_w and d_blank_w (the float32
-//   contract of joint_head_backward in joint_head.cu). Partials belong to
-//   one block each and are reduced by a second launch: no atomics.
+//   contract of joint_head_backward in joint_head.cu, which runs its own
+//   float32 route on simt_tiles.cuh). Partials belong to one block each and
+//   are reduced by a second launch: no atomics.
 // (The bfloat16 backwards run on wgmma: head_grads.cuh.)
 
 #pragma once

@@ -119,6 +119,7 @@
 #include <math.h>
 
 #include "head_grads.cuh"
+#include "simt_tiles.cuh"
 #include "tile_product.cuh"
 
 namespace {
@@ -577,174 +578,25 @@ __global__ void __launch_bounds__(kPointThreads)
 }
 
 // ---------------------------------------------------------------------------
-// float32 products: register-blocked FMAs on the CUDA cores. A block of 256
-// threads owns a 64 x 256 output tile, 8 x 8 entries a thread (rows ty * 8
-// + i, columns tx * 4 + j and 128 + tx * 4 + j), and walks the depth in
-// 16-deep slices double-buffered in shared memory: the next slice's loads
-// are in flight (in registers) under the current slice's 1024 FMAs a
-// thread, whose operands come from shared memory as 16-byte broadcasts.
-// Every operand is a padded buffer (rows of 64, hp or Vp columns, zeros
-// past R, h and V), so the loads take no masks along the depth.
+// float32 products: register-blocked FMAs on the CUDA cores
+// (simt_tiles.cuh: 64 x 256 block tiles, 8 x 8 entries a thread, 16-deep
+// slices double-buffered). Every operand is a padded buffer (rows of 64, hp
+// or Vp columns, zeros past R, h and V), so the loads take no masks along
+// the depth.
 namespace simt {
 
-constexpr int kM = 64, kN = 256, kK = 16, kThreads = 256;
-
-struct Smem {
-  float a[2][kK][kM];
-  float b[2][kK][kN];
-};
-
-__device__ __forceinline__ int col(int j) {
-  return (j < 4 ? 0 : kN / 2 - 4) + threadIdx.x % 32 * 4 + j;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// A [64 rows][depth] with the depth contiguous: row m at p + m * ld.
-struct RowsA {
-  const float* p;
-  int ld;
-  __device__ void load(int step, float4& r) const {
-    const int m = threadIdx.x % kM, kq = threadIdx.x / kM;
-    r = ld4(p + static_cast<size_t>(m) * ld + step * kK + kq * 4);
-  }
-  __device__ void store(const float4& r, float (&s)[kK][kM]) const {
-    const int m = threadIdx.x % kM, kq = threadIdx.x / kM;
-    s[kq * 4][m] = r.x, s[kq * 4 + 1][m] = r.y;
-    s[kq * 4 + 2][m] = r.z, s[kq * 4 + 3][m] = r.w;
-  }
-};
-
-// A [64 rows][depth] with the rows contiguous: depth d at p + d * ld + m0
-// (the head gradient's joint^T, the depth walking the items' rows).
-struct ColsA {
-  const float* p;
-  int ld, m0;
-  __device__ void load(int step, float4& r) const {
-    const int k = threadIdx.x / 16, m = threadIdx.x % 16 * 4;
-    r = ld4(p + static_cast<size_t>(step * kK + k) * ld + m0 + m);
-  }
-  __device__ void store(const float4& r, float (&s)[kK][kM]) const {
-    const int k = threadIdx.x / 16, m = threadIdx.x % 16 * 4;
-    *reinterpret_cast<float4*>(&s[k][m]) = r;
-  }
-};
-
-// B [depth][256 columns] with the columns contiguous: depth d at p + d * ld
-// + n0, columns past `cols` zero.
-struct RowsB {
-  const float* p;
-  int ld, n0, cols;
-  __device__ void load(int step, float4 (&r)[4]) const {
-    const int k = threadIdx.x / 16, n = threadIdx.x % 16 * 4;
-    const float* q = p + static_cast<size_t>(step * kK + k) * ld + n0 + n;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      r[i] = n0 + i * 64 < cols ? ld4(q + i * 64) : float4{};
-    }
-  }
-  __device__ void store(const float4 (&r)[4], float (&s)[kK][kN]) const {
-    const int k = threadIdx.x / 16, n = threadIdx.x % 16 * 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      *reinterpret_cast<float4*>(&s[k][n + i * 64]) = r[i];
-    }
-  }
-};
-
-// B [depth][256 columns] with the depth contiguous: column n at p + (n0 +
-// n) * ld, columns past `cols` zero (the head transposed).
-struct ColsB {
-  const float* p;
-  int ld, n0, cols;
-  __device__ void load(int step, float4 (&r)[4]) const {
-    const int n = n0 + threadIdx.x;
-    const float* q = p + static_cast<size_t>(n) * ld + step * kK;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) r[i] = n < cols ? ld4(q + i * 4) : float4{};
-  }
-  __device__ void store(const float4 (&r)[4], float (&s)[kK][kN]) const {
-    const int n = threadIdx.x;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      s[i * 4][n] = r[i].x, s[i * 4 + 1][n] = r[i].y;
-      s[i * 4 + 2][n] = r[i].z, s[i * 4 + 3][n] = r[i].w;
-    }
-  }
-};
-
-// acc = A B over `steps` 16-deep slices. Every thread of the block calls
-// it; the shared memory is free again when it returns.
-template <class LA, class LB>
-__device__ __forceinline__ void product(float (&acc)[8][8], Smem& sm,
-                                        int steps, const LA& la,
-                                        const LB& lb) {
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-  if (steps == 0) return;
-  float4 ra, rb[4];
-  la.load(0, ra);
-  lb.load(0, rb);
-  la.store(ra, sm.a[0]);
-  lb.store(rb, sm.b[0]);
-  __syncthreads();
-  for (int s = 0; s < steps; ++s) {
-    const int cur = s & 1;
-    if (s + 1 < steps) {
-      la.load(s + 1, ra);
-      lb.load(s + 1, rb);
-    }
-#pragma unroll
-    for (int k = 0; k < kK; ++k) {
-      const float4 a0 = ld4(&sm.a[cur][k][ty * 8]);
-      const float4 a1 = ld4(&sm.a[cur][k][ty * 8 + 4]);
-      const float4 b0 = ld4(&sm.b[cur][k][tx * 4]);
-      const float4 b1 = ld4(&sm.b[cur][k][kN / 2 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    }
-    if (s + 1 < steps) {
-      la.store(ra, sm.a[cur ^ 1]);
-      lb.store(rb, sm.b[cur ^ 1]);
-    }
-    __syncthreads();
-  }
-}
-
-// Column sums of the block's 64 x 256 tile over the rows i of each thread
-// for which in(i): v[i][j] summed over those and over the 8 row groups,
-// through sm.b's space (free after a product), then out(c, total) for each
-// of the 256 columns by the thread c. Every thread calls it.
-template <class In, class Out>
-__device__ __forceinline__ void column_sums(const float (&v)[8][8], Smem& sm,
-                                            const In& in, const Out& out) {
-  float(*red)[kN] = reinterpret_cast<float(*)[kN]>(&sm.b[0][0][0]);
-  const int ty = threadIdx.x / 32;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    float total = 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) total += in(i) ? v[i][j] : 0.f;
-    red[ty][col(j)] = total;
-  }
-  __syncthreads();
-  float total = 0.f;
-#pragma unroll
-  for (int g = 0; g < kThreads / 32; ++g) total += red[g][threadIdx.x];
-  out(threadIdx.x, total);
-  __syncthreads();
-}
+using simt_tiles::col;
+using simt_tiles::ColsA;
+using simt_tiles::ColsB;
+using simt_tiles::column_sums;
+using simt_tiles::kK;
+using simt_tiles::kM;
+using simt_tiles::kN;
+using simt_tiles::kThreads;
+using simt_tiles::product;
+using simt_tiles::RowsA;
+using simt_tiles::RowsB;
+using simt_tiles::Smem;
 
 struct Args {
   const float* vb;       // [V]

@@ -31,8 +31,17 @@ projections ``frame @ frame_proj`` and ``cache @ context_proj`` stay
 gradients. The bfloat16 forward forms the joint once per call into a
 bfloat16 scratch and runs the head product on wgmma over a persistent grid
 (``forward_plan``); the bfloat16 backward stages the joint, the head and
-the cotangent in bfloat16 for its two wgmma products (``backward_plan``);
-in float32 the [B, S, h] joint never reaches device memory.
+the cotangent in bfloat16 for its two wgmma products (``backward_plan``).
+float32 forms the joint once per call too, into a float32 scratch padded
+to the tiles, beside a padded copy of the head, and runs its products on
+register-blocked FMA tiles (64 x 256 a block, 8 x 8 entries a thread):
+rows-major, or labels-major where a 256-label tile would be mostly
+padding (``f32_labels_major``). The tiles run faster where a product reads
+its operands along their rows, so the rows-major forward reads the joint
+transposed and the backward's d_joint product the head transposed. The
+forward's plan is ``f32_forward_plan``, the backward's ``backward_plan``
+(its d_joint product over the flattened B S rows, its d_vocab_w product
+split over them).
 
 Rounding, as the TPU kernels: the joint is formed in float32 and rounded to
 the compute type for the head products, whose sums are float32; the
@@ -74,10 +83,14 @@ MIN_STATES = 1024
 
 _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# The float32 backward's tile (rows, labels or hidden units; also the depth
-# slice its head-gradient contraction is split in) and the blocks an SM
-# holds at once, which that split fills.
-_F32_TILE, _F32_BLOCKS_PER_SM = 64, 4
+# The float32 FMA tiles (csrc/simt_tiles.cuh): 64 x 256 output tiles,
+# 16-deep slices, two blocks an SM. The scratch pads rows, hidden units and
+# labels to 64. Labels-major tiles (64 labels by 256 rows) where V is at
+# most _F32_LABELS_MAJOR_VOCAB, and at least _F32_MIN_SPLIT_SLICES slices in
+# each split of the d_vocab_w contraction.
+_F32_ROWS, _F32_COLS, _F32_DEPTH, _F32_BLOCKS_PER_SM = 64, 256, 16, 2
+_F32_LABELS_MAJOR_VOCAB = 128
+_F32_MIN_SPLIT_SLICES = 32
 # The bfloat16 forward's wgmma product (csrc/joint_head.cu, namespace
 # hopper): 128-row, 128-label output tiles (two warpgroups of 64 rows),
 # 64-deep stages, two blocks an SM.
@@ -218,6 +231,65 @@ def forward_plan(batch: int, num_states: int, hidden: int, vocab: int,
                      max(1, min(tiles, _WG_BLOCKS_PER_SM * sms)))
 
 
+def f32_labels_major(vocab: int) -> bool:
+  """Whether the float32 products put labels on the tiles' 64-wide side
+  (a 256-label tile would be at least half padding)."""
+  return vocab <= _F32_LABELS_MAJOR_VOCAB
+
+
+def _cdiv(n: int, m: int) -> int:
+  return -(-n // m)
+
+
+def _f32_pads(batch: int, num_states: int, hidden: int, vocab: int):
+  """(rows, hidden, labels) of the float32 scratch: B S, h and V rounded up
+  to 64."""
+  pad = lambda n: _cdiv(n, _F32_ROWS) * _F32_ROWS
+  return pad(batch * num_states), pad(hidden), pad(vocab)
+
+
+@dataclasses.dataclass(frozen=True)
+class F32ForwardPlan:
+  """The float32 forward's scratch and grid (``f32_forward_plan``).
+
+  Attributes:
+    labels_major: the product's orientation (``f32_labels_major``).
+    rows_pad, hidden_pad, vocab_pad: B S, h and V rounded up to 64; the
+      joint scratch is [rows_pad, hidden_pad], the head's copy [hidden_pad,
+      vocab_pad], both float32 and zero past B S, h and V; rows-major also
+      keeps the joint transposed, 'joint_t' [hidden_pad, rows_pad] (its
+      product contracts over h and reads both operands along their rows).
+    grid: the product's (x, y) blocks: (row tiles, 256-label strips)
+      rows-major, (64-label tiles, 256-row strips) labels-major.
+    offsets: name -> byte offset of each scratch buffer, 256-byte aligned.
+    size: the workspace's bytes.
+  """
+  labels_major: bool
+  rows_pad: int
+  hidden_pad: int
+  vocab_pad: int
+  grid: tuple
+  offsets: dict
+  size: int
+
+
+@functools.lru_cache(maxsize=64)
+def f32_forward_plan(batch: int, num_states: int, hidden: int,
+                     vocab: int) -> F32ForwardPlan:
+  """The ``F32ForwardPlan`` of a float32 forward."""
+  mp, hp, vp = _f32_pads(batch, num_states, hidden, vocab)
+  labels_major = f32_labels_major(vocab)
+  if labels_major:
+    grid = (vp // _F32_ROWS, _cdiv(batch * num_states, _F32_COLS))
+  else:
+    grid = (mp // _F32_ROWS, _cdiv(vp, _F32_COLS))
+  f32 = torch.float32
+  scratch = {'joint': ((mp, hp), f32), 'head': ((hp, vp), f32)}
+  if not labels_major:
+    scratch['joint_t'] = ((hp, mp), f32)
+  return F32ForwardPlan(labels_major, mp, hp, vp, grid, *layout(scratch))
+
+
 @dataclasses.dataclass(frozen=True)
 class ReducePlan:
   """The column-reduce product's scratch and grid (``reduce_plan``): the
@@ -269,10 +341,11 @@ def library() -> ctypes.CDLL:
     from last_torch_tpu_torch.ops import build
     lib = build.load('joint_head.cu')
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.joint_head_forward.argtypes = [i] + [p] * 8 + [i] * 4 + [p, p, i, p]
+    lib.joint_head_forward.argtypes = ([i] + [p] * 8 + [i] * 4 + [p] * 3 +
+                                       [i, i, p])
     lib.joint_head_forward.restype = i
     lib.joint_head_backward.argtypes = ([i] + [p] * 14 + [i] * 5 + [p] * 4 +
-                                        [i, p])
+                                        [i, i, p])
     lib.joint_head_backward.restype = i
     lib.joint_head_error_string.argtypes = [i]
     lib.joint_head_error_string.restype = ctypes.c_char_p
@@ -326,8 +399,8 @@ def joint_head_forward(pc: torch.Tensor, pf: torch.Tensor,
     raise ValueError(f'no joint_head kernel for device {pc.device}')
   blank = torch.empty((batch, num_states), device=pc.device)
   lexical = torch.empty((batch, num_states, vocab), device=pc.device)
-  joint16 = vw16 = None
-  blocks = 0
+  blocks = route = 0
+  joint_t = None
   if compute_dtype == torch.bfloat16:
     plan = forward_plan(batch, num_states, hidden, vocab, sm_count(pc.device))
     # One allocation: the joint [B S, hp], then the head [hp, Vp] (2 bytes
@@ -335,14 +408,23 @@ def joint_head_forward(pc: torch.Tensor, pf: torch.Tensor,
     rows = batch * num_states * plan.hidden_pad
     scratch = torch.empty(rows + plan.hidden_pad * plan.vocab_pad,
                           dtype=torch.bfloat16, device=pc.device)
-    joint16 = scratch.data_ptr()
-    vw16 = joint16 + 2 * rows
+    joint = scratch.data_ptr()
+    head = joint + 2 * rows
     blocks = plan.blocks
+  else:
+    plan = f32_forward_plan(batch, num_states, hidden, vocab)
+    scratch = torch.empty(plan.size, dtype=torch.uint8, device=pc.device)
+    joint = scratch.data_ptr() + plan.offsets['joint']
+    head = scratch.data_ptr() + plan.offsets['head']
+    if not plan.labels_major:
+      joint_t = scratch.data_ptr() + plan.offsets['joint_t']
+    route = int(plan.labels_major)
   _launch(pc.device, 'forward', lambda lib, stream: lib.joint_head_forward(
       _DTYPE_CODES[compute_dtype], pc.data_ptr(), pf.data_ptr(),
       vocab_w.data_ptr(), blank_w.data_ptr(), vocab_b.data_ptr(),
       blank_b.data_ptr(), blank.data_ptr(), lexical.data_ptr(), batch,
-      num_states, hidden, vocab, joint16, vw16, blocks, stream))
+      num_states, hidden, vocab, joint, head, joint_t, blocks, route,
+      stream))
   forward_launches += 1
   return blank, lexical
 
@@ -394,9 +476,9 @@ def joint_head_backward(pc: torch.Tensor, pf: torch.Tensor,
                                      g_lexical, compute_dtype=compute_dtype)
   if pc.device.type != 'cuda':
     raise ValueError(f'no joint_head kernel for device {pc.device}')
-  if compute_dtype == torch.bfloat16 and (hidden == 0 or vocab == 0):
-    raise ValueError('the bfloat16 backward kernel needs hidden and vocab '
-                     f'sizes >= 1, got {hidden} and {vocab}')
+  if hidden == 0 or vocab == 0:
+    raise ValueError('the backward kernels need hidden and vocab sizes >= 1, '
+                     f'got {hidden} and {vocab}')
   empty = lambda *shape: torch.empty(shape, device=pc.device)
   plan = backward_plan(batch, num_states, hidden, vocab, compute_dtype,
                        sm_count(pc.device))
@@ -411,10 +493,12 @@ def joint_head_backward(pc: torch.Tensor, pf: torch.Tensor,
       _DTYPE_CODES[compute_dtype], pc.data_ptr(), pf.data_ptr(),
       vocab_w.data_ptr(), blank_w.data_ptr(), g_blank.data_ptr(),
       g_lexical.data_ptr(), ptr('dpf_part'), ptr('dbw_part'),
-      ptr('dpc_part'), ptr('dw_part'), d_pc.data_ptr(), d_pf.data_ptr(),
-      d_vocab_w.data_ptr(), d_blank_w.data_ptr(), batch, num_states, hidden,
-      vocab, plan.splits, ptr('joint'), ptr('joint32'), ptr('d_lex'),
-      ptr('vw16'), plan.dsplits, stream))
+      ptr('du' if compute_dtype == torch.float32 else 'dpc_part'),
+      ptr('dw_part'), d_pc.data_ptr(),
+      d_pf.data_ptr(), d_vocab_w.data_ptr(), d_blank_w.data_ptr(), batch,
+      num_states, hidden, vocab, plan.splits, ptr('joint'), ptr('joint32'),
+      ptr('d_lex'), ptr('head'), plan.dsplits, int(plan.labels_major),
+      stream))
   backward_launches += 1
   return d_pc, d_pf, d_vocab_w, d_blank_w
 
@@ -425,30 +509,53 @@ def backward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
   """name -> (shape, dtype) of the backward's scratch
   (``joint_head_backward`` in ``csrc/joint_head.cu``).
 
-  float32 (``joint_backward`` in ``csrc/joint_tiles.cuh``, which
-  ``csrc/sharded_scan.cu`` shares): per 64-state tile partials of d_pf and
-  d_blank_w, and ``splits`` partials of d_vocab_w. bfloat16 (the wgmma
-  route): the staged operands, padded to hidden_pad and vocab_pad (h and V
-  rounded up to 64, zero past them), the float32 joint for the tanh
-  derivative, the cotangent rounded to bfloat16, and the partials of the
-  two head_grads.cuh products (``dsplits`` of d_pc, ``splits`` of
-  d_vocab_w).
+  float32 (the FMA tiles): the joint [rows_pad, hidden_pad] and the head
+  transposed [vocab_pad, hidden_pad] (``_f32_pads``, zeros past B S, h and
+  V), du [B S, hidden_pad], per 64-row tile partials of d_pf (one per
+  batch row the tile touches, at most ``batch_slots``) and of d_blank_w,
+  and ``splits`` partials of d_vocab_w ([h, V] rows-major, [V, h]
+  labels-major). bfloat16 (the wgmma route): the staged operands, padded
+  to hidden_pad and vocab_pad (h and V rounded up to 64, zero past them),
+  the float32 joint for the tanh derivative, the cotangent rounded to
+  bfloat16, and the partials of the two head_grads.cuh products
+  (``dsplits`` of d_pc, ``splits`` of d_vocab_w).
   """
   f32, bf16 = torch.float32, torch.bfloat16
-  t64 = -(-num_states // _F32_TILE)
+  rows = batch * num_states
   if compute_dtype == torch.float32:
-    return {'dpf_part': ((t64, batch, hidden), f32),
-            'dbw_part': ((t64, hidden), f32),
-            'dw_part': ((splits, hidden, vocab), f32)}
+    mp, hp, vp = _f32_pads(batch, num_states, hidden, vocab)
+    tiles = mp // _F32_ROWS
+    part = ((splits, vocab, hidden) if f32_labels_major(vocab) else
+            (splits, hidden, vocab))
+    return {'joint32': ((mp, hp), f32), 'head': ((vp, hp), f32),
+            'du': ((rows, hp), f32),
+            'dpf_part': ((tiles, batch_slots(batch, num_states), hidden),
+                         f32),
+            'dbw_part': ((tiles, hidden), f32), 'dw_part': (part, f32)}
+  t64 = -(-num_states // 64)
   hp = -(-hidden // _WG_DEPTH) * _WG_DEPTH
   vp = -(-vocab // _WG_DEPTH) * _WG_DEPTH
-  rows = batch * num_states
   return {'joint': ((rows, hp), bf16), 'joint32': ((rows, hidden), f32),
-          'd_lex': ((rows, vp), bf16), 'vw16': ((hp, vp), bf16),
+          'd_lex': ((rows, vp), bf16), 'head': ((hp, vp), bf16),
           'dpf_part': ((t64, batch, hidden), f32),
           'dbw_part': ((batch * t64, hidden), f32),
           'dpc_part': ((dsplits, num_states, hidden), f32),
           'dw_part': ((splits, hidden, vocab), f32)}
+
+
+def batch_slots(batch: int, num_states: int) -> int:
+  """The most batch rows a 64-row tile of the flattened B S rows touches
+  (the float32 backward's d_pf partials per tile)."""
+  return min(batch, (_F32_ROWS - 1) // max(1, num_states) + 2)
+
+
+def f32_split_slices(batch: int, num_states: int, splits: int) -> list:
+  """The [begin, end) 16-row depth slices of each split of the float32
+  d_vocab_w contraction over the B S rows (``split_range`` in
+  ``csrc/joint_head.cu``)."""
+  steps = _cdiv(batch * num_states, _F32_DEPTH)
+  return [(steps * z // splits, steps * (z + 1) // splits)
+          for z in range(splits)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -456,17 +563,21 @@ class BackwardPlan:
   """The backward's grid and workspace (``backward_plan``).
 
   Attributes:
-    splits: the d_vocab_w contraction's splits (float32: over (batch row,
-      64-state tile) pairs; bfloat16: over the (batch row, 64-state) depth
-      tiles of head_grads.cuh's product).
+    splits: the d_vocab_w contraction's splits (float32: over the 16-row
+      slices of the flattened B S rows, ``f32_split_slices``; bfloat16:
+      over the (batch row, 64-state) depth tiles of head_grads.cuh's
+      product).
     dsplits: bfloat16: the batch-row splits of the d_joint product, whose
       blocks keep d_pc in registers (0 in float32).
+    labels_major: float32: the d_vocab_w product's orientation
+      (``f32_labels_major``; False in bfloat16).
     offsets: name -> byte offset of each ``backward_scratch`` buffer in the
       workspace, 256-byte aligned.
     size: the workspace's bytes.
   """
   splits: int
   dsplits: int
+  labels_major: bool
   offsets: dict
   size: int
 
@@ -474,23 +585,28 @@ class BackwardPlan:
 @functools.lru_cache(maxsize=64)
 def backward_plan(batch: int, num_states: int, hidden: int, vocab: int,
                   compute_dtype: torch.dtype, sms: int) -> BackwardPlan:
-  """The ``BackwardPlan`` on ``sms`` SMs: each product split into as many
-  parts as one wave of blocks holds (float32: four blocks an SM, each split
-  a whole number of (batch row, state tile) pairs; bfloat16: two blocks an
-  SM, as ``fused_scan.wgmma_grid`` plans the other wgmma backwards)."""
+  """The ``BackwardPlan`` on ``sms`` SMs: the d_vocab_w product split into
+  as many parts as one wave of blocks holds (float32: two blocks an SM, at
+  least ``_F32_MIN_SPLIT_SLICES`` 16-row slices a split; bfloat16: two
+  blocks an SM, as ``fused_scan.wgmma_grid`` plans the other wgmma
+  backwards)."""
+  labels_major = False
   if compute_dtype == torch.float32:
-    tiles = lambda n: -(-n // _F32_TILE)
-    slices = max(1, batch * tiles(num_states))
-    splits = max(1, min(slices, _F32_BLOCKS_PER_SM * sms //
-                        max(1, tiles(hidden) * tiles(vocab))))
-    splits = -(-slices // -(-slices // splits))  # no empty split
+    _, hp, vp = _f32_pads(batch, num_states, hidden, vocab)
+    labels_major = f32_labels_major(vocab)
+    tiles = ((vp // _F32_ROWS) * _cdiv(hp, _F32_COLS) if labels_major else
+             (hp // _F32_ROWS) * _cdiv(vp, _F32_COLS))
+    slices = _cdiv(batch * num_states, _F32_DEPTH)
+    splits = max(1, min(_F32_BLOCKS_PER_SM * sms // max(1, tiles),
+                        slices // _F32_MIN_SPLIT_SLICES))
     dsplits = 0
   else:
     from last_torch_tpu_torch.ops import fused_scan  # it imports this module
     grid = fused_scan.wgmma_grid(batch, num_states, hidden, vocab, sms)
     splits, dsplits = grid.ksplits, grid.dsplits
-  return BackwardPlan(splits, dsplits, *layout(backward_scratch(
-      batch, num_states, hidden, vocab, compute_dtype, splits, dsplits)))
+  return BackwardPlan(splits, dsplits, labels_major, *layout(
+      backward_scratch(batch, num_states, hidden, vocab, compute_dtype,
+                       splits, dsplits)))
 
 
 def layout(scratch: dict):

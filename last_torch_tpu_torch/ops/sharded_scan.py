@@ -74,6 +74,28 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the rows of d_lex summed per partial of d_vb, as csrc/sharded_scan.cu.
 _STATE_TILE = 64
 _COLUMN_CHUNK = 64
+# The float32 backward's joint_backward (csrc/joint_tiles.cuh): its tile
+# (rows, labels or hidden units; also the depth slice its head-gradient
+# contraction is split in) and the blocks an SM holds at once, which that
+# split fills.
+_F32_TILE, _F32_BLOCKS_PER_SM = 64, 4
+
+
+def f32_backward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
+                         sms: int) -> tuple[int, dict]:
+  """(splits, name -> shape) of joint_tiles.cuh's ``joint_backward``
+  scratch, all float32: per 64-state tile partials of d_pf and d_blank_w,
+  and ``splits`` partials of d_vocab_w, split over the (batch row, state
+  tile) pairs into as many parts as one wave of blocks holds."""
+  tiles = lambda n: -(-n // _F32_TILE)
+  slices = max(1, batch * tiles(num_states))
+  splits = max(1, min(slices, _F32_BLOCKS_PER_SM * sms //
+                      max(1, tiles(hidden) * tiles(vocab))))
+  splits = -(-slices // -(-slices // splits))  # no empty split
+  t64 = tiles(num_states)
+  return splits, {'dpf_part': (t64, batch, hidden),
+                  'dbw_part': (t64, hidden),
+                  'dw_part': (splits, hidden, vocab)}
 
 
 def _check_inputs(vec, pf_t, pc, vw, vb, bw, compute_dtype, **others):
@@ -307,15 +329,12 @@ def frame_reduce_backward(vec: torch.Tensor, pf_t: torch.Tensor,
     workspace = torch.empty(size, dtype=torch.uint8, device=device)
     ptr = lambda name: workspace.data_ptr() + offsets[name]
   else:  # float32: the CUDA-core kernels, d_lex in float32
-    splits = joint_head.backward_plan(batch, num_states, hidden, vocab,
-                                      compute_dtype,
-                                      joint_head.sm_count(device)).splits
+    splits, tiles = f32_backward_scratch(batch, num_states, hidden, vocab,
+                                         joint_head.sm_count(device))
     scratch = dict(
         d_lex=empty(batch, num_states, vocab),
         dvb_part=empty(-(-batch * num_states // _COLUMN_CHUNK), vocab),
-        **{name: empty(*shape) for name, (shape, _) in
-           joint_head.backward_scratch(batch, num_states, hidden, vocab,
-                                       compute_dtype, splits, 0).items()})
+        **{name: empty(*shape) for name, shape in tiles.items()})
     dsplits = 0
     ptr = lambda name: (scratch[name].data_ptr() if name in scratch else
                         None)

@@ -262,12 +262,16 @@ def test_forward_plan_covers_every_tile_once(batch, states, hidden, vocab):
     (8, 4161, 512, 64),  # the trigram probe
     (3, 77, 40, 37),  # h and V off the 64-deep stages, V % 4 != 0
     (1, 3, 40, 1001),
+    (5, 3, 24, 129),  # one row tile over five batch rows, V past 128
 ])
 def test_backward_workspace_is_aligned_and_disjoint(batch, states, hidden,
                                                     vocab, dtype):
   """The backward's scratch in one buffer: each buffer 256-byte aligned,
   none overlapping; bfloat16 stages the cotangent in bfloat16 padded to the
-  64-deep stages and splits its products as the other wgmma backwards."""
+  64-deep stages and splits its products as the other wgmma backwards;
+  float32 pads the joint and the head to 64, keeps a d_pf partial for each
+  batch row a 64-row tile touches, and splits the d_vocab_w contraction
+  into parts that cover every 16-row slice of the B S rows once."""
   plan = joint_head.backward_plan(batch, states, hidden, vocab, dtype, SMS)
   scratch = joint_head.backward_scratch(batch, states, hidden, vocab, dtype,
                                         plan.splits, plan.dsplits)
@@ -281,12 +285,36 @@ def test_backward_workspace_is_aligned_and_disjoint(batch, states, hidden,
   spans.sort()
   assert all(end <= start for (_, end), (start, _) in zip(spans, spans[1:]))
   assert spans[-1][1] <= plan.size
-  assert scratch['dw_part'][0] == (plan.splits, hidden, vocab)
   if dtype == torch.float32:
     assert plan.dsplits == 0 and 'd_lex' not in scratch
-    slices = batch * -(-states // 64)
-    assert 1 <= plan.splits <= slices
+    assert plan.labels_major == (vocab <= 128)
+    assert scratch['dw_part'][0] == ((plan.splits, vocab, hidden)
+                                     if plan.labels_major else
+                                     (plan.splits, hidden, vocab))
+    rows = batch * states
+    pad = lambda n: -(-n // 64) * 64
+    assert scratch['joint32'][0] == (pad(rows), pad(hidden))
+    assert scratch['head'][0] == (pad(vocab), pad(hidden))  # transposed
+    assert scratch['du'][0] == (rows, pad(hidden))
+    tiles = pad(rows) // 64
+    assert scratch['dbw_part'][0] == (tiles, hidden)
+    slots = scratch['dpf_part'][0][1]
+    assert scratch['dpf_part'][0] == (tiles, slots, hidden)
+    for t in range(tiles):  # every batch row a tile touches has a slot
+      first, last = t * 64 // states, (min(t * 64 + 64, rows) - 1) // states
+      assert last - first + 1 <= slots <= batch
+    slices = -(-rows // 16)
+    ranges = joint_head.f32_split_slices(batch, states, plan.splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == slices
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(end - begin >= min(32, slices) for begin, end in ranges)
+    out_tiles = (-(-vocab // 64) * -(-pad(hidden) // 256)
+                 if plan.labels_major else
+                 pad(hidden) // 64 * -(-pad(vocab) // 256))
+    assert 1 <= plan.splits and plan.splits * out_tiles <= max(
+        out_tiles, 2 * SMS)
   else:
+    assert scratch['dw_part'][0] == (plan.splits, hidden, vocab)
     grid = fused_scan.wgmma_grid(batch, states, hidden, vocab, SMS)
     assert (plan.splits, plan.dsplits) == (grid.ksplits, grid.dsplits)
     assert 1 <= plan.dsplits <= batch
@@ -294,6 +322,53 @@ def test_backward_workspace_is_aligned_and_disjoint(batch, states, hidden,
     assert scratch['d_lex'] == ((batch * states, vp), torch.bfloat16)
     assert scratch['joint32'] == ((batch * states, hidden), torch.float32)
     assert scratch['dpc_part'][0] == (plan.dsplits, states, hidden)
+
+
+@pytest.mark.parametrize('batch,states,hidden,vocab,labels_major', [
+    (8, 1025, 512, 1024, False),  # the MWER step's beta pass
+    (8, 4161, 512, 64, True),  # the trigram probe: labels-major
+    (3, 77, 40, 37, True),  # ragged: h, V and B S off the tiles
+    (4, 1025, 200, 128, True),  # at the shape selection's threshold
+    (4, 1025, 200, 129, False),  # just past it
+    (8, 1100, 512, 1001, False),  # V not a multiple of 4
+])
+def test_f32_forward_plan_pads_and_tiles_every_output(batch, states, hidden,
+                                                      vocab, labels_major):
+  """The float32 forward: the joint scratch [B S, h] and the head [h, V]
+  padded to 64 (zeros there: the products read no masks), 256-byte aligned
+  and disjoint in one workspace; the product's grid covers every output
+  entry once, rows-major (64 rows by 256 labels) or, where a 256-label
+  tile would be at least half padding, labels-major (64 labels by 256
+  rows)."""
+  plan = joint_head.f32_forward_plan(batch, states, hidden, vocab)
+  rows = batch * states
+  assert plan.labels_major == labels_major
+  assert joint_head.f32_labels_major(vocab) == labels_major
+  for padded, n in ((plan.rows_pad, rows), (plan.hidden_pad, hidden),
+                    (plan.vocab_pad, vocab)):
+    assert padded % 64 == 0 and 0 <= padded - n < 64
+  # Rows-major also keeps the joint transposed: its product contracts over
+  # h and reads both operands along their rows.
+  sizes = {'joint': plan.rows_pad * plan.hidden_pad,
+           'head': plan.hidden_pad * plan.vocab_pad}
+  if not labels_major:
+    sizes['joint_t'] = plan.hidden_pad * plan.rows_pad
+  assert set(plan.offsets) == set(sizes)
+  spans = sorted((plan.offsets[n], plan.offsets[n] + 4 * size)
+                 for n, size in sizes.items())
+  assert all(start % 256 == 0 for start, _ in spans)
+  assert all(end <= start for (_, end), (start, _) in zip(spans, spans[1:]))
+  assert spans[-1][1] <= plan.size
+  x, y = plan.grid
+  if labels_major:  # x: 64-label tiles, y: 256-row strips
+    assert x * 64 >= vocab > (x - 1) * 64 and y * 256 >= rows > (y - 1) * 256
+  else:  # x: 64-row tiles, y: 256-label strips
+    assert x * 64 >= rows > (x - 1) * 64
+    assert y * 256 >= vocab > (y - 1) * 256
+  # A 256-wide side covers its outputs at least half full.
+  wide = rows if labels_major else vocab
+  assert not labels_major or vocab <= 128
+  assert labels_major or wide > 128
 
 
 def gate_inputs(num_states, batch=4, hidden=HIDDEN, frame_dims=1,

@@ -1124,6 +1124,16 @@ JOINT_HEAD_CARD_CASES = {
     # The bfloat16 backward's staging pass without 16-byte loads (V % 4 !=
     # 0) and h off the 64-deep stages.
     'b4_s1025_v1001_h200': (4, 1025, 1001, 200),
+    # The float32 FMA tiles: B S not a multiple of the 64-row tile, h off
+    # the 16-deep slices and not a multiple of 4, V % 4 != 0 (no 16-byte
+    # loads of the cotangent or stores of lex), rows-major.
+    'b7_s131_v130_h37': (7, 131, 130, 37),
+    # V at the float32 shape selection's threshold (labels-major at V <=
+    # 128) and just past it (rows-major), and labels-major with V % 4 != 0
+    # and two 64-label tiles.
+    'b4_s1025_v128_h200': (4, 1025, 128, 200),
+    'b4_s1025_v129_h200': (4, 1025, 129, 200),
+    'b2_s300_v127_h70': (2, 300, 127, 70),
 }
 
 
@@ -1159,6 +1169,35 @@ def test_joint_head_kernels_match_plain_on_card(card, case, compute_dtype):
         name)
   if batch > 1:
     assert torch.all(bwd_k[1][1] == 0)  # d_pf of the zero-cotangent row
+
+
+@pytest.mark.cuda
+def test_joint_head_f32_kernels_against_float64_on_card(card):
+  """At the MWER step's beta-pass shape (B=8, S=1025, V=1024, h=512), the
+  float32 kernel pair's error against the plain versions run in float64 is
+  at most twice the float32 plain versions' own error, output by output
+  (max |error| over the float64 output's largest entry)."""
+  inputs, g_blank, g_lexical = joint_head_inputs(12, 8, 1025, 512, 1024,
+                                                 device=card)
+  args = [inputs[n] for n in ('pc', 'pf', 'vocab_w', 'blank_w')]
+  f32 = dict(compute_dtype=torch.float32)
+  kernel = (joint_head.joint_head_forward(**inputs, **f32) +
+            joint_head.joint_head_backward(*args, g_blank, g_lexical, **f32))
+  plain = (joint_head.joint_head_forward_plain(**inputs, **f32) +
+           joint_head.joint_head_backward_plain(*args, g_blank, g_lexical,
+                                                **f32))
+  wide = lambda xs: [x.double() for x in xs]
+  exact = (joint_head.joint_head_forward_plain(
+      **{n: x.double() for n, x in inputs.items()}, **f32) +
+           joint_head.joint_head_backward_plain(
+               *wide(args), *wide((g_blank, g_lexical)), **f32))
+  torch.cuda.synchronize()
+  for name, k, p, x in zip(('blank', 'lexical') + JOINT_HEAD_GRADS, kernel,
+                           plain, exact):
+    scale = x.abs().max()
+    kernel_err = ((k.double() - x).abs().max() / scale).item()
+    plain_err = ((p.double() - x).abs().max() / scale).item()
+    assert kernel_err <= 2 * plain_err, (name, kernel_err, plain_err)
 
 
 @pytest.mark.cuda

@@ -66,6 +66,15 @@ Each run times, with CUDA events after a warm-up:
 * ``jhb``, ``jhbd``, ``jhbh``: ``joint_head_backward`` (bf16, B=8,
   S=1025, V=1024, h=512, phase 11b's inputs and cotangents) per call over
   100 calls back to back, its device time and its host time per call;
+* ``jhf32m`` / ``jhb32m``: ``joint_head_forward`` / ``_backward`` in
+  float32 at the MWER step's beta-pass shape (B=8, S=1025, V=1024, h=512),
+  per call over 100 calls back to back; ``jhf32t`` / ``jhb32t``: the same at
+  the trigram probe's shape (B=8, S=4161, V=64, h=512); a ``d`` suffix
+  (``jhf32md``, ...): the device time per call; a ``p`` suffix: one call's
+  device time by kernel name; an ``l`` suffix: the library composition of
+  the same function (``chip_smoke.py``'s ``joint_head_library``: tanh and
+  addmm; its backward's two mm and the tanh derivative), the same in every
+  tree;
 * ``numb8``: ``numerator_backward`` in float32 (hat) at ``chip_smoke.py``
   phase 6b's HAT step shape (B=8, T_max=1600, U+1=101, h=512, V=1024,
   the lengths of ``lp8``, U_b = T_b // 16 labels, cotangents zero past
@@ -116,6 +125,10 @@ import time
 
 import numpy as np
 
+# chip_smoke.py (the library compositions) from the checkout that holds this
+# script; a tree timed with --tree goes before it on the path.
+sys.path.append(str(pathlib.Path(__file__).resolve().parent.parent))
+
 NUM_FRAMES = [1600, 1523, 1400, 1211, 1000, 804, 517, 230]
 CASES = ('lp8', 'lp32', 'lp9o', 'lp9o512', 'lp9omem', 'fr1024', 'fr256',
          'jhf', 'jhfd', 'jhfh', 'jhfa', 'jhfk', 'jhfi', 'jhfo', 'lp8f',
@@ -124,7 +137,12 @@ CASES = ('lp8', 'lp32', 'lp9o', 'lp9o512', 'lp9omem', 'fr1024', 'fr256',
          'numb8', 'numb32', 'numb8p', 'numb32p', 'vit8', 'vit8h', 'vit10',
          'vit8p', 'lp8fp', 'marg8', 'marg32', 'margmem', 'marg8p', 'numf8',
          'numf32', 'numf8p', 'numf32p', 'tri10f', 'tri10b', 'tri8f',
-         'tri8b', 'tri8fp', 'tri8bp', 'trifmem', 'tribmem')
+         'tri8b', 'tri8fp', 'tri8bp', 'trifmem', 'tribmem', 'jhf32m',
+         'jhb32m', 'jhf32t', 'jhb32t', 'jhf32md', 'jhb32md', 'jhf32td',
+         'jhb32td', 'jhf32mp', 'jhb32mp', 'jhf32tp', 'jhb32tp', 'jhf32ml',
+         'jhb32ml', 'jhf32tl', 'jhb32tl')
+# The float32 joint+head cases' shapes (B=8, h=512): (S, V).
+JH_F32_SHAPES = {'m': (1025, 1024), 't': (4161, 64)}
 # The trigram cases' lengths (B=8, T_max=200): phase 10's, the probe's.
 TRIGRAM_LENGTHS = {'tri10': [n // 8 for n in NUM_FRAMES], 'tri8': [200] * 8}
 
@@ -409,13 +427,16 @@ def by_kernel(torch, fn):
   return out
 
 
-def joint_head_ms(torch, joint_head, plain, clock=None, backward=False):
+def joint_head_ms(torch, joint_head, plain, clock=None, backward=False,
+                  states=1025, vocab=1024, dtype=None, library=False):
   """ms of one joint+head forward (or, with ``backward``, backward) at
-  B=8, S=1025, V=1024, h=512, bf16, on inputs drawn as chip_smoke.py's
-  phase 11b draws them, by ``clock`` (``clocked``) over 100 calls, or with
-  a ``timeline`` key ('k', 'i', 'o') that number of the timeline."""
+  B=8, S=states, V=vocab, h=512, in ``dtype`` (bf16 by default), on inputs
+  drawn as chip_smoke.py's phase 11b draws them, by ``clock``
+  (``clocked``) over 100 calls, or with a ``timeline`` key ('k', 'i', 'o')
+  that number of the timeline, or with 'p' one call's device time by
+  kernel name. With ``library`` the library composition instead."""
   rng = np.random.default_rng(12)
-  batch, states, vocab, hidden = 8, 1025, 1024, 512
+  batch, hidden = 8, 512
   cuda = lambda x: torch.from_numpy(x).cuda()
   inputs = {'pc': cuda(rand(rng, (states, hidden), 0.5)),
             'pf': cuda(rand(rng, (batch, hidden), 0.5)),
@@ -423,10 +444,15 @@ def joint_head_ms(torch, joint_head, plain, clock=None, backward=False):
             'blank_w': cuda(rand(rng, (hidden,), hidden**-0.5)),
             'vocab_b': cuda(rand(rng, (vocab,), 0.1)),
             'blank_b': torch.tensor(0.3, device='cuda')}
-  dtype = torch.bfloat16
-  if backward:
-    g_blank = cuda(rand(rng, (batch, states)))
-    g_lexical = cuda(rand(rng, (batch, states, vocab)))
+  dtype = dtype or torch.bfloat16
+  g_blank = cuda(rand(rng, (batch, states)))
+  g_lexical = cuda(rand(rng, (batch, states, vocab)))
+  if library:
+    import chip_smoke  # the checkout's, beside tools/
+    forward, backward_ = chip_smoke.joint_head_library(torch, inputs, g_blank,
+                                                       g_lexical, dtype)
+    call = backward_ if backward else forward
+  elif backward:
     step = (joint_head.joint_head_backward_plain if plain else
             joint_head.joint_head_backward)
     args = [inputs[n] for n in ('pc', 'pf', 'vocab_w', 'blank_w')]
@@ -549,6 +575,15 @@ def run_tree(tree, cases, plain):
                                    max_t=200, vocab=4096, mode='online',
                                    memory=case == 'lp9omem')
       fused_scan.ONLINE_CHUNK_STATES = chunk
+    elif case.startswith('jhf32') or case.startswith('jhb32'):
+      states, vocab = JH_F32_SHAPES[case[5]]
+      kind = case[6:] or None
+      out[case] = joint_head_ms(torch, joint_head, plain,
+                                None if kind == 'l' else
+                                CLOCKS.get(kind, kind),
+                                backward=case.startswith('jhb'),
+                                states=states, vocab=vocab,
+                                dtype=torch.float32, library=kind == 'l')
     elif case.startswith('jh'):
       kind = case[3:] or None
       out[case] = joint_head_ms(torch, joint_head, plain,
