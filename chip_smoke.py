@@ -225,6 +225,22 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    memory, log-partition mode. Their launches of the 'cache' pair and the
    Viterbi forward join the kernels line (``launches_by_path``).
 
+16. Time sharding (``parallel/sequence.py``; ``[seq-*]``). (a) The
+   log-partition kernels chained by their relay seeds (``alpha0`` /
+   ``beta0``, the whole sequence's log Z) on phase 6's encoded batch: both
+   modes' pairs over 4 blocks of 400 frames against one whole call and the
+   plain versions chained the same way; at T_max 2000 a fifth block of
+   padding only (alpha and beta passed through exactly, zero gradients);
+   the trigram pair (phase 10's shape, segment route) over 2 blocks. Each
+   block's backward peak memory against the whole call's, the chained
+   time against the whole. (b) On a one-process NCCL group:
+   ``make_time_sharded_train_step(fused='auto')`` on a ('seq',) mesh of 1,
+   3 steps, step 1 against ``gnat.train_step``'s (loss rtol 1e-5,
+   gradients 1e-3 of the largest); ``make_tp_seq_train_step`` on a 1 x 1
+   ('seq', 'model') mesh, 2 steps, step 1 against ``make_tp_train_step``'s.
+   (c) The relay's decode and alignment at phase 6's lengths / 4 against
+   the single-device generic decode and ``align`` (float32 rules).
+
 Each phase prints one line or more with its seconds, and the run its total;
 any failure exits non-zero before the last line, which is ``{"ok": true,
 "device": {...}}``. The line before it is the kernels' JSON record: for each
@@ -5343,6 +5359,464 @@ def phase_streaming(torch, gnat, presets, encoder_lib, streaming, train_lib,
   return by_counter
 
 
+# Phase 16: time sharding. Phase 6's batch split into SEQ_BLOCKS blocks of
+# frames (400 each), and once more with a block of padding only.
+SEQ_BLOCKS = 4
+SEQ_PADDED_T = 2000
+# Kernel calls chained by their seeds against one whole call of the same
+# kernels: the per-frame work is the same, only the cross-block float32
+# sums of the backward's accumulators run in another order.
+CHAIN_RTOLS = (F32_RTOL, 1e-4)
+# Phase 16(c): the relay's decode and alignment at phase 6's lengths / 4.
+SEQ_DECODE_FRAMES = [n // 4 for n in NUM_FRAMES]
+SEQ_DECODE_LABELS = [n // 16 for n in SEQ_DECODE_FRAMES]
+SEQ_VALUE_NAMES = ('log_z*', 'alpha*')
+
+
+def chain_scans(torch, forward, backward, pf, pc, head, is_pad, g, kw,
+                blocks, peaks=None):
+  """A log-partition kernel pair chained over ``blocks`` equal blocks of
+  frames, as the time-sharded relay runs it: the forward block by block
+  from ``alpha0`` without residuals, then right to left each block's
+  forward again from its saved alpha with its residuals and its backward
+  from ``beta0`` with the whole sequence's log Z. ``blocks`` 1 is one
+  whole call (forward with residuals, backward). ``peaks``: a list that
+  gets each block's device memory peak of its recomputed forward and
+  backward, above what was allocated before.
+
+  Returns (log Z, final alpha, the backward's outputs: dpf [T, B, h]
+  joined, the parameter gradients summed over the blocks, beta_out).
+  """
+  max_t = pf.shape[0]
+  size = max_t // blocks
+  part = lambda b: slice(b * size, (b + 1) * size)
+  alphas, alpha = [None], None
+  if blocks > 1:
+    for b in range(blocks):
+      _, alpha, _, _ = forward(pf[part(b)], pc, head, is_pad[part(b)],
+                               with_residuals=False, alpha0=alpha, **kw)
+      alphas.append(alpha)
+  beta, dpfs, sums, log_z = None, [], None, None
+  for b in reversed(range(blocks)):
+    if peaks is not None:
+      torch.cuda.synchronize()
+      base = torch.cuda.memory_allocated()
+      torch.cuda.reset_peak_memory_stats()
+    lz, out, hist, slabs = forward(pf[part(b)], pc, head, is_pad[part(b)],
+                                   with_residuals=True, alpha0=alphas[b],
+                                   **kw)
+    if log_z is None:
+      log_z, alpha = (lz, out) if blocks == 1 else (
+          torch.logsumexp(alpha, dim=-1), alpha)
+    *grads, beta = backward(pf[part(b)], pc, head, is_pad[part(b)], log_z,
+                            g, hist, slabs, beta0=beta, **kw)
+    del hist, slabs
+    if peaks is not None:
+      torch.cuda.synchronize()
+      peaks.append(torch.cuda.max_memory_allocated() - base)
+    dpfs.insert(0, grads[0])
+    sums = grads[1:] if sums is None else [a + x for a, x in
+                                          zip(sums, grads[1:])]
+  return log_z, alpha, [torch.cat(dpfs)] + sums + [beta]
+
+
+def chain_errors(torch, got, want, rtols):
+  """max_errors of two chain_scans results (values and the backward's)."""
+  return max_errors(torch, list(got[:2]) + list(got[2]),
+                    list(want[:2]) + list(want[2]),
+                    SEQ_VALUE_NAMES + BACKWARD_NAMES, rtols)
+
+
+def seq_kernel_seeds(torch, gnat, presets, fused_scan, trigram_scan):
+  """Phase 16(a): the log-partition kernels chained by their relay seeds.
+
+  gnat_global_bigram() at full width on phase 6's encoded batch (B=8,
+  T_max 1600): both modes' pairs over SEQ_BLOCKS blocks of 400 frames
+  against one whole call of the same kernels (CHAIN_RTOLS) and against the
+  plain versions chained the same way (phase 6's long-utterance rule); then
+  at T_max SEQ_PADDED_T, one more block of padding only: the chain equal to
+  the four-block one, that block's alpha and beta passed through exactly
+  and its gradients exactly zero. The trigram pair
+  (gnat_global_bigram(vocab_size=64, context_size=2), phase 10's shape, the
+  segment route) over 2 blocks, against one whole call and the plain
+  versions. Prints each mode's per-block backward peak memory and the
+  chained call's time against the whole call's."""
+  config = presets.gnat_global_bigram()
+  model = gnat.GNATModel(config, device='cuda')
+  params = model.init(torch.Generator().manual_seed(0))
+  frames, num_frames, _, _ = tp_batch(torch, config)
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+  _, pf, pc, head = staged_lattice_inputs(torch, model.lattice,
+                                          params['lattice'], encoded)
+  max_t, batch = pf.shape[:2]
+  is_pad = padding(torch, num_frames, max_t)
+  g = torch.full((batch,), 1.0 / batch, device='cuda')
+  kw = dict(max_expansions=config.max_expansions, frame_dependent=False,
+            compute_dtype=torch.bfloat16)
+  t0 = time.perf_counter()
+  plain = chain_scans(torch, fused_scan.fused_forward_plain,
+                      fused_scan.fused_backward_plain, pf, pc, head, is_pad,
+                      g, kw, SEQ_BLOCKS)
+  plain_s = time.perf_counter() - t0
+  grad_rtol = max(LP_RTOL['bfloat16'][1],
+                  LP_LONG_ROUNDINGS * 2.0**-24 * plain[0].abs().max().item())
+  chained_cache = None
+  for mode in fused_scan.MODES:
+    fwd = functools.partial(fused_scan.fused_forward, mode=mode)
+    bwd = functools.partial(fused_scan.fused_backward, mode=mode)
+    chain_scans(torch, fwd, bwd, pf, pc, head, is_pad, g, kw,
+                SEQ_BLOCKS)  # warm-up
+    whole_peak, block_peaks = [], []
+    whole, whole_ms = timed(torch, lambda: chain_scans(
+        torch, fwd, bwd, pf, pc, head, is_pad, g, kw, 1, whole_peak))
+    chained, chained_ms = timed(torch, lambda: chain_scans(
+        torch, fwd, bwd, pf, pc, head, is_pad, g, kw, SEQ_BLOCKS,
+        block_peaks))
+    try:
+      vs_whole = chain_errors(torch, chained, whole, CHAIN_RTOLS)
+      vs_plain = chain_errors(torch, chained, plain,
+                              (BF16_RTOL, grad_rtol))
+    except SmokeFailure as e:
+      raise SmokeFailure(f'{mode} chain: {e}') from None
+    worst = lambda errors: max((e, n) for n, (e, _) in errors.items())
+    say('seq-kernels',
+        f"'{mode}' pair over {SEQ_BLOCKS} blocks of {max_t // SEQ_BLOCKS} "
+        f'frames (alpha0 / beta0, the whole log Z), bf16 B={batch} '
+        f'T={max_t} S={pc.shape[0]} V={config.vocab_size} h={pf.shape[2]} '
+        f'FLD(2): vs one whole call at most {worst(vs_whole)[0]:.2e} '
+        f'({worst(vs_whole)[1]}); vs the plain versions chained (gradient '
+        f'rtol {grad_rtol:.2e}) at most {worst(vs_plain)[0]:.2e} '
+        f'({worst(vs_plain)[1]}); chained {chained_ms:.1f} ms (forward '
+        f'without residuals, then each block\'s forward again and its '
+        f'backward) vs whole {whole_ms:.1f} ms (forward with residuals, '
+        f'backward); peak memory of a block\'s recomputed forward and '
+        f'backward ' + ', '.join(f'{p / 2**20:.0f}' for p in
+                                 reversed(block_peaks)) +
+        f' MiB vs the whole call\'s {whole_peak[0] / 2**20:.0f} MiB')
+    if mode == 'cache':
+      chained_cache = chained
+  say('seq-kernels', f'the plain versions chained: {plain_s:.1f} s')
+
+  # One more block of padding only (T_max SEQ_PADDED_T).
+  extra = SEQ_PADDED_T - max_t
+  pf_pad = torch.cat([pf, torch.randn(extra, batch, pf.shape[2],
+                                      device='cuda')]).contiguous()
+  is_pad_pad = padding(torch, num_frames, SEQ_PADDED_T)
+  blocks = SEQ_PADDED_T // (max_t // SEQ_BLOCKS)
+  fwd, bwd = fused_scan.fused_forward, fused_scan.fused_backward
+  padded = chain_scans(torch, fwd, bwd, pf_pad, pc, head, is_pad_pad, g, kw,
+                       blocks)
+  check(not bool(padded[2][0][max_t:].any()),
+        'the padding-only block has nonzero d(pf)')
+  padded = (padded[0], padded[1], [padded[2][0][:max_t]] + padded[2][1:])
+  pad_err = chain_errors(torch, padded, chained_cache, CHAIN_RTOLS)
+  alpha = chained_cache[1]
+  _, out, _, _ = fwd(pf_pad[max_t:], pc, head, is_pad_pad[max_t:],
+                     with_residuals=False, alpha0=alpha, **kw)
+  check(torch.equal(out, alpha), 'the padding-only block changed alpha')
+  _, _, hist, slabs = fwd(pf_pad[max_t:], pc, head, is_pad_pad[max_t:],
+                          with_residuals=True, alpha0=alpha, **kw)
+  *grads, beta = bwd(pf_pad[max_t:], pc, head, is_pad_pad[max_t:],
+                     chained_cache[0], g, hist, slabs, **kw)
+  check(not bool(beta.any()), 'the padding-only block changed beta')
+  check(not any(bool(x.any()) for x in grads),
+        'the padding-only block has nonzero gradients')
+  say('seq-kernels',
+      f"'cache' pair at T_max {SEQ_PADDED_T} over {blocks} blocks, the last "
+      f'padding only: vs the {SEQ_BLOCKS}-block chain at most '
+      f'{max(e for e, _ in pad_err.values()):.2e}; the padding-only block '
+      'passes alpha and beta through exactly, its gradients exactly 0')
+
+  # The trigram pair over 2 blocks (the segment route).
+  tri_config = presets.gnat_global_bigram(vocab_size=64, context_size=2)
+  tri_model = gnat.GNATModel(tri_config, device='cuda')
+  tri_params = tri_model.init(torch.Generator().manual_seed(0))
+  rng = np.random.default_rng(0)
+  tri_max_t = max(TRIGRAM_NUM_FRAMES)
+  tri_frames = torch.from_numpy(rand(
+      rng, (len(TRIGRAM_NUM_FRAMES), tri_max_t,
+            tri_config.feature_size))).cuda()
+  tri_nf = torch.tensor(TRIGRAM_NUM_FRAMES, device='cuda')
+  with torch.no_grad():
+    tri_encoded = tri_model.encoder.apply(tri_params['encoder'], tri_frames,
+                                          tri_nf)
+  _, tpf, tpc, thead = staged_lattice_inputs(torch, tri_model.lattice,
+                                             tri_params['lattice'],
+                                             tri_encoded)
+  check(trigram_scan.segment_route(
+      batch, tri_config.vocab_size, tpf.shape[2], torch.bfloat16,
+      tri_config.max_expansions) is not None,
+        'the trigram pair does not take the segment route here')
+  tri_pad = padding(torch, tri_nf, tri_max_t)
+  args = (tpf, tpc, thead, tri_pad, g, kw)
+  tri = [chain_scans(torch, trigram_scan.trigram_forward,
+                     trigram_scan.trigram_backward, *args, blocks)
+         for blocks in (1, 2)]
+  tri_plain = chain_scans(torch, trigram_scan.trigram_forward_plain,
+                          trigram_scan.trigram_backward_plain, *args, 2)
+  tri_rtol = max(LP_RTOL['bfloat16'][1], LP_LONG_ROUNDINGS * 2.0**-24 *
+                 tri_plain[0].abs().max().item())
+  try:
+    tri_whole = chain_errors(torch, tri[1], tri[0], CHAIN_RTOLS)
+    tri_vs_plain = chain_errors(torch, tri[1], tri_plain,
+                                (BF16_RTOL, tri_rtol))
+  except SmokeFailure as e:
+    raise SmokeFailure(f'trigram chain: {e}') from None
+  say('seq-kernels',
+      f'trigram pair (segment route) over 2 blocks, bf16 B={batch} '
+      f'T={tri_max_t} S={tpc.shape[0]} V={tri_config.vocab_size} FLD(2): '
+      f'vs one whole call at most '
+      f'{max(e for e, _ in tri_whole.values()):.2e}, vs the plain versions '
+      f'chained at most {max(e for e, _ in tri_vs_plain.values()):.2e}')
+
+
+def seq_steps(torch, gnat, presets, fused_scan, sharded_scan, sharding,
+              sequence, pytree):
+  """Phase 16(b): the time-sharded steps on the one-process NCCL group.
+
+  ``make_time_sharded_train_step(fused='auto')`` on a ('seq',) mesh of 1
+  takes TRAIN_STEPS counted and timed steps on phase 6's batch (the kernel
+  relay: 2 forwards and 1 backward a step, the block's forward recomputed),
+  losses falling; step 1's loss and gradients (before the clip) against
+  ``gnat.train_step``'s, the single-device bigram kernels: loss rtol 1e-5,
+  gradients within STEP_GRAD_RTOL of the largest. ``make_tp_seq_train_step``
+  on a 1 x 1 ('seq', 'model') mesh takes 2 steps, losses falling, step 1
+  against ``make_tp_train_step``'s the same way (frame_reduce: per frame 2
+  forwards, 2 more recomputed and 2 backwards under FLD(2)). Returns
+  {counter: {path: launches}} of the two modules' kernels."""
+  from torch.distributed.device_mesh import init_device_mesh
+  config = presets.gnat_global_bigram()
+  model = gnat.GNATModel(config, device='cuda')
+  optimizer = gnat.make_optimizer(LEARNING_RATE)
+  batch = tp_batch(torch, config)
+  max_t = batch[0].shape[1]
+  real_frames = sum(NUM_FRAMES)
+
+  def state0():
+    return gnat.init_train_state(model, torch.Generator().manual_seed(0),
+                                 optimizer)
+
+  def grads_of(params):
+    return [leaf.grad.clone() for leaf in pytree.tree_leaves(params)]
+
+  def judge(what, got, want, params):
+    (loss_a, grads_a), (loss_b, grads_b) = got, want
+    rel = abs(loss_a - loss_b) / abs(loss_b)
+    check(np.isfinite(loss_a) and rel <= 1e-5,
+          f'{what}: step-1 loss {loss_a} vs {loss_b}')
+    largest = max(g.abs().max().item() for g in grads_b)
+    paths = [pytree.keystr(p) for p, _ in
+             pytree.tree_flatten_with_path(params)[0]]
+    worst = max(((a - b).abs().max().item() / largest, path)
+                for path, a, b in zip(paths, grads_a, grads_b))
+    check(worst[0] <= STEP_GRAD_RTOL,
+          f'{what}: step-1 gradient of {worst[1]} {worst[0]:.3g} of the '
+          'largest')
+    return (f'loss {loss_a:.9g} vs {loss_b:.9g} (rel {rel:.2e}), '
+            f'gradients within {worst[0]:.2e} of the largest {largest:.4g} '
+            f'({worst[1]})')
+
+  def run(step, steps, module, names):
+    """``steps`` counted and timed steps from a fresh state: step 1 as
+    ``loss_and_grads`` (its gradients kept before the clip) and the update,
+    the others as ``step``. Returns (step-1 (loss, gradients), losses, ms,
+    launches per step, peak memory)."""
+    state = state0()
+    losses, step_ms, per_step = [], [], []
+    reset_counts(module)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+      before = [getattr(module, n) for n in names]
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      if i == 0:
+        loss = step.loss_and_grads(state, *batch)
+        step1 = (loss.item(), grads_of(state.params))
+        optimizer.apply_gradients(state.opt_state)
+        state = dataclasses.replace(state, step=1)
+      else:
+        state, loss = step(state, *batch)
+      end.record()
+      torch.cuda.synchronize()
+      step_ms.append(start.elapsed_time(end))
+      losses.append(loss.item())
+      per_step.append(tuple(getattr(module, n) - c
+                            for n, c in zip(names, before)))
+    check(all(np.isfinite(losses)) and
+          all(b < a for a, b in zip(losses, losses[1:])),
+          f'losses not finite and decreasing: {losses}')
+    return (step1, losses, step_ms, per_step,
+            torch.cuda.max_memory_allocated(), state.params)
+
+  def report(losses, step_ms):
+    return ('losses ' + ', '.join(f'{x:.6g}' for x in losses) +
+            '; step ms ' + ', '.join(f'{x:.1f}' for x in step_ms) + ' (' +
+            ', '.join(f'{real_frames / x * 1e3:.0f}' for x in step_ms) +
+            ' real frames/s)')
+
+  # The time-sharded step against gnat.train_step's step 1.
+  t0 = time.perf_counter()
+  single = state0()
+  want = loss_and_grads(torch, pytree.tree_leaves(single.params),
+                        lambda: model.mean_loss(single.params, *batch))
+  del single
+  seq_mesh = init_device_mesh('cuda', (1,), mesh_dim_names=('seq',))
+  step = sequence.make_time_sharded_train_step(model, optimizer, seq_mesh,
+                                               fused='auto')
+  names = LP_COUNTERS['cache']
+  step1, losses, step_ms, per_step, peak, params = run(
+      step, TRAIN_STEPS, fused_scan, names)
+  check(model.lattice.last_path == 'kernel',
+        f'last_path is {model.lattice.last_path!r}, not kernel')
+  checked = judge('time-sharded', step1, want, params)
+  check(all(n == (2, 1) for n in per_step),
+        f"'cache' launches per time-sharded step {per_step}, not (2, 1)")
+  check(not fused_scan.online_forward_launches,
+        'the time-sharded steps launched the online kernels')
+  path = f'gnat_global_bigram time-sharded steps ({TRAIN_STEPS})'
+  launches = {name: {path: getattr(fused_scan, name)} for name in names}
+  say('seq-steps',
+      f"make_time_sharded_train_step(fused='auto') on a ('seq',) mesh of "
+      f'1, gnat_global_bigram B={len(NUM_FRAMES)} T_max={max_t}: step 1 vs '
+      f'gnat.train_step: {checked}; {TRAIN_STEPS} steps: '
+      f"{report(losses, step_ms)}; 'cache' launches per step (forward, "
+      f'backward) {per_step}; peak memory {peak / 2**30:.2f} GiB '
+      f'({time.perf_counter() - t0:.1f} s)')
+
+  # The seq x tp step against make_tp_train_step's step 1.
+  t0 = time.perf_counter()
+  tp_mesh = sharding.make_mesh(model_parallel=1)
+  tp_step, shard_state = sharding.make_tp_train_step(model, optimizer,
+                                                     tp_mesh)
+  reference = shard_state(state0())
+  want = (tp_step.loss_and_grads(reference, *batch).item(),
+          grads_of(reference.params))
+  del reference
+  sxm_mesh = init_device_mesh('cuda', (1, 1),
+                              mesh_dim_names=('seq', 'model'))
+  step = sequence.make_tp_seq_train_step(model, optimizer, sxm_mesh)
+  names = ('forward_launches', 'backward_launches')
+  reset_counts(fused_scan)
+  step1, losses, step_ms, per_step, peak, params = run(step, 2, sharded_scan,
+                                                       names)
+  checked = judge('seq x tp', step1, want, params)
+  check(all(n == (4 * max_t, 2 * max_t) for n in per_step),
+        f'frame_reduce launches per seq x tp step {per_step}, not '
+        f'({4 * max_t}, {2 * max_t})')
+  check(not any(counts(fused_scan).values()),
+        'the seq x tp steps launched bigram kernels')
+  path = 'gnat_global_bigram seq x tp steps (2)'
+  launches.update({f'frame_reduce {name}': {path: getattr(sharded_scan, name)}
+                   for name in names})
+  say('seq-steps',
+      f"make_tp_seq_train_step on a ('seq', 'model') mesh of 1 x 1: step 1 "
+      f'vs make_tp_train_step: {checked}; 2 steps: {report(losses, step_ms)}'
+      f'; frame_reduce launches per step (forward, backward) {per_step}; '
+      f'peak memory {peak / 2**30:.2f} GiB '
+      f'({time.perf_counter() - t0:.1f} s)')
+  return launches
+
+
+def seq_decode_align(torch, gnat, presets, sequence, joint_head, pytree):
+  """Phase 16(c): decode and align through the relay on a ('seq',) mesh of
+  1, gnat_global_bigram() at full width on phase 6's lengths / 4, against
+  the single-device generic decode (``fused='never'``: the same function,
+  float32) and ``align``, by the decode rules at float32 (ROADMAP §3):
+  path weights and scores to F32_RTOL, rows whose labels differ must tie
+  (the relay's alignment rescored in float64 scores the single-device
+  path's weight). Returns the relay decode's joint+head forward launches."""
+  from torch.distributed.device_mesh import init_device_mesh
+  mesh = init_device_mesh('cuda', (1,), mesh_dim_names=('seq',))
+  config = presets.gnat_global_bigram()
+  model = gnat.GNATModel(config, device='cuda')
+  params = model.init(torch.Generator().manual_seed(0))
+  lattice, lattice_params = model.lattice, params['lattice']
+  rng = np.random.default_rng(0)
+  max_t = max(SEQ_DECODE_FRAMES)
+  frames = torch.from_numpy(rand(
+      rng, (len(SEQ_DECODE_FRAMES), max_t, config.feature_size))).cuda()
+  labels = torch.from_numpy(rng.integers(
+      1, config.vocab_size + 1,
+      size=(len(SEQ_DECODE_FRAMES), max(SEQ_DECODE_LABELS)))).cuda()
+  num_frames = torch.tensor(SEQ_DECODE_FRAMES, device='cuda')
+  num_labels = torch.tensor(SEQ_DECODE_LABELS, device='cuda')
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+  t0 = time.perf_counter()
+  reset_counts(joint_head)
+  relay, relay_ms = timed(torch, lambda: sequence.shortest_path_time_sharded(
+      lattice, lattice_params, encoded, num_frames, mesh, 'seq'))
+  launches = joint_head.forward_launches
+  check(launches >= max_t, f'the relay decode launched the joint+head '
+        f'forward {launches} times, not at least once a frame')
+  lattice.fused = 'never'
+  try:
+    single, single_ms = timed(torch, lambda: lattice.shortest_path(
+        lattice_params, encoded, num_frames))
+  finally:
+    lattice.fused = 'auto'
+  _, pf, pc, _ = staged_lattice_inputs(torch, lattice, lattice_params,
+                                       encoded)
+  rescored = rescore(torch, relay[0], num_frames, pf, pc,
+                     lattice_params['weight_fn'],
+                     max_expansions=config.max_expansions,
+                     frame_dependent=False, compute_dtype=torch.float32)
+  decode = compare_decodes(torch, relay, single, rescored, torch.float32)
+  emit_r, score_r = sequence.align_time_sharded(
+      lattice, lattice_params, encoded, num_frames, labels, num_labels, mesh,
+      'seq')
+  (emit_s, score_s), align_ms = timed(torch, lambda: lattice.align(
+      lattice_params, encoded, num_frames, labels, num_labels))
+  rel = relative(torch, score_r, score_s)
+  check(bool(torch.isfinite(score_r).all()) and
+        bool((rel <= F32_RTOL).all()),
+        f'relay align scores differ by {rel.max().item():.3g} relative')
+  differ = [b for b in range(len(SEQ_DECODE_FRAMES))
+            if not torch.equal(emit_r[b], emit_s[b])]
+  say('seq-decode',
+      f'gnat_global_bigram B={len(SEQ_DECODE_FRAMES)} T_max={max_t}, the '
+      "relay on a ('seq',) mesh of 1: decode "
+      f'{relay_ms:.1f} ms vs the '
+      f'single-device generic route {single_ms:.1f} ms ({decode}); '
+      f'joint+head forward launches {launches}; align vs align '
+      f'({align_ms:.1f} ms): scores max rel {rel.max().item():.2e}, emit '
+      f'frames ' + ('equal' if not differ else
+                    f'differ on tied rows {differ}') +
+      f' ({time.perf_counter() - t0:.1f} s)')
+  return launches
+
+
+def phase_time_sharding(torch, gnat, presets, fused_scan, trigram_scan,
+                        sharded_scan, joint_head, sharding, sequence,
+                        pytree):
+  """Phase 16: time sharding on the card. (a) ``seq_kernel_seeds``; then,
+  on a one-process NCCL group (NCCL takes no two ranks on one GPU, so the
+  relay runs with a time axis of 1 here and its D > 1 chaining of the
+  kernels in (a)), (b) ``seq_steps`` and (c) ``seq_decode_align``. Returns
+  the launches of (b) and (c) by counter and path."""
+  import torch.distributed as dist
+  t0 = time.perf_counter()
+  seq_kernel_seeds(torch, gnat, presets, fused_scan, trigram_scan)
+  say('seq-kernels', f'{time.perf_counter() - t0:.1f} s')
+  dist.init_process_group('nccl', store=dist.HashStore(), rank=0,
+                          world_size=1)
+  try:
+    torch.cuda.empty_cache()
+    launches = seq_steps(torch, gnat, presets, fused_scan, sharded_scan,
+                         sharding, sequence, pytree)
+    torch.cuda.empty_cache()
+    decode_launches = seq_decode_align(torch, gnat, presets, sequence,
+                                       joint_head, pytree)
+  finally:
+    dist.destroy_process_group()
+  launches['joint_head forward_launches'] = {
+      f'gnat_global_bigram time-sharded decode (T={max(SEQ_DECODE_FRAMES)})':
+          decode_launches}
+  return launches
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -5360,7 +5834,7 @@ def main():
     from last_torch_tpu_torch.ops import (build, fused_scan, joint_head,
                                           numerator_scan, sharded_scan,
                                           trigram_scan, viterbi)
-    from last_torch_tpu_torch.parallel import sharding
+    from last_torch_tpu_torch.parallel import sequence, sharding
   except ImportError as e:
     raise SmokeFailure(f'run from the root of a checkout ({e})') from None
 
@@ -5718,6 +6192,23 @@ def main():
                 'online_backward_launches': online_records[1],
                 'viterbi': viterbi_record}
   for counter, paths in stream_launches.items():
+    record = by_counter[counter]
+    for path, count in paths.items():
+      record['launches'] += count
+      record.setdefault('launches_by_path', {})[path] = count
+
+  # Phase 16: time sharding (the relay seeds, the steps, decode and align).
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  seq_launches = phase_time_sharding(
+      torch, gnat, presets, fused_scan, trigram_scan, sharded_scan,
+      joint_head, sharding, sequence, pytree)
+  print(f'[time-sharding] {time.perf_counter() - t0:.1f} s', flush=True)
+  by_counter.update({
+      'frame_reduce forward_launches': fr_records['forward'],
+      'frame_reduce backward_launches': fr_records['backward'],
+      'joint_head forward_launches': jh_records['forward']})
+  for counter, paths in seq_launches.items():
     record = by_counter[counter]
     for path, count in paths.items():
       record['launches'] += count

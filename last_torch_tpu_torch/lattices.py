@@ -812,27 +812,40 @@ class RecognitionLattice:
             torch.stack([l for _, l in outputs], dim=-2))
 
   def _string_dp(self, blank_weight, lexical_weight, num_frames, num_labels,
-                 semiring, weight_lift: WeightLift = None):
+                 semiring, weight_lift: WeightLift = None, alpha0=None,
+                 t_offset: int = 0, final_gather: bool = True):
     """The (frame x label-position) recursion over precomputed weights.
 
     The scan route of the JAX package (its closed-form cumulative route,
     ``STRING_DP_CUMULATIVE``, is off there and is not ported), one step a
     frame; ``weight_lift`` lifts each frame's weights into the semiring.
+
+    ``alpha0`` / ``t_offset`` / ``final_gather`` run the recursion over one
+    block of frames of a longer sequence (the time-sharded relay,
+    ``parallel/sequence.py``): the label-position carry starts from
+    ``alpha0`` (the one-hot position 0 by default), frame t of the block is
+    frame ``t_offset + t`` of the sequence for the padding test, and with
+    ``final_gather`` False the raw final carry [batch_dims..., U+1] comes
+    back instead of its ``num_labels`` entry.
     """
     batch_dims = tuple(num_frames.shape)
     num_align_states = self.alignment.num_states()
     num_positions = blank_weight.shape[-1]
     lift = weight_lift if weight_lift is not None else _identity
-    alpha = _init_context_state_weights(
-        batch_dims, num_positions, 0, semiring,
-        _lifted_dtype(lift, blank_weight), blank_weight.device)
+    alpha = alpha0
+    if alpha is None:
+      alpha = _init_context_state_weights(
+          batch_dims, num_positions, 0, semiring,
+          _lifted_dtype(lift, blank_weight), blank_weight.device)
     for t in range(blank_weight.shape[0]):
       next_alpha = self.alignment.string_forward(
           alpha=alpha, blank=[lift(blank_weight[t])] * num_align_states,
           lexical=[lift(lexical_weight[t])] * num_align_states,
           semiring=semiring)
-      alpha = semirings.where((t >= num_frames)[..., None], alpha,
-                              next_alpha)
+      alpha = semirings.where((t_offset + t >= num_frames)[..., None],
+                              alpha, next_alpha)
+    if not final_gather:
+      return alpha
     is_final = num_labels[..., None] == torch.arange(
         num_positions, device=blank_weight.device)
     zero = semirings.zeros_like(semiring, alpha, ())
@@ -934,25 +947,9 @@ class RecognitionLattice:
       return self._forward_s1(wf_params, cache, frames, num_frames, semiring,
                               blank_mask, lexical_mask, lift)
     self._last_path = 'generic'
-
-    def step(alpha, t):
-      blank, lexical = self.weight_fn.apply(wf_params, cache,
-                                            frames[..., t, :])
-      next_alpha = self.alignment.forward(
-          alpha=alpha,
-          blank=_lift_masked(lift, blank, blank_mask, num_align_states,
-                             lambda m: m[..., t, :]),
-          lexical=_lift_masked(lift, lexical, lexical_mask,
-                               num_align_states, lambda m: m[..., t, :, :]),
-          context=self.context, semiring=semiring)
-      return semirings.where((t >= num_frames)[..., None], alpha,
-                             next_alpha)
-
-    if torch.is_grad_enabled():
-      step_fn = lambda alpha, t: torch.utils.checkpoint.checkpoint(
-          step, alpha, t, use_reentrant=False)
-    else:
-      step_fn = step
+    step_fn = self._frame_step(wf_params, cache, frames, num_frames,
+                               semiring, blank_mask, lexical_mask,
+                               weight_lift)
     num_states = self.context.shape()[0]
     alpha = _init_context_state_weights(
         batch_dims, num_states, self.context.start(), semiring,
@@ -967,6 +964,70 @@ class RecognitionLattice:
       history = pytree.tree_map(
           lambda a: a.new_empty(batch_dims + (0, num_states)), alpha)
     return semiring.sum(alpha, axis=-1), history
+
+  def _forward_block(self, params, cache, frames, num_frames, semiring,
+                     alpha, t_offset: int = 0, lexical_mask=None,
+                     weight_lift: WeightLift = None):
+    """Advances the forward algorithm's alpha over one block of frames.
+
+    The time-sharded relay's body (``parallel/sequence.py``): the frame
+    loop of ``_forward`` from ``alpha``, keeping no history, for any
+    semiring and lift. At S = 1 it is the same loop: the factorized route
+    needs the whole sequence.
+
+    Args:
+      params, cache, semiring, weight_lift: As ``_forward``.
+      frames: [batch, Tl, feature] frames of the block.
+      num_frames: [batch] frame counts of the whole sequence.
+      alpha: [batch, S] alpha before the block (a semiring value).
+      t_offset: The sequence frame of the block's first frame, for the
+        padding test (frames at or past ``num_frames`` hold alpha).
+      lexical_mask: Optional additive [batch, Tl, num_alignment_states,
+        vocab_size] mask on the block's lexical weights (the decode's
+        differentiation hook).
+
+    Returns:
+      The [batch, S] alpha after the block.
+    """
+    masks = None
+    if lexical_mask is not None:
+      masks = [lexical_mask[..., i, None, :]
+               for i in range(self.alignment.num_states())]
+    step_fn = self._frame_step(params['weight_fn'], cache, frames,
+                               num_frames, semiring, None, masks,
+                               weight_lift, t_offset)
+    for t in range(frames.shape[-2]):
+      alpha = step_fn(alpha, t)
+    return alpha
+
+  def _frame_step(self, wf_params, cache, frames, num_frames, semiring,
+                  blank_mask, lexical_mask, weight_lift: WeightLift,
+                  t_offset: int = 0):
+    """``step(alpha, t)``: frame t of the forward algorithm's loop (masks
+    as ``_forward`` takes them), holding alpha where frame ``t_offset + t``
+    is padding; checkpointed when autograd records, so that only the
+    O(B * S) alpha carries are saved, never the O(B * S * V) arc
+    weights."""
+    num_align_states = self.alignment.num_states()
+    lift = weight_lift if weight_lift is not None else _identity
+
+    def step(alpha, t):
+      blank, lexical = self.weight_fn.apply(wf_params, cache,
+                                            frames[..., t, :])
+      next_alpha = self.alignment.forward(
+          alpha=alpha,
+          blank=_lift_masked(lift, blank, blank_mask, num_align_states,
+                             lambda m: m[..., t, :]),
+          lexical=_lift_masked(lift, lexical, lexical_mask,
+                               num_align_states, lambda m: m[..., t, :, :]),
+          context=self.context, semiring=semiring)
+      return semirings.where((t_offset + t >= num_frames)[..., None], alpha,
+                             next_alpha)
+
+    if torch.is_grad_enabled():
+      return lambda alpha, t: torch.utils.checkpoint.checkpoint(
+          step, alpha, t, use_reentrant=False)
+    return step
 
   def _forward_s1(self, wf_params, cache, frames, num_frames, semiring,
                   blank_mask, lexical_mask, lift):

@@ -396,7 +396,8 @@ def _raise_on(status: int, what: str):
 def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
                   is_pad: torch.Tensor, *, max_expansions: int,
                   frame_dependent: bool, compute_dtype: torch.dtype,
-                  with_residuals: bool, mode: str = 'cache'):
+                  with_residuals: bool, mode: str = 'cache',
+                  alpha0: Optional[torch.Tensor] = None):
   """Log-semiring forward scan: the kernel on CUDA, the plain version on CPU.
 
   Args:
@@ -414,6 +415,10 @@ def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
       leaves both unwritten.
     mode: 'cache' (a frame's later reductions read its staged lex) or
       'online' (each recomputes the head product; no [B, S, V] buffer).
+    alpha0: Optional [B, S] float32 log-space alpha before frame 0; the
+      one-hot start at state 0 by default. With the final alpha returned,
+      it chains the scan over consecutive blocks of frames (the time-sharded
+      relay, ``parallel/sequence.py``).
 
   Returns:
     (log_z [B], final alpha [B, S], history [T, B, S] or None, slabs
@@ -424,8 +429,10 @@ def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
   global forward_launches, online_forward_launches
   _check_mode(mode)
   check_inputs(pf, pc, params, is_pad, compute_dtype, 'log-partition')
+  _check_seed(pf, pc, alpha0, 'alpha0')
   kw = dict(max_expansions=max_expansions, frame_dependent=frame_dependent,
-            compute_dtype=compute_dtype, with_residuals=with_residuals)
+            compute_dtype=compute_dtype, with_residuals=with_residuals,
+            alpha0=alpha0)
   if pf.device.type == 'cpu':
     return fused_forward_plain(pf, pc, params, is_pad, **kw)
   if pf.device.type != 'cuda':
@@ -473,8 +480,7 @@ def fused_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
   slabs = (empty(k, max_t, batch, num_states)
            if with_residuals and not frame_dependent and k else None)
   last = None if slabs is not None else empty(max(k, 1), batch, num_states)
-  alpha = torch.full((2, batch, num_states), NEG_INF, device=device)
-  alpha[0, :, 0] = 0.0
+  alpha = initial_alpha(2, batch, num_states, alpha0, device)
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
     status = lib.fused_forward(
@@ -497,7 +503,8 @@ def fused_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
                         params: dict[str, Any], is_pad: torch.Tensor, *,
                         max_expansions: int, frame_dependent: bool,
                         compute_dtype: torch.dtype, with_residuals: bool,
-                        mode: str = 'cache'):
+                        mode: str = 'cache',
+                        alpha0: Optional[torch.Tensor] = None):
   """The forward kernel's function in plain PyTorch (same arguments and
   outputs), in either mode: both compute the same function.
 
@@ -511,7 +518,8 @@ def fused_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
   return forward_scan_plain(
       pf, pc, params, is_pad, max_expansions=max_expansions,
       frame_dependent=frame_dependent, compute_dtype=compute_dtype,
-      with_residuals=with_residuals, reduce_arcs=_bigram_reduce_arcs)
+      with_residuals=with_residuals, reduce_arcs=_bigram_reduce_arcs,
+      alpha0=alpha0)
 
 
 def _bigram_reduce_arcs(weights):
@@ -529,7 +537,7 @@ def _bigram_dests(vec):
 
 def forward_scan_plain(pf, pc, params, is_pad, *, max_expansions,
                        frame_dependent, compute_dtype, with_residuals,
-                       reduce_arcs):
+                       reduce_arcs, alpha0=None):
   """The log-semiring forward scan in plain PyTorch, for any context whose
   arcs ``reduce_arcs`` log-sums into their destinations ([B, S, V] -> [B,
   S]); arguments and outputs as ``fused_forward``'s."""
@@ -540,8 +548,8 @@ def forward_scan_plain(pf, pc, params, is_pad, *, max_expansions,
   vw, vb = rnd(params['vocab_w']), params['vocab_b']
   bw, bb = rnd(params['blank_w']), params['blank_b']
   empty = lambda *shape: torch.empty(shape, dtype=pf.dtype, device=pf.device)
-  alpha = empty(batch, num_states).fill_(NEG_INF)
-  alpha[:, 0] = 0.0
+  alpha = initial_alpha(1, batch, num_states, alpha0, pf.device,
+                        pf.dtype)[0]
   hist = slabs = None
   if with_residuals:
     hist = empty(max_t, batch, num_states)
@@ -573,6 +581,33 @@ def forward_scan_plain(pf, pc, params, is_pad, *, max_expansions,
   return torch.logsumexp(alpha, dim=-1), alpha, hist, slabs
 
 
+def initial_alpha(slots: int, batch: int, num_states: int,
+                  alpha0: Optional[torch.Tensor], device,
+                  dtype=torch.float32) -> torch.Tensor:
+  """[slots, B, S] alpha buffer whose slot 0 holds ``alpha0`` (the one-hot
+  start at state 0 when None) and the others -inf."""
+  alpha = torch.full((slots, batch, num_states), NEG_INF, dtype=dtype,
+                     device=device)
+  if alpha0 is None:
+    alpha[0, :, 0] = 0.0
+  else:
+    alpha[0] = alpha0
+  return alpha
+
+
+def _check_seed(pf, pc, seed: Optional[torch.Tensor], name: str):
+  """Checks a relay seed (``alpha0`` / ``beta0``): None or [B, S] float32
+  on the frames' device."""
+  if seed is None:
+    return
+  shape = (pf.shape[1], pc.shape[0])
+  if tuple(seed.shape) != shape or seed.dtype != torch.float32:
+    raise ValueError(f'{name} should be float32 of shape {shape}, got '
+                     f'{seed.dtype} {tuple(seed.shape)}')
+  if seed.device != pf.device:
+    raise ValueError(f'{name} must be on {pf.device}')
+
+
 def _check_residuals(pf, pc, max_expansions, frame_dependent, **residuals):
   """Checks the forward's outputs (and a cotangent) that a reverse scan
   reads: log_z [B], g [B], hist [T, B, S], slabs [k, T, B, S] (FLD only)."""
@@ -595,7 +630,8 @@ def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
                    is_pad: torch.Tensor, log_z: torch.Tensor, g: torch.Tensor,
                    hist: torch.Tensor, slabs: Optional[torch.Tensor], *,
                    max_expansions: int, frame_dependent: bool,
-                   compute_dtype: torch.dtype, mode: str = 'cache'):
+                   compute_dtype: torch.dtype, mode: str = 'cache',
+                   beta0: Optional[torch.Tensor] = None):
   """Reverse beta scan with head and tanh gradients: the kernel on CUDA,
   the plain version on CPU.
 
@@ -603,10 +639,14 @@ def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
     pf, pc, params, is_pad, max_expansions, frame_dependent, compute_dtype,
       mode: as ``fused_forward``. 'online' recomputes lex for every
       reduction and forms d_lex ``ONLINE_CHUNK_STATES`` states at a time.
-    log_z: [B] float32 from ``fused_forward``.
+    log_z: [B] float32 from ``fused_forward``: over a block of a longer
+      sequence, the whole sequence's log Z.
     g: [B] float32 cotangent of log_z.
     hist: [T, B, S] alpha history from ``fused_forward``.
     slabs: [k, T, B, S] expansion slabs (FrameLabelDependent), else None.
+    beta0: Optional [B, S] float32 log-space beta after the last frame;
+      zeros (the semiring's ones) by default. With ``beta_out`` it chains
+      the reverse scan over consecutive blocks, right to left.
 
   Returns:
     (dpf [T, B, h], dpc [S, h], d_vocab_w [h, V], d_vocab_b [V],
@@ -619,8 +659,9 @@ def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
   check_inputs(pf, pc, params, is_pad, compute_dtype, 'log-partition')
   _check_residuals(pf, pc, max_expansions, frame_dependent, log_z=log_z, g=g,
                    hist=hist, slabs=slabs)
+  _check_seed(pf, pc, beta0, 'beta0')
   kw = dict(max_expansions=max_expansions, frame_dependent=frame_dependent,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, beta0=beta0)
   if pf.device.type == 'cpu':
     return fused_backward_plain(pf, pc, params, is_pad, log_z, g, hist,
                                 slabs, **kw)
@@ -639,7 +680,7 @@ def fused_backward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
 
 def launch_backward(entry: str, pf, pc, params, is_pad, log_z, g, hist,
                     slabs, *, max_expansions, frame_dependent, compute_dtype,
-                    online=False):
+                    online=False, beta0=None):
   """Allocates the reverse scan's scratch and outputs and launches the
   library's ``entry``: 'fused_backward' (in either mode) or
   'trigram_backward' (cache mode), which take the same buffers. Inputs as
@@ -693,7 +734,7 @@ def launch_backward(entry: str, pf, pc, params, is_pad, log_z, g, hist,
   pad = is_pad.to(torch.int32)
   blank, d_blank = empty(batch, num_states), empty(batch, num_states)
   nb = empty(max(k, 1), batch, num_states)
-  beta = zeros(2, batch, num_states)  # slot 0: semiring ones
+  beta = initial_beta(batch, num_states, beta0, device)
   dpf = empty(max_t, batch, hidden)
   dpf_part = empty(tiles, batch, hidden)
   # Accumulators carried across frames, each element owned by one block
@@ -723,6 +764,16 @@ def launch_backward(entry: str, pf, pc, params, is_pad, log_z, g, hist,
         *bigram_args, ysplits, ksplits, *tail_args, stream)
   _raise_on(status, f'{entry} (log-partition backward)')
   return dpf, dpc, dvw, dvb, dbw, dbb[0], beta[max_t % 2]
+
+
+def initial_beta(batch: int, num_states: int, beta0: Optional[torch.Tensor],
+                 device) -> torch.Tensor:
+  """[2, B, S] beta buffer whose slot 0 holds ``beta0`` (zeros, the
+  semiring's ones, when None)."""
+  beta = torch.zeros((2, batch, num_states), device=device)
+  if beta0 is not None:
+    beta[0] = beta0
+  return beta
 
 
 def _reverse_frame(pc, pf_t, is_pad_t, hist_t, slabs_t, beta, rnd, head,
@@ -766,7 +817,8 @@ def fused_backward_plain(pf: torch.Tensor, pc: torch.Tensor,
                          log_z: torch.Tensor, g: torch.Tensor,
                          hist: torch.Tensor, slabs: Optional[torch.Tensor],
                          *, max_expansions: int, frame_dependent: bool,
-                         compute_dtype: torch.dtype, mode: str = 'cache'):
+                         compute_dtype: torch.dtype, mode: str = 'cache',
+                         beta0: Optional[torch.Tensor] = None):
   """The backward kernel's function in plain PyTorch (same arguments and
   outputs), in either mode.
 
@@ -779,12 +831,12 @@ def fused_backward_plain(pf: torch.Tensor, pc: torch.Tensor,
   return backward_scan_plain(
       pf, pc, params, is_pad, log_z, g, hist, slabs,
       max_expansions=max_expansions, frame_dependent=frame_dependent,
-      compute_dtype=compute_dtype, dests=_bigram_dests)
+      compute_dtype=compute_dtype, dests=_bigram_dests, beta0=beta0)
 
 
 def backward_scan_plain(pf, pc, params, is_pad, log_z, g, hist, slabs, *,
                         max_expansions, frame_dependent, compute_dtype,
-                        dests):
+                        dests, beta0=None):
   """The reverse beta scan with head and tanh gradients in plain PyTorch,
   for any context whose arc destinations ``dests`` gathers (as
   ``_reverse_frame`` takes it); arguments and outputs as
@@ -797,7 +849,7 @@ def backward_scan_plain(pf, pc, params, is_pad, log_z, g, hist, slabs, *,
   bw, bb = rnd(params['blank_w']), params['blank_b']
   bw32 = params['blank_w']
   zeros = lambda *shape: torch.zeros(shape, dtype=pf.dtype, device=pf.device)
-  beta = zeros(batch, num_states)
+  beta = zeros(batch, num_states) if beta0 is None else beta0.to(pf.dtype)
   dpf = zeros(max_t, batch, hidden)
   dpc = zeros(num_states, hidden)
   dvw = torch.zeros_like(params['vocab_w'])

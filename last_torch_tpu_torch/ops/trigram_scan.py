@@ -55,9 +55,12 @@ the budget at B=8 is first passed at V=564 (S = 318,661); in float32 (the
 CPU's compute type) at V=512. Past it the lattice takes the generic route,
 as the JAX package's takes XLA past its VMEM budget. There is no 'online'
 mode: the lexical work per frame grows as V^3 and the generic route is what
-remains beyond the budget. The time-sharded relay's ``alpha0`` / ``beta0``
-chaining of the JAX kernels (``parallel/sequence.py``'s) is not ported
-(ROADMAP queue 1, item 10).
+remains beyond the budget.
+
+Both scans take the relay seeds of the bigram pair: ``alpha0`` (alpha before
+the first frame) and ``beta0`` (beta after the last), so that blocks of
+frames chain into one sequence, forward left to right and backward right to
+left with the whole sequence's log Z, as the JAX kernels chain.
 """
 
 from __future__ import annotations
@@ -198,7 +201,8 @@ def supported(lattice, frames: torch.Tensor) -> bool:
 def trigram_forward(pf: torch.Tensor, pc: torch.Tensor,
                     params: dict[str, Any], is_pad: torch.Tensor, *,
                     max_expansions: int, frame_dependent: bool,
-                    compute_dtype: torch.dtype, with_residuals: bool):
+                    compute_dtype: torch.dtype, with_residuals: bool,
+                    alpha0: Optional[torch.Tensor] = None):
   """Trigram log-semiring forward scan: the kernel on CUDA, the plain
   version on CPU.
 
@@ -214,6 +218,8 @@ def trigram_forward(pf: torch.Tensor, pc: torch.Tensor,
       the head weights are rounded to before the float32 products.
     with_residuals: Also write what the backward reads: the alpha history
       and, for FrameLabelDependent, the expansion slabs.
+    alpha0: Optional [B, S] float32 alpha before frame 0, as
+      ``fused_scan.fused_forward`` takes it.
 
   Returns:
     (log_z [B], final alpha [B, S], history [T, B, S] or None, slabs
@@ -223,8 +229,10 @@ def trigram_forward(pf: torch.Tensor, pc: torch.Tensor,
   global forward_launches
   fused_scan.check_inputs(pf, pc, params, is_pad, compute_dtype,
                           'trigram log-partition', context_size=2)
+  fused_scan._check_seed(pf, pc, alpha0, 'alpha0')
   kw = dict(max_expansions=max_expansions, frame_dependent=frame_dependent,
-            compute_dtype=compute_dtype, with_residuals=with_residuals)
+            compute_dtype=compute_dtype, with_residuals=with_residuals,
+            alpha0=alpha0)
   if pf.device.type == 'cpu':
     return trigram_forward_plain(pf, pc, params, is_pad, **kw)
   if pf.device.type != 'cuda':
@@ -243,8 +251,7 @@ def trigram_forward(pf: torch.Tensor, pc: torch.Tensor,
   hist = empty(max_t, batch, states) if with_residuals else None
   slabs = (empty(k, max_t, batch, states)
            if with_residuals and not frame_dependent and k else None)
-  alpha = torch.full((2, batch, states), fused_scan.NEG_INF, device=device)
-  alpha[0, :, 0] = 0.0
+  alpha = fused_scan.initial_alpha(2, batch, states, alpha0, device)
   plan = segment_route(batch, vocab, hidden, compute_dtype, k)
   if plan is not None:
     # Scratch, held until the call has enqueued every launch.
@@ -292,7 +299,8 @@ def trigram_forward(pf: torch.Tensor, pc: torch.Tensor,
 def trigram_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
                           params: dict[str, Any], is_pad: torch.Tensor, *,
                           max_expansions: int, frame_dependent: bool,
-                          compute_dtype: torch.dtype, with_residuals: bool):
+                          compute_dtype: torch.dtype, with_residuals: bool,
+                          alpha0: Optional[torch.Tensor] = None):
   """The forward kernel's function in plain PyTorch (same arguments and
   outputs): each expansion is ``FullNGram.forward_reduce`` of the frame's
   [B, S, V] arc weights. Rounds where the kernel rounds and computes in the
@@ -302,14 +310,16 @@ def trigram_forward_plain(pf: torch.Tensor, pc: torch.Tensor,
       pf, pc, params, is_pad, max_expansions=max_expansions,
       frame_dependent=frame_dependent, compute_dtype=compute_dtype,
       with_residuals=with_residuals,
-      reduce_arcs=lambda weights: reduce_arcs(weights, semirings.Log))
+      reduce_arcs=lambda weights: reduce_arcs(weights, semirings.Log),
+      alpha0=alpha0)
 
 
 def trigram_backward(pf: torch.Tensor, pc: torch.Tensor,
                      params: dict[str, Any], is_pad: torch.Tensor,
                      log_z: torch.Tensor, g: torch.Tensor, hist: torch.Tensor,
                      slabs: Optional[torch.Tensor], *, max_expansions: int,
-                     frame_dependent: bool, compute_dtype: torch.dtype):
+                     frame_dependent: bool, compute_dtype: torch.dtype,
+                     beta0: Optional[torch.Tensor] = None):
   """Trigram reverse beta scan with head and tanh gradients: the kernel on
   CUDA, the plain version on CPU.
 
@@ -320,6 +330,9 @@ def trigram_backward(pf: torch.Tensor, pc: torch.Tensor,
     g: [B] float32 cotangent of log_z.
     hist: [T, B, S] alpha history from ``trigram_forward``.
     slabs: [k, T, B, S] expansion slabs (FrameLabelDependent), else None.
+    beta0: Optional [B, S] float32 beta after the last frame, as
+      ``fused_scan.fused_backward`` takes it (``log_z`` then the whole
+      sequence's).
 
   Returns:
     (dpf [T, B, h], dpc [S, h], d_vocab_w [h, V], d_vocab_b [V],
@@ -333,8 +346,9 @@ def trigram_backward(pf: torch.Tensor, pc: torch.Tensor,
                           'trigram log-partition', context_size=2)
   fused_scan._check_residuals(pf, pc, max_expansions, frame_dependent,
                               log_z=log_z, g=g, hist=hist, slabs=slabs)
+  fused_scan._check_seed(pf, pc, beta0, 'beta0')
   kw = dict(max_expansions=max_expansions, frame_dependent=frame_dependent,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, beta0=beta0)
   if pf.device.type == 'cpu':
     return trigram_backward_plain(pf, pc, params, is_pad, log_z, g, hist,
                                   slabs, **kw)
@@ -351,13 +365,13 @@ def trigram_backward(pf: torch.Tensor, pc: torch.Tensor,
                                        is_pad, log_z, g, hist, slabs, **kw)
   else:
     grads = _segment_backward(plan, pf, pc, params, is_pad, log_z, g, hist,
-                              slabs, max_expansions, frame_dependent)
+                              slabs, max_expansions, frame_dependent, beta0)
   backward_launches += 1
   return grads
 
 
 def _segment_backward(plan, pf, pc, params, is_pad, log_z, g, hist, slabs,
-                      max_expansions, frame_dependent):
+                      max_expansions, frame_dependent, beta0=None):
   """Launches ``trigram_segment_backward``; arguments and outputs as
   ``trigram_backward``'s."""
   lib = fused_scan.library()
@@ -377,7 +391,7 @@ def _segment_backward(plan, pf, pc, params, is_pad, log_z, g, hist, slabs,
   for name in ('dpc_acc', 'dvw_acc', 'dvb_acc', 'dbw_acc', 'dbb_acc'):
     buf[name].zero_()
   buf['is_pad'] = is_pad.to(torch.int32)
-  beta = torch.zeros((2, batch, states), device=device)  # slot 0: ones
+  beta = fused_scan.initial_beta(batch, states, beta0, device)
   dpf = empty(max_t, batch, hidden)
   dpc, dvw = empty(states, hidden), empty(hidden, vocab)
   dvb, dbw, dbb = empty(vocab), empty(hidden), empty(1)
@@ -403,7 +417,8 @@ def trigram_backward_plain(pf: torch.Tensor, pc: torch.Tensor,
                            log_z: torch.Tensor, g: torch.Tensor,
                            hist: torch.Tensor, slabs: Optional[torch.Tensor],
                            *, max_expansions: int, frame_dependent: bool,
-                           compute_dtype: torch.dtype):
+                           compute_dtype: torch.dtype,
+                           beta0: Optional[torch.Tensor] = None):
   """The backward kernel's function in plain PyTorch (same arguments and
   outputs): each arc reads the next beta at its destination through
   ``FullNGram.backward_broadcast``. Rounds at the kernel's points, as
@@ -412,7 +427,8 @@ def trigram_backward_plain(pf: torch.Tensor, pc: torch.Tensor,
       pf, pc, params, is_pad, log_z, g, hist, slabs,
       max_expansions=max_expansions, frame_dependent=frame_dependent,
       compute_dtype=compute_dtype,
-      dests=_context(params['vocab_w'].shape[-1]).backward_broadcast)
+      dests=_context(params['vocab_w'].shape[-1]).backward_broadcast,
+      beta0=beta0)
 
 
 def log_partition(wf_params: dict[str, Any], cache: torch.Tensor,

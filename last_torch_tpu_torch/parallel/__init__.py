@@ -16,9 +16,13 @@
 
 Counterpart of ``last_torch_tpu/parallel/``. Ported: ``sharding.py``'s mesh,
 parameter rules, the data-parallel and tensor-parallel (vocab-sharded)
-train steps and the data-parallel expected-risk (MWER) step. ``sequence.py`` (the time-sharded relay), ``pipeline.py``
-(GPipe) and the encoder's Megatron sharding come later (ROADMAP queue 1,
-item 10).
+train steps and the data-parallel expected-risk (MWER) step, and
+``sequence.py``: training, decoding and alignment with the frames sharded
+over a time axis (the alpha / beta relay), alone, with data parallelism or
+with the vocabulary sharded too (seq x tp). Still to come (ROADMAP queue 1,
+item 10): ``pipeline.py`` (GPipe, and ``make_pp_seq_train_step`` on this
+relay), the encoder's Megatron sharding with ``make_sharded_train_step``.
 """
 
+from last_torch_tpu_torch.parallel import sequence
 from last_torch_tpu_torch.parallel import sharding

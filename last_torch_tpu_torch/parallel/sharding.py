@@ -41,9 +41,10 @@ global: each rank divides its own loss sum by the feasible count summed
 over the data group. The clip's global norm takes each vocab shard once.
 
 The encoder stays replicated in the tensor-parallel step, which computes
-the same function as the JAX package's Megatron-sharded encoder
-(ROADMAP queue 1, item 10, keeps that sharding for
-``make_sharded_train_step``).
+the same function as the JAX package's Megatron-sharded encoder. Still to
+port (ROADMAP queue 1, item 10): that sharding with
+``make_sharded_train_step``, and ``pipeline.py``; the time-sharded steps are
+``parallel/sequence.py``'s.
 """
 
 from __future__ import annotations
