@@ -240,6 +240,27 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    ('seq', 'model') mesh, 2 steps, step 1 against ``make_tp_train_step``'s.
    (c) The relay's decode and alignment at phase 6's lengths / 4 against
    the single-device generic decode and ``align`` (float32 rules).
+17. Pipeline and Megatron-sharded training (``parallel/pipeline.py``,
+   ``parallel/sharding.py``; ``[pipeline]``, ``[sharded]``), on a
+   one-process NCCL group, each axis one rank. (a) ``make_pp_train_step``
+   on ('data', 'pipe') 1 x 1 at M = 2 (3 steps) and 4 (step 1), step 1
+   against the whole batch's ``gnat.train_step`` (loss rtol 1e-5,
+   gradients 1e-3 of the largest; a lattice leaf to max(1e-3, the
+   whole-batch step's own distance from the float64 plain versions), and
+   to float64 within max(1e-3, twice that distance)), 2M 'cache' forwards
+   and M backwards a step (the last stage's forward recomputed in its
+   backward). (b) ``make_pp_encode_fn`` against ``encoder.apply`` over the
+   same microbatches (rtol 1e-5 / atol 1e-6) and on the whole batch
+   (1e-5 of the encoding's largest entry). (c)
+   ``make_pp_seq_train_step(fused='auto')`` on ('pipe', 'seq') 1 x 1 (the
+   kernel relay), 2 steps, step 1 as (a)'s. (d) ``make_sharded_train_step``
+   on ('data', 'model') 1 x 1 (the Megatron encoder, the lattice on the
+   gathered head by its own route), 2 steps, step 1 against
+   ``gnat.train_step``'s; then the fallback of ``train(model_parallel > 1)``
+   on the trigram (``fused='never'``, the generic route through the
+   joint+head kernels at S = 4161, phase 10's shape), step 1 against
+   ``gnat.train_step`` on the same route. Their launches of the 'cache'
+   and joint+head pairs join the kernels line.
 
 Each phase prints one line or more with its seconds, and the run its total;
 any failure exits non-zero before the last line, which is ``{"ok": true,
@@ -3523,8 +3544,8 @@ def phase_frame_reduce_alone(torch, sharded_scan, launches):
             launches[0 if key == 'forward' else 1], err, ms, plain_ms, ops,
             traffic, name,
             launches_by_path={'gnat_global_bigram tensor-parallel train '
-                              'steps': launches[0 if key == 'forward'
-                                                else 1]})
+                              'steps (Megatron encoder)':
+                                  launches[0 if key == 'forward' else 1]})
         record['library_ms'] = lib_ms
         records[key] = record
       else:
@@ -5571,6 +5592,73 @@ def seq_kernel_seeds(torch, gnat, presets, fused_scan, trigram_scan):
       f'chained at most {max(e for e, _ in tri_vs_plain.values()):.2e}')
 
 
+def grads_of(pytree, params):
+  """Clones of the leaves' gradients."""
+  return [leaf.grad.clone() for leaf in pytree.tree_leaves(params)]
+
+
+def judge_step1(torch, pytree, what, got, want, params):
+  """Step 1 of a parallel step, (loss, gradients) ``got``, against ``want``:
+  the loss to rtol 1e-5, each gradient within STEP_GRAD_RTOL of the
+  largest. Returns the report."""
+  (loss_a, grads_a), (loss_b, grads_b) = got, want
+  rel = abs(loss_a - loss_b) / abs(loss_b)
+  check(np.isfinite(loss_a) and rel <= 1e-5,
+        f'{what}: step-1 loss {loss_a} vs {loss_b}')
+  largest = max(g.abs().max().item() for g in grads_b)
+  paths = [pytree.keystr(p) for p, _ in
+           pytree.tree_flatten_with_path(params)[0]]
+  worst, path = max(((a - b).abs().max().item() / largest, path)
+                    for path, a, b in zip(paths, grads_a, grads_b))
+  check(worst <= STEP_GRAD_RTOL,
+        f'{what}: step-1 gradient of {path} {worst:.3g} of the largest')
+  return (f'loss {loss_a:.9g} vs {loss_b:.9g} (rel {rel:.2e}), gradients '
+          f'within {worst:.2e} of the largest {largest:.4g} ({path})')
+
+
+def counted_steps(torch, pytree, optimizer, state, step, batch, steps,
+                  module, names):
+  """``steps`` counted and timed steps of a parallel ``step`` from
+  ``state``: step 1 as ``loss_and_grads`` (its gradients kept before the
+  clip) and the update, the others as ``step``; losses finite and falling.
+  ``module``'s launch counts start from 0. Returns (step-1 (loss,
+  gradients), losses, ms, launches of its counters ``names`` per step, peak
+  memory, the final state)."""
+  losses, step_ms, per_step = [], [], []
+  reset_counts(module)
+  torch.cuda.reset_peak_memory_stats()
+  for i in range(steps):
+    before = [getattr(module, n) for n in names]
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    if i == 0:
+      loss = step.loss_and_grads(state, *batch)
+      step1 = (loss.item(), grads_of(pytree, state.params))
+      optimizer.apply_gradients(state.opt_state)
+      state = dataclasses.replace(state, step=1)
+    else:
+      state, loss = step(state, *batch)
+    end.record()
+    torch.cuda.synchronize()
+    step_ms.append(start.elapsed_time(end))
+    losses.append(loss.item())
+    per_step.append(tuple(getattr(module, n) - c
+                          for n, c in zip(names, before)))
+  check(all(np.isfinite(losses)) and
+        all(b < a for a, b in zip(losses, losses[1:])),
+        f'losses not finite and decreasing: {losses}')
+  return (step1, losses, step_ms, per_step, torch.cuda.max_memory_allocated(),
+          state)
+
+
+def steps_report(losses, step_ms, real_frames):
+  return ('losses ' + ', '.join(f'{x:.6g}' for x in losses) +
+          '; step ms ' + ', '.join(f'{x:.1f}' for x in step_ms) + ' (' +
+          ', '.join(f'{real_frames / x * 1e3:.0f}' for x in step_ms) +
+          ' real frames/s)')
+
+
 def seq_steps(torch, gnat, presets, fused_scan, sharded_scan, sharding,
               sequence, pytree):
   """Phase 16(b): the time-sharded steps on the one-process NCCL group.
@@ -5597,64 +5685,16 @@ def seq_steps(torch, gnat, presets, fused_scan, sharded_scan, sharding,
     return gnat.init_train_state(model, torch.Generator().manual_seed(0),
                                  optimizer)
 
-  def grads_of(params):
-    return [leaf.grad.clone() for leaf in pytree.tree_leaves(params)]
-
   def judge(what, got, want, params):
-    (loss_a, grads_a), (loss_b, grads_b) = got, want
-    rel = abs(loss_a - loss_b) / abs(loss_b)
-    check(np.isfinite(loss_a) and rel <= 1e-5,
-          f'{what}: step-1 loss {loss_a} vs {loss_b}')
-    largest = max(g.abs().max().item() for g in grads_b)
-    paths = [pytree.keystr(p) for p, _ in
-             pytree.tree_flatten_with_path(params)[0]]
-    worst = max(((a - b).abs().max().item() / largest, path)
-                for path, a, b in zip(paths, grads_a, grads_b))
-    check(worst[0] <= STEP_GRAD_RTOL,
-          f'{what}: step-1 gradient of {worst[1]} {worst[0]:.3g} of the '
-          'largest')
-    return (f'loss {loss_a:.9g} vs {loss_b:.9g} (rel {rel:.2e}), '
-            f'gradients within {worst[0]:.2e} of the largest {largest:.4g} '
-            f'({worst[1]})')
+    return judge_step1(torch, pytree, what, got, want, params)
 
   def run(step, steps, module, names):
-    """``steps`` counted and timed steps from a fresh state: step 1 as
-    ``loss_and_grads`` (its gradients kept before the clip) and the update,
-    the others as ``step``. Returns (step-1 (loss, gradients), losses, ms,
-    launches per step, peak memory)."""
-    state = state0()
-    losses, step_ms, per_step = [], [], []
-    reset_counts(module)
-    torch.cuda.reset_peak_memory_stats()
-    for i in range(steps):
-      before = [getattr(module, n) for n in names]
-      start = torch.cuda.Event(enable_timing=True)
-      end = torch.cuda.Event(enable_timing=True)
-      start.record()
-      if i == 0:
-        loss = step.loss_and_grads(state, *batch)
-        step1 = (loss.item(), grads_of(state.params))
-        optimizer.apply_gradients(state.opt_state)
-        state = dataclasses.replace(state, step=1)
-      else:
-        state, loss = step(state, *batch)
-      end.record()
-      torch.cuda.synchronize()
-      step_ms.append(start.elapsed_time(end))
-      losses.append(loss.item())
-      per_step.append(tuple(getattr(module, n) - c
-                            for n, c in zip(names, before)))
-    check(all(np.isfinite(losses)) and
-          all(b < a for a, b in zip(losses, losses[1:])),
-          f'losses not finite and decreasing: {losses}')
-    return (step1, losses, step_ms, per_step,
-            torch.cuda.max_memory_allocated(), state.params)
+    *out, state = counted_steps(torch, pytree, optimizer, state0(), step,
+                                batch, steps, module, names)
+    return (*out, state.params)
 
   def report(losses, step_ms):
-    return ('losses ' + ', '.join(f'{x:.6g}' for x in losses) +
-            '; step ms ' + ', '.join(f'{x:.1f}' for x in step_ms) + ' (' +
-            ', '.join(f'{real_frames / x * 1e3:.0f}' for x in step_ms) +
-            ' real frames/s)')
+    return steps_report(losses, step_ms, real_frames)
 
   # The time-sharded step against gnat.train_step's step 1.
   t0 = time.perf_counter()
@@ -5692,7 +5732,7 @@ def seq_steps(torch, gnat, presets, fused_scan, sharded_scan, sharding,
                                                      tp_mesh)
   reference = shard_state(state0())
   want = (tp_step.loss_and_grads(reference, *batch).item(),
-          grads_of(reference.params))
+          grads_of(pytree, reference.params))
   del reference
   sxm_mesh = init_device_mesh('cuda', (1, 1),
                               mesh_dim_names=('seq', 'model'))
@@ -5817,6 +5857,313 @@ def phase_time_sharding(torch, gnat, presets, fused_scan, trigram_scan,
   return launches
 
 
+PP_MICROBATCHES = (2, 4)
+# Steps of the pipelined step at each M: TRAIN_STEPS at M=2; step 1 alone
+# at M=4.
+PP_STEPS = (TRAIN_STEPS, 1)
+
+
+def float64_lattice_grads(torch, pytree, sharded_scan, model, params,
+                          batch):
+  """{leaf path: float64 gradient} of the lattice leaves of the whole
+  batch's mean loss on its float32 encoder outputs, through the plain
+  versions in float64 (phase 12's float64 route: the same bfloat16
+  roundings of the joint and head, float64 sums)."""
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], *batch[:2])
+  _, grads = lattice_step1(
+      torch, pytree, params['lattice'], encoded, torch.float64,
+      lambda p, e: sharded_scan.tp_lattice_loss(
+          model.lattice, p, e, *batch[1:],
+          reduce=float64_frame_reduce(torch, sharded_scan)))
+  return {"['lattice']" + name: grad for name, grad in grads.items()
+          if name != 'encoded'}
+
+
+def judge_vs_whole_batch(torch, pytree, what, got, want, ref, params):
+  """Step 1 of a pipelined step, (loss, gradients) ``got``, against the
+  whole batch's ``gnat.train_step`` step 1 ``want``, whose float32 lattice
+  gradients the float64 reference ``ref`` (``float64_lattice_grads``)
+  reads: the loss to rtol 1e-5; each lattice leaf's gradient within
+  max(STEP_GRAD_RTOL, twice the whole-batch step's error) of the float64
+  one, and within max(STEP_GRAD_RTOL, the whole-batch step's error) of the
+  whole-batch step's; each encoder leaf's within STEP_GRAD_RTOL of the
+  whole-batch step's; all relative to the largest whole-batch gradient.
+  Returns the report."""
+  (loss_a, grads_a), (loss_b, grads_b) = got, want
+  rel = abs(loss_a - loss_b) / abs(loss_b)
+  check(np.isfinite(loss_a) and rel <= 1e-5,
+        f'{what}: step-1 loss {loss_a} vs {loss_b}')
+  largest = max(g.abs().max().item() for g in grads_b)
+  paths = [pytree.keystr(p) for p, _ in
+           pytree.tree_flatten_with_path(params)[0]]
+  gaps, errors = {}, {}
+  for path, a, b in zip(paths, grads_a, grads_b):
+    check(bool(torch.isfinite(a).all()), f'{what}: {path} not finite')
+    gaps[path] = (a - b).abs().max().item() / largest
+    limit = STEP_GRAD_RTOL
+    if path in ref:
+      err_a, err_b = ((x.double() - ref[path]).abs().max().item() / largest
+                      for x in (a, b))
+      errors[path] = (err_a, err_b)
+      check(err_a <= max(STEP_GRAD_RTOL, 2 * err_b),
+            f'{what}: step-1 gradient of {path} {err_a:.3g} of the largest '
+            f'from float64, the whole-batch step {err_b:.3g}')
+      limit = max(STEP_GRAD_RTOL, err_b)
+    check(gaps[path] <= limit,
+          f'{what}: step-1 gradient of {path} {gaps[path]:.3g} of the '
+          f'largest from the whole-batch step (limit {limit:.3g})')
+  worst = max((gap, path) for path, gap in gaps.items())
+  encoder = max((gap, path) for path, gap in gaps.items()
+                if path not in ref)
+  return (f'loss {loss_a:.9g} vs {loss_b:.9g} (rel {rel:.2e}); gradients '
+          f'vs the whole-batch step, of the largest {largest:.4g}: at most '
+          f'{worst[0]:.2e} ({worst[1]}), encoder leaves at most '
+          f'{encoder[0]:.2e} ({encoder[1]}); lattice leaves vs float64 '
+          '(pipelined, whole batch): ' + ', '.join(
+              f'{path} ({a:.2e}, {b:.2e})'
+              for path, (a, b) in errors.items()))
+
+
+def pp_steps(torch, gnat, presets, fused_scan, sharded_scan, pipeline,
+             pytree):
+  """Phase 17(a)-(c) on the one-process NCCL group, gnat_global_bigram()
+  at full width on phase 6's batch. (a) ``make_pp_train_step`` on a
+  ('data', 'pipe') 1 x 1 mesh at M = 2 (PP_STEPS: 3 steps, losses
+  falling) and 4 (step 1), step 1 against the whole batch's
+  ``gnat.train_step`` by ``judge_vs_whole_batch``: FLD's ``blank_b``
+  gradient is float32 residue (its float64 value is near 0), which the
+  microbatches' shapes move by ~1e-3 of the largest gradient, so its
+  limit comes from the whole-batch step's own distance from the float64
+  plain versions (``float64_lattice_grads``); 'cache' launches a step 2M
+  forwards (the last stage's forward, then its recompute in the backward)
+  and M backwards. (b) ``make_pp_encode_fn`` (M = 2) against
+  ``encoder.apply`` over the same microbatches (rtol 1e-5 / atol 1e-6) and
+  on the whole batch (within 1e-5 of the encoding's largest entry: cuBLAS
+  runs other float32 kernels for 4 rows than for 8). (c)
+  ``make_pp_seq_train_step`` on ('pipe', 'seq') 1 x 1 with
+  ``fused='auto'`` (the kernel relay): 2 steps, step 1 as (a)'s. Returns
+  (the whole-batch step 1, {counter: {path: launches}})."""
+  from torch.distributed.device_mesh import init_device_mesh
+  config = presets.gnat_global_bigram()
+  model = gnat.GNATModel(config, device='cuda')
+  optimizer = gnat.make_optimizer(LEARNING_RATE)
+  batch = tp_batch(torch, config)
+  max_t = batch[0].shape[1]
+  real_frames = sum(NUM_FRAMES)
+  names = LP_COUNTERS['cache']
+
+  def state0():
+    return gnat.init_train_state(model, torch.Generator().manual_seed(0),
+                                 optimizer)
+
+  t0 = time.perf_counter()
+  single = state0()
+  want = loss_and_grads(torch, pytree.tree_leaves(single.params),
+                        lambda: model.mean_loss(single.params, *batch))
+  params = single.params
+  ref = float64_lattice_grads(torch, pytree, sharded_scan, model, params,
+                              batch)
+  say('pipeline', f'the whole-batch gnat.train_step step 1 and its float64 '
+      f'lattice reference ({time.perf_counter() - t0:.1f} s)')
+  launches = {name: {} for name in names}
+  mesh = init_device_mesh('cuda', (1, 1), mesh_dim_names=('data', 'pipe'))
+  for m, steps in zip(PP_MICROBATCHES, PP_STEPS):
+    t0 = time.perf_counter()
+    step = pipeline.make_pp_train_step(model, optimizer, mesh, m,
+                                       data_axis='data')
+    step1, losses, step_ms, per_step, peak, _ = counted_steps(
+        torch, pytree, optimizer, state0(), step, batch, steps, fused_scan,
+        names)
+    check(model.lattice.last_path == 'kernel',
+          f'last_path is {model.lattice.last_path!r}, not kernel')
+    checked = judge_vs_whole_batch(torch, pytree, f'pipeline M={m}', step1,
+                                   want, ref, params)
+    check(all(n == (2 * m, m) for n in per_step),
+          f"'cache' launches per pipelined step {per_step}, not "
+          f'({2 * m}, {m})')
+    path = f'gnat_global_bigram pipelined steps (M={m}, {steps})'
+    for name in names:
+      launches[name][path] = getattr(fused_scan, name)
+    say('pipeline',
+        f"make_pp_train_step on a ('data', 'pipe') mesh of 1 x 1, M={m}, "
+        f'gnat_global_bigram B={len(NUM_FRAMES)} T_max={max_t}: step 1 vs '
+        f'gnat.train_step: {checked}; {steps} steps: '
+        f"{steps_report(losses, step_ms, real_frames)}; 'cache' launches "
+        f'per step (forward, backward) {per_step}; peak memory '
+        f'{peak / 2**30:.2f} GiB ({time.perf_counter() - t0:.1f} s)')
+
+  t0 = time.perf_counter()
+  encode = pipeline.make_pp_encode_fn(model, mesh, 2, data_axis='data')
+  size = len(NUM_FRAMES) // 2
+  with torch.no_grad():
+    got, pp_ms = timed(torch, lambda: encode(params['encoder'], *batch[:2]))
+    ref_rows = torch.cat([model.encoder.apply(
+        params['encoder'], *(x[j * size:(j + 1) * size] for x in batch[:2]))
+                          for j in range(2)])
+    whole, plain_ms = timed(torch, lambda: model.encoder.apply(
+        params['encoder'], *batch[:2]))
+  err = (got - ref_rows).abs().max().item()
+  check(bool(torch.allclose(got, ref_rows, rtol=1e-5, atol=1e-6)),
+        f'the pipelined encoding differs from encoder.apply over the same '
+        f'microbatches by {err:.3g}')
+  scale = whole.abs().max().item()
+  err_whole = (got - whole).abs().max().item()
+  check(err_whole <= 1e-5 * scale,
+        f'the pipelined encoding differs from encoder.apply on the whole '
+        f'batch by {err_whole:.3g}, scale {scale:.4g}')
+  say('pipeline', f'make_pp_encode_fn (M=2) vs encoder.apply: over the same '
+      f'microbatches max |a-b| {err:.2e}, on the whole batch '
+      f'{err_whole:.2e}, of scale {scale:.4g}; {pp_ms:.1f} ms vs '
+      f'{plain_ms:.1f} ms ({time.perf_counter() - t0:.1f} s)')
+
+  t0 = time.perf_counter()
+  seq_mesh = init_device_mesh('cuda', (1, 1), mesh_dim_names=('pipe', 'seq'))
+  step = pipeline.make_pp_seq_train_step(model, optimizer, seq_mesh, 2,
+                                         fused='auto')
+  step1, losses, step_ms, per_step, peak, _ = counted_steps(
+      torch, pytree, optimizer, state0(), step, batch, 2, fused_scan, names)
+  check(model.lattice.last_path == 'kernel',
+        f'last_path is {model.lattice.last_path!r}, not kernel')
+  checked = judge_vs_whole_batch(torch, pytree, 'pp x seq', step1, want, ref,
+                                 params)
+  check(all(n == (2, 1) for n in per_step),
+        f"'cache' launches per pp x seq step {per_step}, not (2, 1)")
+  path = 'gnat_global_bigram pp x seq steps (M=2, 2)'
+  for name in names:
+    launches[name][path] = getattr(fused_scan, name)
+  say('pipeline',
+      f"make_pp_seq_train_step(fused='auto') on a ('pipe', 'seq') mesh of "
+      f'1 x 1, M=2: step 1 vs gnat.train_step: {checked}; 2 steps: '
+      f"{steps_report(losses, step_ms, real_frames)}; 'cache' launches per "
+      f'step (forward, backward) {per_step}; peak memory '
+      f'{peak / 2**30:.2f} GiB ({time.perf_counter() - t0:.1f} s)')
+  return want, launches
+
+
+def sharded_steps(torch, gnat, presets, fused_scan, joint_head, sharding,
+                  pytree, want):
+  """Phase 17(d): ``make_sharded_train_step`` on a ('data', 'model') 1 x 1
+  mesh, the Megatron encoder (its sums an NCCL all-reduce of one rank) and
+  the lattice on the gathered head: gnat_global_bigram() by its own route
+  (the 'cache' pair, one each way a step), 2 steps, step 1 against
+  ``gnat.train_step``'s (``want``); then the path ``train(model_parallel >
+  1)`` takes where no tensor-parallel plan does, the trigram
+  gnat_global_bigram(vocab_size=64, context_size=2) at phase 10's shape
+  with ``fused='never'``: the generic route, its 4161-state applies through
+  the joint+head kernels, 2 steps, step 1 against ``gnat.train_step`` on
+  the same route. Returns {counter: {path: launches}}."""
+  mesh = sharding.make_mesh(model_parallel=1)
+  launches = {}
+
+  def run(config, batch, want, module, names, what, fused='auto'):
+    model = gnat.GNATModel(config, device='cuda')
+    model.lattice.fused = fused
+    optimizer = gnat.make_optimizer(LEARNING_RATE)
+    full = gnat.init_train_state(model, torch.Generator().manual_seed(0),
+                                 optimizer)
+    if want is None:
+      reset_counts(module)
+      want = loss_and_grads(torch, pytree.tree_leaves(full.params),
+                            lambda: model.mean_loss(full.params, *batch))
+      reference = tuple(getattr(module, n) for n in names)
+      for leaf in pytree.tree_leaves(full.params):
+        leaf.grad = None
+    else:
+      reference = None
+    step, shard_state = sharding.make_sharded_train_step(model, optimizer,
+                                                         mesh)
+    step1, losses, step_ms, per_step, peak, _ = counted_steps(
+        torch, pytree, optimizer, shard_state(full), step, batch, 2, module,
+        names)
+    checked = judge_step1(torch, pytree, what, step1, want, full.params)
+    return model, checked, losses, step_ms, per_step, peak, reference
+
+  t0 = time.perf_counter()
+  config = presets.gnat_global_bigram()
+  batch = tp_batch(torch, config)
+  names = LP_COUNTERS['cache']
+  model, checked, losses, step_ms, per_step, peak, _ = run(
+      config, batch, want, fused_scan, names, 'sharded')
+  check(model.lattice.last_path == 'kernel',
+        f'last_path is {model.lattice.last_path!r}, not kernel')
+  check(all(n == (1, 1) for n in per_step),
+        f"'cache' launches per sharded step {per_step}, not (1, 1)")
+  path = 'gnat_global_bigram sharded steps (Megatron encoder, 2)'
+  launches.update({name: {path: getattr(fused_scan, name)}
+                   for name in names})
+  say('sharded',
+      f"make_sharded_train_step on a ('data', 'model') mesh of 1 x 1, "
+      f'gnat_global_bigram B={len(NUM_FRAMES)} T_max={max(NUM_FRAMES)}: '
+      f'step 1 vs gnat.train_step: {checked}; 2 steps: '
+      f'{steps_report(losses, step_ms, sum(NUM_FRAMES))}; \'cache\' '
+      f'launches per step (forward, backward) {per_step}; peak memory '
+      f'{peak / 2**30:.2f} GiB ({time.perf_counter() - t0:.1f} s)')
+
+  t0 = time.perf_counter()
+  config = presets.gnat_global_bigram(vocab_size=64, context_size=2)
+  rng = np.random.default_rng(0)
+  max_t = max(TRIGRAM_NUM_FRAMES)
+  batch = (torch.from_numpy(rand(rng, (len(TRIGRAM_NUM_FRAMES), max_t,
+                                       config.feature_size))).cuda(),
+           torch.tensor(TRIGRAM_NUM_FRAMES, device='cuda'),
+           torch.from_numpy(rng.integers(
+               1, config.vocab_size + 1,
+               size=(len(TRIGRAM_NUM_FRAMES),
+                     max(TRIGRAM_NUM_LABELS)))).cuda(),
+           torch.tensor(TRIGRAM_NUM_LABELS, device='cuda'))
+  names = ('forward_launches', 'backward_launches')
+  reset_counts(fused_scan)
+  model, checked, losses, step_ms, per_step, peak, reference = run(
+      config, batch, None, joint_head, names, 'sharded fallback',
+      fused='never')
+  check(model.lattice.last_path == 'generic',
+        f'last_path is {model.lattice.last_path!r}, not generic')
+  check(all(n == reference and n[1] >= max_t for n in per_step),
+        f'joint+head launches per sharded fallback step {per_step}, not '
+        f'the single-device step\'s {reference}')
+  check(not any(counts(fused_scan).values()),
+        'the sharded fallback launched log-partition kernels')
+  path = 'gnat_global_bigram(vocab_size=64, context_size=2) sharded ' \
+         'fallback steps (2)'
+  launches.update({f'joint_head {name}': {path: getattr(joint_head, name)}
+                   for name in names})
+  say('sharded',
+      "the fallback of train(model_parallel > 1): fused='never' and "
+      f'make_sharded_train_step, gnat_global_bigram(vocab_size=64, '
+      f'context_size=2) B={len(TRIGRAM_NUM_FRAMES)} T_max={max_t}: step 1 '
+      f"vs gnat.train_step (fused='never'): {checked}; 2 steps: "
+      f'{steps_report(losses, step_ms, sum(TRIGRAM_NUM_FRAMES))}; '
+      f'joint+head launches per step (forward, backward) {per_step}, the '
+      f'single-device step {reference}; peak memory {peak / 2**30:.2f} GiB '
+      f'({time.perf_counter() - t0:.1f} s)')
+  return launches
+
+
+def phase_model_parallel(torch, gnat, presets, fused_scan, joint_head,
+                         sharded_scan, sharding, pipeline, pytree):
+  """Phase 17: pipeline (GPipe) and Megatron-sharded training on a
+  one-process NCCL group (NCCL takes no two ranks on one GPU, so each axis
+  has one rank here; ``tools/tp_multicard.py`` runs them across cards):
+  ``pp_steps`` and ``sharded_steps``. Returns the launches of both by
+  counter and path."""
+  import torch.distributed as dist
+  dist.init_process_group('nccl', store=dist.HashStore(), rank=0,
+                          world_size=1)
+  try:
+    torch.cuda.empty_cache()
+    want, launches = pp_steps(torch, gnat, presets, fused_scan,
+                              sharded_scan, pipeline, pytree)
+    torch.cuda.empty_cache()
+    for counter, paths in sharded_steps(torch, gnat, presets, fused_scan,
+                                        joint_head, sharding, pytree,
+                                        want).items():
+      launches.setdefault(counter, {}).update(paths)
+  finally:
+    dist.destroy_process_group()
+  return launches
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -5834,7 +6181,7 @@ def main():
     from last_torch_tpu_torch.ops import (build, fused_scan, joint_head,
                                           numerator_scan, sharded_scan,
                                           trigram_scan, viterbi)
-    from last_torch_tpu_torch.parallel import sequence, sharding
+    from last_torch_tpu_torch.parallel import pipeline, sequence, sharding
   except ImportError as e:
     raise SmokeFailure(f'run from the root of a checkout ({e})') from None
 
@@ -6207,12 +6554,22 @@ def main():
   by_counter.update({
       'frame_reduce forward_launches': fr_records['forward'],
       'frame_reduce backward_launches': fr_records['backward'],
-      'joint_head forward_launches': jh_records['forward']})
-  for counter, paths in seq_launches.items():
-    record = by_counter[counter]
-    for path, count in paths.items():
-      record['launches'] += count
-      record.setdefault('launches_by_path', {})[path] = count
+      'joint_head forward_launches': jh_records['forward'],
+      'joint_head backward_launches': jh_records['backward']})
+
+  # Phase 17: pipeline (GPipe) and Megatron-sharded training.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  mp_launches = phase_model_parallel(torch, gnat, presets, fused_scan,
+                                     joint_head, sharded_scan, sharding,
+                                     pipeline, pytree)
+  print(f'[model-parallel] {time.perf_counter() - t0:.1f} s', flush=True)
+  for launches in (seq_launches, mp_launches):
+    for counter, paths in launches.items():
+      record = by_counter[counter]
+      for path, count in paths.items():
+        record['launches'] += count
+        record.setdefault('launches_by_path', {})[path] = count
   print(f'[total] {time.perf_counter() - start:.1f} s', flush=True)
 
   print(json.dumps({'kernels': [viterbi_record, records['forward'],

@@ -22,6 +22,12 @@ logits, or, for a causal window W, over [W, 2W] logits per W-frame block
 (``_banded_attention``). ``StreamingEncoder`` encodes a causal windowed
 encoder chunk by chunk with key/value caches, matching one offline
 ``apply`` up to float summation order.
+
+``apply`` / ``block`` also run one rank's part of a Megatron-sharded block
+(``parallel/sharding.py``): ``heads`` is the rank's head count (its
+columns of ``qkv``, ``ffn_in`` and ``ffn1_in`` and rows of ``attn_out``,
+``ffn_out`` and ``ffn1_out``), and ``model_sum`` sums the row-parallel
+products over the model ranks. With neither, a block is the whole one.
 """
 
 from __future__ import annotations
@@ -244,26 +250,35 @@ class TransformerEncoder:
     return False, attn_bias
 
   def _layer(self, layer: Params, x: torch.Tensor, attend,
-             conv_history: Optional[torch.Tensor] = None):
+             conv_history: Optional[torch.Tensor] = None,
+             heads: Optional[int] = None, model_sum=None):
     """One block, with attention as ``attend(q, k, v) -> context`` (each
-    [batch, T, heads, head_dim]); returns (x, new conv history or None)."""
+    [batch, T, heads, head_dim]); returns (x, new conv history or None).
+
+    ``heads``: the heads this block holds (all of them by default).
+    ``model_sum``: applied to each row-parallel product (``attn_out``,
+    ``ffn_out``, ``ffn1_out``) before it joins the residual; None for a
+    whole block. The column-parallel products read the replicated input as
+    it is (module docstring of ``parallel/sharding.py``)."""
+    heads = heads or self.num_heads
     head_dim = self.model_size // self.num_heads
     ffn_scale = 0.5 if self.conv_kernel else 1.0
+    summed = (lambda t: t) if model_sum is None else model_sum
     if self.conv_kernel:
       # Conformer macaron: first half-FFN.
       y = _layer_norm(x, self._cast(layer['ln_ffn1_scale']),
                       self._cast(layer['ln_ffn1_bias']))
       y = _gelu(y @ self._cast(layer['ffn1_in']))
-      x = x + 0.5 * (y @ self._cast(layer['ffn1_out']))
+      x = x + 0.5 * summed(y @ self._cast(layer['ffn1_out']))
 
     y = _layer_norm(x, self._cast(layer['ln1_scale']),
                     self._cast(layer['ln1_bias']))
     qkv = y @ self._cast(layer['qkv'])
-    split_heads = lambda t: t.reshape(*t.shape[:-1], self.num_heads, head_dim)
+    split_heads = lambda t: t.reshape(*t.shape[:-1], heads, head_dim)
     q, k, v = (split_heads(t) for t in qkv.chunk(3, dim=-1))
     context = attend(q, k, v)
-    context = context.reshape(*context.shape[:-2], self.model_size)
-    x = x + context @ self._cast(layer['attn_out'])
+    context = context.reshape(*context.shape[:-2], heads * head_dim)
+    x = x + summed(context @ self._cast(layer['attn_out']))
 
     new_history = None
     if self.conv_kernel:
@@ -273,17 +288,20 @@ class TransformerEncoder:
     y = _layer_norm(x, self._cast(layer['ln2_scale']),
                     self._cast(layer['ln2_bias']))
     y = _gelu(y @ self._cast(layer['ffn_in']))
-    return x + ffn_scale * (y @ self._cast(layer['ffn_out'])), new_history
+    return (x + ffn_scale * summed(y @ self._cast(layer['ffn_out'])),
+            new_history)
 
   def block(self, layer: Params, x: torch.Tensor, mask: torch.Tensor,
-            attn_bias: Optional[torch.Tensor], use_banded: bool
-            ) -> torch.Tensor:
-    """One encoder block (Transformer, or Conformer when conv_kernel > 0)."""
+            attn_bias: Optional[torch.Tensor], use_banded: bool,
+            heads: Optional[int] = None, model_sum=None) -> torch.Tensor:
+    """One encoder block (Transformer, or Conformer when conv_kernel > 0);
+    ``heads`` and ``model_sum`` as ``_layer``'s."""
     if use_banded:
       attend = lambda q, k, v: self._banded_attention(q, k, v, mask)
     else:
       attend = lambda q, k, v: self._dense_attention(q, k, v, attn_bias)
-    return self._layer(layer, x, attend)[0]
+    return self._layer(layer, x, attend, heads=heads,
+                       model_sum=model_sum)[0]
 
   def finalize(self, final_ln_scale: torch.Tensor,
                final_ln_bias: torch.Tensor, x: torch.Tensor,
@@ -293,15 +311,18 @@ class TransformerEncoder:
     return torch.where(mask[..., None], x, 0.0).float()
 
   def apply(self, params: Params, frames: torch.Tensor,
-            num_frames: torch.Tensor) -> torch.Tensor:
-    """Encodes [batch, T, feature] frames to [batch, T, model_size]."""
+            num_frames: torch.Tensor, heads: Optional[int] = None,
+            model_sum=None) -> torch.Tensor:
+    """Encodes [batch, T, feature] frames to [batch, T, model_size];
+    ``heads`` and ``model_sum`` as ``_layer``'s."""
     max_t = frames.shape[-2]
     mask = (torch.arange(max_t, device=frames.device) <
             num_frames[..., None])  # [batch, T]
     x = self.embed(params['input_proj'], frames)
     use_banded, attn_bias = self.attention_inputs(mask)
     for layer in params['layers']:
-      x = self.block(layer, x, mask, attn_bias, use_banded)
+      x = self.block(layer, x, mask, attn_bias, use_banded, heads=heads,
+                     model_sum=model_sum)
     return self.finalize(params['final_ln_scale'], params['final_ln_bias'],
                          x, mask)
 

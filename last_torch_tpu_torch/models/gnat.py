@@ -340,8 +340,9 @@ class GNATTrainState:
 
   Unlike the JAX package's immutable state, ``train_step`` updates the
   parameter tensors in place (the optimizer holds them). ``shard`` is
-  (index, count) of this rank's vocab shard in a tensor-parallel state
-  (``parallel.sharding.make_tp_train_step``), None for a whole one.
+  (index, count) of this rank's shard on the model axis in a sharded state
+  (``parallel.sharding.make_tp_train_step`` / ``make_sharded_train_step``),
+  None for a whole one.
   """
   params: Params
   opt_state: OptState

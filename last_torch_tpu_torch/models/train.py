@@ -174,8 +174,10 @@ def train(model_config: gnat.GNATConfig,
   """Trains a GNAT model; resumes from workdir checkpoints when present.
 
   The step: with ``model_parallel > 1``, the tensor-parallel step over a
-  ('data', 'model') mesh of the process group (``make_tp_train_step``); in
-  a process group of more than one rank otherwise, the data-parallel step
+  ('data', 'model') mesh of the process group (``make_tp_train_step``), or
+  where the lattice takes no tensor-parallel plan, ``fused='never'`` and
+  ``make_sharded_train_step``; in a process group of more than one rank
+  otherwise, the data-parallel step
   (``make_shard_map_train_step``); else ``gnat.train_step`` on
   ``device`` (the card unless the caller asks for 'cpu').
 
@@ -200,17 +202,20 @@ def train(model_config: gnat.GNATConfig,
 
   mesh = None
   if model_parallel > 1:
-    if sharded_scan.tp_plan(model.lattice, model_config.vocab_size,
-                            model_parallel, device) is None:
-      # The JAX package falls back to its auto-partitioned step here.
-      raise NotImplementedError(
-          'this configuration takes no tensor-parallel lattice plan, and the '
-          'auto-partitioned train step (make_sharded_train_step) is not '
-          'ported to PyTorch yet: ROADMAP.md queue 1, item 10')
     mesh = sharding.make_mesh(model_parallel=model_parallel,
                               device_type=device.type)
-    step_fn, shard_state = sharding.make_tp_train_step(model, optimizer,
-                                                       mesh)
+    if sharded_scan.tp_plan(model.lattice, model_config.vocab_size,
+                            model_parallel, device) is not None:
+      # The vocab-sharded lattice loss: per-frame frame_reduce kernels on
+      # each rank's head shard, the reductions gathered.
+      step_fn, shard_state = sharding.make_tp_train_step(model, optimizer,
+                                                         mesh)
+    else:
+      # Fallback, as the JAX package's: the lattice on the gathered head,
+      # through its generic route.
+      model.lattice.fused = 'never'
+      step_fn, shard_state = sharding.make_sharded_train_step(
+          model, optimizer, mesh)
     state = shard_state(state)
   elif world > 1:
     mesh = sharding.make_mesh(model_parallel=1, device_type=device.type)

@@ -12,17 +12,20 @@
 # See the License for the specific language governing permissions and
 # limitations under the License.
 
-"""Data- and tensor-parallel GNAT training over ``torch.distributed``.
+"""Data-, tensor-, sequence- and pipeline-parallel GNAT training over
+``torch.distributed``.
 
-Counterpart of ``last_torch_tpu/parallel/``. Ported: ``sharding.py``'s mesh,
-parameter rules, the data-parallel and tensor-parallel (vocab-sharded)
-train steps and the data-parallel expected-risk (MWER) step, and
-``sequence.py``: training, decoding and alignment with the frames sharded
-over a time axis (the alpha / beta relay), alone, with data parallelism or
-with the vocabulary sharded too (seq x tp). Still to come (ROADMAP queue 1,
-item 10): ``pipeline.py`` (GPipe, and ``make_pp_seq_train_step`` on this
-relay), the encoder's Megatron sharding with ``make_sharded_train_step``.
+Counterpart of ``last_torch_tpu/parallel/``: ``sharding.py``'s mesh,
+parameter rules (the vocab head and the Megatron encoder), the
+data-parallel, tensor-parallel (vocab-sharded) and sharded train steps and
+the data-parallel expected-risk (MWER) step; ``sequence.py``: training,
+decoding and alignment with the frames sharded over a time axis (the
+alpha / beta relay), alone, with data parallelism or with the vocabulary
+sharded too (seq x tp); ``pipeline.py``: the encoder's blocks staged over
+a pipe axis (GPipe), alone, with data parallelism or with the time-sharded
+loss (pp x seq).
 """
 
+from last_torch_tpu_torch.parallel import pipeline
 from last_torch_tpu_torch.parallel import sequence
 from last_torch_tpu_torch.parallel import sharding

@@ -795,60 +795,57 @@ def tp_loss_time_sharded(lattice, params, frames, num_frames, labels,
   return denominator - numerator
 
 
-class SequenceTrainStep:
-  """A GNAT train step whose lattice loss is time-sharded:
-  ``step(state, frames, num_frames, labels, num_labels) -> (state, loss)``
-  as ``sharding.TrainStep``, with this rank's batch rows (all of them
-  without ``batch_axis``) and the whole frames on every rank of the time
-  axis; returns the global batch's mean loss before the update. Parameters
-  and optimizer state are replicated and update in place.
+def mean_over_feasible(per_seq: torch.Tensor, data: Optional[_Axis]):
+  """(this rank's objective, the global batch's mean loss, detached): the
+  loss sum of ``per_seq``'s feasible rows over the feasible count summed
+  over the data axis ``data`` (None: this rank's rows are the batch)."""
+  finite = torch.isfinite(per_seq)
+  count = finite.sum()
+  if data is not None:
+    data.all_reduce([count])
+  local = torch.where(finite, per_seq, 0.0).sum() / count.clamp(min=1)
+  loss = local.detach().clone()
+  if data is not None:
+    data.all_reduce([loss])
+  return local, loss
 
-  The encoder runs replicated; ``loss_fn(params, encoded, num_frames,
-  labels, num_labels)`` gives the per-sequence loss. Gradients follow the
-  module docstring's rule: each rank backpropagates the same mean loss
-  (infeasible rows masked out, the feasible count summed over the data
-  axis), and every gradient is summed over the time axis and the data
-  axis. Every rank then holds the same gradients, and the AdamW update
-  (clip and schedule included) is ``gnat.train_step``'s.
+
+class ReplicatedTrainStep:
+  """A GNAT train step on a state that every rank holds whole:
+  ``step(state, frames, num_frames, labels, num_labels) -> (state, loss)``
+  as ``sharding.TrainStep``, returning the global batch's mean loss before
+  the update. Parameters and optimizer state update in place.
+
+  ``objective(params, frames, num_frames, labels, num_labels)`` gives
+  (this rank's objective to backpropagate, the replicated loss)
+  (``mean_over_feasible``). After its backward, each part of the
+  parameters ('encoder', 'lattice') has its gradients summed over the
+  ``_Axis`` list ``axes[part]``, by the module docstring's rule here and by
+  ``parallel/pipeline.py``'s for the pipelined steps. Every rank then holds
+  the same gradients, and the AdamW update (clip and schedule included) is
+  ``gnat.train_step``'s.
   """
 
-  def __init__(self, model, optimizer, mesh, axis_name: str, batch_axis,
-               loss_fn: Callable):
-    self.model = model
+  def __init__(self, optimizer, objective: Callable, axes: dict):
     self.optimizer = optimizer
-    self.seq = _Axis.of(mesh, axis_name)
-    self.data = None if batch_axis is None else _Axis.of(mesh, batch_axis)
-    self.loss_fn = loss_fn
+    self.objective = objective
+    self.axes = axes
 
   def loss_and_grads(self, state: gnat.GNATTrainState, frames, num_frames,
                      labels, num_labels) -> torch.Tensor:
     """The global batch's mean loss; leaves the summed gradients, not yet
     clipped, in the parameters' ``.grad``."""
-    model, device = self.model, self.model.device
-    frames = torch.as_tensor(frames, dtype=torch.float32, device=device)
-    num_frames = torch.as_tensor(num_frames, device=device)
-    labels = torch.as_tensor(labels, device=device)
-    num_labels = torch.as_tensor(num_labels, device=device)
     state.opt_state.adamw.zero_grad(set_to_none=True)
-    params = state.params
-    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
-    per_seq = self.loss_fn(params['lattice'], encoded, num_frames, labels,
-                           num_labels)
-    finite = torch.isfinite(per_seq)
-    count = finite.sum()
-    if self.data is not None:
-      self.data.all_reduce([count])
-    local = torch.where(finite, per_seq, 0.0).sum() / count.clamp(min=1)
+    local, loss = self.objective(state.params, frames, num_frames, labels,
+                                 num_labels)
     local.backward()
-    leaves = pytree.tree_leaves(params)
-    for leaf in leaves:
-      if leaf.grad is None:
-        leaf.grad = torch.zeros_like(leaf)
-    grads = [leaf.grad for leaf in leaves]
-    self.seq.all_reduce(grads)
-    loss = local.detach().clone()
-    if self.data is not None:
-      self.data.all_reduce(grads + [loss])
+    for part, axes in self.axes.items():
+      leaves = pytree.tree_leaves(state.params[part])
+      for leaf in leaves:
+        if leaf.grad is None:
+          leaf.grad = torch.zeros_like(leaf)
+      for axis in axes:
+        axis.all_reduce([leaf.grad for leaf in leaves])
     return loss
 
   def __call__(self, state: gnat.GNATTrainState, frames, num_frames, labels,
@@ -858,10 +855,35 @@ class SequenceTrainStep:
     return dataclasses.replace(state, step=state.step + 1), loss
 
 
+def _replicated_encoder_step(model, optimizer, mesh, axis_name: str,
+                             batch_axis, loss_fn: Callable):
+  """A ``ReplicatedTrainStep`` with this rank's batch rows (all of them
+  without ``batch_axis``), the whole frames on every rank of the time axis
+  and the encoder run replicated; ``loss_fn(params, encoded, num_frames,
+  labels, num_labels)`` gives the per-sequence lattice loss. Every
+  gradient is summed over the time axis and the data axis."""
+  data = None if batch_axis is None else _Axis.of(mesh, batch_axis)
+  axes = [_Axis.of(mesh, axis_name)] + ([] if data is None else [data])
+
+  def objective(params, frames, num_frames, labels, num_labels):
+    device = model.device
+    frames = torch.as_tensor(frames, dtype=torch.float32, device=device)
+    num_frames = torch.as_tensor(num_frames, device=device)
+    labels = torch.as_tensor(labels, device=device)
+    num_labels = torch.as_tensor(num_labels, device=device)
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+    return mean_over_feasible(
+        loss_fn(params['lattice'], encoded, num_frames, labels, num_labels),
+        data)
+
+  return ReplicatedTrainStep(optimizer, objective,
+                             {'encoder': axes, 'lattice': axes})
+
+
 def make_time_sharded_train_step(model, optimizer, mesh,
                                  axis_name: str = 'seq',
                                  fused: str = 'never',
-                                 batch_axis=None) -> SequenceTrainStep:
+                                 batch_axis=None) -> ReplicatedTrainStep:
   """A train step whose lattice DPs are time-sharded.
 
   The encoder runs replicated (its activations are [B, T, H]; for the long
@@ -872,7 +894,7 @@ def make_time_sharded_train_step(model, optimizer, mesh,
   kernel relay where the lattice's kernels would run).
 
   Returns ``step(state, frames, num_frames, labels, num_labels) ->
-  (state, loss)`` (``SequenceTrainStep``).
+  (state, loss)`` (``ReplicatedTrainStep``).
   """
 
   def loss_fn(params, encoded, num_frames, labels, num_labels):
@@ -880,13 +902,13 @@ def make_time_sharded_train_step(model, optimizer, mesh,
                              labels, num_labels, mesh, axis_name,
                              fused=fused, batch_axis=batch_axis)
 
-  return SequenceTrainStep(model, optimizer, mesh, axis_name, batch_axis,
-                           loss_fn)
+  return _replicated_encoder_step(model, optimizer, mesh, axis_name,
+                                  batch_axis, loss_fn)
 
 
 def make_tp_seq_train_step(model, optimizer, mesh, seq_axis: str = 'seq',
                            model_axis: str = 'model',
-                           batch_axis=None) -> SequenceTrainStep:
+                           batch_axis=None) -> ReplicatedTrainStep:
   """A train step composing sequence (time) and tensor (vocabulary)
   parallelism: the lattice denominator shards frames over ``seq_axis`` and
   the vocab head over ``model_axis`` at once
@@ -895,7 +917,7 @@ def make_tp_seq_train_step(model, optimizer, mesh, seq_axis: str = 'seq',
   axis by the step: the blocks did it).
 
   Returns ``step(state, frames, num_frames, labels, num_labels) ->
-  (state, loss)`` (``SequenceTrainStep``).
+  (state, loss)`` (``ReplicatedTrainStep``).
   """
   if not sharded_scan.tp_supported(model.lattice):
     raise ValueError('model.lattice is not covered by the tensor-parallel '
@@ -906,5 +928,5 @@ def make_tp_seq_train_step(model, optimizer, mesh, seq_axis: str = 'seq',
                                 labels, num_labels, mesh, seq_axis=seq_axis,
                                 model_axis=model_axis, batch_axis=batch_axis)
 
-  return SequenceTrainStep(model, optimizer, mesh, seq_axis, batch_axis,
-                           loss_fn)
+  return _replicated_encoder_step(model, optimizer, mesh, seq_axis,
+                                  batch_axis, loss_fn)

@@ -23,28 +23,36 @@ and rank), and ``make_mesh`` lays the world out as a ``DeviceMesh``.
   (``shard_batch``); gradients are summed over it explicitly. The
   expected-risk step (``make_shard_map_risk_train_step``) is data parallel
   alone.
-* model axis: tensor parallelism over the vocabulary. The joint network's
-  vocab head ``[h, V]`` (and its bias) is sharded (``GNAT_PARAM_RULES``,
-  ``shard_params``), and the lattice loss runs
-  ``ops/sharded_scan.py::tp_lattice_loss``: each rank reduces its own shard
-  per frame in the ``frame_reduce`` kernels, and only the [B, V/D]
-  reductions are gathered.
+* model axis: tensor parallelism by ``GNAT_PARAM_RULES``. The joint
+  network's vocab head ``[h, V]`` (and its bias) is sharded over the
+  vocabulary, and the encoder Megatron style: each rank holds the columns
+  of ``qkv`` of its H / D heads (from each of q, k and v: a contiguous 1/D
+  of [d, 3d] would cross them) and the matching rows of ``attn_out``, and
+  1/D of the FFN columns (``ffn_in``, ``ffn1_in``) and rows (``ffn_out``,
+  ``ffn1_out``). ``make_tp_train_step`` runs the lattice loss through
+  ``ops/sharded_scan.py::tp_lattice_loss`` (each rank reduces its own
+  vocab shard per frame in the ``frame_reduce`` kernels, and only the
+  [B, V/D] reductions are gathered); ``make_sharded_train_step`` runs
+  ``model.lattice`` by its own route on every model rank, on the vocab head
+  gathered from the shards.
 
-Where the JAX package lets ``shard_map`` transpose its collectives, the
-steps here follow one gradient rule (``TrainStep``): every model rank
-computes the same replicated loss, and the gather's VJP sums the
-cotangents of all D model ranks, so each rank backpropagates its loss
-scaled by 1 / D. Then the vocab shards' gradients are exact on every model
-rank and are summed over the data group only; the replicated parameters'
-gradients are partial sums that add up over the whole world. The mean is
-global: each rank divides its own loss sum by the feasible count summed
-over the data group. The clip's global norm takes each vocab shard once.
+Where the JAX package lets ``shard_map`` and XLA transpose its
+collectives, the steps here follow one gradient rule (``TrainStep``):
+every model rank computes the same replicated loss and backpropagates it
+scaled by 1 / D, so the cotangent of a replicated activation on each rank
+is a partial, and the ranks' partials add up to it. Each vocab gather's
+VJP sums the model ranks' cotangents, and so does the sum that closes each
+row-parallel product of the encoder (``_ModelSum``: an all-reduce whose
+backward is an all-reduce); the replicated input of the column-parallel
+products needs no collective, its backward being the identity. Then the
+sharded leaves' gradients are exact on every model rank and are summed
+over the data group only; the replicated leaves' gradients are partial
+sums that add up over the whole world. The mean is global: each rank
+divides its own loss sum by the feasible count summed over the data group.
+The clip's global norm takes each shard once.
 
-The encoder stays replicated in the tensor-parallel step, which computes
-the same function as the JAX package's Megatron-sharded encoder. Still to
-port (ROADMAP queue 1, item 10): that sharding with
-``make_sharded_train_step``, and ``pipeline.py``; the time-sharded steps are
-``parallel/sequence.py``'s.
+The time-sharded steps are ``parallel/sequence.py``'s, the pipelined ones
+``parallel/pipeline.py``'s.
 """
 
 from __future__ import annotations
@@ -64,14 +72,26 @@ from last_torch_tpu_torch.ops import sharded_scan
 Params = Any
 
 # Parameter sharding rules: (regex over the leaf path, the mesh axis of each
-# dimension). First match wins; everything else is replicated. The JAX
-# package's encoder rules (ffn*/qkv/attn_out over 'model') are not ported:
-# the tensor-parallel step keeps the encoder replicated.
+# dimension). First match wins; everything else is replicated.
 GNAT_PARAM_RULES = (
     # Joint network vocab head: shard the vocabulary.
     (r'.*weight_fn.*vocab_w$', (None, 'model')),
     (r'.*weight_fn.*vocab_b$', ('model',)),
+    # Encoder: Megatron-style FFN / attention sharding. The Conformer
+    # macaron FFN (ffn1) shards the same way; its convolution-module
+    # parameters (conv_in/conv_depth/conv_out) stay replicated on
+    # purpose: conv_in's GLU pairs columns [0:d] with [d:2d], which a
+    # contiguous column split would cross-shard, and the three tensors
+    # together are small relative to the FFNs.
+    (r'.*ffn1?_in$', (None, 'model')),
+    (r'.*ffn1?_out$', ('model', None)),
+    (r'.*qkv$', (None, 'model')),
+    (r'.*attn_out$', ('model', None)),
 )
+
+# Leaves that split into equal blocks along their sharded dimension, each
+# block sharded alike: qkv's q, k and v, so that a shard holds whole heads.
+_BLOCKS = {'qkv': 3}
 
 
 def make_mesh(num_devices: Optional[int] = None, model_parallel: int = 1,
@@ -129,6 +149,10 @@ def _sharded_dim(name: str, leaf) -> Optional[int]:
   return None
 
 
+def _blocks(name: str) -> int:
+  return _BLOCKS.get(name.rsplit('/', 1)[-1], 1)
+
+
 def param_shardings(params: Params) -> dict[str, Optional[int]]:
   """{leaf path ('lattice/weight_fn/vocab_w', ...): the dimension
   ``GNAT_PARAM_RULES`` shard over the model axis, or None for a replicated
@@ -139,40 +163,54 @@ def param_shardings(params: Params) -> dict[str, Optional[int]]:
 
 def shard_params(params: Params, mesh) -> Params:
   """This rank's parameters: for each sharded leaf the slice at the rank's
-  model coordinate, the others whole; every leaf a new contiguous tensor."""
+  model coordinate (of each of q, k and v for ``qkv``: whole heads), the
+  others whole; every leaf a new contiguous tensor."""
   shards = _axis_size(mesh, 'model')
   index = mesh.get_local_rank('model')
   flat, spec = pytree.tree_flatten_with_path(params)
   out = []
   for path, leaf in flat:
-    dim = _sharded_dim(_path_str(path), leaf)
+    name = _path_str(path)
+    dim = _sharded_dim(name, leaf)
     leaf = leaf.detach()
     if dim is not None:
-      if leaf.shape[dim] % shards:
-        raise ValueError(f'{_path_str(path)}: dimension {dim} of '
-                         f'{tuple(leaf.shape)} does not split into {shards} '
-                         'shards')
-      size = leaf.shape[dim] // shards
-      leaf = leaf.narrow(dim, index * size, size)
+      blocks = _blocks(name)
+      if leaf.shape[dim] % (blocks * shards):
+        raise ValueError(f'{name}: dimension {dim} of {tuple(leaf.shape)} '
+                         f'does not split into {blocks} x {shards} shards')
+      size = leaf.shape[dim] // (blocks * shards)
+      leaf = torch.cat([block.narrow(dim, index * size, size)
+                        for block in leaf.chunk(blocks, dim)], dim)
     out.append(leaf.contiguous().clone())
   return pytree.tree_unflatten(out, spec)
 
 
+def join_shards(name: str, parts, dim: int) -> torch.Tensor:
+  """The whole leaf ``name`` from its ``shard_params`` shards, in model
+  rank order, sharded along ``dim`` (``gather_params`` of one leaf)."""
+  blocks = _blocks(name)
+  pieces = [part.chunk(blocks, dim) for part in parts]
+  return torch.cat([piece[b] for b in range(blocks) for piece in pieces],
+                   dim)
+
+
 def gather_params(params: Params, mesh) -> Params:
-  """The whole parameters from this rank's ``shard_params`` shards: each
-  sharded leaf gathered over the mesh's model axis (a collective: every
-  rank calls it), the others as they are; detached."""
+  """The whole parameters (or any tree of their shape, e.g. gradients) from
+  this rank's ``shard_params`` shards: each sharded leaf gathered over the
+  mesh's model axis (a collective: every rank calls it), the others as
+  they are; detached. ``gather_params(shard_params(p))`` is p exactly."""
   group = mesh.get_group('model')
   shards = _axis_size(mesh, 'model')
   flat, spec = pytree.tree_flatten_with_path(params)
   out = []
   for path, leaf in flat:
+    name = _path_str(path)
     leaf = leaf.detach()
-    dim = _sharded_dim(_path_str(path), leaf)
+    dim = _sharded_dim(name, leaf)
     if dim is not None and shards > 1:
       parts = [torch.empty_like(leaf) for _ in range(shards)]
       dist.all_gather(parts, leaf.contiguous(), group=group)
-      leaf = torch.cat(parts, dim=dim)
+      leaf = join_shards(name, parts, dim)
     out.append(leaf)
   return pytree.tree_unflatten(out, spec)
 
@@ -194,24 +232,77 @@ def shard_batch(batch: Params, mesh) -> Params:
   return pytree.tree_map(rows, batch)
 
 
+class _ModelSum(torch.autograd.Function):
+  """Sum over the model group; its VJP sums the ranks' cotangents (each a
+  partial under the module docstring's rule)."""
+
+  @staticmethod
+  def forward(ctx, x, group):
+    ctx.group = group
+    x = x.contiguous().clone()
+    dist.all_reduce(x, group=group)
+    return x
+
+  @staticmethod
+  def backward(ctx, g):
+    g = g.contiguous().clone()
+    dist.all_reduce(g, group=ctx.group)
+    return g, None
+
+
+def _check_rules(model, rules, shards: int):
+  """Raises unless ``rules`` are ``GNAT_PARAM_RULES`` (the vocab head and
+  the Megatron encoder: the one layout the sharded block computes) and the
+  model axis divides the heads and the FFN width."""
+  if tuple(rules) != GNAT_PARAM_RULES:
+    raise ValueError('the sharded steps take GNAT_PARAM_RULES alone: the '
+                     'vocab head and the Megatron layout of the encoder')
+  heads, ffn = model.encoder.num_heads, model.encoder.ffn_size
+  if heads % shards or ffn % shards:
+    raise ValueError(f'the Megatron encoder needs num_heads={heads} and '
+                     f'ffn_size={ffn} divisible by the model axis size '
+                     f'{shards}')
+
+
 class TrainStep:
   """A GNAT train step over a mesh, as ``gnat.train_step``:
   ``step(state, frames, num_frames, labels, num_labels) -> (state, loss)``
   with this rank's batch rows (``shard_batch``), returning the mean loss of
   the global batch before the update. Parameters update in place.
 
-  Tensor parallel (``make_tp_train_step``): the vocab head is sharded over
-  the mesh's model axis and the lattice loss is ``tp_lattice_loss``; data
-  parallel (``make_shard_map_train_step``): every parameter is replicated
-  and each rank runs ``model.loss``. The gradient rule is the module
-  docstring's.
+  Model parallel (``model_parallel``): the leaves ``GNAT_PARAM_RULES``
+  shard are this rank's shards, the encoder runs Megatron-sharded, and the
+  lattice loss is ``tp_lattice_loss`` (``tp_lattice``:
+  ``make_tp_train_step``) or ``model.lattice`` on the gathered shards
+  (``make_sharded_train_step``). Data parallel
+  (``make_shard_map_train_step``): every parameter is replicated and each
+  rank runs ``model.loss``. The gradient rule is the module docstring's.
   """
 
-  def __init__(self, model, optimizer, mesh, tensor_parallel: bool):
+  def __init__(self, model, optimizer, mesh, model_parallel: bool = False,
+               tp_lattice: bool = False):
     self.model = model
     self.optimizer = optimizer
+    self.tp_lattice = tp_lattice
     self.data_group = mesh.get_group('data')
-    self.model_group = mesh.get_group('model') if tensor_parallel else None
+    self.model_group = mesh.get_group('model') if model_parallel else None
+    self.encoder_hooks = {}
+    if model_parallel:
+      group = self.model_group
+      self.encoder_hooks = dict(
+          heads=model.encoder.num_heads // group.size(),
+          model_sum=lambda x: _ModelSum.apply(x, group))
+
+  def _lattice_params(self, params):
+    """The lattice parameters with every sharded leaf gathered from the
+    model ranks (differentiably)."""
+    flat, spec = pytree.tree_flatten_with_path(params['lattice'])
+    out = []
+    for path, leaf in flat:
+      dim = _sharded_dim('lattice/' + _path_str(path), leaf)
+      out.append(leaf if dim is None else
+                 sharded_scan.gather(leaf, dim, self.model_group))
+    return pytree.tree_unflatten(out, spec)
 
   def _per_seq_loss(self, params, frames, num_frames, labels, num_labels):
     if self.model_group is None:
@@ -219,11 +310,17 @@ class TrainStep:
     device = self.model.device
     frames = torch.as_tensor(frames, dtype=torch.float32, device=device)
     num_frames = torch.as_tensor(num_frames, device=device)
-    encoded = self.model.encoder.apply(params['encoder'], frames, num_frames)
-    return sharded_scan.tp_lattice_loss(
-        self.model.lattice, params['lattice'], encoded, num_frames,
-        torch.as_tensor(labels, device=device),
-        torch.as_tensor(num_labels, device=device), group=self.model_group)
+    labels = torch.as_tensor(labels, device=device)
+    num_labels = torch.as_tensor(num_labels, device=device)
+    encoded = self.model.encoder.apply(params['encoder'], frames, num_frames,
+                                       **self.encoder_hooks)
+    if self.tp_lattice:
+      return sharded_scan.tp_lattice_loss(
+          self.model.lattice, params['lattice'], encoded, num_frames, labels,
+          num_labels, group=self.model_group)
+    return self.model.lattice(self._lattice_params(params), frames=encoded,
+                              num_frames=num_frames, labels=labels,
+                              num_labels=num_labels)
 
   def _leaves(self, params):
     """[(leaf, sharded over the model axis)]."""
@@ -247,8 +344,8 @@ class TrainStep:
     for leaf, sharded in self._leaves(state.params):
       if leaf.grad is None:
         leaf.grad = torch.zeros_like(leaf)
-      # Replicated leaves of the tensor-parallel step sum over the world
-      # (the default group); everything else over the data axis.
+      # Replicated leaves of a model-parallel step sum over the world (the
+      # default group); everything else over the data axis.
       replicated_tp = self.model_group is not None and not sharded
       dist.all_reduce(leaf.grad,
                       group=None if replicated_tp else self.data_group)
@@ -276,29 +373,10 @@ class TrainStep:
     return dataclasses.replace(state, step=state.step + 1), loss
 
 
-def make_tp_train_step(model, optimizer, mesh):
-  """Tensor-parallel train step with the lattice loss vocab-sharded.
-
-  Each rank holds its shard of the joint network's vocab head and computes
-  the denominator with the per-frame ``frame_reduce`` kernels
-  (``ops/sharded_scan.py``), gathering only the [B, V/D] reductions over
-  the model axis; the numerator runs on the gathered head. The encoder is
-  replicated.
-
-  Args:
-    model: ``models.gnat.GNATModel``; its lattice must be covered by
-      ``sharded_scan.tp_supported``.
-    optimizer: ``gnat.make_optimizer``'s AdamW.
-    mesh: ('data', 'model') mesh from ``make_mesh``.
-
-  Returns:
-    (train_step_fn, shard_state_fn): the ``TrainStep``, and a function that
-    turns a fresh ``GNATTrainState`` (full parameters, no step taken) into
-    this rank's sharded state with its own optimizer state.
-  """
-  if not sharded_scan.tp_supported(model.lattice):
-    raise ValueError('model.lattice is not covered by the tensor-parallel '
-                     'lattice loss')
+def _model_parallel_step(model, optimizer, mesh, rules, tp_lattice: bool):
+  """(``TrainStep``, shard_state) of a model-parallel step."""
+  shards = _axis_size(mesh, 'model')
+  _check_rules(model, rules, shards)
 
   def shard_state(state: gnat.GNATTrainState) -> gnat.GNATTrainState:
     if state.step:
@@ -309,9 +387,67 @@ def make_tp_train_step(model, optimizer, mesh):
       leaf.requires_grad_(True)
     return gnat.GNATTrainState(
         params=params, opt_state=optimizer.init(params), step=0,
-        shard=(mesh.get_local_rank('model'), _axis_size(mesh, 'model')))
+        shard=(mesh.get_local_rank('model'), shards))
 
-  return TrainStep(model, optimizer, mesh, tensor_parallel=True), shard_state
+  step = TrainStep(model, optimizer, mesh, model_parallel=True,
+                   tp_lattice=tp_lattice)
+  return step, shard_state
+
+
+def make_sharded_train_step(model, optimizer, mesh, rules=GNAT_PARAM_RULES):
+  """A mesh-sharded GNAT train step for any lattice.
+
+  The parameters are sharded by ``GNAT_PARAM_RULES`` over the model axis
+  (the Megatron encoder and the vocab head); the encoder runs
+  Megatron-sharded, and ``model.lattice`` runs on every model rank by its
+  own route (``fused`` as the caller set it) on the vocab head gathered
+  with ``sharded_scan.gather``, whose VJP sums the model ranks'
+  cotangents. The batch rows split over the data axis. The gradient rule
+  is the module docstring's. This is the step ``models.train.train`` takes
+  where the lattice has no tensor-parallel plan (``sharded_scan.tp_plan``:
+  a trigram, an S = 1 lattice, ``fused='never'``).
+
+  Args:
+    model: ``models.gnat.GNATModel``.
+    optimizer: ``gnat.make_optimizer``'s AdamW.
+    mesh: ('data', 'model') mesh from ``make_mesh``.
+    rules: Parameter sharding rules: ``GNAT_PARAM_RULES``, the one layout
+      the port computes (any other raises ``ValueError``).
+
+  Returns:
+    (train_step_fn, shard_state_fn): the ``TrainStep``, and a function that
+    turns a fresh ``GNATTrainState`` (full parameters, no step taken) into
+    this rank's sharded state with its own optimizer state.
+  """
+  return _model_parallel_step(model, optimizer, mesh, rules,
+                              tp_lattice=False)
+
+
+def make_tp_train_step(model, optimizer, mesh, rules=GNAT_PARAM_RULES):
+  """Tensor-parallel train step with the lattice loss vocab-sharded.
+
+  Each rank holds its shard of the joint network's vocab head and computes
+  the denominator with the per-frame ``frame_reduce`` kernels
+  (``ops/sharded_scan.py``), gathering only the [B, V/D] reductions over
+  the model axis; the numerator runs on the gathered head. The encoder is
+  Megatron-sharded, as in ``make_sharded_train_step``.
+
+  Args:
+    model: ``models.gnat.GNATModel``; its lattice must be covered by
+      ``sharded_scan.tp_supported``.
+    optimizer: ``gnat.make_optimizer``'s AdamW.
+    mesh: ('data', 'model') mesh from ``make_mesh``.
+    rules: Parameter sharding rules: ``GNAT_PARAM_RULES`` alone, as in
+      ``make_sharded_train_step``.
+
+  Returns:
+    (train_step_fn, shard_state_fn), as ``make_sharded_train_step``.
+  """
+  if not sharded_scan.tp_supported(model.lattice):
+    raise ValueError('model.lattice is not covered by the tensor-parallel '
+                     'lattice loss; use make_sharded_train_step')
+  return _model_parallel_step(model, optimizer, mesh, rules,
+                              tp_lattice=True)
 
 
 def make_shard_map_train_step(model, optimizer, mesh) -> TrainStep:
@@ -320,7 +456,7 @@ def make_shard_map_train_step(model, optimizer, mesh) -> TrainStep:
   the feasible count and the gradients are summed over the mesh's data
   axis. Parameters and optimizer state are replicated: every rank starts
   from the same state."""
-  return TrainStep(model, optimizer, mesh, tensor_parallel=False)
+  return TrainStep(model, optimizer, mesh)
 
 
 class RiskTrainStep:

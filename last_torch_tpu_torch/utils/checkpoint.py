@@ -23,9 +23,12 @@ partial step behind. It holds a flat dictionary of tensors: for a
 counts, the number of updates (the schedule's position), the accumulated
 gradients and micro-step count when gradients accumulate, and the step.
 Every rank of a process group calls ``save`` and ``restore``: replicated
-leaves are written once, and the vocab shards of a tensor-parallel state
-(``GNATTrainState.shard``) each under a key of their own, so each rank
-reads its shard back. Orbax checkpoints of the JAX package are not read:
+leaves are written once, and the shards of a sharded state
+(``GNATTrainState.shard``: the vocab head and the Megatron encoder leaves
+of ``parallel.sharding.GNAT_PARAM_RULES``) each under a key of their own,
+so each rank reads its shard back. A tensor-parallel checkpoint written
+when those rules sharded the vocab head alone does not restore into a
+state of these rules: its encoder leaves have no shard keys. Orbax checkpoints of the JAX package are not read:
 ``convert.from_jax_params`` is the bridge between the packages.
 """
 

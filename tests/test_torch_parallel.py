@@ -21,9 +21,20 @@ gradients to 1e-5.
 
 The 2 ranks also run the trainer, ``models.train.train``, tensor parallel
 (``model_parallel=2``) and data parallel: 2 steps with a checkpoint (of the
-vocab-sharded state under tensor parallelism), then a resumed run to 4
-steps, whose losses must match 4 single-device ``train`` steps to rtol
-1e-5.
+sharded state under tensor parallelism), then a resumed run to 4 steps,
+whose losses must match 4 single-device ``train`` steps to rtol 1e-5; and
+``train(model_parallel=2)`` on a trigram, which takes no tensor-parallel
+plan and falls back, as the JAX package's does, to ``fused='never'`` and
+``make_sharded_train_step``.
+
+The tensor-parallel steps shard the encoder Megatron style too
+(``GNAT_PARAM_RULES``: heads and FFN columns over the model axis, ``qkv``
+by whole heads). The 4 ranks also take ``make_sharded_train_step`` at data
+2 x model 2 on the three configurations (the lattice by its own route on
+the gathered vocab head), and check that ``gather_params(shard_params(p))``
+is p exactly, that each rank's ``qkv`` holds the q, k and v columns of its
+heads, and that a checkpoint of a Megatron-sharded state restores into a
+fresh sharded state.
 
 Held, as ``tests/test_torch_train.py`` holds the single-device step: the
 loss to rtol 1e-5, every gradient (each vocab shard's among them, which
@@ -38,6 +49,7 @@ import json
 import pathlib
 import pickle
 import time
+import types
 
 import numpy as np
 import numpy.testing as npt
@@ -75,17 +87,29 @@ SPAWNS = {
        [(f'dp2_{c}', 'dp', 1, c) for c in CASES] +
        [(f'risk2_{c}', 'risk', 1, c) for c in RISK_CASES] +
        [('train_tp2_fld1', 'train', 2, 'fld1'),
-        ('train_dp2_fld1', 'train', 1, 'fld1')],
-    4: [(f'tp2x2_{c}', 'tp', 2, c) for c in CASES],
+        ('train_dp2_fld1', 'train', 1, 'fld1'),
+        ('train_sharded2_trigram', 'train', 2, 'trigram')],
+    4: [(f'tp2x2_{c}', 'tp', 2, c) for c in CASES] +
+       [(f'sharded2x2_{c}', 'sharded', 2, c) for c in CASES] +
+       [('megatron_roundtrip', 'roundtrip', 2, 'fld1')],
 }
 ALL_RUNS = [run[0] for runs in SPAWNS.values() for run in runs]
-RUNS = [run for run in ALL_RUNS if run.startswith(('tp', 'dp'))]
+RUNS = [run for run in ALL_RUNS if run.startswith(('tp', 'dp', 'sharded'))]
 RISK_RUNS = [run for run in ALL_RUNS if run.startswith('risk')]
 TRAIN_RUNS = [run for run in ALL_RUNS if run.startswith('train')]
-# The trainer's runs: synthetic batches of CONFIG's shapes.
-TRAIN_DATA = dict(batch_size=4, max_num_frames=8, max_num_labels=3,
+# The trainer's runs: (model config, synthetic batches of its shapes).
+TRAIN_CASES = {
+    'fld1': (dict(CONFIG, max_expansions=1),
+             dict(batch_size=4, max_num_frames=8, max_num_labels=3,
                   feature_size=CONFIG['feature_size'],
-                  vocab_size=CONFIG['vocab_size'])
+                  vocab_size=CONFIG['vocab_size'])),
+    # tests/test_torch_trainer.py's small trigram: no tensor-parallel plan.
+    'trigram': (dict(feature_size=8, vocab_size=6, context_size=2,
+                     encoder_size=16, encoder_layers=1, encoder_heads=2,
+                     encoder_ffn_size=32, hidden_size=12, embedding_size=10),
+                dict(batch_size=4, max_num_frames=16, max_num_labels=4,
+                     feature_size=8, vocab_size=6)),
+}
 
 
 def batch():
@@ -155,16 +179,15 @@ def _risk_run(mesh, case, params):
 
 
 def _train(case, **kwargs):
-  """``models.train.train`` of the ``case`` model on TRAIN_DATA; returns
+  """``models.train.train`` of the ``case`` model (TRAIN_CASES); returns
   its log records."""
   from last_torch_tpu_torch.models import train as train_lib
-  max_expansions, locally_normalized = CASES[case]
+  model_config, data_config = TRAIN_CASES[case]
   records = []
   train_lib.train(
-      gnat.GNATConfig(**CONFIG, max_expansions=max_expansions,
-                      locally_normalized=locally_normalized),
-      train_lib.DataConfig(**TRAIN_DATA), log_every=1, eval_every=4,
-      device='cpu', log_fn=records.append, **kwargs)
+      gnat.GNATConfig(**model_config), train_lib.DataConfig(**data_config),
+      log_every=1, eval_every=4, device='cpu', log_fn=records.append,
+      **kwargs)
   return records
 
 
@@ -180,6 +203,37 @@ def _train_run(case, rank, workdir, model_parallel):
           'records': records}
 
 
+def _roundtrip_run(mesh, model, optimizer, params, workdir):
+  """Megatron shards: the round trip through ``gather_params``, this
+  rank's ``qkv``, and a checkpoint of a sharded state after one step,
+  restored into a fresh sharded state."""
+  from last_torch_tpu_torch.utils import checkpoint
+  shards = sharding.shard_params(params, mesh)
+  back = _named(sharding.gather_params(shards, mesh))
+  step, shard_state = sharding.make_sharded_train_step(model, optimizer,
+                                                       mesh)
+  fresh = lambda: shard_state(gnat.GNATTrainState(
+      params, optimizer.init(params), 0))
+  state, _ = step(fresh(), *sharding.shard_batch(batch(), mesh))
+  manager = checkpoint.CheckpointManager(str(workdir))
+  manager.save(1, state)
+  restored = manager.restore(template=fresh())
+  manager.close()
+  moments = lambda s: [s.opt_state.adamw.state[leaf]['exp_avg'] for leaf in
+                       pytree.tree_leaves(s.params)]
+  return {
+      'data': mesh.get_local_rank('data'),
+      'model': mesh.get_local_rank('model'),
+      'roundtrip': {n: torch.equal(back[n], x) for n, x in
+                    _named(params).items()},
+      'qkv': shards['encoder']['layers'][0]['qkv'].numpy().copy(),
+      'restored': (restored.step == 1 and all(
+          torch.equal(a, b) for a, b in zip(
+              pytree.tree_leaves(restored.params) + moments(restored),
+              pytree.tree_leaves(state.params) + moments(state)))),
+  }
+
+
 def _rank_main(rank, world, workdir):
   """One rank: every run of its spawn, results to ``<run>.<rank>.pkl``."""
   torch.set_num_threads(1)
@@ -190,6 +244,10 @@ def _rank_main(rank, world, workdir):
                           timeout=COLLECTIVE_TIMEOUT)
   try:
     for name, kind, model_parallel, case in SPAWNS[world]:
+      if kind == 'train':
+        (workdir / f'{name}.{rank}.pkl').write_bytes(pickle.dumps(
+            _train_run(case, rank, workdir / name, model_parallel)))
+        continue
       mesh = sharding.make_mesh(model_parallel=model_parallel,
                                 device_type='cpu')
       max_expansions, locally_normalized = CASES[case]
@@ -197,10 +255,6 @@ def _rank_main(rank, world, workdir):
           **CONFIG, max_expansions=max_expansions,
           locally_normalized=locally_normalized), device='cpu')
       optimizer = gnat.make_optimizer(LEARNING_RATE, clip_norm=CLIP_NORM)
-      if kind == 'train':
-        (workdir / f'{name}.{rank}.pkl').write_bytes(pickle.dumps(
-            _train_run(case, rank, workdir / name, model_parallel)))
-        continue
       params = pickle.loads((workdir / f'{case}.params.pkl').read_bytes())
       if kind == 'risk':
         (workdir / f'{name}.{rank}.pkl').write_bytes(pickle.dumps(
@@ -209,10 +263,15 @@ def _rank_main(rank, world, workdir):
       params = convert.from_jax_params(params, device='cpu')
       for leaf in pytree.tree_leaves(params):
         leaf.requires_grad_(True)
+      if kind == 'roundtrip':
+        (workdir / f'{name}.{rank}.pkl').write_bytes(pickle.dumps(
+            _roundtrip_run(mesh, model, optimizer, params, workdir / name)))
+        continue
       state = gnat.GNATTrainState(params, optimizer.init(params), 0)
-      if kind == 'tp':
-        step, shard_state = sharding.make_tp_train_step(model, optimizer,
-                                                        mesh)
+      if kind in ('tp', 'sharded'):
+        make = (sharding.make_tp_train_step if kind == 'tp' else
+                sharding.make_sharded_train_step)
+        step, shard_state = make(model, optimizer, mesh)
         state = shard_state(state)
       else:
         step = sharding.make_shard_map_train_step(model, optimizer, mesh)
@@ -288,8 +347,9 @@ def assemble(results, key, case_params):
     if dim is None:
       values = [r[key][name] for r in results]
     else:
-      values = [np.concatenate(
-          [r[key][name] for r in results if r['data'] == d], axis=dim)
+      values = [sharding.join_shards(
+          name, [torch.as_tensor(r[key][name]) for r in results
+                 if r['data'] == d], dim).numpy()
                 for d in sorted({r['data'] for r in results})]
     for other in values[1:]:
       npt.assert_array_equal(other, values[0], err_msg=f'{key} {name}')
@@ -310,7 +370,7 @@ def test_train_step_matches_jax_single_device(reference, run):
   refs, results = reference
   params, want_loss, want_grads = refs[case_of(run)]
   ranks = results[run]
-  assert len(ranks) == (4 if run.startswith('tp2x2') else 2)
+  assert len(ranks) == (4 if '2x2' in run else 2)
   for r in ranks:
     npt.assert_allclose(r['loss'], want_loss, rtol=1e-5, atol=1e-6)
     assert r['step_loss'] == r['loss'] and r['step'] == 1
@@ -378,11 +438,11 @@ def test_risk_step_matches_the_single_device_step(reference, run):
 
 @pytest.mark.parametrize('run', TRAIN_RUNS)
 def test_parallel_train_matches_single_device_train(reference, run):
-  """``train(model_parallel=2)`` (tensor parallel) or ``train()`` in the
-  2-rank group (data parallel) on 2 ranks, resumed from its checkpoint
-  (vocab-sharded under tensor parallelism) after 2 steps, against 4
-  single-device ``train`` steps: the losses to rtol 1e-5, the evaluation
-  (on the gathered parameters) equal."""
+  """``train(model_parallel=2)`` (tensor parallel; on the trigram the
+  sharded fallback) or ``train()`` in the 2-rank group (data parallel) on
+  2 ranks, resumed from its checkpoint (sharded under model parallelism)
+  after 2 steps, against 4 single-device ``train`` steps: the losses to
+  rtol 1e-5, the evaluation (on the gathered parameters) equal."""
   _, results = reference
   ranks = results[run]
   want = [json.loads(r) for r in _train(ranks[0]['case'], num_steps=4)]
@@ -399,9 +459,20 @@ def test_parallel_train_matches_single_device_train(reference, run):
       assert got[-1][key] == want[-1][key], key
 
 
+def _head_columns(qkv, index, shards):
+  """The q, k and v columns of the heads of shard ``index``."""
+  d = qkv.shape[1] // 3
+  size = d // shards
+  return np.concatenate([qkv[:, b * d + index * size:
+                             b * d + (index + 1) * size] for b in range(3)],
+                        axis=1)
+
+
 def test_shard_params_slices_the_vocab_head(reference):
+  """Each rank's shards: the vocab head and the Megatron encoder leaves
+  sliced at its model coordinate (``qkv`` by heads), the rest whole."""
   refs, results = reference
-  for run in ('tp2_fld1', 'tp2x2_fld1', 'dp2_fld1'):
+  for run in ('tp2_fld1', 'tp2x2_fld1', 'sharded2x2_fld1', 'dp2_fld1'):
     full = _flat(refs['fld1'][0])
     for r in results[run]:
       assert r['rows'] == (4 if run.startswith('tp2_') else 2)
@@ -411,6 +482,9 @@ def test_shard_params_slices_the_vocab_head(reference):
         dim = sharding.param_shardings(refs['fld1'][0])[name]
         if dim is None or shards == 1:
           npt.assert_array_equal(got, value, err_msg=name)
+        elif name.endswith('qkv'):
+          npt.assert_array_equal(got, _head_columns(value, r['model'],
+                                                    shards), err_msg=name)
         else:
           size = value.shape[dim] // shards
           npt.assert_array_equal(
@@ -419,16 +493,34 @@ def test_shard_params_slices_the_vocab_head(reference):
               err_msg=name)
 
 
+def test_megatron_shards_round_trip_and_checkpoint(reference):
+  """``gather_params(shard_params(p))`` is p exactly; a rank's ``qkv``
+  holds whole heads; a checkpoint of a Megatron-sharded state (after a
+  step) restores every shard and AdamW moment into a fresh sharded
+  state."""
+  refs, results = reference
+  qkv = _flat(refs['fld1'][0])['encoder/layers/0/qkv']
+  ranks = results['megatron_roundtrip']
+  assert len(ranks) == 4
+  for r in ranks:
+    assert all(r['roundtrip'].values()), r['roundtrip']
+    npt.assert_array_equal(r['qkv'], _head_columns(qkv, r['model'], 2))
+    assert r['restored']
+
+
 def test_param_shardings_of_the_gnat_tree():
-  model = gnat.GNATModel(gnat.GNATConfig(**CONFIG), device='cpu')
+  model = gnat.GNATModel(gnat.GNATConfig(**CONFIG, encoder_conv_kernel=2),
+                         device='cpu')
   params = model.init(torch.Generator().manual_seed(0))
   shardings = sharding.param_shardings(params)
+  layer = {'qkv': 1, 'attn_out': 0, 'ffn_in': 1, 'ffn_out': 0, 'ffn1_in': 1,
+           'ffn1_out': 0}
   assert {n: d for n, d in shardings.items() if d is not None} == {
-      'lattice/weight_fn/vocab_w': 1, 'lattice/weight_fn/vocab_b': 0}
+      'lattice/weight_fn/vocab_w': 1, 'lattice/weight_fn/vocab_b': 0,
+      **{f'encoder/layers/0/{n}': d for n, d in layer.items()}}
   assert set(shardings) == set(_named(params))
-  # The encoder stays replicated (the JAX package's Megatron rules are not
-  # ported: the tensor-parallel step keeps the encoder whole).
-  assert shardings['encoder/layers/0/qkv'] is None
+  # The Conformer convolution stays replicated, as in the JAX package.
+  assert shardings['encoder/layers/0/conv_in'] is None
 
 
 def test_mesh_and_steps_refuse_what_they_do_not_cover():
@@ -438,3 +530,20 @@ def test_mesh_and_steps_refuse_what_they_do_not_cover():
                                                 vocab_size=8)), device='cpu')
   with pytest.raises(ValueError, match='tensor-parallel'):
     sharding.make_tp_train_step(model, gnat.make_optimizer(), mesh=None)
+  # The Megatron encoder needs heads and FFN widths the model axis divides;
+  # the sharded steps take GNAT_PARAM_RULES alone (another encoder layout,
+  # or rules that leave the vocab head whole, raise).
+  model = gnat.GNATModel(gnat.GNATConfig(**CONFIG), device='cpu')
+  model_axis_of_3 = types.SimpleNamespace(shape=(1, 3),
+                                          mesh_dim_names=('data', 'model'))
+  with pytest.raises(ValueError, match='num_heads=2'):
+    sharding.make_sharded_train_step(model, gnat.make_optimizer(),
+                                     model_axis_of_3)
+  rows_of_qkv = ((r'.*qkv$', ('model', None)),)
+  with pytest.raises(ValueError, match='Megatron layout'):
+    sharding.make_sharded_train_step(model, gnat.make_optimizer(),
+                                     model_axis_of_3, rules=rows_of_qkv)
+  with pytest.raises(ValueError, match='vocab head'):
+    sharding.make_tp_train_step(model, gnat.make_optimizer(),
+                                model_axis_of_3,
+                                rules=sharding.GNAT_PARAM_RULES[2:])

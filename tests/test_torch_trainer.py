@@ -318,14 +318,6 @@ def test_train_resume_equals_straight_steps(tmp_path):
   assert checkpoint.CheckpointManager(str(tmp_path)).all_steps() == [2, 4]
 
 
-def test_train_raises_where_jax_falls_back_to_auto_partitioning():
-  # A trigram context takes no tensor-parallel plan.
-  config = gnat.GNATConfig(**dict(SMALL, context_size=2))
-  with pytest.raises(NotImplementedError, match='queue 1, item 10'):
-    train.train(config, train.DataConfig(**DATA), num_steps=1,
-                model_parallel=2, device='cpu')
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
   with profiling.trace(str(tmp_path)):
     with profiling.named_scope('scope'):
