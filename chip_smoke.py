@@ -139,8 +139,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    tensor-parallel gradients within max(1e-3, twice the single-device
    route's error) of the float64 ones; 3 counted and timed steps through
    the ``frame_reduce`` kernels (``csrc/sharded_scan.cu``: 2 launches per
-   frame each way under FLD(2), 3200 + 3200 per step), losses falling; one
-   more step profiled. Then the data-parallel expected-risk (MWER) step
+   frame each way under FLD(2), 3200 + 3200 per step), losses falling, the
+   last profiled. Then the data-parallel expected-risk (MWER) step
    (``make_shard_map_risk_train_step``, phase 13's settings) on the same
    group against the single-device ``risk_train_step(...,
    per_example_keys=True)`` from one seed: the same sampled paths, the
@@ -165,10 +165,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    the beta pass differentiated (the joint+head forward, its recompute and
    backward a frame) gives the same gradients. The share of equal slots
    when both routes draw from one seed (not judged). 3
-   ``risk_train_step`` steps, each under the profiler (loss, mean_risk,
-   nll, wall and device-busy ms, idle share, peak memory, the launches of
-   each kernel, checked: 1600 joint+head forwards, one log-partition pair,
-   nothing else), and a 4th without it; the step's parts alone (beta
+   ``risk_train_step`` steps (loss, mean_risk, nll, wall ms, peak memory,
+   the launches of each kernel, checked: 1600 joint+head forwards, one
+   log-partition pair, nothing else), the last under the profiler (its
+   device-busy ms and idle share); the step's parts alone (beta
    pass, draw, scoring, NLL term; the slot states' closed-form walk
    against the generic loop); the float32 joint+head pair at the beta
    pass's shape against its plain versions and library compositions; sum
@@ -261,6 +261,24 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. Phases:
    joint+head kernels at S = 4161, phase 10's shape), step 1 against
    ``gnat.train_step`` on the same route. Their launches of the 'cache'
    and joint+head pairs join the kernels line.
+18. The string DP's closed form (``lattices.STRING_DP_CUMULATIVE``) against
+   its scan (``[string-dp]``). (a) At the HAT training phase's shapes
+   (``hat_bigram(vocab_size=1024)``, phase 6's batch, U+1 = 101), the
+   float32 string weights of one ``label_weights`` call: the DP's sum and
+   its gradients with respect to both weight tensors on each route against
+   the same DP in float64 (the scan), within twice the JAX package's own
+   distance on that route (``STRING_DP_DRIFT_LIMITS``). (b) Both routes'
+   forward + backward and the HAT ``train_step`` timed in turns (scan,
+   closed form, closed form, scan; losses falling through the four steps,
+   the numerator kernels launched by each; the last two steps under the
+   profiler: device busy time, idle share), and the string DP's device
+   activities a call on each route. The flag stays off by default. (c) A user
+   ``WeightFn`` that defines only ``init`` / ``apply`` over a
+   ``JointWeightFn`` on FullNGram(1024, 1), FLD(2), at phase 6's lengths
+   / 8: its loss and gradients (the generic per-position string weights,
+   the generic log partition through the float32 joint+head kernels,
+   counted) against ``JointWeightFn.label_weights`` on the same parameters
+   (loss rtol 1e-5, gradients 1e-3 of the largest).
 
 Each phase prints one line or more with its seconds, and the run its total;
 any failure exits non-zero before the last line, which is ``{"ok": true,
@@ -3252,7 +3270,7 @@ def phase_tensor_parallel(torch, gnat, presets, fused_scan, sharded_scan,
   trigram kernels so). Then 3 counted and timed ``make_tp_train_step``
   steps through the frame_reduce kernels (2 launches per frame each way
   under FLD(2), no bigram kernel), losses falling, the first one's loss
-  the tensor-parallel route's; one more step profiled. Returns the
+  the tensor-parallel route's, the last under the profiler. Returns the
   frame_reduce (forward, backward) launches of the 3 steps."""
   import torch.distributed as dist
   dist.init_process_group('nccl', store=dist.HashStore(), rank=0,
@@ -3334,18 +3352,18 @@ def phase_tensor_parallel(torch, gnat, presets, fused_scan, sharded_scan,
         f'single-device {sd[blank_b].item():.6g}, float64 '
         f'{ref[blank_b].item():.3g} ({time.perf_counter() - t0:.1f} s)')
 
-    # The main path: 3 train steps, counted and timed.
+    # The main path: 3 train steps, counted and timed; the last runs under
+    # the profiler, its time taken inside it.
     losses, step_ms, per_step = [], [], []
     reset_counts(sharded_scan, fused_scan)
-    for _ in range(TRAIN_STEPS):
+    for i in range(TRAIN_STEPS):
       before = (sharded_scan.forward_launches, sharded_scan.backward_launches)
-      start = torch.cuda.Event(enable_timing=True)
-      end = torch.cuda.Event(enable_timing=True)
-      start.record()
-      state, loss = step(state, *local)
-      end.record()
-      torch.cuda.synchronize()
-      step_ms.append(start.elapsed_time(end))
+      one = lambda: timed(torch, lambda: step(state, *local))
+      if i < TRAIN_STEPS - 1:
+        (state, loss), ms = one()
+      else:
+        ((state, loss), ms), report = device_profile(torch, one)
+      step_ms.append(ms)
       losses.append(loss.item())
       per_step.append((sharded_scan.forward_launches - before[0],
                        sharded_scan.backward_launches - before[1]))
@@ -3367,12 +3385,12 @@ def phase_tensor_parallel(torch, gnat, presets, fused_scan, sharded_scan,
         f'gnat_global_bigram B={len(NUM_FRAMES)} T_max={max_t} '
         f'U_max={max(NUM_LABELS)}, {TRAIN_STEPS} make_tp_train_step steps: '
         'losses ' + ', '.join(f'{x:.6g}' for x in losses) + '; step ms ' +
-        ', '.join(f'{x:.1f}' for x in step_ms) + ' (' +
+        ', '.join(f'{x:.1f}' for x in step_ms) + ' (the last profiled; ' +
         ', '.join(f'{real_frames / x * 1e3:.0f}' for x in step_ms) +
         f' real frames/s); frame_reduce launches per step (forward, '
         f'backward) {per_step}; no bigram kernel launched')
-    say('tensor-parallel', 'one more step under the profiler: ' +
-        device_profile(torch, lambda: step(state, *local))[1])
+    say('tensor-parallel', f'step {TRAIN_STEPS} under the profiler: '
+        f'{report}')
     risk_data_parallel(torch, gnat, sharding, pytree, model, mesh,
                        full.params, batch, local)
   finally:
@@ -3750,7 +3768,7 @@ def phase_mwer(torch, gnat, presets, risk, lattices, fused_scan, joint_head,
   plain versions on the same drawn paths, at MWER_CHECK_SEEDS; at the first
   also with the beta pass differentiated (forward, its recompute and
   backward a frame); then 3 ``risk_train_step`` steps, each counted and
-  profiled, and one more without the profiler; the sampler's pieces alone;
+  timed, the last under the profiler; the sampler's pieces alone;
   the share of equal slots when both routes draw from one seed; the drift
   of sum exp(log_prob) on a peaked lattice. Returns ({kernel: launches of
   the 3 steps}, the joint+head records' float32 numbers)."""
@@ -3886,11 +3904,11 @@ def phase_mwer(torch, gnat, presets, risk, lattices, fused_scan, joint_head,
       f'a sampled path {emitted.mean().item():.1f} on average (reference '
       f'{num_labels.float().mean().item():.1f})')
 
-  # The main path: 3 risk_train_steps, counted, each profiled; one more
-  # without the profiler.
+  # The main path: 3 risk_train_steps, counted and timed; the last runs
+  # under the profiler.
   metrics_list, per_step, lines = [], [], []
   total = {}
-  for step in range(TRAIN_STEPS + 1):
+  for step in range(TRAIN_STEPS):
     reset_counts(*modules)
     torch.cuda.reset_peak_memory_stats()
     record = {}
@@ -3907,7 +3925,7 @@ def phase_mwer(torch, gnat, presets, risk, lattices, fused_scan, joint_head,
       return out
 
     with sampler_tap(torch, lattice, record):
-      if step < TRAIN_STEPS:
+      if step == TRAIN_STEPS - 1:
         (state, metrics), spans = device_spans(torch, one)
         busy, idle, kernels = busy_idle(spans)
       else:
@@ -3937,20 +3955,17 @@ def phase_mwer(torch, gnat, presets, risk, lattices, fused_scan, joint_head,
             f'risk_train_step 1: loss {metrics["loss"]} vs the objective\'s '
             f'{loss_1} (paths equal: '
             f'{torch.equal(record["labels"], kernel["labels"])})')
-    if step < TRAIN_STEPS:
-      for name, v in launches.items():
-        total[name] = total.get(name, 0) + v
-      per_step.append(launches)
-      metrics_list.append(metrics)
-      lines.append(f'step {step + 1}: loss {metrics["loss"]:.6g}, mean_risk '
-                   f'{metrics["mean_risk"]:.4g}, nll {metrics["nll"]:.6g}; '
-                   f'wall {wall:.1f} ms (profiler on), device busy '
-                   f'{busy:.1f} ms, idle {idle:.1%}, {kernels} kernels; peak '
-                   f'{peak:.2f} GiB; launches {launches}')
-    else:
-      lines.append(f'step {step + 1} without the profiler: loss '
-                   f'{metrics["loss"]:.6g}, wall {wall:.1f} ms, peak '
-                   f'{peak:.2f} GiB')
+    for name, v in launches.items():
+      total[name] = total.get(name, 0) + v
+    per_step.append(launches)
+    metrics_list.append(metrics)
+    line = (f'step {step + 1}: loss {metrics["loss"]:.6g}, mean_risk '
+            f'{metrics["mean_risk"]:.4g}, nll {metrics["nll"]:.6g}; wall '
+            f'{wall:.1f} ms')
+    if step == TRAIN_STEPS - 1:
+      line += (f' (profiler on), device busy {busy:.1f} ms, idle '
+               f'{idle:.1%}, {kernels} kernels')
+    lines.append(f'{line}; peak {peak:.2f} GiB; launches {launches}')
   for line in lines:
     say('mwer', line)
 
@@ -6164,6 +6179,260 @@ def phase_model_parallel(torch, gnat, presets, fused_scan, joint_head,
   return launches
 
 
+# Phase 18's drift limits from a float64 scan, per route: twice the JAX
+# package's own distance on the same route at B=2, T=1600, U=100, FLD(2),
+# float32 (``DRIFT_LIMITS`` of tests/test_torch_string_dp_cumulative.py,
+# which measures it): the loss relative, the gradients as a share of the
+# largest. The float32 scan drifts more than the closed form.
+STRING_DP_DRIFT_LIMITS = {
+    'closed_form': {'loss': 1.84e-07, 'grads': 1.67e-04},
+    'scan': {'loss': 1.80e-06, 'grads': 2.58e-04}}
+STRING_DP_ROUTES = (('scan', False), ('closed_form', True))
+# Phase 18 (c): a user WeightFn at phase 6's lengths / 8.
+USER_WF_FRAMES = [n // 8 for n in NUM_FRAMES]
+USER_WF_LABELS = [n // 16 for n in USER_WF_FRAMES]
+
+
+@contextlib.contextmanager
+def string_dp_route(lattices, cumulative):
+  """``lattices.STRING_DP_CUMULATIVE`` set to ``cumulative`` inside."""
+  saved = lattices.STRING_DP_CUMULATIVE
+  lattices.STRING_DP_CUMULATIVE = cumulative
+  try:
+    yield
+  finally:
+    lattices.STRING_DP_CUMULATIVE = saved
+
+
+def string_dp_run(torch, lattices, semirings, lattice, cumulative, nb, nl,
+                  num_frames, num_labels):
+  """(sum of the string DP's final weights, [its gradient with respect to
+  the blank weights, to the lexical weights]) on one route."""
+  b = nb.detach().clone().requires_grad_(True)
+  l = nl.detach().clone().requires_grad_(True)
+  with string_dp_route(lattices, cumulative):
+    total = lattice._string_dp(b, l, num_frames, num_labels,
+                               semirings.Log).sum()
+  total.backward()
+  return total.item(), [b.grad, l.grad]
+
+
+def string_dp_drift(value, grads, ref_value, ref_grads):
+  """(loss relative, gradients as a share of the largest) from the float64
+  reference, as tests/test_torch_string_dp_cumulative.py::drift."""
+  scale = max(g.abs().max().item() for g in ref_grads)
+  return (abs(value - ref_value) / abs(ref_value),
+          max((g.double() - r).abs().max().item()
+              for g, r in zip(grads, ref_grads)) / scale)
+
+
+def string_dp_routes(torch, gnat, presets, lattices, numerator_scan,
+                     semirings, card):
+  """Phase 18 (a) and (b): the string DP on both routes at the HAT training
+  phase's shapes (``hat_bigram(vocab_size=1024)``, phase 6's batch, the
+  float32 string weights of one ``label_weights`` call), judged against the
+  float64 scan; then both routes' forward + backward and the HAT
+  ``train_step`` timed in turns (scan, closed form, closed form, scan; the
+  steps' last two turns under the profiler), and the string DP's device
+  activities per route.
+  Returns (the numerator kernels' (forward, backward) launches of the
+  train steps, the number of steps)."""
+  config = presets.hat_bigram(vocab_size=1024)
+  model = gnat.GNATModel(config, device='cuda')
+  optimizer = gnat.make_optimizer(LEARNING_RATE)
+  state = gnat.init_train_state(model, torch.Generator().manual_seed(0),
+                                optimizer)
+  batch = tp_batch(torch, config)
+  frames, num_frames, labels, num_labels = batch
+  lattice, params = model.lattice, state.params
+  with torch.no_grad():
+    encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+    cache, states, next_labels = numerator_inputs(torch, lattice,
+                                                  params['lattice'], labels)
+    blank, lexical = lattice.weight_fn.label_weights(
+        params['lattice']['weight_fn'], cache, encoded, states, next_labels)
+  nb, nl = blank.movedim(-1, 0).contiguous(), lexical.movedim(-1, 0).contiguous()
+  check(nb.dtype == torch.float32, f'string weights in {nb.dtype}')
+  run = lambda cumulative, b=nb, l=nl: string_dp_run(
+      torch, lattices, semirings, lattice, cumulative, b, l, num_frames,
+      num_labels)
+
+  # (a) Each route against the float64 scan.
+  t0 = time.perf_counter()
+  ref_value, ref_grads = run(False, nb.double(), nl.double())
+  drifts = {}
+  for route, cumulative in STRING_DP_ROUTES:
+    value, grads = run(cumulative)
+    check(np.isfinite(value) and all(bool(torch.isfinite(g).all())
+                                     for g in grads),
+          f'string DP ({route}) not finite: {value}')
+    drifts[route] = string_dp_drift(value, grads, ref_value, ref_grads)
+  say('string-dp', f'hat_bigram B={len(NUM_FRAMES)} T_max={nb.shape[0]} '
+      f'U+1={nb.shape[-1]} (float32 string weights of one label_weights '
+      f'call), DP forward+backward against the float64 scan (sum '
+      f'{ref_value:.10g}): ' + '; '.join(
+          f'{route} loss {d[0]:.3e} relative (limit '
+          f'{STRING_DP_DRIFT_LIMITS[route]["loss"]:.3g}), gradients '
+          f'{d[1]:.3e} of the largest (limit '
+          f'{STRING_DP_DRIFT_LIMITS[route]["grads"]:.3g})'
+          for route, d in drifts.items()) +
+      f' ({time.perf_counter() - t0:.1f} s)')
+  for route, drift in drifts.items():
+    for metric, got in zip(('loss', 'grads'), drift):
+      limit = STRING_DP_DRIFT_LIMITS[route][metric]
+      check(got <= limit, f'string DP ({route}) {metric} drift {got:.3g} '
+            f'from float64 (limit {limit:.3g})')
+
+  # (b) The DP alone, in turns, and its device activities per route.
+  order = STRING_DP_ROUTES + STRING_DP_ROUTES[::-1]
+  dp_ms = {route: [] for route, _ in STRING_DP_ROUTES}
+  for route, cumulative in order:
+    dp_ms[route].append(timed(torch, lambda: run(cumulative))[1])
+  activities = {route: len(device_spans(torch, lambda: run(cumulative))[1])
+                for route, cumulative in STRING_DP_ROUTES}
+  say('string-dp', 'string DP forward+backward alone, in turns (scan, '
+      'closed form, closed form, scan): ' + '; '.join(
+          f'{route} ' + ', '.join(f'{x:.1f}' for x in dp_ms[route]) +
+          f' ms, {activities[route]} device activities a call'
+          for route in dp_ms) + f'; {card}')
+
+  # (b) The HAT train step on each route, in turns; the second turn of
+  # each route runs under the profiler, its time taken inside it.
+  losses, step_ms, reports = [], {route: [] for route in dp_ms}, {}
+  numerator_scan.forward_launches = numerator_scan.backward_launches = 0
+  for turn, (route, cumulative) in enumerate(order):
+    one = lambda: timed(torch, lambda: gnat.train_step(
+        model, optimizer, state, *batch))
+    with string_dp_route(lattices, cumulative):
+      if turn < len(STRING_DP_ROUTES):
+        (state, loss), ms = one()
+      else:
+        ((state, loss), ms), reports[route] = device_profile(torch, one)
+    losses.append(loss.item())
+    step_ms[route].append(ms)
+  launches = numerator_scan.forward_launches, numerator_scan.backward_launches
+  steps = len(losses)
+  check(min(launches) >= steps,
+        f'{steps} HAT steps launched the numerator kernels {launches}')
+  check(all(np.isfinite(losses)) and
+        all(b < a for a, b in zip(losses, losses[1:])),
+        f'HAT losses over the two routes not finite and decreasing: {losses}')
+  real_frames = sum(NUM_FRAMES)
+  say('string-dp', 'hat_bigram train_step in turns (scan, closed form, '
+      'closed form, scan; the last two profiled), wall ms: ' + '; '.join(
+          f'{route} ' + ', '.join(f'{x:.1f}' for x in step_ms[route]) + ' ('
+          + ', '.join(f'{real_frames / x * 1e3:.0f}' for x in step_ms[route])
+          + ' real frames/s)' for route in step_ms) + '; losses ' +
+      ', '.join(f'{x:.6g}' for x in losses) + f'; numerator launches '
+      f'{launches}; {card}')
+  for route, report in reports.items():
+    say('string-dp', f'the {route} step under the profiler: {report}')
+  return launches, steps
+
+
+def user_weight_fn_check(torch, presets, lattices, contexts, alignments,
+                         weight_fns, joint_head, modules):
+  """Phase 18 (c): a user ``WeightFn`` that defines only ``init`` /
+  ``apply`` over a ``JointWeightFn`` on FullNGram(1024, 1), FLD(2), at
+  phase 6's lengths / 8: its loss and gradients (the generic per-position
+  string weights, the generic log partition through the float32 joint+head
+  kernels at 1025 states) against the same parameters through
+  ``JointWeightFn.label_weights`` (``fused='never'``: the same log
+  partition). Returns the joint+head (forward, backward) launches of the
+  user's loss."""
+  config = presets.gnat_global_bigram()
+
+  class UserWeightFn(weight_fns.WeightFn):
+    """``init`` and ``apply`` only: ``label_weights`` is the base's."""
+
+    def __init__(self, inner):
+      self.inner = inner
+
+    def init(self, generator, cache, frame):
+      return self.inner.init(generator, cache, frame)
+
+    def apply(self, params, cache, frame, state=None):
+      return self.inner.apply(params, cache, frame, state)
+
+  def make(weight_fn, fused):
+    return lattices.RecognitionLattice(
+        context=contexts.FullNGram(vocab_size=config.vocab_size,
+                                   context_size=1),
+        alignment=alignments.FrameLabelDependent(config.max_expansions),
+        weight_fn_cacher_factory=lambda ctx: weight_fns.SharedEmbCacher(
+            num_context_states=ctx.shape()[0],
+            embedding_size=config.embedding_size),
+        weight_fn_factory=lambda ctx: weight_fn, fused=fused)
+
+  joint = weight_fns.JointWeightFn(vocab_size=config.vocab_size,
+                                   hidden_size=config.hidden_size)
+  user = make(UserWeightFn(joint), 'auto')
+  reference = make(joint, 'never')
+  params = user.init(torch.Generator().manual_seed(18),
+                     feature_size=config.hidden_size, device='cuda')
+  leaves = [leaf.requires_grad_(True) for part in params.values()
+            for leaf in part.values()]
+  rng = np.random.default_rng(18)
+  max_t = max(USER_WF_FRAMES)
+  frames = torch.from_numpy(rand(rng, (len(USER_WF_FRAMES), max_t,
+                                       config.hidden_size))).cuda()
+  labels = torch.from_numpy(rng.integers(
+      1, config.vocab_size + 1,
+      size=(len(USER_WF_FRAMES), max(USER_WF_LABELS)))).cuda()
+  batch = (frames, torch.tensor(USER_WF_FRAMES, device='cuda'), labels,
+           torch.tensor(USER_WF_LABELS, device='cuda'))
+  reset_counts(joint_head, *modules)
+  (loss_u, grads_u), user_ms = timed(torch, lambda: loss_and_grads(
+      torch, leaves, lambda: user(params, *batch).mean()))
+  launched = counts(joint_head)
+  others = {k: v for m in modules if m is not joint_head
+            for k, v in counts(m).items() if v}
+  check(user.last_path == 'generic' and not others and
+        launched['forward_launches'] >= 1 and
+        launched['backward_launches'] >= 1,
+        f'the user WeightFn\'s loss: path {user.last_path!r}, joint+head '
+        f'{launched}, other kernels {others}')
+  (loss_r, grads_r), ref_ms = timed(torch, lambda: loss_and_grads(
+      torch, leaves, lambda: reference(params, *batch).mean()))
+  loss_rel = abs(loss_u - loss_r) / abs(loss_r)
+  largest = max(g.abs().max().item() for g in grads_r)
+  grad_err = max((a - b).abs().max().item()
+                 for a, b in zip(grads_u, grads_r)) / largest
+  check(np.isfinite(loss_u) and loss_rel <= F32_RTOL,
+        f'user WeightFn loss {loss_u} vs label_weights {loss_r}')
+  check(grad_err <= STEP_GRAD_RTOL,
+        f'user WeightFn gradients {grad_err:.3g} of the largest from '
+        'label_weights\'')
+  say('string-dp', f'user WeightFn (init / apply over JointWeightFn, '
+      f'FullNGram(1024, 1), FLD(2), float32) B={len(USER_WF_FRAMES)} '
+      f'T_max={max_t} U_max={max(USER_WF_LABELS)}: loss {loss_u:.8g} vs '
+      f'JointWeightFn.label_weights {loss_r:.8g} (rel {loss_rel:.2e}), '
+      f'gradients {grad_err:.2e} of the largest {largest:.3g}; loss+grad '
+      f'{user_ms:.1f} ms (generic per-position string weights) vs '
+      f'{ref_ms:.1f} ms; joint+head launches {launched}')
+  return launched['forward_launches'], launched['backward_launches']
+
+
+def phase_string_dp(torch, gnat, presets, lattices, contexts, alignments,
+                    weight_fns, numerator_scan, joint_head, semirings,
+                    modules, card):
+  """Phase 18: the string DP's closed form against its scan, and a user
+  ``WeightFn`` on the card. Returns {kernel counter: {path: launches}}."""
+  numerator, count = string_dp_routes(torch, gnat, presets, lattices,
+                                      numerator_scan, semirings, card)
+  torch.cuda.empty_cache()
+  user = user_weight_fn_check(torch, presets, lattices, contexts, alignments,
+                              weight_fns, joint_head, modules)
+  steps = f'hat_bigram train steps, string DP scan and closed form ({count})'
+
+  user_path = (f'user WeightFn loss (B={len(USER_WF_FRAMES)}, '
+               f'T={max(USER_WF_FRAMES)})')
+  return {'numerator forward_launches': {steps: numerator[0]},
+          'numerator backward_launches': {steps: numerator[1]},
+          'joint_head forward_launches': {user_path: user[0]},
+          'joint_head backward_launches': {user_path: user[1]}}
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -6564,7 +6833,17 @@ def main():
                                      joint_head, sharded_scan, sharding,
                                      pipeline, pytree)
   print(f'[model-parallel] {time.perf_counter() - t0:.1f} s', flush=True)
-  for launches in (seq_launches, mp_launches):
+
+  # Phase 18: the string DP's two routes and a user WeightFn.
+  t0 = time.perf_counter()
+  torch.cuda.empty_cache()
+  dp_launches = phase_string_dp(
+      torch, gnat, presets, lattices, contexts, alignments, weight_fns,
+      numerator_scan, joint_head, semirings, modules, card_line())
+  print(f'[string-dp] {time.perf_counter() - t0:.1f} s', flush=True)
+  by_counter.update({'numerator forward_launches': numerator_records[0],
+                     'numerator backward_launches': numerator_records[1]})
+  for launches in (seq_launches, mp_launches, dp_launches):
     for counter, paths in launches.items():
       record = by_counter[counter]
       for path, count in paths.items():

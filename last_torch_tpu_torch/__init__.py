@@ -38,8 +38,16 @@ entropy; online serving of a causal windowed encoder chunk by chunk
 (``models.encoder.StreamingEncoder``, banded offline attention) with the
 greedy and beam decoders of ``streaming``, and the trainer that feeds it
 (``models.train``, ``data``, ``utils``: checkpoints, prefetch, timers;
-gradient accumulation, the RNN context cacher). See ROADMAP.md for what
-follows.
+gradient accumulation, the RNN context cacher); training, decoding and
+alignment with the frames sharded over a time axis
+(``parallel.sequence``: the alpha relay between ranks, the log-partition
+kernels chained by their seeds); pipeline-parallel (GPipe) training
+(``parallel.pipeline``) and the Megatron-sharded encoder
+(``parallel.sharding.make_sharded_train_step``); and the public interfaces
+that users subclass, ``weight_fns.WeightFn``, ``weight_fns.WeightFnCacher``
+and ``alignments.TimeSyncAlignmentLattice``, with the closed-form string DP
+(``lattices.STRING_DP_CUMULATIVE``, off by default). See ROADMAP.md for
+what follows.
 """
 
 from last_torch_tpu_torch import alignments

@@ -14,8 +14,9 @@
 
 """Time-synchronous alignment lattices, PyTorch port.
 
-Counterpart of ``last_torch_tpu/alignments.py``: the frame-local structure
-of ``FrameDependent`` and ``FrameLabelDependent`` and their per-frame DP
+Counterpart of ``last_torch_tpu/alignments.py``: the interface
+``TimeSyncAlignmentLattice`` and the frame-local structure of
+``FrameDependent`` and ``FrameLabelDependent`` and their per-frame DP
 steps, ``forward`` and ``string_forward`` in any semiring (their values
 may be tuples, as the Expectation semiring's are) and ``backward`` (arc
 marginals) in the Log semiring, on tensors. ``blank`` and ``lexical`` are
@@ -24,13 +25,155 @@ sequences with one weight value per alignment state, as in the JAX package.
 
 from __future__ import annotations
 
+import abc
 from collections.abc import Sequence
 from typing import Optional
 
 import torch
 from torch.utils import _pytree as pytree
 
+from last_torch_tpu_torch import contexts
 from last_torch_tpu_torch import semirings
+
+
+class TimeSyncAlignmentLattice(abc.ABC):
+  r"""Interface for time synchronous alignment lattices.
+
+  Frame-dependent and k-constrained label-frame-dependent alignment lattices
+  are examples of time synchronous alignment lattices. See Sections 3 and 4
+  of the GNAT paper for details.
+
+  The alignment lattice is intersected with the context dependency to form
+  the topology of a recognition lattice;
+  ``last_torch_tpu_torch.RecognitionLattice`` carries out this intersection
+  on the fly with the help of the methods below.
+
+  A frame-local alignment lattice is an acyclic DFA with two input labels,
+  "lexical" and "blank", and a single final state f. Let Q be its states and
+  E its arcs; the time synchronous alignment lattice is the frame-local
+  lattice repeated num_frames times:
+  - States: {(t, a) | 0 <= t < num_frames, a in Q - {f}} U {(num_frames, s)}.
+  - Start state (0, s); final state (T, s).
+  - For any arc (a, y, b), b != f, in E, there is an arc ((t, a), y, (t, b)).
+  - For any arc (a, y, f) in E, there is an arc ((t, a), y, (t + 1, s)).
+  """
+
+  @abc.abstractmethod
+  def num_states(self) -> int:
+    """Number of non-final frame-local alignment states."""
+
+  @abc.abstractmethod
+  def start(self) -> int:
+    """Start state of the frame-local alignment lattice."""
+
+  @abc.abstractmethod
+  def blank_next(self, state: int) -> Optional[int]:
+    """Destination of the blank arc out of ``state``, if any.
+
+    Args:
+      state: Alignment state id, 0 <= state < num_alignment_states.
+
+    Returns:
+      None when ``state`` has no outgoing blank arc. A blank arc into the
+      final (frame-advancing) position is reported as the start state id;
+      any other destination is returned as-is.
+    """
+
+  @abc.abstractmethod
+  def lexical_next(self, state: int) -> Optional[int]:
+    """Next alignment state id when taking the lexical arc.
+
+    Args:
+      state: A state id in the range [0, num_alignment_states).
+
+    Returns:
+      None if there is no lexical arc leaving ``state``; the start state id
+      if the lexical arc leads to the final state; otherwise an ordinary
+      state id.
+    """
+
+  @abc.abstractmethod
+  def topological_visit(self) -> list[int]:
+    """Non-final frame-local alignment state ids in topological order."""
+
+  @abc.abstractmethod
+  def forward(self, alpha, blank: Sequence, lexical: Sequence,
+              context: contexts.ContextDependency,
+              semiring: semirings.Semiring):
+    """Processes one frame in the recognition lattice forward algorithm.
+
+    Args:
+      alpha: [batch_dims..., num_context_states] forward weights after
+        observing the previous frame.
+      blank: length num_alignment_states sequence of [batch_dims...,
+        num_context_states] blank weights for the current frame, one per
+        frame-local alignment state.
+      lexical: length num_alignment_states sequence of [batch_dims...,
+        num_context_states, vocab_size] lexical weights for the current
+        frame, one per frame-local alignment state.
+      context: Context dependency.
+      semiring: Semiring.
+
+    Returns:
+      [batch_dims..., num_context_states] forward weights after observing the
+      current frame.
+    """
+
+  @abc.abstractmethod
+  def backward(self, alpha, blank: Sequence, lexical: Sequence, beta, log_z,
+               context: contexts.ContextDependency):
+    """Processes one frame in the recognition lattice backward algorithm.
+
+    Computes backward weights and arc marginals under the Log semiring (the
+    marginal probability of taking each lexical or blank arc).
+
+    Args:
+      alpha: [batch_dims..., num_context_states] forward weights after
+        observing the previous frame.
+      blank: length num_alignment_states sequence of [batch_dims...,
+        num_context_states] blank weights for the current frame.
+      lexical: length num_alignment_states sequence of [batch_dims...,
+        num_context_states, vocab_size] lexical weights for the current
+        frame.
+      beta: [batch_dims..., num_context_states] backward weights after
+        observing the next frame.
+      log_z: [batch_dims...] the sum of weights of all accepting paths.
+      context: Context dependency.
+
+    Returns:
+      (next_beta, blank_marginal, lexical_marginal):
+      - next_beta: [batch_dims..., num_context_states] backward weights after
+        observing the current frame.
+      - blank_marginal: length num_alignment_states list of [batch_dims...,
+        num_context_states] marginals of blank arcs.
+      - lexical_marginal: length num_alignment_states list of [batch_dims...,
+        num_context_states, vocab_size] marginals of lexical arcs.
+    """
+
+  @abc.abstractmethod
+  def string_forward(self, alpha, blank: Sequence, lexical: Sequence,
+                     semiring: semirings.Semiring):
+    """One frame of the forward algorithm after intersection with a string.
+
+    The recognition lattice topology is the intersection of an alignment
+    lattice and the context dependency; intersecting with an output string
+    first reduces the context dependency to a simple chain of
+    ``output_length + 1`` states, so no context argument is needed.
+
+    Args:
+      alpha: [batch_dims..., output_length + 1] forward weights after
+        observing the previous frame.
+      blank: length num_alignment_states sequence of [batch_dims...,
+        output_length + 1] blank weights for the current frame.
+      lexical: length num_alignment_states sequence of [batch_dims...,
+        output_length + 1] lexical weights for the current frame (the weight
+        of producing the next needed label from each chain position).
+      semiring: Semiring.
+
+    Returns:
+      [batch_dims..., output_length + 1] forward weights after observing the
+      current frame.
+    """
 
 
 def shift_down(x, semiring: semirings.Semiring):
@@ -63,7 +206,7 @@ def check_num_weights(alignment, blank: Sequence, lexical: Sequence):
         f'but got length {len(lexical)}')
 
 
-class FrameDependent:
+class FrameDependent(TimeSyncAlignmentLattice):
   """Frame dependent alignment lattice.
 
   Each frame is aligned to either one lexical label or one blank label.
@@ -123,7 +266,7 @@ class FrameDependent:
         shift_down(semiring.times(alpha, lexical[0]), semiring))
 
 
-class FrameLabelDependent:
+class FrameLabelDependent(TimeSyncAlignmentLattice):
   """k-constrained frame-label-dependent alignment lattice.
 
   Each frame is aligned to up to k lexical labels followed by a blank label.

@@ -76,6 +76,24 @@ Params = dict[str, Any]
 # the Expectation semiring's, for path entropy). None means the identity.
 WeightLift = Optional[Callable[[torch.Tensor], Any]]
 
+# Route the Log-semiring string DP through its closed form
+# (``RecognitionLattice._string_dp_alpha_cumulative``): one affine time
+# recurrence per label position, solved with a cumsum and a cumulative
+# logsumexp over time, a loop over the U+1 label positions in place of the
+# loop over T frames. Off by default, as in the JAX package, which turned it
+# off on a TPU measurement (its ``lattices.py``): that verdict is the JAX
+# package's TPU figure, not one of this port. Its drift from a float64 scan
+# at T=1600 is held to the JAX package's own closed form
+# (``tests/test_torch_string_dp_cumulative.py``). It needs finite blank
+# weights: the closed form subtracts their cumulative sum.
+STRING_DP_CUMULATIVE = False
+
+# The closed form's structural-zero sentinel: far below any reachable path
+# weight but finite, so the cumulative sums and the logaddexp gradients stay
+# free of NaN; values at or below the cutoff come back as -inf.
+_DP_NEG = -1e30
+_DP_CUTOFF = -1e20
+
 # The sampler draws its Gumbel noise for this many frames at a time, and its
 # scoring evaluates at most about this many arc weights at once.
 _NOISE_FRAMES = 64
@@ -816,9 +834,12 @@ class RecognitionLattice:
                  t_offset: int = 0, final_gather: bool = True):
     """The (frame x label-position) recursion over precomputed weights.
 
-    The scan route of the JAX package (its closed-form cumulative route,
-    ``STRING_DP_CUMULATIVE``, is off there and is not ported), one step a
-    frame; ``weight_lift`` lifts each frame's weights into the semiring.
+    The scan route, one step a frame; ``weight_lift`` lifts each frame's
+    weights into the semiring. With ``STRING_DP_CUMULATIVE`` set, a
+    float32 Log-semiring DP over a ``FrameDependent`` or
+    ``FrameLabelDependent`` alignment takes the closed form instead
+    (``_string_dp_alpha_cumulative``, one step a label position), as in
+    the JAX package.
 
     ``alpha0`` / ``t_offset`` / ``final_gather`` run the recursion over one
     block of frames of a longer sequence (the time-sharded relay,
@@ -837,19 +858,113 @@ class RecognitionLattice:
       alpha = _init_context_state_weights(
           batch_dims, num_positions, 0, semiring,
           _lifted_dtype(lift, blank_weight), blank_weight.device)
-    for t in range(blank_weight.shape[0]):
-      next_alpha = self.alignment.string_forward(
-          alpha=alpha, blank=[lift(blank_weight[t])] * num_align_states,
-          lexical=[lift(lexical_weight[t])] * num_align_states,
-          semiring=semiring)
-      alpha = semirings.where((t_offset + t >= num_frames)[..., None],
-                              alpha, next_alpha)
+    if (STRING_DP_CUMULATIVE and weight_lift is None
+        and semiring is semirings.Log
+        and blank_weight.shape[0] > 0
+        and blank_weight.dtype == torch.float32
+        and isinstance(self.alignment, (alignments.FrameDependent,
+                                        alignments.FrameLabelDependent))):
+      alpha = self._string_dp_alpha_cumulative(
+          blank_weight, lexical_weight, num_frames, alpha, t_offset)
+    else:
+      for t in range(blank_weight.shape[0]):
+        next_alpha = self.alignment.string_forward(
+            alpha=alpha, blank=[lift(blank_weight[t])] * num_align_states,
+            lexical=[lift(lexical_weight[t])] * num_align_states,
+            semiring=semiring)
+        alpha = semirings.where((t_offset + t >= num_frames)[..., None],
+                                alpha, next_alpha)
     if not final_gather:
       return alpha
     is_final = num_labels[..., None] == torch.arange(
         num_positions, device=blank_weight.device)
     zero = semirings.zeros_like(semiring, alpha, ())
     return semiring.sum(semirings.where(is_final, alpha, zero), axis=-1)
+
+  def _string_dp_alpha_cumulative(self, blank_weight, lexical_weight,
+                                  num_frames, init_alpha, t_offset):
+    """The Log-semiring string DP in closed form, one label position at a
+    time.
+
+    For a fixed label position u the string DP's time recursion is a
+    first-order affine recurrence in the Log semiring::
+
+      x_u[t] = A[t] (x) x_u[t-1]  (+)  C[t, u]
+
+    with ``A[t] = blank[t, u]`` and ``C`` collecting the label arcs out of
+    positions u-1 .. u-k at frame t (FrameDependent: k = 1 and no trailing
+    blank; FrameLabelDependent(k): each expansion's chain of lexical
+    weights times the terminating blank, ``alignment.string_forward``
+    unrolled per position). Its closed form in log space is::
+
+      x_u = cumA + logaddexp(alpha0_u, logcumsumexp(C - cumA))
+
+    so the DP is a loop over the U+1 label positions, each a handful of
+    [batch..., T] cumulative ops, instead of a loop over the T frames.
+    Structural zeros ride the finite sentinel ``_DP_NEG`` (the closed form
+    subtracts cumA, so blank weights must be finite) and are restored to
+    -inf past ``_DP_CUTOFF``, which keeps an infeasible string's weight
+    exactly -inf. Padded frames multiply by one (blank 0, lexical zero),
+    as the scan's ``where(is_padding, alpha, ...)`` does.
+
+    It computes in float64 and returns the weights' dtype. The closed form
+    subtracts and re-adds cumA, |cumA| reaching ~1e3 nats at T=1600, so
+    its cumulative ops need more than float32: PyTorch's CPU scans
+    accumulate float32 in float64, but its CUDA scans accumulate in
+    float32, and there, on an H100, the float32 closed form's gradients
+    drifted 1e-3 of the largest from a float64 scan at the HAT training
+    shape (``chip_smoke.py`` phase 18).
+
+    Args:
+      blank_weight, lexical_weight: time-major [T, batch_dims..., U+1], as
+        ``_string_dp``.
+      num_frames: [batch_dims...] lengths.
+      init_alpha: [batch_dims..., U+1] carry before the first frame.
+      t_offset: global index of frame 0 (the time-sharded relay's blocks).
+
+    Returns:
+      [batch_dims..., U+1] final carry, the scan's up to rounding.
+    """
+    neg = _DP_NEG
+    dtype = blank_weight.dtype
+    blank_weight, lexical_weight, init_alpha = (
+        x.double() for x in (blank_weight, lexical_weight, init_alpha))
+    max_t = blank_weight.shape[0]
+    frame = t_offset + torch.arange(max_t, device=blank_weight.device)
+    is_pad = frame >= num_frames[..., None]  # [batch..., T]
+    fld = isinstance(self.alignment, alignments.FrameLabelDependent)
+    k = self.alignment.max_expansions if fld else 1
+    # Label-position-major with time innermost, [U+1, batch..., T]: the
+    # cumulative ops then scan contiguous rows, which the card runs in
+    # parallel (along an outer axis each column is one thread's loop).
+    columns = lambda x: x.movedim(0, -1).movedim(-2, 0)
+    blank = torch.where(is_pad, 0.0, columns(blank_weight)).contiguous()
+    lexical = torch.where(is_pad, neg, columns(lexical_weight)).clamp(
+        min=neg).contiguous()
+    alpha0 = init_alpha.clamp(min=neg).movedim(-1, 0)[..., None]
+    # The last k positions' rows over time, nearest first.
+    previous, finals = [], []
+    for u in range(blank.shape[0]):
+      cum_a = torch.cumsum(blank[u], dim=-1)
+      chain, arcs = 0.0, None
+      # Positions before 0 carry only the sentinel and add nothing.
+      for e in range(1, min(k, u) + 1):
+        chain = chain + lexical[u - e]
+        # x_{u-e} one frame back, alpha0 before the first frame.
+        shifted = torch.cat([alpha0[u - e], previous[e - 1][..., :-1]],
+                            dim=-1)
+        term = shifted + chain
+        arcs = term if arcs is None else torch.logaddexp(arcs, term)
+      if arcs is None:
+        c = torch.full_like(cum_a, neg)
+      else:
+        c = (blank[u] + arcs if fld else arcs).clamp(min=neg)
+      m = torch.logcumsumexp(c - cum_a, dim=-1)
+      x_u = (cum_a + torch.logaddexp(alpha0[u], m)).clamp(min=neg)
+      previous = [x_u] + previous[:k - 1]
+      finals.append(x_u[..., -1])
+    alpha = torch.stack(finals, dim=-1)
+    return torch.where(alpha <= _DP_CUTOFF, -math.inf, alpha).to(dtype)
 
   def _s1_route(self, frames) -> bool:
     """Whether the factorized single-context-state route applies: S == 1,

@@ -14,7 +14,11 @@
 
 """Weight functions (neural arc weights), PyTorch port.
 
-Counterpart of ``last_torch_tpu/weight_fns.py``: ``JointWeightFn`` and
+Counterpart of ``last_torch_tpu/weight_fns.py``: the interfaces
+``WeightFn`` and ``WeightFnCacher`` that every weight function and cacher
+subclasses (a user's own too: one that defines only ``init`` / ``apply``
+inherits ``label_weights``, which returns None, and gets its string weights
+from the lattice's generic per-position route); ``JointWeightFn`` and
 ``SharedEmbCacher``, with parameters as plain dictionaries of tensors laid
 out exactly as the JAX pytrees (so ``convert.from_jax_params`` maps one onto
 the other), and ``JointWeightFn.label_weights``, the numerator's
@@ -35,9 +39,10 @@ take ``SharedEmbCacher``'s.
 
 from __future__ import annotations
 
+import abc
 import dataclasses
 from collections.abc import Callable
-from typing import Any, Optional
+from typing import Any, Generic, Optional, TypeVar
 
 import torch
 import torch.utils.checkpoint
@@ -48,11 +53,102 @@ from last_torch_tpu_torch import initializers
 from last_torch_tpu_torch.ops import joint_head, numerator_scan
 from last_torch_tpu_torch.utils import rnn
 
+T = TypeVar('T')
 Params = dict[str, Any]
 
 
+class WeightFn(abc.ABC, Generic[T]):
+  """Interface for weight functions, the neural arc-weight producers.
+
+  Given one input frame (and optionally one context state), a WeightFn
+  emits the blank and lexical arc weights that the lattice DPs consume.
+  Each WeightFn is paired with a WeightFnCacher that supplies its
+  frame-independent data (e.g. ``JointWeightFn`` with ``SharedEmbCacher``
+  or ``SharedRNNCacher``).
+  """
+
+  @abc.abstractmethod
+  def init(self, generator: torch.Generator, cache: T,
+           frame: torch.Tensor) -> Params:
+    """Creates the parameters, drawn from ``generator``, given example
+    cache and frame inputs (on their device)."""
+
+  @abc.abstractmethod
+  def apply(self, params: Params, cache: T, frame: torch.Tensor,
+            state: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Computes arc weights for a given frame.
+
+    Args:
+      params: Parameters from ``init``.
+      cache: Cached data from the corresponding WeightFnCacher.
+      frame: [batch_dims..., feature_size] input frame.
+      state: None or an int tensor broadcastable to [batch_dims...]. If
+        None, compute arc weights for all context states. Otherwise,
+        compute arc weights for the specified context state.
+
+    Returns:
+      (blank, lexical) tuple.
+
+      If state is None:
+      - blank: [batch_dims..., num_context_states] blank arc weights.
+      - lexical: [batch_dims..., num_context_states, vocab_size] lexical
+        arc weights; lexical[..., p, y] is the weight of label y+1 from
+        state p.
+
+      If state is not None:
+      - blank: [batch_dims...] blank arc weights from ``state``.
+      - lexical: [batch_dims..., vocab_size] lexical arc weights.
+    """
+
+  def __call__(self, params, cache, frame, state=None):
+    return self.apply(params, cache, frame, state)
+
+  def label_weights(self, params, cache, frames, states, next_labels):
+    """Optional fast path for string-intersection weights.
+
+    Computes, for every (label position u, frame t), the blank weight and
+    the lexical weight of ONE specific label, the quantities that the
+    numerator's string DP needs (``RecognitionLattice._string_forward``).
+    An implementation can avoid forming the full [*, T, vocab_size]
+    lexical tensor per position (e.g. by gathering the needed vocab-head
+    column before the joint contraction).
+
+    Args:
+      params: Parameters.
+      cache: Cache data.
+      frames: [batch_dims..., max_num_frames, feature_size] frames.
+      states: [batch_dims..., num_positions] int context states.
+      next_labels: [batch_dims..., num_positions] int labels in
+        [0, vocab_size]; position weights for label 0 may be arbitrary
+        (they are masked out downstream).
+
+    Returns:
+      None (no fast path; the caller takes the generic route), or (blank,
+      lexical), each [batch_dims..., num_positions, max_num_frames].
+    """
+    del params, cache, frames, states, next_labels
+    return None
+
+
+class WeightFnCacher(abc.ABC, Generic[T]):
+  """Interface for weight function cachers."""
+
+  @abc.abstractmethod
+  def init(self, generator: torch.Generator, device='cuda') -> Params:
+    """Creates the parameters on ``device``: the card unless the caller
+    asks for 'cpu'."""
+
+  @abc.abstractmethod
+  def apply(self, params: Params) -> T:
+    """Builds the cached data (tensors, or None; never a module)."""
+
+  def __call__(self, params):
+    return self.apply(params)
+
+
 @dataclasses.dataclass(frozen=True)
-class JointWeightFn:
+class JointWeightFn(WeightFn[torch.Tensor]):
   r"""Joint network over context embeddings and frames.
 
   ``blank, lexical = heads(tanh(cache @ context_proj + frame @ frame_proj))``
@@ -230,7 +326,7 @@ def log_softmax_normalize(blank: torch.Tensor, lexical: torch.Tensor
   return all_weights[..., 0], all_weights[..., 1:]
 
 
-class LocallyNormalizedWeightFn:
+class LocallyNormalizedWeightFn(WeightFn[T]):
   """Wraps a weight function into a locally normalized one.
 
   The type is load-bearing: ``RecognitionLattice.loss`` skips the
@@ -290,7 +386,7 @@ class LocallyNormalizedWeightFn:
 
 
 @dataclasses.dataclass(frozen=True)
-class SharedEmbCacher:
+class SharedEmbCacher(WeightFnCacher[torch.Tensor]):
   """A learned, independent per-state context embedding table.
 
   Attributes:
@@ -315,7 +411,7 @@ class SharedEmbCacher:
     return params['embedding']
 
 
-class SharedRNNCacher:
+class SharedRNNCacher(WeightFnCacher[torch.Tensor]):
   """Builds a context embedding table by running n-gram labels through an RNN.
 
   For a ``FullNGram`` context, whose ``num_context_states = sum(vocab_size**i
@@ -372,7 +468,7 @@ class SharedRNNCacher:
     return torch.cat(parts, dim=0)
 
 
-class NullCacher:
+class NullCacher(WeightFnCacher[type(None)]):
   """A cacher that returns None: the cache of ``TableWeightFn``."""
 
   def init(self, generator: torch.Generator, device='cuda') -> Params:
@@ -384,7 +480,7 @@ class NullCacher:
     return None
 
 
-class TableWeightFn:
+class TableWeightFn(WeightFn[type(None)]):
   """Weight function that looks up a fixed table; for tests.
 
   Attributes:

@@ -8,9 +8,8 @@ parameters to rtol 1e-5 / atol 1e-7); ``label_accuracy`` and
 port alone on the CPU: ``prefetch_to_device`` (order, error propagation,
 early close), ``CheckpointManager`` (a bit-exact round trip of parameters,
 AdamW moments, schedule and accumulated gradients; retention), ``train``
-resumed after 2 steps against 4 straight steps (bit-exact), the
-``NotImplementedError`` where the JAX package falls back to its
-auto-partitioned step, and the timer's keys; the three examples
+resumed after 2 steps against 4 straight steps (bit-exact), and the
+timer's keys; the three examples
 (``examples/*_torch.py``: serving, the full pipeline, MWER) for a few steps
 on the CPU. The tensor-parallel ``train`` runs on two gloo ranks in
 ``tests/test_torch_parallel.py``.
