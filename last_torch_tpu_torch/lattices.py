@@ -70,6 +70,7 @@ from last_torch_tpu_torch import weight_fns
 from last_torch_tpu_torch.ops import fused_scan
 from last_torch_tpu_torch.ops import trigram_scan
 from last_torch_tpu_torch.ops import viterbi
+from last_torch_tpu_torch.utils import profiling
 
 Params = dict[str, Any]
 # Lifts plain arc weight tensors into semiring values (tuple-valued ones, e.g.
@@ -191,7 +192,8 @@ class RecognitionLattice:
 
   def build_cache(self, params: Params) -> torch.Tensor:
     """The frame-independent weight function cache."""
-    return self.weight_fn_cacher.apply(params['cacher'])
+    with profiling.span('lattice.cache'):
+      return self.weight_fn_cacher.apply(params['cacher'])
 
   def __call__(self, params, frames, num_frames, labels, num_labels,
                cache=None):

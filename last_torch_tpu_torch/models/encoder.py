@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from last_torch_tpu_torch import initializers
+from last_torch_tpu_torch.utils import profiling
 
 Params = dict[str, Any]
 
@@ -315,16 +316,17 @@ class TransformerEncoder:
             model_sum=None) -> torch.Tensor:
     """Encodes [batch, T, feature] frames to [batch, T, model_size];
     ``heads`` and ``model_sum`` as ``_layer``'s."""
-    max_t = frames.shape[-2]
-    mask = (torch.arange(max_t, device=frames.device) <
-            num_frames[..., None])  # [batch, T]
-    x = self.embed(params['input_proj'], frames)
-    use_banded, attn_bias = self.attention_inputs(mask)
-    for layer in params['layers']:
-      x = self.block(layer, x, mask, attn_bias, use_banded, heads=heads,
-                     model_sum=model_sum)
-    return self.finalize(params['final_ln_scale'], params['final_ln_bias'],
-                         x, mask)
+    with profiling.span('encoder.apply'):
+      max_t = frames.shape[-2]
+      mask = (torch.arange(max_t, device=frames.device) <
+              num_frames[..., None])  # [batch, T]
+      x = self.embed(params['input_proj'], frames)
+      use_banded, attn_bias = self.attention_inputs(mask)
+      for layer in params['layers']:
+        x = self.block(layer, x, mask, attn_bias, use_banded, heads=heads,
+                       model_sum=model_sum)
+      return self.finalize(params['final_ln_scale'],
+                           params['final_ln_bias'], x, mask)
 
 
 def _sinusoidal_positions_at(position: torch.Tensor, dim: int

@@ -38,6 +38,7 @@ from last_torch_tpu_torch import contexts
 from last_torch_tpu_torch import lattices
 from last_torch_tpu_torch import weight_fns
 from last_torch_tpu_torch.models import encoder as encoder_lib
+from last_torch_tpu_torch.utils import profiling
 
 Params = dict[str, Any]
 
@@ -199,11 +200,13 @@ class GNATModel:
       (alignment_labels, num_alignment_labels, path_weights); see
       ``RecognitionLattice.shortest_path``.
     """
-    frames = torch.as_tensor(frames, dtype=torch.float32, device=self.device)
-    num_frames = torch.as_tensor(num_frames, device=self.device)
-    encoded = self.encoder.apply(params['encoder'], frames, num_frames)
-    return self.lattice.shortest_path(
-        params['lattice'], frames=encoded, num_frames=num_frames)
+    with profiling.span('gnat.decode'):
+      frames = torch.as_tensor(frames, dtype=torch.float32,
+                               device=self.device)
+      num_frames = torch.as_tensor(num_frames, device=self.device)
+      encoded = self.encoder.apply(params['encoder'], frames, num_frames)
+      return self.lattice.shortest_path(
+          params['lattice'], frames=encoded, num_frames=num_frames)
 
 
 @dataclasses.dataclass

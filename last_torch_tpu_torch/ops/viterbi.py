@@ -42,6 +42,7 @@ from typing import Any, Optional
 import torch
 
 from last_torch_tpu_torch.ops import fused_scan, joint_head
+from last_torch_tpu_torch.utils import profiling
 
 # Forward calls that launched the CUDA kernel, for runs that must show the
 # decode went through it. Only ``viterbi_forward`` on a CUDA tensor counts.
@@ -121,83 +122,85 @@ def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
     kernel computed it anyway, the kernel here skips their work).
   """
   global launches
-  fused_scan.check_inputs(pf, pc, params, is_pad, compute_dtype, 'Viterbi')
-  if normalize not in NORMALIZE_CODES:
-    raise ValueError(f'normalize must be one of {tuple(NORMALIZE_CODES)}, '
-                     f'got {normalize!r}')
-  if pf.device.type == 'cpu':
-    return viterbi_forward_plain(
-        pf, pc, params, is_pad, max_expansions=max_expansions,
-        frame_dependent=frame_dependent, compute_dtype=compute_dtype,
-        normalize=normalize)
-  if pf.device.type != 'cuda':
-    raise ValueError(f'no Viterbi kernel for device {pf.device}')
+  with profiling.span('viterbi.forward'):
+    fused_scan.check_inputs(pf, pc, params, is_pad, compute_dtype, 'Viterbi')
+    if normalize not in NORMALIZE_CODES:
+      raise ValueError(f'normalize must be one of {tuple(NORMALIZE_CODES)}, '
+                       f'got {normalize!r}')
+    if pf.device.type == 'cpu':
+      return viterbi_forward_plain(
+          pf, pc, params, is_pad, max_expansions=max_expansions,
+          frame_dependent=frame_dependent, compute_dtype=compute_dtype,
+          normalize=normalize)
+    if pf.device.type != 'cuda':
+      raise ValueError(f'no Viterbi kernel for device {pf.device}')
 
-  lib = library()
-  max_t, batch, hidden = pf.shape
-  num_states = pc.shape[0]
-  vocab = params['vocab_w'].shape[-1]
-  k = num_tables(max_expansions, frame_dependent)
-  device = pf.device
-  pad = is_pad.to(torch.int32)
-  vw, bw = params['vocab_w'], params['blank_w']  # float32 on both routes
-  if compute_dtype == torch.bfloat16:
-    # The products of csrc/head_product.cuh on wgmma over each frame's live
-    # rows: counted on the host (one synchronisation per call) and listed
-    # first on the device.
-    rplan = joint_head.reduce_plan(batch, num_states, hidden, vocab,
-                                   joint_head.sm_count(device))
-    buf = {name: torch.empty(shape, dtype=dtype, device=device)
-           for name, (shape, dtype) in forward_scratch(
-               batch, num_states, hidden, vocab, rplan, k, normalize).items()}
-    joint = buf['joint']
-    splits = ysplits = 0
-    live, rows = fused_scan.live_rows(is_pad)
-    route_args = (_ptr(live), _ptr(rows), _ptr(buf['vocab_w']),
-                  rplan.max_blocks)
-  else:
-    joint = torch.empty((batch, num_states, hidden), device=device)
-    # With two or more max-passes per frame the first stages the frame's
-    # lexical scores for the others; with normalization the normalizing
-    # pass stages them for every max-pass.
-    buf = {}
-    if k >= 2 or normalize != 'none':
-      buf['lex'] = torch.empty((batch, num_states, vocab), device=device)
-    strips = -(-vocab // _LABELS_PER_BLOCK)
-    tiles = -(-num_states // _STATES_PER_TILE)
-    splits = fused_scan.grid_splits(strips * batch, tiles, device)
-    ysplits = fused_scan.grid_splits(tiles * batch, strips, device)
-    buf['part_v'] = torch.empty((splits, batch, vocab), device=device)
-    buf['part_s'] = torch.empty((splits, batch, vocab), dtype=torch.int32,
-                                device=device)
-    if normalize != 'none':
-      for name in ('part_m', 'part_l'):
-        buf[name] = torch.empty((ysplits, batch, num_states), device=device)
-      buf['cnorm'] = torch.empty((batch, num_states), device=device)
-    route_args = (None, None, None, 0)
-  blank = torch.empty((batch, num_states), device=device)
-  last = torch.empty((k, batch, num_states), device=device)
-  alpha = torch.full((2, batch, num_states), float('-inf'), device=device)
-  alpha[0, :, 0] = 0.0
-  arg = torch.empty((max_t, batch, k, vocab), dtype=torch.int32,
-                    device=device)
-  jstar = torch.empty((max_t, batch, num_states), dtype=torch.int32,
+    lib = library()
+    max_t, batch, hidden = pf.shape
+    num_states = pc.shape[0]
+    vocab = params['vocab_w'].shape[-1]
+    k = num_tables(max_expansions, frame_dependent)
+    device = pf.device
+    pad = is_pad.to(torch.int32)
+    vw, bw = params['vocab_w'], params['blank_w']  # float32 on both routes
+    if compute_dtype == torch.bfloat16:
+      # The products of csrc/head_product.cuh on wgmma over each frame's live
+      # rows: counted on the host (one synchronisation per call) and listed
+      # first on the device.
+      rplan = joint_head.reduce_plan(batch, num_states, hidden, vocab,
+                                     joint_head.sm_count(device))
+      buf = {name: torch.empty(shape, dtype=dtype, device=device)
+             for name, (shape, dtype) in forward_scratch(
+                 batch, num_states, hidden, vocab, rplan, k, normalize).items()}
+      joint = buf['joint']
+      splits = ysplits = 0
+      live, rows = fused_scan.live_rows(is_pad)
+      route_args = (_ptr(live), _ptr(rows), _ptr(buf['vocab_w']),
+                    rplan.max_blocks)
+    else:
+      joint = torch.empty((batch, num_states, hidden), device=device)
+      # With two or more max-passes per frame the first stages the frame's
+      # lexical scores for the others; with normalization the normalizing
+      # pass stages them for every max-pass.
+      buf = {}
+      if k >= 2 or normalize != 'none':
+        buf['lex'] = torch.empty((batch, num_states, vocab), device=device)
+      strips = -(-vocab // _LABELS_PER_BLOCK)
+      tiles = -(-num_states // _STATES_PER_TILE)
+      splits = fused_scan.grid_splits(strips * batch, tiles, device)
+      ysplits = fused_scan.grid_splits(tiles * batch, strips, device)
+      buf['part_v'] = torch.empty((splits, batch, vocab), device=device)
+      buf['part_s'] = torch.empty((splits, batch, vocab), dtype=torch.int32,
+                                  device=device)
+      if normalize != 'none':
+        for name in ('part_m', 'part_l'):
+          buf[name] = torch.empty((ysplits, batch, num_states), device=device)
+        buf['cnorm'] = torch.empty((batch, num_states), device=device)
+      route_args = (None, None, None, 0)
+    blank = torch.empty((batch, num_states), device=device)
+    last = torch.empty((k, batch, num_states), device=device)
+    alpha = torch.full((2, batch, num_states), float('-inf'), device=device)
+    alpha[0, :, 0] = 0.0
+    arg = torch.empty((max_t, batch, k, vocab), dtype=torch.int32,
                       device=device)
-  with torch.cuda.device(device):
-    stream = torch.cuda.current_stream(device).cuda_stream
-    status = lib.viterbi_forward(
-        _DTYPE_CODES[compute_dtype], _ptr(pf), _ptr(pc), _ptr(vw),
-        _ptr(params['vocab_b']), _ptr(bw), _ptr(params['blank_b']),
-        _ptr(pad), _ptr(joint), _ptr(blank), *(_ptr(buf.get(name)) for name in (
-            'lex', 'part_v', 'part_s', 'part_m', 'part_l', 'cnorm')),
-        _ptr(last), _ptr(alpha), _ptr(arg), _ptr(jstar), max_t, batch,
-        num_states, hidden, vocab, max_expansions, int(frame_dependent),
-        NORMALIZE_CODES[normalize], splits, ysplits, *route_args, stream)
-  if status != 0:
-    raise RuntimeError('Viterbi kernel launch failed: '
-                       f'{lib.viterbi_error_string(status).decode()}')
-  launches += 1
-  return arg, jstar, alpha[max_t % 2]
+    jstar = torch.empty((max_t, batch, num_states), dtype=torch.int32,
+                        device=device)
+    with torch.cuda.device(device):
+      stream = torch.cuda.current_stream(device).cuda_stream
+      status = lib.viterbi_forward(
+          _DTYPE_CODES[compute_dtype], _ptr(pf), _ptr(pc), _ptr(vw),
+          _ptr(params['vocab_b']), _ptr(bw), _ptr(params['blank_b']),
+          _ptr(pad), _ptr(joint), _ptr(blank),
+          *(_ptr(buf.get(name)) for name in (
+              'lex', 'part_v', 'part_s', 'part_m', 'part_l', 'cnorm')),
+          _ptr(last), _ptr(alpha), _ptr(arg), _ptr(jstar), max_t, batch,
+          num_states, hidden, vocab, max_expansions, int(frame_dependent),
+          NORMALIZE_CODES[normalize], splits, ysplits, *route_args, stream)
+    if status != 0:
+      raise RuntimeError('Viterbi kernel launch failed: '
+                         f'{lib.viterbi_error_string(status).decode()}')
+    launches += 1
+    return arg, jstar, alpha[max_t % 2]
 
 
 def library() -> ctypes.CDLL:
@@ -307,33 +310,34 @@ def backtrace(arg: torch.Tensor, jstar: torch.Tensor, alpha: torch.Tensor,
     label slots per frame: expansions 1..k, then the trailing blank (FLD),
     or the single slot (FD).
   """
-  max_t, batch, num_states = jstar.shape
-  path_weights, q = torch.max(alpha, dim=-1)  # q: first argmax, as JAX
-  steps = 1 if frame_dependent else max_expansions
-  real = ~is_pad[:, :, None]
-  # start[t, b, q]: the state frame t began in, given it ended in q.
-  start = torch.arange(num_states, device=alpha.device).expand(
-      max_t, batch, num_states)
-  slots = []
-  for i in range(steps, 0, -1):
-    active = (jstar >= i) & real
-    # Bigram: the label that enters state q (q in 1..V) is q itself.
-    slots.append(torch.where(active, start, 0).to(torch.int32))
-    src = arg[:, :, i - 1].gather(2, (start - 1).clamp(min=0))
-    start = torch.where(active, src.long(), start)
-  slots.reverse()  # slot order: expansion 1..k, then the trailing blank
-  if not frame_dependent:
-    slots.append(torch.zeros_like(start, dtype=torch.int32))
-  table = torch.stack(slots, dim=-1)  # [T, B, S, A]
+  with profiling.span('viterbi.backtrace'):
+    max_t, batch, num_states = jstar.shape
+    path_weights, q = torch.max(alpha, dim=-1)  # q: first argmax, as JAX
+    steps = 1 if frame_dependent else max_expansions
+    real = ~is_pad[:, :, None]
+    # start[t, b, q]: the state frame t began in, given it ended in q.
+    start = torch.arange(num_states, device=alpha.device).expand(
+        max_t, batch, num_states)
+    slots = []
+    for i in range(steps, 0, -1):
+      active = (jstar >= i) & real
+      # Bigram: the label that enters state q (q in 1..V) is q itself.
+      slots.append(torch.where(active, start, 0).to(torch.int32))
+      src = arg[:, :, i - 1].gather(2, (start - 1).clamp(min=0))
+      start = torch.where(active, src.long(), start)
+    slots.reverse()  # slot order: expansion 1..k, then the trailing blank
+    if not frame_dependent:
+      slots.append(torch.zeros_like(start, dtype=torch.int32))
+    table = torch.stack(slots, dim=-1)  # [T, B, S, A]
 
-  ends = []  # the state each frame ended in, last frame first
-  for t in range(max_t - 1, -1, -1):
-    ends.append(q)
-    q = start[t].gather(1, q[:, None])[:, 0]
-  ends = torch.stack(ends[::-1]) if ends else q.new_zeros((0, batch))
-  labels = table.gather(
-      2, ends[:, :, None, None].expand(-1, -1, 1, table.shape[-1]))[:, :, 0]
-  return labels.transpose(0, 1).reshape(batch, -1), path_weights
+    ends = []  # the state each frame ended in, last frame first
+    for t in range(max_t - 1, -1, -1):
+      ends.append(q)
+      q = start[t].gather(1, q[:, None])[:, 0]
+    ends = torch.stack(ends[::-1]) if ends else q.new_zeros((0, batch))
+    labels = table.gather(
+        2, ends[:, :, None, None].expand(-1, -1, 1, table.shape[-1]))[:, :, 0]
+    return labels.transpose(0, 1).reshape(batch, -1), path_weights
 
 
 def viterbi_decode(wf_params: dict[str, Any], cache: torch.Tensor,
@@ -352,11 +356,12 @@ def viterbi_decode(wf_params: dict[str, Any], cache: torch.Tensor,
     path_weights [B] float32).
   """
   max_t = frames.shape[1]
-  pf = torch.einsum('btf,fh->tbh', frames,
-                    wf_params['frame_proj']).contiguous()
-  pc = (cache @ wf_params['context_proj']).contiguous()
-  is_pad = (torch.arange(max_t, device=frames.device)[:, None] >=
-            num_frames[None, :])
+  with profiling.span('viterbi.project'):
+    pf = torch.einsum('btf,fh->tbh', frames,
+                      wf_params['frame_proj']).contiguous()
+    pc = (cache @ wf_params['context_proj']).contiguous()
+    is_pad = (torch.arange(max_t, device=frames.device)[:, None] >=
+              num_frames[None, :])
   arg, jstar, alpha = forward(
       pf, pc, wf_params, is_pad, max_expansions=max_expansions,
       frame_dependent=frame_dependent, compute_dtype=compute_dtype,

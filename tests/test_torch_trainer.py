@@ -319,7 +319,7 @@ def test_train_resume_equals_straight_steps(tmp_path):
 
 def test_trace_writes_a_chrome_trace(tmp_path):
   with profiling.trace(str(tmp_path)):
-    with profiling.named_scope('scope'):
+    with profiling.span('scope'):
       torch.ones(8).sum()
   traces = list(tmp_path.glob('*.json'))
   assert len(traces) == 1 and 'scope' in traces[0].read_text()
