@@ -25,13 +25,27 @@
 //   Vp] (zero past h and V) from the float32 head.
 // * The products run on wgmma_tiles.cuh's machinery (m64n128k16 from
 //   128-byte-swizzled shared memory, one producer thread streaming 64-deep
-//   stages through a 3-stage mbarrier ring) with two consumer warpgroups
-//   that share each stage's head boxes: a block's tile is two 64-row units
-//   by a 128-label strip, which reads 256 KB of operands from the L2 cache
-//   at h=512 where a lone 64-row unit reads 192 KB for half the work. Each
-//   runs as a persistent grid: each of at most two blocks an SM walks over
-//   output tiles, the ring loading the next tile's stages while the
-//   warpgroups run the last one's epilogue.
+//   stages through an mbarrier ring) with two consumer warpgroups: a
+//   block's tile is two 64-row units by a 128-label strip. Each runs as a
+//   persistent grid, in one of two walks over the output tiles:
+//   - the pair walk (PairWalk): each of at most two blocks an SM takes the
+//     tiles i, i + grid, ... (the 8 strips of a unit pair on neighbouring
+//     blocks), streaming each tile's two joint boxes and the strip's two
+//     head boxes at each of the 8 depth stages: 256 KB from the L2 cache a
+//     tile at h=512, reused for 16.8 MFLOP; the other block of the SM runs
+//     its products under one block's epilogue.
+//   - the strip-stationary walk (StripWalk, the Viterbi's two products
+//     where the strip fits, hp <= 576): one block an SM owns one 128-label
+//     strip for the launch, loads it once (hp x 128 bfloat16, 128 KB at
+//     h=512) and streams only the joint, 128 KB a tile, in 8 KB boxes
+//     through an 8-stage ring. The lanes of all strips walk the unit pairs
+//     in one order at one pace (lane j takes the pairs j, j + lanes, ...),
+//     so each pair's joint comes from device memory once and from the L2
+//     cache for the other strips: at B=384 a frame's joint is 403 MB and
+//     its lex 1.61 GB, far past the 50 MB L2. The two warpgroups take the
+//     pair's two units in ping-pong, each starting its products once the
+//     other has issued its own, so one's epilogue runs under the other's
+//     products.
 // * head_product_kernel (the joint+head forward) stores lex [B S, V] in
 //   float32: 16 bytes a thread from registers where V is a multiple of 4,
 //   else through a per-warp shared-memory scratch, with the streaming hint.
@@ -44,7 +58,8 @@
 //   pairing the halves of one row's 128-state tile measured 0.8-1.8% slower
 //   (PERF.md). Each may also store lex (float32 [B, S, V]) for a caller's
 //   later passes. Their epilogues:
-//   - column_reduce_kernel (the two lattice forwards): each warpgroup adds
+//   - column_reduce_kernel (the two lattice forwards, on the pair walk):
+//     each warpgroup adds
 //     vb[y] and vec[b, s] to its unit and reduces every column over the
 //     unit's states to one online (max, sum) pair: over the thread's two
 //     rows in registers, over the 8 lanes that hold a column by a
@@ -53,10 +68,11 @@
 //     V], owned by one block (no atomics, deterministic); a merge launch of
 //     the caller combines them. Rows past S and states whose vec is -inf
 //     add nothing; labels past V are never written.
-//   - column_max_kernel (the Viterbi forward's max-pass): the same path
-//     with (max, lowest argmax) pairs in the Viterbi order, into part_v /
-//     part_s.
-//   - row_reduce_kernel (the Viterbi forward's local normalization): lex
+//   - column_max_kernel (the Viterbi forward's max-pass, on either walk):
+//     the same path with (max, lowest argmax) pairs in the Viterbi order,
+//     into part_v / part_s.
+//   - row_reduce_kernel (the Viterbi forward's local normalization, on
+//     either walk): lex
 //     stored, and each row reduced over the strip's labels to one (max,
 //     sum) pair, in registers and over the 4 lanes that share the row, into
 //     part_m / part_l [ceil(Vp / 128), B, S].
@@ -421,10 +437,6 @@ cudaError_t store_product(const bf16* joint, const bf16* vw16,
 // Products over the live rows' 64-state units: the lattice forwards and the
 // Viterbi forward.
 
-// Epilogue scratch: per warpgroup and warp a row of kBN pairs (float32
-// and float32, or float32 and int).
-constexpr int kReduceScratch = kGroups * 4 * 2 * kBN * 4;
-constexpr int kReduceSmem = kRingBytes + kReduceScratch;
 
 // Output tiles: pairs of 64-state units by 128-label strips.
 __host__ __device__ __forceinline__ int reduce_tiles(int live, int S,
@@ -499,20 +511,254 @@ __device__ __forceinline__ void store_lex(float* lex, size_t row0,
   }
 }
 
-// The launch of a unit product on at most max_blocks persistent blocks (no
-// launch without live rows). joint is [B, S, hp], vw16 [hp, Vp].
-template <auto Kernel, class P>
+// Epilogue scratch: per warpgroup and warp a row of kBN pairs (float32
+// and float32, or float32 and int).
+constexpr int kReduceScratch = kGroups * 4 * 2 * kBN * 4;
+
+// The two walks of a unit product's tiles. Each kernel builds its Walk's
+// ring over its dynamic shared memory (ring(raw, kts)), runs produce on the
+// producer thread and compute on the two consumer warpgroups. compute hands
+// each warpgroup its units u (unit 2 pair + group of each pair): fetch(u),
+// what the epilogue reads of the unit besides the product, then
+// epilogue(fetched, n0, acc) with the unit's sum by the strip at label n0.
+//
+// The pair walk: tile t = blockIdx.x + i gridDim.x is the unit pair t /
+// strips by strip t % strips, a ring of 32 KB stages (both units' boxes and
+// the strip's two head boxes), two blocks an SM; fetch runs in the
+// epilogue.
+struct PairWalk {
+  static constexpr int kBlocksPerSM = 2;
+  static constexpr bool kStationary = false;
+  using Ring = ProductRing;
+
+  static __device__ __forceinline__ Ring ring(uint8_t* raw, int) {
+    return Ring(raw);
+  }
+  static constexpr int smem(int, int extra) { return kRingBytes + extra; }
+  // At most max_blocks blocks, one a tile.
+  static int blocks(int live, int S, int Vp, int max_blocks) {
+    return std::min(max_blocks, reduce_tiles(live, S, Vp));
+  }
+  static __device__ __forceinline__ int mine(int units, int strips) {
+    const int total = cdiv(units, kGroups) * strips;
+    return cdiv(total - static_cast<int>(blockIdx.x), gridDim.x);
+  }
+  template <class Unit>
+  static __device__ __forceinline__ void produce(const Ring& ring,
+                                                 const ProductMaps& maps,
+                                                 const Unit& unit, int units,
+                                                 int strips, int kts) {
+    produce_units(ring, maps, unit, strips, kts, mine(units, strips));
+  }
+  template <class Fetch, class Epilogue>
+  static __device__ __forceinline__ void compute(const Ring& ring, int units,
+                                                 int strips, int kts,
+                                                 const Fetch& fetch,
+                                                 const Epilogue& epilogue) {
+    float d[64];
+    consume<false, true>(
+        ring, mine(units, strips), kts, d, [&](int i, float(&acc)[64]) {
+          const int t = blockIdx.x + i * gridDim.x;
+          const int u = kGroups * (t / strips) + threadIdx.x / kConsumers;
+          epilogue(fetch(u), t % strips * kBN, acc);
+        });
+  }
+};
+
+// The strip-stationary walk: block i owns strip i % strips as lane i /
+// strips of lanes = gridDim.x / strips, and lane j takes the unit pairs j,
+// j + lanes, ... The strip is loaded once into shared memory ([kts][two 64
+// x 64 boxes], as a pair-walk stage holds them); the ring's stages are one
+// unit's 64 x 64 joint box each, in the order the warpgroups consume them:
+// the first unit's kts stages of a pair, then the second's, then the next
+// pair's. Warpgroup 0 starts a pair once warpgroup 1 has issued the last
+// pair's products (turn[1]), warpgroup 1 once warpgroup 0 has issued this
+// pair's (turn[0]): the two alternate on the tensor cores, one's epilogue
+// under the other's products. A warpgroup fetches its unit before its
+// products, so the loads of the unit's row and vec are in flight under
+// them. One block an SM.
+constexpr int kStripStages = 8;
+constexpr int kMaxBlockSmem = 227 * 1024;  // an sm_90 block's dynamic limit
+
+struct StripRing {
+  uint8_t* strip;   // [kts][2 boxes]
+  uint8_t* stages;  // kStripStages joint boxes
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* strip_full;
+  uint64_t* turn;  // [kGroups]
+  float* scratch;  // the epilogue's scratch, where there is one
+
+  __device__ __forceinline__ StripRing(uint8_t* raw, int kts) {
+    strip = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(raw) + 1023) & ~uintptr_t{1023});
+    stages = strip + kts * 2 * kBox;
+    full = reinterpret_cast<uint64_t*>(stages + kStripStages * kBox);
+    empty = full + kStripStages;
+    strip_full = empty + kStripStages;
+    turn = strip_full + 1;
+    scratch = reinterpret_cast<float*>(turn + kGroups);
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStripStages; ++s) {
+        mbar_init(full + s, 1);
+        mbar_init(empty + s, kConsumers / 32);  // one warpgroup's warps
+      }
+      mbar_init(strip_full, 1);
+      for (int g = 0; g < kGroups; ++g) mbar_init(turn + g, kConsumers / 32);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+
+  __device__ __forceinline__ uint8_t* stage(int s) const {
+    return stages + s * kBox;
+  }
+  static __device__ __forceinline__ bool producer() {
+    return threadIdx.x >= kGroups * kConsumers;
+  }
+};
+
+struct StripWalk {
+  static constexpr int kBlocksPerSM = 1;
+  static constexpr bool kStationary = true;
+  using Ring = StripRing;
+  static_assert(kGroups == 2, "the turns alternate two warpgroups");
+
+  static __device__ __forceinline__ Ring ring(uint8_t* raw, int kts) {
+    return Ring(raw, kts);
+  }
+  static constexpr int smem(int kts, int extra) {
+    return 1024 + kts * 2 * kBox + kStripStages * kBox +
+           (2 * kStripStages + 1 + kGroups) * 8 + extra;
+  }
+  // Every strip's lanes: max_blocks / strips (at least 1), no more than
+  // the unit pairs.
+  static int blocks(int live, int S, int Vp, int max_blocks) {
+    const int strips = cdiv(Vp, kBN);
+    const int pairs = cdiv(live * cdiv(S, kRows), kGroups);
+    return strips * std::min(std::max(1, max_blocks / strips), pairs);
+  }
+  // The block's strip, at label strip(strips) * kBN.
+  static __device__ __forceinline__ int strip(int strips) {
+    return blockIdx.x % strips;
+  }
+  template <class Unit>
+  static __device__ __forceinline__ void produce(const Ring& ring,
+                                                 const ProductMaps& maps,
+                                                 const Unit& unit, int units,
+                                                 int strips, int kts) {
+    if (threadIdx.x != kGroups * kConsumers) return;
+    const int n0 = strip(strips) * kBN;
+    const int lanes = gridDim.x / strips, pairs = cdiv(units, kGroups);
+    mbar_expect(ring.strip_full, kts * 2 * kBox);
+    for (int kt = 0; kt < kts; ++kt) {
+      uint8_t* boxes = ring.strip + kt * 2 * kBox;
+      tma_load(boxes, maps.vw, n0, kt * kBK, ring.strip_full);
+      tma_load(boxes + kBox, maps.vw, n0 + 64, kt * kBK, ring.strip_full);
+    }
+    int q = 0;
+    for (int pair = blockIdx.x / strips; pair < pairs; pair += lanes) {
+      for (int g = 0; g < kGroups; ++g) {
+        int b, s0;
+        if (!unit(kGroups * pair + g, b, s0)) break;  // past the last unit
+        for (int kt = 0; kt < kts; ++kt, ++q) {
+          const int s = q % kStripStages;
+          mbar_wait(ring.empty + s, ((q / kStripStages) & 1) ^ 1);
+          mbar_expect(ring.full + s, kBox);
+          tma_load(ring.stage(s), maps.joint, kt * kBK, s0, b, ring.full + s);
+        }
+      }
+    }
+  }
+  template <class Fetch, class Epilogue>
+  static __device__ __forceinline__ void compute(const Ring& ring, int units,
+                                                 int strips, int kts,
+                                                 const Fetch& fetch,
+                                                 const Epilogue& epilogue) {
+    const int group = threadIdx.x / kConsumers;
+    const bool leader = threadIdx.x % 32 == 0;
+    const int n0 = strip(strips) * kBN;
+    const int lanes = gridDim.x / strips, pairs = cdiv(units, kGroups);
+    float d[64];
+    mbar_wait(ring.strip_full, 0);
+    int i = 0;
+    for (int pair = blockIdx.x / strips; pair < pairs; pair += lanes, ++i) {
+      const int u = kGroups * pair + group;
+      // Only the last pair may lack its second unit; no pair follows it.
+      if (u >= units) break;
+      const auto fetched = fetch(u);
+      if (group == 1) {
+        mbar_wait(ring.turn, i & 1);
+      } else if (i > 0) {
+        mbar_wait(ring.turn + 1, (i - 1) & 1);
+      }
+      const int q0 = (kGroups * i + group) * kts;
+      for (int kt = 0; kt < kts; ++kt) {
+        const int q = q0 + kt, s = q % kStripStages;
+        mbar_wait(ring.full + s, (q / kStripStages) & 1);
+        fence_acc(d);
+        wgmma_fence();
+        mma_stage<false, true>(d, ring.stage(s), ring.strip + kt * 2 * kBox,
+                               kt == 0);
+        wgmma_commit();
+        fence_acc(d);
+        if (kt > 0) {  // the previous stage's products are done: free it
+          wgmma_wait<1>();
+          fence_acc(d);
+          if (leader) mbar_arrive(ring.empty + (q - 1) % kStripStages);
+        }
+      }
+      if (leader) mbar_arrive(ring.turn + group);  // the products are issued
+      wgmma_wait<0>();
+      fence_acc(d);
+      if (leader) mbar_arrive(ring.empty + (q0 + kts - 1) % kStripStages);
+      epilogue(fetched, n0, d);
+    }
+  }
+};
+
+// The thread's vb of its labels n0 + j * 8 + (lane % 4) * 2 + e of a strip
+// (0 past V), read once where the walk keeps one strip.
+__device__ __forceinline__ void strip_bias(const float* vb, int V, int n0,
+                                           float (&bias)[kBN / 8][2]) {
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int y = n0 + j * 8 + (threadIdx.x % 4) * 2 + e;
+      bias[j][e] = y < V ? vb[y] : 0.f;
+    }
+  }
+}
+
+// The deepest strip the Viterbi's products can keep resident: the strip,
+// the ring and the column epilogue's scratch fill an SM's shared memory at
+// hp = 576. The caller chooses the walk (ops/viterbi.py::strip_lanes); a
+// strip walk past this depth is refused.
+constexpr int kMaxStripDepth = 576;
+static_assert(StripWalk::smem(kMaxStripDepth / kBK, kReduceScratch) <=
+                      kMaxBlockSmem &&
+                  StripWalk::smem(kMaxStripDepth / kBK + 1, kReduceScratch) >
+                      kMaxBlockSmem,
+              "kMaxStripDepth is the deepest strip that fits");
+
+// The launch of a unit product on its Walk's persistent grid (no launch
+// without live rows): at most max_blocks blocks the pair walk, max_blocks
+// / strips lanes a strip the strip walk, each with `extra` bytes of
+// epilogue scratch. joint is [B, S, hp], vw16 [hp, Vp].
+template <auto Kernel, class Walk = PairWalk, class P>
 cudaError_t launch_units(const bf16* joint, const bf16* vw16, const P& p,
-                         int smem, int max_blocks, cudaStream_t stream) {
+                         int extra, int max_blocks, cudaStream_t stream) {
   if (p.live == 0 || p.S == 0) return cudaSuccess;
   if (p.hp == 0 || p.hp % kBK != 0 || p.Vp % kBK != 0 || max_blocks < 1) {
     return cudaErrorInvalidValue;
   }
+  const int smem = Walk::smem(p.hp / kBK, extra);
   ProductMaps maps;
   cudaError_t err = product_maps(&maps, joint, vw16, 3, p.B, p.S, p.hp, p.Vp);
   if (err == cudaSuccess) err = allow_smem<Kernel>(smem);
   if (err != cudaSuccess) return err;
-  const int blocks = std::min(max_blocks, reduce_tiles(p.live, p.S, p.Vp));
+  const int blocks = Walk::blocks(p.live, p.S, p.Vp, max_blocks);
   Kernel<<<blocks, kProductThreads, smem, stream>>>(maps, p);
   return cudaGetLastError();
 }
@@ -701,9 +947,9 @@ cudaError_t reduce_product(const bf16* joint, const bf16* vw16,
                            cudaStream_t stream) {
   return p.lex != nullptr
              ? launch_units<column_reduce_kernel<true>>(
-                   joint, vw16, p, kReduceSmem, max_blocks, stream)
+                   joint, vw16, p, kReduceScratch, max_blocks, stream)
              : launch_units<column_reduce_kernel<false>>(
-                   joint, vw16, p, kReduceSmem, max_blocks, stream);
+                   joint, vw16, p, kReduceScratch, max_blocks, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -759,18 +1005,16 @@ struct ColumnMax {
 // column_reduce_kernel's product and reduction path with (max, argmax)
 // pairs: over the thread's two rows in registers, the 8 lanes of a column,
 // the 4 warps through shared memory. One writer per (unit, b, y), no
-// atomics.
-template <bool Store>
-__global__ void __launch_bounds__(kProductThreads, 2)
+// atomics. Walk: PairWalk or StripWalk.
+template <bool Store, class Walk>
+__global__ void __launch_bounds__(kProductThreads, Walk::kBlocksPerSM)
     column_max_kernel(const __grid_constant__ ProductMaps maps,
                       const ColumnMax p) {
   extern __shared__ uint8_t raw[];
-  const ProductRing ring(raw);
   const int strips = cdiv(p.Vp, kBN), kts = p.hp / kBK;
+  const auto ring = Walk::ring(raw, kts);
   const int t64 = cdiv(p.S, kRows);
   const int units = p.live * t64;
-  const int total = cdiv(units, kGroups) * strips;
-  const int mine = cdiv(total - static_cast<int>(blockIdx.x), gridDim.x);
   // Unit u's batch row and first state; false where u is no unit.
   const auto unit = [&](int u, int& b, int& s0) {
     if (u >= units) return false;
@@ -779,30 +1023,42 @@ __global__ void __launch_bounds__(kProductThreads, 2)
     s0 = u % t64 * kRows;
     return true;
   };
-  if (ProductRing::producer()) {
-    produce_units(ring, maps, unit, strips, kts, mine);
+  if (Walk::Ring::producer()) {
+    Walk::produce(ring, maps, unit, units, strips, kts);
     return;
   }
   const int group = threadIdx.x / kConsumers, lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32 % 4;  // in the warpgroup
   float* red_v = ring.scratch + group * 2 * 4 * kBN;     // [4][kBN]
   int* red_s = reinterpret_cast<int*>(red_v + 4 * kBN);  // [4][kBN]
-  float d[64];
-  consume<false, true>(ring, mine, kts, d, [&](int i, float(&acc)[64]) {
-    const int t = blockIdx.x + i * gridDim.x;
-    const int pair = t / strips, n0 = t % strips * kBN;
-    int b = 0, s0 = 0;
-    const bool real = unit(kGroups * pair + group, b, s0);
-    const size_t row0 = static_cast<size_t>(b) * p.S;
-    int s[2], state[2];
-    unit_states(s0, s);
+  float bias[kBN / 8][2];
+  if constexpr (Walk::kStationary) {
+    strip_bias(p.vb, p.V, Walk::strip(strips) * kBN, bias);
+  }
+  // The unit's row, its thread's two states and their vec and index (-inf
+  // and kNoState past S and on no unit).
+  struct Fetched {
+    size_t row0;
+    int b, s0, s[2], state[2];
     float vec[2];
+    bool real;
+  };
+  const auto fetch = [&](int u) {
+    Fetched f;
+    f.b = f.s0 = 0;
+    f.real = unit(u, f.b, f.s0);
+    f.row0 = static_cast<size_t>(f.b) * p.S;
+    unit_states(f.s0, f.s);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const bool in = real && s[half] < p.S;
-      vec[half] = in ? p.vec[row0 + s[half]] : -INFINITY;
-      state[half] = in ? s[half] : kNoState;
+      const bool in = f.real && f.s[half] < p.S;
+      f.vec[half] = in ? p.vec[f.row0 + f.s[half]] : -INFINITY;
+      f.state[half] = in ? f.s[half] : kNoState;
     }
+    return f;
+  };
+  Walk::compute(ring, units, strips, kts, fetch, [&](const Fetched& f, int n0,
+                                                     float(&acc)[64]) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       float pv[8];
@@ -814,19 +1070,21 @@ __global__ void __launch_bounds__(kProductThreads, 2)
         float x[2][2];  // lex of [half][e]
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float bias = y0 + e < p.V ? p.vb[y0 + e] : 0.f;
+          const float b = Walk::kStationary ? bias[j][e]
+                          : y0 + e < p.V    ? p.vb[y0 + e]
+                                            : 0.f;
 #pragma unroll
           for (int half = 0; half < 2; ++half) {
-            x[half][e] = acc[j * 4 + half * 2 + e] + bias;
+            x[half][e] = acc[j * 4 + half * 2 + e] + b;
           }
         }
-        if (Store && real) store_lex(p.lex, row0, s, y0, p.S, p.V, x);
+        if (Store && f.real) store_lex(p.lex, f.row0, f.s, y0, p.S, p.V, x);
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           float v = -INFINITY;
           int at = kNoState;
-          pick(v, at, vec[0] + x[0][e], state[0]);
-          pick(v, at, vec[1] + x[1][e], state[1]);
+          pick(v, at, f.vec[0] + x[0][e], f.state[0]);
+          pick(v, at, f.vec[1] + x[1][e], f.state[1]);
           pv[jj * 2 + e] = v;
           ps[jj * 2 + e] = at;
         }
@@ -840,7 +1098,7 @@ __global__ void __launch_bounds__(kProductThreads, 2)
     }
     named_barrier(1 + group, kConsumers);
     const int c = threadIdx.x % kConsumers, y = n0 + c;
-    if (real && y < p.V) {
+    if (f.real && y < p.V) {
       float v = red_v[c];
       int at = red_s[c];
 #pragma unroll
@@ -848,7 +1106,7 @@ __global__ void __launch_bounds__(kProductThreads, 2)
         pick(v, at, red_v[w * kBN + c], red_s[w * kBN + c]);
       }
       const size_t out =
-          (static_cast<size_t>(s0 / kRows) * p.B + b) * p.V + y;
+          (static_cast<size_t>(f.s0 / kRows) * p.B + f.b) * p.V + y;
       p.part_v[out] = v;
       p.part_s[out] = at;
     }
@@ -856,15 +1114,33 @@ __global__ void __launch_bounds__(kProductThreads, 2)
   });
 }
 
-// The (max, argmax) column reduction of p.live rows, as reduce_product.
+// The launch of a Viterbi product in the walk its caller chose: with
+// lanes > 0 the strip walk, that many lanes a strip (refused past
+// kMaxStripDepth), else the pair walk on the card's sms SMs.
+template <auto StripKernel, auto PairKernel, class P>
+cudaError_t launch_viterbi_units(const bf16* joint, const bf16* vw16,
+                                 const P& p, int extra, int sms, int lanes,
+                                 cudaStream_t stream) {
+  if (lanes > 0) {
+    if (p.hp > kMaxStripDepth) return cudaErrorInvalidValue;
+    return launch_units<StripKernel, StripWalk>(
+        joint, vw16, p, extra, lanes * cdiv(p.Vp, kBN), stream);
+  }
+  return launch_units<PairKernel, PairWalk>(
+      joint, vw16, p, extra, PairWalk::kBlocksPerSM * sms, stream);
+}
+
+// The (max, argmax) column reduction of p.live rows (none: no launch).
 cudaError_t max_product(const bf16* joint, const bf16* vw16,
-                        const ColumnMax& p, int max_blocks,
+                        const ColumnMax& p, int sms, int lanes,
                         cudaStream_t stream) {
   return p.lex != nullptr
-             ? launch_units<column_max_kernel<true>>(
-                   joint, vw16, p, kReduceSmem, max_blocks, stream)
-             : launch_units<column_max_kernel<false>>(
-                   joint, vw16, p, kReduceSmem, max_blocks, stream);
+             ? launch_viterbi_units<column_max_kernel<true, StripWalk>,
+                                    column_max_kernel<true, PairWalk>>(
+                   joint, vw16, p, kReduceScratch, sms, lanes, stream)
+             : launch_viterbi_units<column_max_kernel<false, StripWalk>,
+                                    column_max_kernel<false, PairWalk>>(
+                   joint, vw16, p, kReduceScratch, sms, lanes, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -890,17 +1166,16 @@ struct RowReduce {
 // labels of the strip in registers, then the 4 lanes that share the rows
 // (lane % 4) by __shfl_xor. One writer per (strip, b, s), no atomics, no
 // epilogue scratch. The exps are expf's: the normalizer enters every path
-// weight once a frame.
-__global__ void __launch_bounds__(kProductThreads, 2)
+// weight once a frame. Walk: PairWalk or StripWalk.
+template <class Walk>
+__global__ void __launch_bounds__(kProductThreads, Walk::kBlocksPerSM)
     row_reduce_kernel(const __grid_constant__ ProductMaps maps,
                       const RowReduce p) {
   extern __shared__ uint8_t raw[];
-  const ProductRing ring(raw);
   const int strips = cdiv(p.Vp, kBN), kts = p.hp / kBK;
+  const auto ring = Walk::ring(raw, kts);
   const int t64 = cdiv(p.S, kRows);
   const int units = p.live * t64;
-  const int total = cdiv(units, kGroups) * strips;
-  const int mine = cdiv(total - static_cast<int>(blockIdx.x), gridDim.x);
   // Unit u's batch row and first state; false where u is no unit.
   const auto unit = [&](int u, int& b, int& s0) {
     if (u >= units) return false;
@@ -909,20 +1184,31 @@ __global__ void __launch_bounds__(kProductThreads, 2)
     s0 = u % t64 * kRows;
     return true;
   };
-  if (ProductRing::producer()) {
-    produce_units(ring, maps, unit, strips, kts, mine);
+  if (Walk::Ring::producer()) {
+    Walk::produce(ring, maps, unit, units, strips, kts);
     return;
   }
-  const int group = threadIdx.x / kConsumers, lane = threadIdx.x % 32;
-  float d[64];
-  consume<false, true>(ring, mine, kts, d, [&](int i, float(&acc)[64]) {
-    const int t = blockIdx.x + i * gridDim.x;
-    const int pair = t / strips, n0 = t % strips * kBN;
-    int b = 0, s0 = 0;
-    if (!unit(kGroups * pair + group, b, s0)) return;
-    const size_t row0 = static_cast<size_t>(b) * p.S;
+  const int lane = threadIdx.x % 32;
+  float bias[kBN / 8][2];
+  if constexpr (Walk::kStationary) {
+    strip_bias(p.vb, p.V, Walk::strip(strips) * kBN, bias);
+  }
+  struct Fetched {
+    int b, s0;
+    bool real;
+  };
+  const auto fetch = [&](int u) {
+    Fetched f;
+    f.b = f.s0 = 0;
+    f.real = unit(u, f.b, f.s0);
+    return f;
+  };
+  Walk::compute(ring, units, strips, kts, fetch, [&](const Fetched& f, int n0,
+                                                     float(&acc)[64]) {
+    if (!f.real) return;
+    const size_t row0 = static_cast<size_t>(f.b) * p.S;
     int s[2];
-    unit_states(s0, s);
+    unit_states(f.s0, s);
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
@@ -931,10 +1217,12 @@ __global__ void __launch_bounds__(kProductThreads, 2)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const bool in = y0 + e < p.V;
-        const float bias = in ? p.vb[y0 + e] : 0.f;
+        const float b = Walk::kStationary ? bias[j][e]
+                        : in              ? p.vb[y0 + e]
+                                          : 0.f;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-          x[half][e] = acc[j * 4 + half * 2 + e] + bias;
+          x[half][e] = acc[j * 4 + half * 2 + e] + b;
           acc[j * 4 + half * 2 + e] = in ? x[half][e] : -INFINITY;
           m[half] = fmaxf(m[half], acc[j * 4 + half * 2 + e]);
         }
@@ -961,7 +1249,7 @@ __global__ void __launch_bounds__(kProductThreads, 2)
       for (int half = 0; half < 2; ++half) {
         if (s[half] >= p.S) continue;
         const size_t at =
-            (static_cast<size_t>(n0 / kBN) * p.B + b) * p.S + s[half];
+            (static_cast<size_t>(n0 / kBN) * p.B + f.b) * p.S + s[half];
         p.part_m[at] = m[half];
         p.part_l[at] = l[half];
       }
@@ -969,14 +1257,14 @@ __global__ void __launch_bounds__(kProductThreads, 2)
   });
 }
 
-// The row reduction of p.live rows, as reduce_product (no scratch beyond
-// the ring).
+// The row reduction of p.live rows, as max_product (no epilogue scratch).
 cudaError_t row_product(const bf16* joint, const bf16* vw16,
-                        const RowReduce& p, int max_blocks,
+                        const RowReduce& p, int sms, int lanes,
                         cudaStream_t stream) {
   if (p.lex == nullptr) return cudaErrorInvalidValue;
-  return launch_units<row_reduce_kernel>(joint, vw16, p, kRingBytes,
-                                         max_blocks, stream);
+  return launch_viterbi_units<row_reduce_kernel<StripWalk>,
+                              row_reduce_kernel<PairWalk>>(
+      joint, vw16, p, 0, sms, lanes, stream);
 }
 
 }  // namespace

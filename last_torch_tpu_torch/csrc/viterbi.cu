@@ -36,9 +36,12 @@
 // alpha and write jstar = 0).
 //
 // What bounds it here. Per frame and pass the head is a [B*S, h] x [h, V]
-// product: 2*B*S*V*h = 8.6 GFLOP at B=8, S=1025, V=1024, h=512, against
-// 8.6 MB of bf16 joint and 1 MB of vocab_w, so the work is compute-bound;
-// the state that must cross frames (alpha, [B, S] f32) is tiny.
+// product: 2*B*S*V*h = 413 GFLOP at B=384, S=1025, V=1024, h=512, against
+// 403 MB of bf16 joint and 1 MB of vocab_w; what the products' epilogues
+// store, the float32 lex a later pass reads, is 1.61 GB a frame, and what
+// they pull from the L2 cache depends on the order in which they walk their
+// tiles (head_product.cuh). The state that must cross frames (alpha, [B, S]
+// f32) is tiny.
 //
 // What the design does about it:
 // * The TPU grid carried alpha across (t, b) grid steps in VMEM scratch.
@@ -55,9 +58,20 @@
 //   warpgroups, a persistent grid) with a (max, argmax) epilogue per
 //   64-state unit and label (column_max_kernel), merged by merge_kernel.
 //   With two or more passes a frame (FLD(k >= 2)) that product also stores
-//   lex ([B, S, V] float32, 34 MB at B=8, inside the 50 MB L2) and the
-//   later passes read it back (max_pass_kernel<kLoad>, one partial per
-//   64-state tile), as the 'cache' log-partition forward does.
+//   lex ([B, S, V] float32: 1.61 GB at B=384, S=1025, V=1024, so the later
+//   passes find none of it in the 50 MB L2) and the later passes read it
+//   back (max_pass_kernel<kLoad>, one partial per 64-state tile), as the
+//   'cache' log-partition forward does.
+// * The products walk their tiles strip-stationary where the head strip
+//   fits in shared memory (hp <= 576): one block an SM owns a 128-label
+//   strip of vw16 for the frame's launch, loaded once, and streams only the
+//   joint of the unit pairs, which the blocks of every strip take in one
+//   order at one pace, so each pair's joint is read from device memory once
+//   and from the L2 cache for the other strips; the block's two warpgroups
+//   alternate on the tensor cores. Deeper heads keep the pair walk (two
+//   blocks an SM, each tile streaming its strip). Each tile sums the same 8
+//   depth stages in the same order on either walk: the outputs are the
+//   same bits.
 // * Local normalization. The TPU normalized each row inside its tile, since
 //   its vocab axis was not tiled; a block here owns a 128-label strip and
 //   never sees a whole row. Normalization subtracts one constant c[s] from
@@ -633,7 +647,8 @@ using bf16 = __nv_bfloat16;
 // Once per call the padded head vw16 [hp, Vp]; per frame t with live[t] >
 // 0 rows (their indices first in rows[t]) the joint [B, S, hp] and blank of
 // those rows; with normalization row_reduce_kernel (lex stored, strip
-// partials) and norm_merge_kernel; then each max-pass: the first without
+// partials; in the walk lanes names, as column_max_kernel) and
+// norm_merge_kernel; then each max-pass: the first without
 // normalization as column_max_kernel over alpha (storing lex with two or
 // more passes), the others as max_pass_kernel<kLoad> over the staged lex
 // (64-state tiles, one partial each), each merged by merge_kernel into the
@@ -649,11 +664,11 @@ int run_forward(const float* pf, const float* pc, const float* vw,
                 float* cnorm, float* last, float* alpha, int* arg,
                 int* jstar, int T, int B, int S, int h, int V,
                 int max_expansions, int frame_dependent, int normalize,
-                int max_blocks, cudaStream_t stream) {
+                int sms, int lanes, cudaStream_t stream) {
   const int passes =
       frame_dependent ? 1 : (max_expansions > 1 ? max_expansions : 1);
   const bool stage = passes >= 2 || normalize != 0;
-  if ((T > 0 && live == nullptr) || max_blocks < 1 ||
+  if ((T > 0 && live == nullptr) || sms < 1 || lanes < 0 ||
       (stage && lex == nullptr) ||
       (normalize != 0 &&
        (part_m == nullptr || part_l == nullptr || cnorm == nullptr))) {
@@ -685,7 +700,8 @@ int run_forward(const float* pf, const float* pc, const float* vw,
         const head_product::RowReduce p{vb, rows_t, lex, part_m, part_l, B,
                                         S,  V,      hp,  Vp,     L};
         RETURN_IF_ERROR(
-            head_product::row_product(joint, vw16, p, max_blocks, stream));
+            head_product::row_product(joint, vw16, p, sms, lanes,
+                                      stream));
         norm_merge_kernel<<<update_blocks, kUpdateThreads, 0, stream>>>(
             part_m, part_l, strips, is_pad_t, blank, cnorm, B, S, normalize);
         RETURN_IF_LAUNCH_FAILED();
@@ -698,7 +714,8 @@ int run_forward(const float* pf, const float* pc, const float* vw,
             vb, vec, rows_t, part_v, part_s, passes >= 2 ? lex : nullptr,
             B,  S,   V,      hp,     Vp,     L};
         RETURN_IF_ERROR(
-            head_product::max_product(joint, vw16, p, max_blocks, stream));
+            head_product::max_product(joint, vw16, p, sms, lanes,
+                                      stream));
       } else if (L > 0) {
         // kLoad reads no joint or head.
         max_pass_kernel<kLoad>
@@ -748,8 +765,10 @@ extern "C" {
 // float32 (the kernels round them), joint is bfloat16 [B, S, hp] and vw16
 // bfloat16 [hp, Vp] (hp, Vp: h and V rounded up to 64), part_v / part_s
 // are [ceil(S / 64), B, V], part_m / part_l [ceil(Vp / 128), B, S] (with
-// normalization), the products run on at most max_blocks persistent
-// blocks, and max_splits / max_ysplits are not used.
+// normalization), the products run on persistent blocks in the walk the
+// caller chose: with lanes > 0 strip-stationary, `lanes` blocks a 128-label
+// strip (hp <= 576), else in unit pairs on two blocks each of the card's
+// `sms` SMs; max_splits / max_ysplits are not used.
 // In float32 vw, bw and joint ([B, S, h]) are float32, live, rows and vw16
 // are not used, part_v / part_s hold [max_splits, B, V] per-split maxima
 // (the states split into at most max_splits ranges of whole 64-state
@@ -765,7 +784,7 @@ int viterbi_forward(int dtype, const float* pf, const float* pc,
                     int S, int h, int V, int max_expansions,
                     int frame_dependent, int normalize, int max_splits,
                     int max_ysplits, const int* live, const int* rows,
-                    void* vw16, int max_blocks, void* stream) {
+                    void* vw16, int sms, int lanes, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (normalize < 0 || normalize > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -787,7 +806,7 @@ int viterbi_forward(int dtype, const float* pf, const float* pc,
         static_cast<bf16*>(joint), static_cast<bf16*>(vw16), blank, lex,
         part_v, part_s, part_m, part_l, cnorm, last, alpha, arg, jstar,
         num_frames, B, S, h, V, max_expansions, frame_dependent, normalize,
-        max_blocks, s);
+        sms, lanes, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -47,6 +47,13 @@ from last_torch_tpu_torch.utils import profiling
 # Forward calls that launched the CUDA kernel, for runs that must show the
 # decode went through it. Only ``viterbi_forward`` on a CUDA tensor counts.
 launches = 0
+# The bfloat16 calls' unit products (column_max_kernel, or row_reduce_kernel
+# under normalization; one a frame with live rows), summed over the calls:
+# their output tiles, and the loads of a whole head strip into a block's
+# shared memory (``walk_counts``, in the walk ``strip_lanes`` chose).
+# product_tiles / strip_loads is how many tiles one strip load serves.
+product_tiles = 0
+strip_loads = 0
 
 _LIB = None
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,8 +62,11 @@ NORMALIZE_CODES = {'none': 0, 'hat': 1, 'log_softmax': 2}
 # max-pass grid splits the states across blocks to fill the card.
 _STATES_PER_TILE = 64
 _LABELS_PER_BLOCK = 64
-# The bfloat16 products' label strips (csrc/head_product.cuh: kBN).
+# The bfloat16 products' label strips (csrc/head_product.cuh: kBN), and the
+# deepest strip they can keep resident in shared memory (kMaxStripDepth: the
+# kernel refuses a strip walk past it).
 _STRIP_LABELS = 128
+_MAX_STRIP_DEPTH = 576
 
 
 def num_tables(max_expansions: int, frame_dependent: bool) -> int:
@@ -66,6 +76,46 @@ def num_tables(max_expansions: int, frame_dependent: bool) -> int:
 
 def _ptr(x: Optional[torch.Tensor]):
   return None if x is None else x.data_ptr()
+
+
+def _cdiv(n: int, m: int) -> int:
+  return -(-n // m)
+
+
+def _strips(vocab: int) -> int:
+  return _cdiv(_cdiv(vocab, 64) * 64, _STRIP_LABELS)
+
+
+def strip_lanes(hidden: int, vocab: int, sms: int) -> int:
+  """The walk of the bfloat16 products (csrc/head_product.cuh), chosen from
+  the head's padded depth hp alone: the blocks a 128-label strip takes on
+  the strip-stationary walk (one block an SM owns a strip of the head,
+  loaded once a frame, and streams the joint), sms // strips and at least
+  1; or 0, the pair walk (two blocks an SM, each tile streaming its strip),
+  where the strip, hp x 128 bfloat16, does not fit in shared memory beside
+  the joint's ring."""
+  if _cdiv(hidden, 64) * 64 > _MAX_STRIP_DEPTH:
+    return 0
+  return max(1, sms // _strips(vocab))
+
+
+def walk_counts(live: list[int], num_states: int, vocab: int,
+                lanes: int) -> tuple[int, int]:
+  """(tiles, strip loads) of one call's unit products, with live[t] live
+  rows at frame t, in the walk ``lanes`` (``strip_lanes``) names.
+
+  A frame's product has pairs = ceil(live * ceil(S / 64) / 2) unit pairs by
+  strips = ceil(Vp / 128) label strips as tiles. The strip walk launches
+  min(lanes, pairs) blocks a strip, each loading its strip once; the pair
+  walk streams a strip with every tile.
+  """
+  strips, t64 = _strips(vocab), _cdiv(num_states, 64)
+  tiles = loads = 0
+  for rows in live:
+    pairs = _cdiv(rows * t64, 2)
+    tiles += pairs * strips
+    loads += strips * min(lanes, pairs) if lanes else pairs * strips
+  return tiles, loads
 
 
 def forward_scratch(batch: int, num_states: int, hidden: int, vocab: int,
@@ -121,7 +171,7 @@ def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
     and have jstar and arg 0 (the backtrace never reads their arg; the TPU
     kernel computed it anyway, the kernel here skips their work).
   """
-  global launches
+  global launches, product_tiles, strip_loads
   with profiling.span('viterbi.forward'):
     fused_scan.check_inputs(pf, pc, params, is_pad, compute_dtype, 'Viterbi')
     if normalize not in NORMALIZE_CODES:
@@ -147,16 +197,17 @@ def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
       # The products of csrc/head_product.cuh on wgmma over each frame's live
       # rows: counted on the host (one synchronisation per call) and listed
       # first on the device.
-      rplan = joint_head.reduce_plan(batch, num_states, hidden, vocab,
-                                     joint_head.sm_count(device))
+      sms = joint_head.sm_count(device)
+      lanes = strip_lanes(hidden, vocab, sms)
+      rplan = joint_head.reduce_plan(batch, num_states, hidden, vocab, sms)
       buf = {name: torch.empty(shape, dtype=dtype, device=device)
              for name, (shape, dtype) in forward_scratch(
                  batch, num_states, hidden, vocab, rplan, k, normalize).items()}
       joint = buf['joint']
       splits = ysplits = 0
       live, rows = fused_scan.live_rows(is_pad)
-      route_args = (_ptr(live), _ptr(rows), _ptr(buf['vocab_w']),
-                    rplan.max_blocks)
+      route_args = (_ptr(live), _ptr(rows), _ptr(buf['vocab_w']), sms,
+                    lanes)
     else:
       joint = torch.empty((batch, num_states, hidden), device=device)
       # With two or more max-passes per frame the first stages the frame's
@@ -176,7 +227,7 @@ def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
         for name in ('part_m', 'part_l'):
           buf[name] = torch.empty((ysplits, batch, num_states), device=device)
         buf['cnorm'] = torch.empty((batch, num_states), device=device)
-      route_args = (None, None, None, 0)
+      route_args = (None, None, None, 0, 0)
     blank = torch.empty((batch, num_states), device=device)
     last = torch.empty((k, batch, num_states), device=device)
     alpha = torch.full((2, batch, num_states), float('-inf'), device=device)
@@ -200,6 +251,10 @@ def viterbi_forward(pf: torch.Tensor, pc: torch.Tensor, params: dict[str, Any],
       raise RuntimeError('Viterbi kernel launch failed: '
                          f'{lib.viterbi_error_string(status).decode()}')
     launches += 1
+    if compute_dtype == torch.bfloat16:
+      tiles, loads = walk_counts(live.tolist(), num_states, vocab, lanes)
+      product_tiles += tiles
+      strip_loads += loads
     return arg, jstar, alpha[max_t % 2]
 
 
@@ -211,7 +266,7 @@ def library() -> ctypes.CDLL:
     lib = build.load('viterbi.cu')
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.viterbi_forward.argtypes = ([i] + [p] * 19 + [i] * 10 + [p] * 3 +
-                                    [i, p])
+                                    [i, i, p])
     lib.viterbi_forward.restype = i
     lib.viterbi_error_string.argtypes = [i]
     lib.viterbi_error_string.restype = ctypes.c_char_p

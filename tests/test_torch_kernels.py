@@ -114,6 +114,9 @@ CARD_CASES = {
     'fld1_v130': (130, 40, 1, False),
     'fld2_ragged_v1000': (1000, 512, 2, False),
     'fld2_v1024': (1024, 512, 2, False),
+    # hp 640: too deep for the products' strip walk, so the pair walk (its
+    # FLD(2) products: test_deep_head_kernel_matches_plain_to_ties_on_card).
+    'fd_ragged_v1000_h640': (1000, 640, 0, True),
     # S=70: a full 64-state unit and a ragged one, so a block's second
     # warpgroup takes the ragged unit or the next row's first.
     'fld2_ragged_v69': (69, 64, 2, False),
@@ -158,7 +161,7 @@ def test_kernel_matches_plain_on_card(card, case, compute_dtype):
 @pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
                          ids=['f32', 'bf16'])
 @pytest.mark.parametrize('case', ['fd_ragged_v37', 'fld2_ragged_v1000',
-                                  'fld2_ragged_v69'])
+                                  'fld2_ragged_v69', 'fd_ragged_v1000_h640'])
 def test_normalized_kernel_matches_plain_on_card(card, case, compute_dtype,
                                                  normalize):
   vocab, hidden, k, fd = CARD_CASES[case]
@@ -181,6 +184,73 @@ def test_normalized_kernel_matches_plain_on_card(card, case, compute_dtype,
   npt.assert_allclose(alpha_k.cpu().numpy(), alpha_p.cpu().numpy(),
                       rtol=1e-5, atol=1e-5)
   assert bool((alpha_k[:, 1:] <= 0).all())  # log-probabilities
+
+
+def fld_tie_gaps(inputs, kwargs, got, want):
+  """The entries where two FLD forwards' tables differ (arg: t, b, pass j,
+  label y; jstar: t, b, state s), each with the gap between the two
+  choices' scores, rescored in float64 from the plain version's alpha
+  before frame t, relative to max(1, |score|)."""
+  pf, pc, params, is_pad = inputs
+  (arg_k, jstar_k, _), (arg_p, jstar_p, _) = got, want
+  rnd = lambda x: x.to(kwargs['compute_dtype']).double()
+  vw, vb = rnd(params['vocab_w']), params['vocab_b'].double()
+  bw, bb = rnd(params['blank_w']), params['blank_b'].double()
+  diffs = ([('arg', *i) for i in (arg_k != arg_p).nonzero().tolist()] +
+           [('jstar', *i) for i in (jstar_k != jstar_p).nonzero().tolist()])
+  gaps = []
+  for kind, t, b, *where in diffs:
+    alpha = viterbi.viterbi_forward_plain(
+        pf[:t].contiguous(), pc, params, is_pad[:t].contiguous(),
+        **kwargs)[2][b].double()
+    joint = rnd(torch.tanh(pc + pf[t, b]))  # [S, h]
+    lex, blank = joint @ vw + vb, joint @ bw + bb
+    c = torch.zeros_like(blank)
+    if kwargs['normalize'] == 'hat':
+      softplus = lambda x: torch.logaddexp(x, torch.zeros_like(x))
+      c, blank = torch.logsumexp(lex, -1) + softplus(blank), -softplus(-blank)
+    vecs = [alpha]  # each pass's input: alpha, then the expanded maxima
+    for _ in range(arg_k.shape[2]):
+      red = ((vecs[-1] - c)[:, None] + lex).max(dim=0).values
+      vecs.append(torch.cat([red.new_full((1,), float('-inf')), red]))
+    if kind == 'arg':
+      j, y = where
+      score = lambda s: vecs[j][s] - c[s] + lex[s, y]
+      mine, theirs = int(arg_k[t, b, j, y]), int(arg_p[t, b, j, y])
+    else:
+      (s,) = where
+      score = lambda j: vecs[j][s] + blank[s]
+      mine, theirs = int(jstar_k[t, b, s]), int(jstar_p[t, b, s])
+    a, z = score(mine).item(), score(theirs).item()
+    gaps.append(abs(a - z) / max(abs(z), 1.0))
+  return gaps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('normalize', ['none', 'hat'])
+@pytest.mark.parametrize('compute_dtype', [torch.float32, torch.bfloat16],
+                         ids=['f32', 'bf16'])
+def test_deep_head_kernel_matches_plain_to_ties_on_card(card, compute_dtype,
+                                                        normalize):
+  """h=640 (hp 640, past the strip walk's 576): the bfloat16 FLD(2)
+  products run the pair walk (column_max_kernel storing lex for the second
+  pass; row_reduce_kernel under hat). At test_kernel_matches_plain's inputs
+  some labels' best source states tie to within 2e-8 of their score, which
+  float32 sums in another order break either way, in the float32 kernel
+  (no walk) as in the bfloat16 one. So the tables may differ from the plain
+  version's in a few entries, each a tie in float64 (1e-6), and alpha
+  agrees to float32 summation error."""
+  vocab, hidden = 1000, 640
+  inputs = random_inputs(1, vocab, hidden, max_t=12, lengths=[12, 7, 0],
+                         device=card)
+  kwargs = dict(max_expansions=2, frame_dependent=False,
+                compute_dtype=compute_dtype, normalize=normalize)
+  got = viterbi.viterbi_forward(*inputs, **kwargs)
+  want = viterbi.viterbi_forward_plain(*inputs, **kwargs)
+  gaps = fld_tie_gaps(inputs, kwargs, got, want)
+  assert len(gaps) <= 3 and max(gaps, default=0.0) <= 1e-6, gaps
+  npt.assert_allclose(got[2].cpu().numpy(), want[2].cpu().numpy(),
+                      rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -252,6 +322,95 @@ def test_kernel_breaks_placed_ties_as_plain_on_card(card, frame_dependent,
   # taken in another order.
   npt.assert_allclose(alpha_k.cpu().numpy(), alpha_p.cpu().numpy(),
                       rtol=0 if normalize == 'none' else 1e-6, atol=0)
+
+
+def test_walk_counts_follow_the_products_grid():
+  # The cells' shape: S=1025 (17 units a row), V=1024 (8 strips), 132 SMs
+  # (16 lanes a strip). 384 rows make 3264 unit pairs, 2 rows 17, 1 row 9,
+  # and 0 rows none; a lane walks at most one pair of the last two.
+  lanes = viterbi.strip_lanes(512, 1024, 132)
+  assert lanes == 16
+  tiles, loads = viterbi.walk_counts([384, 2, 1, 0], 1025, 1024, lanes)
+  assert (tiles, loads) == ((3264 + 17 + 9) * 8, 8 * (16 + 16 + 9))
+  # A one-row frame (B=1) gives each block one pair: a strip load a tile,
+  # as on the pair walk, where every tile loads its strip.
+  assert viterbi.walk_counts([1], 1025, 1024, lanes) == (72, 72)
+  assert viterbi.walk_counts([384, 2], 1025, 1024, 0) == (26248, 26248)
+  # A ragged vocabulary rounds to 64, then to strips: V=1000 (Vp 1024).
+  assert viterbi.walk_counts([48], 1001, 1000, lanes) == (384 * 8, 128)
+
+
+def test_walk_is_chosen_from_the_hidden_pad_alone():
+  # The strip walk up to hp = 576 (h 513 to 576 pad to it), whatever the
+  # vocabulary or the card, sms // strips lanes a strip and at least one;
+  # past it the pair walk (0).
+  for vocab, sms in ((64, 1), (1000, 132), (4096, 132), (32768, 78)):
+    strips = -(-vocab // 128)
+    for hidden in (24, 512, 513, 576, 577, 640, 1024):
+      want = max(1, sms // strips) if hidden <= 576 else 0
+      assert viterbi.strip_lanes(hidden, vocab, sms) == want, (vocab, hidden)
+
+
+def product_launches(prof_json, walk):
+  """The grids of the Viterbi's unit products in a profiler's Chrome trace,
+  each checked to run in ``walk`` (StripWalk or PairWalk)."""
+  import json
+  with open(prof_json) as f:
+    events = json.load(f)['traceEvents']
+  grids = []
+  for e in events:
+    name = e.get('name', '')
+    if e.get('cat') == 'kernel' and ('column_max_kernel' in name or
+                                     'row_reduce_kernel' in name):
+      assert walk in name, name
+      grids.append(e['args']['grid'])
+  return grids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('hidden', [512, 640], ids=['strip_walk', 'pair_walk'])
+@pytest.mark.parametrize('normalize', ['none', 'hat'])
+@pytest.mark.parametrize('frame_dependent', [True, False],
+                         ids=['fd', 'fld2'])
+def test_product_walks_give_each_row_its_own_bits_on_card(
+    card, frame_dependent, normalize, hidden, tmp_path):
+  """At B=48 a frame's product has up to 384 unit pairs by 8 strips, so
+  each block walks many pairs (the strip walk's 16 lanes a strip on 132
+  SMs; the pair walk's 2 blocks an SM over 3072 tiles). A tile's sums do
+  not depend on the walk or on the other rows of the batch, so the batch's
+  tables and alpha equal, bit for bit, each row's decoded alone (B=1).
+  V=1000 (S=1001): a ragged last strip (104 labels) and unit (41 states);
+  rows of no frames and rows that end mid-call. The profiler's trace shows
+  the walk each product ran in and, on the strip walk, its blocks: one
+  strip load each, as the call's ``strip_loads`` counts."""
+  vocab, max_t = 1000, 6
+  lengths = [6, 0, 3, 6, 1, 5, 2, 4] * 6
+  pf, pc, params, is_pad = random_inputs(5, vocab, hidden, max_t, lengths,
+                                         device=card)
+  kwargs = dict(max_expansions=2, frame_dependent=frame_dependent,
+                compute_dtype=torch.bfloat16, normalize=normalize)
+  viterbi.viterbi_forward(pf, pc, params, is_pad, **kwargs)  # builds
+  loads = viterbi.strip_loads
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    arg, jstar, alpha = viterbi.viterbi_forward(pf, pc, params, is_pad,
+                                                **kwargs)
+    torch.cuda.synchronize()
+  prof.export_chrome_trace(str(tmp_path / 'trace.json'))
+  grids = product_launches(tmp_path / 'trace.json',
+                           'StripWalk' if hidden <= 576 else 'PairWalk')
+  assert len(grids) == max_t  # one product a frame: every frame has rows
+  if hidden <= 576:
+    assert sum(g[0] for g in grids) == viterbi.strip_loads - loads
+  bits = lambda x: x.view(torch.int32).cpu().numpy()
+  for b in range(len(lengths)):
+    arg_b, jstar_b, alpha_b = viterbi.viterbi_forward(
+        pf[:, b:b + 1].contiguous(), pc, params,
+        is_pad[:, b:b + 1].contiguous(), **kwargs)
+    npt.assert_array_equal(arg[:, b:b + 1].cpu().numpy(), arg_b.cpu().numpy())
+    npt.assert_array_equal(jstar[:, b:b + 1].cpu().numpy(),
+                           jstar_b.cpu().numpy())
+    npt.assert_array_equal(bits(alpha[b:b + 1]), bits(alpha_b))
 
 
 def fused_inputs(seed, vocab, hidden, max_t, lengths, device='cpu'):
