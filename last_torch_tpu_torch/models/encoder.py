@@ -23,6 +23,12 @@ logits, or, for a causal window W, over [W, 2W] logits per W-frame block
 encoder chunk by chunk with key/value caches, matching one offline
 ``apply`` up to float summation order.
 
+``ConformerEncoder`` is Conformer (L)'s encoder (Gulati et al.,
+arXiv:2005.08100): a stride-4 convolution front end, then macaron blocks
+with relative-position attention (``ops/rel_attention.py``) and a
+non-causal depthwise convolution module; it has no counterpart in the JAX
+package.
+
 ``apply`` / ``block`` also run one rank's part of a Megatron-sharded block
 (``parallel/sharding.py``): ``heads`` is the rank's head count (its
 columns of ``qkv``, ``ffn_in`` and ``ffn1_in`` and rows of ``attn_out``,
@@ -32,6 +38,7 @@ products over the model ranks. With neither, a block is the whole one.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Optional
@@ -40,6 +47,7 @@ import torch
 import torch.nn.functional as F
 
 from last_torch_tpu_torch import initializers
+from last_torch_tpu_torch.ops import rel_attention
 from last_torch_tpu_torch.utils import profiling
 
 Params = dict[str, Any]
@@ -311,6 +319,10 @@ class TransformerEncoder:
     x = _layer_norm(x, self._cast(final_ln_scale), self._cast(final_ln_bias))
     return torch.where(mask[..., None], x, 0.0).float()
 
+  def output_frames(self, num_frames: torch.Tensor) -> torch.Tensor:
+    """The encoder's output frame counts: one a frame (no subsampling)."""
+    return num_frames
+
   def apply(self, params: Params, frames: torch.Tensor,
             num_frames: torch.Tensor, heads: Optional[int] = None,
             model_sum=None) -> torch.Tensor:
@@ -347,6 +359,197 @@ def _sinusoidal_positions_at(position: torch.Tensor, dim: int
 def _sinusoidal_positions(length: int, dim: int, device) -> torch.Tensor:
   """[length, dim] float32 encodings of positions 0..length-1."""
   return _sinusoidal_positions_at(torch.arange(length, device=device), dim)
+
+
+# BatchNorm's epsilon in the Conformer's convolution module (PyTorch's
+# BatchNorm1d default, ESPnet's too).
+_BN_EPS = 1e-5
+
+
+@contextlib.contextmanager
+def _cudnn_float32():
+  """cuDNN convolutions in full float32 (TF32 off, PyTorch's default is
+  on), restored after."""
+  before = torch.backends.cudnn.allow_tf32
+  torch.backends.cudnn.allow_tf32 = False
+  try:
+    yield
+  finally:
+    torch.backends.cudnn.allow_tf32 = before
+
+
+def subsampled_features(feature_size: int) -> int:
+  """Feature bins left after the two stride-2 3 x 3 convolutions."""
+  return ((feature_size - 1) // 2 - 1) // 2
+
+
+@dataclasses.dataclass(frozen=True)
+class ConformerEncoder:
+  """Conformer (L) encoder (Gulati et al., arXiv:2005.08100, Table 1: 17
+  blocks of width 512, 8 heads, convolution kernel 32, feed-forward 2048)
+  over padded frame sequences, non-causal, for inference.
+
+  Front end (ESPnet's ``Conv2dSubsampling``): Conv2d(1 -> d, 3 x 3, stride
+  2), ReLU, Conv2d(d -> d, 3 x 3, stride 2), ReLU, Linear(d * F' -> d), so
+  T frames become ``output_frames(T)`` = ((T - 1) // 2 - 1) // 2. No
+  positions are added to the input. Each block:
+
+    x = x + FFN1(x) / 2      FFN: LN, Linear d -> ffn, Swish, Linear ffn -> d
+    x = x + MHSA(x)          LN, relative-position attention
+                             (``ops/rel_attention.py``: Transformer-XL scores
+                             with per-head u, v biases over the projected
+                             sinusoids of the distances T' - 1 .. -(T' - 1))
+    x = x + Conv(x)          LN, Linear d -> 2d, GLU, depthwise conv of
+                             width K ('same': (K - 1) // 2 frames before, the
+                             rest after) over the frames zeroed past a row's
+                             length, inference BatchNorm, Swish, Linear d -> d
+    x = x + FFN2(x) / 2
+    x = LN(x)
+
+  Linear layers and convolutions carry no bias (as ``TransformerEncoder``);
+  layer norms use the port's ``_layer_norm``; keys past a row's length are
+  masked with ``_MASKED``; outputs past it are 0. Float32 throughout, the
+  convolutions with TF32 off.
+
+  Attributes:
+    feature_size: Input feature dimension (80 filterbanks in the paper).
+    model_size: Encoder width d (also the front end's channels).
+    num_layers: Number of blocks.
+    num_heads: Attention heads.
+    ffn_size: Feed-forward hidden width.
+    conv_kernel: Depthwise convolution width K.
+  """
+
+  feature_size: int
+  model_size: int = 512
+  num_layers: int = 17
+  num_heads: int = 8
+  ffn_size: int = 2048
+  conv_kernel: int = 32
+
+  def init(self, generator: torch.Generator, device='cuda') -> Params:
+    """Random parameters on ``device``: the card unless the caller asks for
+    'cpu'. Convolution kernels are [out, in, kh, kw] (depthwise [K, d]),
+    LeCun-normal over their fan-in; BatchNorm starts at mean 0, variance 1,
+    the position biases at 0."""
+    d, h = self.model_size, self.num_heads
+
+    def dense(shape):
+      return initializers.lecun_normal(shape, generator, device)
+
+    def conv(channels_in):
+      fan_in = channels_in * 9
+      return dense((fan_in, d)).t().reshape(d, channels_in, 3, 3).contiguous()
+
+    ones = lambda: torch.ones((d,), device=device)
+    zeros = lambda *shape: torch.zeros(shape or (d,), device=device)
+    params = {
+        'subsample': {
+            'conv1': conv(1),
+            'conv2': conv(d),
+            'proj': dense((d * subsampled_features(self.feature_size), d)),
+        },
+        'layers': [],
+    }
+    for _ in range(self.num_layers):
+      layer = {}
+      for ffn in ('ffn1', 'ffn2'):
+        layer.update({f'{ffn}_ln_scale': ones(), f'{ffn}_ln_bias': zeros(),
+                      f'{ffn}_in': dense((d, self.ffn_size)),
+                      f'{ffn}_out': dense((self.ffn_size, d))})
+      layer.update({
+          'attn_ln_scale': ones(),
+          'attn_ln_bias': zeros(),
+          'qkv': dense((d, 3 * d)),
+          'pos_proj': dense((d, d)),
+          'pos_bias_u': zeros(h, d // h),
+          'pos_bias_v': zeros(h, d // h),
+          'attn_out': dense((d, d)),
+          'conv_ln_scale': ones(),
+          'conv_ln_bias': zeros(),
+          'conv_in': dense((d, 2 * d)),
+          'conv_depth': dense((self.conv_kernel, d)),
+          'bn_mean': zeros(),
+          'bn_var': ones(),
+          'bn_scale': ones(),
+          'bn_bias': zeros(),
+          'conv_out': dense((d, d)),
+          'final_ln_scale': ones(),
+          'final_ln_bias': zeros(),
+      })
+      params['layers'].append(layer)
+    return params
+
+  def output_frames(self, num_frames: torch.Tensor) -> torch.Tensor:
+    """The front end's output frame counts, ((n - 1) // 2 - 1) // 2 and at
+    least 0: arithmetic on the device, no host read."""
+    return (((num_frames - 1) // 2 - 1) // 2).clamp(min=0)
+
+  def subsample(self, params: Params, frames: torch.Tensor) -> torch.Tensor:
+    """[batch, T, feature] frames to [batch, output_frames(T), d]."""
+    with _cudnn_float32():
+      x = F.relu_(F.conv2d(frames[:, None], params['conv1'], stride=2))
+      x = F.relu_(F.conv2d(x, params['conv2'], stride=2))
+    b, c, t, f = x.shape
+    x = x.transpose(1, 2).reshape(b, t, c * f)
+    return x @ params['proj']
+
+  def _ffn(self, layer: Params, name: str, x: torch.Tensor) -> torch.Tensor:
+    y = _layer_norm(x, layer[f'{name}_ln_scale'], layer[f'{name}_ln_bias'])
+    return F.silu(y @ layer[f'{name}_in']) @ layer[f'{name}_out']
+
+  def _conv_module(self, layer: Params, x: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    d, kernel = self.model_size, self.conv_kernel
+    y = _layer_norm(x, layer['conv_ln_scale'], layer['conv_ln_bias'])
+    gates = y @ layer['conv_in']
+    u = gates[..., :d] * torch.sigmoid(gates[..., d:])  # GLU
+    u = torch.where(mask[..., None], u, 0.0).transpose(1, 2)  # [B, d, T]
+    before = (kernel - 1) // 2
+    weight = layer['conv_depth'].t().unsqueeze(1).contiguous()  # [d, 1, K]
+    with _cudnn_float32():
+      c = F.conv1d(F.pad(u, (before, kernel - 1 - before)), weight, groups=d)
+    scale = torch.rsqrt(layer['bn_var'] + _BN_EPS) * layer['bn_scale']
+    shift = layer['bn_bias'] - layer['bn_mean'] * scale
+    c = F.silu(c * scale[:, None] + shift[:, None])
+    return c.transpose(1, 2) @ layer['conv_out']
+
+  def block(self, layer: Params, x: torch.Tensor, mask: torch.Tensor,
+            lengths: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """One Conformer block over x [batch, T', d]; ``positions`` [2T' - 1, d]
+    are the sinusoids of the distances T' - 1 .. -(T' - 1)."""
+    b, t, d = x.shape
+    heads = self.num_heads
+    x = x + 0.5 * self._ffn(layer, 'ffn1', x)
+    y = _layer_norm(x, layer['attn_ln_scale'], layer['attn_ln_bias'])
+    q, k, v = (z.reshape(b, t, heads, d // heads)
+               for z in (y @ layer['qkv']).split(d, dim=-1))
+    pos = positions @ layer['pos_proj']
+    with profiling.span('encoder.attention'):
+      context = rel_attention.rel_attention(q, k, v, pos, layer['pos_bias_u'],
+                                            layer['pos_bias_v'], lengths)
+    x = x + context.reshape(b, t, d) @ layer['attn_out']
+    with profiling.span('encoder.conv'):
+      conv = self._conv_module(layer, x, mask)
+    x = x + conv
+    x = x + 0.5 * self._ffn(layer, 'ffn2', x)
+    return _layer_norm(x, layer['final_ln_scale'], layer['final_ln_bias'])
+
+  def apply(self, params: Params, frames: torch.Tensor,
+            num_frames: torch.Tensor) -> torch.Tensor:
+    """Encodes [batch, T, feature] frames to [batch, output_frames(T), d]
+    float32; rows past ``output_frames(num_frames)`` are 0."""
+    with profiling.span('encoder.apply'):
+      with profiling.span('encoder.subsample'):
+        x = self.subsample(params['subsample'], frames)
+      t = x.shape[1]
+      lengths = self.output_frames(num_frames)
+      mask = torch.arange(t, device=x.device) < lengths[..., None]
+      distances = torch.arange(t - 1, -t, -1, device=x.device)
+      positions = _sinusoidal_positions_at(distances, self.model_size)
+      for layer in params['layers']:
+        x = self.block(layer, x, mask, lengths, positions)
+      return torch.where(mask[..., None], x, 0.0)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -66,6 +66,10 @@ class GNATConfig:
     encoder_causal: Causal encoder attention.
     encoder_window: With encoder_causal, the left-context window (frames).
     encoder_conv_kernel: If > 0, Conformer blocks with this conv width.
+    encoder_kind: 'transformer' (``TransformerEncoder``, the JAX package's
+      encoder) or 'conformer' (``ConformerEncoder``: Conformer (L)'s
+      stride-4 front end and relative-position blocks, non-causal; the
+      port's own, not in the JAX package).
   """
 
   feature_size: int = 80
@@ -83,6 +87,34 @@ class GNATConfig:
   encoder_causal: bool = False
   encoder_window: int = 0
   encoder_conv_kernel: int = 0
+  encoder_kind: str = 'transformer'
+
+
+def _make_encoder(config: GNATConfig):
+  """The encoder ``config.encoder_kind`` names, at the config's widths."""
+  if config.encoder_kind == 'conformer':
+    if config.encoder_causal or config.encoder_window:
+      raise ValueError('the Conformer encoder is non-causal: '
+                       'encoder_causal and encoder_window must be unset')
+    return encoder_lib.ConformerEncoder(
+        feature_size=config.feature_size,
+        model_size=config.encoder_size,
+        num_layers=config.encoder_layers,
+        num_heads=config.encoder_heads,
+        ffn_size=config.encoder_ffn_size,
+        conv_kernel=config.encoder_conv_kernel)
+  if config.encoder_kind != 'transformer':
+    raise ValueError(f'encoder_kind {config.encoder_kind!r}: expected '
+                     "'transformer' or 'conformer'")
+  return encoder_lib.TransformerEncoder(
+      feature_size=config.feature_size,
+      model_size=config.encoder_size,
+      num_layers=config.encoder_layers,
+      num_heads=config.encoder_heads,
+      ffn_size=config.encoder_ffn_size,
+      causal=config.encoder_causal,
+      window=config.encoder_window,
+      conv_kernel=config.encoder_conv_kernel)
 
 
 class GNATModel:
@@ -92,7 +124,7 @@ class GNATModel:
     config: GNATConfig.
     device: Where ``init`` puts the parameters and ``decode`` / ``loss``
       run: the card ('cuda', the default) unless the caller asks for 'cpu'.
-    encoder: TransformerEncoder.
+    encoder: TransformerEncoder or ConformerEncoder (``encoder_kind``).
     lattice: RecognitionLattice over the encoder outputs.
   """
 
@@ -102,15 +134,7 @@ class GNATModel:
       raise RuntimeError(f'GNATModel on {device}: no CUDA device is '
                          'available (pass device=\'cpu\' to run on the CPU)')
     self.config = config
-    self.encoder = encoder_lib.TransformerEncoder(
-        feature_size=config.feature_size,
-        model_size=config.encoder_size,
-        num_layers=config.encoder_layers,
-        num_heads=config.encoder_heads,
-        ffn_size=config.encoder_ffn_size,
-        causal=config.encoder_causal,
-        window=config.encoder_window,
-        conv_kernel=config.encoder_conv_kernel)
+    self.encoder = _make_encoder(config)
 
     context = contexts.FullNGram(
         vocab_size=config.vocab_size, context_size=config.context_size)
@@ -169,7 +193,8 @@ class GNATModel:
     num_frames = torch.as_tensor(num_frames, device=self.device)
     encoded = self.encoder.apply(params['encoder'], frames, num_frames)
     return self.lattice(
-        params['lattice'], frames=encoded, num_frames=num_frames,
+        params['lattice'], frames=encoded,
+        num_frames=self.encoder.output_frames(num_frames),
         labels=torch.as_tensor(labels, device=self.device),
         num_labels=torch.as_tensor(num_labels, device=self.device))
 
@@ -206,7 +231,8 @@ class GNATModel:
       num_frames = torch.as_tensor(num_frames, device=self.device)
       encoded = self.encoder.apply(params['encoder'], frames, num_frames)
       return self.lattice.shortest_path(
-          params['lattice'], frames=encoded, num_frames=num_frames)
+          params['lattice'], frames=encoded,
+          num_frames=self.encoder.output_frames(num_frames))
 
 
 @dataclasses.dataclass
@@ -425,6 +451,7 @@ def risk_train_step(model: GNATModel, optimizer: Optimizer,
   params = state.params
   state.opt_state.adamw.zero_grad(set_to_none=True)
   encoded = model.encoder.apply(params['encoder'], frames, num_frames)
+  num_frames = model.encoder.output_frames(num_frames)
   cache = model.lattice.build_cache(params['lattice'])
   kw = dict(num_samples=num_samples, estimator=estimator, cache=cache)
   if per_example_keys:

@@ -27,6 +27,8 @@ The GNAT formulation subsumes the classic lattice-based transducer family
 * ``gnat_global_bigram``: the flagship globally-normalized GNAT (bigram
   context, FrameLabelDependent) — the headline benchmark configuration at
   full size.
+* ``conformer_l_gnat``: the same lattice behind Conformer (L)'s encoder at
+  its published widths (the port's own; not in the JAX package).
 """
 
 from __future__ import annotations
@@ -92,5 +94,30 @@ def streaming_conformer_gnat(vocab_size: int = 1024,
       encoder_causal=True,
       encoder_window=64,
       encoder_conv_kernel=8)
+  defaults.update(overrides)
+  return gnat.GNATConfig(**defaults)
+
+
+def conformer_l_gnat(vocab_size: int = 1024, feature_size: int = 80,
+                     **overrides) -> gnat.GNATConfig:
+  """Conformer (L) (arXiv:2005.08100, Table 1: 17 blocks of width 512, 8
+  heads, convolution kernel 32, feed-forward 2048) in front of the
+  globally normalized bigram FLD(2) lattice, joint hidden and context
+  embedding 512. The encoder (``models.encoder.ConformerEncoder``) cuts
+  the frame rate by 4: the lattice decodes its output frames."""
+  defaults = dict(
+      feature_size=feature_size,
+      vocab_size=vocab_size,
+      context_size=1,
+      max_expansions=2,
+      locally_normalized=False,
+      encoder_kind='conformer',
+      encoder_size=512,
+      encoder_layers=17,
+      encoder_heads=8,
+      encoder_ffn_size=2048,
+      encoder_conv_kernel=32,
+      hidden_size=512,
+      embedding_size=512)
   defaults.update(overrides)
   return gnat.GNATConfig(**defaults)

@@ -58,8 +58,9 @@ GRAD_RTOL = 1e-4
 
 
 def models(config, seed):
-  jax_model = jax_gnat.GNATModel(jax_gnat.GNATConfig(
-      **dataclasses.asdict(config)))
+  fields = dataclasses.asdict(config)
+  assert fields.pop('encoder_kind') == 'transformer'  # JAX's only encoder
+  jax_model = jax_gnat.GNATModel(jax_gnat.GNATConfig(**fields))
   params = jax.tree.map(np.asarray, jax_model.init(jax.random.PRNGKey(seed)))
   frames = np.random.default_rng(seed).standard_normal(
       (len(MODEL_FRAMES), 8, SMALL['feature_size'])).astype(np.float32)

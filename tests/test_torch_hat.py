@@ -247,8 +247,9 @@ def leaf_at(tree, path):
 
 def test_hat_model_decode_loss_and_train_step_match_jax():
   config = presets.hat_bigram(**SMALL)
-  jax_model = jax_gnat.GNATModel(jax_gnat.GNATConfig(
-      **dataclasses.asdict(config)))
+  fields = dataclasses.asdict(config)
+  assert fields.pop('encoder_kind') == 'transformer'  # JAX's only encoder
+  jax_model = jax_gnat.GNATModel(jax_gnat.GNATConfig(**fields))
   params = jax.tree.map(np.asarray, jax_model.init(jax.random.PRNGKey(5)))
   rng = np.random.default_rng(5)
   frames = rng.standard_normal(

@@ -1709,3 +1709,60 @@ def test_risk_loss_beta_pass_runs_forward_only_on_card(card):
   assert largest > 1e-3
   for g, w in zip(got, want):
     assert (g - w).abs().max().item() <= 1e-5 * largest
+
+
+def rel_attention_inputs(lengths, max_t, device, seed=0):
+  """q, k, v as head views of one [B, T, 3d] projection (8 heads of 64,
+  the Conformer (L) widths), positions [2T - 1, d], u and v, lengths."""
+  g = torch.Generator(device).manual_seed(seed)
+  heads, head_dim = 8, 64
+  d = heads * head_dim
+  qkv = torch.randn((len(lengths), max_t, 3 * d), device=device, generator=g)
+  q, k, v = (z.reshape(len(lengths), max_t, heads, head_dim)
+             for z in qkv.split(d, dim=-1))
+  pos = torch.randn((2 * max_t - 1, d), device=device, generator=g)
+  u = 0.1 * torch.randn((heads, head_dim), device=device, generator=g)
+  vb = 0.1 * torch.randn((heads, head_dim), device=device, generator=g)
+  return q, k, v, pos, u, vb, torch.tensor(lengths, device=device)
+
+
+@pytest.mark.cuda
+def test_rel_attention_kernel_matches_plain_on_card(card):
+  """16 rows at the Conformer cell's T'=799 with ragged lengths, T'=1 and
+  T'=799 among them; the kernel allocates its output alone (no [B, H, T,
+  T] or [B, H, T, 2T - 1] buffer)."""
+  from last_torch_tpu_torch.ops import rel_attention
+  lengths = [1, 799, 2, 64, 65, 128, 500, 300, 799, 17, 63, 700, 256, 1,
+             400, 798]
+  args = rel_attention_inputs(lengths, 799, card)
+  torch.cuda.synchronize()
+  before, launched = torch.cuda.memory_allocated(), rel_attention.launches
+  torch.cuda.reset_peak_memory_stats()
+  got = rel_attention.rel_attention(*args)
+  torch.cuda.synchronize()
+  extra = torch.cuda.max_memory_allocated() - before
+  assert rel_attention.launches == launched + 1
+  assert extra <= 2 * got.numel() * got.element_size()
+  want = rel_attention.rel_attention_plain(*args)
+  # Float32 both ways, the 64-deep products and the softmax over up to 799
+  # keys summed in other orders: ~3e-6 of outputs of size ~3 (2.6e-6 on an
+  # H100 80GB HBM3).
+  torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-5)
+  for row, n in enumerate(lengths):
+    assert torch.all(got[row, n:] == 0)
+
+
+@pytest.mark.cuda
+def test_conformer_decode_launches_rel_attention_each_block_on_card(card):
+  from last_torch_tpu_torch.models import gnat, presets
+  from last_torch_tpu_torch.ops import rel_attention
+  model = gnat.GNATModel(presets.conformer_l_gnat(), device=card)
+  params = model.init(torch.Generator().manual_seed(0))
+  frames = torch.randn((2, 800, 80), device=card)
+  num_frames = torch.tensor([800, 401], device=card)
+  launched, decoded = rel_attention.launches, viterbi.launches
+  labels, num_labels, _ = model.decode(params, frames, num_frames)
+  assert rel_attention.launches - launched >= 17
+  assert viterbi.launches == decoded + 1
+  assert model.lattice.last_path == 'kernel'
+  assert num_labels.tolist() == [3 * 199, 3 * 99]

@@ -185,8 +185,9 @@ def test_train_steps_lower_the_loss():
     assert not torch.equal(value.detach(), before[name]), name
   # The same step in the JAX package from the same parameters gives the
   # same loss.
-  jax_model = jax_gnat.GNATModel(jax_gnat.GNATConfig(
-      **dataclasses.asdict(config)))
+  fields = dataclasses.asdict(config)
+  assert fields.pop('encoder_kind') == 'transformer'  # JAX's only encoder
+  jax_model = jax_gnat.GNATModel(jax_gnat.GNATConfig(**fields))
   jax_params = jax.tree.map(
       lambda x: jnp.asarray(x.detach().numpy()), state.params)
   npt.assert_allclose(

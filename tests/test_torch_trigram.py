@@ -276,8 +276,9 @@ MODEL_NUM_LABELS = np.array([3, 2, 0, 3], np.int32)
 
 def test_gnat_trigram_model_matches_jax():
   config = presets.gnat_global_bigram(context_size=2, **SMALL)
-  jax_model = jax_gnat.GNATModel(jax_gnat.GNATConfig(
-      **dataclasses.asdict(config)))
+  fields = dataclasses.asdict(config)
+  assert fields.pop('encoder_kind') == 'transformer'  # JAX's only encoder
+  jax_model = jax_gnat.GNATModel(jax_gnat.GNATConfig(**fields))
   params = jax.tree.map(np.asarray, jax_model.init(jax.random.PRNGKey(14)))
   rng = np.random.default_rng(14)
   frames = rng.standard_normal(
