@@ -60,8 +60,11 @@
 //   With two or more passes a frame (FLD(k >= 2)) that product also stores
 //   lex ([B, S, V] float32: 1.61 GB at B=384, S=1025, V=1024, so the later
 //   passes find none of it in the 50 MB L2) and the later passes read it
-//   back (max_pass_kernel<kLoad>, one partial per 64-state tile), as the
-//   'cache' log-partition forward does.
+//   back (max_pass_kernel<kLoad>, one partial per 64-state tile of a live
+//   row; streaming 16-byte loads, at 90% of the device's bandwidth), as
+//   the 'cache' log-partition forward does. Keeping a row's lex in L2
+//   instead (a cluster of CTAs a row, its later passes from their slots)
+//   measured slower on an H100 (PERF.md).
 // * The products walk their tiles strip-stationary where the head strip
 //   fits in shared memory (hp <= 576): one block an SM owns a 128-label
 //   strip of vw16 for the frame's launch, loaded once, and streams only the
@@ -159,9 +162,15 @@ __global__ void __launch_bounds__(kJointThreads)
 
 // One max-pass over one split of the states for a 64-label strip of batch
 // row b: the split's (max, argmax) over s of vec[b, s] + lex[b, s, y].
-// Grid (ceil(V / kBN), splits, B), kThreads threads. Splitting the states
-// puts several blocks on every SM; merge_kernel combines the splits.
-template <int MODE>
+// Grid (ceil(V / kBN), splits, rows), kThreads threads: blockIdx.z is the
+// row b (rows null, padding rows return) or the live row rows[blockIdx.z].
+// Splitting the states puts several blocks on every SM; merge_kernel
+// combines the splits. kLoad reads the staged lex with the streaming
+// (evict-first) hint: a frame's lex is far larger than the L2 cache, so a
+// line kept after its read serves no later read, and the cache keeps the
+// products' operands and stores instead; Vec (V % 4 == 0) reads a thread's
+// 4 labels of a state in one 16-byte load.
+template <int MODE, bool Vec = false>
 __global__ void __launch_bounds__(kThreads)
     max_pass_kernel(const float* __restrict__ joint,  // [B, S, h]
                     const float* __restrict__ vw,     // [h, V]
@@ -172,16 +181,16 @@ __global__ void __launch_bounds__(kThreads)
                     float* __restrict__ part_v,       // [splits, B, V]
                     int* __restrict__ part_s,         // [splits, B, V]
                     const int* __restrict__ is_pad_t,  // [B]
-                    int S, int h, int V, int tiles_per_split) {
+                    const int* __restrict__ rows,  // [B], the live first
+                    int B, int S, int h, int V, int tiles_per_split) {
   __shared__ float cand_v[kBM / kTM][kBN];
   __shared__ int cand_s[kBM / kTM][kBN];
 
-  const int b = blockIdx.z;
-  if (is_pad_t[b]) return;  // padding frame: nothing of it is used
+  const int b = rows == nullptr ? blockIdx.z : rows[blockIdx.z];
+  if (rows == nullptr && is_pad_t[b]) return;  // nothing of it is used
   const int y0 = blockIdx.x * kBN;
   const int s_begin = blockIdx.y * tiles_per_split * kBM;
   const int s_end = min(S, s_begin + tiles_per_split * kBM);
-  const int B = gridDim.z;
   const int tid = threadIdx.x;
   const int tx = tid % (kBN / kTN);  // column group
   const int ty = tid / (kBN / kTN);  // row group
@@ -203,7 +212,22 @@ __global__ void __launch_bounds__(kThreads)
 
   for (int s0 = s_begin; s0 < s_end; s0 += kBM) {
     float val[kTM][kTN];
-    if (MODE == kLoad) {
+    if (MODE == kLoad && Vec) {
+      static_assert(kTN == 4, "a thread's labels are one 16-byte load");
+#pragma unroll
+      for (int i = 0; i < kTM; ++i) {
+        const int s = s0 + ty * kTM + i, y = y0 + tx * kTN;
+        const float4 q =
+            s < S && y < V
+                ? __ldcs(reinterpret_cast<const float4*>(
+                      lex_b + static_cast<size_t>(s) * V + y))
+                : make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+        val[i][0] = q.x;
+        val[i][1] = q.y;
+        val[i][2] = q.z;
+        val[i][3] = q.w;
+      }
+    } else if (MODE == kLoad) {
 #pragma unroll
       for (int i = 0; i < kTM; ++i) {
         const int s = s0 + ty * kTM + i;
@@ -211,7 +235,7 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < kTN; ++j) {
           const int y = y0 + tx * kTN + j;
           val[i][j] = (s < S && y < V)
-                          ? lex_b[static_cast<size_t>(s) * V + y]
+                          ? __ldcs(lex_b + static_cast<size_t>(s) * V + y)
                           : -INFINITY;
         }
       }
@@ -603,16 +627,16 @@ int run_forward(const float* pf, const float* pc, const float* vw,
     for (int j = 0; j < passes; ++j) {
       if (!stage) {
         max_pass_kernel<kCompute><<<pass_grid, kThreads, 0, stream>>>(
-            joint, vw, vb, vec, c, lex, part_v, part_s, is_pad_t, S, h, V,
-            tiles_per_split);
+            joint, vw, vb, vec, c, lex, part_v, part_s, is_pad_t, nullptr, B,
+            S, h, V, tiles_per_split);
       } else if (j == 0 && normalize == 0) {
         max_pass_kernel<kComputeStore><<<pass_grid, kThreads, 0, stream>>>(
-            joint, vw, vb, vec, c, lex, part_v, part_s, is_pad_t, S, h, V,
-            tiles_per_split);
+            joint, vw, vb, vec, c, lex, part_v, part_s, is_pad_t, nullptr, B,
+            S, h, V, tiles_per_split);
       } else {
         max_pass_kernel<kLoad><<<pass_grid, kThreads, 0, stream>>>(
-            joint, vw, vb, vec, c, lex, part_v, part_s, is_pad_t, S, h, V,
-            tiles_per_split);
+            joint, vw, vb, vec, c, lex, part_v, part_s, is_pad_t, nullptr, B,
+            S, h, V, tiles_per_split);
       }
       RETURN_IF_LAUNCH_FAILED();
       float* red = last + j * bs;
@@ -651,9 +675,9 @@ using bf16 = __nv_bfloat16;
 // norm_merge_kernel; then each max-pass: the first without
 // normalization as column_max_kernel over alpha (storing lex with two or
 // more passes), the others as max_pass_kernel<kLoad> over the staged lex
-// (64-state tiles, one partial each), each merged by merge_kernel into the
-// pass's expansion and arg table, the last one by merge_update_kernel with
-// the frame's update. Padding rows launch no product: the merges write
+// of the live rows (64-state tiles, one partial each), each merged by
+// merge_kernel into the pass's expansion and arg table, the last one by
+// merge_update_kernel with the frame's update. Padding rows launch no product: the merges write
 // their arg rows 0 and the update holds their alpha. A frame with no live
 // row runs only the merges and the update.
 int run_forward(const float* pf, const float* pc, const float* vw,
@@ -683,6 +707,8 @@ int run_forward(const float* pf, const float* pc, const float* vw,
       static_cast<int>((bs + kUpdateThreads - 1) / kUpdateThreads);
   const int merge_blocks = (B * V + kUpdateThreads - 1) / kUpdateThreads;
   const float* c = normalize != 0 ? cnorm : nullptr;
+  const bool vec_lex =
+      V % 4 == 0 && reinterpret_cast<uintptr_t>(lex) % 16 == 0;
   RETURN_IF_ERROR(head_product::joint_pass(pc, pf, vw, bw, bb, nullptr,
                                            joint, vw16, blank, 0, S, h, V,
                                            /*head=*/true, stream));
@@ -717,11 +743,18 @@ int run_forward(const float* pf, const float* pc, const float* vw,
             head_product::max_product(joint, vw16, p, sms, lanes,
                                       stream));
       } else if (L > 0) {
-        // kLoad reads no joint or head.
-        max_pass_kernel<kLoad>
-            <<<dim3((V + kBN - 1) / kBN, t64, B), kThreads, 0, stream>>>(
-                nullptr, nullptr, vb, vec, c, lex, part_v, part_s, is_pad_t,
-                S, h, V, 1);
+        // kLoad reads no joint or head; a block per live row's 64-state
+        // tile and 64-label strip.
+        const dim3 grid((V + kBN - 1) / kBN, t64, L);
+        if (vec_lex) {
+          max_pass_kernel<kLoad, true><<<grid, kThreads, 0, stream>>>(
+              nullptr, nullptr, vb, vec, c, lex, part_v, part_s, is_pad_t,
+              rows_t, B, S, h, V, 1);
+        } else {
+          max_pass_kernel<kLoad><<<grid, kThreads, 0, stream>>>(
+              nullptr, nullptr, vb, vec, c, lex, part_v, part_s, is_pad_t,
+              rows_t, B, S, h, V, 1);
+        }
         RETURN_IF_LAUNCH_FAILED();
       }
       int* arg_j = arg + (static_cast<size_t>(t) * B * passes + j) * V;

@@ -413,6 +413,58 @@ def test_product_walks_give_each_row_its_own_bits_on_card(
     npt.assert_array_equal(bits(alpha[b:b + 1]), bits(alpha_b))
 
 
+def reread_launches(prof_json):
+  """(grid, 16-byte loads) of each launch of the staged lex's later
+  max-passes (max_pass_kernel) in a profiler's Chrome trace, in order."""
+  import json
+  with open(prof_json) as f:
+    events = json.load(f)['traceEvents']
+  found = sorted((e['ts'], e['args']['grid'], ', true>' in e['name'])
+                 for e in events if e.get('cat') == 'kernel' and
+                 'max_pass_kernel' in e.get('name', ''))
+  return [(grid, vec) for _, grid, vec in found]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('vocab', [1000, 69], ids=['v1000', 'v69'])
+@pytest.mark.parametrize('normalize', ['none', 'hat'])
+def test_staged_reread_walks_the_live_rows_on_card(card, vocab, normalize,
+                                                   tmp_path):
+  """The bfloat16 forward's later max-passes, which read back the lex the
+  frame's first product staged (FLD(2)'s second pass; under hat both,
+  after the normalizing product), launch a block per live row's 64-state
+  tile and 64-label strip, none for padding rows, with 16-byte loads where
+  V % 4 == 0 (V=1000) and 4-byte ones where it is not (V=69). Each row's
+  tables and alpha are the bits of that row decoded alone."""
+  lengths, max_t = [6, 0, 3, 6, 1, 5, 2, 4], 6
+  pf, pc, params, is_pad = random_inputs(7, vocab, 512, max_t, lengths,
+                                         device=card)
+  kwargs = dict(max_expansions=2, frame_dependent=False,
+                compute_dtype=torch.bfloat16, normalize=normalize)
+  viterbi.viterbi_forward(pf, pc, params, is_pad, **kwargs)  # builds
+  with torch.profiler.profile(
+      activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+    arg, jstar, alpha = viterbi.viterbi_forward(pf, pc, params, is_pad,
+                                                **kwargs)
+    torch.cuda.synchronize()
+  prof.export_chrome_trace(str(tmp_path / 'trace.json'))
+  launches = reread_launches(tmp_path / 'trace.json')
+  live = [sum(n > t for n in lengths) for t in range(max_t)]
+  passes = 1 if normalize == 'none' else 2  # those that read lex back
+  assert [grid[2] for grid, _ in launches] == [
+      n for n in live for _ in range(passes)]
+  assert all(vec == (vocab % 4 == 0) for _, vec in launches)
+  bits = lambda x: x.view(torch.int32).cpu().numpy()
+  for b in range(len(lengths)):
+    arg_b, jstar_b, alpha_b = viterbi.viterbi_forward(
+        pf[:, b:b + 1].contiguous(), pc, params,
+        is_pad[:, b:b + 1].contiguous(), **kwargs)
+    npt.assert_array_equal(arg[:, b:b + 1].cpu().numpy(), arg_b.cpu().numpy())
+    npt.assert_array_equal(jstar[:, b:b + 1].cpu().numpy(),
+                           jstar_b.cpu().numpy())
+    npt.assert_array_equal(bits(alpha[b:b + 1]), bits(alpha_b))
+
+
 def fused_inputs(seed, vocab, hidden, max_t, lengths, device='cpu'):
   pf, pc, params, is_pad = random_inputs(seed, vocab, hidden, max_t, lengths,
                                          device)
